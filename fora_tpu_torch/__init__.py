@@ -1,0 +1,19 @@
+"""fora_tpu_torch: the FORA approximate-PPR engine on PyTorch and CUDA.
+
+A port of ``fora_tpu`` (JAX) that runs the indexed top-k query path on an
+NVIDIA H100: forward push as masked SpMV supersteps, the FORA+ walk index
+(built by a walk kernel, served as a weighted SpMV), and top-k refinement
+with Bernstein-bound acceptance.  Its four hot loops are hand-written
+CUDA kernels (``kernels/csrc``) built at first use; CPU tensors run plain
+PyTorch versions of the same functions.  Every function takes its device
+from an explicit argument or from the tensors it is given.  The package
+imports torch and numpy only: nothing of JAX and nothing of ``fora_tpu``.
+"""
+
+from .algo.topk import TopkResult, TopkRunner, delta_schedule
+from .config import ForaConfig, ResolvedConfig
+from .graph.csr import CSRGraph, DeviceGraph, from_edges, to_device
+
+__all__ = ["ForaConfig", "ResolvedConfig", "TopkResult", "TopkRunner",
+           "delta_schedule", "CSRGraph", "DeviceGraph", "from_edges",
+           "to_device"]

@@ -1,0 +1,69 @@
+"""Exact PPR oracle: batched float64 power iteration, the ground truth that
+precision@k is scored against.
+
+Same semantics as ``fora_tpu/algo/exact.py::exact_ppr_power_batch`` and
+``exact_topk_batch`` (88-193): pi = alpha e_s + (1 - alpha) M^T pi, where
+M has a self-loop on every dangling row, iterated until the L1 change of
+every column is at most ``tol``.  It runs on any device as a float64
+sparse-CSR times dense product (a library SpMM, independent of the
+engine's kernels).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def transition_matrix(g, device) -> torch.Tensor:
+    """A[t, v] = multiplicity(v -> t) / out_deg(v), A[v, v] = 1 for dangling
+    v; [n, n] float64 sparse CSR on ``device``.  ``g`` is a host CSRGraph
+    (unweighted)."""
+    if g.weighted:
+        raise NotImplementedError("weighted graphs are not ported yet")
+    n = g.n
+    deg = np.asarray(g.out_deg, dtype=np.int64)
+    dang = np.nonzero(deg == 0)[0]
+    rows = np.concatenate([np.asarray(g.in_dst, np.int64), dang])
+    cols = np.concatenate([np.asarray(g.in_src, np.int64), dang])
+    data = np.concatenate([1.0 / deg[g.in_src], np.ones(len(dang))])
+    a = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([rows, cols])), torch.from_numpy(data),
+        (n, n), check_invariants=True).coalesce()   # sums parallel edges
+    return a.to_sparse_csr().to(device)
+
+
+def exact_ppr_batch(g, sources, alpha: float = 0.2, tol: float = 1e-12,
+                    max_iters: int = 2000, *, device) -> torch.Tensor:
+    """[n, B] float64 PPR of each source (one column per source)."""
+    a = transition_matrix(g, device)
+    src = torch.as_tensor(np.asarray(sources, dtype=np.int64), device=device)
+    cols = torch.arange(src.shape[0], device=device)
+    x = torch.zeros((g.n, src.shape[0]), dtype=torch.float64, device=device)
+    x[src, cols] = 1.0
+    for _ in range(max_iters):
+        nxt = (1.0 - alpha) * (a @ x)
+        nxt[src, cols] += alpha
+        err = float((nxt - x).abs().sum(dim=0).max())
+        x = nxt
+        if err <= tol:
+            break
+    return x
+
+
+def topk_ids(x: torch.Tensor, k: int) -> np.ndarray:
+    """[B, k] int64 top-k ids of each column of ``x`` [n, B], by value
+    descending.  Selected on the host exactly as ``fora_tpu``'s
+    ``exact_topk_batch`` does (argpartition, then a stable sort of the k),
+    so that exact ties at rank k resolve the same way in both packages."""
+    xt = x.T.cpu().numpy()
+    part = np.argpartition(-xt, k - 1, axis=1)[:, :k]
+    vals = np.take_along_axis(xt, part, axis=1)
+    order = np.argsort(-vals, kind="stable", axis=1)
+    return np.take_along_axis(part, order, axis=1).astype(np.int64)
+
+
+def exact_topk_batch(g, sources, k: int, alpha: float = 0.2,
+                     tol: float = 1e-12, *, device) -> np.ndarray:
+    """[B, k] int64 top-k ids per source, by exact PPR descending."""
+    return topk_ids(exact_ppr_batch(g, sources, alpha, tol, device=device), k)

@@ -1,0 +1,42 @@
+"""State carried across from the JAX package, as numpy arrays.
+
+The tests build ``fora_tpu`` objects, convert them here and compare the two
+packages like with like.  Nothing here imports JAX: callers pass
+``np.asarray`` of the JAX arrays (or JAX objects whose fields ``np.asarray``
+accepts).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .graph.csr import from_numpy_fields
+from .index.build import WalkIndex, with_indptr
+from .ops.push import PushState
+
+
+# ``{name: np.asarray(field)}`` of a fora_tpu DeviceGraph -> DeviceGraph
+# (fields the port does not carry, such as alias tables, are ignored)
+graph_from_numpy = from_numpy_fields
+
+
+def index_from_numpy(jidx) -> WalkIndex:
+    """A host WalkIndex (with per-bucket dst_indptr) from a fora_tpu
+    WalkIndex."""
+    mult = None if jidx.edge_mult is None else \
+        np.asarray(jidx.edge_mult, np.float32)
+    return with_indptr(WalkIndex(
+        edge_src=np.asarray(jidx.edge_src, np.int32),
+        edge_dst=np.asarray(jidx.edge_dst, np.int32),
+        bucket_offsets=np.asarray(jidx.bucket_offsets, np.int64),
+        counts_cum=np.asarray(jidx.counts_cum, np.int32),
+        omega_unit_built=float(jidx.omega_unit_built),
+        rmax_built=float(jidx.rmax_built),
+        edge_mult=mult))
+
+
+def push_state_from_numpy(p, r, *, device) -> PushState:
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+    return PushState(p=t(p), r=t(r), iters=0)

@@ -1,0 +1,123 @@
+"""Build the CUDA sources under ``csrc/`` into one shared library at first
+use, and load it with ctypes.
+
+The library has a plain C interface (no PyTorch headers), so ``nvcc``
+compiles it in seconds.  It lands in ``<build root>/<hash>/``, keyed by a
+hash of the sources and the flags, so an edited source rebuilds and an
+unchanged one loads the cached library.  The build root is
+``$FORA_TPU_TORCH_BUILD_DIR`` when set, else ``build/fora_tpu_torch/`` in
+a source checkout (the directory holding ``pyproject.toml`` beside the
+package), else ``~/.cache/fora_tpu_torch`` for an installed package.
+A missing ``nvcc`` or a failed compile raises: nothing falls back to the
+plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC"]
+LIB_NAME = "libfora_tpu_torch.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+
+# name -> argtypes of every C entry point (each returns a cudaError_t)
+SIGNATURES = {
+    "fora_push_prepass": [_P, _P, _P, _P, _P, _P, _F, _F, _LL, _I, _P],
+    "fora_gather_scatter_add": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
+                                _P],
+    "fora_topk_segment": [],
+    "fora_topk_bounds": [_P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _LL, _P,
+                         _P, _P, _P, _P, _P, _P, _P],
+    "fora_index_walk": [_P, _P, _LL, _P, _P, _P, ctypes.c_ulonglong, _F, _I,
+                        _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+last_build_secs: Optional[float] = None   # None: the cached library loaded
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build_root() -> Path:
+    """Where compiled libraries go (see the module docstring)."""
+    env = os.environ.get("FORA_TPU_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    checkout = Path(__file__).resolve().parents[2]
+    if (checkout / "pyproject.toml").is_file():
+        return checkout / "build" / "fora_tpu_torch"
+    return Path.home() / ".cache" / "fora_tpu_torch"
+
+
+def library_path() -> Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return build_root() / h.hexdigest()[:16] / LIB_NAME
+
+
+def find_nvcc() -> str:
+    cands = [os.path.join(os.environ[v], "bin", "nvcc")
+             for v in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(v)]
+    cands += ["/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""]
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels of "
+                       "fora_tpu_torch are built from source at first use")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the hashed library path unless it exists.
+    The compiler's output (register and shared-memory use per kernel,
+    from -Xptxas -v) is kept beside the library as nvcc.log."""
+    global last_build_secs
+    so = library_path()
+    if so.exists():
+        return so
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f".{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(f) for f in sources()]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (so.parent / "nvcc.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, so)
+    last_build_secs = time.perf_counter() - t0
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.fora_error_string.argtypes = [ctypes.c_int]
+        lib.fora_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib

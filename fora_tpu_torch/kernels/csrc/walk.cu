@@ -1,0 +1,80 @@
+// K4 · index_walk: endpoints of alpha-terminating random walks, one thread
+// per walk.
+//
+// Replaces fora_tpu/ops/walk.py::run_walks_scheduled (159-222) with
+// geometric_lengths (89-99), the XLA-lowered walk that builds the FORA+
+// index.  On the TPU the walks advance in lockstep, sorted by their
+// pre-drawn length so that hop h runs on a shrinking static prefix
+// (hop_widths), with a fallback to the plain lockstep walk when a prefix
+// overflows.  A GPU thread runs its own walk to its own length instead, so
+// neither the sort nor the fallback exists here.
+//
+// Per walk w (its lane):
+//   len = min(floor(log(u0) / log(1 - alpha)), max_hops),  u0 in (0, 1]
+//   repeat len times: stop at a dangling node (deg == 0 absorbs);
+//                     cur = out_indices[out_indptr[cur] + min(floor(u_h * deg), deg - 1)]
+// Random numbers: Philox-4x32-10 written into the kernel, keyed by
+// (seed low word, lane), with (hop, seed high word) as the counter.  The
+// endpoints match JAX's in distribution only; JAX draws threefry bits.
+//
+// What bounds it on the H100: latency of the dependent loads per hop
+// (deg[cur], out_indptr[cur], out_indices[...]), about 1/alpha = 5 hops per
+// walk.  Design: millions of independent walks in flight hide that latency;
+// the Philox rounds are a few dozen integer multiplies per hop.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
+    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += W0;
+    k.y += W1;
+  }
+  return c;
+}
+
+__global__ void index_walk_kernel(const int* __restrict__ start, int* __restrict__ out,
+                                  long long W, const int* __restrict__ indptr,
+                                  const int* __restrict__ indices, const int* __restrict__ deg,
+                                  uint32_t seed_lo, uint32_t seed_hi, float inv_log1m_alpha,
+                                  int max_hops) {
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  const uint2 key = make_uint2(seed_lo, (uint32_t)w);
+  const float two_m24 = 1.0f / 16777216.0f;
+  const uint4 r0 = philox4x32_10(make_uint4(0u, seed_hi, 0u, 0u), key);
+  const float u0 = (float)((r0.x >> 8) + 1u) * two_m24;  // (0, 1]
+  const int len = (int)fminf(floorf(logf(u0) * inv_log1m_alpha), (float)max_hops);
+  int cur = start[w];
+  for (int h = 0; h < len; ++h) {
+    const int d = deg[cur];
+    if (d == 0) break;  // dangling absorbs
+    const uint4 r = philox4x32_10(make_uint4((uint32_t)(h + 1), seed_hi, 0u, 0u), key);
+    const float u = (float)(r.x >> 8) * two_m24;  // [0, 1)
+    const int j = min((int)(u * (float)d), d - 1);
+    cur = indices[indptr[cur] + j];
+  }
+  out[w] = cur;
+}
+
+}  // namespace
+
+extern "C" int fora_index_walk(const int* start, int* out, long long W, const int* indptr,
+                               const int* indices, const int* deg, unsigned long long seed,
+                               float inv_log1m_alpha, int max_hops, void* stream) {
+  if (W <= 0) return (int)cudaGetLastError();
+  const int threads = 256;
+  const long long blocks = (W + threads - 1) / threads;
+  index_walk_kernel<<<(unsigned)blocks, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      start, out, W, indptr, indices, deg, (uint32_t)(seed & 0xffffffffull),
+      (uint32_t)(seed >> 32), inv_log1m_alpha, max_hops);
+  return (int)cudaGetLastError();
+}

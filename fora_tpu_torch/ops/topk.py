@@ -1,0 +1,48 @@
+"""Node-chunked top-k over a node-major [n, B] estimate (plain version).
+
+Port of ``fora_tpu/ops/topk.py::topk_rows_chunked`` (30-127).  Ties are
+broken by node id ascending, as ``lax.top_k`` does: every selection is a
+stable descending sort, and slab candidates are merged in slab order.  The
+hand-written kernel for the accept (K3) lives in ``algo.bounds``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _top(score: torch.Tensor, k: int):
+    """[B, L] -> (values, positions) of the k largest per row, value
+    descending then position ascending."""
+    vals, pos = torch.sort(score, dim=1, descending=True, stable=True)
+    return vals[:, :k], pos[:, :k]
+
+
+def topk_rows_chunked(ppr: torch.Tensor, k: int, *extra: torch.Tensor,
+                      chunk: int = 1 << 19,
+                      addend: torch.Tensor = None):
+    """Top-k rows per column of ``ppr`` (+ ``addend``, summed per slab).
+
+    Returns (vals [B, k] descending, row ids [B, k] int64, *extra_at
+    [B, k]) where each ``extra`` [n, B] array is read at the winning rows.
+    """
+    n = ppr.shape[0]
+    kk = min(k, chunk)
+    cand_v, cand_i = [], []
+    cand_e = [[] for _ in extra]
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        s = ppr[lo:hi]
+        if addend is not None:
+            s = s + addend[lo:hi]
+        v, i = _top(s.T, min(kk, hi - lo))
+        cand_v.append(v)
+        cand_i.append(i + lo)
+        for j, e in enumerate(extra):
+            cand_e[j].append(torch.gather(e[lo:hi].T, 1, i))
+    if len(cand_v) == 1:
+        return (cand_v[0], cand_i[0], *(ce[0] for ce in cand_e))
+    vals, sel = _top(torch.cat(cand_v, dim=1), k)
+    idx = torch.gather(torch.cat(cand_i, dim=1), 1, sel)
+    outs = [torch.gather(torch.cat(ce, dim=1), 1, sel) for ce in cand_e]
+    return (vals, idx, *outs)

@@ -1,0 +1,157 @@
+"""The hand-written CUDA kernels of fora_tpu_torch against their plain
+PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  They need
+no JAX (the ``fora_tpu`` fixtures they use load without it), so on a
+machine without it run them without the suite's conftest:
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fora_tpu.algo import exact
+from fora_tpu.config import ForaConfig
+from fora_tpu.graph import generators
+
+pytestmark = pytest.mark.cuda
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _random_csr(rng, n, n_src, E):
+    dst = np.sort(rng.integers(0, n, E))
+    indptr = np.searchsorted(dst, np.arange(n + 1)).astype(np.int32)
+    src = rng.integers(0, n_src, E).astype(np.int32)
+    return indptr, src
+
+
+@pytest.mark.parametrize("B", [1, 3, 32, 128, 130])
+@pytest.mark.parametrize("masked", [False, True])
+def test_gather_scatter_kernel_matches_plain(dev, B, masked):
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops.gather import gather_scatter_add_plain
+    rng = np.random.default_rng(B + 7 * masked)
+    n, n_src, E = 3000, 2500, 40000
+    indptr, src = _random_csr(rng, n, n_src, E)
+    t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
+    values = t(rng.random((n_src, B), dtype=np.float32))
+    acc0 = t(rng.random((n, B), dtype=np.float32))
+    edge_w = t(rng.integers(1, 4, E).astype(np.float32))
+    src_w = t(rng.random(n_src, dtype=np.float32))
+    thr = t(rng.random(n, dtype=np.float32) * 5)
+    outs = []
+    for fn in (kernels.gather_scatter_add, gather_scatter_add_plain):
+        acc = acc0.clone()
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        fn(acc, values, t(indptr), t(src), edge_w, src_w, thr, masked,
+           flag)
+        outs.append((acc, int(flag.item())))
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-5, atol=1e-6)
+    assert outs[0][1] == outs[1][1]
+
+
+def test_push_kernels_match_plain_split_and_unsplit(dev):
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops import push
+    from fora_tpu_torch.ops.gather import gather_scatter_add_plain
+    g = generators.rmat(12, 1 << 15, seed=3)
+    rcfg = ForaConfig(epsilon=0.5).resolved(g.n, g.m)
+    src = torch.arange(0, 64 * 61, 61, dtype=torch.int32, device=dev)
+    got = {}
+    for hub in (0, 256):
+        dg = to_device(g, merge_duplicate_edges=True, hub_rows=hub,
+                       device=dev)
+        st = push.forward_push(dg, src, rmax=rcfg.rmax, alpha=0.2)
+        got[hub] = st
+        # one superstep from the converged-minus-some state, kernel vs plain
+        thr = push.node_threshold(dg, rcfg.rmax / 4)
+        p, r = st.p.clone(), st.r.clone()
+        push.superstep(dg, push.PushState(p, r, 0), alpha=0.2, thr=thr)
+        pp, pr = st.p.clone(), st.r.clone()
+        contrib = torch.empty_like(pr)
+        push.push_prepass_plain(pp, pr, contrib, thr, dg.out_deg,
+                                push.out_weight(dg), 0.2)
+        gather_scatter_add_plain(pr, contrib, dg.in_indptr, dg.in_src,
+                                 edge_w=dg.in_w, thr=thr, mask=True)
+        if dg.hub_split:
+            gather_scatter_add_plain(pr, contrib.index_select(0, dg.hub_ids),
+                                     dg.hub_indptr, dg.hub_src_local,
+                                     edge_w=dg.hub_w)
+        torch.testing.assert_close(p, pp, rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(r, pr, rtol=1e-5, atol=1e-7)
+    assert got[0].iters == got[256].iters
+    torch.testing.assert_close(got[0].p, got[256].p, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(got[0].r, got[256].r, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("n,B,k", [(5000, 4, 10), (4096 * 45 + 17, 3, 50),
+                                   (700, 2, 50)])
+def test_topk_bounds_kernel_matches_plain(dev, n, B, k):
+    from fora_tpu_torch.algo import bounds
+    rng = np.random.default_rng(n)
+    # quantized values plant many exact ties at and around rank k
+    p = np.floor(rng.random((n, B)) * 64).astype(np.float32) / 4096
+    contrib = np.floor(rng.random((n, B)) * 8).astype(np.float32) / 4096
+    p_t, c_t = torch.as_tensor(p, device=dev), torch.as_tensor(contrib,
+                                                               device=dev)
+    t = bounds.union_bound_t(n, 3, 1.0 / n)
+    got = bounds.topk_with_bounds_split(p_t, c_t, 3.0e5, k, t, 0.5)
+    want = bounds.topk_with_bounds_split_plain(p_t, c_t, 3.0e5, k, t, 0.5)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[6], want[6])
+    for i in (0, 2, 3, 4, 5):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=0.0)
+
+
+def test_walk_kernel_endpoints_match_exact_ppr(dev):
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops.walk import walk_endpoints
+    g = generators.karate_club()
+    dg = to_device(g, device=dev)
+    W = 1 << 20
+    ends = walk_endpoints(dg, torch.zeros(W, dtype=torch.int32, device=dev),
+                          seed=5, alpha=0.2, max_hops=64)
+    freq = np.bincount(ends.cpu().numpy(), minlength=g.n) / W
+    assert np.abs(freq - exact.exact_ppr_dense(g, 0)).sum() < 0.01
+
+
+def test_walk_kernel_dangling_absorbs(dev):
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops.walk import walk_endpoints
+    g = generators.star_graph(5)
+    dg = to_device(g, device=dev)
+    W = 1 << 18
+    leaf = walk_endpoints(dg, torch.full((W,), 3, dtype=torch.int32,
+                                         device=dev), 9, 0.2, 64)
+    assert bool((leaf == 3).all())
+    hub = walk_endpoints(dg, torch.zeros(W, dtype=torch.int32, device=dev),
+                         10, 0.2, 64)
+    freq = np.bincount(hub.cpu().numpy(), minlength=g.n) / W
+    np.testing.assert_allclose(freq, exact.exact_ppr_dense(g, 0), atol=0.01)
+
+
+def test_walk_kernel_geometric_lengths(dev):
+    """Walks on a long cycle never revisit a node within 64 hops, so the
+    endpoint's distance from the start is the walk length: Geometric(0.2)
+    (mean 4, P(0) = 0.2), capped at max_hops."""
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops.walk import walk_endpoints
+    g = generators.cycle_graph(1000)
+    dg = to_device(g, device=dev)
+    W = 1 << 20
+    ends = walk_endpoints(dg, torch.zeros(W, dtype=torch.int32, device=dev),
+                          11, 0.2, 64).cpu().numpy()
+    lens = ends % 1000
+    assert abs(lens.mean() - 4.0) < 0.02
+    assert abs((lens == 0).mean() - 0.2) < 0.002
+    assert lens.max() <= 64

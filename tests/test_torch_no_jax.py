@@ -1,0 +1,87 @@
+"""fora_tpu_torch runs without JAX and without the JAX package: it imports
+and answers a CPU query whether or not ``import jax`` would work, loading
+no module of ``jax`` or ``fora_tpu``; no file of it (nor ``chip_smoke.py``)
+imports either; and CPU tensors never reach a CUDA kernel (every launch
+counter stays 0)."""
+
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "fora_tpu_torch"
+
+SCRIPT = textwrap.dedent("""
+    import sys
+    if sys.argv[1] == "blocked":
+        sys.modules["jax"] = None      # any import of jax now fails
+    import numpy as np
+    import torch
+    torch.set_num_threads(2)
+    import fora_tpu_torch
+    from fora_tpu_torch import index as tidx
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.eval import queries
+    from fora_tpu_torch.graph import generators
+    g = generators.rmat(10, 8192, seed=4)
+    rcfg = fora_tpu_torch.ForaConfig(epsilon=0.5, k=10).resolved(g.n, g.m)
+    dg = fora_tpu_torch.to_device(g, merge_duplicate_edges=True,
+                                  hub_rows=64, device="cpu")
+    idx = tidx.build_walk_index(dg, rcfg, seed=1)
+    runner = fora_tpu_torch.TopkRunner(dg, rcfg, index=idx,
+                                       delta_stride=8)
+    res = runner.query_pool(queries.generate_sources(g, 3, seed=5), batch=4)
+    assert res.node_ids.shape == (3, 10) and res.levels_used >= 1
+    assert np.isfinite(res.values).all()
+    assert (np.diff(res.values, axis=1) <= 0).all()
+    assert all(n == 0 for n in kernels.launch_counts().values())
+    foreign = sorted(m for m, mod in sys.modules.items() if mod is not None
+                     and m.split(".")[0] in ("jax", "jaxlib", "fora_tpu"))
+    assert not foreign, foreign
+    print("OK", sorted(kernels.launch_counts().items()))
+""")
+
+
+@pytest.mark.parametrize("jax", ["blocked", "importable"])
+def test_cpu_query_without_jax(jax):
+    out = subprocess.run([sys.executable, "-c", SCRIPT, jax],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("OK")
+
+
+def test_no_jax_import_in_package():
+    pat = re.compile(r"^\s*(import (jax|fora_tpu)\b(?!_torch)"
+                     r"|from (jax|fora_tpu)\b(?!_torch))", re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 2
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def test_cpu_tensors_never_launch_kernels():
+    import numpy as np
+
+    from fora_tpu_torch import ForaConfig, kernels
+    from fora_tpu_torch.algo import bounds
+    from fora_tpu_torch.graph import generators, to_device
+    from fora_tpu_torch.ops import gather, push, walk
+    kernels.reset_launch_counts()
+    g = generators.rmat(9, 4096, seed=2)
+    rcfg = ForaConfig(epsilon=0.5).resolved(g.n, g.m)
+    dg = to_device(g, merge_duplicate_edges=True, hub_rows=16, device="cpu")
+    st = push.forward_push(dg, torch.tensor([1, 2, 3]), rmax=rcfg.rmax,
+                           alpha=0.2)
+    gather.index_spmv(torch.zeros_like(st.r), st.r, dg.in_indptr, dg.in_src,
+                      dg.in_w, torch.ones(g.n))
+    bounds.topk_with_bounds_split(st.p, st.r, rcfg.omega_unit, 5, 10.0, 0.5)
+    walk.walk_endpoints(dg, torch.zeros(100, dtype=torch.int32), 1, 0.2, 64)
+    assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
