@@ -25,18 +25,34 @@ memory:
   7. quality     precision@50 of the first 32 queries against the exact
                  oracle (float64 power iteration on the card); must be
                  >= 0.95
-  8. proof       every kernel launched in phases 4-5 (counts reset just
-                 before phase 4, read just after phase 5), and neither JAX
-                 nor the JAX package fora_tpu was imported
+  9. sharded     the graph-sharded indexed engine with G = 4 shards placed
+                 by make_mesh (all on cuda:0 on a one-card machine): the
+                 phase-1 host CSR and the phase-4 index partitioned, the
+                 first pool's 128 sources through ShardedForaEngine.topk
+                 (once to warm, once timed, counts reset just before and
+                 read just after), P1 and P2 bit-equal to their plain
+                 versions on a real superstep's and the walk phase's
+                 buffers, the top-50 against the single-device indexed
+                 result at the same depth, precision@50 of the first 32
+                 queries against phase 7's exact top-50 (>= 0.95)
+  8. proof       every kernel of each path launched in its run: K1-K4 in
+                 phases 4-5 (counts reset just before phase 4, read just
+                 after phase 5), K1-K3, P1 and P2 in phase 9's timed run
+                 with P1 at (G-1) G launches per superstep and P2 at
+                 (G-1) G; and neither JAX nor the JAX package fora_tpu
+                 was imported
 
 It prints one JSON line of per-kernel results, then, only if every phase
 passed, the last line {"ok": true, "device": {...}}.  Any failure raises
 and exits non-zero.
 
 ``--profile PAIRS`` runs phases 1, 2 and 4, then times the query phase
-with the hub split on and off in PAIRS alternating pairs, and profiles one
-more run of each with torch.profiler: device busy time, idle share and
-per-kernel device time, with the full tables under chiprun_out/.
+with the hub split on and off in PAIRS alternating pairs, and phase 9's
+sharded one-shot top-k against the single-device level at the same depth
+in PAIRS more; it profiles one more run of each with torch.profiler
+(device busy time, idle share, per-kernel device time; full tables in
+PROFILE_DIR) and times each shard's push gather against one
+single-device gather.
 """
 
 from __future__ import annotations
@@ -50,6 +66,7 @@ import time
 from pathlib import Path
 
 NLOG2, EDGEF, SEED = 19, 16, 7
+SHARDS = 4
 HUB_ROWS = 131072
 BATCH, POOL, QUERIES, DEFER = 128, 128, 256, 64
 K, EPS, DSTRIDE, ACCEPT = 50, 0.5, 8.0, 1.0
@@ -60,6 +77,11 @@ ROOT = Path(__file__).resolve().parent
 INDEX_DIR = ROOT / "bench_data" / "torch_smoke"
 PROFILE_DIR = ROOT / "chiprun_out"
 DEVICE = "cuda:0"
+MAIN_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
+                "topk_bounds", "index_walk")
+SHARDED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
+                   "topk_bounds", "ring_all_gather_hop",
+                   "ring_reduce_scatter_hop")
 
 
 def fail(msg: str):
@@ -133,48 +155,274 @@ def run_queries(runner, sources, log=print):
     return results, n_acc, levels, time.perf_counter() - t0
 
 
-def profile_queries(pairs, layouts, make_runner, sources):
-    """Query-phase wall time per graph layout over ``pairs`` alternating
-    pairs, then one torch.profiler run per layout."""
+def profile_once(name, fn):
+    """One run of ``fn`` under torch.profiler: wall, device busy time, idle
+    share and the kernels by device time (full table in
+    PROFILE_DIR/profile_<name>.txt)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    quiet = lambda *a: None   # noqa: E731
-    for graph in layouts.values():          # warm-up, one run each
-        run_queries(make_runner(graph), sources, quiet)
-    walls = {name: [] for name in layouts}
-    names = list(layouts)
+    PROFILE_DIR.mkdir(exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = timed(fn)
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    busy_ms = sum(dev_us(e) for e in ka) / 1e3
+    out = PROFILE_DIR / f"profile_{name}.txt"
+    out.write_text(ka.table(sort_by="self_cuda_time_total", row_limit=30))
+    print(f"profile {name}: profiled wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / (wall * 1e3):.3f} "
+          f"({out.name})")
+    for e in sorted(ka, key=dev_us, reverse=True)[:8]:
+        if dev_us(e) > 0:
+            print(f"  {e.key[:60]}: {dev_us(e) / 1e3:.2f} ms, "
+                  f"{e.count} calls")
+
+
+def timed(fn) -> float:
+    """Wall seconds of ``fn()``, between two device synchronises."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def alternate(pairs, fns, label):
+    """Each of ``fns`` (returning its own wall seconds) over ``pairs``
+    alternating pairs, after one warm-up run each."""
+    for fn in fns.values():
+        fn()
+    walls = {name: [] for name in fns}
+    names = list(fns)
     for i in range(pairs):
         for name in (names if i % 2 == 0 else names[::-1]):
-            walls[name].append(run_queries(make_runner(layouts[name]),
-                                           sources, quiet)[3])
+            walls[name].append(fns[name]())
     for name, w in walls.items():
-        print(f"profile {name}: query wall over {len(w)} runs (s): "
+        print(f"profile {name}: {label} wall over {len(w)} runs (s): "
               + " ".join(f"{x:.4f}" for x in w)
               + f"; median {statistics.median(w):.4f} mean "
               f"{statistics.mean(w):.4f}")
-    PROFILE_DIR.mkdir(exist_ok=True)
+
+
+def profile_queries(pairs, layouts, make_runner, sources):
+    """Query-phase wall time per graph layout over ``pairs`` alternating
+    pairs, then one torch.profiler run per layout."""
+    quiet = lambda *a: None   # noqa: E731
+    alternate(pairs, {name: (lambda gr=graph: run_queries(
+        make_runner(gr), sources, quiet)[3])
+        for name, graph in layouts.items()}, "query")
     for name, graph in layouts.items():
         runner = make_runner(graph)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            wall = run_queries(runner, sources, quiet)[3]
-        ka = prof.key_averages()
+        profile_once(name, lambda: run_queries(runner, sources, quiet))
 
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-        busy_ms = sum(dev_us(e) for e in ka) / 1e3
-        table = ka.table(sort_by="self_cuda_time_total", row_limit=30)
-        out = PROFILE_DIR / f"profile_{name}.txt"
-        out.write_text(table)
-        print(f"profile {name}: profiled query wall {wall * 1e3:.1f} ms, "
-              f"device busy {busy_ms:.1f} ms, idle share "
-              f"{1 - busy_ms / (wall * 1e3):.3f} ({out.name})")
-        for e in sorted(ka, key=dev_us, reverse=True)[:8]:
-            if dev_us(e) > 0:
-                print(f"  {e.key[:60]}: {dev_us(e) / 1e3:.2f} ms, "
-                      f"{e.count} calls")
+
+def profile_sharded(pairs, g, rcfg, index, sources, dev):
+    """The sharded one-shot top-k against the single-device indexed level
+    at the same depth (unmerged graph, no hub split) over ``pairs``
+    alternating pairs; one torch.profiler run of each; then each shard's
+    push gather against the single-device gather on the same spread-out
+    state, with each shard's edge count and largest in-degree."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo.fora import StagedForaPrograms
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops import push, ring
+    from fora_tpu_torch.ops.topk import topk_sum
+    from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
+    from fora_tpu_torch.utils.timing import cuda_ms
+
+    eng = ShardedForaEngine(g, make_mesh(SHARDS), rcfg, k=K, index=index)
+    dg_raw = to_device(g, device=dev)
+    staged = StagedForaPrograms(dg_raw, rcfg, index)
+    level = staged.lean_state_fn(eng.index_depth)
+    src_t = torch.as_tensor(sources, dtype=torch.int32, device=dev)
+
+    def one_device():
+        st = push.init_state(g.n, src_t)
+        p, _, contrib, _ = level(st.p, st.r, rcfg.rmax, rcfg.omega_unit)
+        topk_sum(p, contrib, K)[1].cpu()
+
+    fns = {f"sharded{SHARDS}": lambda: eng.topk(sources),
+           "one_device": one_device}
+    alternate(pairs, {name: (lambda f=fn: timed(f))
+                      for name, fn in fns.items()},
+              f"one-shot top-{K} of {len(sources)} queries")
+    for name, fn in fns.items():
+        profile_once(name, fn)
+
+    ps, rs = eng.init_state(sources)
+    eng.push(ps, rs, max_iters=3)
+    bufs = eng.exchange_buffers(len(sources))
+    eng.prepass(ps, rs, bufs)
+    ring.ring_all_gather(bufs)
+    acc = torch.zeros_like(rs[0])
+    per = []
+    for h, sh in enumerate(eng.shards):
+        deg = np.diff(sh.in_indptr.cpu().numpy())
+        ms = cuda_ms(lambda: kernels.gather_scatter_add(
+            acc, bufs[h], sh.in_indptr, sh.in_src))
+        per.append(ms)
+        print(f"  shard {h}: push gather {ms:.3f} ms over {int(deg.sum())} "
+              f"edges, largest in-degree {int(deg.max())}")
+    acc = torch.zeros((g.n, len(sources)), dtype=torch.float32, device=dev)
+    deg = np.diff(dg_raw.in_indptr.cpu().numpy())
+    one = cuda_ms(lambda: kernels.gather_scatter_add(
+        acc, bufs[0], dg_raw.in_indptr, dg_raw.in_src))
+    print(f"profile gather: {SHARDS} shard launches {sum(per):.3f} ms in all "
+          f"against one launch {one:.3f} ms over {int(deg.sum())} edges "
+          f"(largest in-degree {int(deg.max())})")
+
+
+def sorted_topk(vals, ids):
+    """Each row ordered by value descending, then id ascending."""
+    import numpy as np
+    order = np.stack([np.lexsort((i, -v.astype(np.float64)))
+                      for v, i in zip(vals, ids)])
+    return (np.take_along_axis(vals, order, 1),
+            np.take_along_axis(ids, order, 1))
+
+
+def topk_agree(name, got_v, got_i, want_v, want_i, rtol):
+    """Values within ``rtol``; ids equal wherever the reference's adjacent
+    values differ by more than ``rtol`` (outside exact ties, which the two
+    summation orders may put either way).  Returns the max abs error."""
+    import numpy as np
+    gv, gi = sorted_topk(got_v, got_i)
+    wv, wi = sorted_topk(want_v, want_i)
+    err = np.abs(gv.astype(np.float64) - wv)
+    if not (err <= rtol * np.abs(wv)).all():
+        fail(f"{name}: values differ beyond rtol {rtol} "
+             f"(max abs err {err.max():.3e})")
+    apart = np.abs(np.diff(wv.astype(np.float64), axis=1)) \
+        > rtol * np.abs(wv[:, 1:])
+    sep = np.ones(wv.shape, bool)
+    sep[:, :-1] &= apart
+    sep[:, 1:] &= apart
+    bad = int((gi[sep] != wi[sep]).sum())
+    if bad:
+        fail(f"{name}: {bad} ids differ outside near-ties")
+    print(f"{name}: values within rtol {rtol} (max abs err {err.max():.3e});"
+          f" ids equal at {int(sep.sum())} of {sep.size} positions outside "
+          f"near-ties")
+    return float(err.max())
+
+
+def run_sharded(g, rcfg, index, sources, dev, exact_ids):
+    """Phase 9: the sharded engine over SHARDS shards from make_mesh.
+    Returns (kernel rows for P1 and P2, launch counts of the timed run,
+    its supersteps)."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo.fora import StagedForaPrograms
+    from fora_tpu_torch.eval import metrics
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops import push, ring
+    from fora_tpu_torch.ops.topk import topk_sum
+    from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
+    from fora_tpu_torch.utils.timing import cuda_ms
+
+    mesh = make_mesh(SHARDS)
+    t0 = time.perf_counter()
+    eng = ShardedForaEngine(g, mesh, rcfg, k=K, index=index)
+    torch.cuda.synchronize()
+    part_secs = time.perf_counter() - t0
+    pg = eng.pg
+    print(f"sharded: devices {[str(d) for d in mesh]}; n_loc {pg.n_loc}, "
+          f"m_loc {pg.m_loc}, e_loc_total {eng.e_loc_total}; partition and "
+          f"placement {part_secs:.2f} s; index depth {eng.index_depth}")
+    B = len(sources)
+    eng.topk(sources)                                   # warm
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.topk(sources)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    print(f"sharded topk: {B} queries in {wall:.4f} s -> {B / wall:.2f} q/s;"
+          f" {res.push_iters} supersteps; dense exchange "
+          f"{eng.exchange_bytes(B)} bytes per shard per superstep "
+          f"(exchange_bytes_model)")
+    if not (np.isfinite(res.values).all() and res.values.shape == (B, K)):
+        fail("sharded topk: values not finite or of the wrong shape")
+
+    # P1 on a real superstep's buffers: three supersteps in, then one more
+    # pre-pass writes each shard's own block (NaN elsewhere)
+    ps, rs = eng.init_state(sources)
+    eng.push(ps, rs, max_iters=3)
+    bufs = [b.fill_(float("nan")) for b in eng.exchange_buffers(B)]
+    eng.prepass(ps, rs, bufs)
+    bufs_k = ring.ring_all_gather([b.clone() for b in bufs])
+    bufs_p = ring.ring_all_gather_plain([b.clone() for b in bufs])
+    p1_err = max(float((k - p).abs().max()) for k, p in zip(bufs_k, bufs_p))
+    for h in range(SHARDS):
+        if bool(torch.isnan(bufs_k[h]).any()):
+            fail(f"P1: shard {h} has unfilled blocks")
+        if not torch.equal(bufs_k[h], bufs_p[h]):
+            fail(f"P1: shard {h} differs from plain")
+        if not torch.equal(bufs_k[h], bufs_k[0]):
+            fail(f"P1: shard {h} differs from shard 0")
+    p1_ms = cuda_ms(lambda: ring.ring_all_gather(bufs_k))
+    p1_plain = cuda_ms(lambda: ring.ring_all_gather_plain(bufs_p))
+    print(f"P1: bit-equal to plain on a superstep's buffers; {p1_ms:.4f} ms "
+          f"vs plain {p1_plain:.4f} ms per all-gather "
+          f"({(SHARDS - 1) * SHARDS} hops)")
+    del bufs, bufs_k, bufs_p
+
+    # P2 on the real walk phase's partials (a whole push first)
+    ps, rs = eng.init_state(sources)
+    it_ref = eng.push(ps, rs)
+    xs = eng.walk_partials(rs)
+    got, want = ring.ring_reduce_scatter(xs), ring.ring_reduce_scatter_plain(xs)
+    p2_diff = max(float((k - p).abs().max()) for k, p in zip(got, want))
+    for h in range(SHARDS):
+        if not torch.equal(got[h], want[h]):
+            fail(f"P2: shard {h} differs from plain")
+    total = torch.stack(xs).double().sum(dim=0)
+    p2_err = max(float((got[h].double() - total[h * eng.n_loc:
+                                                (h + 1) * eng.n_loc])
+                       .abs().max()) for h in range(SHARDS))
+    p2_ms = cuda_ms(lambda: ring.ring_reduce_scatter(xs))
+    p2_plain = cuda_ms(lambda: ring.ring_reduce_scatter_plain(xs))
+    print(f"P2: bit-equal to plain on the walk phase's partials; max abs "
+          f"err {p2_err:.3e} against a float64 sum; {p2_ms:.4f} ms vs plain "
+          f"{p2_plain:.4f} ms per reduce-scatter")
+    del xs, got, want, total
+
+    # the single-device indexed level at the same depth, unmerged graph
+    dg_raw = to_device(g, device=dev)
+    staged = StagedForaPrograms(dg_raw, rcfg, index)
+    st = push.init_state(g.n, torch.as_tensor(sources, dtype=torch.int32,
+                                              device=dev))
+    p, r, contrib, it_one = staged.lean_state_fn(eng.index_depth)(
+        st.p, st.r, rcfg.rmax, rcfg.omega_unit)
+    one_v, one_i = topk_sum(p, contrib, K)
+    if it_one != res.push_iters or it_ref != res.push_iters:
+        fail(f"supersteps: sharded {res.push_iters} (again {it_ref}), "
+             f"single device {it_one}")
+    topk_agree("sharded vs single device", res.values, res.node_ids,
+               one_v.cpu().numpy(), one_i.cpu().numpy(), 1e-4)
+    del dg_raw, staged, st, p, r, contrib
+
+    prec = metrics.batch_precision_at_k(res.node_ids[:len(exact_ids)],
+                                        exact_ids)
+    print(f"sharded precision@{K}: {prec:.4f} over {len(exact_ids)} queries "
+          f"(limit {MIN_PRECISION})")
+    if not prec >= MIN_PRECISION:
+        fail(f"sharded precision@{K} {prec:.4f} < {MIN_PRECISION}")
+    rows = {"ring_all_gather_hop": dict(max_abs_err=p1_err, ms=p1_ms,
+                                        plain_ms=p1_plain),
+            "ring_reduce_scatter_hop": dict(max_abs_err=p2_diff, ms=p2_ms,
+                                            plain_ms=p2_plain)}
+    return rows, counts, res.push_iters
 
 
 def main(argv=None) -> int:
@@ -252,6 +500,7 @@ def main(argv=None) -> int:
                               delta_stride=DSTRIDE, accept_slack=ACCEPT)
         profile_queries(args.profile, {f"hub{HUB_ROWS}": dg, "flat": dg_flat},
                         make_runner, sources)
+        profile_sharded(args.profile, g, rcfg, index, sources[:POOL], dev)
         return 0
 
     # ---- 3. K1 and K4 against their plain versions -----------------------
@@ -469,11 +718,29 @@ def main(argv=None) -> int:
         if not prec >= MIN_PRECISION:
             fail(f"precision@{K} {prec:.4f} < {MIN_PRECISION}")
 
-    # ---- 8. proof that the main path ran on the kernels ------------------
+    # ---- 9. the graph-sharded engine -------------------------------------
+    with Phase("sharded"):
+        sharded_rows, sharded_launches, sh_iters = run_sharded(
+            g, rcfg, index, sources[:POOL], dev, ex[:EVAL_N])
+        rows.update(sharded_rows)
+
+    # ---- 8. proof that each path ran on its kernels ------------------------
     print(f"launches in phases 4-5: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in MAIN_KERNELS:
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    print(f"launches in phase 9's timed run ({sh_iters} supersteps): "
+          f"{sharded_launches}")
+    for name in SHARDED_KERNELS:
+        if sharded_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the sharded path")
+    hops = (SHARDS - 1) * SHARDS
+    if sharded_launches["ring_all_gather_hop"] != hops * sh_iters:
+        fail(f"P1: {sharded_launches['ring_all_gather_hop']} launches, "
+             f"expected {hops} per superstep x {sh_iters}")
+    if sharded_launches["ring_reduce_scatter_hop"] != hops:
+        fail(f"P2: {sharded_launches['ring_reduce_scatter_hop']} launches, "
+             f"expected {hops}")
     loaded = sorted(foreign_modules() - preloaded)
     if loaded:
         fail(f"the port imported JAX or fora_tpu: {loaded[:5]}")
@@ -484,13 +751,16 @@ def main(argv=None) -> int:
         "index_spmv": ("gather_scatter.cu", "fora_tpu/algo/fora.py:352"),
         "topk_bounds": ("topk_bounds.cu", "fora_tpu/algo/bounds.py:112"),
         "index_walk": ("walk.cu", "fora_tpu/ops/walk.py:159"),
+        "ring_all_gather_hop": ("ring.cu", "fora_tpu/ops/ring.py:107"),
+        "ring_reduce_scatter_hop": ("ring.cu", "fora_tpu/ops/ring.py:32"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
         row = rows[name]
+        n = launches[name] if name in MAIN_KERNELS else sharded_launches[name]
         out.append({"name": name, "route": "cuda",
                     "source": f"fora_tpu_torch/kernels/csrc/{src_file}",
-                    "replaces": replaces, "launches": launches[name],
+                    "replaces": replaces, "launches": n,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"]})
     print(json.dumps({"kernels": out}))

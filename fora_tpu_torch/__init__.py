@@ -3,7 +3,9 @@
 A port of ``fora_tpu`` (JAX) that runs the indexed top-k query path on an
 NVIDIA H100: forward push as masked SpMV supersteps, the FORA+ walk index
 (built by a walk kernel, served as a weighted SpMV), and top-k refinement
-with Bernstein-bound acceptance.  Its four hot loops are hand-written
+with Bernstein-bound acceptance; and the graph-sharded one-shot top-k
+(``parallel``), whose shards exchange over a ring all-gather and a ring
+reduce-scatter.  Its hot loops and the two ring hops are hand-written
 CUDA kernels (``kernels/csrc``) built at first use; CPU tensors run plain
 PyTorch versions of the same functions.  Every function takes its device
 from an explicit argument or from the tensors it is given.  The package
@@ -13,7 +15,10 @@ imports torch and numpy only: nothing of JAX and nothing of ``fora_tpu``.
 from .algo.topk import TopkResult, TopkRunner, delta_schedule
 from .config import ForaConfig, ResolvedConfig
 from .graph.csr import CSRGraph, DeviceGraph, from_edges, to_device
+from .parallel import (ShardedForaEngine, ShardedTopkResult, make_mesh,
+                       partition_index, partition_rows)
 
 __all__ = ["ForaConfig", "ResolvedConfig", "TopkResult", "TopkRunner",
            "delta_schedule", "CSRGraph", "DeviceGraph", "from_edges",
-           "to_device"]
+           "to_device", "ShardedForaEngine", "ShardedTopkResult",
+           "make_mesh", "partition_index", "partition_rows"]

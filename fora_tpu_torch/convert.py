@@ -14,6 +14,7 @@ import torch
 from .graph.csr import from_numpy_fields
 from .index.build import WalkIndex, with_indptr
 from .ops.push import PushState
+from .parallel.partition import PartitionedGraph, PartitionedIndex
 
 
 # ``{name: np.asarray(field)}`` of a fora_tpu DeviceGraph -> DeviceGraph
@@ -40,3 +41,22 @@ def push_state_from_numpy(p, r, *, device) -> PushState:
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
     return PushState(p=t(p), r=t(r), iters=0)
+
+
+def _fields_from_numpy(cls, obj):
+    """``cls`` built from the same-named fields of ``obj``: arrays through
+    ``np.asarray``, ints and None as they are."""
+    def conv(v):
+        return v if v is None or isinstance(v, (int, np.integer)) \
+            else np.asarray(v)
+    return cls(**{f: conv(getattr(obj, f)) for f in cls._fields})
+
+
+def partitioned_graph_from_numpy(jpg) -> PartitionedGraph:
+    """The port's PartitionedGraph from a fora_tpu PartitionedGraph."""
+    return _fields_from_numpy(PartitionedGraph, jpg)
+
+
+def partitioned_index_from_numpy(jpi) -> PartitionedIndex:
+    """The port's PartitionedIndex from a fora_tpu PartitionedIndex."""
+    return _fields_from_numpy(PartitionedIndex, jpi)

@@ -8,13 +8,18 @@ that its main path went through the kernel.  The wrappers take CUDA
 tensors only; the callers in ``ops``/``algo`` send CPU tensors to the plain
 PyTorch versions instead.
 
-| wrapper              | source                 | kernel |
-| -------------------- | ---------------------- | ------ |
-| push_prepass         | csrc/push_prepass.cu   | K1 (elementwise half of a superstep) |
-| gather_scatter_add   | csrc/gather_scatter.cu | K1 (push gather, tail and hub edges) |
-| index_spmv           | csrc/gather_scatter.cu | K2 (index bucket SpMV, same kernel) |
-| topk_bounds          | csrc/topk_bounds.cu    | K3 |
-| index_walk           | csrc/walk.cu           | K4 |
+| wrapper                 | source                 | kernel |
+| ----------------------- | ---------------------- | ------ |
+| push_prepass            | csrc/push_prepass.cu   | K1 (elementwise half of a superstep) |
+| gather_scatter_add      | csrc/gather_scatter.cu | K1 (push gather, tail and hub edges) |
+| index_spmv              | csrc/gather_scatter.cu | K2 (index bucket SpMV, same kernel) |
+| topk_bounds             | csrc/topk_bounds.cu    | K3 |
+| index_walk              | csrc/walk.cu           | K4 |
+| ring_all_gather_hop     | csrc/ring.cu           | P1 (one hop of one shard) |
+| ring_reduce_scatter_hop | csrc/ring.cu           | P2 (one hop of one shard) |
+
+Every launch runs with its output tensor's device current, so shards on
+several cards each launch on their own card.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ import torch
 from . import build
 
 __all__ = ["push_prepass", "gather_scatter_add", "index_spmv", "topk_bounds",
-           "index_walk", "WRAPPERS", "reset_launch_counts", "launch_counts"]
+           "index_walk", "ring_all_gather_hop", "ring_reduce_scatter_hop",
+           "enable_peer_access", "WRAPPERS", "reset_launch_counts",
+           "launch_counts"]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -73,9 +80,10 @@ def push_prepass(p: torch.Tensor, r: torch.Tensor, contrib: torch.Tensor,
     _check("thr", thr, torch.float32, (n,), dev)
     _check("deg", deg, torch.int32, (n,), dev)
     _check("wsum", wsum, torch.float32, (n,), dev)
-    err = build.library().fora_push_prepass(
-        _ptr(p), _ptr(r), _ptr(contrib), _ptr(thr), _ptr(deg), _ptr(wsum),
-        alpha, 1.0 - alpha, n, B, _stream(r))
+    with torch.cuda.device(dev):
+        err = build.library().fora_push_prepass(
+            _ptr(p), _ptr(r), _ptr(contrib), _ptr(thr), _ptr(deg),
+            _ptr(wsum), alpha, 1.0 - alpha, n, B, _stream(r))
     push_prepass.launches += 1
     _raise_on(err, "push_prepass")
 
@@ -100,9 +108,11 @@ def _gather_scatter(acc, values, indptr, src, edge_w, src_w, thr, mask,
         _check("thr", thr, torch.float32, (n,), dev)
     if flag is not None:
         _check("flag", flag, torch.int32, (1,), dev)
-    err = build.library().fora_gather_scatter_add(
-        _ptr(acc), _ptr(values), _ptr(indptr), _ptr(src), _ptr(edge_w),
-        _ptr(src_w), _ptr(thr), int(mask), _ptr(flag), n, B, _stream(acc))
+    with torch.cuda.device(dev):
+        err = build.library().fora_gather_scatter_add(
+            _ptr(acc), _ptr(values), _ptr(indptr), _ptr(src), _ptr(edge_w),
+            _ptr(src_w), _ptr(thr), int(mask), _ptr(flag), n, B,
+            _stream(acc))
     _raise_on(err, name)
 
 
@@ -162,11 +172,12 @@ def topk_bounds(p: torch.Tensor, contrib: torch.Tensor, k: int, s2: float,
     lbk = torch.empty(B, dtype=torch.float32, device=dev)
     ub_excl = torch.empty_like(lbk)
     accept = torch.empty(B, dtype=torch.bool, device=dev)
-    err = lib.fora_topk_bounds(
-        _ptr(p), _ptr(contrib), n, B, k, kk, s2, one_plus_eps,
-        _ptr(scratch_v), _ptr(scratch_i), half, _ptr(vals), _ptr(idx),
-        _ptr(lb), _ptr(ub), _ptr(lbk), _ptr(ub_excl), _ptr(accept),
-        _stream(p))
+    with torch.cuda.device(dev):
+        err = lib.fora_topk_bounds(
+            _ptr(p), _ptr(contrib), n, B, k, kk, s2, one_plus_eps,
+            _ptr(scratch_v), _ptr(scratch_i), half, _ptr(vals), _ptr(idx),
+            _ptr(lb), _ptr(ub), _ptr(lbk), _ptr(ub_excl), _ptr(accept),
+            _stream(p))
     topk_bounds.launches += 1
     _raise_on(err, "topk_bounds")
     return vals, idx, lb, ub, lbk, ub_excl, accept
@@ -186,17 +197,72 @@ def index_walk(start: torch.Tensor, out_indptr: torch.Tensor,
     if W >= 2**32:
         raise ValueError("index_walk: at most 2^32 walks per call")
     out = torch.empty(W, dtype=torch.int32, device=dev)
-    err = build.library().fora_index_walk(
-        _ptr(start), _ptr(out), W, _ptr(out_indptr), _ptr(out_indices),
-        _ptr(out_deg), seed % 2**64, 1.0 / math.log1p(-alpha), max_hops,
-        _stream(start))
+    with torch.cuda.device(dev):
+        err = build.library().fora_index_walk(
+            _ptr(start), _ptr(out), W, _ptr(out_indptr), _ptr(out_indices),
+            _ptr(out_deg), seed % 2**64, 1.0 / math.log1p(-alpha), max_hops,
+            _stream(start))
     index_walk.launches += 1
     _raise_on(err, "index_walk")
     return out
 
 
+def _ring_hop_check(out: torch.Tensor, *ins: torch.Tensor):
+    """``out`` and ``ins`` are CUDA f32 blocks of one shape; the inputs
+    may lie on another card (read through a peer pointer)."""
+    _check("out", out, torch.float32)
+    for i, t in enumerate(ins):
+        _check(f"in{i}", t, torch.float32, out.shape)
+        if t.device != out.device:
+            enable_peer_access(out.device, t.device)
+
+
+def ring_all_gather_hop(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """P1, one hop of one shard: ``dst[:] = src[:]``, where ``dst`` is a
+    block of the receiving shard's exchange buffer and ``src`` the same
+    block of its left neighbour's.  Launches on ``dst``'s card."""
+    _ring_hop_check(dst, src)
+    with torch.cuda.device(dst.device):
+        err = build.library().fora_ring_copy(_ptr(dst), _ptr(src),
+                                             dst.numel(), _stream(dst))
+    ring_all_gather_hop.launches += 1
+    _raise_on(err, "ring_all_gather_hop")
+
+
+def ring_reduce_scatter_hop(out: torch.Tensor, recv: torch.Tensor,
+                            own: torch.Tensor) -> None:
+    """P2, one hop of one shard: ``out = recv + own`` (one f32 add, the
+    received partial first), where ``recv`` is the left neighbour's
+    partial and ``own`` this shard's block.  Launches on ``out``'s
+    card."""
+    if own.device != out.device:
+        raise ValueError("ring_reduce_scatter_hop: own block on "
+                         f"{own.device}, output on {out.device}")
+    _ring_hop_check(out, recv, own)
+    with torch.cuda.device(out.device):
+        err = build.library().fora_ring_add(_ptr(out), _ptr(recv), _ptr(own),
+                                            out.numel(), _stream(out))
+    ring_reduce_scatter_hop.launches += 1
+    _raise_on(err, "ring_reduce_scatter_hop")
+
+
+_peer_pairs: set = set()   # (reader, owner) card indices with access on
+
+
+def enable_peer_access(reader: torch.device, owner: torch.device) -> None:
+    """Let kernels on card ``reader`` read memory of card ``owner``
+    (cudaDeviceEnablePeerAccess, once per pair).  Raises where the pair
+    has no peer access: nothing stages through the host instead."""
+    pair = (torch.device(reader).index, torch.device(owner).index)
+    if pair[0] == pair[1] or pair in _peer_pairs:
+        return
+    _raise_on(build.library().fora_enable_peer_access(*pair),
+              f"peer access from cuda:{pair[0]} to cuda:{pair[1]}")
+    _peer_pairs.add(pair)
+
+
 WRAPPERS = (push_prepass, gather_scatter_add, index_spmv, topk_bounds,
-            index_walk)
+            index_walk, ring_all_gather_hop, ring_reduce_scatter_hop)
 for _w in WRAPPERS:
     _w.launches = 0
 

@@ -44,6 +44,9 @@ SIGNATURES = {
                          _P, _P, _P, _P, _P, _P, _P],
     "fora_index_walk": [_P, _P, _LL, _P, _P, _P, ctypes.c_ulonglong, _F, _I,
                         _P],
+    "fora_ring_copy": [_P, _P, _LL, _P],
+    "fora_ring_add": [_P, _P, _P, _LL, _P],
+    "fora_enable_peer_access": [_I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -85,24 +88,45 @@ def find_nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the hashed library path unless it exists.
-    The compiler's output (register and shared-memory use per kernel,
-    from -Xptxas -v) is kept beside the library as nvcc.log."""
+    """Compile csrc/*.cu into the hashed library path unless it exists:
+    one nvcc per source, all started together, then one link.  The
+    compilers' output (register and shared-memory use per kernel, from
+    -Xptxas -v) is kept beside the library as nvcc.log."""
     global last_build_secs
     so = library_path()
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(f) for f in sources()]]
+    nvcc, tag = find_nvcc(), f"{os.getpid()}.tmp"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (so.parent / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    jobs = []
+    for src in sources():
+        obj = so.parent / f".{src.stem}.{tag}.o"
+        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{out[-4000:]}")
+    tmp = so.with_name(f".{LIB_NAME}.{tag}")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n"
+                          f"{proc.stderr[-4000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    (so.parent / "nvcc.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)
     last_build_secs = time.perf_counter() - t0
     return so

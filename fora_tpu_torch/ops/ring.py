@@ -1,0 +1,163 @@
+"""Ring collectives over the graph shards: the frontier all-gather (P1)
+and the endpoint-mass reduce-scatter (P2).
+
+Port of ``fora_tpu/ops/ring.py`` (32-156).  JAX calls each collective
+inside ``shard_map``, one shard's view at a time, and loops over the G - 1
+hops inside one Pallas kernel.  The port holds every shard's tensor in
+one process, so each function takes the list of per-shard tensors (shard
+h on ``bufs[h].device``; several shards may share a card) and runs the
+hop loop itself: one launch per hop per shard, in pull form, each on the
+receiving shard's card (``kernels/csrc/ring.cu``).
+
+Ordering.  With every shard on one card all launches go to that card's
+current stream, and stream order is the whole protocol: hop s of every
+shard completes before hop s + 1 of any.  With shards on several cards,
+hop s of shard h waits on CUDA events recorded after hop s - 1 on shards
+h - 1 (the data it reads) and h + 1 (the reduce-scatter's double buffer:
+hop s overwrites the slot that h + 1 read at hop s - 1); on return each
+shard's stream also waits for its right neighbour's last hop, the last
+read of its buffer.  Peer access is enabled once per pair and refused
+pairs raise.
+
+CPU tensors take the plain versions below, the same hop loop in torch
+(``copy_``, ``torch.add(..., out=)``).  Every hop is one f32 copy or one
+f32 add in the same order, so kernel and plain version agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+
+
+def _block(t: torch.Tensor, b: int, n_loc: int) -> torch.Tensor:
+    return t[b * n_loc:(b + 1) * n_loc]
+
+
+def _n_loc(ts, G: int) -> int:
+    total = ts[0].shape[0]
+    if total % G or any(t.shape != ts[0].shape for t in ts):
+        raise ValueError(f"ring: {G} shards need equal [G * n_loc, B] "
+                         f"tensors, got {[tuple(t.shape) for t in ts]}")
+    return total // G
+
+
+def _on_cuda(ts) -> bool:
+    kinds = {t.device.type for t in ts}
+    if len(kinds) != 1:
+        raise ValueError(f"ring: shards on mixed device types {kinds}")
+    return kinds == {"cuda"}
+
+
+def _run_hops(devices, hops: int, launch) -> None:
+    """``launch(s, h)`` for hop s = 0..hops-1 and shard h, ordered as the
+    module docstring says."""
+    G = len(devices)
+    if all(d == devices[0] for d in devices):
+        for s in range(hops):
+            for h in range(G):
+                launch(s, h)
+        return
+    streams = [torch.cuda.current_stream(d) for d in devices]
+
+    def record():
+        evs = []
+        for st in streams:
+            ev = torch.cuda.Event()
+            ev.record(st)
+            evs.append(ev)
+        return evs
+
+    done = record()   # what each shard's stream had queued on entry
+    for s in range(hops):
+        for h in range(G):
+            streams[h].wait_event(done[h - 1])
+            streams[h].wait_event(done[(h + 1) % G])
+            launch(s, h)
+        done = record()
+    for h in range(G):
+        streams[h].wait_event(done[(h + 1) % G])
+
+
+def ring_all_gather_plain(bufs: list) -> list:
+    """Plain version of :func:`ring_all_gather`."""
+    G = len(bufs)
+    n_loc = _n_loc(bufs, G)
+    for s in range(G - 1):
+        for h in range(G):
+            b = (h - 1 - s) % G
+            _block(bufs[h], b, n_loc).copy_(_block(bufs[h - 1], b, n_loc))
+    return bufs
+
+
+def ring_all_gather(bufs: list) -> list:
+    """P1, in place: ``bufs[h]`` ([G * n_loc, B] f32) holds shard h's own
+    block at rows [h * n_loc, (h + 1) * n_loc); afterwards every buffer
+    holds every shard's block.  Over G - 1 hops shard h copies from its
+    left neighbour the block that neighbour received on the hop before
+    (its own block on hop 0), into the same slot.  G = 1 returns the
+    input.  Returns ``bufs``."""
+    G = len(bufs)
+    n_loc = _n_loc(bufs, G)
+    if not _on_cuda(bufs):
+        return ring_all_gather_plain(bufs)
+
+    def hop(s, h):
+        b = (h - 1 - s) % G
+        kernels.ring_all_gather_hop(_block(bufs[h], b, n_loc),
+                                    _block(bufs[h - 1], b, n_loc))
+
+    _run_hops([t.device for t in bufs], G - 1, hop)
+    return bufs
+
+
+def _comm_buffers(xs, n_loc: int):
+    B = xs[0].shape[1]
+    return [torch.empty((2, n_loc, B), dtype=x.dtype, device=x.device)
+            for x in xs]
+
+
+def ring_reduce_scatter_plain(xs: list) -> list:
+    """Plain version of :func:`ring_reduce_scatter`."""
+    G = len(xs)
+    n_loc = _n_loc(xs, G)
+    if G == 1:
+        return list(xs)
+    comm = _comm_buffers(xs, n_loc)
+    for s in range(G - 1):
+        for h in range(G):
+            b = (h - s - 2) % G
+            recv = (_block(xs[h - 1], b, n_loc) if s == 0
+                    else comm[h - 1][s % 2])
+            torch.add(recv.to(xs[h].device), _block(xs[h], b, n_loc),
+                      out=comm[h][(s + 1) % 2])
+    return [c[(G - 1) % 2] for c in comm]
+
+
+def ring_reduce_scatter(xs: list) -> list:
+    """P2: ``xs[h]`` is shard h's full-length [G * n_loc, B] f32 partial;
+    returns, per shard h, the [n_loc, B] sum over shards of block h.
+    Partial sums pass right through a double-buffered [2, n_loc, B] slot
+    per shard, and each receiver adds its own block: at hop s,
+    ``comm_h[(s+1)%2] = comm_{h-1}[s%2] + x_h[block (h-s-2) mod G]``, the
+    received partial first as in ``fora_tpu/ops/ring.py:69-70``; hop 0
+    reads the left neighbour's block of ``x`` directly.  G = 1 returns
+    the input."""
+    G = len(xs)
+    n_loc = _n_loc(xs, G)
+    if not _on_cuda(xs):
+        return ring_reduce_scatter_plain(xs)
+    if G == 1:
+        return list(xs)
+    comm = _comm_buffers(xs, n_loc)
+
+    def hop(s, h):
+        b = (h - s - 2) % G
+        recv = (_block(xs[h - 1], b, n_loc) if s == 0
+                else comm[h - 1][s % 2])
+        kernels.ring_reduce_scatter_hop(comm[h][(s + 1) % 2], recv,
+                                        _block(xs[h], b, n_loc))
+
+    _run_hops([x.device for x in xs], G - 1, hop)
+    return [c[(G - 1) % 2] for c in comm]

@@ -3,12 +3,15 @@
 Port of ``fora_tpu/ops/topk.py::topk_rows_chunked`` (30-127).  Ties are
 broken by node id ascending, as ``lax.top_k`` does: every selection is a
 stable descending sort, and slab candidates are merged in slab order.  The
-hand-written kernel for the accept (K3) lives in ``algo.bounds``.
+hand-written kernel for the accept (K3) lives in ``algo.bounds``;
+``topk_sum`` (the sharded engine's local top-k) reuses its selection.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .. import kernels
 
 
 def _top(score: torch.Tensor, k: int):
@@ -46,3 +49,15 @@ def topk_rows_chunked(ppr: torch.Tensor, k: int, *extra: torch.Tensor,
     idx = torch.gather(torch.cat(cand_i, dim=1), 1, sel)
     outs = [torch.gather(torch.cat(ce, dim=1), 1, sel) for ce in cand_e]
     return (vals, idx, *outs)
+
+
+def topk_sum(p: torch.Tensor, addend: torch.Tensor, k: int):
+    """(vals [B, k], row ids [B, k] int64) of ``p + addend`` per column,
+    value descending then row id ascending.  A CPU tensor takes
+    :func:`topk_rows_chunked`; a CUDA tensor takes the selection of the
+    split-accept kernel (K3, ``kernels.topk_bounds``), whose sum
+    ``p + addend`` is the same f32 value (its bounds are not used)."""
+    if p.device.type == "cpu":
+        return topk_rows_chunked(p, k, addend=addend)
+    vals, idx = kernels.topk_bounds(p, addend, k, 0.0, 1.0)[:2]
+    return vals, idx.long()

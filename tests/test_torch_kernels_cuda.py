@@ -155,3 +155,109 @@ def test_walk_kernel_geometric_lengths(dev):
     assert abs(lens.mean() - 4.0) < 0.02
     assert abs((lens == 0).mean() - 0.2) < 0.002
     assert lens.max() <= 64
+
+
+def _ring_inputs(G, n_loc, B, devices, seed):
+    """P1 buffers (own block set, NaN elsewhere) and P2 partials, one per
+    shard on ``devices[h]``."""
+    rng = np.random.default_rng(seed)
+    bufs, xs = [], []
+    for h in range(G):
+        b = np.full((G * n_loc, B), np.nan, np.float32)
+        b[h * n_loc:(h + 1) * n_loc] = rng.standard_normal((n_loc, B))
+        bufs.append(torch.as_tensor(b, device=devices[h]))
+        xs.append(torch.as_tensor(
+            rng.standard_normal((G * n_loc, B)).astype(np.float32),
+            device=devices[h]))
+    return bufs, xs
+
+
+def _check_ring_kernels(devices, n_loc, B):
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops import ring
+    G = len(devices)
+    bufs, xs = _ring_inputs(G, n_loc, B, devices, seed=G * n_loc + B)
+    want = ring.ring_all_gather_plain([b.clone() for b in bufs])
+    before = kernels.launch_counts()
+    got = ring.ring_all_gather([b.clone() for b in bufs])
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    after = kernels.launch_counts()
+    assert after["ring_all_gather_hop"] - before["ring_all_gather_hop"] == \
+        (G - 1) * G
+    for h in range(G):
+        assert got[h].device == devices[h]
+        assert not torch.isnan(got[h]).any()
+        assert torch.equal(got[h], want[h])          # bit for bit
+        assert torch.equal(got[h].cpu(), got[0].cpu())
+    want = ring.ring_reduce_scatter_plain(xs)
+    got = ring.ring_reduce_scatter(xs)
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    assert kernels.launch_counts()["ring_reduce_scatter_hop"] - \
+        after["ring_reduce_scatter_hop"] == (G - 1) * G
+    total = sum(x.cpu().double() for x in xs)
+    for h in range(G):
+        assert got[h].shape == (n_loc, B) and got[h].device == devices[h]
+        assert torch.equal(got[h], want[h])          # bit for bit
+        torch.testing.assert_close(
+            got[h].cpu().double(), total[h * n_loc:(h + 1) * n_loc],
+            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_loc,B", [(1000, 4), (1001, 3), (131072, 128)])
+@pytest.mark.parametrize("G", [2, 4])
+def test_ring_kernels_match_plain_one_card(dev, G, n_loc, B):
+    """P1 and P2 with all G shards on one card: stream order is the whole
+    protocol.  (1001, 3) leaves the blocks unaligned for float4."""
+    _check_ring_kernels([dev] * G, n_loc, B)
+
+
+@pytest.mark.parametrize("cards", [2, 4])
+def test_ring_kernels_match_plain_across_cards(dev, cards):
+    """P1 and P2 with one shard on each of ``cards`` cards: peer reads,
+    ordered by CUDA events."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    _check_ring_kernels([torch.device("cuda", c) for c in range(cards)],
+                        4096, 128)
+
+
+@pytest.mark.parametrize("cards", [1, 4])
+def test_sharded_engine_on_card_matches_cpu(dev, cards):
+    """Four shards on ``cards`` cards (K1, K2, K3, P1, P2) against the same
+    engine on the CPU with the plain versions."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    from fora_tpu_torch import ForaConfig as TorchForaConfig
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.graph import generators as tgen
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.index import build_walk_index
+    from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
+    g = tgen.rmat(12, 1 << 15, seed=3)
+    rcfg = TorchForaConfig(epsilon=0.5, k=20).resolved(g.n, g.m)
+    idx = build_walk_index(to_device(g, device="cpu"), rcfg, seed=4)
+    src = np.arange(0, 64 * 61, 61)
+    res = {}
+    cuda = [torch.device("cuda", h % cards) for h in range(4)]
+    for name, devs in (("cpu", ["cpu"] * 4), ("cuda", cuda)):
+        eng = ShardedForaEngine(g, make_mesh(4, devices=devs), rcfg, index=idx)
+        kernels.reset_launch_counts()
+        res[name] = eng.topk(src)
+        counts = kernels.launch_counts()
+        if name == "cuda":
+            it = res[name].push_iters
+            assert it > 0 and counts["index_spmv"] > 0
+            assert counts["push_prepass"] == 4 * it
+            assert counts["gather_scatter_add"] == 4 * it
+            assert counts["ring_all_gather_hop"] == 12 * it
+            assert counts["ring_reduce_scatter_hop"] == 12
+            assert counts["topk_bounds"] == 4
+        else:
+            assert all(n == 0 for n in counts.values())
+    assert res["cuda"].push_iters == res["cpu"].push_iters
+    np.testing.assert_allclose(res["cuda"].values, res["cpu"].values,
+                               rtol=1e-5, atol=1e-7)
+    same = (res["cuda"].node_ids == res["cpu"].node_ids).mean()
+    assert same > 0.95

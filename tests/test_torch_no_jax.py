@@ -1,5 +1,6 @@
 """fora_tpu_torch runs without JAX and without the JAX package: it imports
-and answers a CPU query whether or not ``import jax`` would work, loading
+and answers a CPU query, single-device and sharded (``fora_tpu_torch.parallel``),
+whether or not ``import jax`` would work, loading
 no module of ``jax`` or ``fora_tpu``; no file of it (nor ``chip_smoke.py``)
 imports either; and CPU tensors never reach a CUDA kernel (every launch
 counter stays 0)."""
@@ -41,6 +42,12 @@ SCRIPT = textwrap.dedent("""
     assert res.node_ids.shape == (3, 10) and res.levels_used >= 1
     assert np.isfinite(res.values).all()
     assert (np.diff(res.values, axis=1) <= 0).all()
+    from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
+    eng = ShardedForaEngine(g, make_mesh(2, devices=["cpu"] * 2), rcfg,
+                            k=10, index=idx)
+    sres = eng.topk(queries.generate_sources(g, 3, seed=5))
+    assert sres.node_ids.shape == (3, 10) and sres.push_iters >= 1
+    assert np.isfinite(sres.values).all()
     assert all(n == 0 for n in kernels.launch_counts().values())
     foreign = sorted(m for m, mod in sys.modules.items() if mod is not None
                      and m.split(".")[0] in ("jax", "jaxlib", "fora_tpu"))
