@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive fora_tpu_torch's indexed top-k query path once on one NVIDIA GPU.
+"""Drive fora_tpu_torch's top-k query paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # the checks below
     python3 chip_smoke.py --profile 10    # query-phase profile instead
@@ -23,8 +23,8 @@ memory:
   6. kernels     K2 (every index bucket) and K3 (split accept) against
                  their plain versions on a real level's state
   7. quality     precision@50 of the first 32 queries against the exact
-                 oracle (float64 power iteration on the card); must be
-                 >= 0.95
+                 oracle (float64 power iteration on the card; exact ties
+                 at rank 50 go to the lowest node id); must be >= 0.95
   9. sharded     the graph-sharded indexed engine with G = 4 shards placed
                  by make_mesh (all on cuda:0 on a one-card machine): the
                  phase-1 host CSR and the phase-4 index partitioned, the
@@ -35,11 +35,27 @@ memory:
                  buffers, the top-50 against the single-device indexed
                  result at the same depth, precision@50 of the first 32
                  queries against phase 7's exact top-50 (>= 0.95)
-  8. proof       every kernel of each path launched in its run: K1-K4 in
-                 phases 4-5 (counts reset just before phase 4, read just
-                 after phase 5), K1-K3, P1 and P2 in phase 9's timed run
-                 with P1 at (G-1) G launches per superstep and P2 at
-                 (G-1) G; and neither JAX nor the JAX package fora_tpu
+  10. raw walk   the first 64 sources through TopkRunner(index=None)
+                 .query_pool(batch=64, defer_below=32) and flush_deferred,
+                 printing per level the walks demanded (largest column,
+                 all columns) beside JAX's static lane count, lanes walked,
+                 column chunks, supersteps and the ms of push, alloc,
+                 walks (K4), accum and accept (K3); no column may
+                 overflow; K4 against the plain run_walks by a two-sample
+                 chi-square on one real level's allocation; precision@50
+                 of the first 32 against phase 7's exact top-50 (>= 0.95)
+  11. montecarlo the first 32 sources through make_montecarlo_fn (2^22
+                 walks per query, K4): wall time, precision@50 (>= 0.95)
+  12. P3         the gather probe's first case (fora_tpu_torch.probes.
+                 gather_probe, B = 128): P3 against its plain version and
+                 K1 on the same edges sorted by destination (rtol 1e-4,
+                 atol 1e-5), and its rate lines
+  8. proof       every kernel of each path launched in its run (counts
+                 reset just before each run, read just after): K1-K4 in
+                 phases 4-5, K1-K3, P1 and P2 in phase 9's timed run with
+                 P1 at (G-1) G launches per superstep and P2 at (G-1) G,
+                 K1, K3 and K4 and no K2 in phase 10, K4 in phase 11, P3
+                 in phase 12; and neither JAX nor the JAX package fora_tpu
                  was imported
 
 It prints one JSON line of per-kernel results, then, only if every phase
@@ -49,10 +65,10 @@ and exits non-zero.
 ``--profile PAIRS`` runs phases 1, 2 and 4, then times the query phase
 with the hub split on and off in PAIRS alternating pairs, and phase 9's
 sharded one-shot top-k against the single-device level at the same depth
-in PAIRS more; it profiles one more run of each with torch.profiler
-(device busy time, idle share, per-kernel device time; full tables in
-PROFILE_DIR) and times each shard's push gather against one
-single-device gather.
+in PAIRS more, and one phase-10 pool PAIRS times; it profiles one more
+run of each with torch.profiler (device busy time, idle share,
+per-kernel device time; full tables in PROFILE_DIR) and times each
+shard's push gather against one single-device gather.
 """
 
 from __future__ import annotations
@@ -82,6 +98,10 @@ MAIN_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
 SHARDED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                    "topk_bounds", "ring_all_gather_hop",
                    "ring_reduce_scatter_hop")
+RAW_KERNELS = ("push_prepass", "gather_scatter_add", "index_walk",
+               "topk_bounds")
+RAW_QUERIES, RAW_BATCH, RAW_DEFER = 64, 64, 32
+MC_QUERIES, CHISQ_SOURCES, CHISQ_MIN_P = 32, 8, 1e-3
 
 
 def fail(msg: str):
@@ -121,45 +141,64 @@ def build_index(g, dg, rcfg):
     return index
 
 
-def run_queries(runner, sources, log=print):
-    """bench.py's query phase: pools of POOL through query_pool, then
+def level_line(where, st, runner=None) -> str:
+    """One level record of ``runner.last_level_stats``; a raw-walk level
+    adds its walk counts, JAX's static lane count for the level
+    (walk_lane_budget, capped at its 2^23 lanes) and per-stage ms."""
+    line = (f"  {where} level {st['level']}: pending {st['pending']} width "
+            f"{st['width']} batches {st['batches']} accepted "
+            f"{st['accepted']} supersteps {st['supersteps']} {st['secs']} s")
+    if "walks_max" in st:
+        from fora_tpu_torch.ops.walk import walk_lane_budget
+        rc = runner.rcfg.with_delta(st["delta"])
+        static = walk_lane_budget(rc.omega_unit, rc.rmax, rc.m, rc.n,
+                                  cap=1 << 23)
+        ms = " ".join(f"{k} {v:.2f}" for k, v in st["ms"].items())
+        line += (f"; walks demanded max {st['walks_max']} total "
+                 f"{st['walks_total']} (JAX's static lanes {static}); lanes "
+                 f"{st['lanes']} in {st['chunks']} chunks; overflow "
+                 f"{st['overflow']}; ms {ms}")
+    return line
+
+
+def run_queries(runner, sources, log=print, pool=POOL, batch=BATCH,
+                defer=DEFER):
+    """bench.py's query phase: pools of ``pool`` through query_pool, then
     flush_deferred.  Returns ({source: top-k ids}, accepted, levels used,
-    wall seconds)."""
+    wall seconds, every level record)."""
     import torch
-    results, n_acc, levels = {}, 0, 0
-    pools = [sources[i:i + POOL] for i in range(0, len(sources), POOL)]
+    results, n_acc, levels, stats = {}, 0, 0, []
+    pools = [sources[i:i + pool] for i in range(0, len(sources), pool)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for pi, pool in enumerate(pools):
-        res = runner.query_pool(pool, batch=BATCH, defer_below=DEFER)
-        for i, s in enumerate(pool):
+    for pi, part in enumerate(pools):
+        res = runner.query_pool(part, batch=batch, defer_below=defer)
+        for i, s in enumerate(part):
             if not res.deferred[i]:
                 results[int(s)] = res.node_ids[i]
         n_acc += int(res.accepted.sum())
         levels = max(levels, res.levels_used)
+        stats += runner.last_level_stats
         for st in runner.last_level_stats:
-            log(f"  pool {pi} level {st['level']}: pending {st['pending']} "
-                f"width {st['width']} batches {st['batches']} accepted "
-                f"{st['accepted']} {st['secs']} s")
-    dsrcs, dres = runner.flush_deferred(batch=BATCH)
+            log(level_line(f"pool {pi}", st, runner))
+    dsrcs, dres = runner.flush_deferred(batch=batch)
     if dres is not None:
         for i, s in enumerate(dsrcs):
             results[int(s)] = dres.node_ids[i]
         n_acc += int(dres.accepted.sum())
         levels = max(levels, dres.levels_used)
+        stats += runner.last_level_stats
         for st in runner.last_level_stats:
-            log(f"  flush({len(dsrcs)}) level {st['level']}: pending "
-                f"{st['pending']} width {st['width']} batches "
-                f"{st['batches']} accepted {st['accepted']} {st['secs']} s")
+            log(level_line(f"flush({len(dsrcs)})", st, runner))
     torch.cuda.synchronize()
-    return results, n_acc, levels, time.perf_counter() - t0
+    return results, n_acc, levels, time.perf_counter() - t0, stats
 
 
 def profile_once(name, fn):
     """One run of ``fn`` under torch.profiler: wall, device busy time, idle
     share and the kernels by device time (full table in
     PROFILE_DIR/profile_<name>.txt)."""
-    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     PROFILE_DIR.mkdir(exist_ok=True)
@@ -167,17 +206,20 @@ def profile_once(name, fn):
                              ProfilerActivity.CUDA]) as prof:
         wall = timed(fn)
     ka = prof.key_averages()
+    # the device's own records (kernels, copies); an aten op's device time
+    # repeats its kernels' and is left out
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
-    busy_ms = sum(dev_us(e) for e in ka) / 1e3
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     out = PROFILE_DIR / f"profile_{name}.txt"
     out.write_text(ka.table(sort_by="self_cuda_time_total", row_limit=30))
     print(f"profile {name}: profiled wall {wall * 1e3:.1f} ms, device busy "
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / (wall * 1e3):.3f} "
           f"({out.name})")
-    for e in sorted(ka, key=dev_us, reverse=True)[:8]:
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
         if dev_us(e) > 0:
             print(f"  {e.key[:60]}: {dev_us(e) / 1e3:.2f} ms, "
                   f"{e.count} calls")
@@ -278,6 +320,157 @@ def profile_sharded(pairs, g, rcfg, index, sources, dev):
     print(f"profile gather: {SHARDS} shard launches {sum(per):.3f} ms in all "
           f"against one launch {one:.3f} ms over {int(deg.sum())} edges "
           f"(largest in-degree {int(deg.max())})")
+
+
+def two_sample_chisq(a, b, nbins: int) -> float:
+    """p-value of the chi-square test that two samples of bin ids (equal
+    sizes) come from one distribution; bins with fewer than 10 draws in
+    both samples together are merged into one."""
+    import numpy as np
+    import torch
+    from scipy import stats
+    ca = torch.bincount(a, minlength=nbins).double().cpu().numpy()
+    cb = torch.bincount(b, minlength=nbins).double().cpu().numpy()
+    keep = ca + cb >= 10
+    obs = np.stack([np.append(ca[keep], ca[~keep].sum()),
+                    np.append(cb[keep], cb[~keep].sum())])
+    obs = obs[:, obs.sum(axis=0) > 0]
+    return float(stats.chi2_contingency(obs)[1])
+
+
+def k4_vs_plain_on_level(runner, dg, sources, level):
+    """K4 against the plain lockstep walk on one real level's allocation:
+    push CHISQ_SOURCES one-hot residues to the level's rmax, allocate the
+    measured demand (JAX's allocate_walks, no lane dropped), walk the
+    flattened lanes both ways, and compare the (column, endpoint) counts
+    of the valid lanes by a two-sample chi-square.  Returns (p-value,
+    walks, K4 ms, plain ms)."""
+    import torch
+    from fora_tpu_torch.ops import push, walk
+    from fora_tpu_torch.utils.timing import cuda_ms
+    rc = runner.rcfg.with_delta(runner.deltas[level])
+    src = torch.as_tensor(sources[:CHISQ_SOURCES], dtype=torch.int32,
+                          device=dg.device)
+    st = push.forward_push(dg, src, rmax=rc.rmax, alpha=rc.alpha,
+                           max_iters=rc.max_push_iters)
+    total = walk.walk_demand(st.r, rc.omega_unit).total
+    alloc = walk.allocate_walks(st.r, rc.omega_unit, int(total.max()))
+    if bool(alloc.overflow.any()):
+        fail("allocate_walks dropped walks at the measured demand")
+    start = alloc.start.view(-1)
+    col = torch.arange(start.numel(), device=dg.device) % CHISQ_SOURCES
+    valid = alloc.valid.view(-1)
+    gen = torch.Generator(device=dg.device).manual_seed(SEED)
+    ends_k = walk.walk_endpoints(dg, start, SEED, rc.alpha, rc.max_walk_hops)
+    ends_p = walk.run_walks(dg, start, generator=gen, alpha=rc.alpha,
+                            max_hops=rc.max_walk_hops)
+    pv = two_sample_chisq((col * dg.n + ends_k)[valid],
+                          (col * dg.n + ends_p)[valid],
+                          CHISQ_SOURCES * dg.n)
+    k_ms = cuda_ms(lambda: walk.walk_endpoints(dg, start, SEED, rc.alpha,
+                                               rc.max_walk_hops), iters=3)
+    p_ms = cuda_ms(lambda: walk.run_walks(dg, start, generator=gen,
+                                          alpha=rc.alpha,
+                                          max_hops=rc.max_walk_hops),
+                   iters=2, warmup=0)
+    return pv, int(valid.sum()), k_ms, p_ms
+
+
+def run_raw(dg, rcfg, sources, exact_ids):
+    """Phase 10: the raw-walk runner over the first RAW_QUERIES sources.
+    Returns its launch counts (reset just before the run, read just
+    after)."""
+    import numpy as np
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo.topk import TopkRunner
+    from fora_tpu_torch.eval import metrics
+    runner = TopkRunner(dg, rcfg, k=K, index=None, delta_stride=DSTRIDE,
+                        accept_slack=ACCEPT)
+    src = sources[:RAW_QUERIES]
+    kernels.reset_launch_counts()
+    results, n_acc, levels, wall, stats = run_queries(
+        runner, src, pool=RAW_QUERIES, batch=RAW_BATCH, defer=RAW_DEFER)
+    counts = kernels.launch_counts()
+    if len(results) != len(src):
+        fail(f"raw: {len(results)} of {len(src)} queries answered")
+    over = sum(st["overflow"] for st in stats)
+    walks = sum(st["walks_total"] for st in stats)
+    lanes = sum(st["lanes"] for st in stats)
+    print(f"raw: {len(src)} queries in {wall:.3f} s -> {len(src) / wall:.2f} "
+          f"q/s; levels used {levels}; accepted {n_acc}/{len(src)}; "
+          f"overflowing columns {over}; walks {walks}, lanes {lanes}")
+    if over:
+        fail(f"raw: {over} columns overflowed their lanes")
+    ms = {}
+    for st in stats:
+        for k, v in st["ms"].items():
+            ms[k] = ms.get(k, 0.0) + v
+    print("raw: ms by stage over all levels: "
+          + " ".join(f"{k} {v:.2f}" for k, v in ms.items()))
+    level = max(st["level"] for st in stats)
+    pv, walks, k_ms, p_ms = k4_vs_plain_on_level(runner, dg, src, level)
+    print(f"raw: K4 vs plain run_walks on level {level}'s allocation of "
+          f"{CHISQ_SOURCES} queries ({walks} walks): chi-square p-value "
+          f"{pv:.4f} (limit {CHISQ_MIN_P}; conservative, both samples "
+          f"walk from the same starts); {k_ms:.3f} ms vs plain "
+          f"{p_ms:.3f} ms")
+    if not pv > CHISQ_MIN_P:
+        fail(f"raw: K4 endpoints differ from plain (p = {pv:.2e})")
+    pred = np.stack([results[int(s)] for s in src[:len(exact_ids)]])
+    prec = metrics.batch_precision_at_k(pred, exact_ids)
+    print(f"raw precision@{K}: {prec:.4f} over {len(exact_ids)} queries "
+          f"(limit {MIN_PRECISION})")
+    if not prec >= MIN_PRECISION:
+        fail(f"raw precision@{K} {prec:.4f} < {MIN_PRECISION}")
+    return counts
+
+
+def run_montecarlo(dg, rcfg, sources, exact_ids):
+    """Phase 11: Monte Carlo top-k of the first MC_QUERIES sources.
+    Returns its launch counts."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo.montecarlo import (make_montecarlo_fn,
+                                                montecarlo_chunks)
+    from fora_tpu_torch.eval import metrics
+    from fora_tpu_torch.ops.topk import topk_nodes
+    from fora_tpu_torch.ops.walk import lane_budget
+    fn = make_montecarlo_fn(dg, rcfg)
+    src = np.asarray(sources[:MC_QUERIES])
+    chunks = len(montecarlo_chunks(fn.num_walks, len(src),
+                                   lane_budget(dg.device)))
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = topk_nodes(fn(src, SEED), K)[1].cpu().numpy()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    prec = metrics.batch_precision_at_k(ids[:len(exact_ids)], exact_ids)
+    print(f"montecarlo: {len(src)} queries x {fn.num_walks} walks in "
+          f"{chunks} chunks: {wall:.3f} s -> {len(src) / wall:.2f} q/s; "
+          f"precision@{K} {prec:.4f} (limit {MIN_PRECISION})")
+    if not prec >= MIN_PRECISION:
+        fail(f"montecarlo precision@{K} {prec:.4f} < {MIN_PRECISION}")
+    return counts
+
+
+def run_p3(dev):
+    """Phase 12: the gather probe's first case.  Returns (kernel row,
+    launch counts)."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.probes import gather_probe
+    from fora_tpu_torch.utils.timing import cuda_ms
+    kernels.reset_launch_counts()
+    res = gather_probe.p3_case(gather_probe.WIDTHS[0], dev, cuda_ms)
+    counts = kernels.launch_counts()
+    print(f"P3: max abs err {res['err_plain']:.3e} vs plain, "
+          f"{res['err_k1']:.3e} vs K1 on the edges sorted by destination "
+          f"(rtol {gather_probe.RTOL}, atol {gather_probe.ATOL})")
+    for line in res["lines"]:
+        print(line)
+    return dict(max_abs_err=res["err_plain"], ms=res["ms"],
+                plain_ms=res["plain_ms"]), counts
 
 
 def sorted_topk(vals, ids):
@@ -501,6 +694,15 @@ def main(argv=None) -> int:
         profile_queries(args.profile, {f"hub{HUB_ROWS}": dg, "flat": dg_flat},
                         make_runner, sources)
         profile_sharded(args.profile, g, rcfg, index, sources[:POOL], dev)
+        raw = TopkRunner(dg, rcfg, k=K, index=None, delta_stride=DSTRIDE,
+                         accept_slack=ACCEPT)
+
+        def raw_pool():
+            run_queries(raw, sources[:RAW_QUERIES], lambda *a: None,
+                        pool=RAW_QUERIES, batch=RAW_BATCH, defer=RAW_DEFER)
+        alternate(args.profile, {"raw": lambda: timed(raw_pool)},
+                  f"pool of {RAW_QUERIES} raw-walk queries")
+        profile_once("raw", raw_pool)
         return 0
 
     # ---- 3. K1 and K4 against their plain versions -----------------------
@@ -634,7 +836,7 @@ def main(argv=None) -> int:
     with Phase("queries"):
         runner = TopkRunner(dg, rcfg, k=K, index=index, delta_stride=DSTRIDE,
                             accept_slack=ACCEPT)
-        results, n_acc, levels, elapsed = run_queries(runner, sources)
+        results, n_acc, levels, elapsed, _ = run_queries(runner, sources)
         if len(results) != QUERIES:
             fail(f"{len(results)} of {QUERIES} queries answered")
         print(f"queries: {QUERIES} in {elapsed:.3f} s -> "
@@ -724,6 +926,14 @@ def main(argv=None) -> int:
             g, rcfg, index, sources[:POOL], dev, ex[:EVAL_N])
         rows.update(sharded_rows)
 
+    # ---- 10.-12. raw walk, Monte Carlo, P3 --------------------------------
+    with Phase("raw walk"):
+        raw_launches = run_raw(dg, rcfg, sources, ex[:EVAL_N])
+    with Phase("montecarlo"):
+        mc_launches = run_montecarlo(dg, rcfg, sources, ex[:EVAL_N])
+    with Phase("P3"):
+        rows["row_scatter_add"], p3_launches = run_p3(dev)
+
     # ---- 8. proof that each path ran on its kernels ------------------------
     print(f"launches in phases 4-5: {launches}")
     for name in MAIN_KERNELS:
@@ -734,6 +944,18 @@ def main(argv=None) -> int:
     for name in SHARDED_KERNELS:
         if sharded_launches[name] <= 0:
             fail(f"kernel {name} was not launched on the sharded path")
+    print(f"launches in phase 10: {raw_launches}")
+    for name in RAW_KERNELS:
+        if raw_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the raw-walk path")
+    if raw_launches["index_spmv"]:
+        fail("the raw-walk path launched the index SpMV")
+    print(f"launches in phase 11: {mc_launches}")
+    if mc_launches["index_walk"] <= 0:
+        fail("K4 was not launched on the Monte Carlo path")
+    print(f"launches in phase 12: {p3_launches}")
+    if p3_launches["row_scatter_add"] <= 0:
+        fail("P3 was not launched by the gather probe")
     hops = (SHARDS - 1) * SHARDS
     if sharded_launches["ring_all_gather_hop"] != hops * sh_iters:
         fail(f"P1: {sharded_launches['ring_all_gather_hop']} launches, "
@@ -753,11 +975,15 @@ def main(argv=None) -> int:
         "index_walk": ("walk.cu", "fora_tpu/ops/walk.py:159"),
         "ring_all_gather_hop": ("ring.cu", "fora_tpu/ops/ring.py:107"),
         "ring_reduce_scatter_hop": ("ring.cu", "fora_tpu/ops/ring.py:32"),
+        "row_scatter_add": ("row_scatter.cu",
+                            "scripts/pallas_gather_probe.py:43"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
         row = rows[name]
-        n = launches[name] if name in MAIN_KERNELS else sharded_launches[name]
+        n = (launches[name] if name in MAIN_KERNELS else
+             p3_launches[name] if name == "row_scatter_add" else
+             sharded_launches[name])
         out.append({"name": name, "route": "cuda",
                     "source": f"fora_tpu_torch/kernels/csrc/{src_file}",
                     "replaces": replaces, "launches": n,

@@ -1,12 +1,14 @@
 """fora_tpu_torch: the FORA approximate-PPR engine on PyTorch and CUDA.
 
-A port of ``fora_tpu`` (JAX) that runs the indexed top-k query path on an
-NVIDIA H100: forward push as masked SpMV supersteps, the FORA+ walk index
+A port of ``fora_tpu`` (JAX) that runs the top-k query paths on an
+NVIDIA H100: forward push as masked SpMV supersteps, the walk phase from
+sampled walks (raw-walk FORA, Monte Carlo) or from the FORA+ walk index
 (built by a walk kernel, served as a weighted SpMV), and top-k refinement
 with Bernstein-bound acceptance; and the graph-sharded one-shot top-k
 (``parallel``), whose shards exchange over a ring all-gather and a ring
-reduce-scatter.  Its hot loops and the two ring hops are hand-written
-CUDA kernels (``kernels/csrc``) built at first use; CPU tensors run plain
+reduce-scatter.  Its hot loops, the two ring hops and the gather probe's
+per-edge accumulate (``probes``) are hand-written CUDA kernels
+(``kernels/csrc``) built at first use; CPU tensors run plain
 PyTorch versions of the same functions.  Every function takes its device
 from an explicit argument or from the tensors it is given.  The package
 imports torch and numpy only: nothing of JAX and nothing of ``fora_tpu``.

@@ -1,11 +1,12 @@
 """Per-node Bernstein confidence bounds and the split top-k accept.
 
 Port of ``fora_tpu/algo/bounds.py`` (57-142); the derivation is in that
-module's docstring.  ``topk_with_bounds_split`` ranks the split estimate
-p + contrib per column, returns the top-k with per-node bounds and the
-separation test, and runs on a CUDA tensor as one hand-written kernel
-(K3, ``kernels/csrc/topk_bounds.cu``); a CPU tensor takes the plain
-version, built on ``ops.topk.topk_rows_chunked``.
+module's docstring.  ``topk_with_bounds_split`` ranks the split
+estimate p + contrib per column, returns the top-k with per-node bounds
+and the separation test, and runs on a CUDA tensor as one hand-written
+kernel (K3, ``kernels/csrc/topk_bounds.cu``); a CPU tensor takes the
+plain version, built on ``ops.topk.topk_rows_chunked``.
+``topk_with_bounds`` is the unsplit accept, plain only.
 """
 
 from __future__ import annotations
@@ -45,14 +46,12 @@ def _c(omega_unit: float) -> np.float32:
     return np.float32(1.0) / np.float32(omega_unit)
 
 
-def topk_with_bounds_split_plain(p: torch.Tensor, contrib: torch.Tensor,
-                                 omega_unit: float, k: int, t: float,
-                                 eps: float):
-    """Plain version of :func:`topk_with_bounds_split`."""
-    n, B = p.shape
-    kk = min(k + 1, n)
-    c = torch.tensor(_c(omega_unit), device=p.device)
-    vals, idx, p_all = topk_rows_chunked(p, kk, p, addend=contrib)
+def _bounds(vals, idx, p_all, omega_unit: float, k: int, t: float,
+            eps: float):
+    """The accept's epilogue on the top-(k+1) ``vals``/``idx`` [B, kk] and
+    p at those rows: the 7-tuple of :func:`topk_with_bounds_split`."""
+    B, kk = vals.shape
+    c = torch.tensor(_c(omega_unit), device=vals.device)
     vals_k, idx_k = vals[:, :k], idx[:, :k].to(torch.int32)
     p_at = p_all[:, :k]
     mu_hat = torch.clamp_min(vals_k - p_at, 0.0)
@@ -63,9 +62,28 @@ def topk_with_bounds_split_plain(p: torch.Tensor, contrib: torch.Tensor,
     if kk > k:
         ub_excluded = bernstein_ub(vals[:, k], c, t)   # worst case p = 0
     else:  # k >= n: nothing is excluded
-        ub_excluded = torch.zeros(B, dtype=p.dtype, device=p.device)
+        ub_excluded = torch.zeros(B, dtype=vals.dtype, device=vals.device)
     accept = lbk * (1.0 + eps) >= ub_excluded
     return vals_k, idx_k, lb, ub, lbk, ub_excluded, accept
+
+
+def topk_with_bounds(ppr: torch.Tensor, p: torch.Tensor, omega_unit: float,
+                     k: int, t: float, eps: float):
+    """The unsplit accept (``fora_tpu``'s ``_topk_with_bounds``, 80-109) on
+    a whole estimate ``ppr`` and the settled mass ``p``, both [n, B]; plain
+    PyTorch on any device.  The raw-walk runner takes the split accept
+    instead (K3 forms the same f32 sum p + contrib)."""
+    kk = min(k + 1, ppr.shape[0])
+    return _bounds(*topk_rows_chunked(ppr, kk, p), omega_unit, k, t, eps)
+
+
+def topk_with_bounds_split_plain(p: torch.Tensor, contrib: torch.Tensor,
+                                 omega_unit: float, k: int, t: float,
+                                 eps: float):
+    """Plain version of :func:`topk_with_bounds_split`."""
+    kk = min(k + 1, p.shape[0])
+    return _bounds(*topk_rows_chunked(p, kk, p, addend=contrib), omega_unit,
+                   k, t, eps)
 
 
 def topk_with_bounds_split(p: torch.Tensor, contrib: torch.Tensor,

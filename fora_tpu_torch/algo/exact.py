@@ -53,14 +53,13 @@ def exact_ppr_batch(g, sources, alpha: float = 0.2, tol: float = 1e-12,
 
 def topk_ids(x: torch.Tensor, k: int) -> np.ndarray:
     """[B, k] int64 top-k ids of each column of ``x`` [n, B], by value
-    descending.  Selected on the host exactly as ``fora_tpu``'s
-    ``exact_topk_batch`` does (argpartition, then a stable sort of the k),
-    so that exact ties at rank k resolve the same way in both packages."""
-    xt = x.T.cpu().numpy()
-    part = np.argpartition(-xt, k - 1, axis=1)[:, :k]
-    vals = np.take_along_axis(xt, part, axis=1)
-    order = np.argsort(-vals, kind="stable", axis=1)
-    return np.take_along_axis(part, order, axis=1).astype(np.int64)
+    descending, then node id ascending: the tie rule of every top-k in
+    both packages (``lax.top_k``, K3).  ``fora_tpu``'s ``exact_topk_batch``
+    resolves exact ties at rank k by numpy's argpartition, whose order is
+    unspecified and differs between numpy versions; a source with fewer
+    than k nodes of positive PPR fills its list with such ties."""
+    order = torch.sort(x.T, dim=1, descending=True, stable=True).indices
+    return order[:, :k].cpu().numpy().astype(np.int64)
 
 
 def exact_topk_batch(g, sources, k: int, alpha: float = 0.2,

@@ -1,11 +1,17 @@
-"""Top-k PPR with iterative guarantee refinement, indexed (FORA+) mode.
+"""Top-k PPR with iterative guarantee refinement, raw-walk or indexed
+(FORA+) mode.
 
 Port of ``fora_tpu/algo/topk.py`` (44-77, 193-766), whose module
 docstring explains the delta schedule and the two acceptance tests
-(threshold rule and Bernstein-bound separation).  The raw-walk mode and
-the TPU memory levers (``push_pair``, ``walk_half``, ``narrow_r``) are not
-ported.  ``key`` arguments are optional seeds that indexed mode ignores,
-as JAX's does.
+(threshold rule and Bernstein-bound separation).  The TPU memory levers
+(``push_pair``, ``walk_half``, ``narrow_r``) and the raw mode's lane
+buckets are not ported.  A level is push + walk phase + the split accept
+(K3, on p + contrib): in raw mode the walk phase samples walks sized by
+the measured demand (``ops.walk.walk_phase``), in indexed mode it is the
+index SpMV.  ``key`` arguments are optional seeds: a call without one
+takes the next seed of the runner's own sequence, and every (call, level,
+block) draws from its own ``derive_seed`` stream; indexed mode ignores
+them, as JAX's does.
 
 Pool state lives as a list of contiguous [n, width] (p, r) column blocks
 on the graph's device; a level step advances a block in place.
@@ -24,8 +30,10 @@ import torch
 
 from ..config import ResolvedConfig
 from ..graph.csr import DeviceGraph
+from ..ops.walk import derive_seed
+from ..utils.timing import StageClock
 from . import bounds as bounds_mod
-from .fora import StagedForaPrograms
+from .fora import StagedForaPrograms, raw_lean_state
 
 
 class TopkResult(NamedTuple):
@@ -56,6 +64,20 @@ def _cat_cols(pieces):
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
 
 
+def _merge_info(acc: dict, info: dict) -> None:
+    """Sum one block's level ``info`` into ``acc`` (``walks_max`` takes
+    the largest, ``ms`` sums per stage)."""
+    for name, v in info.items():
+        if name == "ms":
+            ms = acc.setdefault("ms", {})
+            for stage, t in v.items():
+                ms[stage] = ms.get(stage, 0.0) + t
+        elif name == "walks_max":
+            acc[name] = max(acc.get(name, 0), v)
+        else:
+            acc[name] = acc.get(name, 0) + v
+
+
 class TopkRunner:
     """Drives the delta-refinement loop over StagedForaPrograms levels."""
 
@@ -66,12 +88,9 @@ class TopkRunner:
     def __init__(self, graph: DeviceGraph, rcfg: ResolvedConfig,
                  k: Optional[int] = None, index=None,
                  delta_stride: float = 2.0, accept_slack: float = 1.0):
-        """``index`` (a fora_tpu_torch WalkIndex) is required: only the
-        indexed mode is ported.  accept_slack > 1 tightens the threshold
+        """``index`` (a fora_tpu_torch WalkIndex) selects the indexed mode;
+        None runs raw walks.  accept_slack > 1 tightens the threshold
         rule; the Bernstein separation test is always on."""
-        if index is None:
-            raise NotImplementedError("fora_tpu_torch ports the indexed "
-                                      "(FORA+) top-k mode only")
         self.graph = graph
         self.rcfg = rcfg
         self.k = k if k is not None else rcfg.k
@@ -80,17 +99,20 @@ class TopkRunner:
         self._t = bounds_mod.union_bound_t(rcfg.n, len(self.deltas),
                                            rcfg.pfail)
         self._index = index
-        self._staged = StagedForaPrograms(graph, rcfg, index)
+        self._staged = (None if index is None else
+                        StagedForaPrograms(graph, rcfg, index))
         self.auto_start_level = 0
         self._pools_since_probe = 0
         self._deferred = []   # stashed stragglers: {sources, p, r, level}
         self._lsteps = {}
-        # per level: (index depth, rmax, omega_unit)
+        self._calls = 0       # calls that took the runner's own seed
+        # per level: (index depth or None in raw mode, rmax, omega_unit)
         self._levels = []
         for d in self.deltas:
             rc = rcfg.with_delta(d)
-            self._levels.append((index.depth_for(rc.omega_unit, rc.rmax),
-                                 rc.rmax, rc.omega_unit))
+            depth = (None if index is None else
+                     index.depth_for(rc.omega_unit, rc.rmax))
+            self._levels.append((depth, rc.rmax, rc.omega_unit))
         self.last_level_stats = []
 
     # --- one level ------------------------------------------------------
@@ -104,19 +126,49 @@ class TopkRunner:
         r[sources.long(), torch.arange(C, device=dev)] = 1.0
         return p, r
 
-    def _level_step(self, ckey: int):
-        """``(p, r, rmax, omega_unit) -> (vals, idx, lb, ub, bacc, p', r')``
-        at index depth ``ckey``; p and r advance in place."""
-        if ckey not in self._lsteps:
-            lean = self._staged.lean_state_fn(ckey)
+    def _call_seed(self, key: Optional[int]) -> int:
+        """The seed of one call: ``key``, else the next of the runner's."""
+        if key is None:
+            key = derive_seed(self._calls)
+            self._calls += 1
+        return int(key)
 
-            def fn(p, r, rmax, omega_unit):
-                p2, r2, contrib, _ = lean(p, r, rmax, omega_unit)
-                vals, idx, lb, ub, _, _, bacc = \
-                    bounds_mod.topk_with_bounds_split(
-                        p2, contrib, omega_unit, self.k, self._t,
-                        self.rcfg.epsilon)
-                return vals, idx, lb, ub, bacc, p2, r2
+    def _accept(self, p, contrib, omega_unit):
+        vals, idx, lb, ub, _, _, bacc = bounds_mod.topk_with_bounds_split(
+            p, contrib, omega_unit, self.k, self._t, self.rcfg.epsilon)
+        return vals, idx, lb, ub, bacc
+
+    def _level_step(self, ckey: Optional[int]):
+        """``(p, r, rmax, omega_unit, seed, live) -> (vals, idx, lb, ub,
+        bacc, p', r', info)`` at index depth ``ckey`` (None: raw walks from
+        ``seed`` for the first ``live`` columns; the rest are padding); p
+        and r advance in place.  ``info`` holds the level's supersteps and,
+        in raw mode, its walk counts and per-stage milliseconds."""
+        if ckey not in self._lsteps:
+            if ckey is not None:
+                lean = self._staged.lean_state_fn(ckey)
+
+                def fn(p, r, rmax, omega_unit, seed, live):
+                    del seed, live   # indexed mode is deterministic
+                    p2, r2, contrib, iters = lean(p, r, rmax, omega_unit)
+                    return (*self._accept(p2, contrib, omega_unit), p2, r2,
+                            {"supersteps": iters})
+            else:
+                def fn(p, r, rmax, omega_unit, seed, live):
+                    clock = StageClock(p.device)
+                    p2, r2, contrib, iters, walk = raw_lean_state(
+                        self.graph, p, r, seed, rmax, omega_unit,
+                        rcfg=self.rcfg, live=live, clock=clock)
+                    with clock.stage("accept"):
+                        out = self._accept(p2, contrib, omega_unit)
+                    del contrib
+                    info = {"supersteps": iters,
+                            "walks_max": walk.walks_max,
+                            "walks_total": walk.walks_total,
+                            "lanes": walk.lanes, "chunks": walk.chunks,
+                            "overflow": int(walk.overflow.sum()),
+                            "ms": clock.ms()}
+                    return (*out, p2, r2, info)
 
             self._lsteps[ckey] = fn
         return self._lsteps[ckey]
@@ -126,7 +178,7 @@ class TopkRunner:
     def query(self, sources, key: Optional[int] = None) -> TopkResult:
         """Whole-batch refinement: every query advances levels together
         until all accept."""
-        del key
+        call = self._call_seed(key)
         dev = self.graph.device
         src = torch.as_tensor(np.asarray(sources), dtype=torch.int32,
                               device=dev)
@@ -141,8 +193,8 @@ class TopkRunner:
         for level, d in enumerate(self.deltas):
             levels = level + 1
             ckey, rmax, omega_unit = self._levels[level]
-            vals, idx, lb, ub, bacc, p, r = self._level_step(ckey)(
-                p, r, rmax, omega_unit)
+            vals, idx, lb, ub, bacc, p, r, _ = self._level_step(ckey)(
+                p, r, rmax, omega_unit, derive_seed(call, level, 0), B)
             vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
             lb, ub, bacc = lb.cpu().numpy(), ub.cpu().numpy(), \
                 bacc.cpu().numpy()
@@ -170,8 +222,14 @@ class TopkRunner:
 
         ``_state`` (used by flush_deferred): resume from the given
         [n, len(sources)] (p, r) instead of one-hot state.
+
+        ``last_level_stats`` gets one record per level run: widths,
+        acceptances, wall seconds and the level's supersteps; in raw mode
+        also walks demanded (largest column, all columns), lanes walked,
+        walk-phase chunks, overflowing columns (always 0) and the
+        milliseconds of push, alloc, walks, accum and accept.
         """
-        del key
+        call = self._call_seed(key)
         dev = self.graph.device
         sources = np.asarray(sources)
         n_q = len(sources)
@@ -233,15 +291,18 @@ class TopkRunner:
             keep_cols = []
             n_ok = 0
             n_ok_bound = 0   # accepted by the bound test alone
+            work = {}
             for bi in range(len(blocks)):
                 pc, rc = blocks[bi]
-                vals, idx, lb, ub, bacc, pc, rc = fn(pc, rc, rmax,
-                                                     omega_unit)
+                lo = bi * width
+                vals, idx, lb, ub, bacc, pc, rc, info = fn(
+                    pc, rc, rmax, omega_unit, derive_seed(call, level, lo),
+                    min(width, len(pending) - lo))
                 blocks[bi] = (pc, rc)
+                _merge_info(work, info)
                 vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
                 lb, ub = lb.cpu().numpy(), ub.cpu().numpy()
                 bacc = bacc.cpu().numpy()
-                lo = bi * width
                 for b in range(width):
                     g = lo + b
                     if g >= len(pending):
@@ -264,7 +325,7 @@ class TopkRunner:
                 level=level, delta=d, width=width, batches=len(blocks),
                 pending=n_pending, accepted=n_ok,
                 accepted_bound_only=n_ok_bound,
-                secs=round(time.perf_counter() - t0, 3)))
+                secs=round(time.perf_counter() - t0, 3), **work))
             if not keep_cols:
                 pending = pending[:0]
                 break
@@ -300,22 +361,23 @@ class TopkRunner:
         stashed level, resumed from the stashed push state.  Returns
         ``(sources, TopkResult)``, or ``(empty, None)`` if nothing was
         stashed."""
-        del key
         if not self._deferred:
             return np.empty(0, np.int64), None
+        call = self._call_seed(key)
         groups, self._deferred = self._deferred, []
         by_level: dict = {}
         for g in groups:
             by_level.setdefault(g["level"], []).append(g)
         all_srcs, parts = [], []
-        for start, gs in sorted(by_level.items()):
+        for li, (start, gs) in enumerate(sorted(by_level.items())):
             srcs = np.concatenate([g["sources"] for g in gs])
             p = _cat_cols([g["p"] for g in gs])
             r = _cat_cols([g["r"] for g in gs])
             for g in gs:
                 g.clear()   # release stashed buffers
-            parts.append(self.query_pool(srcs, batch=batch,
-                                         start_level=start, _state=(p, r)))
+            parts.append(self.query_pool(srcs, derive_seed(call, li),
+                                         batch=batch, start_level=start,
+                                         _state=(p, r)))
             all_srcs.append(srcs)
         if len(parts) == 1:
             return all_srcs[0], parts[0]
@@ -400,7 +462,7 @@ class TopkRunner:
             "delta": self.rcfg.delta, "pfail": self.rcfg.pfail,
             "k": self.k, "accept_slack": self.accept_slack,
             "deltas": [float(d) for d in self.deltas],
-            "indexed": True,
+            "indexed": self._index is not None,
         }
 
     def save_level_stats(self, path, graph_sha: Optional[str] = None) -> None:

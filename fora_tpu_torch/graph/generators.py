@@ -1,12 +1,25 @@
-"""Synthetic graphs: the RMAT generator of ``fora_tpu/graph/generators.py``
-(69-93), the same numpy draws, so a seed gives the same graph in both
-packages."""
+"""Synthetic graphs: the Erdos-Renyi and RMAT generators of
+``fora_tpu/graph/generators.py`` (58-66, 69-93), the same numpy draws, so
+a seed gives the same graph in both packages."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from .csr import CSRGraph, from_edges
+
+
+def erdos_renyi(n: int, m: int, seed: int = 0,
+                ensure_no_self_loops: bool = True) -> CSRGraph:
+    """m uniform random edges on n nodes; a self-loop moves its head to
+    the next node."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, size=m, dtype=np.int64)
+    dst = rng.integers(0, n, size=m, dtype=np.int64)
+    if ensure_no_self_loops:
+        loop = src == dst
+        dst[loop] = (dst[loop] + 1) % n
+    return from_edges(src, dst, n)
 
 
 def rmat(n_log2: int, m: int, seed: int = 0,

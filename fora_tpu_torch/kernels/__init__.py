@@ -13,10 +13,11 @@ PyTorch versions instead.
 | push_prepass            | csrc/push_prepass.cu   | K1 (elementwise half of a superstep) |
 | gather_scatter_add      | csrc/gather_scatter.cu | K1 (push gather, tail and hub edges) |
 | index_spmv              | csrc/gather_scatter.cu | K2 (index bucket SpMV, same kernel) |
-| topk_bounds             | csrc/topk_bounds.cu    | K3 |
-| index_walk              | csrc/walk.cu           | K4 |
+| topk_bounds             | csrc/topk_bounds.cu    | K3 (split accept, both FORA modes) |
+| index_walk              | csrc/walk.cu           | K4 (index build, raw-walk FORA, Monte Carlo) |
 | ring_all_gather_hop     | csrc/ring.cu           | P1 (one hop of one shard) |
 | ring_reduce_scatter_hop | csrc/ring.cu           | P2 (one hop of one shard) |
+| row_scatter_add         | csrc/row_scatter.cu    | P3 (per-edge row accumulate, atomics) |
 
 Every launch runs with its output tensor's device current, so shards on
 several cards each launch on their own card.
@@ -34,7 +35,7 @@ from . import build
 
 __all__ = ["push_prepass", "gather_scatter_add", "index_spmv", "topk_bounds",
            "index_walk", "ring_all_gather_hop", "ring_reduce_scatter_hop",
-           "enable_peer_access", "WRAPPERS", "reset_launch_counts",
+           "row_scatter_add", "enable_peer_access", "WRAPPERS", "reset_launch_counts",
            "launch_counts"]
 
 
@@ -246,6 +247,29 @@ def ring_reduce_scatter_hop(out: torch.Tensor, recv: torch.Tensor,
     _raise_on(err, "ring_reduce_scatter_hop")
 
 
+def row_scatter_add(acc: torch.Tensor, tile: torch.Tensor, src: torch.Tensor,
+                    dst: torch.Tensor) -> torch.Tensor:
+    """P3: for every edge e, ``acc[dst[e]] += tile[src[e]]`` (rows of
+    width B, f32 atomics, so the order of the adds varies from run to
+    run); indices must lie in range.  Updates ``acc`` in place."""
+    B = acc.shape[1] if acc.dim() == 2 else -1
+    dev = acc.device
+    _check("acc", acc, torch.float32)
+    _check("tile", tile, torch.float32, device=dev)
+    if acc.dim() != 2 or tile.dim() != 2 or tile.shape[1] != B:
+        raise ValueError(f"acc {tuple(acc.shape)} and tile "
+                         f"{tuple(tile.shape)} must be [*, B] alike")
+    (E,) = src.shape
+    _check("src", src, torch.int32, (E,), dev)
+    _check("dst", dst, torch.int32, (E,), dev)
+    with torch.cuda.device(dev):
+        err = build.library().fora_row_scatter_add(
+            _ptr(acc), _ptr(tile), _ptr(src), _ptr(dst), E, B, _stream(acc))
+    row_scatter_add.launches += 1
+    _raise_on(err, "row_scatter_add")
+    return acc
+
+
 _peer_pairs: set = set()   # (reader, owner) card indices with access on
 
 
@@ -262,7 +286,8 @@ def enable_peer_access(reader: torch.device, owner: torch.device) -> None:
 
 
 WRAPPERS = (push_prepass, gather_scatter_add, index_spmv, topk_bounds,
-            index_walk, ring_all_gather_hop, ring_reduce_scatter_hop)
+            index_walk, ring_all_gather_hop, ring_reduce_scatter_hop,
+            row_scatter_add)
 for _w in WRAPPERS:
     _w.launches = 0
 

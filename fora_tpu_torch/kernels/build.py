@@ -46,6 +46,7 @@ SIGNATURES = {
                         _P],
     "fora_ring_copy": [_P, _P, _LL, _P],
     "fora_ring_add": [_P, _P, _P, _LL, _P],
+    "fora_row_scatter_add": [_P, _P, _P, _P, _LL, _I, _P],
     "fora_enable_peer_access": [_I, _I],
 }
 

@@ -8,10 +8,10 @@
 // Replaces the XLA-lowered gather + sorted scatter-add of
 // fora_tpu/ops/push.py::gather_scatter_add (142-191) as used by the push
 // superstep (_superstep, 315-362) and by the index bucket SpMV
-// (fora_tpu/algo/fora.py::StagedForaPrograms.bucket_spmv, 352-362), and
-// computes the operation of the Pallas probe kernel
-// scripts/pallas_gather_probe.py::kernel (43-56).  The TPU retired its
-// Pallas form because it has no scalar-indexed vector load; Hopper has one.
+// (fora_tpu/algo/fora.py::StagedForaPrograms.bucket_spmv, 352-362).  It
+// computes the sum of the Pallas probe kernel
+// scripts/pallas_gather_probe.py::kernel (43-56) on edges sorted by
+// destination; the probe's unsorted per-edge form is P3 (row_scatter.cu).
 //
 // What bounds it on the H100: device-memory traffic of the random row
 // gather, one B-wide f32 row (512 bytes at B = 128) per in-edge, plus the

@@ -1,5 +1,7 @@
 """Destination-row gather-scatter: the SpMV inside the push superstep (K1)
-and the index walk phase (K2).
+and the index walk phase (K2); and the per-edge row accumulate over an
+unsorted edge list (P3, ``row_scatter_add``), the Pallas gather probe's
+operation.
 
 Port of ``fora_tpu/ops/push.py::gather_scatter_add`` (142-191) on a CSR by
 destination: edges ``indptr[t]:indptr[t+1]`` of ``src`` all land in row
@@ -75,3 +77,21 @@ def index_spmv(acc: torch.Tensor, values: torch.Tensor, indptr: torch.Tensor,
         return gather_scatter_add_plain(acc, values, indptr, src,
                                         edge_w=mult, src_w=inv_cnt)
     return kernels.index_spmv(acc, values, indptr, src, mult, inv_cnt)
+
+
+def row_scatter_add_plain(acc: torch.Tensor, tile: torch.Tensor,
+                          src: torch.Tensor, dst: torch.Tensor
+                          ) -> torch.Tensor:
+    """Plain version of :func:`row_scatter_add`."""
+    return acc.index_add_(0, dst.long(), tile[src.long()])
+
+
+def row_scatter_add(acc: torch.Tensor, tile: torch.Tensor, src: torch.Tensor,
+                    dst: torch.Tensor) -> torch.Tensor:
+    """In place: ``acc[dst[e]] += tile[src[e]]`` for every edge e, indices
+    in any order (port of ``scripts/pallas_gather_probe.py::kernel``).  A
+    CPU tensor takes the plain version; a CUDA tensor launches P3
+    (``kernels/csrc/row_scatter.cu``).  Returns ``acc``."""
+    if acc.device.type == "cpu":
+        return row_scatter_add_plain(acc, tile, src, dst)
+    return kernels.row_scatter_add(acc, tile, src, dst)

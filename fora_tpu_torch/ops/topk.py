@@ -1,6 +1,7 @@
 """Node-chunked top-k over a node-major [n, B] estimate (plain version).
 
-Port of ``fora_tpu/ops/topk.py::topk_rows_chunked`` (30-127).  Ties are
+Port of ``fora_tpu/ops/topk.py::topk_nodes`` and ``topk_rows_chunked``
+(17-21, 30-127).  Ties are
 broken by node id ascending, as ``lax.top_k`` does: every selection is a
 stable descending sort, and slab candidates are merged in slab order.  The
 hand-written kernel for the accept (K3) lives in ``algo.bounds``;
@@ -49,6 +50,12 @@ def topk_rows_chunked(ppr: torch.Tensor, k: int, *extra: torch.Tensor,
     idx = torch.gather(torch.cat(cand_i, dim=1), 1, sel)
     outs = [torch.gather(torch.cat(ce, dim=1), 1, sel) for ce in cand_e]
     return (vals, idx, *outs)
+
+
+def topk_nodes(ppr: torch.Tensor, k: int):
+    """(values [B, k] descending, node ids [B, k] int64) of a node-major
+    [n, B] estimate (``fora_tpu/ops/topk.py::topk_nodes``, 17-21)."""
+    return topk_rows_chunked(ppr, k)
 
 
 def topk_sum(p: torch.Tensor, addend: torch.Tensor, k: int):

@@ -1,26 +1,143 @@
-"""Alpha-terminating random walks: the hot loop of the index build.
+"""Alpha-terminating random walks: the index build's hot loop and the walk
+phase of raw-walk FORA and Monte Carlo.
 
-Port of ``fora_tpu/ops/walk.py``: ``geometric_lengths`` (89-99) and the
-lockstep ``run_walks`` (102-135) are the plain versions; ``walk_endpoints``
-takes the place of ``run_walks_scheduled`` + ``hop_widths`` (138-222) and
-dispatches a CUDA tensor to K4 (``kernels/csrc/walk.cu``), where one
-thread runs one walk to its own length, so the TPU's length sort, static
-prefix widths and overflow fallback are gone.
+Port of ``fora_tpu/ops/walk.py``: ``allocate_walks`` (35-86),
+``geometric_lengths`` (89-99), the lockstep ``run_walks`` (102-135),
+``accumulate_endpoints`` (323-328) and ``walk_lane_budget`` (331-345).
+``walk_endpoints`` takes the place of ``run_walks_scheduled`` +
+``hop_widths`` (138-222) and dispatches a CUDA tensor to K4
+(``kernels/csrc/walk.cu``), where one thread runs one walk to its own
+length, so the TPU's length sort, static prefix widths and overflow
+fallback are gone.
+
+Lane allocation is two steps here: the demand (``walk_demand``: omega_v,
+its int32 cumsum and the per-column total) and the expansion of a range of
+lanes onto nodes (``expand_lanes``).  ``walk_phase`` sizes the lanes by the
+measured demand, one host read per call, and splits the columns (and, for
+a column too large alone, its lanes) into chunks that fit the device's
+free memory, so a query never loses walks: JAX's static lane count drops
+the walks past it and only raises ``overflow``.
 
 Dangling convention: a walk at an out-degree-0 node is absorbed there.
 Random numbers come from a ``torch.Generator`` (plain versions) or the
 kernel's Philox stream; neither replays JAX's threefry bits, so endpoints
-agree with JAX in distribution only.
+agree with JAX in distribution only.  Streams are keyed by 64-bit seeds
+from ``derive_seed``, one per (call, level, block, chunk).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .. import kernels
 from ..graph.csr import DeviceGraph
+
+LANE_MULTIPLE = 1024
+LANE_BYTES = 40          # device bytes a lane holds at the walk phase's peak
+CPU_LANE_BUDGET = 1 << 24
+
+
+def derive_seed(seed: int, *path: int) -> int:
+    """A 64-bit seed for the stream at ``path`` under ``seed`` (numpy's
+    SeedSequence hash): distinct paths give unrelated seeds, so no two
+    levels, blocks or chunks share a random stream.  The path's length
+    enters too (SeedSequence ignores trailing zero words)."""
+    words = np.random.SeedSequence([int(seed), *map(int, path),
+                                    len(path) + 1]
+                                   ).generate_state(2, np.uint32)
+    return int(words[0]) | (int(words[1]) << 32)
+
+
+class WalkAllocation(NamedTuple):
+    """Lane -> (start node, weight) for the walk phase: node v gets
+    omega_v = ceil(r_v * omega_unit) walks, each weighing r_v / omega_v."""
+
+    start: torch.Tensor     # [W, B] i32 start node per lane
+    walk_idx: torch.Tensor  # [W, B] i32 walk number within its start node
+    weight: torch.Tensor    # [W, B] f32 (0 on invalid lanes)
+    valid: torch.Tensor     # [W, B] bool lane < total walks of the column
+    total: torch.Tensor     # [B] i32 walks demanded
+    overflow: torch.Tensor  # [B] bool demanded more than W lanes
+
+
+class WalkDemand(NamedTuple):
+    omega_v: torch.Tensor   # [n, B] i32 walks per node
+    cum: torch.Tensor       # [n, B] i32 inclusive cumsum over nodes
+    total: torch.Tensor     # [B] i32
+
+
+def walk_demand(r: torch.Tensor, omega_unit: float) -> WalkDemand:
+    """omega_v = ceil(r * omega_unit) in f32 (0 where r <= 0), its int32
+    cumsum over nodes and the per-column total, as JAX computes them.
+    The cumsum runs along the innermost dimension of a [B, n] copy
+    (``cum`` is its transposed view): a scan along dim 0 of [n, B] runs
+    one thread per column on a card (183 ms at n = 2^19, B = 16 on an
+    H100 80GB HBM3 at 700 W)."""
+    w = torch.ceil(r * float(np.float32(omega_unit))).to(torch.int32)
+    omega_v = torch.where(r > 0, w, 0)
+    cum = torch.cumsum(omega_v.T.contiguous(), dim=1, dtype=torch.int32).T
+    return WalkDemand(omega_v, cum, cum[-1])
+
+
+def _lane_nodes(d: WalkDemand, lane_lo: int, num_lanes: int
+                ) -> torch.Tensor:
+    """[W, B] int64 node of lanes ``lane_lo .. lane_lo + W - 1``: node v
+    owns lanes cum_v - omega_v .. cum_v - 1, so each column is its node
+    ids repeated by their lane counts within the range (one
+    ``repeat_interleave`` over all columns, with a padding entry per
+    column); a lane past the column's total takes the node of its last
+    walk (JAX's forward fill), and an empty column takes node 0."""
+    n, B = d.omega_v.shape
+    hi = lane_lo + num_lanes
+    reps = (d.cum.clamp(max=hi) - (d.cum - d.omega_v).clamp(min=lane_lo)
+            ).clamp_min_(0)                                        # [n, B]
+    pad = num_lanes - (d.total.clamp(max=hi) - lane_lo).clamp(0, num_lanes)
+    reps = torch.cat([reps.T, pad[:, None]], dim=1)                # [B, n+1]
+    flat = torch.repeat_interleave(reps.view(-1),
+                                   output_size=B * num_lanes)
+    del reps
+    row0 = torch.arange(0, B * (n + 1), n + 1, dtype=flat.dtype,
+                        device=flat.device)
+    v = flat.view(B, num_lanes) - row0[:, None]                    # [B, W]
+    del flat
+    ids = torch.arange(n, dtype=v.dtype, device=v.device)[:, None]
+    last = torch.where(d.omega_v > 0, ids, 0).amax(dim=0)          # [B]
+    node = torch.where(v == n, last[:, None], v)
+    return node.T.contiguous().long()
+
+
+def expand_lanes(r: torch.Tensor, d: WalkDemand, lane_lo: int,
+                 num_lanes: int):
+    """(start [W, B] i32, weight [W, B] f32, lanes [W] i32, node [W, B]
+    i64) of lanes ``lane_lo .. lane_lo + num_lanes - 1``; weight is
+    r_v / omega_v in f32 on lanes below the column's total, else 0."""
+    lanes = torch.arange(lane_lo, lane_lo + num_lanes, dtype=torch.int32,
+                         device=r.device)
+    node = _lane_nodes(d, lane_lo, num_lanes)
+    r_v = r.gather(0, node)
+    w_v = d.omega_v.gather(0, node).clamp_min(1).to(torch.float32)
+    valid = lanes[:, None] < d.total[None, :]
+    weight = torch.where(valid, r_v / w_v, 0.0)
+    return node.to(torch.int32), weight, lanes, node
+
+
+def allocate_walks(r: torch.Tensor, omega_unit: float, num_lanes: int
+                   ) -> WalkAllocation:
+    """JAX's allocation of ``num_lanes`` lanes per column (walks past
+    ``num_lanes`` are dropped and ``overflow`` set); array-equal to
+    ``fora_tpu.ops.walk.allocate_walks``.  The port's own paths size the
+    lanes by the demand instead (``walk_phase``)."""
+    d = walk_demand(r, omega_unit)
+    start, weight, lanes, node = expand_lanes(r, d, 0, num_lanes)
+    first_lane = (d.cum - d.omega_v).gather(0, node)
+    valid = lanes[:, None] < torch.clamp_max(d.total, num_lanes)[None, :]
+    return WalkAllocation(start=start, walk_idx=lanes[:, None] - first_lane,
+                          weight=weight, valid=valid, total=d.total,
+                          overflow=d.total > num_lanes)
 
 
 def geometric_lengths(shape, alpha: float, max_hops: int, *,
@@ -63,9 +180,134 @@ def walk_endpoints(graph: DeviceGraph, start: torch.Tensor, seed: int,
                    alpha: float, max_hops: int) -> torch.Tensor:
     """One walk per entry of ``start`` ([W] int32); endpoints [W] int32.
     CPU tensors run the plain ``run_walks``; CUDA tensors launch K4."""
+    if graph.weighted:
+        raise NotImplementedError("alias-table (weighted) walks are not "
+                                  "ported to fora_tpu_torch yet")
     if start.device.type == "cpu":
         gen = torch.Generator(device="cpu").manual_seed(seed % 2**63)
         return run_walks(graph, start, generator=gen, alpha=alpha,
                          max_hops=max_hops)
     return kernels.index_walk(start, graph.out_indptr, graph.out_indices,
                               graph.out_deg, seed, alpha, max_hops)
+
+
+def accumulate_endpoints(endpoints: torch.Tensor, weight: torch.Tensor,
+                         n: int, out: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Per column, add each lane's weight at its endpoint: [W, B] ->
+    [n, B] f32 (a scatter-add along nodes).  With ``out`` ([n, B], any
+    strides) the weights are added into it."""
+    if out is None:
+        out = torch.zeros((n, endpoints.shape[1]), dtype=torch.float32,
+                          device=endpoints.device)
+    return out.scatter_add_(0, endpoints.long(), weight)
+
+
+def walk_lane_budget(omega_unit: float, rmax: float, m: int, n: int,
+                     cap: Optional[int] = None, slack: float = 1.10,
+                     lane_multiple: int = LANE_MULTIPLE) -> int:
+    """JAX's static lane count for a (config, graph) pair: rsum <= min(1,
+    rmax * m) after push, plus one walk per touched node for the ceil."""
+    rsum_bound = min(1.0, rmax * m)
+    w = int(slack * omega_unit * rsum_bound) + min(n, int(omega_unit))
+    w = -(-w // lane_multiple) * lane_multiple
+    if cap is not None:
+        w = min(w, cap)
+    return max(w, lane_multiple)
+
+
+def lane_budget(device: torch.device) -> int:
+    """Lanes one walk-phase chunk may hold: half of the card's free memory
+    (``mem_get_info``'s free bytes plus the allocator's cached ones) at
+    LANE_BYTES a lane; CPU_LANE_BUDGET on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return CPU_LANE_BUDGET
+    free, _ = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - \
+        torch.cuda.memory_allocated(device)
+    return max(LANE_MULTIPLE, free // 2 // LANE_BYTES)
+
+
+def _round_up(x: int) -> int:
+    return -(-int(x) // LANE_MULTIPLE) * LANE_MULTIPLE
+
+
+def plan_chunks(total, budget: int) -> list:
+    """Chunks ``(c0, c1, lane_lo, lane_hi)`` covering every walk of
+    ``total`` ([B] walks per column): runs of adjacent columns whose lane
+    count (the run's largest total, rounded up to LANE_MULTIPLE) times
+    their number fits ``budget``; a column over the budget alone is split
+    into lane ranges.  Columns without walks get none."""
+    total = [int(t) for t in total]
+    budget = max(LANE_MULTIPLE, budget // LANE_MULTIPLE * LANE_MULTIPLE)
+    chunks, b = [], 0
+    while b < len(total):
+        w = _round_up(total[b])
+        if w > budget:
+            chunks += [(b, b + 1, lo, min(lo + budget, w))
+                       for lo in range(0, total[b], budget)]
+            b += 1
+            continue
+        c1 = b + 1
+        while c1 < len(total) and \
+                max(w, _round_up(total[c1])) * (c1 + 1 - b) <= budget:
+            w = max(w, _round_up(total[c1]))
+            c1 += 1
+        if w:
+            chunks.append((b, c1, 0, w))
+        b = c1
+    return chunks
+
+
+class WalkPhase(NamedTuple):
+    """What one walk phase did."""
+
+    total: torch.Tensor     # [B] i32 walks demanded (0 past ``live``)
+    overflow: torch.Tensor  # [B] bool: always False (lanes fit the demand)
+    walks_max: int          # largest column demand
+    walks_total: int        # walks demanded, all columns
+    lanes: int              # lanes walked, over all chunks
+    chunks: int
+
+
+def walk_phase(graph: DeviceGraph, r: torch.Tensor, omega_unit: float,
+               seed: int, alpha: float, max_hops: int,
+               live: Optional[int] = None, clock=None):
+    """FORA's walk phase on the residue ``r`` [n, B]: ``(contrib [n, B]
+    f32, WalkPhase)``.  Only the first ``live`` columns walk (the rest are
+    a pool's padding; their contrib stays 0).  Chunk i of ``plan_chunks``
+    draws from ``derive_seed(seed, i)``.  ``clock`` (a
+    ``utils.timing.StageClock``) times the allocation, walks and
+    accumulation."""
+    from ..utils.timing import StageClock
+    clock = clock or StageClock(None)
+    n, B = r.shape
+    live = B if live is None else live
+    contrib = torch.zeros_like(r)
+    with clock.stage("alloc"):
+        d = walk_demand(r[:, :live], omega_unit)
+    tot = d.total.cpu().numpy()          # one host read per phase
+    chunks = plan_chunks(tot, lane_budget(r.device))
+    lanes = 0
+    for i, (c0, c1, lo, hi) in enumerate(chunks):
+        with clock.stage("alloc"):
+            part = WalkDemand(d.omega_v[:, c0:c1], d.cum[:, c0:c1],
+                              d.total[c0:c1])
+            start, weight, _, node = expand_lanes(r[:, c0:c1], part, lo,
+                                                  hi - lo)
+            del node
+        with clock.stage("walks"):
+            ends = walk_endpoints(graph, start.view(-1), derive_seed(seed, i),
+                                  alpha, max_hops)
+            del start
+        with clock.stage("accum"):
+            accumulate_endpoints(ends.view(hi - lo, c1 - c0), weight, n,
+                                 out=contrib[:, c0:c1])
+        lanes += (hi - lo) * (c1 - c0)
+    total = torch.zeros(B, dtype=torch.int32, device=r.device)
+    total[:live] = d.total
+    return contrib, WalkPhase(
+        total=total, overflow=torch.zeros_like(total, dtype=torch.bool),
+        walks_max=int(tot.max(initial=0)), walks_total=int(tot.sum()),
+        lanes=lanes, chunks=len(chunks))

@@ -1,4 +1,5 @@
-"""Timing on the card: CUDA events for kernels, a phase line for scripts.
+"""Timing on the card: CUDA events for kernels and for the stages of a
+level (``StageClock``), a phase line for scripts.
 
 Takes the place of ``fora_tpu/utils/profiling.py::measure``/``fence``.
 A kernel's time is the elapsed time between two CUDA events around a run
@@ -8,6 +9,7 @@ time is the host clock around work that ends in a device synchronise.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -27,6 +29,46 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class StageClock:
+    """Milliseconds per named stage of a run, summed over its repeats:
+    CUDA events on a card (no synchronise until ``ms()``), the host clock
+    on the CPU, nothing for ``device=None``."""
+
+    def __init__(self, device):
+        self._dev = None if device is None else torch.device(device)
+        self._kind = None if device is None else self._dev.type
+        self._marks = []     # (name, start, end)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        if self._kind is None:
+            yield
+            return
+        if self._kind == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            stream = torch.cuda.current_stream(self._dev)
+            start.record(stream)
+            yield
+            end.record(stream)
+        else:
+            start = time.perf_counter()
+            yield
+            end = time.perf_counter()
+        self._marks.append((name, start, end))
+
+    def ms(self) -> dict:
+        out = {}
+        for name, start, end in self._marks:
+            if self._kind == "cuda":
+                end.synchronize()
+                t = start.elapsed_time(end)
+            else:
+                t = (end - start) * 1e3
+            out[name] = out.get(name, 0.0) + t
+        return out
 
 
 class Phase:

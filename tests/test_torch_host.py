@@ -1,5 +1,6 @@
 """The port's host code against fora_tpu's: config derivation, CSR packing,
-the RMAT generator, query sources, precision@k and the exact PPR oracle.
+the Erdos-Renyi and RMAT generators, query sources, precision@k and the
+exact PPR oracle.
 
 The port carries these (numpy) pieces itself so that it imports nothing of
 the JAX package; here they are held equal to the originals they copy.
@@ -66,6 +67,13 @@ def test_rmat_matches_jax(n_log2, m, seed):
                        jax_generators.rmat(n_log2, m, seed=seed))
 
 
+@pytest.mark.parametrize("n,m,seed,no_loops", [(512, 4096, 3, True),
+                                               (50, 2000, 1, False)])
+def test_erdos_renyi_matches_jax(n, m, seed, no_loops):
+    _assert_same_graph(generators.erdos_renyi(n, m, seed, no_loops),
+                       jax_generators.erdos_renyi(n, m, seed, no_loops))
+
+
 def test_generate_sources_matches_jax():
     g = generators.rmat(10, 4096, seed=3)
     for count, seed, req in ((64, 8, True), (2000, 1, True), (10, 2, False)):
@@ -104,3 +112,13 @@ def test_exact_ppr_matches_jax(graph):
     np.testing.assert_allclose(want.T[cols, ids], want.T[cols, ref],
                                rtol=0, atol=1e-12)
     assert (np.diff(want.T[cols, ids], axis=1) <= 1e-15).all()
+
+
+def test_exact_topk_breaks_ties_by_lowest_id():
+    """Exact ties at rank k resolve by node id ascending, as every top-k
+    of both packages does: 0 -> {1, 2} (1 and 2 tie, dangling) and 5 -> 6;
+    each source reaches fewer than k = 5 nodes, so its list ends with the
+    lowest-numbered nodes of PPR zero."""
+    g = from_edges(np.array([0, 0, 5]), np.array([1, 2, 6]), 10)
+    ids = exact.exact_topk_batch(g, [0, 5], 5, device="cpu")
+    assert ids.tolist() == [[1, 2, 0, 3, 4], [6, 5, 0, 1, 2]]

@@ -4,9 +4,11 @@ at eps = 0.5).
 
 Deterministic pieces (store, counts, pack, index SpMV) are held to JAX's
 arrays; walks draw other random numbers than JAX's threefry, so they are
-held to exact PPR in distribution, as tests/test_walk.py does.
+held to exact PPR in distribution, as tests/test_walk.py does; an index
+one package built serves queries in the other.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -123,6 +125,44 @@ def test_state_fn_matches_jax():
                                rtol=1e-5)
     assert got.push_iters == int(want.push_iters)
     assert p is tst.p and r is tst.r       # advanced in place
+
+
+@pytest.mark.parametrize("builder", ["port", "jax"])
+def test_cross_serve_index(builder, tmp_path):
+    """Each package's TopkRunner on an index the other built: JAX's on one
+    the port built on the CPU and saved, the port's on the smoke index
+    JAX built.  Precision@50 of the smoke exact file's 4 queries at least
+    the reference's (JAX on its own index) less 0.02 (4 of 200 ids)."""
+    from fora_tpu.algo import topk as jax_topk
+    from fora_tpu.eval import metrics
+    from fora_tpu.eval import queries as qio
+    from fora_tpu_torch.algo.topk import TopkRunner
+    g, rcfg = _smoke()
+    src = qio.generate_sources(g, 64, seed=8)[:4]
+    ex = np.load("bench_data_smoke/rmat12x8s7.exact4.d1975b620f.k50.npz")[
+        "ids"]
+    jg = jax_to_device(g, merge_duplicate_edges=True, hub_rows=256)
+
+    def jax_serves(path):
+        runner = jax_topk.TopkRunner(jg, rcfg, k=50, delta_stride=8.0,
+                                     index=jax_index.load(path, rcfg,
+                                                          graph=g))
+        return runner.query_pool(src, jax.random.key(1), batch=4,
+                                 start_level=0).node_ids
+
+    ref = metrics.batch_precision_at_k(jax_serves(SMOKE_IDX), ex)
+    tg = to_device(g, merge_duplicate_edges=True, hub_rows=256, device="cpu")
+    if builder == "port":
+        built = tidx.build_walk_index(tg, rcfg, seed=3)
+        tidx.save(built, rcfg, str(tmp_path / "idx"), graph=g)
+        ids = jax_serves(str(tmp_path / "idx"))
+    else:
+        runner = TopkRunner(tg, rcfg, k=50, delta_stride=8.0,
+                            index=tidx.load(SMOKE_IDX, rcfg, graph=g))
+        ids = runner.query_pool(src, batch=4, start_level=0).node_ids
+    prec = metrics.batch_precision_at_k(ids, ex)
+    assert (ids[:, 0] == src).all()
+    assert prec >= ref - 0.02, (prec, ref)
 
 
 def test_walk_contrib_matches_jax_every_depth():

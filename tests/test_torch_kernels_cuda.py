@@ -11,6 +11,7 @@ machine without it run them without the suite's conftest:
 import numpy as np
 import pytest
 import torch
+from walk_chisq import assert_endpoints_follow
 
 from fora_tpu.algo import exact
 from fora_tpu.config import ForaConfig
@@ -155,6 +156,83 @@ def test_walk_kernel_geometric_lengths(dev):
     assert abs(lens.mean() - 4.0) < 0.02
     assert abs((lens == 0).mean() - 0.2) < 0.002
     assert lens.max() <= 64
+
+
+@pytest.mark.parametrize("B", [32, 64, 128, 5])
+@pytest.mark.parametrize("hot", [False, True])
+def test_row_scatter_kernel_matches_plain(dev, B, hot):
+    """P3 against index_add_: float4 rows (B % 4 == 0) and scalar rows
+    (B = 5); ``hot`` sends every edge to one of 8 rows, so many atomics
+    hit one address at once.  The add order varies: rtol 1e-4."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops.gather import row_scatter_add_plain
+    rng = np.random.default_rng(B + hot)
+    H, n_dst, E = 3000, 2000, 50_000
+    src = torch.as_tensor(rng.integers(0, H, E).astype(np.int32), device=dev)
+    dst = torch.as_tensor(rng.integers(0, 8 if hot else n_dst, E)
+                          .astype(np.int32), device=dev)
+    tile = torch.as_tensor(rng.random((H, B), np.float32), device=dev)
+    acc0 = torch.as_tensor(rng.random((n_dst, B), np.float32), device=dev)
+    before = kernels.row_scatter_add.launches
+    got = kernels.row_scatter_add(acc0.clone(), tile, src, dst)
+    torch.cuda.synchronize()
+    assert kernels.row_scatter_add.launches == before + 1
+    want = row_scatter_add_plain(acc0.clone(), tile, src, dst)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_k4_on_flat_starts_chi_square(dev):
+    """K4 on the flattened [W, B] starts of three queries (lane w * B + b
+    walks from source b): each column's endpoints against exact PPR."""
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops.walk import walk_endpoints
+    g = generators.karate_club()
+    dg = to_device(g, device=dev)
+    sources, W = [0, 16, 33], 1 << 18
+    start = torch.tensor(sources, dtype=torch.int32, device=dev).repeat(W)
+    ends = walk_endpoints(dg, start, 21, 0.2, 64).view(W, len(sources))
+    for b, s in enumerate(sources):
+        assert_endpoints_follow(ends[:, b].cpu().numpy(),
+                                exact.exact_ppr_dense(g, s))
+
+
+def test_raw_level_on_card_matches_cpu(dev):
+    """One raw-walk level on the card (K1 push, allocation, K4, scatter-
+    add) against the CPU's plain path: p, r and supersteps within float
+    order, the allocation of the same residue array-equal, each column's
+    walk mass equal to its residue mass."""
+    from fora_tpu_torch import ForaConfig as TorchForaConfig
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo.fora import raw_lean_state
+    from fora_tpu_torch.graph import generators as tgen
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops import push
+    from fora_tpu_torch.ops.walk import allocate_walks
+    g = tgen.rmat(12, 1 << 15, seed=3)
+    rcfg = TorchForaConfig(epsilon=0.5).resolved(g.n, g.m)
+    src = torch.arange(0, 8 * 61, 61, dtype=torch.int32)
+    out = {}
+    for d in ("cpu", dev):
+        dg = to_device(g, merge_duplicate_edges=True, device=d)
+        st = push.init_state(g.n, src.to(d))
+        kernels.reset_launch_counts()
+        out[str(d)] = raw_lean_state(dg, st.p, st.r, 5, rcfg.rmax,
+                                     rcfg.omega_unit, rcfg=rcfg)
+        counts = kernels.launch_counts()
+        on_card = torch.device(d).type == "cuda"
+        assert (counts["index_walk"] > 0) == on_card
+        assert (counts["push_prepass"] > 0) == on_card
+    (cp, cr, cc, ci, cw), (kp, kr, kc, ki, kw) = out["cpu"], out[str(dev)]
+    assert ci == ki
+    torch.testing.assert_close(kp.cpu(), cp, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(kr.cpu(), cr, rtol=1e-5, atol=1e-7)
+    assert not kw.overflow.any()
+    torch.testing.assert_close(kc.sum(0).cpu(), kr.sum(0).cpu(), rtol=1e-4,
+                               atol=0)
+    want = allocate_walks(cr, rcfg.omega_unit, 1 << 16)
+    got = allocate_walks(cr.to(dev), rcfg.omega_unit, 1 << 16)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
 
 
 def _ring_inputs(G, n_loc, B, devices, seed):

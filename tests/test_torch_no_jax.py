@@ -1,6 +1,7 @@
 """fora_tpu_torch runs without JAX and without the JAX package: it imports
-and answers a CPU query, single-device and sharded (``fora_tpu_torch.parallel``),
-whether or not ``import jax`` would work, loading
+and answers CPU queries (indexed, sharded, raw-walk, Monte Carlo,
+``entry()``) and runs the gather probe's case, whether or not ``import
+jax`` would work, loading
 no module of ``jax`` or ``fora_tpu``; no file of it (nor ``chip_smoke.py``)
 imports either; and CPU tensors never reach a CUDA kernel (every launch
 counter stays 0)."""
@@ -48,6 +49,20 @@ SCRIPT = textwrap.dedent("""
     sres = eng.topk(queries.generate_sources(g, 3, seed=5))
     assert sres.node_ids.shape == (3, 10) and sres.push_iters >= 1
     assert np.isfinite(sres.values).all()
+    raw = fora_tpu_torch.TopkRunner(dg, rcfg, delta_stride=8)
+    rres = raw.query_pool(queries.generate_sources(g, 3, seed=5), batch=4)
+    assert rres.node_ids.shape == (3, 10) and rres.accepted.all()
+    from fora_tpu_torch.algo.montecarlo import make_montecarlo_fn
+    est = make_montecarlo_fn(dg, rcfg, max_walks=2000)(np.array([1, 2]), 3)
+    assert est.shape == (g.n, 2) and abs(float(est.sum()) - 2) < 1e-4
+    from fora_tpu_torch.entry import entry
+    step, args = entry("cpu")
+    assert step(*args)[1].shape == (8, 10)
+    import time
+    from fora_tpu_torch.probes import gather_probe
+    host_ms = lambda fn: (time.perf_counter(), fn())[0]   # noqa: E731
+    assert gather_probe.p3_case(32, "cpu", host_ms, e_total=2048)[
+        "err_plain"] == 0.0
     assert all(n == 0 for n in kernels.launch_counts().values())
     foreign = sorted(m for m, mod in sys.modules.items() if mod is not None
                      and m.split(".")[0] in ("jax", "jaxlib", "fora_tpu"))
@@ -91,4 +106,12 @@ def test_cpu_tensors_never_launch_kernels():
                       dg.in_w, torch.ones(g.n))
     bounds.topk_with_bounds_split(st.p, st.r, rcfg.omega_unit, 5, 10.0, 0.5)
     walk.walk_endpoints(dg, torch.zeros(100, dtype=torch.int32), 1, 0.2, 64)
+    from fora_tpu_torch.algo import fora, montecarlo
+    fora.fora_query(dg, torch.tensor([1, 2]), 4, rcfg=rcfg)
+    montecarlo.make_montecarlo_fn(dg, rcfg, max_walks=500)(
+        torch.tensor([3]), 5)
+    gather.row_scatter_add(torch.zeros(4, 8), torch.ones(6, 8),
+                           torch.tensor([0, 5], dtype=torch.int32),
+                           torch.tensor([3, 3], dtype=torch.int32))
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 8
