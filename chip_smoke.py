@@ -14,14 +14,19 @@ memory:
                  power limit (nvidia-smi)
   2. build       compile the CUDA kernels from fora_tpu_torch/kernels/csrc
                  into build/fora_tpu_torch/ (cached by source hash)
-  3. kernels     K1 (push superstep, split and unsplit) and K4 (walks)
-                 against their plain PyTorch versions on the card
+  3. kernels     K1 (push superstep, split and unsplit; two launches
+                 bit-equal) and K4 (walks) against their plain PyTorch
+                 versions on the card; K1's time beside its bound and
+                 torch.sparse.mm over the same CSR (the yardstick)
   4. index       build the FORA+ index on the card (K4 + host pack), save
                  it under bench_data/torch_smoke/, load it back with mmap
   5. queries     256 sources as two pools of 128 through
                  TopkRunner.query_pool(defer_below=64) and flush_deferred
-  6. kernels     K2 (every index bucket) and K3 (split accept) against
-                 their plain versions on a real level's state
+  6. kernels     K2 (every index bucket alone, then the level in one
+                 launch, twice bit-equal, against the per-bucket plain
+                 loop and timed beside torch.sparse.mm over the level's
+                 merged CSR) and K3 (split accept) against their plain
+                 versions on a real level's state
   7. quality     precision@50 of the first 32 queries against the exact
                  oracle (float64 power iteration on the card; exact ties
                  at rank 50 go to the lowest node id); must be >= 0.95
@@ -52,15 +57,20 @@ memory:
                  atol 1e-5), and its rate lines
   8. proof       every kernel of each path launched in its run (counts
                  reset just before each run, read just after): K1-K4 in
-                 phases 4-5, K1-K3, P1 and P2 in phase 9's timed run with
-                 P1 at (G-1) G launches per superstep and P2 at (G-1) G,
+                 phases 4-5 with two K1 gathers per superstep and one K2
+                 launch per level of each batch, K1-K3, P1 and P2 in
+                 phase 9's timed run with one K2 launch per shard, P1 at
+                 (G-1) G launches per superstep and P2 at (G-1) G,
                  K1, K3 and K4 and no K2 in phase 10, K4 in phase 11, P3
                  in phase 12; and neither JAX nor the JAX package fora_tpu
                  was imported
 
-It prints one JSON line of per-kernel results, then, only if every phase
-passed, the last line {"ok": true, "device": {...}}.  Any failure raises
-and exits non-zero.
+It prints one JSON line of per-kernel results (launches, max abs error,
+ms, plain ms, bound ms and what bounds it: each input read and each
+output written once at 3.35 TB/s, or its f32 operations at 67 TFLOP/s;
+library ms: one PyTorch call computing the same function, or null), then,
+only if every phase passed, the last line {"ok": true, "device": {...}}.
+Any failure raises and exits non-zero.
 
 ``--profile PAIRS`` runs phases 1, 2 and 4, then times the query phase
 with the hub split on and off in PAIRS alternating pairs, and phase 9's
@@ -102,10 +112,75 @@ RAW_KERNELS = ("push_prepass", "gather_scatter_add", "index_walk",
                "topk_bounds")
 RAW_QUERIES, RAW_BATCH, RAW_DEFER = 64, 64, 32
 MC_QUERIES, CHISQ_SOURCES, CHISQ_MIN_P = 32, 8, 1e-3
+# the H100 SXM's published peaks at 700 W (NVIDIA's data sheet): device
+# memory rate, and f32 arithmetic outside the tensor cores
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(moved: int, ops: float = 0.0) -> dict:
+    """bound_ms and bound_by of a kernel that must move ``moved`` bytes
+    (each input read once, each output written once) and do ``ops`` f32
+    operations: the larger of the two times at the card's peaks."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (dict(bound_ms=t_bytes, bound_by="bytes") if t_bytes >= t_ops
+            else dict(bound_ms=t_ops, bound_by="operations"))
+
+
+def sparse_csr(indptr, cols, vals, n_cols):
+    """A torch CSR tensor over the given rows (the yardstick operand of
+    torch.sparse.mm; the port never builds one)."""
+    import warnings
+    import torch
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return torch.sparse_csr_tensor(
+            indptr, cols, vals, size=(indptr.shape[0] - 1, n_cols),
+            check_invariants=False)
+
+
+def sparse_mm(a, x):
+    import warnings
+    import torch
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return torch.sparse.mm(a, x)
+
+
+def level_csr(buckets, depth, inv, n):
+    """The index edges of buckets depth.. as one CSR by endpoint, each
+    edge valued mult_e * inv_cnt[v_e]: what torch.sparse.mm needs to
+    compute a level's walk phase in one call."""
+    import torch
+    rows, cols, vals = [], [], []
+    for b in buckets[depth:]:
+        if b is None:
+            continue
+        indptr, src, mult = b
+        dev = indptr.device
+        rows.append(torch.repeat_interleave(
+            torch.arange(n, device=dev, dtype=torch.int32),
+            torch.diff(indptr.long())))
+        cols.append(src)
+        v = inv[src.long()]
+        vals.append(v if mult is None else mult * v)
+    row = torch.cat(rows)
+    order = torch.argsort(row, stable=True)
+    crow = torch.searchsorted(row[order].contiguous(),
+                              torch.arange(n + 1, device=row.device,
+                                           dtype=torch.int32),
+                              out_int32=True)
+    return sparse_csr(crow, torch.cat(cols)[order].contiguous(),
+                      torch.cat(vals)[order].contiguous(), n)
 
 
 def close(name, got, want, rtol, atol):
@@ -114,8 +189,10 @@ def close(name, got, want, rtol, atol):
     bad = err > atol + rtol * want.abs()
     max_err = float(err.max()) if err.numel() else 0.0
     if bool(bad.any()):
+        first = tuple(bad.nonzero()[0].tolist())
         fail(f"{name}: {int(bad.sum())} entries differ beyond rtol {rtol} "
-             f"atol {atol} (max abs err {max_err:.3e})")
+             f"and atol (first at {first}: {float(got[first]):.6e} vs "
+             f"{float(want[first]):.6e}; max abs err {max_err:.3e})")
     return max_err
 
 
@@ -309,14 +386,15 @@ def profile_sharded(pairs, g, rcfg, index, sources, dev):
     for h, sh in enumerate(eng.shards):
         deg = np.diff(sh.in_indptr.cpu().numpy())
         ms = cuda_ms(lambda: kernels.gather_scatter_add(
-            acc, bufs[h], sh.in_indptr, sh.in_src))
+            acc, bufs[h], sh.in_indptr, sh.in_src, sched=sh.in_sched))
         per.append(ms)
         print(f"  shard {h}: push gather {ms:.3f} ms over {int(deg.sum())} "
               f"edges, largest in-degree {int(deg.max())}")
     acc = torch.zeros((g.n, len(sources)), dtype=torch.float32, device=dev)
     deg = np.diff(dg_raw.in_indptr.cpu().numpy())
     one = cuda_ms(lambda: kernels.gather_scatter_add(
-        acc, bufs[0], dg_raw.in_indptr, dg_raw.in_src))
+        acc, bufs[0], dg_raw.in_indptr, dg_raw.in_src,
+        sched=dg_raw.in_sched))
     print(f"profile gather: {SHARDS} shard launches {sum(per):.3f} ms in all "
           f"against one launch {one:.3f} ms over {int(deg.sum())} edges "
           f"(largest in-degree {int(deg.max())})")
@@ -469,8 +547,14 @@ def run_p3(dev):
           f"(rtol {gather_probe.RTOL}, atol {gather_probe.ATOL})")
     for line in res["lines"]:
         print(line)
+    # the tile, the edge list and the accumulator (read and written) once,
+    # an add per edge and column; the plain version is one index_add_ (over
+    # the gathered rows), the library call itself
+    B, E = res["B"], res["edges"]
+    moved = 4 * (gather_probe.H * B + 2 * E + 2 * gather_probe.N_DST * B)
     return dict(max_abs_err=res["err_plain"], ms=res["ms"],
-                plain_ms=res["plain_ms"]), counts
+                plain_ms=res["plain_ms"], library_ms=res["plain_ms"],
+                **bound(moved, E * B)), counts
 
 
 def sorted_topk(vals, ids):
@@ -611,10 +695,18 @@ def run_sharded(g, rcfg, index, sources, dev, exact_ids):
           f"(limit {MIN_PRECISION})")
     if not prec >= MIN_PRECISION:
         fail(f"sharded precision@{K} {prec:.4f} < {MIN_PRECISION}")
-    rows = {"ring_all_gather_hop": dict(max_abs_err=p1_err, ms=p1_ms,
-                                        plain_ms=p1_plain),
-            "ring_reduce_scatter_hop": dict(max_abs_err=p2_diff, ms=p2_ms,
-                                            plain_ms=p2_plain)}
+    # per collective, (G - 1) G hops of one [n_loc, B] block: P1 reads one
+    # block and writes one, P2 reads two and writes one.  The plain
+    # versions are the library calls themselves (copy_ and add, one per
+    # hop), so library_ms is plain_ms.
+    hops, block = (SHARDS - 1) * SHARDS, eng.n_loc * B * 4
+    rows = {"ring_all_gather_hop": dict(
+                max_abs_err=p1_err, ms=p1_ms, plain_ms=p1_plain,
+                library_ms=p1_plain, **bound(2 * hops * block)),
+            "ring_reduce_scatter_hop": dict(
+                max_abs_err=p2_diff, ms=p2_ms, plain_ms=p2_plain,
+                library_ms=p2_plain,
+                **bound(3 * hops * block, hops * block / 4))}
     return rows, counts, res.push_iters
 
 
@@ -766,9 +858,11 @@ def main(argv=None) -> int:
                  f"unsplit {iters['unsplit'][0]}")
         # over a whole push the two summation orders can put an entry on
         # either side of its threshold in some superstep, which moves up to
-        # one threshold's worth of mass (rmax * deg, about 1e-6 here)
-        close("K1 push p", iters["split"][1], iters["unsplit"][1], 1e-5, 1e-6)
-        close("K1 push r", iters["split"][2], iters["unsplit"][2], 1e-5, 1e-6)
+        # one threshold's worth of mass at that node (thr = rmax * deg:
+        # under 1e-6 for most nodes, more for the largest out-degrees)
+        slack = thr.clamp_min(1e-6)[:, None]
+        close("K1 push p", iters["split"][1], iters["unsplit"][1], 1e-5, slack)
+        close("K1 push r", iters["split"][2], iters["unsplit"][2], 1e-5, slack)
         print(f"K1: superstep matches plain (split, unsplit), max abs err "
               f"{k1_err:.3e}; full push {iters['split'][0]} supersteps "
               f"both ways")
@@ -782,15 +876,23 @@ def main(argv=None) -> int:
             ms=cuda_ms(lambda: kernels.push_prepass(
                 p_s, st.r, contrib_s, thr, dg.out_deg, wsum, rcfg.alpha)),
             plain_ms=cuda_ms(lambda: push.push_prepass_plain(
-                p_s, st.r, contrib_s, thr, dg.out_deg, wsum, rcfg.alpha)))
+                p_s, st.r, contrib_s, thr, dg.out_deg, wsum, rcfg.alpha)),
+            library_ms=None,
+            # p read and written, r read, contrib written; 5 f32 operations
+            # per entry (compare, alpha r, add, (1 - alpha) r, divide)
+            **bound(2 * nbytes(p_s) + nbytes(st.r, contrib_s, thr,
+                                               dg.out_deg, wsum),
+                    5 * st.r.numel()))
         acc = torch.zeros_like(st.r)
         hub_vals = contrib_s.index_select(0, dg.hub_ids)
 
         def gather_k():
             kernels.gather_scatter_add(acc, contrib_s, dg.in_indptr,
-                                       dg.in_src, edge_w=dg.in_w)
+                                       dg.in_src, edge_w=dg.in_w,
+                                       sched=dg.in_sched)
             kernels.gather_scatter_add(acc, hub_vals, dg.hub_indptr,
-                                       dg.hub_src_local, edge_w=dg.hub_w)
+                                       dg.hub_src_local, edge_w=dg.hub_w,
+                                       sched=dg.hub_sched)
 
         def gather_p():
             gather.gather_scatter_add_plain(acc, contrib_s, dg.in_indptr,
@@ -798,10 +900,53 @@ def main(argv=None) -> int:
             gather.gather_scatter_add_plain(acc, hub_vals, dg.hub_indptr,
                                             dg.hub_src_local, edge_w=dg.hub_w)
 
-        rows["gather_scatter_add"] = dict(max_abs_err=k1_err,
-                                          ms=cuda_ms(gather_k),
-                                          plain_ms=cuda_ms(gather_p, iters=3))
-        del p_s, contrib_s, acc, hub_vals, st
+        # determinism: the masked, flagged split gather twice from one state
+        runs = []
+        for _ in range(2):
+            a = st.r.clone()
+            f = torch.zeros(1, dtype=torch.int32, device=dev)
+            kernels.gather_scatter_add(a, contrib_s, dg.in_indptr, dg.in_src,
+                                       edge_w=dg.in_w, thr=thr, mask=True,
+                                       sched=dg.in_sched)
+            kernels.gather_scatter_add(a, hub_vals, dg.hub_indptr,
+                                       dg.hub_src_local, edge_w=dg.hub_w,
+                                       thr=thr, flag=f, sched=dg.hub_sched)
+            runs.append((a, int(f.item())))
+        if not (torch.equal(runs[0][0], runs[1][0])
+                and runs[0][1] == runs[1][1]):
+            fail("K1: two launches from one state differ")
+        del runs, a
+        # the yardstick: torch.sparse.mm (cuSPARSE SpMM) over the merged
+        # CSR by destination without the hub split, the same sum
+        csr = sparse_csr(dg_flat.in_indptr, dg_flat.in_src, dg_flat.in_w,
+                         g.n)
+        flat_want = gather.gather_scatter_add_plain(
+            torch.zeros_like(acc), contrib_s, dg_flat.in_indptr,
+            dg_flat.in_src, edge_w=dg_flat.in_w)
+        lib_err = close("K1 torch.sparse.mm vs plain",
+                        sparse_mm(csr, contrib_s), flat_want, 1e-4, 1e-7)
+        edges = dg.m_in
+        rows["gather_scatter_add"] = dict(
+            max_abs_err=k1_err, ms=cuda_ms(gather_k),
+            plain_ms=cuda_ms(gather_p, iters=3),
+            library_ms=cuda_ms(lambda: sparse_mm(csr, contrib_s)),
+            # both operands read once, acc read and written once, the two
+            # CSRs and their weights read once; a multiply and an add per
+            # edge and column
+            **bound(nbytes(contrib_s, hub_vals) + 2 * nbytes(acc)
+                    + nbytes(dg.in_indptr, dg.in_src, dg.in_w, dg.hub_indptr,
+                             dg.hub_src_local, dg.hub_w),
+                    2 * edges * BATCH))
+        flat_ms = cuda_ms(lambda: kernels.gather_scatter_add(
+            acc, contrib_s, dg_flat.in_indptr, dg_flat.in_src,
+            edge_w=dg_flat.in_w, sched=dg_flat.in_sched))
+        k1 = rows["gather_scatter_add"]
+        print(f"K1 gather at B = {BATCH}: {k1['ms']:.4f} ms (split: tail and "
+              f"hub launches), {flat_ms:.4f} ms unsplit; torch.sparse.mm "
+              f"over the unsplit CSR {k1['library_ms']:.4f} ms (max abs err "
+              f"{lib_err:.3e} vs plain); bound {k1['bound_ms']:.4f} ms "
+              f"(split); two launches bit-equal")
+        del p_s, contrib_s, acc, hub_vals, st, csr, flat_want
 
         # K4: 2^22 walks from one source, kernel vs plain run_walks
         start = torch.full((WALK_CHECK,), int(sources[0]), dtype=torch.int32,
@@ -826,7 +971,12 @@ def main(argv=None) -> int:
                 dg, start, SEED, rcfg.alpha, rcfg.max_walk_hops)),
             plain_ms=cuda_ms(lambda: walk.run_walks(
                 dg, start, generator=gen, alpha=rcfg.alpha,
-                max_hops=rcfg.max_walk_hops), iters=3))
+                max_hops=rcfg.max_walk_hops), iters=3),
+            library_ms=None,
+            # the starts read and the endpoints written once, the out-CSR
+            # and degrees read once
+            **bound(2 * nbytes(start) + nbytes(dg.out_indptr,
+                                               dg.out_indices, dg.out_deg)))
         del start, ends_k, ends_p, f_k, f_p
 
     # ---- 4.-5. the main path: index build and queries ------------------
@@ -836,7 +986,7 @@ def main(argv=None) -> int:
     with Phase("queries"):
         runner = TopkRunner(dg, rcfg, k=K, index=index, delta_stride=DSTRIDE,
                             accept_slack=ACCEPT)
-        results, n_acc, levels, elapsed, _ = run_queries(runner, sources)
+        results, n_acc, levels, elapsed, stats = run_queries(runner, sources)
         if len(results) != QUERIES:
             fail(f"{len(results)} of {QUERIES} queries answered")
         print(f"queries: {QUERIES} in {elapsed:.3f} s -> "
@@ -864,24 +1014,43 @@ def main(argv=None) -> int:
             k2_err = max(k2_err, close(f"K2 bucket {q}", got, want, 1e-5,
                                        1e-9))
             n_buckets += 1
-        print(f"K2: {n_buckets} buckets match plain, max abs err "
-              f"{k2_err:.3e}")
-        acc = torch.zeros_like(r)
+        # the level in one launch against the per-bucket plain loop
+        args = (r, staged._indptr[depth:], staged._seg_off[depth:],
+                staged._src, staged._mult, inv)
+        sched = staged.level_schedule(depth)
 
-        def spmv(fn):
-            def run():
-                for q in range(depth, len(staged._buckets)):
-                    if staged._buckets[q] is not None:
-                        indptr, src, mult = staged._buckets[q]
-                        fn(acc, r, indptr, src, mult, inv)
-            return run
+        def level_k():
+            return gather.index_spmv_level(*args, sched=sched)
 
+        got, again = level_k(), level_k()
+        want = gather.index_spmv_level_plain(*args)
+        k2_err = max(k2_err, close("K2 level", got, want, 1e-5, 1e-9))
+        if not torch.equal(got, again):
+            fail("K2: two launches of the level differ")
+        print(f"K2: {n_buckets} buckets one by one and the level at depth "
+              f"{depth} in one launch match plain, max abs err "
+              f"{k2_err:.3e}; two level launches bit-equal")
+        csr = level_csr(staged._buckets, depth, inv, g.n)
+        lib_err = close("K2 torch.sparse.mm vs plain", sparse_mm(csr, r),
+                        want, 1e-4, 1e-9)
+        level_edges = csr.values().numel()
+        lvl = [b for b in staged._buckets[depth:] if b is not None]
         rows["index_spmv"] = dict(
-            max_abs_err=k2_err, ms=cuda_ms(spmv(kernels.index_spmv)),
-            plain_ms=cuda_ms(spmv(
-                lambda a, v, ip, s, m, w: gather.gather_scatter_add_plain(
-                    a, v, ip, s, edge_w=m, src_w=w)), iters=3))
-        del acc
+            max_abs_err=k2_err, ms=cuda_ms(level_k),
+            plain_ms=cuda_ms(lambda: gather.index_spmv_level_plain(*args),
+                             iters=3),
+            library_ms=cuda_ms(lambda: sparse_mm(csr, r)),
+            # r read and acc written once, every bucket's CSR, sources and
+            # multiplicities and inv_cnt read once; two multiplies and an
+            # add per edge and column
+            **bound(nbytes(r, got, inv, *[t for b in lvl for t in b]),
+                    3 * level_edges * r.shape[1]))
+        k2 = rows["index_spmv"]
+        print(f"K2 level at depth {depth} ({level_edges} edges in "
+              f"{len(lvl)} buckets, {sched.n_tasks} tasks): {k2['ms']:.4f} "
+              f"ms, torch.sparse.mm {k2['library_ms']:.4f} ms (max abs err "
+              f"{lib_err:.3e} vs plain), bound {k2['bound_ms']:.4f} ms")
+        del csr, got, again, want, args
 
         t = bounds.union_bound_t(rcfg.n, len(runner.deltas), rcfg.pfail)
         got = bounds.topk_with_bounds_split(p, contrib, omega, K, t, EPS)
@@ -901,7 +1070,11 @@ def main(argv=None) -> int:
             ms=cuda_ms(lambda: bounds.topk_with_bounds_split(
                 p, contrib, omega, K, t, EPS)),
             plain_ms=cuda_ms(lambda: bounds.topk_with_bounds_split_plain(
-                p, contrib, omega, K, t, EPS), iters=3))
+                p, contrib, omega, K, t, EPS), iters=3),
+            library_ms=None,   # no one PyTorch call selects with bounds
+            # p and contrib read once, the [B, k] results written once; an
+            # add per entry
+            **bound(nbytes(p, contrib, *got), p.numel()))
         del p, r, contrib, got, want
 
     # ---- 7. quality ------------------------------------------------------
@@ -939,6 +1112,15 @@ def main(argv=None) -> int:
     for name in MAIN_KERNELS:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    # K1: a tail and a hub gather per superstep (no fix-up launch); K2 and
+    # K3: one launch per level of each batch
+    level_runs = sum(st["batches"] for st in stats)
+    if launches["gather_scatter_add"] != 2 * launches["push_prepass"]:
+        fail(f"K1: {launches['gather_scatter_add']} gathers for "
+             f"{launches['push_prepass']} supersteps, expected two each")
+    if launches["index_spmv"] != level_runs:
+        fail(f"K2: {launches['index_spmv']} launches for {level_runs} "
+             f"level runs, expected one each")
     print(f"launches in phase 9's timed run ({sh_iters} supersteps): "
           f"{sharded_launches}")
     for name in SHARDED_KERNELS:
@@ -963,6 +1145,9 @@ def main(argv=None) -> int:
     if sharded_launches["ring_reduce_scatter_hop"] != hops:
         fail(f"P2: {sharded_launches['ring_reduce_scatter_hop']} launches, "
              f"expected {hops}")
+    if sharded_launches["index_spmv"] != SHARDS:
+        fail(f"K2: {sharded_launches['index_spmv']} sharded launches, "
+             f"expected one per shard")
     loaded = sorted(foreign_modules() - preloaded)
     if loaded:
         fail(f"the port imported JAX or fora_tpu: {loaded[:5]}")
@@ -988,7 +1173,9 @@ def main(argv=None) -> int:
                     "source": f"fora_tpu_torch/kernels/csrc/{src_file}",
                     "replaces": replaces, "launches": n,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                    "plain_ms": row["plain_ms"]})
+                    "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"]})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

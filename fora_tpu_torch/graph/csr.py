@@ -8,8 +8,9 @@ also accepts a ``fora_tpu`` CSRGraph, which has the same fields.
 Beside JAX's fields the port keeps destination row pointers, ``in_indptr``
 over the dst-sorted tail in-edges and ``hub_indptr`` over the dst-sorted
 hub edges: the CSR by destination that the push gather kernel (K1) walks,
-one warp per destination row.  ``pad_edges`` is gone: it existed only for
-XLA's chunk reshape (``fora_tpu/ops/push.py::_chunked_edges``).
+with each one's edge-balanced work list (``in_sched``, ``hub_sched``).
+``pad_edges`` is gone: it existed only for XLA's chunk reshape
+(``fora_tpu/ops/push.py::_chunked_edges``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..kernels.schedule import GatherSchedule, gather_schedule
 
 
 class CSRGraph(NamedTuple):
@@ -105,6 +108,8 @@ class DeviceGraph:
     hub_dst: Optional[torch.Tensor] = None        # [m_hub] i32, ascending
     hub_w: Optional[torch.Tensor] = None          # [m_hub] f32
     hub_indptr: Optional[torch.Tensor] = None     # [n+1] i32 over hub_dst
+    in_sched: Optional[GatherSchedule] = None     # K1's tasks over in_indptr
+    hub_sched: Optional[GatherSchedule] = None    # K1's tasks over hub_indptr
 
     @property
     def n(self) -> int:
@@ -147,7 +152,8 @@ def host_to_device(a, device, dtype) -> Optional[torch.Tensor]:
 
 def from_numpy_fields(fields: dict, *, device) -> DeviceGraph:
     """DeviceGraph from host arrays named as its fields (row pointers are
-    derived from the dst-sorted edge lists when absent)."""
+    derived from the dst-sorted edge lists when absent, and the gather's
+    work lists from the row pointers)."""
     n = int(np.asarray(fields["out_indptr"]).shape[0]) - 1
     f = {k: v for k, v in fields.items() if v is not None}
     f.setdefault("in_indptr", dst_indptr(f["in_dst"], n))
@@ -156,9 +162,13 @@ def from_numpy_fields(fields: dict, *, device) -> DeviceGraph:
     ints = {"out_indptr", "out_indices", "in_src", "in_dst", "in_indptr",
             "out_deg", "hub_ids", "hub_src_local", "hub_dst", "hub_indptr"}
     names = {fl.name for fl in dataclasses.fields(DeviceGraph)}
-    return DeviceGraph(**{
+    dg = DeviceGraph(**{
         k: host_to_device(v, device, np.int32 if k in ints else np.float32)
         for k, v in f.items() if k in names})
+    dg.in_sched = gather_schedule(dg.in_indptr)
+    if dg.hub_indptr is not None:
+        dg.hub_sched = gather_schedule(dg.hub_indptr)
+    return dg
 
 
 def to_device(g: CSRGraph, merge_duplicate_edges: bool = False,

@@ -12,7 +12,7 @@ PyTorch versions instead.
 | ----------------------- | ---------------------- | ------ |
 | push_prepass            | csrc/push_prepass.cu   | K1 (elementwise half of a superstep) |
 | gather_scatter_add      | csrc/gather_scatter.cu | K1 (push gather, tail and hub edges) |
-| index_spmv              | csrc/gather_scatter.cu | K2 (index bucket SpMV, same kernel) |
+| index_spmv              | csrc/gather_scatter.cu | K2 (index SpMV, a level in one launch) |
 | topk_bounds             | csrc/topk_bounds.cu    | K3 (split accept, both FORA modes) |
 | index_walk              | csrc/walk.cu           | K4 (index build, raw-walk FORA, Monte Carlo) |
 | ring_all_gather_hop     | csrc/ring.cu           | P1 (one hop of one shard) |
@@ -20,7 +20,8 @@ PyTorch versions instead.
 | row_scatter_add         | csrc/row_scatter.cu    | P3 (per-edge row accumulate, atomics) |
 
 Every launch runs with its output tensor's device current, so shards on
-several cards each launch on their own card.
+several cards each launch on their own card.  The gather takes its work
+list (``schedule.GatherSchedule``) from the caller, or builds it per call.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, schedule
 
 __all__ = ["push_prepass", "gather_scatter_add", "index_spmv", "topk_bounds",
            "index_walk", "ring_all_gather_hop", "ring_reduce_scatter_hop",
@@ -89,8 +90,11 @@ def push_prepass(p: torch.Tensor, r: torch.Tensor, contrib: torch.Tensor,
     _raise_on(err, "push_prepass")
 
 
-def _gather_scatter(acc, values, indptr, src, edge_w, src_w, thr, mask,
-                    flag, name):
+def _gather_scatter(acc, values, indptr, seg_off, src, edge_w, src_w, thr,
+                    mask, accumulate, flag, sched, name):
+    """Checks and launches csrc/gather_scatter.cu over the S segments of
+    ``indptr`` ([n+1] is one segment; [S, n+1] with ``seg_off`` [S], the
+    first edge of each segment in ``src``/``edge_w``)."""
     n, B = acc.shape
     dev = acc.device
     _check("acc", acc, torch.float32, (n, B))
@@ -98,7 +102,16 @@ def _gather_scatter(acc, values, indptr, src, edge_w, src_w, thr, mask,
     if values.dim() != 2 or values.shape[1] != B:
         raise ValueError(f"values: shape {tuple(values.shape)}, expected "
                          f"[*, {B}]")
-    _check("indptr", indptr, torch.int32, (n + 1,), dev)
+    S = 1 if indptr.dim() == 1 else indptr.shape[0]
+    if S > 32:
+        raise ValueError(f"{name}: at most 32 segments, got {S}")
+    _check("indptr", indptr, torch.int32,
+           (n + 1,) if indptr.dim() == 1 else (S, n + 1), dev)
+    if (seg_off is None) != (indptr.dim() == 1):
+        raise ValueError("seg_off goes with a [S, n+1] indptr, and only "
+                         "with one")
+    if seg_off is not None:
+        _check("seg_off", seg_off, torch.int32, (S,), dev)
     _check("src", src, torch.int32, device=dev)
     E = src.shape[0]
     if edge_w is not None:
@@ -109,10 +122,20 @@ def _gather_scatter(acc, values, indptr, src, edge_w, src_w, thr, mask,
         _check("thr", thr, torch.float32, (n,), dev)
     if flag is not None:
         _check("flag", flag, torch.int32, (1,), dev)
+    if sched is None:
+        sched = schedule.gather_schedule(indptr)
+    if sched.n_rows != n or sched.device != dev:
+        raise ValueError(f"{name}: schedule of {sched.n_rows} rows on "
+                         f"{sched.device}, expected {n} rows on {dev}")
+    partial = torch.empty((sched.n_slots, B), dtype=torch.float32,
+                          device=dev)
     with torch.cuda.device(dev):
         err = build.library().fora_gather_scatter_add(
-            _ptr(acc), _ptr(values), _ptr(indptr), _ptr(src), _ptr(edge_w),
-            _ptr(src_w), _ptr(thr), int(mask), _ptr(flag), n, B,
+            _ptr(acc), _ptr(values), _ptr(indptr), S, _ptr(seg_off),
+            _ptr(src), _ptr(edge_w), _ptr(src_w), _ptr(thr), int(mask),
+            int(accumulate), _ptr(flag), _ptr(sched.tasks), sched.n_tasks,
+            _ptr(partial) if sched.n_slots else None, _ptr(sched.slot_row),
+            _ptr(sched.split_ptr), _ptr(sched.counters), n, B,
             _stream(acc))
     _raise_on(err, name)
 
@@ -123,26 +146,35 @@ def gather_scatter_add(acc: torch.Tensor, values: torch.Tensor,
                        src_w: Optional[torch.Tensor] = None,
                        thr: Optional[torch.Tensor] = None,
                        mask: bool = False,
-                       flag: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       flag: Optional[torch.Tensor] = None,
+                       sched: Optional[schedule.GatherSchedule] = None
+                       ) -> torch.Tensor:
     """K1: acc[t] = (masked) acc[t] + sum over CSR row t of the scaled
     values[src] rows; ``mask`` zeroes the entries over ``thr[t]`` first,
-    and ``flag[0]`` is set to 1 where a row ends over ``thr``.  Updates
-    ``acc`` in place."""
+    and ``flag[0]`` is set to 1 where a row ends over ``thr``.  ``sched``
+    is ``indptr``'s work list (``schedule.gather_schedule``), built here
+    when absent.  Updates ``acc`` in place."""
     if (mask or flag is not None) and thr is None:
         raise ValueError("mask and flag need thr")
-    _gather_scatter(acc, values, indptr, src, edge_w, src_w, thr, mask,
-                    flag, "gather_scatter_add")
+    _gather_scatter(acc, values, indptr, None, src, edge_w, src_w, thr, mask,
+                    True, flag, sched, "gather_scatter_add")
     gather_scatter_add.launches += 1
     return acc
 
 
 def index_spmv(acc: torch.Tensor, values: torch.Tensor, indptr: torch.Tensor,
                src: torch.Tensor, mult: Optional[torch.Tensor],
-               inv_cnt: torch.Tensor) -> torch.Tensor:
-    """K2: one index bucket, acc[t] += sum over the bucket's CSR row t of
-    mult_e * inv_cnt[v] * values[v] (same kernel as K1, no mask/flag)."""
-    _gather_scatter(acc, values, indptr, src, mult, inv_cnt, None, False,
-                    None, "index_spmv")
+               inv_cnt: torch.Tensor, seg_off: Optional[torch.Tensor] = None,
+               sched: Optional[schedule.GatherSchedule] = None,
+               accumulate: bool = True) -> torch.Tensor:
+    """K2: acc[t] (+)= sum over the index edges into endpoint t of
+    mult_e * inv_cnt[v] * values[v] (same kernel as K1, no mask/flag).
+    ``indptr`` is one bucket's [n+1] CSR by endpoint, or a level's [S,
+    n+1] over S buckets whose edges lie end to end in ``src``/``mult``
+    from ``seg_off`` [S] on; each row sums its buckets in order.  With
+    ``accumulate`` False, ``acc`` is overwritten (no zero fill needed)."""
+    _gather_scatter(acc, values, indptr, seg_off, src, mult, inv_cnt, None,
+                    False, accumulate, None, sched, "index_spmv")
     index_spmv.launches += 1
     return acc
 

@@ -37,8 +37,8 @@ _F = ctypes.c_float
 # name -> argtypes of every C entry point (each returns a cudaError_t)
 SIGNATURES = {
     "fora_push_prepass": [_P, _P, _P, _P, _P, _P, _F, _F, _LL, _I, _P],
-    "fora_gather_scatter_add": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I,
-                                _P],
+    "fora_gather_scatter_add": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                                _P, _P, _LL, _P, _P, _P, _P, _I, _I, _P],
     "fora_topk_segment": [],
     "fora_topk_bounds": [_P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _LL, _P,
                          _P, _P, _P, _P, _P, _P, _P],

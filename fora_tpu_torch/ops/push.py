@@ -93,12 +93,13 @@ def superstep(graph: DeviceGraph, state: PushState, *, alpha: float,
     hub = graph.hub_split
     gather_scatter_add(r, contrib, graph.in_indptr, graph.in_src,
                        edge_w=graph.in_w, thr=thr, mask=True,
-                       flag=None if hub else flag)
+                       flag=None if hub else flag, sched=graph.in_sched)
     if hub:
         # hub edges read the compact [H, B] operand (one shared-index take)
         gather_scatter_add(r, contrib.index_select(0, graph.hub_ids),
                            graph.hub_indptr, graph.hub_src_local,
-                           edge_w=graph.hub_w, thr=thr, flag=flag)
+                           edge_w=graph.hub_w, thr=thr, flag=flag,
+                           sched=graph.hub_sched)
     return PushState(p=p, r=r, iters=state.iters + 1)
 
 

@@ -9,8 +9,9 @@ the shards where JAX runs one ``shard_map`` program.  Per query batch:
   1. each shard pushes over its own in-edges (K1); every superstep's
      frontier, the [n_loc, B] contribution block of each shard, reaches
      every shard through the ring all-gather (P1, ``ops.ring``);
-  2. each shard runs the index SpMV (K2) over the index edges whose source
-     it owns, into an [n_pad, B] partial over all endpoints;
+  2. each shard runs the index SpMV (K2, one launch over the level's
+     buckets) over the index edges whose source it owns, into an [n_pad, B]
+     partial over all endpoints;
   3. the ring reduce-scatter (P2) sums the partials into the owning shards;
   4. each shard takes the top-k of ``p + walk`` over its rows (K3's
      selection), and a stable sort merges the G * k candidates, as
@@ -32,8 +33,9 @@ import torch
 from ..config import ResolvedConfig
 from ..graph.csr import dst_indptr, host_to_device
 from ..index.build import NUM_BUCKETS
+from ..kernels.schedule import gather_schedule
 from ..ops import ring
-from ..ops.gather import gather_scatter_add, index_spmv
+from ..ops.gather import gather_scatter_add, index_spmv_level
 from ..ops.push import push_prepass
 from ..ops.topk import topk_sum
 from . import partition as part
@@ -74,20 +76,39 @@ def exchange_bytes_model(mode: str, *, n_loc: int, batch: int, G: int,
 
 class _Shard:
     """One shard's arrays on its device: the in-edge CSR by local
-    destination (global sources), degrees, the index rows it owns and, per
-    index bucket, a CSR by global endpoint over the index edges whose
-    source it owns (local sources).  Every pad entry is dropped."""
+    destination (global sources) with its K1 work list, degrees, the index
+    rows it owns and the index edges whose source it owns (local sources),
+    in bucket order with each bucket's CSR by global endpoint stacked into
+    ``idx_indptr``.  Every pad entry is dropped."""
 
     def __init__(self, device, row0, in_indptr, in_src, out_deg, counts_cum,
-                 buckets):
+                 idx_indptr, idx_off, idx_src, idx_mult):
         self.device = device
         self.row0 = row0
         self.in_indptr = in_indptr     # [n_loc + 1] i32
         self.in_src = in_src           # [m_real] i32 global
+        self.in_sched = gather_schedule(in_indptr)
         self.out_deg = out_deg         # [n_loc] i32
         self.wsum = out_deg.to(torch.float32)
         self.counts_cum = counts_cum   # [n_loc, Q] i32
-        self.buckets = buckets   # per bucket: (indptr [n_pad+1], src, mult) | None
+        self.idx_indptr = idx_indptr   # [Q, n_pad + 1] i32 per bucket
+        self.idx_src = idx_src         # [e] i32 local, bucket order
+        self.idx_mult = idx_mult       # [e] f32 or None
+        # the first edge of each bucket, on the host and the device
+        self.idx_off = idx_off
+        self.idx_off_dev = torch.tensor(idx_off[:NUM_BUCKETS],
+                                        dtype=torch.int32, device=device)
+
+    @property
+    def buckets(self) -> list:
+        """Per bucket: (indptr [n_pad+1], src, mult-or-None) views, or None
+        for a bucket without edges on this shard."""
+        o = self.idx_off
+        return [None if o[q + 1] <= o[q] else
+                (self.idx_indptr[q], self.idx_src[o[q]:o[q + 1]],
+                 None if self.idx_mult is None
+                 else self.idx_mult[o[q]:o[q + 1]])
+                for q in range(NUM_BUCKETS)]
 
 
 def _sorted(a: np.ndarray, what: str) -> np.ndarray:
@@ -117,22 +138,18 @@ class _ShardedPlacement:
             dst = pg.in_dst_local[s * m_loc:(s + 1) * m_loc]
             real = dst < n_loc
             in_dst = _sorted(dst[real], f"shard {s} in-edges")
-            buckets = []
+            ptrs, srcs, mults, off = [], [], [], [0]
             for q in range(NUM_BUCKETS):
                 lo, hi = s * e + int(boff[q]), s * e + int(boff[q + 1])
                 isrc = pi.edge_src_local[lo:hi]
                 keep = isrc < n_loc
-                if not keep.any():
-                    buckets.append(None)
-                    continue
                 idst = _sorted(pi.edge_dst[lo:hi][keep],
                                f"shard {s} index bucket {q}")
-                mult = (None if pi.edge_mult is None else
-                        host_to_device(pi.edge_mult[lo:hi][keep], dev,
-                                       np.float32))
-                buckets.append((
-                    host_to_device(dst_indptr(idst, n_pad), dev, np.int32),
-                    host_to_device(isrc[keep], dev, np.int32), mult))
+                ptrs.append(dst_indptr(idst, n_pad))
+                srcs.append(isrc[keep])
+                if pi.edge_mult is not None:
+                    mults.append(pi.edge_mult[lo:hi][keep])
+                off.append(off[-1] + int(keep.sum()))
             self.shards.append(_Shard(
                 dev, s * n_loc,
                 host_to_device(dst_indptr(in_dst, n_loc), dev, np.int32),
@@ -142,7 +159,10 @@ class _ShardedPlacement:
                     np.int32),
                 host_to_device(pi.counts_cum[s * n_loc:(s + 1) * n_loc],
                                dev, np.int32),
-                buckets))
+                host_to_device(np.stack(ptrs), dev, np.int32), off,
+                host_to_device(np.concatenate(srcs), dev, np.int32),
+                None if pi.edge_mult is None else
+                host_to_device(np.concatenate(mults), dev, np.float32)))
 
     @property
     def n_pad(self) -> int:
@@ -204,13 +224,14 @@ class ShardedForaEngine:
         self.index_depth = index.depth_for(rcfg.omega_unit, rcfg.rmax)
         depth = self.index_depth
         omega = float(np.float32(rcfg.omega_unit))
-        self._thr, self._inv = [], []
+        self._thr, self._inv, self._walk_sched = [], [], []
         for sh in self.shards:
             counts = sh.counts_cum[:, depth]
             # per-node coverage threshold count_v / omega_unit (f32), as
             # fora_tpu/parallel/sharded.py:372-373
             self._thr.append(counts.to(torch.float32) / omega)
             self._inv.append(1.0 / counts.clamp_min(1).to(torch.float32))
+            self._walk_sched.append(gather_schedule(sh.idx_indptr[depth:]))
         self._one_device = all(d == devices[0] for d in devices)
 
     @property
@@ -294,26 +315,21 @@ class ShardedForaEngine:
             for h, sh in enumerate(self.shards):
                 gather_scatter_add(rs[h], bufs[h], sh.in_indptr, sh.in_src,
                                    thr=self._thr[h], mask=True,
-                                   flag=flags[h])
+                                   flag=flags[h], sched=sh.in_sched)
             iters += 1
             more = read()
         return iters
 
     def walk_partials(self, rs) -> list:
         """Per shard, the [n_pad, B] f32 endpoint mass of its residues: one
-        K2 launch per non-empty bucket from the index depth on, as
+        K2 launch over the buckets from the index depth on, as
         ``fora_tpu/parallel/sharded.py::_indexed_contrib`` (299-320)."""
-        depth = self.index_depth
-        out = []
-        for h, sh in enumerate(self.shards):
-            acc = torch.zeros((self.n_pad, rs[h].shape[1]),
-                              dtype=torch.float32, device=sh.device)
-            for q in range(depth, NUM_BUCKETS):
-                if sh.buckets[q] is not None:
-                    indptr, src, mult = sh.buckets[q]
-                    index_spmv(acc, rs[h], indptr, src, mult, self._inv[h])
-            out.append(acc)
-        return out
+        d = self.index_depth
+        return [index_spmv_level(rs[h], sh.idx_indptr[d:],
+                                 sh.idx_off_dev[d:], sh.idx_src,
+                                 sh.idx_mult, self._inv[h],
+                                 sched=self._walk_sched[h])
+                for h, sh in enumerate(self.shards)]
 
     def merge_topk(self, ps, walk_loc) -> tuple:
         """(values [B, k], node ids [B, k] int64) on the first shard's

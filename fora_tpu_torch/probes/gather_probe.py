@@ -19,7 +19,15 @@ the effective row traffic E * B * 4 bytes per second):
   2. K1 (``gather_scatter_add``) on the same edges sorted by destination,
      which computes the same sum (rtol 1e-4, atol 1e-5 against P3);
   3. K1 over bench.py's graph (RMAT n = 2^19, m = 2^23, seed 7, every
-     in-edge) at B = 128, 64 and 32: the card's gather rate.
+     in-edge) at B = 128, 64 and 32: the card's gather rate;
+  4. K1's work list on that graph (``schedule_line``): how many tasks the
+     rows became, how many rows were split (each split row's tasks write
+     partial sums that its last task adds in order), the longest task and
+     the longest row, in edges.  The launch lasts about as long as its
+     longest task, so a "longest task" far below the "longest row" is what
+     the schedule buys; then K1 at B = 128 with each of TASK_EDGES_SWEEP
+     edges per task (the last, the longest row, is one task per row: the
+     balance of the first design, one warp per whole row).
 
 It needs a CUDA card and fails without one.  The case functions take a
 device and a timer, so the CPU tests run them on the plain versions.
@@ -34,11 +42,13 @@ import sys
 import numpy as np
 import torch
 
+from ..kernels.schedule import TASK_EDGES, gather_schedule
 from ..ops.gather import (gather_scatter_add, row_scatter_add,
                           row_scatter_add_plain)
 
 H, N_DST, E_PROBE, SEED = 8192, 4096, 1 << 18, 0
 WIDTHS = (128, 64, 32)
+TASK_EDGES_SWEEP = (32, 64, 128, 256, 512, 1024, 4096)
 BENCH_GRAPH = dict(n_log2=19, m=1 << 23, seed=7)
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -90,15 +100,17 @@ def p3_case(B: int, device, time_ms, e_total: int = E_PROBE) -> dict:
     err_plain = max_err(f"P3 B={B} vs plain", got,
                         row_scatter_add_plain(zeros(), tile, src, dst))
     indptr, src_d = by_destination(src, dst, N_DST)
+    sched = gather_schedule(indptr)
     err_k1 = max_err(f"K1 B={B} vs P3",
-                     gather_scatter_add(zeros(), tile, indptr, src_d), got)
+                     gather_scatter_add(zeros(), tile, indptr, src_d,
+                                        sched=sched), got)
     acc = zeros()
     out = dict(B=B, edges=e_total, err_plain=err_plain, err_k1=err_k1,
                ms=time_ms(lambda: row_scatter_add(acc, tile, src, dst)),
                plain_ms=time_ms(lambda: row_scatter_add_plain(acc, tile,
                                                               src, dst)),
                k1_ms=time_ms(lambda: gather_scatter_add(acc, tile, indptr,
-                                                        src_d)))
+                                                        src_d, sched=sched)))
     out["lines"] = [
         rate_line("P3 row_scatter_add", B, e_total, out["ms"]),
         rate_line("P3 plain index_add_", B, e_total, out["plain_ms"]),
@@ -107,18 +119,33 @@ def p3_case(B: int, device, time_ms, e_total: int = E_PROBE) -> dict:
     return out
 
 
-def k1_graph_case(g, B: int, device, time_ms) -> str:
+def k1_graph_case(g, B: int, device, time_ms,
+                  task_edges: int = TASK_EDGES) -> str:
     """K1 over every in-edge of the host graph ``g`` at width B (random
-    values, seed 0): its rate line."""
+    values, seed 0) with ``task_edges`` edges per task: its rate line."""
     from ..graph import to_device
     dg = to_device(g, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
     values = torch.rand((g.n, B), generator=gen, device=device)
     acc = torch.zeros_like(values)
+    sched = gather_schedule(dg.in_indptr, task_edges)
     ms = time_ms(lambda: gather_scatter_add(acc, values, dg.in_indptr,
-                                            dg.in_src))
-    return rate_line(f"K1 gather_scatter_add, RMAT n={g.n} m={g.m}", B, g.m,
-                     ms)
+                                            dg.in_src, sched=sched))
+    return rate_line(f"K1 gather_scatter_add, RMAT n={g.n} m={g.m}, "
+                     f"{task_edges} edges per task", B, g.m, ms)
+
+
+def schedule_line(indptr: torch.Tensor, task_edges: int = TASK_EDGES) -> str:
+    """K1's work list over ``indptr``: tasks, split rows, partial slots,
+    the longest task and the longest row in edges."""
+    sched = gather_schedule(indptr, task_edges)
+    t = sched.tasks.long()
+    longest_task = int((t[:, 2] - t[:, 1]).max()) if sched.n_tasks else 0
+    longest_row = int(torch.diff(indptr.long()).max()) if sched.n_rows else 0
+    return (f"schedule at {task_edges} edges per task: {sched.n_rows} rows "
+            f"-> {sched.n_tasks} tasks; {sched.counters.shape[0]} rows split "
+            f"into {sched.n_slots} partial slots; longest task "
+            f"{longest_task} edges, longest row {longest_row}")
 
 
 def main(argv=None) -> int:
@@ -145,6 +172,12 @@ def main(argv=None) -> int:
     g = generators.rmat(**BENCH_GRAPH)
     for B in WIDTHS:
         print(k1_graph_case(g, B, dev, cuda_ms))
+    indptr = torch.from_numpy(np.searchsorted(
+        g.in_dst, np.arange(g.n + 1)).astype(np.int32))
+    print(schedule_line(indptr))
+    longest = int(np.diff(indptr.numpy()).max())
+    for c in TASK_EDGES_SWEEP + (longest,):
+        print(k1_graph_case(g, WIDTHS[0], dev, cuda_ms, task_edges=c))
     return 0
 
 

@@ -36,29 +36,99 @@ def _random_csr(rng, n, n_src, E):
     return indptr, src
 
 
+def _skewed_csr(rng, n, n_src, E):
+    """One 50,000-edge row, the other E edges on 5% of the rows, the rest
+    empty."""
+    deg = np.zeros(n, np.int64)
+    deg[n // 3] = 50_000
+    some = rng.choice(n, n // 20, replace=False)
+    np.add.at(deg, rng.choice(some, E), 1)
+    indptr = np.zeros(n + 1, np.int32)
+    np.cumsum(deg, out=indptr[1:])
+    src = rng.integers(0, n_src, int(deg.sum())).astype(np.int32)
+    return indptr, src
+
+
 @pytest.mark.parametrize("B", [1, 3, 32, 128, 130])
 @pytest.mark.parametrize("masked", [False, True])
-def test_gather_scatter_kernel_matches_plain(dev, B, masked):
+@pytest.mark.parametrize("layout", ["random", "skewed"])
+def test_gather_scatter_kernel_matches_plain(dev, B, masked, layout):
+    """K1 against its plain version: the masked acc and the flag, with a
+    split row (the skewed layout) and every lane layout (B = 1 and 3:
+    scalar lanes in groups; 32 and 128: float4; 130: scalar, five column
+    passes); then a second launch from the same state is bit-equal.  The
+    plain version runs in float64: a float32 sum of the 50,000-edge row
+    in any order is off by more than rtol 1e-5 of the exact sum, and
+    index_add_'s order on the card changes from run to run."""
     from fora_tpu_torch import kernels
+    from fora_tpu_torch.kernels.schedule import gather_schedule
     from fora_tpu_torch.ops.gather import gather_scatter_add_plain
     rng = np.random.default_rng(B + 7 * masked)
     n, n_src, E = 3000, 2500, 40000
-    indptr, src = _random_csr(rng, n, n_src, E)
+    make = _random_csr if layout == "random" else _skewed_csr
+    indptr, src = make(rng, n, n_src, E)
+    E = len(src)
     t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
     values = t(rng.random((n_src, B), dtype=np.float32))
     acc0 = t(rng.random((n, B), dtype=np.float32))
     edge_w = t(rng.integers(1, 4, E).astype(np.float32))
     src_w = t(rng.random(n_src, dtype=np.float32))
     thr = t(rng.random(n, dtype=np.float32) * 5)
+    sched = gather_schedule(t(indptr), 512)
+    assert (sched.n_slots > 0) == (layout == "skewed")
     outs = []
-    for fn in (kernels.gather_scatter_add, gather_scatter_add_plain):
+    for _ in range(2):
         acc = acc0.clone()
         flag = torch.zeros(1, dtype=torch.int32, device=dev)
-        fn(acc, values, t(indptr), t(src), edge_w, src_w, thr, masked,
-           flag)
+        kernels.gather_scatter_add(acc, values, t(indptr), t(src), edge_w,
+                                   src_w, thr, masked, flag, sched=sched)
         outs.append((acc, int(flag.item())))
-    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-5, atol=1e-6)
-    assert outs[0][1] == outs[1][1]
+    acc = acc0.double()
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    gather_scatter_add_plain(acc, values.double(), t(indptr), t(src),
+                             edge_w.double(), src_w.double(), thr.double(),
+                             masked, flag)
+    outs.append((acc.float(), int(flag.item())))
+    torch.testing.assert_close(outs[0][0], outs[2][0], rtol=1e-5, atol=1e-6)
+    assert outs[0][1] == outs[2][1]
+    assert torch.equal(outs[0][0], outs[1][0]) and outs[0][1] == outs[1][1]
+    assert not sched.counters.any()       # reset for the next launch
+
+
+@pytest.mark.parametrize("B", [4, 130])
+def test_level_spmv_kernel_matches_bucket_loop(dev, B):
+    """K2 over a level in one launch (buckets depth.., acc overwritten)
+    against the per-bucket plain loop, on an index built on the CPU; two
+    launches bit-equal."""
+    from fora_tpu_torch import ForaConfig as TorchForaConfig
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo.fora import StagedForaPrograms
+    from fora_tpu_torch.graph import generators as tgen
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.index import build_walk_index
+    from fora_tpu_torch.kernels.schedule import gather_schedule
+    from fora_tpu_torch.ops import gather
+    g = tgen.rmat(12, 1 << 15, seed=3)
+    rcfg = TorchForaConfig(epsilon=0.5, k=20).resolved(g.n, g.m)
+    idx = build_walk_index(to_device(g, device="cpu"), rcfg, seed=4)
+    staged = StagedForaPrograms(to_device(g, device=dev), rcfg, idx)
+    r = torch.as_tensor(np.random.default_rng(B).random(
+        (g.n, B), dtype=np.float32), device=dev)
+    for depth in (0, 2):
+        for task_edges in (16, 512):     # with and without split rows
+            args = (r, staged._indptr[depth:], staged._seg_off[depth:],
+                    staged._src, staged._mult, staged._inv_cnt(depth))
+            sched = gather_schedule(args[1], task_edges)
+            before = kernels.index_spmv.launches
+            got = gather.index_spmv_level(*args, sched=sched)
+            again = gather.index_spmv_level(*args, sched=sched)
+            assert kernels.index_spmv.launches == before + 2
+            want = gather.index_spmv_level_plain(*args)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-9)
+            assert torch.equal(got, again)
+        assert torch.equal(staged.walk_contrib(r, depth),
+                           gather.index_spmv_level(
+                               *args, sched=staged.level_schedule(depth)))
 
 
 def test_push_kernels_match_plain_split_and_unsplit(dev):
