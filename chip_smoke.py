@@ -17,7 +17,9 @@ memory:
   3. kernels     K1 (push superstep, split and unsplit; two launches
                  bit-equal) and K4 (walks) against their plain PyTorch
                  versions on the card; K1's time beside its bound and
-                 torch.sparse.mm over the same CSR (the yardstick)
+                 torch.sparse.mm over the same CSR (the yardstick); K4's
+                 bound from the hops the plain walk counts on the same
+                 starts, as dependent 32-byte sectors at the L2's rate
   4. index       build the FORA+ index on the card (K4 + host pack), save
                  it under bench_data/torch_smoke/, load it back with mmap
   5. queries     256 sources as two pools of 128 through
@@ -26,7 +28,11 @@ memory:
                  launch, twice bit-equal, against the per-bucket plain
                  loop and timed beside torch.sparse.mm over the level's
                  merged CSR) and K3 (split accept) against their plain
-                 versions on a real level's state
+                 versions on a real level's state; K3 twice bit-equal, its
+                 candidates per column (mean, largest) and the columns
+                 that took its dense path (none may), the dense path alone
+                 bit-equal to it, torch.topk of the sum as a yardstick
+                 for the selection, and K3's passes by device time
   7. quality     precision@50 of the first 32 queries against the exact
                  oracle (float64 power iteration on the card; exact ties
                  at rank 50 go to the lowest node id); must be >= 0.95
@@ -68,7 +74,8 @@ memory:
 It prints one JSON line of per-kernel results (launches, max abs error,
 ms, plain ms, bound ms and what bounds it: each input read and each
 output written once at 3.35 TB/s, or its f32 operations at 67 TFLOP/s;
-library ms: one PyTorch call computing the same function, or null), then,
+for K4 the sectors its walks must read; library ms: one PyTorch call
+computing the same function, or null), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -115,6 +122,9 @@ MC_QUERIES, CHISQ_SOURCES, CHISQ_MIN_P = 32, 8, 1e-3
 # the H100 SXM's published peaks at 700 W (NVIDIA's data sheet): device
 # memory rate, and f32 arithmetic outside the tensor cores
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# the L2: 50 MB (the data sheet) in 32-byte sectors; NVIDIA publishes no
+# rate for it, so sector_rate() measures one
+L2_BYTES, SECTOR = 50e6, 32
 
 
 def fail(msg: str):
@@ -134,6 +144,77 @@ def bound(moved: int, ops: float = 0.0) -> dict:
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (dict(bound_ms=t_bytes, bound_by="bytes") if t_bytes >= t_ops
             else dict(bound_ms=t_ops, bound_by="operations"))
+
+
+def sector_rate(size_bytes: int, device) -> float:
+    """Bytes per second at which the card serves scattered 32-byte sectors
+    of a buffer of ``size_bytes``, measured with the hand-written read
+    kernel of kernels/csrc/sector_probe.cu (64 independent reads a thread,
+    past the L1): the best of 2^18, 2^20 and 2^22 threads, three timings
+    each."""
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.utils.timing import cuda_ms
+    buf = torch.zeros(size_bytes // 4, dtype=torch.int32, device=device)
+    rates = {}
+    for log2 in (18, 20, 22):
+        sectors = kernels.sector_reads(buf, threads=1 << log2)
+        ms = min(cuda_ms(lambda: kernels.sector_reads(buf, threads=1 << log2))
+                 for _ in range(3))
+        rates[log2] = SECTOR * sectors / (ms * 1e-3)
+    print("sector_probe over " + f"{size_bytes / 1e6:.1f} MB: " + ", ".join(
+        f"2^{k} threads {v / 1e12:.3f} TB/s" for k, v in rates.items()))
+    return max(rates.values())
+
+
+def walk_bound(graph, start, gen, alpha, max_hops) -> dict:
+    """K4's bound_ms from what these walks must read.  A walk is a chain of
+    reads that no layout coalesces.  Per hop the function needs the row
+    pointers indptr[cur], indptr[cur + 1] of every distinct node the walks
+    stand on (the degree is their difference; walks that share a node share
+    the read), counted as the distinct 32-byte sectors they lie in, and one
+    sector of the edge list for every walk that moves.  The hops are
+    counted by the plain lockstep walk on the same starts (run_walks' loop
+    with counters); the starts are read and the endpoints written once, 4
+    bytes each, at device memory's rate.  The sectors come at the rate
+    sector_rate() measures over a buffer of the out-CSR's size when that
+    fits the L2, and at device memory's published rate otherwise."""
+    import torch
+    from fora_tpu_torch.ops.walk import geometric_lengths
+    length = geometric_lengths(start.shape, alpha, max_hops, generator=gen)
+    deg = graph.out_deg.long()
+    indptr, indices = graph.out_indptr.long(), graph.out_indices.long()
+    per_sector = SECTOR // graph.out_indptr.element_size()
+    cur = start.long()
+    stood = ptr_sectors = moved = 0
+    for h in range(int(length.max())):
+        u = torch.rand(start.shape, generator=gen, device=gen.device)
+        d = deg[cur]
+        going = length > h
+        alive = going & (d > 0)
+        nodes = torch.unique(cur[going])
+        stood += nodes.numel()
+        ptr_sectors += torch.unique(torch.cat(
+            [nodes // per_sector, (nodes + 1) // per_sector])).numel()
+        moved += int(alive.sum())
+        j = torch.minimum((u * d.float()).long(), (d - 1).clamp_min(0))
+        nxt = indices[(indptr[cur] + j).clamp_max(indices.shape[0] - 1)]
+        cur = torch.where(alive, nxt, cur)
+    csr = nbytes(graph.out_indptr, graph.out_indices)
+    in_l2 = csr <= L2_BYTES
+    rate = sector_rate(csr, start.device) if in_l2 else HBM_BYTES_PER_S
+    sectors = ptr_sectors + moved
+    ms = (SECTOR * sectors / rate + 2 * nbytes(start) / HBM_BYTES_PER_S) * 1e3
+    print(f"K4 bound: {start.numel()} walks took {moved} hops "
+          f"({moved / start.numel():.3f} each) from {stood} distinct (hop, "
+          f"node) stands: {ptr_sectors} row-pointer sectors and {moved} "
+          f"edge-list sectors of {SECTOR} bytes; the out-CSR is "
+          f"{csr / 1e6:.1f} MB, {'inside' if in_l2 else 'beyond'} the "
+          f"{L2_BYTES / 1e6:.0f} MB L2: scattered sectors at "
+          f"{rate / 1e12:.3f} TB/s "
+          f"({'measured, sector_probe.cu' if in_l2 else 'the data sheet'})"
+          f" -> {ms:.4f} ms")
+    return dict(bound_ms=ms, bound_by="bytes")
 
 
 def sparse_csr(indptr, cols, vals, n_cols):
@@ -194,6 +275,14 @@ def close(name, got, want, rtol, atol):
              f"and atol (first at {first}: {float(got[first]):.6e} vs "
              f"{float(want[first]):.6e}; max abs err {max_err:.3e})")
     return max_err
+
+
+def plain64(fn, values, chunk: int = 16):
+    """``fn(values.double()).float()`` computed ``chunk`` columns at a
+    time, so a float64 plain version of a gather stays within a few GiB."""
+    import torch
+    return torch.cat([fn(values[:, c:c + chunk].double()).float()
+                      for c in range(0, values.shape[1], chunk)], dim=1)
 
 
 def foreign_modules() -> set:
@@ -271,18 +360,40 @@ def run_queries(runner, sources, log=print, pool=POOL, batch=BATCH,
     return results, n_acc, levels, time.perf_counter() - t0, stats
 
 
-def profile_once(name, fn):
+def profile_once(name, fn, need_trace: bool = True):
     """One run of ``fn`` under torch.profiler: wall, device busy time, idle
     share and the kernels by device time (full table in
-    PROFILE_DIR/profile_<name>.txt)."""
+    PROFILE_DIR/profile_<name>.txt).  Without ``need_trace`` a profiler
+    that cannot start or read its trace is reported and passed over;
+    ``fn`` itself always runs outside that allowance, so what it raises
+    is raised."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     PROFILE_DIR.mkdir(exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.__enter__()
+    except RuntimeError as e:
+        if need_trace:
+            raise
+        print(f"profile {name}: the profiler did not start ({e})")
+        prof = None
+    try:
         wall = timed(fn)
-    ka = prof.key_averages()
+    finally:
+        if prof is not None:
+            try:
+                prof.__exit__(None, None, None)
+                ka = prof.key_averages()
+            except RuntimeError as e:
+                if need_trace:
+                    raise
+                print(f"profile {name}: no trace ({e})")
+                prof = None
+    if prof is None:
+        return
     # the device's own records (kernels, copies); an aten op's device time
     # repeats its kernels' and is left out
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
@@ -732,6 +843,7 @@ def main(argv=None) -> int:
     from fora_tpu_torch.eval import queries as qio
     from fora_tpu_torch.graph import generators, to_device
     from fora_tpu_torch.kernels import build as kbuild
+    from fora_tpu_torch.kernels import select
     from fora_tpu_torch.ops import gather, push, walk
     from fora_tpu_torch.utils.timing import Phase, cuda_ms
 
@@ -973,10 +1085,10 @@ def main(argv=None) -> int:
                 dg, start, generator=gen, alpha=rcfg.alpha,
                 max_hops=rcfg.max_walk_hops), iters=3),
             library_ms=None,
-            # the starts read and the endpoints written once, the out-CSR
-            # and degrees read once
-            **bound(2 * nbytes(start) + nbytes(dg.out_indptr,
-                                               dg.out_indices, dg.out_deg)))
+            **walk_bound(dg, start, gen, rcfg.alpha, rcfg.max_walk_hops))
+        k4 = rows["index_walk"]
+        print(f"K4: {k4['ms']:.4f} ms against its bound {k4['bound_ms']:.4f}"
+              f" ms ({k4['bound_ms'] / k4['ms']:.0%} of it reached)")
         del start, ends_k, ends_p, f_k, f_p
 
     # ---- 4.-5. the main path: index build and queries ------------------
@@ -1002,6 +1114,12 @@ def main(argv=None) -> int:
         p, r = runner._init_pool_state(src128)
         p, r, contrib, _ = staged.lean_state_fn(depth)(p, r, rmax, omega)
         inv = staged._inv_cnt(depth)
+        # the plain sums run in float64, 16 columns at a time (plain64):
+        # index_add_'s order on the card changes from run to run, and a
+        # float32 sum of a long row in two orders can differ by more than
+        # rtol 1e-5; the float32 plain level is held up beside it below
+        inv64 = inv.double()
+        mult64 = None if staged._mult is None else staged._mult.double()
         k2_err, n_buckets = 0.0, 0
         for q, bucket in enumerate(staged._buckets):
             if bucket is None:
@@ -1009,8 +1127,10 @@ def main(argv=None) -> int:
             indptr, src, mult = bucket
             got = kernels.index_spmv(torch.zeros_like(r), r, indptr, src,
                                      mult, inv)
-            want = gather.gather_scatter_add_plain(
-                torch.zeros_like(r), r, indptr, src, edge_w=mult, src_w=inv)
+            m64 = None if mult is None else mult.double()
+            want = plain64(lambda v: gather.gather_scatter_add_plain(
+                torch.zeros_like(v), v, indptr, src, edge_w=m64,
+                src_w=inv64), r)
             k2_err = max(k2_err, close(f"K2 bucket {q}", got, want, 1e-5,
                                        1e-9))
             n_buckets += 1
@@ -1023,10 +1143,24 @@ def main(argv=None) -> int:
             return gather.index_spmv_level(*args, sched=sched)
 
         got, again = level_k(), level_k()
-        want = gather.index_spmv_level_plain(*args)
+        want = plain64(lambda v: gather.index_spmv_level_plain(
+            v, *args[1:4], mult64, inv64), r)
         k2_err = max(k2_err, close("K2 level", got, want, 1e-5, 1e-9))
         if not torch.equal(got, again):
             fail("K2: two launches of the level differ")
+        want32 = gather.index_spmv_level_plain(*args)
+        err32 = (want32 - want).abs()
+        rel32 = err32 / want.abs().clamp_min(1e-30)
+        rel32[err32 <= 1e-9] = 0.0
+        at = divmod(int(rel32.argmax()), rel32.shape[1])
+        relk = (got[at] - want[at]).abs() / want[at].abs().clamp_min(1e-30)
+        print(f"K2: the float32 plain level against the float64 one: "
+              f"{int((err32 > 1e-9 + 1e-5 * want.abs()).sum())} entries beyond "
+              f"rtol 1e-5, atol 1e-9; largest relative error "
+              f"{float(rel32[at]):.3e} at row {at[0]} column {at[1]} "
+              f"({float(want32[at]):.6e} vs {float(want[at]):.6e}); the "
+              f"kernel's there {float(relk):.3e}")
+        del want32, err32, rel32
         print(f"K2: {n_buckets} buckets one by one and the level at depth "
               f"{depth} in one launch match plain, max abs err "
               f"{k2_err:.3e}; two level launches bit-equal")
@@ -1050,10 +1184,16 @@ def main(argv=None) -> int:
               f"{len(lvl)} buckets, {sched.n_tasks} tasks): {k2['ms']:.4f} "
               f"ms, torch.sparse.mm {k2['library_ms']:.4f} ms (max abs err "
               f"{lib_err:.3e} vs plain), bound {k2['bound_ms']:.4f} ms")
-        del csr, got, again, want, args
+        del csr, got, again, want, args, inv64, mult64
 
         t = bounds.union_bound_t(rcfg.n, len(runner.deltas), rcfg.pfail)
-        got = bounds.topk_with_bounds_split(p, contrib, omega, K, t, EPS)
+
+        def accept_k():
+            return bounds.topk_with_bounds_split(p, contrib, omega, K, t, EPS)
+
+        got = accept_k()
+        sel = kernels.topk_bounds_stats()
+        again = accept_k()
         want = bounds.topk_with_bounds_split_plain(p, contrib, omega, K, t,
                                                    EPS)
         if not torch.equal(got[1], want[1]):
@@ -1063,18 +1203,55 @@ def main(argv=None) -> int:
         k3_err = max(close(f"K3 {nm}", got[i], want[i], 1e-6, 0.0)
                      for i, nm in ((0, "vals"), (2, "lb"), (3, "ub"),
                                    (4, "lbk"), (5, "ub_excluded")))
+        if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(got, again)):
+            fail("K3: two launches on one state differ")
         print(f"K3: ids and accept equal, max abs err {k3_err:.3e}; "
-              f"{int(got[6].sum())}/{BATCH} accept at level {level}")
+              f"{int(got[6].sum())}/{BATCH} accept at level {level}; two "
+              f"launches bit-equal")
+        cand = sel["candidates"]
+        print(f"K3 selection at [{p.shape[0]}, {p.shape[1]}], k = {K}: "
+              f"candidates per column mean {cand.mean():.1f}, largest "
+              f"{int(cand.max())}, smallest {int(cand.min())} (capacity "
+              f"{select.SEGMENT}); {sel['dense_columns']} columns took the "
+              f"dense path")
+        if sel["dense_columns"]:
+            fail(f"K3: {sel['dense_columns']} columns took the dense path "
+                 f"on the bench graph's final level")
+        # the dense path alone on the same state (every column), and the
+        # selection's yardstick: torch.topk of the sum, no bounds
+        s2 = float(np.float32(2.0 * t) * bounds._c(omega))
+        dense = kernels.topk_bounds(p, contrib, K, s2, 1.0 + EPS, stride=0)
+        if kernels.topk_bounds_stats()["dense_columns"] != BATCH:
+            fail("K3: the forced dense path did not take every column")
+        if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(got, dense)):
+            fail("K3: the dense path differs from the selection")
+        dense_ms = cuda_ms(lambda: kernels.topk_bounds(
+            p, contrib, K, s2, 1.0 + EPS, stride=0))
+        lib_v, lib_i = torch.topk(p + contrib, K + 1, dim=0)
+        if not torch.equal(lib_v[:K].T.contiguous(), got[0]):
+            fail("K3: torch.topk's values differ")
+        topk_ms = cuda_ms(lambda: torch.topk(p + contrib, K + 1, dim=0))
         rows["topk_bounds"] = dict(
-            max_abs_err=k3_err,
-            ms=cuda_ms(lambda: bounds.topk_with_bounds_split(
-                p, contrib, omega, K, t, EPS)),
+            max_abs_err=k3_err, ms=cuda_ms(accept_k),
             plain_ms=cuda_ms(lambda: bounds.topk_with_bounds_split_plain(
                 p, contrib, omega, K, t, EPS), iters=3),
             library_ms=None,   # no one PyTorch call selects with bounds
             # p and contrib read once, the [B, k] results written once; an
             # add per entry
             **bound(nbytes(p, contrib, *got), p.numel()))
+        k3 = rows["topk_bounds"]
+        print(f"K3 at B = {BATCH}: {k3['ms']:.4f} ms; its dense path alone "
+              f"{dense_ms:.4f} ms (bit-equal); bound {k3['bound_ms']:.4f} "
+              f"ms; the selection's yardstick torch.topk(p + contrib, "
+              f"{K + 1}, dim=0), without ids' tie order or bounds, "
+              f"{topk_ms:.4f} ms")
+        # K3's passes by device time, ten calls (for the record only: a
+        # machine whose profiler cannot trace the card still passes)
+        profile_once("k3", lambda: [accept_k() for _ in range(10)],
+                     need_trace=False)
+        del dense, lib_v, lib_i, again
         del p, r, contrib, got, want
 
     # ---- 7. quality ------------------------------------------------------

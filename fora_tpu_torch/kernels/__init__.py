@@ -18,6 +18,7 @@ PyTorch versions instead.
 | ring_all_gather_hop     | csrc/ring.cu           | P1 (one hop of one shard) |
 | ring_reduce_scatter_hop | csrc/ring.cu           | P2 (one hop of one shard) |
 | row_scatter_add         | csrc/row_scatter.cu    | P3 (per-edge row accumulate, atomics) |
+| sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 
 Every launch runs with its output tensor's device current, so shards on
 several cards each launch on their own card.  The gather takes its work
@@ -32,11 +33,11 @@ from typing import Optional
 
 import torch
 
-from . import build, schedule
+from . import build, schedule, select
 
 __all__ = ["push_prepass", "gather_scatter_add", "index_spmv", "topk_bounds",
-           "index_walk", "ring_all_gather_hop", "ring_reduce_scatter_hop",
-           "row_scatter_add", "enable_peer_access", "WRAPPERS", "reset_launch_counts",
+           "topk_bounds_stats", "index_walk", "ring_all_gather_hop", "ring_reduce_scatter_hop",
+           "row_scatter_add", "sector_reads", "enable_peer_access", "WRAPPERS", "reset_launch_counts",
            "launch_counts"]
 
 
@@ -180,9 +181,15 @@ def index_spmv(acc: torch.Tensor, values: torch.Tensor, indptr: torch.Tensor,
 
 
 def topk_bounds(p: torch.Tensor, contrib: torch.Tensor, k: int, s2: float,
-                one_plus_eps: float):
+                one_plus_eps: float, stride: Optional[int] = None,
+                capacity: Optional[int] = None):
     """K3: (vals, idx, lb, ub, lbk, ub_excluded, accept) of the split
-    estimate p + contrib; ``s2`` = 2 t c in f32, as bounds.py computes it."""
+    estimate p + contrib; ``s2`` = 2 t c in f32, as bounds.py computes it.
+    The scores must not be NaN.  ``stride`` (the threshold sample's row
+    stride, 0 for the dense path) and ``capacity`` (candidates per column
+    before a column goes dense) default to ``select.select_plan``'s and one
+    segment; tests set them to force a path.  The call's device-side
+    counters stay readable through :func:`topk_bounds_stats`."""
     n, B = p.shape
     dev = p.device
     _check("p", p, torch.float32, (n, B))
@@ -192,12 +199,28 @@ def topk_bounds(p: torch.Tensor, contrib: torch.Tensor, k: int, s2: float,
     lib = build.library()
     kk = k + 1
     seg = lib.fora_topk_segment()
+    if seg != select.SEGMENT:
+        raise RuntimeError(f"topk_bounds.cu sorts {seg} keys a block, "
+                           f"select.py plans for {select.SEGMENT}")
     if kk > seg:
         raise ValueError(f"topk_bounds: k + 1 = {kk} exceeds the sorted "
                          f"segment ({seg})")
+    cap = seg if capacity is None else int(capacity)
+    if not 0 < cap <= seg:
+        raise ValueError(f"topk_bounds: capacity {cap} not in 1..{seg}")
+    if stride is None:
+        stride = select.select_plan(n, kk, cap)
+    if stride < 0 or stride == 1:
+        raise ValueError(f"topk_bounds: stride {stride} (0: dense, or >= 2)")
     half = B * math.ceil(n / seg) * kk
     scratch_v = torch.empty(2 * half, dtype=torch.float32, device=dev)
     scratch_i = torch.empty(2 * half, dtype=torch.int32, device=dev)
+    list_len = B * cap if stride else 0
+    list_v = torch.empty(list_len, dtype=torch.float32, device=dev)
+    list_i = torch.empty(list_len, dtype=torch.int32, device=dev)
+    # written by the call's first kernel: [0] columns on the dense path,
+    # [1, 1 + B) candidates per column, then flags and the dense columns
+    state = torch.empty(1 + 3 * B, dtype=torch.int32, device=dev)
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, k), dtype=torch.int32, device=dev)
     lb = torch.empty_like(vals)
@@ -207,13 +230,29 @@ def topk_bounds(p: torch.Tensor, contrib: torch.Tensor, k: int, s2: float,
     accept = torch.empty(B, dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
         err = lib.fora_topk_bounds(
-            _ptr(p), _ptr(contrib), n, B, k, kk, s2, one_plus_eps,
-            _ptr(scratch_v), _ptr(scratch_i), half, _ptr(vals), _ptr(idx),
-            _ptr(lb), _ptr(ub), _ptr(lbk), _ptr(ub_excl), _ptr(accept),
-            _stream(p))
+            _ptr(p), _ptr(contrib), n, B, k, kk, s2, one_plus_eps, stride,
+            cap, _ptr(scratch_v), _ptr(scratch_i), half, _ptr(list_v),
+            _ptr(list_i), _ptr(state), _ptr(vals), _ptr(idx), _ptr(lb),
+            _ptr(ub), _ptr(lbk), _ptr(ub_excl), _ptr(accept), _stream(p))
     topk_bounds.launches += 1
+    topk_bounds.last_state = state
     _raise_on(err, "topk_bounds")
     return vals, idx, lb, ub, lbk, ub_excl, accept
+
+
+def topk_bounds_stats() -> dict:
+    """The device-side counters of the last :func:`topk_bounds` call:
+    ``candidates`` [B] (what the filter appended per column; zeros when the
+    call went dense by shape) and ``dense_columns`` (columns finished by
+    the dense path).  Reads the device, so it synchronises: for tests and
+    measurements, never on the query path."""
+    state = topk_bounds.last_state
+    if state is None:
+        raise RuntimeError("topk_bounds has not run")
+    host = state.cpu()
+    B = (host.numel() - 1) // 3
+    return dict(candidates=host[1:1 + B].numpy(),
+                dense_columns=int(host[0]))
 
 
 def index_walk(start: torch.Tensor, out_indptr: torch.Tensor,
@@ -302,6 +341,26 @@ def row_scatter_add(acc: torch.Tensor, tile: torch.Tensor, src: torch.Tensor,
     return acc
 
 
+def sector_reads(buf: torch.Tensor, reads: int = 64,
+                 threads: int = 1 << 20, seed: int = 0) -> int:
+    """The measuring kernel of csrc/sector_probe.cu: ``threads`` threads
+    (rounded up to blocks of 256) each read ``reads`` (a multiple of 8)
+    scattered 32-byte sectors of the int32 buffer ``buf`` past the L1.
+    Returns the number of sectors read; time the call to get the card's
+    rate for such reads over a buffer of this size.  It is no kernel of
+    the port's paths and has no launch count."""
+    _check("buf", buf, torch.int32)
+    n_sectors = buf.numel() // 8
+    blocks = -(-threads // 256)
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=buf.device)
+    with torch.cuda.device(buf.device):
+        err = build.library().fora_sector_reads(
+            _ptr(buf), n_sectors, reads, blocks, _ptr(out), seed % 2**32,
+            _stream(buf))
+    _raise_on(err, "sector_reads")
+    return blocks * 256 * reads
+
+
 _peer_pairs: set = set()   # (reader, owner) card indices with access on
 
 
@@ -322,6 +381,7 @@ WRAPPERS = (push_prepass, gather_scatter_add, index_spmv, topk_bounds,
             row_scatter_add)
 for _w in WRAPPERS:
     _w.launches = 0
+topk_bounds.last_state = None
 
 
 def reset_launch_counts() -> None:

@@ -40,14 +40,15 @@ SIGNATURES = {
     "fora_gather_scatter_add": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                                 _P, _P, _LL, _P, _P, _P, _P, _I, _I, _P],
     "fora_topk_segment": [],
-    "fora_topk_bounds": [_P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _LL, _P,
-                         _P, _P, _P, _P, _P, _P, _P],
+    "fora_topk_bounds": [_P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _LL,
+                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "fora_index_walk": [_P, _P, _LL, _P, _P, _P, ctypes.c_ulonglong, _F, _I,
                         _P],
     "fora_ring_copy": [_P, _P, _LL, _P],
     "fora_ring_add": [_P, _P, _P, _LL, _P],
     "fora_row_scatter_add": [_P, _P, _P, _P, _LL, _I, _P],
     "fora_enable_peer_access": [_I, _I],
+    "fora_sector_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -94,7 +94,7 @@ def index_spmv_level_plain(values: torch.Tensor, indptr: torch.Tensor,
     :func:`index_spmv` plain version over the buckets in order, into a
     zero accumulator."""
     n = indptr.shape[1] - 1
-    acc = torch.zeros((n, values.shape[1]), dtype=torch.float32,
+    acc = torch.zeros((n, values.shape[1]), dtype=values.dtype,
                       device=values.device)
     for s, lo in enumerate(seg_off.tolist()):
         hi = lo + int(indptr[s, -1])

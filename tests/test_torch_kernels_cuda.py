@@ -11,6 +11,7 @@ machine without it run them without the suite's conftest:
 import numpy as np
 import pytest
 import torch
+from topk_cases import CASES, dense_columns
 from walk_chisq import assert_endpoints_follow
 
 from fora_tpu.algo import exact
@@ -165,23 +166,50 @@ def test_push_kernels_match_plain_split_and_unsplit(dev):
     torch.testing.assert_close(got[0].r, got[256].r, rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("n,B,k", [(5000, 4, 10), (4096 * 45 + 17, 3, 50),
-                                   (700, 2, 50)])
-def test_topk_bounds_kernel_matches_plain(dev, n, B, k):
+@pytest.mark.parametrize("name", list(CASES))
+def test_topk_bounds_kernel_matches_plain(dev, name):
+    """K3 against its plain version on the adversarial inputs of
+    ``topk_cases``: ids and accept equal, values and bounds at rtol 1e-6;
+    the columns that took the dense path as the case expects (the forced
+    overflow: all of them, so the counter is positive); the candidate
+    counts as the CPU model's; a second launch bit-equal."""
+    from fora_tpu_torch import kernels
     from fora_tpu_torch.algo import bounds
-    rng = np.random.default_rng(n)
-    # quantized values plant many exact ties at and around rank k
-    p = np.floor(rng.random((n, B)) * 64).astype(np.float32) / 4096
-    contrib = np.floor(rng.random((n, B)) * 8).astype(np.float32) / 4096
+    from fora_tpu_torch.kernels import select
+    make, k, stride, capacity, dense, _ = CASES[name]
+    p, contrib = make(np.random.default_rng(len(name)))
+    n, B = p.shape
     p_t, c_t = torch.as_tensor(p, device=dev), torch.as_tensor(contrib,
                                                                device=dev)
+    omega, eps = 3.0e5, 0.5
     t = bounds.union_bound_t(n, 3, 1.0 / n)
-    got = bounds.topk_with_bounds_split(p_t, c_t, 3.0e5, k, t, 0.5)
-    want = bounds.topk_with_bounds_split_plain(p_t, c_t, 3.0e5, k, t, 0.5)
+    s2 = float(np.float32(2.0 * t) * bounds._c(omega))
+    want = bounds.topk_with_bounds_split_plain(p_t, c_t, omega, k, t, eps)
+    runs = []
+    for _ in range(2):
+        runs.append(kernels.topk_bounds(p_t, c_t, k, s2, 1.0 + eps,
+                                        stride=stride, capacity=capacity))
+        stats = kernels.topk_bounds_stats()
+        assert stats["dense_columns"] == int(dense_columns(dense, B).sum())
+    got = runs[0]
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[6], want[6])
     for i in (0, 2, 3, 4, 5):
-        torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=0.0)
+        # a negative (k+1)-th score has no Bernstein bound: NaN both ways
+        torch.testing.assert_close(got[i], want[i], rtol=1e-6, atol=0.0,
+                                   equal_nan=True)
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    model = select.select_topk(torch.as_tensor(p), torch.as_tensor(contrib),
+                               k, stride=stride,
+                               capacity=capacity or select.SEGMENT)
+    np.testing.assert_array_equal(stats["candidates"], model.counts.numpy())
+    if name == "forced_overflow":
+        assert stats["dense_columns"] == B > 0
+    if stride is None and capacity is None:     # the accept's own entry
+        auto = bounds.topk_with_bounds_split(p_t, c_t, omega, k, t, eps)
+        for a, b in zip(auto, got):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 def test_walk_kernel_endpoints_match_exact_ppr(dev):
@@ -226,6 +254,17 @@ def test_walk_kernel_geometric_lengths(dev):
     assert abs(lens.mean() - 4.0) < 0.02
     assert abs((lens == 0).mean() - 0.2) < 0.002
     assert lens.max() <= 64
+
+
+def test_sector_probe_reads_and_refuses(dev):
+    """The measuring kernel launches, reports what it read, and refuses a
+    read count its unrolled loop cannot do."""
+    from fora_tpu_torch import kernels
+    buf = torch.zeros(1 << 20, dtype=torch.int32, device=dev)
+    assert kernels.sector_reads(buf, reads=16, threads=1000) == 1024 * 16
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="sector_reads"):
+        kernels.sector_reads(buf, reads=12)
 
 
 @pytest.mark.parametrize("B", [32, 64, 128, 5])
