@@ -61,6 +61,25 @@ memory:
                  gather_probe, B = 128): P3 against its plain version and
                  K1 on the same edges sorted by destination (rtol 1e-4,
                  atol 1e-5), and its rate lines
+  13. weighted   bench.py's weighted graph (phase 1's edges, weights
+                 exp2(U(-2, 2)) from default_rng(SEED + 31)) through the
+                 port's from_edges(w=) and to_device (merge, hub split,
+                 alias tables from the library's host builder, its seconds
+                 printed); one weighted K1 superstep twice bit-equal and
+                 against the float64 plain version; K4's alias branch on
+                 2^22 walks from one source against the plain alias walk
+                 (total variation below 0.01, where K4's uniform branch on
+                 the same graph must read above it), timed beside its
+                 bound (K4's, with an alias_prob sector per moved walk, at
+                 the rate for the out-CSR and alias tables together); the
+                 weighted FORA+ index
+                 built, saved under bench_data/torch_smoke_w/ and loaded
+                 with mmap; 256 sources in two pools of 128 as in phase 5;
+                 precision@50 of the first 32 against the weighted oracle
+                 (>= 0.95); then phases 10 and 11 on the weighted graph:
+                 the raw-walk pool of 64 with its chi-square of K4's alias
+                 branch on one level's allocation, and Monte Carlo, each
+                 at the same gate
   8. proof       every kernel of each path launched in its run (counts
                  reset just before each run, read just after): K1-K4 in
                  phases 4-5 with two K1 gathers per superstep and one K2
@@ -68,13 +87,18 @@ memory:
                  phase 9's timed run with one K2 launch per shard, P1 at
                  (G-1) G launches per superstep and P2 at (G-1) G,
                  K1, K3 and K4 and no K2 in phase 10, K4 in phase 11, P3
-                 in phase 12; and neither JAX nor the JAX package fora_tpu
-                 was imported
+                 in phase 12; in phase 13 K1-K3 and K4's alias branch
+                 (index_walk_alias) in the indexed run, K1, K3 and the
+                 alias branch in the raw pool, the alias branch in Monte
+                 Carlo, never the uniform branch there and never the
+                 alias branch before; and neither JAX nor the JAX package
+                 fora_tpu was imported
 
 It prints one JSON line of per-kernel results (launches, max abs error,
 ms, plain ms, bound ms and what bounds it: each input read and each
 output written once at 3.35 TB/s, or its f32 operations at 67 TFLOP/s;
-for K4 the sectors its walks must read; library ms: one PyTorch call
+for K4 and its alias branch the sectors its walks must read; library
+ms: one PyTorch call
 computing the same function, or null), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
@@ -108,6 +132,7 @@ MIN_PRECISION = 0.95
 WALK_CHECK = 1 << 22
 ROOT = Path(__file__).resolve().parent
 INDEX_DIR = ROOT / "bench_data" / "torch_smoke"
+W_INDEX_DIR = ROOT / "bench_data" / "torch_smoke_w"
 PROFILE_DIR = ROOT / "chiprun_out"
 DEVICE = "cuda:0"
 MAIN_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
@@ -117,6 +142,8 @@ SHARDED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                    "ring_reduce_scatter_hop")
 RAW_KERNELS = ("push_prepass", "gather_scatter_add", "index_walk",
                "topk_bounds")
+WEIGHTED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
+                    "topk_bounds", "index_walk_alias")
 RAW_QUERIES, RAW_BATCH, RAW_DEFER = 64, 64, 32
 MC_QUERIES, CHISQ_SOURCES, CHISQ_MIN_P = 32, 8, 1e-3
 # the H100 SXM's published peaks at 700 W (NVIDIA's data sheet): device
@@ -167,23 +194,43 @@ def sector_rate(size_bytes: int, device) -> float:
     return max(rates.values())
 
 
-def walk_bound(graph, start, gen, alpha, max_hops) -> dict:
+def walk_bytes(graph) -> int:
+    """Bytes of what a walk reads: the out-CSR, and the alias tables on a
+    graph that has them."""
+    return nbytes(graph.out_indptr, graph.out_indices, graph.alias_prob,
+                  graph.alias_other)
+
+
+def walk_sector_rate(graph) -> float:
+    """The rate at which walk_bound() charges a scattered 32-byte sector:
+    sector_rate() over a buffer of walk_bytes() when that fits the L2,
+    device memory's published rate otherwise."""
+    size = walk_bytes(graph)
+    if size <= L2_BYTES:
+        return sector_rate(size, graph.device)
+    return HBM_BYTES_PER_S
+
+
+def walk_bound(graph, start, gen, alpha, max_hops, rate) -> dict:
     """K4's bound_ms from what these walks must read.  A walk is a chain of
     reads that no layout coalesces.  Per hop the function needs the row
     pointers indptr[cur], indptr[cur + 1] of every distinct node the walks
     stand on (the degree is their difference; walks that share a node share
     the read), counted as the distinct 32-byte sectors they lie in, and one
-    sector of the edge list for every walk that moves.  The hops are
-    counted by the plain lockstep walk on the same starts (run_walks' loop
-    with counters); the starts are read and the endpoints written once, 4
-    bytes each, at device memory's rate.  The sectors come at the rate
-    sector_rate() measures over a buffer of the out-CSR's size when that
-    fits the L2, and at device memory's published rate otherwise."""
+    sector of the edge list for every walk that moves; on a graph with
+    alias tables, two: alias_prob[slot], then the one of out_indices[slot]
+    and alias_other[slot] that the hop takes.  The hops are counted by the
+    plain lockstep walk on the same starts (run_walks' loop with
+    counters); the starts are read and the endpoints written once, 4 bytes
+    each, at device memory's rate.  The sectors come at ``rate``
+    (walk_sector_rate())."""
     import torch
     from fora_tpu_torch.ops.walk import geometric_lengths
+    alias = graph.alias_prob is not None
     length = geometric_lengths(start.shape, alpha, max_hops, generator=gen)
     deg = graph.out_deg.long()
     indptr, indices = graph.out_indptr.long(), graph.out_indices.long()
+    other = graph.alias_other.long() if alias else None
     per_sector = SECTOR // graph.out_indptr.element_size()
     cur = start.long()
     stood = ptr_sectors = moved = 0
@@ -198,23 +245,63 @@ def walk_bound(graph, start, gen, alpha, max_hops) -> dict:
             [nodes // per_sector, (nodes + 1) // per_sector])).numel()
         moved += int(alive.sum())
         j = torch.minimum((u * d.float()).long(), (d - 1).clamp_min(0))
-        nxt = indices[(indptr[cur] + j).clamp_max(indices.shape[0] - 1)]
+        slot = (indptr[cur] + j).clamp_max(indices.shape[0] - 1)
+        nxt = indices[slot]
+        if alias:
+            u2 = torch.rand(start.shape, generator=gen, device=gen.device)
+            nxt = torch.where(u2 < graph.alias_prob[slot], nxt, other[slot])
         cur = torch.where(alive, nxt, cur)
     csr = nbytes(graph.out_indptr, graph.out_indices)
-    in_l2 = csr <= L2_BYTES
-    rate = sector_rate(csr, start.device) if in_l2 else HBM_BYTES_PER_S
-    sectors = ptr_sectors + moved
+    walked = walk_bytes(graph)
+    per_hop = 2 if alias else 1
+    sectors = ptr_sectors + per_hop * moved
     ms = (SECTOR * sectors / rate + 2 * nbytes(start) / HBM_BYTES_PER_S) * 1e3
-    print(f"K4 bound: {start.numel()} walks took {moved} hops "
-          f"({moved / start.numel():.3f} each) from {stood} distinct (hop, "
-          f"node) stands: {ptr_sectors} row-pointer sectors and {moved} "
-          f"edge-list sectors of {SECTOR} bytes; the out-CSR is "
-          f"{csr / 1e6:.1f} MB, {'inside' if in_l2 else 'beyond'} the "
-          f"{L2_BYTES / 1e6:.0f} MB L2: scattered sectors at "
+    source = (f"measured over {walked / 1e6:.1f} MB, sector_probe.cu"
+              if walked <= L2_BYTES else "the data sheet")
+    print(f"K4{'-alias' if alias else ''} bound: {start.numel()} walks took "
+          f"{moved} hops ({moved / start.numel():.3f} each) from {stood} "
+          f"distinct (hop, node) stands: {ptr_sectors} row-pointer sectors "
+          f"and {per_hop * moved} "
+          + ("alias_prob and chosen-table" if alias else "edge-list")
+          + f" sectors of {SECTOR} bytes; the out-CSR is {csr / 1e6:.1f} MB"
+          + (f" (with the alias tables {walked / 1e6:.1f} MB)"
+             if alias else "")
+          + f", the L2 {L2_BYTES / 1e6:.0f} MB: scattered sectors at "
           f"{rate / 1e12:.3f} TB/s "
-          f"({'measured, sector_probe.cu' if in_l2 else 'the data sheet'})"
+          f"({source})"
           f" -> {ms:.4f} ms")
     return dict(bound_ms=ms, bound_by="bytes")
+
+
+def plain_superstep(graph, p, r, thr, alpha):
+    """One push superstep by the plain versions, in place on ``p`` and
+    ``r`` (float32, or float64 for a reference in exact arithmetic's
+    place); returns (p, r, flag)."""
+    import torch
+    from fora_tpu_torch.ops import gather, push
+    contrib = torch.empty_like(r)
+    flag = torch.zeros(1, dtype=torch.int32, device=r.device)
+    push.push_prepass_plain(p, r, contrib, thr, graph.out_deg,
+                            push.out_weight(graph), alpha)
+    hub = graph.hub_split
+    gather.gather_scatter_add_plain(
+        r, contrib, graph.in_indptr, graph.in_src, edge_w=graph.in_w,
+        thr=thr, mask=True, flag=None if hub else flag)
+    if hub:
+        gather.gather_scatter_add_plain(
+            r, contrib.index_select(0, graph.hub_ids), graph.hub_indptr,
+            graph.hub_src_local, edge_w=graph.hub_w, thr=thr, flag=flag)
+    return p, r, int(flag.item())
+
+
+def kernel_superstep(graph, p, r, thr, alpha):
+    """The same superstep through K1's kernels; returns (p, r, flag)."""
+    import torch
+    from fora_tpu_torch.ops import push
+    flag = torch.zeros(1, dtype=torch.int32, device=r.device)
+    push.superstep(graph, push.PushState(p, r, 0), alpha=alpha, thr=thr,
+                   flag=flag)
+    return p, r, int(flag.item())
 
 
 def sparse_csr(indptr, cols, vals, n_cols):
@@ -291,17 +378,17 @@ def foreign_modules() -> set:
             if m.split(".")[0] in ("jax", "jaxlib", "fora_tpu")}
 
 
-def build_index(g, dg, rcfg):
+def build_index(g, dg, rcfg, path=INDEX_DIR):
     """The FORA+ index built on the card (K4 + host pack), saved under
-    INDEX_DIR and loaded back through mmap."""
+    ``path`` and loaded back through mmap."""
     from fora_tpu_torch import index as tidx
     t0 = time.perf_counter()
     built = tidx.build_walk_index(dg, rcfg, SEED)
     walks = int(tidx.index_counts(g.out_deg, rcfg).sum())
     print(f"index: {walks} walks -> {built.total_edges} index edges in "
           f"{time.perf_counter() - t0:.1f} s")
-    tidx.save(built, rcfg, str(INDEX_DIR), graph=g)
-    index = tidx.load(str(INDEX_DIR), rcfg, graph=g, mmap=True)
+    tidx.save(built, rcfg, str(path), graph=g)
+    index = tidx.load(str(path), rcfg, graph=g, mmap=True)
     if index.total_edges != built.total_edges:
         fail("index reload: edge count differs")
     return index
@@ -565,8 +652,9 @@ def k4_vs_plain_on_level(runner, dg, sources, level):
     return pv, int(valid.sum()), k_ms, p_ms
 
 
-def run_raw(dg, rcfg, sources, exact_ids):
-    """Phase 10: the raw-walk runner over the first RAW_QUERIES sources.
+def run_raw(dg, rcfg, sources, exact_ids, name="raw"):
+    """Phase 10 (and 13's weighted pool, ``name`` its label in the
+    output): the raw-walk runner over the first RAW_QUERIES sources.
     Returns its launch counts (reset just before the run, read just
     after)."""
     import numpy as np
@@ -581,42 +669,43 @@ def run_raw(dg, rcfg, sources, exact_ids):
         runner, src, pool=RAW_QUERIES, batch=RAW_BATCH, defer=RAW_DEFER)
     counts = kernels.launch_counts()
     if len(results) != len(src):
-        fail(f"raw: {len(results)} of {len(src)} queries answered")
+        fail(f"{name}: {len(results)} of {len(src)} queries answered")
     over = sum(st["overflow"] for st in stats)
     walks = sum(st["walks_total"] for st in stats)
     lanes = sum(st["lanes"] for st in stats)
-    print(f"raw: {len(src)} queries in {wall:.3f} s -> {len(src) / wall:.2f} "
+    print(f"{name}: {len(src)} queries in {wall:.3f} s -> "
+          f"{len(src) / wall:.2f} "
           f"q/s; levels used {levels}; accepted {n_acc}/{len(src)}; "
           f"overflowing columns {over}; walks {walks}, lanes {lanes}")
     if over:
-        fail(f"raw: {over} columns overflowed their lanes")
+        fail(f"{name}: {over} columns overflowed their lanes")
     ms = {}
     for st in stats:
         for k, v in st["ms"].items():
             ms[k] = ms.get(k, 0.0) + v
-    print("raw: ms by stage over all levels: "
+    print(f"{name}: ms by stage over all levels: "
           + " ".join(f"{k} {v:.2f}" for k, v in ms.items()))
     level = max(st["level"] for st in stats)
     pv, walks, k_ms, p_ms = k4_vs_plain_on_level(runner, dg, src, level)
-    print(f"raw: K4 vs plain run_walks on level {level}'s allocation of "
+    print(f"{name}: K4 vs plain run_walks on level {level}'s allocation of "
           f"{CHISQ_SOURCES} queries ({walks} walks): chi-square p-value "
           f"{pv:.4f} (limit {CHISQ_MIN_P}; conservative, both samples "
           f"walk from the same starts); {k_ms:.3f} ms vs plain "
           f"{p_ms:.3f} ms")
     if not pv > CHISQ_MIN_P:
-        fail(f"raw: K4 endpoints differ from plain (p = {pv:.2e})")
+        fail(f"{name}: K4 endpoints differ from plain (p = {pv:.2e})")
     pred = np.stack([results[int(s)] for s in src[:len(exact_ids)]])
     prec = metrics.batch_precision_at_k(pred, exact_ids)
-    print(f"raw precision@{K}: {prec:.4f} over {len(exact_ids)} queries "
+    print(f"{name} precision@{K}: {prec:.4f} over {len(exact_ids)} queries "
           f"(limit {MIN_PRECISION})")
     if not prec >= MIN_PRECISION:
-        fail(f"raw precision@{K} {prec:.4f} < {MIN_PRECISION}")
+        fail(f"{name} precision@{K} {prec:.4f} < {MIN_PRECISION}")
     return counts
 
 
-def run_montecarlo(dg, rcfg, sources, exact_ids):
-    """Phase 11: Monte Carlo top-k of the first MC_QUERIES sources.
-    Returns its launch counts."""
+def run_montecarlo(dg, rcfg, sources, exact_ids, name="montecarlo"):
+    """Phase 11 (and 13's weighted run, ``name`` its label): Monte Carlo
+    top-k of the first MC_QUERIES sources.  Returns its launch counts."""
     import numpy as np
     import torch
     from fora_tpu_torch import kernels
@@ -636,11 +725,11 @@ def run_montecarlo(dg, rcfg, sources, exact_ids):
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     prec = metrics.batch_precision_at_k(ids[:len(exact_ids)], exact_ids)
-    print(f"montecarlo: {len(src)} queries x {fn.num_walks} walks in "
+    print(f"{name}: {len(src)} queries x {fn.num_walks} walks in "
           f"{chunks} chunks: {wall:.3f} s -> {len(src) / wall:.2f} q/s; "
           f"precision@{K} {prec:.4f} (limit {MIN_PRECISION})")
     if not prec >= MIN_PRECISION:
-        fail(f"montecarlo precision@{K} {prec:.4f} < {MIN_PRECISION}")
+        fail(f"{name} precision@{K} {prec:.4f} < {MIN_PRECISION}")
     return counts
 
 
@@ -666,6 +755,149 @@ def run_p3(dev):
     return dict(max_abs_err=res["err_plain"], ms=res["ms"],
                 plain_ms=res["plain_ms"], library_ms=res["plain_ms"],
                 **bound(moved, E * B)), counts
+
+
+def weighted_graph(g):
+    """bench.py's weighted row (FORA_BENCH_WEIGHTED=1): ``g``'s edges with
+    log-uniform weights exp2(U(-2, 2)) drawn from default_rng(SEED + 31),
+    packed by the port's from_edges."""
+    import numpy as np
+    from fora_tpu_torch.graph import from_edges
+    rng = np.random.default_rng(SEED + 31)
+    src = np.repeat(np.arange(g.n, dtype=np.int64),
+                    np.asarray(g.out_deg, np.int64))
+    w = np.exp2(rng.uniform(-2, 2, g.m)).astype(np.float32)
+    return from_edges(src, np.asarray(g.out_indices, np.int64), g.n, w=w)
+
+
+def run_weighted(g, rcfg, dev):
+    """Phase 13: bench.py's weighted graph end to end.  Returns (kernel row
+    of K4's alias branch, launch counts of the indexed run, of the
+    raw-walk pool and of Monte Carlo)."""
+    import dataclasses
+    import logging
+    import numpy as np
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo import exact
+    from fora_tpu_torch.algo.topk import TopkRunner
+    from fora_tpu_torch.eval import metrics
+    from fora_tpu_torch.eval import queries as qio
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops import push, walk
+    from fora_tpu_torch.utils.timing import cuda_ms
+
+    t0 = time.perf_counter()
+    gw = weighted_graph(g)
+    print(f"weighted: from_edges(w=...) {time.perf_counter() - t0:.1f} s")
+    # to_device logs the seconds of the alias build it makes
+    log = logging.getLogger("fora_tpu_torch.graph.csr")
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("weighted: %(message)s"))
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    dgw = to_device(gw, merge_duplicate_edges=True, hub_rows=HUB_ROWS,
+                    device=dev)
+    torch.cuda.synchronize()
+    log.removeHandler(handler)
+    print(f"weighted: to_device (merge, hub split, alias tables) "
+          f"{time.perf_counter() - t0:.1f} s; {dgw.m_in} merged in-edges")
+    rate = walk_sector_rate(dgw)
+    sources = qio.generate_sources(gw, QUERIES, seed=SEED + 1)
+    src128 = torch.as_tensor(sources[:BATCH], dtype=torch.int32, device=dev)
+
+    # K1: one weighted superstep on a spread-out frontier, twice from one
+    # state (bit-equal), against the plain version in float64
+    thr = push.node_threshold(dgw, rcfg.rmax)
+    st = push.init_state(g.n, src128)
+    for _ in range(4):
+        st = push.superstep(dgw, st, alpha=rcfg.alpha, thr=thr)
+    runs = [kernel_superstep(dgw, st.p.clone(), st.r.clone(), thr,
+                             rcfg.alpha) for _ in range(2)]
+    if not (torch.equal(runs[0][0], runs[1][0])
+            and torch.equal(runs[0][1], runs[1][1])
+            and runs[0][2] == runs[1][2]):
+        fail("K1 weighted: two launches from one state differ")
+    pp, pr, pf = plain_superstep(dgw, st.p.double(), st.r.double(), thr,
+                                 rcfg.alpha)
+    if runs[0][2] != pf:
+        fail(f"K1 weighted: flag {runs[0][2]} != plain {pf}")
+    k1_err = max(close("K1 weighted p", runs[0][0], pp.float(), 1e-5, 1e-7),
+                 close("K1 weighted r", runs[0][1], pr.float(), 1e-5, 1e-7))
+    print(f"K1 weighted superstep: two launches bit-equal; max abs err "
+          f"{k1_err:.3e} against the float64 plain version")
+    del st, runs, pp, pr
+
+    # K4's alias branch: 2^22 walks from one source against the plain
+    # alias walk, timed beside its bound
+    start = torch.full((WALK_CHECK,), int(sources[0]), dtype=torch.int32,
+                       device=dev)
+    ends_k = walk.walk_endpoints(dgw, start, SEED, rcfg.alpha,
+                                 rcfg.max_walk_hops)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ends_p = walk.run_walks(dgw, start, generator=gen, alpha=rcfg.alpha,
+                            max_hops=rcfg.max_walk_hops)
+    f_k = torch.bincount(ends_k.long(), minlength=g.n).double() / WALK_CHECK
+    f_p = torch.bincount(ends_p.long(), minlength=g.n).double() / WALK_CHECK
+    top = torch.argsort(f_p, descending=True)[:1000]
+    tv = 0.5 * float((f_k[top] - f_p[top]).abs().sum())
+    # what a kernel that ignored the weights would read: K4's uniform
+    # branch on the same out-CSR
+    ends_u = walk.walk_endpoints(
+        dataclasses.replace(dgw, alias_prob=None, alias_other=None), start,
+        SEED, rcfg.alpha, rcfg.max_walk_hops)
+    f_u = torch.bincount(ends_u.long(), minlength=g.n).double() / WALK_CHECK
+    tv_u = 0.5 * float((f_u[top] - f_p[top]).abs().sum())
+    print(f"K4-alias: {WALK_CHECK} walks from node {int(sources[0])}: total "
+          f"variation {tv:.4f} over the top-1000 endpoints (limit 0.01); "
+          f"K4's uniform branch on the same graph reads {tv_u:.4f}")
+    if not tv < 0.01:
+        fail(f"K4-alias endpoint distribution: total variation {tv:.4f}")
+    if not tv_u > 0.01:
+        fail(f"K4-alias check cannot tell uniform hops from weighted ones: "
+             f"the uniform branch reads {tv_u:.4f}")
+    row = dict(
+        max_abs_err=float((f_k[top] - f_p[top]).abs().max()),
+        ms=cuda_ms(lambda: walk.walk_endpoints(
+            dgw, start, SEED, rcfg.alpha, rcfg.max_walk_hops)),
+        plain_ms=cuda_ms(lambda: walk.run_walks(
+            dgw, start, generator=gen, alpha=rcfg.alpha,
+            max_hops=rcfg.max_walk_hops), iters=3),
+        library_ms=None,
+        **walk_bound(dgw, start, gen, rcfg.alpha, rcfg.max_walk_hops, rate))
+    print(f"K4-alias: {row['ms']:.4f} ms against its bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.0%} of "
+          f"it reached); plain {row['plain_ms']:.4f} ms")
+    del start, ends_k, ends_p, ends_u, f_k, f_p, f_u
+
+    # the main path: counts reset just before, read just after
+    kernels.reset_launch_counts()
+    index = build_index(gw, dgw, rcfg, W_INDEX_DIR)
+    runner = TopkRunner(dgw, rcfg, k=K, index=index, delta_stride=DSTRIDE,
+                        accept_slack=ACCEPT)
+    results, n_acc, levels, wall, _ = run_queries(runner, sources)
+    counts = kernels.launch_counts()
+    if len(results) != QUERIES:
+        fail(f"weighted: {len(results)} of {QUERIES} queries answered")
+    print(f"weighted queries: {QUERIES} in {wall:.3f} s -> "
+          f"{QUERIES / wall:.2f} q/s; levels used {levels}; accepted "
+          f"{n_acc}/{QUERIES}")
+    del runner, index
+
+    # the weighted oracle: float64 power iteration with w/W transitions
+    ev = sources[:EVAL_N]
+    ex = exact.topk_ids(exact.exact_ppr_batch(gw, ev, device=dev), K)
+    prec = metrics.batch_precision_at_k(
+        np.stack([results[int(s)] for s in ev]), ex)
+    print(f"weighted precision@{K}: {prec:.4f} over {EVAL_N} queries "
+          f"against the weighted oracle (limit {MIN_PRECISION})")
+    if not prec >= MIN_PRECISION:
+        fail(f"weighted precision@{K} {prec:.4f} < {MIN_PRECISION}")
+    raw_counts = run_raw(dgw, rcfg, sources, ex, name="weighted raw")
+    mc_counts = run_montecarlo(dgw, rcfg, sources, ex,
+                               name="weighted montecarlo")
+    return row, counts, raw_counts, mc_counts
 
 
 def sorted_topk(vals, ids):
@@ -918,34 +1150,13 @@ def main(argv=None) -> int:
         for _ in range(4):   # a spread-out frontier, not the one-hot start
             st = push.superstep(dg, st, alpha=rcfg.alpha, thr=thr)
 
-        def plain_superstep(graph, p, r):
-            contrib = torch.empty_like(r)
-            flag = torch.zeros(1, dtype=torch.int32, device=dev)
-            push.push_prepass_plain(p, r, contrib, thr, graph.out_deg,
-                                    push.out_weight(graph), rcfg.alpha)
-            hub = graph.hub_split
-            gather.gather_scatter_add_plain(
-                r, contrib, graph.in_indptr, graph.in_src,
-                edge_w=graph.in_w, thr=thr, mask=True,
-                flag=None if hub else flag)
-            if hub:
-                gather.gather_scatter_add_plain(
-                    r, contrib.index_select(0, graph.hub_ids),
-                    graph.hub_indptr, graph.hub_src_local,
-                    edge_w=graph.hub_w, thr=thr, flag=flag)
-            return p, r, int(flag.item())
-
-        def kernel_superstep(graph, p, r):
-            flag = torch.zeros(1, dtype=torch.int32, device=dev)
-            push.superstep(graph, push.PushState(p, r, 0), alpha=rcfg.alpha,
-                           thr=thr, flag=flag)
-            return p, r, int(flag.item())
-
         k1_err = 0.0
         results = {}
         for name, graph in (("split", dg), ("unsplit", dg_flat)):
-            kp, kr, kf = kernel_superstep(graph, st.p.clone(), st.r.clone())
-            pp, pr, pf = plain_superstep(graph, st.p.clone(), st.r.clone())
+            kp, kr, kf = kernel_superstep(graph, st.p.clone(), st.r.clone(),
+                                          thr, rcfg.alpha)
+            pp, pr, pf = plain_superstep(graph, st.p.clone(), st.r.clone(),
+                                         thr, rcfg.alpha)
             if kf != pf:
                 fail(f"K1 {name}: flag {kf} != plain {pf}")
             k1_err = max(k1_err,
@@ -1061,6 +1272,7 @@ def main(argv=None) -> int:
         del p_s, contrib_s, acc, hub_vals, st, csr, flat_want
 
         # K4: 2^22 walks from one source, kernel vs plain run_walks
+        k4_rate = walk_sector_rate(dg)
         start = torch.full((WALK_CHECK,), int(sources[0]), dtype=torch.int32,
                            device=dev)
         ends_k = walk.walk_endpoints(dg, start, SEED, rcfg.alpha,
@@ -1085,7 +1297,8 @@ def main(argv=None) -> int:
                 dg, start, generator=gen, alpha=rcfg.alpha,
                 max_hops=rcfg.max_walk_hops), iters=3),
             library_ms=None,
-            **walk_bound(dg, start, gen, rcfg.alpha, rcfg.max_walk_hops))
+            **walk_bound(dg, start, gen, rcfg.alpha, rcfg.max_walk_hops,
+                         k4_rate))
         k4 = rows["index_walk"]
         print(f"K4: {k4['ms']:.4f} ms against its bound {k4['bound_ms']:.4f}"
               f" ms ({k4['bound_ms'] / k4['ms']:.0%} of it reached)")
@@ -1284,6 +1497,13 @@ def main(argv=None) -> int:
     with Phase("P3"):
         rows["row_scatter_add"], p3_launches = run_p3(dev)
 
+    # ---- 13. weighted graphs ---------------------------------------------
+    del dg, dg_flat, index, runner, staged, results, x, lvl, inv, sched
+    torch.cuda.empty_cache()
+    with Phase("weighted"):
+        (rows["index_walk_alias"], w_launches, w_raw_launches,
+         w_mc_launches) = run_weighted(g, rcfg, dev)
+
     # ---- 8. proof that each path ran on its kernels ------------------------
     print(f"launches in phases 4-5: {launches}")
     for name in MAIN_KERNELS:
@@ -1315,6 +1535,28 @@ def main(argv=None) -> int:
     print(f"launches in phase 12: {p3_launches}")
     if p3_launches["row_scatter_add"] <= 0:
         fail("P3 was not launched by the gather probe")
+    # phase 13: the weighted index build and pools, the weighted raw-walk
+    # pool and Monte Carlo each run K4's alias branch and never its
+    # uniform one; no earlier phase ran the alias branch
+    print(f"launches in phase 13 (index build and pools): {w_launches}")
+    print(f"launches in phase 13 (raw-walk pool): {w_raw_launches}")
+    print(f"launches in phase 13 (Monte Carlo): {w_mc_launches}")
+    for name in WEIGHTED_KERNELS:
+        if w_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the weighted path")
+    for name in ("push_prepass", "gather_scatter_add", "topk_bounds",
+                 "index_walk_alias"):
+        if w_raw_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the weighted raw path")
+    if w_mc_launches["index_walk_alias"] <= 0:
+        fail("K4's alias branch was not launched by weighted Monte Carlo")
+    if any(c["index_walk"] for c in (w_launches, w_raw_launches,
+                                     w_mc_launches)):
+        fail("a weighted path launched K4's uniform branch")
+    if any(c["index_walk_alias"] for c in (launches, sharded_launches,
+                                           raw_launches, mc_launches,
+                                           p3_launches)):
+        fail("K4's alias branch was launched on an unweighted path")
     hops = (SHARDS - 1) * SHARDS
     if sharded_launches["ring_all_gather_hop"] != hops * sh_iters:
         fail(f"P1: {sharded_launches['ring_all_gather_hop']} launches, "
@@ -1335,6 +1577,7 @@ def main(argv=None) -> int:
         "index_spmv": ("gather_scatter.cu", "fora_tpu/algo/fora.py:352"),
         "topk_bounds": ("topk_bounds.cu", "fora_tpu/algo/bounds.py:112"),
         "index_walk": ("walk.cu", "fora_tpu/ops/walk.py:159"),
+        "index_walk_alias": ("walk.cu", "fora_tpu/ops/walk.py:212"),
         "ring_all_gather_hop": ("ring.cu", "fora_tpu/ops/ring.py:107"),
         "ring_reduce_scatter_hop": ("ring.cu", "fora_tpu/ops/ring.py:32"),
         "row_scatter_add": ("row_scatter.cu",
@@ -1345,6 +1588,7 @@ def main(argv=None) -> int:
         row = rows[name]
         n = (launches[name] if name in MAIN_KERNELS else
              p3_launches[name] if name == "row_scatter_add" else
+             w_launches[name] if name == "index_walk_alias" else
              sharded_launches[name])
         out.append({"name": name, "route": "cuda",
                     "source": f"fora_tpu_torch/kernels/csrc/{src_file}",

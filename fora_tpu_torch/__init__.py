@@ -4,7 +4,8 @@ A port of ``fora_tpu`` (JAX) that runs the top-k query paths on an
 NVIDIA H100: forward push as masked SpMV supersteps, the walk phase from
 sampled walks (raw-walk FORA, Monte Carlo) or from the FORA+ walk index
 (built by a walk kernel, served as a weighted SpMV), and top-k refinement
-with Bernstein-bound acceptance; and the graph-sharded one-shot top-k
+with Bernstein-bound acceptance, on unweighted and weighted graphs (w/W
+transitions, alias-table walks); and the graph-sharded one-shot top-k
 (``parallel``), whose shards exchange over a ring all-gather and a ring
 reduce-scatter.  Its hot loops, the two ring hops and the gather probe's
 per-edge accumulate (``probes``) are hand-written CUDA kernels

@@ -3,6 +3,7 @@ precision@k is scored against.
 
 Same semantics as ``fora_tpu/algo/exact.py::exact_ppr_power_batch`` and
 ``exact_topk_batch`` (88-193): pi = alpha e_s + (1 - alpha) M^T pi, where
+M[v, t] = w(v, t) / W(v) (1 / out_deg(v) per edge when unweighted) and
 M has a self-loop on every dangling row, iterated until the L1 change of
 every column is at most ``tol``.  It runs on any device as a float64
 sparse-CSR times dense product (a library SpMM, independent of the
@@ -16,17 +17,24 @@ import torch
 
 
 def transition_matrix(g, device) -> torch.Tensor:
-    """A[t, v] = multiplicity(v -> t) / out_deg(v), A[v, v] = 1 for dangling
-    v; [n, n] float64 sparse CSR on ``device``.  ``g`` is a host CSRGraph
-    (unweighted)."""
-    if g.weighted:
-        raise NotImplementedError("weighted graphs are not ported yet")
+    """A[t, v] = multiplicity(v -> t) / out_deg(v), or on a weighted graph
+    w(v, t) / W(v) with W the f64 sum of v's out-weights; A[v, v] = 1 for
+    dangling v; [n, n] float64 sparse CSR on ``device``.  ``g`` is a host
+    CSRGraph."""
     n = g.n
     deg = np.asarray(g.out_deg, dtype=np.int64)
     dang = np.nonzero(deg == 0)[0]
+    in_src = np.asarray(g.in_src, np.int64)
     rows = np.concatenate([np.asarray(g.in_dst, np.int64), dang])
-    cols = np.concatenate([np.asarray(g.in_src, np.int64), dang])
-    data = np.concatenate([1.0 / deg[g.in_src], np.ones(len(dang))])
+    cols = np.concatenate([in_src, dang])
+    if g.weighted:
+        wsum = np.bincount(np.repeat(np.arange(n, dtype=np.int64), deg),
+                           weights=np.asarray(g.out_w, np.float64),
+                           minlength=n)
+        vals = np.asarray(g.in_w, np.float64) / wsum[in_src]
+    else:
+        vals = 1.0 / deg[in_src]
+    data = np.concatenate([vals, np.ones(len(dang))])
     a = torch.sparse_coo_tensor(
         torch.from_numpy(np.stack([rows, cols])), torch.from_numpy(data),
         (n, n), check_invariants=True).coalesce()   # sums parallel edges

@@ -17,8 +17,8 @@ from .ops.push import PushState
 from .parallel.partition import PartitionedGraph, PartitionedIndex
 
 
-# ``{name: np.asarray(field)}`` of a fora_tpu DeviceGraph -> DeviceGraph
-# (fields the port does not carry, such as alias tables, are ignored)
+# ``{name: np.asarray(field)}`` of a fora_tpu DeviceGraph -> DeviceGraph,
+# a weighted graph's out_wsum, out_w and alias tables included
 graph_from_numpy = from_numpy_fields
 
 

@@ -16,12 +16,17 @@ with each one's edge-balanced work list (``in_sched``, ``hub_sched``).
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..kernels.schedule import GatherSchedule, gather_schedule
+from .alias import build_alias, build_alias_library
+
+log = logging.getLogger(__name__)
 
 
 class CSRGraph(NamedTuple):
@@ -50,10 +55,12 @@ class CSRGraph(NamedTuple):
         return self.out_w is not None
 
 
-def from_edges(src: np.ndarray, dst: np.ndarray, n: int) -> CSRGraph:
-    """Pack an unweighted edge list into out-CSR + dst-sorted in-edges.
-    Self-loops and parallel edges are kept (``fora_tpu``'s ``from_edges``
-    without ``dedup`` and ``w``)."""
+def from_edges(src: np.ndarray, dst: np.ndarray, n: int, dedup: bool = False,
+               w: Optional[np.ndarray] = None) -> CSRGraph:
+    """Pack an edge list into out-CSR + dst-sorted in-edges.  Self-loops
+    and parallel edges are kept unless ``dedup`` drops exact duplicates
+    (the first of each kept).  ``w`` ([m], positive) are per-edge weights,
+    carried as f32 into both edge orders."""
     src = np.asarray(src, dtype=np.int64)
     dst = np.asarray(dst, dtype=np.int64)
     if src.shape != dst.shape:
@@ -61,6 +68,17 @@ def from_edges(src: np.ndarray, dst: np.ndarray, n: int) -> CSRGraph:
     if src.size and (src.min() < 0 or src.max() >= n or dst.min() < 0
                      or dst.max() >= n):
         raise ValueError("edge endpoint out of range")
+    if w is not None:
+        w = np.asarray(w, dtype=np.float32)
+        if w.shape != src.shape:
+            raise ValueError("w must be per-edge")
+        if w.size and w.min() <= 0:
+            raise ValueError("edge weights must be positive")
+    if dedup and src.size:
+        _, keep = np.unique(src * n + dst, return_index=True)
+        src, dst = src[keep], dst[keep]
+        if w is not None:
+            w = w[keep]
     if src.size >= 2**31:
         raise ValueError("graph exceeds int32 index range")
     order = np.argsort(src, kind="stable")
@@ -74,7 +92,9 @@ def from_edges(src: np.ndarray, dst: np.ndarray, n: int) -> CSRGraph:
         in_src=src[order_in].astype(np.int32),
         in_dst=dst[order_in].astype(np.int32),
         out_deg=out_deg.astype(np.int32),
-        in_deg=np.bincount(dst, minlength=n).astype(np.int32))
+        in_deg=np.bincount(dst, minlength=n).astype(np.int32),
+        out_w=None if w is None else w[order],
+        in_w=None if w is None else w[order_in])
 
 
 def dst_indptr(dst: np.ndarray, n: int) -> np.ndarray:
@@ -87,12 +107,16 @@ def dst_indptr(dst: np.ndarray, n: int) -> np.ndarray:
 class DeviceGraph:
     """Device-side graph; field names follow ``fora_tpu``'s DeviceGraph.
 
-    ``in_w`` multiplies each in-edge (merged duplicate multiplicities);
-    with the hub split (``hub_rows`` > 0) ``in_src``/``in_dst``/``in_w``
-    hold only the tail edges and the edges from the top-H out-degree
-    sources live in ``hub_*``, gathered from the compact
-    ``contrib[hub_ids]`` operand.  ``out_wsum`` (per-node out-weight) is
-    None: weighted graphs are not ported yet.
+    ``in_w`` multiplies each in-edge: merged duplicate multiplicities, or
+    on a weighted graph the edge weight w(src, dst) (summed over merged
+    parallel edges); with the hub split (``hub_rows`` > 0)
+    ``in_src``/``in_dst``/``in_w`` hold only the tail edges and the edges
+    from the top-H out-degree sources live in ``hub_*``, gathered from the
+    compact ``contrib[hub_ids]`` operand.  A weighted graph also carries
+    ``out_wsum`` = W(v), the per-node out-weight the push divides by, its
+    weights ``out_w`` in out-CSR order, and the Walker alias tables
+    ``alias_prob``/``alias_other`` over the out-CSR slots, with which a
+    walk steps v -> u with probability w(v, u) / W(v).
     """
 
     out_indptr: torch.Tensor            # [n+1] i32
@@ -103,6 +127,9 @@ class DeviceGraph:
     out_deg: torch.Tensor               # [n] i32
     in_w: Optional[torch.Tensor] = None       # [m_tail] f32
     out_wsum: Optional[torch.Tensor] = None   # [n] f32
+    alias_prob: Optional[torch.Tensor] = None   # [m] f32
+    alias_other: Optional[torch.Tensor] = None  # [m] i32
+    out_w: Optional[torch.Tensor] = None        # [m] f32, out-CSR order
     hub_ids: Optional[torch.Tensor] = None        # [H] i32
     hub_src_local: Optional[torch.Tensor] = None  # [m_hub] i32 slot in hub_ids
     hub_dst: Optional[torch.Tensor] = None        # [m_hub] i32, ascending
@@ -160,7 +187,8 @@ def from_numpy_fields(fields: dict, *, device) -> DeviceGraph:
     if "hub_dst" in f:
         f.setdefault("hub_indptr", dst_indptr(f["hub_dst"], n))
     ints = {"out_indptr", "out_indices", "in_src", "in_dst", "in_indptr",
-            "out_deg", "hub_ids", "hub_src_local", "hub_dst", "hub_indptr"}
+            "out_deg", "alias_other", "hub_ids", "hub_src_local", "hub_dst",
+            "hub_indptr"}
     names = {fl.name for fl in dataclasses.fields(DeviceGraph)}
     dg = DeviceGraph(**{
         k: host_to_device(v, device, np.int32 if k in ints else np.float32)
@@ -176,17 +204,36 @@ def to_device(g: CSRGraph, merge_duplicate_edges: bool = False,
     """Lay ``g`` out on ``device``; port of fora_tpu's ``to_device``.
 
     ``merge_duplicate_edges`` collapses parallel in-edges into unique
-    (src, dst) pairs with an ``in_w`` multiplicity; ``hub_rows`` > 0 moves
-    the in-edges of the top-``hub_rows`` out-degree sources into the hub
+    (src, dst) pairs with an ``in_w`` multiplicity (on a weighted graph,
+    the sum of their weights, taken in f64); ``hub_rows`` > 0 moves the
+    in-edges of the top-``hub_rows`` out-degree sources into the hub
     partition.  Both keep every edge list dst-sorted, so each has a CSR by
     destination (``in_indptr``, ``hub_indptr``).
+
+    A weighted graph (``g.out_w`` set) also gets ``out_wsum`` (the f64 sum
+    of each node's out-weights, cast to f32), ``out_w`` and its alias
+    tables: on a CUDA device from the library's builder
+    (``kernels/csrc/alias.cu``, host code), on the CPU from the numpy
+    copy; the two give equal tables.  The build's seconds go to this
+    module's logger at INFO.
     """
-    if g.weighted:
-        raise NotImplementedError(
-            "weighted graphs (out_wsum, alias-table walks) are not ported "
-            "to fora_tpu_torch yet")
     in_src, in_dst = g.in_src, g.in_dst
-    in_w = None
+    in_w = None if g.in_w is None else np.asarray(g.in_w, np.float32)
+    fields = dict(out_indptr=g.out_indptr, out_indices=g.out_indices,
+                  out_deg=g.out_deg)
+    if g.weighted:
+        src = np.repeat(np.arange(g.n, dtype=np.int64),
+                        np.asarray(g.out_deg, dtype=np.int64))
+        build = (build_alias_library if torch.device(device).type == "cuda"
+                 else build_alias)
+        t0 = time.perf_counter()
+        tables = build(g, g.out_w)
+        log.info("alias tables of %d slots built by %s in %.3f s", g.m,
+                 build.__name__, time.perf_counter() - t0)
+        fields.update(
+            out_wsum=np.bincount(src, weights=np.asarray(g.out_w, np.float64),
+                                 minlength=g.n).astype(np.float32),
+            out_w=g.out_w, alias_prob=tables.prob, alias_other=tables.other)
     if merge_duplicate_edges and g.m:
         # in-edges are dst-sorted; a stable (dst, src) sort keeps dst order
         key = g.in_dst.astype(np.int64) * g.n + g.in_src
@@ -198,9 +245,13 @@ def to_device(g: CSRGraph, merge_duplicate_edges: bool = False,
             starts = np.nonzero(first)[0]
             in_src = g.in_src[order][starts]
             in_dst = g.in_dst[order][starts]
-            in_w = np.diff(np.append(starts, ks.size)).astype(np.float32)
-    fields = dict(out_indptr=g.out_indptr, out_indices=g.out_indices,
-                  out_deg=g.out_deg)
+            if g.weighted:
+                in_w = np.bincount(
+                    np.cumsum(first) - 1,
+                    weights=g.in_w[order].astype(np.float64),
+                    minlength=len(starts)).astype(np.float32)
+            else:
+                in_w = np.diff(np.append(starts, ks.size)).astype(np.float32)
     if hub_rows > 0 and g.n > hub_rows and len(in_src):
         deg = np.asarray(g.out_deg, np.int64)
         hub_ids = np.sort(np.argsort(-deg, kind="stable")[:hub_rows]

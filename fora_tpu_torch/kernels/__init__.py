@@ -15,10 +15,14 @@ PyTorch versions instead.
 | index_spmv              | csrc/gather_scatter.cu | K2 (index SpMV, a level in one launch) |
 | topk_bounds             | csrc/topk_bounds.cu    | K3 (split accept, both FORA modes) |
 | index_walk              | csrc/walk.cu           | K4 (index build, raw-walk FORA, Monte Carlo) |
+| index_walk_alias        | csrc/walk.cu           | K4's alias branch (the same, on weighted graphs) |
 | ring_all_gather_hop     | csrc/ring.cu           | P1 (one hop of one shard) |
 | ring_reduce_scatter_hop | csrc/ring.cu           | P2 (one hop of one shard) |
 | row_scatter_add         | csrc/row_scatter.cu    | P3 (per-edge row accumulate, atomics) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
+
+``csrc/alias.cu`` holds no kernel: it is the host-side alias-table builder
+that ``graph/alias.py::build_alias_library`` calls.
 
 Every launch runs with its output tensor's device current, so shards on
 several cards each launch on their own card.  The gather takes its work
@@ -36,7 +40,8 @@ import torch
 from . import build, schedule, select
 
 __all__ = ["push_prepass", "gather_scatter_add", "index_spmv", "topk_bounds",
-           "topk_bounds_stats", "index_walk", "ring_all_gather_hop", "ring_reduce_scatter_hop",
+           "topk_bounds_stats", "index_walk", "index_walk_alias",
+           "ring_all_gather_hop", "ring_reduce_scatter_hop",
            "row_scatter_add", "sector_reads", "enable_peer_access", "WRAPPERS", "reset_launch_counts",
            "launch_counts"]
 
@@ -255,10 +260,10 @@ def topk_bounds_stats() -> dict:
                 dense_columns=int(host[0]))
 
 
-def index_walk(start: torch.Tensor, out_indptr: torch.Tensor,
-               out_indices: torch.Tensor, out_deg: torch.Tensor, seed: int,
-               alpha: float, max_hops: int) -> torch.Tensor:
-    """K4: endpoints [W] int32 of one alpha-terminating walk per start."""
+def _index_walk(start, out_indptr, out_indices, out_deg, alias_prob,
+                alias_other, seed, alpha, max_hops, name) -> torch.Tensor:
+    """Checks and launches csrc/walk.cu; uniform hops where ``alias_prob``
+    and ``alias_other`` are None."""
     (W,) = start.shape
     dev = start.device
     n = out_deg.shape[0]
@@ -266,16 +271,43 @@ def index_walk(start: torch.Tensor, out_indptr: torch.Tensor,
     _check("out_indptr", out_indptr, torch.int32, (n + 1,), dev)
     _check("out_indices", out_indices, torch.int32, device=dev)
     _check("out_deg", out_deg, torch.int32, (n,), dev)
+    if alias_prob is not None:
+        m = out_indices.shape
+        _check("alias_prob", alias_prob, torch.float32, m, dev)
+        _check("alias_other", alias_other, torch.int32, m, dev)
     if W >= 2**32:
-        raise ValueError("index_walk: at most 2^32 walks per call")
+        raise ValueError(f"{name}: at most 2^32 walks per call")
     out = torch.empty(W, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = build.library().fora_index_walk(
             _ptr(start), _ptr(out), W, _ptr(out_indptr), _ptr(out_indices),
-            _ptr(out_deg), seed % 2**64, 1.0 / math.log1p(-alpha), max_hops,
-            _stream(start))
+            _ptr(out_deg), _ptr(alias_prob), _ptr(alias_other), seed % 2**64,
+            1.0 / math.log1p(-alpha), max_hops, _stream(start))
+    _raise_on(err, name)
+    return out
+
+
+def index_walk(start: torch.Tensor, out_indptr: torch.Tensor,
+               out_indices: torch.Tensor, out_deg: torch.Tensor, seed: int,
+               alpha: float, max_hops: int) -> torch.Tensor:
+    """K4: endpoints [W] int32 of one alpha-terminating walk per start,
+    each hop to a uniform out-neighbour."""
+    out = _index_walk(start, out_indptr, out_indices, out_deg, None, None,
+                      seed, alpha, max_hops, "index_walk")
     index_walk.launches += 1
-    _raise_on(err, "index_walk")
+    return out
+
+
+def index_walk_alias(start: torch.Tensor, out_indptr: torch.Tensor,
+                     out_indices: torch.Tensor, out_deg: torch.Tensor,
+                     alias_prob: torch.Tensor, alias_other: torch.Tensor,
+                     seed: int, alpha: float, max_hops: int) -> torch.Tensor:
+    """K4's alias branch: as :func:`index_walk`, each hop through the
+    Walker alias tables over the out-CSR slots (a weighted graph's
+    w(v, u) / W(v)).  Counted apart from the uniform branch."""
+    out = _index_walk(start, out_indptr, out_indices, out_deg, alias_prob,
+                      alias_other, seed, alpha, max_hops, "index_walk_alias")
+    index_walk_alias.launches += 1
     return out
 
 
@@ -377,8 +409,8 @@ def enable_peer_access(reader: torch.device, owner: torch.device) -> None:
 
 
 WRAPPERS = (push_prepass, gather_scatter_add, index_spmv, topk_bounds,
-            index_walk, ring_all_gather_hop, ring_reduce_scatter_hop,
-            row_scatter_add)
+            index_walk, index_walk_alias, ring_all_gather_hop,
+            ring_reduce_scatter_hop, row_scatter_add)
 for _w in WRAPPERS:
     _w.launches = 0
 topk_bounds.last_state = None

@@ -34,7 +34,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
-# name -> argtypes of every C entry point (each returns a cudaError_t)
+# name -> argtypes of every C entry point (each returns a cudaError_t, but
+# the host-side fora_build_alias, which returns 0 or -1)
 SIGNATURES = {
     "fora_push_prepass": [_P, _P, _P, _P, _P, _P, _F, _F, _LL, _I, _P],
     "fora_gather_scatter_add": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
@@ -42,8 +43,9 @@ SIGNATURES = {
     "fora_topk_segment": [],
     "fora_topk_bounds": [_P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _LL,
                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "fora_index_walk": [_P, _P, _LL, _P, _P, _P, ctypes.c_ulonglong, _F, _I,
-                        _P],
+    "fora_index_walk": [_P, _P, _LL, _P, _P, _P, _P, _P, ctypes.c_ulonglong,
+                        _F, _I, _P],
+    "fora_build_alias": [_P, _P, _P, _LL, _P, _P],
     "fora_ring_copy": [_P, _P, _LL, _P],
     "fora_ring_add": [_P, _P, _P, _LL, _P],
     "fora_row_scatter_add": [_P, _P, _P, _P, _LL, _I, _P],

@@ -1,26 +1,36 @@
 // K4 · index_walk: endpoints of alpha-terminating random walks, one thread
-// per walk.
+// per walk, uniform hops or (on a weighted graph) alias-table hops.
 //
 // Replaces fora_tpu/ops/walk.py::run_walks_scheduled (159-222) with
 // geometric_lengths (89-99), the XLA-lowered walk that builds the FORA+
-// index.  On the TPU the walks advance in lockstep, sorted by their
-// pre-drawn length so that hop h runs on a shrinking static prefix
-// (hop_widths), with a fallback to the plain lockstep walk when a prefix
-// overflows.  A GPU thread runs its own walk to its own length instead, so
-// neither the sort nor the fallback exists here.
+// index, and its alias branch (212-218; run_walks 115-116, 128-132).  On the
+// TPU the walks advance in lockstep, sorted by their pre-drawn length so
+// that hop h runs on a shrinking static prefix (hop_widths), with a
+// fallback to the plain lockstep walk when a prefix overflows.  A GPU
+// thread runs its own walk to its own length instead, so neither the sort
+// nor the fallback exists here.
 //
 // Per walk w (its lane):
 //   len = min(floor(log(u0) / log(1 - alpha)), max_hops),  u0 in (0, 1]
 //   repeat len times: stop at a dangling node (deg == 0 absorbs);
-//                     cur = out_indices[out_indptr[cur] + min(floor(u_h * deg), deg - 1)]
+//                     slot = out_indptr[cur] + min(floor(u_h * deg), deg - 1)
+//                     uniform: cur = out_indices[slot]
+//                     alias:   cur = u2_h < alias_prob[slot] ? out_indices[slot]
+//                                                            : alias_other[slot]
 // Random numbers: Philox-4x32-10 written into the kernel, keyed by
-// (seed low word, lane), with (hop, seed high word) as the counter.  The
-// endpoints match JAX's in distribution only; JAX draws threefry bits.
+// (seed low word, lane), with (hop, seed high word) as the counter; u_h is
+// the block's first word and u2_h its second, so the alias hop costs no
+// second Philox call.  The endpoints match JAX's in distribution only; JAX
+// draws threefry bits.
 //
 // What bounds it on the H100: latency of the dependent loads per hop
-// (deg[cur], out_indptr[cur], out_indices[...]), about 1/alpha = 5 hops per
-// walk.  Design: millions of independent walks in flight hide that latency;
-// the Philox rounds are a few dozen integer multiplies per hop.
+// (deg[cur], out_indptr[cur], then out_indices[slot]; the alias hop reads
+// alias_prob[slot] and then only the one of out_indices[slot] and
+// alias_other[slot] that it takes), about 1/alpha = 5 hops per walk.
+// Design: millions of independent walks in flight hide that latency; the
+// Philox rounds are a few dozen integer multiplies per hop.  The uniform
+// branch is a separate instantiation, so weighted graphs cost unweighted
+// ones nothing.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -41,11 +51,13 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
+template <bool kAlias>
 __global__ void index_walk_kernel(const int* __restrict__ start, int* __restrict__ out,
                                   long long W, const int* __restrict__ indptr,
                                   const int* __restrict__ indices, const int* __restrict__ deg,
-                                  uint32_t seed_lo, uint32_t seed_hi, float inv_log1m_alpha,
-                                  int max_hops) {
+                                  const float* __restrict__ alias_prob,
+                                  const int* __restrict__ alias_other, uint32_t seed_lo,
+                                  uint32_t seed_hi, float inv_log1m_alpha, int max_hops) {
   const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= W) return;
   const uint2 key = make_uint2(seed_lo, (uint32_t)w);
@@ -59,22 +71,39 @@ __global__ void index_walk_kernel(const int* __restrict__ start, int* __restrict
     if (d == 0) break;  // dangling absorbs
     const uint4 r = philox4x32_10(make_uint4((uint32_t)(h + 1), seed_hi, 0u, 0u), key);
     const float u = (float)(r.x >> 8) * two_m24;  // [0, 1)
-    const int j = min((int)(u * (float)d), d - 1);
-    cur = indices[indptr[cur] + j];
+    const int slot = indptr[cur] + min((int)(u * (float)d), d - 1);
+    if (kAlias) {
+      const float u2 = (float)(r.y >> 8) * two_m24;  // [0, 1)
+      // pick the table first, so that only the chosen entry is loaded
+      const int* table = u2 < alias_prob[slot] ? indices : alias_other;
+      cur = table[slot];
+    } else {
+      cur = indices[slot];
+    }
   }
   out[w] = cur;
 }
 
 }  // namespace
 
+// alias_prob and alias_other are both null (uniform hops) or both set.
 extern "C" int fora_index_walk(const int* start, int* out, long long W, const int* indptr,
-                               const int* indices, const int* deg, unsigned long long seed,
+                               const int* indices, const int* deg, const float* alias_prob,
+                               const int* alias_other, unsigned long long seed,
                                float inv_log1m_alpha, int max_hops, void* stream) {
+  if ((alias_prob == nullptr) != (alias_other == nullptr)) return (int)cudaErrorInvalidValue;
   if (W <= 0) return (int)cudaGetLastError();
   const int threads = 256;
-  const long long blocks = (W + threads - 1) / threads;
-  index_walk_kernel<<<(unsigned)blocks, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      start, out, W, indptr, indices, deg, (uint32_t)(seed & 0xffffffffull),
-      (uint32_t)(seed >> 32), inv_log1m_alpha, max_hops);
+  const unsigned blocks = (unsigned)((W + threads - 1) / threads);
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const uint32_t lo = (uint32_t)(seed & 0xffffffffull), hi = (uint32_t)(seed >> 32);
+  if (alias_prob != nullptr)
+    index_walk_kernel<true><<<blocks, threads, 0, s>>>(start, out, W, indptr, indices, deg,
+                                                       alias_prob, alias_other, lo, hi,
+                                                       inv_log1m_alpha, max_hops);
+  else
+    index_walk_kernel<false><<<blocks, threads, 0, s>>>(start, out, W, indptr, indices, deg,
+                                                        nullptr, nullptr, lo, hi,
+                                                        inv_log1m_alpha, max_hops);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,9 @@ Port of ``fora_tpu/ops/walk.py``: ``allocate_walks`` (35-86),
 ``hop_widths`` (138-222) and dispatches a CUDA tensor to K4
 (``kernels/csrc/walk.cu``), where one thread runs one walk to its own
 length, so the TPU's length sort, static prefix widths and overflow
-fallback are gone.
+fallback are gone.  On a weighted graph both walks take the graph's own
+alias tables, as JAX's do: the hop draws a second uniform and picks
+between the slot's edge and its alias.
 
 Lane allocation is two steps here: the demand (``walk_demand``: omega_v,
 its int32 cumsum and the per-column total) and the expansion of a range of
@@ -155,12 +157,17 @@ def run_walks(graph: DeviceGraph, start: torch.Tensor, *,
               max_hops: int = 64) -> torch.Tensor:
     """Lockstep walks from ``start`` (any shape); endpoints, int32, same
     shape.  Hop h draws one uniform per walk and moves the walks still
-    alive to a uniform out-neighbour."""
+    alive to a uniform out-neighbour; where the graph has alias tables (a
+    weighted graph) it draws a second uniform ``u2`` and takes the slot's
+    own edge if ``u2 < alias_prob[slot]``, else ``alias_other[slot]``."""
     length = geometric_lengths(start.shape, alpha, max_hops,
                                generator=generator)
     deg = graph.out_deg.long()
     indptr = graph.out_indptr.long()
     indices = graph.out_indices.long()
+    alias = graph.alias_prob is not None
+    if alias:
+        other = graph.alias_other.long()
     last_slot = max(graph.m - 1, 0)
     cur = start.long()
     for h in range(int(length.max()) if length.numel() else 0):
@@ -171,7 +178,12 @@ def run_walks(graph: DeviceGraph, start: torch.Tensor, *,
         j = torch.minimum((u * d.to(torch.float32)).long(),
                           (d - 1).clamp_min(0))
         # a dead walk's slot may point past the last edge: clamp (unused)
-        nxt = indices[(indptr[cur] + j).clamp_max(last_slot)]
+        slot = (indptr[cur] + j).clamp_max(last_slot)
+        nxt = indices[slot]
+        if alias:
+            u2 = torch.rand(start.shape, generator=generator,
+                            device=generator.device)
+            nxt = torch.where(u2 < graph.alias_prob[slot], nxt, other[slot])
         cur = torch.where(alive, nxt, cur)
     return cur.to(torch.int32)
 
@@ -179,14 +191,16 @@ def run_walks(graph: DeviceGraph, start: torch.Tensor, *,
 def walk_endpoints(graph: DeviceGraph, start: torch.Tensor, seed: int,
                    alpha: float, max_hops: int) -> torch.Tensor:
     """One walk per entry of ``start`` ([W] int32); endpoints [W] int32.
-    CPU tensors run the plain ``run_walks``; CUDA tensors launch K4."""
-    if graph.weighted:
-        raise NotImplementedError("alias-table (weighted) walks are not "
-                                  "ported to fora_tpu_torch yet")
+    CPU tensors run the plain ``run_walks``; CUDA tensors launch K4, its
+    alias branch on a graph with alias tables."""
     if start.device.type == "cpu":
         gen = torch.Generator(device="cpu").manual_seed(seed % 2**63)
         return run_walks(graph, start, generator=gen, alpha=alpha,
                          max_hops=max_hops)
+    if graph.alias_prob is not None:
+        return kernels.index_walk_alias(
+            start, graph.out_indptr, graph.out_indices, graph.out_deg,
+            graph.alias_prob, graph.alias_other, seed, alpha, max_hops)
     return kernels.index_walk(start, graph.out_indptr, graph.out_indices,
                               graph.out_deg, seed, alpha, max_hops)
 

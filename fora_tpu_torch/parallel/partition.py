@@ -20,8 +20,8 @@ slice into CSRs by destination and drops every pad.
 
 Weighted graphs partition as far as this function goes: per-edge weights
 and per-row out-weights are sharded, but ``alias_prob``/``alias_other``
-(the raw walk's alias tables, built by ``fora_tpu/graph/alias.py``) stay
-None until the weighted path is ported.  The routed and hier exchanges'
+(the raw walk's alias tables, ``graph/alias.py``) stay None: the sharded
+engine refuses weighted graphs.  The routed and hier exchanges'
 ``needed_masks``/``needed_host_masks``/``host_groups`` (193-251) are not
 carried over yet.
 """
@@ -53,8 +53,8 @@ class PartitionedGraph(NamedTuple):
     # weighted-graph extras (None on unweighted graphs)
     in_w_sharded: Optional[np.ndarray] = None    # [G * m_loc] f32, pad 0
     out_wsum_sharded: Optional[np.ndarray] = None  # [G * n_loc] f32, pad 0
-    alias_prob: Optional[np.ndarray] = None      # not ported: always None
-    alias_other: Optional[np.ndarray] = None     # not ported: always None
+    alias_prob: Optional[np.ndarray] = None      # always None (no shards
+    alias_other: Optional[np.ndarray] = None     # of weighted graphs yet)
     # hub-split in-edges (partition_rows(hub_rows=H)): edges whose source
     # is a global top-H out-degree node, gathered from a compact [H, B]
     # slice of the exchanged contribution vector; the tail arrays above

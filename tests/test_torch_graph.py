@@ -95,10 +95,38 @@ def test_graph_from_numpy_matches_to_device():
             assert torch.equal(a, b), f
 
 
-def test_weighted_graph_not_ported_yet():
-    g = generators.erdos_renyi(64, 256, seed=1)
+def _unit_weighted(g):
     src = np.repeat(np.arange(g.n), np.asarray(g.out_deg, np.int64))
-    gw = from_edges(src, np.asarray(g.out_indices), g.n,
-                    w=np.ones(g.m, np.float32))
-    with pytest.raises(NotImplementedError):
-        to_device(gw, device="cpu")
+    return from_edges(src, np.asarray(g.out_indices), g.n,
+                      w=np.ones(g.m, np.float32))
+
+
+def test_weighted_graph_not_ported_yet():
+    """Weighted graphs lay out on one device, but the sharded engine still
+    refuses them (tests/test_torch_weighted.py holds the one-device
+    weighted path against fora_tpu)."""
+    from fora_tpu_torch import ForaConfig
+    from fora_tpu_torch import index as tidx
+    from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
+    gw = _unit_weighted(generators.erdos_renyi(64, 256, seed=1))
+    rcfg = ForaConfig(epsilon=0.3).resolved(gw.n, gw.m)
+    idx = tidx.build_walk_index(to_device(gw, device="cpu"), rcfg, seed=1)
+    with pytest.raises(NotImplementedError, match="weighted"):
+        ShardedForaEngine(gw, make_mesh(2, devices=["cpu"] * 2), rcfg,
+                          index=idx)
+
+
+def test_unit_weights_lay_out_as_unweighted():
+    """A graph with unit weights lays out as its unweighted self: W(v) =
+    out_deg(v), in_w all ones and alias tables that keep every slot's own
+    edge."""
+    g = generators.erdos_renyi(64, 256, seed=1)
+    gw = _unit_weighted(g)
+    dg, dgw = to_device(g, device="cpu"), to_device(gw, device="cpu")
+    assert dgw.weighted and not dg.weighted
+    assert torch.equal(dgw.out_wsum, dg.out_deg.float())
+    assert torch.equal(dgw.in_w, torch.ones(g.m))
+    assert torch.equal(dgw.alias_prob, torch.ones(g.m))
+    assert torch.equal(dgw.alias_other, dg.out_indices)
+    for f in ("out_indptr", "out_indices", "in_indptr"):
+        assert torch.equal(getattr(dgw, f), getattr(dg, f)), f

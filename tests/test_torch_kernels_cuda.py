@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 from topk_cases import CASES, dense_columns
-from walk_chisq import assert_endpoints_follow
+from walk_chisq import (assert_endpoints_follow, chisquare_pvalue,
+                        two_sample_pvalue)
 
 from fora_tpu.algo import exact
 from fora_tpu.config import ForaConfig
@@ -99,8 +100,8 @@ def test_gather_scatter_kernel_matches_plain(dev, B, masked, layout):
 @pytest.mark.parametrize("B", [4, 130])
 def test_level_spmv_kernel_matches_bucket_loop(dev, B):
     """K2 over a level in one launch (buckets depth.., acc overwritten)
-    against the per-bucket plain loop, on an index built on the CPU; two
-    launches bit-equal."""
+    against the per-bucket plain loop in float64, on an index built on the
+    CPU; two launches bit-equal."""
     from fora_tpu_torch import ForaConfig as TorchForaConfig
     from fora_tpu_torch import kernels
     from fora_tpu_torch.algo.fora import StagedForaPrograms
@@ -124,7 +125,12 @@ def test_level_spmv_kernel_matches_bucket_loop(dev, B):
             got = gather.index_spmv_level(*args, sched=sched)
             again = gather.index_spmv_level(*args, sched=sched)
             assert kernels.index_spmv.launches == before + 2
-            want = gather.index_spmv_level_plain(*args)
+            # a float32 plain sum in index_add_'s varying order drifts
+            # past rtol 1e-5 on long rows: hold the kernel to float64
+            want = gather.index_spmv_level_plain(
+                r.double(), *args[1:4],
+                None if args[4] is None else args[4].double(),
+                args[5].double()).float()
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-9)
             assert torch.equal(got, again)
         assert torch.equal(staged.walk_contrib(r, depth),
@@ -448,3 +454,111 @@ def test_sharded_engine_on_card_matches_cpu(dev, cards):
                                rtol=1e-5, atol=1e-7)
     same = (res["cuda"].node_ids == res["cpu"].node_ids).mean()
     assert same > 0.95
+
+
+def _weighted_rmat(n_log2, m, seed):
+    """An RMAT multigraph weighted as bench.py weights its graph."""
+    from fora_tpu_torch.graph import from_edges
+    from fora_tpu_torch.graph import generators as tgen
+    g0 = tgen.rmat(n_log2, m, seed=seed)
+    src = np.repeat(np.arange(g0.n), g0.out_deg)
+    w = np.exp2(np.random.default_rng(seed + 31).uniform(-2, 2, g0.m))
+    return from_edges(src, g0.out_indices, g0.n, w=w)
+
+
+def test_alias_library_matches_numpy_copy(dev):
+    """The library's host-side alias builder (csrc/alias.cu) array-equal
+    to the numpy copy on a skewed weighted RMAT; to_device on the card
+    takes the library's tables."""
+    from fora_tpu_torch.graph import alias, to_device
+    g = _weighted_rmat(14, 1 << 18, seed=5)
+    assert np.diff(g.out_indptr).max() > 1000          # a skewed row
+    want = alias.build_alias(g, g.out_w)
+    got = alias.build_alias_library(g, g.out_w)
+    np.testing.assert_array_equal(got.prob, want.prob)
+    np.testing.assert_array_equal(got.other, want.other)
+    dg = to_device(g, device=dev)
+    np.testing.assert_array_equal(dg.alias_prob.cpu().numpy(), want.prob)
+    np.testing.assert_array_equal(dg.alias_other.cpu().numpy(), want.other)
+
+
+def test_walk_kernel_alias_star(dev):
+    """One hop from a hub with weights 1, 2, 4, 8, 1 on the card's alias
+    branch ends at each leaf w.p. w / W; the uniform branch is not
+    launched."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.graph import from_edges, to_device
+    from fora_tpu_torch.ops.walk import walk_endpoints
+    w = np.array([1.0, 2.0, 4.0, 8.0, 1.0], np.float32)
+    dg = to_device(from_edges(np.zeros(5, np.int64), np.arange(1, 6), 6,
+                              w=w), device=dev)
+    before = kernels.launch_counts()
+    ends = walk_endpoints(dg, torch.zeros(1 << 18, dtype=torch.int32,
+                                          device=dev), 3, 1e-6, 1)
+    after = kernels.launch_counts()
+    assert after["index_walk_alias"] == before["index_walk_alias"] + 1
+    assert after["index_walk"] == before["index_walk"]
+    counts = np.bincount(ends.cpu().numpy(), minlength=6)[1:]
+    assert counts.sum() > (1 << 18) - 20
+    assert chisquare_pvalue(counts, w) > 1e-3, counts
+
+
+def test_walk_kernel_alias_matches_plain_and_exact(dev):
+    """K4's alias branch against the plain alias run_walks (two-sample
+    chi-square) and both against weighted exact PPR, on a weighted RMAT
+    with dangling nodes."""
+    from fora_tpu_torch.algo import exact as texact
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops.walk import run_walks, walk_endpoints
+    from fora_tpu_torch.eval.queries import generate_sources
+    g = _weighted_rmat(10, 8192, seed=7)
+    assert (g.out_deg == 0).any()
+    dg = to_device(g, merge_duplicate_edges=True, device=dev)
+    sources = generate_sources(g, 2, seed=1)
+    pi = texact.exact_ppr_batch(g, sources, device="cpu").numpy()
+    W = 1 << 20
+    for b, s in enumerate(sources):
+        start = torch.full((W,), s, dtype=torch.int32, device=dev)
+        ends_k = walk_endpoints(dg, start, 11 + b, 0.2, 64).cpu().numpy()
+        gen = torch.Generator(device=dev).manual_seed(b)
+        ends_p = run_walks(dg, start, generator=gen, alpha=0.2,
+                           max_hops=64).cpu().numpy()
+        assert two_sample_pvalue(ends_k, ends_p) > 1e-3
+        assert_endpoints_follow(ends_k, pi[:, b])
+        assert_endpoints_follow(ends_p, pi[:, b])
+
+
+def test_weighted_push_superstep_kernel(dev):
+    """A weighted K1 superstep (w/W pre-pass, weighted tail and hub
+    gathers) bit-equal over two launches and close to the plain version
+    in float64."""
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops import push
+    from fora_tpu_torch.ops.gather import gather_scatter_add_plain
+    g = _weighted_rmat(12, 1 << 15, seed=3)
+    dg = to_device(g, merge_duplicate_edges=True, hub_rows=256, device=dev)
+    assert dg.weighted and dg.hub_split
+    thr = push.node_threshold(dg, 1e-5)
+    st = push.init_state(g.n, torch.arange(0, 64 * 61, 61, dtype=torch.int32,
+                                           device=dev))
+    for _ in range(3):
+        st = push.superstep(dg, st, alpha=0.2, thr=thr)
+    runs = []
+    for _ in range(2):
+        p, r = st.p.clone(), st.r.clone()
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        push.superstep(dg, push.PushState(p, r, 0), alpha=0.2, thr=thr,
+                       flag=flag)
+        runs.append((p, r, int(flag.item())))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1]) and runs[0][2] == runs[1][2]
+    pp, pr = st.p.double(), st.r.double()
+    contrib = torch.empty_like(pr)
+    push.push_prepass_plain(pp, pr, contrib, thr, dg.out_deg, dg.out_wsum,
+                            0.2)
+    gather_scatter_add_plain(pr, contrib, dg.in_indptr, dg.in_src,
+                             edge_w=dg.in_w, thr=thr, mask=True)
+    gather_scatter_add_plain(pr, contrib.index_select(0, dg.hub_ids),
+                             dg.hub_indptr, dg.hub_src_local, edge_w=dg.hub_w)
+    torch.testing.assert_close(runs[0][0], pp.float(), rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(runs[0][1], pr.float(), rtol=1e-5, atol=1e-7)

@@ -1,7 +1,7 @@
 """fora_tpu_torch runs without JAX and without the JAX package: it imports
-and answers CPU queries (indexed, sharded, raw-walk, Monte Carlo,
-``entry()``) and runs the gather probe's case, whether or not ``import
-jax`` would work, loading
+and answers CPU queries (indexed, sharded, raw-walk, Monte Carlo, indexed
+on a weighted graph with its alias tables, ``entry()``) and runs the
+gather probe's case, whether or not ``import jax`` would work, loading
 no module of ``jax`` or ``fora_tpu``; no file of it (nor ``chip_smoke.py``)
 imports either; and CPU tensors never reach a CUDA kernel (every launch
 counter stays 0)."""
@@ -55,6 +55,17 @@ SCRIPT = textwrap.dedent("""
     from fora_tpu_torch.algo.montecarlo import make_montecarlo_fn
     est = make_montecarlo_fn(dg, rcfg, max_walks=2000)(np.array([1, 2]), 3)
     assert est.shape == (g.n, 2) and abs(float(est.sum()) - 2) < 1e-4
+    src = np.repeat(np.arange(g.n), g.out_deg)
+    w = np.exp2(np.random.default_rng(6).uniform(-2, 2, g.m))
+    gw = fora_tpu_torch.from_edges(src, g.out_indices, g.n, w=w)
+    dgw = fora_tpu_torch.to_device(gw, merge_duplicate_edges=True,
+                                   hub_rows=64, device="cpu")
+    assert dgw.weighted and dgw.alias_prob is not None
+    wres = fora_tpu_torch.TopkRunner(
+        dgw, rcfg, index=tidx.build_walk_index(dgw, rcfg, seed=2),
+        delta_stride=8).query_pool(queries.generate_sources(gw, 3, seed=5),
+                                   batch=4)
+    assert wres.node_ids.shape == (3, 10) and np.isfinite(wres.values).all()
     from fora_tpu_torch.entry import entry
     step, args = entry("cpu")
     assert step(*args)[1].shape == (8, 10)
@@ -94,7 +105,7 @@ def test_cpu_tensors_never_launch_kernels():
 
     from fora_tpu_torch import ForaConfig, kernels
     from fora_tpu_torch.algo import bounds
-    from fora_tpu_torch.graph import generators, to_device
+    from fora_tpu_torch.graph import from_edges, generators, to_device
     from fora_tpu_torch.ops import gather, push, walk
     kernels.reset_launch_counts()
     g = generators.rmat(9, 4096, seed=2)
@@ -106,6 +117,10 @@ def test_cpu_tensors_never_launch_kernels():
                       dg.in_w, torch.ones(g.n))
     bounds.topk_with_bounds_split(st.p, st.r, rcfg.omega_unit, 5, 10.0, 0.5)
     walk.walk_endpoints(dg, torch.zeros(100, dtype=torch.int32), 1, 0.2, 64)
+    src = np.repeat(np.arange(g.n), g.out_deg)
+    gw = from_edges(src, g.out_indices, g.n, w=np.ones(g.m) * 2)
+    walk.walk_endpoints(to_device(gw, device="cpu"),
+                        torch.zeros(100, dtype=torch.int32), 1, 0.2, 64)
     from fora_tpu_torch.algo import fora, montecarlo
     fora.fora_query(dg, torch.tensor([1, 2]), 4, rcfg=rcfg)
     montecarlo.make_montecarlo_fn(dg, rcfg, max_walks=500)(
@@ -114,4 +129,4 @@ def test_cpu_tensors_never_launch_kernels():
                            torch.tensor([0, 5], dtype=torch.int32),
                            torch.tensor([3, 3], dtype=torch.int32))
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 8
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 9

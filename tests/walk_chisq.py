@@ -30,6 +30,19 @@ def chisquare_pvalue(counts, probs, min_expected: float = 5.0) -> float:
     return float(stats.chisquare(obs, exp).pvalue)
 
 
+def two_sample_pvalue(a, b, min_count: float = 10.0) -> float:
+    """p-value of the chi-square test that two samples of node ids come
+    from one distribution; nodes with fewer than ``min_count`` draws in
+    both samples together are merged into one bin."""
+    size = int(max(np.max(a), np.max(b))) + 1
+    ca = np.bincount(np.asarray(a).ravel(), minlength=size)
+    cb = np.bincount(np.asarray(b).ravel(), minlength=size)
+    keep = ca + cb >= min_count
+    obs = np.stack([np.append(ca[keep], ca[~keep].sum()),
+                    np.append(cb[keep], cb[~keep].sum())])
+    return float(stats.chi2_contingency(obs[:, obs.sum(axis=0) > 0])[1])
+
+
 def assert_endpoints_follow(endpoints, probs, p_min: float = 1e-3) -> float:
     """Fails unless the endpoints' counts over ``len(probs)`` nodes pass
     the chi-square test at level ``p_min``; returns the p-value."""
