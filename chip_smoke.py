@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive fora_tpu_torch's top-k query paths once on one NVIDIA GPU.
+"""Drive fora_tpu_torch's top-k query paths and its CLI once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py                 # the checks below
     python3 chip_smoke.py --profile 10    # query-phase profile instead
@@ -18,8 +19,14 @@ memory:
                  bit-equal) and K4 (walks) against their plain PyTorch
                  versions on the card; K1's time beside its bound and
                  torch.sparse.mm over the same CSR (the yardstick); K4's
-                 bound from the hops the plain walk counts on the same
-                 starts, as dependent 32-byte sectors at the L2's rate
+                 bound from the distinct 32-byte sectors that each hop of
+                 the plain walk on the same starts reads, at the L2's rate;
+                 the K1-back pre-pass (BiPPR) on a backward push of 2048
+                 targets, twice bit-equal to its plain version; K4-hub
+                 (HubPPR's walks over the CLI's default hub index, 256
+                 hubs) against the plain hub walk by total variation,
+                 timed beside its bound (K4's rule, with the hub_id and
+                 pool reads)
   4. index       build the FORA+ index on the card (K4 + host pack), save
                  it under bench_data/torch_smoke/, load it back with mmap
   5. queries     256 sources as two pools of 128 through
@@ -70,8 +77,8 @@ memory:
                  2^22 walks from one source against the plain alias walk
                  (total variation below 0.01, where K4's uniform branch on
                  the same graph must read above it), timed beside its
-                 bound (K4's, with an alias_prob sector per moved walk, at
-                 the rate for the out-CSR and alias tables together); the
+                 bound (K4's rule, with the alias-table reads, at the
+                 rate for the out-CSR and alias tables together); the
                  weighted FORA+ index
                  built, saved under bench_data/torch_smoke_w/ and loaded
                  with mmap; 256 sources in two pools of 128 as in phase 5;
@@ -79,7 +86,28 @@ memory:
                  (>= 0.95); then phases 10 and 11 on the weighted graph:
                  the raw-walk pool of 64 with its chi-square of K4's alias
                  branch on one level's allocation, and Monte Carlo, each
-                 at the same gate
+                 at the same gate; and K4-hub's alias branch against the
+                 plain alias hub walk (total variation below 0.01, where
+                 its uniform hops must read above it)
+  14. cli        bench.py's graph through fora_tpu_torch.cli as users run
+                 it: save_dataset to bench_data/torch_smoke_cli/ and
+                 load_dataset through the library parser (seconds of each;
+                 the CSR equal to phase 1's), phase 5's 256 sources as the
+                 query file, gen-exact-topk, build, batch-topk --with-idx
+                 (pools of 128, defer 64, --eval-exact), query --algo
+                 fwdpush and hubppr (the CLI's defaults: 256 hubs, a pool
+                 entry per walk of a query) on the first 32, then
+                 make_hubppr_fn with the JAX package's 2^15-entry pool,
+                 printed, not gated (walks share pool entries: ROADMAP
+                 C15), query --algo bippr on the first 16 against 2048
+                 targets holding their exact top-50; precision@50 >=
+                 0.95 for batch-topk and hubppr;
+                 make_bippr_fn itself, where under 1% of the pairs with
+                 exact PPR above delta may miss eps; then the serve action
+                 in a subprocess (bench_data/torch_smoke_serve.py), 64
+                 sequential requests (latency p50/p95/p99) and 8
+                 concurrent clients of 32 (q/s, batches, sheds), every
+                 reply with 50 nodes, no error, precision@50 >= 0.95
   8. proof       every kernel of each path launched in its run (counts
                  reset just before each run, read just after): K1-K4 in
                  phases 4-5 with two K1 gathers per superstep and one K2
@@ -91,13 +119,20 @@ memory:
                  (index_walk_alias) in the indexed run, K1, K3 and the
                  alias branch in the raw pool, the alias branch in Monte
                  Carlo, never the uniform branch there and never the
-                 alias branch before; and neither JAX nor the JAX package
-                 fora_tpu was imported
+                 alias branch before; in phase 14 K4 in build, K1-K3 in
+                 batch-topk and in the server (its launch counts printed
+                 at SIGTERM), K1 in fwdpush, the K1-back pre-pass, K1 and
+                 K4 in bippr, K4-hub in hubppr and nowhere else, and
+                 neither new kernel before phase 14; and neither JAX nor
+                 the JAX package fora_tpu was imported, by this process or
+                 the server
 
 It prints one JSON line of per-kernel results (launches, max abs error,
 ms, plain ms, bound ms and what bounds it: each input read and each
-output written once at 3.35 TB/s, or its f32 operations at 67 TFLOP/s;
-for K4 and its alias branch the sectors its walks must read; library
+output written once at the card's published memory rate
+(fora_tpu_torch.utils.profiling.HBM_BW), or its f32 operations at 67
+TFLOP/s; for K4 and its alias and hub branches the distinct sectors each
+hop's walks read; library
 ms: one PyTorch call
 computing the same function, or null), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
@@ -145,10 +180,17 @@ RAW_KERNELS = ("push_prepass", "gather_scatter_add", "index_walk",
 WEIGHTED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                     "topk_bounds", "index_walk_alias")
 RAW_QUERIES, RAW_BATCH, RAW_DEFER = 64, 64, 32
+NUM_HUBS = 256                      # the CLI's --num-hubs default
+JAX_POOL = 1 << 15                  # fora_tpu's default_pool_size cap
+BIPPR_SOURCES, BIPPR_TARGETS = 16, 2048
+CLI_DIR = ROOT / "bench_data" / "torch_smoke_cli"
+CLI_DATASET = "rmat19"
+SERVE_BATCH, SERVE_SEQ, SERVE_CLIENTS, SERVE_PER_CLIENT = 8, 64, 8, 32
+SERVE_START_S = 300
 MC_QUERIES, CHISQ_SOURCES, CHISQ_MIN_P = 32, 8, 1e-3
-# the H100 SXM's published peaks at 700 W (NVIDIA's data sheet): device
-# memory rate, and f32 arithmetic outside the tensor cores
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# the H100 SXM's published f32 peak outside the tensor cores at 700 W
+# (NVIDIA's data sheet); hbm_rate() gives the device memory rate
+F32_OPS_PER_S = 67e12
 # the L2: 50 MB (the data sheet) in 32-byte sectors; NVIDIA publishes no
 # rate for it, so sector_rate() measures one
 L2_BYTES, SECTOR = 50e6, 32
@@ -156,6 +198,13 @@ L2_BYTES, SECTOR = 50e6, 32
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def hbm_rate() -> float:
+    """The card's published device memory rate in bytes/s
+    (fora_tpu_torch.utils.profiling.HBM_BW, by the card's name)."""
+    from fora_tpu_torch.utils.profiling import device_hbm_bw
+    return device_hbm_bw(DEVICE)
 
 
 def nbytes(*tensors) -> int:
@@ -167,7 +216,7 @@ def bound(moved: int, ops: float = 0.0) -> dict:
     """bound_ms and bound_by of a kernel that must move ``moved`` bytes
     (each input read once, each output written once) and do ``ops`` f32
     operations: the larger of the two times at the card's peaks."""
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_bytes = moved / hbm_rate() * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (dict(bound_ms=t_bytes, bound_by="bytes") if t_bytes >= t_ops
             else dict(bound_ms=t_ops, bound_by="operations"))
@@ -194,36 +243,39 @@ def sector_rate(size_bytes: int, device) -> float:
     return max(rates.values())
 
 
-def walk_bytes(graph) -> int:
-    """Bytes of what a walk reads: the out-CSR, and the alias tables on a
-    graph that has them."""
+def walk_bytes(graph, hub=None) -> int:
+    """Bytes of what a walk reads: the out-CSR, the alias tables on a graph
+    that has them, and a hub index's hub_id and pool where one is given."""
     return nbytes(graph.out_indptr, graph.out_indices, graph.alias_prob,
-                  graph.alias_other)
+                  graph.alias_other, *((hub.hub_id, hub.pool) if hub else ()))
 
 
-def walk_sector_rate(graph) -> float:
+def walk_sector_rate(graph, hub=None) -> float:
     """The rate at which walk_bound() charges a scattered 32-byte sector:
     sector_rate() over a buffer of walk_bytes() when that fits the L2,
     device memory's published rate otherwise."""
-    size = walk_bytes(graph)
+    size = walk_bytes(graph, hub)
     if size <= L2_BYTES:
         return sector_rate(size, graph.device)
-    return HBM_BYTES_PER_S
+    return hbm_rate()
 
 
-def walk_bound(graph, start, gen, alpha, max_hops, rate) -> dict:
-    """K4's bound_ms from what these walks must read.  A walk is a chain of
-    reads that no layout coalesces.  Per hop the function needs the row
-    pointers indptr[cur], indptr[cur + 1] of every distinct node the walks
-    stand on (the degree is their difference; walks that share a node share
-    the read), counted as the distinct 32-byte sectors they lie in, and one
-    sector of the edge list for every walk that moves; on a graph with
-    alias tables, two: alias_prob[slot], then the one of out_indices[slot]
-    and alias_other[slot] that the hop takes.  The hops are counted by the
-    plain lockstep walk on the same starts (run_walks' loop with
-    counters); the starts are read and the endpoints written once, 4 bytes
-    each, at device memory's rate.  The sectors come at ``rate``
-    (walk_sector_rate())."""
+def walk_bound(graph, start, gen, alpha, max_hops, rate, hub=None) -> dict:
+    """K4's bound_ms from what these walks must read, each piece of data
+    once per hop: a walk is a chain of reads that no layout coalesces, and
+    walks that read the same sector in one hop share the read.  Per hop the
+    function needs the row pointers indptr[cur], indptr[cur + 1] of every
+    node the walks stand on (the degree is their difference) and, for every
+    walk that moves, out_indices[slot]; on a graph with alias tables
+    alias_prob[slot], then the one of out_indices[slot] and
+    alias_other[slot] that the hop takes.  With a hub index (K4-hub) every
+    walk that moves also reads hub_id[next], and a walk that lands on a hub
+    reads one pool entry and stops.  Each is counted as the distinct
+    32-byte sectors that hop's walks read.  The hops come from the plain
+    lockstep walk on the same starts (run_walks' loop with counters; the
+    hub walk's where ``hub`` is given); the starts are read and the
+    endpoints written once, 4 bytes each, at device memory's rate.  The
+    sectors come at ``rate`` (walk_sector_rate())."""
     import torch
     from fora_tpu_torch.ops.walk import geometric_lengths
     alias = graph.alias_prob is not None
@@ -233,43 +285,60 @@ def walk_bound(graph, start, gen, alpha, max_hops, rate) -> dict:
     other = graph.alias_other.long() if alias else None
     per_sector = SECTOR // graph.out_indptr.element_size()
     cur = start.long()
-    stood = ptr_sectors = moved = 0
+    done = torch.zeros(start.shape, dtype=torch.bool, device=start.device)
+    ptr_sectors = moved = landed = sectors = 0
+
+    def sectors_of(idx):
+        return torch.unique(idx // per_sector).numel()
     for h in range(int(length.max())):
         u = torch.rand(start.shape, generator=gen, device=gen.device)
         d = deg[cur]
-        going = length > h
+        going = (length > h) & ~done
         alive = going & (d > 0)
         nodes = torch.unique(cur[going])
-        stood += nodes.numel()
         ptr_sectors += torch.unique(torch.cat(
             [nodes // per_sector, (nodes + 1) // per_sector])).numel()
         moved += int(alive.sum())
         j = torch.minimum((u * d.float()).long(), (d - 1).clamp_min(0))
         slot = (indptr[cur] + j).clamp_max(indices.shape[0] - 1)
         nxt = indices[slot]
+        sectors += sectors_of(slot[alive])
         if alias:
             u2 = torch.rand(start.shape, generator=gen, device=gen.device)
-            nxt = torch.where(u2 < graph.alias_prob[slot], nxt, other[slot])
+            own = u2 < graph.alias_prob[slot]
+            nxt = torch.where(own, nxt, other[slot])
+            sectors += (sectors_of(slot[alive & own])
+                        + sectors_of(slot[alive & ~own]))
         cur = torch.where(alive, nxt, cur)
+        if hub is not None:
+            hid = hub.hub_id[cur].long()
+            at_hub = alive & (hid >= 0)
+            landed += int(at_hub.sum())
+            done |= at_hub
+            pj = (torch.rand(start.shape, generator=gen, device=gen.device)
+                  * hub.pool_size).long().clamp_max(hub.pool_size - 1)
+            sectors += (sectors_of(cur[alive])
+                        + sectors_of((hid * hub.pool_size + pj)[at_hub]))
     csr = nbytes(graph.out_indptr, graph.out_indices)
-    walked = walk_bytes(graph)
-    per_hop = 2 if alias else 1
-    sectors = ptr_sectors + per_hop * moved
-    ms = (SECTOR * sectors / rate + 2 * nbytes(start) / HBM_BYTES_PER_S) * 1e3
+    walked = walk_bytes(graph, hub)
+    ends = 2 * nbytes(start) / hbm_rate()
+    ms = (SECTOR * (ptr_sectors + sectors) / rate + ends) * 1e3
     source = (f"measured over {walked / 1e6:.1f} MB, sector_probe.cu"
               if walked <= L2_BYTES else "the data sheet")
-    print(f"K4{'-alias' if alias else ''} bound: {start.numel()} walks took "
-          f"{moved} hops ({moved / start.numel():.3f} each) from {stood} "
-          f"distinct (hop, node) stands: {ptr_sectors} row-pointer sectors "
-          f"and {per_hop * moved} "
-          + ("alias_prob and chosen-table" if alias else "edge-list")
-          + f" sectors of {SECTOR} bytes; the out-CSR is {csr / 1e6:.1f} MB"
-          + (f" (with the alias tables {walked / 1e6:.1f} MB)"
-             if alias else "")
+    name = "K4" + ("-alias" if alias else "") + ("-hub" if hub else "")
+    reads = ("edge-list" + (" and alias-table" if alias else "")
+             + (", hub_id and pool" if hub is not None else ""))
+    print(f"{name} bound: {start.numel()} walks took "
+          f"{moved} hops ({moved / start.numel():.3f} each)"
+          + (f", {landed} of them stopped at a hub" if hub is not None
+             else "")
+          + f"; distinct {SECTOR}-byte sectors per hop: {ptr_sectors} of "
+          f"row pointers and {sectors} of {reads} reads; the out-CSR is "
+          f"{csr / 1e6:.1f} MB"
+          + (f" (with what the walk reads {walked / 1e6:.1f} MB)"
+             if walked != csr else "")
           + f", the L2 {L2_BYTES / 1e6:.0f} MB: scattered sectors at "
-          f"{rate / 1e12:.3f} TB/s "
-          f"({source})"
-          f" -> {ms:.4f} ms")
+          f"{rate / 1e12:.3f} TB/s ({source}) -> {ms:.4f} ms")
     return dict(bound_ms=ms, bound_by="bytes")
 
 
@@ -652,6 +721,132 @@ def k4_vs_plain_on_level(runner, dg, sources, level):
     return pv, int(valid.sum()), k_ms, p_ms
 
 
+def bippr_targets(n, seed, must=()):
+    """BIPPR_TARGETS sorted node ids: ``must`` and a seeded sample of the
+    other nodes."""
+    import numpy as np
+    must = np.unique(np.asarray(must, np.int64))
+    rest = np.setdiff1d(np.arange(n), must)
+    fill = np.random.default_rng(seed).choice(
+        rest, BIPPR_TARGETS - len(must), replace=False)
+    return np.sort(np.concatenate([must, fill]))
+
+
+def check_backward_prepass(dg, rcfg, dev):
+    """The K1-back pre-pass against its plain version on BiPPR's state at
+    the bench's width: BIPPR_TARGETS seeded targets pushed back three
+    supersteps at the default rmax_b (K1-back, K1 over the out-CSR), then
+    the pre-pass twice and the plain one on that state, bit for bit.
+    Returns its kernel row."""
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo import bippr
+    from fora_tpu_torch.utils.timing import cuda_ms
+    rmax_b, _ = bippr.default_bippr_params(rcfg)
+    st = bippr.backward_push(dg, bippr_targets(dg.n, SEED), rmax_b=rmax_b,
+                             alpha=rcfg.alpha, max_iters=3)
+    runs = []
+    for _ in range(2):
+        p, s = st.p.clone(), torch.full_like(st.r, float("nan"))
+        kernels.backward_prepass(p, st.r, s, rmax_b, dg.out_deg, rcfg.alpha)
+        runs.append((p, s))
+    want_p, want_s = st.p.clone(), torch.empty_like(st.r)
+    bippr.backward_prepass_plain(want_p, st.r, want_s, rmax_b, dg.out_deg,
+                                 rcfg.alpha)
+    for i, (p, s) in enumerate(runs):
+        if not (torch.equal(p, want_p) and torch.equal(s, want_s)):
+            fail(f"K1-back pre-pass: launch {i + 1} differs from plain")
+    active = int((st.r > rmax_b).sum())
+    del runs, want_s
+    p, s = want_p, torch.empty_like(st.r)
+    row = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.backward_prepass(
+            p, st.r, s, rmax_b, dg.out_deg, rcfg.alpha)),
+        plain_ms=cuda_ms(lambda: bippr.backward_prepass_plain(
+            p, st.r, s, rmax_b, dg.out_deg, rcfg.alpha), iters=3),
+        library_ms=None,
+        # r read, p read and written, spread written, the degrees read; a
+        # compare, a select, a multiply and an add per entry
+        **bound(nbytes(st.r, s, dg.out_deg) + 2 * nbytes(p),
+                4 * st.r.numel()))
+    print(f"K1-back pre-pass at [{dg.n}, {BIPPR_TARGETS}] after "
+          f"{st.iters} backward supersteps (rmax_b {rmax_b:.3g}, "
+          f"{active} active entries): two launches bit-equal to plain; "
+          f"{row['ms']:.4f} ms against its bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_ms'] / row['ms']:.0%} of it reached); plain "
+          f"{row['plain_ms']:.4f} ms")
+    return row
+
+
+def hub_index_for(dg, rcfg):
+    """The hub index that the CLI's --algo hubppr builds (NUM_HUBS hubs,
+    the default pool for min(omega_unit + 1, 2^22) walks)."""
+    from fora_tpu_torch.algo import hubppr
+    num_walks = min(int(rcfg.omega_unit) + 1, WALK_CHECK)
+    return hubppr.build_hub_index(
+        dg, SEED, alpha=rcfg.alpha, num_hubs=NUM_HUBS,
+        pool_size=hubppr.default_pool_size(rcfg, num_walks, NUM_HUBS))
+
+
+def check_hub_walk(dg, rcfg, source, dev, hub, name, rate=None):
+    """K4-hub: WALK_CHECK walks from ``source`` against the plain hub walk
+    on the same hub index, by the total variation over the plain walk's
+    top-1000 endpoints (limit 0.01).  On a weighted graph (alias tables)
+    the hub walk with uniform hops (K4-hub's other branch) must read above
+    the limit.  With ``rate``, timed beside its bound; returns the row."""
+    import dataclasses
+    import torch
+    from fora_tpu_torch.algo import hubppr
+    from fora_tpu_torch.utils.timing import cuda_ms
+    start = torch.full((WALK_CHECK,), int(source), dtype=torch.int32,
+                       device=dev)
+    hops = (rcfg.alpha, rcfg.max_walk_hops)
+
+    def freq(ends):
+        return torch.bincount(ends.long(), minlength=dg.n).double() \
+            / WALK_CHECK
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    f_p = freq(hubppr.hub_walks_plain(dg, start, hub, generator=gen,
+                                      alpha=hops[0], max_hops=hops[1]))
+    f_k = freq(hubppr.hub_walks(dg, start, SEED, hub, alpha=hops[0],
+                                max_hops=hops[1]))
+    top = torch.argsort(f_p, descending=True)[:1000]
+    tv = 0.5 * float((f_k[top] - f_p[top]).abs().sum())
+    line = (f"{name}: {WALK_CHECK} walks from node {int(source)} over "
+            f"{hub.num_hubs} hubs x {hub.pool_size} pool entries: total "
+            f"variation {tv:.4f} against the plain hub walk over the "
+            f"top-1000 endpoints (limit 0.01)")
+    alias = dg.alias_prob is not None
+    if alias:
+        flat = dataclasses.replace(dg, alias_prob=None, alias_other=None)
+        tv_u = 0.5 * float((freq(hubppr.hub_walks(
+            flat, start, SEED, hub, alpha=hops[0], max_hops=hops[1]))[top]
+            - f_p[top]).abs().sum())
+        line += f"; K4-hub's uniform hops on the same graph read {tv_u:.4f}"
+    print(line)
+    if not tv < 0.01:
+        fail(f"{name} endpoint distribution: total variation {tv:.4f}")
+    if alias and not tv_u > 0.01:
+        fail(f"{name}: the check cannot tell uniform hops from weighted "
+             f"ones (the uniform branch reads {tv_u:.4f})")
+    if rate is None:
+        return None
+    row = dict(
+        max_abs_err=float((f_k[top] - f_p[top]).abs().max()),
+        ms=cuda_ms(lambda: hubppr.hub_walks(dg, start, SEED, hub,
+                                            alpha=hops[0], max_hops=hops[1])),
+        plain_ms=cuda_ms(lambda: hubppr.hub_walks_plain(
+            dg, start, hub, generator=gen, alpha=hops[0], max_hops=hops[1]),
+            iters=3),
+        library_ms=None,
+        **walk_bound(dg, start, gen, hops[0], hops[1], rate, hub=hub))
+    print(f"{name}: {row['ms']:.4f} ms against its bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.0%} of "
+          f"it reached); plain {row['plain_ms']:.4f} ms")
+    return row
+
+
 def run_raw(dg, rcfg, sources, exact_ids, name="raw"):
     """Phase 10 (and 13's weighted pool, ``name`` its label in the
     output): the raw-walk runner over the first RAW_QUERIES sources.
@@ -870,6 +1065,10 @@ def run_weighted(g, rcfg, dev):
           f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.0%} of "
           f"it reached); plain {row['plain_ms']:.4f} ms")
     del start, ends_k, ends_p, ends_u, f_k, f_p, f_u
+    # K4-hub's alias branch against the plain alias hub walk
+    hub = hub_index_for(dgw, rcfg)
+    check_hub_walk(dgw, rcfg, sources[0], dev, hub, "K4-hub alias")
+    del hub
 
     # the main path: counts reset just before, read just after
     kernels.reset_launch_counts()
@@ -898,6 +1097,343 @@ def run_weighted(g, rcfg, dev):
     mc_counts = run_montecarlo(dgw, rcfg, sources, ex,
                                name="weighted montecarlo")
     return row, counts, raw_counts, mc_counts
+
+
+def cli_argv(action, *extra) -> list:
+    """fora_tpu_torch.cli's argv for ``action`` on phase 14's dataset, with
+    the indexed layout's flags and the bench's configuration."""
+    return [action, "--prefix", str(CLI_DIR), "--dataset", CLI_DATASET,
+            "--device", DEVICE, "--epsilon", str(EPS), "--k", str(K),
+            "--delta-stride", str(DSTRIDE), "--hub-rows", str(HUB_ROWS),
+            "--seed", str(SEED), *extra]
+
+
+def read_output(path) -> dict:
+    """{source: top-k ids} of a CLI --output file."""
+    import numpy as np
+    rows = [json.loads(line) for line in Path(path).read_text().splitlines()]
+    return {r["source"]: np.asarray(r["ids"]) for r in rows}
+
+
+def output_precision(name, path, sources, exact_ids, gate=True) -> float:
+    """precision@K of a CLI --output's answers for ``sources`` against
+    ``exact_ids``; fails below MIN_PRECISION where ``gate``."""
+    import numpy as np
+    from fora_tpu_torch.eval import metrics
+    got = read_output(path)
+    missing = [int(s) for s in sources if int(s) not in got]
+    if missing or any(len(got[int(s)]) != K for s in sources):
+        fail(f"cli {name}: answers missing or short for {missing[:5]}")
+    prec = metrics.batch_precision_at_k(
+        np.stack([got[int(s)] for s in sources]), exact_ids)
+    print(f"cli {name} precision@{K}: {prec:.4f} over {len(sources)} "
+          f"queries" + (f" (limit {MIN_PRECISION})" if gate else ""))
+    if gate and not prec >= MIN_PRECISION:
+        fail(f"cli {name} precision@{K} {prec:.4f} < {MIN_PRECISION}")
+    return prec
+
+
+def run_cli_action(name, argv, counts) -> float:
+    """One fora_tpu_torch.cli.main call in this process, its launch counts
+    (reset just before, read just after) into ``counts[name]``; fails on a
+    non-zero exit.  Returns its seconds."""
+    import torch
+    from fora_tpu_torch import cli, kernels
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts[name] = kernels.launch_counts()
+    if rc != 0:
+        fail(f"cli {name}: exit code {rc}")
+    print(f"cli {name}: {secs:.2f} s")
+    return secs
+
+
+def run_cli(g, rcfg, sources, exact_ids, dev):
+    """Phase 14: the port's CLI on bench.py's graph, as users run it.
+    Returns the launch counts of each action and of the server."""
+    import shutil
+    import numpy as np
+    import torch
+    from fora_tpu_torch.algo import bippr, exact, hubppr
+    from fora_tpu_torch.eval import metrics
+    from fora_tpu_torch.eval import queries as qio
+    from fora_tpu_torch.graph import io as gio
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops.topk import topk_nodes
+
+    ddir = CLI_DIR / CLI_DATASET
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    gio.save_dataset(g, str(CLI_DIR), CLI_DATASET)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed = gio.load_dataset(str(CLI_DIR), CLI_DATASET, device=dev)
+    load_s = time.perf_counter() - t0
+    # graph.txt lists the edges in out-CSR order, not in phase 1's order of
+    # generation, so each in-edge row holds its sources in another order
+    def in_rows(x):
+        order = np.lexsort((x.in_src, x.in_dst))
+        return x.in_src[order], x.in_dst[order]
+    for f in g._fields:
+        a, b = getattr(parsed, f), getattr(g, f)
+        if f == "in_src":
+            a, b = np.stack(in_rows(parsed)), np.stack(in_rows(g))
+        if (a is None) != (b is None) or (
+                a is not None and not np.array_equal(a, b)):
+            fail(f"cli: the parsed CSR's {f} differs from phase 1's")
+    print(f"cli: save_dataset {save_s:.2f} s "
+          f"({(ddir / 'graph.txt').stat().st_size / 1e6:.1f} MB of "
+          f"graph.txt); load_dataset through the library parser (with "
+          f"from_edges and csr_cache.npz) {load_s:.2f} s; the CSR "
+          f"array-equal to phase 1's (each in-edge row's sources as a "
+          f"sorted list)")
+    del parsed
+    qfile = str(ddir / f"{CLI_DATASET}.query")
+    qio.save_queries(sources, qfile)
+    counts = {}
+    run_cli_action("gen-exact-topk", cli_argv("gen-exact-topk"), counts)
+    ev = sources[:len(exact_ids)]
+    files = np.stack([np.load(ddir / "exact" / f"{int(s)}.npz")["ids"][:K]
+                      for s in ev])
+    same = np.mean([len(set(a) & set(b)) / K
+                    for a, b in zip(files, exact_ids)])
+    print(f"cli gen-exact-topk: {len(sources)} files; their top-{K} of the "
+          f"first {len(ev)} against phase 7's oracle: overlap {same:.4f}")
+    if not same >= 0.99:
+        fail(f"cli gen-exact-topk disagrees with phase 7's oracle ({same})")
+    run_cli_action("build", cli_argv("build"), counts)
+    out = CLI_DIR / "batch_topk.jsonl"
+    run_cli_action("batch-topk", cli_argv(
+        "batch-topk", "--with-idx", "--pool", str(POOL), "--defer",
+        str(DEFER), "--batch", str(BATCH), "--eval-exact", "--output",
+        str(out)), counts)
+    if len(read_output(out)) != len(sources):
+        fail("cli batch-topk: not every query answered")
+    output_precision("batch-topk", out, ev, exact_ids)
+
+    # push-only, and HubPPR at the CLI's defaults (gated)
+    qio.save_queries(ev, qfile)
+    for name, gate in (("fwdpush", False), ("hubppr", True)):
+        out = CLI_DIR / f"{name}.jsonl"
+        run_cli_action(name, cli_argv("query", "--algo", name, "--batch",
+                                      str(len(ev)), "--output", str(out)),
+                       counts)
+        output_precision(name, out, ev, exact_ids, gate)
+    # beside it the JAX package's pool cap, printed: walks that reach a hub
+    # share its pool's entries (ROADMAP C15)
+    dg = to_device(g, hub_rows=HUB_ROWS, device=dev)
+    fn = hubppr.make_hubppr_fn(dg, rcfg, SEED, num_hubs=NUM_HUBS,
+                               pool_size=JAX_POOL)
+    ids = topk_nodes(fn(ev, SEED), K)[1].cpu().numpy()
+    print(f"hubppr with the JAX package's pool cap, {NUM_HUBS} hubs x "
+          f"{JAX_POOL} entries, {fn.num_walks} walks a query: precision@{K} "
+          f"{metrics.batch_precision_at_k(ids, exact_ids):.4f} (not gated)")
+    del fn
+
+    # BiPPR against a target set holding the first sources' exact top-K
+    bsrc = ev[:BIPPR_SOURCES]
+    targets = bippr_targets(g.n, SEED, exact_ids[:BIPPR_SOURCES].ravel())
+    tfile = CLI_DIR / "targets.txt"
+    tfile.write_text("".join(f"{int(t)}\n" for t in targets))
+    qio.save_queries(bsrc, qfile)
+    out = CLI_DIR / "bippr.jsonl"
+    run_cli_action("bippr", cli_argv(
+        "query", "--algo", "bippr", "--batch", str(len(bsrc)),
+        "--target-file", str(tfile), "--output", str(out)), counts)
+    output_precision("bippr", out, bsrc, exact_ids[:BIPPR_SOURCES], False)
+    qio.save_queries(sources, qfile)
+
+    # make_bippr_fn itself: the relative error of every pair above delta
+    fn = bippr.make_bippr_fn(dg, rcfg, targets)
+    first = timed(lambda: fn(bsrc, SEED))
+    again = timed(lambda: fn(bsrc, SEED + 1))
+    est = fn(bsrc, SEED).double()
+    pi = exact.exact_ppr_batch(g, bsrc, device=dev)[
+        torch.as_tensor(targets, device=dev)].T
+    above = pi > rcfg.delta
+    rel = ((est - pi).abs() / pi)[above]
+    share = float((rel > EPS).double().mean())
+    push_ms = (first - again) * 1e3
+    print(f"bippr: {len(bsrc)} sources x {len(targets)} targets, rmax_b "
+          f"{fn.rmax_b:.3g}, {fn.num_walks} walks per source; backward push "
+          f"{fn.state.iters} supersteps in {push_ms:.1f} ms "
+          f"({push_ms / max(fn.state.iters, 1):.2f} ms each: the first "
+          f"call's wall less the second's); walk term {again * 1e3:.1f} ms;"
+          f" {int(above.sum())} pairs with pi > delta = {rcfg.delta:.3g}: "
+          f"max relative error {float(rel.max()):.4f}, share above eps = "
+          f"{EPS} {share:.4f} (limit 0.01)")
+    if not share < 0.01:
+        fail(f"bippr: {share:.4f} of the pairs above delta miss eps")
+    del fn, dg, est, pi
+    torch.cuda.empty_cache()
+    counts["serve"] = run_server(sources, exact_ids)
+    return counts
+
+
+SERVE_LAUNCHER = '''"""Runs fora_tpu_torch's CLI with the given arguments
+(chip_smoke.py phase 14 runs its serve action); on SIGTERM prints the
+kernel launch counts and the loaded modules of JAX or fora_tpu, then
+exits."""
+import json
+import os
+import signal
+import sys
+
+sys.path.insert(0, sys.argv[1])
+from fora_tpu_torch import cli, kernels  # noqa: E402
+
+
+def report(signum, frame):
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "fora_tpu"))
+    print("LAUNCHES " + json.dumps(kernels.launch_counts()), flush=True)
+    print("FOREIGN " + json.dumps(loaded), flush=True)
+    os._exit(0)
+
+
+signal.signal(signal.SIGTERM, report)
+sys.exit(cli.main(sys.argv[2:]))
+'''
+
+
+def run_server(sources, exact_ids) -> dict:
+    """The CLI's serve action in a subprocess (SERVE_LAUNCHER, on a port the
+    system picks): one client's SERVE_SEQ sequential requests after one
+    warm-up, then SERVE_CLIENTS concurrent clients of SERVE_PER_CLIENT
+    each.  Every reply must carry K nodes, the server count no error, and
+    the first answers reach MIN_PRECISION.  Returns the server's launch
+    counts, printed by the launcher at SIGTERM."""
+    import socket
+    import threading
+    import numpy as np
+    from fora_tpu_torch.eval import metrics
+    launcher = ROOT / "bench_data" / "torch_smoke_serve.py"
+    launcher.write_text(SERVE_LAUNCHER)
+    log = CLI_DIR / "server.log"
+    argv = cli_argv("serve", "--with-idx", "--port", "0", "--batch",
+                    str(SERVE_BATCH))
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.Popen([sys.executable, str(launcher), str(ROOT)]
+                                + argv, stdout=subprocess.PIPE, stderr=err,
+                                text=True, cwd=str(ROOT))
+    lines, up = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if "serving on" in line:
+                up.set()
+        up.set()
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        up.wait(SERVE_START_S)
+        ready = [x for x in lines if "serving on" in x]
+        if not ready:
+            fail(f"serve: no 'serving on' line in {SERVE_START_S} s (exit "
+                 f"{proc.poll()}); {log.name}: "
+                 f"{log.read_text()[-2000:]}")
+        port = int(ready[0].rsplit(":", 1)[1])
+        print(f"serve: up in {time.perf_counter() - t0:.1f} s on port "
+              f"{port} (--batch {SERVE_BATCH}, inflight 1)")
+
+        def connect():
+            sock = socket.create_connection(("127.0.0.1", port), 30)
+            sock.settimeout(120)
+            return sock, sock.makefile("rw")
+
+        def ask(f, req):
+            f.write(json.dumps(req) + "\n")
+            f.flush()
+            return json.loads(f.readline())
+        sock, f = connect()
+        replies = {}
+        ask(f, {"id": "warm", "source": int(sources[0])})
+        lat = []
+        for i, s in enumerate(sources[:SERVE_SEQ]):
+            t = time.perf_counter()
+            replies[int(s)] = ask(f, {"id": i, "source": int(s)})
+            lat.append(time.perf_counter() - t)
+        seq = ask(f, {"cmd": "stats"})
+        q = np.percentile(np.array(lat) * 1e3, [50, 95, 99])
+        print(f"serve: {SERVE_SEQ} sequential requests after one warm-up: "
+              f"server latency p50 {seq['latency_ms_p50']} ms, p95 "
+              f"{seq['latency_ms_p95']} ms, p99 {seq['latency_ms_p99']} ms "
+              f"(its window holds the warm-up too); at the client p50 "
+              f"{q[0]:.2f} ms, p95 {q[1]:.2f} ms, p99 {q[2]:.2f} ms")
+        sock.close()
+
+        got, errs = [], []
+
+        def client(c):
+            try:
+                sk, fc = connect()
+                part = sources[c * SERVE_PER_CLIENT:
+                               (c + 1) * SERVE_PER_CLIENT]
+                for i, s in enumerate(part):
+                    got.append((int(s), ask(fc, {"id": i,
+                                                 "source": int(s)})))
+                sk.close()
+            except Exception as e:   # reported below, and the phase fails
+                errs.append(repr(e))
+        t = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        wall = time.perf_counter() - t
+        sock, f = connect()
+        end = ask(f, {"cmd": "stats"})
+        sock.close()
+        n = SERVE_CLIENTS * SERVE_PER_CLIENT
+        batches = end["batches"] - seq["batches"]
+        per_batch = (end["queries"] - seq["queries"]) / max(batches, 1)
+        print(f"serve: {SERVE_CLIENTS} concurrent clients x "
+              f"{SERVE_PER_CLIENT} requests: {len(got)} answered in "
+              f"{wall:.3f} s -> {len(got) / wall:.2f} q/s; {batches} "
+              f"batches ({per_batch:.2f} queries each); shed {end['shed']}; "
+              f"errors {end['errors']}; latency p50 "
+              f"{end['latency_ms_p50']} ms, p95 "
+              f"{end['latency_ms_p95']} ms, p99 {end['latency_ms_p99']} ms "
+              f"over every request served")
+        if errs or len(got) != n:
+            fail(f"serve: {len(got)} of {n} concurrent answers; {errs[:3]}")
+        every = list(replies.values()) + [r for _, r in got]
+        if any(len(r.get("nodes", ())) != K for r in every):
+            fail("serve: a reply without K nodes")
+        if end["errors"] or end["shed"]:
+            fail(f"serve: {end['errors']} errors, {end['shed']} shed")
+        ev = sources[:len(exact_ids)]
+        served = {**dict(got), **replies}
+        prec = metrics.batch_precision_at_k(
+            np.stack([served[int(s)]["nodes"] for s in ev]), exact_ids)
+        print(f"serve precision@{K}: {prec:.4f} over {len(ev)} served "
+              f"queries (limit {MIN_PRECISION})")
+        if not prec >= MIN_PRECISION:
+            fail(f"serve precision@{K} {prec:.4f} < {MIN_PRECISION}")
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        reader.join(10)
+    report = {x.split(" ", 1)[0]: json.loads(x.split(" ", 1)[1])
+              for x in lines if x.startswith(("LAUNCHES ", "FOREIGN "))}
+    if "LAUNCHES" not in report:
+        fail(f"serve: the server died before SIGTERM (exit "
+             f"{proc.returncode}); {log.name}: {log.read_text()[-2000:]}")
+    if report["FOREIGN"]:
+        fail(f"the server imported JAX or fora_tpu: {report['FOREIGN'][:5]}")
+    return report["LAUNCHES"]
 
 
 def sorted_topk(vals, ids):
@@ -1142,7 +1678,7 @@ def main(argv=None) -> int:
         return 0
 
     # ---- 3. K1 and K4 against their plain versions -----------------------
-    with Phase("kernels K1 K4"):
+    with Phase("kernels K1 K1-back K4 K4-hub"):
         src128 = torch.as_tensor(sources[:BATCH], dtype=torch.int32,
                                  device=dev)
         thr = push.node_threshold(dg, rcfg.rmax)
@@ -1303,6 +1839,15 @@ def main(argv=None) -> int:
         print(f"K4: {k4['ms']:.4f} ms against its bound {k4['bound_ms']:.4f}"
               f" ms ({k4['bound_ms'] / k4['ms']:.0%} of it reached)")
         del start, ends_k, ends_p, f_k, f_p
+
+        # K1-back (BiPPR's pre-pass) on BiPPR's state; K4-hub on the hub
+        # index that the CLI's --algo hubppr builds
+        rows["backward_prepass"] = check_backward_prepass(dg, rcfg, dev)
+        hub = hub_index_for(dg, rcfg)
+        rows["index_walk_hub"] = check_hub_walk(
+            dg, rcfg, sources[0], dev, hub, "K4-hub",
+            rate=walk_sector_rate(dg, hub))
+        del hub
 
     # ---- 4.-5. the main path: index build and queries ------------------
     kernels.reset_launch_counts()
@@ -1504,6 +2049,11 @@ def main(argv=None) -> int:
         (rows["index_walk_alias"], w_launches, w_raw_launches,
          w_mc_launches) = run_weighted(g, rcfg, dev)
 
+    # ---- 14. the CLI and the server ----------------------------------------
+    torch.cuda.empty_cache()
+    with Phase("cli"):
+        cli_launches = run_cli(g, rcfg, sources, ex[:EVAL_N], dev)
+
     # ---- 8. proof that each path ran on its kernels ------------------------
     print(f"launches in phases 4-5: {launches}")
     for name in MAIN_KERNELS:
@@ -1557,6 +2107,27 @@ def main(argv=None) -> int:
                                            raw_launches, mc_launches,
                                            p3_launches)):
         fail("K4's alias branch was launched on an unweighted path")
+    # phase 14: each CLI action and the server ran its kernels; BiPPR's
+    # pre-pass and K4-hub ran on no path before it, K4-hub only in hubppr
+    for name, c in cli_launches.items():
+        print(f"launches in phase 14 ({name}): {c}")
+    need = {"build": ("index_walk",),
+            "batch-topk": MAIN_KERNELS[:4], "serve": MAIN_KERNELS[:4],
+            "fwdpush": ("push_prepass", "gather_scatter_add"),
+            "hubppr": ("index_walk", "index_walk_hub"),
+            "bippr": ("backward_prepass", "gather_scatter_add",
+                      "index_walk")}
+    for action, names in need.items():
+        for name in names:
+            if cli_launches[action][name] <= 0:
+                fail(f"kernel {name} was not launched by the CLI's {action}")
+    earlier = (launches, sharded_launches, raw_launches, mc_launches,
+               p3_launches, w_launches, w_raw_launches, w_mc_launches)
+    if any(c["index_walk_hub"] or c["backward_prepass"] for c in earlier):
+        fail("K4-hub or the K1-back pre-pass ran on a path before phase 14")
+    if any(c["index_walk_hub"] for a, c in cli_launches.items()
+           if a != "hubppr"):
+        fail("K4-hub was launched outside HubPPR")
     hops = (SHARDS - 1) * SHARDS
     if sharded_launches["ring_all_gather_hop"] != hops * sh_iters:
         fail(f"P1: {sharded_launches['ring_all_gather_hop']} launches, "
@@ -1572,12 +2143,15 @@ def main(argv=None) -> int:
         fail(f"the port imported JAX or fora_tpu: {loaded[:5]}")
     meta = {
         "push_prepass": ("push_prepass.cu", "fora_tpu/ops/push.py:315"),
+        "backward_prepass": ("push_prepass.cu",
+                             "fora_tpu/algo/bippr.py:66"),
         "gather_scatter_add": ("gather_scatter.cu",
                                "fora_tpu/ops/push.py:142"),
         "index_spmv": ("gather_scatter.cu", "fora_tpu/algo/fora.py:352"),
         "topk_bounds": ("topk_bounds.cu", "fora_tpu/algo/bounds.py:112"),
         "index_walk": ("walk.cu", "fora_tpu/ops/walk.py:159"),
         "index_walk_alias": ("walk.cu", "fora_tpu/ops/walk.py:212"),
+        "index_walk_hub": ("walk.cu", "fora_tpu/algo/hubppr.py:143"),
         "ring_all_gather_hop": ("ring.cu", "fora_tpu/ops/ring.py:107"),
         "ring_reduce_scatter_hop": ("ring.cu", "fora_tpu/ops/ring.py:32"),
         "row_scatter_add": ("row_scatter.cu",
@@ -1589,6 +2163,8 @@ def main(argv=None) -> int:
         n = (launches[name] if name in MAIN_KERNELS else
              p3_launches[name] if name == "row_scatter_add" else
              w_launches[name] if name == "index_walk_alias" else
+             cli_launches["bippr"][name] if name == "backward_prepass" else
+             cli_launches["hubppr"][name] if name == "index_walk_hub" else
              sharded_launches[name])
         out.append({"name": name, "route": "cuda",
                     "source": f"fora_tpu_torch/kernels/csrc/{src_file}",

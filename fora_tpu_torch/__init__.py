@@ -7,9 +7,12 @@ sampled walks (raw-walk FORA, Monte Carlo) or from the FORA+ walk index
 with Bernstein-bound acceptance, on unweighted and weighted graphs (w/W
 transitions, alias-table walks); and the graph-sharded one-shot top-k
 (``parallel``), whose shards exchange over a ring all-gather and a ring
-reduce-scatter.  Its hot loops, the two ring hops and the gather probe's
-per-edge accumulate (``probes``) are hand-written CUDA kernels
-(``kernels/csrc``) built at first use; CPU tensors run plain
+reduce-scatter; the competitors BiPPR (``algo/bippr.py``), HubPPR
+(``algo/hubppr.py``) and push-only; and the reference's CLI (``cli``) with
+its TCP server (``serve``) and dataset files (``graph/io.py``).  Its hot
+loops, the two ring hops and the gather probe's per-edge accumulate
+(``probes``) are hand-written CUDA kernels (``kernels/csrc``) built at
+first use; CPU tensors run plain
 PyTorch versions of the same functions.  Every function takes its device
 from an explicit argument or from the tensors it is given.  The package
 imports torch and numpy only: nothing of JAX and nothing of ``fora_tpu``.

@@ -74,3 +74,36 @@ def exact_topk_batch(g, sources, k: int, alpha: float = 0.2,
                      tol: float = 1e-12, *, device) -> np.ndarray:
     """[B, k] int64 top-k ids per source, by exact PPR descending."""
     return topk_ids(exact_ppr_batch(g, sources, alpha, tol, device=device), k)
+
+
+def exact_ppr_power_batch(g, sources, alpha: float = 0.2, tol: float = 1e-12,
+                          max_iters: int = 2000, *, device) -> np.ndarray:
+    """``fora_tpu``'s ``exact_ppr_power_batch`` (88-183): [n, B] float64
+    numpy, one column per source, computed on ``device``."""
+    return exact_ppr_batch(g, sources, alpha, tol, max_iters,
+                           device=device).cpu().numpy()
+
+
+def exact_topk(g, source: int, k: int, alpha: float = 0.2, *, device
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """``fora_tpu``'s ``exact_topk`` (203-208): the top-k node ids of one
+    source (int64, exact ties to the lowest id) and their float64 PPR."""
+    ids, vals = exact_topk_many(g, [source], k, alpha, device=device)
+    return ids[0], vals[0]
+
+
+def exact_topk_many(g, sources, k: int, alpha: float = 0.2,
+                    tol: float = 1e-12, batch: int = 64, *, device):
+    """``exact_topk`` of every source, ``batch`` columns of the power
+    iteration at a time: ([B, min(k, n)] int64 ids, [B, min(k, n)] float64
+    values)."""
+    ids, vals = [np.empty((0, min(k, g.n)), np.int64)], \
+        [np.empty((0, min(k, g.n)))]
+    for lo in range(0, len(sources), batch):
+        x = exact_ppr_batch(g, np.asarray(sources[lo: lo + batch]), alpha,
+                            tol, device=device)
+        top = topk_ids(x, k)
+        ids.append(top)
+        vals.append(x.T.gather(1, torch.as_tensor(top, device=x.device))
+                    .cpu().numpy())
+    return np.concatenate(ids), np.concatenate(vals)

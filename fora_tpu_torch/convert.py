@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .algo.bippr import BackwardPushState
+from .algo.hubppr import HubIndex
 from .graph.csr import from_numpy_fields
 from .index.build import WalkIndex, with_indptr
 from .ops.push import PushState
@@ -41,6 +43,23 @@ def push_state_from_numpy(p, r, *, device) -> PushState:
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
     return PushState(p=t(p), r=t(r), iters=0)
+
+
+def hub_index_from_numpy(jhub, *, device):
+    """The port's HubIndex (int32 tensors on ``device``) from a fora_tpu
+    HubIndex (hub_nodes, hub_id, pool)."""
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
+    return HubIndex(hub_nodes=t(jhub.hub_nodes), hub_id=t(jhub.hub_id),
+                    pool=t(jhub.pool))
+
+
+def backward_push_state_from_numpy(jst, *, device):
+    """The port's BackwardPushState from a fora_tpu BackwardPushState
+    (p, r as f32 on ``device``, iters as an int)."""
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+    return BackwardPushState(p=t(jst.p), r=t(jst.r), iters=int(jst.iters))
 
 
 def _fields_from_numpy(cls, obj):

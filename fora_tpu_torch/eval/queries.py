@@ -1,7 +1,10 @@
-"""Query sources: ``fora_tpu/eval/queries.py::generate_sources`` (18-25),
-the same draw, so a seed picks the same sources in both packages."""
+"""Query sources: ``fora_tpu/eval/queries.py`` (18-34), the same draw, so a
+seed picks the same sources in both packages, and the same
+``<dataset>.query`` files (one source id per line)."""
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 
@@ -17,3 +20,12 @@ def generate_sources(g, count: int, seed: int = 0,
         pool = np.arange(g.n)
     return rng.choice(pool, size=count,
                       replace=count > len(pool)).astype(np.int64)
+
+
+def save_queries(sources: np.ndarray, path: str) -> None:
+    Path(path).write_text("".join(f"{int(s)}\n" for s in sources))
+
+
+def load_queries(path: str) -> np.ndarray:
+    return np.array([int(x) for x in Path(path).read_text().split()],
+                    dtype=np.int64)

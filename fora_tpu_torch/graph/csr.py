@@ -137,6 +137,8 @@ class DeviceGraph:
     hub_indptr: Optional[torch.Tensor] = None     # [n+1] i32 over hub_dst
     in_sched: Optional[GatherSchedule] = None     # K1's tasks over in_indptr
     hub_sched: Optional[GatherSchedule] = None    # K1's tasks over hub_indptr
+    out_sched: Optional[GatherSchedule] = None    # K1's tasks over out_indptr
+    #                                               (out_schedule(), lazily)
 
     @property
     def n(self) -> int:
@@ -164,6 +166,15 @@ class DeviceGraph:
     @property
     def device(self) -> torch.device:
         return self.out_indptr.device
+
+
+def out_schedule(graph: DeviceGraph) -> GatherSchedule:
+    """K1's work list over the out-CSR (BiPPR's backward gather), built at
+    the first call and kept on the graph, so that the forward paths never
+    pay for it."""
+    if graph.out_sched is None:
+        graph.out_sched = gather_schedule(graph.out_indptr)
+    return graph.out_sched
 
 
 def host_to_device(a, device, dtype) -> Optional[torch.Tensor]:

@@ -11,18 +11,22 @@ PyTorch versions instead.
 | wrapper                 | source                 | kernel |
 | ----------------------- | ---------------------- | ------ |
 | push_prepass            | csrc/push_prepass.cu   | K1 (elementwise half of a superstep) |
-| gather_scatter_add      | csrc/gather_scatter.cu | K1 (push gather, tail and hub edges) |
+| backward_prepass        | csrc/push_prepass.cu   | K1-back (the same half of BiPPR's backward superstep) |
+| gather_scatter_add      | csrc/gather_scatter.cu | K1 (push gather, tail and hub edges; BiPPR's over the out-CSR) |
 | index_spmv              | csrc/gather_scatter.cu | K2 (index SpMV, a level in one launch) |
 | topk_bounds             | csrc/topk_bounds.cu    | K3 (split accept, both FORA modes) |
-| index_walk              | csrc/walk.cu           | K4 (index build, raw-walk FORA, Monte Carlo) |
+| index_walk              | csrc/walk.cu           | K4 (index build, raw-walk FORA, Monte Carlo, BiPPR, HubPPR's pool) |
 | index_walk_alias        | csrc/walk.cu           | K4's alias branch (the same, on weighted graphs) |
+| index_walk_hub          | csrc/walk.cu           | K4-hub (HubPPR's query walks, uniform or alias hops) |
 | ring_all_gather_hop     | csrc/ring.cu           | P1 (one hop of one shard) |
 | ring_reduce_scatter_hop | csrc/ring.cu           | P2 (one hop of one shard) |
 | row_scatter_add         | csrc/row_scatter.cu    | P3 (per-edge row accumulate, atomics) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 
-``csrc/alias.cu`` holds no kernel: it is the host-side alias-table builder
-that ``graph/alias.py::build_alias_library`` calls.
+``csrc/alias.cu`` and ``csrc/graph_io.cu`` hold no kernel: they are the
+host-side alias-table builder that ``graph/alias.py::build_alias_library``
+calls and the edge-list parser that ``graph/io.py::parse_edges_library``
+calls.
 
 Every launch runs with its output tensor's device current, so shards on
 several cards each launch on their own card.  The gather takes its work
@@ -39,10 +43,11 @@ import torch
 
 from . import build, schedule, select
 
-__all__ = ["push_prepass", "gather_scatter_add", "index_spmv", "topk_bounds",
-           "topk_bounds_stats", "index_walk", "index_walk_alias",
-           "ring_all_gather_hop", "ring_reduce_scatter_hop",
-           "row_scatter_add", "sector_reads", "enable_peer_access", "WRAPPERS", "reset_launch_counts",
+__all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
+           "index_spmv", "topk_bounds", "topk_bounds_stats", "index_walk",
+           "index_walk_alias", "index_walk_hub", "ring_all_gather_hop",
+           "ring_reduce_scatter_hop", "row_scatter_add", "sector_reads",
+           "enable_peer_access", "WRAPPERS", "reset_launch_counts",
            "launch_counts"]
 
 
@@ -94,6 +99,26 @@ def push_prepass(p: torch.Tensor, r: torch.Tensor, contrib: torch.Tensor,
             _ptr(wsum), alpha, 1.0 - alpha, n, B, _stream(r))
     push_prepass.launches += 1
     _raise_on(err, "push_prepass")
+
+
+def backward_prepass(p: torch.Tensor, r: torch.Tensor, spread: torch.Tensor,
+                     rmax_b: float, deg: torch.Tensor, alpha: float) -> None:
+    """K1-back: in place, ``p`` += the settled mass of the entries over
+    ``rmax_b`` (all of it at a dangling row, alpha of it elsewhere);
+    ``spread`` = what each such entry sends back along its in-edges
+    ((1 - alpha) / alpha of it at a dangling row, 1 - alpha elsewhere)."""
+    n, B = r.shape
+    dev = r.device
+    _check("r", r, torch.float32, (n, B))
+    _check("p", p, torch.float32, (n, B), dev)
+    _check("spread", spread, torch.float32, (n, B), dev)
+    _check("deg", deg, torch.int32, (n,), dev)
+    with torch.cuda.device(dev):
+        err = build.library().fora_backward_prepass(
+            _ptr(p), _ptr(r), _ptr(spread), rmax_b, _ptr(deg), alpha,
+            1.0 - alpha, (1.0 - alpha) / alpha, n, B, _stream(r))
+    backward_prepass.launches += 1
+    _raise_on(err, "backward_prepass")
 
 
 def _gather_scatter(acc, values, indptr, seg_off, src, edge_w, src_w, thr,
@@ -261,9 +286,11 @@ def topk_bounds_stats() -> dict:
 
 
 def _index_walk(start, out_indptr, out_indices, out_deg, alias_prob,
-                alias_other, seed, alpha, max_hops, name) -> torch.Tensor:
+                alias_other, seed, alpha, max_hops, name, hub_id=None,
+                pool=None) -> torch.Tensor:
     """Checks and launches csrc/walk.cu; uniform hops where ``alias_prob``
-    and ``alias_other`` are None."""
+    and ``alias_other`` are None, no hub lookup where ``hub_id`` and
+    ``pool`` are None."""
     (W,) = start.shape
     dev = start.device
     n = out_deg.shape[0]
@@ -275,14 +302,23 @@ def _index_walk(start, out_indptr, out_indices, out_deg, alias_prob,
         m = out_indices.shape
         _check("alias_prob", alias_prob, torch.float32, m, dev)
         _check("alias_other", alias_other, torch.int32, m, dev)
+    pool_size = 0
+    if hub_id is not None:
+        _check("hub_id", hub_id, torch.int32, (n,), dev)
+        _check("pool", pool, torch.int32, device=dev)
+        if pool.dim() != 2 or pool.shape[1] < 1:
+            raise ValueError(f"{name}: pool must be [H, P], got "
+                             f"{tuple(pool.shape)}")
+        pool_size = pool.shape[1]
     if W >= 2**32:
         raise ValueError(f"{name}: at most 2^32 walks per call")
     out = torch.empty(W, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = build.library().fora_index_walk(
             _ptr(start), _ptr(out), W, _ptr(out_indptr), _ptr(out_indices),
-            _ptr(out_deg), _ptr(alias_prob), _ptr(alias_other), seed % 2**64,
-            1.0 / math.log1p(-alpha), max_hops, _stream(start))
+            _ptr(out_deg), _ptr(alias_prob), _ptr(alias_other), _ptr(hub_id),
+            _ptr(pool), pool_size, seed % 2**64, 1.0 / math.log1p(-alpha),
+            max_hops, _stream(start))
     _raise_on(err, name)
     return out
 
@@ -308,6 +344,23 @@ def index_walk_alias(start: torch.Tensor, out_indptr: torch.Tensor,
     out = _index_walk(start, out_indptr, out_indices, out_deg, alias_prob,
                       alias_other, seed, alpha, max_hops, "index_walk_alias")
     index_walk_alias.launches += 1
+    return out
+
+
+def index_walk_hub(start: torch.Tensor, out_indptr: torch.Tensor,
+                   out_indices: torch.Tensor, out_deg: torch.Tensor,
+                   alias_prob: Optional[torch.Tensor],
+                   alias_other: Optional[torch.Tensor], hub_id: torch.Tensor,
+                   pool: torch.Tensor, seed: int, alpha: float,
+                   max_hops: int) -> torch.Tensor:
+    """K4-hub: as :func:`index_walk` (alias hops where the tables are
+    given), but a walk whose hop lands on a hub (``hub_id[node] >= 0``)
+    ends at a uniform entry of that hub's row of ``pool`` ([H, P] int32
+    endpoints).  Counted apart from the other branches."""
+    out = _index_walk(start, out_indptr, out_indices, out_deg, alias_prob,
+                      alias_other, seed, alpha, max_hops, "index_walk_hub",
+                      hub_id=hub_id, pool=pool)
+    index_walk_hub.launches += 1
     return out
 
 
@@ -408,9 +461,9 @@ def enable_peer_access(reader: torch.device, owner: torch.device) -> None:
     _peer_pairs.add(pair)
 
 
-WRAPPERS = (push_prepass, gather_scatter_add, index_spmv, topk_bounds,
-            index_walk, index_walk_alias, ring_all_gather_hop,
-            ring_reduce_scatter_hop, row_scatter_add)
+WRAPPERS = (push_prepass, backward_prepass, gather_scatter_add, index_spmv,
+            topk_bounds, index_walk, index_walk_alias, index_walk_hub,
+            ring_all_gather_hop, ring_reduce_scatter_hop, row_scatter_add)
 for _w in WRAPPERS:
     _w.launches = 0
 topk_bounds.last_state = None

@@ -34,18 +34,21 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
-# name -> argtypes of every C entry point (each returns a cudaError_t, but
-# the host-side fora_build_alias, which returns 0 or -1)
+# name -> argtypes of every C entry point: each returns a cudaError_t as an
+# int, but the host-side fora_build_alias (0 or -1) and fora_parse_edges (a
+# long long: the edge count, or a negative error)
 SIGNATURES = {
     "fora_push_prepass": [_P, _P, _P, _P, _P, _P, _F, _F, _LL, _I, _P],
+    "fora_backward_prepass": [_P, _P, _P, _F, _P, _F, _F, _F, _LL, _I, _P],
     "fora_gather_scatter_add": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                                 _P, _P, _LL, _P, _P, _P, _P, _I, _I, _P],
     "fora_topk_segment": [],
     "fora_topk_bounds": [_P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _LL,
                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "fora_index_walk": [_P, _P, _LL, _P, _P, _P, _P, _P, ctypes.c_ulonglong,
-                        _F, _I, _P],
+    "fora_index_walk": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _I,
+                        ctypes.c_ulonglong, _F, _I, _P],
     "fora_build_alias": [_P, _P, _P, _LL, _P, _P],
+    "fora_parse_edges": [ctypes.c_char_p, _I, _P, _P, _P, _LL],
     "fora_ring_copy": [_P, _P, _LL, _P],
     "fora_ring_add": [_P, _P, _P, _LL, _P],
     "fora_row_scatter_add": [_P, _P, _P, _P, _LL, _I, _P],
@@ -144,7 +147,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _LL if name == "fora_parse_edges" else ctypes.c_int
         lib.fora_error_string.argtypes = [ctypes.c_int]
         lib.fora_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -23,14 +23,24 @@
 // second Philox call.  The endpoints match JAX's in distribution only; JAX
 // draws threefry bits.
 //
+// The hub branch (kHub, HubPPR's query walks) replaces
+// fora_tpu/algo/hubppr.py::hub_walks (143-180): after every hop the walk
+// takes, it looks its new node up in hub_id; at a hub (hid >= 0) the walk
+// ends at one entry of that hub's pool of precomputed endpoints,
+//   cur = pool[hid * P + min(floor(u3_h * P), P - 1)],
+// with u3_h the third word of the hop's Philox block.  The start node never
+// substitutes (the lookup follows a hop).  On a weighted graph the hop is the
+// alias hop: the JAX function hops uniformly there (ROADMAP C14).
+//
 // What bounds it on the H100: latency of the dependent loads per hop
 // (deg[cur], out_indptr[cur], then out_indices[slot]; the alias hop reads
 // alias_prob[slot] and then only the one of out_indices[slot] and
-// alias_other[slot] that it takes), about 1/alpha = 5 hops per walk.
+// alias_other[slot] that it takes; the hub branch reads hub_id[cur] after
+// each hop and one pool entry at a hub), about 1/alpha = 5 hops per walk.
 // Design: millions of independent walks in flight hide that latency; the
-// Philox rounds are a few dozen integer multiplies per hop.  The uniform
-// branch is a separate instantiation, so weighted graphs cost unweighted
-// ones nothing.
+// Philox rounds are a few dozen integer multiplies per hop.  Each branch is
+// a separate instantiation, so weighted graphs and hub lookups cost the
+// plain walk nothing.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -51,13 +61,15 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
-template <bool kAlias>
+template <bool kAlias, bool kHub>
 __global__ void index_walk_kernel(const int* __restrict__ start, int* __restrict__ out,
                                   long long W, const int* __restrict__ indptr,
                                   const int* __restrict__ indices, const int* __restrict__ deg,
                                   const float* __restrict__ alias_prob,
-                                  const int* __restrict__ alias_other, uint32_t seed_lo,
-                                  uint32_t seed_hi, float inv_log1m_alpha, int max_hops) {
+                                  const int* __restrict__ alias_other,
+                                  const int* __restrict__ hub_id, const int* __restrict__ pool,
+                                  int pool_size, uint32_t seed_lo, uint32_t seed_hi,
+                                  float inv_log1m_alpha, int max_hops) {
   const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (w >= W) return;
   const uint2 key = make_uint2(seed_lo, (uint32_t)w);
@@ -80,30 +92,58 @@ __global__ void index_walk_kernel(const int* __restrict__ start, int* __restrict
     } else {
       cur = indices[slot];
     }
+    if (kHub) {
+      const int hid = hub_id[cur];
+      if (hid >= 0) {  // arrival at a hub: one pool draw ends the walk
+        const float u3 = (float)(r.z >> 8) * two_m24;  // [0, 1)
+        const int j = min((int)(u3 * (float)pool_size), pool_size - 1);
+        cur = pool[(long long)hid * pool_size + j];
+        break;
+      }
+    }
   }
   out[w] = cur;
 }
 
+template <bool kAlias, bool kHub>
+void launch_walk(unsigned blocks, cudaStream_t s, const int* start, int* out, long long W,
+                 const int* indptr, const int* indices, const int* deg, const float* alias_prob,
+                 const int* alias_other, const int* hub_id, const int* pool, int pool_size,
+                 uint32_t lo, uint32_t hi, float inv_log1m_alpha, int max_hops) {
+  index_walk_kernel<kAlias, kHub><<<blocks, 256, 0, s>>>(
+      start, out, W, indptr, indices, deg, alias_prob, alias_other, hub_id, pool, pool_size, lo,
+      hi, inv_log1m_alpha, max_hops);
+}
+
 }  // namespace
 
-// alias_prob and alias_other are both null (uniform hops) or both set.
+// alias_prob and alias_other are both null (uniform hops) or both set;
+// hub_id and pool are both null (no hub lookup) or both set, pool [H, pool_size].
 extern "C" int fora_index_walk(const int* start, int* out, long long W, const int* indptr,
                                const int* indices, const int* deg, const float* alias_prob,
-                               const int* alias_other, unsigned long long seed,
-                               float inv_log1m_alpha, int max_hops, void* stream) {
+                               const int* alias_other, const int* hub_id, const int* pool,
+                               int pool_size, unsigned long long seed, float inv_log1m_alpha,
+                               int max_hops, void* stream) {
   if ((alias_prob == nullptr) != (alias_other == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((hub_id == nullptr) != (pool == nullptr)) return (int)cudaErrorInvalidValue;
+  if (hub_id != nullptr && pool_size <= 0) return (int)cudaErrorInvalidValue;
   if (W <= 0) return (int)cudaGetLastError();
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((W + threads - 1) / threads);
+  const unsigned blocks = (unsigned)((W + 255) / 256);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const uint32_t lo = (uint32_t)(seed & 0xffffffffull), hi = (uint32_t)(seed >> 32);
-  if (alias_prob != nullptr)
-    index_walk_kernel<true><<<blocks, threads, 0, s>>>(start, out, W, indptr, indices, deg,
-                                                       alias_prob, alias_other, lo, hi,
-                                                       inv_log1m_alpha, max_hops);
+  const bool alias = alias_prob != nullptr, hub = hub_id != nullptr;
+  if (alias && hub)
+    launch_walk<true, true>(blocks, s, start, out, W, indptr, indices, deg, alias_prob,
+                            alias_other, hub_id, pool, pool_size, lo, hi, inv_log1m_alpha,
+                            max_hops);
+  else if (alias)
+    launch_walk<true, false>(blocks, s, start, out, W, indptr, indices, deg, alias_prob,
+                             alias_other, nullptr, nullptr, 0, lo, hi, inv_log1m_alpha, max_hops);
+  else if (hub)
+    launch_walk<false, true>(blocks, s, start, out, W, indptr, indices, deg, nullptr, nullptr,
+                             hub_id, pool, pool_size, lo, hi, inv_log1m_alpha, max_hops);
   else
-    index_walk_kernel<false><<<blocks, threads, 0, s>>>(start, out, W, indptr, indices, deg,
-                                                        nullptr, nullptr, lo, hi,
-                                                        inv_log1m_alpha, max_hops);
+    launch_walk<false, false>(blocks, s, start, out, W, indptr, indices, deg, nullptr, nullptr,
+                              nullptr, nullptr, 0, lo, hi, inv_log1m_alpha, max_hops);
   return (int)cudaGetLastError();
 }

@@ -562,3 +562,254 @@ def test_weighted_push_superstep_kernel(dev):
                              dg.hub_indptr, dg.hub_src_local, edge_w=dg.hub_w)
     torch.testing.assert_close(runs[0][0], pp.float(), rtol=1e-5, atol=1e-7)
     torch.testing.assert_close(runs[0][1], pr.float(), rtol=1e-5, atol=1e-7)
+
+
+def test_backward_prepass_kernel_bit_equal_plain(dev):
+    """K1-back pre-pass against its plain version, bit for bit, dangling
+    rows included; a second launch bit-equal; its own launch count."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo.bippr import backward_prepass_plain
+    rng = np.random.default_rng(17)
+    for n, T in ((5000, 2048), (3001, 7), (1, 1)):
+        r = torch.as_tensor(rng.random((n, T), dtype=np.float32) * 1e-3,
+                            device=dev)
+        p0 = torch.as_tensor(rng.random((n, T), dtype=np.float32),
+                             device=dev)
+        deg = torch.as_tensor(rng.integers(0, 3, n).astype(np.int32),
+                              device=dev)
+        assert n == 1 or bool((deg == 0).any())
+        want_p, want_s = p0.clone(), torch.empty_like(r)
+        backward_prepass_plain(want_p, r, want_s, 4.9e-4, deg, 0.2)
+        before = kernels.backward_prepass.launches
+        for _ in range(2):
+            p, s = p0.clone(), torch.full_like(r, float("nan"))
+            kernels.backward_prepass(p, r, s, 4.9e-4, deg, 0.2)
+            assert torch.equal(p, want_p) and torch.equal(s, want_s)
+        assert kernels.backward_prepass.launches == before + 2
+
+
+def test_backward_push_on_card_matches_cpu_and_float64(dev):
+    """BiPPR's backward push on the card (K1-back pre-pass, K1's gather
+    over the out-CSR) against the CPU's plain push (p, r at rtol 1e-5,
+    the same supersteps), and one more superstep on the card against the
+    plain one in float64; weighted and unweighted, with dangling nodes."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo import bippr
+    from fora_tpu_torch.graph import generators as tgen
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops.gather import gather_scatter_add_plain
+    for g in (tgen.rmat(12, 1 << 15, seed=3), _weighted_rmat(12, 1 << 15, 5)):
+        assert (g.out_deg == 0).any()
+        targets = np.arange(0, 130 * 31, 31)
+        out = {}
+        for d in ("cpu", dev):
+            dg = to_device(g, device=d)
+            kernels.reset_launch_counts()
+            out[str(d)] = bippr.backward_push(dg, targets, rmax_b=1e-4,
+                                              alpha=0.2)
+            counts = kernels.launch_counts()
+            if d != "cpu":
+                it = out[str(d)].iters
+                assert counts["backward_prepass"] == it > 0
+                assert counts["gather_scatter_add"] == it
+                assert dg.out_sched is not None
+        cpu, card = out["cpu"], out[str(dev)]
+        assert cpu.iters == card.iters
+        torch.testing.assert_close(card.p.cpu(), cpu.p, rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(card.r.cpu(), cpu.r, rtol=1e-5, atol=1e-7)
+        # one superstep from a state with active entries, float64 plain
+        st = bippr.backward_push(dg, targets, rmax_b=1e-3, alpha=0.2,
+                                 max_iters=2)
+        thr = torch.full((g.n,), 1e-4, dtype=torch.float32, device=dev)
+        edge_w = bippr.backward_edge_weights(dg)
+        p, r = st.p.clone(), st.r.clone()
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        bippr.backward_superstep(dg, bippr.BackwardPushState(p, r, 0),
+                                 rmax_b=1e-4, alpha=0.2, thr=thr,
+                                 spread=torch.empty_like(r), edge_w=edge_w,
+                                 flag=flag)
+        pp, pr = st.p.double(), st.r.double()
+        spread = torch.empty_like(pr)
+        bippr.backward_prepass_plain(pp, pr, spread, 1e-4, dg.out_deg, 0.2)
+        pflag = torch.zeros(1, dtype=torch.int32, device=dev)
+        gather_scatter_add_plain(pr, spread, dg.out_indptr, dg.out_indices,
+                                 edge_w=edge_w.double(), thr=thr.double(),
+                                 mask=True, flag=pflag)
+        torch.testing.assert_close(p, pp.float(), rtol=1e-5, atol=1e-7)
+        torch.testing.assert_close(r, pr.float(), rtol=1e-5, atol=1e-7)
+        assert int(flag.item()) == int(pflag.item())
+
+
+def _hub_on_path():
+    """An 8-cycle whose node 2 is a hub with an honest pool of 2^16 plain
+    walks: every walk from 0 that lives two hops substitutes there."""
+    from fora_tpu_torch.algo.hubppr import HubIndex
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops.walk import run_walks
+    g = generators.cycle_graph(8)
+    dg = to_device(g, device="cpu")
+    pool = run_walks(dg, torch.full((1 << 16,), 2, dtype=torch.int32),
+                     generator=torch.Generator().manual_seed(3), alpha=0.2)
+    hub_id = torch.full((8,), -1, dtype=torch.int32)
+    hub_id[2] = 0
+    return g, HubIndex(torch.tensor([2], dtype=torch.int32), hub_id,
+                       pool[None, :])
+
+
+def test_walk_kernel_hub_matches_plain_and_exact(dev):
+    """K4-hub on a graph where a hub sits on most paths against the plain
+    hub walk (two-sample chi-square) and exact PPR; a poisoned pool shows
+    the substitution; only index_walk_hub counts the launches."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo import hubppr
+    from fora_tpu_torch.graph import to_device
+    g, hub = _hub_on_path()
+    dg = to_device(g, device=dev)
+    hub = hubppr.HubIndex(*(t.to(dev) for t in hub))
+    W = 1 << 20
+    start = torch.zeros(W, dtype=torch.int32, device=dev)
+    before = kernels.launch_counts()
+    ends_k = hubppr.hub_walks(dg, start, 5, hub, alpha=0.2)
+    after = kernels.launch_counts()
+    assert after["index_walk_hub"] == before["index_walk_hub"] + 1
+    assert all(after[k] == before[k] for k in after if k != "index_walk_hub")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ends_p = hubppr.hub_walks_plain(dg, start, hub, generator=gen, alpha=0.2)
+    assert two_sample_pvalue(ends_k.cpu().numpy(), ends_p.cpu().numpy()) \
+        > 1e-3
+    assert np.abs(np.bincount(ends_k.cpu().numpy(), minlength=8) / W
+                  - exact.exact_ppr_dense(g, 0)).sum() < 0.01
+    poison = hubppr.HubIndex(hub.hub_nodes, hub.hub_id,
+                             torch.full((1, 16), 5, dtype=torch.int32,
+                                        device=dev))
+    hub_id1 = torch.full((8,), -1, dtype=torch.int32, device=dev)
+    hub_id1[1] = 0
+    ends = hubppr.hub_walks(dg, start, 7, poison._replace(hub_id=hub_id1),
+                            alpha=0.2).cpu().numpy()
+    assert set(np.unique(ends)) <= {0, 5}
+    assert abs((ends == 0).mean() - 0.2) < 0.002
+
+
+def test_walk_kernel_hub_alias_branch(dev):
+    """K4-hub on a weighted graph takes the alias hop: against the plain
+    alias hub walk and both against the weighted oracle, with a pool far
+    larger than the walks that reach each hub."""
+    from fora_tpu_torch.algo import exact as texact
+    from fora_tpu_torch.algo import hubppr
+    from fora_tpu_torch.graph import to_device
+    g = _weighted_rmat(10, 8192, seed=7)
+    dg = to_device(g, merge_duplicate_edges=True, device=dev)
+    hub = hubppr.build_hub_index(dg, 2, alpha=0.2, num_hubs=16,
+                                 pool_size=1 << 18)
+    hub_id = hub.hub_id.cpu().numpy()
+    src = int(np.nonzero((g.out_deg > 3) & (hub_id < 0))[0][0])
+    pi = texact.exact_ppr_batch(g, [src], device="cpu").numpy()[:, 0]
+    W = 1 << 18
+    start = torch.full((W,), src, dtype=torch.int32, device=dev)
+    ends_k = hubppr.hub_walks(dg, start, 3, hub, alpha=0.2).cpu().numpy()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ends_p = hubppr.hub_walks_plain(dg, start, hub, generator=gen,
+                                    alpha=0.2).cpu().numpy()
+    assert two_sample_pvalue(ends_k, ends_p) > 1e-3
+    assert_endpoints_follow(ends_k, pi)
+    assert_endpoints_follow(ends_p, pi)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_load_dataset_library_parser_matches_numpy(dev, tmp_path, weighted):
+    """graph/io's library parser (csrc/graph_io.cu, host code) against the
+    numpy branch: the same arrays, and the same CSRGraph through
+    load_dataset for the card and for the CPU; a mixed-width file and a
+    missing one raise."""
+    from fora_tpu_torch.graph import generators as tgen
+    from fora_tpu_torch.graph import io as tio
+    g = _weighted_rmat(12, 40000, 3) if weighted else \
+        tgen.rmat(12, 40000, seed=3)
+    tio.save_dataset(g, str(tmp_path), "d")
+    path = tmp_path / "d" / "graph.txt"
+    a = tio.parse_edges_library(path, weighted)
+    b = tio.parse_edges_numpy(path, weighted)
+    for x, y in zip(a, b):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+    card = tio.load_dataset(str(tmp_path), "d", use_cache=False, device=dev)
+    cpu = tio.load_dataset(str(tmp_path), "d", use_cache=False, device="cpu")
+    for f in cpu._fields:
+        x, y = getattr(card, f), getattr(cpu, f)
+        assert (x is None) == (y is None), f
+        if x is not None:
+            np.testing.assert_array_equal(x, y, err_msg=f)
+    bad = tmp_path / "bad"
+    bad.mkdir()
+    (bad / "graph.txt").write_text("# c\n0 1\n1 2 0.5\n")
+    for cols in (False, True):
+        with pytest.raises(ValueError, match="not"):
+            tio.parse_edges_library(bad / "graph.txt", cols)
+    with pytest.raises(OSError):
+        tio.parse_edges_library(tmp_path / "none" / "graph.txt", False)
+
+
+def test_server_over_cuda_runner(dev):
+    """ForaServer over a CUDA TopkRunner: query_fn runs on the server's
+    worker thread and launches there; the answers agree with the runner's
+    own from the main thread (values at rtol 1e-4, at least 9 of the 10
+    ids: the batches group the sources differently)."""
+    import asyncio
+    import json
+    import threading
+    from fora_tpu_torch import ForaConfig as TorchForaConfig
+    from fora_tpu_torch import TopkRunner, kernels
+    from fora_tpu_torch.graph import generators as tgen
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.index import build_walk_index
+    from fora_tpu_torch.serve import ForaServer
+    g = tgen.rmat(12, 1 << 15, seed=3)
+    rcfg = TorchForaConfig(epsilon=0.5, k=10).resolved(g.n, g.m)
+    idx = build_walk_index(to_device(g, device="cpu"), rcfg, seed=4)
+    runner = TopkRunner(to_device(g, device=dev), rcfg, k=10, index=idx,
+                        delta_stride=4.0)
+    sources = [3, 61, 122, 500, 901, 1200, 2047, 4000]
+    want = runner.query_pool(np.asarray(sources), 1, batch=4, start_level=0)
+    threads = set()
+
+    def query_fn(src, seed):
+        threads.add(threading.get_ident())
+        res = runner.query_pool(np.asarray(src), int(seed), batch=4,
+                                start_level=0)
+        return res.node_ids, res.values
+
+    async def roundtrip(port, reqs):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        out = []
+        for req in reqs:
+            writer.write((json.dumps(req) + "\n").encode())
+            await writer.drain()
+            out.append(json.loads(await reader.readline()))
+        writer.close()
+        return out
+
+    async def main():
+        srv = ForaServer(query_fn, batch=4, k=10, max_wait_ms=20,
+                         inflight=1)
+        port = await srv.start(port=0)
+        outs = await asyncio.gather(*[
+            roundtrip(port, [{"id": i, "source": s}])
+            for i, s in enumerate(sources)])
+        stats = (await roundtrip(port, [{"cmd": "stats"}]))[0]
+        await srv.stop()
+        return [o[0] for o in outs], stats
+
+    kernels.reset_launch_counts()
+    out, stats = asyncio.run(main())
+    counts = kernels.launch_counts()
+    assert threading.get_ident() not in threads
+    assert stats["errors"] == 0 and stats["queries"] == len(sources)
+    for name in ("push_prepass", "gather_scatter_add", "index_spmv",
+                 "topk_bounds"):
+        assert counts[name] > 0, name
+    for i, r in enumerate(out):
+        assert r["id"] == i
+        assert len(set(r["nodes"]) & set(want.node_ids[i].tolist())) >= 9
+        np.testing.assert_allclose(r["scores"], want.values[i], rtol=1e-4)

@@ -1,7 +1,9 @@
 """fora_tpu_torch runs without JAX and without the JAX package: it imports
 and answers CPU queries (indexed, sharded, raw-walk, Monte Carlo, indexed
-on a weighted graph with its alias tables, ``entry()``) and runs the
-gather probe's case, whether or not ``import jax`` would work, loading
+on a weighted graph with its alias tables, ``entry()``), runs the gather
+probe's case and its CLI (build, batch-topk, query --algo bippr, hubppr
+and fwdpush) with ``--device cpu``, whether or not ``import jax`` would
+work, loading
 no module of ``jax`` or ``fora_tpu``; no file of it (nor ``chip_smoke.py``)
 imports either; and CPU tensors never reach a CUDA kernel (every launch
 counter stays 0)."""
@@ -74,6 +76,17 @@ SCRIPT = textwrap.dedent("""
     host_ms = lambda fn: (time.perf_counter(), fn())[0]   # noqa: E731
     assert gather_probe.p3_case(32, "cpu", host_ms, e_total=2048)[
         "err_plain"] == 0.0
+    from fora_tpu_torch import cli
+    from fora_tpu_torch.graph import io as gio
+    gio.save_dataset(generators.rmat(8, 2048, seed=6), sys.argv[2], "r")
+    base = ["--prefix", sys.argv[2], "--dataset", "r", "--device", "cpu",
+            "--k", "5", "--batch", "4"]
+    assert cli.main(["generate-ss-query", "--query-size", "4"] + base) == 0
+    assert cli.main(["build"] + base) == 0
+    assert cli.main(["batch-topk", "--with-idx"] + base) == 0
+    for algo in ("bippr", "hubppr", "fwdpush"):
+        assert cli.main(["query", "--algo", algo, "--num-hubs", "4"]
+                        + base) == 0
     assert all(n == 0 for n in kernels.launch_counts().values())
     foreign = sorted(m for m, mod in sys.modules.items() if mod is not None
                      and m.split(".")[0] in ("jax", "jaxlib", "fora_tpu"))
@@ -83,8 +96,8 @@ SCRIPT = textwrap.dedent("""
 
 
 @pytest.mark.parametrize("jax", ["blocked", "importable"])
-def test_cpu_query_without_jax(jax):
-    out = subprocess.run([sys.executable, "-c", SCRIPT, jax],
+def test_cpu_query_without_jax(jax, tmp_path):
+    out = subprocess.run([sys.executable, "-c", SCRIPT, jax, str(tmp_path)],
                          capture_output=True, text=True, timeout=300,
                          cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -128,5 +141,11 @@ def test_cpu_tensors_never_launch_kernels():
     gather.row_scatter_add(torch.zeros(4, 8), torch.ones(6, 8),
                            torch.tensor([0, 5], dtype=torch.int32),
                            torch.tensor([3, 3], dtype=torch.int32))
+    from fora_tpu_torch.algo import bippr, hubppr
+    bippr.bippr_pairs(dg, [1, 2], [3, 4, 5], 6, rcfg=rcfg, rmax_b=1e-3,
+                      num_walks=200)
+    hub = hubppr.build_hub_index(dg, 7, alpha=0.2, num_hubs=4, pool_size=64)
+    hubppr.hub_walks(dg, torch.zeros(100, dtype=torch.int32), 8, hub,
+                     alpha=0.2)
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 9
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 11
