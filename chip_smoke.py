@@ -18,15 +18,25 @@ memory:
   3. kernels     K1 (push superstep, split and unsplit; two launches
                  bit-equal) and K4 (walks) against their plain PyTorch
                  versions on the card; K1's time beside its bound and
-                 torch.sparse.mm over the same CSR (the yardstick); K4's
-                 bound from the distinct 32-byte sectors that each hop of
-                 the plain walk on the same starts reads, at the L2's rate;
-                 the K1-back pre-pass (BiPPR) on a backward push of 2048
-                 targets, twice bit-equal to its plain version; K4-hub
-                 (HubPPR's walks over the CLI's default hub index, 256
-                 hubs) against the plain hub walk by total variation,
-                 timed beside its bound (K4's rule, with the hub_id and
-                 pool reads)
+                 torch.sparse.mm over the same CSR (the yardstick); K4
+                 against run_walks by total variation and, bit for bit,
+                 against run_walks_philox (the kernel's Philox words in
+                 plain PyTorch) on shapes (i) 2^22 walks from one source
+                 and (ii) the index build's first launch (2^23 walks from
+                 repeat(arange(n), index_counts)), each timed beside its
+                 bound: the larger of the distinct 32-byte sectors that
+                 each hop of the plain walk on the same starts reads, at
+                 the L2's rate, and its Philox blocks at the rate that
+                 philox_probe.cu measures; K4 swept over 2^14 .. 2^23
+                 walks (from one source and from the index build's
+                 starts) at 1, 2, 4, 8 and 16 walks per lane, each k
+                 bit-equal to the plan's, the plan's k timed against the
+                 fastest (the source of kernels/schedule.py::walk_plan);
+                 the K1-back pre-pass (BiPPR)
+                 on a backward push of 2048 targets, twice bit-equal to
+                 its plain version; K4-hub (HubPPR's walks over the CLI's
+                 default hub index, 256 hubs) against the plain hub walk
+                 by total variation, and on shapes (i) and (ii) as K4
   4. index       build the FORA+ index on the card (K4 + host pack), save
                  it under bench_data/torch_smoke/, load it back with mmap
   5. queries     256 sources as two pools of 128 through
@@ -60,8 +70,11 @@ memory:
                  column chunks, supersteps and the ms of push, alloc,
                  walks (K4), accum and accept (K3); no column may
                  overflow; K4 against the plain run_walks by a two-sample
-                 chi-square on one real level's allocation; precision@50
-                 of the first 32 against phase 7's exact top-50 (>= 0.95)
+                 chi-square on one real level's allocation, and K4 and
+                 K4-hub (phase 3's hub index) on that allocation, shape
+                 (iii), timed beside their bounds, K4 bit-equal to
+                 run_walks_philox; precision@50 of the first 32 against
+                 phase 7's exact top-50 (>= 0.95)
   11. montecarlo the first 32 sources through make_montecarlo_fn (2^22
                  walks per query, K4): wall time, precision@50 (>= 0.95)
   12. P3         the gather probe's first case (fora_tpu_torch.probes.
@@ -76,10 +89,11 @@ memory:
                  against the float64 plain version; K4's alias branch on
                  2^22 walks from one source against the plain alias walk
                  (total variation below 0.01, where K4's uniform branch on
-                 the same graph must read above it), timed beside its
-                 bound (K4's rule, with the alias-table reads, at the
-                 rate for the out-CSR and alias tables together); the
-                 weighted FORA+ index
+                 the same graph must read above it), and on shapes (i)
+                 and (ii) as K4 (its bound with the alias-table reads, at
+                 the rate for the out-CSR and alias tables together), its
+                 shape (iii) in the weighted raw pool; the weighted FORA+
+                 index
                  built, saved under bench_data/torch_smoke_w/ and loaded
                  with mmap; 256 sources in two pools of 128 as in phase 5;
                  precision@50 of the first 32 against the weighted oracle
@@ -88,7 +102,8 @@ memory:
                  branch on one level's allocation, and Monte Carlo, each
                  at the same gate; and K4-hub's alias branch against the
                  plain alias hub walk (total variation below 0.01, where
-                 its uniform hops must read above it)
+                 its uniform hops must read above it) and bit-equal to
+                 run_walks_philox on shape (i)
   14. cli        bench.py's graph through fora_tpu_torch.cli as users run
                  it: save_dataset to bench_data/torch_smoke_cli/ and
                  load_dataset through the library parser (seconds of each;
@@ -131,8 +146,8 @@ It prints one JSON line of per-kernel results (launches, max abs error,
 ms, plain ms, bound ms and what bounds it: each input read and each
 output written once at the card's published memory rate
 (fora_tpu_torch.utils.profiling.HBM_BW), or its f32 operations at 67
-TFLOP/s; for K4 and its alias and hub branches the distinct sectors each
-hop's walks read; library
+TFLOP/s; for K4 and its alias and hub branches the larger of the
+distinct sectors each hop's walks read and their Philox blocks; library
 ms: one PyTorch call
 computing the same function, or null), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
@@ -164,7 +179,10 @@ BATCH, POOL, QUERIES, DEFER = 128, 128, 256, 64
 K, EPS, DSTRIDE, ACCEPT = 50, 0.5, 8.0, 1.0
 EVAL_N = 32
 MIN_PRECISION = 0.95
-WALK_CHECK = 1 << 22
+WALK_CHECK = 1 << 22                # K4's shape (i): walks from one source
+INDEX_LAUNCH = 1 << 23              # shape (ii): the index build's launch
+SWEEP_LOG2 = tuple(range(14, 24))   # K4's sweep: 2^14 .. 2^23 walks
+SWEEP_KS = (1, 2, 4, 8, 16)         # and these walks per lane
 ROOT = Path(__file__).resolve().parent
 INDEX_DIR = ROOT / "bench_data" / "torch_smoke"
 W_INDEX_DIR = ROOT / "bench_data" / "torch_smoke_w"
@@ -260,10 +278,40 @@ def walk_sector_rate(graph, hub=None) -> float:
     return hbm_rate()
 
 
+_philox_rates: dict = {}
+
+
+def philox_rate(device) -> float:
+    """Philox-4x32-10 blocks per second with every lane busy and no loads,
+    measured once per device with the hand-written kernel of
+    kernels/csrc/philox_probe.cu (256 blocks a thread): the best of 2^20
+    and 2^22 threads, three timings each."""
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.utils.timing import cuda_ms
+    key = str(device)
+    if key not in _philox_rates:
+        out = torch.empty(1 << 22, dtype=torch.int32, device=device)
+        rates = {}
+        for log2 in (20, 22):
+            part = out[:1 << log2]
+            blocks = kernels.philox_blocks(part)
+            ms = min(cuda_ms(lambda: kernels.philox_blocks(part))
+                     for _ in range(3))
+            rates[log2] = blocks / (ms * 1e-3)
+        print("philox_probe: " + ", ".join(
+            f"2^{k} threads {v / 1e9:.2f} G blocks/s"
+            for k, v in rates.items()))
+        _philox_rates[key] = max(rates.values())
+    return _philox_rates[key]
+
+
 def walk_bound(graph, start, gen, alpha, max_hops, rate, hub=None) -> dict:
-    """K4's bound_ms from what these walks must read, each piece of data
-    once per hop: a walk is a chain of reads that no layout coalesces, and
-    walks that read the same sector in one hop share the read.  Per hop the
+    """K4's bound_ms: the larger of the time of what these walks must read
+    and the time of the Philox-4x32-10 blocks they must draw.  The reads,
+    each piece of data once per hop: a walk is a chain of reads that no
+    layout coalesces, and walks that read the same sector in one hop share
+    the read.  Per hop the
     function needs the row pointers indptr[cur], indptr[cur + 1] of every
     node the walks stand on (the degree is their difference) and, for every
     walk that moves, out_indices[slot]; on a graph with alias tables
@@ -275,7 +323,12 @@ def walk_bound(graph, start, gen, alpha, max_hops, rate, hub=None) -> dict:
     lockstep walk on the same starts (run_walks' loop with counters; the
     hub walk's where ``hub`` is given); the starts are read and the
     endpoints written once, 4 bytes each, at device memory's rate.  The
-    sectors come at ``rate`` (walk_sector_rate())."""
+    sectors come at ``rate`` (walk_sector_rate()).  The operations: one
+    block for each walk (its length) and one for each hop, at
+    philox_rate().  Printed beside it, not part of it: the time of each
+    walk's own reads at the same rate, as if no two walks shared a
+    sector (what a kernel that issues every walk's loads itself can only
+    beat through its caches)."""
     import torch
     from fora_tpu_torch.ops.walk import geometric_lengths
     alias = graph.alias_prob is not None
@@ -286,7 +339,7 @@ def walk_bound(graph, start, gen, alpha, max_hops, rate, hub=None) -> dict:
     per_sector = SECTOR // graph.out_indptr.element_size()
     cur = start.long()
     done = torch.zeros(start.shape, dtype=torch.bool, device=start.device)
-    ptr_sectors = moved = landed = sectors = 0
+    ptr_sectors = moved = landed = sectors = own_reads = 0
 
     def sectors_of(idx):
         return torch.unique(idx // per_sector).numel()
@@ -298,7 +351,12 @@ def walk_bound(graph, start, gen, alpha, max_hops, rate, hub=None) -> dict:
         nodes = torch.unique(cur[going])
         ptr_sectors += torch.unique(torch.cat(
             [nodes // per_sector, (nodes + 1) // per_sector])).numel()
+        # each walk's own reads: its row pointers' sectors, then one
+        # sector per table it reads
+        own_reads += int(going.sum()) + int(
+            (going & (cur % per_sector == per_sector - 1)).sum())
         moved += int(alive.sum())
+        own_reads += int(alive.sum()) * (2 if alias else 1)
         j = torch.minimum((u * d.float()).long(), (d - 1).clamp_min(0))
         slot = (indptr[cur] + j).clamp_max(indices.shape[0] - 1)
         nxt = indices[slot]
@@ -314,6 +372,7 @@ def walk_bound(graph, start, gen, alpha, max_hops, rate, hub=None) -> dict:
             hid = hub.hub_id[cur].long()
             at_hub = alive & (hid >= 0)
             landed += int(at_hub.sum())
+            own_reads += int(alive.sum()) + int(at_hub.sum())
             done |= at_hub
             pj = (torch.rand(start.shape, generator=gen, device=gen.device)
                   * hub.pool_size).long().clamp_max(hub.pool_size - 1)
@@ -328,6 +387,10 @@ def walk_bound(graph, start, gen, alpha, max_hops, rate, hub=None) -> dict:
     name = "K4" + ("-alias" if alias else "") + ("-hub" if hub else "")
     reads = ("edge-list" + (" and alias-table" if alias else "")
              + (", hub_id and pool" if hub is not None else ""))
+    blocks = moved + start.numel()
+    ops_ms = blocks / philox_rate(start.device) * 1e3
+    by = "bytes" if ms >= ops_ms else "operations"
+    own_ms = (SECTOR * own_reads / rate + ends) * 1e3
     print(f"{name} bound: {start.numel()} walks took "
           f"{moved} hops ({moved / start.numel():.3f} each)"
           + (f", {landed} of them stopped at a hub" if hub is not None
@@ -338,8 +401,116 @@ def walk_bound(graph, start, gen, alpha, max_hops, rate, hub=None) -> dict:
           + (f" (with what the walk reads {walked / 1e6:.1f} MB)"
              if walked != csr else "")
           + f", the L2 {L2_BYTES / 1e6:.0f} MB: scattered sectors at "
-          f"{rate / 1e12:.3f} TB/s ({source}) -> {ms:.4f} ms")
-    return dict(bound_ms=ms, bound_by="bytes")
+          f"{rate / 1e12:.3f} TB/s ({source}) -> {ms:.4f} ms; {blocks} "
+          f"Philox blocks at {philox_rate(start.device) / 1e9:.2f} G/s "
+          f"(philox_probe.cu) -> {ops_ms:.4f} ms; bound by {by}; the "
+          f"walks' own reads, no sector shared between walks: {own_reads} "
+          f"sectors -> {own_ms:.4f} ms")
+    return dict(bound_ms=max(ms, ops_ms), bound_by=by)
+
+
+def walk_branch(graph, hub=None) -> str:
+    """K4's branch that ``graph`` (and a hub index) take."""
+    return ("K4" + ("-alias" if graph.alias_prob is not None else "")
+            + ("-hub" if hub is not None else ""))
+
+
+def walk_shapes(graph, rcfg, shapes, rate, hub=None, exact=("i", "ii")
+                ) -> dict:
+    """One K4 branch (the alias branch on a graph with tables, K4-hub
+    with ``hub``) through its public entry on each of ``shapes`` (label ->
+    starts): bit-equal to ops.walk.run_walks_philox on the labels in
+    ``exact`` (a walk that differs fails), timed with CUDA events beside
+    walk_bound() at sector ``rate``; one line per shape.  Returns {label:
+    {walks, ms, bound_ms, bound_by}}."""
+    import torch
+    from fora_tpu_torch.algo import hubppr
+    from fora_tpu_torch.ops import walk
+    from fora_tpu_torch.utils.timing import cuda_ms
+    name = walk_branch(graph, hub)
+    a, hops = rcfg.alpha, rcfg.max_walk_hops
+    out = {}
+    for label, start in shapes.items():
+        def run():
+            if hub is not None:
+                return hubppr.hub_walks(graph, start, SEED, hub, alpha=a,
+                                        max_hops=hops)
+            return walk.walk_endpoints(graph, start, SEED, a, hops)
+        got = run()
+        line = ""
+        if label in exact:
+            want = walk.run_walks_philox(graph, start, SEED, a, hops, hub=hub)
+            diff = int((got != want).sum())
+            if diff:
+                fail(f"{name} ({label}): {diff} of {start.numel()} walks "
+                     f"differ from run_walks_philox")
+            line = "; bit-equal to run_walks_philox"
+            del want
+        del got
+        ms = cuda_ms(run)
+        gen = torch.Generator(device=start.device).manual_seed(SEED)
+        b = walk_bound(graph, start, gen, a, hops, rate, hub=hub)
+        print(f"{name} ({label}) {start.numel()} walks: {ms:.4f} ms against "
+              f"its bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({b['bound_ms'] / ms:.0%} of it reached){line}")
+        out[label] = dict(walks=start.numel(), ms=ms, **b)
+    return out
+
+
+def index_build_starts(graph, rcfg, count: int):
+    """K4's shape (ii): the starts of the index build's first launch, the
+    first ``count`` of repeat(arange(n), index_counts(out_deg, rcfg)),
+    int32 on the graph's device."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch.index.build import index_counts
+    starts = np.repeat(np.arange(graph.n, dtype=np.int32),
+                       index_counts(graph.out_deg.cpu().numpy(), rcfg))
+    return torch.from_numpy(starts[:count]).to(graph.device)
+
+
+def walk_sweep(graph, rcfg, source) -> None:
+    """K4 (uniform) at 2^14 .. 2^23 walks from one source and from the
+    index build's starts, at each walks per lane of SWEEP_KS (forced
+    through schedule.walk_grid): every k bit-equal to the plan's, since
+    a walk's endpoint depends on no schedule (one that differs fails),
+    timed with CUDA events; one line per size, the plan's k against the
+    fastest.  The measurement that kernels/schedule.py::walk_plan
+    follows."""
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.kernels import schedule
+    from fora_tpu_torch.utils.timing import cuda_ms
+    a, hops = rcfg.alpha, rcfg.max_walk_hops
+    sms = kernels.sm_count(graph.device)
+    build_starts = index_build_starts(graph, rcfg, 1 << SWEEP_LOG2[-1])
+    for log2 in SWEEP_LOG2:
+        W = 1 << log2
+        plan_k = schedule.walk_plan(W, sms).walks_per_lane
+        for label, start in (
+                ("one source", torch.full((W,), int(source),
+                                          dtype=torch.int32,
+                                          device=graph.device)),
+                ("index build's starts", build_starts[:W])):
+            def run(k):
+                return kernels._index_walk(
+                    start, graph.out_indptr, graph.out_indices, None, None,
+                    SEED, a, hops, "index_walk",
+                    plan=schedule.walk_grid(W, k))
+            want = run(plan_k)
+            ms = {}
+            for k in SWEEP_KS:
+                diff = int((run(k) != want).sum())
+                if diff:
+                    fail(f"K4 sweep ({label}, 2^{log2} walks): {diff} walks "
+                         f"differ between k = {k} and k = {plan_k}")
+                ms[k] = cuda_ms(lambda: run(k))
+            best = min(ms, key=ms.get)
+            print(f"K4 sweep ({label}) 2^{log2} walks: "
+                  + ", ".join(f"k {k} {v:.4f}" for k, v in ms.items())
+                  + f" ms; the plan's k = {plan_k} "
+                  f"{ms[plan_k] / ms[best] - 1:+.1%} against k = {best}; "
+                  f"every k bit-equal")
 
 
 def plain_superstep(graph, p, r, thr, alpha):
@@ -689,7 +860,7 @@ def k4_vs_plain_on_level(runner, dg, sources, level):
     measured demand (JAX's allocate_walks, no lane dropped), walk the
     flattened lanes both ways, and compare the (column, endpoint) counts
     of the valid lanes by a two-sample chi-square.  Returns (p-value,
-    walks, K4 ms, plain ms)."""
+    walks, K4 ms, plain ms, the flattened starts: K4's shape (iii))."""
     import torch
     from fora_tpu_torch.ops import push, walk
     from fora_tpu_torch.utils.timing import cuda_ms
@@ -718,7 +889,7 @@ def k4_vs_plain_on_level(runner, dg, sources, level):
                                           alpha=rc.alpha,
                                           max_hops=rc.max_walk_hops),
                    iters=2, warmup=0)
-    return pv, int(valid.sum()), k_ms, p_ms
+    return pv, int(valid.sum()), k_ms, p_ms, start
 
 
 def bippr_targets(n, seed, must=()):
@@ -790,11 +961,13 @@ def hub_index_for(dg, rcfg):
 
 
 def check_hub_walk(dg, rcfg, source, dev, hub, name, rate=None):
-    """K4-hub: WALK_CHECK walks from ``source`` against the plain hub walk
-    on the same hub index, by the total variation over the plain walk's
-    top-1000 endpoints (limit 0.01).  On a weighted graph (alias tables)
-    the hub walk with uniform hops (K4-hub's other branch) must read above
-    the limit.  With ``rate``, timed beside its bound; returns the row."""
+    """K4-hub: WALK_CHECK walks from ``source`` bit-equal to
+    run_walks_philox with the hub index and against the plain hub walk on
+    the same index, by the total variation over the plain walk's top-1000
+    endpoints (limit 0.01).  On a weighted graph (alias tables) the hub
+    walk with uniform hops (K4-hub's other branch) must read above the
+    limit.  With ``rate``, shapes (i) and (ii) timed beside their bounds
+    (walk_shapes); returns the row."""
     import dataclasses
     import torch
     from fora_tpu_torch.algo import hubppr
@@ -831,27 +1004,29 @@ def check_hub_walk(dg, rcfg, source, dev, hub, name, rate=None):
         fail(f"{name}: the check cannot tell uniform hops from weighted "
              f"ones (the uniform branch reads {tv_u:.4f})")
     if rate is None:
+        walk_shapes(dg, rcfg, {"i": start}, walk_sector_rate(dg, hub),
+                    hub=hub)
         return None
+    starts = {"i": start, "ii": index_build_starts(dg, rcfg, INDEX_LAUNCH)}
+    res = walk_shapes(dg, rcfg, starts, rate, hub=hub)["i"]
     row = dict(
         max_abs_err=float((f_k[top] - f_p[top]).abs().max()),
-        ms=cuda_ms(lambda: hubppr.hub_walks(dg, start, SEED, hub,
-                                            alpha=hops[0], max_hops=hops[1])),
+        ms=res["ms"],
         plain_ms=cuda_ms(lambda: hubppr.hub_walks_plain(
             dg, start, hub, generator=gen, alpha=hops[0], max_hops=hops[1]),
             iters=3),
-        library_ms=None,
-        **walk_bound(dg, start, gen, hops[0], hops[1], rate, hub=hub))
-    print(f"{name}: {row['ms']:.4f} ms against its bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.0%} of "
-          f"it reached); plain {row['plain_ms']:.4f} ms")
+        library_ms=None, bound_ms=res["bound_ms"], bound_by=res["bound_by"])
+    print(f"{name}: plain {row['plain_ms']:.4f} ms")
     return row
 
 
-def run_raw(dg, rcfg, sources, exact_ids, name="raw"):
+def run_raw(dg, rcfg, sources, exact_ids, name="raw", hub=None):
     """Phase 10 (and 13's weighted pool, ``name`` its label in the
-    output): the raw-walk runner over the first RAW_QUERIES sources.
-    Returns its launch counts (reset just before the run, read just
-    after)."""
+    output): the raw-walk runner over the first RAW_QUERIES sources, then
+    K4's shape (iii), the allocation of the deepest level it reached, for
+    the graph's branch (bit-equal to run_walks_philox) and, with ``hub``,
+    K4-hub (timed only).  Returns its launch counts (reset just before the
+    run, read just after)."""
     import numpy as np
     from fora_tpu_torch import kernels
     from fora_tpu_torch.algo.topk import TopkRunner
@@ -881,7 +1056,8 @@ def run_raw(dg, rcfg, sources, exact_ids, name="raw"):
     print(f"{name}: ms by stage over all levels: "
           + " ".join(f"{k} {v:.2f}" for k, v in ms.items()))
     level = max(st["level"] for st in stats)
-    pv, walks, k_ms, p_ms = k4_vs_plain_on_level(runner, dg, src, level)
+    pv, walks, k_ms, p_ms, start = k4_vs_plain_on_level(runner, dg, src,
+                                                        level)
     print(f"{name}: K4 vs plain run_walks on level {level}'s allocation of "
           f"{CHISQ_SOURCES} queries ({walks} walks): chi-square p-value "
           f"{pv:.4f} (limit {CHISQ_MIN_P}; conservative, both samples "
@@ -889,6 +1065,12 @@ def run_raw(dg, rcfg, sources, exact_ids, name="raw"):
           f"{p_ms:.3f} ms")
     if not pv > CHISQ_MIN_P:
         fail(f"{name}: K4 endpoints differ from plain (p = {pv:.2e})")
+    walk_shapes(dg, runner.rcfg, {"iii": start}, walk_sector_rate(dg),
+                exact=("iii",))
+    if hub is not None:     # bit-equal at shapes (i) and (ii) in phase 3
+        walk_shapes(dg, runner.rcfg, {"iii": start},
+                    walk_sector_rate(dg, hub), hub=hub, exact=())
+    del start
     pred = np.stack([results[int(s)] for s in src[:len(exact_ids)]])
     prec = metrics.batch_precision_at_k(pred, exact_ids)
     print(f"{name} precision@{K}: {prec:.4f} over {len(exact_ids)} queries "
@@ -1052,19 +1234,20 @@ def run_weighted(g, rcfg, dev):
     if not tv_u > 0.01:
         fail(f"K4-alias check cannot tell uniform hops from weighted ones: "
              f"the uniform branch reads {tv_u:.4f}")
+    del ends_k, ends_p, ends_u
+    # shapes (i) and (ii) bit-equal to run_walks_philox, timed beside
+    # their bounds
+    starts = {"i": start, "ii": index_build_starts(dgw, rcfg, INDEX_LAUNCH)}
+    res = walk_shapes(dgw, rcfg, starts, rate)["i"]
     row = dict(
         max_abs_err=float((f_k[top] - f_p[top]).abs().max()),
-        ms=cuda_ms(lambda: walk.walk_endpoints(
-            dgw, start, SEED, rcfg.alpha, rcfg.max_walk_hops)),
+        ms=res["ms"],
         plain_ms=cuda_ms(lambda: walk.run_walks(
             dgw, start, generator=gen, alpha=rcfg.alpha,
             max_hops=rcfg.max_walk_hops), iters=3),
-        library_ms=None,
-        **walk_bound(dgw, start, gen, rcfg.alpha, rcfg.max_walk_hops, rate))
-    print(f"K4-alias: {row['ms']:.4f} ms against its bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_ms'] / row['ms']:.0%} of "
-          f"it reached); plain {row['plain_ms']:.4f} ms")
-    del start, ends_k, ends_p, ends_u, f_k, f_p, f_u
+        library_ms=None, bound_ms=res["bound_ms"], bound_by=res["bound_by"])
+    print(f"K4-alias: plain {row['plain_ms']:.4f} ms")
+    del start, starts, f_k, f_p, f_u
     # K4-hub's alias branch against the plain alias hub walk
     hub = hub_index_for(dgw, rcfg)
     check_hub_walk(dgw, rcfg, sources[0], dev, hub, "K4-hub alias")
@@ -1807,7 +1990,8 @@ def main(argv=None) -> int:
               f"(split); two launches bit-equal")
         del p_s, contrib_s, acc, hub_vals, st, csr, flat_want
 
-        # K4: 2^22 walks from one source, kernel vs plain run_walks
+        # K4: 2^22 walks from one source, kernel vs plain run_walks by
+        # total variation
         k4_rate = walk_sector_rate(dg)
         start = torch.full((WALK_CHECK,), int(sources[0]), dtype=torch.int32,
                            device=dev)
@@ -1825,29 +2009,29 @@ def main(argv=None) -> int:
               f"variation {tv:.4f} over the top-1000 endpoints (limit 0.01)")
         if not tv < 0.01:
             fail(f"K4 endpoint distribution: total variation {tv:.4f}")
+        # shapes (i) and (ii) bit-equal to run_walks_philox, timed beside
+        # their bounds; the sweep of walks per lane
+        del ends_k, ends_p, f_k, f_p
+        starts = {"i": start, "ii": index_build_starts(dg, rcfg,
+                                                       INDEX_LAUNCH)}
+        k4 = walk_shapes(dg, rcfg, starts, k4_rate)["i"]
+        walk_sweep(dg, rcfg, sources[0])
         rows["index_walk"] = dict(
-            max_abs_err=walk_err,
-            ms=cuda_ms(lambda: walk.walk_endpoints(
-                dg, start, SEED, rcfg.alpha, rcfg.max_walk_hops)),
+            max_abs_err=walk_err, ms=k4["ms"],
             plain_ms=cuda_ms(lambda: walk.run_walks(
                 dg, start, generator=gen, alpha=rcfg.alpha,
                 max_hops=rcfg.max_walk_hops), iters=3),
-            library_ms=None,
-            **walk_bound(dg, start, gen, rcfg.alpha, rcfg.max_walk_hops,
-                         k4_rate))
-        k4 = rows["index_walk"]
-        print(f"K4: {k4['ms']:.4f} ms against its bound {k4['bound_ms']:.4f}"
-              f" ms ({k4['bound_ms'] / k4['ms']:.0%} of it reached)")
-        del start, ends_k, ends_p, f_k, f_p
+            library_ms=None, bound_ms=k4["bound_ms"],
+            bound_by=k4["bound_by"])
+        del start, starts
 
         # K1-back (BiPPR's pre-pass) on BiPPR's state; K4-hub on the hub
-        # index that the CLI's --algo hubppr builds
+        # index that the CLI's --algo hubppr builds (kept for phase 10)
         rows["backward_prepass"] = check_backward_prepass(dg, rcfg, dev)
         hub = hub_index_for(dg, rcfg)
         rows["index_walk_hub"] = check_hub_walk(
             dg, rcfg, sources[0], dev, hub, "K4-hub",
             rate=walk_sector_rate(dg, hub))
-        del hub
 
     # ---- 4.-5. the main path: index build and queries ------------------
     kernels.reset_launch_counts()
@@ -2036,7 +2220,8 @@ def main(argv=None) -> int:
 
     # ---- 10.-12. raw walk, Monte Carlo, P3 --------------------------------
     with Phase("raw walk"):
-        raw_launches = run_raw(dg, rcfg, sources, ex[:EVAL_N])
+        raw_launches = run_raw(dg, rcfg, sources, ex[:EVAL_N], hub=hub)
+        del hub
     with Phase("montecarlo"):
         mc_launches = run_montecarlo(dg, rcfg, sources, ex[:EVAL_N])
     with Phase("P3"):

@@ -184,8 +184,8 @@ def hub_walks(graph: DeviceGraph, start: torch.Tensor, seed: int,
                                max_hops=max_hops)
     ends = kernels.index_walk_hub(
         start.reshape(-1).contiguous(), graph.out_indptr, graph.out_indices,
-        graph.out_deg, graph.alias_prob, graph.alias_other, hub.hub_id,
-        hub.pool, seed, alpha, max_hops)
+        graph.alias_prob, graph.alias_other, hub.hub_id, hub.pool, seed,
+        alpha, max_hops)
     return ends.view(start.shape)
 
 

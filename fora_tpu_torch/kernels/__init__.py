@@ -15,13 +15,14 @@ PyTorch versions instead.
 | gather_scatter_add      | csrc/gather_scatter.cu | K1 (push gather, tail and hub edges; BiPPR's over the out-CSR) |
 | index_spmv              | csrc/gather_scatter.cu | K2 (index SpMV, a level in one launch) |
 | topk_bounds             | csrc/topk_bounds.cu    | K3 (split accept, both FORA modes) |
-| index_walk              | csrc/walk.cu           | K4 (index build, raw-walk FORA, Monte Carlo, BiPPR, HubPPR's pool) |
+| index_walk              | csrc/walk.cu           | K4 (index build, raw-walk FORA, Monte Carlo, BiPPR, HubPPR's pool; plan in schedule.py) |
 | index_walk_alias        | csrc/walk.cu           | K4's alias branch (the same, on weighted graphs) |
 | index_walk_hub          | csrc/walk.cu           | K4-hub (HubPPR's query walks, uniform or alias hops) |
 | ring_all_gather_hop     | csrc/ring.cu           | P1 (one hop of one shard) |
 | ring_reduce_scatter_hop | csrc/ring.cu           | P2 (one hop of one shard) |
 | row_scatter_add         | csrc/row_scatter.cu    | P3 (per-edge row accumulate, atomics) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
+| philox_blocks           | csrc/philox_probe.cu   | none: measures the card's rate of Philox-4x32-10 blocks (K4's operations) |
 
 ``csrc/alias.cu`` and ``csrc/graph_io.cu`` hold no kernel: they are the
 host-side alias-table builder that ``graph/alias.py::build_alias_library``
@@ -30,13 +31,16 @@ calls.
 
 Every launch runs with its output tensor's device current, so shards on
 several cards each launch on their own card.  The gather takes its work
-list (``schedule.GatherSchedule``) from the caller, or builds it per call.
+list (``schedule.GatherSchedule``) from the caller, or builds it per call;
+the walk kernels take their plan (``schedule.walk_plan``) from the number
+of walks and the card's SM count.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import struct
 from typing import Optional
 
 import torch
@@ -47,8 +51,9 @@ __all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
            "index_spmv", "topk_bounds", "topk_bounds_stats", "index_walk",
            "index_walk_alias", "index_walk_hub", "ring_all_gather_hop",
            "ring_reduce_scatter_hop", "row_scatter_add", "sector_reads",
-           "enable_peer_access", "WRAPPERS", "reset_launch_counts",
-           "launch_counts"]
+           "philox_blocks", "inv_log1m_alpha", "sm_count",
+           "enable_peer_access",
+           "WRAPPERS", "reset_launch_counts", "launch_counts"]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -285,19 +290,41 @@ def topk_bounds_stats() -> dict:
                 dense_columns=int(host[0]))
 
 
-def _index_walk(start, out_indptr, out_indices, out_deg, alias_prob,
-                alias_other, seed, alpha, max_hops, name, hub_id=None,
-                pool=None) -> torch.Tensor:
+_sm_counts: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def inv_log1m_alpha(alpha: float) -> float:
+    """1 / log(1 - alpha) rounded to float32, as the walk kernel takes it
+    (the plain ``ops.walk.run_walks_philox`` uses the same value)."""
+    return struct.unpack("f", struct.pack("f", 1.0 / math.log1p(-alpha)))[0]
+
+
+def _index_walk(start, out_indptr, out_indices, alias_prob, alias_other,
+                seed, alpha, max_hops, name, hub_id=None, pool=None,
+                plan=None) -> torch.Tensor:
     """Checks and launches csrc/walk.cu; uniform hops where ``alias_prob``
     and ``alias_other`` are None, no hub lookup where ``hub_id`` and
-    ``pool`` are None."""
+    ``pool`` are None.  ``plan`` defaults to ``schedule.walk_plan``'s; only
+    chip_smoke.py's sweep of walks per lane and the card's tests force
+    another (``schedule.walk_grid``)."""
     (W,) = start.shape
     dev = start.device
-    n = out_deg.shape[0]
     _check("start", start, torch.int32, (W,))
-    _check("out_indptr", out_indptr, torch.int32, (n + 1,), dev)
+    _check("out_indptr", out_indptr, torch.int32, device=dev)
+    if out_indptr.dim() != 1 or out_indptr.shape[0] < 1:
+        raise ValueError(f"{name}: out_indptr must be [n + 1]")
+    n = out_indptr.shape[0] - 1
     _check("out_indices", out_indices, torch.int32, device=dev)
-    _check("out_deg", out_deg, torch.int32, (n,), dev)
     if alias_prob is not None:
         m = out_indices.shape
         _check("alias_prob", alias_prob, torch.float32, m, dev)
@@ -311,44 +338,49 @@ def _index_walk(start, out_indptr, out_indices, out_deg, alias_prob,
                              f"{tuple(pool.shape)}")
         pool_size = pool.shape[1]
     if W >= 2**32:
-        raise ValueError(f"{name}: at most 2^32 walks per call")
+        raise ValueError(f"{name}: at most 2^32 - 1 walks per call")
     out = torch.empty(W, dtype=torch.int32, device=dev)
+    if W == 0:
+        return out
+    if plan is None:
+        plan = schedule.walk_plan(W, sm_count(dev))
     with torch.cuda.device(dev):
         err = build.library().fora_index_walk(
             _ptr(start), _ptr(out), W, _ptr(out_indptr), _ptr(out_indices),
-            _ptr(out_deg), _ptr(alias_prob), _ptr(alias_other), _ptr(hub_id),
-            _ptr(pool), pool_size, seed % 2**64, 1.0 / math.log1p(-alpha),
-            max_hops, _stream(start))
+            _ptr(alias_prob), _ptr(alias_other), _ptr(hub_id), _ptr(pool),
+            pool_size, seed % 2**64, inv_log1m_alpha(alpha), max_hops,
+            plan.walks_per_lane, plan.blocks, _stream(start))
     _raise_on(err, name)
     return out
 
 
 def index_walk(start: torch.Tensor, out_indptr: torch.Tensor,
-               out_indices: torch.Tensor, out_deg: torch.Tensor, seed: int,
-               alpha: float, max_hops: int) -> torch.Tensor:
+               out_indices: torch.Tensor, seed: int, alpha: float,
+               max_hops: int) -> torch.Tensor:
     """K4: endpoints [W] int32 of one alpha-terminating walk per start,
-    each hop to a uniform out-neighbour."""
-    out = _index_walk(start, out_indptr, out_indices, out_deg, None, None,
-                      seed, alpha, max_hops, "index_walk")
+    each hop to a uniform out-neighbour; walk w's endpoint depends on
+    (seed, w, start[w]) alone, bit-equal to ``ops.walk.run_walks_philox``."""
+    out = _index_walk(start, out_indptr, out_indices, None, None, seed,
+                      alpha, max_hops, "index_walk")
     index_walk.launches += 1
     return out
 
 
 def index_walk_alias(start: torch.Tensor, out_indptr: torch.Tensor,
-                     out_indices: torch.Tensor, out_deg: torch.Tensor,
-                     alias_prob: torch.Tensor, alias_other: torch.Tensor,
-                     seed: int, alpha: float, max_hops: int) -> torch.Tensor:
+                     out_indices: torch.Tensor, alias_prob: torch.Tensor,
+                     alias_other: torch.Tensor, seed: int, alpha: float,
+                     max_hops: int) -> torch.Tensor:
     """K4's alias branch: as :func:`index_walk`, each hop through the
     Walker alias tables over the out-CSR slots (a weighted graph's
     w(v, u) / W(v)).  Counted apart from the uniform branch."""
-    out = _index_walk(start, out_indptr, out_indices, out_deg, alias_prob,
+    out = _index_walk(start, out_indptr, out_indices, alias_prob,
                       alias_other, seed, alpha, max_hops, "index_walk_alias")
     index_walk_alias.launches += 1
     return out
 
 
 def index_walk_hub(start: torch.Tensor, out_indptr: torch.Tensor,
-                   out_indices: torch.Tensor, out_deg: torch.Tensor,
+                   out_indices: torch.Tensor,
                    alias_prob: Optional[torch.Tensor],
                    alias_other: Optional[torch.Tensor], hub_id: torch.Tensor,
                    pool: torch.Tensor, seed: int, alpha: float,
@@ -357,7 +389,7 @@ def index_walk_hub(start: torch.Tensor, out_indptr: torch.Tensor,
     given), but a walk whose hop lands on a hub (``hub_id[node] >= 0``)
     ends at a uniform entry of that hub's row of ``pool`` ([H, P] int32
     endpoints).  Counted apart from the other branches."""
-    out = _index_walk(start, out_indptr, out_indices, out_deg, alias_prob,
+    out = _index_walk(start, out_indptr, out_indices, alias_prob,
                       alias_other, seed, alpha, max_hops, "index_walk_hub",
                       hub_id=hub_id, pool=pool)
     index_walk_hub.launches += 1
@@ -446,6 +478,25 @@ def sector_reads(buf: torch.Tensor, reads: int = 64,
     return blocks * 256 * reads
 
 
+def philox_blocks(out: torch.Tensor, per_thread: int = 256) -> int:
+    """The measuring kernel of csrc/philox_probe.cu: ``out.numel()``
+    threads (a multiple of 256, int32 on the card, one word each) each
+    compute ``per_thread`` (a multiple of 4) Philox-4x32-10 blocks of the
+    walk kernel's function, every lane busy and no loads.  Returns the
+    blocks computed; time the call to get the card's rate, the operations
+    term of K4's bound.  On no query path; its launches count apart."""
+    _check("out", out, torch.int32)
+    if out.numel() % 256:
+        raise ValueError(f"philox_blocks: {out.numel()} threads, not a "
+                         "multiple of 256")
+    with torch.cuda.device(out.device):
+        err = build.library().fora_philox_blocks(
+            _ptr(out), per_thread, out.numel() // 256, 0x5eed, _stream(out))
+    philox_blocks.launches += 1
+    _raise_on(err, "philox_blocks")
+    return out.numel() * per_thread
+
+
 _peer_pairs: set = set()   # (reader, owner) card indices with access on
 
 
@@ -463,7 +514,8 @@ def enable_peer_access(reader: torch.device, owner: torch.device) -> None:
 
 WRAPPERS = (push_prepass, backward_prepass, gather_scatter_add, index_spmv,
             topk_bounds, index_walk, index_walk_alias, index_walk_hub,
-            ring_all_gather_hop, ring_reduce_scatter_hop, row_scatter_add)
+            ring_all_gather_hop, ring_reduce_scatter_hop, row_scatter_add,
+            philox_blocks)
 for _w in WRAPPERS:
     _w.launches = 0
 topk_bounds.last_state = None

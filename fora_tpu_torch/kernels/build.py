@@ -3,8 +3,9 @@ use, and load it with ctypes.
 
 The library has a plain C interface (no PyTorch headers), so ``nvcc``
 compiles it in seconds.  It lands in ``<build root>/<hash>/``, keyed by a
-hash of the sources and the flags, so an edited source rebuilds and an
-unchanged one loads the cached library.  The build root is
+hash of the sources, the headers they share (``csrc/*.cuh``) and the
+flags, so an edited source rebuilds and an unchanged one loads the cached
+library.  The build root is
 ``$FORA_TPU_TORCH_BUILD_DIR`` when set, else ``build/fora_tpu_torch/`` in
 a source checkout (the directory holding ``pyproject.toml`` beside the
 package), else ``~/.cache/fora_tpu_torch`` for an installed package.
@@ -45,8 +46,8 @@ SIGNATURES = {
     "fora_topk_segment": [],
     "fora_topk_bounds": [_P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _LL,
                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "fora_index_walk": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _P, _I,
-                        ctypes.c_ulonglong, _F, _I, _P],
+    "fora_index_walk": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _I,
+                        ctypes.c_ulonglong, _F, _I, _I, _LL, _P],
     "fora_build_alias": [_P, _P, _P, _LL, _P, _P],
     "fora_parse_edges": [ctypes.c_char_p, _I, _P, _P, _P, _LL],
     "fora_ring_copy": [_P, _P, _LL, _P],
@@ -54,6 +55,7 @@ SIGNATURES = {
     "fora_row_scatter_add": [_P, _P, _P, _P, _LL, _I, _P],
     "fora_enable_peer_access": [_I, _I],
     "fora_sector_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],
+    "fora_philox_blocks": [_P, _I, _I, ctypes.c_uint, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -62,6 +64,10 @@ last_build_secs: Optional[float] = None   # None: the cached library loaded
 
 def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def build_root() -> Path:
@@ -77,7 +83,7 @@ def build_root() -> Path:
 
 def library_path() -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for f in sources():
+    for f in sources() + headers():
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return build_root() / h.hexdigest()[:16] / LIB_NAME

@@ -1,149 +1,267 @@
-// K4 · index_walk: endpoints of alpha-terminating random walks, one thread
-// per walk, uniform hops or (on a weighted graph) alias-table hops.
+// K4 · index_walk: endpoints of alpha-terminating random walks, uniform hops
+// or (on a weighted graph) alias-table hops, run from a queue of walks that
+// each warp owns.
 //
 // Replaces fora_tpu/ops/walk.py::run_walks_scheduled (159-222) with
 // geometric_lengths (89-99), the XLA-lowered walk that builds the FORA+
 // index, and its alias branch (212-218; run_walks 115-116, 128-132).  On the
 // TPU the walks advance in lockstep, sorted by their pre-drawn length so
 // that hop h runs on a shrinking static prefix (hop_widths), with a
-// fallback to the plain lockstep walk when a prefix overflows.  A GPU
-// thread runs its own walk to its own length instead, so neither the sort
-// nor the fallback exists here.
+// fallback to the plain lockstep walk when a prefix overflows.  Neither the
+// sort nor a launch per hop exists here: the walk state stays in registers.
 //
-// Per walk w (its lane):
+// Per walk w:
 //   len = min(floor(log(u0) / log(1 - alpha)), max_hops),  u0 in (0, 1]
-//   repeat len times: stop at a dangling node (deg == 0 absorbs);
-//                     slot = out_indptr[cur] + min(floor(u_h * deg), deg - 1)
+//   repeat len times: d = indptr[cur + 1] - indptr[cur]
+//                     stop at a dangling node (d == 0 absorbs)
+//                     slot = indptr[cur] + min(floor(u_h * d), d - 1)
 //                     uniform: cur = out_indices[slot]
 //                     alias:   cur = u2_h < alias_prob[slot] ? out_indices[slot]
 //                                                            : alias_other[slot]
-// Random numbers: Philox-4x32-10 written into the kernel, keyed by
-// (seed low word, lane), with (hop, seed high word) as the counter; u_h is
-// the block's first word and u2_h its second, so the alias hop costs no
-// second Philox call.  The endpoints match JAX's in distribution only; JAX
-// draws threefry bits.
+// Random numbers: Philox-4x32-10 (philox.cuh) keyed by (seed low word, w),
+// with (hop, seed high word) as the counter; u0 is block 0's first word, u_h
+// block h+1's first and u2_h its second, so the alias hop costs no second
+// Philox call.  Nothing in the stream depends on the thread that runs the
+// walk, so the endpoint of walk w is a function of (seed, w, start[w]) alone:
+// ops/walk.py::run_walks_philox draws the same bits in plain PyTorch, and the
+// card's tests and chip_smoke.py hold this kernel to it bit for bit.  The
+// endpoints match JAX's in distribution only; JAX draws threefry bits.
 //
 // The hub branch (kHub, HubPPR's query walks) replaces
-// fora_tpu/algo/hubppr.py::hub_walks (143-180): after every hop the walk
-// takes, it looks its new node up in hub_id; at a hub (hid >= 0) the walk
-// ends at one entry of that hub's pool of precomputed endpoints,
+// fora_tpu/algo/hubppr.py::hub_walks (143-180): every node a hop reaches is
+// looked up in hub_id; at a hub (hid >= 0) the walk ends at one entry of that
+// hub's pool of precomputed endpoints,
 //   cur = pool[hid * P + min(floor(u3_h * P), P - 1)],
 // with u3_h the third word of the hop's Philox block.  The start node never
-// substitutes (the lookup follows a hop).  On a weighted graph the hop is the
-// alias hop: the JAX function hops uniformly there (ROADMAP C14).
+// substitutes (only a hop's landing is looked up).  On a weighted graph the
+// hop is the alias hop: the JAX function hops uniformly there (ROADMAP C14).
 //
-// What bounds it on the H100: latency of the dependent loads per hop
-// (deg[cur], out_indptr[cur], then out_indices[slot]; the alias hop reads
-// alias_prob[slot] and then only the one of out_indices[slot] and
-// alias_other[slot] that it takes; the hub branch reads hub_id[cur] after
-// each hop and one pool entry at a hub), about 1/alpha = 5 hops per walk.
-// Design: millions of independent walks in flight hide that latency; the
-// Philox rounds are a few dozen integer multiplies per hop.  Each branch is
-// a separate instantiation, so weighted graphs and hub lookups cost the
-// plain walk nothing.
+// What bounds it on the H100: each hop's loads (row pointers, then the
+// edge list; the alias tables; hub_id), which every walk issues for itself,
+// against a bound that counts each 32-byte sector once per hop however many
+// walks read it (chip_smoke.py::walk_bound, which prints beside it the time
+// of the walks' own reads, as if no two shared a sector).  Not the Philox
+// rounds: one block a walk and one a hop take a fifth of the time at the
+// rate that philox_probe.cu measures.  Nor idle lanes alone: one walk per
+// thread, run to its own length, left a warp waiting for its longest walk
+// (32 Geometric(0.2) lengths have a largest member of about 17.7 hops
+// against a mean of 4); the queue below keeps the lanes busy, and gains far
+// less than lane use alone would (PERF.md).
+// The design:
+//  * A warp owns a contiguous range of 32 k walks (k walks per lane, from
+//    kernels/schedule.py::walk_plan: 4 where the walks fill the card, 2 or
+//    1 where they would not).  Each lane holds one live walk in registers
+//    (w, cur, h, len); a lane whose walk ends writes the endpoint and takes
+//    the next walk of the range: one __ballot_sync of the lanes that need a
+//    walk, each takes used + popc(mask & lanes below it).  No atomics, no
+//    sync across warps; a warp exits when its range is done and the grid is
+//    not persistent, so finished blocks make room for new ones.
+//  * A lookahead: the range's next 32 walks' starts and lengths (block 0
+//    and a logf each) computed by all 32 lanes at once and handed out by
+//    __shfl_sync, so no step pays for a Philox block and a logf on the few
+//    lanes that refill while the others wait.  A walk of length 0 ends in
+//    the refill.
+//  * The degree is indptr[cur + 1] - indptr[cur], two loads issued together
+//    (out_deg is not read), and the hop's Philox block is computed while
+//    they are in flight.  The hub branch looks up the node a hop reached
+//    right after the hop.  The alias hop reads alias_prob[slot] and then
+//    only the table it picks.
+//  * Endpoints are staged in shared memory, a warp's range of 32 k ints (4
+//    KiB a block at k = 4), and written out coalesced when the range is
+//    done.
+// Each of these beat its alternative on the H100 (PERF.md): endpoints
+// written to out[w] as each walk ends; the alias hop's three loads issued
+// together (one round trip, one more sector); the hub lookup issued with the
+// next hop's row pointers, with one more lookup after the final hop.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-  const uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-  const uint32_t W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    const uint32_t hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
-    const uint32_t hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += W0;
-    k.y += W1;
-  }
-  return c;
+constexpr int kBlockWarps = 8;
+constexpr int kBlockThreads = 32 * kBlockWarps;
+// a block's staged endpoints stay within the 48 KiB of dynamic shared memory
+// that a launch gets without an attribute
+constexpr int kMaxWalksPerLane = 48;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kTwoM24 = 1.0f / 16777216.0f;
+
+struct WalkArgs {
+  const int* start;
+  int* out;
+  const int* indptr;
+  const int* indices;
+  const float* alias_prob;
+  const int* alias_other;
+  const int* hub_id;
+  const int* pool;
+  uint32_t W;      // walks, below 2^32
+  uint32_t range;  // walks a warp owns: 32 * walks per lane
+  int pool_size;
+  uint32_t seed_lo, seed_hi;
+  float inv_log1m_alpha;
+  int max_hops;
+};
+
+__device__ __forceinline__ float unit(uint32_t x) {  // [0, 1)
+  return (float)(x >> 8) * kTwoM24;
+}
+
+// hops of walk w: min(floor(log(u0) / log(1 - alpha)), max_hops), u0 in (0, 1]
+__device__ __forceinline__ int walk_length(const WalkArgs& a, uint32_t w) {
+  const uint4 r0 = philox4x32_10(make_uint4(0u, a.seed_hi, 0u, 0u), make_uint2(a.seed_lo, w));
+  const float u0 = (float)((r0.x >> 8) + 1u) * kTwoM24;
+  return (int)fminf(floorf(logf(u0) * a.inv_log1m_alpha), (float)a.max_hops);
+}
+
+// the pool entry that a walk arriving at hub `hid` ends at
+__device__ __forceinline__ int pool_entry(const WalkArgs& a, int hid, float u3) {
+  const int j = min((int)(u3 * (float)a.pool_size), a.pool_size - 1);
+  return __ldg(a.pool + (long long)hid * a.pool_size + j);
 }
 
 template <bool kAlias, bool kHub>
-__global__ void index_walk_kernel(const int* __restrict__ start, int* __restrict__ out,
-                                  long long W, const int* __restrict__ indptr,
-                                  const int* __restrict__ indices, const int* __restrict__ deg,
-                                  const float* __restrict__ alias_prob,
-                                  const int* __restrict__ alias_other,
-                                  const int* __restrict__ hub_id, const int* __restrict__ pool,
-                                  int pool_size, uint32_t seed_lo, uint32_t seed_hi,
-                                  float inv_log1m_alpha, int max_hops) {
-  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= W) return;
-  const uint2 key = make_uint2(seed_lo, (uint32_t)w);
-  const float two_m24 = 1.0f / 16777216.0f;
-  const uint4 r0 = philox4x32_10(make_uint4(0u, seed_hi, 0u, 0u), key);
-  const float u0 = (float)((r0.x >> 8) + 1u) * two_m24;  // (0, 1]
-  const int len = (int)fminf(floorf(logf(u0) * inv_log1m_alpha), (float)max_hops);
-  int cur = start[w];
-  for (int h = 0; h < len; ++h) {
-    const int d = deg[cur];
-    if (d == 0) break;  // dangling absorbs
-    const uint4 r = philox4x32_10(make_uint4((uint32_t)(h + 1), seed_hi, 0u, 0u), key);
-    const float u = (float)(r.x >> 8) * two_m24;  // [0, 1)
-    const int slot = indptr[cur] + min((int)(u * (float)d), d - 1);
-    if (kAlias) {
-      const float u2 = (float)(r.y >> 8) * two_m24;  // [0, 1)
-      // pick the table first, so that only the chosen entry is loaded
-      const int* table = u2 < alias_prob[slot] ? indices : alias_other;
-      cur = table[slot];
-    } else {
-      cur = indices[slot];
+__global__ void __launch_bounds__(kBlockThreads, 2048 / kBlockThreads)
+    index_walk_kernel(const WalkArgs a) {
+  extern __shared__ int staged_ends[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint64_t lo64 = ((uint64_t)blockIdx.x * kBlockWarps + warp) * a.range;
+  if (lo64 >= a.W) return;  // the last block's spare warps own no walk
+  const uint32_t lo = (uint32_t)lo64;
+  const uint32_t count = a.W - lo < a.range ? a.W - lo : a.range;  // walks it owns
+  int* const ends = staged_ends + warp * a.range;
+  const unsigned below = (1u << lane) - 1u;
+  // the lookahead, the same in every lane: walks lo + batch .. + filled - 1
+  // of the range, `used` of them handed out; lane i holds walk batch + i's
+  // start and length, computed by all 32 lanes at once
+  uint32_t batch = 0, filled = 0, used = 0;
+  int ahead_start = 0, ahead_len = 0;
+  uint32_t w = 0;   // this lane's walk: its number, node, hops taken, length
+  int cur = 0, h = 0, len = 0;
+  bool idle = true; // the lane holds no walk
+
+  for (;;) {
+    // refill: the lanes without a walk take the next ones, in lane order
+    for (;;) {
+      const unsigned need = __ballot_sync(kFull, idle);
+      if (need == 0) break;
+      if (used == filled) {
+        batch += filled;
+        filled = used = 0;
+        if (batch >= count) break;  // the range is handed out
+        filled = min(32u, count - batch);
+        if ((uint32_t)lane < filled) {
+          ahead_start = __ldg(a.start + lo + batch + lane);
+          ahead_len = walk_length(a, lo + batch + lane);
+        }
+      }
+      const uint32_t src = used + __popc(need & below);
+      const int take_start = __shfl_sync(kFull, ahead_start, src & 31);
+      const int take_len = __shfl_sync(kFull, ahead_len, src & 31);
+      if (idle && src < filled) {
+        w = lo + batch + src;
+        cur = take_start;
+        len = take_len;
+        h = 0;
+        if (len > 0)
+          idle = false;
+        else
+          ends[w - lo] = cur;  // no hop: the walk ends where it starts
+      }
+      used = min(filled, used + __popc(need));
     }
-    if (kHub) {
-      const int hid = hub_id[cur];
-      if (hid >= 0) {  // arrival at a hub: one pool draw ends the walk
-        const float u3 = (float)(r.z >> 8) * two_m24;  // [0, 1)
-        const int j = min((int)(u3 * (float)pool_size), pool_size - 1);
-        cur = pool[(long long)hid * pool_size + j];
-        break;
+    if (__all_sync(kFull, idle)) break;
+    if (idle) continue;
+    // one hop of this lane's walk: the degree from the row pointers, two
+    // loads issued together, and the hop's Philox block while they are in
+    // flight
+    const int p0 = __ldg(a.indptr + cur), p1 = __ldg(a.indptr + cur + 1);
+    const uint4 r = philox4x32_10(make_uint4((uint32_t)(h + 1), a.seed_hi, 0u, 0u),
+                                  make_uint2(a.seed_lo, w));
+    bool done = p1 == p0;  // a dangling node absorbs
+    if (!done) {
+      const int d = p1 - p0;
+      const int slot = p0 + min((int)(unit(r.x) * (float)d), d - 1);
+      if (kAlias) {  // pick the table first, then load only its entry
+        const int* table = unit(r.y) < __ldg(a.alias_prob + slot) ? a.indices : a.alias_other;
+        cur = __ldg(table + slot);
+      } else {
+        cur = __ldg(a.indices + slot);
+      }
+      done = ++h == len;
+      if (kHub) {  // look up the node just reached
+        const int hid = __ldg(a.hub_id + cur);
+        if (hid >= 0) {  // arrival at a hub: a pool draw ends the walk
+          cur = pool_entry(a, hid, unit(r.z));
+          done = true;
+        }
       }
     }
+    if (done) {
+      ends[w - lo] = cur;
+      idle = true;
+    }
   }
-  out[w] = cur;
+  __syncwarp();  // the range's endpoints, coalesced
+  for (uint32_t i = lane; i < count; i += 32) a.out[lo + i] = ends[i];
 }
 
 template <bool kAlias, bool kHub>
-void launch_walk(unsigned blocks, cudaStream_t s, const int* start, int* out, long long W,
-                 const int* indptr, const int* indices, const int* deg, const float* alias_prob,
-                 const int* alias_other, const int* hub_id, const int* pool, int pool_size,
-                 uint32_t lo, uint32_t hi, float inv_log1m_alpha, int max_hops) {
-  index_walk_kernel<kAlias, kHub><<<blocks, 256, 0, s>>>(
-      start, out, W, indptr, indices, deg, alias_prob, alias_other, hub_id, pool, pool_size, lo,
-      hi, inv_log1m_alpha, max_hops);
+void launch(const WalkArgs& a, unsigned blocks, cudaStream_t s) {
+  const size_t smem = (size_t)kBlockWarps * a.range * sizeof(int);
+  index_walk_kernel<kAlias, kHub><<<blocks, kBlockThreads, smem, s>>>(a);
 }
 
 }  // namespace
 
 // alias_prob and alias_other are both null (uniform hops) or both set;
 // hub_id and pool are both null (no hub lookup) or both set, pool [H, pool_size].
+// The plan (kernels/schedule.py::walk_plan): `blocks` blocks of 256 threads,
+// each warp owning 32 * walks_per_lane consecutive walks; they must cover W.
 extern "C" int fora_index_walk(const int* start, int* out, long long W, const int* indptr,
-                               const int* indices, const int* deg, const float* alias_prob,
+                               const int* indices, const float* alias_prob,
                                const int* alias_other, const int* hub_id, const int* pool,
                                int pool_size, unsigned long long seed, float inv_log1m_alpha,
-                               int max_hops, void* stream) {
+                               int max_hops, int walks_per_lane, long long blocks,
+                               void* stream) {
   if ((alias_prob == nullptr) != (alias_other == nullptr)) return (int)cudaErrorInvalidValue;
   if ((hub_id == nullptr) != (pool == nullptr)) return (int)cudaErrorInvalidValue;
   if (hub_id != nullptr && pool_size <= 0) return (int)cudaErrorInvalidValue;
+  if (W >= (1ll << 32) || max_hops < 0) return (int)cudaErrorInvalidValue;
+  if (walks_per_lane < 1 || walks_per_lane > kMaxWalksPerLane) return (int)cudaErrorInvalidValue;
   if (W <= 0) return (int)cudaGetLastError();
-  const unsigned blocks = (unsigned)((W + 255) / 256);
+  if (blocks <= 0 || blocks > 0x7fffffffll ||
+      blocks * kBlockWarps * 32 * walks_per_lane < W)
+    return (int)cudaErrorInvalidValue;
+  WalkArgs a;
+  a.start = start;
+  a.out = out;
+  a.indptr = indptr;
+  a.indices = indices;
+  a.alias_prob = alias_prob;
+  a.alias_other = alias_other;
+  a.hub_id = hub_id;
+  a.pool = pool;
+  a.W = (uint32_t)W;
+  a.range = 32u * (uint32_t)walks_per_lane;
+  a.pool_size = pool_size;
+  a.seed_lo = (uint32_t)(seed & 0xffffffffull);
+  a.seed_hi = (uint32_t)(seed >> 32);
+  a.inv_log1m_alpha = inv_log1m_alpha;
+  a.max_hops = max_hops;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const uint32_t lo = (uint32_t)(seed & 0xffffffffull), hi = (uint32_t)(seed >> 32);
+  const unsigned nb = (unsigned)blocks;
   const bool alias = alias_prob != nullptr, hub = hub_id != nullptr;
   if (alias && hub)
-    launch_walk<true, true>(blocks, s, start, out, W, indptr, indices, deg, alias_prob,
-                            alias_other, hub_id, pool, pool_size, lo, hi, inv_log1m_alpha,
-                            max_hops);
+    launch<true, true>(a, nb, s);
   else if (alias)
-    launch_walk<true, false>(blocks, s, start, out, W, indptr, indices, deg, alias_prob,
-                             alias_other, nullptr, nullptr, 0, lo, hi, inv_log1m_alpha, max_hops);
+    launch<true, false>(a, nb, s);
   else if (hub)
-    launch_walk<false, true>(blocks, s, start, out, W, indptr, indices, deg, nullptr, nullptr,
-                             hub_id, pool, pool_size, lo, hi, inv_log1m_alpha, max_hops);
+    launch<false, true>(a, nb, s);
   else
-    launch_walk<false, false>(blocks, s, start, out, W, indptr, indices, deg, nullptr, nullptr,
-                              nullptr, nullptr, 0, lo, hi, inv_log1m_alpha, max_hops);
+    launch<false, false>(a, nb, s);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 """The work list of the destination-row gather (K1, K2): edge-balanced
-tasks built once per CSR from its row degrees.
+tasks built once per CSR from its row degrees; and the walk kernel's (K4)
+plan: walks per lane and the grid (``walk_plan``, at the end).
 
 One warp of ``csrc/gather_scatter.cu`` takes one task.  A row of up to
 ``task_edges`` edges is one task; a longer row is split evenly into
@@ -95,3 +96,69 @@ def gather_schedule(indptr: torch.Tensor,
         split_ptr=split_ptr.to(torch.int32),
         counters=torch.zeros(R, dtype=torch.int32, device=dev),
         n_rows=n, task_edges=int(task_edges))
+
+
+# ---- the walk kernel (K4, csrc/walk.cu) -----------------------------------
+#
+# A warp owns a contiguous range of 32 k walks (k walks per lane); each lane
+# runs one walk at a time and takes the range's next walk when its own ends.
+# A larger k keeps more of a warp's lanes busy until its range is done, and
+# leaves fewer warps.  The kernel is bound by its loads, not by idle lanes.
+# The rule below follows the sweep of chip_smoke.py's phase 3 (K4 from one
+# source and from the index build's starts, every k, 2^14 .. 2^23 walks) on
+# the H100: from the index build's starts k = 4 is the fastest or within 3%
+# of it at 2^21 .. 2^23 walks; at 2^18 walks and fewer every k takes the same
+# few hundredths of a millisecond.  Its measured cost: from one source k = 8
+# beats the rule's k = 4 by 9% at 2^20 walks (0.0823 against 0.0904 ms) and
+# by 2% at 2^23, where k = 4 is 3% faster from the index build's starts.
+
+WALK_BLOCK_WARPS = 8        # warps of a block (256 threads)
+WALK_RESIDENT_WARPS = 64    # warps an SM holds at __launch_bounds__(256, 8)
+WALKS_PER_LANE = 4          # k where the walks fill the card
+WALKS_PER_LANE_MAX = 48     # a block's staged endpoints within 48 KiB
+
+
+class WalkPlan(NamedTuple):
+    walks_per_lane: int     # k
+    warps: int              # warps that own walks: ceil(W / (32 k))
+    blocks: int             # blocks of WALK_BLOCK_WARPS warps
+
+    @property
+    def range_walks(self) -> int:
+        """Walks a warp owns."""
+        return 32 * self.walks_per_lane
+
+    def warp_range(self, warp: int, W: int) -> tuple:
+        """Walks ``lo .. hi - 1`` of warp ``warp`` (block * 8 + warp in
+        its block), as the kernel computes them; empty past the last."""
+        lo = warp * self.range_walks
+        return min(lo, W), min(lo + self.range_walks, W)
+
+
+def walk_grid(W: int, walks_per_lane: int) -> WalkPlan:
+    """The grid of warps that covers ``W`` walks (1 .. 2^32 - 1) at
+    ``walks_per_lane`` (1 .. WALKS_PER_LANE_MAX) walks a lane."""
+    if not 0 < W < 2**32:
+        raise ValueError(f"walk_plan: W = {W} not in 1 .. 2^32 - 1")
+    k = int(walks_per_lane)
+    if not 1 <= k <= WALKS_PER_LANE_MAX:
+        raise ValueError(f"walk_plan: walks_per_lane {k} not in 1 .. "
+                         f"{WALKS_PER_LANE_MAX}")
+    warps = -(-W // (32 * k))
+    return WalkPlan(walks_per_lane=k, warps=warps,
+                    blocks=-(-warps // WALK_BLOCK_WARPS))
+
+
+def walk_plan(W: int, sm_count: int) -> WalkPlan:
+    """K4's plan for ``W`` walks (1 .. 2^32 - 1) on a card of ``sm_count``
+    SMs: the largest k of 1, 2, 4 (WALKS_PER_LANE) whose warps fill at
+    least half of the card's resident warps, else 1, and its grid."""
+    if not 0 < W < 2**32:
+        raise ValueError(f"walk_plan: W = {W} not in 1 .. 2^32 - 1")
+    if sm_count < 1:
+        raise ValueError(f"walk_plan: sm_count = {sm_count}")
+    half = sm_count * WALK_RESIDENT_WARPS // 2
+    k = WALKS_PER_LANE
+    while k > 1 and W < 32 * k * half:
+        k //= 2
+    return walk_grid(W, k)

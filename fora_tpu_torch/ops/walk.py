@@ -6,11 +6,14 @@ Port of ``fora_tpu/ops/walk.py``: ``allocate_walks`` (35-86),
 ``accumulate_endpoints`` (323-328) and ``walk_lane_budget`` (331-345).
 ``walk_endpoints`` takes the place of ``run_walks_scheduled`` +
 ``hop_widths`` (138-222) and dispatches a CUDA tensor to K4
-(``kernels/csrc/walk.cu``), where one thread runs one walk to its own
-length, so the TPU's length sort, static prefix widths and overflow
-fallback are gone.  On a weighted graph both walks take the graph's own
-alias tables, as JAX's do: the hop draws a second uniform and picks
-between the slot's edge and its alias.
+(``kernels/csrc/walk.cu``), where each warp runs a queue of walks that it
+owns, one live walk per lane, so the TPU's length sort, static prefix
+widths and overflow fallback are gone.  On a weighted graph both walks
+take the graph's own alias tables, as JAX's do: the hop draws a second
+uniform and picks between the slot's edge and its alias.
+``run_walks_philox`` is K4 in plain PyTorch: the same Philox-4x32-10
+words, so the same endpoints bit for bit (on a card; the tests and
+``chip_smoke.py`` hold the kernel to it).
 
 Lane allocation is two steps here: the demand (``walk_demand``: omega_v,
 its int32 cumsum and the per-column total) and the expansion of a range of
@@ -21,10 +24,11 @@ free memory, so a query never loses walks: JAX's static lane count drops
 the walks past it and only raises ``overflow``.
 
 Dangling convention: a walk at an out-degree-0 node is absorbed there.
-Random numbers come from a ``torch.Generator`` (plain versions) or the
-kernel's Philox stream; neither replays JAX's threefry bits, so endpoints
-agree with JAX in distribution only.  Streams are keyed by 64-bit seeds
-from ``derive_seed``, one per (call, level, block, chunk).
+Random numbers come from a ``torch.Generator`` (``run_walks``, the CPU
+path) or the kernel's Philox stream (K4, ``run_walks_philox``); neither
+replays JAX's threefry bits, so endpoints agree with JAX in distribution
+only.  Streams are keyed by 64-bit seeds from ``derive_seed``, one per
+(call, level, block, chunk).
 """
 
 from __future__ import annotations
@@ -199,10 +203,110 @@ def walk_endpoints(graph: DeviceGraph, start: torch.Tensor, seed: int,
                          max_hops=max_hops)
     if graph.alias_prob is not None:
         return kernels.index_walk_alias(
-            start, graph.out_indptr, graph.out_indices, graph.out_deg,
-            graph.alias_prob, graph.alias_other, seed, alpha, max_hops)
+            start, graph.out_indptr, graph.out_indices, graph.alias_prob,
+            graph.alias_other, seed, alpha, max_hops)
     return kernels.index_walk(start, graph.out_indptr, graph.out_indices,
-                              graph.out_deg, seed, alpha, max_hops)
+                              seed, alpha, max_hops)
+
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)     # multipliers
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)     # key increments
+
+
+def _mulhilo32(a: int, b):
+    """(hi, lo) 32-bit words of a * b for a 32-bit constant ``a`` and
+    ``b`` (int64 tensor or int) in [0, 2^32): ``b`` is split into 16-bit
+    halves, so no product passes 2^48 and nothing overflows int64."""
+    p_lo = a * (b & 0xFFFF)
+    p_hi = a * (b >> 16)
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _M32
+
+
+def philox4x32_10(ctr, key):
+    """Philox-4x32-10 as ``kernels/csrc/philox.cuh`` computes it, in int64
+    arithmetic: ``ctr`` four words and ``key`` two, each an int64 tensor of
+    32-bit values or an int (they broadcast); returns the four words of
+    the block."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _M32
+        k1 = (k1 + _PHILOX_W[1]) & _M32
+    return c0, c1, c2, c3
+
+
+def _unit(word: torch.Tensor) -> torch.Tensor:
+    """[0, 1) float32 from a word's top 24 bits, as walk.cu's unit()."""
+    return (word >> 8).to(torch.float32) * 2.0**-24
+
+
+def walk_lengths(seed: int, W: int, alpha: float, max_hops: int,
+                 device) -> torch.Tensor:
+    """[W] int64 lengths of K4's walks 0 .. W - 1 under ``seed``:
+    min(floor(log(u0) * inv_log1m_alpha), max_hops) in float32, u0 in
+    (0, 1] from the first word of each walk's Philox block 0."""
+    seed = int(seed) % 2**64
+    walk = torch.arange(W, dtype=torch.int64, device=device)
+    u0 = ((philox4x32_10((0, seed >> 32, 0, 0), (seed & _M32, walk))[0]
+           >> 8) + 1).to(torch.float32) * 2.0**-24
+    inv = torch.tensor(kernels.inv_log1m_alpha(alpha), dtype=torch.float32,
+                       device=device)
+    return torch.floor(torch.log(u0) * inv).clamp_max(max_hops).long()
+
+
+def run_walks_philox(graph: DeviceGraph, start: torch.Tensor, seed: int,
+                     alpha: float, max_hops: int, hub=None) -> torch.Tensor:
+    """K4 in plain PyTorch: one walk per entry of ``start`` (any shape),
+    endpoints int32 of its shape, from the kernel's Philox-4x32-10 words
+    (walk w keyed by (seed low word, w), hop h's block counted (h + 1,
+    seed high word); u0 of block 0 sets the length in float32 with the
+    kernel's ``kernels.inv_log1m_alpha``).  Lockstep over hops, each on
+    the walks still moving.  Alias hops where the graph has tables; with
+    ``hub`` (an ``algo.hubppr.HubIndex``) a hop's landing on a hub ends the
+    walk at the pool entry picked by the hop's third word.  On a card
+    ``torch.log`` is the kernel's ``logf``, so the endpoints are the
+    kernel's bit for bit; this runs for tests and measurements, never on a
+    path."""
+    flat = start.reshape(-1)
+    seed = int(seed) % 2**64
+    lo, hi = seed & _M32, seed >> 32
+    length = walk_lengths(seed, flat.numel(), alpha, max_hops, start.device)
+    indptr = graph.out_indptr.long()
+    alias = graph.alias_prob is not None
+    cur = flat.long().clone()
+    live = torch.nonzero(length > 0).squeeze(1)
+    h = 0
+    while live.numel():
+        c = cur[live]
+        p0 = indptr[c]
+        d = indptr[c + 1] - p0
+        moving = d > 0                          # dangling absorbs
+        live, p0, d = live[moving], p0[moving], d[moving]
+        r = philox4x32_10((h + 1, hi, 0, 0), (lo, live))
+        slot = p0 + torch.minimum((_unit(r[0]) * d.to(torch.float32)).long(),
+                                  d - 1)
+        nxt = graph.out_indices[slot]
+        if alias:
+            nxt = torch.where(_unit(r[1]) < graph.alias_prob[slot], nxt,
+                              graph.alias_other[slot])
+        nxt = nxt.long()
+        h += 1
+        keep = length[live] > h
+        if hub is not None:
+            hid = hub.hub_id[nxt].long()
+            at = hid >= 0
+            j = torch.clamp_max((_unit(r[2][at]) * float(hub.pool_size)
+                                 ).long(), hub.pool_size - 1)
+            nxt[at] = hub.pool[hid[at], j].long()
+            keep &= ~at
+        cur[live] = nxt
+        live = live[keep]
+    return cur.to(torch.int32).view(start.shape)
 
 
 def accumulate_endpoints(endpoints: torch.Tensor, weight: torch.Tensor,

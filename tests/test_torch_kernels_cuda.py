@@ -813,3 +813,152 @@ def test_server_over_cuda_runner(dev):
         assert r["id"] == i
         assert len(set(r["nodes"]) & set(want.node_ids[i].tolist())) >= 9
         np.testing.assert_allclose(r["scores"], want.values[i], rtol=1e-4)
+
+
+def _philox_graph(dev, branch):
+    """The graph (and hub index) of each K4 branch for the bit-equality
+    tests: an RMAT 2^10 with dangling nodes, weighted for the alias
+    branches, with a hub index of 8 hubs for the hub branches."""
+    from fora_tpu_torch.algo import hubppr
+    from fora_tpu_torch.graph import generators as tgen
+    from fora_tpu_torch.graph import to_device
+    g = (_weighted_rmat(10, 8192, seed=7) if "alias" in branch
+         else tgen.rmat(10, 8192, seed=7))
+    assert (np.asarray(g.out_deg) == 0).any()
+    dg = to_device(g, merge_duplicate_edges=True, device=dev)
+    hub = (hubppr.build_hub_index(dg, 3, alpha=0.2, num_hubs=8,
+                                  pool_size=4096)
+           if "hub" in branch else None)
+    return g, dg, hub
+
+
+def _kernel_walks(dg, start, seed, alpha, max_hops, hub, plan=None):
+    """The branch's public wrapper, or with ``plan`` (a forced walks per
+    lane, as chip_smoke.py's sweep runs it) the launch under it."""
+    from fora_tpu_torch import kernels
+    if plan is not None:
+        return kernels._index_walk(
+            start, dg.out_indptr, dg.out_indices, dg.alias_prob,
+            dg.alias_other, seed, alpha, max_hops, "index_walk",
+            hub_id=None if hub is None else hub.hub_id,
+            pool=None if hub is None else hub.pool, plan=plan)
+    if hub is not None:
+        return kernels.index_walk_hub(start, dg.out_indptr, dg.out_indices,
+                                      dg.alias_prob, dg.alias_other,
+                                      hub.hub_id, hub.pool, seed, alpha,
+                                      max_hops)
+    if dg.alias_prob is not None:
+        return kernels.index_walk_alias(start, dg.out_indptr, dg.out_indices,
+                                        dg.alias_prob, dg.alias_other, seed,
+                                        alpha, max_hops)
+    return kernels.index_walk(start, dg.out_indptr, dg.out_indices, seed,
+                              alpha, max_hops)
+
+
+BRANCHES = ["uniform", "alias", "hub", "hub_alias"]
+
+
+@pytest.mark.parametrize("branch", BRANCHES)
+@pytest.mark.parametrize("W,k", [(1, None), (31, None), (33, None),
+                                 (32 * 16, 16), (32 * 16 + 1, 16),
+                                 (32 * 4 + 1, 4), (1 << 20, None)])
+def test_walk_kernel_bit_equal_to_philox_plain(dev, branch, W, k):
+    """K4 (each branch) bit-equal to run_walks_philox at sizes around a
+    lane, a warp's range (32 k walks, the plan's k or a forced one) and a
+    large launch, from random starts over dangling and hub nodes."""
+    from fora_tpu_torch.kernels import schedule
+    from fora_tpu_torch.ops.walk import run_walks_philox
+    g, dg, hub = _philox_graph(dev, branch)
+    rng = np.random.default_rng(W)
+    start = torch.as_tensor(rng.integers(0, g.n, W).astype(np.int32),
+                            device=dev)
+    seed = (0x9E3779B97F4A7C15 * (W + 1)) % 2**64     # both seed words set
+    want = run_walks_philox(dg, start, seed, 0.2, 64, hub=hub)
+    plan = None if k is None else schedule.walk_grid(W, k)
+    got = _kernel_walks(dg, start, seed, 0.2, 64, hub, plan=plan)
+    torch.cuda.synchronize()
+    diff = int((got != want).sum())
+    assert diff == 0, f"{diff} of {W} walks differ"
+
+
+@pytest.mark.parametrize("branch", BRANCHES)
+@pytest.mark.parametrize("max_hops", [0, 1, 3])
+def test_walk_kernel_short_caps_bit_equal(dev, branch, max_hops):
+    """max_hops 0 (every walk ends at its start) and 1 (at most one hop,
+    then a hub branch's one lookup) bit-equal to the plain walk."""
+    from fora_tpu_torch.ops.walk import run_walks_philox
+    g, dg, hub = _philox_graph(dev, branch)
+    start = torch.arange(g.n, dtype=torch.int32, device=dev).repeat(64)
+    got = _kernel_walks(dg, start, 5, 0.2, max_hops, hub)
+    want = run_walks_philox(dg, start, 5, 0.2, max_hops, hub=hub)
+    assert torch.equal(got, want)
+    if max_hops == 0:
+        assert torch.equal(got, start)
+
+
+def test_walk_kernel_dangling_bit_equal(dev):
+    """A star whose leaves are dangling: walks from a leaf never move,
+    walks from the centre end at a leaf or the centre, bit-equal to the
+    plain walk."""
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops.walk import run_walks_philox
+    dg = to_device(generators.star_graph(5), device=dev)
+    start = torch.tensor([0, 3] * 5000, dtype=torch.int32, device=dev)
+    got = _kernel_walks(dg, start, 8, 0.2, 64, None)
+    assert torch.equal(got, run_walks_philox(dg, start, 8, 0.2, 64))
+    assert bool((got[1::2] == 3).all())
+
+
+def test_walk_kernel_hub_on_last_hop_and_hub_start(dev):
+    """K4-hub on a 8-cycle with a poisoned pool at node 1: walks capped at
+    one hop from node 0 reach the hub on their last hop and end at the
+    poison node (the final lookup); walks that start on the hub never
+    substitute there (each ends as many nodes on as its length); all
+    bit-equal to the plain walk."""
+    from fora_tpu_torch.algo.hubppr import HubIndex
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops.walk import run_walks_philox, walk_lengths
+    dg = to_device(generators.cycle_graph(8), device=dev)
+    hub_id = torch.full((8,), -1, dtype=torch.int32, device=dev)
+    hub_id[1] = 0
+    hub = HubIndex(torch.tensor([1], dtype=torch.int32, device=dev), hub_id,
+                   torch.full((1, 16), 5, dtype=torch.int32, device=dev))
+    W = 1 << 16
+    from_0 = torch.zeros(W, dtype=torch.int32, device=dev)
+    last = _kernel_walks(dg, from_0, 2, 0.2, 1, hub)
+    assert torch.equal(last, run_walks_philox(dg, from_0, 2, 0.2, 1, hub=hub))
+    assert set(last.unique().tolist()) == {0, 5}
+    from_hub = torch.ones(W, dtype=torch.int32, device=dev)
+    ends = _kernel_walks(dg, from_hub, 3, 0.2, 7, hub)    # never back at 1
+    assert torch.equal(ends,
+                       run_walks_philox(dg, from_hub, 3, 0.2, 7, hub=hub))
+    lens = walk_lengths(3, W, 0.2, 7, dev)
+    assert torch.equal(ends.long(), (1 + lens) % 8)
+
+
+def test_walk_kernel_refuses_bad_plan(dev):
+    """A plan whose warps do not cover W, or whose walks per lane would
+    stage more than 48 KiB a block, is refused by the C entry (no launch
+    runs)."""
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.kernels import schedule
+    dg = to_device(generators.cycle_graph(8), device=dev)
+    start = torch.zeros(100000, dtype=torch.int32, device=dev)
+    short = schedule.walk_grid(100000, 4)._replace(blocks=1)
+    with pytest.raises(RuntimeError, match="index_walk"):
+        _kernel_walks(dg, start, 1, 0.2, 64, None, plan=short)
+    wide = schedule.WalkPlan(walks_per_lane=schedule.WALKS_PER_LANE_MAX + 1,
+                             warps=1, blocks=1)
+    with pytest.raises(RuntimeError, match="index_walk"):
+        _kernel_walks(dg, start[:1000], 1, 0.2, 64, None, plan=wide)
+
+
+def test_philox_probe_counts_and_refuses(dev):
+    from fora_tpu_torch import kernels
+    out = torch.empty(1024, dtype=torch.int32, device=dev)
+    before = kernels.philox_blocks.launches
+    assert kernels.philox_blocks(out, per_thread=8) == 1024 * 8
+    torch.cuda.synchronize()
+    assert kernels.philox_blocks.launches == before + 1
+    with pytest.raises(RuntimeError, match="philox_blocks"):
+        kernels.philox_blocks(out, per_thread=6)

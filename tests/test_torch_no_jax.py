@@ -148,4 +148,4 @@ def test_cpu_tensors_never_launch_kernels():
     hubppr.hub_walks(dg, torch.zeros(100, dtype=torch.int32), 8, hub,
                      alpha=0.2)
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 11
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 12
