@@ -80,7 +80,35 @@ memory:
   12. P3         the gather probe's first case (fora_tpu_torch.probes.
                  gather_probe, B = 128): P3 against its plain version and
                  K1 on the same edges sorted by destination (rtol 1e-4,
-                 atol 1e-5), and its rate lines
+                 atol 1e-5), and its rate lines; its bound of its function
+                 (E x B x 4 bytes of row reads and of reductions) at the
+                 card's rate of whole 512-byte rows from the L2
+                 (l2_row_rate: kernels.row_reads, the row kernel of
+                 sector_probe.cu, over a 4 MB buffer)
+  15. sharded pool  ShardedTopkRunner with G = 4 shards from make_mesh on
+                 the phase-1 host CSR and the phase-4 index: phase 5's 256
+                 sources as pools of 128 through query_pool(defer_below=64)
+                 and flush_deferred, once per exchange (dense, compact,
+                 routed, hier with chips_per_host=2), each with its wall,
+                 level runs, supersteps and the supersteps compacted
+                 against those that fell back to dense; compact, routed
+                 and hier bit-equal to dense (ids, values, levels,
+                 supersteps); dense against phase 5's single-device pool
+                 (ids equal outside near-ties, values within rtol 1e-4, at
+                 most 1% of the queries answered at another level);
+                 precision@50 of the first 32 against phase 7's oracle
+                 (>= 0.95); the hub split (131,072 rows) against the same
+                 pool without it; the compaction kernel and P3 against
+                 their plain versions on the largest superstep of the
+                 final level that fits the capacity, the compacted
+                 buffers equal to the ring's on every needed row, each
+                 timed beside its bound; a torch.profiler run of the
+                 routed pool (chiprun_out/profile_sharded_pool_routed.txt);
+                 both sharded stores written and read back, the
+                 store-backed routed pool bit-equal to the in-RAM one; and
+                 (run inside phase 13) the weighted graph and index
+                 through the routed pool, precision@50 >= 0.95 against the
+                 weighted oracle
   13. weighted   bench.py's weighted graph (phase 1's edges, weights
                  exp2(U(-2, 2)) from default_rng(SEED + 31)) through the
                  port's from_edges(w=) and to_device (merge, hub split,
@@ -122,7 +150,13 @@ memory:
                  in a subprocess (bench_data/torch_smoke_serve.py), 64
                  sequential requests (latency p50/p95/p99) and 8
                  concurrent clients of 32 (q/s, batches, sheds), every
-                 reply with 50 nodes, no error, precision@50 >= 0.95
+                 reply with 50 nodes, no error, precision@50 >= 0.95;
+                 the sharded forms: shard-graph --graph-shards 4, build
+                 --index-shards 4 (both stores), batch-topk --graph-shards
+                 4 --exchange routed reading both (precision@50 >= 0.95),
+                 and the server again with --graph-shards 2, the same
+                 requests and gates, its answers' overlap with the first
+                 server's printed
   8. proof       every kernel of each path launched in its run (counts
                  reset just before each run, read just after): K1-K4 in
                  phases 4-5 with two K1 gathers per superstep and one K2
@@ -138,9 +172,15 @@ memory:
                  batch-topk and in the server (its launch counts printed
                  at SIGTERM), K1 in fwdpush, the K1-back pre-pass, K1 and
                  K4 in bippr, K4-hub in hubppr and nowhere else, and
-                 neither new kernel before phase 14; and neither JAX nor
-                 the JAX package fora_tpu was imported, by this process or
-                 the server
+                 neither new kernel before phase 14, and the sharded
+                 batch-topk and server on their kernels; in phase 15 per
+                 exchange K2 and K3 once per shard per level run, P2 on
+                 every level run, K1 once per shard per superstep, P1 on
+                 every superstep that took the ring, P3 once per shard per
+                 compacted superstep, the compaction kernel on the
+                 compacted runs and neither it nor P3 on dense or on any
+                 other path; and neither JAX nor the JAX package fora_tpu
+                 was imported, by this process or the servers
 
 It prints one JSON line of per-kernel results (launches, max abs error,
 ms, plain ms, bound ms and what bounds it: each input read and each
@@ -148,8 +188,10 @@ output written once at the card's published memory rate
 (fora_tpu_torch.utils.profiling.HBM_BW), or its f32 operations at 67
 TFLOP/s; for K4 and its alias and hub branches the larger of the
 distinct sectors each hop's walks read and their Philox blocks; library
-ms: one PyTorch call
-computing the same function, or null), then,
+ms: one PyTorch call computing the same function, or null; P3 has two
+rows: row_scatter_add is the gather probe of phase 12 with phase 12's
+launches, row_scatter_add_receive is the receive of one shard on phase
+15's routed superstep with the routed pool's launches), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -198,6 +240,7 @@ RAW_KERNELS = ("push_prepass", "gather_scatter_add", "index_walk",
 WEIGHTED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                     "topk_bounds", "index_walk_alias")
 RAW_QUERIES, RAW_BATCH, RAW_DEFER = 64, 64, 32
+POOL_PAIRS = 5                      # phase 15: warm walls per exchange
 NUM_HUBS = 256                      # the CLI's --num-hubs default
 JAX_POOL = 1 << 15                  # fora_tpu's default_pool_size cap
 BIPPR_SOURCES, BIPPR_TARGETS = 16, 2048
@@ -641,6 +684,9 @@ def level_line(where, st, runner=None) -> str:
     line = (f"  {where} level {st['level']}: pending {st['pending']} width "
             f"{st['width']} batches {st['batches']} accepted "
             f"{st['accepted']} supersteps {st['supersteps']} {st['secs']} s")
+    if "compacted" in st:
+        line += (f"; exchange compacted {st['compacted']}, fell back to "
+                 f"dense {st['fell_back']}")
     if "walks_max" in st:
         from fora_tpu_torch.ops.walk import walk_lane_budget
         rc = runner.rcfg.with_delta(st["delta"])
@@ -655,10 +701,11 @@ def level_line(where, st, runner=None) -> str:
 
 
 def run_queries(runner, sources, log=print, pool=POOL, batch=BATCH,
-                defer=DEFER):
+                defer=DEFER, values=None):
     """bench.py's query phase: pools of ``pool`` through query_pool, then
     flush_deferred.  Returns ({source: top-k ids}, accepted, levels used,
-    wall seconds, every level record)."""
+    wall seconds, every level record); ``values``, a dict, gets each
+    source's top-k values."""
     import torch
     results, n_acc, levels, stats = {}, 0, 0, []
     pools = [sources[i:i + pool] for i in range(0, len(sources), pool)]
@@ -669,6 +716,8 @@ def run_queries(runner, sources, log=print, pool=POOL, batch=BATCH,
         for i, s in enumerate(part):
             if not res.deferred[i]:
                 results[int(s)] = res.node_ids[i]
+                if values is not None:
+                    values[int(s)] = res.values[i]
         n_acc += int(res.accepted.sum())
         levels = max(levels, res.levels_used)
         stats += runner.last_level_stats
@@ -678,6 +727,8 @@ def run_queries(runner, sources, log=print, pool=POOL, batch=BATCH,
     if dres is not None:
         for i, s in enumerate(dsrcs):
             results[int(s)] = dres.node_ids[i]
+            if values is not None:
+                values[int(s)] = dres.values[i]
         n_acc += int(dres.accepted.sum())
         levels = max(levels, dres.levels_used)
         stats += runner.last_level_stats
@@ -816,8 +867,10 @@ def profile_sharded(pairs, g, rcfg, index, sources, dev):
 
     ps, rs = eng.init_state(sources)
     eng.push(ps, rs, max_iters=3)
-    bufs = eng.exchange_buffers(len(sources))
-    eng.prepass(ps, rs, bufs)
+    pl = eng.placement
+    bufs = pl.exchange.buffers(len(sources))
+    pl.prepass(ps, rs, bufs, [sh.thr(eng.index_depth, rcfg.omega_unit)
+                              for sh in pl.shards], rcfg.alpha)
     ring.ring_all_gather(bufs)
     acc = torch.zeros_like(rs[0])
     per = []
@@ -1129,9 +1182,20 @@ def run_p3(dev):
     # the gathered rows), the library call itself
     B, E = res["B"], res["edges"]
     moved = 4 * (gather_probe.H * B + 2 * E + 2 * gather_probe.N_DST * B)
+    old = bound(moved, E * B)
+    # the bound of its function: every edge reads a whole row of the tile
+    # and reduces it into acc, E x B x 4 bytes each, at the rate the card
+    # reads whole rows from its L2 (the tile and acc stay there)
+    rate = l2_row_rate(dev)
+    fn_ms = 2 * E * B * 4 / rate * 1e3
+    print(f"P3 probe: {res['ms']:.4f} ms; bound of its function (E x B x 4 "
+          f"bytes of row reads and as many of reductions at the L2 rate "
+          f"above) {fn_ms:.4f} ms, {fn_ms / res['ms']:.0%} of the time; "
+          f"the tile, acc and indices once at the memory rate "
+          f"{old['bound_ms']:.4f} ms")
     return dict(max_abs_err=res["err_plain"], ms=res["ms"],
                 plain_ms=res["plain_ms"], library_ms=res["plain_ms"],
-                **bound(moved, E * B)), counts
+                fn_bound_ms=fn_ms, **old), counts
 
 
 def weighted_graph(g):
@@ -1148,9 +1212,10 @@ def weighted_graph(g):
 
 
 def run_weighted(g, rcfg, dev):
-    """Phase 13: bench.py's weighted graph end to end.  Returns (kernel row
-    of K4's alias branch, launch counts of the indexed run, of the
-    raw-walk pool and of Monte Carlo)."""
+    """Phase 13: bench.py's weighted graph end to end, with phase 15's
+    weighted sharded pool.  Returns (kernel row of K4's alias branch,
+    launch counts of the indexed run, of the raw-walk pool, of Monte Carlo
+    and of the sharded pool)."""
     import dataclasses
     import logging
     import numpy as np
@@ -1265,7 +1330,7 @@ def run_weighted(g, rcfg, dev):
     print(f"weighted queries: {QUERIES} in {wall:.3f} s -> "
           f"{QUERIES / wall:.2f} q/s; levels used {levels}; accepted "
           f"{n_acc}/{QUERIES}")
-    del runner, index
+    del runner
 
     # the weighted oracle: float64 power iteration with w/W transitions
     ev = sources[:EVAL_N]
@@ -1276,10 +1341,13 @@ def run_weighted(g, rcfg, dev):
           f"against the weighted oracle (limit {MIN_PRECISION})")
     if not prec >= MIN_PRECISION:
         fail(f"weighted precision@{K} {prec:.4f} < {MIN_PRECISION}")
+    # phase 15's weighted run: the same graph and index on shards
+    sharded_counts = run_weighted_sharded(gw, rcfg, index, sources, ex)
+    del index
     raw_counts = run_raw(dgw, rcfg, sources, ex, name="weighted raw")
     mc_counts = run_montecarlo(dgw, rcfg, sources, ex,
                                name="weighted montecarlo")
-    return row, counts, raw_counts, mc_counts
+    return row, counts, raw_counts, mc_counts, sharded_counts
 
 
 def cli_argv(action, *extra) -> list:
@@ -1387,7 +1455,14 @@ def run_cli(g, rcfg, sources, exact_ids, dev):
           f"first {len(ev)} against phase 7's oracle: overlap {same:.4f}")
     if not same >= 0.99:
         fail(f"cli gen-exact-topk disagrees with phase 7's oracle ({same})")
-    run_cli_action("build", cli_argv("build"), counts)
+    run_cli_action("shard-graph", cli_argv(
+        "shard-graph", "--graph-shards", str(SHARDS)), counts)
+    run_cli_action("build", cli_argv("build", "--index-shards", str(SHARDS)),
+                   counts)
+    for d in (ddir / f"graph-shards-G{SHARDS}",
+              CLI_DIR / "index" / CLI_DATASET / f"shards-G{SHARDS}"):
+        if not (d / "meta.json").exists():
+            fail(f"cli: no store at {d}")
     out = CLI_DIR / "batch_topk.jsonl"
     run_cli_action("batch-topk", cli_argv(
         "batch-topk", "--with-idx", "--pool", str(POOL), "--defer",
@@ -1396,6 +1471,24 @@ def run_cli(g, rcfg, sources, exact_ids, dev):
     if len(read_output(out)) != len(sources):
         fail("cli batch-topk: not every query answered")
     output_precision("batch-topk", out, ev, exact_ids)
+    # the sharded pool through the CLI, reading both stores
+    log_path = CLI_DIR / "batch_topk_sharded.log"
+    out = CLI_DIR / "batch_topk_sharded.jsonl"
+    import contextlib
+    import io
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        run_cli_action("batch-topk sharded", cli_argv(
+            "batch-topk", "--with-idx", "--pool", str(POOL), "--defer",
+            str(DEFER), "--batch", str(BATCH), "--graph-shards", str(SHARDS),
+            "--exchange", "routed", "--output", str(out)), counts)
+    log_path.write_text(err.getvalue())
+    for what in ("sharded graph store", "sharded index store"):
+        if what not in err.getvalue():
+            fail(f"cli batch-topk sharded: did not read the {what}")
+    if len(read_output(out)) != len(sources):
+        fail("cli batch-topk sharded: not every query answered")
+    output_precision("batch-topk sharded", out, ev, exact_ids)
 
     # push-only, and HubPPR at the CLI's defaults (gated)
     qio.save_queries(ev, qfile)
@@ -1452,7 +1545,13 @@ def run_cli(g, rcfg, sources, exact_ids, dev):
         fail(f"bippr: {share:.4f} of the pairs above delta miss eps")
     del fn, dg, est, pi
     torch.cuda.empty_cache()
-    counts["serve"] = run_server(sources, exact_ids)
+    counts["serve"], served = run_server(sources, exact_ids)
+    counts["serve sharded"], served_g = run_server(
+        sources, exact_ids, ("--graph-shards", "2"), "serve sharded")
+    same = np.mean([len(set(served[s]) & set(served_g[s])) / K
+                    for s in served])
+    print(f"serve sharded: the same {len(served)} requests; top-{K} "
+          f"overlap with the one-device server's answers {same:.4f}")
     return counts
 
 
@@ -1482,22 +1581,23 @@ sys.exit(cli.main(sys.argv[2:]))
 '''
 
 
-def run_server(sources, exact_ids) -> dict:
+def run_server(sources, exact_ids, extra=(), name="serve"):
     """The CLI's serve action in a subprocess (SERVE_LAUNCHER, on a port the
     system picks): one client's SERVE_SEQ sequential requests after one
     warm-up, then SERVE_CLIENTS concurrent clients of SERVE_PER_CLIENT
     each.  Every reply must carry K nodes, the server count no error, and
-    the first answers reach MIN_PRECISION.  Returns the server's launch
-    counts, printed by the launcher at SIGTERM."""
+    the first answers reach MIN_PRECISION.  ``extra`` adds CLI flags (the
+    sharded server).  Returns the server's launch counts, printed by the
+    launcher at SIGTERM, and {source: answered ids}."""
     import socket
     import threading
     import numpy as np
     from fora_tpu_torch.eval import metrics
     launcher = ROOT / "bench_data" / "torch_smoke_serve.py"
     launcher.write_text(SERVE_LAUNCHER)
-    log = CLI_DIR / "server.log"
+    log = CLI_DIR / f"{name.replace(' ', '_')}.log"
     argv = cli_argv("serve", "--with-idx", "--port", "0", "--batch",
-                    str(SERVE_BATCH))
+                    str(SERVE_BATCH), *extra)
     t0 = time.perf_counter()
     with open(log, "w") as err:
         proc = subprocess.Popen([sys.executable, str(launcher), str(ROOT)]
@@ -1517,11 +1617,11 @@ def run_server(sources, exact_ids) -> dict:
         up.wait(SERVE_START_S)
         ready = [x for x in lines if "serving on" in x]
         if not ready:
-            fail(f"serve: no 'serving on' line in {SERVE_START_S} s (exit "
+            fail(f"{name}: no 'serving on' line in {SERVE_START_S} s (exit "
                  f"{proc.poll()}); {log.name}: "
                  f"{log.read_text()[-2000:]}")
         port = int(ready[0].rsplit(":", 1)[1])
-        print(f"serve: up in {time.perf_counter() - t0:.1f} s on port "
+        print(f"{name}: up in {time.perf_counter() - t0:.1f} s on port "
               f"{port} (--batch {SERVE_BATCH}, inflight 1)")
 
         def connect():
@@ -1543,7 +1643,7 @@ def run_server(sources, exact_ids) -> dict:
             lat.append(time.perf_counter() - t)
         seq = ask(f, {"cmd": "stats"})
         q = np.percentile(np.array(lat) * 1e3, [50, 95, 99])
-        print(f"serve: {SERVE_SEQ} sequential requests after one warm-up: "
+        print(f"{name}: {SERVE_SEQ} sequential requests after one warm-up: "
               f"server latency p50 {seq['latency_ms_p50']} ms, p95 "
               f"{seq['latency_ms_p95']} ms, p99 {seq['latency_ms_p99']} ms "
               f"(its window holds the warm-up too); at the client p50 "
@@ -1577,7 +1677,7 @@ def run_server(sources, exact_ids) -> dict:
         n = SERVE_CLIENTS * SERVE_PER_CLIENT
         batches = end["batches"] - seq["batches"]
         per_batch = (end["queries"] - seq["queries"]) / max(batches, 1)
-        print(f"serve: {SERVE_CLIENTS} concurrent clients x "
+        print(f"{name}: {SERVE_CLIENTS} concurrent clients x "
               f"{SERVE_PER_CLIENT} requests: {len(got)} answered in "
               f"{wall:.3f} s -> {len(got) / wall:.2f} q/s; {batches} "
               f"batches ({per_batch:.2f} queries each); shed {end['shed']}; "
@@ -1586,20 +1686,20 @@ def run_server(sources, exact_ids) -> dict:
               f"{end['latency_ms_p95']} ms, p99 {end['latency_ms_p99']} ms "
               f"over every request served")
         if errs or len(got) != n:
-            fail(f"serve: {len(got)} of {n} concurrent answers; {errs[:3]}")
+            fail(f"{name}: {len(got)} of {n} concurrent answers; {errs[:3]}")
         every = list(replies.values()) + [r for _, r in got]
         if any(len(r.get("nodes", ())) != K for r in every):
             fail("serve: a reply without K nodes")
         if end["errors"] or end["shed"]:
-            fail(f"serve: {end['errors']} errors, {end['shed']} shed")
+            fail(f"{name}: {end['errors']} errors, {end['shed']} shed")
         ev = sources[:len(exact_ids)]
         served = {**dict(got), **replies}
         prec = metrics.batch_precision_at_k(
             np.stack([served[int(s)]["nodes"] for s in ev]), exact_ids)
-        print(f"serve precision@{K}: {prec:.4f} over {len(ev)} served "
+        print(f"{name} precision@{K}: {prec:.4f} over {len(ev)} served "
               f"queries (limit {MIN_PRECISION})")
         if not prec >= MIN_PRECISION:
-            fail(f"serve precision@{K} {prec:.4f} < {MIN_PRECISION}")
+            fail(f"{name} precision@{K} {prec:.4f} < {MIN_PRECISION}")
     finally:
         if proc.poll() is None:
             proc.terminate()
@@ -1612,11 +1712,11 @@ def run_server(sources, exact_ids) -> dict:
     report = {x.split(" ", 1)[0]: json.loads(x.split(" ", 1)[1])
               for x in lines if x.startswith(("LAUNCHES ", "FOREIGN "))}
     if "LAUNCHES" not in report:
-        fail(f"serve: the server died before SIGTERM (exit "
+        fail(f"{name}: the server died before SIGTERM (exit "
              f"{proc.returncode}); {log.name}: {log.read_text()[-2000:]}")
     if report["FOREIGN"]:
         fail(f"the server imported JAX or fora_tpu: {report['FOREIGN'][:5]}")
-    return report["LAUNCHES"]
+    return report["LAUNCHES"], {s: r["nodes"] for s, r in served.items()}
 
 
 def sorted_topk(vals, ids):
@@ -1697,8 +1797,10 @@ def run_sharded(g, rcfg, index, sources, dev, exact_ids):
     # pre-pass writes each shard's own block (NaN elsewhere)
     ps, rs = eng.init_state(sources)
     eng.push(ps, rs, max_iters=3)
-    bufs = [b.fill_(float("nan")) for b in eng.exchange_buffers(B)]
-    eng.prepass(ps, rs, bufs)
+    pl = eng.placement
+    thr = [sh.thr(eng.index_depth, rcfg.omega_unit) for sh in pl.shards]
+    bufs = [b.fill_(float("nan")) for b in pl.exchange.buffers(B)]
+    pl.prepass(ps, rs, bufs, thr, rcfg.alpha)
     bufs_k = ring.ring_all_gather([b.clone() for b in bufs])
     bufs_p = ring.ring_all_gather_plain([b.clone() for b in bufs])
     p1_err = max(float((k - p).abs().max()) for k, p in zip(bufs_k, bufs_p))
@@ -1711,15 +1813,22 @@ def run_sharded(g, rcfg, index, sources, dev, exact_ids):
             fail(f"P1: shard {h} differs from shard 0")
     p1_ms = cuda_ms(lambda: ring.ring_all_gather(bufs_k))
     p1_plain = cuda_ms(lambda: ring.ring_all_gather_plain(bufs_p))
+    # the yardstick: one torch.cat writing every shard's whole buffer from
+    # the G blocks (G x G blocks where the ring copies G x (G - 1))
+    n_loc = eng.n_loc
+    blocks = [bufs_p[h][h * n_loc:(h + 1) * n_loc] for h in range(SHARDS)]
+    p1_lib = cuda_ms(lambda: torch.cat(blocks * SHARDS, dim=0))
+    del blocks
     print(f"P1: bit-equal to plain on a superstep's buffers; {p1_ms:.4f} ms "
           f"vs plain {p1_plain:.4f} ms per all-gather "
-          f"({(SHARDS - 1) * SHARDS} hops)")
+          f"({(SHARDS - 1) * SHARDS} hops); one torch.cat of every "
+          f"buffer {p1_lib:.4f} ms")
     del bufs, bufs_k, bufs_p
 
     # P2 on the real walk phase's partials (a whole push first)
     ps, rs = eng.init_state(sources)
     it_ref = eng.push(ps, rs)
-    xs = eng.walk_partials(rs)
+    xs = pl.walk_partials(rs, eng.index_depth)
     got, want = ring.ring_reduce_scatter(xs), ring.ring_reduce_scatter_plain(xs)
     p2_diff = max(float((k - p).abs().max()) for k, p in zip(got, want))
     for h in range(SHARDS):
@@ -1731,9 +1840,14 @@ def run_sharded(g, rcfg, index, sources, dev, exact_ids):
                        .abs().max()) for h in range(SHARDS))
     p2_ms = cuda_ms(lambda: ring.ring_reduce_scatter(xs))
     p2_plain = cuda_ms(lambda: ring.ring_reduce_scatter_plain(xs))
+    # the yardstick: one torch.sum over the stacked [G, n_pad, B] partials
+    stacked = torch.stack(xs)
+    p2_lib = cuda_ms(lambda: torch.sum(stacked, dim=0))
+    del stacked
     print(f"P2: bit-equal to plain on the walk phase's partials; max abs "
           f"err {p2_err:.3e} against a float64 sum; {p2_ms:.4f} ms vs plain "
-          f"{p2_plain:.4f} ms per reduce-scatter")
+          f"{p2_plain:.4f} ms per reduce-scatter; torch.sum over the stacked "
+          f"partials {p2_lib:.4f} ms")
     del xs, got, want, total
 
     # the single-device indexed level at the same depth, unmerged graph
@@ -1758,18 +1872,350 @@ def run_sharded(g, rcfg, index, sources, dev, exact_ids):
     if not prec >= MIN_PRECISION:
         fail(f"sharded precision@{K} {prec:.4f} < {MIN_PRECISION}")
     # per collective, (G - 1) G hops of one [n_loc, B] block: P1 reads one
-    # block and writes one, P2 reads two and writes one.  The plain
-    # versions are the library calls themselves (copy_ and add, one per
-    # hop), so library_ms is plain_ms.
+    # block and writes one, P2 reads two and writes one
     hops, block = (SHARDS - 1) * SHARDS, eng.n_loc * B * 4
     rows = {"ring_all_gather_hop": dict(
                 max_abs_err=p1_err, ms=p1_ms, plain_ms=p1_plain,
-                library_ms=p1_plain, **bound(2 * hops * block)),
+                library_ms=p1_lib, **bound(2 * hops * block)),
             "ring_reduce_scatter_hop": dict(
                 max_abs_err=p2_diff, ms=p2_ms, plain_ms=p2_plain,
-                library_ms=p2_plain,
+                library_ms=p2_lib,
                 **bound(3 * hops * block, hops * block / 4))}
     return rows, counts, res.push_iters
+
+
+def l2_row_rate(dev) -> float:
+    """Bytes/s at which the card serves scattered whole 512-byte rows (B =
+    128 f32) of a 4 MB buffer, which stays in the L2: the row kernel of
+    kernels/csrc/sector_probe.cu (64 rows a warp, past the L1), the best
+    of 2^18, 2^20 and 2^22 threads, three timings each.  P3's bound of its
+    function takes this rate for its row reads and its reductions."""
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.utils.timing import cuda_ms
+    buf = torch.zeros(8192 * 128, dtype=torch.float32, device=dev)
+    rates = {}
+    for log2 in (18, 20, 22):
+        rows = kernels.row_reads(buf, threads=1 << log2)
+        ms = min(cuda_ms(lambda: kernels.row_reads(buf, threads=1 << log2))
+                 for _ in range(3))
+        rates[log2] = 512 * rows / (ms * 1e-3)
+    print("L2 rate for whole 512-byte rows over a 4 MB buffer: " + ", ".join(
+        f"2^{k} threads {v / 1e12:.3f} TB/s" for k, v in rates.items()))
+    return max(rates.values())
+
+
+SHARDED_MODES = (("dense", {}), ("compact", {}), ("routed", {}),
+                 ("hier", {"chips_per_host": 2}))
+
+
+def pools_agree(name, got_ids, got_vals, want_ids, want_vals, sources,
+                flip_share=0.01):
+    """Two pools' answers: per query, values within rtol 1e-4 and the same
+    ids wherever adjacent values differ by more than 1e-7; a query whose
+    values differ beyond that was accepted at another level (a float-order
+    flip at the acceptance edge, ROADMAP C2) and is counted: at most
+    ``flip_share`` of the queries.  Returns (positions compared, flips)."""
+    import numpy as np
+    flips, compared = [], 0
+    for s in sources:
+        s = int(s)
+        gv, wv = got_vals[s].astype(np.float64), want_vals[s].astype(
+            np.float64)
+        if not np.all(np.abs(gv - wv) <= 1e-4 * np.abs(wv) + 1e-12):
+            flips.append(s)
+            continue
+        apart = np.abs(np.diff(wv)) > 1e-7
+        sep = np.ones(len(wv), bool)
+        sep[:-1] &= apart
+        sep[1:] &= apart
+        if not np.array_equal(got_ids[s][sep], want_ids[s][sep]):
+            fail(f"{name}: query {s}: ids differ outside near-ties")
+        compared += int(sep.sum())
+    print(f"{name}: ids equal at {compared} positions outside near-ties, "
+          f"values within rtol 1e-4; {len(flips)} of {len(sources)} "
+          f"queries answered at another level (limit {flip_share:.0%})"
+          + (f": {flips[:8]}" if flips else ""))
+    if len(flips) > flip_share * len(sources):
+        fail(f"{name}: {len(flips)} queries at another level")
+    return compared, len(flips)
+
+
+def sharded_pool(name, runner, sources):
+    """Phase 5's pools through ``runner`` (counts reset just before, read
+    just after).  Returns (ids, values, levels used, wall, level records,
+    launch counts)."""
+    from fora_tpu_torch import kernels
+    vals = {}
+    quiet = lambda *a: None   # noqa: E731
+    kernels.reset_launch_counts()
+    ids, n_acc, levels, wall, stats = run_queries(runner, sources, quiet,
+                                                  values=vals)
+    counts = kernels.launch_counts()
+    if len(ids) != len(sources):
+        fail(f"{name}: {len(ids)} of {len(sources)} queries answered")
+    steps = sum(st["supersteps"] for st in stats)
+    comp = sum(st["compacted"] for st in stats)
+    back = sum(st["fell_back"] for st in stats)
+    runs = sum(st["batches"] for st in stats)
+    print(f"{name}: {len(sources)} queries in {wall:.3f} s -> "
+          f"{len(sources) / wall:.2f} q/s; levels used {levels}; accepted "
+          f"{n_acc}; {runs} level runs, {steps} supersteps: {comp} "
+          f"compacted, {back} fell back to dense")
+    return ids, vals, levels, wall, stats, counts
+
+
+def compaction_rows(runner, rcfg, sources, dev):
+    """The compaction kernel and P3 against their plain versions on one
+    real superstep's blocks (the first superstep of the first 128
+    sources' final level whose frontier fits the capacity): per shard and
+    destination the same (id, row) pairs and counts, the compacted
+    exchange's buffers equal to the ring's on every row the receiver reads
+    (and zero elsewhere).  Returns the kernel rows of both, timed at that
+    superstep's shapes."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops import exchange as xops
+    from fora_tpu_torch.ops import ring
+    from fora_tpu_torch.ops.gather import row_scatter_add_plain
+    from fora_tpu_torch.utils.timing import cuda_ms
+    pl = runner._groups[0]
+    xch = pl.exchange
+    depth, _, omega = runner._levels[-1]
+    thr = [sh.thr(depth, omega) for sh in pl.shards]
+    G, n_loc, cap, D = xch.G, xch.n_loc, xch.cap, xch.D
+    counts = [torch.zeros(D, dtype=torch.int32, device=dev)
+              for _ in range(G)]
+
+    def next_send(ps, rs):
+        """The next superstep's pre-pass (on a copy of p: it adds to p in
+        place) and send side."""
+        bufs = xch.buffers(BATCH)
+        for b in bufs:
+            b.fill_(float("nan"))
+        ps_next = [p.clone() for p in ps]
+        pl.prepass(ps_next, rs, bufs, thr, rcfg.alpha)
+        xch.send(bufs, counts)
+        return ps_next, bufs, np.stack([c.cpu().numpy() for c in counts])
+
+    # the superstep whose largest count is the largest within the capacity
+    ps, rs = pl.init_state(sources[:BATCH])
+    step, most = -1, 0
+    for i in range(rcfg.max_push_iters):
+        c = next_send(ps, rs)[2]
+        if xch.fits(c) and c.max() > most:
+            step, most = i, int(c.max())
+        if pl.push(ps, rs, thr, rcfg.alpha, 1) == 0:
+            break
+    if step < 0:
+        fail("compaction check: no superstep of the level fit the capacity")
+    ps, rs = pl.init_state(sources[:BATCH])
+    for _ in range(step):
+        pl.push(ps, rs, thr, rcfg.alpha, 1)
+    ps, bufs, cnt = next_send(ps, rs)
+    k_ids = [t.clone() for t in xch.send_ids]
+    k_rows = [t.clone() for t in xch.send_rows]
+    written = 0
+    for h in range(G):
+        block = bufs[h][h * n_loc:(h + 1) * n_loc]
+        ids = torch.empty((D, cap), dtype=torch.int32, device=dev)
+        rows = torch.empty((D, cap, BATCH), device=dev)
+        pc = torch.empty(D, dtype=torch.int32, device=dev)
+        xops.frontier_compact_plain(block, pl.shards[h].needed, cap,
+                                    h * n_loc, xch.n_pad, ids, rows, pc)
+        if not np.array_equal(pc.cpu().numpy(), cnt[h]):
+            fail(f"compaction: shard {h} counts {cnt[h]} != plain "
+                 f"{pc.cpu().numpy()}")
+        for d in range(D):
+            n = min(int(cnt[h, d]), cap)
+            written += n
+            kid = k_ids[h][d, :n].long()
+            order = torch.argsort(kid)
+            if not (torch.equal(kid[order], ids[d, :n].long())
+                    and torch.equal(k_rows[h][d, :n][order], rows[d, :n])
+                    and bool((k_ids[h][d, n:] == xch.n_pad).all())):
+                fail(f"compaction: shard {h} destination {d} differs from "
+                     f"plain")
+    dense = [b.clone() for b in bufs]
+    ring.ring_all_gather(dense)
+    xch.exchange(bufs, cnt)
+    for t in range(G):
+        need = torch.cat([pl.shards[s].needed[xch._region(t)].bool()
+                          if pl.shards[s].needed is not None else
+                          torch.ones(n_loc, dtype=torch.bool, device=dev)
+                          for s in range(G)])
+        if not (torch.equal(bufs[t][need], dense[t][need])
+                and bool((bufs[t][~need] == 0).all())):
+            fail(f"P3 receive: shard {t}'s buffer differs from the ring's")
+    print(f"compaction ({xch.mode}, cap {cap}): bit-equal to plain on "
+          f"superstep {step + 1} of the final level ({int(cnt.sum())} rows "
+          f"due over {G} x {D} pairs, largest {int(cnt.max())}); the "
+          f"compacted buffers equal the ring's on every needed row")
+    # timings at that superstep, shard 0's launch
+    block0 = bufs[0][:n_loc]
+    pl.prepass(ps, rs, bufs, thr, rcfg.alpha)
+    args = (block0, pl.shards[0].needed, cap, 0, xch.n_pad, xch.send_ids[0],
+            xch.send_rows[0], counts[0])
+    sent0 = int(np.minimum(cnt[0], cap).sum())
+    comp = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: kernels.frontier_compact(*args)),
+        plain_ms=cuda_ms(lambda: xops.frontier_compact_plain(*args)),
+        library_ms=None,   # no one PyTorch call compacts rows
+        # the block and the masks read once, the rows sent and every id
+        # slot written once
+        **bound(nbytes(block0, pl.shards[0].needed)
+                + sent0 * BATCH * 4 + D * cap * 4 + D * 4))
+    src = xch.slot_src[dev]
+    acc = torch.zeros_like(bufs[0])
+    tile, dst = xch.recv_rows[0], xch.recv_ids[0]
+    real = dst < xch.n_pad
+    real_rows = int(real.sum())
+    tile_real, dst_real = tile[real], dst[real].long()
+    p3 = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.row_scatter_add(acc, tile, src, dst)),
+        plain_ms=cuda_ms(lambda: row_scatter_add_plain(acc, tile, src, dst)),
+        library_ms=cuda_ms(lambda: acc.index_add_(0, dst_real, tile_real)),
+        # the real rows read, their acc rows read and written, the slot
+        # ids and sources read once
+        **bound(3 * real_rows * BATCH * 4 + 2 * dst.numel() * 4))
+    print(f"compaction kernel (shard 0, [{n_loc}, {BATCH}], {D} "
+          f"destinations, {sent0} rows sent): {comp['ms']:.4f} ms, plain "
+          f"{comp['plain_ms']:.4f} ms, bound {comp['bound_ms']:.4f} ms; P3 "
+          f"receive (shard 0, {dst.numel()} slots, {real_rows} real): "
+          f"{p3['ms']:.4f} ms, plain {p3['plain_ms']:.4f} ms, index_add_ "
+          f"over the real rows {p3['library_ms']:.4f} ms, bound "
+          f"{p3['bound_ms']:.4f} ms")
+    del ps, rs, dense, acc, tile_real
+    return comp, p3
+
+
+def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
+    """Phase 15: the sharded refinement pool with SHARDS shards on the
+    mesh's devices, once per exchange, phase 5's pools.  ``single`` is
+    phase 5's (ids, values).  Returns (kernel rows of the compaction and
+    P3, launch counts per run, level records per run)."""
+    import shutil
+    import numpy as np
+    import torch
+    from fora_tpu_torch import index as tidx
+    from fora_tpu_torch.eval import metrics
+    from fora_tpu_torch.parallel import (ShardedGraphStore, ShardedTopkRunner,
+                                         make_mesh, save_sharded_graph)
+    mesh = make_mesh(SHARDS)
+    print(f"sharded pool: devices {[str(d) for d in mesh]}")
+
+    def runner(graph, idx, **kw):
+        t0 = time.perf_counter()
+        r = ShardedTopkRunner(graph, mesh, rcfg, idx, k=K,
+                              delta_stride=DSTRIDE, accept_slack=ACCEPT,
+                              **kw)
+        torch.cuda.synchronize()
+        print(f"  placement {kw or ''}: {time.perf_counter() - t0:.2f} s")
+        return r
+
+    out, launches, stats, runs = {}, {}, {}, {}
+    for mode, kw in SHARDED_MODES:
+        runs[mode] = runner(g, index, exchange=mode, **kw)
+        res = sharded_pool(f"sharded pool {mode}", runs[mode], sources)
+        out[mode] = res
+        launches[mode], stats[mode] = res[5], res[4]
+    # warm walls, the exchanges alternated; one profiled pool of dense and
+    # of routed (the idle share that the host's loop over the shards and
+    # its one status read per superstep leave)
+    quiet = lambda *a: None   # noqa: E731
+    alternate(POOL_PAIRS, {f"sharded pool {mode}": (
+        lambda r=r: timed(lambda: run_queries(r, sources, quiet)))
+        for mode, r in runs.items()}, f"{len(sources)} queries")
+    for mode in ("dense", "routed"):
+        profile_once(f"sharded_pool_{mode}",
+                     lambda r=runs[mode]: run_queries(r, sources, quiet),
+                     need_trace=False)
+    comp, p3 = compaction_rows(runs["routed"], rcfg, sources, dev)
+    del runs
+    torch.cuda.empty_cache()
+    ids0, vals0, lev0 = out["dense"][:3]
+    for mode, _ in SHARDED_MODES[1:]:
+        ids, vals, lev = out[mode][:3]
+        same = all(np.array_equal(ids[s], ids0[s])
+                   and np.array_equal(vals[s].view(np.uint32),
+                                      vals0[s].view(np.uint32))
+                   for s in ids0)
+        if not (same and lev == lev0 and ids.keys() == ids0.keys()):
+            fail(f"sharded pool {mode}: not bit-equal to dense")
+        if not sum(st["compacted"] for st in stats[mode]):
+            fail(f"sharded pool {mode}: no superstep was compacted")
+        if [st["supersteps"] for st in stats[mode]] != \
+                [st["supersteps"] for st in stats["dense"]]:
+            fail(f"sharded pool {mode}: supersteps differ from dense")
+    print("sharded pool: compact, routed and hier bit-equal to dense (ids, "
+          "values, levels used, supersteps of every level)")
+    pools_agree("sharded pool dense vs phase 5's single-device pool", ids0,
+                vals0, single[0], single[1], sources)
+    ev = sources[:len(exact_ids)]
+    prec = metrics.batch_precision_at_k(np.stack([ids0[int(s)] for s in ev]),
+                                        exact_ids)
+    print(f"sharded pool precision@{K}: {prec:.4f} over {len(ev)} queries "
+          f"(limit {MIN_PRECISION})")
+    if not prec >= MIN_PRECISION:
+        fail(f"sharded pool precision@{K} {prec:.4f} < {MIN_PRECISION}")
+
+    # the hub split on shards, against the same run without it
+    run = runner(g, index, hub_rows=HUB_ROWS)
+    hub = sharded_pool("sharded pool dense, hub split", run, sources)
+    launches["hub"] = hub[5]
+    pools_agree("sharded hub split vs without", hub[0], hub[1], ids0, vals0,
+                sources)
+    del run
+    # store-backed: both stores written, then read through mmap
+    sdir = ROOT / "bench_data" / "torch_smoke_stores"
+    shutil.rmtree(sdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    save_sharded_graph(g, str(sdir), SHARDS)
+    tidx.save_sharded(index, rcfg, str(sdir / "index"), SHARDS, graph=g)
+    save_s = time.perf_counter() - t0
+    run = runner(ShardedGraphStore(str(sdir), SHARDS),
+                 tidx.ShardedIndexStore(str(sdir / "index"), SHARDS, rcfg),
+                 exchange="routed")
+    st = sharded_pool("sharded pool routed from the stores", run, sources)
+    ids, vals, lev = out["routed"][:3]
+    if not (st[2] == lev and all(
+            np.array_equal(st[0][s], ids[s])
+            and np.array_equal(st[1][s].view(np.uint32),
+                               vals[s].view(np.uint32)) for s in ids)):
+        fail("sharded pool from the stores: not bit-equal to the in-RAM run")
+    print(f"sharded stores: written in {save_s:.1f} s; the store-backed "
+          f"pool bit-equal to the in-RAM one")
+    del run
+    shutil.rmtree(sdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return comp, p3, launches, stats
+
+
+def run_weighted_sharded(gw, rcfg, index, sources, exact_ids):
+    """Phase 15 on phase 13's weighted graph and index: the sharded pool
+    (routed) at precision@50 >= MIN_PRECISION against the weighted
+    oracle.  Returns its launch counts."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch.eval import metrics
+    from fora_tpu_torch.parallel import ShardedTopkRunner, make_mesh
+    run = ShardedTopkRunner(gw, make_mesh(SHARDS), rcfg, index, k=K,
+                            delta_stride=DSTRIDE, accept_slack=ACCEPT,
+                            exchange="routed")
+    ids, _, _, _, _, counts = sharded_pool("weighted sharded pool routed",
+                                           run, sources)
+    ev = sources[:len(exact_ids)]
+    prec = metrics.batch_precision_at_k(np.stack([ids[int(s)] for s in ev]),
+                                        exact_ids)
+    print(f"weighted sharded pool precision@{K}: {prec:.4f} over {len(ev)} "
+          f"queries against the weighted oracle (limit {MIN_PRECISION})")
+    if not prec >= MIN_PRECISION:
+        fail(f"weighted sharded precision@{K} {prec:.4f} < {MIN_PRECISION}")
+    del run
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main(argv=None) -> int:
@@ -2040,7 +2486,9 @@ def main(argv=None) -> int:
     with Phase("queries"):
         runner = TopkRunner(dg, rcfg, k=K, index=index, delta_stride=DSTRIDE,
                             accept_slack=ACCEPT)
-        results, n_acc, levels, elapsed, stats = run_queries(runner, sources)
+        single_vals = {}
+        results, n_acc, levels, elapsed, stats = run_queries(
+            runner, sources, values=single_vals)
         if len(results) != QUERIES:
             fail(f"{len(results)} of {QUERIES} queries answered")
         print(f"queries: {QUERIES} in {elapsed:.3f} s -> "
@@ -2227,12 +2675,19 @@ def main(argv=None) -> int:
     with Phase("P3"):
         rows["row_scatter_add"], p3_launches = run_p3(dev)
 
+    # ---- 15. the sharded refinement pool -----------------------------------
+    with Phase("sharded pool"):
+        (rows["frontier_compact"], rows["row_scatter_add_receive"],
+         pool_launches,
+         pool_stats) = run_sharded_pool(g, rcfg, index, sources, dev,
+                                        ex[:EVAL_N], (results, single_vals))
+
     # ---- 13. weighted graphs ---------------------------------------------
     del dg, dg_flat, index, runner, staged, results, x, lvl, inv, sched
     torch.cuda.empty_cache()
     with Phase("weighted"):
         (rows["index_walk_alias"], w_launches, w_raw_launches,
-         w_mc_launches) = run_weighted(g, rcfg, dev)
+         w_mc_launches, w_pool_launches) = run_weighted(g, rcfg, dev)
 
     # ---- 14. the CLI and the server ----------------------------------------
     torch.cuda.empty_cache()
@@ -2290,14 +2745,61 @@ def main(argv=None) -> int:
         fail("a weighted path launched K4's uniform branch")
     if any(c["index_walk_alias"] for c in (launches, sharded_launches,
                                            raw_launches, mc_launches,
-                                           p3_launches)):
+                                           p3_launches,
+                                           *pool_launches.values())):
         fail("K4's alias branch was launched on an unweighted path")
+    # phase 15: per exchange, K1-K3 and P2 on every level run (K2 and K3
+    # once per shard, P2 (G - 1) G hops), P1 on the supersteps that took
+    # the ring, the compaction and P3 on the compacted runs only (P3 once
+    # per shard per compacted superstep)
+    hops = (SHARDS - 1) * SHARDS
+    for mode, c in list(pool_launches.items()) + [("weighted routed",
+                                                   w_pool_launches)]:
+        print(f"launches in phase 15 ({mode}): {c}")
+        for name in SHARDED_KERNELS[:4] + ("ring_reduce_scatter_hop",):
+            if c[name] <= 0:
+                fail(f"kernel {name} was not launched by the sharded pool "
+                     f"({mode})")
+    for mode, c in pool_launches.items():
+        st = pool_stats.get(mode)
+        if st is None:
+            continue
+        runs = sum(x["batches"] for x in st)
+        steps = sum(x["supersteps"] for x in st)
+        comp = sum(x["compacted"] for x in st)
+        back = sum(x["fell_back"] for x in st)
+        ring_steps = steps if mode == "dense" else back
+        want = {"topk_bounds": SHARDS * runs, "index_spmv": SHARDS * runs,
+                "ring_reduce_scatter_hop": hops * runs,
+                "ring_all_gather_hop": hops * ring_steps,
+                "gather_scatter_add": SHARDS * steps,
+                "row_scatter_add": SHARDS * comp}
+        for name, n in want.items():
+            if c[name] != n:
+                fail(f"phase 15 {mode}: {c[name]} launches of {name}, "
+                     f"expected {n} ({runs} level runs, {steps} supersteps, "
+                     f"{comp} compacted)")
+        if (mode == "dense") != (c["frontier_compact"] == 0):
+            fail(f"phase 15 {mode}: {c['frontier_compact']} compactions")
+        print(f"phase 15 {mode}: K3 and K2 once per shard per level run "
+              f"({runs}), P1 on the {ring_steps} supersteps that took the "
+              f"ring, P3 on the {comp} compacted ones"
+              + (" (no superstep fell back, so P1 did not run)"
+                 if mode != "dense" and not back else ""))
+    if any(c["frontier_compact"] or c["row_scatter_add"]
+           for c in (launches, sharded_launches, raw_launches, mc_launches)):
+        fail("the compaction or P3 ran on a path without a compacted "
+             "exchange")
     # phase 14: each CLI action and the server ran its kernels; BiPPR's
     # pre-pass and K4-hub ran on no path before it, K4-hub only in hubppr
     for name, c in cli_launches.items():
         print(f"launches in phase 14 ({name}): {c}")
     need = {"build": ("index_walk",),
             "batch-topk": MAIN_KERNELS[:4], "serve": MAIN_KERNELS[:4],
+            "batch-topk sharded": MAIN_KERNELS[:4] + (
+                "ring_reduce_scatter_hop", "frontier_compact"),
+            "serve sharded": MAIN_KERNELS[:4] + (
+                "ring_all_gather_hop", "ring_reduce_scatter_hop"),
             "fwdpush": ("push_prepass", "gather_scatter_add"),
             "hubppr": ("index_walk", "index_walk_hub"),
             "bippr": ("backward_prepass", "gather_scatter_add",
@@ -2307,13 +2809,13 @@ def main(argv=None) -> int:
             if cli_launches[action][name] <= 0:
                 fail(f"kernel {name} was not launched by the CLI's {action}")
     earlier = (launches, sharded_launches, raw_launches, mc_launches,
-               p3_launches, w_launches, w_raw_launches, w_mc_launches)
+               p3_launches, w_launches, w_raw_launches, w_mc_launches,
+               w_pool_launches, *pool_launches.values())
     if any(c["index_walk_hub"] or c["backward_prepass"] for c in earlier):
         fail("K4-hub or the K1-back pre-pass ran on a path before phase 14")
     if any(c["index_walk_hub"] for a, c in cli_launches.items()
            if a != "hubppr"):
         fail("K4-hub was launched outside HubPPR")
-    hops = (SHARDS - 1) * SHARDS
     if sharded_launches["ring_all_gather_hop"] != hops * sh_iters:
         fail(f"P1: {sharded_launches['ring_all_gather_hop']} launches, "
              f"expected {hops} per superstep x {sh_iters}")
@@ -2341,12 +2843,21 @@ def main(argv=None) -> int:
         "ring_reduce_scatter_hop": ("ring.cu", "fora_tpu/ops/ring.py:32"),
         "row_scatter_add": ("row_scatter.cu",
                             "scripts/pallas_gather_probe.py:43"),
+        # P3 again, as the routed exchange's receive (JAX's
+        # ``full.at[recv_ids].add`` there)
+        "row_scatter_add_receive": ("row_scatter.cu",
+                                    "fora_tpu/parallel/sharded.py:204"),
+        "frontier_compact": ("exchange.cu",
+                             "fora_tpu/parallel/sharded.py:177"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
         row = rows[name]
         n = (launches[name] if name in MAIN_KERNELS else
              p3_launches[name] if name == "row_scatter_add" else
+             pool_launches["routed"]["row_scatter_add"]
+             if name == "row_scatter_add_receive" else
+             pool_launches["routed"][name] if name == "frontier_compact" else
              w_launches[name] if name == "index_walk_alias" else
              cli_launches["bippr"][name] if name == "backward_prepass" else
              cli_launches["hubppr"][name] if name == "index_walk_hub" else

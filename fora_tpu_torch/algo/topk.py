@@ -14,7 +14,11 @@ block) draws from its own ``derive_seed`` stream; indexed mode ignores
 them, as JAX's does.
 
 Pool state lives as a list of contiguous [n, width] (p, r) column blocks
-on the graph's device; a level step advances a block in place.
+on the graph's device; a level step advances a block in place.  Every
+operation on a block's columns goes through four hooks (``_new_block``,
+``_select_cols``, ``_concat_cols``, ``_split_cols``), so that a subclass
+can hold a block otherwise: ``parallel.ShardedTopkRunner`` keeps one
+[n_loc, cols] pair per shard device.
 """
 
 from __future__ import annotations
@@ -99,7 +103,9 @@ class TopkRunner:
         self._t = bounds_mod.union_bound_t(rcfg.n, len(self.deltas),
                                            rcfg.pfail)
         self._index = index
-        self._staged = (None if index is None else
+        # a subclass without a DeviceGraph (the sharded runner) runs its
+        # own level step
+        self._staged = (None if index is None or graph is None else
                         StagedForaPrograms(graph, rcfg, index))
         self.auto_start_level = 0
         self._pools_since_probe = 0
@@ -125,6 +131,34 @@ class TopkRunner:
         r = torch.zeros_like(p)
         r[sources.long(), torch.arange(C, device=dev)] = 1.0
         return p, r
+
+    # --- block state hooks ----------------------------------------------
+
+    def _new_block(self, sources: np.ndarray):
+        """(p, r) of a block of sources (host ids), one-hot."""
+        return self._init_pool_state(torch.as_tensor(
+            np.asarray(sources), dtype=torch.int32, device=self.graph.device))
+
+    @staticmethod
+    def _select_cols(p, r, sel: np.ndarray):
+        """The columns ``sel`` of a (p, r) state, as one state."""
+        s = torch.as_tensor(np.asarray(sel), device=p.device)
+        return p.index_select(1, s), r.index_select(1, s)
+
+    @staticmethod
+    def _concat_cols(pairs: list):
+        """(p, r) states side by side, as one state."""
+        return (_cat_cols([p for p, _ in pairs]),
+                _cat_cols([r for _, r in pairs]))
+
+    @staticmethod
+    def _split_cols(p, r, width: int) -> list:
+        """A state cut into blocks of ``width`` contiguous columns."""
+        if p.shape[1] == width:
+            return [(p, r)]
+        return [(p[:, lo: lo + width].contiguous(),
+                 r[:, lo: lo + width].contiguous())
+                for lo in range(0, p.shape[1], width)]
 
     def _call_seed(self, key: Optional[int]) -> int:
         """The seed of one call: ``key``, else the next of the runner's."""
@@ -179,9 +213,7 @@ class TopkRunner:
         """Whole-batch refinement: every query advances levels together
         until all accept."""
         call = self._call_seed(key)
-        dev = self.graph.device
-        src = torch.as_tensor(np.asarray(sources), dtype=torch.int32,
-                              device=dev)
+        src = np.asarray(sources)
         B, k, eps = src.shape[0], self.k, self.rcfg.epsilon
         best_vals = np.zeros((B, k), np.float32)
         best_idx = np.zeros((B, k), np.int32)
@@ -189,7 +221,7 @@ class TopkRunner:
         best_ub = np.full((B, k), np.inf, np.float32)
         accepted = np.zeros(B, bool)
         levels = 0
-        p, r = self._init_pool_state(src)
+        p, r = self._new_block(src)
         for level, d in enumerate(self.deltas):
             levels = level + 1
             ckey, rmax, omega_unit = self._levels[level]
@@ -230,7 +262,6 @@ class TopkRunner:
         milliseconds of push, alloc, walks, accum and accept.
         """
         call = self._call_seed(key)
-        dev = self.graph.device
         sources = np.asarray(sources)
         n_q = len(sources)
         self.last_level_stats = []
@@ -254,21 +285,16 @@ class TopkRunner:
         pad0 = (-n_q) % width
         if _state is None:
             cols = np.concatenate([pending, np.zeros(pad0, np.int64)])
-            blocks = [self._init_pool_state(torch.as_tensor(
-                sources[cols[lo: lo + width]], dtype=torch.int32,
-                device=dev)) for lo in range(0, len(cols), width)]
+            blocks = [self._new_block(sources[cols[lo: lo + width]])
+                      for lo in range(0, len(cols), width)]
         else:
             # pad by repeating the last column; padding columns are
             # skipped at acceptance time
-            p_all, r_all = _state
             idx = np.concatenate([np.arange(n_q),
                                   np.full(pad0, n_q - 1, np.int64)])
-            blocks = []
-            for lo in range(0, len(idx), width):
-                sel = torch.as_tensor(idx[lo: lo + width], device=dev)
-                blocks.append((p_all.index_select(1, sel),
-                               r_all.index_select(1, sel)))
-            del p_all, r_all, _state
+            blocks = self._split_cols(*self._select_cols(*_state, idx),
+                                      width)
+            del _state
 
         start = self.auto_start_level
         if start_level is None and start > 0 \
@@ -371,13 +397,13 @@ class TopkRunner:
         all_srcs, parts = [], []
         for li, (start, gs) in enumerate(sorted(by_level.items())):
             srcs = np.concatenate([g["sources"] for g in gs])
-            p = _cat_cols([g["p"] for g in gs])
-            r = _cat_cols([g["r"] for g in gs])
+            state = self._concat_cols([(g["p"], g["r"]) for g in gs])
             for g in gs:
                 g.clear()   # release stashed buffers
             parts.append(self.query_pool(srcs, derive_seed(call, li),
                                          batch=batch, start_level=start,
-                                         _state=(p, r)))
+                                         _state=state))
+            del state
             all_srcs.append(srcs)
         if len(parts) == 1:
             return all_srcs[0], parts[0]
@@ -393,39 +419,27 @@ class TopkRunner:
 
     # --- pool state reshaping ----------------------------------------
 
-    @staticmethod
-    def _extract_cols(blocks, width, keep):
-        """The pool columns at positions ``keep`` as one [n, len(keep)]
-        (p, r) pair."""
-        pieces_p, pieces_r = [], []
+    def _extract_cols(self, blocks, width, keep):
+        """The pool columns at positions ``keep`` as one (p, r) state."""
+        pieces = []
         for bi, (pc, rc) in enumerate(blocks):
             sel = keep[(keep >= bi * width) & (keep < (bi + 1) * width)]
             if len(sel):
-                s = torch.as_tensor(sel - bi * width, device=pc.device)
-                pieces_p.append(pc.index_select(1, s))
-                pieces_r.append(rc.index_select(1, s))
-        return _cat_cols(pieces_p), _cat_cols(pieces_r)
+                pieces.append(self._select_cols(pc, rc, sel - bi * width))
+        return self._concat_cols(pieces)
 
-    @staticmethod
-    def _reblock(blocks, width, take, new_width):
+    def _reblock(self, blocks, width, take, new_width):
         """Regroup the surviving columns ``take`` (old layout positions,
-        padded to a multiple of new_width) into contiguous [n, new_width]
-        blocks; old blocks are released as their columns are taken."""
-        pieces_p, pieces_r = [], []
+        padded to a multiple of new_width) into blocks of new_width
+        columns; old blocks are released as their columns are taken."""
+        pieces = []
         for bi in range(len(blocks)):
             pc, rc = blocks[bi]
             sel = take[(take >= bi * width) & (take < (bi + 1) * width)]
             if len(sel):
-                s = torch.as_tensor(sel - bi * width, device=pc.device)
-                pieces_p.append(pc.index_select(1, s))
-                pieces_r.append(rc.index_select(1, s))
+                pieces.append(self._select_cols(pc, rc, sel - bi * width))
             blocks[bi] = None
-        p_all, r_all = _cat_cols(pieces_p), _cat_cols(pieces_r)
-        if p_all.shape[1] == new_width:
-            return [(p_all, r_all)]
-        return [(p_all[:, lo: lo + new_width].contiguous(),
-                 r_all[:, lo: lo + new_width].contiguous())
-                for lo in range(0, p_all.shape[1], new_width)]
+        return self._split_cols(*self._concat_cols(pieces), new_width)
 
     def _update_start_level(self, n_total: int) -> None:
         """Next pool's start level: the first level whose acceptances

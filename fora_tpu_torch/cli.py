@@ -29,10 +29,18 @@ The engine runs on ``--device`` (default ``cuda``) and refuses to start
 where CUDA is absent unless ``--device cpu`` is given.  The TPU-only flags
 of the JAX CLI (--bf16-gather, --gather-chunk, --push-pair,
 --stepped-push, --narrow-r, --jax-cache) and its build checkpoints are not
-carried.  The row-sharded forms (``shard-graph``, ``build
---index-shards``, ``--graph-shards`` > 1, and any of ``--shard-counts``,
-``--query-shards``, ``--exchange`` and ``--chips-per-host``) exit 2 until
-the port's sharded runner and stores exist (ROADMAP Queue 1 item 6).
+carried.
+
+Row-sharded forms, as the JAX CLI's: ``shard-graph`` writes the sharded
+graph store (``--shard-counts`` or ``--graph-shards``), ``build
+--index-shards`` the sharded index store and the graph store beside it,
+and ``batch-topk``/``serve`` with ``--graph-shards`` > 1 run the sharded
+refinement pool (``parallel.ShardedTopkRunner``) over ``--graph-shards``
+shards and ``--query-shards`` query groups on the card (every shard on it
+where there is one card; on the CPU with ``--device cpu``), reading both
+stores where they exist, with ``--exchange`` and ``--chips-per-host``.
+The sharded pool needs ``--with-idx``: the sharded raw walk is not ported
+(ROADMAP Queue 1 item 4), nor the ``ragged`` exchange (ROADMAP C5).
 """
 
 from __future__ import annotations
@@ -50,14 +58,11 @@ from .config import ForaConfig
 from .eval import metrics, queries as query_io
 from .graph import io as graph_io
 from .graph import to_device
+from .ops.exchange import MODES as EXCHANGE_MODES
 from .ops.walk import derive_seed
 from .utils.logging import RunLog, info
 from .utils.profiling import fence
 from .utils.timers import Timers
-
-SHARDED_MISSING = ("the port has no sharded runner or sharded stores yet "
-                   "(ROADMAP Queue 1 item 6)")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="fora_tpu_torch",
@@ -68,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
                                       "serve", "sweep", "shard-graph"])
     p.add_argument("--shard-counts", default=None,
                    help="shard-graph: comma list of graph-shard counts "
-                        "(refused: " + SHARDED_MISSING + ")")
+                        "(default: --graph-shards)")
     p.add_argument("--port", type=int, default=8471, help="serve action port")
     p.add_argument("--sweep-eps", default="0.1,0.2,0.35,0.5",
                    help="epsilon grid for the sweep action")
@@ -99,8 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--index-dir", default=None,
                    help="default <prefix>/index/<dataset>")
     p.add_argument("--index-shards", default=None,
-                   help="build: row-sharded stores (refused: "
-                        + SHARDED_MISSING + ")")
+                   help="build: also write the row-sharded index and graph "
+                        "stores for these graph-shard counts (comma list)")
     p.add_argument("--delta-stride", type=float, default=4.0,
                    help="top-k refinement delta divisor per level")
     p.add_argument("--accept-slack", type=float, default=1.0,
@@ -122,17 +127,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "into a compact-operand gather (0 disables)")
     p.add_argument("--graph-shards", type=int, default=1,
                    help="row-shard the graph (+ index) over this many "
-                        "devices; > 1 is refused: " + SHARDED_MISSING)
+                        "shards; batch-topk and serve then run the sharded "
+                        "refinement pool (requires --with-idx)")
     p.add_argument("--query-shards", type=int, default=None,
-                   help="devices on the mesh 'query' axis (refused: "
-                        + SHARDED_MISSING + ")")
+                   help="query groups of the sharded pool, each holding "
+                        "--graph-shards shards; a batch's columns split "
+                        "over them (default 1)")
     p.add_argument("--exchange", default=None,
-                   choices=["dense", "compact", "routed", "ragged", "hier"],
-                   help="frontier exchange mode of the sharded push "
-                        "(refused: " + SHARDED_MISSING + ")")
+                   choices=EXCHANGE_MODES,
+                   help="frontier exchange of the sharded push (default "
+                        "dense; hier needs --chips-per-host; ragged is "
+                        "refused, ROADMAP C5)")
     p.add_argument("--chips-per-host", type=int, default=None,
-                   help="exchange=hier: devices per host (refused: "
-                        + SHARDED_MISSING + ")")
+                   help="exchange=hier: shards per host of the two-stage "
+                        "exchange")
     p.add_argument("--output", default=None,
                    help="write per-query results (JSONL: source, ids, vals)")
     p.add_argument("--device", default="cuda",
@@ -172,26 +180,31 @@ def _load(args, dev):
     return g
 
 
-def _refuse_sharded(args) -> None:
-    if args.action == "shard-graph":
-        raise ValueError("shard-graph: " + SHARDED_MISSING)
-    if args.index_shards:
-        raise ValueError("--index-shards: " + SHARDED_MISSING)
-    if args.graph_shards > 1:
-        raise ValueError(f"--graph-shards {args.graph_shards}: "
-                         + SHARDED_MISSING)
-    for flag in ("shard_counts", "query_shards", "exchange",
-                 "chips_per_host"):
-        if getattr(args, flag) is not None:
-            raise ValueError(f"--{flag.replace('_', '-')}: "
-                             + SHARDED_MISSING)
-
-
-def _make_topk_runner(args, dg, rcfg, idx):
+def _make_topk_runner(args, g, dg, rcfg, idx, dev):
+    """TopkRunner on one device, or ShardedTopkRunner (--graph-shards > 1:
+    rows and index sharded over the shard devices) per the CLI flags; ``g``
+    is the host graph or its ShardedGraphStore."""
     from .algo.topk import TopkRunner
-    return TopkRunner(dg, rcfg, k=args.k, index=idx,
-                      delta_stride=args.delta_stride,
-                      accept_slack=args.accept_slack)
+    if args.graph_shards <= 1:
+        return TopkRunner(dg, rcfg, k=args.k, index=idx,
+                          delta_stride=args.delta_stride,
+                          accept_slack=args.accept_slack)
+    from .parallel import ShardedTopkRunner, make_mesh
+    if idx is None:
+        raise ValueError("--graph-shards > 1 requires --with-idx: the "
+                         "sharded raw walk is not ported (ROADMAP Queue 1 "
+                         "item 4)")
+    G, Q = args.graph_shards, args.query_shards or 1
+    mesh = make_mesh(G, Q, devices=None if dev.type == "cuda"
+                     else [dev] * (G * Q))
+    if args.batch % Q:
+        raise ValueError(f"--batch {args.batch} must divide by the "
+                         f"query-axis size {Q}")
+    info("sharded mesh", graph=G, query=Q, exchange=args.exchange or "dense")
+    return ShardedTopkRunner(
+        g, mesh, rcfg, idx, k=args.k, delta_stride=args.delta_stride,
+        accept_slack=args.accept_slack, exchange=args.exchange,
+        chips_per_host=args.chips_per_host)
 
 
 def _write_output(path: str, results: dict) -> None:
@@ -227,19 +240,31 @@ def _bippr_targets(args, g) -> np.ndarray:
 def main(argv=None) -> int:
     try:
         return _main(argv)
-    except (ValueError, FileNotFoundError) as e:
+    except (ValueError, FileNotFoundError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
 
 
 def _main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_sharded(args)
     dev = _device(args)
     log = RunLog(args.runlog)
     timers = Timers()
 
-    g = _load(args, dev)
+    # sharded batch-topk/serve read the shard-aware graph store where one
+    # exists: no global CSR is loaded and no partition pass runs
+    g_store = None
+    if args.graph_shards > 1 and args.action in ("batch-topk", "serve"):
+        from .parallel.graph_store import ShardedGraphStore
+        try:
+            g_store = ShardedGraphStore(
+                str(Path(args.prefix) / args.dataset), args.graph_shards)
+            info("sharded graph store", dir=str(g_store.dir),
+                 per_shard_mb=round(g_store.bytes_per_shard() / 1e6, 1))
+        except FileNotFoundError:
+            info("no sharded graph store; loading the graph (persist one "
+                 "with the shard-graph action)")
+    g = _load(args, dev) if g_store is None else None
     if args.action == "generate-ss-query":
         src = query_io.generate_sources(g, args.query_size, seed=args.seed)
         query_io.save_queries(src, str(_query_file(args)))
@@ -248,7 +273,8 @@ def _main(argv=None) -> int:
 
     cfg = ForaConfig(alpha=args.alpha, epsilon=args.epsilon, delta=args.delta,
                      pfail=args.pfail, k=args.k)
-    rcfg = cfg.resolved(g.n, g.m)
+    rcfg = cfg.resolved(*((g.n, g.m) if g is not None
+                          else (g_store.n, g_store.m)))
     info("config", rmax=f"{rcfg.rmax:.3g}", omega_unit=f"{rcfg.omega_unit:.3g}",
          delta=f"{rcfg.delta:.3g}")
 
@@ -267,7 +293,26 @@ def _main(argv=None) -> int:
         print(timers.report(), file=sys.stderr)
         return 0
 
-    dg = to_device(g, hub_rows=args.hub_rows, device=dev)
+    if args.action == "shard-graph":
+        from .parallel.graph_store import save_sharded_graph
+        counts = [int(x) for x in
+                  (args.shard_counts or str(args.graph_shards)).split(",")]
+        for c in counts:
+            if c < 2:
+                raise ValueError(f"shard count {c} must be >= 2 "
+                                 "(pass --shard-counts or --graph-shards)")
+            with timers.phase(f"shard-graph-{c}"):
+                d = save_sharded_graph(
+                    g, str(Path(args.prefix) / args.dataset), c)
+            info("sharded graph store written", dir=str(d), shards=c)
+        print(timers.report(), file=sys.stderr)
+        return 0
+
+    sharded = args.graph_shards > 1
+    if sharded and args.action not in ("batch-topk", "serve"):
+        raise ValueError("--graph-shards applies to batch-topk and serve")
+    # a sharded run places rows per shard and never the whole graph
+    dg = None if sharded else to_device(g, hub_rows=args.hub_rows, device=dev)
 
     if args.action == "build":
         from . import index as widx
@@ -278,6 +323,17 @@ def _main(argv=None) -> int:
              bytes=sum(np.asarray(a).nbytes for a in (
                  idx.edge_src, idx.edge_dst, idx.counts_cum, idx.edge_mult)
                  if a is not None))
+        if args.index_shards:
+            from .parallel.graph_store import save_sharded_graph
+            for gshards in [int(x) for x in args.index_shards.split(",")]:
+                d = widx.save_sharded(idx, rcfg, _index_dir(args), gshards,
+                                      graph=g)
+                info("sharded store written", dir=str(d), shards=gshards)
+                # the sharded index is read with the sharded graph store
+                dgs = save_sharded_graph(
+                    g, str(Path(args.prefix) / args.dataset), gshards)
+                info("sharded graph store written", dir=str(dgs),
+                     shards=gshards)
         print(timers.report(), file=sys.stderr)
         return 0
 
@@ -332,13 +388,33 @@ def _main(argv=None) -> int:
     idx, graph_sha = None, None
     if args.with_idx:
         from . import index as widx
-        graph_sha = widx.graph_fingerprint(g)
-        idx = widx.load(_index_dir(args), rcfg, graph=g)
-        info("index loaded", dir=_index_dir(args))
+        graph_sha = (widx.graph_fingerprint(g) if g is not None
+                     else g_store.graph_sha)
+        if sharded:
+            # the shard-aware index store where one exists: no global edge
+            # array is loaded
+            try:
+                idx = widx.ShardedIndexStore(_index_dir(args),
+                                             args.graph_shards, rcfg, graph=g)
+                if g is None and graph_sha is not None \
+                        and idx.meta.get("graph_sha") is not None \
+                        and idx.meta["graph_sha"] != graph_sha:
+                    raise ValueError(
+                        "sharded index was built for a different graph "
+                        "(fingerprint mismatch against the graph store)")
+                info("sharded index store", dir=str(idx.dir),
+                     per_shard_mb=round(idx.bytes_per_shard() / 1e6, 1))
+            except FileNotFoundError:
+                info("no sharded index store; loading the index (build "
+                     "with --index-shards to persist shards)")
+        if idx is None:
+            idx = widx.load(_index_dir(args), rcfg, graph=g)
+            info("index loaded", dir=_index_dir(args))
 
     if args.action == "serve":
         from .serve import serve_forever
-        runner = _make_topk_runner(args, dg, rcfg, idx)
+        runner = _make_topk_runner(
+            args, g_store if g_store is not None else g, dg, rcfg, idx, dev)
         if idx is not None and runner.load_level_stats(
                 _level_stats_path(args), graph_sha):
             info("start level from persisted stats",
@@ -409,7 +485,8 @@ def _main(argv=None) -> int:
     elif args.action == "batch-topk":
         # level-pipelined pool scheduling: accepted queries exit early,
         # stragglers re-batch at deeper delta levels
-        runner = _make_topk_runner(args, dg, rcfg, idx)
+        runner = _make_topk_runner(
+            args, g_store if g_store is not None else g, dg, rcfg, idx, dev)
         if idx is not None and args.start_level is None and \
                 runner.load_level_stats(_level_stats_path(args), graph_sha):
             info("start level from persisted stats",
@@ -438,7 +515,7 @@ def _main(argv=None) -> int:
             except OSError:
                 pass  # read-only index dir
     else:  # topk
-        runner = _make_topk_runner(args, dg, rcfg, idx)
+        runner = _make_topk_runner(args, g, dg, rcfg, idx, dev)
         for chunk, valid in _batched(sources, args.batch):
             res = timers.timed("topk", runner.query, chunk,
                                derive_seed(args.seed, int(chunk[0])))

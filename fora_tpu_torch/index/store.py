@@ -1,11 +1,13 @@
 """Walk-index (de)serialization, format v2, byte-compatible with
 ``fora_tpu.index.store``: each package reads the other's index.
 
-Port of ``fora_tpu/index/store.py`` (30-131), whose module imports
-``jax.numpy``.  Layout: ``edge_src.npy``, ``edge_dst.npy``,
+Port of ``fora_tpu/index/store.py`` (30-131, 149-249), whose module
+imports ``jax.numpy``.  Layout: ``edge_src.npy``, ``edge_dst.npy``,
 ``counts_cum.npy``, ``edge_mult.npy`` and ``meta.json`` (config, bucket
 offsets, optional graph content hash).  ``load`` also builds each
-bucket's CSR by endpoint (``WalkIndex.dst_indptr``).
+bucket's CSR by endpoint (``WalkIndex.dst_indptr``).  ``save_sharded``
+and ``ShardedIndexStore`` keep the row-sharded layout of the sharded
+engine (``shards-G<G>/``), also in the JAX package's format.
 """
 
 from __future__ import annotations
@@ -120,3 +122,110 @@ def load(path: str, rcfg: Optional[ResolvedConfig] = None,
 
 def load_meta(path: str) -> dict:
     return json.loads((Path(path) / "meta.json").read_text())
+
+
+# The row-sharded store (``fora_tpu/index/store.py:149-249``): the index as
+# ``parallel.partition.partition_index`` lays it out, one flat .npy per
+# (shard, array) under ``<path>/shards-G<G>/``, so each shard's arrays load
+# through mmap without any global edge array.
+
+SHARDED_FORMAT_VERSION = 1
+
+
+def _sharded_dir(path, n_shards: int) -> Path:
+    return Path(path) / f"shards-G{n_shards}"
+
+
+def save_sharded(index: WalkIndex, rcfg: ResolvedConfig, path: str,
+                 n_shards: int, *, row_multiple: int = 8,
+                 graph=None) -> Path:
+    """Write the ``n_shards``-way layout of ``index`` (a WalkIndex of
+    either package) under ``<path>/shards-G<G>/``; ``row_multiple`` must
+    match ``partition_rows``' (default 8).  Returns that directory."""
+    import math
+
+    from ..parallel.partition import partition_index
+    n_loc = math.ceil(rcfg.n / n_shards)
+    n_loc = -(-n_loc // row_multiple) * row_multiple
+    pi = partition_index(index, n_shards, n_loc)
+    d = _sharded_dir(path, n_shards)
+    d.mkdir(parents=True, exist_ok=True)
+    e = pi.e_loc_total
+    for s in range(n_shards):
+        np.save(d / f"shard_{s:04d}.src.npy",
+                pi.edge_src_local[s * e:(s + 1) * e])
+        np.save(d / f"shard_{s:04d}.dst.npy",
+                pi.edge_dst[s * e:(s + 1) * e])
+        np.save(d / f"shard_{s:04d}.cc.npy",
+                pi.counts_cum[s * n_loc:(s + 1) * n_loc])
+        if pi.edge_mult is not None:
+            np.save(d / f"shard_{s:04d}.mult.npy",
+                    pi.edge_mult[s * e:(s + 1) * e])
+    meta = {
+        "sharded_format_version": SHARDED_FORMAT_VERSION,
+        "n_shards": n_shards, "n_loc": n_loc, "e_loc_total": e,
+        "row_multiple": row_multiple,
+        "bucket_local_offsets": [int(x) for x in pi.bucket_local_offsets],
+        "has_mult": pi.edge_mult is not None,
+        "n": rcfg.n, "m": rcfg.m, "alpha": rcfg.alpha,
+        "rmax": index.rmax_built, "omega_unit": index.omega_unit_built,
+        "bucket_offsets": [int(x) for x in index.bucket_offsets],
+        "format_version": FORMAT_VERSION,
+    }
+    if graph is not None:
+        meta["graph_sha"] = graph_fingerprint(graph)
+    (d / "meta.json").write_text(json.dumps(meta, indent=1))
+    return d
+
+
+class ShardedIndexStore:
+    """A per-shard index on disk.  It answers what the refinement runner
+    asks of a WalkIndex (``omega_unit_built``, ``rmax_built``,
+    ``bucket_offsets``, ``depth_for``) without loading an edge array, and
+    serves each shard's arrays as mmap views."""
+
+    def __init__(self, path: str, n_shards: int,
+                 rcfg: Optional[ResolvedConfig] = None, graph=None):
+        self.dir = _sharded_dir(path, n_shards)
+        mf = self.dir / "meta.json"
+        if not mf.exists():
+            raise FileNotFoundError(
+                f"no {n_shards}-way sharded index at {self.dir}; build one "
+                f"with store.save_sharded(index, rcfg, path, {n_shards})")
+        self.meta = json.loads(mf.read_text())
+        if self.meta["sharded_format_version"] != SHARDED_FORMAT_VERSION:
+            raise ValueError("sharded index format "
+                             f"{self.meta['sharded_format_version']} != "
+                             f"{SHARDED_FORMAT_VERSION}; rebuild")
+        if rcfg is not None:
+            check_compatible(self.meta, rcfg, graph=graph)
+        self.n_shards = n_shards
+        self.n_loc = int(self.meta["n_loc"])
+        self.e_loc_total = int(self.meta["e_loc_total"])
+        self.has_mult = bool(self.meta["has_mult"])
+        self.bucket_local_offsets = np.asarray(
+            self.meta["bucket_local_offsets"], dtype=np.int64)
+        self.bucket_offsets = np.asarray(self.meta["bucket_offsets"],
+                                         dtype=np.int64)
+        self.omega_unit_built = float(self.meta["omega_unit"])
+        self.rmax_built = float(self.meta["rmax"])
+
+    depth_for = WalkIndex.depth_for
+
+    def shard(self, s: int) -> dict:
+        """mmap views of shard ``s``'s arrays: edge_src_local, edge_dst,
+        counts_cum and, where the index has it, edge_mult."""
+        p = self.dir / f"shard_{s:04d}"
+        out = {
+            "edge_src_local": np.load(f"{p}.src.npy", mmap_mode="r"),
+            "edge_dst": np.load(f"{p}.dst.npy", mmap_mode="r"),
+            "counts_cum": np.load(f"{p}.cc.npy", mmap_mode="r"),
+        }
+        if self.has_mult:
+            out["edge_mult"] = np.load(f"{p}.mult.npy", mmap_mode="r")
+        return out
+
+    def bytes_per_shard(self, s: int = 0) -> int:
+        return sum((self.dir / f"shard_{s:04d}{ext}").stat().st_size
+                   for ext in (".src.npy", ".dst.npy", ".cc.npy")
+                   + ((".mult.npy",) if self.has_mult else ()))

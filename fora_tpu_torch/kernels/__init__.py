@@ -20,8 +20,10 @@ PyTorch versions instead.
 | index_walk_hub          | csrc/walk.cu           | K4-hub (HubPPR's query walks, uniform or alias hops) |
 | ring_all_gather_hop     | csrc/ring.cu           | P1 (one hop of one shard) |
 | ring_reduce_scatter_hop | csrc/ring.cu           | P2 (one hop of one shard) |
-| row_scatter_add         | csrc/row_scatter.cu    | P3 (per-edge row accumulate, atomics) |
+| row_scatter_add         | csrc/row_scatter.cu    | P3 (per-edge row accumulate, atomics; the receive of the compacted exchanges) |
+| frontier_compact        | csrc/exchange.cu       | the frontier compaction (the send side of the compact, routed and hier exchanges) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
+| row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
 | philox_blocks           | csrc/philox_probe.cu   | none: measures the card's rate of Philox-4x32-10 blocks (K4's operations) |
 
 ``csrc/alias.cu`` and ``csrc/graph_io.cu`` hold no kernel: they are the
@@ -50,7 +52,8 @@ from . import build, schedule, select
 __all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
            "index_spmv", "topk_bounds", "topk_bounds_stats", "index_walk",
            "index_walk_alias", "index_walk_hub", "ring_all_gather_hop",
-           "ring_reduce_scatter_hop", "row_scatter_add", "sector_reads",
+           "ring_reduce_scatter_hop", "row_scatter_add", "frontier_compact",
+           "sector_reads", "row_reads",
            "philox_blocks", "inv_log1m_alpha", "sm_count",
            "enable_peer_access",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]
@@ -439,7 +442,9 @@ def row_scatter_add(acc: torch.Tensor, tile: torch.Tensor, src: torch.Tensor,
                     dst: torch.Tensor) -> torch.Tensor:
     """P3: for every edge e, ``acc[dst[e]] += tile[src[e]]`` (rows of
     width B, f32 atomics, so the order of the adds varies from run to
-    run); indices must lie in range.  Updates ``acc`` in place."""
+    run); an edge whose ``dst`` lies outside acc's rows is skipped (a pad
+    slot of the compacted exchanges), and ``src`` must lie in range.
+    Updates ``acc`` in place."""
     B = acc.shape[1] if acc.dim() == 2 else -1
     dev = acc.device
     _check("acc", acc, torch.float32)
@@ -452,10 +457,54 @@ def row_scatter_add(acc: torch.Tensor, tile: torch.Tensor, src: torch.Tensor,
     _check("dst", dst, torch.int32, (E,), dev)
     with torch.cuda.device(dev):
         err = build.library().fora_row_scatter_add(
-            _ptr(acc), _ptr(tile), _ptr(src), _ptr(dst), E, B, _stream(acc))
+            _ptr(acc), _ptr(tile), _ptr(src), _ptr(dst), E, acc.shape[0], B,
+            _stream(acc))
     row_scatter_add.launches += 1
     _raise_on(err, "row_scatter_add")
     return acc
+
+
+def frontier_compact(contrib: torch.Tensor, needed: Optional[torch.Tensor],
+                     cap: int, row0: int, pad_id: int, ids: torch.Tensor,
+                     rows: torch.Tensor, counts: torch.Tensor) -> None:
+    """The frontier compaction: for every row i of ``contrib`` [n_loc, B]
+    with a non-zero entry and every destination d with ``needed[d, i]``
+    (``needed`` [D, n_loc] uint8, or None for one destination that takes
+    every such row), a slot of ``ids[d]`` ([cap] int32) gets ``row0 + i``
+    and the same slot of ``rows[d]`` ([cap, B] f32) the row; ``counts[d]``
+    (int32) ends as the rows due to d, past ``cap`` included, and unused
+    slots of ``ids`` hold ``pad_id``.  The slot order varies from run to
+    run.  ``ids`` [D, >= cap] and ``rows`` [D, >= cap, B] may be views
+    whose destinations lie apart (their rows must be contiguous)."""
+    n_loc, B = contrib.shape
+    dev = contrib.device
+    _check("contrib", contrib, torch.float32, (n_loc, B))
+    D = 1 if needed is None else needed.shape[0]
+    if needed is not None:
+        _check("needed", needed, torch.uint8, (D, n_loc), dev)
+    if not 1 <= D <= 32:
+        raise ValueError(f"frontier_compact: {D} destinations, at most 32")
+    for name, t, dtype, tail in (("ids", ids, torch.int32, ()),
+                                 ("rows", rows, torch.float32, (B,))):
+        if not isinstance(t, torch.Tensor) or t.device != dev \
+                or t.dtype != dtype:
+            raise ValueError(f"frontier_compact: {name} must be {dtype} on "
+                             f"{dev}")
+        if t.dim() != 2 + len(tail) or t.shape[0] != D \
+                or t.shape[1] < cap or tuple(t.shape[2:]) != tail \
+                or t[0].stride() != t[0].contiguous().stride() \
+                or t.stride(0) < t[0].numel():
+            raise ValueError(f"frontier_compact: {name} of shape "
+                             f"{tuple(t.shape)} cannot hold [{D}, {cap}"
+                             f"{', ' + str(B) if tail else ''}]")
+    _check("counts", counts, torch.int32, (D,), dev)
+    with torch.cuda.device(dev):
+        err = build.library().fora_frontier_compact(
+            _ptr(contrib), n_loc, B, _ptr(needed), D, cap, row0, pad_id,
+            _ptr(ids), ids.stride(0), _ptr(rows), rows.stride(0),
+            _ptr(counts), sm_count(dev), _stream(contrib))
+    frontier_compact.launches += 1
+    _raise_on(err, "frontier_compact")
 
 
 def sector_reads(buf: torch.Tensor, reads: int = 64,
@@ -476,6 +525,28 @@ def sector_reads(buf: torch.Tensor, reads: int = 64,
             _stream(buf))
     _raise_on(err, "sector_reads")
     return blocks * 256 * reads
+
+
+def row_reads(buf: torch.Tensor, reads: int = 64, threads: int = 1 << 20,
+              seed: int = 0) -> int:
+    """The row kernel of csrc/sector_probe.cu: ``threads`` threads (whole
+    blocks of 256, 8 warps) whose warps each read ``reads`` (a multiple of
+    8) scattered 512-byte rows of the f32 buffer ``buf`` (a multiple of 128
+    floats) past the L1, one float4 a lane.  Returns the rows read; time
+    the call to get the card's rate for such reads over a buffer of this
+    size.  No kernel of the port's paths; no launch count."""
+    _check("buf", buf, torch.float32)
+    if buf.numel() % 128:
+        raise ValueError("row_reads: the buffer must hold whole 128-float "
+                         "rows")
+    blocks = -(-threads // 256)
+    out = torch.empty(blocks * 256, dtype=torch.float32, device=buf.device)
+    with torch.cuda.device(buf.device):
+        err = build.library().fora_row_reads(
+            _ptr(buf), buf.numel() // 128, reads, blocks, _ptr(out),
+            seed % 2**32, _stream(buf))
+    _raise_on(err, "row_reads")
+    return blocks * 8 * reads
 
 
 def philox_blocks(out: torch.Tensor, per_thread: int = 256) -> int:
@@ -515,7 +586,7 @@ def enable_peer_access(reader: torch.device, owner: torch.device) -> None:
 WRAPPERS = (push_prepass, backward_prepass, gather_scatter_add, index_spmv,
             topk_bounds, index_walk, index_walk_alias, index_walk_hub,
             ring_all_gather_hop, ring_reduce_scatter_hop, row_scatter_add,
-            philox_blocks)
+            frontier_compact, philox_blocks)
 for _w in WRAPPERS:
     _w.launches = 0
 topk_bounds.last_state = None

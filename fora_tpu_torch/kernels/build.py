@@ -52,9 +52,12 @@ SIGNATURES = {
     "fora_parse_edges": [ctypes.c_char_p, _I, _P, _P, _P, _LL],
     "fora_ring_copy": [_P, _P, _LL, _P],
     "fora_ring_add": [_P, _P, _P, _LL, _P],
-    "fora_row_scatter_add": [_P, _P, _P, _P, _LL, _I, _P],
+    "fora_row_scatter_add": [_P, _P, _P, _P, _LL, _LL, _I, _P],
+    "fora_frontier_compact": [_P, _LL, _I, _P, _I, _I, _LL, _I, _P, _LL, _P,
+                              _LL, _P, _I, _P],
     "fora_enable_peer_access": [_I, _I],
     "fora_sector_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],
+    "fora_row_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],
     "fora_philox_blocks": [_P, _I, _I, ctypes.c_uint, _P],
 }
 

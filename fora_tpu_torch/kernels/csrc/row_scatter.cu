@@ -1,6 +1,7 @@
 // P3 · row_scatter_add: per-edge row accumulate over an unsorted edge list.
 //
 //   for every edge e:  acc[dst[e], :] += tile[src[e], :]        (f32, B wide)
+//   (an edge whose dst lies outside acc's rows is skipped: a pad slot)
 //
 // Replaces the Pallas kernel scripts/pallas_gather_probe.py::kernel (43-56),
 // the TPU probe that asks whether an accumulate over a tile and an
@@ -25,6 +26,13 @@
 // width or address is not a multiple of 4 floats take scalar atomicAdds.
 // The TPU's scalar prefetch and 2048-edge chunking have no counterpart:
 // each group reads its own two indices.
+// On the sharded push this is the receive of the compact, routed and hier
+// exchanges (fora_tpu/parallel/sharded.py:144-146, 165-167, 203-205:
+// full.at[ids].add(rows) into a zeroed buffer).  JAX sends the pad id n_pad
+// for every unused slot and adds all of them into one spare row; here a pad
+// fails the dst < rows test and costs no atomic, so every real id, unique
+// in a receive, adds its row to 0.0 once and the buffer equals the dense
+// exchange's rows bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,14 +41,15 @@ namespace {
 template <bool VEC4>
 __global__ void row_scatter_add_kernel(float* __restrict__ acc, const float* __restrict__ tile,
                                        const int* __restrict__ src, const int* __restrict__ dst,
-                                       long long E, int B, int group_log2) {
+                                       long long E, long long rows, int B, int group_log2) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long e = t >> group_log2;
   if (e >= E) return;
   const int group = 1 << group_log2;
   const int lane = (int)(t & (group - 1));
-  const long long s = src[e];
   const long long d = dst[e];
+  if (d < 0 || d >= rows) return;   // a pad slot
+  const long long s = src[e];
   float* out = acc + d * B;
   if (VEC4) {
     const float4* row = reinterpret_cast<const float4*>(tile + s * B);
@@ -58,7 +67,8 @@ __global__ void row_scatter_add_kernel(float* __restrict__ acc, const float* __r
 }  // namespace
 
 extern "C" int fora_row_scatter_add(float* acc, const float* tile, const int* src,
-                                    const int* dst, long long E, int B, void* stream) {
+                                    const int* dst, long long E, long long rows, int B,
+                                    void* stream) {
   if (E <= 0 || B <= 0) return (int)cudaGetLastError();
   const bool vec4 = (B % 4 == 0) && ((reinterpret_cast<uintptr_t>(acc) & 15) == 0) &&
                     ((reinterpret_cast<uintptr_t>(tile) & 15) == 0);
@@ -70,11 +80,11 @@ extern "C" int fora_row_scatter_add(float* acc, const float* tile, const int* sr
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (vec4) {
-    row_scatter_add_kernel<true><<<(unsigned)blocks, threads, 0, st>>>(acc, tile, src, dst, E, B,
-                                                                       group_log2);
+    row_scatter_add_kernel<true><<<(unsigned)blocks, threads, 0, st>>>(acc, tile, src, dst, E,
+                                                                       rows, B, group_log2);
   } else {
-    row_scatter_add_kernel<false><<<(unsigned)blocks, threads, 0, st>>>(acc, tile, src, dst, E, B,
-                                                                        group_log2);
+    row_scatter_add_kernel<false><<<(unsigned)blocks, threads, 0, st>>>(acc, tile, src, dst, E,
+                                                                        rows, B, group_log2);
   }
   return (int)cudaGetLastError();
 }

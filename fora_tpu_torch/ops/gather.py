@@ -128,14 +128,20 @@ def row_scatter_add_plain(acc: torch.Tensor, tile: torch.Tensor,
                           src: torch.Tensor, dst: torch.Tensor
                           ) -> torch.Tensor:
     """Plain version of :func:`row_scatter_add`."""
-    return acc.index_add_(0, dst.long(), tile[src.long()])
+    dst = dst.long()
+    keep = (dst >= 0) & (dst < acc.shape[0])
+    if not bool(keep.all()):
+        dst, src = dst[keep], src[keep]
+    return acc.index_add_(0, dst, tile[src.long()])
 
 
 def row_scatter_add(acc: torch.Tensor, tile: torch.Tensor, src: torch.Tensor,
                     dst: torch.Tensor) -> torch.Tensor:
     """In place: ``acc[dst[e]] += tile[src[e]]`` for every edge e, indices
-    in any order (port of ``scripts/pallas_gather_probe.py::kernel``).  A
-    CPU tensor takes the plain version; a CUDA tensor launches P3
+    in any order (port of ``scripts/pallas_gather_probe.py::kernel``); an
+    edge whose ``dst`` lies outside acc's rows is skipped (the pad slots of
+    the compacted frontier exchanges, ``ops.exchange``).  A CPU tensor
+    takes the plain version; a CUDA tensor launches P3
     (``kernels/csrc/row_scatter.cu``).  Returns ``acc``."""
     if acc.device.type == "cpu":
         return row_scatter_add_plain(acc, tile, src, dst)

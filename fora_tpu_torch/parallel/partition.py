@@ -1,11 +1,13 @@
 """Host-side row partitioning for the sharded engine.
 
 A numpy copy of ``fora_tpu/parallel/partition.py``: ``PartitionedGraph``
-(33-76), ``partition_rows`` (79-191), ``PartitionedIndex`` (254-268) and
-``partition_index`` (271-326), carried here so that the port loads nothing
-of the JAX package (``tests/test_torch_partition.py`` holds them
-array-equal to the originals).  The graph's rows are split into G
-contiguous ranges of a common ``n_loc``; shard g owns
+(33-76), ``partition_rows`` (79-191), the routing masks ``needed_masks``,
+``needed_host_masks`` and ``host_groups`` (193-251), ``PartitionedIndex``
+(254-268) and ``partition_index`` (271-326), carried here so that the port
+loads nothing of the JAX package (``tests/test_torch_partition.py`` and
+``tests/test_torch_exchange.py`` hold them array-equal to the originals).
+The graph's rows are split into G contiguous ranges of a common
+``n_loc``; shard g owns
 
   * the in-edges whose destination falls in its rows, destinations local,
     sources global, padded to a common ``m_loc`` (pads: ``src = n_pad``,
@@ -18,12 +20,9 @@ Arrays are flat with a leading ``G * size`` axis, as the JAX engine places
 them.  The sharded engine (``parallel/sharded.py``) turns each shard's
 slice into CSRs by destination and drops every pad.
 
-Weighted graphs partition as far as this function goes: per-edge weights
-and per-row out-weights are sharded, but ``alias_prob``/``alias_other``
-(the raw walk's alias tables, ``graph/alias.py``) stay None: the sharded
-engine refuses weighted graphs.  The routed and hier exchanges'
-``needed_masks``/``needed_host_masks``/``host_groups`` (193-251) are not
-carried over yet.
+Weighted graphs shard their per-edge weights and per-row out-weights,
+which the indexed push reads; ``alias_prob``/``alias_other`` (the raw
+walk's alias tables) stay None, since the sharded raw walk is not ported.
 """
 
 from __future__ import annotations
@@ -53,8 +52,8 @@ class PartitionedGraph(NamedTuple):
     # weighted-graph extras (None on unweighted graphs)
     in_w_sharded: Optional[np.ndarray] = None    # [G * m_loc] f32, pad 0
     out_wsum_sharded: Optional[np.ndarray] = None  # [G * n_loc] f32, pad 0
-    alias_prob: Optional[np.ndarray] = None      # always None (no shards
-    alias_other: Optional[np.ndarray] = None     # of weighted graphs yet)
+    alias_prob: Optional[np.ndarray] = None      # always None (no sharded
+    alias_other: Optional[np.ndarray] = None     # raw walk yet)
     # hub-split in-edges (partition_rows(hub_rows=H)): edges whose source
     # is a global top-H out-degree node, gathered from a compact [H, B]
     # slice of the exchanged contribution vector; the tail arrays above
@@ -181,6 +180,54 @@ def partition_rows(g: CSRGraph, n_shards: int,
         hub_dst_local_sharded=hdst_flat,
         hub_w_sharded=hw_flat,
     )
+
+
+def needed_masks(pg: PartitionedGraph) -> np.ndarray:
+    """Routing masks of the routed exchange: [G * G, n_loc] bool, shard s's
+    [G, n_loc] block at rows [s*G, (s+1)*G); ``needed[s*G + t, i]`` = shard
+    t has an in-edge (tail or hub) whose source is shard s's local row i,
+    so row i goes to t whenever it is active."""
+    G, n_loc = pg.n_shards, pg.n_loc
+    need = np.zeros((G, G, n_loc), dtype=bool)
+    for t in range(G):
+        src = pg.in_src_global[t * pg.m_loc:(t + 1) * pg.m_loc]
+        src = src[src < pg.n_pad].astype(np.int64)
+        if pg.hub_split:
+            # hub edges gather from a slice of the same exchanged vector
+            hd = pg.hub_dst_local_sharded[t * pg.mh_loc:(t + 1) * pg.mh_loc]
+            hs = pg.hub_src_slot_sharded[t * pg.mh_loc:(t + 1) * pg.mh_loc]
+            hsrc = pg.hub_ids[hs[hd < n_loc]].astype(np.int64)
+            src = np.concatenate([src, hsrc])
+        s, i = np.divmod(src, n_loc)
+        need[s, t, i] = True
+    return need.reshape(G * G, n_loc)
+
+
+def needed_host_masks(pg: PartitionedGraph, chips_per_host: int
+                      ) -> np.ndarray:
+    """Routing masks of the hier exchange: [G * H, n_loc] bool (H = G /
+    chips_per_host), shard s's [H, n_loc] block at rows [s*H, (s+1)*H);
+    ``needed_host[s*H + h, i]`` = some chip of host h references shard s's
+    local row i."""
+    G, n_loc = pg.n_shards, pg.n_loc
+    if G % chips_per_host:
+        raise ValueError(f"{chips_per_host} chips/host must divide G={G}")
+    H = G // chips_per_host
+    need = needed_masks(pg).reshape(G, H, chips_per_host, n_loc)
+    return need.any(axis=2).reshape(G * H, n_loc)
+
+
+def host_groups(G: int, chips_per_host: int):
+    """(cross_host_groups, intra_host_groups) over G = H hosts x C chips,
+    host-major shard ids: a cross group holds one chip position across the
+    hosts (the first stage's peers), an intra group one host's chips (the
+    second stage's)."""
+    H = G // chips_per_host
+    cross = [[h * chips_per_host + c for h in range(H)]
+             for c in range(chips_per_host)]
+    intra = [[h * chips_per_host + c for c in range(chips_per_host)]
+             for h in range(H)]
+    return cross, intra
 
 
 class PartitionedIndex(NamedTuple):

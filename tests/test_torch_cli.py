@@ -15,7 +15,12 @@ under the first, and the port's CLI runs every action on the CPU:
     against the exact oracle;
   - sweep prints the same JSON keys, each max relative error within its
     epsilon;
-  - each sharded form, and a CUDA run where CUDA is absent, exits 2.
+  - the sharded forms: shard-graph and build --index-shards write the
+    stores the JAX CLI writes; batch-topk --graph-shards gives the JAX
+    CLI's ids, and the same answers again from both stores; serve
+    --graph-shards answers over TCP; query --graph-shards, the ragged
+    exchange and a sharded raw-walk run exit 2, as does a CUDA run where
+    CUDA is absent.
 """
 
 import json
@@ -271,22 +276,128 @@ def test_sweep_matches_jax_keys(dataset, capsys):
                  "0.35,0.5", prefix=jp) == 2
 
 
-@pytest.mark.parametrize("argv", [
-    ["shard-graph", "--graph-shards", "4"],
-    ["shard-graph", "--shard-counts", "2,4"],
-    ["batch-topk", "--with-idx", "--graph-shards", "4"],
-    ["serve", "--with-idx", "--graph-shards", "2"],
-    ["build", "--index-shards", "4"],
-    ["query", "--graph-shards", "4"],
-    ["query", "--shard-counts", "2,4"],
-    ["batch-topk", "--query-shards", "2"],
-    ["batch-topk", "--with-idx", "--exchange", "routed"],
-    ["serve", "--chips-per-host", "4"],
+@pytest.mark.parametrize("argv,message", [
+    (["query", "--graph-shards", "4"],
+     "--graph-shards applies to batch-topk and serve"),
+    (["batch-topk", "--with-idx", "--graph-shards", "2", "--exchange",
+      "ragged"], "ROADMAP C5"),
+    (["batch-topk", "--graph-shards", "2"], "ROADMAP Queue 1 item 4"),
 ])
-def test_sharded_forms_exit_2(dataset, capsys, argv):
+def test_sharded_forms_exit_2(dataset, capsys, argv, message):
+    """What the sharded CLI refuses: the JAX CLI's own error for query,
+    and the two paths the port lacks, each naming its ROADMAP item."""
     _, tp, _ = dataset
     assert _port(*argv, prefix=tp) == 2
-    assert "ROADMAP Queue 1 item 6" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
+    if argv[0] == "query":
+        assert jax_cli.main(argv + _base(tp)) == 2
+
+
+def test_query_ignores_shard_counts(dataset, tmp_path):
+    """--shard-counts belongs to shard-graph; query runs as without it, as
+    in the JAX CLI."""
+    jp, _, _ = dataset
+    flags = ["query", "--algo", "fwdpush", "--k", str(K), "--batch", "8",
+             "--shard-counts", "2,4"]
+    assert _port(*flags, "--output", str(tmp_path / "a.jsonl"),
+                 prefix=jp) == 0
+    assert _port(*flags[:-2], "--output", str(tmp_path / "b.jsonl"),
+                 prefix=jp) == 0
+    assert _rows(tmp_path / "a.jsonl") == _rows(tmp_path / "b.jsonl")
+
+
+def _prefix_copy(src, dst):
+    """A copy of a dataset prefix (graph, query file, index)."""
+    shutil.copytree(src, dst)
+    return dst
+
+
+def _same_dirs(a, b):
+    fa = sorted(p.name for p in a.iterdir())
+    assert fa == sorted(p.name for p in b.iterdir()) and fa
+    for name in fa:
+        if name.endswith(".npy"):
+            np.testing.assert_array_equal(np.load(a / name), np.load(b / name),
+                                          err_msg=name)
+        else:
+            assert json.loads((a / name).read_text()) == \
+                json.loads((b / name).read_text())
+
+
+def test_shard_graph_action(dataset, tmp_path):
+    """shard-graph writes, per shard count, the graph store the JAX CLI's
+    shard-graph writes, file for file."""
+    jp, _, _ = dataset
+    a = _prefix_copy(jp, tmp_path / "port")
+    b = _prefix_copy(jp, tmp_path / "jax")
+    assert _port("shard-graph", "--shard-counts", "2,4", prefix=a) == 0
+    assert jax_cli.main(["shard-graph", "--shard-counts", "2,4"]
+                        + _base(b)) == 0
+    for c in (2, 4):
+        _same_dirs(a / "er" / f"graph-shards-G{c}",
+                   b / "er" / f"graph-shards-G{c}")
+    assert _port("shard-graph", prefix=a) == 2   # one shard is no store
+
+
+def test_build_index_shards(dataset, tmp_path):
+    """build --index-shards writes the sharded index store of the index it
+    built (as the JAX package's save_sharded lays it out) and the graph
+    store beside it."""
+    from fora_tpu.config import ForaConfig as JaxForaConfig
+    from fora_tpu.index import store as jax_store
+    from fora_tpu_torch import index as tidx
+    _, tp, g = dataset
+    a = _prefix_copy(tp, tmp_path / "port")
+    assert _port("build", "--epsilon", "0.5", "--index-shards", "2",
+                 prefix=a) == 0
+    assert (a / "er" / "graph-shards-G2" / "meta.json").exists()
+    rcfg = JaxForaConfig(epsilon=0.5).resolved(g.n, g.m)
+    idx = tidx.load(str(a / "index" / "er"), rcfg)
+    jax_store.save_sharded(idx, rcfg, str(tmp_path / "want"), 2, graph=g)
+    _same_dirs(a / "index" / "er" / "shards-G2", tmp_path / "want" /
+               "shards-G2")
+    st = jax_store.ShardedIndexStore(str(a / "index" / "er"), 2, rcfg,
+                                     graph=g)
+    assert st.n_shards == 2
+
+
+def test_sharded_batch_topk_matches_jax(dataset, tmp_path):
+    """batch-topk --graph-shards 2 --query-shards 4 --exchange routed on
+    the JAX-built index: the JAX CLI's ids where adjacent values differ by
+    more than 1e-7, values at rtol 1e-5; then from the graph store and the
+    sharded index store the same answers bit for bit."""
+    jp, _, g = dataset
+    flags = ["batch-topk", "--epsilon", "0.5", "--k", str(K), "--with-idx",
+             "--batch", "8", "--start-level", "0", "--graph-shards", "2",
+             "--query-shards", "4", "--exchange", "routed"]
+    assert jax_cli.main(flags + ["--output", str(tmp_path / "jax.jsonl")]
+                        + _base(jp)) == 0
+    assert _port(*flags, "--output", str(tmp_path / "port.jsonl"),
+                 prefix=jp) == 0
+    want, got = _rows(tmp_path / "jax.jsonl"), _rows(tmp_path / "port.jsonl")
+    assert set(got) == set(want) and len(got) == 12
+    for s in want:
+        wv = np.asarray(want[s]["vals"], np.float64)
+        np.testing.assert_allclose(got[s]["vals"], wv, rtol=1e-5,
+                                   err_msg=str(s))
+        apart = np.abs(np.diff(wv)) > 1e-7
+        sep = np.ones(len(wv), bool)
+        sep[:-1] &= apart
+        sep[1:] &= apart
+        np.testing.assert_array_equal(np.asarray(got[s]["ids"])[sep],
+                                      np.asarray(want[s]["ids"])[sep])
+    assert _precision(g, got) >= 0.85
+    # the stores: the graph store by shard-graph, the index's by the port
+    from fora_tpu_torch import ForaConfig
+    from fora_tpu_torch import index as tidx
+    a = _prefix_copy(jp, tmp_path / "stores")
+    assert _port("shard-graph", "--graph-shards", "2", prefix=a) == 0
+    rcfg = ForaConfig(epsilon=0.5, k=K).resolved(g.n, g.m)
+    idx = tidx.load(str(a / "index" / "er"), rcfg)
+    tidx.save_sharded(idx, rcfg, str(a / "index" / "er"), 2, graph=g)
+    assert _port(*flags, "--output", str(tmp_path / "stores.jsonl"),
+                 prefix=a) == 0
+    assert _rows(tmp_path / "stores.jsonl") == got
 
 
 def test_refuses_cuda_without_cuda(dataset, capsys, monkeypatch):
@@ -307,16 +418,15 @@ def test_dropped_tpu_flags_are_refused(dataset):
             cli.build_parser().parse_args(["query", "--dataset", "er", flag])
 
 
-def test_serve_action_tcp(dataset):
-    """The serve action end to end on the CPU: the port's CLI server, as a
-    subprocess serving the JAX-built index, answers three queries over TCP
-    (precision@8 >= 0.75 each), then its stats."""
-    jp, _, g = dataset
+def _serve_and_ask(prefix, g, extra=()):
+    """The port's CLI server as a subprocess on ``prefix``: three queries
+    over TCP (precision@8 >= 0.75 each), then its stats."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "fora_tpu_torch.cli", "serve", "--with-idx",
-         "--batch", "4", "--k", str(K), "--port", "0", "--device", "cpu"]
-        + _base(jp), stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
-        text=True, cwd=ROOT, env=dict(os.environ, OMP_NUM_THREADS="2"))
+         "--batch", "4", "--k", str(K), "--port", "0", "--device", "cpu",
+         *extra] + _base(prefix), stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True, cwd=ROOT,
+        env=dict(os.environ, OMP_NUM_THREADS="2"))
     try:
         line = proc.stdout.readline()
         assert "serving on" in line, line
@@ -347,3 +457,20 @@ def test_serve_action_tcp(dataset):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+def test_serve_action_tcp(dataset):
+    """The serve action end to end on the CPU: the port's CLI server, as a
+    subprocess serving the JAX-built index, answers three queries over TCP
+    (precision@8 >= 0.75 each), then its stats."""
+    jp, _, g = dataset
+    _serve_and_ask(jp, g)
+
+
+def test_sharded_serve_tcp(dataset, tmp_path):
+    """serve --graph-shards 2 --exchange compact: the sharded pool behind
+    the server, reading the graph store, answers the same way."""
+    jp, _, g = dataset
+    a = _prefix_copy(jp, tmp_path / "stores")
+    assert _port("shard-graph", "--graph-shards", "2", prefix=a) == 0
+    _serve_and_ask(a, g, ("--graph-shards", "2", "--exchange", "compact"))

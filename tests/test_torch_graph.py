@@ -102,18 +102,23 @@ def _unit_weighted(g):
 
 
 def test_weighted_graph_not_ported_yet():
-    """Weighted graphs lay out on one device, but the sharded engine still
-    refuses them (tests/test_torch_weighted.py holds the one-device
-    weighted path against fora_tpu)."""
+    """Weighted graphs on shards, which the sharded engine used to refuse:
+    a graph with unit weights gives the sharded engine the same answers
+    as its unweighted self (tests/test_torch_weighted.py holds the
+    weighted paths against fora_tpu)."""
     from fora_tpu_torch import ForaConfig
     from fora_tpu_torch import index as tidx
     from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
-    gw = _unit_weighted(generators.erdos_renyi(64, 256, seed=1))
+    g = generators.erdos_renyi(64, 256, seed=1)
+    gw = _unit_weighted(g)
     rcfg = ForaConfig(epsilon=0.3).resolved(gw.n, gw.m)
     idx = tidx.build_walk_index(to_device(gw, device="cpu"), rcfg, seed=1)
-    with pytest.raises(NotImplementedError, match="weighted"):
-        ShardedForaEngine(gw, make_mesh(2, devices=["cpu"] * 2), rcfg,
-                          index=idx)
+    res = [ShardedForaEngine(x, make_mesh(2, devices=["cpu"] * 2), rcfg,
+                             k=5, index=idx).topk(np.arange(8))
+           for x in (g, gw)]
+    assert res[0].push_iters == res[1].push_iters
+    np.testing.assert_allclose(res[1].values, res[0].values, rtol=1e-6)
+    assert (res[1].node_ids == res[0].node_ids).mean() > 0.9
 
 
 def test_unit_weights_lay_out_as_unweighted():

@@ -273,6 +273,19 @@ def test_sector_probe_reads_and_refuses(dev):
         kernels.sector_reads(buf, reads=12)
 
 
+def test_row_probe_reads_and_refuses(dev):
+    """The row-read instrument: rows read reported (8 warps a block), a
+    read count its loop cannot do and a ragged buffer refused."""
+    from fora_tpu_torch import kernels
+    buf = torch.ones(1024 * 128, dtype=torch.float32, device=dev)
+    assert kernels.row_reads(buf, reads=16, threads=1000) == 4 * 8 * 16
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="row_reads"):
+        kernels.row_reads(buf, reads=12)
+    with pytest.raises(ValueError):
+        kernels.row_reads(buf[:100])
+
+
 @pytest.mark.parametrize("B", [32, 64, 128, 5])
 @pytest.mark.parametrize("hot", [False, True])
 def test_row_scatter_kernel_matches_plain(dev, B, hot):
@@ -454,6 +467,154 @@ def test_sharded_engine_on_card_matches_cpu(dev, cards):
                                rtol=1e-5, atol=1e-7)
     same = (res["cuda"].node_ids == res["cpu"].node_ids).mean()
     assert same > 0.95
+
+
+def _compact_inputs(rng, n_loc, B, D, frac):
+    contrib = np.zeros((n_loc, B), np.float32)
+    act = rng.random(n_loc) < frac
+    contrib[act] = rng.random((int(act.sum()), B)) * (
+        rng.random((int(act.sum()), B)) < 0.5)
+    contrib[act, rng.integers(0, B)] = 0.25     # every active row non-zero
+    contrib[rng.integers(0, n_loc, 5)] = -0.0   # negative zeros: no entry
+    needed = None if D is None else (rng.random((D, n_loc)) < 0.5
+                                     ).astype(np.uint8)
+    return contrib, needed
+
+
+@pytest.mark.parametrize("B", [1, 3, 128, 130])
+@pytest.mark.parametrize("D", [None, 4])
+@pytest.mark.parametrize("frac,cap", [(0.1, 600), (0.5, 64)])
+def test_frontier_compact_kernel_matches_plain(dev, B, D, frac, cap):
+    """The compaction kernel against its plain version: the counts equal
+    (past cap too), and per destination the same (id, row) pairs bit for
+    bit once ordered by id (the kernel's slot order varies); unused id
+    slots hold the pad id.  With frac 0.5 and cap 64 every destination
+    overflows: the kernel then fills cap slots with rows of its choice,
+    each a real row at its id."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops.exchange import frontier_compact_plain
+    rng = np.random.default_rng(B + (D or 0))
+    n_loc, row0, pad = 4096, 8192, 16384
+    c_np, n_np = _compact_inputs(rng, n_loc, B, D, frac)
+    Dn = 1 if D is None else D
+    contrib = torch.as_tensor(c_np, device=dev)
+    needed = None if n_np is None else torch.as_tensor(n_np, device=dev)
+    out = {}
+    for name, t in (("kernel", dev), ("plain", "cpu")):
+        ids = torch.full((Dn, cap + 3), -5, dtype=torch.int32, device=t)
+        rows = torch.full((Dn, cap + 3, B), float("nan"), device=t)
+        counts = torch.full((Dn,), 77, dtype=torch.int32, device=t)
+        args = (contrib.to(t), None if needed is None else needed.to(t), cap,
+                row0, pad, ids, rows, counts)
+        if name == "kernel":
+            before = kernels.frontier_compact.launches
+            kernels.frontier_compact(*args)
+            torch.cuda.synchronize()
+            assert kernels.frontier_compact.launches == before + 1
+        else:
+            frontier_compact_plain(*args)
+        out[name] = (ids.cpu().numpy(), rows.cpu().numpy(),
+                     counts.cpu().numpy())
+    (ki, kr, kc), (pi, pr, pc) = out["kernel"], out["plain"]
+    np.testing.assert_array_equal(kc, pc)
+    for d in range(Dn):
+        n = min(int(pc[d]), cap)
+        assert (ki[d, n:cap] == pad).all() and (ki[d, cap:] == -5).all()
+        kid = ki[d, :n]
+        assert len(np.unique(kid)) == n and (kid >= row0).all()
+        np.testing.assert_array_equal(
+            kr[d, :n].view(np.uint32), c_np[kid - row0].view(np.uint32))
+        if pc[d] <= cap:
+            order = np.argsort(kid)
+            np.testing.assert_array_equal(kid[order], pi[d, :n])
+            np.testing.assert_array_equal(kr[d, :n][order].view(np.uint32),
+                                          pr[d, :n].view(np.uint32))
+        else:
+            want = set(np.nonzero(np.abs(c_np).sum(axis=1))[0] + row0)
+            if n_np is not None:
+                want &= set(np.nonzero(n_np[d])[0] + row0)
+            assert set(kid.tolist()) <= want
+
+
+def test_row_scatter_add_skips_pad_ids(dev):
+    """P3 skips every edge whose destination lies outside acc (the pad id
+    n_pad, and any negative id): bit-equal to the plain version, and a
+    receive of unique ids into zeros holds each row exactly."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops.gather import row_scatter_add_plain
+    rng = np.random.default_rng(5)
+    rows_n, B, E = 1000, 128, 4096
+    tile = torch.as_tensor(rng.random((E, B), np.float32), device=dev)
+    src = torch.arange(E, dtype=torch.int32, device=dev)
+    ids = np.full(E, rows_n, np.int32)              # pads everywhere
+    real = rng.choice(E, 600, replace=False)
+    ids[real] = rng.choice(rows_n, 600, replace=False)
+    ids[real[:10]] = -3                              # also skipped
+    dst = torch.as_tensor(ids, device=dev)
+    got = kernels.row_scatter_add(torch.zeros(rows_n, B, device=dev), tile,
+                                  src, dst)
+    want = row_scatter_add_plain(torch.zeros(rows_n, B), tile.cpu(),
+                                 src.cpu(), dst.cpu())
+    assert torch.equal(got.cpu(), want)
+    keep = real[10:]
+    assert torch.equal(got[torch.as_tensor(ids[keep], device=dev).long()],
+                       tile[torch.as_tensor(keep, device=dev)])
+    acc = torch.ones(rows_n, B, device=dev)
+    kernels.row_scatter_add(acc, tile, src,
+                            torch.full_like(dst, rows_n))
+    assert bool((acc == 1).all())
+
+
+def test_sharded_pool_modes_on_card(dev):
+    """ShardedTopkRunner with four shards on one card: compact, routed and
+    hier bit-equal to dense (ids, values, bounds, levels), the compaction
+    kernel and P3 launched on the compacted runs only, P1 and P2 on every
+    run, K3 once per shard and level run; dense against the CPU pool
+    (rtol 1e-5)."""
+    from fora_tpu_torch import ForaConfig as TorchForaConfig
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.graph import generators as tgen
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.index import build_walk_index
+    from fora_tpu_torch.parallel import ShardedTopkRunner, make_mesh
+    g = tgen.rmat(12, 1 << 15, seed=3)
+    rcfg = TorchForaConfig(epsilon=0.5, k=20).resolved(g.n, g.m)
+    idx = build_walk_index(to_device(g, device="cpu"), rcfg, seed=4)
+    src = np.arange(0, 64 * 61, 61)
+    res, counts = {}, {}
+    for mode in ("dense", "compact", "routed", "hier", "cpu"):
+        devs = ["cpu"] * 4 if mode == "cpu" else [dev] * 4
+        run = ShardedTopkRunner(
+            g, make_mesh(4, devices=devs), rcfg, idx, k=20,
+            delta_stride=8, exchange="dense" if mode == "cpu" else mode,
+            chips_per_host=2 if mode == "hier" else None)
+        kernels.reset_launch_counts()
+        res[mode] = run.query_pool(src, batch=32)
+        counts[mode] = kernels.launch_counts()
+        levels = sum(st["batches"] for st in run.last_level_stats)
+        if mode == "cpu":
+            assert all(n == 0 for n in counts[mode].values())
+            continue
+        c = counts[mode]
+        assert c["topk_bounds"] == 4 * levels
+        assert c["index_spmv"] == 4 * levels
+        assert c["ring_reduce_scatter_hop"] == 12 * levels
+        compacted = sum(st["compacted"] for st in run.last_level_stats)
+        if mode == "dense":
+            assert c["frontier_compact"] == c["row_scatter_add"] == 0
+        else:
+            assert compacted > 0
+            assert c["row_scatter_add"] == 4 * compacted
+            assert c["frontier_compact"] >= 4 * compacted
+    for mode in ("compact", "routed", "hier"):
+        for f in ("node_ids", "values", "lower_bounds", "upper_bounds",
+                  "accepted"):
+            np.testing.assert_array_equal(getattr(res[mode], f),
+                                          getattr(res["dense"], f))
+        assert res[mode].levels_used == res["dense"].levels_used
+    np.testing.assert_allclose(res["dense"].values, res["cpu"].values,
+                               rtol=1e-5, atol=1e-7)
+    assert (res["dense"].node_ids == res["cpu"].node_ids).mean() > 0.95
 
 
 def _weighted_rmat(n_log2, m, seed):

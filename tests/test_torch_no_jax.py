@@ -51,6 +51,11 @@ SCRIPT = textwrap.dedent("""
     sres = eng.topk(queries.generate_sources(g, 3, seed=5))
     assert sres.node_ids.shape == (3, 10) and sres.push_iters >= 1
     assert np.isfinite(sres.values).all()
+    from fora_tpu_torch.parallel import ShardedTopkRunner
+    pool = ShardedTopkRunner(g, make_mesh(4, devices=["cpu"] * 4), rcfg,
+                             idx, k=10, delta_stride=8, exchange="routed")
+    pres = pool.query_pool(queries.generate_sources(g, 3, seed=5), batch=4)
+    assert pres.node_ids.shape == (3, 10) and np.isfinite(pres.values).all()
     raw = fora_tpu_torch.TopkRunner(dg, rcfg, delta_stride=8)
     rres = raw.query_pool(queries.generate_sources(g, 3, seed=5), batch=4)
     assert rres.node_ids.shape == (3, 10) and rres.accepted.all()
@@ -84,6 +89,10 @@ SCRIPT = textwrap.dedent("""
     assert cli.main(["generate-ss-query", "--query-size", "4"] + base) == 0
     assert cli.main(["build"] + base) == 0
     assert cli.main(["batch-topk", "--with-idx"] + base) == 0
+    assert cli.main(["build", "--index-shards", "2"] + base) == 0
+    assert cli.main(["batch-topk", "--with-idx", "--graph-shards", "2",
+                     "--exchange", "hier", "--chips-per-host", "1"]
+                    + base) == 0
     for algo in ("bippr", "hubppr", "fwdpush"):
         assert cli.main(["query", "--algo", algo, "--num-hubs", "4"]
                         + base) == 0
@@ -147,5 +156,9 @@ def test_cpu_tensors_never_launch_kernels():
     hub = hubppr.build_hub_index(dg, 7, alpha=0.2, num_hubs=4, pool_size=64)
     hubppr.hub_walks(dg, torch.zeros(100, dtype=torch.int32), 8, hub,
                      alpha=0.2)
+    from fora_tpu_torch.ops import exchange
+    exchange.frontier_compact(
+        st.r, None, 8, 0, g.n, torch.zeros((1, 8), dtype=torch.int32),
+        torch.zeros((1, 8, 3)), torch.zeros(1, dtype=torch.int32))
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 12
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 13

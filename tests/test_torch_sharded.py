@@ -152,33 +152,77 @@ def _weighted(g):
     return jax_from_edges(src, np.asarray(g.out_indices, np.int64), g.n, w=w)
 
 
-@pytest.mark.parametrize("case", ["no_index", "weighted", "hub_rows",
-                                  "exchange", "query_axis"])
+@pytest.mark.parametrize("case", ["no_index", "ragged"])
 def test_unported_options_raise(case):
+    """What the sharded engine still refuses, each naming its ROADMAP item:
+    the raw-walk path (no index) and the ragged exchange."""
     g, rcfg, idx, _ = setup("er")
     tidx = convert.index_from_numpy(idx)
     mesh = make_mesh(2, devices=["cpu", "cpu"])
     kw = dict(k=K, index=tidx)
     if case == "no_index":
         kw["index"] = None
-    elif case == "weighted":
-        g = _weighted(g)
-    elif case == "hub_rows":
-        kw["hub_rows"] = 16
-    elif case == "exchange":
-        kw["exchange"] = "routed"
+        match = "ROADMAP Queue 1 item 4"
     else:
-        with pytest.raises(NotImplementedError):
-            make_mesh(2, 2, devices=["cpu"] * 4)
-        mesh = [["cpu", "cpu"], ["cpu", "cpu"]]
-    with pytest.raises(NotImplementedError):
+        kw["exchange"] = "ragged"
+        match = "ROADMAP C5"
+    with pytest.raises(NotImplementedError, match=match):
         ShardedForaEngine(port_graph(g), mesh, rcfg, **kw)
+
+
+ENGINE_OPTIONS = {
+    "weighted": (True, 4, 1, {}),
+    "hub_rows": (False, 4, 1, {"hub_rows": 16}),
+    "compact": (False, 4, 1, {"exchange": "compact"}),
+    "routed": (False, 2, 1, {"exchange": "routed"}),
+    "hier": (False, 4, 1, {"exchange": "hier", "chips_per_host": 2}),
+    "query_axis": (False, 2, 2, {"exchange": "routed"}),
+}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_OPTIONS))
+def test_engine_options_match_jax(case):
+    """The one-shot engine with the options the port used to refuse:
+    weighted graphs, the hub split, the compacted exchanges and a query
+    axis, against the JAX engine with the same options."""
+    weighted, G, Q, kw = ENGINE_OPTIONS[case]
+    g, rcfg, idx, sources = setup("er")
+    if weighted:
+        g = _weighted(g)
+        rcfg = ForaConfig(epsilon=0.5).resolved(g.n, g.m)
+        idx = jax_index.build_walk_index(jax_to_device(g), rcfg,
+                                         jax.random.key(2))
+    jeng = JaxEngine(g, jax_make_mesh(G, Q, devices=jax.devices()[:G * Q]),
+                     rcfg, k=K, index=idx, **kw)
+    want = jeng.topk(np.asarray(sources, np.int32), jax.random.key(3))
+    eng = ShardedForaEngine(port_graph(g),
+                            make_mesh(G, Q, devices=["cpu"] * (G * Q)), rcfg,
+                            k=K, index=convert.index_from_numpy(idx), **kw)
+    got = eng.topk(sources)
+    # JAX counts the supersteps of the batch's slowest query group
+    assert got.push_iters >= int(want.push_iters)
+    if Q == 1:
+        assert got.push_iters == int(want.push_iters)
+    assert_topk_agree(got.values, got.node_ids, want.values, want.node_ids)
+    if kw.get("exchange", "dense") != "dense":
+        assert eng.exchange.compacted > 0
+        assert eng.exchange_bytes(8) == jax_bytes_model(
+            kw["exchange"], n_loc=eng.n_loc, batch=8, G=G,
+            cap=eng.exchange.cap, chips_per_host=kw.get("chips_per_host", 1))
 
 
 def test_make_mesh():
     assert make_mesh(3, devices=["cpu"] * 3) == [torch.device("cpu")] * 3
+    assert make_mesh(3, 1, devices=["cpu"] * 3) == [torch.device("cpu")] * 3
     with pytest.raises(ValueError):
         make_mesh(3, devices=["cpu"] * 2)
+    # a query axis: Q groups of G, graph-major as JAX's mesh
+    devs = [f"cuda:{i}" for i in range(6)]
+    groups = make_mesh(3, 2, devices=devs)
+    assert groups == [[torch.device(devs[g * 2 + q]) for g in range(3)]
+                      for q in range(2)]
+    with pytest.raises(ValueError):
+        make_mesh(3, 2, devices=["cpu"] * 3)
     if torch.cuda.is_available():
         count = torch.cuda.device_count()
         assert make_mesh(4) == [torch.device("cuda", g % count)
