@@ -60,7 +60,12 @@ memory:
                  (once to warm, once timed, counts reset just before and
                  read just after), P1 and P2 bit-equal to their plain
                  versions on a real superstep's and the walk phase's
-                 buffers, the top-50 against the single-device indexed
+                 buffers (P2's one pass, which the engine runs with every
+                 shard on the card, bit-equal to its plain version, to the
+                 ring's hop kernels and to their plain loop; both timed
+                 beside torch.sum over the stacked partials; P1's and P2's
+                 bounds of the function printed beside the ring's
+                 traffic), the top-50 against the single-device indexed
                  result at the same depth, precision@50 of the first 32
                  queries against phase 7's exact top-50 (>= 0.95)
   10. raw walk   the first 64 sources through TopkRunner(index=None)
@@ -99,11 +104,17 @@ memory:
                  precision@50 of the first 32 against phase 7's oracle
                  (>= 0.95); the hub split (131,072 rows) against the same
                  pool without it; the compaction kernel and P3 against
-                 their plain versions on the largest superstep of the
-                 final level that fits the capacity, the compacted
-                 buffers equal to the ring's on every needed row, each
-                 timed beside its bound; a torch.profiler run of the
-                 routed pool (chiprun_out/profile_sharded_pool_routed.txt);
+                 their plain versions on two consecutive supersteps of
+                 the final level that fit the capacity (the second the
+                 largest), the first as the pool left the buffers, the
+                 second after it, zeroing only its own block and the
+                 first's rows (row_zero): the compacted buffers
+                 equal to the ring's on every needed row and zero
+                 elsewhere; the compaction, P3 and row_zero timed beside
+                 their bounds; a torch.profiler run of the dense and the
+                 routed pool, each with the device time of the memsets,
+                 the compaction, P3, row_zero, P2 and P1
+                 (PROFILE_DIR/profile_sharded_pool_*.txt);
                  both sharded stores written and read back, the
                  store-backed routed pool bit-equal to the in-RAM one; and
                  (run inside phase 13) the weighted graph and index
@@ -162,7 +173,8 @@ memory:
                  phases 4-5 with two K1 gathers per superstep and one K2
                  launch per level of each batch, K1-K3, P1 and P2 in
                  phase 9's timed run with one K2 launch per shard, P1 at
-                 (G-1) G launches per superstep and P2 at (G-1) G,
+                 (G-1) G launches per superstep and P2's one pass once
+                 (its hop kernel never with every shard on one card),
                  K1, K3 and K4 and no K2 in phase 10, K4 in phase 11, P3
                  in phase 12; in phase 13 K1-K3 and K4's alias branch
                  (index_walk_alias) in the indexed run, K1, K3 and the
@@ -174,12 +186,13 @@ memory:
                  K4 in bippr, K4-hub in hubppr and nowhere else, and
                  neither new kernel before phase 14, and the sharded
                  batch-topk and server on their kernels; in phase 15 per
-                 exchange K2 and K3 once per shard per level run, P2 on
-                 every level run, K1 once per shard per superstep, P1 on
-                 every superstep that took the ring, P3 once per shard per
-                 compacted superstep, the compaction kernel on the
-                 compacted runs and neither it nor P3 on dense or on any
-                 other path; and neither JAX nor the JAX package fora_tpu
+                 exchange K2 and K3 once per shard per level run, P2's one
+                 pass once per level run, K1 once per shard per
+                 superstep, P1 on every superstep that took the ring, P3
+                 once per shard per compacted superstep, row_zero at most
+                 that often and at least once, the compaction kernel on
+                 the compacted runs and none of the three on dense or on
+                 any other path; and neither JAX nor the JAX package fora_tpu
                  was imported, by this process or the servers
 
 It prints one JSON line of per-kernel results (launches, max abs error,
@@ -191,7 +204,13 @@ distinct sectors each hop's walks read and their Philox blocks; library
 ms: one PyTorch call computing the same function, or null; P3 has two
 rows: row_scatter_add is the gather probe of phase 12 with phase 12's
 launches, row_scatter_add_receive is the receive of one shard on phase
-15's routed superstep with the routed pool's launches), then,
+15's routed superstep with the routed pool's launches; P2 has two:
+ring_reduce_scatter_hop is the ring's hop kernel, which no path runs
+with every shard on one card (0 launches), reduce_scatter_onepass the
+one pass that phase 9 runs; the rows timed on phase 15's superstep,
+frontier_compact, row_scatter_add_receive and row_zero, also carry
+device_ms, the kernel's time with the host's enqueue hidden, beside ms,
+which like every ms of the line times the launches as called), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -234,7 +253,7 @@ MAIN_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                 "topk_bounds", "index_walk")
 SHARDED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                    "topk_bounds", "ring_all_gather_hop",
-                   "ring_reduce_scatter_hop")
+                   "reduce_scatter_onepass")
 RAW_KERNELS = ("push_prepass", "gather_scatter_add", "index_walk",
                "topk_bounds")
 WEIGHTED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
@@ -741,7 +760,8 @@ def run_queries(runner, sources, log=print, pool=POOL, batch=BATCH,
 def profile_once(name, fn, need_trace: bool = True):
     """One run of ``fn`` under torch.profiler: wall, device busy time, idle
     share and the kernels by device time (full table in
-    PROFILE_DIR/profile_<name>.txt).  Without ``need_trace`` a profiler
+    PROFILE_DIR/profile_<name>.txt); returns {device record: (ms,
+    calls)}, empty where no trace was read.  Without ``need_trace`` a profiler
     that cannot start or read its trace is reported and passed over;
     ``fn`` itself always runs outside that allowance, so what it raises
     is raised."""
@@ -771,7 +791,7 @@ def profile_once(name, fn, need_trace: bool = True):
                 print(f"profile {name}: no trace ({e})")
                 prof = None
     if prof is None:
-        return
+        return {}
     # the device's own records (kernels, copies); an aten op's device time
     # repeats its kernels' and is left out
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
@@ -789,6 +809,7 @@ def profile_once(name, fn, need_trace: bool = True):
         if dev_us(e) > 0:
             print(f"  {e.key[:60]}: {dev_us(e) / 1e3:.2f} ms, "
                   f"{e.count} calls")
+    return {e.key: (dev_us(e) / 1e3, e.count) for e in kernels}
 
 
 def timed(fn) -> float:
@@ -1794,7 +1815,8 @@ def run_sharded(g, rcfg, index, sources, dev, exact_ids):
         fail("sharded topk: values not finite or of the wrong shape")
 
     # P1 on a real superstep's buffers: three supersteps in, then one more
-    # pre-pass writes each shard's own block (NaN elsewhere)
+    # pre-pass writes each shard's own block (NaN elsewhere; the exchange
+    # is dense, which zeroes nothing, so the NaN breaks no invariant)
     ps, rs = eng.init_state(sources)
     eng.push(ps, rs, max_iters=3)
     pl = eng.placement
@@ -1825,30 +1847,45 @@ def run_sharded(g, rcfg, index, sources, dev, exact_ids):
           f"buffer {p1_lib:.4f} ms")
     del bufs, bufs_k, bufs_p
 
-    # P2 on the real walk phase's partials (a whole push first)
+    # P2 on the real walk phase's partials (a whole push first): the one
+    # pass that the engine takes with every shard on one card, its plain
+    # version, the ring's hop kernels (the cross-card path, called
+    # directly) and their plain hop loop, all bit-equal
     ps, rs = eng.init_state(sources)
     it_ref = eng.push(ps, rs)
     xs = pl.walk_partials(rs, eng.index_depth)
-    got, want = ring.ring_reduce_scatter(xs), ring.ring_reduce_scatter_plain(xs)
-    p2_diff = max(float((k - p).abs().max()) for k, p in zip(got, want))
+    got = ring.ring_reduce_scatter(xs)
+    one_plain = ring.reduce_scatter_onepass_plain(xs)
+    hops, want = ring.ring_reduce_scatter_hops(xs), \
+        ring.ring_reduce_scatter_plain(xs)
+    p2_diff = max(float((k - p).abs().max()) for k, p in zip(got, one_plain))
+    hop_diff = max(float((k - p).abs().max()) for k, p in zip(hops, want))
     for h in range(SHARDS):
-        if not torch.equal(got[h], want[h]):
-            fail(f"P2: shard {h} differs from plain")
+        if not torch.equal(got[h], one_plain[h]):
+            fail(f"P2 one pass: shard {h} differs from its plain version")
+        if not (torch.equal(got[h], hops[h]) and torch.equal(got[h], want[h])):
+            fail(f"P2 one pass: shard {h} differs from the ring's hops")
+        if not torch.equal(hops[h], want[h]):
+            fail(f"P2 hops: shard {h} differs from plain")
     total = torch.stack(xs).double().sum(dim=0)
     p2_err = max(float((got[h].double() - total[h * eng.n_loc:
                                                 (h + 1) * eng.n_loc])
                        .abs().max()) for h in range(SHARDS))
-    p2_ms = cuda_ms(lambda: ring.ring_reduce_scatter(xs))
+    one_ms = cuda_ms(lambda: ring.reduce_scatter_onepass(xs))
+    one_plain_ms = cuda_ms(lambda: ring.reduce_scatter_onepass_plain(xs))
+    p2_ms = cuda_ms(lambda: ring.ring_reduce_scatter_hops(xs))
     p2_plain = cuda_ms(lambda: ring.ring_reduce_scatter_plain(xs))
     # the yardstick: one torch.sum over the stacked [G, n_pad, B] partials
     stacked = torch.stack(xs)
     p2_lib = cuda_ms(lambda: torch.sum(stacked, dim=0))
     del stacked
-    print(f"P2: bit-equal to plain on the walk phase's partials; max abs "
-          f"err {p2_err:.3e} against a float64 sum; {p2_ms:.4f} ms vs plain "
-          f"{p2_plain:.4f} ms per reduce-scatter; torch.sum over the stacked "
-          f"partials {p2_lib:.4f} ms")
-    del xs, got, want, total
+    print(f"P2: the one pass, its plain version, the ring's hop kernels and "
+          f"their plain loop bit-equal on the walk phase's partials; max "
+          f"abs err {p2_err:.3e} against a float64 sum; one pass "
+          f"{one_ms:.4f} ms (plain {one_plain_ms:.4f} ms), hops "
+          f"{p2_ms:.4f} ms (plain {p2_plain:.4f} ms) per reduce-scatter; "
+          f"torch.sum over the stacked partials {p2_lib:.4f} ms")
+    del xs, got, one_plain, hops, want, total
 
     # the single-device indexed level at the same depth, unmerged graph
     dg_raw = to_device(g, device=dev)
@@ -1871,16 +1908,28 @@ def run_sharded(g, rcfg, index, sources, dev, exact_ids):
           f"(limit {MIN_PRECISION})")
     if not prec >= MIN_PRECISION:
         fail(f"sharded precision@{K} {prec:.4f} < {MIN_PRECISION}")
-    # per collective, (G - 1) G hops of one [n_loc, B] block: P1 reads one
-    # block and writes one, P2 reads two and writes one
+    # the bounds of the functions, each input read once and each output
+    # written once: P1 reads the G own blocks and writes the G (G - 1)
+    # foreign ones, G^2 blocks; P2 reads the G partials (G^2 blocks) and
+    # writes G output blocks.  The ring's own traffic ((G - 1) G hops, P1
+    # one block read and one written a hop, P2 two read and one written),
+    # the yardstick before, is printed beside them
     hops, block = (SHARDS - 1) * SHARDS, eng.n_loc * B * 4
+    p2_bound = bound((SHARDS + 1) * SHARDS * block, hops * block / 4)
+    ring_ms = {"ring_all_gather_hop": bound(2 * hops * block)["bound_ms"],
+               "ring_reduce_scatter_hop": bound(3 * hops * block)["bound_ms"]}
     rows = {"ring_all_gather_hop": dict(
                 max_abs_err=p1_err, ms=p1_ms, plain_ms=p1_plain,
-                library_ms=p1_lib, **bound(2 * hops * block)),
+                library_ms=p1_lib, **bound(SHARDS * SHARDS * block)),
             "ring_reduce_scatter_hop": dict(
-                max_abs_err=p2_diff, ms=p2_ms, plain_ms=p2_plain,
-                library_ms=p2_lib,
-                **bound(3 * hops * block, hops * block / 4))}
+                max_abs_err=hop_diff, ms=p2_ms, plain_ms=p2_plain,
+                library_ms=p2_lib, **p2_bound),
+            "reduce_scatter_onepass": dict(
+                max_abs_err=p2_diff, ms=one_ms, plain_ms=one_plain_ms,
+                library_ms=p2_lib, **p2_bound)}
+    for name, ms in ring_ms.items():
+        print(f"{name}: bound of the function {rows[name]['bound_ms']:.4f} "
+              f"ms; the ring's traffic at the same rate {ms:.4f} ms")
     return rows, counts, res.push_iters
 
 
@@ -1966,20 +2015,25 @@ def sharded_pool(name, runner, sources):
 
 
 def compaction_rows(runner, rcfg, sources, dev):
-    """The compaction kernel and P3 against their plain versions on one
-    real superstep's blocks (the first superstep of the first 128
-    sources' final level whose frontier fits the capacity): per shard and
-    destination the same (id, row) pairs and counts, the compacted
-    exchange's buffers equal to the ring's on every row the receiver reads
-    (and zero elsewhere).  Returns the kernel rows of both, timed at that
-    superstep's shapes."""
+    """The compaction kernel, the zeroing by rows and P3 against their
+    plain versions on real supersteps of the first 128 sources' final
+    level: two consecutive supersteps that fit the capacity, the second
+    the one with the largest count, run by hand as ``push`` runs them.
+    The first follows the level's superstep before it, as the pool left
+    the buffers; the second follows that compacted one, so it zeroes only
+    its own block and the first's rows, and a stale row would show.  On
+    each, per shard and destination the same (id, row) pairs and counts
+    as the plain compaction, and the compacted buffers
+    equal to the ring's on every row the receiver reads and zero
+    elsewhere.  Returns the kernel rows of the compaction, P3 and
+    row_zero, timed at the second superstep's shapes."""
     import numpy as np
     import torch
     from fora_tpu_torch import kernels
     from fora_tpu_torch.ops import exchange as xops
     from fora_tpu_torch.ops import ring
-    from fora_tpu_torch.ops.gather import row_scatter_add_plain
-    from fora_tpu_torch.utils.timing import cuda_ms
+    from fora_tpu_torch.ops.gather import row_scatter_add_plain, row_zero_plain
+    from fora_tpu_torch.utils.timing import cuda_ms, device_ms
     pl = runner._groups[0]
     xch = pl.exchange
     depth, _, omega = runner._levels[-1]
@@ -1988,78 +2042,117 @@ def compaction_rows(runner, rcfg, sources, dev):
     counts = [torch.zeros(D, dtype=torch.int32, device=dev)
               for _ in range(G)]
 
-    def next_send(ps, rs):
-        """The next superstep's pre-pass (on a copy of p: it adds to p in
-        place) and send side."""
+    def counts_of(ps, rs):
+        """The next superstep's counts (its pre-pass on a copy of p, which
+        it adds to in place, then the send side)."""
         bufs = xch.buffers(BATCH)
-        for b in bufs:
-            b.fill_(float("nan"))
-        ps_next = [p.clone() for p in ps]
-        pl.prepass(ps_next, rs, bufs, thr, rcfg.alpha)
+        pl.prepass([p.clone() for p in ps], rs, bufs, thr, rcfg.alpha)
         xch.send(bufs, counts)
-        return ps_next, bufs, np.stack([c.cpu().numpy() for c in counts])
+        return np.stack([c.cpu().numpy() for c in counts])
 
-    # the superstep whose largest count is the largest within the capacity
+    # the superstep with the largest count within the capacity whose
+    # superstep before it fits too
     ps, rs = pl.init_state(sources[:BATCH])
-    step, most = -1, 0
+    fits, most = [], []
     for i in range(rcfg.max_push_iters):
-        c = next_send(ps, rs)[2]
-        if xch.fits(c) and c.max() > most:
-            step, most = i, int(c.max())
+        c = counts_of(ps, rs)
         if pl.push(ps, rs, thr, rcfg.alpha, 1) == 0:
             break
-    if step < 0:
-        fail("compaction check: no superstep of the level fit the capacity")
+        fits.append(xch.fits(c))
+        most.append(int(c.max()))
+    steps = [i for i in range(1, len(fits)) if fits[i] and fits[i - 1]]
+    if not steps:
+        fail("compaction check: no two consecutive supersteps of the level "
+             "fit the capacity")
+    step = max(steps, key=lambda i: most[i])
     ps, rs = pl.init_state(sources[:BATCH])
-    for _ in range(step):
+    for _ in range(step - 1):
         pl.push(ps, rs, thr, rcfg.alpha, 1)
-    ps, bufs, cnt = next_send(ps, rs)
-    k_ids = [t.clone() for t in xch.send_ids]
-    k_rows = [t.clone() for t in xch.send_rows]
-    written = 0
-    for h in range(G):
-        block = bufs[h][h * n_loc:(h + 1) * n_loc]
-        ids = torch.empty((D, cap), dtype=torch.int32, device=dev)
-        rows = torch.empty((D, cap, BATCH), device=dev)
-        pc = torch.empty(D, dtype=torch.int32, device=dev)
-        xops.frontier_compact_plain(block, pl.shards[h].needed, cap,
-                                    h * n_loc, xch.n_pad, ids, rows, pc)
-        if not np.array_equal(pc.cpu().numpy(), cnt[h]):
-            fail(f"compaction: shard {h} counts {cnt[h]} != plain "
-                 f"{pc.cpu().numpy()}")
-        for d in range(D):
-            n = min(int(cnt[h, d]), cap)
-            written += n
-            kid = k_ids[h][d, :n].long()
-            order = torch.argsort(kid)
-            if not (torch.equal(kid[order], ids[d, :n].long())
-                    and torch.equal(k_rows[h][d, :n][order], rows[d, :n])
-                    and bool((k_ids[h][d, n:] == xch.n_pad).all())):
-                fail(f"compaction: shard {h} destination {d} differs from "
-                     f"plain")
-    dense = [b.clone() for b in bufs]
-    ring.ring_all_gather(dense)
-    xch.exchange(bufs, cnt)
-    for t in range(G):
-        need = torch.cat([pl.shards[s].needed[xch._region(t)].bool()
-                          if pl.shards[s].needed is not None else
-                          torch.ones(n_loc, dtype=torch.bool, device=dev)
-                          for s in range(G)])
-        if not (torch.equal(bufs[t][need], dense[t][need])
-                and bool((bufs[t][~need] == 0).all())):
-            fail(f"P3 receive: shard {t}'s buffer differs from the ring's")
+
+    def superstep(first):
+        """One superstep by hand, checked; returns its own blocks, the
+        counts, the receive's slot ids and rows (shard 0) and the ids of
+        the receive before it (shard 0)."""
+        bufs = xch.buffers(BATCH)
+        pl.prepass(ps, rs, bufs, thr, rcfg.alpha)
+        xch.send(bufs, counts)
+        cnt = np.stack([c.cpu().numpy() for c in counts])
+        if not xch.fits(cnt):
+            fail(f"compaction check: superstep {step + (not first)} "
+                 f"overflowed")
+        for h in range(G):
+            block = bufs[h][h * n_loc:(h + 1) * n_loc]
+            ids = torch.empty((D, cap), dtype=torch.int32, device=dev)
+            rows = torch.empty((D, cap, BATCH), device=dev)
+            pc = torch.empty(D, dtype=torch.int32, device=dev)
+            xops.frontier_compact_plain(block, pl.shards[h].needed, cap,
+                                        h * n_loc, xch.n_pad, ids, rows, pc)
+            if not np.array_equal(pc.cpu().numpy(), cnt[h]):
+                fail(f"compaction: shard {h} counts {cnt[h]} != plain "
+                     f"{pc.cpu().numpy()}")
+            for d in range(D):
+                n = min(int(cnt[h, d]), cap)
+                kid = xch.send_ids[h][d, :n].long()
+                order = torch.argsort(kid)
+                if not (torch.equal(kid[order], ids[d, :n].long())
+                        and torch.equal(xch.send_rows[h][d, :n][order],
+                                        rows[d, :n])
+                        and bool((xch.send_ids[h][d, n:] == xch.n_pad)
+                                 .all())):
+                    fail(f"compaction: shard {h} destination {d} differs "
+                         f"from plain")
+        own = [bufs[h][h * n_loc:(h + 1) * n_loc].clone() for h in range(G)]
+        recv = (xch.recv_ids[0].clone(), xch.recv_rows[0].clone())
+        # None: the buffers are zeroed whole (after the ring)
+        prev = None if xch._written is None else xch._written[0].clone()
+        if not first and prev is None:
+            fail("zeroing by rows: no receive's rows to zero after a "
+                 "compacted superstep")
+        dense = [b.clone() for b in bufs]
+        ring.ring_all_gather(dense)
+        zeroed = kernels.row_zero.launches
+        xch.exchange(bufs, cnt)
+        if kernels.row_zero.launches - zeroed != (0 if prev is None else G):
+            fail(f"zeroing by rows: {kernels.row_zero.launches - zeroed} "
+                 f"row_zero launches on superstep {step + (not first)}")
+        for t in range(G):
+            need = torch.cat([pl.shards[s].needed[xch._region(t)].bool()
+                              if pl.shards[s].needed is not None else
+                              torch.ones(n_loc, dtype=torch.bool, device=dev)
+                              for s in range(G)])
+            if not (torch.equal(bufs[t][need], dense[t][need])
+                    and bool((bufs[t][~need] == 0).all())):
+                fail(f"P3 receive (superstep {step + (not first)}): shard "
+                     f"{t}'s buffer differs from the ring's")
+        flags = [torch.zeros(1, dtype=torch.int32, device=dev)
+                 for _ in range(G)]
+        pl._gather(rs, bufs, thr, flags)
+        return own, cnt, recv, prev
+
+    superstep(True)
+    own, cnt, (dst, tile), prev = superstep(False)
     print(f"compaction ({xch.mode}, cap {cap}): bit-equal to plain on "
-          f"superstep {step + 1} of the final level ({int(cnt.sum())} rows "
-          f"due over {G} x {D} pairs, largest {int(cnt.max())}); the "
-          f"compacted buffers equal the ring's on every needed row")
-    # timings at that superstep, shard 0's launch
-    block0 = bufs[0][:n_loc]
-    pl.prepass(ps, rs, bufs, thr, rcfg.alpha)
-    args = (block0, pl.shards[0].needed, cap, 0, xch.n_pad, xch.send_ids[0],
-            xch.send_rows[0], counts[0])
+          f"supersteps {step} and {step + 1} of the final level "
+          f"({int(cnt.sum())} rows due over {G} x {D} pairs at the second, "
+          f"largest {int(cnt.max())}); the compacted buffers equal the "
+          f"ring's on every needed row and zero elsewhere, also after a "
+          f"compacted superstep (zeroing by rows)")
+    # timings at the second superstep, shard 0's launches.  ms, plain_ms
+    # and library_ms time the launches as called (cuda_ms), as every row
+    # of the line does; each kernel is shorter than its wrapper's host
+    # work, so device_ms, its time with the host's enqueue hidden, is a
+    # field of its own
+    block0 = own[0]
+    ids0 = torch.empty((D, cap), dtype=torch.int32, device=dev)
+    rows0 = torch.empty((D, cap, BATCH), device=dev)
+    cnt0 = torch.empty(D, dtype=torch.int32, device=dev)
+    args = (block0, pl.shards[0].needed, cap, 0, xch.n_pad, ids0, rows0,
+            cnt0)
     sent0 = int(np.minimum(cnt[0], cap).sum())
     comp = dict(
-        max_abs_err=0.0, ms=cuda_ms(lambda: kernels.frontier_compact(*args)),
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.frontier_compact(*args)),
+        device_ms=device_ms(lambda: kernels.frontier_compact(*args)),
         plain_ms=cuda_ms(lambda: xops.frontier_compact_plain(*args)),
         library_ms=None,   # no one PyTorch call compacts rows
         # the block and the masks read once, the rows sent and every id
@@ -2067,35 +2160,85 @@ def compaction_rows(runner, rcfg, sources, dev):
         **bound(nbytes(block0, pl.shards[0].needed)
                 + sent0 * BATCH * 4 + D * cap * 4 + D * 4))
     src = xch.slot_src[dev]
-    acc = torch.zeros_like(bufs[0])
-    tile, dst = xch.recv_rows[0], xch.recv_ids[0]
+    acc = torch.zeros((xch.n_pad, BATCH), device=dev)
     real = dst < xch.n_pad
     real_rows = int(real.sum())
     tile_real, dst_real = tile[real], dst[real].long()
     p3 = dict(
         max_abs_err=0.0,
         ms=cuda_ms(lambda: kernels.row_scatter_add(acc, tile, src, dst)),
+        device_ms=device_ms(lambda: kernels.row_scatter_add(acc, tile, src,
+                                                            dst)),
         plain_ms=cuda_ms(lambda: row_scatter_add_plain(acc, tile, src, dst)),
         library_ms=cuda_ms(lambda: acc.index_add_(0, dst_real, tile_real)),
         # the real rows read, their acc rows read and written, the slot
         # ids and sources read once
         **bound(3 * real_rows * BATCH * 4 + 2 * dst.numel() * 4))
+    # row_zero on the ids of the first superstep's receive, as the second
+    # superstep's exchange ran it
+    prev_real = prev[(prev >= 0) & (prev < xch.n_pad)].long()
+    zero_rows = int(prev_real.numel())
+    rz_k = kernels.row_zero(acc.fill_(1.0), prev)
+    rz_p = row_zero_plain(acc.clone().fill_(1.0), prev)
+    rz = dict(
+        max_abs_err=float((rz_k - rz_p).abs().max()),
+        ms=cuda_ms(lambda: kernels.row_zero(acc, prev)),
+        device_ms=device_ms(lambda: kernels.row_zero(acc, prev)),
+        plain_ms=cuda_ms(lambda: row_zero_plain(acc, prev)),
+        library_ms=cuda_ms(lambda: acc.index_fill_(0, prev_real, 0.0)),
+        # the slot ids read once, each real id's row written once
+        **bound(prev.numel() * 4 + zero_rows * BATCH * 4))
+    if rz["max_abs_err"] != 0.0:
+        fail("row_zero differs from its plain version")
+    whole = device_ms(lambda: acc.zero_())
+    block = device_ms(lambda: acc[:n_loc].zero_())
     print(f"compaction kernel (shard 0, [{n_loc}, {BATCH}], {D} "
-          f"destinations, {sent0} rows sent): {comp['ms']:.4f} ms, plain "
+          f"destinations, {sent0} rows sent): {comp['ms']:.4f} ms as called "
+          f"({comp['device_ms']:.4f} on the device), plain "
           f"{comp['plain_ms']:.4f} ms, bound {comp['bound_ms']:.4f} ms; P3 "
           f"receive (shard 0, {dst.numel()} slots, {real_rows} real): "
-          f"{p3['ms']:.4f} ms, plain {p3['plain_ms']:.4f} ms, index_add_ "
-          f"over the real rows {p3['library_ms']:.4f} ms, bound "
-          f"{p3['bound_ms']:.4f} ms")
-    del ps, rs, dense, acc, tile_real
-    return comp, p3
+          f"{p3['ms']:.4f} ms ({p3['device_ms']:.4f}), plain "
+          f"{p3['plain_ms']:.4f} ms, index_add_ over the real rows "
+          f"{p3['library_ms']:.4f} ms, bound {p3['bound_ms']:.4f} ms; "
+          f"row_zero (shard 0, {prev.numel()} slots, {zero_rows} real): "
+          f"{rz['ms']:.4f} ms ({rz['device_ms']:.4f}), plain "
+          f"{rz['plain_ms']:.4f} ms, index_fill_ over the real rows "
+          f"{rz['library_ms']:.4f} ms, bound {rz['bound_ms']:.4f} ms; the "
+          f"whole-buffer zero_ it replaces {whole:.4f} ms, the own "
+          f"block's {block:.4f} ms (on the device)")
+    del ps, rs, acc, tile_real, own
+    return comp, p3, rz
+
+
+# the exchange's kernels in a profile, by a part of their device record's
+# name: the buffer zeroing (PyTorch's fill kernel, which zero_ launches,
+# and memset records), the compaction, P3, row_zero and P2
+EXCHANGE_RECORDS = (("memset", ("FillFunctor", "Memset")),
+                    ("compaction", ("compact_kernel",)),
+                    ("P3", ("row_scatter_add_kernel",)),
+                    ("row_zero", ("row_zero_kernel",)),
+                    ("P2 one pass", ("reduce_scatter_onepass_kernel",)),
+                    ("P1", ("ring_copy4_kernel",)))
+
+
+def exchange_line(mode, prof) -> None:
+    """Print a pool profile's device time of the exchange's kernels."""
+    if not prof:
+        print(f"sharded pool {mode}: no profile, so no memset time")
+        return
+    parts = []
+    for label, keys in EXCHANGE_RECORDS:
+        hit = [v for k, v in prof.items() if any(x in k for x in keys)]
+        parts.append(f"{label} {sum(v[0] for v in hit):.2f} ms "
+                     f"({sum(v[1] for v in hit)} calls)")
+    print(f"sharded pool {mode}, device time: " + ", ".join(parts))
 
 
 def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
     """Phase 15: the sharded refinement pool with SHARDS shards on the
     mesh's devices, once per exchange, phase 5's pools.  ``single`` is
-    phase 5's (ids, values).  Returns (kernel rows of the compaction and
-    P3, launch counts per run, level records per run)."""
+    phase 5's (ids, values).  Returns (kernel rows of the compaction, P3
+    and row_zero, launch counts per run, level records per run)."""
     import shutil
     import numpy as np
     import torch
@@ -2129,10 +2272,12 @@ def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
         lambda r=r: timed(lambda: run_queries(r, sources, quiet)))
         for mode, r in runs.items()}, f"{len(sources)} queries")
     for mode in ("dense", "routed"):
-        profile_once(f"sharded_pool_{mode}",
-                     lambda r=runs[mode]: run_queries(r, sources, quiet),
-                     need_trace=False)
-    comp, p3 = compaction_rows(runs["routed"], rcfg, sources, dev)
+        prof = profile_once(f"sharded_pool_{mode}",
+                            lambda r=runs[mode]: run_queries(r, sources,
+                                                             quiet),
+                            need_trace=False)
+        exchange_line(mode, prof)
+    comp, p3, rz = compaction_rows(runs["routed"], rcfg, sources, dev)
     del runs
     torch.cuda.empty_cache()
     ids0, vals0, lev0 = out["dense"][:3]
@@ -2190,7 +2335,7 @@ def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
     del run
     shutil.rmtree(sdir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return comp, p3, launches, stats
+    return comp, p3, rz, launches, stats
 
 
 def run_weighted_sharded(gw, rcfg, index, sources, exact_ids):
@@ -2678,7 +2823,7 @@ def main(argv=None) -> int:
     # ---- 15. the sharded refinement pool -----------------------------------
     with Phase("sharded pool"):
         (rows["frontier_compact"], rows["row_scatter_add_receive"],
-         pool_launches,
+         rows["row_zero"], pool_launches,
          pool_stats) = run_sharded_pool(g, rcfg, index, sources, dev,
                                         ex[:EVAL_N], (results, single_vals))
 
@@ -2749,14 +2894,16 @@ def main(argv=None) -> int:
                                            *pool_launches.values())):
         fail("K4's alias branch was launched on an unweighted path")
     # phase 15: per exchange, K1-K3 and P2 on every level run (K2 and K3
-    # once per shard, P2 (G - 1) G hops), P1 on the supersteps that took
-    # the ring, the compaction and P3 on the compacted runs only (P3 once
-    # per shard per compacted superstep)
+    # once per shard, P2's one pass once: every shard is on the one card,
+    # so the ring's hops never run), P1 on the supersteps that took the
+    # ring, the compaction, P3 and row_zero on the compacted runs only (P3
+    # once per shard per compacted superstep, row_zero once per shard on
+    # those that follow a compacted one)
     hops = (SHARDS - 1) * SHARDS
     for mode, c in list(pool_launches.items()) + [("weighted routed",
                                                    w_pool_launches)]:
         print(f"launches in phase 15 ({mode}): {c}")
-        for name in SHARDED_KERNELS[:4] + ("ring_reduce_scatter_hop",):
+        for name in SHARDED_KERNELS[:4] + ("reduce_scatter_onepass",):
             if c[name] <= 0:
                 fail(f"kernel {name} was not launched by the sharded pool "
                      f"({mode})")
@@ -2770,7 +2917,7 @@ def main(argv=None) -> int:
         back = sum(x["fell_back"] for x in st)
         ring_steps = steps if mode == "dense" else back
         want = {"topk_bounds": SHARDS * runs, "index_spmv": SHARDS * runs,
-                "ring_reduce_scatter_hop": hops * runs,
+                "reduce_scatter_onepass": runs, "ring_reduce_scatter_hop": 0,
                 "ring_all_gather_hop": hops * ring_steps,
                 "gather_scatter_add": SHARDS * steps,
                 "row_scatter_add": SHARDS * comp}
@@ -2781,15 +2928,23 @@ def main(argv=None) -> int:
                      f"{comp} compacted)")
         if (mode == "dense") != (c["frontier_compact"] == 0):
             fail(f"phase 15 {mode}: {c['frontier_compact']} compactions")
+        if mode == "dense" and c["row_zero"] or mode != "dense" and not (
+                0 < c["row_zero"] <= SHARDS * comp):
+            fail(f"phase 15 {mode}: {c['row_zero']} row_zero launches for "
+                 f"{comp} compacted supersteps")
         print(f"phase 15 {mode}: K3 and K2 once per shard per level run "
               f"({runs}), P1 on the {ring_steps} supersteps that took the "
               f"ring, P3 on the {comp} compacted ones"
               + (" (no superstep fell back, so P1 did not run)"
                  if mode != "dense" and not back else ""))
-    if any(c["frontier_compact"] or c["row_scatter_add"]
+    if any(c["frontier_compact"] or c["row_scatter_add"] or c["row_zero"]
            for c in (launches, sharded_launches, raw_launches, mc_launches)):
-        fail("the compaction or P3 ran on a path without a compacted "
-             "exchange")
+        fail("the compaction, P3 or row_zero ran on a path without a "
+             "compacted exchange")
+    if any(c["ring_reduce_scatter_hop"] for c in (
+            sharded_launches, w_pool_launches, *pool_launches.values(),
+            *cli_launches.values())):
+        fail("P2's hop kernel ran with every shard on one card")
     # phase 14: each CLI action and the server ran its kernels; BiPPR's
     # pre-pass and K4-hub ran on no path before it, K4-hub only in hubppr
     for name, c in cli_launches.items():
@@ -2797,9 +2952,9 @@ def main(argv=None) -> int:
     need = {"build": ("index_walk",),
             "batch-topk": MAIN_KERNELS[:4], "serve": MAIN_KERNELS[:4],
             "batch-topk sharded": MAIN_KERNELS[:4] + (
-                "ring_reduce_scatter_hop", "frontier_compact"),
+                "reduce_scatter_onepass", "frontier_compact"),
             "serve sharded": MAIN_KERNELS[:4] + (
-                "ring_all_gather_hop", "ring_reduce_scatter_hop"),
+                "ring_all_gather_hop", "reduce_scatter_onepass"),
             "fwdpush": ("push_prepass", "gather_scatter_add"),
             "hubppr": ("index_walk", "index_walk_hub"),
             "bippr": ("backward_prepass", "gather_scatter_add",
@@ -2819,9 +2974,9 @@ def main(argv=None) -> int:
     if sharded_launches["ring_all_gather_hop"] != hops * sh_iters:
         fail(f"P1: {sharded_launches['ring_all_gather_hop']} launches, "
              f"expected {hops} per superstep x {sh_iters}")
-    if sharded_launches["ring_reduce_scatter_hop"] != hops:
-        fail(f"P2: {sharded_launches['ring_reduce_scatter_hop']} launches, "
-             f"expected {hops}")
+    if sharded_launches["reduce_scatter_onepass"] != 1:
+        fail(f"P2: {sharded_launches['reduce_scatter_onepass']} launches of "
+             f"the one pass, expected 1")
     if sharded_launches["index_spmv"] != SHARDS:
         fail(f"K2: {sharded_launches['index_spmv']} sharded launches, "
              f"expected one per shard")
@@ -2841,6 +2996,8 @@ def main(argv=None) -> int:
         "index_walk_hub": ("walk.cu", "fora_tpu/algo/hubppr.py:143"),
         "ring_all_gather_hop": ("ring.cu", "fora_tpu/ops/ring.py:107"),
         "ring_reduce_scatter_hop": ("ring.cu", "fora_tpu/ops/ring.py:32"),
+        # P2 again, in one launch where the shards share a card
+        "reduce_scatter_onepass": ("ring.cu", "fora_tpu/ops/ring.py:32"),
         "row_scatter_add": ("row_scatter.cu",
                             "scripts/pallas_gather_probe.py:43"),
         # P3 again, as the routed exchange's receive (JAX's
@@ -2849,6 +3006,9 @@ def main(argv=None) -> int:
                                     "fora_tpu/parallel/sharded.py:204"),
         "frontier_compact": ("exchange.cu",
                              "fora_tpu/parallel/sharded.py:177"),
+        # the zeroed buffer of the routed receive (JAX's ``jnp.zeros`` of
+        # every row before ``full.at[recv_ids].add``)
+        "row_zero": ("row_scatter.cu", "fora_tpu/parallel/sharded.py:203"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
@@ -2857,7 +3017,8 @@ def main(argv=None) -> int:
              p3_launches[name] if name == "row_scatter_add" else
              pool_launches["routed"]["row_scatter_add"]
              if name == "row_scatter_add_receive" else
-             pool_launches["routed"][name] if name == "frontier_compact" else
+             pool_launches["routed"][name]
+             if name in ("frontier_compact", "row_zero") else
              w_launches[name] if name == "index_walk_alias" else
              cli_launches["bippr"][name] if name == "backward_prepass" else
              cli_launches["hubppr"][name] if name == "index_walk_hub" else
@@ -2868,7 +3029,9 @@ def main(argv=None) -> int:
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"],
                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                    "library_ms": row["library_ms"]})
+                    "library_ms": row["library_ms"],
+                    **({"device_ms": row["device_ms"]}
+                       if "device_ms" in row else {})})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,8 +19,10 @@ PyTorch versions instead.
 | index_walk_alias        | csrc/walk.cu           | K4's alias branch (the same, on weighted graphs) |
 | index_walk_hub          | csrc/walk.cu           | K4-hub (HubPPR's query walks, uniform or alias hops) |
 | ring_all_gather_hop     | csrc/ring.cu           | P1 (one hop of one shard) |
-| ring_reduce_scatter_hop | csrc/ring.cu           | P2 (one hop of one shard) |
+| ring_reduce_scatter_hop | csrc/ring.cu           | P2 (one hop of one shard; shards on several cards) |
+| reduce_scatter_onepass  | csrc/ring.cu           | P2 in one launch (every shard on one card) |
 | row_scatter_add         | csrc/row_scatter.cu    | P3 (per-edge row accumulate, atomics; the receive of the compacted exchanges) |
+| row_zero                | csrc/row_scatter.cu    | the compacted exchange's zeroing of the rows the previous receive wrote |
 | frontier_compact        | csrc/exchange.cu       | the frontier compaction (the send side of the compact, routed and hier exchanges) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 | row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
@@ -52,7 +54,8 @@ from . import build, schedule, select
 __all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
            "index_spmv", "topk_bounds", "topk_bounds_stats", "index_walk",
            "index_walk_alias", "index_walk_hub", "ring_all_gather_hop",
-           "ring_reduce_scatter_hop", "row_scatter_add", "frontier_compact",
+           "ring_reduce_scatter_hop", "reduce_scatter_onepass",
+           "row_scatter_add", "row_zero", "frontier_compact",
            "sector_reads", "row_reads",
            "philox_blocks", "inv_log1m_alpha", "sm_count",
            "enable_peer_access",
@@ -438,6 +441,29 @@ def ring_reduce_scatter_hop(out: torch.Tensor, recv: torch.Tensor,
     _raise_on(err, "ring_reduce_scatter_hop")
 
 
+def reduce_scatter_onepass(out: torch.Tensor, xs: list) -> None:
+    """P2 with every shard on one card, in one launch: ``xs`` holds G
+    (2 <= G <= 32) [G * n_loc, B] f32 partials on ``out``'s card and
+    ``out`` ([G * n_loc, B] f32) gets, in row block h, the sum over shards
+    of block h, added in the ring's order (shard h + 1's partial first,
+    shard h's own last), so it equals the hop loop bit for bit."""
+    G = len(xs)
+    _check("out", out, torch.float32)
+    if not 2 <= G <= 32 or out.dim() != 2 or out.shape[0] % G:
+        raise ValueError(f"reduce_scatter_onepass: {G} partials into "
+                         f"{tuple(out.shape)}; need 2-32 shards and rows "
+                         "dividing by them")
+    for i, x in enumerate(xs):
+        _check(f"xs[{i}]", x, torch.float32, out.shape, out.device)
+    ptrs = (ctypes.c_void_p * G)(*[x.data_ptr() for x in xs])
+    with torch.cuda.device(out.device):
+        err = build.library().fora_reduce_scatter_onepass(
+            _ptr(out), ctypes.cast(ptrs, ctypes.c_void_p), G,
+            out.numel() // G, _stream(out))
+    reduce_scatter_onepass.launches += 1
+    _raise_on(err, "reduce_scatter_onepass")
+
+
 def row_scatter_add(acc: torch.Tensor, tile: torch.Tensor, src: torch.Tensor,
                     dst: torch.Tensor) -> torch.Tensor:
     """P3: for every edge e, ``acc[dst[e]] += tile[src[e]]`` (rows of
@@ -464,6 +490,25 @@ def row_scatter_add(acc: torch.Tensor, tile: torch.Tensor, src: torch.Tensor,
     return acc
 
 
+def row_zero(buf: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``buf[ids[e]] = 0`` for every e whose id lies in buf's rows (an id
+    outside them, a pad slot, is skipped); ``buf`` [rows, B] f32, ``ids``
+    int32.  Updates ``buf`` in place and returns it."""
+    dev = buf.device
+    _check("buf", buf, torch.float32)
+    if buf.dim() != 2:
+        raise ValueError(f"row_zero: buf of shape {tuple(buf.shape)}, "
+                         "expected [rows, B]")
+    _check("ids", ids, torch.int32, (ids.numel(),), dev)
+    with torch.cuda.device(dev):
+        err = build.library().fora_row_zero(
+            _ptr(buf), _ptr(ids), ids.numel(), buf.shape[0], buf.shape[1],
+            _stream(buf))
+    row_zero.launches += 1
+    _raise_on(err, "row_zero")
+    return buf
+
+
 def frontier_compact(contrib: torch.Tensor, needed: Optional[torch.Tensor],
                      cap: int, row0: int, pad_id: int, ids: torch.Tensor,
                      rows: torch.Tensor, counts: torch.Tensor) -> None:
@@ -473,7 +518,8 @@ def frontier_compact(contrib: torch.Tensor, needed: Optional[torch.Tensor],
     every such row), a slot of ``ids[d]`` ([cap] int32) gets ``row0 + i``
     and the same slot of ``rows[d]`` ([cap, B] f32) the row; ``counts[d]``
     (int32) ends as the rows due to d, past ``cap`` included, and unused
-    slots of ``ids`` hold ``pad_id``.  The slot order varies from run to
+    slots of ``ids`` hold ``pad_id``.  Slots follow row order within each
+    block of the kernel; across blocks their order varies from run to
     run.  ``ids`` [D, >= cap] and ``rows`` [D, >= cap, B] may be views
     whose destinations lie apart (their rows must be contiguous)."""
     n_loc, B = contrib.shape
@@ -585,7 +631,8 @@ def enable_peer_access(reader: torch.device, owner: torch.device) -> None:
 
 WRAPPERS = (push_prepass, backward_prepass, gather_scatter_add, index_spmv,
             topk_bounds, index_walk, index_walk_alias, index_walk_hub,
-            ring_all_gather_hop, ring_reduce_scatter_hop, row_scatter_add,
+            ring_all_gather_hop, ring_reduce_scatter_hop,
+            reduce_scatter_onepass, row_scatter_add, row_zero,
             frontier_compact, philox_blocks)
 for _w in WRAPPERS:
     _w.launches = 0

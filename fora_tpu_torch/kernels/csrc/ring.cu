@@ -1,8 +1,11 @@
-// P1 · ring all-gather hop and P2 · ring reduce-scatter hop, in pull form.
+// P1 · ring all-gather hop and P2 · ring reduce-scatter hop, in pull form;
+// and P2 in one pass where every shard sits on one card.
 //
 //   P1, hop s, shard h:  bufs[h][blk]   = bufs[h-1][blk],          blk = (h-1-s) mod G
 //   P2, hop s, shard h:  comm_h[(s+1)%2] = comm_{h-1}[s%2] + x_h[blk], blk = (h-s-2) mod G
 //                        (hop 0 reads x_{h-1}[blk] in place of comm_{h-1}[0])
+//   P2, one pass:        out[h][i] = ((x_{h+1}[h][i] + x_{h+2}[h][i]) + ...) + x_{h+G}[h][i]
+//                        for every shard h and element i of block h (shards mod G)
 //
 // Replaces the Pallas kernels of fora_tpu/ops/ring.py: _ring_all_gather_kernel
 // (107-156) and _ring_reduce_scatter_kernel (32-104), which loop over the G-1
@@ -25,6 +28,23 @@
 // with a scalar loop for the tail and for buffers that are not 16-byte
 // aligned.  The add is one f32 add in JAX's operand order (received partial
 // + own block), so the result equals the plain PyTorch hop loop bit for bit.
+//
+// The one pass.  The ring's G - 1 dependent hops exist because the TPU's
+// shards sat on separate chips that reached only their neighbours.  With
+// every shard on one card the G partials lie in one memory, and the hops
+// only add traffic: 3 (G - 1) G blocks moved where the function needs G
+// blocks read per output block and one written, (G + 1) G blocks in all.
+// So one launch computes every shard's output block: block row h of the
+// grid owns output block h, a grid-stride loop over its float4s reads the
+// same float4 of each partial (the G loads issued together, up to
+// kOnepassUnroll at a time), adds them in registers in the ring's own
+// order (the partial of shard h + 1 first, then h + 2, ..., shard h's own
+// last: the order the hops add in) and writes one float4.  So the result
+// equals the hop loop's bit for bit.  The G partial pointers come in the
+// kernel's parameters; each block puts them in shared memory in its
+// summation order, picking each with constant indices only.  Bound by
+// bytes; no reuse to stage, so no TMA.  A scalar kernel takes blocks that
+// are not whole float4s or partials that are not 16-byte aligned.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,6 +75,63 @@ __global__ void ring_scalar_kernel(float* __restrict__ out, const float* __restr
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = lo + (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     out[i] = recv != nullptr ? recv[i] + own[i] : own[i];
+  }
+}
+
+constexpr int kMaxShards = 32;
+constexpr int kOnepassUnroll = 4;
+
+struct Partials {
+  const float* x[kMaxShards];
+};
+
+// block row h = blockIdx.y: out[h * n_blk + i] for i < n_blk, the partials
+// summed in the ring's order; VEC4: n_blk a multiple of 4, every pointer
+// 16-byte aligned
+template <bool VEC4>
+__global__ void reduce_scatter_onepass_kernel(float* __restrict__ out, const Partials parts, int G,
+                                              long long n_blk) {
+  __shared__ const float* order[kMaxShards];
+  const int h = blockIdx.y;
+  if (threadIdx.x < G) {
+    const int want = (h + 1 + (int)threadIdx.x) % G;
+    const float* p = nullptr;
+#pragma unroll
+    for (int k = 0; k < kMaxShards; ++k) {
+      if (k == want) p = parts.x[k];
+    }
+    order[threadIdx.x] = p;
+  }
+  __syncthreads();
+  const long long base = (long long)h * n_blk;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long n = VEC4 ? n_blk >> 2 : n_blk;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    if (VEC4) {
+      float4 acc = __ldg(reinterpret_cast<const float4*>(order[0] + base) + i);
+      for (int j0 = 1; j0 < G; j0 += kOnepassUnroll) {
+        float4 v[kOnepassUnroll];
+#pragma unroll
+        for (int u = 0; u < kOnepassUnroll; ++u) {
+          v[u] = j0 + u < G ? __ldg(reinterpret_cast<const float4*>(order[j0 + u] + base) + i)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < kOnepassUnroll; ++u) {
+          if (j0 + u < G) {
+            acc.x += v[u].x;
+            acc.y += v[u].y;
+            acc.z += v[u].z;
+            acc.w += v[u].w;
+          }
+        }
+      }
+      reinterpret_cast<float4*>(out + base)[i] = acc;
+    } else {
+      float acc = __ldg(order[0] + base + i);
+      for (int j = 1; j < G; ++j) acc += __ldg(order[j] + base + i);
+      out[base + i] = acc;
+    }
   }
 }
 
@@ -105,6 +182,34 @@ extern "C" int fora_ring_copy(float* dst, const float* src, long long n, void* s
 extern "C" int fora_ring_add(float* out, const float* recv, const float* own, long long n,
                              void* stream) {
   return ring_hop(out, recv, own, n, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// P2 with every shard on one card: out ([G * n_blk] floats) block h = the
+// sum over shards of block h of the G partials xs[0..G-1] (each [G *
+// n_blk] floats, a host array of device pointers), in the ring's order
+extern "C" int fora_reduce_scatter_onepass(float* out, const float* const* xs, int G,
+                                           long long n_blk, void* stream) {
+  if (G < 2 || G > kMaxShards || n_blk < 0 || xs == nullptr) return (int)cudaErrorInvalidValue;
+  if (n_blk == 0) return (int)cudaGetLastError();
+  Partials parts = {};
+  bool vec = aligned16(out) && n_blk % 4 == 0;
+  for (int k = 0; k < G; ++k) {
+    if (xs[k] == nullptr) return (int)cudaErrorInvalidValue;
+    parts.x[k] = xs[k];
+    vec = vec && aligned16(xs[k]);
+  }
+  const long long units = vec ? n_blk / 4 : n_blk;
+  long long per_row = kMaxBlocks / G;
+  const long long want = (units + kThreads - 1) / kThreads;
+  if (want < per_row) per_row = want;
+  const dim3 grid((unsigned)(per_row > 0 ? per_row : 1), (unsigned)G);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (vec) {
+    reduce_scatter_onepass_kernel<true><<<grid, kThreads, 0, st>>>(out, parts, G, n_blk);
+  } else {
+    reduce_scatter_onepass_kernel<false><<<grid, kThreads, 0, st>>>(out, parts, G, n_blk);
+  }
+  return (int)cudaGetLastError();
 }
 
 // Let `device` read memory of `peer` through plain pointers.  Refuses

@@ -33,6 +33,18 @@
 // fails the dst < rows test and costs no atomic, so every real id, unique
 // in a receive, adds its row to 0.0 once and the buffer equals the dense
 // exchange's rows bit for bit.
+//
+// row_zero: buf[ids[e], :] = 0 for every e whose id lies in buf's rows (a
+// pad slot skipped as above).  The compacted exchange's receive needs a
+// buffer that is zero on every row it does not receive; zeroing the whole
+// [n_pad, B] buffer costs 268 MB of stores a shard at bench.py's shapes,
+// where what was written since it was last zero is the shard's own block
+// and the rows of the previous receive (at most G * cap).  This kernel
+// zeroes those rows (ops/exchange.py keeps track of which they are).
+// Bound by bytes: the ids read and B * 4 bytes stored a real id.  Design:
+// P3's lane groups, each storing one row as float4 zeros (scalar stores
+// where B or the address is not a multiple of 4 floats).  An id may
+// repeat: the stores do not conflict.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,7 +76,52 @@ __global__ void row_scatter_add_kernel(float* __restrict__ acc, const float* __r
   }
 }
 
+template <bool VEC4>
+__global__ void row_zero_kernel(float* __restrict__ buf, const int* __restrict__ ids, long long n_ids,
+                                long long rows, int B, int group_log2) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long e = t >> group_log2;
+  if (e >= n_ids) return;
+  const int group = 1 << group_log2;
+  const int lane = (int)(t & (group - 1));
+  const long long d = ids[e];
+  if (d < 0 || d >= rows) return;   // a pad slot
+  float* out = buf + d * B;
+  if (VEC4) {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = lane; c < (B >> 2); c += group) reinterpret_cast<float4*>(out)[c] = zero;
+  } else {
+    for (int c = lane; c < B; c += group) out[c] = 0.f;
+  }
+}
+
+// the lanes a row takes: the power of two that covers its chunks, at most 32
+int group_log2_for(int chunks) {
+  int g = 0;
+  while ((1 << g) < chunks && g < 5) ++g;
+  return g;
+}
+
 }  // namespace
+
+extern "C" int fora_row_zero(float* buf, const int* ids, long long n_ids, long long rows, int B,
+                             void* stream) {
+  if (n_ids <= 0 || B <= 0) return (int)cudaGetLastError();
+  const bool vec4 = (B % 4 == 0) && ((reinterpret_cast<uintptr_t>(buf) & 15) == 0);
+  const int group_log2 = group_log2_for(vec4 ? B / 4 : B);
+  const int threads = 256;
+  const long long blocks = ((n_ids << group_log2) + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (vec4) {
+    row_zero_kernel<true><<<(unsigned)blocks, threads, 0, st>>>(buf, ids, n_ids, rows, B,
+                                                                group_log2);
+  } else {
+    row_zero_kernel<false><<<(unsigned)blocks, threads, 0, st>>>(buf, ids, n_ids, rows, B,
+                                                                 group_log2);
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int fora_row_scatter_add(float* acc, const float* tile, const int* src,
                                     const int* dst, long long E, long long rows, int B,
@@ -72,9 +129,7 @@ extern "C" int fora_row_scatter_add(float* acc, const float* tile, const int* sr
   if (E <= 0 || B <= 0) return (int)cudaGetLastError();
   const bool vec4 = (B % 4 == 0) && ((reinterpret_cast<uintptr_t>(acc) & 15) == 0) &&
                     ((reinterpret_cast<uintptr_t>(tile) & 15) == 0);
-  const int chunks = vec4 ? B / 4 : B;
-  int group_log2 = 0;
-  while ((1 << group_log2) < chunks && group_log2 < 5) ++group_log2;
+  const int group_log2 = group_log2_for(vec4 ? B / 4 : B);
   const int threads = 256;
   const long long blocks = ((E << group_log2) + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;

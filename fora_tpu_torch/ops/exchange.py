@@ -29,6 +29,21 @@ is P3 (``kernels.row_scatter_add``) into the zeroed buffer, skipping the
 pad slots, so each row lands at its id once and the buffer's needed rows
 equal the dense exchange's bit for bit.
 
+Zeroing by rows.  The receive needs a buffer that is zero on every row it
+does not receive, and a shard's [n_pad, B] buffer is G times the block the
+pre-pass writes.  So ``FrontierExchange`` keeps track of what was written
+since each buffer was last zero: the shard's own block (the pre-pass
+writes it every superstep) and the real ids of the previous compacted
+receive; or everything, after the ring filled the buffer or after
+``buffers`` made new ones.  Nothing else may write the buffers: a
+write the exchange does not see would survive the next zeroing.  Before
+a receive it zeroes the own block (one contiguous ``zero_``) and those
+ids (``row_zero``, ``kernels/csrc/row_scatter.cu``), or the whole
+buffer when everything may have been written.  On one device the ids of the
+previous receive must outlive the next send, which writes the slot
+arrays in place, so the id slots are double-buffered: each send writes
+the half that the last receive did not read.
+
 When some shard has more than ``cap`` rows due to a destination, every
 shard takes the dense exchange for that superstep, as JAX's ``pmax`` and
 ``lax.cond`` do; the counts come back to the host with the push's flag
@@ -45,7 +60,7 @@ import torch
 
 from .. import kernels
 from . import ring
-from .gather import row_scatter_add
+from .gather import row_scatter_add, row_zero
 
 # the reference's exchanges; ``ragged`` is refused (ROADMAP C5)
 MODES = ("dense", "compact", "routed", "ragged", "hier")
@@ -114,6 +129,12 @@ class FrontierExchange:
     (dense, compact); a caller may set it after construction, before the
     first ``send``.  ``compacted`` and ``fell_back`` count the supersteps
     that took each exchange.
+
+    The buffers' invariant (the module docstring's zeroing by rows): before
+    each compacted receive, shard t's buffer is zero outside its own block
+    and the rows the previous compacted receive wrote, unless it is new or
+    the ring filled it since; only the pre-pass (its own block) and
+    ``exchange`` write it otherwise.
     """
 
     def __init__(self, mode: Optional[str], devices: Sequence[torch.device],
@@ -147,6 +168,9 @@ class FrontierExchange:
         self.compacted = 0
         self.fell_back = 0
         self._B = None
+        # per shard, the ids of the previous compacted receive; None: any
+        # row of the buffers may hold data
+        self._written = None
 
     @property
     def n_pad(self) -> int:
@@ -158,7 +182,10 @@ class FrontierExchange:
 
     def buffers(self, B: int) -> list:
         """Per shard, the [n_pad, B] f32 exchange buffer (contents
-        undefined), reused while the width stays B."""
+        undefined), reused while the width stays B.  A caller writes only
+        shard h's own block of buffer h (rows h * n_loc to (h + 1) *
+        n_loc), as the pre-pass does: the zeroing by rows before a
+        compacted receive does not see other writes."""
         if self._B != B:
             # the old width's buffers go before the new ones are made
             self.bufs = self.send_ids = self.send_rows = None
@@ -169,20 +196,26 @@ class FrontierExchange:
             if self.D:
                 self._slots(B)
             self._B = B
+            self._written = None
         return self.bufs
 
     def _slots(self, B: int) -> None:
         G, D, cap, dev0 = self.G, self.D, self.cap, self.devices[0]
         if self.one_device:
             # sender s writes its block for destination d at [d, s]; the
-            # receiver of destination d reads [d] as one list of G * cap
-            ids = torch.empty((D, G, cap), dtype=torch.int32, device=dev0)
+            # receiver of destination d reads [d] as one list of G * cap;
+            # two halves of id slots, one for the send, one holding the
+            # ids of the last receive
+            ids = torch.empty((2, D, G, cap), dtype=torch.int32, device=dev0)
             rows = torch.empty((D, G, cap, B), dtype=torch.float32,
                                device=dev0)
-            self.send_ids = [ids[:, s] for s in range(G)]
+            self._id_halves = [
+                ([ids[p, :, s] for s in range(G)],
+                 [ids[p, self._region(t)].reshape(-1) for t in range(G)])
+                for p in range(2)]
+            self._half = 0
+            self.send_ids, self.recv_ids = self._id_halves[0]
             self.send_rows = [rows[:, s] for s in range(G)]
-            self.recv_ids = [ids[self._region(t)].reshape(-1)
-                             for t in range(G)]
             self.recv_rows = [rows[self._region(t)].reshape(G * cap, B)
                               for t in range(G)]
         else:
@@ -225,22 +258,40 @@ class FrontierExchange:
 
     def exchange(self, bufs: list, counts: Optional[np.ndarray] = None
                  ) -> None:
-        """Fill every shard's buffer: compacted when ``counts`` ([G, D],
-        read from the send side) fit the capacity, else the ring."""
+        """Fill every shard's buffer (``bufs``, as ``buffers`` gave them):
+        compacted when ``counts`` ([G, D], read from the send side) fit the
+        capacity, else the ring."""
         if self.mode == "dense" or counts is None or not self.fits(counts):
             if self.mode != "dense":
                 self.fell_back += 1
             ring.ring_all_gather(bufs)
+            self._written = None
             return
         self.compacted += 1
+        self._clear(bufs)
         if not self.one_device:
             self._copies(counts)
         G, cap = self.G, self.cap
         for t in range(G):
-            bufs[t].zero_()
             row_scatter_add(bufs[t], self.recv_rows[t].view(G * cap, -1),
                             self.slot_src[bufs[t].device],
                             self.recv_ids[t].view(-1))
+        self._written = self.recv_ids
+        if self.one_device:
+            # the next send writes the other half of the id slots
+            self._half = 1 - self._half
+            self.send_ids, self.recv_ids = self._id_halves[self._half]
+
+    def _clear(self, bufs: list) -> None:
+        """Zero what was written since each buffer was last zero: its own
+        block and the previous receive's rows, or all of it."""
+        n_loc = self.n_loc
+        for t, buf in enumerate(bufs):
+            if self._written is None:
+                buf.zero_()
+            else:
+                buf[t * n_loc:(t + 1) * n_loc].zero_()
+                row_zero(buf, self._written[t].view(-1))
 
     def _copies(self, counts: np.ndarray) -> None:
         """The collectives of a compacted superstep as copies between

@@ -9,6 +9,13 @@ h on ``bufs[h].device``; several shards may share a card) and runs the
 hop loop itself: one launch per hop per shard, in pull form, each on the
 receiving shard's card (``kernels/csrc/ring.cu``).
 
+The reduce-scatter of shards that share one card needs no hops: every
+partial lies in one memory, so :func:`reduce_scatter_onepass` sums each
+output block over the G partials in one launch, in the ring's order of
+adds, and moves (G + 1) G blocks where the hops move 3 (G - 1) G.
+:func:`ring_reduce_scatter` takes it whenever all shards share a device,
+and the hop loop (:func:`ring_reduce_scatter_hops`) otherwise.
+
 Ordering.  With every shard on one card all launches go to that card's
 current stream, and stream order is the whole protocol: hop s of every
 shard completes before hop s + 1 of any.  With shards on several cards,
@@ -20,8 +27,10 @@ read of its buffer.  Peer access is enabled once per pair and refused
 pairs raise.
 
 CPU tensors take the plain versions below, the same hop loop in torch
-(``copy_``, ``torch.add(..., out=)``).  Every hop is one f32 copy or one
-f32 add in the same order, so kernel and plain version agree bit for bit.
+(``copy_``, ``torch.add(..., out=)``) and the same one-pass sum.  Every
+hop is one f32 copy or one f32 add in the same order, so kernel and plain
+version agree bit for bit, and the one pass adds in the hops' order, so
+it equals them too.
 """
 
 from __future__ import annotations
@@ -135,11 +144,11 @@ def ring_reduce_scatter_plain(xs: list) -> list:
     return [c[(G - 1) % 2] for c in comm]
 
 
-def ring_reduce_scatter(xs: list) -> list:
-    """P2: ``xs[h]`` is shard h's full-length [G * n_loc, B] f32 partial;
-    returns, per shard h, the [n_loc, B] sum over shards of block h.
-    Partial sums pass right through a double-buffered [2, n_loc, B] slot
-    per shard, and each receiver adds its own block: at hop s,
+def ring_reduce_scatter_hops(xs: list) -> list:
+    """P2 as the ring: ``xs[h]`` is shard h's full-length [G * n_loc, B]
+    f32 partial; returns, per shard h, the [n_loc, B] sum over shards of
+    block h.  Partial sums pass right through a double-buffered [2, n_loc,
+    B] slot per shard, and each receiver adds its own block: at hop s,
     ``comm_h[(s+1)%2] = comm_{h-1}[s%2] + x_h[block (h-s-2) mod G]``, the
     received partial first as in ``fora_tpu/ops/ring.py:69-70``; hop 0
     reads the left neighbour's block of ``x`` directly.  G = 1 returns
@@ -161,3 +170,50 @@ def ring_reduce_scatter(xs: list) -> list:
 
     _run_hops([x.device for x in xs], G - 1, hop)
     return [c[(G - 1) % 2] for c in comm]
+
+
+def reduce_scatter_onepass_plain(xs: list) -> list:
+    """Plain version of :func:`reduce_scatter_onepass`."""
+    G = len(xs)
+    n_loc = _n_loc(xs, G)
+    if G == 1:
+        return list(xs)
+    out = torch.empty_like(xs[0])
+    for h in range(G):
+        o = _block(out, h, n_loc)
+        torch.add(_block(xs[(h + 1) % G], h, n_loc),
+                  _block(xs[(h + 2) % G], h, n_loc), out=o)
+        for j in range(3, G + 1):
+            o.add_(_block(xs[(h + j) % G], h, n_loc))
+    return [_block(out, h, n_loc) for h in range(G)]
+
+
+def reduce_scatter_onepass(xs: list) -> list:
+    """P2 with every shard on one device, in one pass: the same result as
+    :func:`ring_reduce_scatter_hops`, shard h's block ``((x_{h+1}[h] +
+    x_{h+2}[h]) + ...) + x_{h+G}[h]`` (shards mod G; the order in which
+    the hops add), as G row blocks (views) of one [G * n_loc, B] tensor.
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    one-pass kernel once.  G = 1 returns the input."""
+    G = len(xs)
+    n_loc = _n_loc(xs, G)
+    if any(x.device != xs[0].device for x in xs):
+        raise ValueError("reduce_scatter_onepass: every shard must share "
+                         "one device")
+    if not _on_cuda(xs) or G == 1:
+        return reduce_scatter_onepass_plain(xs)
+    out = torch.empty_like(xs[0])
+    kernels.reduce_scatter_onepass(out, xs)
+    return [_block(out, h, n_loc) for h in range(G)]
+
+
+def ring_reduce_scatter(xs: list) -> list:
+    """P2: ``xs[h]`` is shard h's full-length [G * n_loc, B] f32 partial;
+    returns, per shard h, the [n_loc, B] sum over shards of block h, on
+    shard h's device.  Shards that share one device take the one pass
+    (:func:`reduce_scatter_onepass`), shards on several the ring
+    (:func:`ring_reduce_scatter_hops`); both give the same bits.  G = 1
+    returns the input."""
+    if all(x.device == xs[0].device for x in xs):
+        return reduce_scatter_onepass(xs)
+    return ring_reduce_scatter_hops(xs)

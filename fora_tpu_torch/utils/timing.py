@@ -5,6 +5,10 @@ Takes the place of ``fora_tpu/utils/profiling.py::measure``/``fence``.
 A kernel's time is the elapsed time between two CUDA events around a run
 of launches on the current stream, divided by the launch count; a phase's
 time is the host clock around work that ends in a device synchronise.
+``cuda_ms`` times the launches as called: a kernel shorter than its
+wrapper's host work then reads the host's pace.  ``device_ms`` holds the
+stream with a spin kernel while the host queues the launches, so the
+events see the device's time alone.
 """
 
 from __future__ import annotations
@@ -23,6 +27,31 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device milliseconds of ``fn()`` over ``iters`` launches after
+    ``warmup``, with the host's enqueue hidden: a spin kernel
+    (``torch.cuda._sleep``), sized at twice the host's time to queue the
+    launches (at 2 GHz), runs before the first event while the host
+    queues them.  ``fn`` must not synchronise."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 1_000_000)
     start.record()
     for _ in range(iters):
         fn()

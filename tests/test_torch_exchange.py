@@ -14,6 +14,10 @@ fora_tpu's, on the CPU.
     ``cap`` or ``cap`` - 1, in both packages;
   - the copies of a mesh whose shards sit on several devices (the same
     buffers as the one-device layout);
+  - the zeroing by rows: over compacted, compacted, fallen-back and
+    compacted supersteps every buffer equal bit for bit to what zeroing
+    the whole buffer before each receive gives, and ``row_zero``'s plain
+    version;
   - ``hier_ici_bytes_model`` and ``exchange_cap`` equal to JAX's.
 """
 
@@ -30,7 +34,9 @@ from fora_tpu.parallel import partition as jpart
 from fora_tpu.parallel import sharded as jsharded
 from fora_tpu.parallel.mesh import GRAPH_AXIS, shard_map
 from fora_tpu_torch.ops import exchange as xops
-from fora_tpu_torch.ops.gather import row_scatter_add, row_scatter_add_plain
+from fora_tpu_torch import kernels
+from fora_tpu_torch.ops.gather import (row_scatter_add, row_scatter_add_plain,
+                                       row_zero, row_zero_plain)
 from fora_tpu_torch.parallel import partition as tpart
 
 torch.set_num_threads(2)
@@ -202,6 +208,80 @@ def test_exchange_copies_across_devices(mode, C):
                                   one_device=False)
     assert xch.compacted == 1
     np.testing.assert_array_equal(one.view(np.uint32), many.view(np.uint32))
+
+
+@pytest.mark.parametrize("one_device", [True, False])
+@pytest.mark.parametrize("mode,G,C", [("compact", 2, 1), ("compact", 4, 1),
+                                      ("routed", 2, 1), ("routed", 4, 1),
+                                      ("hier", 2, 1), ("hier", 4, 2)])
+def test_zeroing_by_rows_matches_whole_zero(mode, G, C, one_device):
+    """Supersteps compacted, compacted, fallen back, compacted, compacted,
+    each with a new frontier written into the own blocks as the pre-pass
+    writes it: the exchange that zeroes only its own block and the
+    previous receive's rows leaves every buffer bit-equal to one that
+    has its whole buffer zeroed by hand before each compacted receive,
+    also on the supersteps that follow a compacted one, where a stale row
+    would show."""
+    n_loc, B, cap = 64, 8, 24
+    _, tneed = _needed(G, n_loc, mode, C, seed=G + 11)
+    steps = [[(7 * h + 5 * i) % 20 + 1 for h in range(G)]
+             for i in range(5)]
+    steps[2][G - 1] = n_loc            # every row: past cap, the ring
+    xchs = []
+    for _ in range(2):
+        x = xops.FrontierExchange(mode, [torch.device("cpu")] * G, n_loc,
+                                  cap, tneed, C if mode == "hier" else None)
+        x.one_device = one_device
+        xchs.append(x)
+    kept, whole = xchs
+    bufs = {id(x): x.buffers(B) for x in xchs}
+    for i, active in enumerate(steps):
+        contrib = _contrib(G, n_loc, B, active, seed=100 + i)
+        got = []
+        for x in xchs:
+            b = bufs[id(x)]
+            for h in range(G):
+                b[h][h * n_loc:(h + 1) * n_loc] = torch.as_tensor(
+                    contrib[h * n_loc:(h + 1) * n_loc])
+            cnt = [torch.zeros(x.D, dtype=torch.int32) for _ in range(G)]
+            x.send(b, cnt)
+            counts = np.stack([c.numpy() for c in cnt])
+            assert x.fits(counts) == (i != 2)
+            if x is whole and x.fits(counts):
+                for t in b:    # the send has read the own blocks
+                    t.zero_()
+            x.exchange(b, counts)
+            got.append(np.stack([t.numpy() for t in b]))
+        np.testing.assert_array_equal(got[0].view(np.uint32),
+                                      got[1].view(np.uint32))
+        assert not np.isnan(got[0]).any()
+    assert (kept.compacted, kept.fell_back) == (4, 1)
+
+
+def test_row_zero_plain_zeroes_real_ids_only():
+    """``row_zero`` on the CPU: the rows of the real ids zeroed (repeats
+    allowed), the pad ids (the row count and past it) and negative ids
+    skipped, every other row untouched; the kernel wrapper refuses CPU
+    tensors."""
+    rng = np.random.default_rng(4)
+    rows, B = 40, 6
+    buf = torch.as_tensor(rng.uniform(1, 2, (rows, B)).astype(np.float32))
+    orig = buf.clone()
+    ids = torch.tensor([3, 17, rows, 3, -1, rows + 5, 39, 0, rows],
+                       dtype=torch.int32)
+    real = [3, 17, 39, 0]
+    for fn in (row_zero_plain, row_zero):
+        b = orig.clone()
+        assert fn(b, ids) is b
+        want = orig.clone()
+        want[real] = 0.0
+        assert torch.equal(b, want)
+    assert torch.equal(row_zero(buf, torch.zeros(0, dtype=torch.int32)),
+                       orig)
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError):
+        kernels.row_zero(buf, ids)
+    assert kernels.launch_counts() == before
 
 
 def test_compaction_plain_rows_in_order():

@@ -101,7 +101,7 @@ def _unit_weighted(g):
                       w=np.ones(g.m, np.float32))
 
 
-def test_weighted_graph_not_ported_yet():
+def test_unit_weighted_sharded_matches_unweighted():
     """Weighted graphs on shards, which the sharded engine used to refuse:
     a graph with unit weights gives the sharded engine the same answers
     as its unweighted self (tests/test_torch_weighted.py holds the

@@ -397,10 +397,11 @@ def _check_ring_kernels(devices, n_loc, B):
         assert torch.equal(got[h], want[h])          # bit for bit
         assert torch.equal(got[h].cpu(), got[0].cpu())
     want = ring.ring_reduce_scatter_plain(xs)
-    got = ring.ring_reduce_scatter(xs)
+    got = ring.ring_reduce_scatter_hops(xs)
     for d in set(devices):
         torch.cuda.synchronize(d)
-    assert kernels.launch_counts()["ring_reduce_scatter_hop"] - \
+    after2 = kernels.launch_counts()
+    assert after2["ring_reduce_scatter_hop"] - \
         after["ring_reduce_scatter_hop"] == (G - 1) * G
     total = sum(x.cpu().double() for x in xs)
     for h in range(G):
@@ -409,6 +410,20 @@ def _check_ring_kernels(devices, n_loc, B):
         torch.testing.assert_close(
             got[h].cpu().double(), total[h * n_loc:(h + 1) * n_loc],
             rtol=1e-5, atol=1e-5)
+    # the dispatcher: one launch of the one pass on one card, the hops
+    # across cards; the same bits either way
+    got = ring.ring_reduce_scatter(xs)
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    after3 = kernels.launch_counts()
+    one_card = len(set(devices)) == 1
+    assert after3["reduce_scatter_onepass"] - \
+        after2["reduce_scatter_onepass"] == (1 if one_card else 0)
+    assert after3["ring_reduce_scatter_hop"] - \
+        after2["ring_reduce_scatter_hop"] == (0 if one_card else (G - 1) * G)
+    for h in range(G):
+        assert got[h].device == devices[h]
+        assert torch.equal(got[h], want[h])
 
 
 @pytest.mark.parametrize("n_loc,B", [(1000, 4), (1001, 3), (131072, 128)])
@@ -417,6 +432,47 @@ def test_ring_kernels_match_plain_one_card(dev, G, n_loc, B):
     """P1 and P2 with all G shards on one card: stream order is the whole
     protocol.  (1001, 3) leaves the blocks unaligned for float4."""
     _check_ring_kernels([dev] * G, n_loc, B)
+
+
+@pytest.mark.parametrize("n_loc,B", [(1000, 4), (1001, 3), (7, 1),
+                                     (131072, 128)])
+@pytest.mark.parametrize("G", [2, 3, 4, 8])
+def test_reduce_scatter_onepass_kernel(dev, G, n_loc, B):
+    """The one-pass P2 kernel: one launch, bit-equal to its plain version
+    and to the hop kernels' ring on the same partials, and within float
+    rounding of a float64 sum; partials that are not 16-byte aligned take
+    the scalar path.  (1001, 3) and (7, 1) leave the blocks unaligned."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops import ring
+    _, xs = _ring_inputs(G, n_loc, B, [dev] * G, seed=G * 31 + n_loc)
+    want = ring.reduce_scatter_onepass_plain([x.cpu() for x in xs])
+    hops = ring.ring_reduce_scatter_hops(xs)
+    before = kernels.launch_counts()
+    got = ring.reduce_scatter_onepass(xs)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["reduce_scatter_onepass"] - \
+        before["reduce_scatter_onepass"] == 1
+    assert after["ring_reduce_scatter_hop"] == \
+        before["ring_reduce_scatter_hop"]
+    total = sum(x.cpu().double() for x in xs)
+    for h in range(G):
+        assert got[h].shape == (n_loc, B) and got[h].device == dev
+        assert torch.equal(got[h].cpu(), want[h])
+        assert torch.equal(got[h], hops[h])
+        torch.testing.assert_close(
+            got[h].cpu().double(), total[h * n_loc:(h + 1) * n_loc],
+            rtol=1e-5, atol=1e-5)
+    # a partial one float off 16-byte alignment: the scalar path
+    base = torch.empty(G * n_loc * B + 1, device=dev)
+    odd = base[1:].view(G * n_loc, B)
+    odd.copy_(xs[0])
+    got = ring.reduce_scatter_onepass([odd] + xs[1:])
+    for h in range(G):
+        assert torch.equal(got[h], hops[h])
+    with pytest.raises(ValueError):
+        kernels.reduce_scatter_onepass(torch.empty_like(xs[0]),
+                                       [xs[0], xs[1][:-1]])
 
 
 @pytest.mark.parametrize("cards", [2, 4])
@@ -458,7 +514,9 @@ def test_sharded_engine_on_card_matches_cpu(dev, cards):
             assert counts["push_prepass"] == 4 * it
             assert counts["gather_scatter_add"] == 4 * it
             assert counts["ring_all_gather_hop"] == 12 * it
-            assert counts["ring_reduce_scatter_hop"] == 12
+            # P2: the one pass on one card, the ring's hops across cards
+            assert counts["reduce_scatter_onepass"] == (cards == 1)
+            assert counts["ring_reduce_scatter_hop"] == 12 * (cards > 1)
             assert counts["topk_bounds"] == 4
         else:
             assert all(n == 0 for n in counts.values())
@@ -482,19 +540,20 @@ def _compact_inputs(rng, n_loc, B, D, frac):
 
 
 @pytest.mark.parametrize("B", [1, 3, 128, 130])
-@pytest.mark.parametrize("D", [None, 4])
+@pytest.mark.parametrize("D", [None, 1, 4, 32])
 @pytest.mark.parametrize("frac,cap", [(0.1, 600), (0.5, 64)])
 def test_frontier_compact_kernel_matches_plain(dev, B, D, frac, cap):
-    """The compaction kernel against its plain version: the counts equal
-    (past cap too), and per destination the same (id, row) pairs bit for
-    bit once ordered by id (the kernel's slot order varies); unused id
-    slots hold the pad id.  With frac 0.5 and cap 64 every destination
-    overflows: the kernel then fills cap slots with rows of its choice,
-    each a real row at its id."""
+    """The compaction kernel (slot claims aggregated per block) against its
+    plain version: the counts equal (past cap too), and per destination
+    the same (id, row) pairs bit for bit once ordered by id (the slot
+    order varies across the kernel's blocks); unused id slots hold the pad
+    id.  With frac 0.5 and cap 64 every destination overflows: the kernel
+    then fills cap slots with rows of its choice, each a real row at its
+    id.  n_loc is not a multiple of the kernel's 256-row tile."""
     from fora_tpu_torch import kernels
     from fora_tpu_torch.ops.exchange import frontier_compact_plain
     rng = np.random.default_rng(B + (D or 0))
-    n_loc, row0, pad = 4096, 8192, 16384
+    n_loc, row0, pad = 4133, 8192, 16384
     c_np, n_np = _compact_inputs(rng, n_loc, B, D, frac)
     Dn = 1 if D is None else D
     contrib = torch.as_tensor(c_np, device=dev)
@@ -565,6 +624,96 @@ def test_row_scatter_add_skips_pad_ids(dev):
     assert bool((acc == 1).all())
 
 
+def test_row_zero_kernel_matches_plain(dev):
+    """``row_zero`` on the card: the real ids' rows zeroed (repeats
+    allowed), pads and negative ids skipped, bit-equal to its plain
+    version; B = 3 takes scalar stores; one launch a call."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops.gather import row_zero_plain
+    rng = np.random.default_rng(8)
+    for rows_n, B in ((1000, 128), (1000, 3), (131072 * 4, 128)):
+        buf = torch.as_tensor(rng.uniform(1, 2, (rows_n, B)).astype(
+            np.float32), device=dev)
+        ids = np.full(65536, rows_n, np.int32)
+        real = rng.choice(65536, 20000, replace=False)
+        ids[real] = rng.integers(0, rows_n, 20000)
+        ids[real[:7]] = -2
+        ids_t = torch.as_tensor(ids, device=dev)
+        want = row_zero_plain(buf.cpu(), ids_t.cpu())
+        before = kernels.row_zero.launches
+        assert kernels.row_zero(buf, ids_t) is buf
+        torch.cuda.synchronize()
+        assert kernels.row_zero.launches == before + 1
+        assert torch.equal(buf.cpu(), want)
+    with pytest.raises(TypeError):
+        kernels.row_zero(buf, ids_t.long())
+
+
+@pytest.mark.parametrize("mode,C", [("compact", 1), ("routed", 1),
+                                    ("hier", 2)])
+def test_zeroing_by_rows_on_card(dev, mode, C):
+    """The exchange's zeroing by rows on the card (the aggregated
+    compaction, row_zero, P3) over compacted, compacted, fallen-back and
+    compacted supersteps: every buffer bit-equal to the same exchange
+    with its whole buffer zeroed by hand before each compacted receive,
+    and to the ring's on
+    every needed row; row_zero launched once a shard on the compacted
+    supersteps that follow a compacted one."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops import exchange as xops
+    from fora_tpu_torch.ops import ring
+    G, n_loc, B, cap = 4, 4096, 128, 512
+    rng = np.random.default_rng(12)
+    needed = None
+    if mode != "compact":
+        D = G if mode == "routed" else G // C
+        needed = [torch.as_tensor((rng.random((D, n_loc)) < 0.5).astype(
+            np.uint8), device=dev) for _ in range(G)]
+    xchs = [xops.FrontierExchange(mode, [dev] * G, n_loc, cap, needed,
+                                  C if mode == "hier" else None)
+            for _ in range(2)]
+    kept, whole = xchs
+    bufs = [x.buffers(B) for x in xchs]
+    fracs = (0.05, 0.1, 0.9, 0.02, 0.08)
+    for i, frac in enumerate(fracs):
+        blocks = []
+        for h in range(G):
+            c = np.zeros((n_loc, B), np.float32)
+            act = rng.random(n_loc) < frac
+            c[act] = rng.random((int(act.sum()), B)) + 0.5
+            blocks.append(torch.as_tensor(c, device=dev))
+        dense = None
+        for x, b in zip(xchs, bufs):
+            for h in range(G):
+                b[h][h * n_loc:(h + 1) * n_loc] = blocks[h]
+            if dense is None:
+                dense = ring.ring_all_gather_plain([t.clone() for t in b])
+            cnt = [torch.zeros(x.D, dtype=torch.int32, device=dev)
+                   for _ in range(G)]
+            x.send(b, cnt)
+            counts = np.stack([t.cpu().numpy() for t in cnt])
+            assert x.fits(counts) == (i != 2)
+            if x is whole and x.fits(counts):
+                for t in b:    # the send has read the own blocks
+                    t.zero_()
+            before = kernels.row_zero.launches
+            x.exchange(b, counts)
+            if x is kept:
+                zeroed = kernels.row_zero.launches - before
+        torch.cuda.synchronize()
+        assert zeroed == (G if i in (1, 4) else 0)
+        for t in range(G):
+            assert torch.equal(bufs[0][t], bufs[1][t])
+            need = torch.cat([
+                needed[s][kept._region(t)].bool() if needed is not None
+                else torch.ones(n_loc, dtype=torch.bool, device=dev)
+                for s in range(G)])
+            if i != 2:
+                assert torch.equal(bufs[0][t][need], dense[t][need])
+                assert bool((bufs[0][t][~need] == 0).all())
+    assert (kept.compacted, kept.fell_back) == (4, 1)
+
+
 def test_sharded_pool_modes_on_card(dev):
     """ShardedTopkRunner with four shards on one card: compact, routed and
     hier bit-equal to dense (ids, values, bounds, levels), the compaction
@@ -598,14 +747,17 @@ def test_sharded_pool_modes_on_card(dev):
         c = counts[mode]
         assert c["topk_bounds"] == 4 * levels
         assert c["index_spmv"] == 4 * levels
-        assert c["ring_reduce_scatter_hop"] == 12 * levels
+        assert c["reduce_scatter_onepass"] == levels
+        assert c["ring_reduce_scatter_hop"] == 0
         compacted = sum(st["compacted"] for st in run.last_level_stats)
         if mode == "dense":
             assert c["frontier_compact"] == c["row_scatter_add"] == 0
+            assert c["row_zero"] == 0
         else:
             assert compacted > 0
             assert c["row_scatter_add"] == 4 * compacted
             assert c["frontier_compact"] >= 4 * compacted
+            assert 0 < c["row_zero"] <= 4 * compacted
     for mode in ("compact", "routed", "hier"):
         for f in ("node_ids", "values", "lower_bounds", "upper_bounds",
                   "accepted"):

@@ -160,5 +160,8 @@ def test_cpu_tensors_never_launch_kernels():
     exchange.frontier_compact(
         st.r, None, 8, 0, g.n, torch.zeros((1, 8), dtype=torch.int32),
         torch.zeros((1, 8, 3)), torch.zeros(1, dtype=torch.int32))
+    from fora_tpu_torch.ops import ring
+    ring.ring_reduce_scatter([torch.ones(4, 3), torch.ones(4, 3)])
+    gather.row_zero(torch.ones(4, 8), torch.tensor([1, 4], dtype=torch.int32))
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 13
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 15

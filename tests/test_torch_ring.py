@@ -4,11 +4,13 @@ kernels and XLA's collectives, on the CPU.
 The JAX side runs exactly as tests/test_sharded_ring.py runs it: the
 Pallas kernels in interpret mode under ``shard_map`` on a 1-axis mesh of
 virtual CPU devices.  The port's side is the plain hop loop over a list of
-per-shard tensors, which the CPU path runs.  Tolerances: the all-gather
-copies, so it is equal; the reduce-scatter adds in the Pallas kernel's
-order (received partial + own block, ring order), so it is expected equal,
-held to rtol 1e-6 / atol 1e-7; against ``psum_scatter``, which sums in
-another order, rtol 1e-5 / atol 1e-5 as in test_sharded_ring.py.
+per-shard tensors, and the plain one-pass reduce-scatter that shards on
+one device take.  Tolerances: the all-gather copies, so it is equal; the
+reduce-scatter adds in the Pallas kernel's order (received partial + own
+block, ring order), so it is expected equal, held to rtol 1e-6 / atol
+1e-7; the one pass adds in the same order, so it equals the hop loop bit
+for bit (``torch.equal``); against ``psum_scatter``, which sums in another
+order, rtol 1e-5 / atol 1e-5 as in test_sharded_ring.py.
 """
 
 import jax
@@ -74,6 +76,65 @@ def test_reduce_scatter_matches_pallas(G, n_loc, B):
         np.testing.assert_allclose(got[h].numpy(),
                                    want[h * n_loc:(h + 1) * n_loc],
                                    rtol=1e-6, atol=1e-7)
+
+
+def _partials(G, n_loc, B, seed):
+    """G full-length [G * n_loc, B] partials, as one numpy array (the
+    shards' partials stacked along rows) and as the port's list."""
+    x = np.random.default_rng(seed).standard_normal(
+        (G * G * n_loc, B)).astype(np.float32)
+    return x, [torch.from_numpy(a) for a in x.reshape(G, G * n_loc, B)]
+
+
+@pytest.mark.parametrize("n_loc,B", SHAPES)
+@pytest.mark.parametrize("G", [2, 4, 8])
+def test_onepass_plain_equals_ring_plain(G, n_loc, B):
+    """The one pass sums in the hops' order: bit-equal to the hop loop,
+    returned as row blocks of one tensor."""
+    _, xs = _partials(G, n_loc, B, seed=G * 7 + B)
+    want = ring.ring_reduce_scatter_plain(xs)
+    got = ring.reduce_scatter_onepass_plain(xs)
+    assert len(got) == G
+    for h in range(G):
+        assert got[h].shape == (n_loc, B)
+        assert torch.equal(got[h], want[h])
+        assert got[h].data_ptr() == got[0].data_ptr() + h * n_loc * B * 4
+    # the dispatcher takes the one pass for shards on one device
+    for a, b in zip(ring.ring_reduce_scatter(xs), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_loc,B", SHAPES)
+@pytest.mark.parametrize("G", [2, 4, 8])
+def test_onepass_matches_pallas(G, n_loc, B):
+    x, xs = _partials(G, n_loc, B, seed=G * 10 + B)
+    want = np.asarray(shard_map(
+        lambda v: jring.ring_reduce_scatter(v, "x", G, interpret=True),
+        _mesh(G), in_specs=P("x"), out_specs=P("x"))(x))
+    got = ring.reduce_scatter_onepass(xs)
+    for h in range(G):
+        np.testing.assert_allclose(got[h].numpy(),
+                                   want[h * n_loc:(h + 1) * n_loc],
+                                   rtol=1e-6, atol=1e-7)
+
+
+def test_onepass_single_shard_and_refusals():
+    x = torch.ones(8, 4)
+    assert ring.reduce_scatter_onepass_plain([x])[0] is x
+    assert ring.reduce_scatter_onepass([x])[0] is x
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError):       # unequal blocks
+        ring.reduce_scatter_onepass_plain([torch.zeros(4, 2),
+                                           torch.zeros(6, 2)])
+    with pytest.raises(ValueError):
+        ring.reduce_scatter_onepass([torch.zeros(4, 2), torch.zeros(6, 2)])
+    with pytest.raises(ValueError):       # not G * n_loc rows
+        ring.reduce_scatter_onepass([torch.zeros(5, 2), torch.zeros(5, 2)])
+    # the kernel wrapper takes CUDA tensors only
+    with pytest.raises(ValueError):
+        kernels.reduce_scatter_onepass(torch.zeros(4, 2),
+                                       [torch.zeros(4, 2)] * 2)
+    assert kernels.launch_counts() == before
 
 
 @pytest.mark.parametrize("G", [2, 4, 8])

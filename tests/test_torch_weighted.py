@@ -305,7 +305,7 @@ def test_graph_from_numpy_carries_alias_tables():
         ).manual_seed(3), alpha=0.2))
 
 
-def test_sharded_engine_refuses_weighted():
+def test_sharded_engines_run_weighted():
     """The sharded engines used to refuse weighted graphs; they now run
     them.  The one-shot engine (two shards, the routed exchange) on the
     weighted graph gives the one-device weighted level's top-10 at the
