@@ -36,7 +36,11 @@ memory:
                  on a backward push of 2048 targets, twice bit-equal to
                  its plain version; K4-hub (HubPPR's walks over the CLI's
                  default hub index, 256 hubs) against the plain hub walk
-                 by total variation, and on shapes (i) and (ii) as K4
+                 by total variation, and on shapes (i) and (ii) as K4;
+                 K4's sharded form (the out-CSR as 4 shard slices, read
+                 through a table of their pointers) and its plain form
+                 bit-equal to run_walks_philox on the unsharded graph at
+                 shape (i)
   4. index       build the FORA+ index on the card (K4 + host pack), save
                  it under bench_data/torch_smoke/, load it back with mmap
   5. queries     256 sources as two pools of 128 through
@@ -67,7 +71,19 @@ memory:
                  bounds of the function printed beside the ring's
                  traffic), the top-50 against the single-device indexed
                  result at the same depth, precision@50 of the first 32
-                 queries against phase 7's exact top-50 (>= 0.95)
+                 queries against phase 7's exact top-50 (>= 0.95); then
+                 the raw-walk one-shot (ShardedForaEngine without an
+                 index: the push to rmax * out_deg, each shard's lanes
+                 from its own residues walked over the out-CSR's shard
+                 slices by K4's sharded form, P2, K3's selection) on the
+                 same 128 sources at the final delta, once under dense
+                 and once under routed (placement seconds, wall,
+                 supersteps), routed against dense (values within rtol
+                 1e-4, ids outside near-ties), precision@50 of the first
+                 32 >= 0.95; K4's sharded form bit-equal to
+                 run_walks_philox on a raw level's allocation from the
+                 one-shot's residues (its first 16 sources), timed beside
+                 K4's unsharded branch on the same starts and its bound
   10. raw walk   the first 64 sources through TopkRunner(index=None)
                  .query_pool(batch=64, defer_below=32) and flush_deferred,
                  printing per level the walks demanded (largest column,
@@ -107,16 +123,22 @@ memory:
                  their plain versions on two consecutive supersteps of
                  the final level that fit the capacity (the second the
                  largest), the first as the pool left the buffers, the
-                 second after it, zeroing only its own block and the
-                 first's rows (row_zero): the compacted buffers
+                 second after it, clearing only the own blocks and the
+                 first's rows (the clear, one launch for the four
+                 buffers): the compacted buffers
                  equal to the ring's on every needed row and zero
-                 elsewhere; the compaction, P3 and row_zero timed beside
-                 their bounds; a torch.profiler run of the dense and the
-                 routed pool, each with the device time of the memsets,
-                 the compaction, P3, row_zero, P2 and P1
-                 (PROFILE_DIR/profile_sharded_pool_*.txt);
-                 both sharded stores written and read back, the
-                 store-backed routed pool bit-equal to the in-RAM one; and
+                 elsewhere; the compaction, P3 and the clear timed beside
+                 their bounds, the clear as called no slower than its
+                 library form (4 zero_ and 4 index_fill_, as called); a
+                 torch.profiler run of the dense and the routed pool, each
+                 with the device time of the memsets, the compaction, P3,
+                 the clear, P2 and P1
+                 (PROFILE_DIR/profile_sharded_pool_*.txt); the index
+                 built again by build_walk_index_sharded (its walks over
+                 the out-CSR's shard slices), every array equal to phase
+                 4's; both sharded stores written (the index store from
+                 that build) and read back, the store-backed routed pool
+                 bit-equal to the in-RAM one; and
                  (run inside phase 13) the weighted graph and index
                  through the routed pool, precision@50 >= 0.95 against the
                  weighted oracle
@@ -142,7 +164,11 @@ memory:
                  at the same gate; and K4-hub's alias branch against the
                  plain alias hub walk (total variation below 0.01, where
                  its uniform hops must read above it) and bit-equal to
-                 run_walks_philox on shape (i)
+                 run_walks_philox on shape (i); K4's sharded alias form
+                 bit-equal to run_walks_philox at shape (i); and phase 9's
+                 raw one-shot on the weighted graph (dense and routed,
+                 precision@50 >= 0.95 against the weighted oracle, K4's
+                 sharded alias form held and timed on its allocation)
   14. cli        bench.py's graph through fora_tpu_torch.cli as users run
                  it: save_dataset to bench_data/torch_smoke_cli/ and
                  load_dataset through the library parser (seconds of each;
@@ -189,11 +215,19 @@ memory:
                  exchange K2 and K3 once per shard per level run, P2's one
                  pass once per level run, K1 once per shard per
                  superstep, P1 on every superstep that took the ring, P3
-                 once per shard per compacted superstep, row_zero at most
-                 that often and at least once, the compaction kernel on
-                 the compacted runs and none of the three on dense or on
-                 any other path; and neither JAX nor the JAX package fora_tpu
-                 was imported, by this process or the servers
+                 once per shard per compacted superstep, the clear once on
+                 each compacted superstep that follows a compacted one,
+                 the compaction kernel on the compacted runs and none of
+                 the three on dense or on any other path; in each raw
+                 one-shot run (phases 9 and 13) K4's sharded form (its
+                 alias form on the weighted graph only), K1, K3 once per
+                 shard, P2's one pass once, P1 on the supersteps that took
+                 the ring, P3 and the clear on routed's compacted ones, no
+                 K2 and no unsharded walk branch; in the sharded index
+                 build K4's sharded form once per 2^23 walks; K4's sharded
+                 form on no other path; and neither JAX nor the JAX
+                 package fora_tpu was imported, by this process or the
+                 servers
 
 It prints one JSON line of per-kernel results (launches, max abs error,
 ms, plain ms, bound ms and what bounds it: each input read and each
@@ -208,9 +242,14 @@ launches, row_scatter_add_receive is the receive of one shard on phase
 ring_reduce_scatter_hop is the ring's hop kernel, which no path runs
 with every shard on one card (0 launches), reduce_scatter_onepass the
 one pass that phase 9 runs; the rows timed on phase 15's superstep,
-frontier_compact, row_scatter_add_receive and row_zero, also carry
+frontier_compact, row_scatter_add_receive and exchange_clear, also carry
 device_ms, the kernel's time with the host's enqueue hidden, beside ms,
-which like every ms of the line times the launches as called), then,
+which like every ms of the line times the launches as called, and the
+clear its library form's device time, library_device_ms;
+index_walk_sharded and index_walk_sharded_alias, K4's sharded form on
+the raw one-shot's allocation with the raw one-shot's launches (phases 9
+and 13), carry unsharded_ms, K4's unsharded branch on the same starts),
+then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -260,6 +299,8 @@ WEIGHTED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                     "topk_bounds", "index_walk_alias")
 RAW_QUERIES, RAW_BATCH, RAW_DEFER = 64, 64, 32
 POOL_PAIRS = 5                      # phase 15: warm walls per exchange
+RAW_CHECK_COLS = 16                 # phases 9, 13: K4's sharded form held
+#                                     on the raw allocation of 16 queries
 NUM_HUBS = 256                      # the CLI's --num-hubs default
 JAX_POOL = 1 << 15                  # fora_tpu's default_pool_size cap
 BIPPR_SOURCES, BIPPR_TARGETS = 16, 2048
@@ -1234,9 +1275,11 @@ def weighted_graph(g):
 
 def run_weighted(g, rcfg, dev):
     """Phase 13: bench.py's weighted graph end to end, with phase 15's
-    weighted sharded pool.  Returns (kernel row of K4's alias branch,
-    launch counts of the indexed run, of the raw-walk pool, of Monte Carlo
-    and of the sharded pool)."""
+    weighted sharded pool and phase 9's raw one-shot.  Returns (kernel row
+    of K4's alias branch, launch counts of the indexed run, of the
+    raw-walk pool, of Monte Carlo and of the sharded pool, the raw
+    one-shot's launch counts and supersteps per exchange, the kernel row of
+    K4's sharded alias form)."""
     import dataclasses
     import logging
     import numpy as np
@@ -1325,6 +1368,10 @@ def run_weighted(g, rcfg, dev):
     # their bounds
     starts = {"i": start, "ii": index_build_starts(dgw, rcfg, INDEX_LAUNCH)}
     res = walk_shapes(dgw, rcfg, starts, rate)["i"]
+    # K4's sharded form with alias hops at shape (i)
+    from fora_tpu_torch.index.build_sharded import shard_out_csr
+    sharded_walk_equal(shard_out_csr(gw, [dev] * SHARDS), dgw, rcfg, start,
+                       "i")
     row = dict(
         max_abs_err=float((f_k[top] - f_p[top]).abs().max()),
         ms=res["ms"],
@@ -1365,10 +1412,14 @@ def run_weighted(g, rcfg, dev):
     # phase 15's weighted run: the same graph and index on shards
     sharded_counts = run_weighted_sharded(gw, rcfg, index, sources, ex)
     del index
+    # phase 9's raw one-shot on the weighted graph (K4's sharded alias form)
+    raw1_counts, raw1_steps, raw1_row = run_sharded_raw(
+        gw, rcfg, sources[:POOL], ex, dgw, "weighted sharded raw")
     raw_counts = run_raw(dgw, rcfg, sources, ex, name="weighted raw")
     mc_counts = run_montecarlo(dgw, rcfg, sources, ex,
                                name="weighted montecarlo")
-    return row, counts, raw_counts, mc_counts, sharded_counts
+    return (row, counts, raw_counts, mc_counts, sharded_counts, raw1_counts,
+            raw1_steps, raw1_row)
 
 
 def cli_argv(action, *extra) -> list:
@@ -1933,6 +1984,151 @@ def run_sharded(g, rcfg, index, sources, dev, exact_ids):
     return rows, counts, res.push_iters
 
 
+def sharded_walk_equal(csr, graph, rcfg, start, label) -> None:
+    """K4's sharded form (its alias form where the slices carry alias
+    tables) through the public entry over the shard slices ``csr``, and
+    its plain form (run_walks_philox over the slices), bit-equal to
+    run_walks_philox on the unsharded ``graph`` on ``start``: a walk that
+    differs fails."""
+    from fora_tpu_torch.ops import walk
+    a, hops = rcfg.alpha, rcfg.max_walk_hops
+    name = "K4-sharded" + ("-alias" if csr.alias_prob is not None else "")
+    want = walk.run_walks_philox(graph, start, SEED, a, hops)
+    for form, got in (("kernel", walk.walk_endpoints(csr, start, SEED, a,
+                                                      hops)),
+                      ("plain form", walk.run_walks_philox(csr, start, SEED,
+                                                           a, hops))):
+        diff = int((got != want).sum())
+        if diff:
+            fail(f"{name} ({label}, {form}): {diff} of {start.numel()} walks "
+                 f"differ from run_walks_philox on the unsharded graph")
+    print(f"{name} ({label}) {start.numel()} walks over {len(csr.indptr)} "
+          f"shard slices: the kernel and its plain form bit-equal to "
+          f"run_walks_philox on the unsharded graph")
+
+
+def raw_allocation(eng, rcfg, sources):
+    """A raw level's allocation from the raw one-shot's residues: the
+    push of ``sources`` on ``eng``, then every lane of the walk demand of
+    the concatenated residues (lanes 0 .. the largest column's total, as
+    one walk-phase chunk lays them out), int32 on the first shard's
+    device."""
+    import torch
+    from fora_tpu_torch.ops.walk import expand_lanes, walk_demand
+    ps, rs = eng.init_state(sources)
+    eng.push(ps, rs)
+    r = torch.cat(rs)
+    d = walk_demand(r, rcfg.omega_unit)
+    start = expand_lanes(r, d, 0, int(d.total.max()))[0]
+    return start.view(-1)
+
+
+def sharded_walk_row(eng, graph, rcfg, start, label) -> dict:
+    """The kernel row of K4's sharded form on ``start`` over ``eng``'s
+    shard slices: bit-equal as sharded_walk_equal() checks, timed as
+    called beside its plain form and beside K4's unsharded branch on the
+    same starts (what the table lookup costs), its bound walk_bound()'s
+    over the same starts and the same sectors as K4's."""
+    import torch
+    from fora_tpu_torch.ops import walk
+    from fora_tpu_torch.utils.timing import cuda_ms
+    csr = eng.placement.walk
+    a, hops = rcfg.alpha, rcfg.max_walk_hops
+    sharded_walk_equal(csr, graph, rcfg, start, label)
+    ms = cuda_ms(lambda: walk.walk_endpoints(csr, start, SEED, a, hops))
+    k4_ms = cuda_ms(lambda: walk.walk_endpoints(graph, start, SEED, a, hops))
+    plain_ms = cuda_ms(lambda: walk.run_walks_philox(csr, start, SEED, a,
+                                                     hops), iters=1)
+    gen = torch.Generator(device=start.device).manual_seed(SEED)
+    b = walk_bound(graph, start, gen, a, hops, walk_sector_rate(graph))
+    name = "K4-sharded" + ("-alias" if csr.alias_prob is not None else "")
+    print(f"{name} ({label}) {start.numel()} walks: {ms:.4f} ms as called, "
+          f"K4's unsharded branch on the same starts {k4_ms:.4f} ms "
+          f"({ms / k4_ms - 1:+.1%}); plain form {plain_ms:.4f} ms; bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']} "
+          f"({b['bound_ms'] / ms:.0%} of it reached)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                unsharded_ms=k4_ms, **b)
+
+
+def run_sharded_raw(g, rcfg, sources, exact_ids, graph, name):
+    """The raw-walk one-shot: ShardedForaEngine without an index over
+    SHARDS shards from make_mesh, once under dense and once under routed,
+    ``sources`` at the final delta (the config's rmax and omega_unit);
+    per exchange once to warm and once timed (counts reset just before,
+    read just after), precision@50 of the first len(exact_ids) against
+    ``exact_ids`` (>= MIN_PRECISION); routed against dense (the same
+    supersteps and walks; values within rtol 1e-4, ids equal outside
+    near-ties: the endpoints' scatter-add adds in no fixed order); then
+    K4's sharded form held and timed
+    on a raw level's allocation from the one-shot's residues (its first
+    RAW_CHECK_COLS sources) against ``graph``, the unsharded device graph.
+    Returns (launch counts per exchange, the exchange's supersteps per
+    exchange, the kernel row of K4's sharded form)."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.eval import metrics
+    from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
+    mesh = make_mesh(SHARDS)
+    res, counts, steps = {}, {}, {}
+    B = len(sources)
+    for mode in ("dense", "routed"):
+        t0 = time.perf_counter()
+        eng = ShardedForaEngine(g, mesh, rcfg, k=K, exchange=mode)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        eng.topk(sources, SEED)                     # warm
+        xch = eng.exchange
+        before = (xch.compacted, xch.fell_back, xch.cleared)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.topk(sources, SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[mode] = kernels.launch_counts()
+        steps[mode] = dict(zip(("compacted", "fell_back", "cleared"),
+                               (xch.compacted - before[0],
+                                xch.fell_back - before[1],
+                                xch.cleared - before[2])),
+                           supersteps=out.push_iters)
+        if not (np.isfinite(out.values).all() and out.values.shape == (B, K)
+                and not out.walk_overflow.any()):
+            fail(f"{name} {mode}: values not finite, of the wrong shape, or "
+                 f"walks dropped")
+        prec = metrics.batch_precision_at_k(out.node_ids[:len(exact_ids)],
+                                            exact_ids)
+        print(f"{name} {mode}: placement (with the out-CSR's slices) "
+              f"{place_s:.2f} s; {B} queries in {wall:.4f} s -> "
+              f"{B / wall:.2f} q/s; {out.push_iters} supersteps "
+              f"({steps[mode]['compacted']} compacted, "
+              f"{steps[mode]['fell_back']} fell back); precision@{K} "
+              f"{prec:.4f} over {len(exact_ids)} queries (limit "
+              f"{MIN_PRECISION})")
+        if not prec >= MIN_PRECISION:
+            fail(f"{name} {mode} precision@{K} {prec:.4f} < {MIN_PRECISION}")
+        res[mode] = out
+        if mode == "dense":
+            del eng
+    # the same walks from the same residues (the push is bit-equal across
+    # exchanges); only the order of the endpoints' float32 scatter-add
+    # varies, over millions of walk weights a node, so the tolerance is
+    # the one of the sharded-against-one-device check above
+    a, b = res["dense"], res["routed"]
+    if a.push_iters != b.push_iters:
+        fail(f"{name}: routed took {b.push_iters} supersteps, dense "
+             f"{a.push_iters}")
+    topk_agree(f"{name} routed vs dense", b.values, b.node_ids, a.values,
+               a.node_ids, 1e-4)
+    start = raw_allocation(eng, rcfg, sources[:RAW_CHECK_COLS])
+    row = sharded_walk_row(eng, graph, rcfg, start, "raw allocation of "
+                           f"{RAW_CHECK_COLS} queries")
+    del eng, start
+    torch.cuda.empty_cache()
+    return counts, steps, row
+
+
 def l2_row_rate(dev) -> float:
     """Bytes/s at which the card serves scattered whole 512-byte rows (B =
     128 f32) of a 4 MB buffer, which stays in the L2: the row kernel of
@@ -2025,14 +2221,14 @@ def compaction_rows(runner, rcfg, sources, dev):
     each, per shard and destination the same (id, row) pairs and counts
     as the plain compaction, and the compacted buffers
     equal to the ring's on every row the receiver reads and zero
-    elsewhere.  Returns the kernel rows of the compaction, P3 and
-    row_zero, timed at the second superstep's shapes."""
+    elsewhere.  Returns the kernel rows of the compaction, P3 and the
+    clear, timed at the second superstep's shapes."""
     import numpy as np
     import torch
     from fora_tpu_torch import kernels
     from fora_tpu_torch.ops import exchange as xops
     from fora_tpu_torch.ops import ring
-    from fora_tpu_torch.ops.gather import row_scatter_add_plain, row_zero_plain
+    from fora_tpu_torch.ops.gather import row_scatter_add_plain
     from fora_tpu_torch.utils.timing import cuda_ms, device_ms
     pl = runner._groups[0]
     xch = pl.exchange
@@ -2072,7 +2268,7 @@ def compaction_rows(runner, rcfg, sources, dev):
     def superstep(first):
         """One superstep by hand, checked; returns its own blocks, the
         counts, the receive's slot ids and rows (shard 0) and the ids of
-        the receive before it (shard 0)."""
+        the receive before it (every shard's)."""
         bufs = xch.buffers(BATCH)
         pl.prepass(ps, rs, bufs, thr, rcfg.alpha)
         xch.send(bufs, counts)
@@ -2104,17 +2300,18 @@ def compaction_rows(runner, rcfg, sources, dev):
         own = [bufs[h][h * n_loc:(h + 1) * n_loc].clone() for h in range(G)]
         recv = (xch.recv_ids[0].clone(), xch.recv_rows[0].clone())
         # None: the buffers are zeroed whole (after the ring)
-        prev = None if xch._written is None else xch._written[0].clone()
+        prev = (None if xch._written is None else
+                [w.clone().view(-1) for w in xch._written])
         if not first and prev is None:
             fail("zeroing by rows: no receive's rows to zero after a "
                  "compacted superstep")
         dense = [b.clone() for b in bufs]
         ring.ring_all_gather(dense)
-        zeroed = kernels.row_zero.launches
+        zeroed = kernels.exchange_clear.launches
         xch.exchange(bufs, cnt)
-        if kernels.row_zero.launches - zeroed != (0 if prev is None else G):
-            fail(f"zeroing by rows: {kernels.row_zero.launches - zeroed} "
-                 f"row_zero launches on superstep {step + (not first)}")
+        if kernels.exchange_clear.launches - zeroed != (prev is not None):
+            fail(f"zeroing by rows: {kernels.exchange_clear.launches - zeroed}"
+                 f" clears on superstep {step + (not first)}")
         for t in range(G):
             need = torch.cat([pl.shards[s].needed[xch._region(t)].bool()
                               if pl.shards[s].needed is not None else
@@ -2174,24 +2371,41 @@ def compaction_rows(runner, rcfg, sources, dev):
         # the real rows read, their acc rows read and written, the slot
         # ids and sources read once
         **bound(3 * real_rows * BATCH * 4 + 2 * dst.numel() * 4))
-    # row_zero on the ids of the first superstep's receive, as the second
-    # superstep's exchange ran it
-    prev_real = prev[(prev >= 0) & (prev < xch.n_pad)].long()
-    zero_rows = int(prev_real.numel())
-    rz_k = kernels.row_zero(acc.fill_(1.0), prev)
-    rz_p = row_zero_plain(acc.clone().fill_(1.0), prev)
-    rz = dict(
-        max_abs_err=float((rz_k - rz_p).abs().max()),
-        ms=cuda_ms(lambda: kernels.row_zero(acc, prev)),
-        device_ms=device_ms(lambda: kernels.row_zero(acc, prev)),
-        plain_ms=cuda_ms(lambda: row_zero_plain(acc, prev)),
-        library_ms=cuda_ms(lambda: acc.index_fill_(0, prev_real, 0.0)),
-        # the slot ids read once, each real id's row written once
-        **bound(prev.numel() * 4 + zero_rows * BATCH * 4))
-    if rz["max_abs_err"] != 0.0:
-        fail("row_zero differs from its plain version")
-    whole = device_ms(lambda: acc.zero_())
-    block = device_ms(lambda: acc[:n_loc].zero_())
+    # the clear of the second superstep, every buffer, on the ids of the
+    # first superstep's receive, as the second superstep's exchange ran
+    # it.  The library's form is what it replaced: a zero_ of each own
+    # block and an index_fill_ over each buffer's real ids
+    del acc
+    bufs = [torch.ones((xch.n_pad, BATCH), device=dev) for _ in range(G)]
+    reals = [p[(p >= 0) & (p < xch.n_pad)].long() for p in prev]
+    got = [b.clone() for b in bufs]
+    kernels.exchange_clear(got, n_loc, prev)
+    want = [b.clone() for b in bufs]
+    xops.exchange_clear_plain(want, n_loc, prev)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("the exchange's clear differs from its plain version")
+    del got, want
+
+    def library():
+        for t in range(G):
+            bufs[t][t * n_loc:(t + 1) * n_loc].zero_()
+            bufs[t].index_fill_(0, reals[t], 0.0)
+    # each own block written once, each real id's row outside it written
+    # once, every slot id read once
+    outside = sum(int(torch.unique(r[(r < t * n_loc) | (r >= (t + 1) * n_loc)])
+                      .numel()) for t, r in enumerate(reals))
+    clear = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: kernels.exchange_clear(bufs, n_loc, prev)),
+        device_ms=device_ms(lambda: kernels.exchange_clear(bufs, n_loc,
+                                                           prev)),
+        plain_ms=cuda_ms(lambda: xops.exchange_clear_plain(bufs, n_loc,
+                                                           prev)),
+        library_ms=cuda_ms(library),
+        library_device_ms=device_ms(library),
+        **bound((G * n_loc + outside) * BATCH * 4
+                + sum(p.numel() for p in prev) * 4))
+    whole = device_ms(lambda: [b.zero_() for b in bufs])
     print(f"compaction kernel (shard 0, [{n_loc}, {BATCH}], {D} "
           f"destinations, {sent0} rows sent): {comp['ms']:.4f} ms as called "
           f"({comp['device_ms']:.4f} on the device), plain "
@@ -2199,24 +2413,30 @@ def compaction_rows(runner, rcfg, sources, dev):
           f"receive (shard 0, {dst.numel()} slots, {real_rows} real): "
           f"{p3['ms']:.4f} ms ({p3['device_ms']:.4f}), plain "
           f"{p3['plain_ms']:.4f} ms, index_add_ over the real rows "
-          f"{p3['library_ms']:.4f} ms, bound {p3['bound_ms']:.4f} ms; "
-          f"row_zero (shard 0, {prev.numel()} slots, {zero_rows} real): "
-          f"{rz['ms']:.4f} ms ({rz['device_ms']:.4f}), plain "
-          f"{rz['plain_ms']:.4f} ms, index_fill_ over the real rows "
-          f"{rz['library_ms']:.4f} ms, bound {rz['bound_ms']:.4f} ms; the "
-          f"whole-buffer zero_ it replaces {whole:.4f} ms, the own "
-          f"block's {block:.4f} ms (on the device)")
-    del ps, rs, acc, tile_real, own
-    return comp, p3, rz
+          f"{p3['library_ms']:.4f} ms, bound {p3['bound_ms']:.4f} ms; the "
+          f"clear ({G} buffers, own blocks of {n_loc} rows and "
+          f"{sum(p.numel() for p in prev)} slots, {outside} real rows "
+          f"outside them), one launch: {clear['ms']:.4f} ms as called "
+          f"({clear['device_ms']:.4f} on the device), plain "
+          f"{clear['plain_ms']:.4f} ms, its library form ({G} zero_ and {G} "
+          f"index_fill_) {clear['library_ms']:.4f} ms "
+          f"({clear['library_device_ms']:.4f}), bound "
+          f"{clear['bound_ms']:.4f} ms; the whole buffers' zero_ "
+          f"{whole:.4f} ms (on the device)")
+    if clear["ms"] > clear["library_ms"]:
+        fail(f"the exchange's clear as called ({clear['ms']:.4f} ms) is "
+             f"slower than its library form ({clear['library_ms']:.4f} ms)")
+    del ps, rs, bufs, tile_real, own
+    return comp, p3, clear
 
 
 # the exchange's kernels in a profile, by a part of their device record's
 # name: the buffer zeroing (PyTorch's fill kernel, which zero_ launches,
-# and memset records), the compaction, P3, row_zero and P2
+# and memset records), the compaction, P3, the clear and P2
 EXCHANGE_RECORDS = (("memset", ("FillFunctor", "Memset")),
                     ("compaction", ("compact_kernel",)),
                     ("P3", ("row_scatter_add_kernel",)),
-                    ("row_zero", ("row_zero_kernel",)),
+                    ("clear", ("exchange_clear_kernel",)),
                     ("P2 one pass", ("reduce_scatter_onepass_kernel",)),
                     ("P1", ("ring_copy4_kernel",)))
 
@@ -2237,12 +2457,16 @@ def exchange_line(mode, prof) -> None:
 def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
     """Phase 15: the sharded refinement pool with SHARDS shards on the
     mesh's devices, once per exchange, phase 5's pools.  ``single`` is
-    phase 5's (ids, values).  Returns (kernel rows of the compaction, P3
-    and row_zero, launch counts per run, level records per run)."""
+    phase 5's (ids, values).  The store-backed pool reads an index built
+    by build_walk_index_sharded, held array-equal to ``index`` (phase 4's
+    build_walk_index at the same seed).  Returns (kernel rows of the
+    compaction, P3 and the clear, launch counts per run, level records
+    per run, launch counts of the sharded build)."""
     import shutil
     import numpy as np
     import torch
     from fora_tpu_torch import index as tidx
+    from fora_tpu_torch import kernels
     from fora_tpu_torch.eval import metrics
     from fora_tpu_torch.parallel import (ShardedGraphStore, ShardedTopkRunner,
                                          make_mesh, save_sharded_graph)
@@ -2277,7 +2501,7 @@ def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
                                                              quiet),
                             need_trace=False)
         exchange_line(mode, prof)
-    comp, p3, rz = compaction_rows(runs["routed"], rcfg, sources, dev)
+    comp, p3, clear = compaction_rows(runs["routed"], rcfg, sources, dev)
     del runs
     torch.cuda.empty_cache()
     ids0, vals0, lev0 = out["dense"][:3]
@@ -2313,12 +2537,31 @@ def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
     pools_agree("sharded hub split vs without", hub[0], hub[1], ids0, vals0,
                 sources)
     del run
-    # store-backed: both stores written, then read through mmap
+    # the sharded index build: the walks over the out-CSR's shard slices
+    # (K4's sharded form), every array equal to phase 4's index
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sidx = tidx.build_walk_index_sharded(g, mesh, rcfg, SEED)
+    build_s = time.perf_counter() - t0
+    build_counts = kernels.launch_counts()
+    walks = int(tidx.index_counts(g.out_deg, rcfg).sum())
+    for f in ("edge_src", "edge_dst", "bucket_offsets", "counts_cum",
+              "edge_mult"):
+        if not np.array_equal(np.asarray(getattr(sidx, f)),
+                              np.asarray(getattr(index, f))):
+            fail(f"sharded index build: {f} differs from phase 4's index")
+    print(f"sharded index build: {walks} walks over {SHARDS} shard slices "
+          f"in {build_s:.1f} s ({build_counts['index_walk_sharded']} launches "
+          f"of K4's sharded form); every array equal to phase 4's "
+          f"build_walk_index at seed {SEED}")
+    # store-backed: both stores written (the index store from the sharded
+    # build), then read through mmap
     sdir = ROOT / "bench_data" / "torch_smoke_stores"
     shutil.rmtree(sdir, ignore_errors=True)
     t0 = time.perf_counter()
     save_sharded_graph(g, str(sdir), SHARDS)
-    tidx.save_sharded(index, rcfg, str(sdir / "index"), SHARDS, graph=g)
+    tidx.save_sharded(sidx, rcfg, str(sdir / "index"), SHARDS, graph=g)
+    del sidx
     save_s = time.perf_counter() - t0
     run = runner(ShardedGraphStore(str(sdir), SHARDS),
                  tidx.ShardedIndexStore(str(sdir / "index"), SHARDS, rcfg),
@@ -2335,7 +2578,7 @@ def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
     del run
     shutil.rmtree(sdir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return comp, p3, rz, launches, stats
+    return comp, p3, clear, launches, stats, build_counts
 
 
 def run_weighted_sharded(gw, rcfg, index, sources, exact_ids):
@@ -2378,12 +2621,14 @@ def main(argv=None) -> int:
 
     preloaded = foreign_modules()
     from fora_tpu_torch import ForaConfig
+    from fora_tpu_torch import index as tidx
     from fora_tpu_torch import kernels
     from fora_tpu_torch.algo import bounds, exact
     from fora_tpu_torch.algo.topk import TopkRunner
     from fora_tpu_torch.eval import metrics
     from fora_tpu_torch.eval import queries as qio
     from fora_tpu_torch.graph import generators, to_device
+    from fora_tpu_torch.index.build_sharded import shard_out_csr
     from fora_tpu_torch.kernels import build as kbuild
     from fora_tpu_torch.kernels import select
     from fora_tpu_torch.ops import gather, push, walk
@@ -2606,6 +2851,9 @@ def main(argv=None) -> int:
         starts = {"i": start, "ii": index_build_starts(dg, rcfg,
                                                        INDEX_LAUNCH)}
         k4 = walk_shapes(dg, rcfg, starts, k4_rate)["i"]
+        # K4's sharded form at shape (i): the out-CSR as SHARDS slices
+        sharded_walk_equal(shard_out_csr(g, [dev] * SHARDS), dg, rcfg, start,
+                           "i")
         walk_sweep(dg, rcfg, sources[0])
         rows["index_walk"] = dict(
             max_abs_err=walk_err, ms=k4["ms"],
@@ -2810,6 +3058,9 @@ def main(argv=None) -> int:
         sharded_rows, sharded_launches, sh_iters = run_sharded(
             g, rcfg, index, sources[:POOL], dev, ex[:EVAL_N])
         rows.update(sharded_rows)
+        raw1_launches, raw1_steps, rows["index_walk_sharded"] = \
+            run_sharded_raw(g, rcfg, sources[:POOL], ex[:EVAL_N], dg,
+                            "sharded raw")
 
     # ---- 10.-12. raw walk, Monte Carlo, P3 --------------------------------
     with Phase("raw walk"):
@@ -2823,16 +3074,18 @@ def main(argv=None) -> int:
     # ---- 15. the sharded refinement pool -----------------------------------
     with Phase("sharded pool"):
         (rows["frontier_compact"], rows["row_scatter_add_receive"],
-         rows["row_zero"], pool_launches,
-         pool_stats) = run_sharded_pool(g, rcfg, index, sources, dev,
-                                        ex[:EVAL_N], (results, single_vals))
+         rows["exchange_clear"], pool_launches, pool_stats,
+         build_launches) = run_sharded_pool(g, rcfg, index, sources, dev,
+                                            ex[:EVAL_N],
+                                            (results, single_vals))
 
     # ---- 13. weighted graphs ---------------------------------------------
     del dg, dg_flat, index, runner, staged, results, x, lvl, inv, sched
     torch.cuda.empty_cache()
     with Phase("weighted"):
         (rows["index_walk_alias"], w_launches, w_raw_launches,
-         w_mc_launches, w_pool_launches) = run_weighted(g, rcfg, dev)
+         w_mc_launches, w_pool_launches, w_raw1_launches, w_raw1_steps,
+         rows["index_walk_sharded_alias"]) = run_weighted(g, rcfg, dev)
 
     # ---- 14. the CLI and the server ----------------------------------------
     torch.cuda.empty_cache()
@@ -2840,6 +3093,7 @@ def main(argv=None) -> int:
         cli_launches = run_cli(g, rcfg, sources, ex[:EVAL_N], dev)
 
     # ---- 8. proof that each path ran on its kernels ------------------------
+    hops = (SHARDS - 1) * SHARDS
     print(f"launches in phases 4-5: {launches}")
     for name in MAIN_KERNELS:
         if launches[name] <= 0:
@@ -2888,18 +3142,62 @@ def main(argv=None) -> int:
     if any(c["index_walk"] for c in (w_launches, w_raw_launches,
                                      w_mc_launches)):
         fail("a weighted path launched K4's uniform branch")
-    if any(c["index_walk_alias"] for c in (launches, sharded_launches,
-                                           raw_launches, mc_launches,
-                                           p3_launches,
-                                           *pool_launches.values())):
+    if any(c["index_walk_alias"] or c["index_walk_sharded_alias"]
+           for c in (launches, sharded_launches, raw_launches, mc_launches,
+                     p3_launches, *raw1_launches.values(), build_launches,
+                     *pool_launches.values())):
         fail("K4's alias branch was launched on an unweighted path")
+    # the raw one-shot (phase 9, and on the weighted graph in phase 13):
+    # K4's sharded form (its alias form on the weighted graph, never the
+    # other one nor an unsharded branch), K1, K3's selection once per
+    # shard, P2's one pass once, no K2; P1 on every superstep that took
+    # the ring; under routed the compaction, P3 once per shard per
+    # compacted superstep and the clear once per compacted superstep that
+    # follows a compacted one
+    for label, runs, steps, walk_name, other in (
+            ("phase 9", raw1_launches, raw1_steps, "index_walk_sharded",
+             "index_walk_sharded_alias"),
+            ("phase 13", w_raw1_launches, w_raw1_steps,
+             "index_walk_sharded_alias", "index_walk_sharded")):
+        for mode, c in runs.items():
+            st = steps[mode]
+            print(f"launches in {label}'s raw one-shot ({mode}, "
+                  f"{st['supersteps']} supersteps, {st['compacted']} "
+                  f"compacted, {st['fell_back']} fell back): {c}")
+            ring_steps = (st["supersteps"] if mode == "dense"
+                          else st["fell_back"])
+            want = {walk_name: None, "push_prepass": None,
+                    "gather_scatter_add": None, "topk_bounds": SHARDS,
+                    "reduce_scatter_onepass": 1, "index_spmv": 0,
+                    "index_walk": 0, "index_walk_alias": 0, other: 0,
+                    "ring_reduce_scatter_hop": 0,
+                    "ring_all_gather_hop": hops * ring_steps,
+                    "row_scatter_add": SHARDS * st["compacted"],
+                    "exchange_clear": st["cleared"]}
+            for name, n in want.items():
+                if (c[name] <= 0) if n is None else (c[name] != n):
+                    fail(f"{label}'s raw one-shot ({mode}): {c[name]} "
+                         f"launches of {name}, expected "
+                         f"{'some' if n is None else n}")
+            if (mode == "dense") != (c["frontier_compact"] == 0):
+                fail(f"{label}'s raw one-shot ({mode}): "
+                     f"{c['frontier_compact']} compactions")
+    # the sharded index build (phase 15): K4's sharded form once per
+    # chunk of 2^23 walks, no other walk branch
+    print(f"launches in phase 15's sharded index build: {build_launches}")
+    chunks = -(-int(tidx.index_counts(g.out_deg, rcfg).sum()) // (1 << 23))
+    if build_launches["index_walk_sharded"] != chunks or any(
+            build_launches[n] for n in ("index_walk", "index_walk_alias",
+                                        "index_walk_sharded_alias")):
+        fail(f"sharded index build: {build_launches['index_walk_sharded']} "
+             f"launches of K4's sharded form for {chunks} chunks, or "
+             f"another walk branch ran")
     # phase 15: per exchange, K1-K3 and P2 on every level run (K2 and K3
     # once per shard, P2's one pass once: every shard is on the one card,
     # so the ring's hops never run), P1 on the supersteps that took the
-    # ring, the compaction, P3 and row_zero on the compacted runs only (P3
-    # once per shard per compacted superstep, row_zero once per shard on
-    # those that follow a compacted one)
-    hops = (SHARDS - 1) * SHARDS
+    # ring, the compaction, P3 and the clear on the compacted runs only (P3
+    # once per shard per compacted superstep, the clear once on each that
+    # follows a compacted one, in one launch for the four buffers)
     for mode, c in list(pool_launches.items()) + [("weighted routed",
                                                    w_pool_launches)]:
         print(f"launches in phase 15 ({mode}): {c}")
@@ -2915,12 +3213,14 @@ def main(argv=None) -> int:
         steps = sum(x["supersteps"] for x in st)
         comp = sum(x["compacted"] for x in st)
         back = sum(x["fell_back"] for x in st)
+        cleared = sum(x["cleared"] for x in st)
         ring_steps = steps if mode == "dense" else back
         want = {"topk_bounds": SHARDS * runs, "index_spmv": SHARDS * runs,
                 "reduce_scatter_onepass": runs, "ring_reduce_scatter_hop": 0,
                 "ring_all_gather_hop": hops * ring_steps,
                 "gather_scatter_add": SHARDS * steps,
-                "row_scatter_add": SHARDS * comp}
+                "row_scatter_add": SHARDS * comp,
+                "exchange_clear": cleared}
         for name, n in want.items():
             if c[name] != n:
                 fail(f"phase 15 {mode}: {c[name]} launches of {name}, "
@@ -2928,23 +3228,33 @@ def main(argv=None) -> int:
                      f"{comp} compacted)")
         if (mode == "dense") != (c["frontier_compact"] == 0):
             fail(f"phase 15 {mode}: {c['frontier_compact']} compactions")
-        if mode == "dense" and c["row_zero"] or mode != "dense" and not (
-                0 < c["row_zero"] <= SHARDS * comp):
-            fail(f"phase 15 {mode}: {c['row_zero']} row_zero launches for "
-                 f"{comp} compacted supersteps")
+        if (mode == "dense") != (cleared == 0):
+            fail(f"phase 15 {mode}: {cleared} supersteps cleared by rows "
+                 f"of {comp} compacted")
         print(f"phase 15 {mode}: K3 and K2 once per shard per level run "
               f"({runs}), P1 on the {ring_steps} supersteps that took the "
               f"ring, P3 on the {comp} compacted ones"
               + (" (no superstep fell back, so P1 did not run)"
                  if mode != "dense" and not back else ""))
-    if any(c["frontier_compact"] or c["row_scatter_add"] or c["row_zero"]
-           for c in (launches, sharded_launches, raw_launches, mc_launches)):
-        fail("the compaction, P3 or row_zero ran on a path without a "
+    if any(c["frontier_compact"] or c["row_scatter_add"]
+           or c["exchange_clear"]
+           for c in (launches, sharded_launches, raw_launches, mc_launches,
+                     raw1_launches["dense"], w_raw1_launches["dense"],
+                     build_launches)):
+        fail("the compaction, P3 or the clear ran on a path without a "
              "compacted exchange")
     if any(c["ring_reduce_scatter_hop"] for c in (
             sharded_launches, w_pool_launches, *pool_launches.values(),
+            *raw1_launches.values(), *w_raw1_launches.values(),
             *cli_launches.values())):
         fail("P2's hop kernel ran with every shard on one card")
+    if any(c["index_walk_sharded"] or c["index_walk_sharded_alias"]
+           for c in (launches, sharded_launches, raw_launches, mc_launches,
+                     p3_launches, w_launches, w_raw_launches, w_mc_launches,
+                     w_pool_launches, *pool_launches.values(),
+                     *cli_launches.values())):
+        fail("K4's sharded form ran on a path without the out-CSR's "
+             "shard slices")
     # phase 14: each CLI action and the server ran its kernels; BiPPR's
     # pre-pass and K4-hub ran on no path before it, K4-hub only in hubppr
     for name, c in cli_launches.items():
@@ -3008,7 +3318,11 @@ def main(argv=None) -> int:
                              "fora_tpu/parallel/sharded.py:177"),
         # the zeroed buffer of the routed receive (JAX's ``jnp.zeros`` of
         # every row before ``full.at[recv_ids].add``)
-        "row_zero": ("row_scatter.cu", "fora_tpu/parallel/sharded.py:203"),
+        "exchange_clear": ("row_scatter.cu",
+                           "fora_tpu/parallel/sharded.py:203"),
+        # the row-sharded lockstep walk (its alias hop at 259)
+        "index_walk_sharded": ("walk.cu", "fora_tpu/ops/walk.py:225"),
+        "index_walk_sharded_alias": ("walk.cu", "fora_tpu/ops/walk.py:259"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
@@ -3018,7 +3332,10 @@ def main(argv=None) -> int:
              pool_launches["routed"]["row_scatter_add"]
              if name == "row_scatter_add_receive" else
              pool_launches["routed"][name]
-             if name in ("frontier_compact", "row_zero") else
+             if name in ("frontier_compact", "exchange_clear") else
+             raw1_launches["dense"][name] if name == "index_walk_sharded" else
+             w_raw1_launches["dense"][name]
+             if name == "index_walk_sharded_alias" else
              w_launches[name] if name == "index_walk_alias" else
              cli_launches["bippr"][name] if name == "backward_prepass" else
              cli_launches["hubppr"][name] if name == "index_walk_hub" else
@@ -3030,8 +3347,8 @@ def main(argv=None) -> int:
                     "plain_ms": row["plain_ms"],
                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
-                    **({"device_ms": row["device_ms"]}
-                       if "device_ms" in row else {})})
+                    **{k: row[k] for k in ("device_ms", "library_device_ms",
+                                           "unsharded_ms") if k in row}})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -39,8 +39,11 @@ refinement pool (``parallel.ShardedTopkRunner``) over ``--graph-shards``
 shards and ``--query-shards`` query groups on the card (every shard on it
 where there is one card; on the CPU with ``--device cpu``), reading both
 stores where they exist, with ``--exchange`` and ``--chips-per-host``.
-The sharded pool needs ``--with-idx``: the sharded raw walk is not ported
-(ROADMAP Queue 1 item 4), nor the ``ragged`` exchange (ROADMAP C5).
+The sharded pool needs ``--with-idx``, as the JAX CLI does
+(``fora_tpu/cli.py:191-193``): the refinement pool runs on an index, and
+the sharded raw walk serves only the one-shot engine
+(``parallel.ShardedForaEngine`` without an index); the ``ragged``
+exchange is not ported (ROADMAP C5).
 """
 
 from __future__ import annotations
@@ -192,8 +195,8 @@ def _make_topk_runner(args, g, dg, rcfg, idx, dev):
     from .parallel import ShardedTopkRunner, make_mesh
     if idx is None:
         raise ValueError("--graph-shards > 1 requires --with-idx: the "
-                         "sharded raw walk is not ported (ROADMAP Queue 1 "
-                         "item 4)")
+                         "sharded refinement pool runs on a FORA+ index, as "
+                         "the JAX CLI's does")
     G, Q = args.graph_shards, args.query_shards or 1
     mesh = make_mesh(G, Q, devices=None if dev.type == "cuda"
                      else [dev] * (G * Q))

@@ -1,27 +1,43 @@
-"""The row-sharded out-CSR, on the host.
+"""The FORA+ index build over the row-sharded out-CSR.
 
-Port of ``fora_tpu/index/build_sharded.py::_shard_csr`` (48-82): per shard,
-a localized slice of the out-CSR's row pointers and its contiguous slice
-of ``out_indices`` (and of the alias tables on a weighted graph), padded to
-common shapes.  The sharded graph store (``parallel/graph_store.py``)
-writes the walk side with it.  The sharded walks and
-``build_walk_index_sharded`` (84-185) are not ported yet (ROADMAP Queue 1
-item 4, Queue 2 item 4).
+Port of ``fora_tpu/index/build_sharded.py``: ``_shard_csr`` (48-82), per
+shard a localized slice of the out-CSR's row pointers and its contiguous
+slice of ``out_indices`` (and of the alias tables on a weighted graph),
+padded to common shapes; ``build_walk_index_sharded`` (108-170) and
+``sharded_build_bytes`` (173-185).  The sharded graph store
+(``parallel/graph_store.py``) writes the walk side with ``_shard_csr``, and
+the sharded raw one-shot (``parallel/sharded.py``) walks over it.
+
+Each shard holds only its rows' slice, the memory wall the JAX builder
+breaks with one psum per hop of its lockstep walk.  Here the walks read
+the slices through a table of their pointers (K4's sharded form,
+``ops/walk.py``), so the index is ``index/build.py``'s at the same seed
+and chunk, array for array: chunk i of ``chunk_lanes`` walks draws from
+``seed + i * 2^32`` on both.  There are no checkpoints, since the port's
+single-device builder has none.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
+import torch
 
-from ..graph.alias import build_alias
+from ..config import ResolvedConfig
+from ..graph.alias import AliasTables, build_alias, build_alias_library
+from ..ops.walk import ShardedOutCSR, walk_endpoints
+from .build import WalkIndex, index_counts, pack_index
 
 
-def _shard_csr(g, n_shards: int, row_multiple: int = 8):
+def _shard_csr(g, n_shards: int, row_multiple: int = 8,
+               alias: Optional[AliasTables] = None):
     """(n_loc, indptr [G, n_loc+1] i32, indices [G, mo_loc] i32, deg [G,
     n_loc] i32, alias_prob [G, mo_loc] f32 or None, alias_other [G,
-    mo_loc] i32 or None) of ``g``, a CSRGraph of either package."""
+    mo_loc] i32 or None) of ``g``, a CSRGraph of either package.  A
+    weighted graph's alias tables are ``alias`` where given, else
+    ``graph.alias.build_alias``'s (the two builders give equal tables)."""
     n = g.n
     n_loc = -(-math.ceil(n / n_shards) // row_multiple) * row_multiple
     indptr = np.asarray(g.out_indptr, dtype=np.int64)
@@ -36,7 +52,7 @@ def _shard_csr(g, n_shards: int, row_multiple: int = 8):
               if g.weighted else None)
     ao_loc = (np.zeros((n_shards, m_loc), dtype=np.int32)
               if g.weighted else None)
-    if g.weighted:
+    if g.weighted and alias is None:
         alias = build_alias(g, weights=g.out_w)
     for s in range(n_shards):
         row0, row1 = s * n_loc, min((s + 1) * n_loc, n)
@@ -51,3 +67,83 @@ def _shard_csr(g, n_shards: int, row_multiple: int = 8):
             ap_loc[s, : hi - lo] = alias.prob[lo:hi]
             ao_loc[s, : hi - lo] = alias.other[lo:hi]
     return n_loc, indptr_loc, indices_loc, deg_loc, ap_loc, ao_loc
+
+
+def place_out_csr(slices, n_loc: int, devices) -> ShardedOutCSR:
+    """A ShardedOutCSR from per-shard host arrays: ``slices`` holds, per
+    shard, (indptr [n_loc+1], indices, alias_prob or None, alias_other or
+    None), each put on that shard's device."""
+    def put(a, dev, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+    ip, ix, ap, ao = [], [], [], []
+    for (p, i, prob, other), dev in zip(slices, devices):
+        ip.append(put(p, dev, np.int32))
+        ix.append(put(i, dev, np.int32))
+        if prob is not None:
+            ap.append(put(prob, dev, np.float32))
+            ao.append(put(other, dev, np.int32))
+    return ShardedOutCSR(indptr=tuple(ip), indices=tuple(ix),
+                         alias_prob=tuple(ap) if ap else None,
+                         alias_other=tuple(ao) if ao else None, n_loc=n_loc)
+
+
+def shard_out_csr(g, devices, row_multiple: int = 8) -> ShardedOutCSR:
+    """``g``'s out-CSR cut by ``_shard_csr`` over len(devices) shards, shard
+    s on ``devices[s]``; a weighted graph's alias tables from the builder
+    ``to_device`` takes for the first device (the kernel library's on a
+    card, where numpy's loop would take minutes at the bench's scale)."""
+    G = len(devices)
+    alias = None
+    if g.weighted and torch.device(devices[0]).type == "cuda":
+        alias = build_alias_library(g, g.out_w)
+    n_loc, ip, ix, _deg, ap, ao = _shard_csr(g, G, row_multiple, alias=alias)
+    return place_out_csr(
+        [(ip[s], ix[s], None if ap is None else ap[s],
+          None if ao is None else ao[s]) for s in range(G)], n_loc, devices)
+
+
+def build_walk_index_sharded(g, mesh, rcfg: ResolvedConfig, seed: int,
+                             chunk_lanes: int = 1 << 23) -> WalkIndex:
+    """``build_walk_index`` with the out-CSR sharded over the mesh's graph
+    shards (``mesh`` as the sharded engines take it; a query axis is
+    ignored): ``g`` (a host CSRGraph) cut by ``_shard_csr``, each slice on
+    its shard's device, every index walk run on the first shard's device
+    over the slices, ``chunk_lanes`` walks per launch, chunk i from seed
+    ``seed + i * 2^32``; then the host pack.  The index equals
+    ``build_walk_index(to_device(g), rcfg, seed, chunk_lanes)`` array for
+    array."""
+    from ..parallel.sharded import _mesh_groups
+    devices = _mesh_groups(mesh)[0]
+    csr = shard_out_csr(g, devices)
+    n = g.n
+    deg = np.asarray(g.out_deg)
+    counts = index_counts(deg, rcfg)
+    total = int(counts.sum())
+    if total + n >= 2**31:
+        raise ValueError(f"walk index ({total} endpoints) exceeds int32 "
+                         "range")
+    starts = np.repeat(np.arange(n, dtype=np.int32), counts)
+    endpoints = np.empty(total, dtype=np.int32)
+    for i, lo in enumerate(range(0, total, chunk_lanes)):
+        hi = min(lo + chunk_lanes, total)
+        s = torch.from_numpy(starts[lo:hi]).to(devices[0])
+        endpoints[lo:hi] = walk_endpoints(
+            csr, s, seed + (i << 32), rcfg.alpha,
+            rcfg.max_walk_hops).cpu().numpy()
+    return pack_index(endpoints, counts, deg, rcfg)
+
+
+def sharded_build_bytes(g, n_shards: int) -> dict:
+    """Per-shard bytes of the sharded build's out-CSR slices against the
+    replicated out-CSR (the memory wall), as the JAX package counts
+    them."""
+    n_loc, indptr_loc, indices_loc, deg_loc, ap, ao = _shard_csr(g, n_shards)
+    per_shard = (indptr_loc.nbytes + indices_loc.nbytes + deg_loc.nbytes)
+    if ap is not None:
+        per_shard += ap.nbytes + ao.nbytes
+    per_shard //= n_shards
+    full = (g.out_indptr.nbytes + g.out_indices.nbytes + g.out_deg.nbytes)
+    if g.weighted:
+        full += 2 * g.out_indices.nbytes
+    return {"per_shard_bytes": per_shard, "replicated_bytes": full,
+            "ratio": per_shard / max(full, 1)}

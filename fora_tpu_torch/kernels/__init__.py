@@ -18,11 +18,13 @@ PyTorch versions instead.
 | index_walk              | csrc/walk.cu           | K4 (index build, raw-walk FORA, Monte Carlo, BiPPR, HubPPR's pool; plan in schedule.py) |
 | index_walk_alias        | csrc/walk.cu           | K4's alias branch (the same, on weighted graphs) |
 | index_walk_hub          | csrc/walk.cu           | K4-hub (HubPPR's query walks, uniform or alias hops) |
+| index_walk_sharded      | csrc/walk.cu           | K4's sharded form (the out-CSR as a table of shard slices: the sharded raw one-shot and index build) |
+| index_walk_sharded_alias | csrc/walk.cu          | the same, alias hops (weighted graphs) |
 | ring_all_gather_hop     | csrc/ring.cu           | P1 (one hop of one shard) |
 | ring_reduce_scatter_hop | csrc/ring.cu           | P2 (one hop of one shard; shards on several cards) |
 | reduce_scatter_onepass  | csrc/ring.cu           | P2 in one launch (every shard on one card) |
 | row_scatter_add         | csrc/row_scatter.cu    | P3 (per-edge row accumulate, atomics; the receive of the compacted exchanges) |
-| row_zero                | csrc/row_scatter.cu    | the compacted exchange's zeroing of the rows the previous receive wrote |
+| exchange_clear          | csrc/row_scatter.cu    | the compacted exchange's clear before a receive: every buffer's own block and the rows the previous receive wrote, one launch |
 | frontier_compact        | csrc/exchange.cu       | the frontier compaction (the send side of the compact, routed and hier exchanges) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 | row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
@@ -53,9 +55,10 @@ from . import build, schedule, select
 
 __all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
            "index_spmv", "topk_bounds", "topk_bounds_stats", "index_walk",
-           "index_walk_alias", "index_walk_hub", "ring_all_gather_hop",
+           "index_walk_alias", "index_walk_hub", "index_walk_sharded",
+           "index_walk_sharded_alias", "ring_all_gather_hop",
            "ring_reduce_scatter_hop", "reduce_scatter_onepass",
-           "row_scatter_add", "row_zero", "frontier_compact",
+           "row_scatter_add", "exchange_clear", "frontier_compact",
            "sector_reads", "row_reads",
            "philox_blocks", "inv_log1m_alpha", "sm_count",
            "enable_peer_access",
@@ -402,6 +405,81 @@ def index_walk_hub(start: torch.Tensor, out_indptr: torch.Tensor,
     return out
 
 
+def _index_walk_sharded(start, indptr, indices, alias_prob, alias_other,
+                        n_loc, seed, alpha, max_hops, name) -> torch.Tensor:
+    """Checks and launches K4's sharded form: ``indptr``/``indices`` (and
+    both alias lists, or neither) hold one tensor per shard; a slice on
+    another card than ``start`` is read through a peer pointer (untested:
+    it needs a machine with several cards)."""
+    (W,) = start.shape
+    dev = start.device
+    _check("start", start, torch.int32, (W,))
+    G = len(indptr)
+    if not 1 <= G <= 32 or len(indices) != G:
+        raise ValueError(f"{name}: {G} row-pointer and {len(indices)} edge "
+                         "slices; need 1-32 shards, one of each a shard")
+    alias = alias_prob is not None
+    if alias and not (len(alias_prob) == len(alias_other) == G):
+        raise ValueError(f"{name}: alias tables for every shard or none")
+    for s in range(G):
+        sdev = indptr[s].device
+        _check(f"indptr[{s}]", indptr[s], torch.int32, (n_loc + 1,))
+        _check(f"indices[{s}]", indices[s], torch.int32, device=sdev)
+        if alias:
+            m = indices[s].shape
+            _check(f"alias_prob[{s}]", alias_prob[s], torch.float32, m, sdev)
+            _check(f"alias_other[{s}]", alias_other[s], torch.int32, m, sdev)
+        if sdev != dev:
+            enable_peer_access(dev, sdev)
+    if W >= 2**32:
+        raise ValueError(f"{name}: at most 2^32 - 1 walks per call")
+    out = torch.empty(W, dtype=torch.int32, device=dev)
+    if W == 0:
+        return out
+    plan = schedule.walk_plan(W, sm_count(dev))
+
+    def table(ts):
+        return None if ts is None else ctypes.cast(
+            (ctypes.c_void_p * G)(*[t.data_ptr() for t in ts]),
+            ctypes.c_void_p)
+    with torch.cuda.device(dev):
+        err = build.library().fora_index_walk_sharded(
+            _ptr(start), _ptr(out), W, table(indptr), table(indices),
+            table(alias_prob), table(alias_other), G, n_loc, seed % 2**64,
+            inv_log1m_alpha(alpha), max_hops, plan.walks_per_lane,
+            plan.blocks, _stream(start))
+    _raise_on(err, name)
+    return out
+
+
+def index_walk_sharded(start: torch.Tensor, indptr: list, indices: list,
+                       n_loc: int, seed: int, alpha: float,
+                       max_hops: int) -> torch.Tensor:
+    """K4's sharded form: as :func:`index_walk` over an out-CSR split into
+    row slices (shard s holds rows s * n_loc .. (s + 1) * n_loc - 1 as a
+    localized ``indptr[s]`` [n_loc + 1] and its edges ``indices[s]``), each
+    hop reading its row's owner slice; the endpoints are ``index_walk``'s
+    on the unsharded graph bit for bit."""
+    out = _index_walk_sharded(start, indptr, indices, None, None, n_loc,
+                              seed, alpha, max_hops, "index_walk_sharded")
+    index_walk_sharded.launches += 1
+    return out
+
+
+def index_walk_sharded_alias(start: torch.Tensor, indptr: list,
+                             indices: list, alias_prob: list,
+                             alias_other: list, n_loc: int, seed: int,
+                             alpha: float, max_hops: int) -> torch.Tensor:
+    """K4's sharded form with alias hops (each shard's slice of the alias
+    tables beside its edges): :func:`index_walk_alias`'s endpoints on the
+    unsharded graph bit for bit.  Counted apart from the uniform form."""
+    out = _index_walk_sharded(start, indptr, indices, alias_prob,
+                              alias_other, n_loc, seed, alpha, max_hops,
+                              "index_walk_sharded_alias")
+    index_walk_sharded_alias.launches += 1
+    return out
+
+
 def _ring_hop_check(out: torch.Tensor, *ins: torch.Tensor):
     """``out`` and ``ins`` are CUDA f32 blocks of one shape; the inputs
     may lie on another card (read through a peer pointer)."""
@@ -490,23 +568,42 @@ def row_scatter_add(acc: torch.Tensor, tile: torch.Tensor, src: torch.Tensor,
     return acc
 
 
-def row_zero(buf: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``buf[ids[e]] = 0`` for every e whose id lies in buf's rows (an id
-    outside them, a pad slot, is skipped); ``buf`` [rows, B] f32, ``ids``
-    int32.  Updates ``buf`` in place and returns it."""
-    dev = buf.device
-    _check("buf", buf, torch.float32)
-    if buf.dim() != 2:
-        raise ValueError(f"row_zero: buf of shape {tuple(buf.shape)}, "
-                         "expected [rows, B]")
-    _check("ids", ids, torch.int32, (ids.numel(),), dev)
+def exchange_clear(bufs: list, n_loc: int, ids: list,
+                   own: Optional[list] = None) -> None:
+    """The compacted exchange's clear, one launch for buffers on one card:
+    for each buffer t of ``bufs`` (1-32 [rows, B] f32 buffers of one shape)
+    its own block, rows ``own[t] * n_loc`` to ``(own[t] + 1) * n_loc - 1``
+    (``own`` defaults to 0, 1, ...), and the rows named by ``ids[t]``
+    (int32, one length for all; an id outside the rows, a pad slot, is
+    skipped) are set to zero."""
+    G = len(bufs)
+    if not 1 <= G <= 32 or len(ids) != G:
+        raise ValueError(f"exchange_clear: {G} buffers and {len(ids)} id "
+                         "lists; need 1-32 of each, one a buffer")
+    own = list(range(G)) if own is None else own
+    b0 = bufs[0]
+    _check("bufs[0]", b0, torch.float32)
+    if b0.dim() != 2:
+        raise ValueError(f"exchange_clear: buffers of shape "
+                         f"{tuple(b0.shape)}, expected [rows, B]")
+    dev, n_ids = b0.device, ids[0].numel()
+    for t in range(G):
+        _check(f"bufs[{t}]", bufs[t], torch.float32, b0.shape, dev)
+        _check(f"ids[{t}]", ids[t], torch.int32, (n_ids,), dev)
+        if not (0 <= own[t] and (own[t] + 1) * n_loc <= b0.shape[0]):
+            raise ValueError(f"exchange_clear: own block {own[t]} of "
+                             f"{n_loc} rows outside {b0.shape[0]} rows")
+    bptr = (ctypes.c_void_p * G)(*[b.data_ptr() for b in bufs])
+    iptr = (ctypes.c_void_p * G)(*[i.data_ptr() for i in ids])
+    own0 = (ctypes.c_longlong * G)(*[o * n_loc for o in own])
     with torch.cuda.device(dev):
-        err = build.library().fora_row_zero(
-            _ptr(buf), _ptr(ids), ids.numel(), buf.shape[0], buf.shape[1],
-            _stream(buf))
-    row_zero.launches += 1
-    _raise_on(err, "row_zero")
-    return buf
+        err = build.library().fora_exchange_clear(
+            ctypes.cast(bptr, ctypes.c_void_p),
+            ctypes.cast(iptr, ctypes.c_void_p),
+            ctypes.cast(own0, ctypes.c_void_p), G, b0.shape[0], b0.shape[1],
+            n_loc, n_ids, _stream(b0))
+    exchange_clear.launches += 1
+    _raise_on(err, "exchange_clear")
 
 
 def frontier_compact(contrib: torch.Tensor, needed: Optional[torch.Tensor],
@@ -631,8 +728,9 @@ def enable_peer_access(reader: torch.device, owner: torch.device) -> None:
 
 WRAPPERS = (push_prepass, backward_prepass, gather_scatter_add, index_spmv,
             topk_bounds, index_walk, index_walk_alias, index_walk_hub,
+            index_walk_sharded, index_walk_sharded_alias,
             ring_all_gather_hop, ring_reduce_scatter_hop,
-            reduce_scatter_onepass, row_scatter_add, row_zero,
+            reduce_scatter_onepass, row_scatter_add, exchange_clear,
             frontier_compact, philox_blocks)
 for _w in WRAPPERS:
     _w.launches = 0

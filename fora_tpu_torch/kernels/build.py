@@ -48,13 +48,15 @@ SIGNATURES = {
                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "fora_index_walk": [_P, _P, _LL, _P, _P, _P, _P, _P, _P, _I,
                         ctypes.c_ulonglong, _F, _I, _I, _LL, _P],
+    "fora_index_walk_sharded": [_P, _P, _LL, _P, _P, _P, _P, _I, _I,
+                                ctypes.c_ulonglong, _F, _I, _I, _LL, _P],
     "fora_build_alias": [_P, _P, _P, _LL, _P, _P],
     "fora_parse_edges": [ctypes.c_char_p, _I, _P, _P, _P, _LL],
     "fora_ring_copy": [_P, _P, _LL, _P],
     "fora_ring_add": [_P, _P, _P, _LL, _P],
     "fora_reduce_scatter_onepass": [_P, _P, _I, _LL, _P],
     "fora_row_scatter_add": [_P, _P, _P, _P, _LL, _LL, _I, _P],
-    "fora_row_zero": [_P, _P, _LL, _LL, _I, _P],
+    "fora_exchange_clear": [_P, _P, _P, _I, _LL, _I, _LL, _LL, _P],
     "fora_frontier_compact": [_P, _LL, _I, _P, _I, _I, _LL, _I, _P, _LL, _P,
                               _LL, _P, _I, _P],
     "fora_enable_peer_access": [_I, _I],

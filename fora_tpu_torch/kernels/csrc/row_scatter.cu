@@ -34,17 +34,28 @@
 // in a receive, adds its row to 0.0 once and the buffer equals the dense
 // exchange's rows bit for bit.
 //
-// row_zero: buf[ids[e], :] = 0 for every e whose id lies in buf's rows (a
-// pad slot skipped as above).  The compacted exchange's receive needs a
-// buffer that is zero on every row it does not receive; zeroing the whole
-// [n_pad, B] buffer costs 268 MB of stores a shard at bench.py's shapes,
-// where what was written since it was last zero is the shard's own block
-// and the rows of the previous receive (at most G * cap).  This kernel
-// zeroes those rows (ops/exchange.py keeps track of which they are).
-// Bound by bytes: the ids read and B * 4 bytes stored a real id.  Design:
-// P3's lane groups, each storing one row as float4 zeros (scalar stores
-// where B or the address is not a multiple of 4 floats).  An id may
-// repeat: the stores do not conflict.
+// exchange_clear: before a compacted receive, for every buffer t of a launch
+//   buf_t[own0_t .. own0_t + own_rows) = 0        (its own block)
+//   buf_t[ids_t[e], :] = 0 for every e whose id lies in buf_t's rows
+//                                                  (a pad slot skipped)
+// The compacted exchange's receive needs a buffer that is zero on every row
+// it does not receive; zeroing the whole [n_pad, B] buffer costs 268 MB of
+// stores a shard at bench.py's shapes, where what was written since it was
+// last zero is the shard's own block (the pre-pass rewrites it every
+// superstep) and the rows of the previous receive (at most G * cap;
+// ops/exchange.py keeps track of which they are).  JAX zeroes a new buffer
+// for each receive (fora_tpu/parallel/sharded.py:144, 165, 203).  One launch
+// clears every buffer of a card: a table of (buffer, ids, own block) in the
+// kernel's parameters, each block row of the grid (blockIdx.y) one buffer,
+// picked from the table by constant indices so that the table stays out of
+// local memory; the G own-block zero_() calls and the G launches over the
+// ids that it replaces each paid the host's work of a call for a few
+// microseconds of device time.  Bound by bytes: the own blocks and B * 4
+// bytes a real id stored, the ids read.  Design: the own block as float4
+// stores in a grid-stride loop, then the ids in P3's lane groups, each
+// storing one row as float4 zeros (scalar stores where B or an address is
+// not a multiple of 4 floats); an id inside the own block is skipped (that
+// row is zeroed already), and a repeated id stores twice without conflict.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,22 +87,55 @@ __global__ void row_scatter_add_kernel(float* __restrict__ acc, const float* __r
   }
 }
 
+constexpr int kMaxBuffers = 32;
+
+struct ClearTable {
+  float* buf[kMaxBuffers];
+  const int* ids[kMaxBuffers];
+  long long own0[kMaxBuffers];
+};
+
+// block row t = blockIdx.y: buffer t of the table; VEC4: B a multiple of 4
+// and every buffer 16-byte aligned
 template <bool VEC4>
-__global__ void row_zero_kernel(float* __restrict__ buf, const int* __restrict__ ids, long long n_ids,
-                                long long rows, int B, int group_log2) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long e = t >> group_log2;
-  if (e >= n_ids) return;
+__global__ void exchange_clear_kernel(const ClearTable tab, long long rows, int B,
+                                      long long own_rows, long long n_ids, int group_log2) {
+  const int t = blockIdx.y;
+  float* buf = nullptr;
+  const int* ids = nullptr;
+  long long own0 = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxBuffers; ++k) {
+    if (k == t) {
+      buf = tab.buf[k];
+      ids = tab.ids[k];
+      own0 = tab.own0[k];
+    }
+  }
+  const int chunks = VEC4 ? B >> 2 : B;
+  const long long own_units = own_rows * chunks;
+  const long long units = own_units + (ids == nullptr ? 0 : n_ids << group_log2);
   const int group = 1 << group_log2;
-  const int lane = (int)(t & (group - 1));
-  const long long d = ids[e];
-  if (d < 0 || d >= rows) return;   // a pad slot
-  float* out = buf + d * B;
-  if (VEC4) {
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int c = lane; c < (B >> 2); c += group) reinterpret_cast<float4*>(out)[c] = zero;
-  } else {
-    for (int c = lane; c < B; c += group) out[c] = 0.f;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x; u < units; u += stride) {
+    if (u < own_units) {
+      if (VEC4)
+        reinterpret_cast<float4*>(buf + own0 * B)[u] = zero4;
+      else
+        buf[own0 * B + u] = 0.f;
+      continue;
+    }
+    const long long v = u - own_units;
+    const long long d = ids[v >> group_log2];
+    if (d < 0 || d >= rows || (d >= own0 && d < own0 + own_rows)) continue;
+    float* out = buf + d * B;
+    for (int c = (int)(v & (group - 1)); c < chunks; c += group) {
+      if (VEC4)
+        reinterpret_cast<float4*>(out)[c] = zero4;
+      else
+        out[c] = 0.f;
+    }
   }
 }
 
@@ -104,21 +148,42 @@ int group_log2_for(int chunks) {
 
 }  // namespace
 
-extern "C" int fora_row_zero(float* buf, const int* ids, long long n_ids, long long rows, int B,
-                             void* stream) {
-  if (n_ids <= 0 || B <= 0) return (int)cudaGetLastError();
-  const bool vec4 = (B % 4 == 0) && ((reinterpret_cast<uintptr_t>(buf) & 15) == 0);
+constexpr int kClearThreads = 256;
+constexpr long long kClearBlocks = 132LL * 16;  // grid-stride beyond 16 blocks per SM
+
+// bufs: host array of nbuf (1 .. 32) device pointers to [rows, B] f32
+// buffers; ids: nbuf pointers to n_ids int32 each (or null: no rows);
+// own0: nbuf first rows of each buffer's own block of own_rows rows
+extern "C" int fora_exchange_clear(float* const* bufs, const int* const* ids,
+                                   const long long* own0, int nbuf, long long rows, int B,
+                                   long long own_rows, long long n_ids, void* stream) {
+  if (nbuf < 1 || nbuf > kMaxBuffers || bufs == nullptr || own0 == nullptr || B <= 0 ||
+      rows < 0 || own_rows < 0 || n_ids < 0)
+    return (int)cudaErrorInvalidValue;
+  ClearTable tab = {};
+  bool vec4 = B % 4 == 0;
+  for (int k = 0; k < nbuf; ++k) {
+    if (bufs[k] == nullptr || own0[k] < 0 || own0[k] + own_rows > rows)
+      return (int)cudaErrorInvalidValue;
+    tab.buf[k] = bufs[k];
+    tab.ids[k] = ids == nullptr ? nullptr : ids[k];
+    tab.own0[k] = own0[k];
+    vec4 = vec4 && (reinterpret_cast<uintptr_t>(bufs[k]) & 15) == 0;
+  }
   const int group_log2 = group_log2_for(vec4 ? B / 4 : B);
-  const int threads = 256;
-  const long long blocks = ((n_ids << group_log2) + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long units = own_rows * (vec4 ? B / 4 : B) + (n_ids << group_log2);
+  if (units == 0) return (int)cudaGetLastError();
+  long long per_buf = kClearBlocks / nbuf;
+  const long long want = (units + kClearThreads - 1) / kClearThreads;
+  if (want < per_buf) per_buf = want;
+  const dim3 grid((unsigned)(per_buf > 0 ? per_buf : 1), (unsigned)nbuf);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (vec4) {
-    row_zero_kernel<true><<<(unsigned)blocks, threads, 0, st>>>(buf, ids, n_ids, rows, B,
-                                                                group_log2);
-  } else {
-    row_zero_kernel<false><<<(unsigned)blocks, threads, 0, st>>>(buf, ids, n_ids, rows, B,
+    exchange_clear_kernel<true><<<grid, kClearThreads, 0, st>>>(tab, rows, B, own_rows, n_ids,
                                                                  group_log2);
+  } else {
+    exchange_clear_kernel<false><<<grid, kClearThreads, 0, st>>>(tab, rows, B, own_rows, n_ids,
+                                                                  group_log2);
   }
   return (int)cudaGetLastError();
 }

@@ -73,6 +73,28 @@
 // written to out[w] as each walk ends; the alias hop's three loads issued
 // together (one round trip, one more sector); the hub lookup issued with the
 // next hop's row pointers, with one more lookup after the final hop.
+//
+// The sharded form (kSharded, index_walk_sharded_kernel) replaces
+// fora_tpu/ops/walk.py::sharded_lockstep_walk (225-266) and
+// sharded_lockstep_walk_scheduled (269-320): the walks of the sharded raw
+// one-shot and of the sharded index build, over an out-CSR split into G row
+// slices (index/build_sharded.py::_shard_csr): per shard s a localized
+// indptr_s [n_loc + 1], its edges indices_s and, weighted, alias_prob_s /
+// alias_other_s.  On the TPU every shard holds only its slice, the walk
+// state is replicated, and each hop the owner of a walk's row samples it and
+// one psum combines the shards.  Here the kernel takes a table of the G
+// slices' pointers and a hop reads the owner's slice itself:
+//   s = cur / n_loc,  row = cur - s * n_loc,
+//   d = indptr_s[row + 1] - indptr_s[row],  slot = indptr_s[row] + j,
+//   cur = indices_s[slot]  (alias: alias_prob_s[slot], then one table).
+// Everything else is the hop above: the same Philox words, length and
+// dangling rules and the same walk queue, so a walk's endpoint is the one
+// index_walk_kernel gives on the unsharded graph, bit for bit.  On one card
+// every slice lies in one memory and the table replaces the psum.  Across
+// cards the table would hold peer-mapped slices (kernels.enable_peer_access);
+// that form waits for a machine with several cards and is not tested.  The
+// table is copied into shared memory by constant indices (a dynamic index
+// into the kernel's parameters would copy them to local memory).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -82,6 +104,7 @@
 namespace {
 
 constexpr int kBlockWarps = 8;
+constexpr int kMaxShards = 32;
 constexpr int kBlockThreads = 32 * kBlockWarps;
 // a block's staged endpoints stay within the 48 KiB of dynamic shared memory
 // that a launch gets without an attribute
@@ -104,6 +127,24 @@ struct WalkArgs {
   uint32_t seed_lo, seed_hi;
   float inv_log1m_alpha;
   int max_hops;
+  int n_loc;       // rows of a shard slice (the sharded form)
+};
+
+// the sharded form's slices (alias tables null on an unweighted graph)
+struct ShardTables {
+  const int* indptr[kMaxShards];
+  const int* indices[kMaxShards];
+  const float* alias_prob[kMaxShards];
+  const int* alias_other[kMaxShards];
+};
+
+// the out-CSR a hop reads: one CSR (tab null), or the slice table in shared
+// memory
+struct ShardView {
+  const int* const* indptr;
+  const int* const* indices;
+  const float* const* alias_prob;
+  const int* const* alias_other;
 };
 
 __device__ __forceinline__ float unit(uint32_t x) {  // [0, 1)
@@ -123,9 +164,9 @@ __device__ __forceinline__ int pool_entry(const WalkArgs& a, int hid, float u3) 
   return __ldg(a.pool + (long long)hid * a.pool_size + j);
 }
 
-template <bool kAlias, bool kHub>
-__global__ void __launch_bounds__(kBlockThreads, 2048 / kBlockThreads)
-    index_walk_kernel(const WalkArgs a) {
+// the walks of this warp's range: the body of both kernels
+template <bool kAlias, bool kHub, bool kSharded>
+__device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& tab) {
   extern __shared__ int staged_ends[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const uint64_t lo64 = ((uint64_t)blockIdx.x * kBlockWarps + warp) * a.range;
@@ -177,8 +218,23 @@ __global__ void __launch_bounds__(kBlockThreads, 2048 / kBlockThreads)
     if (idle) continue;
     // one hop of this lane's walk: the degree from the row pointers, two
     // loads issued together, and the hop's Philox block while they are in
-    // flight
-    const int p0 = __ldg(a.indptr + cur), p1 = __ldg(a.indptr + cur + 1);
+    // flight; the sharded form reads the owner's slice
+    const int* indptr = a.indptr;
+    const int* indices = a.indices;
+    const float* alias_prob = a.alias_prob;
+    const int* alias_other = a.alias_other;
+    int row = cur;
+    if (kSharded) {
+      const int s = cur / a.n_loc;
+      row = cur - s * a.n_loc;
+      indptr = tab.indptr[s];
+      indices = tab.indices[s];
+      if (kAlias) {
+        alias_prob = tab.alias_prob[s];
+        alias_other = tab.alias_other[s];
+      }
+    }
+    const int p0 = __ldg(indptr + row), p1 = __ldg(indptr + row + 1);
     const uint4 r = philox4x32_10(make_uint4((uint32_t)(h + 1), a.seed_hi, 0u, 0u),
                                   make_uint2(a.seed_lo, w));
     bool done = p1 == p0;  // a dangling node absorbs
@@ -186,10 +242,10 @@ __global__ void __launch_bounds__(kBlockThreads, 2048 / kBlockThreads)
       const int d = p1 - p0;
       const int slot = p0 + min((int)(unit(r.x) * (float)d), d - 1);
       if (kAlias) {  // pick the table first, then load only its entry
-        const int* table = unit(r.y) < __ldg(a.alias_prob + slot) ? a.indices : a.alias_other;
+        const int* table = unit(r.y) < __ldg(alias_prob + slot) ? indices : alias_other;
         cur = __ldg(table + slot);
       } else {
-        cur = __ldg(a.indices + slot);
+        cur = __ldg(indices + slot);
       }
       done = ++h == len;
       if (kHub) {  // look up the node just reached
@@ -210,9 +266,71 @@ __global__ void __launch_bounds__(kBlockThreads, 2048 / kBlockThreads)
 }
 
 template <bool kAlias, bool kHub>
+__global__ void __launch_bounds__(kBlockThreads, 2048 / kBlockThreads)
+    index_walk_kernel(const WalkArgs a) {
+  walk_range<kAlias, kHub, false>(a, ShardView{nullptr, nullptr, nullptr, nullptr});
+}
+
+template <bool kAlias>
+__global__ void __launch_bounds__(kBlockThreads, 2048 / kBlockThreads)
+    index_walk_sharded_kernel(const WalkArgs a, const ShardTables t) {
+  __shared__ const int* indptr[kMaxShards];
+  __shared__ const int* indices[kMaxShards];
+  __shared__ const float* alias_prob[kMaxShards];
+  __shared__ const int* alias_other[kMaxShards];
+  if (threadIdx.x < kMaxShards) {
+    const int* ip = nullptr;
+    const int* ix = nullptr;
+    const float* ap = nullptr;
+    const int* ao = nullptr;
+#pragma unroll
+    for (int k = 0; k < kMaxShards; ++k) {
+      if (k == (int)threadIdx.x) {
+        ip = t.indptr[k];
+        ix = t.indices[k];
+        ap = t.alias_prob[k];
+        ao = t.alias_other[k];
+      }
+    }
+    indptr[threadIdx.x] = ip;
+    indices[threadIdx.x] = ix;
+    alias_prob[threadIdx.x] = ap;
+    alias_other[threadIdx.x] = ao;
+  }
+  __syncthreads();
+  walk_range<kAlias, false, true>(a, ShardView{indptr, indices, alias_prob, alias_other});
+}
+
+template <bool kAlias, bool kHub>
 void launch(const WalkArgs& a, unsigned blocks, cudaStream_t s) {
   const size_t smem = (size_t)kBlockWarps * a.range * sizeof(int);
   index_walk_kernel<kAlias, kHub><<<blocks, kBlockThreads, smem, s>>>(a);
+}
+
+template <bool kAlias>
+void launch_sharded(const WalkArgs& a, const ShardTables& t, unsigned blocks, cudaStream_t s) {
+  const size_t smem = (size_t)kBlockWarps * a.range * sizeof(int);
+  index_walk_sharded_kernel<kAlias><<<blocks, kBlockThreads, smem, s>>>(a, t);
+}
+
+// the checks and arguments both entries share; 0 or a cudaError_t
+int walk_args(WalkArgs* a, const int* start, int* out, long long W, unsigned long long seed,
+              float inv_log1m_alpha, int max_hops, int walks_per_lane, long long blocks) {
+  if (W >= (1ll << 32) || max_hops < 0) return (int)cudaErrorInvalidValue;
+  if (walks_per_lane < 1 || walks_per_lane > kMaxWalksPerLane) return (int)cudaErrorInvalidValue;
+  if (W > 0 && (blocks <= 0 || blocks > 0x7fffffffll ||
+                blocks * kBlockWarps * 32 * walks_per_lane < W))
+    return (int)cudaErrorInvalidValue;
+  *a = WalkArgs{};
+  a->start = start;
+  a->out = out;
+  a->W = (uint32_t)W;
+  a->range = 32u * (uint32_t)walks_per_lane;
+  a->seed_lo = (uint32_t)(seed & 0xffffffffull);
+  a->seed_hi = (uint32_t)(seed >> 32);
+  a->inv_log1m_alpha = inv_log1m_alpha;
+  a->max_hops = max_hops;
+  return 0;
 }
 
 }  // namespace
@@ -230,28 +348,18 @@ extern "C" int fora_index_walk(const int* start, int* out, long long W, const in
   if ((alias_prob == nullptr) != (alias_other == nullptr)) return (int)cudaErrorInvalidValue;
   if ((hub_id == nullptr) != (pool == nullptr)) return (int)cudaErrorInvalidValue;
   if (hub_id != nullptr && pool_size <= 0) return (int)cudaErrorInvalidValue;
-  if (W >= (1ll << 32) || max_hops < 0) return (int)cudaErrorInvalidValue;
-  if (walks_per_lane < 1 || walks_per_lane > kMaxWalksPerLane) return (int)cudaErrorInvalidValue;
-  if (W <= 0) return (int)cudaGetLastError();
-  if (blocks <= 0 || blocks > 0x7fffffffll ||
-      blocks * kBlockWarps * 32 * walks_per_lane < W)
-    return (int)cudaErrorInvalidValue;
   WalkArgs a;
-  a.start = start;
-  a.out = out;
+  const int bad = walk_args(&a, start, out, W, seed, inv_log1m_alpha, max_hops,
+                            walks_per_lane, blocks);
+  if (bad) return bad;
+  if (W <= 0) return (int)cudaGetLastError();
   a.indptr = indptr;
   a.indices = indices;
   a.alias_prob = alias_prob;
   a.alias_other = alias_other;
   a.hub_id = hub_id;
   a.pool = pool;
-  a.W = (uint32_t)W;
-  a.range = 32u * (uint32_t)walks_per_lane;
   a.pool_size = pool_size;
-  a.seed_lo = (uint32_t)(seed & 0xffffffffull);
-  a.seed_hi = (uint32_t)(seed >> 32);
-  a.inv_log1m_alpha = inv_log1m_alpha;
-  a.max_hops = max_hops;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const unsigned nb = (unsigned)blocks;
   const bool alias = alias_prob != nullptr, hub = hub_id != nullptr;
@@ -263,5 +371,45 @@ extern "C" int fora_index_walk(const int* start, int* out, long long W, const in
     launch<false, true>(a, nb, s);
   else
     launch<false, false>(a, nb, s);
+  return (int)cudaGetLastError();
+}
+
+// The sharded form: G (1 .. 32) slices, host arrays of G device pointers
+// each (alias_prob and alias_other both null, or both G pointers); node v
+// lies in slice v / n_loc at row v % n_loc.  The plan as above.
+extern "C" int fora_index_walk_sharded(const int* start, int* out, long long W,
+                                       const int* const* indptr, const int* const* indices,
+                                       const float* const* alias_prob,
+                                       const int* const* alias_other, int G, int n_loc,
+                                       unsigned long long seed, float inv_log1m_alpha,
+                                       int max_hops, int walks_per_lane, long long blocks,
+                                       void* stream) {
+  if ((alias_prob == nullptr) != (alias_other == nullptr)) return (int)cudaErrorInvalidValue;
+  if (G < 1 || G > kMaxShards || n_loc < 1 || indptr == nullptr || indices == nullptr)
+    return (int)cudaErrorInvalidValue;
+  WalkArgs a;
+  const int bad = walk_args(&a, start, out, W, seed, inv_log1m_alpha, max_hops,
+                            walks_per_lane, blocks);
+  if (bad) return bad;
+  if (W <= 0) return (int)cudaGetLastError();
+  a.n_loc = n_loc;
+  const bool alias = alias_prob != nullptr;
+  ShardTables t = {};
+  for (int k = 0; k < G; ++k) {
+    if (indptr[k] == nullptr || indices[k] == nullptr) return (int)cudaErrorInvalidValue;
+    t.indptr[k] = indptr[k];
+    t.indices[k] = indices[k];
+    if (alias) {
+      if (alias_prob[k] == nullptr || alias_other[k] == nullptr)
+        return (int)cudaErrorInvalidValue;
+      t.alias_prob[k] = alias_prob[k];
+      t.alias_other[k] = alias_other[k];
+    }
+  }
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (alias)
+    launch_sharded<true>(a, t, (unsigned)blocks, s);
+  else
+    launch_sharded<false>(a, t, (unsigned)blocks, s);
   return (int)cudaGetLastError();
 }

@@ -37,9 +37,9 @@ writes it every superstep) and the real ids of the previous compacted
 receive; or everything, after the ring filled the buffer or after
 ``buffers`` made new ones.  Nothing else may write the buffers: a
 write the exchange does not see would survive the next zeroing.  Before
-a receive it zeroes the own block (one contiguous ``zero_``) and those
-ids (``row_zero``, ``kernels/csrc/row_scatter.cu``), or the whole
-buffer when everything may have been written.  On one device the ids of the
+a receive it clears every buffer's own block and those ids in one launch
+per card (``exchange_clear``, ``kernels/csrc/row_scatter.cu``), or
+zeroes the whole buffers when everything may have been written.  On one device the ids of the
 previous receive must outlive the next send, which writes the slot
 arrays in place, so the id slots are double-buffered: each send writes
 the half that the last receive did not read.
@@ -60,7 +60,7 @@ import torch
 
 from .. import kernels
 from . import ring
-from .gather import row_scatter_add, row_zero
+from .gather import row_scatter_add, row_zero_plain
 
 # the reference's exchanges; ``ragged`` is refused (ROADMAP C5)
 MODES = ("dense", "compact", "routed", "ragged", "hier")
@@ -118,6 +118,31 @@ def frontier_compact(contrib: torch.Tensor, needed: Optional[torch.Tensor],
                                  rows, counts)
 
 
+def exchange_clear_plain(bufs: list, n_loc: int, ids: list) -> None:
+    """Plain version of :func:`exchange_clear`: per buffer a ``zero_`` of
+    its own block and ``row_zero_plain`` over its ids."""
+    for t, buf in enumerate(bufs):
+        buf[t * n_loc:(t + 1) * n_loc].zero_()
+        row_zero_plain(buf, ids[t])
+
+
+def exchange_clear(bufs: list, n_loc: int, ids: list) -> None:
+    """In place, before a compacted receive: buffer t's own block (rows t *
+    n_loc to (t + 1) * n_loc - 1) and the rows named by ``ids[t]`` (int32;
+    an id outside the rows, a pad slot, is skipped) set to zero.  CPU
+    tensors take the plain version; CUDA tensors launch the clear kernel
+    once per card that holds buffers."""
+    if bufs[0].device.type == "cpu":
+        exchange_clear_plain(bufs, n_loc, ids)
+        return
+    by_device: dict = {}
+    for t, buf in enumerate(bufs):
+        by_device.setdefault(buf.device, []).append(t)
+    for ts in by_device.values():
+        kernels.exchange_clear([bufs[t] for t in ts], n_loc,
+                               [ids[t] for t in ts], own=ts)
+
+
 class FrontierExchange:
     """The exchange of one set of shards, with its buffers: the per-shard
     [n_pad, B] exchange buffers and the slot arrays, allocated for one
@@ -128,7 +153,8 @@ class FrontierExchange:
     D = G destinations; hier: D = H hosts) on the shard's device, or None
     (dense, compact); a caller may set it after construction, before the
     first ``send``.  ``compacted`` and ``fell_back`` count the supersteps
-    that took each exchange.
+    that took each exchange, ``cleared`` the compacted ones whose buffers
+    were cleared by rows (those that follow a compacted one).
 
     The buffers' invariant (the module docstring's zeroing by rows): before
     each compacted receive, shard t's buffer is zero outside its own block
@@ -167,6 +193,7 @@ class FrontierExchange:
         self.one_device = all(d == devices[0] for d in devices)
         self.compacted = 0
         self.fell_back = 0
+        self.cleared = 0
         self._B = None
         # per shard, the ids of the previous compacted receive; None: any
         # row of the buffers may hold data
@@ -284,14 +311,14 @@ class FrontierExchange:
 
     def _clear(self, bufs: list) -> None:
         """Zero what was written since each buffer was last zero: its own
-        block and the previous receive's rows, or all of it."""
-        n_loc = self.n_loc
-        for t, buf in enumerate(bufs):
-            if self._written is None:
+        block and the previous receive's rows (one clear; ``cleared``
+        counts them), or all of it."""
+        if self._written is None:
+            for buf in bufs:
                 buf.zero_()
-            else:
-                buf[t * n_loc:(t + 1) * n_loc].zero_()
-                row_zero(buf, self._written[t].view(-1))
+            return
+        exchange_clear(bufs, self.n_loc, [w.view(-1) for w in self._written])
+        self.cleared += 1
 
     def _copies(self, counts: np.ndarray) -> None:
         """The collectives of a compacted superstep as copies between

@@ -1,8 +1,8 @@
 """Destination-row gather-scatter: the SpMV inside the push superstep (K1)
 and the index walk phase (K2); and the per-edge row accumulate over an
 unsorted edge list (P3, ``row_scatter_add``), the Pallas gather probe's
-operation, with ``row_zero``, which clears the rows such a receive
-wrote.
+operation, with ``row_zero_plain``, which clears the rows such a
+receive wrote (the plain part of ``ops.exchange.exchange_clear``).
 
 Port of ``fora_tpu/ops/push.py::gather_scatter_add`` (142-191) on a CSR by
 destination: edges ``indptr[t]:indptr[t+1]`` of ``src`` all land in row
@@ -150,18 +150,9 @@ def row_scatter_add(acc: torch.Tensor, tile: torch.Tensor, src: torch.Tensor,
 
 
 def row_zero_plain(buf: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`row_zero`."""
+    """In place: ``buf[ids[e]] = 0`` for every e whose id lies in buf's
+    rows; an id outside them (a pad slot of the compacted exchanges) is
+    skipped, as P3 skips it.  Returns ``buf``."""
     ids = ids.long().flatten()
     ids = ids[(ids >= 0) & (ids < buf.shape[0])]
     return buf.index_fill_(0, ids, 0.0)
-
-
-def row_zero(buf: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """In place: ``buf[ids[e]] = 0`` for every e whose id lies in buf's
-    rows; an id outside them (a pad slot of the compacted exchanges) is
-    skipped, as P3 skips it.  A CPU tensor takes the plain version; a
-    CUDA tensor launches ``kernels.row_zero``
-    (``kernels/csrc/row_scatter.cu``).  Returns ``buf``."""
-    if buf.device.type == "cpu":
-        return row_zero_plain(buf, ids)
-    return kernels.row_zero(buf, ids)

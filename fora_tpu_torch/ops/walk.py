@@ -23,6 +23,17 @@ a column too large alone, its lanes) into chunks that fit the device's
 free memory, so a query never loses walks: JAX's static lane count drops
 the walks past it and only raises ``overflow``.
 
+The sharded raw one-shot and the sharded index build walk an out-CSR
+split into G row slices (``ShardedOutCSR``, the arrays of
+``index/build_sharded.py::_shard_csr``), in place of JAX's
+``sharded_lockstep_walk`` (225-266) and ``sharded_lockstep_walk_scheduled``
+(269-320), whose one psum per hop combines the shards' samples: every walk
+function here also takes the slices and reads each row through its owner
+(shard ``v // n_loc``), which on a card is K4's sharded form, so the
+endpoints are those of the unsharded graph bit for bit.
+``sharded_walk_phase`` is the raw one-shot's walk phase over the shards'
+residues.
+
 Dangling convention: a walk at an out-degree-0 node is absorbed there.
 Random numbers come from a ``torch.Generator`` (``run_walks``, the CPU
 path) or the kernel's Philox stream (K4, ``run_walks_philox``); neither
@@ -45,6 +56,58 @@ from ..graph.csr import DeviceGraph
 LANE_MULTIPLE = 1024
 LANE_BYTES = 40          # device bytes a lane holds at the walk phase's peak
 CPU_LANE_BUDGET = 1 << 24
+
+
+class ShardedOutCSR(NamedTuple):
+    """The out-CSR as G row slices: shard s holds rows s * n_loc .. (s + 1)
+    * n_loc - 1 as localized row pointers ``indptr[s]`` [n_loc + 1] i32
+    and their edges ``indices[s]`` (global node ids), with its slices of
+    the alias tables on a weighted graph; each shard's tensors on its
+    device (``index.build_sharded.place_out_csr``)."""
+
+    indptr: tuple
+    indices: tuple
+    alias_prob: Optional[tuple]
+    alias_other: Optional[tuple]
+    n_loc: int
+
+
+class _Rows:
+    """The plain walks' row lookup over a DeviceGraph's out-CSR or a
+    ShardedOutCSR's slices, on ``device``: ``rows(v)`` gives each row's
+    first edge and degree, the edge numbered in one list (the slices' edge
+    lists end to end, shard s's from the lengths of those before it), and
+    ``indices``, ``alias_prob``, ``alias_other`` (or None) that list's
+    tables.  A sliced row is read through its owner, shard v // n_loc."""
+
+    def __init__(self, csr, device):
+        if isinstance(csr, ShardedOutCSR):
+            self.n_loc = csr.n_loc
+            self.ptr = torch.stack([p.to(device) for p in csr.indptr]).long()
+            sizes = [x.numel() for x in csr.indices]
+            self.off = torch.tensor([0] + sizes[:-1],
+                                    device=device).cumsum(0)
+            self.indices = torch.cat([x.to(device) for x in csr.indices])
+            self.alias_prob = self.alias_other = None
+            if csr.alias_prob is not None:
+                self.alias_prob = torch.cat([x.to(device)
+                                             for x in csr.alias_prob])
+                self.alias_other = torch.cat([x.to(device)
+                                              for x in csr.alias_other])
+        else:
+            self.n_loc = None
+            self.ptr = csr.out_indptr.long()
+            self.indices = csr.out_indices
+            self.alias_prob, self.alias_other = csr.alias_prob, csr.alias_other
+
+    def __call__(self, v: torch.Tensor):
+        if self.n_loc is None:
+            p0 = self.ptr[v]
+            return p0, self.ptr[v + 1] - p0
+        s = torch.div(v, self.n_loc, rounding_mode="floor")
+        row = v - s * self.n_loc
+        p0 = self.ptr[s, row]
+        return p0 + self.off[s], self.ptr[s, row + 1] - p0
 
 
 def derive_seed(seed: int, *path: int) -> int:
@@ -156,51 +219,60 @@ def geometric_lengths(shape, alpha: float, max_hops: int, *,
     return len_f.clamp_max(max_hops).to(torch.int32)
 
 
-def run_walks(graph: DeviceGraph, start: torch.Tensor, *,
+def run_walks(graph, start: torch.Tensor, *,
               generator: torch.Generator, alpha: float,
               max_hops: int = 64) -> torch.Tensor:
-    """Lockstep walks from ``start`` (any shape); endpoints, int32, same
-    shape.  Hop h draws one uniform per walk and moves the walks still
-    alive to a uniform out-neighbour; where the graph has alias tables (a
-    weighted graph) it draws a second uniform ``u2`` and takes the slot's
-    own edge if ``u2 < alias_prob[slot]``, else ``alias_other[slot]``."""
+    """Lockstep walks from ``start`` (any shape) over ``graph``, a
+    DeviceGraph or a ShardedOutCSR (the same draws, so the same endpoints
+    as on the unsharded graph); endpoints, int32, same shape.  Hop h draws
+    one uniform per walk and moves the walks still alive to a uniform
+    out-neighbour; where the graph has alias tables (a weighted graph) it
+    draws a second uniform ``u2`` and takes the slot's own edge if ``u2 <
+    alias_prob[slot]``, else ``alias_other[slot]``."""
     length = geometric_lengths(start.shape, alpha, max_hops,
                                generator=generator)
-    deg = graph.out_deg.long()
-    indptr = graph.out_indptr.long()
-    indices = graph.out_indices.long()
-    alias = graph.alias_prob is not None
+    rows = _Rows(graph, start.device)
+    indices = rows.indices.long()
+    alias = rows.alias_prob is not None
     if alias:
-        other = graph.alias_other.long()
-    last_slot = max(graph.m - 1, 0)
+        other = rows.alias_other.long()
+    last_slot = max(indices.numel() - 1, 0)
     cur = start.long()
     for h in range(int(length.max()) if length.numel() else 0):
         u = torch.rand(start.shape, generator=generator,
                        device=generator.device)
-        d = deg[cur]
+        p0, d = rows(cur)
         alive = (length > h) & (d > 0)          # dangling absorbs
         j = torch.minimum((u * d.to(torch.float32)).long(),
                           (d - 1).clamp_min(0))
         # a dead walk's slot may point past the last edge: clamp (unused)
-        slot = (indptr[cur] + j).clamp_max(last_slot)
+        slot = (p0 + j).clamp_max(last_slot)
         nxt = indices[slot]
         if alias:
             u2 = torch.rand(start.shape, generator=generator,
                             device=generator.device)
-            nxt = torch.where(u2 < graph.alias_prob[slot], nxt, other[slot])
+            nxt = torch.where(u2 < rows.alias_prob[slot], nxt, other[slot])
         cur = torch.where(alive, nxt, cur)
     return cur.to(torch.int32)
 
 
-def walk_endpoints(graph: DeviceGraph, start: torch.Tensor, seed: int,
+def walk_endpoints(graph, start: torch.Tensor, seed: int,
                    alpha: float, max_hops: int) -> torch.Tensor:
-    """One walk per entry of ``start`` ([W] int32); endpoints [W] int32.
-    CPU tensors run the plain ``run_walks``; CUDA tensors launch K4, its
-    alias branch on a graph with alias tables."""
+    """One walk per entry of ``start`` ([W] int32) over ``graph``, a
+    DeviceGraph or a ShardedOutCSR; endpoints [W] int32.  CPU tensors run
+    the plain ``run_walks``; CUDA tensors launch K4, its alias branch on a
+    graph with alias tables, its sharded form over slices."""
     if start.device.type == "cpu":
         gen = torch.Generator(device="cpu").manual_seed(seed % 2**63)
         return run_walks(graph, start, generator=gen, alpha=alpha,
                          max_hops=max_hops)
+    if isinstance(graph, ShardedOutCSR):
+        if graph.alias_prob is not None:
+            return kernels.index_walk_sharded_alias(
+                start, graph.indptr, graph.indices, graph.alias_prob,
+                graph.alias_other, graph.n_loc, seed, alpha, max_hops)
+        return kernels.index_walk_sharded(start, graph.indptr, graph.indices,
+                                          graph.n_loc, seed, alpha, max_hops)
     if graph.alias_prob is not None:
         return kernels.index_walk_alias(
             start, graph.out_indptr, graph.out_indices, graph.alias_prob,
@@ -259,9 +331,10 @@ def walk_lengths(seed: int, W: int, alpha: float, max_hops: int,
     return torch.floor(torch.log(u0) * inv).clamp_max(max_hops).long()
 
 
-def run_walks_philox(graph: DeviceGraph, start: torch.Tensor, seed: int,
+def run_walks_philox(graph, start: torch.Tensor, seed: int,
                      alpha: float, max_hops: int, hub=None) -> torch.Tensor:
-    """K4 in plain PyTorch: one walk per entry of ``start`` (any shape),
+    """K4 in plain PyTorch, over a DeviceGraph or a ShardedOutCSR (K4's
+    sharded form): one walk per entry of ``start`` (any shape),
     endpoints int32 of its shape, from the kernel's Philox-4x32-10 words
     (walk w keyed by (seed low word, w), hop h's block counted (h + 1,
     seed high word); u0 of block 0 sets the length in float32 with the
@@ -276,24 +349,22 @@ def run_walks_philox(graph: DeviceGraph, start: torch.Tensor, seed: int,
     seed = int(seed) % 2**64
     lo, hi = seed & _M32, seed >> 32
     length = walk_lengths(seed, flat.numel(), alpha, max_hops, start.device)
-    indptr = graph.out_indptr.long()
-    alias = graph.alias_prob is not None
+    rows = _Rows(graph, start.device)
+    alias = rows.alias_prob is not None
     cur = flat.long().clone()
     live = torch.nonzero(length > 0).squeeze(1)
     h = 0
     while live.numel():
-        c = cur[live]
-        p0 = indptr[c]
-        d = indptr[c + 1] - p0
+        p0, d = rows(cur[live])
         moving = d > 0                          # dangling absorbs
         live, p0, d = live[moving], p0[moving], d[moving]
         r = philox4x32_10((h + 1, hi, 0, 0), (lo, live))
         slot = p0 + torch.minimum((_unit(r[0]) * d.to(torch.float32)).long(),
                                   d - 1)
-        nxt = graph.out_indices[slot]
+        nxt = rows.indices[slot]
         if alias:
-            nxt = torch.where(_unit(r[1]) < graph.alias_prob[slot], nxt,
-                              graph.alias_other[slot])
+            nxt = torch.where(_unit(r[1]) < rows.alias_prob[slot], nxt,
+                              rows.alias_other[slot])
         nxt = nxt.long()
         h += 1
         keep = length[live] > h
@@ -334,17 +405,17 @@ def walk_lane_budget(omega_unit: float, rmax: float, m: int, n: int,
     return max(w, lane_multiple)
 
 
-def lane_budget(device: torch.device) -> int:
+def lane_budget(device: torch.device, lane_bytes: int = LANE_BYTES) -> int:
     """Lanes one walk-phase chunk may hold: half of the card's free memory
     (``mem_get_info``'s free bytes plus the allocator's cached ones) at
-    LANE_BYTES a lane; CPU_LANE_BUDGET on the CPU."""
+    ``lane_bytes`` a lane; CPU_LANE_BUDGET on the CPU."""
     device = torch.device(device)
     if device.type != "cuda":
         return CPU_LANE_BUDGET
     free, _ = torch.cuda.mem_get_info(device)
     free += torch.cuda.memory_reserved(device) - \
         torch.cuda.memory_allocated(device)
-    return max(LANE_MULTIPLE, free // 2 // LANE_BYTES)
+    return max(LANE_MULTIPLE, free // 2 // lane_bytes)
 
 
 def _round_up(x: int) -> int:
@@ -428,4 +499,88 @@ def walk_phase(graph: DeviceGraph, r: torch.Tensor, omega_unit: float,
     return contrib, WalkPhase(
         total=total, overflow=torch.zeros_like(total, dtype=torch.bool),
         walks_max=int(tot.max(initial=0)), walks_total=int(tot.sum()),
+        lanes=lanes, chunks=len(chunks))
+
+
+
+SHARDED_CHUNK_LANES = 1 << 27
+
+
+def sharded_walk_phase(csr: ShardedOutCSR, rs: list, omega_unit: float,
+                       seed: int, alpha: float, max_hops: int):
+    """The walk phase of the sharded raw one-shot on the shards' residues
+    ``rs`` (G x [n_loc, B] f32, shard h's rows h * n_loc ..): per shard the
+    [G * n_loc, B] f32 endpoint mass of the walks its residues demand, on
+    its device, for P2 to sum into the owners; and a ``WalkPhase``.
+
+    The walks are ``walk_phase``'s on the concatenation of ``rs``: per
+    column the shards' demands concatenate, so shard h's lanes follow
+    shard h - 1's (lane ``off[h, b] + i``, ``off[h, b]`` the walks the
+    shards before h demand in column b), and the chunks are
+    ``plan_chunks``' over the columns' totals.  Per chunk, each shard
+    expands its own lanes (``walk_demand`` and ``expand_lanes`` on its own
+    residues, starts made global by + h * n_loc) into one start array on
+    the first shard's device, the walks run once over the slices with
+    ``derive_seed(seed, i)``, and each shard adds its lanes' weights at
+    their endpoints into its partial.  So every walk is ``walk_phase``'s
+    where the two plan the same chunks (always on the CPU; on a card
+    ``walk_phase``'s chunks may be larger), and after P2 the contribution
+    is ``walk_phase``'s up to the order of the float32 sums.  JAX's static per-shard lane count and the walks it
+    drops past it (ROADMAP C7) are not copied."""
+    G = len(rs)
+    n_loc, B = rs[0].shape
+    n_pad, dev0 = G * n_loc, rs[0].device
+    ds = [walk_demand(r, omega_unit) for r in rs]
+    tot = torch.stack([d.total.to(dev0) for d in ds]).cpu().numpy()
+    tot = tot.astype(np.int64)                       # [G, B], one read
+    off = np.cumsum(tot, axis=0) - tot
+    total = tot.sum(axis=0)
+    partials = [torch.zeros((n_pad, B), dtype=torch.float32, device=r.device)
+                for r in rs]
+    # a chunk's lane holds at most: its start and endpoint (8 bytes), each
+    # shard's kept weight and row (12 bytes a shard) and one shard's
+    # expansion at a time (LANE_BYTES); a chunk takes at most
+    # SHARDED_CHUNK_LANES lanes, so that on a card with room for more the
+    # chunks, and with them the walks a seed draws, do not depend on its
+    # free memory (two runs of one batch walk the same walks)
+    budget = lane_budget(dev0, LANE_BYTES + 8 + 12 * G)
+    chunks = plan_chunks(total, min(budget, SHARDED_CHUNK_LANES))
+    lanes = 0
+    for i, (c0, c1, lo, hi) in enumerate(chunks):
+        W, Bc = hi - lo, c1 - c0
+        # row W takes the lanes of a shard's range that the chunk does not
+        start = torch.zeros((W + 1, Bc), dtype=torch.int32, device=dev0)
+        mine = []
+        for h, (r, d) in enumerate(zip(rs, ds)):
+            o = off[h, c0:c1]
+            lo_h = max(0, int((lo - o).min()))
+            hi_h = min(int(tot[h, c0:c1].max()), int((hi - o).max()))
+            if hi_h <= lo_h:
+                continue
+            part = WalkDemand(d.omega_v[:, c0:c1], d.cum[:, c0:c1],
+                              d.total[c0:c1])
+            st, weight, lane, node = expand_lanes(r[:, c0:c1], part, lo_h,
+                                                  hi_h - lo_h)
+            del node
+            row = (lane.long()[:, None]
+                   + torch.as_tensor(o - lo, device=r.device)[None, :])
+            ok = (lane[:, None] < part.total[None, :]) & (row >= 0) & \
+                (row < W)
+            row = torch.where(ok, row, W)
+            start.scatter_(0, row.to(dev0), (st + h * n_loc).to(dev0))
+            mine.append((h, row, torch.where(ok, weight, 0.0)))
+            del st
+        ends = walk_endpoints(csr, start[:W].view(-1), derive_seed(seed, i),
+                              alpha, max_hops).view(W, Bc)
+        del start
+        for h, row, weight in mine:
+            e = ends.to(row.device).gather(0, row.clamp_max(W - 1))
+            accumulate_endpoints(e, weight, n_pad,
+                                 out=partials[h][:, c0:c1])
+        del ends, mine
+        lanes += W * Bc
+    return partials, WalkPhase(
+        total=torch.as_tensor(total, dtype=torch.int32, device=dev0),
+        overflow=torch.zeros(B, dtype=torch.bool, device=dev0),
+        walks_max=int(total.max(initial=0)), walks_total=int(total.sum()),
         lanes=lanes, chunks=len(chunks))

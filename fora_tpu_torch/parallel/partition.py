@@ -21,8 +21,9 @@ them.  The sharded engine (``parallel/sharded.py``) turns each shard's
 slice into CSRs by destination and drops every pad.
 
 Weighted graphs shard their per-edge weights and per-row out-weights,
-which the indexed push reads; ``alias_prob``/``alias_other`` (the raw
-walk's alias tables) stay None, since the sharded raw walk is not ported.
+which the push reads; ``alias_prob``/``alias_other`` stay None here: the
+sharded raw walk takes its alias tables with the out-CSR's slices from
+``index/build_sharded.py::_shard_csr`` (or the store's walk side).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""The graph-sharded, indexed engines: the one-shot top-k and the
-refinement pool.
+"""The graph-sharded engines: the one-shot top-k (indexed or raw-walk)
+and the refinement pool.
 
-Port of ``fora_tpu/parallel/sharded.py``: ``_ShardedPlacement`` (600-812,
-without the walk side), ``_push_loop`` (244-296), ``_shard_level_step``
-(460-540), ``ShardedForaEngine`` (819-900) on its indexed path and
+Port of ``fora_tpu/parallel/sharded.py``: ``_ShardedPlacement``
+(600-812), ``_push_loop`` (244-296), ``_shard_level_step`` (460-540),
+``ShardedForaEngine`` with ``_shard_fora_topk`` (330-457, 819-900) and
 ``ShardedTopkRunner`` (903-991).  Rows are split over G graph shards
 (``partition.partition_rows``, or a ``ShardedGraphStore``); each shard
 lives on one device of its query group (``mesh.make_mesh``), and one
@@ -18,7 +18,10 @@ A level, per query group:
      kernel, the copies and P3);
   2. each shard runs the index SpMV (K2, one launch over the level's
      buckets) over the index edges whose source it owns, into an [n_pad,
-     B] partial over all endpoints;
+     B] partial over all endpoints; without an index (the raw one-shot)
+     each shard walks the lanes its own residues demand over the out-CSR's
+     shard slices (``ops.walk.sharded_walk_phase``, K4's sharded form)
+     and adds their weights into such a partial;
   3. the ring reduce-scatter (P2) sums the partials into the owning shards;
   4. each shard takes its top-(k+1) of ``p + walk`` (K3's selection) with
      ``p`` at those rows, and a stable sort merges the G candidate lists
@@ -49,6 +52,7 @@ from ..algo.topk import TopkRunner
 from ..config import ResolvedConfig
 from ..graph.csr import dst_indptr, host_to_device
 from ..index.build import NUM_BUCKETS
+from ..index.build_sharded import place_out_csr, shard_out_csr
 from ..index.store import ShardedIndexStore
 from ..kernels.schedule import gather_schedule
 from ..ops import exchange as xch_ops
@@ -56,6 +60,7 @@ from ..ops import ring
 from ..ops.gather import gather_scatter_add, index_spmv_level
 from ..ops.push import push_prepass
 from ..ops.topk import topk_rows_chunked, topk_sum
+from ..ops.walk import ShardedOutCSR, derive_seed, sharded_walk_phase
 from . import partition as part
 from .graph_store import ShardedGraphStore
 
@@ -64,7 +69,7 @@ class ShardedTopkResult(NamedTuple):
     values: np.ndarray        # [B, k] f32, descending
     node_ids: np.ndarray      # [B, k] i32, global ids
     push_iters: int           # supersteps run (summed over query groups)
-    walk_overflow: np.ndarray  # [B] bool (all False on the indexed path)
+    walk_overflow: np.ndarray  # [B] bool, all False (lanes fit the demand)
 
 
 def exchange_bytes_model(mode: str, *, n_loc: int, batch: int, G: int,
@@ -101,14 +106,14 @@ class _Shard:
     """One shard's arrays on its device: the tail in-edges as a CSR by
     local destination (global sources) with K1's work list and weights,
     the hub edges likewise over slots of ``hub_ids``, degrees and
-    out-weights, its routing block, the index rows it owns and the index
-    edges whose source it owns (local sources), in bucket order with each
-    bucket's CSR by global endpoint stacked into ``idx_indptr``.  Every
-    pad entry is dropped."""
+    out-weights, its routing block and, with an index, the index rows it
+    owns and the index edges whose source it owns (local sources), in
+    bucket order with each bucket's CSR by global endpoint stacked into
+    ``idx_indptr``.  Every pad entry is dropped."""
 
     def __init__(self, device, row0: int, n_loc: int, n_pad: int,
-                 graph: dict, hub: Optional[dict], index: dict,
-                 boff: np.ndarray, needed: Optional[np.ndarray]):
+                 graph: dict, hub: Optional[dict], index: Optional[dict],
+                 boff: Optional[np.ndarray], needed: Optional[np.ndarray]):
         self.device = device
         self.row0 = row0
         src = np.asarray(graph["in_src_global"])
@@ -141,6 +146,9 @@ class _Shard:
             self.hub_sched = gather_schedule(self.hub_indptr)
         self.needed = (None if needed is None else
                        host_to_device(needed, device, np.uint8))
+        self._inv, self._walk_sched, self._thr = {}, {}, {}
+        if index is None:
+            return
 
         isrc_all = np.asarray(index["edge_src_local"])
         idst_all = np.asarray(index["edge_dst"])
@@ -167,7 +175,6 @@ class _Shard:
         self.idx_off = off
         self.idx_off_dev = torch.tensor(off[:NUM_BUCKETS], dtype=torch.int32,
                                         device=device)
-        self._inv, self._walk_sched, self._thr = {}, {}, {}
 
     @property
     def buckets(self) -> list:
@@ -188,6 +195,11 @@ class _Shard:
             self._thr[key] = (self.counts_cum[:, depth].to(torch.float32)
                               / key[1])
         return self._thr[key]
+
+    def raw_thr(self, rmax: float) -> torch.Tensor:
+        """[n_loc] f32 push threshold of the raw walk, rmax * out_deg in
+        f32, as ``fora_tpu/parallel/sharded.py:375``."""
+        return self.out_deg.to(torch.float32) * float(np.float32(rmax))
 
     def inv(self, depth: int) -> torch.Tensor:
         if depth not in self._inv:
@@ -260,12 +272,36 @@ def _graph_shards(g, G: int, hub_rows: int):
     return pg, shards, None
 
 
+def _walk_side(g, devices, n_loc: int) -> ShardedOutCSR:
+    """The raw walk's out-CSR slices on the shards' devices: from
+    ``index.build_sharded._shard_csr`` for a graph in RAM, from the store's
+    walk side for a ``ShardedGraphStore`` (refused where it was written
+    without one, as the reference refuses)."""
+    if not isinstance(g, ShardedGraphStore):
+        csr = shard_out_csr(g, devices)
+        if csr.n_loc != n_loc:
+            raise AssertionError(f"walk CSR n_loc={csr.n_loc} != partition "
+                                 f"{n_loc}")
+        return csr
+    if not g.with_walk_side:
+        raise ValueError("graph store was saved without the walk-side CSR; "
+                         "re-save with with_walk_side=True for raw-walk mode")
+    slices = []
+    for s in range(len(devices)):
+        sh = g.shard(s)
+        slices.append((sh["walk_indptr"], sh["walk_indices"],
+                       sh.get("alias_prob"), sh.get("alias_other")))
+    return place_out_csr(slices, n_loc, devices)
+
+
 class _ShardedPlacement:
     """Partitions the graph and the index over one group's G shard devices
     and places each shard's arrays there, with the group's frontier
     exchange; the push, the walk phase and the candidate merge run here.
     ``g`` is a CSRGraph of either package or a ``ShardedGraphStore``;
-    ``index`` a WalkIndex of either package or a ``ShardedIndexStore``."""
+    ``index`` a WalkIndex of either package or a ``ShardedIndexStore``,
+    or None for the raw walk, which places the out-CSR's slices instead
+    (``walk``; the indexed placement holds none, as the reference's)."""
 
     def __init__(self, g, devices: Sequence[torch.device], index, *,
                  exchange: Optional[str] = None,
@@ -288,7 +324,12 @@ class _ShardedPlacement:
                 need = need.reshape(G, xch.H, xch.C, n_loc).any(axis=2)
             needed = [need[s] for s in range(G)]
 
-        if isinstance(index, ShardedIndexStore):
+        self.walk = None
+        if index is None:
+            boff, idx_shards = None, [None] * G
+            self.e_loc_total = 0
+            self.walk = _walk_side(g, self.devices, n_loc)
+        elif isinstance(index, ShardedIndexStore):
             if index.n_shards != G:
                 raise ValueError(
                     f"sharded index is {index.n_shards}-way, the mesh has "
@@ -310,7 +351,8 @@ class _ShardedPlacement:
                 "edge_mult": (None if pi.edge_mult is None
                               else pi.edge_mult[s * e:(s + 1) * e])}
                 for s in range(G)]
-        self.e_loc_total = int(boff[-1])
+        if index is not None:
+            self.e_loc_total = int(boff[-1])
         self.shards = [
             _Shard(dev, s * n_loc, n_loc, n_pad, graph_shards[s][0],
                    graph_shards[s][1], idx_shards[s], boff, needed[s])
@@ -427,6 +469,16 @@ class _ShardedPlacement:
                                  sched=sh.walk_sched(depth))
                 for h, sh in enumerate(self.shards)]
 
+    def raw_walk_partials(self, rs, omega_unit: float, seed: int,
+                          alpha: float, max_hops: int):
+        """Per shard, the [n_pad, B] f32 endpoint mass of the raw walks its
+        residues demand, and the phase's ``WalkPhase``
+        (``ops.walk.sharded_walk_phase`` over ``walk``), as the raw branch
+        of ``fora_tpu/parallel/sharded.py::_shard_fora_topk`` (410-429)
+        before its reduce-scatter."""
+        return sharded_walk_phase(self.walk, rs, omega_unit, seed, alpha,
+                                  max_hops)
+
     def candidates(self, ps, walk_loc, kk: int) -> tuple:
         """(vals [B, G*kk], global ids [B, G*kk] int64, p there [B, G*kk])
         on the first shard's device, ranked by value descending, the
@@ -458,7 +510,7 @@ class _ShardedPlacement:
         in place: ``(vals, idx, lb, ub, accept, info)`` as
         ``_shard_level_step`` computes them."""
         xch = self.exchange
-        c0, f0 = xch.compacted, xch.fell_back
+        c0, f0, z0 = xch.compacted, xch.fell_back, xch.cleared
         thr = [sh.thr(depth, omega_unit) for sh in self.shards]
         iters = self.push(ps, rs, thr, alpha, max_iters)
         walk_loc = ring.ring_reduce_scatter(self.walk_partials(rs, depth))
@@ -470,7 +522,8 @@ class _ShardedPlacement:
         vals_k, idx_k, lb, ub, _, _, accept = out
         return vals_k, idx_k, lb, ub, accept, {
             "supersteps": iters, "compacted": xch.compacted - c0,
-            "fell_back": xch.fell_back - f0}
+            "fell_back": xch.fell_back - f0,
+            "cleared": xch.cleared - z0}
 
 
 def _mesh_groups(mesh) -> list:
@@ -511,35 +564,38 @@ def _split(n: int, Q: int, what: str) -> int:
 
 
 class ShardedForaEngine:
-    """The sharded graph and index on the mesh's devices, and the one-shot
-    indexed top-k over them.
+    """The sharded graph (and index) on the mesh's devices, and the
+    one-shot top-k over them.
 
     ``mesh`` is a list of G shard devices, or a list of Q query groups of
     G (``make_mesh``); the batch must divide by Q.  ``g`` may be a
-    ``ShardedGraphStore`` and ``index`` a ``ShardedIndexStore``.  Unlike
-    ``fora_tpu``'s engine this one takes no ``pallas_ring`` or
-    ``pallas_interpret``: its dense exchange is always the ring (P1, P2).
-    Without an index (the raw-walk lockstep walk) it raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 4), and for the
-    ``ragged`` exchange (ROADMAP C5).  ``placement`` is the first query
-    group's ``_ShardedPlacement``: its ``prepass``, ``walk_partials`` and
-    ``candidates`` are the phases of ``topk``.
+    ``ShardedGraphStore`` and ``index`` a ``ShardedIndexStore``.  With an
+    index the walk phase is the index SpMV at ``index.depth_for`` the
+    config's guarantee; without one (the raw walk) the push goes to rmax *
+    out_deg and each shard walks the lanes its residues demand over the
+    out-CSR's shard slices (a store needs its walk side), lanes sized by
+    the demand: JAX's ``num_lanes``, ``max_lanes`` and ``lane_slack`` and
+    the walks it drops past them (ROADMAP C7) are not copied, so
+    ``walk_overflow`` is all False.  Unlike ``fora_tpu``'s engine this one
+    takes no ``pallas_ring`` or ``pallas_interpret``: its dense exchange
+    is always the ring (P1, P2).  The ``ragged`` exchange is refused
+    (ROADMAP C5).  ``placement`` is the first query group's
+    ``_ShardedPlacement``: its ``prepass``, ``walk_partials`` (or
+    ``raw_walk_partials``) and ``candidates`` are the phases of ``topk``.
     """
 
     def __init__(self, g, mesh, rcfg: ResolvedConfig, *,
                  k: Optional[int] = None, index=None,
                  exchange: Optional[str] = None,
                  chips_per_host: Optional[int] = None, hub_rows: int = 0):
-        if index is None:
-            raise NotImplementedError(
-                "the sharded raw-walk path (lockstep walk) is not ported "
-                "(ROADMAP Queue 1 item 4): pass a FORA+ index")
         groups = _mesh_groups(mesh)
         self.devices = groups[0]
         self.rcfg = rcfg
         self.k = k if k is not None else rcfg.k
         self.G, self.Q = len(groups[0]), len(groups)
         self.chips_per_host = chips_per_host
+        self.use_index = index is not None
+        self._calls = 0       # topk calls that took the engine's own seed
         self._groups = _placements(g, groups, index, exchange=exchange,
                                    chips_per_host=chips_per_host,
                                    hub_rows=hub_rows)
@@ -551,9 +607,9 @@ class ShardedForaEngine:
         if not 0 < self.k < self.n_loc:
             raise ValueError(f"k = {self.k} must lie in (0, n_loc = "
                              f"{self.n_loc})")
-        self.index_depth = index.depth_for(rcfg.omega_unit, rcfg.rmax)
-        self._thr = [sh.thr(self.index_depth, rcfg.omega_unit)
-                     for sh in self.shards]
+        self.index_depth = (index.depth_for(rcfg.omega_unit, rcfg.rmax)
+                            if self.use_index else None)
+        self._thr = self._thresholds(self.placement)
 
     @property
     def shards(self) -> list:
@@ -571,6 +627,15 @@ class ShardedForaEngine:
             self.exchange_mode, n_loc=self.n_loc, batch=batch, G=self.G,
             cap=self.exchange.cap, chips_per_host=self.chips_per_host or 1)
 
+    def _thresholds(self, pl) -> list:
+        """Per shard the push threshold: the index's coverage at its depth,
+        or rmax * out_deg on the raw walk."""
+        rc = self.rcfg
+        if self.use_index:
+            return [sh.thr(self.index_depth, rc.omega_unit)
+                    for sh in pl.shards]
+        return [sh.raw_thr(rc.rmax) for sh in pl.shards]
+
     # --- the phases of topk, on the first query group ---------------------
 
     def init_state(self, sources) -> tuple:
@@ -578,12 +643,24 @@ class ShardedForaEngine:
 
     def push(self, ps, rs, max_iters: Optional[int] = None) -> int:
         """Push supersteps in place until no residue of any shard exceeds
-        its coverage threshold, or ``max_iters`` (default
-        ``rcfg.max_push_iters``) ran; returns the supersteps run."""
+        its threshold, or ``max_iters`` (default ``rcfg.max_push_iters``)
+        ran; returns the supersteps run."""
         if max_iters is None:
             max_iters = self.rcfg.max_push_iters
         return self.placement.push(ps, rs, self._thr, self.rcfg.alpha,
                                    max_iters)
+
+    def walk_loc(self, rs, seed: int, placement=None) -> list:
+        """Per shard, its rows' [n_loc, B] walk-phase estimate after P2:
+        the index SpMV's, or the raw walks' drawn from ``seed``."""
+        pl = placement or self.placement
+        rc = self.rcfg
+        if self.use_index:
+            parts = pl.walk_partials(rs, self.index_depth)
+        else:
+            parts, _ = pl.raw_walk_partials(rs, rc.omega_unit, seed,
+                                            rc.alpha, rc.max_walk_hops)
+        return ring.ring_reduce_scatter(parts)
 
     def merge_topk(self, ps, walk_loc, placement=None) -> tuple:
         """(values [B, k], node ids [B, k] int64) on the group's first
@@ -594,23 +671,25 @@ class ShardedForaEngine:
             ps, walk_loc, k)
         return vals[:, :k], ids[:, :k]
 
-    def topk(self, sources, key=None) -> ShardedTopkResult:
-        """Top-k of every source's approximate PPR (``key`` is ignored: the
-        indexed path is deterministic); the batch's columns split over the
-        query groups."""
-        del key
+    def topk(self, sources, key: Optional[int] = None) -> ShardedTopkResult:
+        """Top-k of every source's approximate PPR, the batch's columns
+        split over the query groups.  The raw walk draws from ``key`` (an
+        int seed; None takes the next of the engine's own seeds), query
+        group q from ``derive_seed(key, q)``; the indexed path is
+        deterministic and ignores it."""
+        if key is None and not self.use_index:
+            key = derive_seed(self._calls)
+            self._calls += 1
         src = np.asarray(sources)
         c = _split(len(src), self.Q, "a batch")
         vals, ids, iters = [], [], 0
         dev0 = self.devices[0]
         for q, pl in enumerate(self._groups):
             ps, rs = pl.init_state(src[q * c:(q + 1) * c])
-            thr = [sh.thr(self.index_depth, self.rcfg.omega_unit)
-                   for sh in pl.shards]
-            iters += pl.push(ps, rs, thr, self.rcfg.alpha,
+            iters += pl.push(ps, rs, self._thresholds(pl), self.rcfg.alpha,
                              self.rcfg.max_push_iters)
-            walk_loc = ring.ring_reduce_scatter(
-                pl.walk_partials(rs, self.index_depth))
+            walk_loc = self.walk_loc(
+                rs, None if key is None else derive_seed(key, q), pl)
             v, i = self.merge_topk(ps, walk_loc, pl)
             vals.append(v.to(dev0))
             ids.append(i.to(dev0))
@@ -632,8 +711,8 @@ class ShardedTopkRunner(TopkRunner):
     ``ShardedForaEngine``; a batch must divide by the query-axis size Q.
     Requires a FORA+ index, as the reference does.  Each level's
     ``last_level_stats`` record adds the supersteps that took the
-    compacted exchange (``compacted``) and those that fell back to the
-    ring (``fell_back``).
+    compacted exchange (``compacted``), those that fell back to the ring
+    (``fell_back``) and the compacted ones cleared by rows (``cleared``).
     """
 
     def __init__(self, g, mesh, rcfg: ResolvedConfig, index, *,

@@ -281,16 +281,22 @@ def test_sweep_matches_jax_keys(dataset, capsys):
      "--graph-shards applies to batch-topk and serve"),
     (["batch-topk", "--with-idx", "--graph-shards", "2", "--exchange",
       "ragged"], "ROADMAP C5"),
-    (["batch-topk", "--graph-shards", "2"], "ROADMAP Queue 1 item 4"),
+    # the id the case had when the port lacked the sharded raw walk
+    pytest.param(["batch-topk", "--graph-shards", "2"],
+                 "--graph-shards > 1 requires --with-idx",
+                 id="argv2-ROADMAP Queue 1 item 4"),
 ])
 def test_sharded_forms_exit_2(dataset, capsys, argv, message):
-    """What the sharded CLI refuses: the JAX CLI's own error for query,
-    and the two paths the port lacks, each naming its ROADMAP item."""
+    """What the sharded CLI refuses: the JAX CLI's own errors for query
+    and for a sharded pool without an index (the refinement pool runs on
+    a FORA+ index in both packages), and the ragged exchange, which the
+    port lacks (ROADMAP C5)."""
     _, tp, _ = dataset
     assert _port(*argv, prefix=tp) == 2
     assert message in capsys.readouterr().err
-    if argv[0] == "query":
+    if argv[0] == "query" or "--with-idx" not in argv:
         assert jax_cli.main(argv + _base(tp)) == 2
+        assert message in capsys.readouterr().err
 
 
 def test_query_ignores_shard_counts(dataset, tmp_path):

@@ -16,8 +16,10 @@ fora_tpu's, on the CPU.
     buffers as the one-device layout);
   - the zeroing by rows: over compacted, compacted, fallen-back and
     compacted supersteps every buffer equal bit for bit to what zeroing
-    the whole buffer before each receive gives, and ``row_zero``'s plain
-    version;
+    the whole buffer before each receive gives; the clear
+    (``exchange_clear``) equal to the loop of own-block ``zero_`` and
+    ``row_zero_plain`` it replaced, every mode, G and one or several
+    devices; ``row_zero_plain`` itself;
   - ``hier_ici_bytes_model`` and ``exchange_cap`` equal to JAX's.
 """
 
@@ -36,7 +38,7 @@ from fora_tpu.parallel.mesh import GRAPH_AXIS, shard_map
 from fora_tpu_torch.ops import exchange as xops
 from fora_tpu_torch import kernels
 from fora_tpu_torch.ops.gather import (row_scatter_add, row_scatter_add_plain,
-                                       row_zero, row_zero_plain)
+                                       row_zero_plain)
 from fora_tpu_torch.parallel import partition as tpart
 
 torch.set_num_threads(2)
@@ -258,11 +260,55 @@ def test_zeroing_by_rows_matches_whole_zero(mode, G, C, one_device):
     assert (kept.compacted, kept.fell_back) == (4, 1)
 
 
+@pytest.mark.parametrize("one_device", [True, False])
+@pytest.mark.parametrize("mode,G,C", [("compact", 2, 1), ("compact", 4, 1),
+                                      ("routed", 2, 1), ("routed", 4, 1),
+                                      ("hier", 2, 1), ("hier", 4, 2)])
+def test_clear_equals_zero_and_row_zero_loop(mode, G, C, one_device):
+    """The clear before the second of two compacted supersteps (what
+    ``_clear`` runs, ``exchange_clear``) leaves every buffer equal bit for
+    bit to the loop it replaced: a ``zero_`` of each own block and
+    ``row_zero_plain`` over the previous receive's ids; it runs once (the
+    ``cleared`` count), and not before the first."""
+    n_loc, B, cap = 64, 8, 24
+    _, tneed = _needed(G, n_loc, mode, C, seed=G + 3)
+    x = xops.FrontierExchange(mode, [torch.device("cpu")] * G, n_loc, cap,
+                              tneed, C if mode == "hier" else None)
+    x.one_device = one_device
+    bufs = x.buffers(B)
+    for i in range(2):
+        contrib = _contrib(G, n_loc, B, [5 + h + i for h in range(G)],
+                           seed=40 + i)
+        for h in range(G):
+            bufs[h][h * n_loc:(h + 1) * n_loc] = torch.as_tensor(
+                contrib[h * n_loc:(h + 1) * n_loc])
+        cnt = [torch.zeros(x.D, dtype=torch.int32) for _ in range(G)]
+        x.send(bufs, cnt)
+        counts = np.stack([c.numpy() for c in cnt])
+        assert x.fits(counts)
+        if i == 1:
+            want = [b.clone() for b in bufs]
+            for t, b in enumerate(want):
+                b[t * n_loc:(t + 1) * n_loc].zero_()
+                row_zero_plain(b, x._written[t].view(-1))
+            got = [b.clone() for b in bufs]
+            xops.exchange_clear(got, n_loc,
+                                [w.view(-1) for w in x._written])
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+            # the rows the first receive wrote were real rows
+            assert any(bool((w.view(-1) < G * n_loc).any())
+                       for w in x._written)
+        x.exchange(bufs, counts)
+        assert x.cleared == i
+
+
 def test_row_zero_plain_zeroes_real_ids_only():
-    """``row_zero`` on the CPU: the rows of the real ids zeroed (repeats
-    allowed), the pad ids (the row count and past it) and negative ids
-    skipped, every other row untouched; the kernel wrapper refuses CPU
-    tensors."""
+    """``row_zero_plain`` and the clear on the CPU: the rows of the real
+    ids zeroed (repeats allowed), the pad ids (the row count and past it)
+    and negative ids skipped, every other row untouched, each buffer's
+    own block zeroed by the clear; the clear's kernel wrapper refuses CPU
+    tensors (no launch counted)."""
     rng = np.random.default_rng(4)
     rows, B = 40, 6
     buf = torch.as_tensor(rng.uniform(1, 2, (rows, B)).astype(np.float32))
@@ -270,17 +316,24 @@ def test_row_zero_plain_zeroes_real_ids_only():
     ids = torch.tensor([3, 17, rows, 3, -1, rows + 5, 39, 0, rows],
                        dtype=torch.int32)
     real = [3, 17, 39, 0]
-    for fn in (row_zero_plain, row_zero):
-        b = orig.clone()
-        assert fn(b, ids) is b
+    b = orig.clone()
+    assert row_zero_plain(b, ids) is b
+    want = orig.clone()
+    want[real] = 0.0
+    assert torch.equal(b, want)
+    assert torch.equal(row_zero_plain(buf, torch.zeros(0, dtype=torch.int32)),
+                       orig)
+    # two buffers of 2 x 20 rows: own blocks 0 and 1
+    bufs = [orig.clone(), orig.clone()]
+    xops.exchange_clear(bufs, 20, [ids, ids.flip(0).contiguous()])
+    for t, b in enumerate(bufs):
         want = orig.clone()
         want[real] = 0.0
+        want[t * 20:(t + 1) * 20] = 0.0
         assert torch.equal(b, want)
-    assert torch.equal(row_zero(buf, torch.zeros(0, dtype=torch.int32)),
-                       orig)
     before = kernels.launch_counts()
     with pytest.raises(ValueError):
-        kernels.row_zero(buf, ids)
+        kernels.exchange_clear([buf], 20, [ids])
     assert kernels.launch_counts() == before
 
 

@@ -625,40 +625,51 @@ def test_row_scatter_add_skips_pad_ids(dev):
 
 
 def test_row_zero_kernel_matches_plain(dev):
-    """``row_zero`` on the card: the real ids' rows zeroed (repeats
-    allowed), pads and negative ids skipped, bit-equal to its plain
-    version; B = 3 takes scalar stores; one launch a call."""
+    """The compacted exchange's clear (``kernels.exchange_clear``) on the
+    card: per buffer its own block and the real ids' rows zeroed (repeats,
+    ids inside the own block allowed), pads and negative ids skipped,
+    bit-equal to its plain version (a ``zero_`` of the own block and
+    ``row_zero_plain``); B = 3 takes scalar stores; one launch a call for
+    1, 2 or 4 buffers; a bad id dtype or own block refused."""
     from fora_tpu_torch import kernels
-    from fora_tpu_torch.ops.gather import row_zero_plain
+    from fora_tpu_torch.ops.exchange import exchange_clear_plain
     rng = np.random.default_rng(8)
-    for rows_n, B in ((1000, 128), (1000, 3), (131072 * 4, 128)):
-        buf = torch.as_tensor(rng.uniform(1, 2, (rows_n, B)).astype(
-            np.float32), device=dev)
-        ids = np.full(65536, rows_n, np.int32)
-        real = rng.choice(65536, 20000, replace=False)
-        ids[real] = rng.integers(0, rows_n, 20000)
-        ids[real[:7]] = -2
-        ids_t = torch.as_tensor(ids, device=dev)
-        want = row_zero_plain(buf.cpu(), ids_t.cpu())
-        before = kernels.row_zero.launches
-        assert kernels.row_zero(buf, ids_t) is buf
+    for G, n_loc, B, n_ids in ((1, 1000, 128, 65536), (2, 500, 3, 4096),
+                               (4, 131072, 128, 65536)):
+        rows_n = G * n_loc
+        bufs = [torch.as_tensor(rng.uniform(1, 2, (rows_n, B)).astype(
+            np.float32), device=dev) for _ in range(G)]
+        ids = []
+        for _ in range(G):
+            a = np.full(n_ids, rows_n, np.int32)
+            real = rng.choice(n_ids, n_ids // 3, replace=False)
+            a[real] = rng.integers(0, rows_n, len(real))
+            a[real[:7]] = -2
+            ids.append(torch.as_tensor(a, device=dev))
+        want = [b.cpu() for b in bufs]
+        exchange_clear_plain(want, n_loc, [i.cpu() for i in ids])
+        before = kernels.exchange_clear.launches
+        kernels.exchange_clear(bufs, n_loc, ids)
         torch.cuda.synchronize()
-        assert kernels.row_zero.launches == before + 1
-        assert torch.equal(buf.cpu(), want)
+        assert kernels.exchange_clear.launches == before + 1
+        for b, w in zip(bufs, want):
+            assert torch.equal(b.cpu(), w)
     with pytest.raises(TypeError):
-        kernels.row_zero(buf, ids_t.long())
+        kernels.exchange_clear(bufs, n_loc, [i.long() for i in ids])
+    with pytest.raises(ValueError):
+        kernels.exchange_clear(bufs, n_loc, ids, own=[0, 1, 2, 4])
 
 
 @pytest.mark.parametrize("mode,C", [("compact", 1), ("routed", 1),
                                     ("hier", 2)])
 def test_zeroing_by_rows_on_card(dev, mode, C):
     """The exchange's zeroing by rows on the card (the aggregated
-    compaction, row_zero, P3) over compacted, compacted, fallen-back and
+    compaction, the clear, P3) over compacted, compacted, fallen-back and
     compacted supersteps: every buffer bit-equal to the same exchange
     with its whole buffer zeroed by hand before each compacted receive,
     and to the ring's on
-    every needed row; row_zero launched once a shard on the compacted
-    supersteps that follow a compacted one."""
+    every needed row; the clear launched once on each compacted
+    superstep that follows a compacted one, and on no other."""
     from fora_tpu_torch import kernels
     from fora_tpu_torch.ops import exchange as xops
     from fora_tpu_torch.ops import ring
@@ -696,12 +707,12 @@ def test_zeroing_by_rows_on_card(dev, mode, C):
             if x is whole and x.fits(counts):
                 for t in b:    # the send has read the own blocks
                     t.zero_()
-            before = kernels.row_zero.launches
+            before = kernels.exchange_clear.launches
             x.exchange(b, counts)
             if x is kept:
-                zeroed = kernels.row_zero.launches - before
+                zeroed = kernels.exchange_clear.launches - before
         torch.cuda.synchronize()
-        assert zeroed == (G if i in (1, 4) else 0)
+        assert zeroed == (1 if i in (1, 4) else 0)
         for t in range(G):
             assert torch.equal(bufs[0][t], bufs[1][t])
             need = torch.cat([
@@ -750,14 +761,15 @@ def test_sharded_pool_modes_on_card(dev):
         assert c["reduce_scatter_onepass"] == levels
         assert c["ring_reduce_scatter_hop"] == 0
         compacted = sum(st["compacted"] for st in run.last_level_stats)
+        cleared = sum(st["cleared"] for st in run.last_level_stats)
         if mode == "dense":
             assert c["frontier_compact"] == c["row_scatter_add"] == 0
-            assert c["row_zero"] == 0
+            assert c["exchange_clear"] == cleared == 0
         else:
             assert compacted > 0
             assert c["row_scatter_add"] == 4 * compacted
             assert c["frontier_compact"] >= 4 * compacted
-            assert 0 < c["row_zero"] <= 4 * compacted
+            assert 0 < c["exchange_clear"] == cleared <= compacted
     for mode in ("compact", "routed", "hier"):
         for f in ("node_ids", "values", "lower_bounds", "upper_bounds",
                   "accepted"):
@@ -1247,6 +1259,79 @@ def test_walk_kernel_hub_on_last_hop_and_hub_start(dev):
                        run_walks_philox(dg, from_hub, 3, 0.2, 7, hub=hub))
     lens = walk_lengths(3, W, 0.2, 7, dev)
     assert torch.equal(ends.long(), (1 + lens) % 8)
+
+
+@pytest.mark.parametrize("branch", ["uniform", "alias"])
+@pytest.mark.parametrize("G", [2, 4, 8])
+@pytest.mark.parametrize("W", [1, 33, 32 * 16 + 1, 1 << 20])
+def test_walk_kernel_sharded_bit_equal_to_philox_plain(dev, branch, G, W):
+    """K4's sharded form (the out-CSR as a table of G shard slices, the
+    alias tables sliced beside it) bit-equal to run_walks_philox on the
+    unsharded graph, from starts on every shard (dangling nodes
+    included), and its plain form (run_walks_philox over the slices) too;
+    one launch, counted apart from the unsharded branches."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.index.build_sharded import shard_out_csr
+    from fora_tpu_torch.ops.walk import run_walks_philox, walk_endpoints
+    g, dg, _ = _philox_graph(dev, branch)
+    csr = shard_out_csr(g, [dev] * G)
+    rng = np.random.default_rng(W + G)
+    start = rng.integers(0, g.n, W).astype(np.int32)
+    start[:min(W, G)] = np.arange(min(W, G)) * csr.n_loc % g.n
+    start = torch.as_tensor(start, device=dev)
+    seed = (0x9E3779B97F4A7C15 * (W + G)) % 2**64
+    want = run_walks_philox(dg, start, seed, 0.2, 64)
+    name = ("index_walk_sharded_alias" if branch == "alias"
+            else "index_walk_sharded")
+    before = kernels.launch_counts()
+    got = walk_endpoints(csr, start, seed, 0.2, 64)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after[name] == before[name] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    diff = int((got != want).sum())
+    assert diff == 0, f"{diff} of {W} walks differ"
+    assert torch.equal(run_walks_philox(csr, start, seed, 0.2, 64), want)
+
+
+def test_sharded_raw_engine_on_card(dev):
+    """ShardedForaEngine without an index, four shards on the card under
+    dense and routed: each launches K4's sharded form, K1, K3's selection
+    and P2's one pass once, never K2; both exchanges give the same top-k
+    (the walks are the same, the push bit-equal across exchanges: values
+    within rtol 1e-4, as the endpoints' scatter-add adds in no fixed
+    order on the card, and ids equal at 95% of the positions or more); the
+    walk phase's contribution after P2 equals walk_phase's on the one
+    device at the same seed within float32 summation order."""
+    from fora_tpu_torch import ForaConfig as TorchForaConfig
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.graph import generators as tgen
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops.walk import walk_phase
+    from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
+    g = tgen.rmat(12, 1 << 15, seed=3)
+    rcfg = TorchForaConfig(epsilon=0.5, k=20).resolved(g.n, g.m)
+    src = np.arange(0, 32 * 61, 61)
+    res = {}
+    for mode in ("dense", "routed"):
+        eng = ShardedForaEngine(g, make_mesh(4, devices=[dev] * 4), rcfg,
+                                k=20, exchange=mode)
+        kernels.reset_launch_counts()
+        res[mode] = eng.topk(src, 11)
+        c = kernels.launch_counts()
+        assert c["index_walk_sharded"] > 0 and c["index_spmv"] == 0
+        assert c["reduce_scatter_onepass"] == 1
+        assert c["topk_bounds"] == 4
+        assert c["index_walk"] == c["index_walk_sharded_alias"] == 0
+    np.testing.assert_allclose(res["routed"].values, res["dense"].values,
+                               rtol=1e-4, atol=1e-9)
+    assert (res["routed"].node_ids == res["dense"].node_ids).mean() >= 0.95
+    ps, rs = eng.init_state(src)
+    eng.push(ps, rs)
+    got = torch.cat(eng.walk_loc(rs, 5))[:g.n]
+    want, _ = walk_phase(to_device(g, device=dev), torch.cat(rs)[:g.n],
+                         rcfg.omega_unit, 5, rcfg.alpha, rcfg.max_walk_hops)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
 
 
 def test_walk_kernel_refuses_bad_plan(dev):

@@ -1,6 +1,8 @@
 """fora_tpu_torch runs without JAX and without the JAX package: it imports
-and answers CPU queries (indexed, sharded, raw-walk, Monte Carlo, indexed
-on a weighted graph with its alias tables, ``entry()``), runs the gather
+and answers CPU queries (indexed, sharded, the sharded raw one-shot,
+raw-walk, Monte Carlo, indexed on a weighted graph with its alias tables,
+``entry()``), builds a sharded index, runs the sharded dry run and the
+gather
 probe's case and its CLI (build, batch-topk, query --algo bippr, hubppr
 and fwdpush) with ``--device cpu``, whether or not ``import jax`` would
 work, loading
@@ -51,6 +53,18 @@ SCRIPT = textwrap.dedent("""
     sres = eng.topk(queries.generate_sources(g, 3, seed=5))
     assert sres.node_ids.shape == (3, 10) and sres.push_iters >= 1
     assert np.isfinite(sres.values).all()
+    raw_eng = ShardedForaEngine(g, make_mesh(2, devices=["cpu"] * 2), rcfg,
+                                k=10, exchange="routed")
+    rres = raw_eng.topk(queries.generate_sources(g, 3, seed=5), 1)
+    assert rres.node_ids.shape == (3, 10) and np.isfinite(rres.values).all()
+    sidx = tidx.build_walk_index_sharded(g, make_mesh(2, devices=["cpu"] * 2),
+                                         rcfg, seed=1)
+    ref = tidx.build_walk_index(fora_tpu_torch.to_device(g, device="cpu"),
+                                rcfg, seed=1)
+    assert np.array_equal(sidx.edge_dst, ref.edge_dst)
+    from fora_tpu_torch.dryrun import dryrun_multichip
+    assert dryrun_multichip(["cpu"] * 4)["store_backed"] == ["routed",
+                                                              "hier"]
     from fora_tpu_torch.parallel import ShardedTopkRunner
     pool = ShardedTopkRunner(g, make_mesh(4, devices=["cpu"] * 4), rcfg,
                              idx, k=10, delta_stride=8, exchange="routed")
@@ -162,6 +176,11 @@ def test_cpu_tensors_never_launch_kernels():
         torch.zeros((1, 8, 3)), torch.zeros(1, dtype=torch.int32))
     from fora_tpu_torch.ops import ring
     ring.ring_reduce_scatter([torch.ones(4, 3), torch.ones(4, 3)])
-    gather.row_zero(torch.ones(4, 8), torch.tensor([1, 4], dtype=torch.int32))
+    exchange.exchange_clear([torch.ones(4, 8), torch.ones(4, 8)], 2,
+                            [torch.tensor([1, 4], dtype=torch.int32)] * 2)
+    from fora_tpu_torch.index.build_sharded import shard_out_csr
+    for graph in (g, gw):
+        walk.walk_endpoints(shard_out_csr(graph, ["cpu"] * 3),
+                            torch.zeros(100, dtype=torch.int32), 1, 0.2, 64)
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 15
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 17

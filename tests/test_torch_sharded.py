@@ -37,8 +37,8 @@ from fora_tpu_torch.graph import to_device
 from fora_tpu_torch.graph.csr import CSRGraph
 from fora_tpu_torch.ops import push
 from fora_tpu_torch.ops.topk import topk_rows_chunked
-from fora_tpu_torch.parallel import (ShardedForaEngine, exchange_bytes_model,
-                                     make_mesh)
+from fora_tpu_torch.parallel import (ShardedForaEngine, ShardedTopkRunner,
+                                     exchange_bytes_model, make_mesh)
 
 torch.set_num_threads(2)
 
@@ -154,20 +154,20 @@ def _weighted(g):
 
 @pytest.mark.parametrize("case", ["no_index", "ragged"])
 def test_unported_options_raise(case):
-    """What the sharded engine still refuses, each naming its ROADMAP item:
-    the raw-walk path (no index) and the ragged exchange."""
+    """What the sharded engines still refuse, as the reference does: the
+    refinement pool without an index (the one-shot engine runs the raw
+    walk without one, tests/test_torch_sharded_raw.py), and the ragged
+    exchange (ROADMAP C5)."""
     g, rcfg, idx, _ = setup("er")
     tidx = convert.index_from_numpy(idx)
     mesh = make_mesh(2, devices=["cpu", "cpu"])
-    kw = dict(k=K, index=tidx)
     if case == "no_index":
-        kw["index"] = None
-        match = "ROADMAP Queue 1 item 4"
-    else:
-        kw["exchange"] = "ragged"
-        match = "ROADMAP C5"
-    with pytest.raises(NotImplementedError, match=match):
-        ShardedForaEngine(port_graph(g), mesh, rcfg, **kw)
+        with pytest.raises(ValueError, match="requires a walk index"):
+            ShardedTopkRunner(port_graph(g), mesh, rcfg, None, k=K)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP C5"):
+        ShardedForaEngine(port_graph(g), mesh, rcfg, k=K, index=tidx,
+                          exchange="ragged")
 
 
 ENGINE_OPTIONS = {
