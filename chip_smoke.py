@@ -142,6 +142,39 @@ memory:
                  (run inside phase 13) the weighted graph and index
                  through the routed pool, precision@50 >= 0.95 against the
                  weighted oracle
+  16. frontier   (run after phase 15) K5, the frontier-compacted push, on
+                 phase 1's graph unmerged without the hub split (phase 9's
+                 layout): the first 1, 8 and 32 of phase 5's sources at
+                 the final delta's rmax, compact_edges=-1 (a cap of
+                 2,097,152 active out-edges) and FRONTIER_SMALL_CAP (some
+                 supersteps fall back to K1's gather; both branches must
+                 be seen), each against the dense push (p and r within
+                 rtol 1e-5 and the node's threshold, at least 1e-6: an
+                 entry at its threshold may flip under K5's atomics;
+                 supersteps equal or one apart); on the B = 32 compacted
+                 superstep with the most active out-edges, K5's pre-pass
+                 bit-equal to its plain version and to K1's pre-pass (p,
+                 contrib, the masked r, status, the tasks as a set) and K5
+                 against the float64 plain sum (rtol 1e-4, P3's: f32
+                 atomics in no fixed order into rows of tens of thousands
+                 of in-edges; atol 1e-9),
+                 each timed as called and in device time beside its bound,
+                 K1 dense on the same state and torch.sparse.mm of the
+                 in-CSR; K5 likewise at B = 1 and 8; the whole push
+                 compacted against dense per B (medians of 3, alternated).
+                 Node order: phase 1's graph in the identity, degree and
+                 BFS orders (relabel_graph, merged, hub split), one
+                 superstep's K1 gather at B = 128 per order beside its
+                 bound; phase 4's index carried to the degree order by
+                 relabel_index, phase 5's sources there and on the
+                 identity order with sources mapped by perm, in phase 5's
+                 pools and as its first pool alone: precision@50 mapped
+                 back >= 0.95 in phase 5's pools against phase 7's exact
+                 PPR ranked in the order's own ids (exact ties at rank 50
+                 go to the lowest id of the order the query ran in),
+                 within 0.01 of the identity order's in both, its push's
+                 p within rtol 1e-5 (and the node's threshold) of the
+                 identity order's
   13. weighted   bench.py's weighted graph (phase 1's edges, weights
                  exp2(U(-2, 2)) from default_rng(SEED + 31)) through the
                  port's from_edges(w=) and to_device (merge, hub split,
@@ -225,9 +258,12 @@ memory:
                  the ring, P3 and the clear on routed's compacted ones, no
                  K2 and no unsharded walk branch; in the sharded index
                  build K4's sharded form once per 2^23 walks; K4's sharded
-                 form on no other path; and neither JAX nor the JAX
-                 package fora_tpu was imported, by this process or the
-                 servers
+                 form on no other path; in phase 16's compacted pushes
+                 K5's pre-pass, K5 and K1's gather (the supersteps that
+                 fell back), never K1's pre-pass; K1-K3 in the relabelled
+                 pool; K5 and its pre-pass on no other path; and neither
+                 JAX nor the JAX package fora_tpu was imported, by this
+                 process or the servers
 
 It prints one JSON line of per-kernel results (launches, max abs error,
 ms, plain ms, bound ms and what bounds it: each input read and each
@@ -248,8 +284,10 @@ which like every ms of the line times the launches as called, and the
 clear its library form's device time, library_device_ms;
 index_walk_sharded and index_walk_sharded_alias, K4's sharded form on
 the raw one-shot's allocation with the raw one-shot's launches (phases 9
-and 13), carry unsharded_ms, K4's unsharded branch on the same starts),
-then,
+and 13), carry unsharded_ms, K4's unsharded branch on the same starts;
+frontier_prepass and frontier_push, K5's two launches, phase 16's
+superstep at B = 32 with the launches of its compacted pushes, carry
+device_ms), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -2606,6 +2644,412 @@ def run_weighted_sharded(gw, rcfg, index, sources, exact_ids):
     return counts
 
 
+FRONTIER_BATCHES = (1, 8, 32)       # phase 16: K5's batch widths
+FRONTIER_SMALL_CAP = 1 << 16        # a cap at which some supersteps fall back
+RELABEL_ORDERS = ("identity", "degree", "bfs")
+
+
+def frontier_snapshot(graph, src, rmax, alpha, cap):
+    """Steps a compacted push from ``src`` superstep by superstep through
+    the ops' own pieces and returns the state before the pre-pass of the
+    superstep with the most active out-edges within ``cap``: (p, r,
+    active out-edges, superstep), and the active out-edges of every
+    superstep."""
+    import torch
+    from fora_tpu_torch.ops import gather, push
+    st = push.init_state(graph.n, src)
+    p, r = st.p, st.r
+    thr = push.node_threshold(graph, rmax)
+    contrib = torch.empty_like(r)
+    wsum = push.out_weight(graph)
+    tasks = torch.empty((graph.n + graph.m // push.TASK_EDGES + 1, 2),
+                        dtype=torch.int32, device=r.device)
+    status = torch.zeros(3, dtype=torch.int32, device=r.device)
+    best, counts = None, []
+    while True:
+        p0, r0 = p.clone(), r.clone()
+        push.frontier_prepass(p, r, contrib, thr, graph.out_deg, wsum, alpha,
+                              tasks, status, graph.m)
+        more, edges, n_tasks = status.tolist()
+        if not more:
+            return best, counts
+        counts.append(edges)
+        if edges <= cap and (best is None or edges > best[2]):
+            best = (p0, r0, edges, len(counts))
+        if edges <= cap:
+            push.frontier_push(graph, r, contrib, tasks, n_tasks)
+        else:
+            gather.gather_scatter_add(r, contrib, graph.in_indptr,
+                                      graph.in_src, sched=graph.in_sched)
+
+
+def k5_rows(graph, p0, r0, rmax, alpha, dev):
+    """K5's pre-pass and K5 on one real superstep's state: each against its
+    plain version, timed as called and in device time beside its bound,
+    K1's dense gather on the same state and torch.sparse.mm of the
+    in-CSR.  Returns (pre-pass row, K5 row, printed facts)."""
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops import push
+    from fora_tpu_torch.utils.timing import cuda_ms, device_ms
+    n, B = r0.shape
+    thr = push.node_threshold(graph, rmax)
+    wsum = push.out_weight(graph)
+    T = push.TASK_EDGES
+    tasks = torch.empty((n + graph.m // T + 1, 2), dtype=torch.int32,
+                        device=dev)
+    status = torch.zeros(3, dtype=torch.int32, device=dev)
+    p, r, c = p0.clone(), r0.clone(), torch.empty_like(r0)
+    kernels.frontier_prepass(p, r, c, thr, graph.out_deg, wsum, alpha, tasks,
+                             status, T, graph.m)
+    pp, pr, pc = p0.clone(), r0.clone(), torch.empty_like(r0)
+    ptasks, pstatus = torch.empty_like(tasks), torch.zeros_like(status)
+    push.frontier_prepass_plain(pp, pr, pc, thr, graph.out_deg, wsum, alpha,
+                                ptasks, pstatus)
+    kp, kc = p0.clone(), torch.empty_like(r0)
+    kernels.push_prepass(kp, r0, kc, thr, graph.out_deg, wsum, alpha)
+    if not (torch.equal(p, pp) and torch.equal(c, pc) and torch.equal(p, kp)
+            and torch.equal(c, kc) and torch.equal(r, pr)):
+        fail("K5 pre-pass: p, contrib or the masked r differ from the plain "
+             "version or from K1's pre-pass")
+    if status.tolist() != pstatus.tolist():
+        fail(f"K5 pre-pass: status {status.tolist()} != plain "
+             f"{pstatus.tolist()}")
+    more, edges, nt = status.tolist()
+
+    def key(t):
+        return (t[:nt, 0].long() * (graph.m // T + 2) + t[:nt, 1]).sort()[0]
+    if not torch.equal(key(tasks), key(ptasks)):
+        fail("K5 pre-pass: its tasks differ from the plain version's")
+    active = int((r0 > thr[:, None]).sum())
+    row_active = torch.zeros(n, dtype=torch.bool, device=dev)
+    row_active[tasks[:nt, 0].long()] = True
+    # K5 against the float64 plain sum and the float32 one
+    got = r.clone()
+    kernels.frontier_push(got, c, tasks, nt, graph.out_indptr,
+                          graph.out_indices, T)
+    want = push.active_edge_segment_sum_plain(
+        r.double(), c.double(), graph.in_src, graph.in_dst, row_active).float()
+    # rtol 1e-4 (P3's, the other f32 atomic scatter): a hub row takes tens
+    # of thousands of adds in an order that changes from run to run, and
+    # such a float32 sum lay 1.1e-05 from the float64 one on an H100
+    err = close("K5 vs plain (float64)", got, want, 1e-4, 1e-9)
+    diff = (got - want).abs()
+    rel = float((diff / want.abs().clamp_min(1e-30)).masked_fill(
+        diff <= 1e-9, 0.0).max())
+    want32 = push.active_edge_segment_sum_plain(
+        r.clone(), c, graph.in_src, graph.in_dst, row_active)
+    err32 = float((want32 - want).abs().max())
+    # timings: every launch of the pre-pass on its own fresh copy of the
+    # state (it masks r in place), into scratch outputs
+    c_t, tasks_t, status_t = torch.empty_like(c), torch.empty_like(tasks), \
+        torch.empty_like(status)
+
+    def on_copies(calls, fn):
+        copies = iter([(p0.clone(), r0.clone()) for _ in range(calls)])
+        return lambda: fn(*next(copies))
+
+    def prepass_k(cp, cr):
+        kernels.frontier_prepass(cp, cr, c_t, thr, graph.out_deg, wsum,
+                                 alpha, tasks_t, status_t, T, graph.m)
+
+    def prepass_p(cp, cr):
+        push.frontier_prepass_plain(cp, cr, c_t, thr, graph.out_deg, wsum,
+                                    alpha, tasks_t, status_t)
+    pre_ms = cuda_ms(on_copies(12, prepass_k))
+    pre_dev = device_ms(on_copies(22, prepass_k))
+    pre_plain = cuda_ms(on_copies(5, prepass_p), iters=3)
+    k1pre_ms = cuda_ms(lambda: kernels.push_prepass(
+        kp, r0, kc, thr, graph.out_deg, wsum, alpha))
+    del c_t, tasks_t, status_t
+    # tasks read once below; r, thr, deg, wsum read and contrib written
+    # once; p read and written and r written where an entry is active
+    pre_row = dict(
+        max_abs_err=0.0, ms=pre_ms, device_ms=pre_dev, plain_ms=pre_plain,
+        library_ms=None,
+        **bound(nbytes(r0, c, thr, graph.out_deg, wsum) + 12 * active
+                + 8 * nt, 5 * r0.numel()))
+    scratch = r.clone()
+
+    def k5():
+        kernels.frontier_push(scratch, c, tasks, nt, graph.out_indptr,
+                              graph.out_indices, T)
+
+    def k1():
+        kernels.gather_scatter_add(scratch, c, graph.in_indptr, graph.in_src,
+                                   sched=graph.in_sched)
+    ones = torch.ones(graph.in_src.shape[0], dtype=torch.float32, device=dev)
+    csr = sparse_csr(graph.in_indptr, graph.in_src, ones, n)
+    lib_err = close("K5: torch.sparse.mm vs plain", sparse_mm(csr, c) + r,
+                    want, 1e-4, 1e-7)
+    sel = row_active[graph.in_src.long()]
+    touched = int(torch.unique(graph.in_dst[sel]).numel())
+    rows_act = int(row_active.sum())
+    k5_row = dict(
+        max_abs_err=err, ms=cuda_ms(k5), device_ms=device_ms(k5),
+        plain_ms=cuda_ms(lambda: push.active_edge_segment_sum_plain(
+            scratch, c, graph.in_src, graph.in_dst, row_active), iters=3),
+        library_ms=cuda_ms(lambda: sparse_mm(csr, c)),
+        # the active rows' out-edge ids, row pointers, tasks and contrib
+        # rows read once; each touched r row read and written once; an add
+        # per edge and column
+        **bound(4 * edges + 8 * rows_act + 8 * nt + 4 * B * rows_act
+                + 8 * B * touched, edges * B))
+    facts = dict(edges=edges, tasks=nt, rows=rows_act, touched=touched,
+                 active=active, err32=err32, lib_err=lib_err, rel=rel,
+                 k1_ms=cuda_ms(k1), k1_device_ms=device_ms(k1),
+                 k1pre_ms=k1pre_ms)
+    return pre_row, k5_row, facts
+
+
+def timed_push(graph, src, rmax, alpha, cap):
+    """(seconds, PushState) of one whole push from ``src`` with
+    ``compact_edges=cap``, synchronised at both ends."""
+    import torch
+    from fora_tpu_torch.ops import push
+    st = push.init_state(graph.n, src)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = push.forward_push_from(graph, st, rmax=rmax, alpha=alpha,
+                                 compact_edges=cap)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def run_frontier(g, rcfg, rmax, sources, dev):
+    """Phase 16, K5: the compacted push on phase 9's layout (unmerged, no
+    hub split) at B = 1, 8 and 32, at the default cap and a small one,
+    against the dense push; K5 and its pre-pass on one real superstep's
+    state.  Returns (pre-pass row, K5 row, launches of the compacted
+    pushes)."""
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops import push
+    graph = to_device(g, device=dev)
+    cap = push.default_edge_cap(graph.m_in)
+    print(f"K5: phase 1's graph unmerged without the hub split, m_in "
+          f"{graph.m_in}, default cap {cap}, small cap "
+          f"{FRONTIER_SMALL_CAP}; rmax {rmax:.4e} (the final delta's)")
+    srcs = {B: torch.as_tensor(sources[:B], dtype=torch.int32, device=dev)
+            for B in FRONTIER_BATCHES}
+    dense = {B: timed_push(graph, s, rmax, rcfg.alpha, 0)[1]
+             for B, s in srcs.items()}
+    slack = push.node_threshold(graph, rmax).clamp_min(1e-6)[:, None]
+    # the path: every compacted push, counts reset just before, read after
+    kernels.reset_launch_counts()
+    push.superstep_counts.reset()
+    seen = {}
+    for B, s in srcs.items():
+        for c in (-1, FRONTIER_SMALL_CAP):
+            c0, d0 = (push.superstep_counts.compacted,
+                      push.superstep_counts.dense)
+            _, st = timed_push(graph, s, rmax, rcfg.alpha, c)
+            comp = push.superstep_counts.compacted - c0
+            fell = push.superstep_counts.dense - d0
+            seen[B, c] = (st.iters, comp, fell)
+            if abs(st.iters - dense[B].iters) > 1:
+                fail(f"K5 B={B} cap {c}: {st.iters} supersteps, dense "
+                     f"{dense[B].iters}")
+            perr = close(f"K5 push p B={B} cap {c}", st.p, dense[B].p, 1e-5,
+                         slack)
+            rerr = close(f"K5 push r B={B} cap {c}", st.r, dense[B].r, 1e-5,
+                         slack)
+            print(f"K5 push B={B} cap {c}: {st.iters} supersteps ({comp} "
+                  f"compacted, {fell} dense), dense push {dense[B].iters}; "
+                  f"p max abs err {perr:.3e}, r {rerr:.3e} (rtol 1e-5, atol "
+                  f"the node's threshold, at least 1e-6)")
+            del st
+    launches = kernels.launch_counts()
+    if not (any(v[1] for v in seen.values())
+            and any(v[2] for (_, c), v in seen.items()
+                    if c == FRONTIER_SMALL_CAP)):
+        fail(f"K5: not both branches seen at the small cap: {seen}")
+    # K5 and its pre-pass on one real superstep's state (B = 32, the
+    # compacted superstep with the most active out-edges)
+    snap_cap = cap or FRONTIER_SMALL_CAP   # a graph under 2^16 edges: 0
+    best, counts = frontier_snapshot(graph, srcs[32], rmax, rcfg.alpha,
+                                     snap_cap)
+    print(f"K5 B=32: active out-edges per superstep {counts}")
+    p0, r0, edges, step = best
+    pre_row, k5_row, f = k5_rows(graph, p0, r0, rmax, rcfg.alpha, dev)
+    print(f"K5 on superstep {step} at B = 32: {f['edges']} active out-edges "
+          f"in {f['tasks']} tasks from {f['rows']} rows ({f['active']} "
+          f"active entries), {f['touched']} rows touched; max abs err "
+          f"{k5_row['max_abs_err']:.3e} against the float64 plain sum, "
+          f"largest relative {f['rel']:.3e} (the float32 plain sum's "
+          f"{f['err32']:.3e}; torch.sparse.mm's "
+          f"{f['lib_err']:.3e}); K5 {k5_row['ms']:.4f} ms as called, "
+          f"{k5_row['device_ms']:.4f} device, bound {k5_row['bound_ms']:.4f}"
+          f" ({k5_row['bound_by']}); K1 dense on the same state "
+          f"{f['k1_ms']:.4f} ms as called, {f['k1_device_ms']:.4f} device; "
+          f"torch.sparse.mm of the in-CSR {k5_row['library_ms']:.4f} ms")
+    print(f"K5 pre-pass at B = 32: {pre_row['ms']:.4f} ms as called, "
+          f"{pre_row['device_ms']:.4f} device, bound {pre_row['bound_ms']:.4f}"
+          f"; K1's pre-pass on the same state {f['k1pre_ms']:.4f} ms; "
+          f"bit-equal to it and to the plain version")
+    del p0, r0, best
+    # per B: K5 on its own largest compacted superstep, and the whole push
+    # compacted against dense, alternated (dense, compact, compact, dense)
+    for B, s in srcs.items():
+        if B != 32:
+            best, counts = frontier_snapshot(graph, s, rmax, rcfg.alpha,
+                                             snap_cap)
+            _, row, fb = k5_rows(graph, best[0], best[1], rmax, rcfg.alpha,
+                                 dev)
+            print(f"K5 B={B}: active out-edges per superstep {counts}; on "
+                  f"superstep {best[3]} ({fb['edges']} edges; largest "
+                  f"relative error {fb['rel']:.3e}) K5 "
+                  f"{row['ms']:.4f} ms as called, {row['device_ms']:.4f} "
+                  f"device, bound {row['bound_ms']:.4f}; K1 dense "
+                  f"{fb['k1_ms']:.4f} / {fb['k1_device_ms']:.4f}; "
+                  f"torch.sparse.mm {row['library_ms']:.4f}")
+            del best
+        walls = {"dense": [], "compact": []}
+        for c in (0, -1, -1, 0, 0, -1):
+            walls["dense" if c == 0 else "compact"].append(
+                timed_push(graph, s, rmax, rcfg.alpha, c)[0])
+        d, k = (statistics.median(walls[x]) * 1e3
+                for x in ("dense", "compact"))
+        print(f"whole push B={B}: dense {d:.3f} ms, compacted (cap {cap}) "
+              f"{k:.3f} ms (medians of 3, alternated): {d / k:.2f}x")
+    return pre_row, k5_row, launches
+
+
+def run_relabel(g, rcfg, index, sources, dev, exact_ids, x):
+    """Phase 16, node order: phase 1's graph in each of RELABEL_ORDERS,
+    merged with the hub split as phase 4 lays it out; one superstep's K1
+    gather at B = 128 per order beside its bound; phase 4's index carried
+    to the degree order by relabel_index, and phase 5's sources run there
+    and on the identity order with sources mapped by perm, as phase 5 runs
+    them and as its first pool alone: precision@50 mapped back >=
+    MIN_PRECISION as phase 5 runs them, and within 0.01 of the identity
+    order's in both.  ``x`` is phase 7's exact PPR of the first EVAL_N
+    sources ([n, EVAL_N]) and ``exact_ids`` its top-50 in phase 1's ids:
+    the oracle breaks exact ties at rank 50 by lowest id (ROADMAP C8), so
+    each order is scored against the top-50 in its own ids, mapped back
+    (a source with fewer than 50 nodes of non-zero PPR ties at 0, where
+    the lowest ids of one order are other nodes than those of another).
+    Returns the launches of the degree order's run as phase 5's."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo import exact
+    from fora_tpu_torch.algo.topk import TopkRunner
+    from fora_tpu_torch.eval import metrics
+    from fora_tpu_torch.graph import relabel, to_device
+    from fora_tpu_torch.ops import push
+    from fora_tpu_torch.utils.timing import cuda_ms
+    src0 = np.asarray(sources[:BATCH])
+    graphs, perms = {}, {}
+    for name in RELABEL_ORDERS:
+        t0 = time.perf_counter()
+        perm = (np.arange(g.n, dtype=np.int32) if name == "identity"
+                else getattr(relabel, f"{name}_order")(g))
+        t1 = time.perf_counter()
+        gg = g if name == "identity" else relabel.relabel_graph(g, perm)
+        dg = to_device(gg, merge_duplicate_edges=True, hub_rows=HUB_ROWS,
+                       device=dev)
+        t2 = time.perf_counter()
+        src = torch.as_tensor(perm[src0], dtype=torch.int32, device=dev)
+        thr = push.node_threshold(dg, rcfg.rmax)
+        st = push.init_state(g.n, src)
+        for _ in range(4):   # phase 3's spread-out state
+            st = push.superstep(dg, st, alpha=rcfg.alpha, thr=thr)
+        contrib = torch.empty_like(st.r)
+        kernels.push_prepass(st.p.clone(), st.r, contrib, thr, dg.out_deg,
+                             push.out_weight(dg), rcfg.alpha)
+        hub_vals = contrib.index_select(0, dg.hub_ids)
+        acc = torch.zeros_like(st.r)
+
+        def gather_k():
+            kernels.gather_scatter_add(acc, contrib, dg.in_indptr, dg.in_src,
+                                       edge_w=dg.in_w, sched=dg.in_sched)
+            kernels.gather_scatter_add(acc, hub_vals, dg.hub_indptr,
+                                       dg.hub_src_local, edge_w=dg.hub_w,
+                                       sched=dg.hub_sched)
+        ms = [cuda_ms(gather_k) for _ in range(3)]
+        b = bound(nbytes(contrib, hub_vals) + 2 * nbytes(acc)
+                  + nbytes(dg.in_indptr, dg.in_src, dg.in_w, dg.hub_indptr,
+                           dg.hub_src_local, dg.hub_w),
+                  2 * dg.m_in * BATCH)
+        hub_rows = dg.hub_ids.cpu().numpy()
+        print(f"K1 gather, {name} order: {min(ms):.4f} ms (three runs of 10: "
+              + ", ".join(f"{x:.4f}" for x in ms) + f"), bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); {dg.m_in} merged "
+              f"in-edges; hub rows span ids {hub_rows.min()}..{hub_rows.max()}"
+              f"; order {t1 - t0:.1f} s, relabel and layout {t2 - t1:.1f} s")
+        graphs[name], perms[name] = dg, perm
+        del st, contrib, hub_vals, acc
+    # the degree order's pool: the index relabelled, sources mapped
+    perm = perms["degree"]
+    inv = relabel.invert(perm)
+    t0 = time.perf_counter()
+    ridx = relabel.relabel_index(index, perm)
+    print(f"relabel_index: {ridx.total_edges} index edges in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # phase 5's sources as phase 5 runs them (pools of POOL, then the
+    # flush) and its first pool alone, on both orders, sources mapped by
+    # perm and answers mapped back
+    ev = [int(s) for s in sources[:EVAL_N]]
+    inv_t = torch.as_tensor(inv, dtype=torch.long, device=dev)
+    oracle = {"identity": exact_ids,
+              "degree": inv[exact.topk_ids(x[inv_t], K)]}
+    runs = {}
+    for setup, part in (("phase 5", sources), ("first pool", sources[:POOL])):
+        srcs = [int(s) for s in part]
+        for name, idx, p in (("identity", index, perms["identity"]),
+                             ("degree", ridx, perm)):
+            runner = TopkRunner(graphs[name], rcfg, k=K, index=idx,
+                                delta_stride=DSTRIDE, accept_slack=ACCEPT)
+            if (setup, name) == ("phase 5", "degree"):
+                kernels.reset_launch_counts()
+            res, _, levels, wall, _ = run_queries(
+                runner, p[np.asarray(srcs)], lambda *a: None)
+            if (setup, name) == ("phase 5", "degree"):
+                launches = kernels.launch_counts()
+            back = {s: (inv[res[int(p[s])]] if name == "degree"
+                        else res[s]) for s in srcs}
+            pred = np.stack([back[s] for s in ev])
+            prec = metrics.batch_precision_at_k(pred, oracle[name])
+            runs[setup, name] = (back, prec)
+            print(f"{setup} ({len(srcs)} sources) on the {name} order: "
+                  f"{wall:.3f} s (one cold run), levels {levels}, "
+                  f"precision@{K} {prec:.4f} over {EVAL_N} queries against "
+                  f"the oracle in its own ids, mapped back ("
+                  f"{metrics.batch_precision_at_k(pred, exact_ids):.4f} "
+                  f"against phase 7's, whose ties at rank {K} follow phase "
+                  f"1's ids)")
+        a, b = runs[setup, "degree"], runs[setup, "identity"]
+        same = np.mean([np.array_equal(a[0][s], b[0][s]) for s in srcs])
+        print(f"{setup}: the degree order's top-{K} ids equal to the "
+              f"identity order's for {same:.3f} of the queries; precision "
+              f"{a[1]:.4f} against {b[1]:.4f}")
+        if abs(a[1] - b[1]) > 0.01:
+            fail(f"relabelled pool ({setup}): precision@{K} {a[1]:.4f}, the "
+                 f"identity order's {b[1]:.4f}")
+    prec = runs["phase 5", "degree"][1]
+    if not prec >= MIN_PRECISION:
+        fail(f"relabelled pool: precision@{K} {prec:.4f} < {MIN_PRECISION}")
+    # the push on the degree order against identity's, mapped back
+    s_id = torch.as_tensor(src0, dtype=torch.int32, device=dev)
+    st_id = push.forward_push(graphs["identity"], s_id, rmax=rcfg.rmax,
+                              alpha=rcfg.alpha, max_iters=rcfg.max_push_iters)
+    st_dg = push.forward_push(graphs["degree"],
+                              torch.as_tensor(perm[src0], dtype=torch.int32,
+                                              device=dev),
+                              rmax=rcfg.rmax, alpha=rcfg.alpha,
+                              max_iters=rcfg.max_push_iters)
+    back = st_dg.p[torch.as_tensor(perm, dtype=torch.long, device=dev)]
+    slack = push.node_threshold(graphs["identity"], rcfg.rmax).clamp_min(
+        1e-6)[:, None]
+    perr = close("relabelled push p vs identity", back, st_id.p, 1e-5, slack)
+    print(f"degree order push: {st_dg.iters} supersteps (identity "
+          f"{st_id.iters}), p mapped back max abs err {perr:.3e} (rtol 1e-5, "
+          f"atol the node's threshold)")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="PAIRS",
@@ -3079,6 +3523,15 @@ def main(argv=None) -> int:
                                             ex[:EVAL_N],
                                             (results, single_vals))
 
+    # ---- 16. K5, the frontier-compacted push, and node order ---------------
+    with Phase("frontier push"):
+        (rows["frontier_prepass"], rows["frontier_push"],
+         k5_launches) = run_frontier(g, rcfg, runner._levels[-1][1], sources,
+                                     dev)
+    with Phase("relabel"):
+        relabel_launches = run_relabel(g, rcfg, index, sources, dev,
+                                       ex[:EVAL_N], x)
+
     # ---- 13. weighted graphs ---------------------------------------------
     del dg, dg_flat, index, runner, staged, results, x, lvl, inv, sched
     torch.cuda.empty_cache()
@@ -3290,6 +3743,25 @@ def main(argv=None) -> int:
     if sharded_launches["index_spmv"] != SHARDS:
         fail(f"K2: {sharded_launches['index_spmv']} sharded launches, "
              f"expected one per shard")
+    # phase 16: the compacted pushes ran K5's pre-pass and K5, and K1's
+    # gather on the supersteps that fell back, never K1's pre-pass; the
+    # relabelled pool ran K1-K3; no other path ran K5 or its pre-pass
+    print(f"launches in phase 16's compacted pushes: {k5_launches}")
+    for name in ("frontier_prepass", "frontier_push", "gather_scatter_add"):
+        if k5_launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the compacted pushes")
+    if k5_launches["push_prepass"]:
+        fail("a compacted push launched K1's pre-pass")
+    print(f"launches in phase 16's relabelled pool: {relabel_launches}")
+    for name in MAIN_KERNELS[:4]:
+        if relabel_launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the relabelled pool")
+    if any(c["frontier_prepass"] or c["frontier_push"]
+           for c in (*earlier, relabel_launches, *raw1_launches.values(),
+                     *w_raw1_launches.values(), build_launches,
+                     *cli_launches.values())):
+        fail("K5 or its pre-pass ran on a path other than the compacted "
+             "push")
     loaded = sorted(foreign_modules() - preloaded)
     if loaded:
         fail(f"the port imported JAX or fora_tpu: {loaded[:5]}")
@@ -3323,6 +3795,11 @@ def main(argv=None) -> int:
         # the row-sharded lockstep walk (its alias hop at 259)
         "index_walk_sharded": ("walk.cu", "fora_tpu/ops/walk.py:225"),
         "index_walk_sharded_alias": ("walk.cu", "fora_tpu/ops/walk.py:259"),
+        # K5: the compacted branch's O(m) activity mask and count (its
+        # pre-pass), and active_edge_segment_sum's gather (K5 itself)
+        "frontier_prepass": ("frontier_push.cu",
+                             "fora_tpu/ops/push.py:298"),
+        "frontier_push": ("frontier_push.cu", "fora_tpu/ops/push.py:283"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
@@ -3339,6 +3816,7 @@ def main(argv=None) -> int:
              w_launches[name] if name == "index_walk_alias" else
              cli_launches["bippr"][name] if name == "backward_prepass" else
              cli_launches["hubppr"][name] if name == "index_walk_hub" else
+             k5_launches[name] if name.startswith("frontier_p") else
              sharded_launches[name])
         out.append({"name": name, "route": "cuda",
                     "source": f"fora_tpu_torch/kernels/csrc/{src_file}",

@@ -8,7 +8,9 @@ with Bernstein-bound acceptance, on unweighted and weighted graphs (w/W
 transitions, alias-table walks); and the graph-sharded one-shot top-k
 (``parallel``), whose shards exchange over a ring all-gather and a ring
 reduce-scatter; the competitors BiPPR (``algo/bippr.py``), HubPPR
-(``algo/hubppr.py``) and push-only; and the reference's CLI (``cli``) with
+(``algo/hubppr.py``) and push-only; the frontier-compacted push
+(``ops.push.forward_push_from(compact_edges=)``) and node relabelling
+(``graph/relabel.py``); and the reference's CLI (``cli``) with
 its TCP server (``serve``) and dataset files (``graph/io.py``).  Its hot
 loops, the two ring hops and the gather probe's per-edge accumulate
 (``probes``) are hand-written CUDA kernels (``kernels/csrc``) built at

@@ -1,12 +1,56 @@
-"""Synthetic graphs: the Erdos-Renyi and RMAT generators of
-``fora_tpu/graph/generators.py`` (58-66, 69-93), the same numpy draws, so
-a seed gives the same graph in both packages."""
+"""Synthetic graphs: the generators of ``fora_tpu/graph/generators.py``
+(17-93), the same numpy code, so a seed gives the same graph in both
+packages: the analytic fixtures (cycle, star, complete, Zachary's karate
+club), Erdos-Renyi and RMAT."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from .csr import CSRGraph, from_edges
+
+
+def cycle_graph(n: int) -> CSRGraph:
+    """Directed n-cycle: PPR from s is analytic, pi(s, s+j) = a (1-a)^j /
+    norm."""
+    src = np.arange(n, dtype=np.int64)
+    dst = (src + 1) % n
+    return from_edges(src, dst, n)
+
+
+def star_graph(n: int) -> CSRGraph:
+    """Node 0 -> {1..n-1}; the leaves are dangling."""
+    src = np.zeros(n - 1, dtype=np.int64)
+    dst = np.arange(1, n, dtype=np.int64)
+    return from_edges(src, dst, n)
+
+
+def complete_graph(n: int) -> CSRGraph:
+    """Every ordered pair of distinct nodes."""
+    src, dst = np.nonzero(~np.eye(n, dtype=bool))
+    return from_edges(src, dst, n)
+
+
+def karate_club() -> CSRGraph:
+    """Zachary's karate club (34 nodes, 78 undirected edges) as a symmetric
+    directed graph."""
+    und = [
+        (0, 1), (0, 2), (0, 3), (0, 4), (0, 5), (0, 6), (0, 7), (0, 8),
+        (0, 10), (0, 11), (0, 12), (0, 13), (0, 17), (0, 19), (0, 21),
+        (0, 31), (1, 2), (1, 3), (1, 7), (1, 13), (1, 17), (1, 19), (1, 21),
+        (1, 30), (2, 3), (2, 7), (2, 8), (2, 9), (2, 13), (2, 27), (2, 28),
+        (2, 32), (3, 7), (3, 12), (3, 13), (4, 6), (4, 10), (5, 6), (5, 10),
+        (5, 16), (6, 16), (8, 30), (8, 32), (8, 33), (9, 33), (13, 33),
+        (14, 32), (14, 33), (15, 32), (15, 33), (18, 32), (18, 33), (19, 33),
+        (20, 32), (20, 33), (22, 32), (22, 33), (23, 25), (23, 27), (23, 29),
+        (23, 32), (23, 33), (24, 25), (24, 27), (24, 31), (25, 31), (26, 29),
+        (26, 33), (27, 33), (28, 31), (28, 33), (29, 32), (29, 33), (30, 32),
+        (30, 33), (31, 32), (31, 33), (32, 33),
+    ]
+    e = np.array(und, dtype=np.int64)
+    src = np.concatenate([e[:, 0], e[:, 1]])
+    dst = np.concatenate([e[:, 1], e[:, 0]])
+    return from_edges(src, dst, 34)
 
 
 def erdos_renyi(n: int, m: int, seed: int = 0,

@@ -59,6 +59,9 @@ SIGNATURES = {
     "fora_exchange_clear": [_P, _P, _P, _I, _LL, _I, _LL, _LL, _P],
     "fora_frontier_compact": [_P, _LL, _I, _P, _I, _I, _LL, _I, _P, _LL, _P,
                               _LL, _P, _I, _P],
+    "fora_frontier_prepass": [_P, _P, _P, _P, _P, _P, _F, _F, _LL, _I, _I,
+                              _P, _P, _P],
+    "fora_frontier_push": [_P, _P, _P, _LL, _P, _P, _I, _I, _P],
     "fora_enable_peer_access": [_I, _I],
     "fora_sector_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],
     "fora_row_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],

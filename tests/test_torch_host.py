@@ -1,6 +1,6 @@
 """The port's host code against fora_tpu's: config derivation, CSR packing,
-the Erdos-Renyi and RMAT generators, query sources, precision@k and the
-exact PPR oracle.
+the generators (the toy fixtures, Erdos-Renyi and RMAT), query sources,
+precision@k and the exact PPR oracle.
 
 The port carries these (numpy) pieces itself so that it imports nothing of
 the JAX package; here they are held equal to the originals they copy.
@@ -72,6 +72,16 @@ def test_rmat_matches_jax(n_log2, m, seed):
 def test_erdos_renyi_matches_jax(n, m, seed, no_loops):
     _assert_same_graph(generators.erdos_renyi(n, m, seed, no_loops),
                        jax_generators.erdos_renyi(n, m, seed, no_loops))
+
+
+@pytest.mark.parametrize("name,args", [
+    ("cycle_graph", (17,)), ("star_graph", (12,)), ("complete_graph", (9,)),
+    ("karate_club", ())])
+def test_toy_generators_match_jax(name, args):
+    g = getattr(generators, name)(*args)
+    _assert_same_graph(g, getattr(jax_generators, name)(*args))
+    assert g.m == {"cycle_graph": 17, "star_graph": 11,
+                   "complete_graph": 72, "karate_club": 156}[name]
 
 
 def test_generate_sources_matches_jax():

@@ -1360,3 +1360,115 @@ def test_philox_probe_counts_and_refuses(dev):
     assert kernels.philox_blocks.launches == before + 1
     with pytest.raises(RuntimeError, match="philox_blocks"):
         kernels.philox_blocks(out, per_thread=6)
+
+
+def _frontier_graph():
+    """The port's from_edges: node 0 with 5,000 out-edges (five K5 tasks),
+    parallel edges, self-loops and dangling nodes."""
+    from fora_tpu_torch.graph import from_edges
+    rng = np.random.default_rng(17)
+    n = 4000
+    src = np.concatenate([np.zeros(5000, np.int64),
+                          rng.integers(0, n - 100, 40_000)])
+    dst = rng.integers(0, n, src.size)
+    src = np.concatenate([src, src[::7], np.arange(50)])
+    dst = np.concatenate([dst, dst[::7], np.arange(50)])
+    return from_edges(src, dst, n)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 32, 130])
+def test_frontier_push_kernels_match_plain(dev, B):
+    """K5's pre-pass against its plain version (p and contrib bit-equal to
+    K1's pre-pass, the masked r equal, status equal, the tasks equal as a
+    set), then K5 against the plain sum in float64 (rtol 1e-5, atol 1e-9:
+    the atomics' order varies), on float4 rows (8, 32) and scalar rows
+    (1, 3, 130)."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops import push
+    g = _frontier_graph()
+    dg = to_device(g, device=dev)
+    rng = np.random.default_rng(B)
+    r0 = rng.random((g.n, B), np.float32) * (rng.random((g.n, B)) < 0.05)
+    r0[0] = 10.0                         # the hub pushes (thr 5.7)
+    r0[g.n - 1] = 0.7                    # and a dangling row absorbs
+    r0 = torch.as_tensor(r0.astype(np.float32), device=dev)
+    thr = push.node_threshold(dg, 1e-3)
+    wsum = push.out_weight(dg)
+    tasks = torch.empty((g.n + g.m // push.TASK_EDGES + 1, 2),
+                        dtype=torch.int32, device=dev)
+    status = torch.zeros(3, dtype=torch.int32, device=dev)
+    p, r, c = torch.zeros_like(r0), r0.clone(), torch.empty_like(r0)
+    before = kernels.frontier_prepass.launches
+    kernels.frontier_prepass(p, r, c, thr, dg.out_deg, wsum, 0.2, tasks,
+                             status, push.TASK_EDGES, g.m)
+    assert kernels.frontier_prepass.launches == before + 1
+    pp, pr, pc = torch.zeros_like(r0), r0.clone(), torch.empty_like(r0)
+    ptasks, pstatus = torch.empty_like(tasks), torch.zeros_like(status)
+    push.frontier_prepass_plain(pp, pr, pc, thr, dg.out_deg, wsum, 0.2,
+                                ptasks, pstatus)
+    kp, kc = torch.zeros_like(r0), torch.empty_like(r0)
+    kernels.push_prepass(kp, r0, kc, thr, dg.out_deg, wsum, 0.2)
+    assert torch.equal(p, pp) and torch.equal(p, kp)
+    assert torch.equal(c, pc) and torch.equal(c, kc)
+    assert torch.equal(r, pr)
+    assert status.tolist() == pstatus.tolist()
+    nt = int(status[2])
+    assert nt > 5 and int(status[1]) > 5000
+    key = lambda t: (t[:nt, 0].long() * 64 + t[:nt, 1]).sort().values  # noqa
+    assert torch.equal(key(tasks), key(ptasks))
+    # K5 against the float64 plain sum, r masked by the pre-pass
+    row_active = torch.zeros(g.n, dtype=torch.bool, device=dev)
+    row_active[tasks[:nt, 0].long()] = True
+    want = push.active_edge_segment_sum_plain(
+        r.double(), c.double(), dg.in_src, dg.in_dst, row_active)
+    got = r.clone()
+    before = kernels.frontier_push.launches
+    kernels.frontier_push(got, c, tasks, nt, dg.out_indptr, dg.out_indices,
+                          push.TASK_EDGES)
+    torch.cuda.synchronize()
+    assert kernels.frontier_push.launches == before + 1
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-9)
+
+
+def test_frontier_compacted_push_on_card(dev):
+    """Whole pushes on the card at caps that always compact, sometimes fall
+    back (the supersteps' active out-edges run 5746, 313, 1384, 2134, 198,
+    48, 0 on the CPU) and fall back on every superstep with edges, against
+    the CPU's plain push: p and r within rtol 1e-5 and one threshold's mass
+    (an entry at its threshold may flip under another order of adds),
+    supersteps within one, and the same branches where the supersteps
+    agree."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops import push
+    g = _frontier_graph()
+    srcs = torch.tensor([0, 5, 3999, 77], dtype=torch.int32)
+    cpu = to_device(g, device="cpu")
+    card = to_device(g, device=dev)
+    for cap in (g.m - 1, 1000, 8):
+        push.superstep_counts.reset()
+        want = push.forward_push_from(cpu, push.init_state(g.n, srcs),
+                                      rmax=1e-4, alpha=0.2,
+                                      compact_edges=cap)
+        plain = (push.superstep_counts.compacted, push.superstep_counts.dense)
+        push.superstep_counts.reset()
+        k5 = kernels.frontier_push.launches
+        got = push.forward_push_from(card, push.init_state(g.n, srcs.to(dev)),
+                                     rmax=1e-4, alpha=0.2,
+                                     compact_edges=cap)
+        comp, dense = (push.superstep_counts.compacted,
+                       push.superstep_counts.dense)
+        assert abs(got.iters - want.iters) <= 1 and comp + dense == got.iters
+        assert (comp > 0, dense > 0) == {g.m - 1: (True, False),
+                                         1000: (True, True),
+                                         8: (True, True)}[cap]
+        assert got.iters != want.iters or (comp, dense) == plain
+        assert kernels.frontier_push.launches - k5 <= comp
+        slack = push.node_threshold(cpu, 1e-4).clamp_min(1e-6)[:, None]
+        torch.testing.assert_close(got.p.cpu(), want.p, rtol=1e-5,
+                                   atol=float(slack.max()))
+        assert ((got.p.cpu() - want.p).abs()
+                <= 1e-5 * want.p.abs() + slack).all()
+        assert ((got.r.cpu() - want.r).abs()
+                <= 1e-5 * want.r.abs() + slack).all()

@@ -1,9 +1,9 @@
 """fora_tpu_torch runs without JAX and without the JAX package: it imports
 and answers CPU queries (indexed, sharded, the sharded raw one-shot,
 raw-walk, Monte Carlo, indexed on a weighted graph with its alias tables,
-``entry()``), builds a sharded index, runs the sharded dry run and the
-gather
-probe's case and its CLI (build, batch-topk, query --algo bippr, hubppr
+``entry()``), builds a sharded index, runs the sharded dry run, the
+gather probe's case, a frontier-compacted push and a relabelled graph and
+index, and its CLI (build, batch-topk, query --algo bippr, hubppr
 and fwdpush) with ``--device cpu``, whether or not ``import jax`` would
 work, loading
 no module of ``jax`` or ``fora_tpu``; no file of it (nor ``chip_smoke.py``)
@@ -87,6 +87,18 @@ SCRIPT = textwrap.dedent("""
         delta_stride=8).query_pool(queries.generate_sources(gw, 3, seed=5),
                                    batch=4)
     assert wres.node_ids.shape == (3, 10) and np.isfinite(wres.values).all()
+    from fora_tpu_torch.graph import relabel
+    from fora_tpu_torch.ops import push
+    perm = relabel.bfs_order(g)
+    ridx = relabel.relabel_index(idx, perm)
+    rdg = fora_tpu_torch.to_device(relabel.relabel_graph(g, perm),
+                                   device="cpu")
+    push.superstep_counts.reset()
+    st = push.forward_push_from(
+        rdg, push.init_state(g.n, torch.as_tensor(perm[[1, 2]])),
+        rmax=rcfg.rmax, alpha=0.2, compact_edges=2048)
+    assert push.superstep_counts.compacted > 0 and st.iters > 0
+    assert ridx.total_edges == idx.total_edges
     from fora_tpu_torch.entry import entry
     step, args = entry("cpu")
     assert step(*args)[1].shape == (8, 10)
@@ -149,6 +161,9 @@ def test_cpu_tensors_never_launch_kernels():
     dg = to_device(g, merge_duplicate_edges=True, hub_rows=16, device="cpu")
     st = push.forward_push(dg, torch.tensor([1, 2, 3]), rmax=rcfg.rmax,
                            alpha=0.2)
+    push.forward_push_from(to_device(g, device="cpu"), push.init_state(
+        g.n, torch.tensor([1, 2])), rmax=rcfg.rmax, alpha=0.2,
+        compact_edges=1024)
     gather.index_spmv(torch.zeros_like(st.r), st.r, dg.in_indptr, dg.in_src,
                       dg.in_w, torch.ones(g.n))
     bounds.topk_with_bounds_split(st.p, st.r, rcfg.omega_unit, 5, 10.0, 0.5)
@@ -183,4 +198,4 @@ def test_cpu_tensors_never_launch_kernels():
         walk.walk_endpoints(shard_out_csr(graph, ["cpu"] * 3),
                             torch.zeros(100, dtype=torch.int32), 1, 0.2, 64)
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 17
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 19
