@@ -154,14 +154,26 @@ memory:
                  supersteps equal or one apart); on the B = 32 compacted
                  superstep with the most active out-edges, K5's pre-pass
                  bit-equal to its plain version and to K1's pre-pass (p,
-                 contrib, the masked r, status, the tasks as a set) and K5
-                 against the float64 plain sum (rtol 1e-4, P3's: f32
-                 atomics in no fixed order into rows of tens of thousands
-                 of in-edges; atol 1e-9),
-                 each timed as called and in device time beside its bound,
+                 contrib, the masked r, status, the tasks with their
+                 masks of non-zero chunks as a set) and K5 against the
+                 float64 plain sum (rtol 1e-4, P3's: f32 atomics in no
+                 fixed order into rows of tens of thousands of in-edges;
+                 atol 1e-9),
+                 each timed as called and in device time beside its bound
+                 (K5's by the 32-byte sectors its function needs: the
+                 non-zero ones of the pushing rows' contrib, those of r
+                 that receive a non-zero add, read and written, and the
+                 edge ids, row pointers and tasks), beside the earlier
+                 form of both (probes/frontier_push_earlier.cu) and K5's
+                 other grids (probes/frontier_push_forms.cu: a warp going
+                 on to further tasks, 2 or 4 tasks side by side) on the
+                 same state (probes/frontier_probe.py, device time, each
+                 checked),
                  K1 dense on the same state and torch.sparse.mm of the
                  in-CSR; K5 likewise at B = 1 and 8; the whole push
-                 compacted against dense per B (medians of 3, alternated).
+                 compacted against dense per B (medians of 3, alternated)
+                 and one compacted push per B under torch.profiler
+                 (device busy and idle share beside its wall).
                  Node order: phase 1's graph in the identity, degree and
                  BFS orders (relabel_graph, merged, hub split), one
                  superstep's K1 gather at B = 128 per order beside its
@@ -287,7 +299,8 @@ the raw one-shot's allocation with the raw one-shot's launches (phases 9
 and 13), carry unsharded_ms, K4's unsharded branch on the same starts;
 frontier_prepass and frontier_push, K5's two launches, phase 16's
 superstep at B = 32 with the launches of its compacted pushes, carry
-device_ms), then,
+device_ms and earlier_device_ms, the earlier form's device time on the
+same state), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -2649,63 +2662,66 @@ FRONTIER_SMALL_CAP = 1 << 16        # a cap at which some supersteps fall back
 RELABEL_ORDERS = ("identity", "degree", "bfs")
 
 
-def frontier_snapshot(graph, src, rmax, alpha, cap):
-    """Steps a compacted push from ``src`` superstep by superstep through
-    the ops' own pieces and returns the state before the pre-pass of the
-    superstep with the most active out-edges within ``cap``: (p, r,
-    active out-edges, superstep), and the active out-edges of every
-    superstep."""
+def k5_bound(graph, c, tasks, nt) -> dict:
+    """K5's bound on this state, the same whatever implements it: the
+    32-byte sectors of the pushing rows' ``contrib`` that hold a non-zero,
+    the sectors of ``r`` that receive a non-zero add (read and written),
+    the out-edge ids, two row pointers a pushing row and 8 bytes (row,
+    range) a task; an f32 add per out-edge and non-zero entry of its
+    row.  Also returns the counts."""
     import torch
-    from fora_tpu_torch.ops import gather, push
-    st = push.init_state(graph.n, src)
-    p, r = st.p, st.r
-    thr = push.node_threshold(graph, rmax)
-    contrib = torch.empty_like(r)
-    wsum = push.out_weight(graph)
-    tasks = torch.empty((graph.n + graph.m // push.TASK_EDGES + 1, 2),
-                        dtype=torch.int32, device=r.device)
-    status = torch.zeros(3, dtype=torch.int32, device=r.device)
-    best, counts = None, []
-    while True:
-        p0, r0 = p.clone(), r.clone()
-        push.frontier_prepass(p, r, contrib, thr, graph.out_deg, wsum, alpha,
-                              tasks, status, graph.m)
-        more, edges, n_tasks = status.tolist()
-        if not more:
-            return best, counts
-        counts.append(edges)
-        if edges <= cap and (best is None or edges > best[2]):
-            best = (p0, r0, edges, len(counts))
-        if edges <= cap:
-            push.frontier_push(graph, r, contrib, tasks, n_tasks)
-        else:
-            gather.gather_scatter_add(r, contrib, graph.in_indptr,
-                                      graph.in_src, sched=graph.in_sched)
+    B = c.shape[1]
+    dev = c.device
+    rows = torch.unique(tasks[:nt, 0].long())
+    nz = c[rows] != 0
+    ri, ci = nz.nonzero(as_tuple=True)
+    c_sectors = int(torch.unique((rows[ri] * B + ci) // 8).numel())
+    d = graph.out_deg[rows].long()
+    E = int(d.sum())
+    src = torch.repeat_interleave(torch.arange(rows.numel(), device=dev), d)
+    first = graph.out_indptr[rows].long() - (torch.cumsum(d, 0) - d)
+    u = graph.out_indices[torch.repeat_interleave(first, d)
+                          + torch.arange(E, device=dev)].long()
+    k = nz.sum(1)                   # non-zero entries of each pushing row
+    kk = k[src]                     # of each out-edge's row
+    P = int(kk.sum())
+    pe = torch.repeat_interleave(torch.arange(E, device=dev), kk)
+    at = (torch.cumsum(k, 0) - k)[src[pe]] + torch.arange(P, device=dev) \
+        - torch.repeat_interleave(torch.cumsum(kk, 0) - kk, kk)
+    r_sectors = int(torch.unique((u[pe] * B + ci[at]) // 8).numel())
+    moved = (SECTOR * c_sectors + 2 * SECTOR * r_sectors + 4 * E
+             + 8 * rows.numel() + 8 * nt)
+    return dict(**bound(moved, P), c_sectors=c_sectors, r_sectors=r_sectors,
+                adds=P)
 
 
-def k5_rows(graph, p0, r0, rmax, alpha, dev):
+def k5_rows(graph, p0, r0, rmax, alpha, dev, forms):
     """K5's pre-pass and K5 on one real superstep's state: each against its
     plain version, timed as called and in device time beside its bound,
-    K1's dense gather on the same state and torch.sparse.mm of the
-    in-CSR.  Returns (pre-pass row, K5 row, printed facts)."""
+    beside the earlier form and K5's other grids (``forms``, from
+    probes/frontier_probe.py), K1's dense gather on the same state and
+    torch.sparse.mm of the in-CSR.  Returns (pre-pass row, K5 row, printed
+    facts)."""
     import torch
     from fora_tpu_torch import kernels
     from fora_tpu_torch.ops import push
+    from fora_tpu_torch.probes.frontier_probe import forms_on_state
     from fora_tpu_torch.utils.timing import cuda_ms, device_ms
     n, B = r0.shape
     thr = push.node_threshold(graph, rmax)
     wsum = push.out_weight(graph)
     T = push.TASK_EDGES
-    tasks = torch.empty((n + graph.m // T + 1, 2), dtype=torch.int32,
-                        device=dev)
+    tasks = torch.empty((push.task_rows(n, graph.m), push.TASK_FIELDS),
+                        dtype=torch.int32, device=dev)
     status = torch.zeros(3, dtype=torch.int32, device=dev)
     p, r, c = p0.clone(), r0.clone(), torch.empty_like(r0)
-    kernels.frontier_prepass(p, r, c, thr, graph.out_deg, wsum, alpha, tasks,
-                             status, T, graph.m)
+    kernels.frontier_prepass(p, r, c, thr, graph.out_deg, graph.out_indptr,
+                             wsum, alpha, tasks, status, T, graph.m)
     pp, pr, pc = p0.clone(), r0.clone(), torch.empty_like(r0)
     ptasks, pstatus = torch.empty_like(tasks), torch.zeros_like(status)
-    push.frontier_prepass_plain(pp, pr, pc, thr, graph.out_deg, wsum, alpha,
-                                ptasks, pstatus)
+    push.frontier_prepass_plain(pp, pr, pc, thr, graph.out_deg,
+                                graph.out_indptr, wsum, alpha, ptasks,
+                                pstatus)
     kp, kc = p0.clone(), torch.empty_like(r0)
     kernels.push_prepass(kp, r0, kc, thr, graph.out_deg, wsum, alpha)
     if not (torch.equal(p, pp) and torch.equal(c, pc) and torch.equal(p, kp)
@@ -2716,18 +2732,17 @@ def k5_rows(graph, p0, r0, rmax, alpha, dev):
         fail(f"K5 pre-pass: status {status.tolist()} != plain "
              f"{pstatus.tolist()}")
     more, edges, nt = status.tolist()
-
-    def key(t):
-        return (t[:nt, 0].long() * (graph.m // T + 2) + t[:nt, 1]).sort()[0]
-    if not torch.equal(key(tasks), key(ptasks)):
-        fail("K5 pre-pass: its tasks differ from the plain version's")
+    # (row, first edge, mask, edges), sorted: the plain version's set
+    if not torch.equal(torch.unique(tasks[:nt], dim=0),
+                       torch.unique(ptasks[:nt], dim=0)):
+        fail("K5 pre-pass: its tasks or their masks differ from the plain "
+             "version's")
     active = int((r0 > thr[:, None]).sum())
     row_active = torch.zeros(n, dtype=torch.bool, device=dev)
     row_active[tasks[:nt, 0].long()] = True
     # K5 against the float64 plain sum and the float32 one
     got = r.clone()
-    kernels.frontier_push(got, c, tasks, nt, graph.out_indptr,
-                          graph.out_indices, T)
+    kernels.frontier_push(got, c, tasks, nt, graph.out_indices)
     want = push.active_edge_segment_sum_plain(
         r.double(), c.double(), graph.in_src, graph.in_dst, row_active).float()
     # rtol 1e-4 (P3's, the other f32 atomic scatter): a hub row takes tens
@@ -2750,30 +2765,35 @@ def k5_rows(graph, p0, r0, rmax, alpha, dev):
         return lambda: fn(*next(copies))
 
     def prepass_k(cp, cr):
-        kernels.frontier_prepass(cp, cr, c_t, thr, graph.out_deg, wsum,
-                                 alpha, tasks_t, status_t, T, graph.m)
+        kernels.frontier_prepass(cp, cr, c_t, thr, graph.out_deg,
+                                 graph.out_indptr, wsum, alpha, tasks_t,
+                                 status_t, T, graph.m)
 
     def prepass_p(cp, cr):
-        push.frontier_prepass_plain(cp, cr, c_t, thr, graph.out_deg, wsum,
-                                    alpha, tasks_t, status_t)
+        push.frontier_prepass_plain(cp, cr, c_t, thr, graph.out_deg,
+                                    graph.out_indptr, wsum, alpha, tasks_t,
+                                    status_t)
     pre_ms = cuda_ms(on_copies(12, prepass_k))
     pre_dev = device_ms(on_copies(22, prepass_k))
     pre_plain = cuda_ms(on_copies(5, prepass_p), iters=3)
     k1pre_ms = cuda_ms(lambda: kernels.push_prepass(
         kp, r0, kc, thr, graph.out_deg, wsum, alpha))
+    k1pre_dev = device_ms(lambda: kernels.push_prepass(
+        kp, r0, kc, thr, graph.out_deg, wsum, alpha))
     del c_t, tasks_t, status_t
+    # the earlier form and K5 with a warp a task on the same state
+    other = forms_on_state(graph, p0, r0, thr, wsum, alpha, forms, rounds=3)
     # tasks read once below; r, thr, deg, wsum read and contrib written
     # once; p read and written and r written where an entry is active
     pre_row = dict(
         max_abs_err=0.0, ms=pre_ms, device_ms=pre_dev, plain_ms=pre_plain,
-        library_ms=None,
+        library_ms=None, earlier_device_ms=other["prepass"]["earlier"],
         **bound(nbytes(r0, c, thr, graph.out_deg, wsum) + 12 * active
                 + 8 * nt, 5 * r0.numel()))
     scratch = r.clone()
 
     def k5():
-        kernels.frontier_push(scratch, c, tasks, nt, graph.out_indptr,
-                              graph.out_indices, T)
+        kernels.frontier_push(scratch, c, tasks, nt, graph.out_indices)
 
     def k1():
         kernels.gather_scatter_add(scratch, c, graph.in_indptr, graph.in_src,
@@ -2785,20 +2805,19 @@ def k5_rows(graph, p0, r0, rmax, alpha, dev):
     sel = row_active[graph.in_src.long()]
     touched = int(torch.unique(graph.in_dst[sel]).numel())
     rows_act = int(row_active.sum())
+    kb = k5_bound(graph, c, tasks, nt)
     k5_row = dict(
         max_abs_err=err, ms=cuda_ms(k5), device_ms=device_ms(k5),
         plain_ms=cuda_ms(lambda: push.active_edge_segment_sum_plain(
             scratch, c, graph.in_src, graph.in_dst, row_active), iters=3),
         library_ms=cuda_ms(lambda: sparse_mm(csr, c)),
-        # the active rows' out-edge ids, row pointers, tasks and contrib
-        # rows read once; each touched r row read and written once; an add
-        # per edge and column
-        **bound(4 * edges + 8 * rows_act + 8 * nt + 4 * B * rows_act
-                + 8 * B * touched, edges * B))
+        earlier_device_ms=other["push"]["earlier"],
+        bound_ms=kb["bound_ms"], bound_by=kb["bound_by"])
     facts = dict(edges=edges, tasks=nt, rows=rows_act, touched=touched,
                  active=active, err32=err32, lib_err=lib_err, rel=rel,
                  k1_ms=cuda_ms(k1), k1_device_ms=device_ms(k1),
-                 k1pre_ms=k1pre_ms)
+                 k1pre_ms=k1pre_ms, k1pre_dev=k1pre_dev, other=other,
+                 bound=kb)
     return pre_row, k5_row, facts
 
 
@@ -2816,16 +2835,35 @@ def timed_push(graph, src, rmax, alpha, cap):
     return time.perf_counter() - t0, out
 
 
+def forms_line(B, f) -> None:
+    """Print K5 and its pre-pass against the earlier form on one state."""
+    o, kb, lu = f["other"], f["bound"], f["other"]["lanes"]
+    print(f"K5 B={B} forms on the same state, device ms (medians of 3, "
+          f"alternated): pre-pass {o['prepass']['this']:.4f}, earlier "
+          f"{o['prepass']['earlier']:.4f} (K1's pre-pass "
+          f"{f['k1pre_dev']:.4f}); K5 {o['push']['this']:.4f}, earlier "
+          f"{o['push']['earlier']:.4f}, other grids: a warp going on to "
+          f"further tasks {o['push']['persistent']:.4f}, 2 tasks side by "
+          f"side {o['push']['packed2']:.4f}, 4 {o['push']['packed4']:.4f}; "
+          f"K5's bound {kb['bound_ms']:.4f}"
+          f" ({kb['bound_by']}: {kb['c_sectors']} contrib and "
+          f"{kb['r_sectors']} r sectors, {kb['adds']} adds); mask bits "
+          f"{lu['bits']:.2f} a task (span {lu['span']}), lanes used "
+          f"{lu['lanes']:.3f}, tasks of <= 32 edges {lu['short']:.3f}")
+
+
 def run_frontier(g, rcfg, rmax, sources, dev):
     """Phase 16, K5: the compacted push on phase 9's layout (unmerged, no
     hub split) at B = 1, 8 and 32, at the default cap and a small one,
     against the dense push; K5 and its pre-pass on one real superstep's
-    state.  Returns (pre-pass row, K5 row, launches of the compacted
-    pushes)."""
+    state, beside their earlier form; one compacted push per B under
+    torch.profiler.  Returns (pre-pass row, K5 row, launches of the
+    compacted pushes)."""
     import torch
     from fora_tpu_torch import kernels
     from fora_tpu_torch.graph import to_device
     from fora_tpu_torch.ops import push
+    from fora_tpu_torch.probes.frontier_probe import load_forms, snapshot
     graph = to_device(g, device=dev)
     cap = push.default_edge_cap(graph.m_in)
     print(f"K5: phase 1's graph unmerged without the hub split, m_in "
@@ -2865,14 +2903,18 @@ def run_frontier(g, rcfg, rmax, sources, dev):
             and any(v[2] for (_, c), v in seen.items()
                     if c == FRONTIER_SMALL_CAP)):
         fail(f"K5: not both branches seen at the small cap: {seen}")
+    t0 = time.perf_counter()
+    forms = load_forms()
+    print(f"K5's earlier form and other grids built in "
+          f"{time.perf_counter() - t0:.1f} s")
     # K5 and its pre-pass on one real superstep's state (B = 32, the
     # compacted superstep with the most active out-edges)
     snap_cap = cap or FRONTIER_SMALL_CAP   # a graph under 2^16 edges: 0
-    best, counts = frontier_snapshot(graph, srcs[32], rmax, rcfg.alpha,
-                                     snap_cap)
+    best, counts = snapshot(graph, srcs[32], rmax, rcfg.alpha, snap_cap)
     print(f"K5 B=32: active out-edges per superstep {counts}")
     p0, r0, edges, step = best
-    pre_row, k5_row, f = k5_rows(graph, p0, r0, rmax, rcfg.alpha, dev)
+    pre_row, k5_row, f = k5_rows(graph, p0, r0, rmax, rcfg.alpha, dev,
+                                 forms)
     print(f"K5 on superstep {step} at B = 32: {f['edges']} active out-edges "
           f"in {f['tasks']} tasks from {f['rows']} rows ({f['active']} "
           f"active entries), {f['touched']} rows touched; max abs err "
@@ -2887,16 +2929,18 @@ def run_frontier(g, rcfg, rmax, sources, dev):
     print(f"K5 pre-pass at B = 32: {pre_row['ms']:.4f} ms as called, "
           f"{pre_row['device_ms']:.4f} device, bound {pre_row['bound_ms']:.4f}"
           f"; K1's pre-pass on the same state {f['k1pre_ms']:.4f} ms; "
-          f"bit-equal to it and to the plain version")
+          f"bit-equal to it and to the plain version, tasks and masks "
+          f"equal to the plain version's as a set")
+    forms_line(32, f)
     del p0, r0, best
     # per B: K5 on its own largest compacted superstep, and the whole push
-    # compacted against dense, alternated (dense, compact, compact, dense)
+    # compacted against dense, alternated (dense, compact, compact, dense),
+    # then one compacted push under torch.profiler
     for B, s in srcs.items():
         if B != 32:
-            best, counts = frontier_snapshot(graph, s, rmax, rcfg.alpha,
-                                             snap_cap)
+            best, counts = snapshot(graph, s, rmax, rcfg.alpha, snap_cap)
             _, row, fb = k5_rows(graph, best[0], best[1], rmax, rcfg.alpha,
-                                 dev)
+                                 dev, forms)
             print(f"K5 B={B}: active out-edges per superstep {counts}; on "
                   f"superstep {best[3]} ({fb['edges']} edges; largest "
                   f"relative error {fb['rel']:.3e}) K5 "
@@ -2904,6 +2948,7 @@ def run_frontier(g, rcfg, rmax, sources, dev):
                   f"device, bound {row['bound_ms']:.4f}; K1 dense "
                   f"{fb['k1_ms']:.4f} / {fb['k1_device_ms']:.4f}; "
                   f"torch.sparse.mm {row['library_ms']:.4f}")
+            forms_line(B, fb)
             del best
         walls = {"dense": [], "compact": []}
         for c in (0, -1, -1, 0, 0, -1):
@@ -2913,6 +2958,8 @@ def run_frontier(g, rcfg, rmax, sources, dev):
                 for x in ("dense", "compact"))
         print(f"whole push B={B}: dense {d:.3f} ms, compacted (cap {cap}) "
               f"{k:.3f} ms (medians of 3, alternated): {d / k:.2f}x")
+        profile_once(f"frontier_push_b{B}",
+                     lambda: timed_push(graph, s, rmax, rcfg.alpha, -1))
     return pre_row, k5_row, launches
 
 
@@ -3826,7 +3873,8 @@ def main(argv=None) -> int:
                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
                     **{k: row[k] for k in ("device_ms", "library_device_ms",
-                                           "unsharded_ms") if k in row}})
+                                           "unsharded_ms", "earlier_device_ms")
+                       if k in row}})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

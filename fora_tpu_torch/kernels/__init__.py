@@ -26,8 +26,8 @@ PyTorch versions instead.
 | row_scatter_add         | csrc/row_scatter.cu    | P3 (per-edge row accumulate, atomics; the receive of the compacted exchanges) |
 | exchange_clear          | csrc/row_scatter.cu    | the compacted exchange's clear before a receive: every buffer's own block and the rows the previous receive wrote, one launch |
 | frontier_compact        | csrc/exchange.cu       | the frontier compaction (the send side of the compact, routed and hier exchanges) |
-| frontier_prepass        | csrc/frontier_push.cu  | K5's pre-pass (K1's pre-pass, the residue's mask and the active rows' tasks, for the frontier-compacted push) |
-| frontier_push           | csrc/frontier_push.cu  | K5 (the frontier-compacted push: the active rows' out-edges, f32 atomics) |
+| frontier_prepass        | csrc/frontier_push.cu  | K5's pre-pass (K1's pre-pass, the residue's mask and the active rows' tasks with their non-zero chunks, for the frontier-compacted push) |
+| frontier_push           | csrc/frontier_push.cu  | K5 (the frontier-compacted push: the active rows' non-zero chunks along their out-edges, f32 atomics) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 | row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
 | philox_blocks           | csrc/philox_probe.cu   | none: measures the card's rate of Philox-4x32-10 blocks (K4's operations) |
@@ -653,17 +653,19 @@ def frontier_compact(contrib: torch.Tensor, needed: Optional[torch.Tensor],
 
 
 def frontier_prepass(p: torch.Tensor, r: torch.Tensor, contrib: torch.Tensor,
-                     thr: torch.Tensor, deg: torch.Tensor, wsum: torch.Tensor,
-                     alpha: float, tasks: torch.Tensor, status: torch.Tensor,
-                     task_edges: int, n_edges: int) -> None:
+                     thr: torch.Tensor, deg: torch.Tensor, indptr: torch.Tensor,
+                     wsum: torch.Tensor, alpha: float, tasks: torch.Tensor,
+                     status: torch.Tensor, task_edges: int, n_edges: int) -> None:
     """K5's pre-pass, in place: ``p`` and ``contrib`` as
     :func:`push_prepass` computes them (bit for bit), the active entries
     of ``r`` set to 0, and for every row with a non-zero ``contrib`` its
-    tasks (row, j) for the j-th ``task_edges`` of its out-edges (``deg``
-    of them; ``n_edges`` in all) appended to ``tasks`` ([>= n + n_edges //
-    task_edges + 1, 2] int32, in an order that varies from run to run);
-    ``status`` (int32 [3]) ends as [1 if any entry was active, those rows'
-    out-edges, tasks appended]."""
+    tasks (row, first edge, mask, edges) for each ``task_edges`` of its
+    out-edges (``deg`` of them from ``indptr[row]`` of the out-CSR;
+    ``n_edges`` in all; ``edges`` in this range; ``mask`` the row's
+    non-zero chunks, ``ops.push.chunk_masks``) appended to ``tasks`` ([>=
+    n + n_edges // task_edges + 1, 4] int32, 16-byte aligned, in an order
+    that varies from run to run); ``status`` (int32 [3]) ends as [1 if
+    any entry was active, those rows' out-edges, tasks appended]."""
     n, B = r.shape
     dev = r.device
     _check("r", r, torch.float32, (n, B))
@@ -671,47 +673,49 @@ def frontier_prepass(p: torch.Tensor, r: torch.Tensor, contrib: torch.Tensor,
     _check("contrib", contrib, torch.float32, (n, B), dev)
     _check("thr", thr, torch.float32, (n,), dev)
     _check("deg", deg, torch.int32, (n,), dev)
+    _check("indptr", indptr, torch.int32, (n + 1,), dev)
     _check("wsum", wsum, torch.float32, (n,), dev)
     _check("status", status, torch.int32, (3,), dev)
     _check("tasks", tasks, torch.int32, device=dev)
     if task_edges < 1:
         raise ValueError(f"frontier_prepass: task_edges {task_edges} < 1")
     need = n + n_edges // task_edges + 1
-    if tasks.dim() != 2 or tasks.shape[1] != 2 or tasks.shape[0] < need:
+    if tasks.dim() != 2 or tasks.shape[1] != 4 or tasks.shape[0] < need \
+            or tasks.data_ptr() % 16:
         raise ValueError(f"frontier_prepass: tasks of shape "
-                         f"{tuple(tasks.shape)}, need [>= {need}, 2]")
+                         f"{tuple(tasks.shape)}, need [>= {need}, 4] on a "
+                         "16-byte boundary")
     with torch.cuda.device(dev):
         err = build.library().fora_frontier_prepass(
             _ptr(p), _ptr(r), _ptr(contrib), _ptr(thr), _ptr(deg),
-            _ptr(wsum), alpha, 1.0 - alpha, n, B, task_edges, _ptr(tasks),
-            _ptr(status), _stream(r))
+            _ptr(indptr), _ptr(wsum), alpha, 1.0 - alpha, n, B, task_edges,
+            _ptr(tasks), _ptr(status), _stream(r))
     frontier_prepass.launches += 1
     _raise_on(err, "frontier_prepass")
 
 
 def frontier_push(r: torch.Tensor, contrib: torch.Tensor, tasks: torch.Tensor,
-                  n_tasks: int, out_indptr: torch.Tensor,
-                  out_indices: torch.Tensor, task_edges: int) -> None:
-    """K5: for each of the first ``n_tasks`` tasks (v, j) of ``tasks``
-    (from :func:`frontier_prepass`) and each out-edge v -> u in the j-th
-    ``task_edges`` of v's (``out_indptr``/``out_indices``, the out-CSR),
-    ``r[u] += contrib[v]`` (rows of width B, f32 atomics, so the order of
-    the adds varies from run to run).  Updates ``r`` in place."""
+                  n_tasks: int, out_indices: torch.Tensor) -> None:
+    """K5: for each of the first ``n_tasks`` tasks (v, first, mask, edges)
+    of ``tasks`` (from :func:`frontier_prepass`) and each out-edge v -> u
+    at ``out_indices[first:first + edges]`` (the out-CSR's column ids),
+    ``r[u] += contrib[v]`` over the chunks ``mask`` names, the rest of the
+    row being zero (rows of width B, f32 atomics, so the order of the adds
+    varies from run to run).  Updates ``r`` in place."""
     n, B = r.shape
     dev = r.device
     _check("r", r, torch.float32, (n, B))
     _check("contrib", contrib, torch.float32, (n, B), dev)
-    _check("out_indptr", out_indptr, torch.int32, (n + 1,), dev)
     _check("out_indices", out_indices, torch.int32, device=dev)
     _check("tasks", tasks, torch.int32, device=dev)
-    if task_edges < 1 or tasks.dim() != 2 or tasks.shape[1] != 2 \
+    if tasks.dim() != 2 or tasks.shape[1] != 4 or tasks.data_ptr() % 16 \
             or not 0 <= n_tasks <= tasks.shape[0]:
         raise ValueError(f"frontier_push: {n_tasks} tasks of "
-                         f"{tuple(tasks.shape)}, task_edges {task_edges}")
+                         f"{tuple(tasks.shape)}")
     with torch.cuda.device(dev):
         err = build.library().fora_frontier_push(
-            _ptr(r), _ptr(contrib), _ptr(tasks), n_tasks, _ptr(out_indptr),
-            _ptr(out_indices), task_edges, B, _stream(r))
+            _ptr(r), _ptr(contrib), _ptr(tasks), n_tasks, _ptr(out_indices),
+            B, _stream(r))
     frontier_push.launches += 1
     _raise_on(err, "frontier_push")
 

@@ -59,9 +59,9 @@ SIGNATURES = {
     "fora_exchange_clear": [_P, _P, _P, _I, _LL, _I, _LL, _LL, _P],
     "fora_frontier_compact": [_P, _LL, _I, _P, _I, _I, _LL, _I, _P, _LL, _P,
                               _LL, _P, _I, _P],
-    "fora_frontier_prepass": [_P, _P, _P, _P, _P, _P, _F, _F, _LL, _I, _I,
-                              _P, _P, _P],
-    "fora_frontier_push": [_P, _P, _P, _LL, _P, _P, _I, _I, _P],
+    "fora_frontier_prepass": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _LL, _I,
+                              _I, _P, _P, _P],
+    "fora_frontier_push": [_P, _P, _P, _LL, _P, _I, _P],
     "fora_enable_peer_access": [_I, _I],
     "fora_sector_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],
     "fora_row_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],
@@ -153,6 +153,30 @@ def build() -> Path:
     os.replace(tmp, so)
     last_build_secs = time.perf_counter() - t0
     return so
+
+
+def load_alone(src: Path, signatures: dict) -> ctypes.CDLL:
+    """``src`` compiled alone with this package's flags into a library of
+    its own under the build root, cached by a hash of the flags, ``src``
+    and this package's sources (which ``src`` may include), and loaded
+    with ctypes; each entry point named in ``signatures`` gets those
+    argtypes and an int result.  For probes that time another form of a
+    kernel beside this package's."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
+    for f in sources() + headers():
+        h.update(f.read_bytes())
+    so = build_root() / f"probe-{h.hexdigest()[:16]}" / "libother.so"
+    if not so.exists():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f".libother.{os.getpid()}.tmp")
+        subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                       check=True)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in signatures.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
 
 
 def library() -> ctypes.CDLL:

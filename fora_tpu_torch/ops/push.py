@@ -21,12 +21,14 @@ The frontier-compacted push (``forward_push_from(compact_edges=)``, JAX's
 ``active_edge_segment_sum`` branch) drives a superstep from the rows that
 push instead: K5's pre-pass (``kernels/csrc/frontier_push.cu``) computes
 the same ``p`` and ``contrib``, masks ``r`` and lists the active rows'
-out-edge ranges, and K5 adds each active row's ``contrib`` into ``r`` along
-its out-edges; a superstep whose active out-edges exceed the cap takes
-K1's gather over every in-edge instead.  The next superstep's pre-pass
-runs right after a superstep and reports [any active entry, active
-out-edges, tasks] in one read.  Only a graph without ``in_w`` (not merged,
-not weighted) and without the hub split compacts, as in JAX.
+out-edge ranges as tasks (row, first edge, mask of the row's non-zero
+chunks, edges), and K5 adds each active row's non-zero chunks of
+``contrib`` into ``r`` along its out-edges; a superstep whose active
+out-edges exceed the cap takes K1's gather over every in-edge instead.
+The next superstep's pre-pass runs right after a superstep and reports
+[any active entry, active out-edges, tasks] in one read.  Only a graph
+without ``in_w`` (not merged, not weighted) and without the hub split
+compacts, as in JAX.
 
 The port updates ``p`` and ``r`` IN PLACE where JAX donated them: a
 caller's state tensors hold the advanced state after the call.
@@ -44,6 +46,7 @@ from ..graph.csr import DeviceGraph
 from .gather import gather_scatter_add
 
 TASK_EDGES = 1024   # out-edges of one K5 task: a hub row spreads over warps
+TASK_FIELDS = 4     # a K5 task: (row, first edge, mask, edges), int32
 
 
 class PushState(NamedTuple):
@@ -134,12 +137,43 @@ def superstep(graph: DeviceGraph, state: PushState, *, alpha: float,
     return PushState(p=p, r=r, iters=state.iters + 1)
 
 
-def frontier_prepass_plain(p, r, contrib, thr, deg, wsum, alpha: float,
-                           tasks, status,
+def task_rows(n: int, m: int, task_edges: int = TASK_EDGES) -> int:
+    """Room a task list needs: every row one task, and one more for each
+    ``task_edges`` of the ``m`` out-edges."""
+    return n + m // task_edges + 1
+
+
+def mask_span(B: int) -> int:
+    """Columns one bit of a task's mask covers (``frontier_push.cu``'s
+    ``mask_span``): a float4 chunk where B is a multiple of 4, else one
+    column, times as many as 32 bits need to cover a row of B."""
+    unit = 4 if B % 4 == 0 else 1
+    return -(-(B // unit) // 32) * unit
+
+
+def chunk_masks(contrib: torch.Tensor) -> torch.Tensor:
+    """[n] int32: bit i of row v set where ``contrib[v, i * span:(i + 1) *
+    span]`` (``span = mask_span(B)``) holds a non-zero."""
+    n, B = contrib.shape
+    span = mask_span(B)
+    bits = -(-B // span)
+    nz = torch.zeros((n, bits * span), dtype=torch.bool, device=contrib.device)
+    nz[:, :B] = contrib.ne(0)
+    weight = torch.ones(bits, dtype=torch.int64, device=contrib.device) \
+        << torch.arange(bits, device=contrib.device)
+    m = (nz.view(n, bits, span).any(2).long() * weight).sum(1)
+    return (m - (m >= 2**31).long() * 2**32).to(torch.int32)
+
+
+def frontier_prepass_plain(p, r, contrib, thr, deg, indptr, wsum,
+                           alpha: float, tasks, status,
                            task_edges: int = TASK_EDGES) -> None:
     """Plain version of K5's pre-pass: K1's pre-pass, ``r``'s active entries
-    set to 0, the tasks of the rows with a non-zero ``contrib`` in row
-    order, and ``status`` = [any entry active, their out-edges, tasks]."""
+    set to 0, the tasks (row, first, mask, edges) of the rows with a
+    non-zero ``contrib`` in row order (``edges`` out-edges of the row from
+    ``first``, one task for each ``task_edges`` of the ``deg[row]`` from
+    ``indptr[row]``; ``mask`` the row's :func:`chunk_masks`), and
+    ``status`` = [any entry active, their out-edges, tasks]."""
     active = r > thr[:, None]
     push_prepass_plain(p, r, contrib, thr, deg, wsum, alpha)
     r.masked_fill_(active, 0.0)
@@ -148,24 +182,30 @@ def frontier_prepass_plain(p, r, contrib, thr, deg, wsum, alpha: float,
     k = (d + task_edges - 1) // task_edges
     nt = int(k.sum())
     first = torch.cumsum(k, 0) - k
+    j = (torch.arange(nt, device=r.device) - first.repeat_interleave(k))
     tasks[:nt, 0] = rows.repeat_interleave(k).to(tasks.dtype)
-    tasks[:nt, 1] = (torch.arange(nt, device=r.device)
-                     - first.repeat_interleave(k)).to(tasks.dtype)
+    tasks[:nt, 1] = (indptr[rows].long().repeat_interleave(k)
+                     + j * task_edges).to(tasks.dtype)
+    tasks[:nt, 2] = chunk_masks(contrib[rows]).repeat_interleave(k)
+    tasks[:nt, 3] = (d.repeat_interleave(k) - j * task_edges).clamp_max(
+        task_edges).to(tasks.dtype)
     status.copy_(torch.stack([active.any().long(), d.sum(),
                               torch.tensor(nt, device=r.device)]))
 
 
-def frontier_prepass(p, r, contrib, thr, deg, wsum, alpha: float, tasks,
-                     status, n_edges: int,
+def frontier_prepass(p, r, contrib, thr, deg, indptr, wsum, alpha: float,
+                     tasks, status, n_edges: int,
                      task_edges: int = TASK_EDGES) -> None:
-    """K5's pre-pass in place (see :func:`frontier_prepass_plain`); the
-    kernel lists the tasks in an order that varies from run to run."""
+    """K5's pre-pass in place (see :func:`frontier_prepass_plain`; ``deg``
+    and ``indptr`` the out-CSR's) into ``tasks`` ([>= task_rows(n,
+    n_edges), TASK_FIELDS] int32); the kernel lists the tasks in an order
+    that varies from run to run."""
     if r.device.type == "cpu":
-        frontier_prepass_plain(p, r, contrib, thr, deg, wsum, alpha, tasks,
-                               status, task_edges)
+        frontier_prepass_plain(p, r, contrib, thr, deg, indptr, wsum, alpha,
+                               tasks, status, task_edges)
     else:
-        kernels.frontier_prepass(p, r, contrib, thr, deg, wsum, alpha, tasks,
-                                 status, task_edges, n_edges)
+        kernels.frontier_prepass(p, r, contrib, thr, deg, indptr, wsum,
+                                 alpha, tasks, status, task_edges, n_edges)
 
 
 def active_edge_segment_sum_plain(r, contrib, in_src, in_dst,
@@ -181,10 +221,11 @@ def active_edge_segment_sum_plain(r, contrib, in_src, in_dst,
 
 
 def frontier_push(graph: DeviceGraph, r, contrib, tasks,
-                  n_tasks: int, task_edges: int = TASK_EDGES) -> None:
+                  n_tasks: int) -> None:
     """K5 in place: ``r`` += the active rows' ``contrib`` along their
-    out-edges, for the first ``n_tasks`` tasks of the pre-pass.  On the CPU
-    the plain version over the tasks' rows."""
+    out-edges, for the first ``n_tasks`` tasks of the pre-pass (the kernel
+    adds the chunks the tasks' masks name, the others being zero).  On the
+    CPU the plain version over the tasks' rows."""
     if n_tasks == 0:
         return
     if r.device.type == "cpu":
@@ -193,8 +234,7 @@ def frontier_push(graph: DeviceGraph, r, contrib, tasks,
         active_edge_segment_sum_plain(r, contrib, graph.in_src, graph.in_dst,
                                       row_active)
     else:
-        kernels.frontier_push(r, contrib, tasks, n_tasks, graph.out_indptr,
-                              graph.out_indices, task_edges)
+        kernels.frontier_push(r, contrib, tasks, n_tasks, graph.out_indices)
 
 
 def default_edge_cap(m: int, frac: float = 0.25,
@@ -224,13 +264,13 @@ def _push_compacted(graph: DeviceGraph, p, r, thr, alpha: float,
     """The superstep loop of a compacted push; returns its supersteps."""
     contrib = torch.empty_like(r)
     wsum = out_weight(graph)
-    tasks = torch.empty((graph.n + graph.m // TASK_EDGES + 1, 2),
+    tasks = torch.empty((task_rows(graph.n, graph.m), TASK_FIELDS),
                         dtype=torch.int32, device=r.device)
     status = torch.zeros(3, dtype=torch.int32, device=r.device)
 
     def prepass():
-        frontier_prepass(p, r, contrib, thr, graph.out_deg, wsum, alpha,
-                         tasks, status, graph.m)
+        frontier_prepass(p, r, contrib, thr, graph.out_deg, graph.out_indptr,
+                         wsum, alpha, tasks, status, graph.m)
         return status.tolist()   # one 12-byte device -> host read
 
     iters = 0

@@ -33,9 +33,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import statistics
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -51,17 +49,8 @@ CASES = {"superstep": (0.15, 0.65), "all": (1.0, 1.0)}   # active, due
 
 def load_other(src: Path) -> ctypes.CDLL:
     """``src`` compiled alone into a shared library (cached by its hash)."""
-    h = hashlib.sha1(" ".join(build.NVCC_FLAGS).encode() + src.read_bytes())
-    so = build.build_root() / f"probe-{h.hexdigest()[:16]}" / "libother.so"
-    if not so.exists():
-        so.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-                        str(src)], check=True)
-    lib = ctypes.CDLL(str(so))
-    lib.fora_frontier_compact.argtypes = build.SIGNATURES[
-        "fora_frontier_compact"]
-    lib.fora_frontier_compact.restype = ctypes.c_int
-    return lib
+    name = "fora_frontier_compact"
+    return build.load_alone(src, {name: build.SIGNATURES[name]})
 
 
 def inputs(case: str, dev, seed: int = 3):

@@ -5,7 +5,8 @@ plain version; the kernel itself is held to it by the card's tests).
 Tolerance: rtol 1e-6, atol 1e-9 on p and r, as tests/test_push.py holds
 JAX's own compacted push to its dense one, and ``iters`` equal; graphs that
 cannot compact run the dense path, held at test_torch_push.py's rtol 1e-5,
-atol 1e-8.  The branch counts and the active out-edge count are exact.
+atol 1e-8.  The branch counts, the active out-edge count and the tasks'
+masks of non-zero chunks are exact.
 """
 
 import jax.numpy as jnp
@@ -109,12 +110,12 @@ def test_active_edge_count_with_loops_and_parallels():
     tg = to_device(g, device="cpu")
     p_t, r_t = torch.zeros(g.n, 5), torch.tensor(r)
     contrib_t = torch.empty_like(r_t)
-    tasks = torch.empty((g.n + g.m // push.TASK_EDGES + 1, 2),
+    tasks = torch.empty((push.task_rows(g.n, g.m), push.TASK_FIELDS),
                         dtype=torch.int32)
     status = torch.zeros(3, dtype=torch.int32)
     push.frontier_prepass(p_t, r_t, contrib_t, torch.as_tensor(thr),
-                          tg.out_deg, push.out_weight(tg), 0.2, tasks, status,
-                          g.m)
+                          tg.out_deg, tg.out_indptr, push.out_weight(tg), 0.2,
+                          tasks, status, g.m)
     assert 0 < want < g.m and status.tolist() == [1, want,
                                                   int(row_active.sum())]
     np.testing.assert_array_equal(contrib_t.numpy(), np.asarray(contrib))
@@ -144,6 +145,122 @@ def test_active_edge_count_with_loops_and_parallels():
             rmax=1e-3, alpha=0.2, max_iters=1, compact_edges=cap)
         _close(jst, tst)
         assert getattr(push.superstep_counts, first) == 1
+
+
+def _masks_by_hand(contrib, span):
+    """Each row's mask of non-zero spans, bit by bit in numpy."""
+    n, B = contrib.shape
+    out = np.zeros(n, np.int64)
+    for i in range(-(-B // span)):
+        hit = (contrib[:, i * span:(i + 1) * span] != 0).any(axis=1)
+        out |= hit.astype(np.int64) << i
+    return np.where(out >= 2**31, out - 2**32, out)
+
+
+@pytest.mark.parametrize("B,span", [(1, 1), (3, 1), (8, 4), (32, 4),
+                                    (128, 4), (130, 5), (256, 8)])
+def test_prepass_masks_are_the_nonzero_chunks(B, span):
+    """The plain pre-pass's tasks carry each row's mask of non-zero
+    chunks (float4 chunks at B = 8, 32, 128; columns at B = 1, 3; groups of
+    5 columns at 130 and of 2 chunks at 256, so that 32 bits cover the
+    row), one task per 1,024 out-edges of the row with its first edge and
+    edge count: a hub row of 2,500 out-edges takes three."""
+    rng = np.random.default_rng(B)
+    n = 300
+    src = np.concatenate([np.zeros(2500, np.int64),
+                          rng.integers(1, n - 20, 3000)])
+    g = jax_from_edges(src, rng.integers(0, n, src.size), n)
+    tg = to_device(g, device="cpu")
+    r = (rng.random((n, B)) * (rng.random((n, B)) < 3.0 / B)).astype(
+        np.float32)
+    r[0] = 0.0
+    r[0, -1] = 5.0                   # the hub pushes its last column only
+    r[1] = 1.0                       # a row pushes every column
+    p_t, r_t = torch.zeros(n, B), torch.tensor(r)
+    c_t = torch.empty_like(r_t)
+    tasks = torch.full((push.task_rows(n, g.m), push.TASK_FIELDS), -7,
+                       dtype=torch.int32)
+    status = torch.zeros(3, dtype=torch.int32)
+    thr = tg.out_deg.float() * 1e-3
+    push.frontier_prepass(p_t, r_t, c_t, thr, tg.out_deg, tg.out_indptr,
+                          push.out_weight(tg), 0.2, tasks, status, g.m)
+    assert push.mask_span(B) == span
+    c = c_t.numpy()
+    rows = np.flatnonzero((c != 0).any(axis=1))
+    deg = g.out_deg[rows]
+    k = -(-deg // push.TASK_EDGES)
+    nt = int(status[2])
+    assert nt == int(k.sum()) and {0, 1} <= set(rows.tolist())
+    got = tasks[:nt].numpy()
+    np.testing.assert_array_equal(got[:, 0], np.repeat(rows, k))
+    j = np.concatenate([np.arange(x) for x in k])
+    np.testing.assert_array_equal(
+        got[:, 1], np.repeat(g.out_indptr[rows], k) + j * push.TASK_EDGES)
+    np.testing.assert_array_equal(
+        got[:, 2], np.repeat(_masks_by_hand(c, span)[rows], k))
+    np.testing.assert_array_equal(
+        got[:, 3], np.minimum(np.repeat(deg, k) - j * push.TASK_EDGES,
+                              push.TASK_EDGES))
+    assert (tasks[nt:] == -7).all()
+    hub = got[got[:, 0] == 0]
+    assert hub[:, 3].tolist() == [1024, 1024, 452]
+    assert hub[0, 2] == np.int32(np.int64(1 << ((B - 1) // span)) -
+                                 (2**32 if (B - 1) // span == 31 else 0))
+    full = got[got[:, 0] == 1, 2][0]
+    assert full == _masks_by_hand(np.ones((1, B)), span)[0]
+
+
+@pytest.mark.parametrize("state", ["few_columns", "every_column"])
+def test_compacted_push_from_a_state_matches_jax(state):
+    """From a residue where each row holds a few non-zero columns of 32 (K5
+    adds one or two chunks of a row) and from one where every column is
+    non-zero (every chunk), the compacted push matches JAX's."""
+    g = _er()
+    rng = np.random.default_rng(5)
+    r = rng.random((g.n, 32)).astype(np.float32) * 1e-2
+    if state == "few_columns":
+        r *= rng.random((g.n, 32)) < 2.0 / 32
+    p = np.zeros_like(r)
+    jst = jax_push.forward_push_from(
+        jax_to_device(g), jax_push.PushState(
+            p=jnp.asarray(p), r=jnp.asarray(r),
+            iters=jnp.zeros((), jnp.int32)),
+        rmax=1e-4, alpha=0.2, compact_edges=4096)
+    push.superstep_counts.reset()
+    tst = push.forward_push_from(
+        to_device(g, device="cpu"), push.PushState(
+            p=torch.tensor(p), r=torch.tensor(r), iters=0),
+        rmax=1e-4, alpha=0.2, compact_edges=4096)
+    _close(jst, tst)
+    assert push.superstep_counts.compacted > 0
+
+
+def test_probe_snapshot_and_lane_use():
+    """probes/frontier_probe.py's pieces that run without a card: the
+    snapshot (the compacted superstep with the most active out-edges
+    within the cap) and the lanes K5 would use on its tasks."""
+    from fora_tpu_torch.probes import frontier_probe
+    tg = to_device(_er(), device="cpu")
+    src = torch.as_tensor(SOURCES)
+    (p0, r0, edges, step), counts = frontier_probe.snapshot(
+        tg, src, 1e-4, 0.2, 4096)
+    assert edges == max(c for c in counts if c <= 4096)
+    assert counts[step - 1] == edges
+    tasks = torch.empty((push.task_rows(tg.n, tg.m), push.TASK_FIELDS),
+                        dtype=torch.int32)
+    status = torch.zeros(3, dtype=torch.int32)
+    c = torch.empty_like(r0)
+    push.frontier_prepass(p0, r0, c, push.node_threshold(tg, 1e-4),
+                          tg.out_deg, tg.out_indptr, push.out_weight(tg), 0.2,
+                          tasks, status, tg.m)
+    assert int(status[1]) == edges
+    nt = int(status[2])
+    lu = frontier_probe.lane_use(tasks, nt, 4)
+    # B = 4: one chunk a row, so one bit a mask and an edge a lane
+    assert lu["bits"] == 1.0 and lu["pairs"] == edges
+    deg = tasks[:nt, 3].long()
+    assert lu["lanes"] == pytest.approx(
+        edges / (32 * int(((deg + 31) // 32).sum())))
 
 
 @pytest.mark.parametrize("cap", [4096, 16])

@@ -1376,13 +1376,15 @@ def _frontier_graph():
     return from_edges(src, dst, n)
 
 
-@pytest.mark.parametrize("B", [1, 3, 8, 32, 130])
+@pytest.mark.parametrize("B", [1, 3, 8, 32, 128, 130])
 def test_frontier_push_kernels_match_plain(dev, B):
     """K5's pre-pass against its plain version (p and contrib bit-equal to
-    K1's pre-pass, the masked r equal, status equal, the tasks equal as a
-    set), then K5 against the plain sum in float64 (rtol 1e-5, atol 1e-9:
-    the atomics' order varies), on float4 rows (8, 32) and scalar rows
-    (1, 3, 130)."""
+    K1's pre-pass, the masked r equal, status equal, the tasks with their
+    masks of non-zero chunks equal as a set), then K5 against the plain sum
+    in float64 (rtol 1e-5, atol 1e-9: the atomics' order varies), on
+    float4 rows (8, 32, 128: a lane a chunk), scalar rows (1, 3: a lane a
+    column) and a wide row (130: a warp a row, a mask bit for 5 columns);
+    the hub pushes one chunk, a row every chunk, the rest a few."""
     from fora_tpu_torch import kernels
     from fora_tpu_torch.graph import to_device
     from fora_tpu_torch.ops import push
@@ -1390,23 +1392,25 @@ def test_frontier_push_kernels_match_plain(dev, B):
     dg = to_device(g, device=dev)
     rng = np.random.default_rng(B)
     r0 = rng.random((g.n, B), np.float32) * (rng.random((g.n, B)) < 0.05)
-    r0[0] = 10.0                         # the hub pushes (thr 5.7)
+    r0[0] = 0.0
+    r0[0, B // 2] = 10.0                 # the hub pushes (thr 5.7)
+    r0[1] = 1.0                          # every chunk of a row pushes
     r0[g.n - 1] = 0.7                    # and a dangling row absorbs
     r0 = torch.as_tensor(r0.astype(np.float32), device=dev)
     thr = push.node_threshold(dg, 1e-3)
     wsum = push.out_weight(dg)
-    tasks = torch.empty((g.n + g.m // push.TASK_EDGES + 1, 2),
+    tasks = torch.empty((push.task_rows(g.n, g.m), push.TASK_FIELDS),
                         dtype=torch.int32, device=dev)
     status = torch.zeros(3, dtype=torch.int32, device=dev)
     p, r, c = torch.zeros_like(r0), r0.clone(), torch.empty_like(r0)
     before = kernels.frontier_prepass.launches
-    kernels.frontier_prepass(p, r, c, thr, dg.out_deg, wsum, 0.2, tasks,
-                             status, push.TASK_EDGES, g.m)
+    kernels.frontier_prepass(p, r, c, thr, dg.out_deg, dg.out_indptr, wsum,
+                             0.2, tasks, status, push.TASK_EDGES, g.m)
     assert kernels.frontier_prepass.launches == before + 1
     pp, pr, pc = torch.zeros_like(r0), r0.clone(), torch.empty_like(r0)
     ptasks, pstatus = torch.empty_like(tasks), torch.zeros_like(status)
-    push.frontier_prepass_plain(pp, pr, pc, thr, dg.out_deg, wsum, 0.2,
-                                ptasks, pstatus)
+    push.frontier_prepass_plain(pp, pr, pc, thr, dg.out_deg, dg.out_indptr,
+                                wsum, 0.2, ptasks, pstatus)
     kp, kc = torch.zeros_like(r0), torch.empty_like(r0)
     kernels.push_prepass(kp, r0, kc, thr, dg.out_deg, wsum, 0.2)
     assert torch.equal(p, pp) and torch.equal(p, kp)
@@ -1415,8 +1419,10 @@ def test_frontier_push_kernels_match_plain(dev, B):
     assert status.tolist() == pstatus.tolist()
     nt = int(status[2])
     assert nt > 5 and int(status[1]) > 5000
-    key = lambda t: (t[:nt, 0].long() * 64 + t[:nt, 1]).sort().values  # noqa
-    assert torch.equal(key(tasks), key(ptasks))
+    assert torch.equal(torch.unique(tasks[:nt], dim=0),
+                       torch.unique(ptasks[:nt], dim=0))
+    full = ptasks[:nt][ptasks[:nt, 0] == 1, 2]
+    assert full.tolist() == push.chunk_masks(torch.ones(1, B)).tolist()
     # K5 against the float64 plain sum, r masked by the pre-pass
     row_active = torch.zeros(g.n, dtype=torch.bool, device=dev)
     row_active[tasks[:nt, 0].long()] = True
@@ -1424,8 +1430,7 @@ def test_frontier_push_kernels_match_plain(dev, B):
         r.double(), c.double(), dg.in_src, dg.in_dst, row_active)
     got = r.clone()
     before = kernels.frontier_push.launches
-    kernels.frontier_push(got, c, tasks, nt, dg.out_indptr, dg.out_indices,
-                          push.TASK_EDGES)
+    kernels.frontier_push(got, c, tasks, nt, dg.out_indices)
     torch.cuda.synchronize()
     assert kernels.frontier_push.launches == before + 1
     torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-9)
