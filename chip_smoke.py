@@ -83,7 +83,13 @@ memory:
                  32 >= 0.95; K4's sharded form bit-equal to
                  run_walks_philox on a raw level's allocation from the
                  one-shot's residues (its first 16 sources), timed beside
-                 K4's unsharded branch on the same starts and its bound
+                 K4's unsharded branch on the same starts and its bound;
+                 on that allocation K6 (the demand, the lane expansion
+                 and the accumulate) against its plain versions and timed
+                 (printed), each shard's demand equal to the plain one,
+                 the chunk's lanes over the shards' demands equal to the
+                 concatenation's expansion, the accumulate into the
+                 shards' partials held to a float64 sum (k6_accum_check)
   10. raw walk   the first 64 sources through TopkRunner(index=None)
                  .query_pool(batch=64, defer_below=32) and flush_deferred,
                  printing per level the walks demanded (largest column,
@@ -94,10 +100,22 @@ memory:
                  chi-square on one real level's allocation, and K4 and
                  K4-hub (phase 3's hub index) on that allocation, shape
                  (iii), timed beside their bounds, K4 bit-equal to
-                 run_walks_philox; precision@50 of the first 32 against
-                 phase 7's exact top-50 (>= 0.95)
+                 run_walks_philox; K6 on the pool's largest walk phase
+                 (the pool run again, that phase's residue kept, every
+                 lane of its demand in one chunk, as the pool walked it):
+                 the demand's cum and totals and the expansion's starts
+                 and weights torch.equal to the plain versions', the
+                 accumulate of K4's endpoints held to a float64 sum
+                 (k6_accum_check: each entry's count of adds exact, its
+                 error within the bound of any f32 sum of that many
+                 positive terms), each timed as called and in
+                 device time beside its bound, the plain chain and the
+                 library call (torch.cumsum of the int32 omega;
+                 scatter_add_ over int64 endpoints); precision@50 of the
+                 first 32 against phase 7's exact top-50 (>= 0.95)
   11. montecarlo the first 32 sources through make_montecarlo_fn (2^22
-                 walks per query, K4): wall time, precision@50 (>= 0.95)
+                 walks per query, K4, K6's accumulate of the constant
+                 weight once per chunk): wall time, precision@50 (>= 0.95)
   12. P3         the gather probe's first case (fora_tpu_torch.probes.
                  gather_probe, B = 128): P3 against its plain version and
                  K1 on the same edges sorted by destination (rtol 1e-4,
@@ -247,7 +265,14 @@ memory:
                  (G-1) G launches per superstep and P2's one pass once
                  (its hop kernel never with every shard on one card),
                  K1, K3 and K4 and no K2 in phase 10, K4 in phase 11, P3
-                 in phase 12; in phase 13 K1-K3 and K4's alias branch
+                 in phase 12; K6's three kernels in the raw pools (phases
+                 10 and 13, an accumulate per expansion) and the raw
+                 one-shots (phases 9 and 13, the demand once per shard),
+                 its accumulate alone in Monte Carlo (phases 11 and 13,
+                 once per chunk) and the CLI's hubppr, K6 on no other
+                 path, and no plain version of K6 in any of those runs
+                 nor in any CLI action (``count_plain_k6``); in phase 13
+                 K1-K3 and K4's alias branch
                  (index_walk_alias) in the indexed run, K1, K3 and the
                  alias branch in the raw pool, the alias branch in Monte
                  Carlo, never the uniform branch there and never the
@@ -300,7 +325,13 @@ and 13), carry unsharded_ms, K4's unsharded branch on the same starts;
 frontier_prepass and frontier_push, K5's two launches, phase 16's
 superstep at B = 32 with the launches of its compacted pushes, carry
 device_ms and earlier_device_ms, the earlier form's device time on the
-same state), then,
+same state; walk_demand, expand_lanes and accumulate_endpoints, K6, are
+phase 10's pool's largest walk phase with phase 10's launches and carry
+device_ms: the demand's bound r read and cum written once, the
+expansion's 8 bytes
+a lane slot written and the distinct 32-byte sectors of cum and r at the
+lanes' nodes, the accumulate's 8 bytes a lane read and the distinct
+sectors of the output it touches, read and written), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -1058,6 +1089,236 @@ def k4_vs_plain_on_level(runner, dg, sources, level):
     return pv, int(valid.sum()), k_ms, p_ms, start
 
 
+PLAIN_K6 = ("walk_demand_plain", "expand_lanes_plain",
+            "expand_chunk_lanes_plain", "accumulate_endpoints_plain",
+            "accumulate_chunk_endpoints_plain")
+plain_k6_calls: dict = {}
+
+
+def count_plain_k6() -> None:
+    """Wrap K6's plain versions in fora_tpu_torch.ops.walk with call
+    counters (``plain_k6_calls``), so that a path's run can show that it
+    never took them on the card (the dispatchers look them up at call
+    time)."""
+    from fora_tpu_torch.ops import walk
+    for name in PLAIN_K6:
+        def counted(*a, _fn=getattr(walk, name), _name=name, **kw):
+            plain_k6_calls[_name] = plain_k6_calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+        setattr(walk, name, counted)
+
+
+def no_plain_k6(label: str, before: dict) -> None:
+    """Fails if a plain version of K6 ran since ``before`` (a copy of
+    ``plain_k6_calls``)."""
+    if plain_k6_calls != before:
+        ran = {k: v - before.get(k, 0) for k, v in plain_k6_calls.items()
+               if v != before.get(k, 0)}
+        fail(f"{label}: K6's plain versions ran on the path: {ran}")
+
+
+def sectors(idx) -> int:
+    """Distinct 32-byte sectors among the 4-byte words at flat ``idx``."""
+    import torch
+    return int(torch.unique(idx // 8).numel())
+
+
+def k6_demand_row(r, omega):
+    """K6-demand on ``r``: cum and total torch.equal to the plain chain's;
+    timed as called and in device time beside its bound (r read once, cum
+    and total written once), the plain chain and torch.cumsum of the [B,
+    n] int32 omega (the scan alone).  Returns (row, kernel demand, plain
+    demand)."""
+    import torch
+    from fora_tpu_torch.ops import walk
+    from fora_tpu_torch.utils.timing import cuda_ms, device_ms
+    n, B = r.shape
+    d = walk.walk_demand(r, omega)
+    dp = walk.walk_demand_plain(r, omega)
+    if not (torch.equal(d.cum, dp.cum) and torch.equal(d.total, dp.total)):
+        fail("K6-demand: cum or total differs from the plain version's")
+    om_t = dp.omega_v.T.contiguous()
+    row = dict(max_abs_err=0.0,
+               ms=cuda_ms(lambda: walk.walk_demand(r, omega)),
+               device_ms=device_ms(lambda: walk.walk_demand(r, omega)),
+               plain_ms=cuda_ms(lambda: walk.walk_demand_plain(r, omega),
+                                iters=3),
+               library_ms=cuda_ms(lambda: torch.cumsum(
+                   om_t, dim=1, dtype=torch.int32)),
+               **bound(2 * n * B * 4 + B * 4))
+    return row, d, dp
+
+
+def k6_expand_row(r, d, dp, W):
+    """K6-expand of lanes 0 .. W - 1: start and weight torch.equal to the
+    plain expansion's; timed as called and in device time beside its
+    bound: 8 bytes a lane slot written, and the distinct 32-byte sectors
+    of cum (at v and v - 1) and of r (at v) of the nodes the lanes start
+    from, read once.  No library call maps lanes to nodes (null).
+    Returns (row, start, weight)."""
+    import torch
+    from fora_tpu_torch.ops import walk
+    from fora_tpu_torch.utils.timing import cuda_ms, device_ms
+    n, B = r.shape
+    start, weight = walk.expand_lanes(r, d, 0, W)
+    ps, pw, _, _ = walk.expand_lanes_plain(r, dp, 0, W)
+    if not (torch.equal(start, ps) and torch.equal(weight, pw)):
+        fail(f"K6-expand: {int((start != ps).sum())} starts and "
+             f"{int((weight != pw).sum())} weights differ from the plain "
+             "expansion's")
+    del ps, pw
+    v, b = torch.nonzero(dp.omega_v > 0, as_tuple=True)
+    read = sectors(torch.cat([b * n + v, b * n + (v - 1).clamp_min(0)])) + \
+        sectors(v * r.stride(0) + b)
+    row = dict(max_abs_err=0.0,
+               ms=cuda_ms(lambda: walk.expand_lanes(r, d, 0, W)),
+               device_ms=device_ms(lambda: walk.expand_lanes(r, d, 0, W)),
+               plain_ms=cuda_ms(
+                   lambda: walk.expand_lanes_plain(r, dp, 0, W), iters=2),
+               library_ms=None,
+               **bound(W * B * 8 + read * SECTOR + B * 4))
+    return row, start, weight
+
+
+def k6_accum_check(label, ends, weight, n, bounds=None, G=1) -> float:
+    """K6-accum of ``weight`` at ``ends`` into a fresh [n, B] (with
+    ``bounds``, its sharded form into G fresh partials, lanes from 0) held
+    to the float64 plain sum.  Two gates: every entry's count of non-zero
+    lanes, accumulated as 1.0s in f32 by the kernel, equals the plain
+    count exactly (integers below 2^24: no lane lost, added or sent to
+    another shard), and every entry's error is within the bound of any
+    f32 sum of N positive terms in any order, |got - sum| <= gamma(N - 1)
+    sum, gamma(k) = k u / (1 - k u), u = 2^-24 (the adds of the f32
+    atomics come in no fixed order, and a walk's source takes tens of
+    thousands of equal weights, whose roundings do not cancel).  Returns
+    the max abs error."""
+    import torch
+    from fora_tpu_torch.ops import walk
+    B = ends.shape[1]
+
+    def run(w, dtype, plain):
+        outs = [torch.zeros((n, B), dtype=dtype, device=ends.device)
+                for _ in range(G)]
+        if bounds is None:
+            (walk.accumulate_endpoints_plain if plain
+             else walk.accumulate_endpoints)(ends, w, n, outs[0])
+        else:
+            (walk.accumulate_chunk_endpoints_plain if plain
+             else walk.accumulate_chunk_endpoints)(ends, w, outs, bounds, 0)
+        return torch.stack(outs)
+    got = run(weight, torch.float32, False)
+    want = run(weight.double(), torch.float64, True)
+    ones = (weight != 0).float()
+    cnt = run(ones, torch.float32, False)
+    cnt64 = run(ones.double(), torch.float64, True)
+    if not torch.equal(cnt.double(), cnt64):
+        fail(f"K6-accum ({label}): {int((cnt.double() != cnt64).sum())} "
+             "entries count other lanes than the plain scatter-add")
+    del cnt, ones
+    u = 2.0 ** -24
+    k = (cnt64 - 1).clamp_min(0) * u
+    err = (got.double() - want).abs()
+    bad = err > k / (1 - k) * want
+    if bool(bad.any()):
+        first = tuple(bad.nonzero()[0].tolist())
+        fail(f"K6-accum ({label}): {int(bad.sum())} entries beyond the f32 "
+             f"summation bound (first at {first}: {float(got[first]):.7e} "
+             f"vs {float(want[first]):.7e} over {int(cnt64[first])} adds)")
+    plain32 = run(weight, torch.float32, True).double()
+
+    def rel(x):
+        return float(((x - want).abs() / want.clamp_min(1e-30)).max())
+    print(f"K6-accum ({label}): counts exact, every entry within the f32 "
+          f"summation bound; max rel err {rel(got.double()):.2e} "
+          f"(scatter_add_ in f32 on the same device: {rel(plain32):.2e}), "
+          f"max adds to one entry {int(cnt64.max())}")
+    return float(err.max())
+
+
+def k6_accum_row(ends, weight, n, label):
+    """K6-accum of ``weight`` at ``ends`` into a fresh [n, B], held to the
+    float64 plain sum (k6_accum_check); timed as called and in device
+    time beside its bound (8 bytes a lane read, and the distinct sectors
+    of out that a non-zero lane touches, read and written) and beside
+    scatter_add_ over the int64 endpoints (the call the path made
+    before)."""
+    import torch
+    from fora_tpu_torch.ops import walk
+    from fora_tpu_torch.utils.timing import cuda_ms, device_ms
+    W, B = ends.shape
+    err = k6_accum_check(label, ends, weight, n)
+    nz = weight != 0
+    touched = sectors(ends.long()[nz] * B
+                      + torch.nonzero(nz, as_tuple=True)[1])
+    out = torch.zeros((n, B), dtype=torch.float32, device=ends.device)
+    e64 = ends.long()
+    row = dict(max_abs_err=err,
+               ms=cuda_ms(lambda: walk.accumulate_endpoints(ends, weight, n,
+                                                            out=out)),
+               device_ms=device_ms(lambda: walk.accumulate_endpoints(
+                   ends, weight, n, out=out)),
+               plain_ms=cuda_ms(lambda: walk.accumulate_endpoints_plain(
+                   ends, weight, n, out=out), iters=3),
+               library_ms=cuda_ms(lambda: out.scatter_add_(0, e64, weight)),
+               **bound(W * B * 8 + 2 * touched * SECTOR))
+    return row
+
+
+def k6_line(name, row, label) -> None:
+    lib = (f"; library {row['library_ms']:.4f} ms"
+           if row["library_ms"] is not None else "")
+    print(f"{name} ({label}): {row['ms']:.4f} ms as called, device "
+          f"{row['device_ms']:.4f}; plain {row['plain_ms']:.4f} ms{lib}; "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({row['bound_ms'] / row['device_ms']:.0%} of it reached, "
+          f"device)")
+
+
+def k6_on_pool(dg, rcfg, sources):
+    """K6's three kernels at the raw pool's own shapes: the pool of phase
+    10 run again with a fresh runner, the residue (its live columns, a
+    column slice as walk_phase takes it) of the walk phase that walked
+    the most lanes kept, then its demand, every lane of it (one chunk, as
+    the pool walked it) and K4's endpoints of those lanes.  Returns
+    {kernel name: row}."""
+    from fora_tpu_torch.algo.topk import TopkRunner
+    from fora_tpu_torch.ops import walk
+    runner = TopkRunner(dg, rcfg, k=K, index=None, delta_stride=DSTRIDE,
+                        accept_slack=ACCEPT)
+    orig, best = walk.walk_phase, {"lanes": -1}
+
+    def capture(graph, r, omega_unit, seed, alpha, max_hops, live=None,
+                clock=None):
+        out = orig(graph, r, omega_unit, seed, alpha, max_hops, live=live,
+                   clock=clock)
+        if out[1].lanes > best["lanes"]:
+            best.update(lanes=out[1].lanes, r=r.clone(), omega=omega_unit,
+                        live=r.shape[1] if live is None else live)
+        return out
+    walk.walk_phase = capture
+    try:
+        run_queries(runner, sources[:RAW_QUERIES], lambda *a: None,
+                    pool=RAW_QUERIES, batch=RAW_BATCH, defer=RAW_DEFER)
+    finally:
+        walk.walk_phase = orig
+    r = best["r"][:, :best["live"]]
+    rows = {}
+    rows["walk_demand"], d, dp = k6_demand_row(r, best["omega"])
+    W = -(-int(dp.total.max()) // walk.LANE_MULTIPLE) * walk.LANE_MULTIPLE
+    label = (f"the raw pool's largest walk phase, r {tuple(r.shape)} of "
+             f"{best['r'].shape[1]} columns, {W} x {r.shape[1]} lane "
+             f"slots, {int(dp.total.sum())} walks")
+    rows["expand_lanes"], start, weight = k6_expand_row(r, d, dp, W)
+    del dp
+    ends = walk.walk_endpoints(dg, start.view(-1), SEED, rcfg.alpha,
+                               rcfg.max_walk_hops).view(start.shape)
+    del start
+    rows["accumulate_endpoints"] = k6_accum_row(ends, weight, dg.n, label)
+    for name, row in rows.items():
+        k6_line(name, row, label)
+    return rows
+
+
 def bippr_targets(n, seed, must=()):
     """BIPPR_TARGETS sorted node ids: ``must`` and a seeded sample of the
     other nodes."""
@@ -1186,13 +1447,15 @@ def check_hub_walk(dg, rcfg, source, dev, hub, name, rate=None):
     return row
 
 
-def run_raw(dg, rcfg, sources, exact_ids, name="raw", hub=None):
+def run_raw(dg, rcfg, sources, exact_ids, name="raw", hub=None, k6=False):
     """Phase 10 (and 13's weighted pool, ``name`` its label in the
-    output): the raw-walk runner over the first RAW_QUERIES sources, then
-    K4's shape (iii), the allocation of the deepest level it reached, for
-    the graph's branch (bit-equal to run_walks_philox) and, with ``hub``,
-    K4-hub (timed only).  Returns its launch counts (reset just before the
-    run, read just after)."""
+    output): the raw-walk runner over the first RAW_QUERIES sources (no
+    plain version of K6 may run), then K4's shape (iii), the allocation of
+    the deepest level it reached, for the graph's branch (bit-equal to
+    run_walks_philox) and, with ``hub``, K4-hub (timed only); with ``k6``,
+    K6's three kernels at the pool's shapes (k6_on_pool).  Returns its
+    launch counts (reset just before the run, read just after) and K6's
+    rows (or None)."""
     import numpy as np
     from fora_tpu_torch import kernels
     from fora_tpu_torch.algo.topk import TopkRunner
@@ -1200,10 +1463,12 @@ def run_raw(dg, rcfg, sources, exact_ids, name="raw", hub=None):
     runner = TopkRunner(dg, rcfg, k=K, index=None, delta_stride=DSTRIDE,
                         accept_slack=ACCEPT)
     src = sources[:RAW_QUERIES]
+    plain0 = dict(plain_k6_calls)
     kernels.reset_launch_counts()
     results, n_acc, levels, wall, stats = run_queries(
         runner, src, pool=RAW_QUERIES, batch=RAW_BATCH, defer=RAW_DEFER)
     counts = kernels.launch_counts()
+    no_plain_k6(name, plain0)
     if len(results) != len(src):
         fail(f"{name}: {len(results)} of {len(src)} queries answered")
     over = sum(st["overflow"] for st in stats)
@@ -1237,13 +1502,14 @@ def run_raw(dg, rcfg, sources, exact_ids, name="raw", hub=None):
         walk_shapes(dg, runner.rcfg, {"iii": start},
                     walk_sector_rate(dg, hub), hub=hub, exact=())
     del start
+    k6_rows = k6_on_pool(dg, rcfg, src) if k6 else None
     pred = np.stack([results[int(s)] for s in src[:len(exact_ids)]])
     prec = metrics.batch_precision_at_k(pred, exact_ids)
     print(f"{name} precision@{K}: {prec:.4f} over {len(exact_ids)} queries "
           f"(limit {MIN_PRECISION})")
     if not prec >= MIN_PRECISION:
         fail(f"{name} precision@{K} {prec:.4f} < {MIN_PRECISION}")
-    return counts
+    return counts, k6_rows
 
 
 def run_montecarlo(dg, rcfg, sources, exact_ids, name="montecarlo"):
@@ -1261,18 +1527,23 @@ def run_montecarlo(dg, rcfg, sources, exact_ids, name="montecarlo"):
     src = np.asarray(sources[:MC_QUERIES])
     chunks = len(montecarlo_chunks(fn.num_walks, len(src),
                                    lane_budget(dg.device)))
+    plain0 = dict(plain_k6_calls)
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ids = topk_nodes(fn(src, SEED), K)[1].cpu().numpy()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    no_plain_k6(name, plain0)
     prec = metrics.batch_precision_at_k(ids[:len(exact_ids)], exact_ids)
     print(f"{name}: {len(src)} queries x {fn.num_walks} walks in "
           f"{chunks} chunks: {wall:.3f} s -> {len(src) / wall:.2f} q/s; "
           f"precision@{K} {prec:.4f} (limit {MIN_PRECISION})")
     if not prec >= MIN_PRECISION:
         fail(f"{name} precision@{K} {prec:.4f} < {MIN_PRECISION}")
+    if counts["accumulate_endpoints"] != chunks:
+        fail(f"{name}: {counts['accumulate_endpoints']} launches of "
+             f"K6-accum for {chunks} chunks, expected one each")
     return counts
 
 
@@ -1466,7 +1737,7 @@ def run_weighted(g, rcfg, dev):
     # phase 9's raw one-shot on the weighted graph (K4's sharded alias form)
     raw1_counts, raw1_steps, raw1_row = run_sharded_raw(
         gw, rcfg, sources[:POOL], ex, dgw, "weighted sharded raw")
-    raw_counts = run_raw(dgw, rcfg, sources, ex, name="weighted raw")
+    raw_counts, _ = run_raw(dgw, rcfg, sources, ex, name="weighted raw")
     mc_counts = run_montecarlo(dgw, rcfg, sources, ex,
                                name="weighted montecarlo")
     return (row, counts, raw_counts, mc_counts, sharded_counts, raw1_counts,
@@ -1513,12 +1784,14 @@ def run_cli_action(name, argv, counts) -> float:
     non-zero exit.  Returns its seconds."""
     import torch
     from fora_tpu_torch import cli, kernels
+    plain0 = dict(plain_k6_calls)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts[name] = kernels.launch_counts()
+    no_plain_k6(f"cli {name}", plain0)
     if rc != 0:
         fail(f"cli {name}: exit code {rc}")
     print(f"cli {name}: {secs:.2f} s")
@@ -2063,14 +2336,67 @@ def raw_allocation(eng, rcfg, sources):
     push of ``sources`` on ``eng``, then every lane of the walk demand of
     the concatenated residues (lanes 0 .. the largest column's total, as
     one walk-phase chunk lays them out), int32 on the first shard's
-    device."""
+    device.  K6 is held and timed on it (k6_demand_row, k6_expand_row on
+    the concatenation; k6_accum_row on K4's endpoints of its lanes), and
+    its sharded forms as the raw one-shot runs them: each shard's demand
+    torch.equal to the plain version's, the chunk's lanes expanded over
+    the shards' demands (expand_chunk_lanes) equal to the concatenation's
+    expansion on every lane below its column's total (weight 0 past it),
+    and the accumulate into the shards' partials
+    (accumulate_chunk_endpoints) held to the float64 plain sum
+    (k6_accum_check).  Returns the flat starts."""
     import torch
-    from fora_tpu_torch.ops.walk import expand_lanes, walk_demand
+    from fora_tpu_torch.ops import walk
+    from fora_tpu_torch.utils.timing import device_ms
     ps, rs = eng.init_state(sources)
     eng.push(ps, rs)
     r = torch.cat(rs)
-    d = walk_demand(r, rcfg.omega_unit)
-    start = expand_lanes(r, d, 0, int(d.total.max()))[0]
+    omega = rcfg.omega_unit
+    label = f"phase 9's raw allocation, r {tuple(r.shape)}"
+    rows = {}
+    rows["walk_demand"], d, dp = k6_demand_row(r, omega)
+    W, B = int(dp.total.max()), r.shape[1]
+    label += f", {W} x {B} lane slots"
+    rows["expand_lanes"], start, weight = k6_expand_row(r, d, dp, W)
+    del d, dp
+    n_loc = rs[0].shape[0]
+    ds = [walk.walk_demand(x, omega) for x in rs]
+    for h, (x, dh) in enumerate(zip(rs, ds)):
+        want = walk.walk_demand_plain(x, omega)
+        if not (torch.equal(dh.cum, want.cum)
+                and torch.equal(dh.total, want.total)):
+            fail(f"K6-demand: shard {h}'s cum or total differs from the "
+                 "plain version's")
+    tot = torch.stack([dh.total.long() for dh in ds])
+    bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
+    s_start, s_weight = walk.expand_chunk_lanes(rs, ds, bounds, 0, W, n_loc)
+    valid = torch.arange(W, device=r.device)[:, None] < bounds[-1][None, :]
+    if not (torch.equal(s_start[valid], start[valid])
+            and torch.equal(s_weight[valid], weight[valid])
+            and not bool(s_weight[~valid].any())):
+        fail("K6-expand's sharded form: the chunk's lanes over the shards' "
+             "demands differ from the concatenation's expansion")
+    del s_start, s_weight, valid
+    ends = walk.walk_endpoints(eng.placement.walk, start.view(-1), SEED,
+                               rcfg.alpha, rcfg.max_walk_hops).view(W, B)
+    rows["accumulate_endpoints"] = k6_accum_row(ends, weight, r.shape[0],
+                                                label)
+    err = k6_accum_check(f"the shards' partials of {label}", ends, weight,
+                         r.shape[0], bounds=bounds, G=len(rs))
+    parts = [torch.zeros_like(r) for _ in rs]
+    x_ms = device_ms(lambda: walk.expand_chunk_lanes(rs, ds, bounds, 0, W,
+                                                     n_loc))
+    a_ms = device_ms(lambda: walk.accumulate_chunk_endpoints(
+        ends, weight, parts, bounds, 0))
+    del parts
+    del ends, weight
+    for name, row in rows.items():
+        k6_line(name, row, label)
+    print(f"K6's sharded forms on {label}: {len(rs)} shards' demands equal "
+          f"to the plain ones, the chunk's lanes over them to the "
+          f"concatenation's; the accumulate into the shards' partials held "
+          f"to float64 (max abs err {err:.3e}); device ms of the sharded "
+          f"forms: expansion {x_ms:.4f}, accumulate {a_ms:.4f}")
     return start.view(-1)
 
 
@@ -2132,6 +2458,7 @@ def run_sharded_raw(g, rcfg, sources, exact_ids, graph, name):
         eng.topk(sources, SEED)                     # warm
         xch = eng.exchange
         before = (xch.compacted, xch.fell_back, xch.cleared)
+        plain0 = dict(plain_k6_calls)
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2139,6 +2466,7 @@ def run_sharded_raw(g, rcfg, sources, exact_ids, graph, name):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts[mode] = kernels.launch_counts()
+        no_plain_k6(f"{name} {mode}", plain0)
         steps[mode] = dict(zip(("compacted", "fell_back", "cleared"),
                                (xch.compacted - before[0],
                                 xch.fell_back - before[1],
@@ -3127,6 +3455,7 @@ def main(argv=None) -> int:
 
     dev = torch.device(DEVICE)
     rows = {}   # kernel name -> {max_abs_err, ms, plain_ms}
+    count_plain_k6()
 
     # ---- 1. device -----------------------------------------------------
     with Phase("device"):
@@ -3555,7 +3884,9 @@ def main(argv=None) -> int:
 
     # ---- 10.-12. raw walk, Monte Carlo, P3 --------------------------------
     with Phase("raw walk"):
-        raw_launches = run_raw(dg, rcfg, sources, ex[:EVAL_N], hub=hub)
+        raw_launches, k6_rows = run_raw(dg, rcfg, sources, ex[:EVAL_N],
+                                        hub=hub, k6=True)
+        rows.update(k6_rows)
         del hub
     with Phase("montecarlo"):
         mc_launches = run_montecarlo(dg, rcfg, sources, ex[:EVAL_N])
@@ -3621,6 +3952,31 @@ def main(argv=None) -> int:
     print(f"launches in phase 11: {mc_launches}")
     if mc_launches["index_walk"] <= 0:
         fail("K4 was not launched on the Monte Carlo path")
+    # K6: the raw pools run the demand once per walk phase and the
+    # expansion and the accumulate once per chunk; Monte Carlo and HubPPR
+    # the accumulate alone (once per chunk: run_montecarlo checks the
+    # count); the raw one-shots' counts are checked with theirs below; no
+    # path without a walk phase runs any of them
+    k6 = ("walk_demand", "expand_lanes", "accumulate_endpoints")
+    for label, c in (("phase 10's raw pool", raw_launches),
+                     ("phase 13's weighted raw pool", w_raw_launches)):
+        if min(c[x] for x in k6) <= 0 or \
+                c["expand_lanes"] != c["accumulate_endpoints"]:
+            fail(f"{label}: K6 launches {[c[x] for x in k6]}, expected "
+                 "some of each, one accumulate per expansion")
+    for label, c in (("phase 11's Monte Carlo", mc_launches),
+                     ("phase 13's Monte Carlo", w_mc_launches),
+                     ("phase 14's hubppr", cli_launches["hubppr"])):
+        if c["accumulate_endpoints"] <= 0 or c["walk_demand"] or \
+                c["expand_lanes"]:
+            fail(f"{label}: K6 launches {[c[x] for x in k6]}, expected the "
+                 "accumulate alone")
+    if any(c[x] for x in k6 for c in (
+            launches, sharded_launches, p3_launches, w_launches,
+            w_pool_launches, build_launches, k5_launches, relabel_launches,
+            *pool_launches.values(),
+            *[v for a, v in cli_launches.items() if a != "hubppr"])):
+        fail("K6 ran on a path without a walk phase")
     print(f"launches in phase 12: {p3_launches}")
     if p3_launches["row_scatter_add"] <= 0:
         fail("P3 was not launched by the gather probe")
@@ -3673,7 +4029,9 @@ def main(argv=None) -> int:
                     "ring_reduce_scatter_hop": 0,
                     "ring_all_gather_hop": hops * ring_steps,
                     "row_scatter_add": SHARDS * st["compacted"],
-                    "exchange_clear": st["cleared"]}
+                    "exchange_clear": st["cleared"],
+                    "walk_demand": SHARDS, "expand_lanes": None,
+                    "accumulate_endpoints": None}
             for name, n in want.items():
                 if (c[name] <= 0) if n is None else (c[name] != n):
                     fail(f"{label}'s raw one-shot ({mode}): {c[name]} "
@@ -3847,6 +4205,13 @@ def main(argv=None) -> int:
         "frontier_prepass": ("frontier_push.cu",
                              "fora_tpu/ops/push.py:298"),
         "frontier_push": ("frontier_push.cu", "fora_tpu/ops/push.py:283"),
+        # K6: allocate_walks' demand and cumsum, its lane -> node map by
+        # scatter + cummax with the weights' take_along_axis, and the
+        # endpoints' segment_sum (phase 10's largest walk phase)
+        "walk_demand": ("walk_alloc.cu", "fora_tpu/ops/walk.py:57"),
+        "expand_lanes": ("walk_alloc.cu", "fora_tpu/ops/walk.py:63"),
+        "accumulate_endpoints": ("walk_alloc.cu",
+                                 "fora_tpu/ops/walk.py:323"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
@@ -3864,6 +4229,7 @@ def main(argv=None) -> int:
              cli_launches["bippr"][name] if name == "backward_prepass" else
              cli_launches["hubppr"][name] if name == "index_walk_hub" else
              k5_launches[name] if name.startswith("frontier_p") else
+             raw_launches[name] if name in k6 else
              sharded_launches[name])
         out.append({"name": name, "route": "cuda",
                     "source": f"fora_tpu_torch/kernels/csrc/{src_file}",

@@ -198,9 +198,8 @@ def hubppr_query(graph: DeviceGraph, sources, seed: int, hub: HubIndex, *,
     B = src.shape[0]
     ends = hub_walks(graph, src.repeat(num_walks), seed, hub,
                      alpha=rcfg.alpha, max_hops=rcfg.max_walk_hops)
-    w = torch.full((num_walks, B), 1.0 / num_walks, dtype=torch.float32,
-                   device=src.device)
-    return accumulate_endpoints(ends.view(num_walks, B), w, graph.n)
+    return accumulate_endpoints(ends.view(num_walks, B), 1.0 / num_walks,
+                                graph.n)
 
 
 def hubppr_pairs(graph: DeviceGraph, sources, targets, seed: int,

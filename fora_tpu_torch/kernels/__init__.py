@@ -28,9 +28,18 @@ PyTorch versions instead.
 | frontier_compact        | csrc/exchange.cu       | the frontier compaction (the send side of the compact, routed and hier exchanges) |
 | frontier_prepass        | csrc/frontier_push.cu  | K5's pre-pass (K1's pre-pass, the residue's mask and the active rows' tasks with their non-zero chunks, for the frontier-compacted push) |
 | frontier_push           | csrc/frontier_push.cu  | K5 (the frontier-compacted push: the active rows' non-zero chunks along their out-edges, f32 atomics) |
+| walk_demand             | csrc/walk_alloc.cu     | K6-demand (the raw walk's omega_v, its int32 scan over nodes and the column totals: raw pool, sharded raw one-shot) |
+| expand_lanes            | csrc/walk_alloc.cu     | K6-expand (a range of lanes onto their start nodes and weights; the sharded form expands a chunk over every shard's demand in one launch) |
+| accumulate_endpoints    | csrc/walk_alloc.cu     | K6-accum (the endpoints' scatter-add, f32 atomics: raw pool, sharded raw one-shot, Monte Carlo, HubPPR) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 | row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
 | philox_blocks           | csrc/philox_probe.cu   | none: measures the card's rate of Philox-4x32-10 blocks (K4's operations) |
+
+K6's plain versions are ``ops/walk.py``'s ``*_plain`` functions, held to
+JAX's ``allocate_walks`` / ``accumulate_endpoints`` on the CPU by
+``tests/test_torch_walk_alloc.py``; on a card ``-k "walk_demand or expand
+or accumulate or k6"`` of ``tests/test_torch_kernels_cuda.py`` holds the
+kernels to them.
 
 ``csrc/alias.cu`` and ``csrc/graph_io.cu`` hold no kernel: they are the
 host-side alias-table builder that ``graph/alias.py::build_alias_library``
@@ -61,7 +70,9 @@ __all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
            "index_walk_sharded_alias", "ring_all_gather_hop",
            "ring_reduce_scatter_hop", "reduce_scatter_onepass",
            "row_scatter_add", "exchange_clear", "frontier_compact",
-           "frontier_prepass", "frontier_push", "sector_reads", "row_reads",
+           "frontier_prepass", "frontier_push", "walk_demand",
+           "expand_lanes", "accumulate_endpoints", "sector_reads",
+           "row_reads",
            "philox_blocks", "inv_log1m_alpha", "sm_count",
            "enable_peer_access",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]
@@ -88,6 +99,14 @@ def _check(name: str, t: torch.Tensor, dtype, shape=None, device=None):
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
+
+
+def _table(ts) -> Optional[ctypes.c_void_p]:
+    """A host array of the tensors' device pointers (None for None), for a
+    C entry that copies it into a kernel parameter."""
+    return None if ts is None else ctypes.cast(
+        (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts]),
+        ctypes.c_void_p)
 
 
 def _raise_on(err: int, name: str):
@@ -439,15 +458,10 @@ def _index_walk_sharded(start, indptr, indices, alias_prob, alias_other,
     if W == 0:
         return out
     plan = schedule.walk_plan(W, sm_count(dev))
-
-    def table(ts):
-        return None if ts is None else ctypes.cast(
-            (ctypes.c_void_p * G)(*[t.data_ptr() for t in ts]),
-            ctypes.c_void_p)
     with torch.cuda.device(dev):
         err = build.library().fora_index_walk_sharded(
-            _ptr(start), _ptr(out), W, table(indptr), table(indices),
-            table(alias_prob), table(alias_other), G, n_loc, seed % 2**64,
+            _ptr(start), _ptr(out), W, _table(indptr), _table(indices),
+            _table(alias_prob), _table(alias_other), G, n_loc, seed % 2**64,
             inv_log1m_alpha(alpha), max_hops, plan.walks_per_lane,
             plan.blocks, _stream(start))
     _raise_on(err, name)
@@ -720,6 +734,160 @@ def frontier_push(r: torch.Tensor, contrib: torch.Tensor, tasks: torch.Tensor,
     _raise_on(err, "frontier_push")
 
 
+def _check_cols(name: str, t: torch.Tensor, dtype, shape):
+    """A CUDA tensor of ``shape`` [rows, cols] whose columns are adjacent
+    (stride 1; the rows' stride is free): a column slice of a wider
+    array.  Returns its row stride."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got "
+                         f"{getattr(t, 'device', type(t))}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: its columns must be adjacent (stride "
+                         f"{t.stride(1)})")
+    return t.stride(0)
+
+
+def _peer(out_dev: torch.device, *ts) -> None:
+    """Inputs on another card than the launch's are read through a peer
+    pointer (untested: it needs a machine with several cards)."""
+    for t in ts:
+        if t is not None and t.device != out_dev:
+            enable_peer_access(out_dev, t.device)
+
+
+def walk_demand(r: torch.Tensor, omega_unit: float):
+    """K6-demand: ``(cum, total)`` of the residue ``r`` [n, Bc] f32 (its
+    columns adjacent, its rows of any stride): omega_v = ceil(r_v *
+    omega_unit) in f32 where r_v > 0 (else 0), ``cum`` [n, Bc] int32 its
+    inclusive sum over nodes (a transposed view of a contiguous [Bc, n]
+    array, as ``ops.walk.walk_demand_plain`` lays it out) and ``total``
+    [Bc] int32, bit for bit the plain version's.  omega_v itself is not
+    written (cum[v] - cum[v - 1])."""
+    n, Bc = r.shape
+    dev = r.device
+    ld = _check_cols("r", r, torch.float32, (n, Bc))
+    n_tiles = -(-n // 256)
+    cum = torch.empty((Bc, n), dtype=torch.int32, device=dev)
+    total = torch.zeros(Bc, dtype=torch.int32, device=dev)
+    tile = torch.empty((Bc, n_tiles), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = build.library().fora_walk_demand(
+            _ptr(r), ld, n, Bc, float(omega_unit), _ptr(tile), n_tiles,
+            _ptr(cum), _ptr(total), _stream(r))
+    walk_demand.launches += 1
+    _raise_on(err, "walk_demand")
+    return cum.T, total
+
+
+def expand_lanes(r, cum, total: Optional[torch.Tensor], start: torch.Tensor,
+                 weight: torch.Tensor, lane_lo: int = 0,
+                 bounds: Optional[torch.Tensor] = None,
+                 n_loc: int = 0) -> None:
+    """K6-expand, in place: row t of ``start`` [rows, Bc] int32 and
+    ``weight`` [rows, Bc] f32 (contiguous) gets lane l = lane_lo + t of each
+    column b: the first node v with cum[v, b] > min(l, total[b] - 1) and
+    r[v, b] / omega_v where l < total[b], else 0 (an empty column: node 0),
+    equal to ``ops.walk.expand_lanes_plain``'s.  ``r`` [n, Bc] f32 as
+    :func:`walk_demand` takes it, ``cum`` [n, Bc] int32 with its nodes
+    adjacent (``walk_demand``'s or a column slice of it), ``total`` [Bc]
+    int32.  The sharded form: ``r`` and ``cum`` lists of G shards' (1-32,
+    one shape and strides), ``total`` None and ``bounds`` [G + 1, Bc]
+    int64 on ``start``'s card, the running sums of the shards' totals:
+    lane l of column b is shard h's lane l - bounds[h, b] where bounds[h,
+    b] <= l < bounds[h + 1, b], written as its node + h * ``n_loc``; a
+    lane past bounds[G, b] gets node 0, weight 0 (``ops.walk.
+    expand_chunk_lanes_plain``).  Shards may lie on other cards than
+    ``start``."""
+    sharded = bounds is not None
+    rs, cums = (list(r), list(cum)) if sharded else ([r], [cum])
+    G = len(rs)
+    n, Bc = rs[0].shape
+    rows = start.shape[0]
+    dev = start.device
+    _check("start", start, torch.int32, (rows, Bc))
+    _check("weight", weight, torch.float32, (rows, Bc), dev)
+    if not 1 <= G <= 32 or len(cums) != G:
+        raise ValueError(f"expand_lanes: {G} residues and {len(cums)} "
+                         "demands; need 1-32 of each")
+    for h in range(G):
+        r_ld = _check_cols(f"r[{h}]", rs[h], torch.float32, (n, Bc))
+        _check_cols(f"cum[{h}].T", cums[h].T, torch.int32, (Bc, n))
+        if rs[h].stride() != rs[0].stride() or \
+                cums[h].stride() != cums[0].stride() or \
+                cums[h].device != rs[h].device:
+            raise ValueError("expand_lanes: the shards' residues and "
+                             "demands must share their strides and cards")
+        _peer(dev, rs[h])
+    if sharded:
+        if total is not None:
+            raise ValueError("expand_lanes: bounds take the place of total")
+        _check("bounds", bounds, torch.int64, (G + 1, Bc), dev)
+    else:
+        _check("total", total, torch.int32, (Bc,), rs[0].device)
+        if lane_lo < 0 or n_loc:
+            raise ValueError("expand_lanes: lane_lo >= 0; n_loc only with "
+                             "bounds")
+    if n == 0 or n >= 2**31 or not 0 <= n_loc * (G - 1) < 2**31 - n:
+        raise ValueError(f"expand_lanes: {n} nodes, n_loc {n_loc}")
+    with torch.cuda.device(dev):
+        err = build.library().fora_expand_lanes(
+            _table(rs), r_ld, _table(cums),
+            cums[0].stride(1) if Bc > 1 else n, _ptr(total), _ptr(bounds),
+            G, n, Bc, rows, int(lane_lo), int(n_loc), _ptr(start),
+            _ptr(weight), _stream(start))
+    expand_lanes.launches += 1
+    _raise_on(err, "expand_lanes")
+
+
+def accumulate_endpoints(ends: torch.Tensor, weight, out,
+                         lane_lo: int = 0,
+                         bounds: Optional[torch.Tensor] = None) -> None:
+    """K6-accum, in place: ``out[ends[t, b], b] += weight[t, b]`` for every
+    lane with a non-zero weight (f32 atomics, in no fixed order).
+    ``ends`` [W, Bc] int32 contiguous; ``weight`` [W, Bc] f32 contiguous or
+    one number (every lane's weight); ``out`` [n, Bc] f32 with adjacent
+    columns (a column slice of a wider array).  The sharded form: ``out``
+    a list of G shards' partials (1-32, one shape and strides) and
+    ``bounds`` [G + 1, Bc] int64 as :func:`expand_lanes` takes it; row t
+    is lane lane_lo + t and adds into the partial of the shard that holds
+    it, nowhere past bounds[G, b].  Launches on ``ends``' card; partials
+    on other cards are written through peer pointers."""
+    sharded = bounds is not None
+    outs = list(out) if sharded else [out]
+    G = len(outs)
+    W, Bc = ends.shape
+    n = outs[0].shape[0]
+    dev = ends.device
+    _check("ends", ends, torch.int32, (W, Bc))
+    scalar = not isinstance(weight, torch.Tensor)
+    if not scalar:
+        _check("weight", weight, torch.float32, (W, Bc), dev)
+    if not 1 <= G <= 32:
+        raise ValueError(f"accumulate_endpoints: {G} outputs, 1-32")
+    for h in range(G):
+        ld = _check_cols(f"out[{h}]", outs[h], torch.float32, (n, Bc))
+        if outs[h].stride() != outs[0].stride():
+            raise ValueError("accumulate_endpoints: the partials must share "
+                             "their strides")
+        _peer(dev, outs[h])
+    if sharded:
+        _check("bounds", bounds, torch.int64, (G + 1, Bc), dev)
+    elif lane_lo:
+        raise ValueError("accumulate_endpoints: lane_lo only with bounds")
+    with torch.cuda.device(dev):
+        err = build.library().fora_accumulate_endpoints(
+            _ptr(ends), None if scalar else _ptr(weight),
+            float(weight) if scalar else 0.0, W, Bc, _ptr(bounds), G,
+            int(lane_lo), _table(outs), ld, n, sm_count(dev), _stream(ends))
+    accumulate_endpoints.launches += 1
+    _raise_on(err, "accumulate_endpoints")
+
+
 def sector_reads(buf: torch.Tensor, reads: int = 64,
                  threads: int = 1 << 20, seed: int = 0) -> int:
     """The measuring kernel of csrc/sector_probe.cu: ``threads`` threads
@@ -801,7 +969,8 @@ WRAPPERS = (push_prepass, backward_prepass, gather_scatter_add, index_spmv,
             index_walk_sharded, index_walk_sharded_alias,
             ring_all_gather_hop, ring_reduce_scatter_hop,
             reduce_scatter_onepass, row_scatter_add, exchange_clear,
-            frontier_compact, frontier_prepass, frontier_push, philox_blocks)
+            frontier_compact, frontier_prepass, frontier_push, walk_demand,
+            expand_lanes, accumulate_endpoints, philox_blocks)
 for _w in WRAPPERS:
     _w.launches = 0
 topk_bounds.last_state = None

@@ -62,6 +62,11 @@ SIGNATURES = {
     "fora_frontier_prepass": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _LL, _I,
                               _I, _P, _P, _P],
     "fora_frontier_push": [_P, _P, _P, _LL, _P, _I, _P],
+    "fora_walk_demand": [_P, _LL, _LL, _I, _F, _P, _LL, _P, _P, _P],
+    "fora_expand_lanes": [_P, _LL, _P, _LL, _P, _P, _I, _LL, _I, _LL, _LL,
+                          _I, _P, _P, _P],
+    "fora_accumulate_endpoints": [_P, _P, _F, _LL, _I, _P, _I, _LL, _P, _LL,
+                                  _LL, _I, _P],
     "fora_enable_peer_access": [_I, _I],
     "fora_sector_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],
     "fora_row_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],

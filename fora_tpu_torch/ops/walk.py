@@ -17,11 +17,15 @@ words, so the same endpoints bit for bit (on a card; the tests and
 
 Lane allocation is two steps here: the demand (``walk_demand``: omega_v,
 its int32 cumsum and the per-column total) and the expansion of a range of
-lanes onto nodes (``expand_lanes``).  ``walk_phase`` sizes the lanes by the
-measured demand, one host read per call, and splits the columns (and, for
-a column too large alone, its lanes) into chunks that fit the device's
-free memory, so a query never loses walks: JAX's static lane count drops
-the walks past it and only raises ``overflow``.
+lanes onto nodes (``expand_lanes``; ``expand_chunk_lanes`` expands a
+chunk of the sharded raw walk over every shard's demand).  On a card they,
+``accumulate_endpoints`` and ``accumulate_chunk_endpoints`` launch K6
+(``kernels/csrc/walk_alloc.cu``); the ``*_plain`` functions are the CPU
+path and the reference the kernels are held to.  ``walk_phase`` sizes
+the lanes by the measured demand, one host read per call, and splits the
+columns (and, for a column too large alone, its lanes) into chunks that
+fit the device's free memory, so a query never loses walks: JAX's static
+lane count drops the walks past it and only raises ``overflow``.
 
 The sharded raw one-shot and the sharded index build walk an out-CSR
 split into G row slices (``ShardedOutCSR``, the arrays of
@@ -134,18 +138,35 @@ class WalkAllocation(NamedTuple):
 
 
 class WalkDemand(NamedTuple):
-    omega_v: torch.Tensor   # [n, B] i32 walks per node
+    omega_v: Optional[torch.Tensor]   # [n, B] i32 walks per node (None: K6)
     cum: torch.Tensor       # [n, B] i32 inclusive cumsum over nodes
     total: torch.Tensor     # [B] i32
+
+    def columns(self, c0: int, c1: int) -> "WalkDemand":
+        """The demand of columns c0 .. c1 - 1."""
+        return WalkDemand(None if self.omega_v is None
+                          else self.omega_v[:, c0:c1],
+                          self.cum[:, c0:c1], self.total[c0:c1])
 
 
 def walk_demand(r: torch.Tensor, omega_unit: float) -> WalkDemand:
     """omega_v = ceil(r * omega_unit) in f32 (0 where r <= 0), its int32
-    cumsum over nodes and the per-column total, as JAX computes them.
-    The cumsum runs along the innermost dimension of a [B, n] copy
-    (``cum`` is its transposed view): a scan along dim 0 of [n, B] runs
-    one thread per column on a card (183 ms at n = 2^19, B = 16 on an
-    H100 80GB HBM3 at 700 W)."""
+    cumsum over nodes and the per-column total, as JAX computes them.  A
+    CUDA tensor launches K6-demand (``kernels.walk_demand``: cum and total
+    bit for bit :func:`walk_demand_plain`'s, ``omega_v`` None); a CPU one
+    runs the plain version."""
+    if r.device.type == "cpu":
+        return walk_demand_plain(r, omega_unit)
+    cum, total = kernels.walk_demand(r, float(np.float32(omega_unit)))
+    return WalkDemand(None, cum, total)
+
+
+def walk_demand_plain(r: torch.Tensor, omega_unit: float) -> WalkDemand:
+    """:func:`walk_demand` in plain PyTorch, ``omega_v`` included.  The
+    cumsum runs along the innermost dimension of a [B, n] copy (``cum`` is
+    its transposed view): a scan along dim 0 of [n, B] runs one thread per
+    column on a card (183 ms at n = 2^19, B = 16 on an H100 80GB HBM3 at
+    700 W)."""
     w = torch.ceil(r * float(np.float32(omega_unit))).to(torch.int32)
     omega_v = torch.where(r > 0, w, 0)
     cum = torch.cumsum(omega_v.T.contiguous(), dim=1, dtype=torch.int32).T
@@ -181,9 +202,25 @@ def _lane_nodes(d: WalkDemand, lane_lo: int, num_lanes: int
 
 def expand_lanes(r: torch.Tensor, d: WalkDemand, lane_lo: int,
                  num_lanes: int):
-    """(start [W, B] i32, weight [W, B] f32, lanes [W] i32, node [W, B]
-    i64) of lanes ``lane_lo .. lane_lo + num_lanes - 1``; weight is
-    r_v / omega_v in f32 on lanes below the column's total, else 0."""
+    """(start [W, B] i32, weight [W, B] f32) of lanes ``lane_lo .. lane_lo
+    + num_lanes - 1``: the node each lane walks from, and r_v / omega_v in
+    f32 on lanes below the column's total, else 0.  A CUDA tensor launches
+    K6-expand (``kernels.expand_lanes``), array-equal to
+    :func:`expand_lanes_plain`, which a CPU one runs."""
+    if r.device.type == "cpu":
+        return expand_lanes_plain(r, d, lane_lo, num_lanes)[:2]
+    B = r.shape[1]
+    start = torch.empty((num_lanes, B), dtype=torch.int32, device=r.device)
+    weight = torch.empty((num_lanes, B), dtype=torch.float32,
+                         device=r.device)
+    kernels.expand_lanes(r, d.cum, d.total, start, weight, lane_lo=lane_lo)
+    return start, weight
+
+
+def expand_lanes_plain(r: torch.Tensor, d: WalkDemand, lane_lo: int,
+                       num_lanes: int):
+    """:func:`expand_lanes` in plain PyTorch (``d`` with ``omega_v``):
+    (start, weight, lanes [W] i32, node [W, B] i64)."""
     lanes = torch.arange(lane_lo, lane_lo + num_lanes, dtype=torch.int32,
                          device=r.device)
     node = _lane_nodes(d, lane_lo, num_lanes)
@@ -194,14 +231,69 @@ def expand_lanes(r: torch.Tensor, d: WalkDemand, lane_lo: int,
     return node.to(torch.int32), weight, lanes, node
 
 
+def expand_chunk_lanes(rs: list, ds: list, bounds: torch.Tensor,
+                       lane_lo: int, num_lanes: int, n_loc: int):
+    """(start [W, B] i32, weight [W, B] f32) of lanes ``lane_lo .. lane_lo
+    + W - 1`` of a chunk of the sharded raw walk, on ``bounds``' device:
+    ``rs`` and ``ds`` are the G shards' residues [n_loc, B] and demands,
+    ``bounds`` [G + 1, B] int64 the running sums of their totals, so lane
+    l of column b is shard h's lane l - bounds[h, b] where bounds[h, b] <=
+    l < bounds[h + 1, b] and starts at its node + h * ``n_loc`` with
+    :func:`expand_lanes`' weight; a lane past bounds[G, b] gets node 0,
+    weight 0.  A CUDA ``bounds`` launches K6-expand's sharded form (one
+    launch for every shard), a CPU one runs
+    :func:`expand_chunk_lanes_plain`."""
+    if bounds.device.type == "cpu":
+        return expand_chunk_lanes_plain(rs, ds, bounds, lane_lo, num_lanes,
+                                        n_loc)
+    B = rs[0].shape[1]
+    start = torch.empty((num_lanes, B), dtype=torch.int32,
+                        device=bounds.device)
+    weight = torch.empty((num_lanes, B), dtype=torch.float32,
+                         device=bounds.device)
+    kernels.expand_lanes(rs, [d.cum for d in ds], None, start, weight,
+                         lane_lo=lane_lo, bounds=bounds, n_loc=n_loc)
+    return start, weight
+
+
+def expand_chunk_lanes_plain(rs: list, ds: list, bounds: torch.Tensor,
+                             lane_lo: int, num_lanes: int, n_loc: int):
+    """:func:`expand_chunk_lanes` in plain PyTorch: each shard's lanes
+    found by ``torch.searchsorted`` over its columns of ``cum``."""
+    dev = bounds.device
+    B = rs[0].shape[1]
+    start = torch.zeros((num_lanes, B), dtype=torch.int32, device=dev)
+    weight = torch.zeros((num_lanes, B), dtype=torch.float32, device=dev)
+    lane = lane_lo + torch.arange(num_lanes, device=dev)[:, None]
+    for h, (r, d) in enumerate(zip(rs, ds)):
+        lo, hi = bounds[h].to(r.device), bounds[h + 1].to(r.device)
+        x = lane.to(r.device) - lo[None, :]
+        own = (x >= 0) & (x < (hi - lo)[None, :])
+        if not bool(own.any()):
+            continue
+        cum_t = d.cum.T.contiguous().long()                        # [B, n]
+        x = torch.where(own, x, 0).T.contiguous()
+        node = torch.searchsorted(cum_t, x, right=True).T
+        node = node.clamp_max(cum_t.shape[1] - 1)
+        prev = torch.where(node > 0, d.cum.long().gather(
+            0, (node - 1).clamp_min(0)), 0)
+        omega = (d.cum.long().gather(0, node) - prev).clamp_min(1)
+        w = r.gather(0, node) / omega.to(torch.float32)
+        own = own.to(dev)
+        start[own] = (node + h * n_loc).to(torch.int32).to(dev)[own]
+        weight[own] = w.to(dev)[own]
+    return start, weight
+
+
 def allocate_walks(r: torch.Tensor, omega_unit: float, num_lanes: int
                    ) -> WalkAllocation:
     """JAX's allocation of ``num_lanes`` lanes per column (walks past
     ``num_lanes`` are dropped and ``overflow`` set); array-equal to
     ``fora_tpu.ops.walk.allocate_walks``.  The port's own paths size the
-    lanes by the demand instead (``walk_phase``)."""
-    d = walk_demand(r, omega_unit)
-    start, weight, lanes, node = expand_lanes(r, d, 0, num_lanes)
+    lanes by the demand instead (``walk_phase``); this runs the plain
+    versions, for tests and measurements."""
+    d = walk_demand_plain(r, omega_unit)
+    start, weight, lanes, node = expand_lanes_plain(r, d, 0, num_lanes)
     first_lane = (d.cum - d.omega_v).gather(0, node)
     valid = lanes[:, None] < torch.clamp_max(d.total, num_lanes)[None, :]
     return WalkAllocation(start=start, walk_idx=lanes[:, None] - first_lane,
@@ -380,16 +472,68 @@ def run_walks_philox(graph, start: torch.Tensor, seed: int,
     return cur.to(torch.int32).view(start.shape)
 
 
-def accumulate_endpoints(endpoints: torch.Tensor, weight: torch.Tensor,
-                         n: int, out: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+def accumulate_endpoints(endpoints: torch.Tensor, weight, n: int,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per column, add each lane's weight at its endpoint: [W, B] ->
-    [n, B] f32 (a scatter-add along nodes).  With ``out`` ([n, B], any
-    strides) the weights are added into it."""
+    [n, B] f32 (a scatter-add along nodes).  ``weight`` is [W, B] f32 or
+    one number that every lane weighs.  With ``out`` ([n, B], its columns
+    adjacent) the weights are added into it.  A CUDA tensor launches
+    K6-accum (``kernels.accumulate_endpoints``: f32 atomics, so the sums
+    match :func:`accumulate_endpoints_plain`'s up to their order); a CPU
+    one runs the plain version."""
     if out is None:
         out = torch.zeros((n, endpoints.shape[1]), dtype=torch.float32,
                           device=endpoints.device)
+    if endpoints.device.type == "cpu":
+        return accumulate_endpoints_plain(endpoints, weight, n, out)
+    kernels.accumulate_endpoints(endpoints, weight, out)
+    return out
+
+
+def accumulate_endpoints_plain(endpoints: torch.Tensor, weight, n: int,
+                               out: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """:func:`accumulate_endpoints` in plain PyTorch: ``scatter_add_``
+    over int64 endpoints (a number weight becomes a [W, B] f32 array)."""
+    if out is None:
+        out = torch.zeros((n, endpoints.shape[1]), dtype=torch.float32,
+                          device=endpoints.device)
+    if not isinstance(weight, torch.Tensor):
+        weight = torch.full(endpoints.shape, weight, dtype=torch.float32,
+                            device=endpoints.device)
     return out.scatter_add_(0, endpoints.long(), weight)
+
+
+def accumulate_chunk_endpoints(endpoints: torch.Tensor, weight: torch.Tensor,
+                               outs: list, bounds: torch.Tensor,
+                               lane_lo: int) -> None:
+    """A chunk of the sharded raw walk: row t of ``endpoints`` /
+    ``weight`` [W, B] is lane lane_lo + t, which ``bounds`` (as
+    :func:`expand_chunk_lanes` takes it) gives to a shard h, and adds its
+    weight at its endpoint into ``outs[h]`` ([n, B] each, columns
+    adjacent); lanes past bounds[G, b] add nowhere.  A CUDA tensor
+    launches K6-accum's sharded form (one launch for every shard), a CPU
+    one runs :func:`accumulate_chunk_endpoints_plain`."""
+    if endpoints.device.type == "cpu":
+        accumulate_chunk_endpoints_plain(endpoints, weight, outs, bounds,
+                                         lane_lo)
+    else:
+        kernels.accumulate_endpoints(endpoints, weight, outs, lane_lo=lane_lo,
+                                     bounds=bounds)
+
+
+def accumulate_chunk_endpoints_plain(endpoints: torch.Tensor,
+                                     weight: torch.Tensor, outs: list,
+                                     bounds: torch.Tensor,
+                                     lane_lo: int) -> None:
+    """:func:`accumulate_chunk_endpoints` in plain PyTorch: per shard one
+    ``scatter_add_`` of the chunk's weights, 0 outside its lanes."""
+    lane = lane_lo + torch.arange(endpoints.shape[0],
+                                  device=bounds.device)[:, None]
+    for h, out in enumerate(outs):
+        own = (lane >= bounds[h][None, :]) & (lane < bounds[h + 1][None, :])
+        w = torch.where(own.to(weight.device), weight, 0.0)
+        out.scatter_add_(0, endpoints.long().to(out.device), w.to(out.device))
 
 
 def walk_lane_budget(omega_unit: float, rmax: float, m: int, n: int,
@@ -481,11 +625,8 @@ def walk_phase(graph: DeviceGraph, r: torch.Tensor, omega_unit: float,
     lanes = 0
     for i, (c0, c1, lo, hi) in enumerate(chunks):
         with clock.stage("alloc"):
-            part = WalkDemand(d.omega_v[:, c0:c1], d.cum[:, c0:c1],
-                              d.total[c0:c1])
-            start, weight, _, node = expand_lanes(r[:, c0:c1], part, lo,
-                                                  hi - lo)
-            del node
+            start, weight = expand_lanes(r[:, c0:c1], d.columns(c0, c1), lo,
+                                         hi - lo)
         with clock.stage("walks"):
             ends = walk_endpoints(graph, start.view(-1), derive_seed(seed, i),
                                   alpha, max_hops)
@@ -517,67 +658,53 @@ def sharded_walk_phase(csr: ShardedOutCSR, rs: list, omega_unit: float,
     column the shards' demands concatenate, so shard h's lanes follow
     shard h - 1's (lane ``off[h, b] + i``, ``off[h, b]`` the walks the
     shards before h demand in column b), and the chunks are
-    ``plan_chunks``' over the columns' totals.  Per chunk, each shard
-    expands its own lanes (``walk_demand`` and ``expand_lanes`` on its own
-    residues, starts made global by + h * n_loc) into one start array on
-    the first shard's device, the walks run once over the slices with
-    ``derive_seed(seed, i)``, and each shard adds its lanes' weights at
-    their endpoints into its partial.  So every walk is ``walk_phase``'s
-    where the two plan the same chunks (always on the CPU; on a card
-    ``walk_phase``'s chunks may be larger), and after P2 the contribution
-    is ``walk_phase``'s up to the order of the float32 sums.  JAX's static per-shard lane count and the walks it
-    drops past it (ROADMAP C7) are not copied."""
+    ``plan_chunks``' over the columns' totals.  Each shard's demand is
+    ``walk_demand`` on its own residues; per chunk, every shard's lanes go
+    straight into the chunk's start and weight arrays on the first
+    shard's device (``expand_chunk_lanes``: lane l of column b is shard
+    h's where off[h, b] <= l < off[h + 1, b], its start made global by +
+    h * n_loc), the walks run once over the slices with
+    ``derive_seed(seed, i)``, and every lane's weight goes at its endpoint
+    into its shard's partial (``accumulate_chunk_endpoints``).  So every
+    walk is ``walk_phase``'s where the two plan the same chunks (always on
+    the CPU; on a card ``walk_phase``'s chunks may be larger), and after
+    P2 the contribution is ``walk_phase``'s up to the order of the float32
+    sums.  JAX's static per-shard lane count and the walks it drops past
+    it (ROADMAP C7) are not copied."""
     G = len(rs)
     n_loc, B = rs[0].shape
     n_pad, dev0 = G * n_loc, rs[0].device
     ds = [walk_demand(r, omega_unit) for r in rs]
     tot = torch.stack([d.total.to(dev0) for d in ds]).cpu().numpy()
     tot = tot.astype(np.int64)                       # [G, B], one read
-    off = np.cumsum(tot, axis=0) - tot
     total = tot.sum(axis=0)
     partials = [torch.zeros((n_pad, B), dtype=torch.float32, device=r.device)
                 for r in rs]
-    # a chunk's lane holds at most: its start and endpoint (8 bytes), each
-    # shard's kept weight and row (12 bytes a shard) and one shard's
-    # expansion at a time (LANE_BYTES); a chunk takes at most
+    # a chunk's lane holds its start, weight and endpoint (12 bytes) and
+    # at most LANE_BYTES of an expansion; a chunk takes at most
     # SHARDED_CHUNK_LANES lanes, so that on a card with room for more the
     # chunks, and with them the walks a seed draws, do not depend on its
     # free memory (two runs of one batch walk the same walks)
-    budget = lane_budget(dev0, LANE_BYTES + 8 + 12 * G)
+    budget = lane_budget(dev0, LANE_BYTES + 12)
     chunks = plan_chunks(total, min(budget, SHARDED_CHUNK_LANES))
+    # the running sums of the shards' totals: column b's lanes bounds[h,
+    # b] .. bounds[h + 1, b] - 1 are shard h's
+    bounds = torch.as_tensor(np.concatenate([np.zeros((1, B), np.int64),
+                                             np.cumsum(tot, axis=0)]),
+                             device=dev0)
     lanes = 0
     for i, (c0, c1, lo, hi) in enumerate(chunks):
         W, Bc = hi - lo, c1 - c0
-        # row W takes the lanes of a shard's range that the chunk does not
-        start = torch.zeros((W + 1, Bc), dtype=torch.int32, device=dev0)
-        mine = []
-        for h, (r, d) in enumerate(zip(rs, ds)):
-            o = off[h, c0:c1]
-            lo_h = max(0, int((lo - o).min()))
-            hi_h = min(int(tot[h, c0:c1].max()), int((hi - o).max()))
-            if hi_h <= lo_h:
-                continue
-            part = WalkDemand(d.omega_v[:, c0:c1], d.cum[:, c0:c1],
-                              d.total[c0:c1])
-            st, weight, lane, node = expand_lanes(r[:, c0:c1], part, lo_h,
-                                                  hi_h - lo_h)
-            del node
-            row = (lane.long()[:, None]
-                   + torch.as_tensor(o - lo, device=r.device)[None, :])
-            ok = (lane[:, None] < part.total[None, :]) & (row >= 0) & \
-                (row < W)
-            row = torch.where(ok, row, W)
-            start.scatter_(0, row.to(dev0), (st + h * n_loc).to(dev0))
-            mine.append((h, row, torch.where(ok, weight, 0.0)))
-            del st
-        ends = walk_endpoints(csr, start[:W].view(-1), derive_seed(seed, i),
+        part = bounds[:, c0:c1].contiguous()
+        start, weight = expand_chunk_lanes(
+            [r[:, c0:c1] for r in rs], [d.columns(c0, c1) for d in ds], part,
+            lo, W, n_loc)
+        ends = walk_endpoints(csr, start.view(-1), derive_seed(seed, i),
                               alpha, max_hops).view(W, Bc)
         del start
-        for h, row, weight in mine:
-            e = ends.to(row.device).gather(0, row.clamp_max(W - 1))
-            accumulate_endpoints(e, weight, n_pad,
-                                 out=partials[h][:, c0:c1])
-        del ends, mine
+        accumulate_chunk_endpoints(ends, weight,
+                                   [p[:, c0:c1] for p in partials], part, lo)
+        del ends, weight
         lanes += W * Bc
     return partials, WalkPhase(
         total=torch.as_tensor(total, dtype=torch.int32, device=dev0),

@@ -1323,6 +1323,8 @@ def test_sharded_raw_engine_on_card(dev):
         assert c["reduce_scatter_onepass"] == 1
         assert c["topk_bounds"] == 4
         assert c["index_walk"] == c["index_walk_sharded_alias"] == 0
+        assert min(c["walk_demand"], c["expand_lanes"],
+                   c["accumulate_endpoints"]) > 0
     np.testing.assert_allclose(res["routed"].values, res["dense"].values,
                                rtol=1e-4, atol=1e-9)
     assert (res["routed"].node_ids == res["dense"].node_ids).mean() >= 0.95
@@ -1477,3 +1479,200 @@ def test_frontier_compacted_push_on_card(dev):
                 <= 1e-5 * want.p.abs() + slack).all()
         assert ((got.r.cpu() - want.r).abs()
                 <= 1e-5 * want.r.abs() + slack).all()
+
+
+def _k6_residue(rng, n, B, omega):
+    """r [n, B] f32: 30% of the entries positive, some exactly on an
+    integer over omega (ceil's edge), some negative; column 0 empty."""
+    r = rng.random((n, B), dtype=np.float32) * (rng.random((n, B)) < 0.3)
+    edge = rng.random((n, B)) < 0.02
+    r[edge] = (rng.integers(1, 50, int(edge.sum())) / np.float32(omega)
+               ).astype(np.float32)
+    r[rng.random((n, B)) < 0.01] = -0.5
+    r[:, 0] = 0.0
+    return r
+
+
+@pytest.mark.parametrize("n,B,cols", [(1000, 1, (0, 1)), (70001, 64, (0, 37)),
+                                      (513, 130, (0, 130)),
+                                      (300, 40, (5, 38)), (256, 8, (0, 8))])
+def test_walk_demand_kernel_equal_plain(dev, n, B, cols):
+    """K6-demand's cum and total torch.equal to the plain version's on the
+    card, at n not a multiple of the 256-node tile, B = 1, over 32
+    columns (two and five column groups) and on a strided slice of the
+    live columns; omega_v is not written."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops import walk
+    omega = 37.3
+    r = torch.as_tensor(_k6_residue(np.random.default_rng(n), n, B, omega),
+                        device=dev)[:, cols[0]:cols[1]]
+    k = kernels.walk_demand.launches
+    got = walk.walk_demand(r, omega)
+    assert kernels.walk_demand.launches == k + 1 and got.omega_v is None
+    want = walk.walk_demand_plain(r, omega)
+    assert torch.equal(got.cum, want.cum) and torch.equal(got.total,
+                                                          want.total)
+    assert got.cum.T.is_contiguous()
+
+
+@pytest.mark.parametrize("lo,W", [(0, None), (0, 64), (3000, 4096),
+                                  (1, 100_000)])
+@pytest.mark.parametrize("B,cols", [(1, (0, 1)), (16, (0, 16)),
+                                    (70, (3, 70))])
+def test_expand_lanes_kernel_equal_plain(dev, lo, W, B, cols):
+    """K6-expand's start and weight torch.equal to the plain expansion's
+    on the card: every lane, a range cut short, a range starting past 0,
+    lanes past every column's total; B = 1, 16 and a strided column slice
+    over three column groups with an empty column."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops import walk
+    omega = 211.0
+    r = torch.as_tensor(_k6_residue(np.random.default_rng(B), 5000, B,
+                                    omega), device=dev)[:, cols[0]:cols[1]]
+    d = walk.walk_demand(r, omega)
+    dp = walk.walk_demand_plain(r, omega)
+    W = int(dp.total.max()) if W is None else W
+    k = kernels.expand_lanes.launches
+    start, weight = walk.expand_lanes(r, d, lo, W)
+    assert kernels.expand_lanes.launches == k + 1
+    want_s, want_w, _, _ = walk.expand_lanes_plain(r, dp, lo, W)
+    assert torch.equal(start, want_s) and torch.equal(weight, want_w)
+
+
+def test_expand_lanes_kernel_hub_column(dev):
+    """A hub node owning over 2^24 lanes of one column, the column's lanes
+    expanded in three ranges (the last past its total): each torch.equal
+    to the plain expansion of the same range."""
+    from fora_tpu_torch.ops import walk
+    omega = float(1 << 25)
+    r = torch.zeros(5000, 2, device=dev)
+    r[1234, 0] = 0.6                  # 20,132,660 lanes
+    r[17, 0] = 1e-6
+    r[4000, 0] = 0.01
+    r[::7, 1] = 1e-4
+    d = walk.walk_demand(r, omega)
+    dp = walk.walk_demand_plain(r, omega)
+    assert torch.equal(d.cum, dp.cum)
+    total = int(dp.total[0])
+    assert total > 1 << 24
+    for lo, hi in ((0, 1 << 23), (1 << 23, 1 << 24),
+                   (1 << 24, total + 1000)):
+        s, w = walk.expand_lanes(r, d, lo, hi - lo)
+        ps, pw, _, _ = walk.expand_lanes_plain(r, dp, lo, hi - lo)
+        assert torch.equal(s, ps) and torch.equal(w, pw), (lo, hi)
+
+
+@pytest.mark.parametrize("G", [2, 4])
+def test_expand_chunk_lanes_kernel_equal_plain(dev, G):
+    """K6-expand's sharded form: a chunk's lanes over G shards' demands,
+    lane l of column b shard h's where bounds[h, b] <= l < bounds[h + 1,
+    b], node + h * n_loc, and node 0 / weight 0 past the columns' walks,
+    torch.equal to the plain sharded expansion, for a whole chunk and for
+    one that cuts the shards' lanes and a run of columns; on the lanes
+    below the totals equal to the expansion of the concatenated
+    residues."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops import walk
+    rng = np.random.default_rng(G)
+    n_loc, B, omega = 3000, 6, 97.0
+    rs = [torch.as_tensor(_k6_residue(rng, n_loc, B, omega), device=dev)
+          for _ in range(G)]
+    ds = [walk.walk_demand(r, omega) for r in rs]
+    dps = [walk.walk_demand_plain(r, omega) for r in rs]
+    tot = torch.stack([d.total.long() for d in dps])
+    bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
+    total = bounds[-1].cpu().numpy()
+    r_cat = torch.cat(rs)
+    d_cat = walk.walk_demand_plain(r_cat, omega)
+    for c0, c1, lo, hi in ((0, B, 0, int(total.max())),
+                           (2, 5, int(total[2:5].min()) // 3,
+                            int(total[2:5].max()) + 10)):
+        part = bounds[:, c0:c1].contiguous()
+        k = kernels.expand_lanes.launches
+        got = walk.expand_chunk_lanes([r[:, c0:c1] for r in rs],
+                                      [d.columns(c0, c1) for d in ds], part,
+                                      lo, hi - lo, n_loc)
+        assert kernels.expand_lanes.launches == k + 1
+        want = walk.expand_chunk_lanes_plain(
+            [r[:, c0:c1] for r in rs], [d.columns(c0, c1) for d in dps],
+            part, lo, hi - lo, n_loc)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        cat_s, cat_w, _, _ = walk.expand_lanes_plain(
+            r_cat[:, c0:c1], d_cat.columns(c0, c1), lo, hi - lo)
+        valid = lo + torch.arange(hi - lo, device=dev)[:, None] < \
+            bounds[-1, c0:c1]
+        assert torch.equal(got[0][valid], cat_s[valid])
+        assert torch.equal(got[1][valid], cat_w[valid])
+
+
+@pytest.mark.parametrize("weight_kind", ["array", "number", "shards"])
+@pytest.mark.parametrize("B", [1, 5, 64])
+def test_accumulate_endpoints_kernel_float64(dev, weight_kind, B):
+    """K6-accum into a strided view (columns 3 .. 3 + B of a wider array)
+    against a float64 scatter-add of the same lanes: rtol 1e-4, atol 1e-6
+    (f32 atomics in no fixed order, a hot endpoint taking a third of the
+    lanes); padding lanes of weight 0 and the columns outside the view
+    untouched; the sharded form (three partials, bounds from lane 100 on)
+    puts each lane into its shard's partial and none past the last."""
+    from fora_tpu_torch.ops import walk
+    rng = np.random.default_rng(B)
+    n, W = 4000, 40_000
+    ends = rng.integers(0, n, (W, B)).astype(np.int32)
+    ends[rng.random((W, B)) < 0.33] = 123
+    w = rng.random((W, B), dtype=np.float32) * 1e-3
+    w[rng.random((W, B)) < 0.1] = 0.0
+    if weight_kind == "number":
+        weight, w64 = 2.5e-4, np.full((W, B), np.float32(2.5e-4), np.float64)
+    else:
+        weight, w64 = torch.as_tensor(w, device=dev), w.astype(np.float64)
+    G = 3 if weight_kind == "shards" else 1
+    bigs = [torch.full((n, B + 7), 2.0, device=dev) for _ in range(G)]
+    outs = [big[:, 3:3 + B] for big in bigs]
+    ends_t = torch.as_tensor(ends, device=dev)
+    if weight_kind == "shards":
+        cuts = np.sort(rng.integers(0, W + 200, (G, B)), axis=0)
+        bounds = np.concatenate([np.zeros((1, B), np.int64), cuts])
+        walk.accumulate_chunk_endpoints(
+            ends_t, weight, outs, torch.as_tensor(bounds, device=dev), 100)
+        lane = 100 + np.arange(W)[:, None]
+        masks = [(lane >= bounds[h]) & (lane < bounds[h + 1])
+                 for h in range(G)]
+    else:
+        walk.accumulate_endpoints(ends_t, weight, n, out=outs[0])
+        masks = [np.ones((W, B), bool)]
+    for h in range(G):
+        want = np.full((n, B), 2.0)
+        for b in range(B):
+            np.add.at(want[:, b], ends[:, b], np.where(masks[h], w64, 0)[:, b])
+        torch.testing.assert_close(outs[h].double().cpu(),
+                                   torch.as_tensor(want), rtol=1e-4,
+                                   atol=1e-6)
+        assert (bigs[h][:, :3] == 2.0).all() and \
+            (bigs[h][:, 3 + B:] == 2.0).all()
+
+
+def test_walk_phase_on_card_runs_k6(dev):
+    """walk_phase on the card launches K6-demand once, K6-expand and
+    K6-accum once per chunk and no plain expansion: its columns' mass
+    equals their residue's, its demand the plain version's."""
+    from fora_tpu_torch import ForaConfig as TorchForaConfig
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.graph import generators as tgen
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops import push, walk
+    g = tgen.rmat(12, 1 << 15, seed=3)
+    rcfg = TorchForaConfig(epsilon=0.5).resolved(g.n, g.m)
+    dg = to_device(g, device=dev)
+    src = torch.arange(0, 16 * 61, 61, dtype=torch.int32, device=dev)
+    st = push.forward_push(dg, src, rmax=rcfg.rmax, alpha=rcfg.alpha)
+    kernels.reset_launch_counts()
+    contrib, info = walk.walk_phase(dg, st.r, rcfg.omega_unit, 3,
+                                    rcfg.alpha, rcfg.max_walk_hops, live=12)
+    c = kernels.launch_counts()
+    assert c["walk_demand"] == 1
+    assert c["expand_lanes"] == c["accumulate_endpoints"] == info.chunks
+    want = walk.walk_demand_plain(st.r[:, :12], rcfg.omega_unit).total
+    assert torch.equal(info.total[:12], want)
+    torch.testing.assert_close(contrib.sum(0)[:12], st.r.sum(0)[:12],
+                               rtol=1e-4, atol=0)
+    assert float(contrib[:, 12:].abs().sum()) == 0.0

@@ -198,4 +198,4 @@ def test_cpu_tensors_never_launch_kernels():
         walk.walk_endpoints(shard_out_csr(graph, ["cpu"] * 3),
                             torch.zeros(100, dtype=torch.int32), 1, 0.2, 64)
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 19
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 22

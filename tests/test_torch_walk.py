@@ -56,7 +56,7 @@ def test_expand_lanes_range_is_a_slice(lo, W):
     rt = torch.from_numpy(r)
     d = walk.walk_demand(rt, 21.7)
     full = walk.allocate_walks(rt, 21.7, lo + W)
-    start, weight, lanes, _ = walk.expand_lanes(rt, d, lo, W)
+    start, weight, lanes, _ = walk.expand_lanes_plain(rt, d, lo, W)
     assert torch.equal(lanes, torch.arange(lo, lo + W, dtype=torch.int32))
     assert torch.equal(start, full.start[lo:])
     assert torch.equal(weight, full.weight[lo:])
