@@ -75,7 +75,7 @@ memory:
                  the raw-walk one-shot (ShardedForaEngine without an
                  index: the push to rmax * out_deg, each shard's lanes
                  from its own residues walked over the out-CSR's shard
-                 slices by K4's sharded form, P2, K3's selection) on the
+                 slices by K6+K4's sharded form, P2, K3's selection) on the
                  same 128 sources at the final delta, once under dense
                  and once under routed (placement seconds, wall,
                  supersteps), routed against dense (values within rtol
@@ -89,7 +89,15 @@ memory:
                  (printed), each shard's demand equal to the plain one,
                  the chunk's lanes over the shards' demands equal to the
                  concatenation's expansion, the accumulate into the
-                 shards' partials held to a float64 sum (k6_accum_check)
+                 shards' partials held to a float64 sum (k6_accum_check);
+                 and K6+K4's sharded form, one launch for the chunk,
+                 against that chain (raw_walk_row: endpoints bit-equal to
+                 K4's on every lane below its column's demand, no other
+                 lane walked, the contribution by f32_gate against the
+                 float64 sum of the chain's weights at its endpoints, its
+                 counts of adds exact), timed as called and in device
+                 time beside the chain's three launches' device time and
+                 its bound (raw_walk_bound)
   10. raw walk   the first 64 sources through TopkRunner(index=None)
                  .query_pool(batch=64, defer_below=32) and flush_deferred,
                  printing per level the walks demanded (largest column,
@@ -111,8 +119,10 @@ memory:
                  positive terms), each timed as called and in
                  device time beside its bound, the plain chain and the
                  library call (torch.cumsum of the int32 omega;
-                 scatter_add_ over int64 endpoints); precision@50 of the
-                 first 32 against phase 7's exact top-50 (>= 0.95)
+                 scatter_add_ over int64 endpoints); K6+K4 on the same
+                 chunk held to that chain and timed as in phase 9;
+                 precision@50 of the first 32 against phase 7's exact
+                 top-50 (>= 0.95)
   11. montecarlo the first 32 sources through make_montecarlo_fn (2^22
                  walks per query, K4, K6's accumulate of the constant
                  weight once per chunk): wall time, precision@50 (>= 0.95)
@@ -264,17 +274,18 @@ memory:
                  phase 9's timed run with one K2 launch per shard, P1 at
                  (G-1) G launches per superstep and P2's one pass once
                  (its hop kernel never with every shard on one card),
-                 K1, K3 and K4 and no K2 in phase 10, K4 in phase 11, P3
-                 in phase 12; K6's three kernels in the raw pools (phases
-                 10 and 13, an accumulate per expansion) and the raw
+                 K1, K3 and K6+K4 and no K2 in phase 10, K4 in phase 11,
+                 P3 in phase 12; the demand and K6+K4 (once per walk
+                 chunk) in the raw pools (phases 10 and 13) and the raw
                  one-shots (phases 9 and 13, the demand once per shard),
-                 its accumulate alone in Monte Carlo (phases 11 and 13,
-                 once per chunk) and the CLI's hubppr, K6 on no other
-                 path, and no plain version of K6 in any of those runs
-                 nor in any CLI action (``count_plain_k6``); in phase 13
-                 K1-K3 and K4's alias branch
-                 (index_walk_alias) in the indexed run, K1, K3 and the
-                 alias branch in the raw pool, the alias branch in Monte
+                 and there no K6-expand, K6-accum or K4 launch of their
+                 own; K4 and the accumulate alone in Monte Carlo (phases
+                 11 and 13, once per chunk) and the CLI's hubppr; K6 and
+                 K6+K4 on no other path, K6-expand on none, and no plain
+                 version of K6 or K6+K4 in any of those runs nor in any
+                 CLI action (``count_plain_k6``); in phase 13 K1-K3 and
+                 K4's alias branch (index_walk_alias) in the indexed run,
+                 K1, K3 and K6+K4 in the raw pool, the alias branch in Monte
                  Carlo, never the uniform branch there and never the
                  alias branch before; in phase 14 K4 in build, K1-K3 in
                  batch-topk and in the server (its launch counts printed
@@ -293,9 +304,9 @@ memory:
                  alias form on the weighted graph only), K1, K3 once per
                  shard, P2's one pass once, P1 on the supersteps that took
                  the ring, P3 and the clear on routed's compacted ones, no
-                 K2 and no unsharded walk branch; in the sharded index
-                 build K4's sharded form once per 2^23 walks; K4's sharded
-                 form on no other path; in phase 16's compacted pushes
+                 K2 and no K4 branch; in the sharded index build K4's
+                 sharded form once per 2^23 walks; K4's sharded form on
+                 no other path; in phase 16's compacted pushes
                  K5's pre-pass, K5 and K1's gather (the supersteps that
                  fell back), never K1's pre-pass; K1-K3 in the relabelled
                  pool; K5 and its pre-pass on no other path; and neither
@@ -320,18 +331,24 @@ device_ms, the kernel's time with the host's enqueue hidden, beside ms,
 which like every ms of the line times the launches as called, and the
 clear its library form's device time, library_device_ms;
 index_walk_sharded and index_walk_sharded_alias, K4's sharded form on
-the raw one-shot's allocation with the raw one-shot's launches (phases 9
-and 13), carry unsharded_ms, K4's unsharded branch on the same starts;
+the raw one-shot's allocation with the sharded index build's launches
+(phase 15; no path runs the alias form since K6+K4), carry
+unsharded_ms, K4's unsharded branch on the same starts;
 frontier_prepass and frontier_push, K5's two launches, phase 16's
 superstep at B = 32 with the launches of its compacted pushes, carry
 device_ms and earlier_device_ms, the earlier form's device time on the
 same state; walk_demand, expand_lanes and accumulate_endpoints, K6, are
-phase 10's pool's largest walk phase with phase 10's launches and carry
-device_ms: the demand's bound r read and cum written once, the
-expansion's 8 bytes
-a lane slot written and the distinct 32-byte sectors of cum and r at the
-lanes' nodes, the accumulate's 8 bytes a lane read and the distinct
-sectors of the output it touches, read and written), then,
+phase 10's pool's largest walk phase with phase 10's launches (the
+accumulate's Monte Carlo's, phase 11) and carry device_ms: the demand's
+bound r read and cum written once, the expansion's 8 bytes a lane slot
+written and the distinct 32-byte sectors of cum and r at the lanes'
+nodes, the accumulate's 8 bytes a lane read and the distinct sectors of
+the output it touches, read and written; raw_walk, K6+K4, is the same
+walk phase with phase 10's launches, and carries device_ms,
+chain_device_ms (the device time of the three launches it replaced on
+the same chunk) and sharded_* (its sharded form on phase 9's
+allocation), its bound K4's walk bound plus the sectors of cum and r at
+the lanes' nodes and of the output, read and written), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -375,7 +392,7 @@ MAIN_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
 SHARDED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                    "topk_bounds", "ring_all_gather_hop",
                    "reduce_scatter_onepass")
-RAW_KERNELS = ("push_prepass", "gather_scatter_add", "index_walk",
+RAW_KERNELS = ("push_prepass", "gather_scatter_add", "raw_walk",
                "topk_bounds")
 WEIGHTED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                     "topk_bounds", "index_walk_alias")
@@ -591,7 +608,8 @@ def walk_bound(graph, start, gen, alpha, max_hops, rate, hub=None) -> dict:
           f"(philox_probe.cu) -> {ops_ms:.4f} ms; bound by {by}; the "
           f"walks' own reads, no sector shared between walks: {own_reads} "
           f"sectors -> {own_ms:.4f} ms")
-    return dict(bound_ms=max(ms, ops_ms), bound_by=by)
+    return dict(bound_ms=max(ms, ops_ms), bound_by=by, bytes_ms=ms,
+                ops_ms=ops_ms)
 
 
 def walk_branch(graph, hub=None) -> str:
@@ -1091,7 +1109,7 @@ def k4_vs_plain_on_level(runner, dg, sources, level):
 
 PLAIN_K6 = ("walk_demand_plain", "expand_lanes_plain",
             "expand_chunk_lanes_plain", "accumulate_endpoints_plain",
-            "accumulate_chunk_endpoints_plain")
+            "accumulate_chunk_endpoints_plain", "raw_walk_chunk_plain")
 plain_k6_calls: dict = {}
 
 
@@ -1183,15 +1201,8 @@ def k6_expand_row(r, d, dp, W):
 def k6_accum_check(label, ends, weight, n, bounds=None, G=1) -> float:
     """K6-accum of ``weight`` at ``ends`` into a fresh [n, B] (with
     ``bounds``, its sharded form into G fresh partials, lanes from 0) held
-    to the float64 plain sum.  Two gates: every entry's count of non-zero
-    lanes, accumulated as 1.0s in f32 by the kernel, equals the plain
-    count exactly (integers below 2^24: no lane lost, added or sent to
-    another shard), and every entry's error is within the bound of any
-    f32 sum of N positive terms in any order, |got - sum| <= gamma(N - 1)
-    sum, gamma(k) = k u / (1 - k u), u = 2^-24 (the adds of the f32
-    atomics come in no fixed order, and a walk's source takes tens of
-    thousands of equal weights, whose roundings do not cancel).  Returns
-    the max abs error."""
+    to the float64 plain sum by f32_gate (the lanes' weights replaced by
+    1.0s give each entry's count of adds).  Returns the max abs error."""
     import torch
     from fora_tpu_torch.ops import walk
     B = ends.shape[1]
@@ -1211,19 +1222,8 @@ def k6_accum_check(label, ends, weight, n, bounds=None, G=1) -> float:
     ones = (weight != 0).float()
     cnt = run(ones, torch.float32, False)
     cnt64 = run(ones.double(), torch.float64, True)
-    if not torch.equal(cnt.double(), cnt64):
-        fail(f"K6-accum ({label}): {int((cnt.double() != cnt64).sum())} "
-             "entries count other lanes than the plain scatter-add")
-    del cnt, ones
-    u = 2.0 ** -24
-    k = (cnt64 - 1).clamp_min(0) * u
-    err = (got.double() - want).abs()
-    bad = err > k / (1 - k) * want
-    if bool(bad.any()):
-        first = tuple(bad.nonzero()[0].tolist())
-        fail(f"K6-accum ({label}): {int(bad.sum())} entries beyond the f32 "
-             f"summation bound (first at {first}: {float(got[first]):.7e} "
-             f"vs {float(want[first]):.7e} over {int(cnt64[first])} adds)")
+    del ones
+    err = f32_gate(f"K6-accum ({label})", got, want, cnt, cnt64)
     plain32 = run(weight, torch.float32, True).double()
 
     def rel(x):
@@ -1232,6 +1232,32 @@ def k6_accum_check(label, ends, weight, n, bounds=None, G=1) -> float:
           f"summation bound; max rel err {rel(got.double()):.2e} "
           f"(scatter_add_ in f32 on the same device: {rel(plain32):.2e}), "
           f"max adds to one entry {int(cnt64.max())}")
+    return err
+
+
+def f32_gate(label, got, want, cnt, cnt64) -> float:
+    """A kernel's f32 sums ``got`` held to the float64 sums ``want`` of
+    the same terms: every entry's count of non-zero terms, summed by the
+    kernel as 1.0s in f32 (``cnt``), equals the float64 count ``cnt64``
+    exactly (integers below 2^24: no term lost, added twice or sent to
+    another entry), and every entry's error is within the bound of any
+    f32 sum of N positive terms in any order, |got - sum| <= gamma(N - 1)
+    sum, gamma(k) = k u / (1 - k u), u = 2^-24 (atomics add in no fixed
+    order, and a walk's source takes tens of thousands of equal weights,
+    whose roundings do not cancel).  Returns the max abs error."""
+    import torch
+    if not torch.equal(cnt.double(), cnt64):
+        fail(f"{label}: {int((cnt.double() != cnt64).sum())} entries count "
+             "other terms than the float64 sum")
+    u = 2.0 ** -24
+    k = (cnt64 - 1).clamp_min(0) * u
+    err = (got.double() - want).abs()
+    bad = err > k / (1 - k) * want
+    if bool(bad.any()):
+        first = tuple(bad.nonzero()[0].tolist())
+        fail(f"{label}: {int(bad.sum())} entries beyond the f32 summation "
+             f"bound (first at {first}: {float(got[first]):.7e} vs "
+             f"{float(want[first]):.7e} over {int(cnt64[first])} adds)")
     return float(err.max())
 
 
@@ -1274,6 +1300,139 @@ def k6_line(name, row, label) -> None:
           f"device)")
 
 
+def demand_sectors(rs, omegas) -> int:
+    """Distinct 32-byte sectors of each shard's cum (at v and v - 1, its
+    [Bc, n] layout) and r (at v) over the nodes v that own lanes
+    (omega_v > 0): what a chunk's lanes must read to find their start
+    and weight, each once."""
+    import torch
+    total = 0
+    for r, om in zip(rs, omegas):
+        v, b = torch.nonzero(om > 0, as_tuple=True)
+        n = r.shape[0]
+        total += sectors(torch.cat([b * n + v, b * n + (v - 1).clamp_min(0)]))
+        total += sectors(v * r.stride(0) + b)
+    return total
+
+
+def raw_walk_row(label, launch, fresh, ones, chain, chain_ends, weight,
+                 valid, plain, plain_weight, bound, shard=None) -> dict:
+    """K6+K4 on a chunk against the chain that ran before it on the same
+    chunk and against its plain version.  ``launch(outs, ends)`` is one
+    K6+K4 launch into the chunk's outputs (``fresh()`` zeroed ones, a
+    list), ``ones(outs)`` the same launch on residues replaced by their
+    omega_v (every weight 1.0, so each entry sums its count of adds);
+    ``chain`` maps the chain's three launches (K6-expand, K4, K6-accum) to
+    functions, ``chain_ends`` and ``weight`` are its [W, Bc] endpoints and
+    weights, ``valid`` the lanes below their column's demand, ``shard``
+    (sharded) each lane's shard; ``plain(outs, ends)`` runs
+    raw_walk_chunk_plain on the same chunk (searchsorted starts,
+    run_walks_philox, scatter_add_), ``plain_weight`` its lanes' weights
+    (expand_chunk_lanes_plain's).  The gates: K6+K4's endpoints (its
+    ``ends`` output) equal the chain's and the plain version's on every
+    valid lane and it walks no other lane; its contribution passes
+    f32_gate against the float64 sum of the chain's weights at the chain's
+    endpoints and against that of the plain version's weights at its
+    endpoints, its counts exact.  Timed as called and in device time
+    beside the chain's launches' device times and their sum, the plain
+    version and ``bound`` (raw_walk_bound's); no library call walks
+    (null)."""
+    import torch
+    from fora_tpu_torch.utils.timing import cuda_ms, device_ms
+    W, Bc = chain_ends.shape
+    dev = chain_ends.device
+    ends = torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
+    outs = fresh()
+    launch(outs, ends)
+    got = torch.stack(outs)
+    G = len(outs)
+    n = outs[0].shape[0]
+    pends = torch.full_like(ends, -1)
+    plain(fresh(), pends)
+    for name, want_ends in (("the chain", chain_ends),
+                            ("the plain version", pends)):
+        differ = int((ends[valid] != want_ends[valid]).sum())
+        extra = int((ends[~valid] != -1).sum())
+        if differ or extra:
+            fail(f"K6+K4 ({label}): {differ} of {int(valid.sum())} endpoints "
+                 f"differ from {name}'s, {extra} lanes past the demand "
+                 "walked")
+    if bool((pends[~valid] != -1).any()):
+        fail(f"raw_walk_chunk_plain ({label}): an endpoint kept for a lane "
+             "past the demand")
+    del ends
+    cols = torch.arange(Bc, device=dev)[None, :]
+
+    def sums64(e, w):
+        """The float64 sums of ``w`` at ``e`` on the valid lanes, and the
+        counts of their terms, [G, n, Bc]."""
+        flat = torch.where(valid, e, 0).long() * Bc + cols
+        if shard is not None:
+            flat += shard * (n * Bc)
+        flat = flat[valid]
+        want = torch.zeros(G * n * Bc, dtype=torch.float64, device=dev)
+        want.index_add_(0, flat, w[valid].double())
+        cnt64 = torch.zeros_like(want)
+        cnt64.index_add_(0, flat, torch.ones(flat.shape[0],
+                                             dtype=torch.float64, device=dev))
+        return want.view(G, n, Bc), cnt64.view(G, n, Bc)
+    c = fresh()
+    ones(c)
+    cnt = torch.stack(c)
+    del c
+    err = 0.0
+    for name, (e, w) in (("the chain", (chain_ends, weight)),
+                         ("the plain version", (pends, plain_weight))):
+        want, cnt64 = sums64(e, w)
+        err = max(err, f32_gate(f"K6+K4 ({label}) against {name}", got,
+                                want, cnt, cnt64))
+        del want, cnt64
+    del cnt, got, pends
+    outs = fresh()
+    row = dict(max_abs_err=err,
+               ms=cuda_ms(lambda: launch(outs, None)),
+               device_ms=device_ms(lambda: launch(outs, None)),
+               plain_ms=cuda_ms(lambda: plain(outs, None), iters=1,
+                                warmup=1),
+               library_ms=None, **bound)
+    parts = {k: device_ms(f) for k, f in chain.items()}
+    row["chain_device_ms"] = sum(parts.values())
+    print(f"K6+K4 ({label}): endpoints bit-equal to the chain's and the "
+          f"plain version's on {int(valid.sum())} walked lanes, none past the "
+          f"demand; counts exact, every entry within the f32 summation bound "
+          f"of both float64 sums (max abs err {err:.3e}); {row['ms']:.4f} ms "
+          f"as called, device {row['device_ms']:.4f}; the chain "
+          f"{row['chain_device_ms']:.4f} ms device (" + ", ".join(
+              f"{k} {v:.4f}" for k, v in parts.items())
+          + f"); plain {row['plain_ms']:.4f} ms; bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({row['bound_ms'] / row['device_ms']:.0%} of it reached, "
+          "device)")
+    return row
+
+
+def raw_walk_bound(graph, starts, rcfg, demand_sectors_, out_sectors,
+                   rate) -> dict:
+    """K6+K4's bound on a chunk: walk_bound()'s reads and Philox blocks of
+    the walks from ``starts`` (the walked lanes' start nodes, global ids,
+    over the unsharded ``graph``), plus the sectors a chunk's lanes must
+    read to find their starts and weights (demand_sectors()) and the
+    sectors of the output its walks add into, read and written, at the
+    device memory's rate; the larger of the bytes' and the operations'
+    times."""
+    import torch
+    gen = torch.Generator(device=starts.device).manual_seed(SEED)
+    b = walk_bound(graph, starts, gen, rcfg.alpha, rcfg.max_walk_hops, rate)
+    extra = (demand_sectors_ + 2 * out_sectors) * SECTOR / hbm_rate() * 1e3
+    t_bytes = b["bytes_ms"] + extra
+    print(f"K6+K4 bound: K4's walks {b['bytes_ms']:.4f} ms of reads, "
+          f"{b['ops_ms']:.4f} ms of Philox blocks; {demand_sectors_} sectors "
+          f"of cum and r at the lanes' nodes and {out_sectors} of the output, "
+          f"read and written, {extra:.4f} ms")
+    return (dict(bound_ms=t_bytes, bound_by="bytes") if t_bytes >= b["ops_ms"]
+            else dict(bound_ms=b["ops_ms"], bound_by="operations"))
+
+
 def k6_on_pool(dg, rcfg, sources):
     """K6's three kernels at the raw pool's own shapes: the pool of phase
     10 run again with a fresh runner, the residue (its live columns, a
@@ -1309,14 +1468,55 @@ def k6_on_pool(dg, rcfg, sources):
              f"{best['r'].shape[1]} columns, {W} x {r.shape[1]} lane "
              f"slots, {int(dp.total.sum())} walks")
     rows["expand_lanes"], start, weight = k6_expand_row(r, d, dp, W)
-    del dp
     ends = walk.walk_endpoints(dg, start.view(-1), SEED, rcfg.alpha,
                                rcfg.max_walk_hops).view(start.shape)
-    del start
     rows["accumulate_endpoints"] = k6_accum_row(ends, weight, dg.n, label)
     for name, row in rows.items():
         k6_line(name, row, label)
+    rows["raw_walk"] = fused_on_pool(dg, rcfg, r, d, dp, W, start, weight,
+                                     ends, label)
     return rows
+
+
+def fused_on_pool(dg, rcfg, r, d, dp, W, start, weight, ends, label):
+    """K6+K4 on the raw pool's largest walk phase (one chunk, lanes 0 .. W
+    - 1, walks keyed as the chain's under SEED), held to the chain on it
+    (raw_walk_row: ``start``, ``weight`` and ``ends`` are the chain's)."""
+    import torch
+    from fora_tpu_torch.ops import walk
+    a, hops = rcfg.alpha, rcfg.max_walk_hops
+    B = r.shape[1]
+    dev = r.device
+    valid = torch.arange(W, device=dev)[:, None] < d.total[None, :]
+    om = dp.omega_v.float()
+    bounds = torch.stack([torch.zeros_like(dp.total, dtype=torch.int64),
+                          dp.total.long()])
+    acc = torch.zeros((dg.n, B), dtype=torch.float32, device=dev)
+
+    def fresh():
+        return [torch.zeros((dg.n, B), dtype=torch.float32, device=dev)]
+    chain = {"K6-expand": lambda: walk.expand_lanes(r, d, 0, W),
+             "K4": lambda: walk.walk_endpoints(dg, start.view(-1), SEED, a,
+                                               hops),
+             "K6-accum": lambda: walk.accumulate_endpoints(ends, weight,
+                                                           dg.n, out=acc)}
+    cols = torch.arange(B, device=dev)[None, :].expand(W, B)
+    out_sectors = sectors((ends.long() * B + cols)[valid])
+    bound = raw_walk_bound(dg, start[valid], rcfg,
+                           demand_sectors([r], [dp.omega_v]), out_sectors,
+                           walk_sector_rate(dg))
+    return raw_walk_row(
+        label,
+        lambda outs, e: walk.raw_walk_chunk(dg, r, d, 0, W, SEED, a, hops,
+                                            outs[0], ends=e),
+        fresh,
+        lambda outs: walk.raw_walk_chunk(dg, om, d, 0, W, SEED, a, hops,
+                                         outs[0]),
+        chain, ends, weight, valid,
+        lambda outs, e: walk.raw_walk_chunk_plain(dg, [r], [dp], bounds, 0, W,
+                                                  0, SEED, a, hops, outs,
+                                                  ends=e),
+        walk.expand_chunk_lanes_plain([r], [dp], bounds, 0, W, 0)[1], bound)
 
 
 def bippr_targets(n, seed, must=()):
@@ -1453,9 +1653,9 @@ def run_raw(dg, rcfg, sources, exact_ids, name="raw", hub=None, k6=False):
     plain version of K6 may run), then K4's shape (iii), the allocation of
     the deepest level it reached, for the graph's branch (bit-equal to
     run_walks_philox) and, with ``hub``, K4-hub (timed only); with ``k6``,
-    K6's three kernels at the pool's shapes (k6_on_pool).  Returns its
-    launch counts (reset just before the run, read just after) and K6's
-    rows (or None)."""
+    K6's three kernels and K6+K4 at the pool's shapes (k6_on_pool).
+    Returns its launch counts (reset just before the run, read just
+    after; "chunks" the walk phases' chunks) and K6's rows (or None)."""
     import numpy as np
     from fora_tpu_torch import kernels
     from fora_tpu_torch.algo.topk import TopkRunner
@@ -1474,10 +1674,12 @@ def run_raw(dg, rcfg, sources, exact_ids, name="raw", hub=None, k6=False):
     over = sum(st["overflow"] for st in stats)
     walks = sum(st["walks_total"] for st in stats)
     lanes = sum(st["lanes"] for st in stats)
+    counts["chunks"] = sum(st["chunks"] for st in stats)
     print(f"{name}: {len(src)} queries in {wall:.3f} s -> "
           f"{len(src) / wall:.2f} "
           f"q/s; levels used {levels}; accepted {n_acc}/{len(src)}; "
-          f"overflowing columns {over}; walks {walks}, lanes {lanes}")
+          f"overflowing columns {over}; walks {walks}, lanes {lanes} in "
+          f"{counts['chunks']} chunks")
     if over:
         fail(f"{name}: {over} columns overflowed their lanes")
     ms = {}
@@ -1735,7 +1937,7 @@ def run_weighted(g, rcfg, dev):
     sharded_counts = run_weighted_sharded(gw, rcfg, index, sources, ex)
     del index
     # phase 9's raw one-shot on the weighted graph (K4's sharded alias form)
-    raw1_counts, raw1_steps, raw1_row = run_sharded_raw(
+    raw1_counts, raw1_steps, raw1_row, _ = run_sharded_raw(
         gw, rcfg, sources[:POOL], ex, dgw, "weighted sharded raw")
     raw_counts, _ = run_raw(dgw, rcfg, sources, ex, name="weighted raw")
     mc_counts = run_montecarlo(dgw, rcfg, sources, ex,
@@ -2331,7 +2533,7 @@ def sharded_walk_equal(csr, graph, rcfg, start, label) -> None:
           f"run_walks_philox on the unsharded graph")
 
 
-def raw_allocation(eng, rcfg, sources):
+def raw_allocation(eng, rcfg, sources, graph):
     """A raw level's allocation from the raw one-shot's residues: the
     push of ``sources`` on ``eng``, then every lane of the walk demand of
     the concatenated residues (lanes 0 .. the largest column's total, as
@@ -2344,7 +2546,9 @@ def raw_allocation(eng, rcfg, sources):
     expansion on every lane below its column's total (weight 0 past it),
     and the accumulate into the shards' partials
     (accumulate_chunk_endpoints) held to the float64 plain sum
-    (k6_accum_check).  Returns the flat starts."""
+    (k6_accum_check); then K6+K4's sharded form, one launch for the
+    chunk, held to that chain (raw_walk_row; its bound over ``graph``, the
+    unsharded device graph).  Returns (the flat starts, K6+K4's row)."""
     import torch
     from fora_tpu_torch.ops import walk
     from fora_tpu_torch.utils.timing import device_ms
@@ -2370,15 +2574,17 @@ def raw_allocation(eng, rcfg, sources):
     tot = torch.stack([dh.total.long() for dh in ds])
     bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
     s_start, s_weight = walk.expand_chunk_lanes(rs, ds, bounds, 0, W, n_loc)
-    valid = torch.arange(W, device=r.device)[:, None] < bounds[-1][None, :]
+    lane = torch.arange(W, device=r.device)[:, None]
+    valid = lane < bounds[-1][None, :]
     if not (torch.equal(s_start[valid], start[valid])
             and torch.equal(s_weight[valid], weight[valid])
             and not bool(s_weight[~valid].any())):
         fail("K6-expand's sharded form: the chunk's lanes over the shards' "
              "demands differ from the concatenation's expansion")
-    del s_start, s_weight, valid
-    ends = walk.walk_endpoints(eng.placement.walk, start.view(-1), SEED,
-                               rcfg.alpha, rcfg.max_walk_hops).view(W, B)
+    del s_weight
+    csr = eng.placement.walk
+    a, hops = rcfg.alpha, rcfg.max_walk_hops
+    ends = walk.walk_endpoints(csr, start.view(-1), SEED, a, hops).view(W, B)
     rows["accumulate_endpoints"] = k6_accum_row(ends, weight, r.shape[0],
                                                 label)
     err = k6_accum_check(f"the shards' partials of {label}", ends, weight,
@@ -2388,8 +2594,6 @@ def raw_allocation(eng, rcfg, sources):
                                                      n_loc))
     a_ms = device_ms(lambda: walk.accumulate_chunk_endpoints(
         ends, weight, parts, bounds, 0))
-    del parts
-    del ends, weight
     for name, row in rows.items():
         k6_line(name, row, label)
     print(f"K6's sharded forms on {label}: {len(rs)} shards' demands equal "
@@ -2397,7 +2601,39 @@ def raw_allocation(eng, rcfg, sources):
           f"concatenation's; the accumulate into the shards' partials held "
           f"to float64 (max abs err {err:.3e}); device ms of the sharded "
           f"forms: expansion {x_ms:.4f}, accumulate {a_ms:.4f}")
-    return start.view(-1)
+    # K6+K4's sharded form on the same chunk, against that chain (its
+    # endpoints on the valid lanes are the ones K4 gave on ``start``)
+    oms = [walk.walk_demand_plain(x, omega).omega_v for x in rs]
+    shard = (lane[None] >= bounds[1:-1][:, None, :]).sum(0)
+    cols = torch.arange(B, device=r.device)[None, :]
+    out_sectors = sectors(((shard * r.shape[0] + ends.long()) * B + cols)
+                          [valid])
+    bound = raw_walk_bound(graph, start[valid], rcfg,
+                           demand_sectors(rs, oms), out_sectors,
+                           walk_sector_rate(graph))
+    ones_r = [x.float() for x in oms]
+    del oms
+    chain = {"K6-expand (sharded)": lambda: walk.expand_chunk_lanes(
+                 rs, ds, bounds, 0, W, n_loc),
+             "K4 (sharded)": lambda: walk.walk_endpoints(
+                 csr, s_start.view(-1), SEED, a, hops),
+             "K6-accum (sharded)": lambda: walk.accumulate_chunk_endpoints(
+                 ends, weight, parts, bounds, 0)}
+    fused = raw_walk_row(
+        f"sharded, {label}",
+        lambda outs, e: walk.raw_walk_sharded_chunk(
+            csr, rs, ds, bounds, 0, W, SEED, a, hops, outs, ends=e),
+        lambda: [torch.zeros_like(r) for _ in rs],
+        lambda outs: walk.raw_walk_sharded_chunk(
+            csr, ones_r, ds, bounds, 0, W, SEED, a, hops, outs),
+        chain, ends, weight, valid,
+        lambda outs, e: walk.raw_walk_chunk_plain(csr, rs, ds, bounds, 0, W,
+                                                  n_loc, SEED, a, hops, outs,
+                                                  ends=e),
+        walk.expand_chunk_lanes_plain(rs, ds, bounds, 0, W, n_loc)[1], bound,
+        shard=shard)
+    del parts, ends, weight, s_start, shard, valid, lane, ones_r
+    return start.view(-1), fused
 
 
 def sharded_walk_row(eng, graph, rcfg, start, label) -> dict:
@@ -2440,16 +2676,24 @@ def run_sharded_raw(g, rcfg, sources, exact_ids, graph, name):
     K4's sharded form held and timed
     on a raw level's allocation from the one-shot's residues (its first
     RAW_CHECK_COLS sources) against ``graph``, the unsharded device graph.
-    Returns (launch counts per exchange, the exchange's supersteps per
-    exchange, the kernel row of K4's sharded form)."""
+    Returns (launch counts per exchange, the exchange's supersteps and
+    the walk phase's chunks per exchange, the kernel row of K4's sharded
+    form, K6+K4's row on that allocation)."""
     import numpy as np
     import torch
     from fora_tpu_torch import kernels
     from fora_tpu_torch.eval import metrics
     from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
+    from fora_tpu_torch.parallel import sharded as psh
     mesh = make_mesh(SHARDS)
     res, counts, steps = {}, {}, {}
     B = len(sources)
+    orig, chunks = psh.sharded_walk_phase, []
+
+    def counted(*a, **kw):      # the walk phases' chunks, for the counts
+        out = orig(*a, **kw)
+        chunks.append(out[1].chunks)
+        return out
     for mode in ("dense", "routed"):
         t0 = time.perf_counter()
         eng = ShardedForaEngine(g, mesh, rcfg, k=K, exchange=mode)
@@ -2460,18 +2704,23 @@ def run_sharded_raw(g, rcfg, sources, exact_ids, graph, name):
         before = (xch.compacted, xch.fell_back, xch.cleared)
         plain0 = dict(plain_k6_calls)
         kernels.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = eng.topk(sources, SEED)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        chunks.clear()
+        psh.sharded_walk_phase = counted
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.topk(sources, SEED)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            psh.sharded_walk_phase = orig
         counts[mode] = kernels.launch_counts()
         no_plain_k6(f"{name} {mode}", plain0)
         steps[mode] = dict(zip(("compacted", "fell_back", "cleared"),
                                (xch.compacted - before[0],
                                 xch.fell_back - before[1],
                                 xch.cleared - before[2])),
-                           supersteps=out.push_iters)
+                           supersteps=out.push_iters, chunks=sum(chunks))
         if not (np.isfinite(out.values).all() and out.values.shape == (B, K)
                 and not out.walk_overflow.any()):
             fail(f"{name} {mode}: values not finite, of the wrong shape, or "
@@ -2500,12 +2749,13 @@ def run_sharded_raw(g, rcfg, sources, exact_ids, graph, name):
              f"{a.push_iters}")
     topk_agree(f"{name} routed vs dense", b.values, b.node_ids, a.values,
                a.node_ids, 1e-4)
-    start = raw_allocation(eng, rcfg, sources[:RAW_CHECK_COLS])
+    start, fused = raw_allocation(eng, rcfg, sources[:RAW_CHECK_COLS],
+                                  graph)
     row = sharded_walk_row(eng, graph, rcfg, start, "raw allocation of "
                            f"{RAW_CHECK_COLS} queries")
     del eng, start
     torch.cuda.empty_cache()
-    return counts, steps, row
+    return counts, steps, row, fused
 
 
 def l2_row_rate(dev) -> float:
@@ -3878,15 +4128,18 @@ def main(argv=None) -> int:
         sharded_rows, sharded_launches, sh_iters = run_sharded(
             g, rcfg, index, sources[:POOL], dev, ex[:EVAL_N])
         rows.update(sharded_rows)
-        raw1_launches, raw1_steps, rows["index_walk_sharded"] = \
-            run_sharded_raw(g, rcfg, sources[:POOL], ex[:EVAL_N], dg,
-                            "sharded raw")
+        (raw1_launches, raw1_steps, rows["index_walk_sharded"],
+         fused9) = run_sharded_raw(g, rcfg, sources[:POOL], ex[:EVAL_N], dg,
+                                   "sharded raw")
 
     # ---- 10.-12. raw walk, Monte Carlo, P3 --------------------------------
     with Phase("raw walk"):
         raw_launches, k6_rows = run_raw(dg, rcfg, sources, ex[:EVAL_N],
                                         hub=hub, k6=True)
         rows.update(k6_rows)
+        rows["raw_walk"].update({"sharded_" + k: fused9[k] for k in (
+            "ms", "device_ms", "chain_device_ms", "plain_ms", "bound_ms",
+            "max_abs_err")})
         del hub
     with Phase("montecarlo"):
         mc_launches = run_montecarlo(dg, rcfg, sources, ex[:EVAL_N])
@@ -3952,23 +4205,28 @@ def main(argv=None) -> int:
     print(f"launches in phase 11: {mc_launches}")
     if mc_launches["index_walk"] <= 0:
         fail("K4 was not launched on the Monte Carlo path")
-    # K6: the raw pools run the demand once per walk phase and the
-    # expansion and the accumulate once per chunk; Monte Carlo and HubPPR
-    # the accumulate alone (once per chunk: run_montecarlo checks the
-    # count); the raw one-shots' counts are checked with theirs below; no
-    # path without a walk phase runs any of them
-    k6 = ("walk_demand", "expand_lanes", "accumulate_endpoints")
-    for label, c in (("phase 10's raw pool", raw_launches),
-                     ("phase 13's weighted raw pool", w_raw_launches)):
-        if min(c[x] for x in k6) <= 0 or \
-                c["expand_lanes"] != c["accumulate_endpoints"]:
-            fail(f"{label}: K6 launches {[c[x] for x in k6]}, expected "
-                 "some of each, one accumulate per expansion")
+    # K6 and K6+K4: the raw pools run the demand once per walk phase and
+    # K6+K4 once per chunk, and no K6-expand, K6-accum or K4 launch of
+    # their own; Monte Carlo and HubPPR K4 and the accumulate alone (once
+    # per chunk: run_montecarlo checks the count); the raw one-shots'
+    # counts are checked with theirs below; no path without a walk phase
+    # runs any of them, and K6-expand runs on no path
+    k6 = ("walk_demand", "expand_lanes", "accumulate_endpoints", "raw_walk")
+    for label, c, k4 in (("phase 10's raw pool", raw_launches, "index_walk"),
+                         ("phase 13's weighted raw pool", w_raw_launches,
+                          "index_walk_alias")):
+        if c["walk_demand"] <= 0 or c["raw_walk"] != c["chunks"] or \
+                c["expand_lanes"] or c["accumulate_endpoints"] or c[k4]:
+            fail(f"{label}: launches {[c[x] for x in k6 + (k4,)]} of "
+                 f"{k6 + (k4,)}, expected the demand, K6+K4 once for each "
+                 f"of {c['chunks']} chunks and none of the others")
+        print(f"{label}: K6+K4 once per chunk ({c['chunks']}), the demand "
+              f"{c['walk_demand']} times, no K6-expand, K6-accum or {k4}")
     for label, c in (("phase 11's Monte Carlo", mc_launches),
                      ("phase 13's Monte Carlo", w_mc_launches),
                      ("phase 14's hubppr", cli_launches["hubppr"])):
         if c["accumulate_endpoints"] <= 0 or c["walk_demand"] or \
-                c["expand_lanes"]:
+                c["expand_lanes"] or c["raw_walk"]:
             fail(f"{label}: K6 launches {[c[x] for x in k6]}, expected the "
                  "accumulate alone")
     if any(c[x] for x in k6 for c in (
@@ -3976,7 +4234,7 @@ def main(argv=None) -> int:
             w_pool_launches, build_launches, k5_launches, relabel_launches,
             *pool_launches.values(),
             *[v for a, v in cli_launches.items() if a != "hubppr"])):
-        fail("K6 ran on a path without a walk phase")
+        fail("K6 or K6+K4 ran on a path without a walk phase")
     print(f"launches in phase 12: {p3_launches}")
     if p3_launches["row_scatter_add"] <= 0:
         fail("P3 was not launched by the gather probe")
@@ -3990,7 +4248,7 @@ def main(argv=None) -> int:
         if w_launches[name] <= 0:
             fail(f"kernel {name} was not launched on the weighted path")
     for name in ("push_prepass", "gather_scatter_add", "topk_bounds",
-                 "index_walk_alias"):
+                 "raw_walk"):
         if w_raw_launches[name] <= 0:
             fail(f"kernel {name} was not launched on the weighted raw path")
     if w_mc_launches["index_walk_alias"] <= 0:
@@ -4004,34 +4262,36 @@ def main(argv=None) -> int:
                      *pool_launches.values())):
         fail("K4's alias branch was launched on an unweighted path")
     # the raw one-shot (phase 9, and on the weighted graph in phase 13):
-    # K4's sharded form (its alias form on the weighted graph, never the
-    # other one nor an unsharded branch), K1, K3's selection once per
-    # shard, P2's one pass once, no K2; P1 on every superstep that took
-    # the ring; under routed the compaction, P3 once per shard per
+    # K6+K4's sharded form once per chunk of its walk phase (its alias
+    # branch on the weighted graph) and the demand once per shard, no K4
+    # branch, K6-expand or K6-accum of their own; K1, K3's selection once
+    # per shard, P2's one pass once, no K2; P1 on every superstep that
+    # took the ring; under routed the compaction, P3 once per shard per
     # compacted superstep and the clear once per compacted superstep that
     # follows a compacted one
-    for label, runs, steps, walk_name, other in (
-            ("phase 9", raw1_launches, raw1_steps, "index_walk_sharded",
-             "index_walk_sharded_alias"),
-            ("phase 13", w_raw1_launches, w_raw1_steps,
-             "index_walk_sharded_alias", "index_walk_sharded")):
+    for label, runs, steps in (("phase 9", raw1_launches, raw1_steps),
+                               ("phase 13", w_raw1_launches, w_raw1_steps)):
         for mode, c in runs.items():
             st = steps[mode]
             print(f"launches in {label}'s raw one-shot ({mode}, "
                   f"{st['supersteps']} supersteps, {st['compacted']} "
-                  f"compacted, {st['fell_back']} fell back): {c}")
+                  f"compacted, {st['fell_back']} fell back, "
+                  f"{st['chunks']} walk chunks): {c}")
             ring_steps = (st["supersteps"] if mode == "dense"
                           else st["fell_back"])
-            want = {walk_name: None, "push_prepass": None,
+            want = {"raw_walk": st["chunks"], "push_prepass": None,
                     "gather_scatter_add": None, "topk_bounds": SHARDS,
                     "reduce_scatter_onepass": 1, "index_spmv": 0,
-                    "index_walk": 0, "index_walk_alias": 0, other: 0,
+                    "index_walk": 0, "index_walk_alias": 0,
+                    "index_walk_sharded": 0, "index_walk_sharded_alias": 0,
                     "ring_reduce_scatter_hop": 0,
                     "ring_all_gather_hop": hops * ring_steps,
                     "row_scatter_add": SHARDS * st["compacted"],
                     "exchange_clear": st["cleared"],
-                    "walk_demand": SHARDS, "expand_lanes": None,
-                    "accumulate_endpoints": None}
+                    "walk_demand": SHARDS, "expand_lanes": 0,
+                    "accumulate_endpoints": 0}
+            if st["chunks"] <= 0:
+                fail(f"{label}'s raw one-shot ({mode}): no walk chunk")
             for name, n in want.items():
                 if (c[name] <= 0) if n is None else (c[name] != n):
                     fail(f"{label}'s raw one-shot ({mode}): {c[name]} "
@@ -4212,6 +4472,10 @@ def main(argv=None) -> int:
         "expand_lanes": ("walk_alloc.cu", "fora_tpu/ops/walk.py:63"),
         "accumulate_endpoints": ("walk_alloc.cu",
                                  "fora_tpu/ops/walk.py:323"),
+        # K6+K4: the lane -> node map and weight, the walks and the
+        # endpoints' segment_sum in one launch (phase 10's largest walk
+        # phase; its sharded form on phase 9's allocation in sharded_*)
+        "raw_walk": ("walk.cu", "fora_tpu/ops/walk.py:63, 159, 323"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
@@ -4222,13 +4486,14 @@ def main(argv=None) -> int:
              if name == "row_scatter_add_receive" else
              pool_launches["routed"][name]
              if name in ("frontier_compact", "exchange_clear") else
-             raw1_launches["dense"][name] if name == "index_walk_sharded" else
+             build_launches[name] if name == "index_walk_sharded" else
              w_raw1_launches["dense"][name]
              if name == "index_walk_sharded_alias" else
              w_launches[name] if name == "index_walk_alias" else
              cli_launches["bippr"][name] if name == "backward_prepass" else
              cli_launches["hubppr"][name] if name == "index_walk_hub" else
              k5_launches[name] if name.startswith("frontier_p") else
+             mc_launches[name] if name == "accumulate_endpoints" else
              raw_launches[name] if name in k6 else
              sharded_launches[name])
         out.append({"name": name, "route": "cuda",
@@ -4239,8 +4504,11 @@ def main(argv=None) -> int:
                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
                     **{k: row[k] for k in ("device_ms", "library_device_ms",
-                                           "unsharded_ms", "earlier_device_ms")
-                       if k in row}})
+                                           "unsharded_ms", "earlier_device_ms",
+                                           "chain_device_ms")
+                       if k in row},
+                    **{k: v for k, v in row.items()
+                       if k.startswith("sharded_")}})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -29,8 +29,9 @@ PyTorch versions instead.
 | frontier_prepass        | csrc/frontier_push.cu  | K5's pre-pass (K1's pre-pass, the residue's mask and the active rows' tasks with their non-zero chunks, for the frontier-compacted push) |
 | frontier_push           | csrc/frontier_push.cu  | K5 (the frontier-compacted push: the active rows' non-zero chunks along their out-edges, f32 atomics) |
 | walk_demand             | csrc/walk_alloc.cu     | K6-demand (the raw walk's omega_v, its int32 scan over nodes and the column totals: raw pool, sharded raw one-shot) |
-| expand_lanes            | csrc/walk_alloc.cu     | K6-expand (a range of lanes onto their start nodes and weights; the sharded form expands a chunk over every shard's demand in one launch) |
-| accumulate_endpoints    | csrc/walk_alloc.cu     | K6-accum (the endpoints' scatter-add, f32 atomics: raw pool, sharded raw one-shot, Monte Carlo, HubPPR) |
+| expand_lanes            | csrc/walk_alloc.cu     | K6-expand (a range of lanes onto their start nodes and weights; the sharded form expands a chunk over every shard's demand in one launch; on no path since K6+K4, kept as its earlier form) |
+| accumulate_endpoints    | csrc/walk_alloc.cu     | K6-accum (the endpoints' scatter-add, f32 atomics: Monte Carlo, HubPPR) |
+| raw_walk                | csrc/walk.cu           | K6+K4 (a raw walk phase's chunk in one launch: each lane's start node and weight, its walk, the weight added at the endpoint; raw pool, sharded raw one-shot; its sharded form over every shard's demand and the out-CSR's slices) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 | row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
 | philox_blocks           | csrc/philox_probe.cu   | none: measures the card's rate of Philox-4x32-10 blocks (K4's operations) |
@@ -39,7 +40,10 @@ K6's plain versions are ``ops/walk.py``'s ``*_plain`` functions, held to
 JAX's ``allocate_walks`` / ``accumulate_endpoints`` on the CPU by
 ``tests/test_torch_walk_alloc.py``; on a card ``-k "walk_demand or expand
 or accumulate or k6"`` of ``tests/test_torch_kernels_cuda.py`` holds the
-kernels to them.
+kernels to them.  K6+K4's plain version is ``ops.walk.
+raw_walk_chunk_plain`` (``tests/test_torch_raw_walk_fused.py``); on a card
+``-k raw_walk`` holds the kernel to the chain K6-expand -> K4 -> K6-accum
+(endpoints bit-equal, the contribution by a float64 sum).
 
 ``csrc/alias.cu`` and ``csrc/graph_io.cu`` hold no kernel: they are the
 host-side alias-table builder that ``graph/alias.py::build_alias_library``
@@ -71,7 +75,8 @@ __all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
            "ring_reduce_scatter_hop", "reduce_scatter_onepass",
            "row_scatter_add", "exchange_clear", "frontier_compact",
            "frontier_prepass", "frontier_push", "walk_demand",
-           "expand_lanes", "accumulate_endpoints", "sector_reads",
+           "expand_lanes", "accumulate_endpoints", "raw_walk",
+           "sector_reads",
            "row_reads",
            "philox_blocks", "inv_log1m_alpha", "sm_count",
            "enable_peer_access",
@@ -888,6 +893,122 @@ def accumulate_endpoints(ends: torch.Tensor, weight, out,
     _raise_on(err, "accumulate_endpoints")
 
 
+def _raw_walk_args(r, cum, total, out, rows, indptr, indices, alias_prob,
+                   alias_other, seed, alpha, max_hops, lane_lo=0, bounds=None,
+                   n_loc=0, ends=None):
+    """:func:`raw_walk`'s checks: None where the chunk has no lane slot,
+    else (its card, Bc, fora_raw_walk's arguments before the plan's, its
+    stream)."""
+    sharded = bounds is not None
+    rs, cums, outs = ((list(r), list(cum), list(out)) if sharded
+                      else ([r], [cum], [out]))
+    ips, ixs = (list(indptr), list(indices)) if sharded else \
+        ([indptr], [indices])
+    alias = alias_prob is not None
+    aps, aos = ((list(alias_prob), list(alias_other)) if sharded
+                else ([alias_prob], [alias_other])) if alias else (None, None)
+    G = len(rs)
+    n, Bc = rs[0].shape
+    dev = bounds.device if sharded else rs[0].device
+    if not (1 <= G <= 32 and len(cums) == len(outs) == len(ips)
+            == len(ixs) == G):
+        raise ValueError(f"raw_walk: {G} residues, {len(cums)} demands, "
+                         f"{len(outs)} outputs, {len(ips)} slices; need 1-32 "
+                         "shards, one of each a shard")
+    if (alias_other is None) == alias:
+        raise ValueError("raw_walk: both alias tables or neither")
+    rows, lane_lo = int(rows), int(lane_lo)
+    if rows < 0 or lane_lo < 0 or rows * Bc >= 2**32:
+        raise ValueError(f"raw_walk: {rows} rows of {Bc} columns from lane "
+                         f"{lane_lo}; at most 2^32 - 1 lane slots")
+    n_out = G * n_loc if sharded else ips[0].shape[0] - 1
+    for h in range(G):
+        r_ld = _check_cols(f"r[{h}]", rs[h], torch.float32, (n, Bc))
+        _check_cols(f"cum[{h}].T", cums[h].T, torch.int32, (Bc, n))
+        out_ld = _check_cols(f"out[{h}]", outs[h], torch.float32,
+                             (n_out, Bc))
+        if rs[h].stride() != rs[0].stride() or \
+                cums[h].stride() != cums[0].stride() or \
+                outs[h].stride() != outs[0].stride() or \
+                cums[h].device != rs[h].device:
+            raise ValueError("raw_walk: the shards' residues, demands and "
+                             "outputs must share their strides, and each "
+                             "demand its residue's card")
+        sdev = ips[h].device
+        _check(f"indptr[{h}]", ips[h], torch.int32,
+               (n_loc + 1,) if sharded else None)
+        if ips[h].dim() != 1 or ips[h].shape[0] < 2:
+            raise ValueError("raw_walk: indptr must be [rows + 1]")
+        _check(f"indices[{h}]", ixs[h], torch.int32, device=sdev)
+        if alias:
+            m = ixs[h].shape
+            _check(f"alias_prob[{h}]", aps[h], torch.float32, m, sdev)
+            _check(f"alias_other[{h}]", aos[h], torch.int32, m, sdev)
+        _peer(dev, rs[h], outs[h], ips[h])
+    if sharded:
+        if total is not None:
+            raise ValueError("raw_walk: bounds take the place of total")
+        _check("bounds", bounds, torch.int64, (G + 1, Bc), dev)
+    else:
+        _check("total", total, torch.int32, (Bc,), dev)
+        if n_loc:
+            raise ValueError("raw_walk: n_loc only with bounds")
+    if not 0 < n < 2**31 or not 0 <= n_loc * (G - 1) < 2**31 - n:
+        raise ValueError(f"raw_walk: {n} nodes, n_loc {n_loc}")
+    if ends is not None:
+        _check("ends", ends, torch.int32, (rows, Bc), dev)
+    if rows * Bc == 0:
+        return None
+    return dev, Bc, (
+        _table(rs), r_ld, _table(cums), cums[0].stride(1) if Bc > 1 else n,
+        _ptr(total), _ptr(bounds), G, n, Bc, rows, lane_lo, int(n_loc),
+        _table(outs), out_ld, _ptr(ends), _table(ips), _table(ixs),
+        _table(aps), _table(aos), seed % 2**64, inv_log1m_alpha(alpha),
+        max_hops), _stream(rs[0])
+
+
+def raw_walk(r, cum, total: Optional[torch.Tensor], out, rows: int,
+             indptr, indices, alias_prob, alias_other, seed: int,
+             alpha: float, max_hops: int, lane_lo: int = 0,
+             bounds: Optional[torch.Tensor] = None, n_loc: int = 0,
+             ends: Optional[torch.Tensor] = None) -> None:
+    """K6+K4, in place: one chunk of the raw walk phase in one launch.  Row
+    t (0 .. ``rows`` - 1) is lane lane_lo + t of each column b of ``r``
+    [n, Bc] f32 (adjacent columns, as :func:`walk_demand` takes it); lane
+    l < total[b] walks from the first node v with cum[v, b] > l as walk t
+    * Bc + b of K4 (:func:`index_walk`, its alias branch where the tables
+    are given) over ``indptr`` / ``indices``, and adds r[v, b] / omega_v
+    into ``out`` [n, Bc] f32 (adjacent columns) at its endpoint (f32
+    atomics, in no fixed order); lanes at or past total[b] are not
+    walked.  ``cum`` [n, Bc] int32 with its nodes adjacent and ``total``
+    [Bc] int32 are :func:`walk_demand`'s (or column slices of them).  So
+    each endpoint is the one that :func:`expand_lanes`, K4 and
+    :func:`accumulate_endpoints` give on the chunk, bit for bit.  The
+    sharded form: ``r``, ``cum`` and ``out`` lists of G shards' (1-32,
+    ``out`` [G * n_loc, Bc] each), the out-CSR as G slices (``indptr``,
+    ``indices`` and the alias tables lists, as :func:`index_walk_sharded`
+    takes them), ``total`` None and ``bounds`` [G + 1, Bc] int64 as
+    :func:`expand_lanes` takes it: lane l of column b is shard h's, starts
+    at its node + h * ``n_loc`` and adds into ``out[h]``.  ``ends`` (tests
+    and checks only) [rows, Bc] int32 gets every walked lane's endpoint
+    and keeps its other entries.  Launches on ``r``'s card (sharded:
+    ``bounds``'); shards on other cards are reached through peer
+    pointers."""
+    got = _raw_walk_args(r, cum, total, out, rows, indptr, indices,
+                         alias_prob, alias_other, seed, alpha, max_hops,
+                         lane_lo, bounds, n_loc, ends)
+    if got is None:
+        return
+    dev, Bc, args, stream = got
+    plan = schedule.raw_walk_plan(int(rows), Bc, sm_count(dev),
+                                  alias_prob is not None)
+    with torch.cuda.device(dev):
+        err = build.library().fora_raw_walk(
+            *args, plan.walks_per_lane, plan.tiles, plan.blocks, stream)
+    _raise_on(err, "raw_walk")
+    raw_walk.launches += 1
+
+
 def sector_reads(buf: torch.Tensor, reads: int = 64,
                  threads: int = 1 << 20, seed: int = 0) -> int:
     """The measuring kernel of csrc/sector_probe.cu: ``threads`` threads
@@ -970,7 +1091,7 @@ WRAPPERS = (push_prepass, backward_prepass, gather_scatter_add, index_spmv,
             ring_all_gather_hop, ring_reduce_scatter_hop,
             reduce_scatter_onepass, row_scatter_add, exchange_clear,
             frontier_compact, frontier_prepass, frontier_push, walk_demand,
-            expand_lanes, accumulate_endpoints, philox_blocks)
+            expand_lanes, accumulate_endpoints, raw_walk, philox_blocks)
 for _w in WRAPPERS:
     _w.launches = 0
 topk_bounds.last_state = None

@@ -95,6 +95,47 @@
 // that form waits for a machine with several cards and is not tested.  The
 // table is copied into shared memory by constant indices (a dynamic index
 // into the kernel's parameters would copy them to local memory).
+//
+// K6+K4 (raw_walk_kernel<kAlias, kSharded>) is one chunk of the raw walk
+// phase in one launch: the lane -> node map and weight of
+// fora_tpu/ops/walk.py::allocate_walks (63-80), the walks of
+// run_walks_scheduled (159) and the endpoints' segment_sum of
+// accumulate_endpoints (323-329).  It computes what the chain K6-expand
+// (walk_alloc.cu) -> K4 -> K6-accum computes on the same chunk: lane l of
+// column b starts at the first v with cum[v] > l, weighs r[v, b] / omega_v
+// (an IEEE division) and draws as walk t * Bc + b of the chain's [rows,
+// Bc] start array, so every endpoint is the chain's bit for bit; only the
+// order of the f32 adds differs.  The chain moved 12-20 bytes a lane
+// through three launches and lost its time to latency: 19 dependent
+// probes a lane in the expansion and a scattered RED a lane in the
+// accumulate.  Here:
+//  * A warp owns a tile of one column, 32 k consecutive lanes (k from
+//    raw_walk_plan: 16 for uniform hops where the walks fill the card,
+//    against K4's 4; alias hops keep 4, PERF.md), and runs walk_range's
+//    queue over them; lanes past the column's demand (the chain's
+//    padding, weight 0) are not walked.
+//  * The refill's lookahead lane searches its lane's start node.  The
+//    lanes of a column are non-decreasing in node, so the search gallops
+//    forward from the node of the previous batch's last lane: a hub's run
+//    of lanes costs one probe, and the batch's probes share their path in
+//    the L1.  Only a tile's first lane, and a lane that enters the next
+//    shard, search in full: the first by the whole warp, 32 probes a step
+//    (4 dependent loads for 2^19 nodes, where one lane's bisection takes
+//    19).  The weight is read there, beside cum[v - 1].
+//  * A walk that ends adds its weight where it ends (no [rows, Bc] array
+//    of starts, weights or endpoints).  A warp's walks all belong to one
+//    column, and a fifth of them have no hop: a refill that hands out a
+//    hub's run ends about 6 of its 32 walks on one node, so those lanes
+//    group by endpoint (__match_any_sync), sum in lane order, and the
+//    lowest issues one RED.  After a hop, where endpoints rarely meet in
+//    one step, each walk issues its own RED (grouping there cost more
+//    than it saved on the H100).
+//  * Sharded: a lane finds its shard from the running totals bounds [G +
+//    1, Bc], starts at its node + h * n_loc, hops over the slice table and
+//    adds into its shard's partial.
+// What bounds it: K4's hop loads and Philox blocks, plus the sectors of cum
+// and r at the lanes' nodes and of the output it adds into
+// (chip_smoke.py::raw_walk_bound).  No [W, B] array, so no bytes a lane.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -164,7 +205,54 @@ __device__ __forceinline__ int pool_entry(const WalkArgs& a, int hid, float u3) 
   return __ldg(a.pool + (long long)hid * a.pool_size + j);
 }
 
-// the walks of this warp's range: the body of both kernels
+// one hop of walk w (the Philox key) at node cur, h of its len hops taken:
+// the degree from the row pointers, two loads issued together, and the hop's
+// Philox block while they are in flight; the sharded form reads the owner's
+// slice.  Returns whether the walk has ended.
+template <bool kAlias, bool kHub, bool kSharded>
+__device__ __forceinline__ bool hop(const WalkArgs& a, const ShardView& tab, uint32_t w,
+                                    int& cur, int& h, int len) {
+  const int* indptr = a.indptr;
+  const int* indices = a.indices;
+  const float* alias_prob = a.alias_prob;
+  const int* alias_other = a.alias_other;
+  int row = cur;
+  if (kSharded) {
+    const int s = cur / a.n_loc;
+    row = cur - s * a.n_loc;
+    indptr = tab.indptr[s];
+    indices = tab.indices[s];
+    if (kAlias) {
+      alias_prob = tab.alias_prob[s];
+      alias_other = tab.alias_other[s];
+    }
+  }
+  const int p0 = __ldg(indptr + row), p1 = __ldg(indptr + row + 1);
+  const uint4 r = philox4x32_10(make_uint4((uint32_t)(h + 1), a.seed_hi, 0u, 0u),
+                                make_uint2(a.seed_lo, w));
+  bool done = p1 == p0;  // a dangling node absorbs
+  if (!done) {
+    const int d = p1 - p0;
+    const int slot = p0 + min((int)(unit(r.x) * (float)d), d - 1);
+    if (kAlias) {  // pick the table first, then load only its entry
+      const int* table = unit(r.y) < __ldg(alias_prob + slot) ? indices : alias_other;
+      cur = __ldg(table + slot);
+    } else {
+      cur = __ldg(indices + slot);
+    }
+    done = ++h == len;
+    if (kHub) {  // look up the node just reached
+      const int hid = __ldg(a.hub_id + cur);
+      if (hid >= 0) {  // arrival at a hub: a pool draw ends the walk
+        cur = pool_entry(a, hid, unit(r.z));
+        done = true;
+      }
+    }
+  }
+  return done;
+}
+
+// the walks of this warp's range: the body of K4's kernels
 template <bool kAlias, bool kHub, bool kSharded>
 __device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& tab) {
   extern __shared__ int staged_ends[];
@@ -216,47 +304,7 @@ __device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& t
     }
     if (__all_sync(kFull, idle)) break;
     if (idle) continue;
-    // one hop of this lane's walk: the degree from the row pointers, two
-    // loads issued together, and the hop's Philox block while they are in
-    // flight; the sharded form reads the owner's slice
-    const int* indptr = a.indptr;
-    const int* indices = a.indices;
-    const float* alias_prob = a.alias_prob;
-    const int* alias_other = a.alias_other;
-    int row = cur;
-    if (kSharded) {
-      const int s = cur / a.n_loc;
-      row = cur - s * a.n_loc;
-      indptr = tab.indptr[s];
-      indices = tab.indices[s];
-      if (kAlias) {
-        alias_prob = tab.alias_prob[s];
-        alias_other = tab.alias_other[s];
-      }
-    }
-    const int p0 = __ldg(indptr + row), p1 = __ldg(indptr + row + 1);
-    const uint4 r = philox4x32_10(make_uint4((uint32_t)(h + 1), a.seed_hi, 0u, 0u),
-                                  make_uint2(a.seed_lo, w));
-    bool done = p1 == p0;  // a dangling node absorbs
-    if (!done) {
-      const int d = p1 - p0;
-      const int slot = p0 + min((int)(unit(r.x) * (float)d), d - 1);
-      if (kAlias) {  // pick the table first, then load only its entry
-        const int* table = unit(r.y) < __ldg(alias_prob + slot) ? indices : alias_other;
-        cur = __ldg(table + slot);
-      } else {
-        cur = __ldg(indices + slot);
-      }
-      done = ++h == len;
-      if (kHub) {  // look up the node just reached
-        const int hid = __ldg(a.hub_id + cur);
-        if (hid >= 0) {  // arrival at a hub: a pool draw ends the walk
-          cur = pool_entry(a, hid, unit(r.z));
-          done = true;
-        }
-      }
-    }
-    if (done) {
+    if (hop<kAlias, kHub, kSharded>(a, tab, w, cur, h, len)) {
       ends[w - lo] = cur;
       idle = true;
     }
@@ -301,6 +349,272 @@ __global__ void __launch_bounds__(kBlockThreads, 2048 / kBlockThreads)
   walk_range<kAlias, false, true>(a, ShardView{indptr, indices, alias_prob, alias_other});
 }
 
+// ---- K6+K4: the raw walk phase's chunk, lanes to endpoint mass ------------
+
+// blocks an SM in __launch_bounds__: at most 40 registers, no spill
+// (kernels/schedule.py::RAW_BLOCKS_PER_SM).  probes/raw_walk_forms.cu keeps
+// the forms at 4 and 8 blocks and the other choices of raw_walk_range
+// below; PERF.md gives their times.
+constexpr int kRawBlocksPerSM = 6;
+
+// the chunk's pointer tables (one entry unsharded, G sharded): each shard's
+// residue (a column slice), its demand (column b at cum + b * cum_ld) and
+// its partial of the endpoint mass
+struct RawTables {
+  const float* r[kMaxShards];
+  const int* cum[kMaxShards];
+  float* out[kMaxShards];
+};
+
+struct RawView {
+  const float* const* r;
+  const int* const* cum;
+  float* const* out;
+};
+
+struct RawArgs {
+  const int* total;         // [Bc] walks of each column (unsharded)
+  const long long* bounds;  // [G + 1, Bc] running sums of the shards' totals (sharded)
+  int* ends;                // [rows, Bc] endpoints of the walked lanes, or null
+  long long r_ld, cum_ld, out_ld, lane_lo;
+  uint32_t rows;            // lane rows of the chunk: lanes lane_lo .. + rows - 1
+  uint32_t tiles;           // warp tiles of a column: ceil(rows / range)
+  int Bc, n, G;             // columns, rows of a residue, shards
+};
+
+template <typename T>
+__device__ __forceinline__ T pick(const T (&t)[kMaxShards], int i) {
+  T x = T();
+#pragma unroll
+  for (int k = 0; k < kMaxShards; ++k)
+    if (k == i) x = t[k];
+  return x;
+}
+
+// the first v with col[v] > x over col[0 .. n), n >= 1 (K6-expand's
+// branchless search: ceil(log2 n) probes)
+__device__ __forceinline__ int upper_bound(const int* col, int n, int x) {
+  int pos = 0;
+  for (int len = n; len > 1;) {
+    const int half = len >> 1;
+    if (__ldg(col + pos + half) <= x) pos += half;
+    len -= half;
+  }
+  return pos + (__ldg(col + pos) <= x ? 1 : 0);
+}
+
+// upper_bound of one x for the whole warp (every lane passes the same x),
+// given col[n - 1] > x: the 32 lanes probe 32 evenly spaced nodes of the
+// range a step and a ballot keeps the one interval that holds the answer,
+// so 2^19 nodes take 4 dependent loads, not 19
+__device__ __forceinline__ int warp_upper_bound(const int* col, int n, int x, int lane) {
+  int lo = 0, hi = n;  // the answer lies in [lo, hi)
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) >> 5;
+    const int p = lo + lane * step;
+    const unsigned le = __ballot_sync(kFull, p < hi && __ldg(col + p) <= x);
+    const int k = __popc(le);  // probes at or below x: lanes 0 .. k - 1
+    if (k == 0) return lo;
+    const int next = lo + k * step;  // the first probe above x, if any
+    lo += (k - 1) * step + 1;
+    if (next < hi) hi = next + 1;
+  }
+  const int p = lo + lane;
+  return lo + __popc(__ballot_sync(kFull, p < hi && __ldg(col + p) <= x));
+}
+
+// the same from a node p at or below the answer, given col[n - 1] > x:
+// probes p, p + 1, p + 3, p + 7, ... until one passes x, then bisects the
+// last step, so a lane on p's own node costs one probe
+__device__ __forceinline__ int gallop(const int* col, int n, int p, int x) {
+  if (__ldg(col + p) > x) return p;
+  int lo = p, hi, step = 1;  // col[lo] <= x
+  for (;;) {
+    hi = lo + step;
+    if (hi >= n - 1) {
+      hi = n - 1;
+      break;
+    }
+    if (__ldg(col + hi) > x) break;
+    lo = hi;
+    step <<= 1;
+  }
+  while (hi - lo > 1) {  // col[lo] <= x < col[hi]
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(col + mid) > x)
+      hi = mid;
+    else
+      lo = mid;
+  }
+  return hi;
+}
+
+// A walk that ends in this step (``ending``) adds its weight at its
+// endpoint in column b, a RED of its own.
+template <bool kSharded>
+__device__ __forceinline__ void add_alone(bool ending, int cur, int shard, float wt, uint32_t w,
+                                          int b, const RawArgs& ra, const RawView& rv) {
+  if (ra.ends != nullptr && ending) ra.ends[w] = cur;
+  if (ending && wt != 0.0f)
+    atomicAdd(rv.out[kSharded ? shard : 0] + (long long)cur * ra.out_ld + b, wt);
+}
+
+// The same, grouped: lanes that share an endpoint (and a shard) add their
+// weights in lane order and the lowest of them issues one RED.  Every lane
+// of the warp calls it.
+template <bool kSharded>
+__device__ __forceinline__ void add_grouped(bool ending, int cur, int shard, float wt,
+                                            uint32_t w, int b, const RawArgs& ra,
+                                            const RawView& rv, float* s_add, int lane) {
+  if (ra.ends != nullptr && ending) ra.ends[w] = cur;
+  const bool add = ending && wt != 0.0f;
+  const unsigned mask = __ballot_sync(kFull, add);
+  if (mask == 0) return;
+  if (add) {
+    const unsigned long long key =
+        ((unsigned long long)(unsigned)(kSharded ? shard : 0) << 32) | (unsigned)cur;
+    const unsigned peers = __match_any_sync(mask, key);
+    s_add[lane] = wt;
+    __syncwarp(mask);
+    if (lane == __ffs(peers) - 1) {
+      float sum = 0.0f;
+      for (unsigned m = peers; m != 0; m &= m - 1) sum += s_add[__ffs(m) - 1];
+      atomicAdd(rv.out[kSharded ? shard : 0] + (long long)cur * ra.out_ld + b, sum);
+    }
+  }
+  __syncwarp();
+}
+
+// A warp's tile: column b, rows t0 .. t0 + range - 1 of the chunk, the rows
+// whose lanes the column demands (padding lanes are not walked).  The queue
+// is walk_range's; a refill's lookahead lane also finds its lane's start
+// node and weight, and a walk that ends adds its weight: grouped by
+// endpoint in the refill (the walks of no hop), alone after a hop.
+template <bool kAlias, bool kSharded>
+__device__ __forceinline__ void raw_walk_range(const WalkArgs& a, const RawArgs& ra,
+                                               const ShardView& tab, const RawView& rv) {
+  __shared__ float s_add[kBlockWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint64_t tile = (uint64_t)blockIdx.x * kBlockWarps + warp;
+  if (tile >= (uint64_t)ra.tiles * (uint64_t)ra.Bc) return;
+  const int b = (int)(tile / ra.tiles);
+  const uint32_t t0 = (uint32_t)(tile - (uint64_t)b * ra.tiles) * a.range;
+  // the column's walks: lanes below total[b], or bounds[G, b] sharded
+  const long long col_total =
+      kSharded ? __ldg(ra.bounds + (long long)ra.G * ra.Bc + b) : (long long)__ldg(ra.total + b);
+  const long long avail = col_total - ra.lane_lo - (long long)t0;
+  if (avail <= 0) return;
+  uint32_t count = min(a.range, ra.rows - t0);
+  if (avail < (long long)count) count = (uint32_t)avail;
+  float* const adds = s_add[warp];
+  const unsigned below = (1u << lane) - 1u;
+  // the search base, the same in every lane: the node (and shard) of the
+  // last lane handed to the lookahead; the tile's first lane is searched in
+  // full, by the whole warp, and every later lane of the column lies at or
+  // past it
+  int base_h = 0;
+  const long long l0 = ra.lane_lo + t0;
+  if (kSharded) {
+    while (__ldg(ra.bounds + (long long)(base_h + 1) * ra.Bc + b) <= l0) ++base_h;
+  }
+  const int* col0 = rv.cum[base_h] + (long long)b * ra.cum_ld;
+  const int x0 =
+      (int)(l0 - (kSharded ? __ldg(ra.bounds + (long long)base_h * ra.Bc + b) : 0ll));
+  int base_v = warp_upper_bound(col0, ra.n, x0, lane);
+  uint32_t batch = 0, filled = 0, used = 0;
+  int ahead_start = 0, ahead_len = 0, ahead_h = 0;
+  float ahead_w = 0.0f;
+  uint32_t w = 0;  // this lane's walk: its Philox key t * Bc + b, node, hops, length
+  int cur = 0, h = 0, len = 0, shard = 0;
+  float wt = 0.0f;  // its weight, r[v, b] / omega_v
+  bool idle = true;
+
+  for (;;) {
+    for (;;) {
+      const unsigned need = __ballot_sync(kFull, idle);
+      if (need == 0) break;
+      if (used == filled) {
+        batch += filled;
+        filled = used = 0;
+        if (batch >= count) break;
+        filled = min(32u, count - batch);
+        int v = base_v, sh = base_h;
+        if ((uint32_t)lane < filled) {
+          const uint32_t t = t0 + batch + lane;
+          const long long l = ra.lane_lo + t;
+          long long first = 0;  // the lane's shard's first lane
+          if (kSharded) {
+            while (__ldg(ra.bounds + (long long)(sh + 1) * ra.Bc + b) <= l) ++sh;
+            first = __ldg(ra.bounds + (long long)sh * ra.Bc + b);
+          }
+          const int x = (int)(l - first);
+          const int* col = rv.cum[sh] + (long long)b * ra.cum_ld;
+          v = sh == base_h ? gallop(col, ra.n, base_v, x) : upper_bound(col, ra.n, x);
+          const int om = __ldg(col + v) - (v > 0 ? __ldg(col + v - 1) : 0);
+          ahead_w = __ldg(rv.r[sh] + (long long)v * ra.r_ld + b) / (float)om;
+          ahead_start = kSharded ? v + sh * a.n_loc : v;
+          ahead_len = walk_length(a, t * (uint32_t)ra.Bc + (uint32_t)b);
+          ahead_h = sh;
+        }
+        base_v = __shfl_sync(kFull, v, filled - 1);
+        if (kSharded) base_h = __shfl_sync(kFull, sh, filled - 1);
+      }
+      const uint32_t src = used + __popc(need & below);
+      const int take_start = __shfl_sync(kFull, ahead_start, src & 31);
+      const int take_len = __shfl_sync(kFull, ahead_len, src & 31);
+      const float take_w = __shfl_sync(kFull, ahead_w, src & 31);
+      const int take_h = kSharded ? __shfl_sync(kFull, ahead_h, src & 31) : 0;
+      bool ending = false;
+      if (idle && src < filled) {
+        w = (t0 + batch + src) * (uint32_t)ra.Bc + (uint32_t)b;
+        cur = take_start;
+        len = take_len;
+        wt = take_w;
+        shard = take_h;
+        h = 0;
+        if (len > 0)
+          idle = false;
+        else
+          ending = true;  // no hop: the walk ends where it starts
+      }
+      add_grouped<kSharded>(ending, cur, shard, wt, w, b, ra, rv, adds, lane);
+      used = min(filled, used + __popc(need));
+    }
+    if (__all_sync(kFull, idle)) break;
+    const bool ending = !idle && hop<kAlias, false, kSharded>(a, tab, w, cur, h, len);
+    add_alone<kSharded>(ending, cur, shard, wt, w, b, ra, rv);
+    if (ending) idle = true;
+  }
+}
+
+template <bool kAlias, bool kSharded>
+__global__ void __launch_bounds__(kBlockThreads, kRawBlocksPerSM)
+    raw_walk_kernel(const WalkArgs a, const RawArgs ra, const ShardTables t,
+                    const RawTables rt) {
+  __shared__ const int* indptr[kMaxShards];
+  __shared__ const int* indices[kMaxShards];
+  __shared__ const float* alias_prob[kMaxShards];
+  __shared__ const int* alias_other[kMaxShards];
+  __shared__ const float* res[kMaxShards];
+  __shared__ const int* cum[kMaxShards];
+  __shared__ float* out[kMaxShards];
+  const int i = threadIdx.x;
+  if (i < kMaxShards) {  // by constant indices: see the sharded form above
+    if (kSharded) {
+      indptr[i] = pick(t.indptr, i);
+      indices[i] = pick(t.indices, i);
+      alias_prob[i] = pick(t.alias_prob, i);
+      alias_other[i] = pick(t.alias_other, i);
+    }
+    res[i] = pick(rt.r, i);
+    cum[i] = pick(rt.cum, i);
+    out[i] = pick(rt.out, i);
+  }
+  __syncthreads();
+  raw_walk_range<kAlias, kSharded>(a, ra, ShardView{indptr, indices, alias_prob, alias_other},
+                                   RawView{res, cum, out});
+}
+
 template <bool kAlias, bool kHub>
 void launch(const WalkArgs& a, unsigned blocks, cudaStream_t s) {
   const size_t smem = (size_t)kBlockWarps * a.range * sizeof(int);
@@ -311,6 +625,12 @@ template <bool kAlias>
 void launch_sharded(const WalkArgs& a, const ShardTables& t, unsigned blocks, cudaStream_t s) {
   const size_t smem = (size_t)kBlockWarps * a.range * sizeof(int);
   index_walk_sharded_kernel<kAlias><<<blocks, kBlockThreads, smem, s>>>(a, t);
+}
+
+template <bool kAlias, bool kSharded>
+void launch_raw(const WalkArgs& a, const RawArgs& ra, const ShardTables& t, const RawTables& rt,
+                unsigned blocks, cudaStream_t s) {
+  raw_walk_kernel<kAlias, kSharded><<<blocks, kBlockThreads, 0, s>>>(a, ra, t, rt);
 }
 
 // the checks and arguments both entries share; 0 or a cudaError_t
@@ -330,6 +650,85 @@ int walk_args(WalkArgs* a, const int* start, int* out, long long W, unsigned lon
   a->seed_hi = (uint32_t)(seed >> 32);
   a->inv_log1m_alpha = inv_log1m_alpha;
   a->max_hops = max_hops;
+  return 0;
+}
+
+// K6+K4's launch: its kernel's arguments, grid and stream
+struct RawLaunch {
+  WalkArgs a;
+  RawArgs ra;
+  ShardTables t;
+  RawTables rt;
+  bool alias, sharded;
+  unsigned blocks;  // 0: no lane slot, nothing to launch
+  cudaStream_t s;
+};
+
+// fora_raw_walk's checks and its launch's arguments; 0 or a cudaError_t
+int raw_args(RawLaunch* L, const float* const* r, long long r_ld, const int* const* cum,
+             long long cum_ld, const int* total, const long long* bounds,
+             int G, long long n, int Bc, long long rows, long long lane_lo,
+             int n_loc, float* const* out, long long out_ld, int* ends,
+             const int* const* indptr, const int* const* indices,
+             const float* const* alias_prob, const int* const* alias_other,
+             unsigned long long seed, float inv_log1m_alpha, int max_hops,
+             int walks_per_lane, long long tiles, long long blocks, void* stream) {
+  if ((alias_prob == nullptr) != (alias_other == nullptr)) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n > 0x7fffffffll || Bc < 0 || rows < 0 || lane_lo < 0 || G < 1 ||
+      G > kMaxShards || (bounds == nullptr && (G != 1 || total == nullptr)) ||
+      (bounds != nullptr && n_loc < 1) || r == nullptr || cum == nullptr || out == nullptr ||
+      indptr == nullptr || indices == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long W = rows * (long long)Bc;
+  WalkArgs a;
+  const int bad = walk_args(&a, nullptr, nullptr, W, seed, inv_log1m_alpha, max_hops,
+                            walks_per_lane, blocks);
+  if (bad) return bad;
+  *L = RawLaunch{};
+  if (W <= 0) return 0;  // nothing to launch: L->blocks 0
+  if (tiles < 1 || tiles * 32ll * walks_per_lane < rows || tiles * (long long)Bc > blocks * kBlockWarps)
+    return (int)cudaErrorInvalidValue;
+  const bool alias = alias_prob != nullptr;
+  ShardTables& t = L->t;
+  RawTables& rt = L->rt;
+  for (int k = 0; k < G; ++k) {
+    if (r[k] == nullptr || cum[k] == nullptr || out[k] == nullptr || indptr[k] == nullptr ||
+        indices[k] == nullptr || (alias && (alias_prob[k] == nullptr || alias_other[k] == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    rt.r[k] = r[k];
+    rt.cum[k] = cum[k];
+    rt.out[k] = out[k];
+    t.indptr[k] = indptr[k];
+    t.indices[k] = indices[k];
+    if (alias) {
+      t.alias_prob[k] = alias_prob[k];
+      t.alias_other[k] = alias_other[k];
+    }
+  }
+  a.indptr = indptr[0];
+  a.indices = indices[0];
+  a.alias_prob = alias ? alias_prob[0] : nullptr;
+  a.alias_other = alias ? alias_other[0] : nullptr;
+  a.n_loc = n_loc;
+  RawArgs ra = {};
+  ra.total = total;
+  ra.bounds = bounds;
+  ra.ends = ends;
+  ra.r_ld = r_ld;
+  ra.cum_ld = cum_ld;
+  ra.out_ld = out_ld;
+  ra.lane_lo = lane_lo;
+  ra.rows = (uint32_t)rows;
+  ra.tiles = (uint32_t)tiles;
+  ra.Bc = Bc;
+  ra.n = (int)n;
+  ra.G = G;
+  L->a = a;
+  L->ra = ra;
+  L->alias = alias;
+  L->sharded = bounds != nullptr;
+  L->blocks = (unsigned)blocks;
+  L->s = reinterpret_cast<cudaStream_t>(stream);
   return 0;
 }
 
@@ -411,5 +810,48 @@ extern "C" int fora_index_walk_sharded(const int* start, int* out, long long W,
     launch_sharded<true>(a, t, (unsigned)blocks, s);
   else
     launch_sharded<false>(a, t, (unsigned)blocks, s);
+  return (int)cudaGetLastError();
+}
+
+// K6+K4: one chunk of the raw walk phase.  Row t of the chunk is lane
+// lane_lo + t of each of the Bc columns; walk (t, b) draws with Philox key
+// t * Bc + b, as K4 draws walk t * Bc + b of the chain's [rows, Bc] start
+// array.  bounds == nullptr: G = 1, r[0] [n, Bc] (row stride r_ld), cum[0]
+// (column b at cum[0] + b * cum_ld), total [Bc], the graph indptr[0] /
+// indices[0] (and alias_prob[0] / alias_other[0] or null), out[0] [., Bc]
+// (row stride out_ld); lane l of column b walks from the first v with
+// cum[v] > l, for l < total[b], and adds r[v, b] / omega_v at its endpoint.
+// Else G shards' r[h], cum[h] and out[h] alike, their out-CSR slices
+// (rows h * n_loc ..) and bounds [G + 1, Bc] int64: lane l of column b is
+// shard h's lane l - bounds[h, b] where bounds[h, b] <= l < bounds[h + 1,
+// b], starts at its node + h * n_loc and adds into out[h]; lanes past
+// bounds[G, b] are not walked.  ends, unless null, gets each walked lane's
+// endpoint at t * Bc + b.  The plan (kernels/schedule.py::raw_walk_plan):
+// `tiles` warp tiles of 32 * walks_per_lane rows per column, `blocks`
+// blocks of 8 warps covering tiles * Bc.
+extern "C" int fora_raw_walk(const float* const* r, long long r_ld, const int* const* cum,
+                             long long cum_ld, const int* total, const long long* bounds,
+                             int G, long long n, int Bc, long long rows, long long lane_lo,
+                             int n_loc, float* const* out, long long out_ld, int* ends,
+                             const int* const* indptr, const int* const* indices,
+                             const float* const* alias_prob, const int* const* alias_other,
+                             unsigned long long seed, float inv_log1m_alpha, int max_hops,
+                             int walks_per_lane, long long tiles, long long blocks,
+                             void* stream) {
+  RawLaunch L;
+  const int bad = raw_args(&L, r, r_ld, cum, cum_ld, total, bounds, G, n, Bc, rows, lane_lo,
+                           n_loc, out, out_ld, ends, indptr, indices, alias_prob, alias_other,
+                           seed, inv_log1m_alpha, max_hops, walks_per_lane, tiles, blocks,
+                           stream);
+  if (bad) return bad;
+  if (L.blocks == 0) return (int)cudaGetLastError();
+  if (L.alias && L.sharded)
+    launch_raw<true, true>(L.a, L.ra, L.t, L.rt, L.blocks, L.s);
+  else if (L.alias)
+    launch_raw<true, false>(L.a, L.ra, L.t, L.rt, L.blocks, L.s);
+  else if (L.sharded)
+    launch_raw<false, true>(L.a, L.ra, L.t, L.rt, L.blocks, L.s);
+  else
+    launch_raw<false, false>(L.a, L.ra, L.t, L.rt, L.blocks, L.s);
   return (int)cudaGetLastError();
 }

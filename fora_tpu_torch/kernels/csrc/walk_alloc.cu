@@ -1,5 +1,10 @@
 // K6: the raw walk's lane allocation and endpoint accumulation, in three
-// kernels.
+// kernels.  On a card the raw pool and the sharded raw one-shot run the
+// demand (1) and then, per chunk, K6+K4 (walk.cu's raw_walk_kernel), which
+// does the work of the expansion (2), K4 and the accumulate (3) in one
+// launch.  The expansion runs on no path: it stays as the earlier form that
+// the card's tests and chip_smoke.py hold K6+K4 against.  The accumulate
+// stays for Monte Carlo and HubPPR, and its sharded form for those checks.
 //
 // Replaces fora_tpu/ops/walk.py::allocate_walks (48-86: omega_v, its int32
 // cumsum over nodes, the lane -> node map by scatter + cummax, and the

@@ -1,6 +1,7 @@
 """The work list of the destination-row gather (K1, K2): edge-balanced
-tasks built once per CSR from its row degrees; and the walk kernel's (K4)
-plan: walks per lane and the grid (``walk_plan``, at the end).
+tasks built once per CSR from its row degrees; the walk kernel's (K4)
+plan: walks per lane and the grid (``walk_plan``); and K6+K4's, a warp tile
+of one column's lanes (``raw_walk_plan``, at the end).
 
 One warp of ``csrc/gather_scatter.cu`` takes one task.  A row of up to
 ``task_edges`` edges is one task; a longer row is split evenly into
@@ -162,3 +163,52 @@ def walk_plan(W: int, sm_count: int) -> WalkPlan:
     while k > 1 and W < 32 * k * half:
         k //= 2
     return walk_grid(W, k)
+
+
+# ---- K6+K4 (csrc/walk.cu, raw_walk_kernel) --------------------------------
+#
+# A warp owns a tile of one column: 32 k consecutive lane rows of the chunk.
+# Tile j of column b is warp b * tiles + j of the grid.  k follows walk_plan's
+# rule from RAW_WALKS_PER_LANE down (uniform hops; alias hops from K4's
+# WALKS_PER_LANE), at the kernel's residency.  On the H100
+# (probes/raw_walk_probe.py, phase 9's allocation of 196 M walks over 4
+# shards): uniform hops took 15.57 ms at k = 16 against 18.28 at K4's 4,
+# 16.17 at 8 and 15.65 at 32; on the weighted graph's allocation (188 M
+# walks) alias hops took 37.50 ms at k = 4 against 38.97 at 8 and 40.59
+# at 16.
+
+RAW_WALKS_PER_LANE = 16     # k where uniform walks fill the card
+RAW_BLOCKS_PER_SM = 6       # walk.cu's kRawBlocksPerSM, its __launch_bounds__
+RAW_RESIDENT_WARPS = RAW_BLOCKS_PER_SM * WALK_BLOCK_WARPS   # warps an SM holds
+
+
+class RawWalkPlan(NamedTuple):
+    walks_per_lane: int     # k
+    tiles: int              # warp tiles of a column: ceil(rows / (32 k))
+    blocks: int             # blocks of WALK_BLOCK_WARPS warps over them all
+
+    def tile_rows(self, tile: int, rows: int) -> tuple:
+        """Rows ``lo .. hi - 1`` of a column's tile ``tile``."""
+        lo = tile * 32 * self.walks_per_lane
+        return min(lo, rows), min(lo + 32 * self.walks_per_lane, rows)
+
+
+def raw_walk_plan(rows: int, Bc: int, sm_count: int,
+                  alias: bool = False) -> RawWalkPlan:
+    """K6+K4's plan for a chunk of ``rows`` lane rows of ``Bc`` columns
+    (rows * Bc in 1 .. 2^32 - 1) on a card of ``sm_count`` SMs: the
+    largest k of 1, 2, 4, 8, 16 (RAW_WALKS_PER_LANE; with ``alias`` hops
+    of 1, 2, 4, WALKS_PER_LANE) whose warps fill at least half of the
+    card's resident warps, else 1; its tiles per column and the grid over
+    the Bc columns' tiles."""
+    if rows < 1 or Bc < 1 or rows * Bc >= 2**32:
+        raise ValueError(f"raw_walk_plan: {rows} rows, {Bc} columns")
+    if sm_count < 1:
+        raise ValueError(f"raw_walk_plan: sm_count = {sm_count}")
+    half = sm_count * RAW_RESIDENT_WARPS // 2
+    k = WALKS_PER_LANE if alias else RAW_WALKS_PER_LANE
+    while k > 1 and rows * Bc < 32 * k * half:
+        k //= 2
+    tiles = -(-rows // (32 * k))
+    return RawWalkPlan(walks_per_lane=k, tiles=tiles,
+                       blocks=-(-(tiles * Bc) // WALK_BLOCK_WARPS))

@@ -21,11 +21,19 @@ lanes onto nodes (``expand_lanes``; ``expand_chunk_lanes`` expands a
 chunk of the sharded raw walk over every shard's demand).  On a card they,
 ``accumulate_endpoints`` and ``accumulate_chunk_endpoints`` launch K6
 (``kernels/csrc/walk_alloc.cu``); the ``*_plain`` functions are the CPU
-path and the reference the kernels are held to.  ``walk_phase`` sizes
-the lanes by the measured demand, one host read per call, and splits the
-columns (and, for a column too large alone, its lanes) into chunks that
-fit the device's free memory, so a query never loses walks: JAX's static
-lane count drops the walks past it and only raises ``overflow``.
+path and the reference the kernels are held to.  On a card the walk
+phases run each chunk as one launch of K6+K4 (``raw_walk_chunk``,
+``raw_walk_sharded_chunk``: ``kernels/csrc/walk.cu``'s raw_walk_kernel),
+which finds each lane's start node and weight, walks it, and adds the
+weight at its endpoint, with no [W, B] array between them; its endpoints
+are those of the chain expansion -> K4 -> accumulate bit for bit
+(``raw_walk_chunk_plain`` is that chain in plain PyTorch, with Philox
+walks).  Monte Carlo and HubPPR keep K4 + ``accumulate_endpoints``.
+``walk_phase`` sizes the lanes by the measured demand, one host read per
+call, and splits the columns (and, for a column too large alone, its
+lanes) into chunks that fit the device's free memory, so a query never
+loses walks: JAX's static lane count drops the walks past it and only
+raises ``overflow``.
 
 The sharded raw one-shot and the sharded index build walk an out-CSR
 split into G row slices (``ShardedOutCSR``, the arrays of
@@ -536,6 +544,103 @@ def accumulate_chunk_endpoints_plain(endpoints: torch.Tensor,
         out.scatter_add_(0, endpoints.long().to(out.device), w.to(out.device))
 
 
+def raw_walk_chunk(graph: DeviceGraph, r: torch.Tensor, d: WalkDemand,
+                   lane_lo: int, num_lanes: int, seed: int, alpha: float,
+                   max_hops: int, out: torch.Tensor,
+                   ends: Optional[torch.Tensor] = None, clock=None) -> None:
+    """One chunk of the raw walk phase: lane lane_lo + t of each column b
+    of ``r`` [n, Bc] (t < ``num_lanes``) starts where :func:`expand_lanes`
+    puts it, walks under ``seed`` and adds its weight into ``out`` [n, Bc]
+    at its endpoint.  ``ends`` (tests and checks only) [W, Bc] int32 gets
+    the endpoints of the lanes below the column's total.  A CUDA tensor
+    launches K6+K4 (``kernels.raw_walk``, its alias branch on a graph with
+    alias tables), whose walk t * Bc + b draws from :func:`walk_endpoints`'
+    Philox stream and whose lanes past the total are not walked: the
+    endpoints of the chain expand_lanes -> walk_endpoints ->
+    accumulate_endpoints bit for bit, the sums up to the order of the f32
+    adds.  A CPU one runs that chain (the Generator's walks of
+    walk_endpoints).  ``clock`` (a ``utils.timing.StageClock``) times the
+    launch as ``walks``, the CPU's chain as ``alloc``, ``walks`` and
+    ``accum``."""
+    from ..utils.timing import StageClock
+    clock = clock or StageClock(None)
+    if r.device.type == "cpu":
+        with clock.stage("alloc"):
+            start, weight = expand_lanes(r, d, lane_lo, num_lanes)
+        with clock.stage("walks"):
+            got = walk_endpoints(graph, start.view(-1), seed, alpha,
+                                 max_hops).view(start.shape)
+            del start
+        with clock.stage("accum"):
+            accumulate_endpoints(got, weight, r.shape[0], out=out)
+        if ends is not None:
+            _keep_walked(ends, got, lane_lo, d.total)
+        return
+    with clock.stage("walks"):
+        kernels.raw_walk(r, d.cum, d.total, out, num_lanes, graph.out_indptr,
+                         graph.out_indices, graph.alias_prob,
+                         graph.alias_other, seed, alpha, max_hops,
+                         lane_lo=lane_lo, ends=ends)
+
+
+def raw_walk_sharded_chunk(csr: ShardedOutCSR, rs: list, ds: list,
+                           bounds: torch.Tensor, lane_lo: int,
+                           num_lanes: int, seed: int, alpha: float,
+                           max_hops: int, outs: list,
+                           ends: Optional[torch.Tensor] = None) -> None:
+    """:func:`raw_walk_chunk` of a chunk of the sharded raw walk: ``rs``,
+    ``ds`` and ``bounds`` as :func:`expand_chunk_lanes` takes them, the
+    walks over the out-CSR's slices ``csr``, each lane's weight into its
+    shard's partial ``outs[h]`` ([G * n_loc, Bc]).  A CUDA ``bounds``
+    launches ``kernels.raw_walk``'s sharded form (one launch for every
+    shard; lanes past bounds[G, b] are not walked): the chain
+    expand_chunk_lanes -> walk_endpoints -> accumulate_chunk_endpoints bit
+    for bit in its endpoints.  A CPU one runs that chain."""
+    if bounds.device.type == "cpu":
+        start, weight = expand_chunk_lanes(rs, ds, bounds, lane_lo, num_lanes,
+                                           csr.n_loc)
+        got = walk_endpoints(csr, start.view(-1), seed, alpha,
+                             max_hops).view(start.shape)
+        del start
+        accumulate_chunk_endpoints(got, weight, outs, bounds, lane_lo)
+        if ends is not None:
+            _keep_walked(ends, got, lane_lo, bounds[-1])
+        return
+    kernels.raw_walk(rs, [d.cum for d in ds], None, outs, num_lanes,
+                     csr.indptr, csr.indices, csr.alias_prob,
+                     csr.alias_other, seed, alpha, max_hops, lane_lo=lane_lo,
+                     bounds=bounds, n_loc=csr.n_loc, ends=ends)
+
+
+def _keep_walked(ends: torch.Tensor, got: torch.Tensor, lane_lo: int,
+                 total: torch.Tensor) -> None:
+    """``ends`` [W, Bc] takes ``got``'s endpoints on the lanes lane_lo + t
+    below their column's ``total`` [Bc] (the lanes K6+K4 walks)."""
+    lane = lane_lo + torch.arange(got.shape[0], device=total.device)
+    walked = (lane[:, None] < total[None, :]).to(ends.device)
+    ends[walked] = got.to(ends.device)[walked]
+
+
+def raw_walk_chunk_plain(graph, rs: list, ds: list, bounds: torch.Tensor,
+                         lane_lo: int, num_lanes: int, n_loc: int, seed: int,
+                         alpha: float, max_hops: int, outs: list,
+                         ends: Optional[torch.Tensor] = None) -> None:
+    """K6+K4 in plain PyTorch over G >= 1 shards (``bounds`` [G + 1, Bc]
+    the running sums of their totals; G = 1 with bounds [0, total] is the
+    unsharded chunk): each lane's node by ``torch.searchsorted`` over its
+    shard's cum and its weight (:func:`expand_chunk_lanes_plain`), every
+    lane's walk by :func:`run_walks_philox` on the [W, Bc] starts (walk t
+    * Bc + b; a lane past the demand walks from node 0 and weighs 0), and
+    one ``scatter_add_`` per shard (:func:`accumulate_chunk_endpoints_plain`).
+    The reference the kernel is held to; no path runs it."""
+    start, weight = expand_chunk_lanes_plain(rs, ds, bounds, lane_lo,
+                                             num_lanes, n_loc)
+    got = run_walks_philox(graph, start, seed, alpha, max_hops)
+    accumulate_chunk_endpoints_plain(got, weight, outs, bounds, lane_lo)
+    if ends is not None:
+        _keep_walked(ends, got, lane_lo, bounds[-1])
+
+
 def walk_lane_budget(omega_unit: float, rmax: float, m: int, n: int,
                      cap: Optional[int] = None, slack: float = 1.10,
                      lane_multiple: int = LANE_MULTIPLE) -> int:
@@ -610,12 +715,14 @@ def walk_phase(graph: DeviceGraph, r: torch.Tensor, omega_unit: float,
     """FORA's walk phase on the residue ``r`` [n, B]: ``(contrib [n, B]
     f32, WalkPhase)``.  Only the first ``live`` columns walk (the rest are
     a pool's padding; their contrib stays 0).  Chunk i of ``plan_chunks``
-    draws from ``derive_seed(seed, i)``.  ``clock`` (a
-    ``utils.timing.StageClock``) times the allocation, walks and
+    draws from ``derive_seed(seed, i)`` (:func:`raw_walk_chunk`: on a card
+    one launch of K6+K4).  ``clock`` (a ``utils.timing.StageClock``) times
+    the allocation (the demand; the CPU's expansion), walks (on a card
+    K6+K4, with the expansion and the accumulate) and the CPU's
     accumulation."""
     from ..utils.timing import StageClock
     clock = clock or StageClock(None)
-    n, B = r.shape
+    B = r.shape[1]
     live = B if live is None else live
     contrib = torch.zeros_like(r)
     with clock.stage("alloc"):
@@ -624,16 +731,9 @@ def walk_phase(graph: DeviceGraph, r: torch.Tensor, omega_unit: float,
     chunks = plan_chunks(tot, lane_budget(r.device))
     lanes = 0
     for i, (c0, c1, lo, hi) in enumerate(chunks):
-        with clock.stage("alloc"):
-            start, weight = expand_lanes(r[:, c0:c1], d.columns(c0, c1), lo,
-                                         hi - lo)
-        with clock.stage("walks"):
-            ends = walk_endpoints(graph, start.view(-1), derive_seed(seed, i),
-                                  alpha, max_hops)
-            del start
-        with clock.stage("accum"):
-            accumulate_endpoints(ends.view(hi - lo, c1 - c0), weight, n,
-                                 out=contrib[:, c0:c1])
+        raw_walk_chunk(graph, r[:, c0:c1], d.columns(c0, c1), lo, hi - lo,
+                       derive_seed(seed, i), alpha, max_hops,
+                       contrib[:, c0:c1], clock=clock)
         lanes += (hi - lo) * (c1 - c0)
     total = torch.zeros(B, dtype=torch.int32, device=r.device)
     total[:live] = d.total
@@ -659,13 +759,12 @@ def sharded_walk_phase(csr: ShardedOutCSR, rs: list, omega_unit: float,
     shard h - 1's (lane ``off[h, b] + i``, ``off[h, b]`` the walks the
     shards before h demand in column b), and the chunks are
     ``plan_chunks``' over the columns' totals.  Each shard's demand is
-    ``walk_demand`` on its own residues; per chunk, every shard's lanes go
-    straight into the chunk's start and weight arrays on the first
-    shard's device (``expand_chunk_lanes``: lane l of column b is shard
-    h's where off[h, b] <= l < off[h + 1, b], its start made global by +
-    h * n_loc), the walks run once over the slices with
-    ``derive_seed(seed, i)``, and every lane's weight goes at its endpoint
-    into its shard's partial (``accumulate_chunk_endpoints``).  So every
+    ``walk_demand`` on its own residues; per chunk, on the first shard's
+    device, lane l of column b is shard h's where off[h, b] <= l < off[h +
+    1, b], starts at its node made global by + h * n_loc, walks over the
+    slices with ``derive_seed(seed, i)``, and adds its weight at its
+    endpoint into its shard's partial (:func:`raw_walk_sharded_chunk`: on
+    a card one launch of K6+K4's sharded form).  So every
     walk is ``walk_phase``'s where the two plan the same chunks (always on
     the CPU; on a card ``walk_phase``'s chunks may be larger), and after
     P2 the contribution is ``walk_phase``'s up to the order of the float32
@@ -681,10 +780,12 @@ def sharded_walk_phase(csr: ShardedOutCSR, rs: list, omega_unit: float,
     partials = [torch.zeros((n_pad, B), dtype=torch.float32, device=r.device)
                 for r in rs]
     # a chunk's lane holds its start, weight and endpoint (12 bytes) and
-    # at most LANE_BYTES of an expansion; a chunk takes at most
-    # SHARDED_CHUNK_LANES lanes, so that on a card with room for more the
-    # chunks, and with them the walks a seed draws, do not depend on its
-    # free memory (two runs of one batch walk the same walks)
+    # at most LANE_BYTES of an expansion in the CPU's chain (K6+K4 holds
+    # none; the chunks stay the chain's, and so do the walks); a chunk
+    # takes at most SHARDED_CHUNK_LANES lanes, so that on a card with room
+    # for more the chunks, and with them the walks a seed draws, do not
+    # depend on its free memory (two runs of one batch walk the same
+    # walks)
     budget = lane_budget(dev0, LANE_BYTES + 12)
     chunks = plan_chunks(total, min(budget, SHARDED_CHUNK_LANES))
     # the running sums of the shards' totals: column b's lanes bounds[h,
@@ -696,15 +797,10 @@ def sharded_walk_phase(csr: ShardedOutCSR, rs: list, omega_unit: float,
     for i, (c0, c1, lo, hi) in enumerate(chunks):
         W, Bc = hi - lo, c1 - c0
         part = bounds[:, c0:c1].contiguous()
-        start, weight = expand_chunk_lanes(
-            [r[:, c0:c1] for r in rs], [d.columns(c0, c1) for d in ds], part,
-            lo, W, n_loc)
-        ends = walk_endpoints(csr, start.view(-1), derive_seed(seed, i),
-                              alpha, max_hops).view(W, Bc)
-        del start
-        accumulate_chunk_endpoints(ends, weight,
-                                   [p[:, c0:c1] for p in partials], part, lo)
-        del ends, weight
+        raw_walk_sharded_chunk(csr, [r[:, c0:c1] for r in rs],
+                               [d.columns(c0, c1) for d in ds], part, lo, W,
+                               derive_seed(seed, i), alpha, max_hops,
+                               [p[:, c0:c1] for p in partials])
         lanes += W * Bc
     return partials, WalkPhase(
         total=torch.as_tensor(total, dtype=torch.int32, device=dev0),

@@ -22,9 +22,9 @@ stride 8, accept slack 1, sources from seed 8):
     dense on the weighted graph: wall;
   - Monte Carlo of 32 queries (phase 11): wall;
 
-each once to warm and three times timed (medians), then one raw pool and
-one dense raw one-shot under torch.profiler: device busy, idle share and
-the largest device records.  It prints one JSON line a run; the runs go
+each once to warm and three times timed (medians), then one raw pool, one
+dense raw one-shot and one Monte Carlo under torch.profiler: device busy,
+idle share and the largest device records.  It prints one JSON line a run; the runs go
 other, this, this, other for each round, and the medians over the runs of
 each checkout are printed at the end.  It uses only the API both
 checkouts share and needs a CUDA card.
@@ -130,6 +130,7 @@ pool = raw_pool(dg, sources[:64])
 measure("raw pool", pool, stages=True)
 mc = make_montecarlo_fn(dg, rcfg)
 measure("montecarlo", lambda: mc(sources[:32], 7))
+profiled("montecarlo", lambda: mc(sources[:32], 7))
 for mode in ("dense", "routed"):
     eng = ShardedForaEngine(g, make_mesh(4), rcfg, k=50, exchange=mode)
     one = (lambda e: lambda: e.topk(sources[:128], 7))(eng)

@@ -325,8 +325,9 @@ def test_k4_on_flat_starts_chi_square(dev):
 
 
 def test_raw_level_on_card_matches_cpu(dev):
-    """One raw-walk level on the card (K1 push, allocation, K4, scatter-
-    add) against the CPU's plain path: p, r and supersteps within float
+    """One raw-walk level on the card (K1 push, the demand, K6+K4: the
+    lanes' starts, walks and scatter-add in one launch, K4 not launched
+    alone) against the CPU's plain path: p, r and supersteps within float
     order, the allocation of the same residue array-equal, each column's
     walk mass equal to its residue mass."""
     from fora_tpu_torch import ForaConfig as TorchForaConfig
@@ -348,7 +349,8 @@ def test_raw_level_on_card_matches_cpu(dev):
                                      rcfg.omega_unit, rcfg=rcfg)
         counts = kernels.launch_counts()
         on_card = torch.device(d).type == "cuda"
-        assert (counts["index_walk"] > 0) == on_card
+        assert (counts["raw_walk"] > 0) == on_card
+        assert counts["index_walk"] == 0
         assert (counts["push_prepass"] > 0) == on_card
     (cp, cr, cc, ci, cw), (kp, kr, kc, ki, kw) = out["cpu"], out[str(dev)]
     assert ci == ki
@@ -1296,8 +1298,10 @@ def test_walk_kernel_sharded_bit_equal_to_philox_plain(dev, branch, G, W):
 
 def test_sharded_raw_engine_on_card(dev):
     """ShardedForaEngine without an index, four shards on the card under
-    dense and routed: each launches K4's sharded form, K1, K3's selection
-    and P2's one pass once, never K2; both exchanges give the same top-k
+    dense and routed: each launches K6+K4's sharded form (the demand once
+    a shard, no K6-expand, K6-accum or K4 launch of its own), K1, K3's
+    selection and P2's one pass once, never K2; both exchanges give the
+    same top-k
     (the walks are the same, the push bit-equal across exchanges: values
     within rtol 1e-4, as the endpoints' scatter-add adds in no fixed
     order on the card, and ids equal at 95% of the positions or more); the
@@ -1319,12 +1323,13 @@ def test_sharded_raw_engine_on_card(dev):
         kernels.reset_launch_counts()
         res[mode] = eng.topk(src, 11)
         c = kernels.launch_counts()
-        assert c["index_walk_sharded"] > 0 and c["index_spmv"] == 0
+        assert c["index_spmv"] == 0
         assert c["reduce_scatter_onepass"] == 1
         assert c["topk_bounds"] == 4
         assert c["index_walk"] == c["index_walk_sharded_alias"] == 0
-        assert min(c["walk_demand"], c["expand_lanes"],
-                   c["accumulate_endpoints"]) > 0
+        assert c["index_walk_sharded"] == 0
+        assert c["walk_demand"] == 4 and c["raw_walk"] > 0
+        assert c["expand_lanes"] == c["accumulate_endpoints"] == 0
     np.testing.assert_allclose(res["routed"].values, res["dense"].values,
                                rtol=1e-4, atol=1e-9)
     assert (res["routed"].node_ids == res["dense"].node_ids).mean() >= 0.95
@@ -1652,9 +1657,9 @@ def test_accumulate_endpoints_kernel_float64(dev, weight_kind, B):
 
 
 def test_walk_phase_on_card_runs_k6(dev):
-    """walk_phase on the card launches K6-demand once, K6-expand and
-    K6-accum once per chunk and no plain expansion: its columns' mass
-    equals their residue's, its demand the plain version's."""
+    """walk_phase on the card launches K6-demand once and K6+K4 once per
+    chunk, and neither K6-expand, K6-accum nor K4 alone: its columns'
+    mass equals their residue's, its demand the plain version's."""
     from fora_tpu_torch import ForaConfig as TorchForaConfig
     from fora_tpu_torch import kernels
     from fora_tpu_torch.graph import generators as tgen
@@ -1670,9 +1675,114 @@ def test_walk_phase_on_card_runs_k6(dev):
                                     rcfg.alpha, rcfg.max_walk_hops, live=12)
     c = kernels.launch_counts()
     assert c["walk_demand"] == 1
-    assert c["expand_lanes"] == c["accumulate_endpoints"] == info.chunks
+    assert c["raw_walk"] == info.chunks
+    assert c["expand_lanes"] == c["accumulate_endpoints"] == 0
+    assert c["index_walk"] == 0
     want = walk.walk_demand_plain(st.r[:, :12], rcfg.omega_unit).total
     assert torch.equal(info.total[:12], want)
     torch.testing.assert_close(contrib.sum(0)[:12], st.r.sum(0)[:12],
                                rtol=1e-4, atol=0)
     assert float(contrib[:, 12:].abs().sum()) == 0.0
+
+
+# ---- K6+K4 (raw_walk_kernel) against the chain it replaced ----------------
+
+def _f32_gate(got, ends, weight, n):
+    """Each entry of ``got`` [n, Bc] (one f32 sum, or the shards'
+    partials summed) against the float64 sum of the non-zero weights of
+    the walked lanes (``ends`` >= 0) ending there: within gamma(N - 1) of
+    it for N adds, the bound of any order of f32 adds (the kernel's REDs
+    come in no fixed order, a warp's group of lanes summed before one)."""
+    add = (ends >= 0) & (weight != 0)
+    e = torch.where(add, ends, 0).long()
+    want = torch.zeros(n, ends.shape[1], dtype=torch.float64,
+                       device=ends.device)
+    want.scatter_add_(0, e, torch.where(add, weight.double(), 0.0))
+    cnt = torch.zeros_like(want).scatter_add_(0, e, add.double())
+    k = (cnt - 1).clamp_min(0) * 2.0**-24
+    bad = (got.double() - want).abs() > k / (1 - k) * want
+    assert not bool(bad.any()), f"{int(bad.sum())} entries off the f32 bound"
+    return cnt
+
+
+def _raw_case(dev, branch, G):
+    """A graph (weighted for the alias branches) and a residue [n, 6] with
+    an empty column and a column of one node's long run (a hub source),
+    as G shards of n_loc rows where ``branch`` is sharded."""
+    from fora_tpu_torch.index.build_sharded import shard_out_csr
+    g, dg, _ = _philox_graph(dev, "alias" if "alias" in branch else
+                             "uniform")
+    rng = np.random.default_rng(G)
+    csr = shard_out_csr(g, [dev] * G) if "sharded" in branch else None
+    rows = G * csr.n_loc if csr is not None else g.n
+    r = np.zeros((rows, 6), np.float32)
+    r[:g.n] = _k6_residue(rng, g.n, 6, 1000.0)
+    r[:, 5] = 0.0
+    r[123, 5] = 40.0                 # 40,000 lanes on one node
+    return g, dg, csr, torch.as_tensor(r, device=dev)
+
+
+RAW_BRANCHES = ["uniform", "alias", "sharded", "sharded_alias"]
+
+
+@pytest.mark.parametrize("branch", RAW_BRANCHES)
+@pytest.mark.parametrize("cut", ["whole", "mid", "tail"])
+def test_raw_walk_kernel_bit_equal_chain(dev, branch, cut):
+    """K6+K4 (one launch) against the chain K6-expand -> K4 -> K6-accum on
+    the same chunk, for the uniform, alias and sharded (G = 4) branches:
+    every lane below its column's demand ends where K4 ends it from
+    K6-expand's start (walk t * Bc + b), the lanes past it are not walked
+    (``ends`` keeps -1), and the contribution passes the f32 gate against
+    the float64 sum of the chain's endpoints and weights, its count of
+    adds per entry exact (the same chunk with r = omega_v, every weight
+    1.0); a whole chunk, lanes from lo > 0 that cut the shards' lanes,
+    and a chunk past every column's demand."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops import walk
+    G = 4 if "sharded" in branch else 1
+    g, dg, csr, r = _raw_case(dev, branch, G)
+    omega = 1000.0
+    seed = 0x5DEECE66D * 977
+    rs = list(r.split(r.shape[0] // G)) if csr is not None else [r]
+    ds = [walk.walk_demand(x, omega) for x in rs]
+    tot = torch.stack([d.total.long() for d in ds])
+    bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
+    t = int(bounds[-1].max())
+    lo, hi = {"whole": (0, t), "mid": (t // 5, 3 * t // 5),
+              "tail": (t // 2, t + 3000)}[cut]
+    W, Bc = hi - lo, r.shape[1]
+    n_out = r.shape[0]
+    if csr is None:
+        start, weight = walk.expand_lanes(r, ds[0], lo, W)
+        chain = walk.walk_endpoints(dg, start.view(-1), seed, 0.2,
+                                    64).view(W, Bc)
+    else:
+        start, weight = walk.expand_chunk_lanes(rs, ds, bounds, lo, W,
+                                                csr.n_loc)
+        chain = walk.walk_endpoints(csr, start.view(-1), seed, 0.2,
+                                    64).view(W, Bc)
+
+    def fused(res, ends=None):
+        outs = [torch.zeros(n_out, Bc, device=dev) for _ in range(G)]
+        before = kernels.launch_counts()
+        if csr is None:
+            walk.raw_walk_chunk(dg, res[0], ds[0], lo, W, seed, 0.2, 64,
+                                outs[0], ends=ends)
+        else:
+            walk.raw_walk_sharded_chunk(csr, res, ds, bounds, lo, W, seed,
+                                        0.2, 64, outs, ends=ends)
+        after = kernels.launch_counts()
+        assert after["raw_walk"] == before["raw_walk"] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        return sum(outs)
+    ends = torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
+    got = fused(rs, ends)
+    torch.cuda.synchronize()
+    valid = lo + torch.arange(W, device=dev)[:, None] < bounds[-1][None, :]
+    assert torch.equal(ends[valid], chain[valid])
+    assert bool((ends[~valid] == -1).all())
+    assert bool(valid.any()) and not bool(valid[:, 0].any())
+    cnt = _f32_gate(got, torch.where(valid, chain, -1), weight, n_out)
+    omegas = [walk.walk_demand_plain(x, omega).omega_v.float() for x in rs]
+    ones = fused(omegas)
+    assert torch.equal(ones.double(), cnt)

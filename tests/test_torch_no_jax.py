@@ -197,5 +197,18 @@ def test_cpu_tensors_never_launch_kernels():
     for graph in (g, gw):
         walk.walk_endpoints(shard_out_csr(graph, ["cpu"] * 3),
                             torch.zeros(100, dtype=torch.int32), 1, 0.2, 64)
+    d = walk.walk_demand(st.r, rcfg.omega_unit)
+    walk.raw_walk_chunk(dg, st.r, d, 0, int(d.total.max()), 1, 0.2, 64,
+                        torch.zeros_like(st.r))
+    csr = shard_out_csr(g, ["cpu"] * 2)
+    rs = [torch.zeros(csr.n_loc, 3) for _ in range(2)]
+    rs[0][:g.n // 2] = st.r[:g.n // 2]
+    ds = [walk.walk_demand(x, rcfg.omega_unit) for x in rs]
+    bounds = torch.stack([torch.zeros(3, dtype=torch.int64),
+                          ds[0].total.long(),
+                          ds[0].total.long() + ds[1].total.long()])
+    walk.raw_walk_sharded_chunk(csr, rs, ds, bounds, 0, int(bounds[-1].max()),
+                                1, 0.2, 64,
+                                [torch.zeros(2 * csr.n_loc, 3)] * 2)
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 22
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 23
