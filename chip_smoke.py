@@ -124,8 +124,16 @@ memory:
                  precision@50 of the first 32 against phase 7's exact
                  top-50 (>= 0.95)
   11. montecarlo the first 32 sources through make_montecarlo_fn (2^22
-                 walks per query, K4, K6's accumulate of the constant
-                 weight once per chunk): wall time, precision@50 (>= 0.95)
+                 walks per query, K6+K4-src once per chunk of the
+                 constant plan, source_chunks): wall time, chunks,
+                 precision@50 (>= 0.95); then K6+K4-src on that chunk held
+                 to the chain K4 -> K6-accum it replaced (endpoints
+                 bit-equal on every walk, also to its plain version; the
+                 sums by the f32 gate, counts exact) and timed beside it,
+                 its plain version and its bound (source_walk_bound),
+                 K6-accum there beside its bound and scatter_add_; the
+                 same for its hub branch on HubPPR's chunk (phase 3's
+                 hub index, the CLI's default pool)
   12. P3         the gather probe's first case (fora_tpu_torch.probes.
                  gather_probe, B = 128): P3 against its plain version and
                  K1 on the same edges sorted by destination (rtol 1e-4,
@@ -274,23 +282,27 @@ memory:
                  phase 9's timed run with one K2 launch per shard, P1 at
                  (G-1) G launches per superstep and P2's one pass once
                  (its hop kernel never with every shard on one card),
-                 K1, K3 and K6+K4 and no K2 in phase 10, K4 in phase 11,
+                 K1, K3 and K6+K4 and no K2 in phase 10, K6+K4-src in
+                 phase 11,
                  P3 in phase 12; the demand and K6+K4 (once per walk
                  chunk) in the raw pools (phases 10 and 13) and the raw
                  one-shots (phases 9 and 13, the demand once per shard),
                  and there no K6-expand, K6-accum or K4 launch of their
-                 own; K4 and the accumulate alone in Monte Carlo (phases
-                 11 and 13, once per chunk) and the CLI's hubppr; K6 and
-                 K6+K4 on no other path, K6-expand on none, and no plain
+                 own; K6+K4-src alone in Monte Carlo (phases 11 and 13,
+                 once per chunk) and in the CLI's hubppr queries (its
+                 pool's K4 launches and its query chunks as its constant
+                 plans give them, printed); K6, K6+K4 and K6+K4-src on no
+                 other path, K6-expand and K6-accum on none, and no plain
                  version of K6 or K6+K4 in any of those runs nor in any
                  CLI action (``count_plain_k6``); in phase 13 K1-K3 and
                  K4's alias branch (index_walk_alias) in the indexed run,
-                 K1, K3 and K6+K4 in the raw pool, the alias branch in Monte
-                 Carlo, never the uniform branch there and never the
+                 K1, K3 and K6+K4 in the raw pool, K6+K4-src in Monte
+                 Carlo, never K4's uniform branch there and never the
                  alias branch before; in phase 14 K4 in build, K1-K3 in
                  batch-topk and in the server (its launch counts printed
                  at SIGTERM), K1 in fwdpush, the K1-back pre-pass, K1 and
-                 K4 in bippr, K4-hub in hubppr and nowhere else, and
+                 K4 in bippr, K4 and K6+K4-src in hubppr, K4-hub on no
+                 path, and
                  neither new kernel before phase 14, and the sharded
                  batch-topk and server on their kernels; in phase 15 per
                  exchange K2 and K3 once per shard per level run, P2's one
@@ -339,7 +351,9 @@ superstep at B = 32 with the launches of its compacted pushes, carry
 device_ms and earlier_device_ms, the earlier form's device time on the
 same state; walk_demand, expand_lanes and accumulate_endpoints, K6, are
 phase 10's pool's largest walk phase with phase 10's launches (the
-accumulate's Monte Carlo's, phase 11) and carry device_ms: the demand's
+accumulate's Monte Carlo's, phase 11, 0 since K6+K4-src; its montecarlo_*
+keys are its time, bound and library call on phase 11's chunk) and carry
+device_ms: the demand's
 bound r read and cum written once, the expansion's 8 bytes a lane slot
 written and the distinct 32-byte sectors of cum and r at the lanes'
 nodes, the accumulate's 8 bytes a lane read and the distinct sectors of
@@ -348,7 +362,12 @@ walk phase with phase 10's launches, and carries device_ms,
 chain_device_ms (the device time of the three launches it replaced on
 the same chunk) and sharded_* (its sharded form on phase 9's
 allocation), its bound K4's walk bound plus the sectors of cum and r at
-the lanes' nodes and of the output, read and written), then,
+the lanes' nodes and of the output, read and written; source_walk,
+K6+K4-src, is phase 11's chunk with phase 11's launches, and carries
+device_ms, chain_device_ms (K4 and K6-accum on the same chunk), alias_*
+(phase 13's weighted chunk) and hub_* (HubPPR's chunk), its bound K4's
+walk bound without a start or endpoint array plus the sectors of the
+output, read and written), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -1109,7 +1128,8 @@ def k4_vs_plain_on_level(runner, dg, sources, level):
 
 PLAIN_K6 = ("walk_demand_plain", "expand_lanes_plain",
             "expand_chunk_lanes_plain", "accumulate_endpoints_plain",
-            "accumulate_chunk_endpoints_plain", "raw_walk_chunk_plain")
+            "accumulate_chunk_endpoints_plain", "raw_walk_chunk_plain",
+            "source_walk_chunk_plain")
 plain_k6_calls: dict = {}
 
 
@@ -1714,21 +1734,167 @@ def run_raw(dg, rcfg, sources, exact_ids, name="raw", hub=None, k6=False):
     return counts, k6_rows
 
 
+# K6+K4-src's rows by branch ("uniform", "alias", "hub"), filled by
+# source_walk_row
+source_rows: dict = {}
+
+
+def source_walk_row(dg, rcfg, sources, label, hub=None, plain=True):
+    """K6+K4-src on one chunk of a source-rooted path (the first
+    MC_QUERIES ``sources``, min(omega_unit + 1, 2^22) walks each, seed
+    SEED; with ``hub`` HubPPR's hub branch) against the chain it replaced,
+    K4 (K4-alias, K4-hub) on sources.repeat(rows) -> K6-accum of the
+    constant weight 1 / rows, on the same chunk.  The gates: every walk's
+    endpoint (the kernel's ``ends``) equal to K4's, and with ``plain`` to
+    source_walk_chunk_plain's; the kernel's sums and K6-accum's pass
+    f32_gate against the float64 sums of the f32 weight at K4's endpoints,
+    each entry's count of adds exact (weight 1.0).  Timed as called and in
+    device time beside the chain's launches and their sum, the plain
+    version (with ``plain``) and source_walk_bound; K6-accum at this shape
+    too, beside its bound (4 bytes an endpoint read, the distinct sectors
+    of out read and written) and the library call scatter_add_ over the
+    int64 endpoints.  Stores {"row": K6+K4-src's row, "accum": K6-accum's}
+    under the branch's name in source_rows."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch.algo import hubppr
+    from fora_tpu_torch.ops import walk
+    from fora_tpu_torch.utils.timing import cuda_ms, device_ms
+    a, hops = rcfg.alpha, rcfg.max_walk_hops
+    W = min(int(rcfg.omega_unit) + 1, WALK_CHECK)
+    src = torch.as_tensor(np.asarray(sources[:MC_QUERIES]),
+                          dtype=torch.int32, device=dg.device)
+    B, n, dev = src.shape[0], dg.n, dg.device
+    weight = 1.0 / W
+    start = src.repeat(W)
+
+    def k4():
+        if hub is None:
+            return walk.walk_endpoints(dg, start, SEED, a, hops)
+        return hubppr.hub_walks(dg, start, SEED, hub, alpha=a, max_hops=hops)
+
+    def fresh():
+        return torch.zeros((n, B), dtype=torch.float32, device=dev)
+
+    def launch(w, out, ends=None):
+        walk.source_walk_chunk(dg, src, W, SEED, a, hops, w, out, hub=hub,
+                               ends=ends)
+    chain = k4().view(W, B)
+    ends = torch.full_like(chain, -1)
+    got = fresh()
+    launch(weight, got, ends)
+    differ = int((ends != chain).sum())
+    if differ:
+        fail(f"K6+K4-src ({label}): {differ} of {W * B} endpoints differ "
+             f"from {walk_branch(dg, hub)}'s")
+    del ends
+    if plain:
+        pends = torch.full_like(chain, -1)
+        walk.source_walk_chunk_plain(dg, src, W, SEED, a, hops, weight,
+                                     fresh(), hub=hub, ends=pends)
+        if not torch.equal(pends, chain):
+            fail(f"source_walk_chunk_plain ({label}): "
+                 f"{int((pends != chain).sum())} endpoints differ")
+        del pends
+    e64 = chain.long()
+    want = torch.zeros((n, B), dtype=torch.float64, device=dev)
+    want.scatter_add_(0, e64, torch.full((W, B), float(np.float32(weight)),
+                                         dtype=torch.float64, device=dev))
+    cnt64 = torch.zeros_like(want).scatter_add_(
+        0, e64, torch.ones((W, B), dtype=torch.float64, device=dev))
+    cnt = fresh()
+    launch(1.0, cnt)
+    err = f32_gate(f"K6+K4-src ({label})", got, want, cnt, cnt64)
+    acc, acc_cnt = fresh(), fresh()
+    walk.accumulate_endpoints(chain, weight, n, out=acc)
+    walk.accumulate_endpoints(chain, 1.0, n, out=acc_cnt)
+    acc_err = f32_gate(f"K6-accum ({label})", acc, want, acc_cnt, cnt64)
+    home = int(cnt64[src.long(), torch.arange(B, device=dev)].sum())
+    del want, cnt, cnt64, acc, acc_cnt, got
+    cols = torch.arange(B, device=dev)[None, :]
+    out_sectors = sectors(e64 * B + cols)
+    out = fresh()
+    row = dict(max_abs_err=err, ms=cuda_ms(lambda: launch(weight, out)),
+               device_ms=device_ms(lambda: launch(weight, out)),
+               plain_ms=cuda_ms(lambda: walk.source_walk_chunk_plain(
+                   dg, src, W, SEED, a, hops, weight, out, hub=hub),
+                   iters=1, warmup=1) if plain else None,
+               library_ms=None,
+               **source_walk_bound(dg, start, rcfg, out_sectors, hub))
+    parts = {walk_branch(dg, hub): device_ms(k4, iters=5),
+             "K6-accum": device_ms(lambda: walk.accumulate_endpoints(
+                 chain, weight, n, out=out), iters=5)}
+    row["chain_device_ms"] = sum(parts.values())
+    wfull = torch.full((W, B), weight, dtype=torch.float32, device=dev)
+    accum = dict(max_abs_err=acc_err,
+                 ms=cuda_ms(lambda: walk.accumulate_endpoints(
+                     chain, weight, n, out=out), iters=5),
+                 device_ms=parts["K6-accum"],
+                 plain_ms=cuda_ms(lambda: walk.accumulate_endpoints_plain(
+                     chain, weight, n, out), iters=3),
+                 library_ms=cuda_ms(lambda: out.scatter_add_(0, e64, wfull),
+                                    iters=3),
+                 **bound(W * B * 4 + 2 * out_sectors * SECTOR))
+    del wfull, e64
+    plain_txt = (f"; plain {row['plain_ms']:.4f} ms (bit-equal)"
+                 if plain else "")
+    print(f"K6+K4-src ({label}, {B} sources x {W} walks, {home} of them "
+          f"end at their source): endpoints bit-equal to "
+          f"{walk_branch(dg, hub)}'s on every walk; counts exact, every "
+          f"entry within the f32 summation bound (max abs err {err:.3e}); "
+          f"{row['ms']:.4f} ms as called, device {row['device_ms']:.4f}; the "
+          f"chain {row['chain_device_ms']:.4f} ms device (" + ", ".join(
+              f"{k} {v:.4f}" for k, v in parts.items()) + f"){plain_txt}; "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({row['bound_ms'] / row['device_ms']:.0%} of it reached, "
+          "device)")
+    print(f"K6-accum ({label}): {accum['ms']:.4f} ms as called, device "
+          f"{accum['device_ms']:.4f}; plain {accum['plain_ms']:.4f} ms; "
+          f"library (scatter_add_) {accum['library_ms']:.4f} ms; bound "
+          f"{accum['bound_ms']:.4f} ms by {accum['bound_by']} "
+          f"({accum['bound_ms'] / accum['device_ms']:.0%} of it reached, "
+          f"device; {out_sectors} sectors of out)")
+    source_rows[walk_branch(dg, hub)] = {"row": row, "accum": accum}
+
+
+def source_walk_bound(graph, start, rcfg, out_sectors, hub=None) -> dict:
+    """K6+K4-src's bound on a chunk: walk_bound()'s reads and Philox
+    blocks of the walks from ``start`` (sources.repeat(rows)), without
+    its start array read and endpoints written (the kernel holds neither),
+    plus the ``out_sectors`` distinct sectors of the output its walks add
+    into, read and written, at the device memory's rate; the larger of
+    the bytes' and the operations' times."""
+    import torch
+    gen = torch.Generator(device=start.device).manual_seed(SEED)
+    b = walk_bound(graph, start, gen, rcfg.alpha, rcfg.max_walk_hops,
+                   walk_sector_rate(graph, hub), hub=hub)
+    hbm = hbm_rate()
+    arrays = 2 * nbytes(start) / hbm * 1e3
+    extra = 2 * out_sectors * SECTOR / hbm * 1e3
+    t_bytes = b["bytes_ms"] - arrays + extra
+    print(f"K6+K4-src bound: K4's walks {b['bytes_ms'] - arrays:.4f} ms of "
+          f"reads (no start or endpoint array), {b['ops_ms']:.4f} ms of "
+          f"Philox blocks; {out_sectors} sectors of the output, read and "
+          f"written, {extra:.4f} ms")
+    return (dict(bound_ms=t_bytes, bound_by="bytes") if t_bytes >= b["ops_ms"]
+            else dict(bound_ms=b["ops_ms"], bound_by="operations"))
+
+
 def run_montecarlo(dg, rcfg, sources, exact_ids, name="montecarlo"):
     """Phase 11 (and 13's weighted run, ``name`` its label): Monte Carlo
-    top-k of the first MC_QUERIES sources.  Returns its launch counts."""
+    top-k of the first MC_QUERIES sources, its chunks counted from the
+    constant plan (source_chunks), then K6+K4-src on its chunk
+    (source_walk_row).  Returns its launch counts."""
     import numpy as np
     import torch
     from fora_tpu_torch import kernels
     from fora_tpu_torch.algo.montecarlo import (make_montecarlo_fn,
-                                                montecarlo_chunks)
+                                                source_chunks)
     from fora_tpu_torch.eval import metrics
     from fora_tpu_torch.ops.topk import topk_nodes
-    from fora_tpu_torch.ops.walk import lane_budget
     fn = make_montecarlo_fn(dg, rcfg)
     src = np.asarray(sources[:MC_QUERIES])
-    chunks = len(montecarlo_chunks(fn.num_walks, len(src),
-                                   lane_budget(dg.device)))
+    chunks = len(source_chunks(fn.num_walks, len(src), dg.device))
     plain0 = dict(plain_k6_calls)
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1743,9 +1909,15 @@ def run_montecarlo(dg, rcfg, sources, exact_ids, name="montecarlo"):
           f"precision@{K} {prec:.4f} (limit {MIN_PRECISION})")
     if not prec >= MIN_PRECISION:
         fail(f"{name} precision@{K} {prec:.4f} < {MIN_PRECISION}")
-    if counts["accumulate_endpoints"] != chunks:
-        fail(f"{name}: {counts['accumulate_endpoints']} launches of "
-             f"K6-accum for {chunks} chunks, expected one each")
+    walks = ("index_walk", "index_walk_alias", "index_walk_hub",
+             "accumulate_endpoints")
+    if counts["source_walk"] != chunks or any(counts[k] for k in walks):
+        fail(f"{name}: {counts['source_walk']} launches of K6+K4-src for "
+             f"{chunks} chunks, expected one each, and "
+             f"{[counts[k] for k in walks]} of {walks}, expected none")
+    print(f"{name}: K6+K4-src once per chunk ({chunks}), no K4 branch or "
+          "K6-accum of its own")
+    source_walk_row(dg, rcfg, sources, f"{name}'s chunk")
     return counts
 
 
@@ -2096,6 +2268,23 @@ def run_cli(g, rcfg, sources, exact_ids, dev):
                                       str(len(ev)), "--output", str(out)),
                        counts)
         output_precision(name, out, ev, exact_ids, gate)
+    # HubPPR's chunks, from the constant plans: the pool's K4 launches
+    # (pool_chunk_hubs hubs each) and the queries' K6+K4-src launches (one
+    # batch of len(ev) sources)
+    from fora_tpu_torch.algo.montecarlo import source_chunks
+    num_walks = min(int(rcfg.omega_unit) + 1, WALK_CHECK)
+    P = hubppr.default_pool_size(rcfg, num_walks, NUM_HUBS)
+    per = hubppr.pool_chunk_hubs(P, dev)
+    pool_chunks = -(-NUM_HUBS // per)
+    query_chunks = len(source_chunks(num_walks, len(ev), dev))
+    c = counts["hubppr"]
+    print(f"cli hubppr: the pool of {NUM_HUBS} hubs x {P} entries in "
+          f"{pool_chunks} chunks of {per} hubs (K4 launched "
+          f"{c['index_walk']} times); {len(ev)} queries x {num_walks} walks "
+          f"in {query_chunks} chunk(s) (K6+K4-src launched "
+          f"{c['source_walk']} times)")
+    if c["index_walk"] != pool_chunks or c["source_walk"] != query_chunks:
+        fail("cli hubppr: its launches do not match its chunk plans")
     # beside it the JAX package's pool cap, printed: walks that reach a hub
     # share its pool's entries (ROADMAP C15)
     dg = to_device(g, hub_rows=HUB_ROWS, device=dev)
@@ -4140,9 +4329,11 @@ def main(argv=None) -> int:
         rows["raw_walk"].update({"sharded_" + k: fused9[k] for k in (
             "ms", "device_ms", "chain_device_ms", "plain_ms", "bound_ms",
             "max_abs_err")})
-        del hub
     with Phase("montecarlo"):
         mc_launches = run_montecarlo(dg, rcfg, sources, ex[:EVAL_N])
+        # HubPPR's chunk on phase 3's hub index (the CLI's default pool)
+        source_walk_row(dg, rcfg, sources, "HubPPR's chunk", hub=hub)
+        del hub
     with Phase("P3"):
         rows["row_scatter_add"], p3_launches = run_p3(dev)
 
@@ -4203,20 +4394,23 @@ def main(argv=None) -> int:
     if raw_launches["index_spmv"]:
         fail("the raw-walk path launched the index SpMV")
     print(f"launches in phase 11: {mc_launches}")
-    if mc_launches["index_walk"] <= 0:
-        fail("K4 was not launched on the Monte Carlo path")
+    if mc_launches["source_walk"] <= 0:
+        fail("K6+K4-src was not launched on the Monte Carlo path")
     # K6 and K6+K4: the raw pools run the demand once per walk phase and
     # K6+K4 once per chunk, and no K6-expand, K6-accum or K4 launch of
-    # their own; Monte Carlo and HubPPR K4 and the accumulate alone (once
-    # per chunk: run_montecarlo checks the count); the raw one-shots'
-    # counts are checked with theirs below; no path without a walk phase
-    # runs any of them, and K6-expand runs on no path
-    k6 = ("walk_demand", "expand_lanes", "accumulate_endpoints", "raw_walk")
+    # their own; Monte Carlo and HubPPR's queries K6+K4-src alone (once
+    # per chunk: run_montecarlo and run_cli check the counts); the raw
+    # one-shots' counts are checked with theirs below; no path without a
+    # walk phase runs any of them, and K6-expand and K6-accum run on no
+    # path
+    k6 = ("walk_demand", "expand_lanes", "accumulate_endpoints", "raw_walk",
+          "source_walk")
     for label, c, k4 in (("phase 10's raw pool", raw_launches, "index_walk"),
                          ("phase 13's weighted raw pool", w_raw_launches,
                           "index_walk_alias")):
         if c["walk_demand"] <= 0 or c["raw_walk"] != c["chunks"] or \
-                c["expand_lanes"] or c["accumulate_endpoints"] or c[k4]:
+                c["expand_lanes"] or c["accumulate_endpoints"] or c[k4] or \
+                c["source_walk"]:
             fail(f"{label}: launches {[c[x] for x in k6 + (k4,)]} of "
                  f"{k6 + (k4,)}, expected the demand, K6+K4 once for each "
                  f"of {c['chunks']} chunks and none of the others")
@@ -4225,10 +4419,12 @@ def main(argv=None) -> int:
     for label, c in (("phase 11's Monte Carlo", mc_launches),
                      ("phase 13's Monte Carlo", w_mc_launches),
                      ("phase 14's hubppr", cli_launches["hubppr"])):
-        if c["accumulate_endpoints"] <= 0 or c["walk_demand"] or \
-                c["expand_lanes"] or c["raw_walk"]:
-            fail(f"{label}: K6 launches {[c[x] for x in k6]}, expected the "
-                 "accumulate alone")
+        if c["source_walk"] <= 0 or c["walk_demand"] or \
+                c["expand_lanes"] or c["raw_walk"] or \
+                c["accumulate_endpoints"] or c["index_walk_hub"]:
+            fail(f"{label}: K6 launches {[c[x] for x in k6]} and "
+                 f"{c['index_walk_hub']} of K4-hub, expected K6+K4-src "
+                 "alone")
     if any(c[x] for x in k6 for c in (
             launches, sharded_launches, p3_launches, w_launches,
             w_pool_launches, build_launches, k5_launches, relabel_launches,
@@ -4251,8 +4447,8 @@ def main(argv=None) -> int:
                  "raw_walk"):
         if w_raw_launches[name] <= 0:
             fail(f"kernel {name} was not launched on the weighted raw path")
-    if w_mc_launches["index_walk_alias"] <= 0:
-        fail("K4's alias branch was not launched by weighted Monte Carlo")
+    if w_mc_launches["source_walk"] <= 0:
+        fail("K6+K4-src was not launched by weighted Monte Carlo")
     if any(c["index_walk"] for c in (w_launches, w_raw_launches,
                                      w_mc_launches)):
         fail("a weighted path launched K4's uniform branch")
@@ -4289,7 +4485,7 @@ def main(argv=None) -> int:
                     "row_scatter_add": SHARDS * st["compacted"],
                     "exchange_clear": st["cleared"],
                     "walk_demand": SHARDS, "expand_lanes": 0,
-                    "accumulate_endpoints": 0}
+                    "accumulate_endpoints": 0, "source_walk": 0}
             if st["chunks"] <= 0:
                 fail(f"{label}'s raw one-shot ({mode}): no walk chunk")
             for name, n in want.items():
@@ -4384,7 +4580,7 @@ def main(argv=None) -> int:
             "serve sharded": MAIN_KERNELS[:4] + (
                 "ring_all_gather_hop", "reduce_scatter_onepass"),
             "fwdpush": ("push_prepass", "gather_scatter_add"),
-            "hubppr": ("index_walk", "index_walk_hub"),
+            "hubppr": ("index_walk", "source_walk"),
             "bippr": ("backward_prepass", "gather_scatter_add",
                       "index_walk")}
     for action, names in need.items():
@@ -4430,6 +4626,17 @@ def main(argv=None) -> int:
     loaded = sorted(foreign_modules() - preloaded)
     if loaded:
         fail(f"the port imported JAX or fora_tpu: {loaded[:5]}")
+    # K6+K4-src's row is Monte Carlo's chunk, with its alias branch on the
+    # weighted one and its hub branch on HubPPR's; K6-accum's carries its
+    # time at Monte Carlo's shape, where the paths called it before
+    rows["source_walk"] = dict(source_rows["K4"]["row"])
+    for pre, key in (("alias_", "K4-alias"), ("hub_", "K4-hub")):
+        rows["source_walk"].update(
+            {pre + k: v for k, v in source_rows[key]["row"].items()
+             if k in ("ms", "device_ms", "chain_device_ms", "plain_ms",
+                      "bound_ms", "max_abs_err")})
+    rows["accumulate_endpoints"].update(
+        {"montecarlo_" + k: v for k, v in source_rows["K4"]["accum"].items()})
     meta = {
         "push_prepass": ("push_prepass.cu", "fora_tpu/ops/push.py:315"),
         "backward_prepass": ("push_prepass.cu",
@@ -4476,6 +4683,11 @@ def main(argv=None) -> int:
         # endpoints' segment_sum in one launch (phase 10's largest walk
         # phase; its sharded form on phase 9's allocation in sharded_*)
         "raw_walk": ("walk.cu", "fora_tpu/ops/walk.py:63, 159, 323"),
+        # K6+K4-src: Monte Carlo's source-rooted walks and their endpoints'
+        # segment_sum in one launch (phase 11's chunk; its alias branch on
+        # phase 13's, its hub branch on HubPPR's chunk in alias_* and hub_*)
+        "source_walk": ("walk.cu", "fora_tpu/algo/montecarlo.py:34-49, "
+                                   "fora_tpu/algo/hubppr.py:183-193"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
@@ -4493,7 +4705,8 @@ def main(argv=None) -> int:
              cli_launches["bippr"][name] if name == "backward_prepass" else
              cli_launches["hubppr"][name] if name == "index_walk_hub" else
              k5_launches[name] if name.startswith("frontier_p") else
-             mc_launches[name] if name == "accumulate_endpoints" else
+             mc_launches[name] if name in ("accumulate_endpoints",
+                                           "source_walk") else
              raw_launches[name] if name in k6 else
              sharded_launches[name])
         out.append({"name": name, "route": "cuda",
@@ -4508,7 +4721,8 @@ def main(argv=None) -> int:
                                            "chain_device_ms")
                        if k in row},
                     **{k: v for k, v in row.items()
-                       if k.startswith("sharded_")}})
+                       if k.startswith(("sharded_", "montecarlo_", "alias_",
+                                        "hub_"))}})
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

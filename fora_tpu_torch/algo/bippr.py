@@ -34,8 +34,8 @@ from .. import kernels
 from ..config import ResolvedConfig
 from ..graph.csr import DeviceGraph, out_schedule
 from ..ops.gather import gather_scatter_add
-from ..ops.walk import derive_seed, lane_budget, walk_endpoints
-from .montecarlo import montecarlo_chunks
+from ..ops.walk import derive_seed, walk_endpoints
+from .montecarlo import source_chunks
 
 
 class BackwardPushState(NamedTuple):
@@ -151,13 +151,12 @@ def walk_term(graph: DeviceGraph, r: torch.Tensor, sources: torch.Tensor,
               seed: int, *, alpha: float, max_hops: int, num_walks: int,
               walk=walk_endpoints) -> torch.Tensor:
     """[S, T] (1/W) sum over W walks from each source of r at the walk's
-    endpoint, the walks in chunks that fit the device (chunk i from
-    ``derive_seed(seed, i)``); ``walk(graph, start, seed, alpha,
-    max_hops)`` runs one chunk's walks."""
+    endpoint, the walks in the chunks of ``montecarlo.source_chunks``
+    (chunk i from ``derive_seed(seed, i)``); ``walk(graph, start, seed,
+    alpha, max_hops)`` runs one chunk's walks."""
     S = sources.shape[0]
     acc = torch.zeros((S, r.shape[1]), dtype=torch.float32, device=r.device)
-    for i, w in enumerate(montecarlo_chunks(num_walks, S,
-                                            lane_budget(r.device))):
+    for i, w in enumerate(source_chunks(num_walks, S, r.device)):
         ends = walk(graph, sources.repeat(w), derive_seed(seed, i), alpha,
                     max_hops)
         add_walk_term(acc, r, ends.view(w, S), 1.0 / num_walks)

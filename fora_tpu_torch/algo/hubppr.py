@@ -8,13 +8,16 @@ uniformly drawn entry of that hub's pool (memorylessness keeps the
 endpoint distribution), never at hop 0.  ``hub_walks`` runs on K4's hub
 branch on a card (``kernels.index_walk_hub``: after every hop a
 ``hub_id`` lookup, and at a hub one pool read) and on the lockstep
-``hub_walks_plain`` on the CPU.
+``hub_walks_plain`` on the CPU.  ``hubppr_query`` runs a chunk's walks and
+their endpoint frequencies through ``ops.walk.source_walk_chunk``: on a
+card one launch of K6+K4-src's hub branch (the same hops and pool draws,
+no [W, B] array), on the CPU ``hub_walks`` and the plain accumulate.
 
 On a weighted graph the query walk takes the alias hop, as the pool's
 walks do: the JAX function hops uniformly there while its pool follows
 w/W (ROADMAP C14), so its weighted estimate mixes two chains; the port's
-is held to the weighted oracle.  ``hubppr_query`` runs its walks in
-chunks that fit the device, as Monte Carlo does.  The default pool holds
+is held to the weighted oracle.  The queries' walks and the pool's run in
+chunks of a constant lane count, as Monte Carlo's do.  The default pool holds
 as many entries as a query walks, up to ``POOL_BYTES`` for all hubs,
 where the JAX function stops at 2^15 (ROADMAP C15): walks that reach a
 hub share its pool's entries, and at 2^22 walks a query against 2^15
@@ -32,10 +35,10 @@ import torch
 from .. import kernels
 from ..config import ResolvedConfig
 from ..graph.csr import DeviceGraph
-from ..ops.walk import (accumulate_endpoints, derive_seed, geometric_lengths,
-                        lane_budget, walk_endpoints)
+from ..ops.walk import (chunk_lanes, derive_seed, geometric_lengths,
+                        source_walk_chunk, walk_endpoints)
 from .bippr import backward_push, walk_term
-from .montecarlo import montecarlo_chunks
+from .montecarlo import source_chunks
 
 # the default pool's device memory: 256 hubs x 2^22 entries
 POOL_BYTES = 1 << 32
@@ -90,8 +93,8 @@ def build_hub_index(graph: DeviceGraph, seed: int, *, alpha: float,
                     max_hops: int = 64,
                     in_deg: Optional[np.ndarray] = None) -> HubIndex:
     """Select the hubs and run ``pool_size`` alpha-walks from each (K4, or
-    its alias branch on a weighted graph), as many hubs per launch as the
-    device's lane budget holds; chunk i from ``derive_seed(seed, i)``."""
+    its alias branch on a weighted graph), :func:`pool_chunk_hubs` hubs
+    per launch; chunk i from ``derive_seed(seed, i)``."""
     dev = graph.device
     if in_deg is None:
         in_deg = graph_in_degree(graph)
@@ -102,7 +105,7 @@ def build_hub_index(graph: DeviceGraph, seed: int, *, alpha: float,
     hub_id[hubs] = np.arange(H, dtype=np.int32)
     hubs_t = torch.as_tensor(hubs, device=dev)
     pool = torch.empty((H, pool_size), dtype=torch.int32, device=dev)
-    per = max(1, lane_budget(dev) // max(pool_size, 1))
+    per = pool_chunk_hubs(pool_size, dev)
     for ci, lo in enumerate(range(0, H, per)):
         hs = hubs_t[lo: lo + per]
         c = hs.shape[0]
@@ -111,6 +114,14 @@ def build_hub_index(graph: DeviceGraph, seed: int, *, alpha: float,
         pool[lo: lo + c] = ends.view(pool_size, c).T
     return HubIndex(hub_nodes=hubs_t,
                     hub_id=torch.as_tensor(hub_id, device=dev), pool=pool)
+
+
+def pool_chunk_hubs(pool_size: int, device) -> int:
+    """Hubs whose pools one launch of the pool build walks on ``device``:
+    ``ops.walk.chunk_lanes(device) // pool_size`` (at least one), as the
+    reference's ``hub_chunk = (1 << 22) // pool_size``; a constant of the
+    device's type, never of its free memory."""
+    return max(1, chunk_lanes(device) // max(pool_size, 1))
 
 
 def default_pool_size(rcfg: ResolvedConfig, num_walks: int,
@@ -192,14 +203,14 @@ def hub_walks(graph: DeviceGraph, start: torch.Tensor, seed: int,
 def hubppr_query(graph: DeviceGraph, sources, seed: int, hub: HubIndex, *,
                  rcfg: ResolvedConfig, num_walks: int) -> torch.Tensor:
     """Hub-accelerated Monte Carlo SSPPR: [n, B] endpoint frequencies of
-    ``num_walks`` hub-short-circuited walks per source (lane w * B + b
+    ``num_walks`` hub-short-circuited walks per source (walk w * B + b
     walks from ``sources[b]``)."""
     src = torch.as_tensor(sources, dtype=torch.int32, device=graph.device)
-    B = src.shape[0]
-    ends = hub_walks(graph, src.repeat(num_walks), seed, hub,
-                     alpha=rcfg.alpha, max_hops=rcfg.max_walk_hops)
-    return accumulate_endpoints(ends.view(num_walks, B), 1.0 / num_walks,
-                                graph.n)
+    out = torch.zeros((graph.n, src.shape[0]), dtype=torch.float32,
+                      device=graph.device)
+    source_walk_chunk(graph, src, num_walks, seed, rcfg.alpha,
+                      rcfg.max_walk_hops, 1.0 / num_walks, out, hub=hub)
+    return out
 
 
 def hubppr_pairs(graph: DeviceGraph, sources, targets, seed: int,
@@ -222,9 +233,9 @@ def make_hubppr_fn(graph: DeviceGraph, rcfg: ResolvedConfig, seed: int, *,
                    pool_size: Optional[int] = None):
     """CLI entry: build the hub index once (from ``derive_seed(seed,
     0x48554250)``), return ``(sources, seed) -> [n, B]`` at the config's
-    guarantee, min(omega_unit + 1, max_walks) walks per query in chunks of
-    the device's lane budget (chunk i from ``derive_seed(seed, i)``, its
-    estimate weighted by its share of the walks)."""
+    guarantee, min(omega_unit + 1, max_walks) walks per query in the
+    chunks of ``montecarlo.source_chunks`` (chunk i from ``derive_seed(seed,
+    i)``, its estimate weighted by its share of the walks)."""
     num_walks = min(int(rcfg.omega_unit) + 1, max_walks)
     if pool_size is None:
         pool_size = default_pool_size(rcfg, num_walks, num_hubs)
@@ -236,8 +247,8 @@ def make_hubppr_fn(graph: DeviceGraph, rcfg: ResolvedConfig, seed: int, *,
         src = torch.as_tensor(sources, dtype=torch.int32,
                               device=graph.device)
         est = None
-        for i, w in enumerate(montecarlo_chunks(num_walks, src.shape[0],
-                                                lane_budget(graph.device))):
+        for i, w in enumerate(source_chunks(num_walks, src.shape[0],
+                                            graph.device)):
             e = hubppr_query(graph, src, derive_seed(seed, i), hub,
                              rcfg=rcfg, num_walks=w)
             e *= w / num_walks

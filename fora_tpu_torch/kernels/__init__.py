@@ -15,9 +15,9 @@ PyTorch versions instead.
 | gather_scatter_add      | csrc/gather_scatter.cu | K1 (push gather, tail and hub edges; BiPPR's over the out-CSR) |
 | index_spmv              | csrc/gather_scatter.cu | K2 (index SpMV, a level in one launch) |
 | topk_bounds             | csrc/topk_bounds.cu    | K3 (split accept, both FORA modes) |
-| index_walk              | csrc/walk.cu           | K4 (index build, raw-walk FORA, Monte Carlo, BiPPR, HubPPR's pool; plan in schedule.py) |
+| index_walk              | csrc/walk.cu           | K4 (index build, BiPPR, HubPPR's pool; plan in schedule.py) |
 | index_walk_alias        | csrc/walk.cu           | K4's alias branch (the same, on weighted graphs) |
-| index_walk_hub          | csrc/walk.cu           | K4-hub (HubPPR's query walks, uniform or alias hops) |
+| index_walk_hub          | csrc/walk.cu           | K4-hub (HubPPR's pair walks, uniform or alias hops; its query walks run K6+K4-src's hub branch) |
 | index_walk_sharded      | csrc/walk.cu           | K4's sharded form (the out-CSR as a table of shard slices: the sharded raw one-shot and index build) |
 | index_walk_sharded_alias | csrc/walk.cu          | the same, alias hops (weighted graphs) |
 | ring_all_gather_hop     | csrc/ring.cu           | P1 (one hop of one shard) |
@@ -30,8 +30,9 @@ PyTorch versions instead.
 | frontier_push           | csrc/frontier_push.cu  | K5 (the frontier-compacted push: the active rows' non-zero chunks along their out-edges, f32 atomics) |
 | walk_demand             | csrc/walk_alloc.cu     | K6-demand (the raw walk's omega_v, its int32 scan over nodes and the column totals: raw pool, sharded raw one-shot) |
 | expand_lanes            | csrc/walk_alloc.cu     | K6-expand (a range of lanes onto their start nodes and weights; the sharded form expands a chunk over every shard's demand in one launch; on no path since K6+K4, kept as its earlier form) |
-| accumulate_endpoints    | csrc/walk_alloc.cu     | K6-accum (the endpoints' scatter-add, f32 atomics: Monte Carlo, HubPPR) |
+| accumulate_endpoints    | csrc/walk_alloc.cu     | K6-accum (the endpoints' scatter-add, f32 atomics; on no path since K6+K4-src, kept as the chain both fused forms are held to) |
 | raw_walk                | csrc/walk.cu           | K6+K4 (a raw walk phase's chunk in one launch: each lane's start node and weight, its walk, the weight added at the endpoint; raw pool, sharded raw one-shot; its sharded form over every shard's demand and the out-CSR's slices) |
+| source_walk             | csrc/walk.cu           | K6+K4-src (a chunk of source-rooted walks in one launch: each walk from its column's source, its weight added at its endpoint, the source's own count in a register; Monte Carlo, HubPPR's queries with its hub branch) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 | row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
 | philox_blocks           | csrc/philox_probe.cu   | none: measures the card's rate of Philox-4x32-10 blocks (K4's operations) |
@@ -43,7 +44,10 @@ or accumulate or k6"`` of ``tests/test_torch_kernels_cuda.py`` holds the
 kernels to them.  K6+K4's plain version is ``ops.walk.
 raw_walk_chunk_plain`` (``tests/test_torch_raw_walk_fused.py``); on a card
 ``-k raw_walk`` holds the kernel to the chain K6-expand -> K4 -> K6-accum
-(endpoints bit-equal, the contribution by a float64 sum).
+(endpoints bit-equal, the contribution by a float64 sum).  K6+K4-src's
+plain version is ``ops.walk.source_walk_chunk_plain``
+(``tests/test_torch_source_walk.py``); on a card ``-k source_walk`` holds
+the kernel to the chain K4 (K4-alias, K4-hub) -> K6-accum alike.
 
 ``csrc/alias.cu`` and ``csrc/graph_io.cu`` hold no kernel: they are the
 host-side alias-table builder that ``graph/alias.py::build_alias_library``
@@ -76,7 +80,7 @@ __all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
            "row_scatter_add", "exchange_clear", "frontier_compact",
            "frontier_prepass", "frontier_push", "walk_demand",
            "expand_lanes", "accumulate_endpoints", "raw_walk",
-           "sector_reads",
+           "source_walk", "sector_reads",
            "row_reads",
            "philox_blocks", "inv_log1m_alpha", "sm_count",
            "enable_peer_access",
@@ -1009,6 +1013,87 @@ def raw_walk(r, cum, total: Optional[torch.Tensor], out, rows: int,
     raw_walk.launches += 1
 
 
+def _source_walk_args(sources, out, rows, indptr, indices, alias_prob,
+                      alias_other, hub_id, pool, seed, alpha, max_hops,
+                      weight, ends=None):
+    """:func:`source_walk`'s checks: None where the chunk has no walk,
+    else (its card, B, fora_source_walk's arguments before the plan's, its
+    stream)."""
+    (B,) = sources.shape
+    dev = sources.device
+    _check("sources", sources, torch.int32, (B,))
+    _check("out_indptr", indptr, torch.int32, device=dev)
+    if indptr.dim() != 1 or indptr.shape[0] < 2:
+        raise ValueError("source_walk: out_indptr must be [n + 1]")
+    n = indptr.shape[0] - 1
+    _check("out_indices", indices, torch.int32, device=dev)
+    out_ld = _check_cols("out", out, torch.float32, (n, B))
+    if out.device != dev:
+        raise ValueError(f"source_walk: out on {out.device}, expected {dev}")
+    if (alias_prob is None) != (alias_other is None):
+        raise ValueError("source_walk: both alias tables or neither")
+    if alias_prob is not None:
+        m = indices.shape
+        _check("alias_prob", alias_prob, torch.float32, m, dev)
+        _check("alias_other", alias_other, torch.int32, m, dev)
+    if (hub_id is None) != (pool is None):
+        raise ValueError("source_walk: both hub_id and pool or neither")
+    pool_size = 0
+    if hub_id is not None:
+        _check("hub_id", hub_id, torch.int32, (n,), dev)
+        _check("pool", pool, torch.int32, device=dev)
+        if pool.dim() != 2 or pool.shape[1] < 1:
+            raise ValueError(f"source_walk: pool must be [H, P], got "
+                             f"{tuple(pool.shape)}")
+        pool_size = pool.shape[1]
+    rows = int(rows)
+    if rows < 0 or rows * B >= 2**32 or n >= 2**31:
+        raise ValueError(f"source_walk: {rows} walks of {B} sources on {n} "
+                         "nodes; at most 2^32 - 1 walks")
+    if ends is not None:
+        _check("ends", ends, torch.int32, (rows, B), dev)
+    if rows * B == 0:
+        return None
+    return dev, B, (
+        _ptr(sources), B, _ptr(out), out_ld, n, _ptr(ends), rows,
+        _ptr(indptr), _ptr(indices), _ptr(alias_prob), _ptr(alias_other),
+        _ptr(hub_id), _ptr(pool), pool_size, seed % 2**64,
+        inv_log1m_alpha(alpha), max_hops, float(weight)), _stream(sources)
+
+
+def source_walk(sources: torch.Tensor, out: torch.Tensor, rows: int,
+                indptr: torch.Tensor, indices: torch.Tensor,
+                alias_prob: Optional[torch.Tensor],
+                alias_other: Optional[torch.Tensor],
+                hub_id: Optional[torch.Tensor], pool: Optional[torch.Tensor],
+                seed: int, alpha: float, max_hops: int, weight: float,
+                ends: Optional[torch.Tensor] = None) -> None:
+    """K6+K4-src, in place: ``rows`` walks from each of the B ``sources``
+    ([B] int32) in one launch.  Walk t of column b starts at sources[b] as
+    walk t * B + b of K4 over ``indptr`` / ``indices`` (its alias branch
+    where the tables are given; K4-hub's where ``hub_id`` [n] and ``pool``
+    [H, P] are: a hop that lands on a hub ends at a pool entry), and adds
+    ``weight`` (a number) into ``out`` [n, B] f32 (adjacent columns) at
+    its endpoint (f32 atomics in no fixed order; the walks that end at
+    their source are counted and added once a warp tile).  So each
+    endpoint is the one that K4 (K4-alias, K4-hub) gives on
+    ``sources.repeat(rows)``, bit for bit.  ``ends`` (tests and checks
+    only) [rows, B] int32 gets every endpoint."""
+    got = _source_walk_args(sources, out, rows, indptr, indices, alias_prob,
+                            alias_other, hub_id, pool, seed, alpha, max_hops,
+                            weight, ends)
+    if got is None:
+        return
+    dev, B, args, stream = got
+    plan = schedule.raw_walk_plan(int(rows), B, sm_count(dev),
+                                  alias_prob is not None)
+    with torch.cuda.device(dev):
+        err = build.library().fora_source_walk(
+            *args, plan.walks_per_lane, plan.tiles, plan.blocks, stream)
+    _raise_on(err, "source_walk")
+    source_walk.launches += 1
+
+
 def sector_reads(buf: torch.Tensor, reads: int = 64,
                  threads: int = 1 << 20, seed: int = 0) -> int:
     """The measuring kernel of csrc/sector_probe.cu: ``threads`` threads
@@ -1091,7 +1176,8 @@ WRAPPERS = (push_prepass, backward_prepass, gather_scatter_add, index_spmv,
             ring_all_gather_hop, ring_reduce_scatter_hop,
             reduce_scatter_onepass, row_scatter_add, exchange_clear,
             frontier_compact, frontier_prepass, frontier_push, walk_demand,
-            expand_lanes, accumulate_endpoints, raw_walk, philox_blocks)
+            expand_lanes, accumulate_endpoints, raw_walk, source_walk,
+            philox_blocks)
 for _w in WRAPPERS:
     _w.launches = 0
 topk_bounds.last_state = None

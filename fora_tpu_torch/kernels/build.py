@@ -53,6 +53,9 @@ SIGNATURES = {
     "fora_raw_walk": [_P, _LL, _P, _LL, _P, _P, _I, _LL, _I, _LL, _LL, _I,
                       _P, _LL, _P, _P, _P, _P, _P, ctypes.c_ulonglong, _F,
                       _I, _I, _LL, _LL, _P],
+    "fora_source_walk": [_P, _I, _P, _LL, _LL, _P, _LL, _P, _P, _P, _P, _P,
+                         _P, _I, ctypes.c_ulonglong, _F, _I, _F, _I, _LL,
+                         _LL, _P],
     "fora_build_alias": [_P, _P, _P, _LL, _P, _P],
     "fora_parse_edges": [ctypes.c_char_p, _I, _P, _P, _P, _LL],
     "fora_ring_copy": [_P, _P, _LL, _P],

@@ -136,6 +136,37 @@
 // What bounds it: K4's hop loads and Philox blocks, plus the sectors of cum
 // and r at the lanes' nodes and of the output it adds into
 // (chip_smoke.py::raw_walk_bound).  No [W, B] array, so no bytes a lane.
+//
+// K6+K4-src (source_walk_kernel<kAlias, kHub>) is K6+K4's source-rooted
+// form: one chunk of Monte Carlo's walks (fora_tpu/algo/montecarlo.py::
+// montecarlo_query_scheduled, 34-49: source-rooted walks and their
+// endpoints' segment_sum) or of HubPPR's (fora_tpu/algo/hubppr.py::
+// hubppr_query, 183-193, the hub branch) in one launch.  Walk t of column b starts at
+// sources[b] and draws as walk t * B + b of K4 (K4-hub) on the chain's
+// sources.repeat(rows) start array, so every endpoint is the chain K4 ->
+// K6-accum's bit for bit; each walk adds one constant weight at its end.
+// Every walk of a column starts at one node, and the alpha of them that
+// stop before a hop, with those that come back, all end there:
+//  * A warp's tile is 32 k consecutive walks of one column, as K6+K4's,
+//    but the columns interleave: tile j of column b is warp j * B + b, so
+//    the warps resident at one time spread over every column.  In K6+K4's
+//    order (column by column) they all walk from one source at once, and
+//    the card's adds pile onto that source's few out-neighbours: twice the
+//    chain's time on the H100 (PERF.md).  The lookahead computes only
+//    lengths: a walk's start is its source.
+//  * A walk that ends at the source adds nothing: each lane counts them in
+//    a register, and the warp adds count x weight with one RED when the
+//    tile is done, one RED a tile on the source's word where the chain
+//    issued one a walk.
+//  * The other walks that end in one step group by endpoint
+//    (__match_any_sync), and the lowest lane of each group adds the
+//    group's count x weight with one RED.  A column's walks end near its
+//    source, so one step's ends often share a node, and a RED whose lanes
+//    share an address is served one lane at a time; without the groups the
+//    kernel took as long as the chain (PERF.md).
+// No [W, B] array of starts or endpoints; `ends` is for tests and checks.
+// What bounds it: K4's hop loads and Philox blocks plus the sectors of the
+// output it adds into (chip_smoke.py::source_walk_bound).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -615,6 +646,94 @@ __global__ void __launch_bounds__(kBlockThreads, kRawBlocksPerSM)
                                    RawView{res, cum, out});
 }
 
+// ---- K6+K4-src: walks from each column's source to endpoint mass ----------
+
+struct SrcArgs {
+  const int* sources;  // [B] the columns' sources
+  float* out;          // [n, B] endpoint mass (row stride out_ld)
+  int* ends;           // [rows, B] every walk's endpoint, or null
+  long long out_ld;
+  uint32_t rows;       // walks a column: t = 0 .. rows - 1
+  uint32_t tiles;      // warp tiles of a column: ceil(rows / range)
+  int B;
+  float weight;        // what each walk adds at its endpoint
+};
+
+// A warp's tile: column b = tile % B, walks t0 .. t0 + range - 1 of it
+// (t0 = tile / B * range), walk_range's queue with every start at the
+// column's source; a walk that ends at the source is counted in `home`,
+// the others that end in one step add by endpoint groups.
+template <bool kAlias, bool kHub>
+__device__ __forceinline__ void source_walk_range(const WalkArgs& a, const SrcArgs& sa) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint64_t tile = (uint64_t)blockIdx.x * kBlockWarps + warp;
+  if (tile >= (uint64_t)sa.tiles * (uint64_t)sa.B) return;
+  const int b = (int)(tile % (uint64_t)sa.B);
+  const uint32_t t0 = (uint32_t)(tile / (uint64_t)sa.B) * a.range;
+  const uint32_t count = min(a.range, sa.rows - t0);
+  const int src = __ldg(sa.sources + b);
+  float* const col = sa.out + b;
+  const ShardView tab{nullptr, nullptr, nullptr, nullptr};
+  const unsigned below = (1u << lane) - 1u;
+  uint32_t batch = 0, filled = 0, used = 0;
+  int ahead_len = 0;
+  uint32_t w = 0;  // this lane's walk: its Philox key t * B + b, node, hops, length
+  int cur = 0, h = 0, len = 0;
+  unsigned home = 0;  // this lane's walks that ended at the source
+  bool idle = true;
+
+  for (;;) {
+    for (;;) {
+      const unsigned need = __ballot_sync(kFull, idle);
+      if (need == 0) break;
+      if (used == filled) {
+        batch += filled;
+        filled = used = 0;
+        if (batch >= count) break;
+        filled = min(32u, count - batch);
+        if ((uint32_t)lane < filled)
+          ahead_len = walk_length(a, (t0 + batch + lane) * (uint32_t)sa.B + (uint32_t)b);
+      }
+      const uint32_t k = used + __popc(need & below);
+      const int take_len = __shfl_sync(kFull, ahead_len, k & 31);
+      if (idle && k < filled) {
+        w = (t0 + batch + k) * (uint32_t)sa.B + (uint32_t)b;
+        cur = src;
+        len = take_len;
+        h = 0;
+        if (len > 0) {
+          idle = false;
+        } else {  // no hop: the walk ends where it starts
+          ++home;
+          if (sa.ends != nullptr) sa.ends[w] = src;
+        }
+      }
+      used = min(filled, used + __popc(need));
+    }
+    if (__all_sync(kFull, idle)) break;
+    const bool ending = !idle && hop<kAlias, kHub, false>(a, tab, w, cur, h, len);
+    if (ending && sa.ends != nullptr) sa.ends[w] = cur;
+    const bool at_home = ending && cur == src;
+    home += at_home ? 1u : 0u;
+    const bool add = ending && !at_home;
+    const unsigned adding = __ballot_sync(kFull, add);
+    if (add) {
+      const unsigned peers = __match_any_sync(adding, cur);
+      if (lane == __ffs(peers) - 1)
+        atomicAdd(col + (long long)cur * sa.out_ld, (float)__popc(peers) * sa.weight);
+    }
+    if (ending) idle = true;
+  }
+  home = __reduce_add_sync(kFull, home);
+  if (lane == 0 && home != 0) atomicAdd(col + (long long)src * sa.out_ld, (float)home * sa.weight);
+}
+
+template <bool kAlias, bool kHub>
+__global__ void __launch_bounds__(kBlockThreads, kRawBlocksPerSM)
+    source_walk_kernel(const WalkArgs a, const SrcArgs sa) {
+  source_walk_range<kAlias, kHub>(a, sa);
+}
+
 template <bool kAlias, bool kHub>
 void launch(const WalkArgs& a, unsigned blocks, cudaStream_t s) {
   const size_t smem = (size_t)kBlockWarps * a.range * sizeof(int);
@@ -727,6 +846,62 @@ int raw_args(RawLaunch* L, const float* const* r, long long r_ld, const int* con
   L->ra = ra;
   L->alias = alias;
   L->sharded = bounds != nullptr;
+  L->blocks = (unsigned)blocks;
+  L->s = reinterpret_cast<cudaStream_t>(stream);
+  return 0;
+}
+
+// K6+K4-src's launch: its kernel's arguments, grid and stream
+struct SrcLaunch {
+  WalkArgs a;
+  SrcArgs sa;
+  bool alias, hub;
+  unsigned blocks;  // 0: no walk, nothing to launch
+  cudaStream_t s;
+};
+
+// fora_source_walk's checks and its launch's arguments; 0 or a cudaError_t
+int source_args(SrcLaunch* L, const int* sources, int B, float* out, long long out_ld,
+                long long n, int* ends, long long rows, const int* indptr, const int* indices,
+                const float* alias_prob, const int* alias_other, const int* hub_id,
+                const int* pool, int pool_size, unsigned long long seed, float inv_log1m_alpha,
+                int max_hops, float weight, int walks_per_lane, long long tiles, long long blocks,
+                void* stream) {
+  if ((alias_prob == nullptr) != (alias_other == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((hub_id == nullptr) != (pool == nullptr)) return (int)cudaErrorInvalidValue;
+  if (hub_id != nullptr && pool_size <= 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n > 0x7fffffffll || B < 0 || rows < 0 || sources == nullptr || out == nullptr ||
+      indptr == nullptr || indices == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long W = rows * (long long)B;
+  WalkArgs a;
+  const int bad = walk_args(&a, nullptr, nullptr, W, seed, inv_log1m_alpha, max_hops,
+                            walks_per_lane, blocks);
+  if (bad) return bad;
+  *L = SrcLaunch{};
+  if (W <= 0) return 0;  // nothing to launch: L->blocks 0
+  if (tiles < 1 || tiles * 32ll * walks_per_lane < rows || tiles * (long long)B > blocks * kBlockWarps)
+    return (int)cudaErrorInvalidValue;
+  a.indptr = indptr;
+  a.indices = indices;
+  a.alias_prob = alias_prob;
+  a.alias_other = alias_other;
+  a.hub_id = hub_id;
+  a.pool = pool;
+  a.pool_size = pool_size;
+  SrcArgs sa = {};
+  sa.sources = sources;
+  sa.out = out;
+  sa.ends = ends;
+  sa.out_ld = out_ld;
+  sa.rows = (uint32_t)rows;
+  sa.tiles = (uint32_t)tiles;
+  sa.B = B;
+  sa.weight = weight;
+  L->a = a;
+  L->sa = sa;
+  L->alias = alias_prob != nullptr;
+  L->hub = hub_id != nullptr;
   L->blocks = (unsigned)blocks;
   L->s = reinterpret_cast<cudaStream_t>(stream);
   return 0;
@@ -853,5 +1028,42 @@ extern "C" int fora_raw_walk(const float* const* r, long long r_ld, const int* c
     launch_raw<false, true>(L.a, L.ra, L.t, L.rt, L.blocks, L.s);
   else
     launch_raw<false, false>(L.a, L.ra, L.t, L.rt, L.blocks, L.s);
+  return (int)cudaGetLastError();
+}
+
+// K6+K4-src: one chunk of source-rooted walks.  Walk t (0 .. rows - 1) of
+// column b (0 .. B - 1) starts at sources[b] and draws with Philox key t * B
+// + b, as K4 draws walk t * B + b of the start array sources.repeat(rows);
+// it hops over indptr / indices (alias_prob / alias_other both null, or
+// both set: alias hops), ends at a pool entry where a hop lands on a hub
+// (hub_id / pool both null, or both set, pool [H, pool_size]), and adds
+// `weight` at its endpoint into out [n, B] (row stride out_ld).  ends,
+// unless null, gets every endpoint at t * B + b.  The plan
+// (kernels/schedule.py::raw_walk_plan): `tiles` warp tiles of 32 *
+// walks_per_lane walks per column, `blocks` blocks of 8 warps covering
+// tiles * B, tile j of column b the grid's warp j * B + b.
+extern "C" int fora_source_walk(const int* sources, int B, float* out, long long out_ld,
+                                long long n, int* ends, long long rows, const int* indptr,
+                                const int* indices, const float* alias_prob,
+                                const int* alias_other, const int* hub_id, const int* pool,
+                                int pool_size, unsigned long long seed, float inv_log1m_alpha,
+                                int max_hops, float weight, int walks_per_lane, long long tiles,
+                                long long blocks, void* stream) {
+  SrcLaunch L;
+  const int bad = source_args(&L, sources, B, out, out_ld, n, ends, rows, indptr, indices,
+                              alias_prob, alias_other, hub_id, pool, pool_size, seed,
+                              inv_log1m_alpha, max_hops, weight, walks_per_lane, tiles, blocks,
+                              stream);
+  if (bad) return bad;
+  if (L.blocks == 0) return (int)cudaGetLastError();
+  const dim3 grid(L.blocks), block(kBlockThreads);
+  if (L.alias && L.hub)
+    source_walk_kernel<true, true><<<grid, block, 0, L.s>>>(L.a, L.sa);
+  else if (L.alias)
+    source_walk_kernel<true, false><<<grid, block, 0, L.s>>>(L.a, L.sa);
+  else if (L.hub)
+    source_walk_kernel<false, true><<<grid, block, 0, L.s>>>(L.a, L.sa);
+  else
+    source_walk_kernel<false, false><<<grid, block, 0, L.s>>>(L.a, L.sa);
   return (int)cudaGetLastError();
 }

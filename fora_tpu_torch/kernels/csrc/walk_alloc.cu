@@ -2,9 +2,11 @@
 // kernels.  On a card the raw pool and the sharded raw one-shot run the
 // demand (1) and then, per chunk, K6+K4 (walk.cu's raw_walk_kernel), which
 // does the work of the expansion (2), K4 and the accumulate (3) in one
-// launch.  The expansion runs on no path: it stays as the earlier form that
-// the card's tests and chip_smoke.py hold K6+K4 against.  The accumulate
-// stays for Monte Carlo and HubPPR, and its sharded form for those checks.
+// launch.  Monte Carlo and HubPPR run K6+K4-src (walk.cu's
+// source_walk_kernel), which does the accumulate's work in their walks'
+// launch.  So the expansion and the accumulate run on no path: they stay as
+// the earlier forms that the card's tests and chip_smoke.py hold K6+K4 and
+// K6+K4-src against, the accumulate's sharded form for those checks too.
 //
 // Replaces fora_tpu/ops/walk.py::allocate_walks (48-86: omega_v, its int32
 // cumsum over nodes, the lane -> node map by scatter + cummax, and the

@@ -28,12 +28,25 @@ which finds each lane's start node and weight, walks it, and adds the
 weight at its endpoint, with no [W, B] array between them; its endpoints
 are those of the chain expansion -> K4 -> accumulate bit for bit
 (``raw_walk_chunk_plain`` is that chain in plain PyTorch, with Philox
-walks).  Monte Carlo and HubPPR keep K4 + ``accumulate_endpoints``.
-``walk_phase`` sizes the lanes by the measured demand, one host read per
-call, and splits the columns (and, for a column too large alone, its
-lanes) into chunks that fit the device's free memory, so a query never
+walks).  Monte Carlo's and HubPPR's walks from their sources run alike
+(``source_walk_chunk``: on a card one launch of K6+K4-src, walk.cu's
+source_walk_kernel): walk t * B + b starts at sources[b], ends where K4
+(K4-hub for HubPPR) ends walk t * B + b of ``sources.repeat(rows)``, and
+adds a constant weight there, with no [W, B] array; on the CPU it runs
+that chain, and ``source_walk_chunk_plain`` is the chain with Philox
+walks.  ``walk_phase`` sizes the lanes by the measured demand, one host
+read per call, and splits the columns (and, for a column too large
+alone, its lanes) into chunks of ``chunk_lanes`` lanes, so a query never
 loses walks: JAX's static lane count drops the walks past it and only
 raises ``overflow``.
+
+Every walk path (the walk phases, Monte Carlo, HubPPR's queries and pool,
+BiPPR's walk term) plans its chunks from constants, ``CHUNK_LANES`` on a
+card and ``CPU_LANE_BUDGET`` on the CPU, and chunk i draws from
+``derive_seed(seed, i)``: the walks a seed draws never depend on how much
+memory the device has free.  A chunk that does not fit the card fails
+with the allocator's out-of-memory error; nothing plans smaller chunks
+and draws other walks.
 
 The sharded raw one-shot and the sharded index build walk an out-CSR
 split into G row slices (``ShardedOutCSR``, the arrays of
@@ -66,7 +79,11 @@ from .. import kernels
 from ..graph.csr import DeviceGraph
 
 LANE_MULTIPLE = 1024
-LANE_BYTES = 40          # device bytes a lane holds at the walk phase's peak
+# lanes of one chunk on a card, on every walk path: K6+K4 and K6+K4-src
+# hold no array a lane, the hub pool's build and BiPPR's walk term a start
+# and an endpoint (and the term's sort keys), a few GB at 2^27 lanes
+CHUNK_LANES = 1 << 27
+# on the CPU, whose chain holds up to 40 bytes a lane in host memory
 CPU_LANE_BUDGET = 1 << 24
 
 
@@ -641,6 +658,61 @@ def raw_walk_chunk_plain(graph, rs: list, ds: list, bounds: torch.Tensor,
         _keep_walked(ends, got, lane_lo, bounds[-1])
 
 
+def source_walk_chunk(graph: DeviceGraph, sources: torch.Tensor, rows: int,
+                      seed: int, alpha: float, max_hops: int, weight: float,
+                      out: torch.Tensor, hub=None,
+                      ends: Optional[torch.Tensor] = None) -> None:
+    """One chunk of source-rooted walks (Monte Carlo, HubPPR's queries):
+    ``rows`` walks from each of the B ``sources`` ([B] int32), walk t * B +
+    b from sources[b] under ``seed``, each adding ``weight`` (a number)
+    into ``out`` [n, B] f32 (adjacent columns) at its endpoint.  With
+    ``hub`` (an ``algo.hubppr.HubIndex``) a hop that lands on a hub ends
+    the walk at one of its pool's entries.  ``ends`` (tests and checks
+    only) [rows, B] int32 gets every endpoint.  A CUDA tensor launches
+    K6+K4-src (``kernels.source_walk``: K4's walks, its alias branch on a
+    graph with alias tables, its hub branch with ``hub``; the endpoints of
+    walk_endpoints (hub_walks) on ``sources.repeat(rows)`` bit for bit, the
+    sums up to the order of the f32 adds); a CPU one runs that chain, the
+    Generator's walks then accumulate_endpoints."""
+    if sources.device.type == "cpu":
+        start = sources.repeat(rows)
+        if hub is None:
+            got = walk_endpoints(graph, start, seed, alpha, max_hops)
+        else:
+            from ..algo.hubppr import hub_walks
+            got = hub_walks(graph, start, seed, hub, alpha=alpha,
+                            max_hops=max_hops)
+        got = got.view(rows, sources.shape[0])
+        accumulate_endpoints(got, weight, out.shape[0], out=out)
+        if ends is not None:
+            ends.copy_(got)
+        return
+    kernels.source_walk(
+        sources, out, rows, graph.out_indptr, graph.out_indices,
+        graph.alias_prob, graph.alias_other,
+        None if hub is None else hub.hub_id,
+        None if hub is None else hub.pool, seed, alpha, max_hops, weight,
+        ends=ends)
+
+
+def source_walk_chunk_plain(graph, sources: torch.Tensor, rows: int,
+                            seed: int, alpha: float, max_hops: int, weight,
+                            out: torch.Tensor, hub=None,
+                            ends: Optional[torch.Tensor] = None) -> None:
+    """K6+K4-src in plain PyTorch: :func:`run_walks_philox` (with ``hub``)
+    on ``sources.repeat(rows)`` viewed as [rows, B], then
+    :func:`accumulate_endpoints_plain` of ``weight`` (a number, or a
+    float64 one for a float64 ``out``).  The reference the kernel is held
+    to; no path runs it."""
+    B = sources.shape[0]
+    got = run_walks_philox(graph, sources.repeat(rows), seed, alpha,
+                           max_hops, hub=hub).view(rows, B)
+    w = torch.full((rows, B), weight, dtype=out.dtype, device=out.device)
+    accumulate_endpoints_plain(got, w, out.shape[0], out)
+    if ends is not None:
+        ends.copy_(got)
+
+
 def walk_lane_budget(omega_unit: float, rmax: float, m: int, n: int,
                      cap: Optional[int] = None, slack: float = 1.10,
                      lane_multiple: int = LANE_MULTIPLE) -> int:
@@ -654,17 +726,13 @@ def walk_lane_budget(omega_unit: float, rmax: float, m: int, n: int,
     return max(w, lane_multiple)
 
 
-def lane_budget(device: torch.device, lane_bytes: int = LANE_BYTES) -> int:
-    """Lanes one walk-phase chunk may hold: half of the card's free memory
-    (``mem_get_info``'s free bytes plus the allocator's cached ones) at
-    ``lane_bytes`` a lane; CPU_LANE_BUDGET on the CPU."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return CPU_LANE_BUDGET
-    free, _ = torch.cuda.mem_get_info(device)
-    free += torch.cuda.memory_reserved(device) - \
-        torch.cuda.memory_allocated(device)
-    return max(LANE_MULTIPLE, free // 2 // lane_bytes)
+def chunk_lanes(device) -> int:
+    """Lanes one chunk of a walk path takes on ``device``: CHUNK_LANES on
+    a card, CPU_LANE_BUDGET on the CPU.  Both are constants, so the
+    chunks, and with them the walks a seed draws, never depend on the
+    memory a device has free."""
+    return CPU_LANE_BUDGET if torch.device(device).type == "cpu" \
+        else CHUNK_LANES
 
 
 def _round_up(x: int) -> int:
@@ -728,7 +796,7 @@ def walk_phase(graph: DeviceGraph, r: torch.Tensor, omega_unit: float,
     with clock.stage("alloc"):
         d = walk_demand(r[:, :live], omega_unit)
     tot = d.total.cpu().numpy()          # one host read per phase
-    chunks = plan_chunks(tot, lane_budget(r.device))
+    chunks = plan_chunks(tot, chunk_lanes(r.device))
     lanes = 0
     for i, (c0, c1, lo, hi) in enumerate(chunks):
         raw_walk_chunk(graph, r[:, c0:c1], d.columns(c0, c1), lo, hi - lo,
@@ -742,9 +810,6 @@ def walk_phase(graph: DeviceGraph, r: torch.Tensor, omega_unit: float,
         walks_max=int(tot.max(initial=0)), walks_total=int(tot.sum()),
         lanes=lanes, chunks=len(chunks))
 
-
-
-SHARDED_CHUNK_LANES = 1 << 27
 
 
 def sharded_walk_phase(csr: ShardedOutCSR, rs: list, omega_unit: float,
@@ -764,12 +829,11 @@ def sharded_walk_phase(csr: ShardedOutCSR, rs: list, omega_unit: float,
     1, b], starts at its node made global by + h * n_loc, walks over the
     slices with ``derive_seed(seed, i)``, and adds its weight at its
     endpoint into its shard's partial (:func:`raw_walk_sharded_chunk`: on
-    a card one launch of K6+K4's sharded form).  So every
-    walk is ``walk_phase``'s where the two plan the same chunks (always on
-    the CPU; on a card ``walk_phase``'s chunks may be larger), and after
-    P2 the contribution is ``walk_phase``'s up to the order of the float32
-    sums.  JAX's static per-shard lane count and the walks it drops past
-    it (ROADMAP C7) are not copied."""
+    a card one launch of K6+K4's sharded form).  Both plan their
+    chunks under :func:`chunk_lanes`, so every walk is ``walk_phase``'s,
+    and after P2 the contribution is ``walk_phase``'s up to the order of
+    the float32 sums.  JAX's static per-shard lane count and the walks it
+    drops past it (ROADMAP C7) are not copied."""
     G = len(rs)
     n_loc, B = rs[0].shape
     n_pad, dev0 = G * n_loc, rs[0].device
@@ -779,15 +843,7 @@ def sharded_walk_phase(csr: ShardedOutCSR, rs: list, omega_unit: float,
     total = tot.sum(axis=0)
     partials = [torch.zeros((n_pad, B), dtype=torch.float32, device=r.device)
                 for r in rs]
-    # a chunk's lane holds its start, weight and endpoint (12 bytes) and
-    # at most LANE_BYTES of an expansion in the CPU's chain (K6+K4 holds
-    # none; the chunks stay the chain's, and so do the walks); a chunk
-    # takes at most SHARDED_CHUNK_LANES lanes, so that on a card with room
-    # for more the chunks, and with them the walks a seed draws, do not
-    # depend on its free memory (two runs of one batch walk the same
-    # walks)
-    budget = lane_budget(dev0, LANE_BYTES + 12)
-    chunks = plan_chunks(total, min(budget, SHARDED_CHUNK_LANES))
+    chunks = plan_chunks(total, chunk_lanes(dev0))
     # the running sums of the shards' totals: column b's lanes bounds[h,
     # b] .. bounds[h + 1, b] - 1 are shard h's
     bounds = torch.as_tensor(np.concatenate([np.zeros((1, B), np.int64),

@@ -21,12 +21,16 @@ stride 8, accept slack 1, sources from seed 8):
     without an index, G = 4 on the one card) under dense and routed, and
     dense on the weighted graph: wall;
   - Monte Carlo of 32 queries (phase 11): wall;
+  - HubPPR's queries of the same 32 sources at the CLI's defaults (phase
+    14: 256 hubs, the default pool, 2^22 walks a query; the pool built
+    once beforehand): wall;
 
 each once to warm and three times timed (medians), then one raw pool, one
-dense raw one-shot and one Monte Carlo under torch.profiler: device busy,
-idle share and the largest device records.  It prints one JSON line a run; the runs go
-other, this, this, other for each round, and the medians over the runs of
-each checkout are printed at the end.  It uses only the API both
+dense raw one-shot, one Monte Carlo and one HubPPR batch under
+torch.profiler: device busy, idle share and the largest device records.
+It prints one JSON line a run; the runs go other, this, this, other for
+each round, and the medians over the runs of each checkout are printed
+at the end.  It uses only the API both
 checkouts share and needs a CUDA card.
 """
 
@@ -50,6 +54,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 import fora_tpu_torch
 from fora_tpu_torch import ForaConfig
+from fora_tpu_torch.algo.hubppr import make_hubppr_fn
 from fora_tpu_torch.algo.montecarlo import make_montecarlo_fn
 from fora_tpu_torch.algo.topk import TopkRunner
 from fora_tpu_torch.eval import queries as qio
@@ -131,6 +136,11 @@ measure("raw pool", pool, stages=True)
 mc = make_montecarlo_fn(dg, rcfg)
 measure("montecarlo", lambda: mc(sources[:32], 7))
 profiled("montecarlo", lambda: mc(sources[:32], 7))
+hub = make_hubppr_fn(dg, rcfg, 7, num_hubs=256)
+measure("hubppr", lambda: hub(sources[:32], 7))
+profiled("hubppr", lambda: hub(sources[:32], 7))
+del hub
+torch.cuda.empty_cache()
 for mode in ("dense", "routed"):
     eng = ShardedForaEngine(g, make_mesh(4), rcfg, k=50, exchange=mode)
     one = (lambda e: lambda: e.topk(sources[:128], 7))(eng)

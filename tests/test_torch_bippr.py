@@ -19,6 +19,7 @@ from fora_tpu.graph import to_device as jax_to_device
 from fora_tpu_torch import ForaConfig, convert
 from fora_tpu_torch.algo import bippr, exact
 from fora_tpu_torch.graph import from_edges, generators, to_device
+from fora_tpu_torch.ops import walk
 
 torch.set_num_threads(2)
 
@@ -181,7 +182,7 @@ def test_bippr_walks_in_chunks(monkeypatch):
     def counted(acc, r, ends, scale):
         calls.append(ends.shape)
         return real(acc, r, ends, scale)
-    monkeypatch.setattr(bippr, "lane_budget", lambda dev: 4096)
+    monkeypatch.setattr(walk, "CPU_LANE_BUDGET", 4096)
     monkeypatch.setattr(bippr, "add_walk_term", counted)
     est = bippr.bippr_pairs(dg, [0, 5], [33, 2], 1, rcfg=rcfg, rmax_b=1e-3,
                             num_walks=20_000).numpy()

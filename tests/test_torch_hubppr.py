@@ -25,6 +25,7 @@ from fora_tpu.graph import to_device as jax_to_device
 from fora_tpu_torch import ForaConfig, convert
 from fora_tpu_torch.algo import exact, hubppr
 from fora_tpu_torch.graph import from_edges, generators, to_device
+from fora_tpu_torch.ops import walk as walk_ops
 from fora_tpu_torch.ops.walk import run_walks
 
 torch.set_num_threads(2)
@@ -123,7 +124,7 @@ def test_pool_chunks_over_the_lane_budget(monkeypatch):
     def counted(graph, start, seed, alpha, max_hops):
         starts.append((start.shape[0], seed))
         return real(graph, start, seed, alpha, max_hops)
-    monkeypatch.setattr(hubppr, "lane_budget", lambda dev: 2 << 12)
+    monkeypatch.setattr(walk_ops, "CPU_LANE_BUDGET", 2 << 12)
     monkeypatch.setattr(hubppr, "walk_endpoints", counted)
     hub = hubppr.build_hub_index(dg, 3, alpha=0.2, num_hubs=5,
                                  pool_size=1 << 12)
@@ -244,7 +245,7 @@ def test_make_hubppr_fn_accuracy(monkeypatch, budget):
     walks run in one chunk or (a small lane budget) in several."""
     g, dg = _karate()
     if budget is not None:
-        monkeypatch.setattr(hubppr, "lane_budget", lambda dev: budget)
+        monkeypatch.setattr(walk_ops, "CPU_LANE_BUDGET", budget)
     rcfg = ForaConfig(epsilon=0.15).resolved(g.n, g.m)
     fn = hubppr.make_hubppr_fn(dg, rcfg, 6, num_hubs=4, max_walks=1 << 15)
     assert fn.hub_index.num_hubs == 4

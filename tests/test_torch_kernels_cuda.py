@@ -1786,3 +1786,104 @@ def test_raw_walk_kernel_bit_equal_chain(dev, branch, cut):
     omegas = [walk.walk_demand_plain(x, omega).omega_v.float() for x in rs]
     ones = fused(omegas)
     assert torch.equal(ones.double(), cnt)
+
+
+# ---- K6+K4-src (source_walk_kernel) against the chain it replaced ---------
+
+SOURCE_BRANCHES = ["uniform", "alias", "hub", "hub_alias"]
+
+
+@pytest.mark.parametrize("branch", SOURCE_BRANCHES)
+@pytest.mark.parametrize("rows,B", [(1, 1), (31, 3), (4097, 5),
+                                    (50_000, 7)])
+def test_source_walk_kernel_bit_equal_chain(dev, branch, rows, B):
+    """K6+K4-src (one launch) against the chain K4 (K4-alias, K4-hub) ->
+    K6-accum on sources.repeat(rows) and against its plain version
+    (source_walk_chunk_plain): every walk's endpoint (its ``ends``) equal
+    to K4's and to run_walks_philox's, bit for bit; the sums into a
+    column slice of a wider array pass the f32 gate against the float64
+    sums of the same weight at K4's endpoints, each entry's count of adds
+    exact (weight 1.0), the columns outside the slice untouched.  The
+    sources repeat one node (its walks counted once a tile) and take a
+    dangling node where the graph has one."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo import hubppr
+    from fora_tpu_torch.ops import walk
+    g, dg, hub = _philox_graph(dev, branch)
+    rng = np.random.default_rng(rows + B)
+    dangling = int(np.flatnonzero(np.asarray(g.out_deg) == 0)[0])
+    src_np = rng.integers(0, g.n, B).astype(np.int32)
+    src_np[-1] = dangling
+    if B > 2:
+        src_np[1] = src_np[0]
+    src = torch.as_tensor(src_np, device=dev)
+    seed = 0x5DEECE66D * (rows + 3)
+    weight = float(np.float32(1.0 / rows))
+    start = src.repeat(rows)
+    if hub is None:
+        chain = walk.walk_endpoints(dg, start, seed, 0.2, 64)
+    else:
+        chain = hubppr.hub_walks(dg, start, seed, hub, alpha=0.2,
+                                 max_hops=64)
+    chain = chain.view(rows, B)
+    plain = walk.run_walks_philox(dg, start, seed, 0.2, 64, hub=hub)
+    assert torch.equal(chain, plain.view(rows, B))
+
+    def fused(w, ends=None):
+        big = torch.full((g.n, B + 5), 2.0, device=dev)
+        big[:, 2:2 + B] = 0.0
+        before = kernels.launch_counts()
+        walk.source_walk_chunk(dg, src, rows, seed, 0.2, 64, w,
+                               big[:, 2:2 + B], hub=hub, ends=ends)
+        after = kernels.launch_counts()
+        assert after["source_walk"] == before["source_walk"] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        assert bool((big[:, :2] == 2.0).all())
+        assert bool((big[:, 2 + B:] == 2.0).all())
+        return big[:, 2:2 + B]
+    ends = torch.full((rows, B), -1, dtype=torch.int32, device=dev)
+    got = fused(weight, ends)
+    assert torch.equal(ends, chain)
+    want = torch.zeros(g.n, B, dtype=torch.float64, device=dev)
+    walk.source_walk_chunk_plain(dg, src, rows, seed, 0.2, 64, weight, want,
+                                 hub=hub)
+    cnt = _f32_gate(got, chain,
+                    torch.full((rows, B), weight, device=dev), g.n)
+    ones = fused(1.0)
+    assert torch.equal(ones.double(), cnt)
+    assert float((got.double() - want).abs().max()) <= \
+        float(want.max()) * 1e-4
+
+
+def test_source_walk_on_card_runs_one_launch_a_chunk(dev):
+    """make_montecarlo_fn and make_hubppr_fn on the card launch K6+K4-src
+    once a chunk (three chunks of 1000 walks a source, CHUNK_LANES set
+    small) and no K4
+    branch or K6-accum of their own; each column's estimate sums to 1."""
+    from fora_tpu_torch import ForaConfig as TorchForaConfig
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo import hubppr, montecarlo
+    from fora_tpu_torch.graph import generators as tgen
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.ops import walk
+    g = tgen.rmat(12, 1 << 15, seed=3)
+    rcfg = TorchForaConfig(epsilon=0.5).resolved(g.n, g.m)
+    dg = to_device(g, device=dev)
+    old = walk.CHUNK_LANES
+    walk.CHUNK_LANES = 4 * 1000
+    try:
+        for make in (lambda: montecarlo.make_montecarlo_fn(
+                         dg, rcfg, max_walks=2500),
+                     lambda: hubppr.make_hubppr_fn(dg, rcfg, 5, num_hubs=8,
+                                                   max_walks=2500,
+                                                   pool_size=2048)):
+            fn = make()
+            kernels.reset_launch_counts()
+            est = fn(np.array([1, 2, 5, 9]), 9)
+            c = kernels.launch_counts()
+            assert c["source_walk"] == 3
+            assert sum(c.values()) == 3
+            torch.testing.assert_close(est.sum(0).cpu(), torch.ones(4),
+                                       rtol=1e-5, atol=0)
+    finally:
+        walk.CHUNK_LANES = old

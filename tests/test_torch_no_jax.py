@@ -185,6 +185,7 @@ def test_cpu_tensors_never_launch_kernels():
     hub = hubppr.build_hub_index(dg, 7, alpha=0.2, num_hubs=4, pool_size=64)
     hubppr.hub_walks(dg, torch.zeros(100, dtype=torch.int32), 8, hub,
                      alpha=0.2)
+    hubppr.hubppr_query(dg, [1, 2], 9, hub, rcfg=rcfg, num_walks=100)
     from fora_tpu_torch.ops import exchange
     exchange.frontier_compact(
         st.r, None, 8, 0, g.n, torch.zeros((1, 8), dtype=torch.int32),
@@ -211,4 +212,4 @@ def test_cpu_tensors_never_launch_kernels():
                                 1, 0.2, 64,
                                 [torch.zeros(2 * csr.n_loc, 3)] * 2)
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 23
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 24

@@ -213,19 +213,21 @@ def test_montecarlo_chunks(num_walks, B, budget):
 
 
 def test_montecarlo_chunked_weights_and_seeds(monkeypatch):
-    """Split into chunks by a small lane budget: each column's estimate
-    sums to 1, and no two chunks share a seed."""
+    """Split into chunks by a small lane budget (the CPU's constant
+    patched): each column's estimate sums to 1, and no two chunks share a
+    seed."""
     g = generators.rmat(9, 4096, seed=3)
     rcfg = TorchForaConfig(epsilon=0.5, delta=0.01, pfail=0.01).resolved(
         g.n, g.m)
     seeds = []
+    real = walk.walk_endpoints
 
     def recording(graph, start, seed, alpha, max_hops):
         seeds.append(seed)
-        return walk.walk_endpoints(graph, start, seed, alpha, max_hops)
+        return real(graph, start, seed, alpha, max_hops)
 
-    monkeypatch.setattr(montecarlo, "walk_endpoints", recording)
-    monkeypatch.setattr(montecarlo, "lane_budget", lambda dev: 3 * 1000)
+    monkeypatch.setattr(walk, "walk_endpoints", recording)
+    monkeypatch.setattr(walk, "CPU_LANE_BUDGET", 3 * 1000)
     fn = montecarlo.make_montecarlo_fn(to_device(g, device="cpu"), rcfg,
                                        max_walks=2500)
     est = fn(np.array([1, 2, 5]), 9)

@@ -171,7 +171,7 @@ def test_walk_phase_keeps_the_chain_on_the_cpu(monkeypatch, budget):
                                     rcfg.alpha, rcfg.max_walk_hops,
                                     clock=clock)
     d = walk.walk_demand(st.r, rcfg.omega_unit)
-    chunks = walk.plan_chunks(d.total.numpy(), walk.lane_budget(
+    chunks = walk.plan_chunks(d.total.numpy(), walk.chunk_lanes(
         torch.device("cpu")))
     assert info.chunks == len(chunks) and (len(chunks) > 1) == bool(budget)
     want = torch.zeros_like(st.r)

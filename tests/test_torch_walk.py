@@ -119,7 +119,7 @@ def test_walk_phase_chunks_conserve_mass(monkeypatch):
                            alpha=rcfg.alpha)
     want = walk.walk_demand(st.r, rcfg.omega_unit).total
     for budget in (1 << 24, 2048):
-        monkeypatch.setattr(walk, "lane_budget", lambda dev, b=budget: b)
+        monkeypatch.setattr(walk, "CPU_LANE_BUDGET", budget)
         contrib, info = walk.walk_phase(dg, st.r, rcfg.omega_unit, 7,
                                         rcfg.alpha, rcfg.max_walk_hops,
                                         live=3)

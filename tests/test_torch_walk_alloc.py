@@ -234,7 +234,7 @@ def _walk_phase_before(graph, r, omega_unit, seed, alpha, max_hops, live):
     contrib = torch.zeros_like(r)
     d = walk.walk_demand_plain(r[:, :live], omega_unit)
     tot = d.total.cpu().numpy()
-    chunks = walk.plan_chunks(tot, walk.lane_budget(r.device))
+    chunks = walk.plan_chunks(tot, walk.chunk_lanes(r.device))
     for i, (c0, c1, lo, hi) in enumerate(chunks):
         part = walk.WalkDemand(d.omega_v[:, c0:c1], d.cum[:, c0:c1],
                                d.total[c0:c1])
@@ -256,8 +256,8 @@ def _sharded_walk_phase_before(csr, rs, omega_unit, seed, alpha, max_hops):
     tot = torch.stack([d.total for d in ds]).numpy().astype(np.int64)
     off = np.cumsum(tot, axis=0) - tot
     partials = [torch.zeros((G * n_loc, B)) for _ in rs]
-    chunks = walk.plan_chunks(tot.sum(axis=0), min(
-        walk.lane_budget(rs[0].device), walk.SHARDED_CHUNK_LANES))
+    chunks = walk.plan_chunks(tot.sum(axis=0),
+                              walk.chunk_lanes(rs[0].device))
     for i, (c0, c1, lo, hi) in enumerate(chunks):
         W = hi - lo
         start, mine = _scatter_before(rs, ds, tot, off, c0, c1, lo, hi,
