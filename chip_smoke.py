@@ -80,14 +80,22 @@ memory:
                  and once under routed (placement seconds, wall,
                  supersteps), routed against dense (values within rtol
                  1e-4, ids outside near-ties), precision@50 of the first
-                 32 >= 0.95; K4's sharded form bit-equal to
+                 32 >= 0.95; K6-demand's list form on the one-shot's
+                 own residues (every query, four shards: one launch,
+                 each shard torch.equal to the plain demand, timed
+                 beside the earlier form a shard and the stack of the
+                 totals); K4's sharded form bit-equal to
                  run_walks_philox on a raw level's allocation from the
                  one-shot's residues (its first 16 sources), timed beside
                  K4's unsharded branch on the same starts and its bound;
                  on that allocation K6 (the demand, the lane expansion
                  and the accumulate) against its plain versions and timed
-                 (printed), each shard's demand equal to the plain one,
-                 the chunk's lanes over the shards' demands equal to the
+                 (printed; the demand beside its earlier three-launch
+                 form), the shards' demands in one launch of the list
+                 form, each torch.equal to the plain one (its launch
+                 count printed, timed beside the earlier form a shard and
+                 the stack of the totals), the chunk's lanes over the
+                 shards' demands equal to the
                  concatenation's expansion, the accumulate into the
                  shards' partials held to a float64 sum (k6_accum_check);
                  and K6+K4's sharded form, one launch for the chunk,
@@ -113,6 +121,8 @@ memory:
                  lane of its demand in one chunk, as the pool walked it):
                  the demand's cum and totals and the expansion's starts
                  and weights torch.equal to the plain versions', the
+                 demand's earlier form (probes/demand_earlier.cu) equal
+                 too and timed beside it, the
                  accumulate of K4's endpoints held to a float64 sum
                  (k6_accum_check: each entry's count of adds exact, its
                  error within the bound of any f32 sum of that many
@@ -286,7 +296,8 @@ memory:
                  phase 11,
                  P3 in phase 12; the demand and K6+K4 (once per walk
                  chunk) in the raw pools (phases 10 and 13) and the raw
-                 one-shots (phases 9 and 13, the demand once per shard),
+                 one-shots (phases 9 and 13, the demand once: every
+                 shard's in one launch),
                  and there no K6-expand, K6-accum or K4 launch of their
                  own; K6+K4-src alone in Monte Carlo (phases 11 and 13,
                  once per chunk) and in the CLI's hubppr queries (its
@@ -353,8 +364,12 @@ same state; walk_demand, expand_lanes and accumulate_endpoints, K6, are
 phase 10's pool's largest walk phase with phase 10's launches (the
 accumulate's Monte Carlo's, phase 11, 0 since K6+K4-src; its montecarlo_*
 keys are its time, bound and library call on phase 11's chunk) and carry
-device_ms: the demand's
-bound r read and cum written once, the expansion's 8 bytes a lane slot
+device_ms: the demand's bound r's distinct 32-byte sectors read and cum
+written once (bytes_bound_ms the byte formula, r's bytes), beside its
+earlier three-launch form's earlier_ms and earlier_device_ms on the same
+residue, and its sharded_* keys the list form's one launch on phase 9's
+one-shot residues, four shards of every query (sharded_earlier_*: the
+earlier form a shard and the stack of the totals), the expansion's 8 bytes a lane slot
 written and the distinct 32-byte sectors of cum and r at the lanes'
 nodes, the accumulate's 8 bytes a lane read and the distinct sectors of
 the output it touches, read and written; raw_walk, K6+K4, is the same
@@ -1162,29 +1177,92 @@ def sectors(idx) -> int:
 
 
 def k6_demand_row(r, omega):
-    """K6-demand on ``r``: cum and total torch.equal to the plain chain's;
-    timed as called and in device time beside its bound (r read once, cum
-    and total written once), the plain chain and torch.cumsum of the [B,
-    n] int32 omega (the scan alone).  Returns (row, kernel demand, plain
-    demand)."""
+    """K6-demand on ``r``: cum and total torch.equal to the plain chain's
+    (and the earlier three-launch form's, probes/demand_earlier.cu, to
+    both); timed as called and in device time beside that earlier form
+    on the same residue, its bound (r's distinct 32-byte sectors read
+    once, cum and total written once; ``bytes_bound_ms`` the byte formula,
+    r's bytes in place of its sectors), the plain chain and torch.cumsum
+    of the [B, n] int32 omega (the scan alone).  Returns (row, kernel
+    demand, plain demand)."""
+    import numpy as np
     import torch
     from fora_tpu_torch.ops import walk
+    from fora_tpu_torch.probes import demand_probe
     from fora_tpu_torch.utils.timing import cuda_ms, device_ms
-    n, B = r.shape
     d = walk.walk_demand(r, omega)
     dp = walk.walk_demand_plain(r, omega)
     if not (torch.equal(d.cum, dp.cum) and torch.equal(d.total, dp.total)):
         fail("K6-demand: cum or total differs from the plain version's")
+    lib = demand_probe.load_earlier()
+    unit = float(np.float32(omega))
+    e_cum, e_total = demand_probe.earlier_demand(lib, r, unit)
+    if not (torch.equal(e_cum, dp.cum) and torch.equal(e_total, dp.total)):
+        fail("K6-demand's earlier form differs from the plain version")
+    del e_cum, e_total
     om_t = dp.omega_v.T.contiguous()
+    b = demand_probe.bounds([r])
     row = dict(max_abs_err=0.0,
                ms=cuda_ms(lambda: walk.walk_demand(r, omega)),
                device_ms=device_ms(lambda: walk.walk_demand(r, omega)),
+               earlier_ms=cuda_ms(
+                   lambda: demand_probe.earlier_demand(lib, r, unit)),
+               earlier_device_ms=device_ms(
+                   lambda: demand_probe.earlier_demand(lib, r, unit)),
                plain_ms=cuda_ms(lambda: walk.walk_demand_plain(r, omega),
                                 iters=3),
                library_ms=cuda_ms(lambda: torch.cumsum(
                    om_t, dim=1, dtype=torch.int32)),
-               **bound(2 * n * B * 4 + B * 4))
+               bound_ms=b["bound_ms"], bound_by="bytes",
+               bytes_bound_ms=b["bytes_bound_ms"])
     return row, d, dp
+
+
+def demand_list_check(rs, omega, label) -> dict:
+    """K6-demand's list form on the shards' residues ``rs`` as the sharded
+    walk phase calls it (ops.walk.walk_demands): one launch (it fails
+    otherwise), each shard's cum and total torch.equal to its plain
+    demand; timed (device and as called) beside the earlier form a shard
+    and the stack of the totals, what the phase ran before.  Returns
+    {"ms", "device_ms", "earlier_ms", "earlier_device_ms", "bound_ms",
+    "launches"}."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops import walk
+    from fora_tpu_torch.probes import demand_probe
+    from fora_tpu_torch.utils.timing import cuda_ms, device_ms
+    k = kernels.walk_demand.launches
+    ds, total = walk.walk_demands(rs, omega)
+    launched = kernels.walk_demand.launches - k
+    for h, (x, dh) in enumerate(zip(rs, ds)):
+        want = walk.walk_demand_plain(x, omega)
+        if not (torch.equal(dh.cum, want.cum)
+                and torch.equal(dh.total, want.total)
+                and torch.equal(total[h], want.total)):
+            fail(f"K6-demand's list form: shard {h}'s cum or total differs "
+                 f"from the plain version's ({label})")
+    if launched != 1:
+        fail(f"K6-demand's list form: {launched} launches for {len(rs)} "
+             f"shards, expected 1 ({label})")
+    lib = demand_probe.load_earlier()
+    unit = float(np.float32(omega))
+    out = dict(ms=cuda_ms(lambda: walk.walk_demands(rs, omega)),
+               device_ms=device_ms(lambda: walk.walk_demands(rs, omega)),
+               earlier_ms=cuda_ms(
+                   lambda: demand_probe.earlier_shards(lib, rs, unit)),
+               earlier_device_ms=device_ms(
+                   lambda: demand_probe.earlier_shards(lib, rs, unit)),
+               bound_ms=demand_probe.bounds(rs)["bound_ms"],
+               launches=launched)
+    print(f"K6-demand's list form ({label}): {len(rs)} shards' demands in "
+          f"{launched} launch, each torch.equal to its plain demand; "
+          f"{out['ms']:.4f} ms as called, {out['device_ms']:.4f} device, "
+          f"against the earlier form a shard and the stack of the totals "
+          f"({3 * len(rs)} launches) {out['earlier_ms']:.4f} as called, "
+          f"{out['earlier_device_ms']:.4f} device; bound "
+          f"{out['bound_ms']:.4f} ms by bytes")
+    return out
 
 
 def k6_expand_row(r, d, dp, W):
@@ -1313,11 +1391,16 @@ def k6_accum_row(ends, weight, n, label):
 def k6_line(name, row, label) -> None:
     lib = (f"; library {row['library_ms']:.4f} ms"
            if row["library_ms"] is not None else "")
+    earlier = (f"; earlier form {row['earlier_ms']:.4f} ms as called, "
+               f"device {row['earlier_device_ms']:.4f}"
+               if "earlier_ms" in row else "")
+    formula = (f"; the byte formula's bound {row['bytes_bound_ms']:.4f} ms"
+               if "bytes_bound_ms" in row else "")
     print(f"{name} ({label}): {row['ms']:.4f} ms as called, device "
-          f"{row['device_ms']:.4f}; plain {row['plain_ms']:.4f} ms{lib}; "
-          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"{row['device_ms']:.4f}{earlier}; plain {row['plain_ms']:.4f} "
+          f"ms{lib}; bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
           f"({row['bound_ms'] / row['device_ms']:.0%} of it reached, "
-          f"device)")
+          f"device){formula}")
 
 
 def demand_sectors(rs, omegas) -> int:
@@ -1737,6 +1820,9 @@ def run_raw(dg, rcfg, sources, exact_ids, name="raw", hub=None, k6=False):
 # K6+K4-src's rows by branch ("uniform", "alias", "hub"), filled by
 # source_walk_row
 source_rows: dict = {}
+# K6-demand's list form on phase 9's one-shot residues ("sharded"), by
+# run_sharded_raw
+demand_rows: dict = {}
 
 
 def source_walk_row(dg, rcfg, sources, label, hub=None, plain=True):
@@ -2729,8 +2815,10 @@ def raw_allocation(eng, rcfg, sources, graph):
     one walk-phase chunk lays them out), int32 on the first shard's
     device.  K6 is held and timed on it (k6_demand_row, k6_expand_row on
     the concatenation; k6_accum_row on K4's endpoints of its lanes), and
-    its sharded forms as the raw one-shot runs them: each shard's demand
-    torch.equal to the plain version's, the chunk's lanes expanded over
+    its sharded forms as the raw one-shot runs them: the shards' demands
+    in one launch of the list form, each torch.equal to the plain
+    version's (demand_list_check, timed beside the earlier form a shard),
+    the chunk's lanes expanded over
     the shards' demands (expand_chunk_lanes) equal to the concatenation's
     expansion on every lane below its column's total (weight 0 past it),
     and the accumulate into the shards' partials
@@ -2753,14 +2841,9 @@ def raw_allocation(eng, rcfg, sources, graph):
     rows["expand_lanes"], start, weight = k6_expand_row(r, d, dp, W)
     del d, dp
     n_loc = rs[0].shape[0]
-    ds = [walk.walk_demand(x, omega) for x in rs]
-    for h, (x, dh) in enumerate(zip(rs, ds)):
-        want = walk.walk_demand_plain(x, omega)
-        if not (torch.equal(dh.cum, want.cum)
-                and torch.equal(dh.total, want.total)):
-            fail(f"K6-demand: shard {h}'s cum or total differs from the "
-                 "plain version's")
-    tot = torch.stack([dh.total.long() for dh in ds])
+    demand_list_check(rs, omega, label)
+    ds, tot = walk.walk_demands(rs, omega)
+    tot = tot.long()
     bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
     s_start, s_weight = walk.expand_chunk_lanes(rs, ds, bounds, 0, W, n_loc)
     lane = torch.arange(W, device=r.device)[:, None]
@@ -2862,7 +2945,10 @@ def run_sharded_raw(g, rcfg, sources, exact_ids, graph, name):
     ``exact_ids`` (>= MIN_PRECISION); routed against dense (the same
     supersteps and walks; values within rtol 1e-4, ids equal outside
     near-ties: the endpoints' scatter-add adds in no fixed order); then
-    K4's sharded form held and timed
+    K6-demand's list form held to the plain demand and timed on the
+    one-shot's own residues (demand_list_check: every source, the shape
+    its walk phase gives the demand; phase 9's numbers kept in
+    demand_rows), and K4's sharded form held and timed
     on a raw level's allocation from the one-shot's residues (its first
     RAW_CHECK_COLS sources) against ``graph``, the unsharded device graph.
     Returns (launch counts per exchange, the exchange's supersteps and
@@ -2938,6 +3024,14 @@ def run_sharded_raw(g, rcfg, sources, exact_ids, graph, name):
              f"{a.push_iters}")
     topk_agree(f"{name} routed vs dense", b.values, b.node_ids, a.values,
                a.node_ids, 1e-4)
+    # K6-demand's list form at the one-shot's own shape: the shards'
+    # residues of all B sources, as its walk phase takes them
+    ps, rs = eng.init_state(sources)
+    eng.push(ps, rs)
+    demand_rows.setdefault("sharded", demand_list_check(
+        rs, rcfg.omega_unit, f"{name}'s one-shot, {len(rs)} shards' r "
+        f"{tuple(rs[0].shape)}"))
+    del ps, rs
     start, fused = raw_allocation(eng, rcfg, sources[:RAW_CHECK_COLS],
                                   graph)
     row = sharded_walk_row(eng, graph, rcfg, start, "raw allocation of "
@@ -4459,7 +4553,8 @@ def main(argv=None) -> int:
         fail("K4's alias branch was launched on an unweighted path")
     # the raw one-shot (phase 9, and on the weighted graph in phase 13):
     # K6+K4's sharded form once per chunk of its walk phase (its alias
-    # branch on the weighted graph) and the demand once per shard, no K4
+    # branch on the weighted graph) and the demand once (every shard's in
+    # one launch of the list form), no K4
     # branch, K6-expand or K6-accum of their own; K1, K3's selection once
     # per shard, P2's one pass once, no K2; P1 on every superstep that
     # took the ring; under routed the compaction, P3 once per shard per
@@ -4484,7 +4579,7 @@ def main(argv=None) -> int:
                     "ring_all_gather_hop": hops * ring_steps,
                     "row_scatter_add": SHARDS * st["compacted"],
                     "exchange_clear": st["cleared"],
-                    "walk_demand": SHARDS, "expand_lanes": 0,
+                    "walk_demand": 1, "expand_lanes": 0,
                     "accumulate_endpoints": 0, "source_walk": 0}
             if st["chunks"] <= 0:
                 fail(f"{label}'s raw one-shot ({mode}): no walk chunk")
@@ -4637,6 +4732,11 @@ def main(argv=None) -> int:
                       "bound_ms", "max_abs_err")})
     rows["accumulate_endpoints"].update(
         {"montecarlo_" + k: v for k, v in source_rows["K4"]["accum"].items()})
+    # K6-demand's row is phase 10's largest walk phase; its list form on
+    # phase 9's one-shot residues (four shards, every query) beside the
+    # earlier form a shard and the stack
+    rows["walk_demand"].update(
+        {"sharded_" + k: v for k, v in demand_rows["sharded"].items()})
     meta = {
         "push_prepass": ("push_prepass.cu", "fora_tpu/ops/push.py:315"),
         "backward_prepass": ("push_prepass.cu",
@@ -4717,7 +4817,9 @@ def main(argv=None) -> int:
                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
                     **{k: row[k] for k in ("device_ms", "library_device_ms",
-                                           "unsharded_ms", "earlier_device_ms",
+                                           "unsharded_ms", "earlier_ms",
+                                           "earlier_device_ms",
+                                           "bytes_bound_ms",
                                            "chain_device_ms")
                        if k in row},
                     **{k: v for k, v in row.items()

@@ -28,7 +28,7 @@ PyTorch versions instead.
 | frontier_compact        | csrc/exchange.cu       | the frontier compaction (the send side of the compact, routed and hier exchanges) |
 | frontier_prepass        | csrc/frontier_push.cu  | K5's pre-pass (K1's pre-pass, the residue's mask and the active rows' tasks with their non-zero chunks, for the frontier-compacted push) |
 | frontier_push           | csrc/frontier_push.cu  | K5 (the frontier-compacted push: the active rows' non-zero chunks along their out-edges, f32 atomics) |
-| walk_demand             | csrc/walk_alloc.cu     | K6-demand (the raw walk's omega_v, its int32 scan over nodes and the column totals: raw pool, sharded raw one-shot) |
+| walk_demand             | csrc/walk_alloc.cu     | K6-demand (the raw walk's omega_v, its int32 scan over nodes and the column totals, one single-pass launch: raw pool; the sharded raw one-shot's shards in one launch) |
 | expand_lanes            | csrc/walk_alloc.cu     | K6-expand (a range of lanes onto their start nodes and weights; the sharded form expands a chunk over every shard's demand in one launch; on no path since K6+K4, kept as its earlier form) |
 | accumulate_endpoints    | csrc/walk_alloc.cu     | K6-accum (the endpoints' scatter-add, f32 atomics; on no path since K6+K4-src, kept as the chain both fused forms are held to) |
 | raw_walk                | csrc/walk.cu           | K6+K4 (a raw walk phase's chunk in one launch: each lane's start node and weight, its walk, the weight added at the endpoint; raw pool, sharded raw one-shot; its sharded form over every shard's demand and the out-CSR's slices) |
@@ -769,28 +769,63 @@ def _peer(out_dev: torch.device, *ts) -> None:
             enable_peer_access(out_dev, t.device)
 
 
-def walk_demand(r: torch.Tensor, omega_unit: float):
+DEMAND_TILE_LOG2 = 13      # entries of K6-demand's tile (walk_alloc.cu)
+DEMAND_COLUMNS_LOG2 = 3    # its widest column group: 8 columns
+
+
+def demand_scratch_words(G: int, n: int, Bc: int) -> int:
+    """The int64 words of K6-demand's scratch (its ticket counter and
+    status words) for G shards' [n, Bc] residues: 1 + G * ceil(Bc / cw) *
+    cw * ceil(n / TN), cw = min(8, 2^ceil(log2 Bc)), TN = 8192 / cw."""
+    cw_log2 = min(DEMAND_COLUMNS_LOG2, max(0, (Bc - 1).bit_length()))
+    cw, tile = 1 << cw_log2, 1 << (DEMAND_TILE_LOG2 - cw_log2)
+    return 1 + G * -(-Bc // cw) * cw * -(-n // tile)
+
+
+def walk_demand(r, omega_unit: float):
     """K6-demand: ``(cum, total)`` of the residue ``r`` [n, Bc] f32 (its
     columns adjacent, its rows of any stride): omega_v = ceil(r_v *
     omega_unit) in f32 where r_v > 0 (else 0), ``cum`` [n, Bc] int32 its
     inclusive sum over nodes (a transposed view of a contiguous [Bc, n]
     array, as ``ops.walk.walk_demand_plain`` lays it out) and ``total``
     [Bc] int32, bit for bit the plain version's.  omega_v itself is not
-    written (cum[v] - cum[v - 1])."""
-    n, Bc = r.shape
-    dev = r.device
-    ld = _check_cols("r", r, torch.float32, (n, Bc))
-    n_tiles = -(-n // 256)
-    cum = torch.empty((Bc, n), dtype=torch.int32, device=dev)
-    total = torch.zeros(Bc, dtype=torch.int32, device=dev)
-    tile = torch.empty((Bc, n_tiles), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = build.library().fora_walk_demand(
-            _ptr(r), ld, n, Bc, float(omega_unit), _ptr(tile), n_tiles,
-            _ptr(cum), _ptr(total), _stream(r))
-    walk_demand.launches += 1
-    _raise_on(err, "walk_demand")
-    return cum.T, total
+    written (cum[v] - cum[v - 1]).  The list form: ``r`` a list of G
+    shards' residues (1-32, one shape and strides, one card), ``cum`` [G,
+    n, Bc] (shard h's ``cum[h]`` laid out as the single form's, all in one
+    [G, Bc, n] buffer) and ``total`` [G, Bc].  Either form is one kernel
+    launch (none where r has no node or no column) after a
+    cudaMemsetAsync of its scratch, the ticket counter and status words
+    (:func:`demand_scratch_words`), allocated for the call on the current
+    stream: nothing is kept between calls, so no two calls share a word,
+    from two streams or two host threads."""
+    listed = isinstance(r, (list, tuple))
+    rs = list(r) if listed else [r]
+    G = len(rs)
+    if not 1 <= G <= 32:
+        raise ValueError(f"walk_demand: {G} residues, 1-32")
+    n, Bc = rs[0].shape
+    dev = rs[0].device
+    for h in range(G):
+        _check_cols(f"r[{h}]", rs[h], torch.float32, (n, Bc))
+        if rs[h].stride() != rs[0].stride() or rs[h].device != dev:
+            raise ValueError("walk_demand: the shards' residues must share "
+                             "their strides and card")
+    cum = torch.empty((G, Bc, n), dtype=torch.int32, device=dev)
+    total = torch.empty((G, Bc), dtype=torch.int32, device=dev)
+    if n * Bc == 0:
+        total.zero_()
+    else:
+        scratch = torch.empty(demand_scratch_words(G, n, Bc),
+                              dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
+            err = build.library().fora_walk_demand(
+                _table(rs), G, rs[0].stride(0), n, Bc, float(omega_unit),
+                _ptr(scratch), scratch.numel(), _ptr(cum), _ptr(total),
+                sm_count(dev), _stream(rs[0]))
+        walk_demand.launches += 1
+        _raise_on(err, "walk_demand")
+    cum = cum.transpose(1, 2)
+    return (cum, total) if listed else (cum[0], total[0])
 
 
 def expand_lanes(r, cum, total: Optional[torch.Tensor], start: torch.Tensor,

@@ -68,7 +68,8 @@ SIGNATURES = {
     "fora_frontier_prepass": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _LL, _I,
                               _I, _P, _P, _P],
     "fora_frontier_push": [_P, _P, _P, _LL, _P, _I, _P],
-    "fora_walk_demand": [_P, _LL, _LL, _I, _F, _P, _LL, _P, _P, _P],
+    "fora_walk_demand": [_P, _I, _LL, _LL, _I, _F, _P, _LL, _P, _P, _I,
+                         _P],
     "fora_expand_lanes": [_P, _LL, _P, _LL, _P, _P, _I, _LL, _I, _LL, _LL,
                           _I, _P, _P, _P],
     "fora_accumulate_endpoints": [_P, _P, _F, _LL, _I, _P, _I, _LL, _P, _LL,

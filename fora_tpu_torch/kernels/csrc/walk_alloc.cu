@@ -1,8 +1,8 @@
 // K6: the raw walk's lane allocation and endpoint accumulation, in three
 // kernels.  On a card the raw pool and the sharded raw one-shot run the
-// demand (1) and then, per chunk, K6+K4 (walk.cu's raw_walk_kernel), which
-// does the work of the expansion (2), K4 and the accumulate (3) in one
-// launch.  Monte Carlo and HubPPR run K6+K4-src (walk.cu's
+// demand (1; the one-shot's shards in one launch) and then, per chunk,
+// K6+K4 (walk.cu's raw_walk_kernel), which does the work of the expansion
+// (2), K4 and the accumulate (3) in one launch.  Monte Carlo and HubPPR run K6+K4-src (walk.cu's
 // source_walk_kernel), which does the accumulate's work in their walks'
 // launch.  So the expansion and the accumulate run on no path: they stay as
 // the earlier forms that the card's tests and chip_smoke.py hold K6+K4 and
@@ -17,20 +17,53 @@
 // accumulate_chunk_endpoints_plain) compute the same functions and stay as
 // the CPU path and the reference.
 //
-// 1. walk_demand: per column b of r [n, Bc] (rows of stride ld, columns
-//    contiguous: a column slice of a [n, B] residue)
+// 1. walk_demand: per shard g (1-32) and column b of r_g [n, Bc] (rows of
+//    stride ld, columns contiguous: a column slice of a [n, B] residue)
 //      omega_v = r_v > 0 ? ceil(r_v * omega_unit) : 0    (f32 product, no FMA)
-//      cum[b, v] = sum_{u <= v} omega_u (int32),  total[b] = cum[b, n - 1]
-//    Bound: bytes, r read once and cum written once (at [524288, 64] 268 MB,
-//    0.08 ms at 3.35 TB/s).  r's columns are contiguous and the scan runs
-//    along nodes, so a block reads a tile of 256 nodes x up to 32 columns
-//    with coalesced loads (the lanes of a warp on neighbouring columns, or on
-//    neighbouring nodes where fewer than 32 columns live), transposes it
-//    through shared memory, and a warp scans one column 32 nodes at a time
-//    (shuffles) and writes cum per column, 128 bytes a warp store.  The form
-//    is reduce-then-scan: tile sums, one block a column scans them (a block
-//    scan of shuffles), then the tiles are read again and scanned with their
-//    offsets.  So r is read twice; a single pass with look-back is later work.
+//      cum[g, b, v] = sum_{u <= v} omega_u (int32),  total[g, b] = cum[g, b, n - 1]
+//    Bound: bytes, r's 32-byte sectors read once and cum written once (at
+//    [524288, 64] 268 MB, 0.08 ms at 3.35 TB/s; a slice of one column of
+//    64 reads 8 times its bytes).  One launch, a single pass with
+//    decoupled look-back (Merrill and Garland, "Single-pass Parallel Prefix
+//    Scan with Decoupled Look-back", 2016).  The columns fall into groups
+//    of cw = min(8, 2^ceil(log2 Bc)) (a 32-byte sector of a row); a chain
+//    is a (shard, column group), cut into tiles of 8192 entries, TN = 8192
+//    / cw nodes (1024 at 8 columns: taller tiles, shorter chains).  Blocks
+//    are persistent, as many as the card holds at once.  A block takes
+//    tickets from an atomic counter, which name a tile and its chain with
+//    the tiles in order (ticket k: tile k / chains of chain k % chains),
+//    so every tile it waits on belongs to a block that is already running
+//    (by blockIdx, a block could wait on a tile not yet resident, and
+//    deadlock).  While it works on one tile, the next ticket's tile is on
+//    its way into a second shared-memory buffer by cp.async (coalesced: a
+//    warp's copies cover cw neighbouring columns of 32 / cw neighbouring
+//    nodes, laid out [column][node]).  Each
+//    thread scans a run of 32 nodes of one column serially; the runs' sums
+//    are scanned per column across the block (shuffles, then 8 warps'
+//    totals), so every thread works at every width.  The block publishes
+//    each column's tile sum (flag A; tile 0 its inclusive prefix, flag P),
+//    looks back with all its threads (thread (c, q) reads column c of 4
+//    predecessors, a window of 1024 / cw tiles a step; the window is cut
+//    at the nearest unpublished word of any column and summed below it up
+//    to each column's nearest P, so a step never reads a word twice), and
+//    publishes its inclusive prefix; then it writes cum, 128 bytes a warp
+//    store, and the chain's last tile writes total.
+//    Status: one 64-bit word a (chain, tile, column), the flag (2 bits;
+//    0 unpublished) and the int32 value, written and read whole (relaxed,
+//    gpu scope), so a value never comes without its flag.  The ticket
+//    counter and the words are a scratch that the caller allocates for
+//    the call (kernels.walk_demand: from the caching allocator on the
+//    launch's stream, so no other launch holds it meanwhile) and that the
+//    entry point zeroes by a cudaMemsetAsync on that stream before the
+//    kernel: nothing lives from one call to the next, so two streams or
+//    two host threads never share a word.  (Words told apart by a
+//    per-call epoch, never cleared, saved about 2 us a call and needed a
+//    scratch kept per stream; probes/demand_forms.cu keeps that form.)
+//    The sums are integers, so the look-back's order changes no bit: cum
+//    and total are the plain cumsum's.  probes/demand_earlier.cu keeps the
+//    earlier three-launch form (tile sums, their scan, the tiles read
+//    again) and probes/demand_probe.py times it and the other forms tried
+//    beside this one.
 //
 // 2. expand_lanes: for each row t of start/weight [rows, Bc] and column b,
 //    the lane l = lane_lo + t:
@@ -73,115 +106,283 @@
 
 namespace {
 
-constexpr int kThreads = 256;           // every kernel's block but the scan's
+constexpr int kThreads = 256;           // every kernel's block
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileN = 256;             // nodes of a demand tile
-constexpr int kScanThreads = 1024;      // the tile sums' scan: one block a column
 constexpr int kExpandTile = 2048;       // lane slots of an expansion tile
 constexpr int kSegs = kExpandTile / kThreads;   // searches a thread runs at once
 constexpr int kAccUnroll = 4;           // lanes a thread loads before its adds
 constexpr int kMaxShards = 32;
 constexpr unsigned kFull = 0xffffffffu;
+// The demand's tile, 32 entries a thread (8192 a tile), and its widest
+// column group, 8 columns (probes/demand_forms.cu times other sizes)
+constexpr int kDemandEntries = 32;
+constexpr int kDemandTileLog2 = 13;
+constexpr int kDemandColumnsLog2 = 3;
 
 __device__ __forceinline__ int omega_of(float r, float unit) {
   return r > 0.0f ? (int)ceilf(__fmul_rn(r, unit)) : 0;
 }
 
-__device__ __forceinline__ int warp_inclusive(int x, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x += y;
-  }
-  return x;
+// A demand status word: flag << 32 | value (flag 0: unpublished).
+constexpr unsigned long long kAggregate = 1ull << 32, kPrefix = 2ull << 32;
+
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(w) : "l"(p) : "memory");
+  return w;
 }
 
-// Per (node tile, column group): each column's sum of omega over the tile.
-// Thread k holds column k % cw and nodes k / cw + j * (256 / cw).
-__global__ void __launch_bounds__(kThreads) demand_tile_kernel(
-    const float* __restrict__ r, long long ld, long long n, int Bc, int cw_log2, float unit,
-    int* __restrict__ tile_sum, long long n_tiles) {
-  __shared__ int s_part[kWarps][32];
+__device__ __forceinline__ void store_status(unsigned long long* p, unsigned long long flag,
+                                             int value) {
+  const unsigned long long w = flag | (unsigned)value;
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
+}
+
+// The block's look-back shared state, per column of the group.
+struct LookBack {
+  int wsum[kWarps][32];     // a warp's sum of its lanes' runs, up to its nearest P
+  int wflag[kWarps][32];    // 1: a P in the warp's runs
+  int wmin[kWarps];         // a warp's nearest unpublished word
+  int excl[32];             // the tile's exclusive prefix so far
+  int done[32];             // the column met an inclusive prefix
+  int ctl;                  // the tiles consumed, or -1: every column done
+};
+
+// Every thread's share of one look-back step for tile t > 0 of a chain
+// whose words are st[tile * cw + column]: the window is the W = 256 / cw *
+// 4 tiles below top (128 at 8 columns, 1024 at one); thread (c, q) =
+// (thread % cw, thread / cw) reads column c of the 4 tiles top - 4 q - m
+// (m < 4, its loads in flight together).  The window is cut
+// at the nearest unpublished word a of any column (a block-wide minimum);
+// below it each column sums its words up to its nearest inclusive prefix
+// (flag P), the lanes of a column combining their runs in order by
+// ballots and warp 0 the warps' in order.  Returns a, the tiles consumed
+// (0: read the window again; W: none unpublished), or -1 when every
+// column met its P (lb.excl then holds the exclusive prefixes).
+__device__ int look_back_step(const unsigned long long* st, long long top, int cw_log2,
+                              LookBack& lb) {
+  constexpr int kR = 4;
   const int cw = 1 << cw_log2;
-  const int c = threadIdx.x & (cw - 1);
-  const int step = kThreads >> cw_log2;
-  const int b = blockIdx.y * cw + c;
-  const long long v0 = (long long)blockIdx.x * kTileN;
-  int s = 0;
-  if (b < Bc) {
-#pragma unroll 8
-    for (int j = threadIdx.x >> cw_log2; j < kTileN; j += step) {
-      const long long v = v0 + j;
-      if (v < n) s += omega_of(r[v * ld + b], unit);
-    }
-  }
-  // the lanes of one column differ in the bits from cw up
-  for (int off = 16; off >= cw; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
-  const int lane = threadIdx.x & 31;
-  if (lane < cw) s_part[threadIdx.x >> 5][lane] = s;
-  __syncthreads();
-  if (threadIdx.x < cw && b < Bc) {
-    int t = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += s_part[w][threadIdx.x];
-    tile_sum[(long long)b * n_tiles + blockIdx.x] = t;
-  }
-}
-
-// One block a column: the tile sums become the tiles' exclusive offsets, in
-// place, and total[b] their sum.
-__global__ void __launch_bounds__(kScanThreads) demand_scan_kernel(int* __restrict__ tile_sum,
-                                                                  long long n_tiles,
-                                                                  int* __restrict__ total) {
-  __shared__ int s_warp[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int* row = tile_sum + (long long)blockIdx.x * n_tiles;
-  int carry = 0;
-  for (long long base = 0; base < n_tiles; base += kScanThreads) {
-    const long long t = base + threadIdx.x;
-    const int x = t < n_tiles ? row[t] : 0;
-    const int incl = warp_inclusive(x, lane);
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    if (warp == 0) s_warp[lane] = warp_inclusive(s_warp[lane], lane);
-    __syncthreads();
-    if (t < n_tiles) row[t] = carry + (warp > 0 ? s_warp[warp - 1] : 0) + incl - x;
-    carry += s_warp[31];
-    __syncthreads();
+  const int c = threadIdx.x & (cw - 1), q = threadIdx.x >> cw_log2;
+  const bool was_done = lb.done[c] != 0;
+  unsigned long long w[kR];
+#pragma unroll
+  for (int m = 0; m < kR; ++m)
+    if (!was_done && top - q * kR - m >= 0)
+      w[m] = load_status(st + (top - q * kR - m) * cw + c);
+  unsigned flag[kR];
+  int val[kR], near = 0x7fffffff;
+#pragma unroll
+  for (int m = 0; m < kR; ++m) {
+    flag[m] = 2;
+    val[m] = 0;
+    if (!was_done && top - q * kR - m >= 0) {
+      flag[m] = (unsigned)(w[m] >> 32) & 3u;
+      val[m] = (int)(unsigned)w[m];
+    }
+    if (flag[m] == 0 && near == 0x7fffffff) near = q * kR + m;
   }
-  if (threadIdx.x == 0) total[blockIdx.x] = carry;
-}
-
-// The tile again: omega into shared memory as [column][node], then warp w
-// scans columns w, w + 8, ... 32 nodes at a time from the tile's offset.
-__global__ void __launch_bounds__(kThreads) demand_cum_kernel(
-    const float* __restrict__ r, long long ld, long long n, int Bc, int cw_log2, float unit,
-    const int* __restrict__ tile_off, long long n_tiles, int* __restrict__ cum) {
-  __shared__ int s[32][kTileN + 1];
-  const int cw = 1 << cw_log2;
-  const int c = threadIdx.x & (cw - 1);
-  const int step = kThreads >> cw_log2;
-  const int b = blockIdx.y * cw + c;
-  const long long v0 = (long long)blockIdx.x * kTileN;
-#pragma unroll 8
-  for (int j = threadIdx.x >> cw_log2; j < kTileN; j += step) {
-    const long long v = v0 + j;
-    s[c][j] = (b < Bc && v < n) ? omega_of(r[v * ld + b], unit) : 0;
+  near = __reduce_min_sync(kFull, near);
+  if (lane == 0) lb.wmin[warp] = near;
+  __syncthreads();
+  int a = (kThreads >> cw_log2) * kR;
+#pragma unroll
+  for (int v = 0; v < kWarps; ++v) a = min(a, lb.wmin[v]);
+  int sum = 0;
+  bool prefix = was_done;
+#pragma unroll
+  for (int m = 0; m < kR; ++m) {
+    if (prefix || q * kR + m >= a) continue;
+    sum += val[m];
+    prefix = flag[m] == 2;
+  }
+  // the lanes of column c in this warp are c, c + cw, ... in run order
+  unsigned colmask = 0;
+  for (int i = c; i < 32; i += cw) colmask |= 1u << i;
+  const unsigned mine = __ballot_sync(kFull, prefix) & colmask;
+  const int first = mine ? __ffs(mine) - 1 : 32;       // the nearest P's lane
+  int x = lane <= first ? sum : 0;
+  for (int off = cw; off < 32; off <<= 1) x += __shfl_xor_sync(kFull, x, off);
+  if (lane < cw) {
+    lb.wsum[warp][lane] = x;
+    lb.wflag[warp][lane] = mine != 0;
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  for (int cc = threadIdx.x >> 5; cc < cw; cc += kWarps) {
-    const int bb = blockIdx.y * cw + cc;
-    if (bb >= Bc) break;
-    int carry = tile_off[(long long)bb * n_tiles + blockIdx.x];
-    int* out = cum + (long long)bb * n;
-#pragma unroll
-    for (int seg = 0; seg < kTileN; seg += 32) {
-      const int incl = warp_inclusive(s[cc][seg + lane], lane);
-      const long long v = v0 + seg + lane;
-      if (v < n) out[v] = carry + incl;
-      carry += __shfl_sync(kFull, incl, 31);
+  if (warp == 0) {
+    int tot = 0;
+    bool found = lane >= cw || lb.done[lane] != 0;
+    const bool old = found;
+    for (int v = 0; v < kWarps && !found; ++v) {
+      tot += lb.wsum[v][lane];
+      found = lb.wflag[v][lane] != 0;
     }
+    if (!old) {
+      lb.excl[lane] += tot;
+      lb.done[lane] = found;
+    }
+    const bool all = __all_sync(kFull, found);
+    if (lane == 0) lb.ctl = all ? -1 : a;
+  }
+  __syncthreads();
+  return lb.ctl;
+}
+
+struct DemandTable {          // per shard: its residue
+  const float* r[kMaxShards];
+};
+
+// One tile of kE * 256 entries (kE = kDemandEntries): TN = kE * 256 / cw
+// nodes of a chain's cw columns, copied by cp.async into ``buf`` as
+// [column][node] (runs of kE nodes padded by a word), entries past n or
+// Bc zero.  Thread (c, q) =
+// (thread % cw, thread / cw) copies column c of nodes q + j * 256 / cw (j
+// < kE): a warp's copy covers cw neighbouring columns of 32 / cw
+// neighbouring nodes.  No register holds the data in flight.
+__device__ __forceinline__ void copy_tile(const DemandTable& tab, long long ld, long long n,
+                                          int Bc, int cw_log2, int col_groups,
+                                          long long chains, long long k, int pitch,
+                                          float* buf) {
+  constexpr int kE = kDemandEntries, RP = kE + 1;
+  const int cw = 1 << cw_log2;
+  const int Q = kThreads >> cw_log2;
+  const long long t = k / chains, chain = k % chains;
+  const int c = threadIdx.x & (cw - 1), q = threadIdx.x >> cw_log2;
+  const int b = (int)(chain % col_groups) * cw + c;
+  const long long v0 = t * (kE * kThreads >> cw_log2) + q;
+  const float* p = tab.r[chain / col_groups] + (b < Bc ? v0 * ld + b : 0);
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(buf + c * pitch);
+#pragma unroll
+  for (int j = 0; j < kE; ++j) {
+    const int i = q + j * Q;
+    const bool ok = b < Bc && v0 + (long long)j * Q < n;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                     dst + (unsigned)(((i / kE) * RP + i % kE) * sizeof(float))),
+                 "l"(ok ? p + (long long)j * Q * ld : p), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Persistent blocks over tickets.  A block holds two tickets: the tile it
+// scans, looks back and writes, and the next, whose copy into the other
+// buffer is in flight meanwhile; a ticket's atomic is issued at the start
+// of a tile and its value needed only after the tile's scan.  The tile
+// ahead has published nothing while the block finishes the first, whose
+// predecessors have all published their sums (a tile publishes its sum
+// before it waits), so no tile waits on one that cannot go on.  In a
+// tile, thread (c, q) scans its run q of column c serially (omega from
+// the copied r), the block scans the runs' sums per column (shuffles over
+// the lanes of a column, then the warps' totals), the run's inclusive
+// sums go back in place, and after the look-back they become cum, 128
+// bytes a warp store.  The padding word of a run keeps both the copy's
+// and the scan's accesses free of bank conflicts.  ticket and status come
+// zeroed.
+__global__ void __launch_bounds__(kThreads) demand_kernel(
+    const DemandTable tab, long long ld, long long n, int Bc, int cw_log2, int col_groups,
+    long long chains, long long n_tiles, float unit, unsigned long long* __restrict__ ticket,
+    unsigned long long* __restrict__ status, int* __restrict__ cum, int* __restrict__ total) {
+  constexpr int kE = kDemandEntries, RP = kE + 1;
+  extern __shared__ float s_buf[];     // 2 x [cw][TN / kE runs of kE + 1] + 32 / cw
+  __shared__ int s_wt[kWarps][32];     // a warp's sum of its runs, per column
+  __shared__ LookBack lb;
+  __shared__ unsigned long long s_k[4];    // tickets, a slot a tile in turn
+  const int cw = 1 << cw_log2;
+  const int tile_log2 = kDemandTileLog2 - cw_log2;
+  const int pitch = (kThreads >> cw_log2) * RP + (32 >> cw_log2);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = threadIdx.x & (cw - 1), q = threadIdx.x >> cw_log2;
+  const unsigned long long tiles = (unsigned long long)(chains * n_tiles);
+  if (threadIdx.x == 0) s_k[0] = atomicAdd(ticket, 1ull);
+  __syncthreads();
+  unsigned long long k = s_k[0];      // the tile to scan, its copy in flight
+  if (k < tiles)
+    copy_tile(tab, ld, n, Bc, cw_log2, col_groups, chains, (long long)k, pitch, s_buf);
+  else
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  for (int it = 0;; ++it) {
+    if (k >= tiles) return;
+    float* buf = s_buf + (it & 1) * cw * pitch;
+    int* tile = reinterpret_cast<int*>(buf);
+    const long long t = (long long)(k / (unsigned long long)chains);
+    const long long chain = (long long)(k % (unsigned long long)chains);
+    const int g = (int)(chain / col_groups);
+    const int col0 = (int)(chain % col_groups) << cw_log2;
+    const long long v0 = t << tile_log2;
+    unsigned long long taken = 0;
+    if (threadIdx.x == 0) taken = atomicAdd(ticket, 1ull);
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();
+    // thread (c, q)'s run: its sum of omega, its offset in the tile, then
+    // its inclusive sums from the offset in place (omega read twice from
+    // shared memory, so no register holds the run)
+    const float* run = buf + c * pitch + q * RP;
+    int* irun = tile + c * pitch + q * RP;
+    int sum = 0;
+#pragma unroll 8
+    for (int j = 0; j < kE; ++j) sum += omega_of(run[j], unit);
+    // the lanes of column c in a warp are c, c + cw, ... in run order
+    int incl = sum;
+    for (int d = cw; d < 32; d <<= 1) {
+      const int z = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += z;
+    }
+    if (lane >= 32 - cw) s_wt[warp][c] = incl;
+    __syncthreads();
+    int off = incl - sum;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v)
+      if (v < warp) off += s_wt[v][c];
+#pragma unroll 8
+    for (int j = 0; j < kE; ++j) {
+      off += omega_of(run[j], unit);
+      irun[j] = off;
+    }
+    int agg = 0;
+    if (threadIdx.x < cw) {
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) agg += s_wt[v][threadIdx.x];
+    }
+    unsigned long long* st = status + chain * n_tiles * cw;
+    if (threadIdx.x == 0) s_k[it & 3] = taken;
+    if (threadIdx.x < cw) {
+      store_status(st + t * cw + threadIdx.x, t == 0 ? kPrefix : kAggregate, agg);
+      lb.excl[threadIdx.x] = 0;
+      lb.done[threadIdx.x] = t == 0;
+    }
+    __syncthreads();
+    const unsigned long long kf = s_k[it & 3];
+    if (kf < tiles)
+      copy_tile(tab, ld, n, Bc, cw_log2, col_groups, chains, (long long)kf, pitch,
+                s_buf + ((it + 1) & 1) * cw * pitch);
+    else
+      asm volatile("cp.async.commit_group;" ::: "memory");
+    if (t > 0) {
+      for (long long top = t - 1;;) {
+        const int moved = look_back_step(st, top, cw_log2, lb);
+        if (moved < 0) break;
+        if (moved == 0) __nanosleep(64);
+        top -= moved;
+      }
+      if (threadIdx.x < cw)
+        store_status(st + t * cw + threadIdx.x, kPrefix, lb.excl[threadIdx.x] + agg);
+    }
+    if (threadIdx.x < cw && t == n_tiles - 1 && col0 + (int)threadIdx.x < Bc)
+      total[(long long)g * Bc + col0 + threadIdx.x] = lb.excl[threadIdx.x] + agg;
+    // (column, 32-node step) pairs, a warp store of 128 bytes each
+    const int steps_log2 = tile_log2 - 5;
+#pragma unroll 4
+    for (int p = warp; p < (cw << steps_log2); p += kWarps) {
+      const int cc = p >> steps_log2;
+      const int i = ((p & ((1 << steps_log2) - 1)) << 5) + lane;
+      const int b = col0 + cc;
+      const long long v = v0 + i;
+      if (b < Bc && v < n)
+        cum[((long long)g * Bc + b) * n + v] =
+            tile[cc * pitch + (i / kE) * RP + i % kE] + lb.excl[cc];
+    }
+    __syncthreads();
+    k = kf;
   }
 }
 
@@ -337,22 +538,53 @@ int columns_log2(int Bc) {
 
 }  // namespace
 
-// cum [Bc, n] and total [Bc]; tile [Bc, n_tiles] scratch, n_tiles = ceil(n /
-// 256).  Three launches on ``stream``.
-extern "C" int fora_walk_demand(const float* r, long long ld, long long n, int Bc, float unit,
-                                int* tile, long long n_tiles, int* cum, int* total,
+// G shards' r[g] [n, Bc] (row stride ld); cum [G, Bc, n] and total [G, Bc]
+// int32.  scratch: at least 1 + G * ceil(Bc / cw) * cw * ceil(n / TN)
+// words (cw = min(8, 2^ceil(log2 Bc)), TN = 8192 / cw), zeroed here on
+// ``stream`` and then the ticket counter and the status words of the
+// launch that follows on it; sms the card's SMs.
+extern "C" int fora_walk_demand(const float* const* r, int G, long long ld, long long n, int Bc,
+                                float unit, unsigned long long* scratch,
+                                long long scratch_words, int* cum, int* total, int sms,
                                 void* stream) {
-  if (n < 0 || Bc < 0 || n_tiles != (n + kTileN - 1) / kTileN)
-    return (int)cudaErrorInvalidValue;
+  if (n < 0 || Bc < 0 || G < 1 || G > kMaxShards) return (int)cudaErrorInvalidValue;
   if (n == 0 || Bc == 0) return (int)cudaGetLastError();
-  const int cw_log2 = columns_log2(Bc);
-  const long long col_groups = (Bc + (1 << cw_log2) - 1) >> cw_log2;
-  if (n_tiles > 0x7fffffffLL || col_groups > 65535) return (int)cudaErrorInvalidValue;
+  const int cw_log2 = columns_log2(Bc) < kDemandColumnsLog2 ? columns_log2(Bc)
+                                                         : kDemandColumnsLog2;
+  const int tile_log2 = kDemandTileLog2 - cw_log2;
+  const int col_groups = (Bc + (1 << cw_log2) - 1) >> cw_log2;
+  const long long n_tiles = (n + (1LL << tile_log2) - 1) >> tile_log2;
+  const long long chains = (long long)G * col_groups;
+  const long long words = 1 + chains * n_tiles * (1 << cw_log2);
+  if (chains * n_tiles > 0x7fffffffLL || scratch_words < words)
+    return (int)cudaErrorInvalidValue;
+  DemandTable tab = {};
+  for (int h = 0; h < G; ++h) tab.r[h] = r[h];
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)n_tiles, (unsigned)col_groups);
-  demand_tile_kernel<<<grid, kThreads, 0, st>>>(r, ld, n, Bc, cw_log2, unit, tile, n_tiles);
-  demand_scan_kernel<<<Bc, kScanThreads, 0, st>>>(tile, n_tiles, total);
-  demand_cum_kernel<<<grid, kThreads, 0, st>>>(r, ld, n, Bc, cw_log2, unit, tile, n_tiles, cum);
+  // the shared-memory limit and the blocks an SM holds, set and asked once
+  // a card and column width (host calls that cost more than the launch)
+  constexpr int kCards = 64;
+  static int resident[kCards][kDemandColumnsLog2 + 1] = {};
+  const size_t smem = 2 * ((size_t)(kThreads >> cw_log2) * (kDemandEntries + 1) +
+                           (32 >> cw_log2)) * (1 << cw_log2) * sizeof(int);
+  int card = 0;
+  cudaError_t e = cudaGetDevice(&card);
+  int per_sm = card < kCards ? resident[card][cw_log2] : 0;
+  if (e == cudaSuccess && per_sm == 0) {
+    if (smem > 48 * 1024)
+      e = cudaFuncSetAttribute(demand_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, demand_kernel, kThreads, smem);
+    if (e == cudaSuccess && card < kCards) resident[card][cw_log2] = per_sm;
+  }
+  if (e == cudaSuccess) e = cudaMemsetAsync(scratch, 0, (size_t)words * sizeof(*scratch), st);
+  if (e != cudaSuccess) return (int)e;
+  long long grid = (long long)(sms > 0 ? sms : 132) * (per_sm > 0 ? per_sm : 1);
+  if (grid > chains * n_tiles) grid = chains * n_tiles;
+  demand_kernel<<<(unsigned)grid, kThreads, smem, st>>>(tab, ld, n, Bc, cw_log2, col_groups,
+                                                        chains, n_tiles, unit, scratch,
+                                                        scratch + 1, cum, total);
   return (int)cudaGetLastError();
 }
 

@@ -16,7 +16,8 @@ words, so the same endpoints bit for bit (on a card; the tests and
 ``chip_smoke.py`` hold the kernel to it).
 
 Lane allocation is two steps here: the demand (``walk_demand``: omega_v,
-its int32 cumsum and the per-column total) and the expansion of a range of
+its int32 cumsum and the per-column total; ``walk_demands`` the shards'
+demands, one launch a card) and the expansion of a range of
 lanes onto nodes (``expand_lanes``; ``expand_chunk_lanes`` expands a
 chunk of the sharded raw walk over every shard's demand).  On a card they,
 ``accumulate_endpoints`` and ``accumulate_chunk_endpoints`` launch K6
@@ -184,6 +185,28 @@ def walk_demand(r: torch.Tensor, omega_unit: float) -> WalkDemand:
         return walk_demand_plain(r, omega_unit)
     cum, total = kernels.walk_demand(r, float(np.float32(omega_unit)))
     return WalkDemand(None, cum, total)
+
+
+def walk_demands(rs: list, omega_unit: float) -> tuple:
+    """:func:`walk_demand` of each of the G shards' residues ``rs`` (one
+    shape): ``(demands, total)``, ``total`` [G, B] int32 the shards' totals
+    on ``rs[0]``'s device.  On a card one launch per card (the shards of
+    a card in one ``kernels.walk_demand`` call, their cum in one [G, B, n]
+    buffer), on the CPU the plain version per shard."""
+    if rs[0].device.type == "cpu":
+        ds = [walk_demand_plain(r, omega_unit) for r in rs]
+        return ds, torch.stack([d.total for d in ds])
+    unit = float(np.float32(omega_unit))
+    ds, totals = [None] * len(rs), [None] * len(rs)
+    devs = list(dict.fromkeys(r.device for r in rs))
+    for dev in devs:
+        idx = [h for h, r in enumerate(rs) if r.device == dev]
+        cum, total = kernels.walk_demand([rs[h] for h in idx], unit)
+        for i, h in enumerate(idx):
+            ds[h], totals[h] = WalkDemand(None, cum[i], total[i]), total[i]
+    if len(devs) == 1:
+        return ds, total
+    return ds, torch.stack([t.to(rs[0].device) for t in totals])
 
 
 def walk_demand_plain(r: torch.Tensor, omega_unit: float) -> WalkDemand:
@@ -824,7 +847,8 @@ def sharded_walk_phase(csr: ShardedOutCSR, rs: list, omega_unit: float,
     shard h - 1's (lane ``off[h, b] + i``, ``off[h, b]`` the walks the
     shards before h demand in column b), and the chunks are
     ``plan_chunks``' over the columns' totals.  Each shard's demand is
-    ``walk_demand`` on its own residues; per chunk, on the first shard's
+    ``walk_demand`` on its own residues, all of them in one launch a card
+    (:func:`walk_demands`); per chunk, on the first shard's
     device, lane l of column b is shard h's where off[h, b] <= l < off[h +
     1, b], starts at its node made global by + h * n_loc, walks over the
     slices with ``derive_seed(seed, i)``, and adds its weight at its
@@ -837,9 +861,8 @@ def sharded_walk_phase(csr: ShardedOutCSR, rs: list, omega_unit: float,
     G = len(rs)
     n_loc, B = rs[0].shape
     n_pad, dev0 = G * n_loc, rs[0].device
-    ds = [walk_demand(r, omega_unit) for r in rs]
-    tot = torch.stack([d.total.to(dev0) for d in ds]).cpu().numpy()
-    tot = tot.astype(np.int64)                       # [G, B], one read
+    ds, tot = walk_demands(rs, omega_unit)
+    tot = tot.cpu().numpy().astype(np.int64)         # [G, B], one read
     total = tot.sum(axis=0)
     partials = [torch.zeros((n_pad, B), dtype=torch.float32, device=r.device)
                 for r in rs]

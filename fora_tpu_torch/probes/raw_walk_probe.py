@@ -67,8 +67,8 @@ def sharded_chunk(g, rcfg, src) -> dict:
     eng = ShardedForaEngine(g, make_mesh(4), rcfg, k=50)
     ps, rs = eng.init_state(src)
     eng.push(ps, rs)
-    ds = [walk.walk_demand(x, rcfg.omega_unit) for x in rs]
-    tot = torch.stack([d.total.long() for d in ds])
+    ds, tot = walk.walk_demands(rs, rcfg.omega_unit)
+    tot = tot.long()
     bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
     return dict(graph=eng.placement.walk, rs=rs, ds=ds, bounds=bounds,
                 W=int(bounds[-1].max()), n_out=rs[0].shape[0] * len(rs),

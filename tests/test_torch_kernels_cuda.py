@@ -1298,8 +1298,9 @@ def test_walk_kernel_sharded_bit_equal_to_philox_plain(dev, branch, G, W):
 
 def test_sharded_raw_engine_on_card(dev):
     """ShardedForaEngine without an index, four shards on the card under
-    dense and routed: each launches K6+K4's sharded form (the demand once
-    a shard, no K6-expand, K6-accum or K4 launch of its own), K1, K3's
+    dense and routed: each launches K6+K4's sharded form (the demand of
+    every shard in one launch, no K6-expand, K6-accum or K4 launch of its
+    own), K1, K3's
     selection and P2's one pass once, never K2; both exchanges give the
     same top-k
     (the walks are the same, the push bit-equal across exchanges: values
@@ -1328,7 +1329,7 @@ def test_sharded_raw_engine_on_card(dev):
         assert c["topk_bounds"] == 4
         assert c["index_walk"] == c["index_walk_sharded_alias"] == 0
         assert c["index_walk_sharded"] == 0
-        assert c["walk_demand"] == 4 and c["raw_walk"] > 0
+        assert c["walk_demand"] == 1 and c["raw_walk"] > 0
         assert c["expand_lanes"] == c["accumulate_endpoints"] == 0
     np.testing.assert_allclose(res["routed"].values, res["dense"].values,
                                rtol=1e-4, atol=1e-9)
@@ -1498,26 +1499,80 @@ def _k6_residue(rng, n, B, omega):
     return r
 
 
-@pytest.mark.parametrize("n,B,cols", [(1000, 1, (0, 1)), (70001, 64, (0, 37)),
-                                      (513, 130, (0, 130)),
-                                      (300, 40, (5, 38)), (256, 8, (0, 8))])
-def test_walk_demand_kernel_equal_plain(dev, n, B, cols):
+@pytest.mark.parametrize("n,B,cols,case", [
+    (1000, 1, (0, 1), "one"), (70001, 64, (0, 37), "one"),
+    (513, 130, (0, 130), "one"), (300, 40, (5, 38), "one"),
+    (256, 8, (0, 8), "one"), (1 << 19, 64, (0, 15), "one"),
+    (1 << 19, 64, (0, 64), "one"), (1 << 19, 64, (3, 4), "one"),
+    (1 << 19, 3, (0, 3), "one"), (9000, 40, (2, 40), "twice"),
+    (4000, 20, (0, 20), "empty"), (70001, 16, (1, 16), "list1"),
+    (70001, 16, (1, 16), "list3"), (1 << 17, 24, (0, 16), "list4"),
+    (1 << 17, 128, (0, 128), "list4"), (1 << 17, 16, (0, 16), "threads")])
+def test_walk_demand_kernel_equal_plain(dev, n, B, cols, case):
     """K6-demand's cum and total torch.equal to the plain version's on the
-    card, at n not a multiple of the 256-node tile, B = 1, over 32
-    columns (two and five column groups) and on a strided slice of the
-    live columns; omega_v is not written."""
+    card, one launch a call: at n not a multiple of the tile, B = 1,
+    over 32 columns (two and five column groups), on a strided slice of
+    the live columns, and at n = 2^19 (long look-back chains; 15, 64, 3
+    columns and one column of 64); ``twice``: two calls back to back on
+    other residues and widths, each right (a status word or ticket left
+    by the first would break the second); ``empty``: every column
+    without a walk; ``list<G>``: the list form over G shards' column
+    slices (and at the sharded raw one-shot's shape, four shards' 2^17 x
+    128), one launch, each shard's cum and total equal to its own
+    plain demand and its cum laid out as the single form's; ``threads``:
+    four host threads calling it at once on one stream, many times, each
+    call right (no scratch shared between calls)."""
     from fora_tpu_torch import kernels
     from fora_tpu_torch.ops import walk
     omega = 37.3
-    r = torch.as_tensor(_k6_residue(np.random.default_rng(n), n, B, omega),
-                        device=dev)[:, cols[0]:cols[1]]
-    k = kernels.walk_demand.launches
-    got = walk.walk_demand(r, omega)
-    assert kernels.walk_demand.launches == k + 1 and got.omega_v is None
-    want = walk.walk_demand_plain(r, omega)
-    assert torch.equal(got.cum, want.cum) and torch.equal(got.total,
-                                                          want.total)
-    assert got.cum.T.is_contiguous()
+    rng = np.random.default_rng(n)
+
+    def residue(n, B, cols):
+        return torch.as_tensor(_k6_residue(rng, n, B, omega),
+                               device=dev)[:, cols[0]:cols[1]]
+
+    def check(got, r):
+        want = walk.walk_demand_plain(r, omega)
+        assert torch.equal(got.cum, want.cum) and torch.equal(got.total,
+                                                              want.total)
+        assert got.cum.T.is_contiguous() and got.omega_v is None
+
+    if case.startswith("list"):
+        G = int(case[4:])
+        rs = [residue(n, B, cols) for _ in range(G)]
+        k = kernels.walk_demand.launches
+        ds, total = walk.walk_demands(rs, omega)
+        assert kernels.walk_demand.launches == k + 1
+        for r, d in zip(rs, ds):
+            check(d, r)
+        assert torch.equal(total, torch.stack([d.total for d in ds]))
+        assert all(d.cum.stride() == ds[0].cum.stride() for d in ds)
+        return
+    if case == "threads":
+        from concurrent.futures import ThreadPoolExecutor
+        rs = [residue(n, B, cols) for _ in range(4)]
+        wants = [walk.walk_demand_plain(x, omega) for x in rs]
+
+        def calls(i):
+            return [walk.walk_demand(rs[i], omega) for _ in range(20)]
+        with ThreadPoolExecutor(4) as ex:
+            gots = list(ex.map(calls, range(4)))
+        torch.cuda.synchronize()
+        for want, got in zip(wants, gots):
+            assert all(torch.equal(d.cum, want.cum)
+                       and torch.equal(d.total, want.total) for d in got)
+        return
+    r = residue(n, B, cols)
+    if case == "empty":
+        r = r.clamp(max=0.0)
+    runs = [r] + ([residue(n // 3, 7, (0, 7))] if case == "twice" else [])
+    for x in runs:
+        k = kernels.walk_demand.launches
+        got = walk.walk_demand(x, omega)
+        assert kernels.walk_demand.launches == k + 1
+        check(got, x)
+    if case == "empty":
+        assert not bool(got.total.any()) and not bool(got.cum.any())
 
 
 @pytest.mark.parametrize("lo,W", [(0, None), (0, 64), (3000, 4096),

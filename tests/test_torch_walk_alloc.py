@@ -4,7 +4,8 @@ endpoint accumulate.
 
   - ``walk_demand`` / ``expand_lanes`` against JAX's
     ``fora_tpu.ops.walk.allocate_walks`` (start, valid, weight and total
-    array-equal), with empty columns, lanes past a column's total and
+    array-equal), ``walk_demands`` (the shards' demands, the list form)
+    shard by shard, with empty columns, lanes past a column's total and
     lane ranges that start past 0; ``accumulate_endpoints`` against JAX's
     at rtol 1e-6, its number weight equal to the array form;
   - ``expand_chunk_lanes``, every shard's lanes of a chunk written
@@ -53,6 +54,32 @@ def test_walk_demand_matches_jax(n, B, omega_unit):
     np.testing.assert_array_equal(d.omega_v.numpy(), omega)
     np.testing.assert_array_equal(d.cum.numpy(), np.cumsum(omega, axis=0))
     assert d.cum.T.is_contiguous()
+
+
+@pytest.mark.parametrize("G", [1, 3, 4])
+def test_walk_demands_per_shard_match_jax(G):
+    """The list form (``walk_demands``, one launch a card; on the CPU the
+    plain version a shard) on G shards' column slices of wider residues:
+    each shard's cum and total against JAX's ``allocate_walks`` on that
+    shard alone (cum the cumsum of JAX's omega_v rule), and ``total`` [G,
+    Bc] the shards' totals stacked."""
+    rng = np.random.default_rng(40 + G)
+    omega_unit = 13.9
+    full = [_residue(rng, 333, 11, empty=(2 + h,)) for h in range(G)]
+    rs = [torch.from_numpy(x)[:, 2:9] for x in full]
+    ds, total = walk.walk_demands(rs, omega_unit)
+    assert len(ds) == G and tuple(total.shape) == (G, 7)
+    for h, (x, d) in enumerate(zip(full, ds)):
+        r = x[:, 2:9]
+        want = jax_walk.allocate_walks(jnp.asarray(r), omega_unit, 64)
+        np.testing.assert_array_equal(d.total.numpy(), np.asarray(want.total))
+        np.testing.assert_array_equal(total[h].numpy(),
+                                      np.asarray(want.total))
+        omega = np.where(r > 0, np.ceil(r * np.float32(omega_unit)), 0)
+        np.testing.assert_array_equal(
+            d.cum.numpy(), np.cumsum(omega.astype(np.int32), axis=0))
+        assert int(d.total[h]) == 0         # the shard's empty column
+        assert d.cum.T.is_contiguous()
 
 
 @pytest.mark.parametrize("lo,W", [(0, 4096), (0, 64), (1000, 1024),
