@@ -233,6 +233,41 @@ memory:
                  within 0.01 of the identity order's in both, its push's
                  p within rtol 1e-5 (and the node's threshold) of the
                  identity order's
+  17. multiprocess  (run after phase 16) ShardedForaEngine across
+                 processes: both sharded stores of phase 1's graph (phase
+                 9's layout) and phase 4's index written, and each of
+                 MP_PROCS = 2 worker processes on the one card (gloo, both
+                 on cuda:0; fora_tpu_torch.parallel.multihost_driver, run
+                 with python -m, OMP_NUM_THREADS=4) given only its own 2
+                 shards' files; the first MP_SOURCES = 32 of phase 9's
+                 sources (all 128 took the phase to 127 s) through phase
+                 9's one-process engine (the reference); K6+K4-xp on the
+                 raw one-shot's first walk chunk (at SEED)
+                 over two processes simulated here (ops.walk's
+                 xp_chunk_rounds and local_exchange), each launch
+                 held to raw_walk_xp_plain (counts, each destination's
+                 records as a set, the endpoints of the walks that end
+                 there equal; partials within rtol 1e-4), every endpoint
+                 over the rounds K6+K4's sharded form's bit for bit, timed
+                 (its launches as called and in device time) beside K6+K4's
+                 sharded form on the chunk and its bound (raw_walk_bound
+                 plus 16 bytes a record written and read); then the
+                 workers (every collective on CUDA tensors under gloo),
+                 the indexed one-shot (warm, then timed) against the
+                 reference under test_torch_sharded.py's rule with equal
+                 supersteps, every worker's answer equal, the raw
+                 one-shot (warm, then timed; its first chunk's endpoints,
+                 gathered from both workers, torch.equal to K6+K4's
+                 sharded form's; precision@50 >= 0.95), gather_to_host,
+                 the walls, rounds
+                 and the records and bytes handed over per round; beside
+                 them two NCCL ranks on the one card, refused in
+                 multihost.init; then a world of one process over NCCL
+                 holding the four shards: the indexed answer the
+                 reference's bit for bit, the raw chunk's endpoints equal
+                 again.  A worker
+                 that fails or passes MP_WORKER_S is killed and the phase
+                 fails
   13. weighted   bench.py's weighted graph (phase 1's edges, weights
                  exp2(U(-2, 2)) from default_rng(SEED + 31)) through the
                  port's from_edges(w=) and to_device (merge, hub split,
@@ -332,7 +367,12 @@ memory:
                  no other path; in phase 16's compacted pushes
                  K5's pre-pass, K5 and K1's gather (the supersteps that
                  fell back), never K1's pre-pass; K1-K3 in the relabelled
-                 pool; K5 and its pre-pass on no other path; and neither
+                 pool; K5 and its pre-pass on no other path; in phase 17's
+                 workers (counts reset just before each timed call, read
+                 just after) K1 and K3 per local shard, P1 among the local
+                 shards, P2's one pass once in the indexed run, the demand
+                 once and K6+K4-xp in the raw run, K6+K4-xp on no path
+                 within one process; and neither
                  JAX nor the JAX package fora_tpu was imported, by this
                  process or the servers
 
@@ -382,7 +422,12 @@ K6+K4-src, is phase 11's chunk with phase 11's launches, and carries
 device_ms, chain_device_ms (K4 and K6-accum on the same chunk), alias_*
 (phase 13's weighted chunk) and hub_* (HubPPR's chunk), its bound K4's
 walk bound without a start or endpoint array plus the sectors of the
-output, read and written), then,
+output, read and written); raw_walk_xp, K6+K4-xp, is phase 17's first
+raw chunk over two simulated processes (ms its launches as called,
+device_ms theirs in device time, plain_ms raw_walk_xp_plain's, its bound
+K6+K4's on the chunk's walks plus 16 bytes a record written and read) with
+the launches of the workers' raw run summed, and carries
+sharded_device_ms, K6+K4's sharded form on the same chunk), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -1144,7 +1189,7 @@ def k4_vs_plain_on_level(runner, dg, sources, level):
 PLAIN_K6 = ("walk_demand_plain", "expand_lanes_plain",
             "expand_chunk_lanes_plain", "accumulate_endpoints_plain",
             "accumulate_chunk_endpoints_plain", "raw_walk_chunk_plain",
-            "source_walk_chunk_plain")
+            "raw_walk_xp_plain", "source_walk_chunk_plain")
 plain_k6_calls: dict = {}
 
 
@@ -1515,23 +1560,24 @@ def raw_walk_row(label, launch, fresh, ones, chain, chain_ends, weight,
 
 
 def raw_walk_bound(graph, starts, rcfg, demand_sectors_, out_sectors,
-                   rate) -> dict:
+                   rate, extra_bytes: int = 0) -> dict:
     """K6+K4's bound on a chunk: walk_bound()'s reads and Philox blocks of
     the walks from ``starts`` (the walked lanes' start nodes, global ids,
     over the unsharded ``graph``), plus the sectors a chunk's lanes must
     read to find their starts and weights (demand_sectors()) and the
-    sectors of the output its walks add into, read and written, at the
-    device memory's rate; the larger of the bytes' and the operations'
-    times."""
+    sectors of the output its walks add into, read and written, and
+    ``extra_bytes`` (K6+K4-xp's records), at the device memory's rate;
+    the larger of the bytes' and the operations' times."""
     import torch
     gen = torch.Generator(device=starts.device).manual_seed(SEED)
     b = walk_bound(graph, starts, gen, rcfg.alpha, rcfg.max_walk_hops, rate)
-    extra = (demand_sectors_ + 2 * out_sectors) * SECTOR / hbm_rate() * 1e3
+    extra = ((demand_sectors_ + 2 * out_sectors) * SECTOR + extra_bytes) \
+        / hbm_rate() * 1e3
     t_bytes = b["bytes_ms"] + extra
     print(f"K6+K4 bound: K4's walks {b['bytes_ms']:.4f} ms of reads, "
           f"{b['ops_ms']:.4f} ms of Philox blocks; {demand_sectors_} sectors "
           f"of cum and r at the lanes' nodes and {out_sectors} of the output, "
-          f"read and written, {extra:.4f} ms")
+          f"read and written, and {extra_bytes} bytes more, {extra:.4f} ms")
     return (dict(bound_ms=t_bytes, bound_by="bytes") if t_bytes >= b["ops_ms"]
             else dict(bound_ms=b["ops_ms"], bound_by="operations"))
 
@@ -3958,6 +4004,438 @@ def run_relabel(g, rcfg, index, sources, dev, exact_ids, x):
     return launches
 
 
+# ---- phase 17: the sharded one-shot across processes ------------------------
+
+MP_PROCS = 2                        # phase 17: worker processes on the card
+# the sources of phase 17's one-shots: the first 32 of phase 9's (all 128
+# took the phase to 127 s: gloo moves a superstep's 134 MB in about 0.29 s)
+MP_SOURCES = 32
+MP_WORKER_S = 420                   # a world's time limit
+MP_DIR = ROOT / "bench_data" / "torch_smoke_mp"
+
+
+def sharded_rule_agree(name, got_v, got_i, want_v, want_i) -> float:
+    """tests/test_torch_sharded.py's rule: values within rtol 1e-5 / atol
+    1e-7, ids equal wherever the reference's adjacent values differ by more
+    than 1e-7.  Returns the max abs error."""
+    import numpy as np
+    gv, gi = sorted_topk(got_v, got_i)
+    wv, wi = sorted_topk(want_v, want_i)
+    err = np.abs(gv.astype(np.float64) - wv)
+    if not (err <= 1e-7 + 1e-5 * np.abs(wv)).all():
+        fail(f"{name}: values beyond rtol 1e-5 / atol 1e-7 (max abs err "
+             f"{err.max():.3e})")
+    apart = np.abs(np.diff(wv.astype(np.float64), axis=1)) > 1e-7
+    sep = np.ones(wv.shape, bool)
+    sep[:, :-1] &= apart
+    sep[:, 1:] &= apart
+    bad = int((gi[sep] != wi[sep]).sum())
+    if bad:
+        fail(f"{name}: {bad} ids differ where adjacent values differ by "
+             f"more than 1e-7")
+    print(f"{name}: values within rtol 1e-5 / atol 1e-7 (max abs err "
+          f"{err.max():.3e}); ids equal at {int(sep.sum())} of {sep.size} "
+          f"positions outside ties of 1e-7")
+    return float(err.max())
+
+
+def xp_simulation(g, rcfg, sources, graph, dev):
+    """K6+K4-xp on the raw one-shot's first walk chunk as phase 17's
+    workers walk it: the one-process engine on SHARDS shards (dense) pushes
+    ``sources``, the shards' demands and the plan give the first chunk and
+    its seed (the workers' topk at SEED, query group 0, chunk 0); K6+K4's
+    sharded form walks it (the reference: its endpoints and device time);
+    then MP_PROCS processes of SHARDS / MP_PROCS shards are simulated by a
+    loop on the card, each launch of K6+K4-xp held to raw_walk_xp_plain on
+    the same own lanes and inbox (counts equal, each destination's records
+    equal as a set, the endpoints of the walks that end there equal, the
+    partials within rtol 1e-4: f32 atomics in no fixed order) and its
+    records handed on.  Every lane's endpoint over the rounds must be the
+    reference's bit for bit.  Returns (K6+K4-xp's kernel row: ms the
+    chunk's launches as called, device_ms their device time (each launch
+    again on scratch outputs), plain_ms the plain version's launches,
+    sharded_device_ms K6+K4's sharded form on the chunk, bound K6+K4's on
+    the chunk's walks plus 16 bytes a record written and read; the
+    reference endpoints [W, Bc]; the chunk (c0, c1, lo, hi))."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch.ops import walk
+    from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
+    from fora_tpu_torch.utils.timing import device_ms
+    eng = ShardedForaEngine(g, make_mesh(SHARDS), rcfg, k=K)
+    ps, rs = eng.init_state(sources)
+    eng.push(ps, rs)
+    del ps
+    ds, tot = walk.walk_demands(rs, rcfg.omega_unit)
+    tot = tot.cpu().numpy().astype(np.int64)
+    bnp = np.concatenate([np.zeros((1, tot.shape[1]), np.int64),
+                          np.cumsum(tot, axis=0)])
+    chunks = walk.plan_chunks(bnp[-1], walk.chunk_lanes(dev))
+    c0, c1, lo, hi = chunks[0]
+    seed = walk.derive_seed(walk.derive_seed(SEED, 0), 0)
+    a, hops = rcfg.alpha, rcfg.max_walk_hops
+    W, Bc, n_loc = hi - lo, c1 - c0, eng.n_loc
+    n_pad = SHARDS * n_loc
+    bnp = bnp[:, c0:c1]
+    bounds = torch.as_tensor(bnp.copy(), device=dev)
+    rsc = [r[:, c0:c1] for r in rs]
+    dsc = [d.columns(c0, c1) for d in ds]
+    csr = eng.placement.walk
+    ref = torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
+    outs = [torch.zeros((n_pad, Bc), device=dev) for _ in range(SHARDS)]
+    walk.raw_walk_sharded_chunk(csr, rsc, dsc, bounds, lo, W, seed, a, hops,
+                                outs, ends=ref)
+    ref_sum = sum(outs)
+    one_ms = device_ms(lambda: walk.raw_walk_sharded_chunk(
+        csr, rsc, dsc, bounds, lo, W, seed, a, hops, outs))
+    del outs
+    P, L = MP_PROCS, SHARDS // MP_PROCS
+    parts = [torch.zeros((n_pad, Bc), device=dev) for _ in range(P)]
+    ends = [torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
+            for _ in range(P)]
+    err = 0.0
+    ms = {"kernel": 0.0, "plain": 0.0, "device": 0.0}
+    per = []                 # per launch: (round, process, walks, device ms)
+
+    def timed(fn):
+        s, e = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e)
+
+    def records(box, cnt, d):
+        rec = box[d, :int(cnt[d])]
+        return rec[torch.argsort(rec[:, 0].long() & 0xFFFFFFFF)]
+
+    def launch(q, r, inbox, box, cnt):
+        nonlocal err
+        sl = slice(q * L, (q + 1) * L)
+        ext = walk.own_lanes(bnp[q * L:q * L + L + 1], lo, W)[1]
+        head = (csr.shards(q * L, (q + 1) * L), rsc[sl], dsc[sl],
+                bounds[q * L:q * L + L + 1].contiguous(), lo, W,
+                ext if r == 0 else 0, q * L, SHARDS, seed, a, hops)
+        got = {}
+        for form in ("kernel", "plain"):
+            x = (box, cnt) if form == "kernel" else (torch.empty_like(box),
+                                                     torch.empty_like(cnt))
+            part = torch.zeros((n_pad, Bc), device=dev)
+            e = torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
+            args = head + (part, inbox, *x)
+            fn = (walk.raw_walk_xp_chunk if form == "kernel"
+                  else walk.raw_walk_xp_plain)
+            ms[form] += timed(lambda: fn(*args, ends=e))
+            got[form] = (*x, part, e)
+        (box, cnt, part, e), (pbox, pcnt, ppart, pe) = got.values()
+        if box.shape[1]:
+            scratch = head + (torch.zeros_like(part), inbox,
+                              torch.empty_like(box), torch.empty_like(cnt))
+            per.append((r, q, box.shape[1], device_ms(
+                lambda: walk.raw_walk_xp_chunk(*scratch), iters=3,
+                warmup=1)))
+            ms["device"] += per[-1][3]
+        if not torch.equal(cnt, pcnt) or int(cnt[q]) != 0:
+            fail(f"K6+K4-xp: counts {cnt.tolist()} against the plain "
+                 f"version's {pcnt.tolist()} (process {q}, round {r})")
+        for d in range(P):
+            if not torch.equal(records(box, cnt, d), records(pbox, pcnt, d)):
+                fail(f"K6+K4-xp: process {q}'s records for {d} differ "
+                     f"from the plain version's (round {r})")
+        if not torch.equal(e, pe):
+            fail(f"K6+K4-xp: process {q}'s endpoints differ from the "
+                 f"plain version's (round {r})")
+        err = max(err, close(f"K6+K4-xp process {q} round {r}", part, ppart,
+                             1e-4, 1e-7))
+        parts[q] += part
+        ends[q] = torch.maximum(ends[q], e)
+    own = {q: walk.own_lanes(bnp[q * L:q * L + L + 1], lo, W)[0]
+           for q in range(P)}
+    counts = walk.xp_chunk_rounds(launch, walk.local_exchange, own, P, dev)
+    rounds, sent = len(counts), [int(m.sum()) for m in counts]
+    launches = len(per)
+    walked = int((ref >= 0).sum())
+    later = [x for x in per if x[0] > 0]
+    print("K6+K4-xp by launch: round 0 " + ", ".join(
+        f"process {q} {w} walks {d:.4f} ms" for r, q, w, d in per if r == 0)
+        + f"; rounds 1-{rounds - 1}: {len(later)} launches, "
+        f"{sum(x[2] for x in later)} walks handed on, "
+        f"{sum(x[3] for x in later):.4f} ms device (the 8 largest "
+        + ", ".join(f"{d:.4f}" for d in sorted(
+            (x[3] for x in later), reverse=True)[:8])
+        + f"); walk segments a walk {sum(x[2] for x in per) / walked:.3f}")
+    if int(sum((x >= 0).int() for x in ends).max()) > 1 or \
+            not torch.equal(torch.stack(ends).max(0).values, ref):
+        fail("K6+K4-xp: the simulated processes' endpoints differ from "
+             "K6+K4's sharded form's")
+    err = max(err, close("K6+K4-xp partials against K6+K4's sharded form",
+                         sum(parts), ref_sum, 1e-4, 1e-7))
+    # the bound: K6+K4's on the chunk's walks, plus 16 bytes a record
+    # written by its sender and read by its receiver
+    start, _ = walk.expand_chunk_lanes(rsc, dsc, bounds, lo, W, n_loc)
+    lane = lo + torch.arange(W, device=dev)[:, None]
+    valid = lane < bounds[-1][None, :]
+    cols = torch.arange(Bc, device=dev)[None, :]
+    out_idx = torch.cat([((q * n_pad + x.long()) * Bc + cols)[x >= 0]
+                         for q, x in enumerate(ends)])
+    oms = [walk.walk_demand_plain(x, rcfg.omega_unit).omega_v for x in rsc]
+    rec_bytes = 2 * 16 * sum(sent)
+    row = dict(max_abs_err=err, ms=ms["kernel"], device_ms=ms["device"],
+               plain_ms=ms["plain"], library_ms=None,
+               sharded_device_ms=one_ms, **raw_walk_bound(
+                   graph, start[valid], rcfg, demand_sectors(rsc, oms),
+                   sectors(out_idx), walk_sector_rate(graph), rec_bytes))
+    print(f"K6+K4-xp on the raw one-shot's first chunk ({W} x {Bc} lane "
+          f"slots, {walked} walks, {MP_PROCS} simulated processes of {L} "
+          f"shards): {rounds} rounds, records handed over per round "
+          f"{sent}; every launch held to raw_walk_xp_plain (counts, records "
+          f"as sets, endpoints equal; partials within rtol 1e-4, max abs err "
+          f"{err:.3e}), every endpoint K6+K4's sharded form's bit for bit; "
+          f"{launches} launches {ms['kernel']:.4f} ms as called, device "
+          f"{ms['device']:.4f} ms, beside K6+K4's sharded form on the chunk "
+          f"{one_ms:.4f} ms device; plain {ms['plain']:.4f} ms; bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']} (records "
+          f"{rec_bytes / hbm_rate() * 1e3:.4f} ms of it)")
+    del parts, ends, ref_sum, start, valid, lane, oms, eng, rs, ds
+    return row, ref, (c0, c1, lo, hi)
+
+
+def start_world(procs, backend, specs, out) -> list:
+    """``procs`` workers of fora_tpu_torch.parallel.multihost_driver on
+    DEVICE over ``backend``, worker q with ``specs[q]`` and its output in
+    ``out/worker<q>.log``, started (not waited for)."""
+    import os
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    ps = []
+    for q in range(procs):
+        (out / f"spec{q}.json").write_text(json.dumps(specs[q]))
+        with open(out / f"worker{q}.log", "w") as log:
+            p = subprocess.Popen(
+                [sys.executable, "-m",
+                 "fora_tpu_torch.parallel.multihost_driver", "--coordinator",
+                 f"localhost:{port}", "--processes", str(procs), "--rank",
+                 str(q), "--backend", backend, "--device", DEVICE, "--spec",
+                 str(out / f"spec{q}.json"), "--out", str(out)],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        p.log = out / f"worker{q}.log"
+        ps.append(p)
+    return ps
+
+
+def finish_world(ps, t0: float, timeout: float = MP_WORKER_S,
+                 grace: float = 15.0) -> tuple:
+    """(exit codes, output tails) of a world's workers.  Past ``timeout``
+    seconds from ``t0``, or ``grace`` seconds after a worker failed (the
+    others would wait in a collective), every worker still running is
+    killed (its code then non-zero)."""
+    failed_at = None
+    while any(p.poll() is None for p in ps):
+        now = time.perf_counter()
+        if failed_at is None and any(p.poll() not in (None, 0) for p in ps):
+            failed_at = now
+        if now - t0 > timeout or (failed_at is not None
+                                  and now - failed_at > grace):
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+            break
+        time.sleep(0.1)
+    codes = [p.wait() for p in ps]
+    tails = [p.log.read_text()[-2500:] for p in ps]
+    return codes, tails
+
+
+def world_records(name, out, codes, tails) -> list:
+    """The workers' records of a world that must have succeeded."""
+    if any(codes):
+        fail(f"phase 17 {name}: worker exit codes {codes}:\n" + "\n".join(
+            f"rank {q}: {t}" for q, t in enumerate(tails) if codes[q]))
+    return [json.loads((out / f"rank{q}.json").read_text())
+            for q in range(len(codes))]
+
+
+def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
+    """Phase 17: ShardedForaEngine.topk with its SHARDS shards over
+    MP_PROCS worker processes on the one card (gloo, both on cuda:0;
+    fora_tpu_torch.parallel.multihost_driver) from both sharded stores of
+    phase 1's graph and phase 4's index, each worker given only its own
+    shards' files: the indexed one-shot of ``sources`` (warm, then timed)
+    against phase 9's one-process engine on them (test_torch_sharded.py's
+    rule, equal supersteps), the raw one-shot of ``sources`` at SEED (its
+    first chunk's endpoints torch.equal to K6+K4's sharded form's,
+    precision@50 against phase 7's oracle ``exact_ids``; warm, then
+    timed), gather_to_host; K6+K4-xp held to its plain version and timed
+    on that chunk first (xp_simulation); then a world of one process over
+    NCCL holding the four shards (the indexed answer the one-process
+    engine's bit for bit, the raw chunk's endpoints equal again), and,
+    beside the gloo world, two NCCL ranks on the one card, which must fail
+    in multihost.init.  Every worker's launches are reset just before its
+    timed call and read just after.  Returns (K6+K4-xp's kernel row, the
+    gloo world's raw run's launches summed over its workers)."""
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from fora_tpu_torch import index as tidx
+    from fora_tpu_torch.eval import metrics
+    from fora_tpu_torch.parallel import multihost, save_sharded_graph
+    from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
+    # phase 9's one-process engine on the same sources: the reference
+    one = ShardedForaEngine(g, make_mesh(SHARDS), rcfg, k=K, index=index)
+    one.topk(sources)                                   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_res = one.topk(sources)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    del one
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    stores = MP_DIR / "stores"
+    save_sharded_graph(g, str(stores), SHARDS)
+    tidx.save_sharded(index, rcfg, str(stores / "index"), SHARDS, graph=g)
+    P, L = MP_PROCS, SHARDS // MP_PROCS
+    for q in range(P):      # only the process's own shards' files
+        mine = MP_DIR / f"rank{q}"
+        for sub in (f"graph-shards-G{SHARDS}", f"index/shards-G{SHARDS}"):
+            (mine / sub).mkdir(parents=True)
+            shutil.copy(stores / sub / "meta.json", mine / sub / "meta.json")
+            for s in range(q * L, (q + 1) * L):
+                for f in (stores / sub).glob(f"shard_{s:04d}.*"):
+                    os.link(f, mine / sub / f.name)
+    print(f"multiprocess: both sharded stores written ({SHARDS} shards) and "
+          f"each of {P} processes given its {L} shards' files in "
+          f"{time.perf_counter() - t0:.1f} s")
+    row, ref_ends, (c0, c1, lo, hi) = xp_simulation(
+        g, rcfg, sources, graph, dev)
+    torch.cuda.empty_cache()
+    src = [int(s) for s in sources]
+
+    def spec(root):
+        return {"shards": SHARDS, "jobs": [
+            {"name": "indexed", "graph": {"store": str(root)},
+             "index": {"store": str(root / "index")}, "k": K,
+             "sources": src, "repeat": 2},
+            {"name": "raw", "graph": {"store": str(root)}, "index": None,
+             "k": K, "sources": src, "seed": SEED, "repeat": 2,
+             "ends": True}]}
+    t0 = time.perf_counter()
+    refused = start_world(2, "nccl", [{"shards": SHARDS, "jobs": []}] * 2,
+                          MP_DIR / "out_refused")
+    out = MP_DIR / "out_gloo"
+    gloo = start_world(P, "gloo", [spec(MP_DIR / f"rank{q}")
+                                   for q in range(P)], out)
+    recs = world_records("gloo", out, *finish_world(gloo, t0))
+    world_s = time.perf_counter() - t0
+    codes, tails = finish_world(refused, t0)
+    # rank 0 serves the store, so it reads both cards' names whatever the
+    # other rank does once it has raised
+    if not all(codes) or "NCCL refuses two ranks on one GPU" not in tails[0]:
+        fail(f"phase 17: two NCCL ranks on one card were not refused in "
+             f"init (exit codes {codes}): {tails}")
+    print(f"multiprocess: two NCCL ranks on the one card refused in "
+          f"multihost.init, before any collective: "
+          f"{tails[0].strip().splitlines()[-1]}")
+    for q, rec in enumerate(recs):
+        if not rec["gather"] or rec["modules"]:
+            fail(f"phase 17 rank {q}: gather_to_host {rec['gather']}, "
+                 f"imported {rec['modules'][:5]}")
+    print("multiprocess gloo: all_gather, all_reduce, reduce_scatter and "
+          "all_to_all called on the CUDA tensors themselves (nothing "
+          "staged through host memory); gather_to_host of the shards' row "
+          "ids equal on every process; no module of jax or fora_tpu in a "
+          "worker")
+    arrs = [np.load(out / f"rank{q}.npz") for q in range(P)]
+    for q in range(1, P):
+        for key in arrs[0].files:
+            if not np.array_equal(arrs[q][key], arrs[0][key]):
+                fail(f"phase 17: rank {q}'s {key} differs from rank 0's")
+    steps = ref_res.push_iters
+    for q, rec in enumerate(recs):
+        job = rec["jobs"]["indexed"]
+        c = job["launches"]
+        want = {"index_spmv": L, "topk_bounds": L,
+                "reduce_scatter_onepass": 1 if L > 1 else 0,
+                "push_prepass": L * steps, "gather_scatter_add": L * steps,
+                "ring_all_gather_hop": L * (L - 1) * steps,
+                "raw_walk_xp": 0}
+        if job["supersteps"] != steps or job["shards"] != list(
+                range(q * L, (q + 1) * L)) or any(
+                c[k] != v for k, v in want.items()):
+            fail(f"phase 17 indexed, rank {q}: supersteps "
+                 f"{job['supersteps']} (phase 9 {steps}), shards "
+                 f"{job['shards']}, launches {c} (expected {want})")
+    sharded_rule_agree("multiprocess indexed vs the one-process engine",
+                       arrs[0]["indexed.values"], arrs[0]["indexed.ids"],
+                       ref_res.values, ref_res.node_ids)
+    ends = np.load(out / "raw.ends.npy")
+    if ends.shape != tuple(ref_ends.shape) or not torch.equal(
+            torch.from_numpy(ends).to(dev), ref_ends):
+        fail(f"phase 17 raw: the first chunk's endpoints {ends.shape} "
+             f"differ from K6+K4's sharded form's "
+             f"{tuple(ref_ends.shape)}")
+    raw = [rec["jobs"]["raw"] for rec in recs]
+    xp = {k: sum(r["launches"][k] for r in raw) for k in raw[0]["launches"]}
+    for q, r in enumerate(raw):
+        c = r["launches"]
+        if c["raw_walk_xp"] <= 0 or c["raw_walk"] or c["walk_demand"] != 1 \
+                or c["index_spmv"] or c["topk_bounds"] != L:
+            fail(f"phase 17 raw, rank {q}: launches {c}")
+    prec = metrics.batch_precision_at_k(arrs[0]["raw.ids"], exact_ids)
+    if not prec >= MIN_PRECISION:
+        fail(f"phase 17 raw precision@{K} {prec:.4f} < {MIN_PRECISION}")
+    nb = len(src)
+    print(f"multiprocess gloo, {P} processes of {L} shards on one card "
+          f"(time-sliced: correctness and the protocol's overhead, not "
+          f"scaling): world {world_s:.1f} s (start, stores, both jobs); "
+          f"indexed {len(src)} queries "
+          f"{recs[0]['jobs']['indexed']['wall_s']:.4f} s "
+          f"timed (phase 9's engine in one process {ref_wall:.4f} s), "
+          f"{steps} supersteps; raw {nb} queries "
+          f"{recs[0]['jobs']['raw']['wall_s']:.4f} s timed, "
+          f"{raw[0]['supersteps']} supersteps, precision@{K} {prec:.4f} over "
+          f"{len(exact_ids)}; the first chunk's endpoints ({ends.shape[0]} x "
+          f"{ends.shape[1]}, lanes {lo} .. {hi - 1} of columns {c0} .. "
+          f"{c1 - 1}) equal to K6+K4's sharded form's; K6+K4-xp launches "
+          f"{[r['launches']['raw_walk_xp'] for r in raw]}")
+    for i, nr in enumerate(raw[0]["rounds"]):
+        per = [(sum(r["sent"][i][j] for r in raw)) for j in range(nr)]
+        print(f"  chunk {i}: {nr} rounds; records handed over per round "
+              f"{per}; bytes {[16 * x for x in per]}; and per round one "
+              f"all-gather of {P} x {P + 1} int32 counts")
+    # a world of one process over NCCL, holding every shard
+    t0 = time.perf_counter()
+    out = MP_DIR / "out_nccl"
+    one = world_records("nccl", out, *finish_world(start_world(
+        1, "nccl", [spec(stores)], out), t0))[0]
+    a = np.load(out / "rank0.npz")
+    if not (np.array_equal(a["indexed.ids"], ref_res.node_ids)
+            and np.array_equal(a["indexed.values"].view(np.uint32),
+                               ref_res.values.view(np.uint32))
+            and one["jobs"]["indexed"]["supersteps"] == steps):
+        fail("phase 17: the NCCL world of one process differs from the "
+             "one-process engine's answer")
+    if not np.array_equal(np.load(out / "raw.ends.npy"), ends):
+        fail("phase 17: the NCCL world's raw endpoints differ")
+    print(f"multiprocess nccl, one process of {SHARDS} shards: world "
+          f"{time.perf_counter() - t0:.1f} s; indexed "
+          f"{one['jobs']['indexed']['wall_s']:.4f} s, bit-equal to the "
+          f"one-process engine's answer; raw "
+          f"{one['jobs']['raw']['wall_s']:.4f} s, "
+          f"{one['jobs']['raw']['rounds']} rounds, the first chunk's "
+          f"endpoints equal")
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    return row, xp
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="PAIRS",
@@ -4448,6 +4926,11 @@ def main(argv=None) -> int:
         relabel_launches = run_relabel(g, rcfg, index, sources, dev,
                                        ex[:EVAL_N], x)
 
+    # ---- 17. the sharded one-shot across processes --------------------------
+    with Phase("multiprocess"):
+        rows["raw_walk_xp"], xp_launches = run_multiprocess(
+            g, rcfg, index, sources[:MP_SOURCES], ex[:EVAL_N], dg, dev)
+
     # ---- 13. weighted graphs ---------------------------------------------
     del dg, dg_flat, index, runner, staged, results, x, lvl, inv, sched
     torch.cuda.empty_cache()
@@ -4718,6 +5201,16 @@ def main(argv=None) -> int:
                      *cli_launches.values())):
         fail("K5 or its pre-pass ran on a path other than the compacted "
              "push")
+    # phase 17: K6+K4-xp in the raw run across processes, on no other path
+    print(f"launches in phase 17's raw one-shot across {MP_PROCS} processes "
+          f"(summed): {xp_launches}")
+    if xp_launches["raw_walk_xp"] <= 0:
+        fail("K6+K4-xp was not launched by the raw one-shot across processes")
+    if any(c["raw_walk_xp"] for c in (
+            *earlier, relabel_launches, *raw1_launches.values(),
+            *w_raw1_launches.values(), build_launches, k5_launches,
+            *cli_launches.values())):
+        fail("K6+K4-xp ran on a path within one process")
     loaded = sorted(foreign_modules() - preloaded)
     if loaded:
         fail(f"the port imported JAX or fora_tpu: {loaded[:5]}")
@@ -4788,6 +5281,10 @@ def main(argv=None) -> int:
         # phase 13's, its hub branch on HubPPR's chunk in alias_* and hub_*)
         "source_walk": ("walk.cu", "fora_tpu/algo/montecarlo.py:34-49, "
                                    "fora_tpu/algo/hubppr.py:183-193"),
+        # K6+K4-xp: the row-sharded lockstep walk across processes, a psum
+        # a hop (phase 17's first raw chunk over two simulated processes;
+        # its launches the workers' raw run's)
+        "raw_walk_xp": ("walk.cu", "fora_tpu/ops/walk.py:225-266"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
@@ -4807,6 +5304,7 @@ def main(argv=None) -> int:
              k5_launches[name] if name.startswith("frontier_p") else
              mc_launches[name] if name in ("accumulate_endpoints",
                                            "source_walk") else
+             xp_launches[name] if name == "raw_walk_xp" else
              raw_launches[name] if name in k6 else
              sharded_launches[name])
         out.append({"name": name, "route": "cuda",

@@ -20,7 +20,7 @@ single-device builder has none.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -87,19 +87,25 @@ def place_out_csr(slices, n_loc: int, devices) -> ShardedOutCSR:
                          alias_other=tuple(ao) if ao else None, n_loc=n_loc)
 
 
-def shard_out_csr(g, devices, row_multiple: int = 8) -> ShardedOutCSR:
+def shard_out_csr(g, devices, row_multiple: int = 8,
+                  n_shards: Optional[int] = None,
+                  local: Optional[Sequence[int]] = None) -> ShardedOutCSR:
     """``g``'s out-CSR cut by ``_shard_csr`` over len(devices) shards, shard
     s on ``devices[s]``; a weighted graph's alias tables from the builder
     ``to_device`` takes for the first device (the kernel library's on a
-    card, where numpy's loop would take minutes at the bench's scale)."""
-    G = len(devices)
+    card, where numpy's loop would take minutes at the bench's scale).
+    With ``n_shards`` and ``local`` (a process's shards): cut over
+    ``n_shards``, and only the ``local`` shards' slices placed, on
+    ``devices`` (one each)."""
+    G = len(devices) if n_shards is None else n_shards
+    local = range(G) if local is None else local
     alias = None
     if g.weighted and torch.device(devices[0]).type == "cuda":
         alias = build_alias_library(g, g.out_w)
     n_loc, ip, ix, _deg, ap, ao = _shard_csr(g, G, row_multiple, alias=alias)
     return place_out_csr(
         [(ip[s], ix[s], None if ap is None else ap[s],
-          None if ao is None else ao[s]) for s in range(G)], n_loc, devices)
+          None if ao is None else ao[s]) for s in local], n_loc, devices)
 
 
 def build_walk_index_sharded(g, mesh, rcfg: ResolvedConfig, seed: int,

@@ -53,6 +53,10 @@ SIGNATURES = {
     "fora_raw_walk": [_P, _LL, _P, _LL, _P, _P, _I, _LL, _I, _LL, _LL, _I,
                       _P, _LL, _P, _P, _P, _P, _P, ctypes.c_ulonglong, _F,
                       _I, _I, _LL, _LL, _P],
+    "fora_raw_walk_xp": [_P, _LL, _P, _LL, _P, _I, _LL, _I, _LL, _LL, _I,
+                         _I, _I, _I, _P, _LL, _P, _P, _LL, _P, _LL, _P, _P,
+                         _P, _P, _P, ctypes.c_ulonglong, _F, _I, _I, _LL,
+                         _LL, _P],
     "fora_source_walk": [_P, _I, _P, _LL, _LL, _P, _LL, _P, _P, _P, _P, _P,
                          _P, _I, ctypes.c_ulonglong, _F, _I, _F, _I, _LL,
                          _LL, _P],

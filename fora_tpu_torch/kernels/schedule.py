@@ -212,3 +212,43 @@ def raw_walk_plan(rows: int, Bc: int, sm_count: int,
     tiles = -(-rows // (32 * k))
     return RawWalkPlan(walks_per_lane=k, tiles=tiles,
                        blocks=-(-(tiles * Bc) // WALK_BLOCK_WARPS))
+
+
+# ---- K6+K4-xp (csrc/walk.cu, xp_walk_kernel) ------------------------------
+#
+# One launch of a process's share of a chunk: tile j of column b's own lanes
+# is warp b * tiles + j, then one warp per 32 k inbox records.  k by
+# raw_walk_plan's rule over both sources of walks, at the kernel's
+# residency.
+
+XP_BLOCKS_PER_SM = 4        # walk.cu's kXpBlocksPerSM, its __launch_bounds__
+
+
+class XpWalkPlan(NamedTuple):
+    walks_per_lane: int     # k
+    tiles: int              # warp tiles of a column's own lanes
+    blocks: int             # blocks of WALK_BLOCK_WARPS warps over them and
+    #                         the inbox's ceil(n_in / (32 k)) tiles
+
+
+def xp_walk_plan(extent: int, Bc: int, n_in: int, sm_count: int,
+                 alias: bool = False) -> XpWalkPlan:
+    """K6+K4-xp's plan: ``extent`` own lane rows at most in a column of
+    ``Bc``, and ``n_in`` inbox records, on a card of ``sm_count`` SMs: the
+    largest k of 1, 2, 4, 8, 16 (alias: 1, 2, 4) whose warps over the
+    extent's lane slots and the records fill at least half of the card's
+    resident warps, else 1."""
+    if extent < 0 or Bc < 0 or n_in < 0 or extent * Bc >= 2**32:
+        raise ValueError(f"xp_walk_plan: {extent} rows, {Bc} columns, "
+                         f"{n_in} records")
+    if sm_count < 1:
+        raise ValueError(f"xp_walk_plan: sm_count = {sm_count}")
+    half = sm_count * XP_BLOCKS_PER_SM * WALK_BLOCK_WARPS // 2
+    work = extent * Bc + n_in
+    k = WALKS_PER_LANE if alias else RAW_WALKS_PER_LANE
+    while k > 1 and work < 32 * k * half:
+        k //= 2
+    tiles = -(-extent // (32 * k))
+    inbox_tiles = -(-n_in // (32 * k))
+    return XpWalkPlan(walks_per_lane=k, tiles=tiles,
+                      blocks=-(-(tiles * Bc + inbox_tiles) // WALK_BLOCK_WARPS))

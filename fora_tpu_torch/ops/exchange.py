@@ -44,6 +44,12 @@ previous receive must outlive the next send, which writes the slot
 arrays in place, so the id slots are double-buffered: each send writes
 the half that the last receive did not read.
 
+Across processes (a ``parallel.multihost.ProcessComm``) each process
+holds L of the G shards' buffers, and only the dense exchange runs: the
+ring among the L, then one all-gather across the processes
+(``ring.all_gather_processes``).  The compacted exchanges across processes
+are not ported yet (ROADMAP, Queue 1).
+
 When some shard has more than ``cap`` rows due to a destination, every
 shard takes the dense exchange for that superstep, as JAX's ``pmax`` and
 ``lax.cond`` do; the counts come back to the host with the push's flag
@@ -156,6 +162,11 @@ class FrontierExchange:
     that took each exchange, ``cleared`` the compacted ones whose buffers
     were cleared by rows (those that follow a compacted one).
 
+    ``comm`` (a ``parallel.multihost.ProcessComm``, dense only): the
+    shards are this process's L of ``n_shards`` (G), global shards
+    ``shard0`` .. ``shard0`` + L - 1 on ``devices``; the buffers hold all G
+    blocks.
+
     The buffers' invariant (the module docstring's zeroing by rows): before
     each compacted receive, shard t's buffer is zero outside its own block
     and the rows the previous compacted receive wrote, unless it is new or
@@ -166,7 +177,8 @@ class FrontierExchange:
     def __init__(self, mode: Optional[str], devices: Sequence[torch.device],
                  n_loc: int, cap: Optional[int] = None,
                  needed: Optional[list] = None,
-                 chips_per_host: Optional[int] = None):
+                 chips_per_host: Optional[int] = None, comm=None,
+                 shard0: int = 0, n_shards: Optional[int] = None):
         mode = mode or "dense"
         if mode not in MODES:
             raise ValueError(f"exchange must be one of {MODES}")
@@ -174,7 +186,11 @@ class FrontierExchange:
             raise NotImplementedError(
                 "exchange 'ragged' is not ported: the reference never ran "
                 "it (ROADMAP C5); 'routed' routes the same rows")
-        G = len(devices)
+        if comm is not None and mode != "dense":
+            raise ValueError(f"exchange {mode!r} across processes is not "
+                             "ported yet (ROADMAP, Queue 1): dense only")
+        self.comm, self.shard0 = comm, shard0
+        G = len(devices) if n_shards is None else n_shards
         self.mode, self.devices, self.G, self.n_loc = mode, devices, G, n_loc
         if cap is None:
             cap = exchange_cap(n_loc)
@@ -288,6 +304,10 @@ class FrontierExchange:
         """Fill every shard's buffer (``bufs``, as ``buffers`` gave them):
         compacted when ``counts`` ([G, D], read from the send side) fit the
         capacity, else the ring."""
+        if self.comm is not None:
+            ring.all_gather_processes(bufs, self.comm, self.shard0,
+                                      self.n_loc)
+            return
         if self.mode == "dense" or counts is None or not self.fits(counts):
             if self.mode != "dense":
                 self.fell_back += 1

@@ -26,6 +26,12 @@ shard's stream also waits for its right neighbour's last hop, the last
 read of its buffer.  Peer access is enabled once per pair and refused
 pairs raise.
 
+Across processes (``parallel/multihost.py``) each process holds L of the
+G shards: :func:`all_gather_processes` runs the ring among its L, then
+one all-gather across the processes; :func:`reduce_scatter_processes`
+sums the local partials in one pass (:func:`partial_sum`, the one-pass
+kernel over the whole partials), then one reduce-scatter across them.
+
 CPU tensors take the plain versions below, the same hop loop in torch
 (``copy_``, ``torch.add(..., out=)``) and the same one-pass sum.  Every
 hop is one f32 copy or one f32 add in the same order, so kernel and plain
@@ -172,12 +178,12 @@ def ring_reduce_scatter_hops(xs: list) -> list:
     return [c[(G - 1) % 2] for c in comm]
 
 
-def reduce_scatter_onepass_plain(xs: list) -> list:
-    """Plain version of :func:`reduce_scatter_onepass`."""
+def partial_sum_plain(xs: list) -> torch.Tensor:
+    """Plain version of :func:`partial_sum`."""
     G = len(xs)
     n_loc = _n_loc(xs, G)
     if G == 1:
-        return list(xs)
+        return xs[0]
     out = torch.empty_like(xs[0])
     for h in range(G):
         o = _block(out, h, n_loc)
@@ -185,6 +191,34 @@ def reduce_scatter_onepass_plain(xs: list) -> list:
                   _block(xs[(h + 2) % G], h, n_loc), out=o)
         for j in range(3, G + 1):
             o.add_(_block(xs[(h + j) % G], h, n_loc))
+    return out
+
+
+def partial_sum(xs: list) -> torch.Tensor:
+    """The sum of the G partials ``xs`` (one shape [R, B], R dividing by
+    G, one device) in one pass: row block h (R / G rows) is ``((x_{h+1}[h]
+    + x_{h+2}[h]) + ...) + x_{h+G}[h]`` (shards mod G), the order in which
+    the ring's hops add.  A CPU tensor takes the plain version; a CUDA
+    tensor launches the one-pass kernel once.  G = 1 returns the
+    input."""
+    G = len(xs)
+    _n_loc(xs, G)
+    if any(x.device != xs[0].device for x in xs):
+        raise ValueError("partial_sum: every partial must share one device")
+    if not _on_cuda(xs) or G == 1:
+        return partial_sum_plain(xs)
+    out = torch.empty_like(xs[0])
+    kernels.reduce_scatter_onepass(out, xs)
+    return out
+
+
+def reduce_scatter_onepass_plain(xs: list) -> list:
+    """Plain version of :func:`reduce_scatter_onepass`."""
+    G = len(xs)
+    n_loc = _n_loc(xs, G)
+    if G == 1:
+        return list(xs)
+    out = partial_sum_plain(xs)
     return [_block(out, h, n_loc) for h in range(G)]
 
 
@@ -192,19 +226,12 @@ def reduce_scatter_onepass(xs: list) -> list:
     """P2 with every shard on one device, in one pass: the same result as
     :func:`ring_reduce_scatter_hops`, shard h's block ``((x_{h+1}[h] +
     x_{h+2}[h]) + ...) + x_{h+G}[h]`` (shards mod G; the order in which
-    the hops add), as G row blocks (views) of one [G * n_loc, B] tensor.
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    one-pass kernel once.  G = 1 returns the input."""
+    the hops add), as G row blocks (views) of one [G * n_loc, B] tensor
+    (:func:`partial_sum`).  G = 1 returns the input."""
     G = len(xs)
     n_loc = _n_loc(xs, G)
-    if any(x.device != xs[0].device for x in xs):
-        raise ValueError("reduce_scatter_onepass: every shard must share "
-                         "one device")
-    if not _on_cuda(xs) or G == 1:
-        return reduce_scatter_onepass_plain(xs)
-    out = torch.empty_like(xs[0])
-    kernels.reduce_scatter_onepass(out, xs)
-    return [_block(out, h, n_loc) for h in range(G)]
+    out = partial_sum(xs)
+    return list(xs) if G == 1 else [_block(out, h, n_loc) for h in range(G)]
 
 
 def ring_reduce_scatter(xs: list) -> list:
@@ -217,3 +244,34 @@ def ring_reduce_scatter(xs: list) -> list:
     if all(x.device == xs[0].device for x in xs):
         return reduce_scatter_onepass(xs)
     return ring_reduce_scatter_hops(xs)
+
+
+def all_gather_processes(bufs: list, comm, shard0: int, n_loc: int
+                         ) -> list:
+    """P1 across processes, in place: ``bufs`` are this process's L
+    shards' [G * n_loc, B] buffers (global shards shard0 .. shard0 + L -
+    1), each holding its own block.  The ring (:func:`ring_all_gather`)
+    runs among the L over the process's rows, then one ``all_gather`` of
+    those rows (``comm``, a ``parallel.multihost.ProcessComm``) fills
+    buffer 0, and the other processes' rows are copied into the other L -
+    1 buffers: every buffer ends holding all G blocks, as the ring leaves
+    them in one process.  Returns ``bufs``."""
+    L = len(bufs)
+    lo, hi = shard0 * n_loc, (shard0 + L) * n_loc
+    ring_all_gather([b[lo:hi] for b in bufs])
+    comm.all_gather(bufs[0][lo:hi], out=bufs[0])
+    for b in bufs[1:]:
+        b[:lo].copy_(bufs[0][:lo])
+        b[hi:].copy_(bufs[0][hi:])
+    return bufs
+
+
+def reduce_scatter_processes(xs: list, comm, L: int) -> list:
+    """P2 across processes: ``xs`` are this process's [G * n_loc, B]
+    partials (one per local shard, or one for the process); their one-pass
+    sum (:func:`partial_sum`), then one ``reduce_scatter`` across the
+    processes (``comm``) gives the process's rows of the total, split into
+    its L shards' [n_loc, B] blocks (views)."""
+    mine = comm.reduce_scatter(partial_sum(xs))
+    n_loc = mine.shape[0] // L
+    return [_block(mine, h, n_loc) for h in range(L)]

@@ -58,7 +58,13 @@ function here also takes the slices and reads each row through its owner
 (shard ``v // n_loc``), which on a card is K4's sharded form, so the
 endpoints are those of the unsharded graph bit for bit.
 ``sharded_walk_phase`` is the raw one-shot's walk phase over the shards'
-residues.
+residues.  ``sharded_walk_phase_xp`` is the same with the shards spread
+over processes (``parallel/multihost.py``): each process walks its own
+shards' lanes over its own slices, and a walk whose node lies in another
+process's rows is handed to that process as a 16-byte record (its Philox
+key, node, hops taken and weight), so every walk ends where it ends in
+one process (``raw_walk_xp_chunk``: on a card K6+K4-xp, walk.cu's
+xp_walk_kernel; ``raw_walk_xp_plain`` its plain version).
 
 Dangling convention: a walk at an out-degree-0 node is absorbed there.
 Random numbers come from a ``torch.Generator`` (``run_walks``, the CPU
@@ -100,6 +106,14 @@ class ShardedOutCSR(NamedTuple):
     alias_prob: Optional[tuple]
     alias_other: Optional[tuple]
     n_loc: int
+
+    def shards(self, a: int, b: int) -> "ShardedOutCSR":
+        """Shards a .. b - 1's slices."""
+        return ShardedOutCSR(
+            self.indptr[a:b], self.indices[a:b],
+            None if self.alias_prob is None else self.alias_prob[a:b],
+            None if self.alias_other is None else self.alias_other[a:b],
+            self.n_loc)
 
 
 class _Rows:
@@ -462,12 +476,19 @@ def walk_lengths(seed: int, W: int, alpha: float, max_hops: int,
     """[W] int64 lengths of K4's walks 0 .. W - 1 under ``seed``:
     min(floor(log(u0) * inv_log1m_alpha), max_hops) in float32, u0 in
     (0, 1] from the first word of each walk's Philox block 0."""
+    return lengths_of(seed, torch.arange(W, dtype=torch.int64,
+                                         device=device), alpha, max_hops)
+
+
+def lengths_of(seed: int, walk: torch.Tensor, alpha: float,
+               max_hops: int) -> torch.Tensor:
+    """:func:`walk_lengths` of the walks numbered ``walk`` (int64 in 0 ..
+    2^32 - 1, any shape)."""
     seed = int(seed) % 2**64
-    walk = torch.arange(W, dtype=torch.int64, device=device)
     u0 = ((philox4x32_10((0, seed >> 32, 0, 0), (seed & _M32, walk))[0]
            >> 8) + 1).to(torch.float32) * 2.0**-24
     inv = torch.tensor(kernels.inv_log1m_alpha(alpha), dtype=torch.float32,
-                       device=device)
+                       device=walk.device)
     return torch.floor(torch.log(u0) * inv).clamp_max(max_hops).long()
 
 
@@ -681,6 +702,217 @@ def raw_walk_chunk_plain(graph, rs: list, ds: list, bounds: torch.Tensor,
         _keep_walked(ends, got, lane_lo, bounds[-1])
 
 
+XP_RECORD = 4   # int32 words of a handed-over walk: w, cur, h, weight's bits
+
+
+def own_lanes(bounds: np.ndarray, lane_lo: int, rows: int) -> tuple:
+    """(walks, extent) of a process's own lanes in a chunk of ``rows`` lane
+    rows from ``lane_lo``: ``bounds`` [L + 1, Bc] its rows of the chunk's
+    running totals (host int64); per column the lanes from max(bounds[0],
+    lane_lo) up to min(bounds[L], lane_lo + rows), their sum and the
+    most in one column."""
+    per = (np.minimum(bounds[-1], lane_lo + rows)
+           - np.maximum(bounds[0], lane_lo)).clip(min=0)
+    return int(per.sum()), int(per.max(initial=0))
+
+
+def raw_walk_xp_chunk(csr: ShardedOutCSR, rs: list, ds: list,
+                      bounds: torch.Tensor, lane_lo: int, num_lanes: int,
+                      extent: int, shard0: int, G: int, seed: int,
+                      alpha: float, max_hops: int, out: torch.Tensor,
+                      inbox: torch.Tensor, outbox: torch.Tensor,
+                      counts: torch.Tensor,
+                      ends: Optional[torch.Tensor] = None) -> None:
+    """One launch of a process's share of a chunk of the sharded raw walk
+    with the G shards spread over processes of L each.  The process holds
+    shards ``shard0`` .. ``shard0`` + L - 1: ``rs`` and ``ds`` their
+    residues and demands (column slices), ``csr`` their out-CSR slices,
+    ``bounds`` [L + 1, Bc] int64 its rows of the chunk's running totals
+    (:func:`sharded_walk_phase`'s, rows shard0 .. shard0 + L).  Its own
+    lanes (``extent`` > 0: the most of them in a column; 0 walks none)
+    start and weigh as :func:`raw_walk_sharded_chunk`'s and draw as walk t
+    * Bc + b; then the walks of ``inbox`` [n_in, 4] int32 (w, cur, h,
+    weight's bits) go on from where they stopped.  A walk advances while
+    its node lies in the process's rows; one that ends adds its weight
+    into ``out`` [G * n_loc, Bc] at its endpoint (column w % Bc) and,
+    with ``ends`` [num_lanes, Bc] int32, writes its endpoint at w; one
+    whose next hop starts at another process's node is written to
+    ``outbox`` [P, cap, 4] at that process, ``counts`` [P] int32 the
+    number for each (a count past cap would mean records were lost: cap
+    must be the launch's walks).  A CUDA ``bounds`` launches K6+K4-xp
+    (``kernels.raw_walk_xp``), a CPU one runs :func:`raw_walk_xp_plain`.
+    Every walk's endpoint is :func:`raw_walk_sharded_chunk`'s on a card
+    (and :func:`raw_walk_chunk_plain`'s), bit for bit."""
+    if bounds.device.type == "cpu":
+        raw_walk_xp_plain(csr, rs, ds, bounds, lane_lo, num_lanes, extent,
+                          shard0, G, seed, alpha, max_hops, out, inbox,
+                          outbox, counts, ends=ends)
+        return
+    kernels.raw_walk_xp(rs, [d.cum for d in ds], bounds, out, num_lanes,
+                        lane_lo, extent, csr.indptr, csr.indices,
+                        csr.alias_prob, csr.alias_other, seed, alpha,
+                        max_hops, shard0, G, inbox, outbox, counts,
+                        ends=ends)
+
+
+def raw_walk_xp_plain(csr: ShardedOutCSR, rs: list, ds: list,
+                      bounds: torch.Tensor, lane_lo: int, num_lanes: int,
+                      extent: int, shard0: int, G: int, seed: int,
+                      alpha: float, max_hops: int, out: torch.Tensor,
+                      inbox: torch.Tensor, outbox: torch.Tensor,
+                      counts: torch.Tensor,
+                      ends: Optional[torch.Tensor] = None) -> None:
+    """K6+K4-xp in plain PyTorch (:func:`raw_walk_xp_chunk`'s arguments):
+    the own lanes by :func:`expand_chunk_lanes_plain` over the local
+    shards, the inbox's records, then a hop loop in
+    :func:`run_walks_philox`'s arithmetic (each walk's counter h + 1, key
+    (seed's low word, w)) that stops a walk at a foreign row, then one
+    scatter-add of the ended walks' weights; each destination's records in
+    the order of w."""
+    L, n_loc = len(rs), csr.n_loc
+    dev = out.device
+    Bc = out.shape[1]
+    P, rank, rows_p = G // L, shard0 // L, L * n_loc
+    w, cur, h, wt = [], [], [], []
+    if extent > 0 and num_lanes > 0:
+        start, weight = expand_chunk_lanes_plain(rs, ds, bounds, lane_lo,
+                                                 num_lanes, n_loc)
+        lane = lane_lo + torch.arange(num_lanes, device=dev)[:, None]
+        own = (lane >= bounds[0][None, :]) & (lane < bounds[-1][None, :])
+        t, b = torch.nonzero(own, as_tuple=True)
+        w.append(t * Bc + b)
+        cur.append(start[t, b].long() + shard0 * n_loc)
+        h.append(torch.zeros_like(t))
+        wt.append(weight[t, b])
+    if inbox.shape[0]:
+        w.append(inbox[:, 0].long() & _M32)
+        cur.append(inbox[:, 1].long())
+        h.append(inbox[:, 2].long())
+        wt.append(inbox[:, 3].contiguous().view(torch.float32))
+    counts.zero_()
+    if not w:
+        return
+    w, cur, h, wt = (torch.cat(x) for x in (w, cur, h, wt))
+    length = lengths_of(seed, w, alpha, max_hops)
+    seed = int(seed) % 2**64
+    lo, hi = seed & _M32, seed >> 32
+    rows = _Rows(csr, dev)
+    alias = rows.alias_prob is not None
+    gone = torch.zeros_like(w, dtype=torch.bool)      # handed over
+    live = torch.nonzero(h < length).squeeze(1)
+    while live.numel():
+        p0, d = rows(cur[live] - shard0 * n_loc)
+        moving = d > 0                          # dangling absorbs
+        live, p0, d = live[moving], p0[moving], d[moving]
+        r = philox4x32_10((h[live] + 1, hi, 0, 0), (lo, w[live]))
+        slot = p0 + torch.minimum((_unit(r[0]) * d.to(torch.float32)).long(),
+                                  d - 1)
+        nxt = rows.indices[slot]
+        if alias:
+            nxt = torch.where(_unit(r[1]) < rows.alias_prob[slot], nxt,
+                              rows.alias_other[slot])
+        cur[live] = nxt.long()
+        h[live] += 1
+        going = h[live] < length[live]
+        leave = going & (torch.div(cur[live], rows_p, rounding_mode="floor")
+                         != rank)
+        gone[live[leave]] = True
+        live = live[going & ~leave]
+    end = ~gone
+    out.index_put_((cur[end], w[end] % Bc), wt[end], accumulate=True)
+    if ends is not None:
+        ends.view(-1)[w[end]] = cur[end].to(torch.int32)
+    dest = torch.div(cur, rows_p, rounding_mode="floor")
+    for q in range(P):
+        sel = torch.nonzero(gone & (dest == q)).squeeze(1)
+        sel = sel[torch.argsort(w[sel])]
+        counts[q] = sel.numel()
+        k = min(sel.numel(), outbox.shape[1])
+        if k:
+            key = w[sel[:k]]
+            outbox[q, :k, 0] = torch.where(key >= 2**31, key - 2**32,
+                                           key).to(torch.int32)
+            outbox[q, :k, 1] = cur[sel[:k]].to(torch.int32)
+            outbox[q, :k, 2] = h[sel[:k]].to(torch.int32)
+            outbox[q, :k, 3] = wt[sel[:k]].view(torch.int32)
+
+
+def xp_chunk_rounds(launch, exchange, own: dict, P: int, device) -> list:
+    """The rounds of one chunk of the raw walk across P processes, for the
+    processes run here: ``own`` maps each one's rank to its own walks in
+    the chunk (:func:`own_lanes`).  Each round gives every process q here
+    an outbox [P, cap, XP_RECORD] int32, cap its round's walks (its own in
+    round 0, then none, plus its inbox's), and counts [P] int32, and calls
+    ``launch(q, r, inbox, outbox, counts)`` (round r, the inbox the records
+    sent to q in the round before); then ``exchange(boxes)`` ({q: (outbox,
+    counts)}: :func:`process_exchange` or :func:`local_exchange`) gives the
+    round's [P, P] counts of every process, m[s, d] the records s sent d,
+    and the next inboxes, None when no process sent a walk: the rounds
+    end, after at most max_hops + 1.  Returns every round's counts."""
+    inbox = {q: torch.empty((0, XP_RECORD), dtype=torch.int32, device=device)
+             for q in own}
+    counts_by_round = []
+    while inbox is not None:
+        r = len(counts_by_round)
+        boxes = {}
+        for q in own:
+            cap = (own[q] if r == 0 else 0) + inbox[q].shape[0]
+            boxes[q] = (torch.empty((P, cap, XP_RECORD), dtype=torch.int32,
+                                    device=device),
+                        torch.empty(P, dtype=torch.int32, device=device))
+            launch(q, r, inbox[q], *boxes[q])
+        m, inbox = exchange(boxes)
+        counts_by_round.append(m)
+    return counts_by_round
+
+
+def _counted(m: np.ndarray) -> np.ndarray:
+    """The [P, P] counts of [P, P + 1] rows (each process's counts per
+    destination and its outbox's capacity); raises where a count passed
+    its capacity (records were lost), alike on every process."""
+    P = m.shape[0]
+    if (m[:, :P] > m[:, P:]).any():
+        raise RuntimeError("raw walk across processes: a count of records "
+                           f"passed its outbox's capacity: {m.tolist()}")
+    return m[:, :P]
+
+
+def process_exchange(comm):
+    """:func:`xp_chunk_rounds`' exchange over ``comm`` (a
+    ``parallel.multihost.ProcessComm``; the one process here is
+    ``comm.rank``): one all-gather of every process's counts and outbox
+    capacity (one host read: the receive sizes, the capacity check and
+    whether any process still holds a walk, alike everywhere; an
+    all-to-all of the counts would leave a process that received nothing
+    unaware of the others), then, while walks were sent, one all-to-all of
+    the records."""
+    P, q = comm.size, comm.rank
+
+    def exchange(boxes):
+        (outbox, counts), = boxes.values()
+        m = _counted(comm.all_gather(torch.cat([
+            counts, counts.new_tensor([outbox.shape[1]])])
+            ).view(P, P + 1).cpu().numpy())
+        if not m.any():
+            return m, None
+        send = torch.cat([outbox[d, :int(m[q, d])] for d in range(P)])
+        return m, {q: comm.all_to_all(send, m[q], m[:, q])}
+    return exchange
+
+
+def local_exchange(boxes: dict) -> tuple:
+    """:func:`xp_chunk_rounds`' exchange among processes simulated in one
+    (``boxes`` holds every rank): the counts read, and each process's inbox
+    the records sent to it, in rank order."""
+    P = len(boxes)
+    m = _counted(np.stack([np.append(c.cpu().numpy(), b.shape[1])
+                           for b, c in (boxes[s] for s in range(P))]))
+    if not m.any():
+        return m, None
+    return m, {d: torch.cat([boxes[s][0][d, :int(m[s, d])]
+                             for s in range(P)]) for d in range(P)}
+
+
 def source_walk_chunk(graph: DeviceGraph, sources: torch.Tensor, rows: int,
                       seed: int, alpha: float, max_hops: int, weight: float,
                       out: torch.Tensor, hub=None,
@@ -884,5 +1116,75 @@ def sharded_walk_phase(csr: ShardedOutCSR, rs: list, omega_unit: float,
     return partials, WalkPhase(
         total=torch.as_tensor(total, dtype=torch.int32, device=dev0),
         overflow=torch.zeros(B, dtype=torch.bool, device=dev0),
+        walks_max=int(total.max(initial=0)), walks_total=int(total.sum()),
+        lanes=lanes, chunks=len(chunks))
+
+
+def sharded_walk_phase_xp(csr: ShardedOutCSR, rs: list, omega_unit: float,
+                          seed: int, alpha: float, max_hops: int, comm,
+                          shard0: int, G: int, log: Optional[dict] = None):
+    """:func:`sharded_walk_phase` with the G shards spread over the
+    processes of ``comm`` (a ``parallel.multihost.ProcessComm``), this one
+    holding shards ``shard0`` .. ``shard0`` + L - 1 (``rs`` their
+    residues, ``csr`` their out-CSR slices): ``([partial], WalkPhase)``,
+    the process's one [G * n_loc, B] f32 endpoint mass, for P2 to sum.
+
+    Every process takes its shards' demands (:func:`walk_demands`), and
+    one all-gather of the [L, B] totals gives each the [G + 1, B] running
+    sums and so :func:`sharded_walk_phase`'s chunks and seeds.  Per chunk,
+    the rounds of :func:`xp_chunk_rounds` over :func:`process_exchange`:
+    round 0 walks the process's own lanes; each round is one launch
+    (:func:`raw_walk_xp_chunk`), one all-gather of every process's counts
+    and outbox capacity, then one all-to-all of the records; the rounds
+    end when no process sent a walk.  ``log``, where given, gets per
+    chunk the rounds and per round the records this process sent and
+    received (``rounds``, ``sent``, ``received``), and with ``log["ends"]
+    = True`` the first chunk's endpoints of the walks that ended here
+    ([W, Bc] int32, -1 elsewhere)."""
+    L = len(rs)
+    n_loc, B = rs[0].shape
+    P, q = comm.size, comm.rank
+    dev = rs[0].device
+    ds, tot = walk_demands(rs, omega_unit)
+    # [G, B]: every process's [L, B] totals, one read
+    tot = comm.all_gather(tot).cpu().numpy().astype(np.int64)
+    total = tot.sum(axis=0)
+    chunks = plan_chunks(total, chunk_lanes(dev))
+    bounds_np = np.concatenate([np.zeros((1, B), np.int64),
+                                np.cumsum(tot, axis=0)])
+    mine = bounds_np[shard0:shard0 + L + 1]
+    bounds = torch.as_tensor(mine, device=dev)
+    partial = torch.zeros((G * n_loc, B), dtype=torch.float32, device=dev)
+    exchange = process_exchange(comm)
+    want_ends = log is not None and log.get("ends") is True
+    if log is not None:
+        log.update(rounds=[], sent=[], received=[])
+    lanes = 0
+    for i, (c0, c1, lo, hi) in enumerate(chunks):
+        W, Bc = hi - lo, c1 - c0
+        part = bounds[:, c0:c1].contiguous()
+        own, extent = own_lanes(mine[:, c0:c1], lo, W)
+        ends = None
+        if want_ends and i == 0:
+            ends = log["ends"] = torch.full((W, Bc), -1, dtype=torch.int32,
+                                            device=dev)
+        rsc = [r[:, c0:c1] for r in rs]
+        dsc = [d.columns(c0, c1) for d in ds]
+        out, seed_i = partial[:, c0:c1], derive_seed(seed, i)
+
+        def launch(_, r, inbox, outbox, counts):
+            raw_walk_xp_chunk(csr, rsc, dsc, part, lo, W,
+                              extent if r == 0 else 0, shard0, G, seed_i,
+                              alpha, max_hops, out, inbox, outbox, counts,
+                              ends=ends)
+        ms = xp_chunk_rounds(launch, exchange, {q: own}, P, dev)
+        if log is not None:
+            log["rounds"].append(len(ms))
+            log["sent"].append([int(m[q].sum()) for m in ms])
+            log["received"].append([int(m[:, q].sum()) for m in ms])
+        lanes += W * Bc
+    return [partial], WalkPhase(
+        total=torch.as_tensor(total, dtype=torch.int32, device=dev),
+        overflow=torch.zeros(B, dtype=torch.bool, device=dev),
         walks_max=int(total.max(initial=0)), walks_total=int(total.sum()),
         lanes=lanes, chunks=len(chunks))

@@ -38,6 +38,19 @@ stop, that pre-pass found no active entry and changed nothing.
 A query axis of Q groups splits each batch's columns over Q groups of G
 shard devices; groups on the same devices share one placement.  CPU
 tensors run the plain version of every kernel.
+
+Across processes (a ``mesh.ProcessMesh``: P processes of L shards each,
+``multihost.init``) a placement holds and loops over its L shards only,
+opening only their files of a store, and the one-shot runs one collective
+where JAX's ``shard_map`` program has one: the dense exchange's
+all-gather after the ring among the L (``ring.all_gather_processes``), an
+all-reduce of the superstep's [G, 1] status before its one host read, P2's
+reduce-scatter after the one pass over the local partials
+(``ring.reduce_scatter_processes``), one all-gather of the candidates,
+and in the raw walk phase the totals' all-gather and each round's counts
+and walks (``ops.walk.sharded_walk_phase_xp``).  Every process returns the
+answer.  The refinement pool, the compacted exchanges and the query axis
+across processes are not ported yet (ROADMAP, Queue 1).
 """
 
 from __future__ import annotations
@@ -60,9 +73,11 @@ from ..ops import ring
 from ..ops.gather import gather_scatter_add, index_spmv_level
 from ..ops.push import push_prepass
 from ..ops.topk import topk_rows_chunked, topk_sum
-from ..ops.walk import ShardedOutCSR, derive_seed, sharded_walk_phase
+from ..ops.walk import (ShardedOutCSR, derive_seed, sharded_walk_phase,
+                        sharded_walk_phase_xp)
 from . import partition as part
 from .graph_store import ShardedGraphStore
+from .mesh import ProcessMesh
 
 
 class ShardedTopkResult(NamedTuple):
@@ -116,6 +131,7 @@ class _Shard:
                  boff: Optional[np.ndarray], needed: Optional[np.ndarray]):
         self.device = device
         self.row0 = row0
+        self.index = row0 // n_loc          # the global shard index
         src = np.asarray(graph["in_src_global"])
         dst = np.asarray(graph["in_dst_local"])
         real = dst < n_loc
@@ -229,9 +245,11 @@ class _StoreMeta(NamedTuple):
         return self.n_shards * self.n_loc
 
 
-def _graph_shards(g, G: int, hub_rows: int):
-    """(pg or _StoreMeta, per shard (graph dict, hub dict or None), routing
-    masks [G, G, n_loc] or None) from an in-RAM graph or a store."""
+def _graph_shards(g, G: int, hub_rows: int, local: Sequence[int]):
+    """(pg or _StoreMeta, per shard of ``local`` (graph dict, hub dict or
+    None), their routing masks [L, G, n_loc] or None) from an in-RAM graph
+    (partitioned whole, as every process partitions it) or a store (only
+    the ``local`` shards' files opened)."""
     if isinstance(g, ShardedGraphStore):
         if g.n_shards != G:
             raise ValueError(f"graph store is {g.n_shards}-way, the mesh has "
@@ -245,14 +263,14 @@ def _graph_shards(g, G: int, hub_rows: int):
                 "for the hub split, or store without it")
         meta = _StoreMeta(n_shards=G, n_loc=g.n_loc, m_loc=g.m_loc,
                           weighted=g.weighted)
-        shards = [(g.shard(s), None) for s in range(G)]
+        shards = [(g.shard(s), None) for s in local]
         need = np.stack([np.asarray(sh["needed"]).astype(bool)
                          for sh, _ in shards])
         return meta, shards, need
     pg = part.partition_rows(g, G, hub_rows=hub_rows)
     n_loc, m_loc, mh = pg.n_loc, pg.m_loc, pg.mh_loc
     shards = []
-    for s in range(G):
+    for s in local:
         e, r = slice(s * m_loc, (s + 1) * m_loc), slice(s * n_loc,
                                                        (s + 1) * n_loc)
         gd = {"in_src_global": pg.in_src_global[e],
@@ -272,13 +290,14 @@ def _graph_shards(g, G: int, hub_rows: int):
     return pg, shards, None
 
 
-def _walk_side(g, devices, n_loc: int) -> ShardedOutCSR:
-    """The raw walk's out-CSR slices on the shards' devices: from
-    ``index.build_sharded._shard_csr`` for a graph in RAM, from the store's
-    walk side for a ``ShardedGraphStore`` (refused where it was written
-    without one, as the reference refuses)."""
+def _walk_side(g, devices, n_loc: int, G: int,
+               local: Sequence[int]) -> ShardedOutCSR:
+    """The raw walk's out-CSR slices of the ``local`` shards of G on their
+    ``devices``: from ``index.build_sharded._shard_csr`` for a graph in
+    RAM, from the store's walk side for a ``ShardedGraphStore`` (refused
+    where it was written without one, as the reference refuses)."""
     if not isinstance(g, ShardedGraphStore):
-        csr = shard_out_csr(g, devices)
+        csr = shard_out_csr(g, devices, n_shards=G, local=local)
         if csr.n_loc != n_loc:
             raise AssertionError(f"walk CSR n_loc={csr.n_loc} != partition "
                                  f"{n_loc}")
@@ -287,7 +306,7 @@ def _walk_side(g, devices, n_loc: int) -> ShardedOutCSR:
         raise ValueError("graph store was saved without the walk-side CSR; "
                          "re-save with with_walk_side=True for raw-walk mode")
     slices = []
-    for s in range(len(devices)):
+    for s in local:
         sh = g.shard(s)
         slices.append((sh["walk_indptr"], sh["walk_indices"],
                        sh.get("alias_prob"), sh.get("alias_other")))
@@ -301,34 +320,48 @@ class _ShardedPlacement:
     ``g`` is a CSRGraph of either package or a ``ShardedGraphStore``;
     ``index`` a WalkIndex of either package or a ``ShardedIndexStore``,
     or None for the raw walk, which places the out-CSR's slices instead
-    (``walk``; the indexed placement holds none, as the reference's)."""
+    (``walk``; the indexed placement holds none, as the reference's).
+    ``devices`` may be a ``ProcessMesh``: then the placement holds its
+    process's shards (``local``, on ``devices``; ``comm`` the group) of
+    the G, and ``shards`` are those."""
 
     def __init__(self, g, devices: Sequence[torch.device], index, *,
                  exchange: Optional[str] = None,
                  chips_per_host: Optional[int] = None, hub_rows: int = 0):
         G = len(devices)
-        self.devices, self.G, self.n = list(devices), G, g.n
-        pg, graph_shards, need_store = _graph_shards(g, G, hub_rows)
+        self.comm = devices.comm if isinstance(devices, ProcessMesh) \
+            else None
+        self.local = (list(devices.local) if self.comm is not None
+                      else list(range(G)))
+        self.devices = [torch.device(devices[s]) for s in self.local]
+        self.G, self.n = G, g.n
+        pg, graph_shards, need_store = _graph_shards(g, G, hub_rows,
+                                                     self.local)
         self.pg = pg
         n_loc = self.n_loc = pg.n_loc
         n_pad = G * n_loc
         # checks the mode before any array is placed
         xch = self.exchange = xch_ops.FrontierExchange(
-            exchange, self.devices, n_loc, chips_per_host=chips_per_host)
+            exchange, self.devices, n_loc, chips_per_host=chips_per_host,
+            comm=self.comm, shard0=self.local[0], n_shards=G)
 
-        needed = [None] * G
+        L = len(self.local)
+        needed = [None] * L
         if xch.mode in ("routed", "hier"):
             need = (need_store if need_store is not None else
-                    part.needed_masks(pg).reshape(G, G, n_loc))
+                    part.needed_masks(pg).reshape(G, G, n_loc)[self.local])
             if xch.mode == "hier":
-                need = need.reshape(G, xch.H, xch.C, n_loc).any(axis=2)
-            needed = [need[s] for s in range(G)]
+                need = need.reshape(L, xch.H, xch.C, n_loc).any(axis=2)
+            needed = [need[i] for i in range(L)]
 
         self.walk = None
+        # across processes: the raw walk phase's log (sharded_walk_phase_xp),
+        # for tests and checks
+        self.xp_log = None
         if index is None:
-            boff, idx_shards = None, [None] * G
+            boff, idx_shards = None, [None] * L
             self.e_loc_total = 0
-            self.walk = _walk_side(g, self.devices, n_loc)
+            self.walk = _walk_side(g, self.devices, n_loc, G, self.local)
         elif isinstance(index, ShardedIndexStore):
             if index.n_shards != G:
                 raise ValueError(
@@ -339,7 +372,7 @@ class _ShardedPlacement:
                     f"sharded index n_loc={index.n_loc} != partition "
                     f"n_loc={n_loc} (row_multiple mismatch)")
             boff = index.bucket_local_offsets
-            idx_shards = [index.shard(s) for s in range(G)]
+            idx_shards = [index.shard(s) for s in self.local]
         else:
             pi = part.partition_index(index, G, n_loc)
             boff = pi.bucket_local_offsets
@@ -350,13 +383,13 @@ class _ShardedPlacement:
                 "counts_cum": pi.counts_cum[s * n_loc:(s + 1) * n_loc],
                 "edge_mult": (None if pi.edge_mult is None
                               else pi.edge_mult[s * e:(s + 1) * e])}
-                for s in range(G)]
+                for s in self.local]
         if index is not None:
             self.e_loc_total = int(boff[-1])
         self.shards = [
-            _Shard(dev, s * n_loc, n_loc, n_pad, graph_shards[s][0],
-                   graph_shards[s][1], idx_shards[s], boff, needed[s])
-            for s, dev in enumerate(devices)]
+            _Shard(dev, s * n_loc, n_loc, n_pad, graph_shards[i][0],
+                   graph_shards[i][1], idx_shards[i], boff, needed[i])
+            for i, (s, dev) in enumerate(zip(self.local, self.devices))]
         if xch.mode in ("routed", "hier"):
             xch.needed = [sh.needed for sh in self.shards]
 
@@ -367,8 +400,8 @@ class _ShardedPlacement:
     # --- state and the push ---------------------------------------------
 
     def init_state(self, sources) -> tuple:
-        """Per-shard (p, r) [n_loc, B] f32: the one-hot residue of each
-        query on the shard that owns its source."""
+        """Per shard of the placement (p, r) [n_loc, B] f32: the one-hot
+        residue of each query on the shard that owns its source."""
         src = np.asarray(sources, dtype=np.int64)
         if src.ndim != 1 or (src < 0).any() or (src >= self.n).any():
             raise ValueError("sources must be a 1-D array of node ids")
@@ -391,7 +424,17 @@ class _ShardedPlacement:
         """Per shard an int32 [width] row (its flag, then its counts per
         destination), and a function that reads them all as a [G, width]
         array (a copy: the rows are zeroed for the next superstep): one
-        read when every shard shares a device."""
+        read when every shard shares a device.  Across processes each
+        process fills its shards' rows of one [G, width] array, and the
+        read is one all-reduce of it, then the one host read."""
+        if self.comm is not None:
+            st = torch.zeros((self.G, width), dtype=torch.int32,
+                             device=self.devices[0])
+
+            def read():
+                self.comm.all_reduce(st)
+                return st.cpu().numpy().copy()
+            return [st[sh.index] for sh in self.shards], read, [st]
         if self.exchange.one_device:
             st = torch.zeros((self.G, width), dtype=torch.int32,
                              device=self.devices[0])
@@ -406,7 +449,8 @@ class _ShardedPlacement:
         exchange buffer."""
         n_loc = self.n_loc
         for h, sh in enumerate(self.shards):
-            push_prepass(ps[h], rs[h], bufs[h][h * n_loc:(h + 1) * n_loc],
+            s = sh.index
+            push_prepass(ps[h], rs[h], bufs[h][s * n_loc:(s + 1) * n_loc],
                          thr[h], sh.out_deg, sh.wsum, alpha)
 
     def _gather(self, rs, bufs, thr, flags) -> None:
@@ -435,7 +479,7 @@ class _ShardedPlacement:
         rows, read, whole = self._status(1 + xch.D)
         flags = [r[0:1] for r in rows]
         counts = [r[1:] for r in rows]
-        for h in range(self.G):
+        for h in range(len(self.shards)):
             flags[h].copy_((rs[h] > thr[h][:, None]).any().reshape(1))
         ahead = xch.D > 0   # pre-pass and compaction before the read
         if ahead:
@@ -475,7 +519,14 @@ class _ShardedPlacement:
         residues demand, and the phase's ``WalkPhase``
         (``ops.walk.sharded_walk_phase`` over ``walk``), as the raw branch
         of ``fora_tpu/parallel/sharded.py::_shard_fora_topk`` (410-429)
-        before its reduce-scatter."""
+        before its reduce-scatter.  Across processes one [n_pad, B]
+        partial for the process (``ops.walk.sharded_walk_phase_xp``: the
+        walks handed between the processes)."""
+        if self.comm is not None:
+            return sharded_walk_phase_xp(self.walk, rs, omega_unit, seed,
+                                         alpha, max_hops, self.comm,
+                                         self.local[0], self.G,
+                                         log=self.xp_log)
         return sharded_walk_phase(self.walk, rs, omega_unit, seed, alpha,
                                   max_hops)
 
@@ -485,7 +536,10 @@ class _ShardedPlacement:
         earlier shard first on ties: each shard's top-``kk`` of p + walk
         (K3's selection; ``kk`` = n_loc takes the whole column, which only
         a graph of fewer than k + 1 rows per shard reaches), merged by a
-        stable sort as ``lax.top_k`` over the gathered candidates."""
+        stable sort as ``lax.top_k`` over the gathered candidates.  Across
+        processes each process's [B, L * kk] candidates are packed into one
+        int32 array and all-gathered in shard order before the sort, so
+        every process merges the same G * kk."""
         dev0 = self.devices[0]
         cand_v, cand_i, cand_p = [], [], []
         for h, sh in enumerate(self.shards):
@@ -499,10 +553,25 @@ class _ShardedPlacement:
             cand_v.append(v.to(dev0))
             cand_i.append((i + sh.row0).to(dev0))
             cand_p.append(torch.gather(p, 0, i.T).T.to(dev0))
-        vals, sel = torch.sort(torch.cat(cand_v, dim=1), dim=1,
-                               descending=True, stable=True)
-        return (vals, torch.gather(torch.cat(cand_i, dim=1), 1, sel),
-                torch.gather(torch.cat(cand_p, dim=1), 1, sel))
+        cand_v, cand_i, cand_p = (torch.cat(c, dim=1)
+                                  for c in (cand_v, cand_i, cand_p))
+        if self.comm is not None:
+            cand_v, cand_i, cand_p = self._gather_candidates(cand_v, cand_i,
+                                                             cand_p)
+        vals, sel = torch.sort(cand_v, dim=1, descending=True, stable=True)
+        return (vals, torch.gather(cand_i, 1, sel),
+                torch.gather(cand_p, 1, sel))
+
+    def _gather_candidates(self, v, i, p) -> tuple:
+        """Every process's [B, L * kk] (values, ids, p) in shard order,
+        [B, G * kk] each: one all-gather of the three packed as int32."""
+        B = v.shape[0]
+        packed = torch.stack([v.view(torch.int32), i.to(torch.int32),
+                              p.view(torch.int32)])[None]     # [1, 3, B, c]
+        got = self.comm.all_gather(packed).permute(1, 2, 0, 3).reshape(
+            3, B, -1)                                         # shard order
+        return (got[0].view(torch.float32), got[1].long(),
+                got[2].view(torch.float32))
 
     def level(self, ps, rs, depth: int, omega_unit: float, *, k: int,
               t: float, eps: float, alpha: float, max_iters: int):
@@ -528,7 +597,10 @@ class _ShardedPlacement:
 
 def _mesh_groups(mesh) -> list:
     """The query groups of ``mesh``: a flat list of G devices is one group,
-    a list of Q lists of G devices is Q groups."""
+    a list of Q lists of G devices is Q groups; a ``ProcessMesh`` is one
+    group."""
+    if isinstance(mesh, ProcessMesh):
+        return [mesh]
     mesh = list(mesh)
     if mesh and all(isinstance(d, (list, tuple)) for d in mesh):
         groups = [[torch.device(d) for d in grp] for grp in mesh]
@@ -582,6 +654,9 @@ class ShardedForaEngine:
     (ROADMAP C5).  ``placement`` is the first query group's
     ``_ShardedPlacement``: its ``prepass``, ``walk_partials`` (or
     ``raw_walk_partials``) and ``candidates`` are the phases of ``topk``.
+    ``mesh`` may be a ``ProcessMesh`` (``make_mesh`` with a process group
+    started): this process holds its L shards, the dense exchange runs
+    across the processes, and every process returns the answer.
     """
 
     def __init__(self, g, mesh, rcfg: ResolvedConfig, *,
@@ -589,7 +664,6 @@ class ShardedForaEngine:
                  exchange: Optional[str] = None,
                  chips_per_host: Optional[int] = None, hub_rows: int = 0):
         groups = _mesh_groups(mesh)
-        self.devices = groups[0]
         self.rcfg = rcfg
         self.k = k if k is not None else rcfg.k
         self.G, self.Q = len(groups[0]), len(groups)
@@ -600,6 +674,7 @@ class ShardedForaEngine:
                                    chips_per_host=chips_per_host,
                                    hub_rows=hub_rows)
         self.placement = self._groups[0]
+        self.devices = self.placement.devices
         self.exchange_mode = self.placement.exchange.mode
         self.pg, self.e_loc_total = (self.placement.pg,
                                      self.placement.e_loc_total)
@@ -660,6 +735,9 @@ class ShardedForaEngine:
         else:
             parts, _ = pl.raw_walk_partials(rs, rc.omega_unit, seed,
                                             rc.alpha, rc.max_walk_hops)
+        if pl.comm is not None:
+            return ring.reduce_scatter_processes(parts, pl.comm,
+                                                 len(pl.shards))
         return ring.ring_reduce_scatter(parts)
 
     def merge_topk(self, ps, walk_loc, placement=None) -> tuple:
@@ -721,6 +799,9 @@ class ShardedTopkRunner(TopkRunner):
                  chips_per_host: Optional[int] = None, hub_rows: int = 0):
         if index is None:
             raise ValueError("ShardedTopkRunner requires a walk index")
+        if isinstance(mesh, ProcessMesh):
+            raise ValueError("ShardedTopkRunner across processes is not "
+                             "ported yet (ROADMAP, Queue 1)")
         super().__init__(None, rcfg, k=k, index=index,
                          delta_stride=delta_stride,
                          accept_slack=accept_slack)

@@ -5,8 +5,10 @@
     query 2): the raw one-shot, the pool under routed and hier, and the
     same pool from both stores, with the reference's assertions; on 3
     devices (one query group, no hier) too;
-  - ``gather_to_host`` equal to the concatenation of the shards' rows;
-    ``init`` refused (one process holds every shard).
+  - ``gather_to_host`` equal to the concatenation of the shards' rows
+    without a process group; ``init``'s refusals, made before it opens
+    the coordinator's store (``tests/test_torch_multihost.py`` starts
+    groups across processes).
 """
 
 import numpy as np
@@ -45,5 +47,8 @@ def test_gather_to_host_concatenates_rows():
         [s.numpy() for s in shards]))
     one = multihost.gather_to_host(shards[2])
     np.testing.assert_array_equal(one, shards[2].numpy())
-    with pytest.raises(NotImplementedError):
-        multihost.init("localhost:1234", 2, 0)
+    with pytest.raises(ValueError, match="NCCL"):
+        multihost.init("localhost:1234", 2, 0, backend="nccl", device="cpu")
+    with pytest.raises(ValueError, match="process 2 of 2"):
+        multihost.init("localhost:1234", 2, 2, backend="gloo")
+    assert multihost.comm() is None

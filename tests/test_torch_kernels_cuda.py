@@ -1843,6 +1843,94 @@ def test_raw_walk_kernel_bit_equal_chain(dev, branch, cut):
     assert torch.equal(ones.double(), cnt)
 
 
+def _xp_records(box, cnt, d):
+    """Destination d's records of an outbox, sorted by walk key."""
+    rec = box[d, :int(cnt[d])].cpu()
+    return rec[torch.argsort(rec[:, 0].long() & 0xFFFFFFFF)]
+
+
+@pytest.mark.parametrize("alias", [False, True])
+@pytest.mark.parametrize("L", [1, 2, 4])
+@pytest.mark.parametrize("cut", ["whole", "mid"])
+def test_raw_walk_xp_kernel_matches_plain(dev, alias, L, cut):
+    """K6+K4-xp with G = 4 shards over 4 / L processes simulated on the
+    card by xp_chunk_rounds and local_exchange: per process and round,
+    one launch against raw_walk_xp_plain on the same own lanes and inbox:
+    equal counts per destination, each destination's records equal as a
+    set (the kernel's slots come in no fixed order), equal endpoints of
+    the walks that end there, and the partials within rtol 1e-4 (f32
+    atomics in no fixed order, up to 40,000 adds an entry); the records of
+    the kernel go on to the next round.  Across the rounds every lane's endpoint is K6+K4's
+    sharded form's (raw_walk_sharded_chunk) bit for bit, and no walk is
+    lost."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops import walk
+    G, P = 4, 4 // L
+    g, dg, csr, r = _raw_case(dev, "sharded_alias" if alias else "sharded",
+                              G)
+    omega, seed, hops = 1000.0, 0x5DEECE66D * 31, 64
+    rs = list(r.split(r.shape[0] // G))
+    ds, tot = walk.walk_demands(rs, omega)
+    tot = tot.long()
+    bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
+    t = int(bounds[-1].max())
+    lo, hi = (0, t) if cut == "whole" else (t // 5, 3 * t // 5)
+    W, Bc, n_loc = hi - lo, r.shape[1], csr.n_loc
+    want = torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
+    want_out = [torch.zeros(G * n_loc, Bc, device=dev) for _ in range(G)]
+    walk.raw_walk_sharded_chunk(csr, rs, ds, bounds, lo, W, seed, 0.2, hops,
+                                want_out, ends=want)
+    bnp = bounds.cpu().numpy()
+    parts = [torch.zeros(G * n_loc, Bc, device=dev) for _ in range(P)]
+    ends = [torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
+            for _ in range(P)]
+
+    def launch(q, r, inbox, box, cnt):
+        sl = slice(q * L, (q + 1) * L)
+        ext = walk.own_lanes(bnp[q * L:q * L + L + 1], lo, W)[1]
+        b = bounds[q * L:q * L + L + 1].contiguous()
+        cap = box.shape[1]
+        got = []
+        for form in ("kernel", "plain"):
+            if form == "kernel":
+                x = (box.fill_(-7), cnt.fill_(-7))
+            else:
+                x = (torch.full_like(box, -7), torch.full_like(cnt, -7))
+            part = torch.zeros(G * n_loc, Bc, device=dev)
+            e = torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
+            args = (csr.shards(q * L, (q + 1) * L), rs[sl], ds[sl], b, lo, W,
+                    ext if r == 0 else 0, q * L, G, seed, 0.2, hops, part,
+                    inbox, *x)
+            before = kernels.launch_counts()
+            if form == "kernel":
+                walk.raw_walk_xp_chunk(*args, ends=e)
+            else:
+                walk.raw_walk_xp_plain(*args, ends=e)
+            after = kernels.launch_counts()
+            assert after["raw_walk_xp"] - before["raw_walk_xp"] == (
+                form == "kernel" and cap > 0)
+            got.append((*x, part, e))
+        (box, cnt, part, e), (pbox, pcnt, ppart, pe) = got
+        assert torch.equal(cnt, pcnt) and int(cnt[q]) == 0
+        assert int(cnt.sum()) <= cap
+        for d in range(P):
+            assert torch.equal(_xp_records(box, cnt, d),
+                               _xp_records(pbox, pcnt, d))
+        assert torch.equal(e, pe)
+        torch.testing.assert_close(part, ppart, rtol=1e-4, atol=1e-7)
+        parts[q] += part
+        ends[q] = torch.maximum(ends[q], e)
+    own = {q: walk.own_lanes(bnp[q * L:q * L + L + 1], lo, W)[0]
+           for q in range(P)}
+    rounds = len(walk.xp_chunk_rounds(launch, walk.local_exchange, own, P,
+                                      dev))
+    assert rounds <= hops + 1 and (rounds > 1) == (P > 1)
+    assert int(sum((x >= 0).int() for x in ends).max()) <= 1
+    assert torch.equal(torch.stack(ends).max(0).values, want)
+    torch.testing.assert_close(sum(parts), sum(want_out), rtol=1e-4,
+                               atol=1e-7)
+
+
 # ---- K6+K4-src (source_walk_kernel) against the chain it replaced ---------
 
 SOURCE_BRANCHES = ["uniform", "alias", "hub", "hub_alias"]

@@ -1,0 +1,441 @@
+"""fora_tpu_torch's sharded one-shot across processes, on the CPU.
+
+P localhost processes over gloo hold L shards each (G = P L = 4), started
+through ``fora_tpu_torch.parallel.multihost_driver`` (one spawn of P
+workers per world, each with OMP_NUM_THREADS=1, a free port, killed and
+failed on its timeout; each ends its group with ``shutdown``).  Each world
+runs the indexed one-shot on ``bench_data_smoke/rmat12x8s7`` with its
+index, held against the one-process port engine and against JAX's
+``ShardedForaEngine`` on 4 virtual CPU devices under
+``test_torch_sharded.py``'s rule (ids where adjacent values differ by more
+than 1e-7; values within rtol 1e-5 / atol 1e-7; equal supersteps); the
+raw one-shot on the JAX package's own multi-process case
+(``tests/multihost_driver.py``: ``erdos_renyi(300, 3000, seed=21)``, its 8
+sources, k = 10), precision >= 0.85 against the exact top-10 and the
+first walk chunk's endpoints ``torch.equal`` to the one-process sharded
+chunk's (``raw_walk_chunk_plain``, and ``raw_walk_sharded_chunk`` with
+K4's Philox walks, which the card's kernel is held to; on the CPU the
+one-process chunk draws from a Generator); ``gather_to_host`` across the
+processes; and the indexed one-shot from both sharded stores, each
+process given only its own shards' files.  A world of one process holds
+all four shards and answers bit for bit as the one-process engine.  In
+process: ``raw_walk_xp_plain`` with the processes simulated by a loop
+against ``raw_walk_chunk_plain``, and the refusals.
+"""
+
+import json
+import os
+import shutil
+import socket
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from fora_tpu import index as jax_index
+from fora_tpu.algo import exact as jax_exact
+from fora_tpu.config import ForaConfig as JaxConfig
+from fora_tpu.eval import metrics
+from fora_tpu.eval import queries as qio
+from fora_tpu.graph import generators as jax_generators
+from fora_tpu.graph.csr import CSRGraph as JaxCSRGraph
+from fora_tpu.parallel import ShardedForaEngine as JaxEngine
+from fora_tpu.parallel import make_mesh as jax_make_mesh
+from fora_tpu_torch import ForaConfig
+from fora_tpu_torch import index as tidx
+from fora_tpu_torch.graph import from_edges, generators
+from fora_tpu_torch.graph.csr import CSRGraph
+from fora_tpu_torch.ops import walk
+from fora_tpu_torch.ops.exchange import FrontierExchange
+from fora_tpu_torch.parallel import (ShardedForaEngine, ShardedTopkRunner,
+                                     make_mesh, multihost,
+                                     save_sharded_graph)
+from fora_tpu_torch.parallel.mesh import ProcessMesh
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+G, K = 4, 10
+SMOKE = "bench_data_smoke/rmat12x8s7"
+ER = (300, 3000, 21)
+ER_SOURCES = [3, 17, 42, 99, 123, 200, 250, 287]
+RAW_SEED = 5
+TIMEOUT_S = 120
+WORLDS = [(2, 2), (4, 1)]
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def smoke():
+    """(the smoke graph as the port's CSRGraph, its config, the port's
+    index, 16 sources)."""
+    z = np.load(ROOT / f"{SMOKE}.npz")
+    g = CSRGraph(**{f: z[f] for f in CSRGraph._fields if f in z.files})
+    rcfg = ForaConfig(epsilon=0.5, k=K).resolved(g.n, g.m)
+    idx = tidx.load(str(ROOT / f"{SMOKE}.idx.e0.5"), rcfg)
+    return g, rcfg, idx, qio.generate_sources(g, 16, seed=8)
+
+
+def _stores(root: Path) -> Path:
+    """Both sharded stores of the smoke graph and index under ``root``."""
+    g, rcfg, idx, _ = smoke()
+    save_sharded_graph(g, str(root), G)
+    tidx.save_sharded(idx, rcfg, str(root / "index"), G, graph=g)
+    return root
+
+
+def _own_files(stores: Path, dest: Path, shards) -> None:
+    """``dest`` gets both stores' metadata and only ``shards``' files."""
+    for sub in (f"graph-shards-G{G}", f"index/shards-G{G}"):
+        (dest / sub).mkdir(parents=True)
+        shutil.copy(stores / sub / "meta.json", dest / sub / "meta.json")
+        for s in shards:
+            for f in (stores / sub).glob(f"shard_{s:04d}.*"):
+                shutil.copy(f, dest / sub / f.name)
+
+
+def run_world(P: int, root: Path) -> dict:
+    """One world of P processes over gloo on the CPU: every worker's
+    record and arrays, and the raw job's gathered endpoints."""
+    _, _, _, sources = smoke()
+    stores = _stores(root / "stores")
+    out = root / "out"
+    jobs = [{"name": "indexed", "graph": {"npz": f"{SMOKE}.npz"},
+             "index": {"dir": f"{SMOKE}.idx.e0.5"}, "k": K,
+             "sources": sources.tolist()},
+            {"name": "raw", "graph": {"er": list(ER)}, "index": None,
+             "k": K, "sources": ER_SOURCES, "seed": RAW_SEED,
+             "ends": True}]
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("JAX_PLATFORMS", None)
+    procs = []
+    for q in range(P):
+        mine = root / f"rank{q}"
+        _own_files(stores, mine, range(q * G // P, (q + 1) * G // P))
+        spec = {"shards": G, "jobs": jobs + [{
+            "name": "store", "k": K, "sources": sources.tolist(),
+            "graph": {"store": str(mine)},
+            "index": {"store": str(mine / "index")}}]}
+        (mine / "spec.json").write_text(json.dumps(spec))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "fora_tpu_torch.parallel.multihost_driver",
+             "--coordinator", f"localhost:{port}", "--processes", str(P),
+             "--rank", str(q), "--backend", "gloo", "--device", "cpu",
+             "--spec", str(mine / "spec.json"), "--out", str(out)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    fails = []
+    for q, p in enumerate(procs):
+        try:
+            _, err = p.communicate(timeout=TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for x in procs:
+                x.kill()
+            _, err = p.communicate()
+            fails.append(f"rank {q} timed out after {TIMEOUT_S} s")
+        if p.returncode != 0:
+            fails.append(f"rank {q} exit {p.returncode}: {err[-3000:]}")
+    assert not fails, "\n".join(fails)
+    return {"records": [json.loads((out / f"rank{q}.json").read_text())
+                        for q in range(P)],
+            "arrays": [dict(np.load(out / f"rank{q}.npz"))
+                       for q in range(P)],
+            "ends": np.load(out / "raw.ends.npy")}
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    cache = {}
+
+    def get(P):
+        if P not in cache:
+            cache[P] = run_world(P, tmp_path_factory.mktemp(f"world{P}"))
+        return cache[P]
+    return get
+
+
+def sorted_topk(vals, ids):
+    vals, ids = np.asarray(vals), np.asarray(ids)
+    order = np.stack([np.lexsort((i, -v.astype(np.float64)))
+                      for v, i in zip(vals, ids)])
+    return (np.take_along_axis(vals, order, 1),
+            np.take_along_axis(ids, order, 1))
+
+
+def assert_topk_agree(got_v, got_i, want_v, want_i, rtol=1e-5, atol=1e-7,
+                      tie=1e-7):
+    """``test_torch_sharded.py``'s rule."""
+    gv, gi = sorted_topk(got_v, got_i)
+    wv, wi = sorted_topk(want_v, want_i)
+    np.testing.assert_allclose(gv, wv, rtol=rtol, atol=atol)
+    apart = np.abs(np.diff(wv.astype(np.float64), axis=1)) > tie
+    sep = np.ones(wv.shape, bool)
+    sep[:, :-1] &= apart
+    sep[:, 1:] &= apart
+    assert sep.mean() > 0.5
+    np.testing.assert_array_equal(gi[sep], wi[sep])
+
+
+def one_process_indexed():
+    g, rcfg, idx, sources = smoke()
+    return ShardedForaEngine(g, make_mesh(G, devices=["cpu"] * G), rcfg,
+                             k=K, index=idx).topk(sources)
+
+
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_indexed_matches_one_process(worlds, P, L):
+    w = worlds(P)
+    want = one_process_indexed()
+    for q in range(P):
+        a = w["arrays"][q]
+        assert w["records"][q]["jobs"]["indexed"]["supersteps"] == \
+            want.push_iters
+        assert w["records"][q]["jobs"]["indexed"]["shards"] == \
+            list(range(q * L, (q + 1) * L))
+        assert_topk_agree(a["indexed.values"], a["indexed.ids"],
+                          want.values, want.node_ids)
+
+
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_indexed_matches_jax(worlds, P, L):
+    w = worlds(P)
+    z = np.load(ROOT / f"{SMOKE}.npz")
+    g = JaxCSRGraph(**{f: z[f] for f in JaxCSRGraph._fields if f in z.files})
+    rcfg = JaxConfig(epsilon=0.5, k=50).resolved(g.n, g.m)
+    idx = jax_index.load(str(ROOT / f"{SMOKE}.idx.e0.5"), rcfg, graph=g)
+    sources = smoke()[3]
+    want = JaxEngine(g, jax_make_mesh(G, 1, devices=jax.devices()[:G]), rcfg,
+                     k=K, index=idx).topk(np.asarray(sources, np.int32),
+                                          jax.random.key(3))
+    rec = w["records"][0]["jobs"]["indexed"]
+    assert rec["supersteps"] == int(want.push_iters)
+    a = w["arrays"][0]
+    assert_topk_agree(a["indexed.values"], a["indexed.ids"], want.values,
+                      want.node_ids)
+
+
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_every_process_returns_the_answer(worlds, P, L):
+    w = worlds(P)
+    for q in range(1, P):
+        for key, x in w["arrays"][0].items():
+            assert np.array_equal(w["arrays"][q][key], x), (q, key)
+
+
+def raw_reference():
+    """The one-process raw one-shot's walk phase at the workers' seed: its
+    first chunk's endpoints (K4's Philox walks) and the engine."""
+    g = generators.erdos_renyi(*ER)
+    rcfg = ForaConfig(epsilon=0.5, k=K).resolved(g.n, g.m)
+    eng = ShardedForaEngine(g, make_mesh(G, devices=["cpu"] * G), rcfg, k=K)
+    ps, rs = eng.init_state(np.asarray(ER_SOURCES))
+    iters = eng.push(ps, rs)
+    ds, tot = walk.walk_demands(rs, rcfg.omega_unit)
+    tot = tot.long()
+    bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
+    c0, c1, lo, hi = walk.plan_chunks(bounds[-1].numpy(),
+                                      walk.chunk_lanes("cpu"))[0]
+    seed = walk.derive_seed(walk.derive_seed(RAW_SEED, 0), 0)
+    args = (eng.placement.walk, [r[:, c0:c1] for r in rs],
+            [d.columns(c0, c1) for d in ds], bounds[:, c0:c1].contiguous(),
+            lo, hi - lo)
+    return g, rcfg, eng, iters, args, seed
+
+
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_raw_endpoints_equal_one_process(worlds, P, L, monkeypatch):
+    w = worlds(P)
+    g, rcfg, eng, iters, args, seed = raw_reference()
+    a, hops = rcfg.alpha, rcfg.max_walk_hops
+    W, Bc = args[-1], args[1][0].shape[1]
+    ends = torch.from_numpy(w["ends"])
+    assert tuple(ends.shape) == (W, Bc)
+    want = torch.full((W, Bc), -1, dtype=torch.int32)
+    walk.raw_walk_chunk_plain(*args, eng.n_loc, seed, a, hops,
+                              [torch.zeros(G * eng.n_loc, Bc)] * G,
+                              ends=want)
+    assert torch.equal(ends, want)
+    # the dispatcher of the one-process chunk, with the card's walks
+    monkeypatch.setattr(walk, "walk_endpoints", walk.run_walks_philox)
+    got = torch.full((W, Bc), -1, dtype=torch.int32)
+    walk.raw_walk_sharded_chunk(*args, seed, a, hops,
+                                [torch.zeros(G * eng.n_loc, Bc)
+                                 for _ in range(G)], ends=got)
+    assert torch.equal(ends, got)
+    assert int((ends >= 0).sum()) > 1000
+    rec = w["records"][0]["jobs"]["raw"]
+    assert rec["supersteps"] == iters
+    assert len(rec["rounds"]) >= 1 and rec["rounds"][0] <= hops + 1
+    assert rec["sent"][0][0] > 0 and rec["sent"][0][-1] == 0
+    assert sum(sum(r["jobs"]["raw"]["sent"][0]) for r in w["records"]) == \
+        sum(sum(r["jobs"]["raw"]["received"][0]) for r in w["records"])
+
+
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_raw_precision(worlds, P, L):
+    """The JAX package's gate on its own multi-process case."""
+    w = worlds(P)
+    g = jax_generators.erdos_renyi(*ER)
+    pg = generators.erdos_renyi(*ER)
+    assert np.array_equal(g.out_indices, pg.out_indices)
+    exact_ids = np.stack([jax_exact.exact_topk(g, int(s), K)[0]
+                          for s in ER_SOURCES])
+    prec = metrics.batch_precision_at_k(w["arrays"][0]["raw.ids"],
+                                        exact_ids)
+    assert prec >= 0.85, prec
+
+
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_gather_to_host_across_processes(worlds, P, L):
+    w = worlds(P)
+    for rec in w["records"]:
+        assert rec["gather"] is True
+        assert rec["backend"] == "gloo" and rec["modules"] == []
+
+
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_store_opens_only_its_shards(worlds, P, L):
+    """Each process's store directories hold only its own shards' files
+    (a foreign shard's open would fail), and the store-backed answer is
+    the in-RAM one bit for bit."""
+    w = worlds(P)
+    for q in range(P):
+        a = w["arrays"][q]
+        assert w["records"][q]["jobs"]["store"]["shards"] == \
+            list(range(q * L, (q + 1) * L))
+        assert np.array_equal(a["store.ids"], a["indexed.ids"])
+        assert np.array_equal(a["store.values"].view(np.uint32),
+                              a["indexed.values"].view(np.uint32))
+
+
+def test_world_of_one_process(worlds):
+    """A world of one process holding all four shards: the collectives
+    run, and the indexed answer is the one-process engine's bit for
+    bit."""
+    w = worlds(1)
+    want = one_process_indexed()
+    a = w["arrays"][0]
+    assert np.array_equal(a["indexed.ids"], want.node_ids)
+    assert np.array_equal(a["indexed.values"].view(np.uint32),
+                          want.values.view(np.uint32))
+    assert w["records"][0]["jobs"]["raw"]["rounds"] == [1]
+
+
+def _weighted_er():
+    g = generators.erdos_renyi(*ER)
+    src = np.repeat(np.arange(g.n), g.out_deg)
+    wts = np.exp2(np.random.default_rng(4).uniform(-2, 2, g.m))
+    return from_edges(src, g.out_indices, g.n, w=wts)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("L", [1, 2, 4])
+def test_xp_plain_simulated_processes(L, weighted):
+    """raw_walk_xp_plain over G / L processes simulated by xp_chunk_rounds
+    and local_exchange: every endpoint is raw_walk_chunk_plain's, the
+    partials sum to its mass, no walk is lost."""
+    g = _weighted_er() if weighted else generators.erdos_renyi(*ER)
+    rcfg = ForaConfig(epsilon=0.5, k=K).resolved(g.n, g.m)
+    eng = ShardedForaEngine(g, make_mesh(G, devices=["cpu"] * G), rcfg, k=K)
+    ps, rs = eng.init_state(np.asarray(ER_SOURCES))
+    eng.push(ps, rs)
+    ds, tot = walk.walk_demands(rs, rcfg.omega_unit)
+    tot = tot.long()
+    bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
+    W, B, n_loc = int(bounds[-1].max()), len(ER_SOURCES), eng.n_loc
+    lo = 64                            # a chunk that starts past lane 0
+    csr = eng.placement.walk
+    seed, a, hops = 99, rcfg.alpha, rcfg.max_walk_hops
+    want_out = [torch.zeros(G * n_loc, B) for _ in range(G)]
+    want = torch.full((W - lo, B), -1, dtype=torch.int32)
+    walk.raw_walk_chunk_plain(csr, rs, ds, bounds, lo, W - lo, n_loc, seed,
+                              a, hops, want_out, ends=want)
+    P = G // L
+    parts = [torch.zeros(G * n_loc, B) for _ in range(P)]
+    ends = [torch.full((W - lo, B), -1, dtype=torch.int32) for _ in range(P)]
+    bnp = bounds.numpy()
+
+    def launch(q, r, inbox, box, cnt):
+        ext = walk.own_lanes(bnp[q * L:q * L + L + 1], lo, W - lo)[1]
+        walk.raw_walk_xp_chunk(csr.shards(q * L, (q + 1) * L),
+                               rs[q * L:(q + 1) * L], ds[q * L:(q + 1) * L],
+                               bounds[q * L:q * L + L + 1], lo, W - lo,
+                               ext if r == 0 else 0, q * L, G, seed, a, hops,
+                               parts[q], inbox, box, cnt, ends=ends[q])
+        assert int(cnt[q]) == 0
+    own = {q: walk.own_lanes(bnp[q * L:q * L + L + 1], lo, W - lo)[0]
+           for q in range(P)}
+    rounds = len(walk.xp_chunk_rounds(launch, walk.local_exchange, own, P,
+                                      "cpu"))
+    assert rounds <= hops + 1
+    assert (rounds > 1) == (P > 1)
+    # each walked lane ended in exactly one process
+    assert int(sum((e >= 0).int() for e in ends).max()) <= 1
+    assert torch.equal(torch.stack(ends).max(0).values, want)
+    torch.testing.assert_close(sum(parts), sum(want_out), rtol=1e-5,
+                               atol=1e-9)
+
+
+def test_shared_cards():
+    assert multihost.shared_cards(["a", "b", "c"]) == []
+    assert multihost.shared_cards(["a", "b", "a", "a"]) == [(0, 2), (0, 3),
+                                                            (2, 3)]
+
+
+def test_refusals():
+    with pytest.raises(ValueError, match="NCCL"):
+        multihost.init("localhost:1", 2, 0, backend="nccl", device="cpu")
+    with pytest.raises(ValueError, match="host:port"):
+        multihost.init("localhost", 1, 0, backend="gloo", device="cpu")
+    assert multihost.comm() is None
+    fake = SimpleNamespace(rank=1, size=2, backend="gloo",
+                           device=torch.device("cpu"))
+    mesh = ProcessMesh([None, None, "cpu", "cpu"], fake)
+    assert list(mesh.local) == [2, 3]
+    with pytest.raises(ValueError, match="must hold"):
+        ProcessMesh(["cpu", None, "cpu", None], fake)
+    g, rcfg, idx, _ = smoke()
+    with pytest.raises(ValueError, match="across processes"):
+        ShardedTopkRunner(g, mesh, rcfg, idx, k=K)
+    with pytest.raises(ValueError, match="across processes"):
+        FrontierExchange("routed", [torch.device("cpu")] * 2, 8, comm=fake,
+                         shard0=2, n_shards=4)
+    # without a group, gather_to_host concatenates the shards
+    assert np.array_equal(multihost.gather_to_host(
+        [torch.arange(3), torch.arange(3, 5)]), np.arange(5))
+
+
+@pytest.mark.parametrize("alias", [False, True])
+@pytest.mark.parametrize("extent,Bc,n_in", [(0, 0, 0), (0, 5, 1), (1, 1, 0),
+                                            (33, 3, 100), (4096, 10, 0),
+                                            (12776448, 10, 0),
+                                            (0, 10, 65001865)])
+def test_xp_walk_plan_covers_the_walks(extent, Bc, n_in, alias):
+    """K6+K4-xp's plan: tiles of 32 k rows cover a column's own lanes, the
+    blocks' warps cover every column's tiles and the inbox's, k is one of
+    the kernel's (4 at most for alias hops), smaller where the walks do
+    not fill half of the card's resident warps."""
+    from fora_tpu_torch.kernels import schedule
+    plan = schedule.xp_walk_plan(extent, Bc, n_in, 132, alias)
+    k = plan.walks_per_lane
+    assert k in ((1, 2, 4) if alias else (1, 2, 4, 8, 16))
+    assert plan.tiles * 32 * k >= extent
+    inbox_tiles = -(-n_in // (32 * k))
+    assert plan.blocks * schedule.WALK_BLOCK_WARPS >= \
+        plan.tiles * Bc + inbox_tiles
+    assert (plan.blocks - 1) * schedule.WALK_BLOCK_WARPS < \
+        plan.tiles * Bc + inbox_tiles or plan.blocks == 0
+    if extent * Bc + n_in < 32 * 132 * schedule.XP_BLOCKS_PER_SM * 8 // 2:
+        assert k == 1

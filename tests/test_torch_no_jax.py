@@ -4,11 +4,12 @@ raw-walk, Monte Carlo, indexed on a weighted graph with its alias tables,
 ``entry()``), builds a sharded index, runs the sharded dry run, the
 gather probe's case, a frontier-compacted push and a relabelled graph and
 index, and its CLI (build, batch-topk, query --algo bippr, hubppr
-and fwdpush) with ``--device cpu``, whether or not ``import jax`` would
-work, loading
+and fwdpush) with ``--device cpu``, and imports the multi-process layer
+(``parallel.multihost``, ``parallel.multihost_driver``), whether or not
+``import jax`` would work, loading
 no module of ``jax`` or ``fora_tpu``; no file of it (nor ``chip_smoke.py``)
 imports either; and CPU tensors never reach a CUDA kernel (every launch
-counter stays 0)."""
+counter stays 0, K6+K4-xp's plain version included)."""
 
 import re
 import subprocess
@@ -99,6 +100,8 @@ SCRIPT = textwrap.dedent("""
         rmax=rcfg.rmax, alpha=0.2, compact_edges=2048)
     assert push.superstep_counts.compacted > 0 and st.iters > 0
     assert ridx.total_edges == idx.total_edges
+    from fora_tpu_torch.parallel import multihost, multihost_driver
+    assert multihost.comm() is None and multihost_driver.main
     from fora_tpu_torch.entry import entry
     step, args = entry("cpu")
     assert step(*args)[1].shape == (8, 10)
@@ -211,5 +214,13 @@ def test_cpu_tensors_never_launch_kernels():
     walk.raw_walk_sharded_chunk(csr, rs, ds, bounds, 0, int(bounds[-1].max()),
                                 1, 0.2, 64,
                                 [torch.zeros(2 * csr.n_loc, 3)] * 2)
+    P = 2      # K6+K4-xp's plain version: process 0 of 2, one shard each
+    box = torch.empty((P, int(bounds[1].sum()), 4), dtype=torch.int32)
+    walk.raw_walk_xp_chunk(
+        walk.ShardedOutCSR(csr.indptr[:1], csr.indices[:1], None, None,
+                           csr.n_loc), rs[:1], ds[:1], bounds[:2], 0,
+        int(bounds[-1].max()), int(bounds[1].max()), 0, 2, 1, 0.2, 64,
+        torch.zeros(2 * csr.n_loc, 3), torch.empty((0, 4), dtype=torch.int32),
+        box, torch.zeros(P, dtype=torch.int32))
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 24
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 25
