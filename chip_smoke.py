@@ -244,14 +244,20 @@ memory:
                  9's one-process engine (the reference); K6+K4-xp on the
                  raw one-shot's first walk chunk (at SEED)
                  over two processes simulated here (ops.walk's
-                 xp_chunk_rounds and local_exchange), each launch
-                 held to raw_walk_xp_plain (counts, each destination's
-                 records as a set, the endpoints of the walks that end
-                 there equal; partials within rtol 1e-4), every endpoint
-                 over the rounds K6+K4's sharded form's bit for bit, timed
-                 (its launches as called and in device time) beside K6+K4's
-                 sharded form on the chunk and its bound (raw_walk_bound
-                 plus 16 bytes a record written and read); then the
+                 xp_chunk_rounds and local_exchange), each launch of
+                 either form (the own-lane form in round 0, the inbox
+                 form after it) held to raw_walk_xp_plain (counts, each
+                 destination's records (w, cur, h | len << 16, weight)
+                 as a set, the endpoints of the walks that end there
+                 equal; partials within rtol 1e-4), every endpoint over
+                 the rounds K6+K4's sharded form's bit for bit, timed
+                 (its launches as called and in device time) beside
+                 K6+K4's sharded form on the chunk, the earlier kernel
+                 (probes/xp_walk_forms.cu, its own rounds, its endpoints
+                 equal too; the redesign must be faster) and its bound
+                 (raw_walk_bound plus 16 bytes a record written and
+                 read); the same on phase 13's weighted graph (alias
+                 hops; run inside phase 13, which builds it); then the
                  workers (every collective on CUDA tensors under gloo),
                  the indexed one-shot (warm, then timed) against the
                  reference under test_torch_sharded.py's rule with equal
@@ -371,8 +377,8 @@ memory:
                  workers (counts reset just before each timed call, read
                  just after) K1 and K3 per local shard, P1 among the local
                  shards, P2's one pass once in the indexed run, the demand
-                 once and K6+K4-xp in the raw run, K6+K4-xp on no path
-                 within one process; and neither
+                 once and both forms of K6+K4-xp in the raw run,
+                 K6+K4-xp on no path within one process; and neither
                  JAX nor the JAX package fora_tpu was imported, by this
                  process or the servers
 
@@ -426,8 +432,12 @@ output, read and written); raw_walk_xp, K6+K4-xp, is phase 17's first
 raw chunk over two simulated processes (ms its launches as called,
 device_ms theirs in device time, plain_ms raw_walk_xp_plain's, its bound
 K6+K4's on the chunk's walks plus 16 bytes a record written and read) with
-the launches of the workers' raw run summed, and carries
-sharded_device_ms, K6+K4's sharded form on the same chunk), then,
+the launches of both its forms in the workers' raw run summed, and carries
+forms (each form's launches on the chunk, device ms and walks: the
+own-lane form raw_walk_xp, the inbox form raw_walk_xp_inbox),
+earlier_device_ms (the earlier kernel on the same chunk),
+sharded_device_ms (K6+K4's sharded form on it) and alias_* (the same on
+phase 13's weighted graph)), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -2107,7 +2117,7 @@ def run_weighted(g, rcfg, dev):
     of K4's alias branch, launch counts of the indexed run, of the
     raw-walk pool, of Monte Carlo and of the sharded pool, the raw
     one-shot's launch counts and supersteps per exchange, the kernel row of
-    K4's sharded alias form)."""
+    K4's sharded alias form, K6+K4-xp's row on the weighted raw chunk)."""
     import dataclasses
     import logging
     import numpy as np
@@ -2243,11 +2253,14 @@ def run_weighted(g, rcfg, dev):
     # phase 9's raw one-shot on the weighted graph (K4's sharded alias form)
     raw1_counts, raw1_steps, raw1_row, _ = run_sharded_raw(
         gw, rcfg, sources[:POOL], ex, dgw, "weighted sharded raw")
+    # phase 17's check of K6+K4-xp (its alias hops) on this graph
+    xp_row = xp_simulation(gw, rcfg, sources[:MP_SOURCES], dgw, dev,
+                           "weighted")[0]
     raw_counts, _ = run_raw(dgw, rcfg, sources, ex, name="weighted raw")
     mc_counts = run_montecarlo(dgw, rcfg, sources, ex,
                                name="weighted montecarlo")
     return (row, counts, raw_counts, mc_counts, sharded_counts, raw1_counts,
-            raw1_steps, raw1_row)
+            raw1_steps, raw1_row, xp_row)
 
 
 def cli_argv(action, *extra) -> list:
@@ -4039,62 +4052,43 @@ def sharded_rule_agree(name, got_v, got_i, want_v, want_i) -> float:
     return float(err.max())
 
 
-def xp_simulation(g, rcfg, sources, graph, dev):
+def xp_simulation(g, rcfg, sources, graph, dev, label):
     """K6+K4-xp on the raw one-shot's first walk chunk as phase 17's
-    workers walk it: the one-process engine on SHARDS shards (dense) pushes
-    ``sources``, the shards' demands and the plan give the first chunk and
-    its seed (the workers' topk at SEED, query group 0, chunk 0); K6+K4's
+    workers walk it (``probes/xp_walk_probe.py::first_chunk``: the
+    one-process engine on SHARDS shards pushes ``sources``, the shards'
+    demands and the plan give the first chunk and its seed); K6+K4's
     sharded form walks it (the reference: its endpoints and device time);
     then MP_PROCS processes of SHARDS / MP_PROCS shards are simulated by a
-    loop on the card, each launch of K6+K4-xp held to raw_walk_xp_plain on
-    the same own lanes and inbox (counts equal, each destination's records
-    equal as a set, the endpoints of the walks that end there equal, the
-    partials within rtol 1e-4: f32 atomics in no fixed order) and its
-    records handed on.  Every lane's endpoint over the rounds must be the
-    reference's bit for bit.  Returns (K6+K4-xp's kernel row: ms the
-    chunk's launches as called, device_ms their device time (each launch
-    again on scratch outputs), plain_ms the plain version's launches,
-    sharded_device_ms K6+K4's sharded form on the chunk, bound K6+K4's on
-    the chunk's walks plus 16 bytes a record written and read; the
-    reference endpoints [W, Bc]; the chunk (c0, c1, lo, hi))."""
-    import numpy as np
+    loop on the card, each launch of K6+K4-xp (the own-lane form in round
+    0, the inbox form after it) held to raw_walk_xp_plain on the same own
+    lanes and inbox (counts equal, each destination's records (w, cur, h |
+    len << 16, weight) equal as a set, the endpoints of the walks that end
+    there equal, the partials within rtol 1e-4: f32 atomics in no fixed
+    order) and its records handed on.  Every lane's endpoint over the
+    rounds must be the reference's bit for bit.  The earlier kernel
+    (probes/xp_walk_forms.cu) walks the chunk's rounds again, its
+    endpoints the reference's too, for its device time.  Returns
+    (K6+K4-xp's kernel row: ms the chunk's launches as called, device_ms
+    their device time (each launch again on scratch outputs), forms each
+    form's launches and times, plain_ms the plain version's launches,
+    sharded_device_ms K6+K4's sharded form on the chunk,
+    earlier_device_ms the earlier kernel's launches, bound K6+K4's on the
+    chunk's walks plus 16 bytes a record written and read; the reference
+    endpoints [W, Bc]; the chunk (c0, c1, lo, hi))."""
     import torch
     from fora_tpu_torch.ops import walk
-    from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
+    from fora_tpu_torch.probes import xp_walk_probe as xpp
     from fora_tpu_torch.utils.timing import device_ms
-    eng = ShardedForaEngine(g, make_mesh(SHARDS), rcfg, k=K)
-    ps, rs = eng.init_state(sources)
-    eng.push(ps, rs)
-    del ps
-    ds, tot = walk.walk_demands(rs, rcfg.omega_unit)
-    tot = tot.cpu().numpy().astype(np.int64)
-    bnp = np.concatenate([np.zeros((1, tot.shape[1]), np.int64),
-                          np.cumsum(tot, axis=0)])
-    chunks = walk.plan_chunks(bnp[-1], walk.chunk_lanes(dev))
-    c0, c1, lo, hi = chunks[0]
-    seed = walk.derive_seed(walk.derive_seed(SEED, 0), 0)
-    a, hops = rcfg.alpha, rcfg.max_walk_hops
-    W, Bc, n_loc = hi - lo, c1 - c0, eng.n_loc
+    c = xpp.first_chunk(g, rcfg, sources, dev, SEED)
+    W, Bc, n_loc, lo = c["W"], c["Bc"], c["n_loc"], c["lo"]
     n_pad = SHARDS * n_loc
-    bnp = bnp[:, c0:c1]
-    bounds = torch.as_tensor(bnp.copy(), device=dev)
-    rsc = [r[:, c0:c1] for r in rs]
-    dsc = [d.columns(c0, c1) for d in ds]
-    csr = eng.placement.walk
-    ref = torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
-    outs = [torch.zeros((n_pad, Bc), device=dev) for _ in range(SHARDS)]
-    walk.raw_walk_sharded_chunk(csr, rsc, dsc, bounds, lo, W, seed, a, hops,
-                                outs, ends=ref)
-    ref_sum = sum(outs)
-    one_ms = device_ms(lambda: walk.raw_walk_sharded_chunk(
-        csr, rsc, dsc, bounds, lo, W, seed, a, hops, outs))
-    del outs
+    ref, one_ms, ref_sum = xpp.reference(c)
     P, L = MP_PROCS, SHARDS // MP_PROCS
     parts = [torch.zeros((n_pad, Bc), device=dev) for _ in range(P)]
     ends = [torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
             for _ in range(P)]
     err = 0.0
-    ms = {"kernel": 0.0, "plain": 0.0, "device": 0.0}
+    ms = {"kernel": 0.0, "plain": 0.0}
     per = []                 # per launch: (round, process, walks, device ms)
 
     def timed(fn):
@@ -4113,67 +4107,73 @@ def xp_simulation(g, rcfg, sources, graph, dev):
 
     def launch(q, r, inbox, box, cnt):
         nonlocal err
-        sl = slice(q * L, (q + 1) * L)
-        ext = walk.own_lanes(bnp[q * L:q * L + L + 1], lo, W)[1]
-        head = (csr.shards(q * L, (q + 1) * L), rsc[sl], dsc[sl],
-                bounds[q * L:q * L + L + 1].contiguous(), lo, W,
-                ext if r == 0 else 0, q * L, SHARDS, seed, a, hops)
         got = {}
         for form in ("kernel", "plain"):
             x = (box, cnt) if form == "kernel" else (torch.empty_like(box),
                                                      torch.empty_like(cnt))
-            part = torch.zeros((n_pad, Bc), device=dev)
             e = torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
-            args = head + (part, inbox, *x)
+            args = xpp.launch_args(c, q, P, r, inbox, *x,
+                                   torch.zeros((n_pad, Bc), device=dev))
             fn = (walk.raw_walk_xp_chunk if form == "kernel"
                   else walk.raw_walk_xp_plain)
             ms[form] += timed(lambda: fn(*args, ends=e))
-            got[form] = (*x, part, e)
+            got[form] = (*x, args[12], e)
         (box, cnt, part, e), (pbox, pcnt, ppart, pe) = got.values()
         if box.shape[1]:
-            scratch = head + (torch.zeros_like(part), inbox,
-                              torch.empty_like(box), torch.empty_like(cnt))
+            scratch = xpp.launch_args(c, q, P, r, inbox,
+                                      torch.empty_like(box),
+                                      torch.empty_like(cnt),
+                                      torch.zeros_like(part))
             per.append((r, q, box.shape[1], device_ms(
                 lambda: walk.raw_walk_xp_chunk(*scratch), iters=3,
                 warmup=1)))
-            ms["device"] += per[-1][3]
         if not torch.equal(cnt, pcnt) or int(cnt[q]) != 0:
-            fail(f"K6+K4-xp: counts {cnt.tolist()} against the plain "
-                 f"version's {pcnt.tolist()} (process {q}, round {r})")
+            fail(f"K6+K4-xp {label}: counts {cnt.tolist()} against the "
+                 f"plain version's {pcnt.tolist()} (process {q}, round {r})")
         for d in range(P):
             if not torch.equal(records(box, cnt, d), records(pbox, pcnt, d)):
-                fail(f"K6+K4-xp: process {q}'s records for {d} differ "
-                     f"from the plain version's (round {r})")
+                fail(f"K6+K4-xp {label}: process {q}'s records for {d} "
+                     f"differ from the plain version's (round {r})")
         if not torch.equal(e, pe):
-            fail(f"K6+K4-xp: process {q}'s endpoints differ from the "
-                 f"plain version's (round {r})")
-        err = max(err, close(f"K6+K4-xp process {q} round {r}", part, ppart,
-                             1e-4, 1e-7))
+            fail(f"K6+K4-xp {label}: process {q}'s endpoints differ from "
+                 f"the plain version's (round {r})")
+        err = max(err, close(f"K6+K4-xp {label} process {q} round {r}",
+                             part, ppart, 1e-4, 1e-7))
         parts[q] += part
         ends[q] = torch.maximum(ends[q], e)
-    own = {q: walk.own_lanes(bnp[q * L:q * L + L + 1], lo, W)[0]
+    own = {q: walk.own_lanes(c["bnp"][q * L:q * L + L + 1], lo, W)[0]
            for q in range(P)}
     counts = walk.xp_chunk_rounds(launch, walk.local_exchange, own, P, dev)
     rounds, sent = len(counts), [int(m.sum()) for m in counts]
-    launches = len(per)
-    walked = int((ref >= 0).sum())
-    later = [x for x in per if x[0] > 0]
-    print("K6+K4-xp by launch: round 0 " + ", ".join(
-        f"process {q} {w} walks {d:.4f} ms" for r, q, w, d in per if r == 0)
-        + f"; rounds 1-{rounds - 1}: {len(later)} launches, "
-        f"{sum(x[2] for x in later)} walks handed on, "
-        f"{sum(x[3] for x in later):.4f} ms device (the 8 largest "
-        + ", ".join(f"{d:.4f}" for d in sorted(
-            (x[3] for x in later), reverse=True)[:8])
-        + f"); walk segments a walk {sum(x[2] for x in per) / walked:.3f}")
     if int(sum((x >= 0).int() for x in ends).max()) > 1 or \
             not torch.equal(torch.stack(ends).max(0).values, ref):
-        fail("K6+K4-xp: the simulated processes' endpoints differ from "
-             "K6+K4's sharded form's")
-    err = max(err, close("K6+K4-xp partials against K6+K4's sharded form",
-                         sum(parts), ref_sum, 1e-4, 1e-7))
+        fail(f"K6+K4-xp {label}: the simulated processes' endpoints differ "
+             f"from K6+K4's sharded form's")
+    err = max(err, close(f"K6+K4-xp {label} partials against K6+K4's "
+                         f"sharded form", sum(parts), ref_sum, 1e-4, 1e-7))
+    walked = int((ref >= 0).sum())
+    now = xpp.summary(per)
+    # the earlier kernel on the same chunk, its own rounds
+    earlier = xpp.run_rounds(c, P, xpp.form_caller(xpp.load_forms(),
+                                                   "earlier"))
+    if not torch.equal(earlier["ends"], ref):
+        fail(f"K6+K4-xp's earlier kernel {label}: endpoints differ from "
+             f"K6+K4's sharded form's")
+    before = xpp.summary(earlier["per"])
+    print(f"K6+K4-xp {label} by launch: round 0 (own-lane form) " + ", ".join(
+        f"process {q} {w} walks {d:.4f} ms" for r, q, w, d in per if r == 0)
+        + f"; rounds 1-{rounds - 1} (inbox form): {now['launches'] - P} "
+        f"launches, {now['later_walks']} walks handed on, "
+        f"{now['later_ms']:.4f} ms device (the 8 largest " + ", ".join(
+            f"{d:.4f}" for d in sorted((x[3] for x in per if x[0] > 0),
+                                       reverse=True)[:8])
+        + f"); walk segments a walk {sum(x[2] for x in per) / walked:.3f}; "
+        f"the earlier kernel: round 0 {before['round0_ms']:.4f} + rounds "
+        f"{before['later_ms']:.4f} = {before['total_ms']:.4f} ms device in "
+        f"{before['launches']} launches")
     # the bound: K6+K4's on the chunk's walks, plus 16 bytes a record
     # written by its sender and read by its receiver
+    rsc, dsc, bounds = c["rs"], c["ds"], c["bounds"]
     start, _ = walk.expand_chunk_lanes(rsc, dsc, bounds, lo, W, n_loc)
     lane = lo + torch.arange(W, device=dev)[:, None]
     valid = lane < bounds[-1][None, :]
@@ -4182,24 +4182,40 @@ def xp_simulation(g, rcfg, sources, graph, dev):
                          for q, x in enumerate(ends)])
     oms = [walk.walk_demand_plain(x, rcfg.omega_unit).omega_v for x in rsc]
     rec_bytes = 2 * 16 * sum(sent)
-    row = dict(max_abs_err=err, ms=ms["kernel"], device_ms=ms["device"],
-               plain_ms=ms["plain"], library_ms=None,
-               sharded_device_ms=one_ms, **raw_walk_bound(
-                   graph, start[valid], rcfg, demand_sectors(rsc, oms),
-                   sectors(out_idx), walk_sector_rate(graph), rec_bytes))
-    print(f"K6+K4-xp on the raw one-shot's first chunk ({W} x {Bc} lane "
-          f"slots, {walked} walks, {MP_PROCS} simulated processes of {L} "
-          f"shards): {rounds} rounds, records handed over per round "
+    forms = {"raw_walk_xp": dict(launches=P, device_ms=now["round0_ms"],
+                                 walks=now["round0_walks"]),
+             "raw_walk_xp_inbox": dict(launches=now["launches"] - P,
+                                       device_ms=now["later_ms"],
+                                       walks=now["later_walks"])}
+    row = dict(max_abs_err=err, ms=ms["kernel"], device_ms=now["total_ms"],
+               plain_ms=ms["plain"], library_ms=None, forms=forms,
+               sharded_device_ms=one_ms, earlier_device_ms=before["total_ms"],
+               **raw_walk_bound(graph, start[valid], rcfg,
+                                demand_sectors(rsc, oms), sectors(out_idx),
+                                walk_sector_rate(graph), rec_bytes))
+    print(f"K6+K4-xp {label} on the raw one-shot's first chunk ({W} x {Bc} "
+          f"lane slots, {walked} walks, {MP_PROCS} simulated processes of "
+          f"{L} shards): {rounds} rounds, records handed over per round "
           f"{sent}; every launch held to raw_walk_xp_plain (counts, records "
-          f"as sets, endpoints equal; partials within rtol 1e-4, max abs err "
-          f"{err:.3e}), every endpoint K6+K4's sharded form's bit for bit; "
-          f"{launches} launches {ms['kernel']:.4f} ms as called, device "
-          f"{ms['device']:.4f} ms, beside K6+K4's sharded form on the chunk "
-          f"{one_ms:.4f} ms device; plain {ms['plain']:.4f} ms; bound "
-          f"{row['bound_ms']:.4f} ms by {row['bound_by']} (records "
-          f"{rec_bytes / hbm_rate() * 1e3:.4f} ms of it)")
-    del parts, ends, ref_sum, start, valid, lane, oms, eng, rs, ds
-    return row, ref, (c0, c1, lo, hi)
+          f"as sets with their length field, endpoints equal; partials "
+          f"within rtol 1e-4, max abs err {err:.3e}), every endpoint K6+K4's "
+          f"sharded form's bit for bit; {now['launches']} launches "
+          f"{ms['kernel']:.4f} ms as called, device {now['total_ms']:.4f} "
+          f"ms (own-lane form {now['round0_ms']:.4f}, inbox form "
+          f"{now['later_ms']:.4f}), against the earlier kernel's "
+          f"{before['total_ms']:.4f} "
+          f"({before['total_ms'] / now['total_ms']:.2f}x) "
+          f"and K6+K4's sharded form on the chunk {one_ms:.4f} ms device "
+          f"({now['total_ms'] / one_ms:.2f}x); plain {ms['plain']:.4f} ms; "
+          f"bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({100 * row['bound_ms'] / now['total_ms']:.1f}% of the device "
+          f"time; records {rec_bytes / hbm_rate() * 1e3:.4f} ms of it)")
+    if not now["total_ms"] < before["total_ms"]:
+        fail(f"K6+K4-xp {label}: {now['total_ms']:.4f} ms device, not "
+             f"faster than the earlier kernel's {before['total_ms']:.4f}")
+    chunk = c["chunk"]
+    del parts, ends, ref_sum, start, valid, lane, oms, c
+    return row, ref, chunk
 
 
 def start_world(procs, backend, specs, out) -> list:
@@ -4315,7 +4331,7 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
           f"each of {P} processes given its {L} shards' files in "
           f"{time.perf_counter() - t0:.1f} s")
     row, ref_ends, (c0, c1, lo, hi) = xp_simulation(
-        g, rcfg, sources, graph, dev)
+        g, rcfg, sources, graph, dev, "uniform")
     torch.cuda.empty_cache()
     src = [int(s) for s in sources]
 
@@ -4366,7 +4382,7 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
                 "reduce_scatter_onepass": 1 if L > 1 else 0,
                 "push_prepass": L * steps, "gather_scatter_add": L * steps,
                 "ring_all_gather_hop": L * (L - 1) * steps,
-                "raw_walk_xp": 0}
+                "raw_walk_xp": 0, "raw_walk_xp_inbox": 0}
         if job["supersteps"] != steps or job["shards"] != list(
                 range(q * L, (q + 1) * L)) or any(
                 c[k] != v for k, v in want.items()):
@@ -4386,7 +4402,8 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
     xp = {k: sum(r["launches"][k] for r in raw) for k in raw[0]["launches"]}
     for q, r in enumerate(raw):
         c = r["launches"]
-        if c["raw_walk_xp"] <= 0 or c["raw_walk"] or c["walk_demand"] != 1 \
+        if c["raw_walk_xp"] <= 0 or c["raw_walk_xp_inbox"] <= 0 or \
+                c["raw_walk"] or c["walk_demand"] != 1 \
                 or c["index_spmv"] or c["topk_bounds"] != L:
             fail(f"phase 17 raw, rank {q}: launches {c}")
     prec = metrics.batch_precision_at_k(arrs[0]["raw.ids"], exact_ids)
@@ -4405,7 +4422,9 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
           f"{len(exact_ids)}; the first chunk's endpoints ({ends.shape[0]} x "
           f"{ends.shape[1]}, lanes {lo} .. {hi - 1} of columns {c0} .. "
           f"{c1 - 1}) equal to K6+K4's sharded form's; K6+K4-xp launches "
-          f"{[r['launches']['raw_walk_xp'] for r in raw]}")
+          f"(own-lane form, inbox form) " + str(
+              [(r["launches"]["raw_walk_xp"],
+                r["launches"]["raw_walk_xp_inbox"]) for r in raw]))
     for i, nr in enumerate(raw[0]["rounds"]):
         per = [(sum(r["sent"][i][j] for r in raw)) for j in range(nr)]
         print(f"  chunk {i}: {nr} rounds; records handed over per round "
@@ -4481,8 +4500,15 @@ def main(argv=None) -> int:
 
     # ---- 2. build ------------------------------------------------------
     with Phase("build"):
+        # K6+K4-xp's earlier kernel (probes/xp_walk_forms.cu, phase 17's
+        # yardstick) compiles beside the package's sources
+        import threading
+        from fora_tpu_torch.probes import xp_walk_probe
+        forms_build = threading.Thread(target=xp_walk_probe.load_forms)
+        forms_build.start()
         lib_path = kbuild.build()
         kbuild.library()
+        forms_build.join()
         built = ("cached" if kbuild.last_build_secs is None
                  else f"{kbuild.last_build_secs:.1f} s")
         print(f"build: {lib_path} ({built})")
@@ -4937,7 +4963,10 @@ def main(argv=None) -> int:
     with Phase("weighted"):
         (rows["index_walk_alias"], w_launches, w_raw_launches,
          w_mc_launches, w_pool_launches, w_raw1_launches, w_raw1_steps,
-         rows["index_walk_sharded_alias"]) = run_weighted(g, rcfg, dev)
+         rows["index_walk_sharded_alias"], w_xp_row) = run_weighted(g, rcfg,
+                                                                     dev)
+    rows["raw_walk_xp"].update({"alias_" + k: v for k, v in w_xp_row.items()
+                                if k not in ("library_ms", "bound_by")})
 
     # ---- 14. the CLI and the server ----------------------------------------
     torch.cuda.empty_cache()
@@ -5204,9 +5233,11 @@ def main(argv=None) -> int:
     # phase 17: K6+K4-xp in the raw run across processes, on no other path
     print(f"launches in phase 17's raw one-shot across {MP_PROCS} processes "
           f"(summed): {xp_launches}")
-    if xp_launches["raw_walk_xp"] <= 0:
-        fail("K6+K4-xp was not launched by the raw one-shot across processes")
-    if any(c["raw_walk_xp"] for c in (
+    for name in ("raw_walk_xp", "raw_walk_xp_inbox"):
+        if xp_launches[name] <= 0:
+            fail(f"K6+K4-xp's {name} was not launched by the raw one-shot "
+                 f"across processes")
+    if any(c["raw_walk_xp"] or c["raw_walk_xp_inbox"] for c in (
             *earlier, relabel_launches, *raw1_launches.values(),
             *w_raw1_launches.values(), build_launches, k5_launches,
             *cli_launches.values())):
@@ -5304,7 +5335,8 @@ def main(argv=None) -> int:
              k5_launches[name] if name.startswith("frontier_p") else
              mc_launches[name] if name in ("accumulate_endpoints",
                                            "source_walk") else
-             xp_launches[name] if name == "raw_walk_xp" else
+             xp_launches[name] + xp_launches["raw_walk_xp_inbox"]
+             if name == "raw_walk_xp" else
              raw_launches[name] if name in k6 else
              sharded_launches[name])
         out.append({"name": name, "route": "cuda",
@@ -5318,7 +5350,7 @@ def main(argv=None) -> int:
                                            "unsharded_ms", "earlier_ms",
                                            "earlier_device_ms",
                                            "bytes_bound_ms",
-                                           "chain_device_ms")
+                                           "chain_device_ms", "forms")
                        if k in row},
                     **{k: v for k, v in row.items()
                        if k.startswith(("sharded_", "montecarlo_", "alias_",

@@ -32,7 +32,8 @@ PyTorch versions instead.
 | expand_lanes            | csrc/walk_alloc.cu     | K6-expand (a range of lanes onto their start nodes and weights; the sharded form expands a chunk over every shard's demand in one launch; on no path since K6+K4, kept as its earlier form) |
 | accumulate_endpoints    | csrc/walk_alloc.cu     | K6-accum (the endpoints' scatter-add, f32 atomics; on no path since K6+K4-src, kept as the chain both fused forms are held to) |
 | raw_walk                | csrc/walk.cu           | K6+K4 (a raw walk phase's chunk in one launch: each lane's start node and weight, its walk, the weight added at the endpoint; raw pool, sharded raw one-shot; its sharded form over every shard's demand and the out-CSR's slices) |
-| raw_walk_xp             | csrc/walk.cu           | K6+K4-xp (a process's share of a raw walk chunk with the shards spread over processes: its own lanes and the walks handed to it, to endpoint mass and walks that leave; the sharded raw one-shot across processes) |
+| raw_walk_xp             | csrc/walk.cu           | K6+K4-xp's own-lane form (round 0 of a process's share of a raw walk chunk with the shards spread over processes: its own lanes to endpoint mass and walks that leave, through a staged outbox; the sharded raw one-shot across processes) |
+| raw_walk_xp_inbox       | csrc/walk.cu           | K6+K4-xp's inbox form (the later rounds: the walks handed to the process, each record carrying its length, to endpoint mass and walks that leave) |
 | source_walk             | csrc/walk.cu           | K6+K4-src (a chunk of source-rooted walks in one launch: each walk from its column's source, its weight added at its endpoint, the source's own count in a register; Monte Carlo, HubPPR's queries with its hub branch) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 | row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
@@ -46,10 +47,10 @@ kernels to them.  K6+K4's plain version is ``ops.walk.
 raw_walk_chunk_plain`` (``tests/test_torch_raw_walk_fused.py``); on a card
 ``-k raw_walk`` holds the kernel to the chain K6-expand -> K4 -> K6-accum
 (endpoints bit-equal, the contribution by a float64 sum).  K6+K4-xp's
-plain version is ``ops.walk.raw_walk_xp_plain``
+plain version (both forms) is ``ops.walk.raw_walk_xp_plain``
 (``tests/test_torch_multihost.py`` holds it, with the processes simulated
 by a loop, to ``raw_walk_chunk_plain``); on a card ``-k raw_walk_xp``
-holds the kernel to it.  K6+K4-src's
+holds both kernels to it.  K6+K4-src's
 plain version is ``ops.walk.source_walk_chunk_plain``
 (``tests/test_torch_source_walk.py``); on a card ``-k source_walk`` holds
 the kernel to the chain K4 (K4-alias, K4-hub) -> K6-accum alike.
@@ -85,7 +86,8 @@ __all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
            "row_scatter_add", "exchange_clear", "frontier_compact",
            "frontier_prepass", "frontier_push", "walk_demand",
            "expand_lanes", "accumulate_endpoints", "raw_walk",
-           "raw_walk_xp", "source_walk", "sector_reads",
+           "raw_walk_xp", "raw_walk_xp_inbox", "source_walk",
+           "sector_reads",
            "row_reads",
            "philox_blocks", "inv_log1m_alpha", "sm_count",
            "enable_peer_access",
@@ -1053,45 +1055,81 @@ def raw_walk(r, cum, total: Optional[torch.Tensor], out, rows: int,
     raw_walk.launches += 1
 
 
+def _xp_common(name, out, indptr, indices, alias_prob, alias_other,
+               shard0: int, G: int, outbox, counts, ends, rows: int):
+    """Both K6+K4-xp forms' checks: (L, P, n_loc, Bc, out's row stride,
+    the card)."""
+    L = len(indptr)
+    dev = out.device
+    alias = alias_prob is not None
+    if not (1 <= L <= 32 and len(indices) == L and G % L == 0
+            and 1 <= G <= 32 and 0 <= shard0 <= G - L and shard0 % L == 0):
+        raise ValueError(f"{name}: {L} local shards from {shard0} of {G}; "
+                         f"need G = P L <= 32")
+    if (alias_other is None) == alias:
+        raise ValueError(f"{name}: both alias tables or neither")
+    n_loc = indptr[0].shape[0] - 1
+    for h in range(L):
+        _check(f"indptr[{h}]", indptr[h], torch.int32, (n_loc + 1,), dev)
+        _check(f"indices[{h}]", indices[h], torch.int32, device=dev)
+        if alias:
+            m = indices[h].shape
+            _check(f"alias_prob[{h}]", alias_prob[h], torch.float32, m, dev)
+            _check(f"alias_other[{h}]", alias_other[h], torch.int32, m, dev)
+    Bc = out.shape[1]
+    out_ld = _check_cols("out", out, torch.float32, (G * n_loc, Bc))
+    P = G // L
+    _check("outbox", outbox, torch.int32, device=dev)
+    if outbox.dim() != 3 or outbox.shape[0] != P or outbox.shape[2] != 4:
+        raise ValueError(f"{name}: outbox must be [{P}, cap, 4]")
+    _check("counts", counts, torch.int32, (P,), dev)
+    if ends is not None:
+        _check("ends", ends, torch.int32, (rows, Bc), dev)
+    return L, P, n_loc, Bc, out_ld, dev
+
+
+def _xp_graph(indptr, indices, alias_prob, alias_other) -> tuple:
+    alias = alias_prob is not None
+    return (_table(indptr), _table(indices),
+            _table(alias_prob) if alias else None,
+            _table(alias_other) if alias else None)
+
+
 def raw_walk_xp(r: list, cum: list, bounds: torch.Tensor,
                 out: torch.Tensor, rows: int, lane_lo: int, extent: int,
                 indptr: list, indices: list, alias_prob, alias_other,
                 seed: int, alpha: float, max_hops: int, shard0: int, G: int,
-                inbox: torch.Tensor, outbox: torch.Tensor,
-                counts: torch.Tensor,
+                outbox: torch.Tensor, counts: torch.Tensor,
                 ends: Optional[torch.Tensor] = None) -> None:
-    """K6+K4-xp, in place: one launch of a process's share of a chunk of
-    the raw walk phase, the G graph shards spread over P = G / L
-    processes.  This process holds shards ``shard0`` .. ``shard0`` + L - 1:
-    ``r`` and ``cum`` (L of each, as :func:`raw_walk`'s sharded form takes
-    them, column slices [n_loc, Bc]), the out-CSR's L slices ``indptr`` /
-    ``indices`` (and the alias tables, or None), and ``bounds`` [L + 1,
-    Bc] int64, its rows of the chunk's running totals.  Its own lanes of
-    rows 0 .. ``rows`` - 1 (lane lane_lo + t; ``extent`` the most of them
-    in a column, from the host's bounds) walk as :func:`raw_walk`'s
-    sharded form walks them (walk t * Bc + b), then the records of
-    ``inbox`` [n_in, 4] int32 (w, cur, h, weight's bits) from where they
-    stopped.  A walk that ends adds its weight into ``out`` [G * n_loc,
-    Bc] f32 (adjacent columns) at its endpoint, column w % Bc, and writes
-    ``ends`` [rows, Bc] int32 there (tests and checks only); a walk whose
-    node leaves the process's rows before its last hop is written to
-    ``outbox`` [P, cap, 4] int32 at its owner's row, ``counts`` [P] int32
-    counting them (zeroed here).  A count past cap is a fault: the caller
-    sizes cap to the launch's walks.  One launch on ``out``'s card, every
-    tensor there."""
-    L = len(r)
-    n_loc, Bc = r[0].shape
-    dev = out.device
-    alias = alias_prob is not None
-    if not (1 <= L <= 32 and len(cum) == len(indptr) == len(indices) == L
-            and G % L == 0 and 1 <= G <= 32 and 0 <= shard0 <= G - L
-            and shard0 % L == 0):
-        raise ValueError(f"raw_walk_xp: {L} local shards from {shard0} of "
-                         f"{G}; need G = P L <= 32")
-    if (alias_other is None) == alias:
-        raise ValueError("raw_walk_xp: both alias tables or neither")
-    P = G // L
+    """K6+K4-xp's own-lane form, in place: round 0 of a process's share of
+    a chunk of the raw walk phase, the G graph shards spread over P = G /
+    L processes, in one launch.  This process holds shards ``shard0`` ..
+    ``shard0`` + L - 1: ``r`` and ``cum`` (L of each, as :func:`raw_walk`'s
+    sharded form takes them, column slices [n_loc, Bc]), the out-CSR's L
+    slices ``indptr`` / ``indices`` (and the alias tables, or None), and
+    ``bounds`` [L + 1, Bc] int64, its rows of the chunk's running totals.
+    Its own lanes of rows 0 .. ``rows`` - 1 (lane lane_lo + t; ``extent``
+    the most of them in a column, from the host's bounds) walk as
+    :func:`raw_walk`'s sharded form walks them (walk t * Bc + b;
+    ``max_hops`` below 2^15).  A walk that ends adds its weight into
+    ``out`` [G * n_loc, Bc] f32 (adjacent columns) at its endpoint, column
+    b, and writes ``ends`` [rows, Bc] int32 there (tests and checks only);
+    a walk whose node leaves the process's rows before its last hop is
+    written to ``outbox`` [P, cap, 4] int32 at its owner's row as (w, cur,
+    h | len << 16, weight's bits), ``counts`` [P] int32 counting them
+    (zeroed here).  A count past cap is a fault: the caller sizes cap to
+    the launch's walks.  One launch on ``out``'s card, every tensor
+    there."""
+    if not 0 <= max_hops < 2**15:
+        raise ValueError(f"raw_walk_xp: max_hops {max_hops}; a record holds "
+                         f"lengths below 2^15")
     rows, lane_lo, extent = int(rows), int(lane_lo), int(extent)
+    L, P, n_loc, Bc, out_ld, dev = _xp_common(
+        "raw_walk_xp", out, indptr, indices, alias_prob, alias_other, shard0,
+        G, outbox, counts, ends, rows)
+    if len(r) != L or len(cum) != L:
+        raise ValueError(f"raw_walk_xp: {len(r)} residues and {len(cum)} "
+                         f"demands for {L} shards")
     if rows < 0 or lane_lo < 0 or not 0 <= extent <= rows or \
             rows * Bc >= 2**32:
         raise ValueError(f"raw_walk_xp: {rows} rows ({extent} own) of {Bc} "
@@ -1105,38 +1143,55 @@ def raw_walk_xp(r: list, cum: list, bounds: torch.Tensor,
                 r[h].device != dev or cum[h].device != dev:
             raise ValueError("raw_walk_xp: the shards' residues and demands "
                              "must share their strides and out's card")
-        _check(f"indptr[{h}]", indptr[h], torch.int32, (n_loc + 1,), dev)
-        _check(f"indices[{h}]", indices[h], torch.int32, device=dev)
-        if alias:
-            m = indices[h].shape
-            _check(f"alias_prob[{h}]", alias_prob[h], torch.float32, m, dev)
-            _check(f"alias_other[{h}]", alias_other[h], torch.int32, m, dev)
-    out_ld = _check_cols("out", out, torch.float32, (G * n_loc, Bc))
     _check("bounds", bounds, torch.int64, (L + 1, Bc), dev)
-    _check("inbox", inbox, torch.int32, device=dev)
-    if inbox.dim() != 2 or inbox.shape[1] != 4:
-        raise ValueError("raw_walk_xp: inbox must be [n_in, 4]")
-    _check("outbox", outbox, torch.int32, device=dev)
-    if outbox.dim() != 3 or outbox.shape[0] != P or outbox.shape[2] != 4:
-        raise ValueError(f"raw_walk_xp: outbox must be [{P}, cap, 4]")
-    _check("counts", counts, torch.int32, (P,), dev)
-    if ends is not None:
-        _check("ends", ends, torch.int32, (rows, Bc), dev)
-    n_in = inbox.shape[0]
-    plan = schedule.xp_walk_plan(extent, Bc, n_in, sm_count(dev), alias)
+    plan = schedule.xp_walk_plan(extent, Bc, 0, sm_count(dev),
+                                 alias_prob is not None).own
     with torch.cuda.device(dev):
         err = build.library().fora_raw_walk_xp(
             _table(r), r_ld, _table(cum), cum[0].stride(1) if Bc > 1 else
             n_loc, _ptr(bounds), L, n_loc, Bc, rows, lane_lo, n_loc, shard0,
-            G, P, _ptr(out), out_ld, _ptr(ends), _ptr(inbox), n_in,
-            _ptr(outbox), outbox.shape[1], _ptr(counts), _table(indptr),
-            _table(indices), _table(alias_prob) if alias else None,
-            _table(alias_other) if alias else None, seed % 2**64,
-            inv_log1m_alpha(alpha), max_hops, plan.walks_per_lane,
-            plan.tiles, plan.blocks, _stream(out))
+            G, P, _ptr(out), out_ld, _ptr(ends), _ptr(outbox),
+            outbox.shape[1], _ptr(counts),
+            *_xp_graph(indptr, indices, alias_prob, alias_other),
+            seed % 2**64, inv_log1m_alpha(alpha), max_hops,
+            plan.walks_per_lane, plan.tiles, plan.blocks, _stream(out))
     _raise_on(err, "raw_walk_xp")
     if plan.blocks:
         raw_walk_xp.launches += 1
+
+
+def raw_walk_xp_inbox(inbox: torch.Tensor, out: torch.Tensor,
+                      indptr: list, indices: list, alias_prob, alias_other,
+                      seed: int, shard0: int, G: int, outbox: torch.Tensor,
+                      counts: torch.Tensor,
+                      ends: Optional[torch.Tensor] = None) -> None:
+    """K6+K4-xp's inbox form, in place: a later round of a process's share
+    of a chunk, in one launch.  The records of ``inbox`` [n_in, 4] int32
+    (w, cur, h | len << 16, weight's bits), handed over by the other
+    processes, walk on from where they stopped over this process's
+    slices (as :func:`raw_walk_xp` takes them), each ending, adding its
+    weight into ``out`` at column w % Bc (and ``ends``, [rows, Bc] int32,
+    at w) or leaving into ``outbox`` / ``counts`` (zeroed here) as there.
+    One launch on ``out``'s card, every tensor there."""
+    rows = -1 if ends is None else ends.shape[0]
+    L, P, n_loc, Bc, out_ld, dev = _xp_common(
+        "raw_walk_xp_inbox", out, indptr, indices, alias_prob, alias_other,
+        shard0, G, outbox, counts, ends, rows)
+    _check("inbox", inbox, torch.int32, device=dev)
+    if inbox.dim() != 2 or inbox.shape[1] != 4:
+        raise ValueError("raw_walk_xp_inbox: inbox must be [n_in, 4]")
+    n_in = inbox.shape[0]
+    plan = schedule.xp_walk_plan(0, Bc, n_in, sm_count(dev),
+                                 alias_prob is not None).inbox
+    with torch.cuda.device(dev):
+        err = build.library().fora_raw_walk_xp_inbox(
+            _ptr(inbox), n_in, Bc, n_loc, shard0, L, G, P, _ptr(out), out_ld,
+            _ptr(ends), _ptr(outbox), outbox.shape[1], _ptr(counts),
+            *_xp_graph(indptr, indices, alias_prob, alias_other),
+            seed % 2**64, plan.walks_per_lane, plan.blocks, _stream(out))
+    _raise_on(err, "raw_walk_xp_inbox")
+    if plan.blocks:
+        raw_walk_xp_inbox.launches += 1
 
 
 def _source_walk_args(sources, out, rows, indptr, indices, alias_prob,
@@ -1303,7 +1358,7 @@ WRAPPERS = (push_prepass, backward_prepass, gather_scatter_add, index_spmv,
             reduce_scatter_onepass, row_scatter_add, exchange_clear,
             frontier_compact, frontier_prepass, frontier_push, walk_demand,
             expand_lanes, accumulate_endpoints, raw_walk, raw_walk_xp,
-            source_walk, philox_blocks)
+            raw_walk_xp_inbox, source_walk, philox_blocks)
 for _w in WRAPPERS:
     _w.launches = 0
 topk_bounds.last_state = None

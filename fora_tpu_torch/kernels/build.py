@@ -54,9 +54,11 @@ SIGNATURES = {
                       _P, _LL, _P, _P, _P, _P, _P, ctypes.c_ulonglong, _F,
                       _I, _I, _LL, _LL, _P],
     "fora_raw_walk_xp": [_P, _LL, _P, _LL, _P, _I, _LL, _I, _LL, _LL, _I,
-                         _I, _I, _I, _P, _LL, _P, _P, _LL, _P, _LL, _P, _P,
-                         _P, _P, _P, ctypes.c_ulonglong, _F, _I, _I, _LL,
-                         _LL, _P],
+                         _I, _I, _I, _P, _LL, _P, _P, _LL, _P, _P, _P, _P,
+                         _P, ctypes.c_ulonglong, _F, _I, _I, _LL, _LL, _P],
+    "fora_raw_walk_xp_inbox": [_P, _LL, _I, _I, _I, _I, _I, _I, _P, _LL, _P,
+                               _P, _LL, _P, _P, _P, _P, _P,
+                               ctypes.c_ulonglong, _I, _LL, _P],
     "fora_source_walk": [_P, _I, _P, _LL, _LL, _P, _LL, _P, _P, _P, _P, _P,
                          _P, _I, ctypes.c_ulonglong, _F, _I, _F, _I, _LL,
                          _LL, _P],
@@ -177,7 +179,8 @@ def load_alone(src: Path, signatures: dict) -> ctypes.CDLL:
     and this package's sources (which ``src`` may include), and loaded
     with ctypes; each entry point named in ``signatures`` gets those
     argtypes and an int result.  For probes that time another form of a
-    kernel beside this package's."""
+    kernel beside this package's.  The compiler's output (each kernel's
+    registers and spills) is kept beside the library as nvcc.log."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode() + src.read_bytes())
     for f in sources() + headers():
         h.update(f.read_bytes())
@@ -185,8 +188,13 @@ def load_alone(src: Path, signatures: dict) -> ctypes.CDLL:
     if not so.exists():
         so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f".libother.{os.getpid()}.tmp")
-        subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                       check=True)
+        proc = subprocess.run(
+            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True, text=True)
+        (so.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} (exit "
+                               f"{proc.returncode}):\n{proc.stderr[-4000:]}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in signatures.items():

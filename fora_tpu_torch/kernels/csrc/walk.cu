@@ -137,32 +137,52 @@
 // and r at the lanes' nodes and of the output it adds into
 // (chip_smoke.py::raw_walk_bound).  No [W, B] array, so no bytes a lane.
 //
-// K6+K4-xp (xp_walk_kernel<kAlias>) is K6+K4's sharded form in one process
-// of several: the raw one-shot's walk phase with its G graph shards spread
-// over P processes of L shards each (process q holds shards q L .. q L + L -
-// 1, and so the rows q L n_loc .. (q + 1) L n_loc - 1).  It replaces
-// fora_tpu/ops/walk.py::sharded_lockstep_walk (225-266), whose every lane
-// advances one hop at a time on every shard, the owner's sample combined
-// by one psum a hop (G W_loc B 4 bytes a hop).  Here a walk is handed to
-// the process that owns its node instead.  One launch takes two sources of
-// walks, both run through walk_range's queue and hop(): the chunk's own
-// lanes of this process (bounds' rows of its L shards; each searched as
-// K6+K4's lookahead searches it, walk key t * Bc + b, h = 0) and an inbox
-// of 16-byte records (w, cur, h, weight) that other processes handed over.
-// The slice table holds this process's L slices at their global shard
-// index, so hop() reads them as K6+K4's sharded form does.  A walk advances
-// while its node lies in the process's rows; a walk that ends adds its
-// weight at its endpoint (any row) into the process's [n_pad, Bc] partial
-// (column w % Bc), one RED of its own; a walk whose next hop starts at
-// another process's node leaves as a record into that destination's
-// outbox, its slot from one atomic a destination a warp (the lanes that
-// leave to one destination grouped by __match_any_sync).  A hop's draw
-// depends only on (seed, w, h) and the length on (seed, w), so every walk
-// ends where K6+K4's sharded form ends it, bit for bit; only the order of
-// the f32 adds differs.  The outbox holds, per destination, as many
+// K6+K4-xp is K6+K4's sharded form in one process of several: the raw
+// one-shot's walk phase with its G graph shards spread over P processes of
+// L shards each (process q holds shards q L .. q L + L - 1, and so the rows
+// q L n_loc .. (q + 1) L n_loc - 1).  It replaces fora_tpu/ops/walk.py::
+// sharded_lockstep_walk (225-266), whose every lane advances one hop at a
+// time on every shard, the owner's sample combined by one psum a hop (G
+// W_loc B 4 bytes a hop).  Here a walk is handed to the process that owns
+// its node instead, as a 16-byte record
+//   (w, cur, h | len << 16, weight bits),  h < len <= max_hops < 2^15,
+// and a chunk runs in rounds: round 0 walks the process's own lanes, each
+// later round the records the others handed over in the round before.  So
+// a launch has one source of walks, and each source is a form of its own,
+// with its own launch bounds and plan (kernels/schedule.py::xp_walk_plan):
+//  * The own-lane form (xp_own_kernel, round 0) is raw_walk_range itself,
+//    sharded, with a leave branch: the lane search (lookahead and gallop),
+//    the walks of no hop grouped by endpoint (add_grouped), the slice table
+//    holding this process's L slices at their global shard index, every
+//    end added into the process's one [n_pad, Bc] partial.
+//  * The inbox form (xp_inbox_kernel, rounds >= 1) runs walk_range's queue
+//    over a warp's 32 k records: a refill is one 16-byte load a lane, and
+//    the length travels in the record, so no refill computes a Philox
+//    block 0 or a logf.  No bounds, demand or residue is read.
+// Each form runs 4 blocks an SM (kXpOwnBlocksPerSM, kXpInboxBlocksPerSM):
+// the staged outbox's state and its out-of-line flush take 64 registers,
+// and at K6+K4's 6 blocks (40 registers) both forms spill and run slower
+// on the H100 (probes/xp_walk_probe.py; PERF.md).
+// In both, a walk advances while its node lies in the process's rows; one
+// that ends adds its weight at its endpoint (any row, column w % Bc) into
+// the partial; one whose next hop starts at another process's node leaves.
+// Leaving records go first into the block's stage in shared memory
+// (XpStage: kStageRecords records, kWarpStage of them a warp's, split into
+// a bin for each other process, each bin's count in shared memory beside
+// it); the lanes that leave to one destination in a step are one group
+// (__match_any_sync), whose leader reads the bin's count for all of it; a
+// bin that cannot take the group's records takes its place in the outbox
+// with one global atomic and goes out in contiguous 16-byte stores, and
+// what the bins hold when the warp's walks are done goes out alike.  A
+// warp owns its bins, so no warp waits for another and the counts need no
+// atomic.  The earlier kernel took one global atomic a warp, step and
+// destination on only P words (probes/xp_walk_forms.cu keeps it, and these
+// forms with its per-group atomics, for probes/xp_walk_probe.py).  A hop's
+// draw depends only on (seed, w, h) and the length on (seed, w), so every
+// walk ends where K6+K4's sharded form ends it, bit for bit; only the order
+// of the f32 adds differs.  The outbox holds, per destination, as many
 // records as the launch has walks, so none is ever dropped: counts past it
-// would mean a fault, and the host refuses them.  A simple kernel: the
-// walks that end without a hop add alone (K6+K4 groups them).
+// would mean a fault, and the host refuses them.
 // What bounds it: K6+K4's bound on the process's walks, plus 16 bytes a
 // record written here and read by the receiver (chip_smoke.py).
 //
@@ -440,6 +460,14 @@ struct RawArgs {
   uint32_t rows;            // lane rows of the chunk: lanes lane_lo .. + rows - 1
   uint32_t tiles;           // warp tiles of a column: ceil(rows / range)
   int Bc, n, G;             // columns, rows of a residue, shards
+  int shard0;               // K6+K4-xp: the global index of shard 0 here
+};
+
+// K6+K4's walks never leave the card's rows (K6+K4-xp's StagedLeave below)
+struct NoLeave {
+  static constexpr bool kXp = false;
+  __device__ __forceinline__ bool outside(int) const { return false; }
+  __device__ __forceinline__ void put(bool, int, uint32_t, int, int, float, int) const {}
 };
 
 template <typename T>
@@ -549,16 +577,24 @@ __device__ __forceinline__ void add_grouped(bool ending, int cur, int shard, flo
 // whose lanes the column demands (padding lanes are not walked).  The queue
 // is walk_range's; a refill's lookahead lane also finds its lane's start
 // node and weight, and a walk that ends adds its weight: grouped by
-// endpoint in the refill (the walks of no hop), alone after a hop.
-template <bool kAlias, bool kSharded>
+// endpoint in the refill (the walks of no hop), alone after a hop.  With a
+// Leave that hands walks over (K6+K4-xp), a walk that leaves the process's
+// rows goes to it.
+template <bool kAlias, bool kSharded, class Leave = NoLeave>
 __device__ __forceinline__ void raw_walk_range(const WalkArgs& a, const RawArgs& ra,
-                                               const ShardView& tab, const RawView& rv) {
+                                               const ShardView& tab, const RawView& rv,
+                                               const Leave& lv = Leave()) {
   __shared__ float s_add[kBlockWarps][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const uint64_t tile = (uint64_t)blockIdx.x * kBlockWarps + warp;
   if (tile >= (uint64_t)ra.tiles * (uint64_t)ra.Bc) return;
   const int b = (int)(tile / ra.tiles);
-  const uint32_t t0 = (uint32_t)(tile - (uint64_t)b * ra.tiles) * a.range;
+  uint32_t t0 = (uint32_t)(tile - (uint64_t)b * ra.tiles) * a.range;
+  if (Leave::kXp) {  // K6+K4-xp: the tiles start at the column's first lane here
+    const uint64_t t = (uint64_t)t0 + (uint64_t)max(__ldg(ra.bounds + b) - ra.lane_lo, 0ll);
+    if (t >= ra.rows) return;
+    t0 = (uint32_t)t;
+  }
   // the column's walks: lanes below total[b], or bounds[G, b] sharded
   const long long col_total =
       kSharded ? __ldg(ra.bounds + (long long)ra.G * ra.Bc + b) : (long long)__ldg(ra.total + b);
@@ -612,7 +648,7 @@ __device__ __forceinline__ void raw_walk_range(const WalkArgs& a, const RawArgs&
           v = sh == base_h ? gallop(col, ra.n, base_v, x) : upper_bound(col, ra.n, x);
           const int om = __ldg(col + v) - (v > 0 ? __ldg(col + v - 1) : 0);
           ahead_w = __ldg(rv.r[sh] + (long long)v * ra.r_ld + b) / (float)om;
-          ahead_start = kSharded ? v + sh * a.n_loc : v;
+          ahead_start = kSharded ? v + (Leave::kXp ? ra.shard0 + sh : sh) * a.n_loc : v;
           ahead_len = walk_length(a, t * (uint32_t)ra.Bc + (uint32_t)b);
           ahead_h = sh;
         }
@@ -637,13 +673,19 @@ __device__ __forceinline__ void raw_walk_range(const WalkArgs& a, const RawArgs&
         else
           ending = true;  // no hop: the walk ends where it starts
       }
-      add_grouped<kSharded>(ending, cur, shard, wt, w, b, ra, rv, adds, lane);
+      // K6+K4-xp adds every walk into one partial (out[0])
+      add_grouped<kSharded && !Leave::kXp>(ending, cur, shard, wt, w, b, ra, rv, adds, lane);
       used = min(filled, used + __popc(need));
     }
     if (__all_sync(kFull, idle)) break;
     const bool ending = !idle && hop<kAlias, false, kSharded>(a, tab, w, cur, h, len);
-    add_alone<kSharded>(ending, cur, shard, wt, w, b, ra, rv);
+    add_alone<kSharded && !Leave::kXp>(ending, cur, shard, wt, w, b, ra, rv);
     if (ending) idle = true;
+    if (Leave::kXp) {  // a walk whose next hop starts at another process's node
+      const bool leave = !idle && lv.outside(cur);
+      lv.put(leave, cur, w, h, len, wt, lane);
+      if (leave) idle = true;
+    }
   }
 }
 
@@ -677,61 +719,203 @@ __global__ void __launch_bounds__(kBlockThreads, kRawBlocksPerSM)
 
 // ---- K6+K4-xp: the raw walk phase's chunk in one process of several -------
 
-// blocks an SM in __launch_bounds__: the two sources of walks and the
-// outbox take more registers than K6+K4's 40
-constexpr int kXpBlocksPerSM = 4;
+// blocks an SM in __launch_bounds__ of each form (kernels/schedule.py::
+// XP_OWN_BLOCKS_PER_SM, XP_INBOX_BLOCKS_PER_SM; at most 64 registers)
+constexpr int kXpOwnBlocksPerSM = 4;
+constexpr int kXpInboxBlocksPerSM = 4;
+// a record holds h | len << 16: lengths below 2^15
+constexpr int kMaxXpHops = (1 << 15) - 1;
+// a block's stage of leaving records, 16 KiB: 2 KiB a warp
+constexpr int kStageRecords = 1024;
 
-struct XpArgs {
-  const long long* bounds;  // [L + 1, Bc] this process's rows of the chunk's running totals
-  const int4* inbox;        // [n_in] walks handed over: (w, cur, h, weight bits)
-  int4* outbox;             // [P, cap] walks that leave, by destination process
-  int* counts;              // [P] records written per destination (may pass cap: a fault)
-  int* ends;                // [rows, Bc] endpoints of the walks that end here, or null
-  float* out;               // [n_pad, Bc] this process's partial (row stride out_ld)
-  long long r_ld, cum_ld, out_ld, lane_lo, n_in, cap;
-  uint32_t rows;            // lane rows of the chunk: lanes lane_lo .. + rows - 1
-  uint32_t tiles;           // warp tiles of a column's own lanes
-  int Bc, n, L, shard0, rank, proc_rows;  // proc_rows = L * n_loc
+struct XpOut {
+  int4* outbox;   // [P, cap] walks that leave, by destination process
+  int* counts;    // [P] records written per destination (may pass cap: a fault)
+  long long cap;
+  int P, rank;
+  int lo, rows;   // the process's rows: lo .. lo + rows - 1 (rows = L n_loc)
 };
 
-// A warp's tile: a column's own lanes (tile < tiles * Bc: column tile /
-// tiles, from the column's first own lane in the chunk) or inbox records
-// (range of them a warp).  walk_range's queue; the lookahead lane searches
-// an own lane's start and weight as raw_walk_range does, or reads a record.
-template <bool kAlias>
-__device__ __forceinline__ void xp_walk_range(const WalkArgs& a, const XpArgs& xa,
-                                              const ShardView& tab, const RawView& rv) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const uint64_t tile = (uint64_t)blockIdx.x * kBlockWarps + warp;
-  const uint64_t own_tiles = (uint64_t)xa.tiles * (uint64_t)xa.Bc;
-  const bool from_inbox = tile >= own_tiles;
-  const unsigned below = (1u << lane) - 1u;
-  int b = 0, base_v = 0, base_h = 0;
-  uint32_t t0 = 0, count = 0;
-  long long r0 = 0;
-  if (!from_inbox) {
-    b = (int)(tile / xa.tiles);
-    const long long first = max(__ldg(xa.bounds + b), xa.lane_lo);
-    const long long last = min(__ldg(xa.bounds + (long long)xa.L * xa.Bc + b),
-                               xa.lane_lo + (long long)xa.rows);
-    const long long l0 = first + (long long)(tile - (uint64_t)b * xa.tiles) * a.range;
-    if (l0 >= last) return;
-    t0 = (uint32_t)(l0 - xa.lane_lo);
-    count = (uint32_t)min((long long)a.range, last - l0);
-    while (__ldg(xa.bounds + (long long)(base_h + 1) * xa.Bc + b) <= l0) ++base_h;
-    const int* col0 = rv.cum[base_h] + (long long)b * xa.cum_ld;
-    base_v = warp_upper_bound(col0, xa.n,
-                              (int)(l0 - __ldg(xa.bounds + (long long)base_h * xa.Bc + b)), lane);
-  } else {
-    r0 = (long long)(tile - own_tiles) * a.range;
-    if (r0 >= xa.n_in) return;
-    count = (uint32_t)min((long long)a.range, xa.n_in - r0);
+// a warp's part of the stage: a bin for each other process
+constexpr int kWarpStage = kStageRecords / kBlockWarps;
+
+struct XpStage {
+  int4 rec[kStageRecords];            // warp w's bin j at rec + w * kWarpStage + j * bin_cap
+  int fill[kBlockWarps][kMaxShards];  // records in warp w's bin j
+};
+
+// A bin's `count` records into a destination's outbox `dst` [cap] by the
+// lanes of `peers`: their leader takes the records' place with one global
+// atomic on the destination's count, then the lanes write them in
+// contiguous 16-byte stores.  Called once a bin's worth of records, out of
+// line: inlined, its warp-level operations stopped the kernel with an
+// illegal instruction on the H100 (nvcc 12.8; PERF.md).
+__device__ __noinline__ void flush_group(const int4* bin, int count, int* counter, int4* dst,
+                                         long long cap, unsigned peers) {
+  const int lane = threadIdx.x & 31, leader = __ffs(peers) - 1;
+  const int m = __popc(peers), pos = __popc(peers & ((1u << lane) - 1u));
+  int base = 0;
+  if (lane == leader) base = atomicAdd(counter, count);
+  base = __shfl_sync(peers, base, leader);
+  for (int i = pos; i < count; i += m)
+    if ((long long)base + i < cap) dst[base + i] = bin[i];
+}
+
+// The records of a group wider than its bin (P > 5), each lane's own
+// `rec`, straight into the outbox `dst` [cap] with one global atomic; out
+// of line as flush_group is.
+__device__ __noinline__ void send_group(int4 rec, int* counter, int4* dst, long long cap,
+                                        unsigned peers) {
+  const int lane = threadIdx.x & 31, leader = __ffs(peers) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(counter, __popc(peers));
+  base = __shfl_sync(peers, base, leader);
+  const long long slot = (long long)base + __popc(peers & ((1u << lane) - 1u));
+  if (slot < cap) dst[slot] = rec;
+}
+
+// The staged outbox: a leaving walk's record goes into its warp's bin for
+// its destination in the block's stage, the bin's count in shared memory
+// beside it; a bin that cannot take a group's records is flushed first,
+// and drain() flushes what the warp's bins hold when its walks are done.
+// A warp owns its bins, so no warp waits for another and the counts need
+// no atomic.  Only the lanes that leave take part, grouped by destination
+// as the earlier kernel grouped them.
+struct StagedLeave {
+  static constexpr bool kXp = true;
+  using Shared = XpStage;
+  XpStage* st;
+  XpOut xo;
+  int bin_cap;  // records a bin: kWarpStage / (P - 1)
+
+  // before the block's first __syncthreads
+  static __device__ __forceinline__ StagedLeave make(XpStage& st, const XpOut& xo) {
+    if (threadIdx.x < kBlockWarps * kMaxShards) (&st.fill[0][0])[threadIdx.x] = 0;
+    return StagedLeave{&st, xo, kWarpStage / max(xo.P - 1, 1)};
   }
+
+  // a bin's `count` records into destination d's outbox
+  __device__ __forceinline__ void flush(const int4* bin, int count, int d, unsigned peers) const {
+    flush_group(bin, count, xo.counts + d, xo.outbox + (long long)d * xo.cap, xo.cap, peers);
+  }
+
+  __device__ __forceinline__ bool outside(int cur) const {
+    return (unsigned)(cur - xo.lo) >= (unsigned)xo.rows;
+  }
+
+  // Every lane calls it; the lanes with `leave` hand their walk to the
+  // process that owns cur, each destination's group into its bin.
+  __device__ __forceinline__ void put(bool leave, int cur, uint32_t w, int h, int len, float wt,
+                                      int lane) const {
+    const unsigned leaving = __ballot_sync(kFull, leave);
+    if (!leave) return;
+    const int d = cur / xo.rows;
+    const unsigned peers = __match_any_sync(leaving, d);
+    const int leader = __ffs(peers) - 1, m = __popc(peers);
+    const int j = d - (d > xo.rank ? 1 : 0);
+    int4* const bin = st->rec + (threadIdx.x >> 5) * kWarpStage + j * bin_cap;
+    volatile int* const fill = &st->fill[threadIdx.x >> 5][j];
+    const int4 rec = make_int4((int)w, cur, h | (len << 16), __float_as_int(wt));
+    const int pos = __popc(peers & ((1u << lane) - 1u));
+    int f = 0;  // the bin's count, read by the group's leader for all of it
+    if (lane == leader) f = *fill;
+    f = __shfl_sync(peers, f, leader);
+    if (f > 0 && f + m > bin_cap) {  // full: out with it
+      flush(bin, f, d, peers);
+      f = 0;
+      __syncwarp(peers);
+    }
+    if (m > bin_cap) {  // a bin smaller than the group (P > 5): the group goes out itself
+      send_group(rec, xo.counts + d, xo.outbox + (long long)d * xo.cap, xo.cap, peers);
+    } else {
+      bin[f + pos] = rec;
+      f += m;
+    }
+    __threadfence_block();
+    __syncwarp(peers);
+    if (lane == leader) {
+      *fill = f;
+      __threadfence_block();
+    }
+  }
+
+  // when the warp's walks are done: what its bins hold, written by one lane
+  __device__ __forceinline__ void drain() const {
+    if ((threadIdx.x & 31) != 0) return;
+    __threadfence_block();
+    const int warp = threadIdx.x >> 5;
+    for (int j = 0; j < xo.P - 1; ++j) {
+      const int f = ((volatile int*)st->fill[warp])[j];
+      const int d = j + (j >= xo.rank ? 1 : 0);
+      if (f > 0) flush(st->rec + warp * kWarpStage + j * bin_cap, f, d, 1u);
+    }
+  }
+};
+
+
+// the own-lane form: raw_walk_range over this process's lanes of the chunk
+// (ra.G = L rows of bounds, ra.shard0 their first global shard), its L
+// slices at their global index in the table, every end into rt.out[0]
+template <bool kAlias, int kBlocks, class Leave>
+__global__ void __launch_bounds__(kBlockThreads, kBlocks)
+    xp_own_kernel(const WalkArgs a, const RawArgs ra, const ShardTables t, const RawTables rt,
+                  const XpOut xo) {
+  __shared__ const int* indptr[kMaxShards];
+  __shared__ const int* indices[kMaxShards];
+  __shared__ const float* alias_prob[kMaxShards];
+  __shared__ const int* alias_other[kMaxShards];
+  __shared__ const float* res[kMaxShards];
+  __shared__ const int* cum[kMaxShards];
+  __shared__ float* out[kMaxShards];
+  __shared__ typename Leave::Shared stage;
+  const int i = threadIdx.x;
+  if (i < kMaxShards) {  // by constant indices: see the sharded form above
+    indptr[i] = pick(t.indptr, i);
+    indices[i] = pick(t.indices, i);
+    alias_prob[i] = pick(t.alias_prob, i);
+    alias_other[i] = pick(t.alias_other, i);
+    res[i] = pick(rt.r, i);
+    cum[i] = pick(rt.cum, i);
+    out[i] = pick(rt.out, i);
+  }
+  const Leave lv = Leave::make(stage, xo);
+  __syncthreads();
+  raw_walk_range<kAlias, true, Leave>(a, ra, ShardView{indptr, indices, alias_prob, alias_other},
+                                      RawView{res, cum, out}, lv);
+  lv.drain();
+}
+
+struct XpIn {
+  const int4* inbox;  // [n_in] walks handed over: (w, cur, h | len << 16, weight bits)
+  long long n_in;
+  float* out;         // [n_pad, Bc] this process's partial (row stride out_ld)
+  long long out_ld;
+  int* ends;          // [rows, Bc] endpoints of the walks that end here, or null
+  int Bc;
+};
+
+// a walk of the inbox that ends adds its weight at its endpoint, column w % Bc
+__device__ __forceinline__ void inbox_add(bool ending, int cur, uint32_t w, float wt,
+                                          const XpIn& xi) {
+  if (!ending) return;
+  if (xi.ends != nullptr) xi.ends[w] = cur;
+  if (wt != 0.0f) atomicAdd(xi.out + (long long)cur * xi.out_ld + w % (uint32_t)xi.Bc, wt);
+}
+
+// A warp's range of 32 k records, run through walk_range's queue: the
+// lookahead is one 16-byte load a lane, the length comes with the record.
+template <bool kAlias, class Leave>
+__device__ __forceinline__ void xp_inbox_range(const WalkArgs& a, const XpIn& xi,
+                                               const ShardView& tab, const Leave& lv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long r0 = ((long long)blockIdx.x * kBlockWarps + warp) * a.range;
+  if (r0 >= xi.n_in) return;
+  const uint32_t count = (uint32_t)min((long long)a.range, xi.n_in - r0);
+  const int4* const recs = xi.inbox + r0;
+  const unsigned below = (1u << lane) - 1u;
   uint32_t batch = 0, filled = 0, used = 0;
-  uint32_t ahead_w = 0;
-  int ahead_start = 0, ahead_len = 0, ahead_h = 0;
-  float ahead_wt = 0.0f;
-  uint32_t w = 0;  // this lane's walk: its Philox key, node, hops, length, weight
+  int4 ahead = make_int4(0, 0, 0, 0);  // lane i: record batch + i
+  uint32_t w = 0;  // this lane's walk: its Philox key, node, hops taken, length, weight
   int cur = 0, h = 0, len = 0;
   float wt = 0.0f;
   bool idle = true;
@@ -745,101 +929,57 @@ __device__ __forceinline__ void xp_walk_range(const WalkArgs& a, const XpArgs& x
         filled = used = 0;
         if (batch >= count) break;
         filled = min(32u, count - batch);
-        if (!from_inbox) {
-          int v = base_v, sh = base_h;
-          if ((uint32_t)lane < filled) {
-            const uint32_t t = t0 + batch + lane;
-            const long long l = xa.lane_lo + t;
-            while (__ldg(xa.bounds + (long long)(sh + 1) * xa.Bc + b) <= l) ++sh;
-            const int x = (int)(l - __ldg(xa.bounds + (long long)sh * xa.Bc + b));
-            const int* col = rv.cum[sh] + (long long)b * xa.cum_ld;
-            v = sh == base_h ? gallop(col, xa.n, base_v, x) : upper_bound(col, xa.n, x);
-            const int om = __ldg(col + v) - (v > 0 ? __ldg(col + v - 1) : 0);
-            ahead_wt = __ldg(rv.r[sh] + (long long)v * xa.r_ld + b) / (float)om;
-            ahead_start = v + (xa.shard0 + sh) * a.n_loc;
-            ahead_w = t * (uint32_t)xa.Bc + (uint32_t)b;
-            ahead_len = walk_length(a, ahead_w);
-            ahead_h = 0;
-          }
-          base_v = __shfl_sync(kFull, v, filled - 1);
-          base_h = __shfl_sync(kFull, sh, filled - 1);
-        } else if ((uint32_t)lane < filled) {
-          const int4 rec = xa.inbox[r0 + batch + lane];
-          ahead_w = (uint32_t)rec.x;
-          ahead_start = rec.y;
-          ahead_h = rec.z;
-          ahead_wt = __int_as_float(rec.w);
-          ahead_len = walk_length(a, ahead_w);
-        }
+        if ((uint32_t)lane < filled) ahead = __ldg(recs + batch + lane);
       }
       const uint32_t src = used + __popc(need & below);
-      const uint32_t take_w = __shfl_sync(kFull, ahead_w, src & 31);
-      const int take_start = __shfl_sync(kFull, ahead_start, src & 31);
-      const int take_len = __shfl_sync(kFull, ahead_len, src & 31);
-      const int take_h = __shfl_sync(kFull, ahead_h, src & 31);
-      const float take_wt = __shfl_sync(kFull, ahead_wt, src & 31);
+      const int take_w = __shfl_sync(kFull, ahead.x, src & 31);
+      const int take_cur = __shfl_sync(kFull, ahead.y, src & 31);
+      const int take_hl = __shfl_sync(kFull, ahead.z, src & 31);
+      const int take_wt = __shfl_sync(kFull, ahead.w, src & 31);
+      bool ending = false;
       if (idle && src < filled) {
-        w = take_w;
-        cur = take_start;
-        len = take_len;
-        h = take_h;
-        wt = take_wt;
-        if (h < len) {
+        w = (uint32_t)take_w;
+        cur = take_cur;
+        h = take_hl & 0xffff;
+        len = take_hl >> 16;
+        wt = __int_as_float(take_wt);
+        if (h < len)
           idle = false;
-        } else {  // no hop left: the walk ends where it is
-          if (xa.ends != nullptr) xa.ends[w] = cur;
-          if (wt != 0.0f) atomicAdd(xa.out + (long long)cur * xa.out_ld + w % (uint32_t)xa.Bc, wt);
-        }
+        else
+          ending = true;  // no hop left (no record of this kernel's)
       }
+      inbox_add(ending, cur, w, wt, xi);
       used = min(filled, used + __popc(need));
     }
     if (__all_sync(kFull, idle)) break;
-    bool ended = false, leave = false;
-    if (!idle) {
-      ended = hop<kAlias, false, true>(a, tab, w, cur, h, len);
-      leave = !ended && cur / xa.proc_rows != xa.rank;
-    }
-    if (ended) {
-      if (xa.ends != nullptr) xa.ends[w] = cur;
-      if (wt != 0.0f) atomicAdd(xa.out + (long long)cur * xa.out_ld + w % (uint32_t)xa.Bc, wt);
-    }
-    const unsigned leaving = __ballot_sync(kFull, leave);
-    if (leave) {  // one slot counter a destination, one atomic per group
-      const int dest = cur / xa.proc_rows;
-      const unsigned peers = __match_any_sync(leaving, dest);
-      const int leader = __ffs(peers) - 1;
-      int base = 0;
-      if (lane == leader) base = atomicAdd(xa.counts + dest, __popc(peers));
-      base = __shfl_sync(peers, base, leader);
-      const long long slot = (long long)base + __popc(peers & below);
-      if (slot < xa.cap)
-        xa.outbox[(long long)dest * xa.cap + slot] = make_int4((int)w, cur, h, __float_as_int(wt));
-    }
-    if (ended || leave) idle = true;
+    const bool ending = !idle && hop<kAlias, false, true>(a, tab, w, cur, h, len);
+    inbox_add(ending, cur, w, wt, xi);
+    if (ending) idle = true;
+    const bool leave = !idle && lv.outside(cur);
+    lv.put(leave, cur, w, h, len, wt, lane);
+    if (leave) idle = true;
   }
 }
 
-template <bool kAlias>
-__global__ void __launch_bounds__(kBlockThreads, kXpBlocksPerSM)
-    xp_walk_kernel(const WalkArgs a, const XpArgs xa, const ShardTables t, const RawTables rt) {
+template <bool kAlias, int kBlocks, class Leave>
+__global__ void __launch_bounds__(kBlockThreads, kBlocks)
+    xp_inbox_kernel(const WalkArgs a, const XpIn xi, const ShardTables t, const XpOut xo) {
   __shared__ const int* indptr[kMaxShards];
   __shared__ const int* indices[kMaxShards];
   __shared__ const float* alias_prob[kMaxShards];
   __shared__ const int* alias_other[kMaxShards];
-  __shared__ const float* res[kMaxShards];
-  __shared__ const int* cum[kMaxShards];
+  __shared__ typename Leave::Shared stage;
   const int i = threadIdx.x;
   if (i < kMaxShards) {  // by constant indices: see the sharded form above
     indptr[i] = pick(t.indptr, i);
     indices[i] = pick(t.indices, i);
     alias_prob[i] = pick(t.alias_prob, i);
     alias_other[i] = pick(t.alias_other, i);
-    res[i] = pick(rt.r, i);
-    cum[i] = pick(rt.cum, i);
   }
+  const Leave lv = Leave::make(stage, xo);
   __syncthreads();
-  xp_walk_range<kAlias>(a, xa, ShardView{indptr, indices, alias_prob, alias_other},
-                        RawView{res, cum, nullptr});
+  xp_inbox_range<kAlias>(a, xi, ShardView{indptr, indices, alias_prob, alias_other}, lv);
+  lv.drain();
 }
 
 // ---- K6+K4-src: walks from each column's source to endpoint mass ----------
@@ -1103,6 +1243,142 @@ int source_args(SrcLaunch* L, const int* sources, int B, float* out, long long o
   return 0;
 }
 
+// K6+K4-xp's launch, either form: its kernel's arguments, grid and stream
+struct XpLaunch {
+  WalkArgs a;
+  RawArgs ra;  // the own-lane form
+  XpIn xi;     // the inbox form
+  ShardTables t;
+  RawTables rt;
+  XpOut xo;
+  bool alias;
+  unsigned blocks;  // 0: nothing to launch
+  cudaStream_t s;
+};
+
+// the checks and arguments both forms' entries share; 0 or a cudaError_t
+int xp_args(XpLaunch* X, int L, int G, int P, int shard0, int n_loc, int Bc, float* out,
+            long long out_ld, int* ends, int* outbox, long long cap, int* counts,
+            const int* const* indptr, const int* const* indices, const float* const* alias_prob,
+            const int* const* alias_other, unsigned long long seed, int walks_per_lane,
+            long long blocks, void* stream) {
+  if ((alias_prob == nullptr) != (alias_other == nullptr)) return (int)cudaErrorInvalidValue;
+  if (L < 1 || P < 1 || G != P * L || G > kMaxShards || shard0 < 0 || shard0 % L ||
+      shard0 + L > G || n_loc < 1 || (long long)G * n_loc >= 0x7fffffffll || Bc < 0 || cap < 0 ||
+      walks_per_lane < 1 || walks_per_lane > kMaxWalksPerLane || blocks < 0 ||
+      blocks > 0x7fffffffll || out == nullptr || (cap > 0 && outbox == nullptr) ||
+      counts == nullptr || indptr == nullptr || indices == nullptr)
+    return (int)cudaErrorInvalidValue;
+  *X = XpLaunch{};
+  X->alias = alias_prob != nullptr;
+  for (int k = 0; k < L; ++k) {  // the slices at their global shard index
+    if (indptr[k] == nullptr || indices[k] == nullptr ||
+        (X->alias && (alias_prob[k] == nullptr || alias_other[k] == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    X->t.indptr[shard0 + k] = indptr[k];
+    X->t.indices[shard0 + k] = indices[k];
+    if (X->alias) {
+      X->t.alias_prob[shard0 + k] = alias_prob[k];
+      X->t.alias_other[shard0 + k] = alias_other[k];
+    }
+  }
+  X->a.range = 32u * (uint32_t)walks_per_lane;
+  X->a.seed_lo = (uint32_t)(seed & 0xffffffffull);
+  X->a.seed_hi = (uint32_t)(seed >> 32);
+  X->a.n_loc = n_loc;
+  X->xo = XpOut{reinterpret_cast<int4*>(outbox), counts, cap, P, shard0 / L, shard0 * n_loc,
+                L * n_loc};
+  X->xi.out = out;
+  X->xi.out_ld = out_ld;
+  X->xi.ends = ends;
+  X->xi.Bc = Bc;
+  X->blocks = (unsigned)blocks;
+  X->s = reinterpret_cast<cudaStream_t>(stream);
+  return 0;
+}
+
+template <int kBlocks, class Leave>
+void launch_xp_own(const XpLaunch& X) {
+  if (X.alias)
+    xp_own_kernel<true, kBlocks, Leave><<<X.blocks, kBlockThreads, 0, X.s>>>(X.a, X.ra, X.t, X.rt,
+                                                                            X.xo);
+  else
+    xp_own_kernel<false, kBlocks, Leave><<<X.blocks, kBlockThreads, 0, X.s>>>(X.a, X.ra, X.t,
+                                                                             X.rt, X.xo);
+}
+
+template <int kBlocks, class Leave>
+void launch_xp_inbox(const XpLaunch& X) {
+  if (X.alias)
+    xp_inbox_kernel<true, kBlocks, Leave><<<X.blocks, kBlockThreads, 0, X.s>>>(X.a, X.xi, X.t,
+                                                                              X.xo);
+  else
+    xp_inbox_kernel<false, kBlocks, Leave><<<X.blocks, kBlockThreads, 0, X.s>>>(X.a, X.xi, X.t,
+                                                                               X.xo);
+}
+
+// fora_raw_walk_xp's checks and arguments (the own-lane form); 0 or a
+// cudaError_t
+int xp_own_args(XpLaunch* X, const float* const* r, long long r_ld, const int* const* cum,
+                long long cum_ld, const long long* bounds, int L, long long n, int Bc,
+                long long rows, long long lane_lo, int n_loc, int shard0, int G, int P, float* out,
+                long long out_ld, int* ends, int* outbox, long long cap, int* counts,
+                const int* const* indptr, const int* const* indices,
+                const float* const* alias_prob, const int* const* alias_other,
+                unsigned long long seed, float inv_log1m_alpha, int max_hops, int walks_per_lane,
+                long long tiles, long long blocks, void* stream) {
+  const int bad = xp_args(X, L, G, P, shard0, n_loc, Bc, out, out_ld, ends, outbox, cap, counts,
+                          indptr, indices, alias_prob, alias_other, seed, walks_per_lane, blocks,
+                          stream);
+  if (bad) return bad;
+  if (n <= 0 || n > n_loc || rows < 0 || lane_lo < 0 || rows * (long long)Bc >= (1ll << 32) ||
+      max_hops < 0 || max_hops > kMaxXpHops || tiles < 0 || tiles * (long long)Bc > blocks * kBlockWarps ||
+      r == nullptr || cum == nullptr || bounds == nullptr)
+    return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < L; ++k) {
+    if (r[k] == nullptr || cum[k] == nullptr) return (int)cudaErrorInvalidValue;
+    X->rt.r[k] = r[k];
+    X->rt.cum[k] = cum[k];
+  }
+  X->rt.out[0] = out;
+  X->a.inv_log1m_alpha = inv_log1m_alpha;
+  X->a.max_hops = max_hops;
+  RawArgs& ra = X->ra;
+  ra.bounds = bounds;
+  ra.ends = ends;
+  ra.r_ld = r_ld;
+  ra.cum_ld = cum_ld;
+  ra.out_ld = out_ld;
+  ra.lane_lo = lane_lo;
+  ra.rows = (uint32_t)rows;
+  ra.tiles = (uint32_t)tiles;
+  ra.Bc = Bc;
+  ra.n = (int)n;
+  ra.G = L;
+  ra.shard0 = shard0;
+  return 0;
+}
+
+// fora_raw_walk_xp_inbox's checks and arguments; 0 or a cudaError_t
+int xp_inbox_args(XpLaunch* X, const int* inbox, long long n_in, int Bc, int n_loc, int shard0,
+                  int L, int G, int P, float* out, long long out_ld, int* ends, int* outbox,
+                  long long cap, int* counts, const int* const* indptr,
+                  const int* const* indices, const float* const* alias_prob,
+                  const int* const* alias_other, unsigned long long seed, int walks_per_lane,
+                  long long blocks, void* stream) {
+  const int bad = xp_args(X, L, G, P, shard0, n_loc, Bc, out, out_ld, ends, outbox, cap, counts,
+                          indptr, indices, alias_prob, alias_other, seed, walks_per_lane, blocks,
+                          stream);
+  if (bad) return bad;
+  const long long range = 32ll * walks_per_lane;
+  if (n_in < 0 || (n_in > 0 && (inbox == nullptr || Bc < 1)) ||
+      (n_in + range - 1) / range > blocks * kBlockWarps)
+    return (int)cudaErrorInvalidValue;
+  X->xi.inbox = reinterpret_cast<const int4*>(inbox);
+  X->xi.n_in = n_in;
+  return 0;
+}
+
 }  // namespace
 
 // alias_prob and alias_other are both null (uniform hops) or both set;
@@ -1227,98 +1503,65 @@ extern "C" int fora_raw_walk(const float* const* r, long long r_ld, const int* c
   return (int)cudaGetLastError();
 }
 
-// K6+K4-xp: one launch of a chunk of the raw walk phase in process `rank` =
-// shard0 / L of P, which holds shards shard0 .. shard0 + L - 1 of G = P L
-// (1 <= G <= 32): their residues r[k], demands cum[k] (as fora_raw_walk's)
-// and out-CSR slices indptr[k] / indices[k] (and alias_prob[k] /
-// alias_other[k], or both null), and bounds [L + 1, Bc], this process's
-// rows of the chunk's running totals (lane l of column b is shard shard0 +
-// k's where bounds[k, b] <= l < bounds[k + 1, b]).  Its own lanes in lane_lo
-// .. lane_lo + rows - 1 walk as fora_raw_walk's sharded form walks them (walk
-// t * Bc + b), then the n_in records of `inbox` [n_in, 4] int32 (w, cur, h,
-// weight bits) from where they stopped.  A walk that ends adds its weight
-// into out [G * n_loc, Bc] (row stride out_ld) at its endpoint, column w %
-// Bc, and writes ends[w] unless ends is null; a walk whose node leaves the
-// process's rows before its last hop goes to outbox [P, cap, 4] int32 at
-// destination cur / (L n_loc), counts[d] (zeroed here by a
-// cudaMemsetAsync) counting them; a count past cap means records were not
-// written.  The plan (kernels/schedule.py::xp_walk_plan): `tiles` warp
-// tiles of 32 * walks_per_lane own lanes per column, then ceil(n_in / (32 *
-// walks_per_lane)) tiles of records, `blocks` blocks of 8 warps covering
-// them.
+// K6+K4-xp's own-lane form: round 0 of a chunk of the raw walk phase in
+// process `rank` = shard0 / L of P, which holds shards shard0 .. shard0 + L
+// - 1 of G = P L (1 <= G <= 32): their residues r[k], demands cum[k] (as
+// fora_raw_walk's) and out-CSR slices indptr[k] / indices[k] (and
+// alias_prob[k] / alias_other[k], or both null), and bounds [L + 1, Bc],
+// this process's rows of the chunk's running totals (lane l of column b is
+// shard shard0 + k's where bounds[k, b] <= l < bounds[k + 1, b]).  Its own
+// lanes in lane_lo .. lane_lo + rows - 1 walk as fora_raw_walk's sharded
+// form walks them (walk t * Bc + b, max_hops below 2^15).  A walk that
+// ends adds its weight into out [G * n_loc, Bc] (row stride out_ld) at its
+// endpoint, column b, and writes ends[w] unless ends is null; a walk whose
+// node leaves the process's rows before its last hop goes to outbox [P,
+// cap, 4] int32 at destination cur / (L n_loc) as (w, cur, h | len << 16,
+// weight bits), counts[d] (zeroed here by a cudaMemsetAsync) counting them;
+// a count past cap means records were not written.  The plan
+// (kernels/schedule.py::xp_walk_plan, its `own` form): `tiles` warp tiles of
+// 32 * walks_per_lane own lanes per column (from the column's first lane
+// here), `blocks` blocks of 8 warps covering tiles * Bc.
 extern "C" int fora_raw_walk_xp(const float* const* r, long long r_ld, const int* const* cum,
                                 long long cum_ld, const long long* bounds, int L, long long n,
                                 int Bc, long long rows, long long lane_lo, int n_loc, int shard0,
                                 int G, int P, float* out, long long out_ld, int* ends,
-                                const int* inbox, long long n_in, int* outbox, long long cap,
-                                int* counts, const int* const* indptr, const int* const* indices,
+                                int* outbox, long long cap, int* counts,
+                                const int* const* indptr, const int* const* indices,
                                 const float* const* alias_prob, const int* const* alias_other,
                                 unsigned long long seed, float inv_log1m_alpha, int max_hops,
                                 int walks_per_lane, long long tiles, long long blocks,
                                 void* stream) {
-  if ((alias_prob == nullptr) != (alias_other == nullptr)) return (int)cudaErrorInvalidValue;
-  if (L < 1 || P < 1 || G != P * L || G > kMaxShards || shard0 < 0 || shard0 % L ||
-      shard0 + L > G || n_loc < 1 || n <= 0 || n > n_loc || Bc < 0 || rows < 0 || lane_lo < 0 ||
-      n_in < 0 || cap < 0 || (long long)G * n_loc >= 0x7fffffffll || rows * (long long)Bc >= (1ll << 32) ||
-      max_hops < 0 || walks_per_lane < 1 || walks_per_lane > kMaxWalksPerLane || tiles < 0 ||
-      blocks < 0 || blocks > 0x7fffffffll || r == nullptr || cum == nullptr || bounds == nullptr ||
-      out == nullptr || (cap > 0 && outbox == nullptr) || counts == nullptr || indptr == nullptr ||
-      indices == nullptr || (n_in > 0 && inbox == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const long long range = 32ll * walks_per_lane;
-  const long long in_tiles = (n_in + range - 1) / range;
-  if (tiles * (long long)Bc + in_tiles > blocks * kBlockWarps) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(counts, 0, sizeof(int) * P, s);
-  if (blocks == 0) return (int)cudaGetLastError();
-  const bool alias = alias_prob != nullptr;
-  ShardTables t = {};
-  RawTables rt = {};
-  for (int k = 0; k < L; ++k) {
-    if (r[k] == nullptr || cum[k] == nullptr || indptr[k] == nullptr || indices[k] == nullptr ||
-        (alias && (alias_prob[k] == nullptr || alias_other[k] == nullptr)))
-      return (int)cudaErrorInvalidValue;
-    rt.r[k] = r[k];
-    rt.cum[k] = cum[k];
-    t.indptr[shard0 + k] = indptr[k];
-    t.indices[shard0 + k] = indices[k];
-    if (alias) {
-      t.alias_prob[shard0 + k] = alias_prob[k];
-      t.alias_other[shard0 + k] = alias_other[k];
-    }
-  }
-  WalkArgs a = {};
-  a.range = (uint32_t)range;
-  a.seed_lo = (uint32_t)(seed & 0xffffffffull);
-  a.seed_hi = (uint32_t)(seed >> 32);
-  a.inv_log1m_alpha = inv_log1m_alpha;
-  a.max_hops = max_hops;
-  a.n_loc = n_loc;
-  XpArgs xa = {};
-  xa.bounds = bounds;
-  xa.inbox = reinterpret_cast<const int4*>(inbox);
-  xa.outbox = reinterpret_cast<int4*>(outbox);
-  xa.counts = counts;
-  xa.ends = ends;
-  xa.out = out;
-  xa.r_ld = r_ld;
-  xa.cum_ld = cum_ld;
-  xa.out_ld = out_ld;
-  xa.lane_lo = lane_lo;
-  xa.n_in = n_in;
-  xa.cap = cap;
-  xa.rows = (uint32_t)rows;
-  xa.tiles = (uint32_t)tiles;
-  xa.Bc = Bc;
-  xa.n = (int)n;
-  xa.L = L;
-  xa.shard0 = shard0;
-  xa.rank = shard0 / L;
-  xa.proc_rows = L * n_loc;
-  if (alias)
-    xp_walk_kernel<true><<<(unsigned)blocks, kBlockThreads, 0, s>>>(a, xa, t, rt);
-  else
-    xp_walk_kernel<false><<<(unsigned)blocks, kBlockThreads, 0, s>>>(a, xa, t, rt);
+  XpLaunch X;
+  const int bad = xp_own_args(&X, r, r_ld, cum, cum_ld, bounds, L, n, Bc, rows, lane_lo, n_loc,
+                              shard0, G, P, out, out_ld, ends, outbox, cap, counts, indptr,
+                              indices, alias_prob, alias_other, seed, inv_log1m_alpha, max_hops,
+                              walks_per_lane, tiles, blocks, stream);
+  if (bad) return bad;
+  cudaMemsetAsync(counts, 0, sizeof(int) * P, X.s);
+  if (X.blocks) launch_xp_own<kXpOwnBlocksPerSM, StagedLeave>(X);
+  return (int)cudaGetLastError();
+}
+
+// K6+K4-xp's inbox form: a later round, the n_in records of `inbox` [n_in,
+// 4] int32 (w, cur, h | len << 16, weight bits) that the other processes
+// handed over, each walked on from where it stopped over the same slices,
+// ended, added (column w % Bc) and handed on as fora_raw_walk_xp does.  The
+// plan (xp_walk_plan's `inbox` form): 32 * walks_per_lane records a warp,
+// `blocks` blocks of 8 warps covering them.
+extern "C" int fora_raw_walk_xp_inbox(const int* inbox, long long n_in, int Bc, int n_loc,
+                                      int shard0, int L, int G, int P, float* out,
+                                      long long out_ld, int* ends, int* outbox, long long cap,
+                                      int* counts, const int* const* indptr,
+                                      const int* const* indices, const float* const* alias_prob,
+                                      const int* const* alias_other, unsigned long long seed,
+                                      int walks_per_lane, long long blocks, void* stream) {
+  XpLaunch X;
+  const int bad = xp_inbox_args(&X, inbox, n_in, Bc, n_loc, shard0, L, G, P, out, out_ld, ends,
+                                outbox, cap, counts, indptr, indices, alias_prob, alias_other,
+                                seed, walks_per_lane, blocks, stream);
+  if (bad) return bad;
+  cudaMemsetAsync(counts, 0, sizeof(int) * P, X.s);
+  if (X.blocks) launch_xp_inbox<kXpInboxBlocksPerSM, StagedLeave>(X);
   return (int)cudaGetLastError();
 }
 

@@ -193,6 +193,15 @@ class RawWalkPlan(NamedTuple):
         return min(lo, rows), min(lo + 32 * self.walks_per_lane, rows)
 
 
+def _fill_k(work: int, k: int, blocks_per_sm: int, sm_count: int) -> int:
+    """The largest k of k, k / 2, ..., 1 whose warps over ``work`` walks
+    fill at least half of the card's resident warps, else 1."""
+    half = sm_count * blocks_per_sm * WALK_BLOCK_WARPS // 2
+    while k > 1 and work < 32 * k * half:
+        k //= 2
+    return k
+
+
 def raw_walk_plan(rows: int, Bc: int, sm_count: int,
                   alias: bool = False) -> RawWalkPlan:
     """K6+K4's plan for a chunk of ``rows`` lane rows of ``Bc`` columns
@@ -205,50 +214,56 @@ def raw_walk_plan(rows: int, Bc: int, sm_count: int,
         raise ValueError(f"raw_walk_plan: {rows} rows, {Bc} columns")
     if sm_count < 1:
         raise ValueError(f"raw_walk_plan: sm_count = {sm_count}")
-    half = sm_count * RAW_RESIDENT_WARPS // 2
-    k = WALKS_PER_LANE if alias else RAW_WALKS_PER_LANE
-    while k > 1 and rows * Bc < 32 * k * half:
-        k //= 2
+    k = _fill_k(rows * Bc, WALKS_PER_LANE if alias else RAW_WALKS_PER_LANE,
+                RAW_BLOCKS_PER_SM, sm_count)
     tiles = -(-rows // (32 * k))
     return RawWalkPlan(walks_per_lane=k, tiles=tiles,
                        blocks=-(-(tiles * Bc) // WALK_BLOCK_WARPS))
 
 
-# ---- K6+K4-xp (csrc/walk.cu, xp_walk_kernel) ------------------------------
+# ---- K6+K4-xp (csrc/walk.cu, xp_own_kernel and xp_inbox_kernel) ----------
 #
-# One launch of a process's share of a chunk: tile j of column b's own lanes
-# is warp b * tiles + j, then one warp per 32 k inbox records.  k by
-# raw_walk_plan's rule over both sources of walks, at the kernel's
-# residency.
+# A launch runs one form.  The own-lane form (round 0) is K6+K4's plan over
+# a process's own lanes: tile j of column b is warp b * tiles + j, k by
+# raw_walk_plan's rule at the form's residency.  The inbox form (later
+# rounds) gives each warp 32 k consecutive records, k by the same rule from
+# XP_INBOX_WALKS_PER_LANE down at its own residency.  On the H100
+# (probes/xp_walk_probe.py, the rounds after the first of the raw
+# one-shot's first chunk over 2 processes): a largest k of 16 took 10.20 ms
+# against 12.52 at 4, 10.95 at 8 and 10.22 at 32 (weighted, alias hops:
+# 17.30 against 19.00, 18.04 and 17.43).
 
-XP_BLOCKS_PER_SM = 4        # walk.cu's kXpBlocksPerSM, its __launch_bounds__
+XP_OWN_BLOCKS_PER_SM = 4    # walk.cu's kXpOwnBlocksPerSM, its __launch_bounds__
+XP_INBOX_BLOCKS_PER_SM = 4  # walk.cu's kXpInboxBlocksPerSM, its __launch_bounds__
+XP_INBOX_WALKS_PER_LANE = 16    # k where the records fill the card
 
 
 class XpWalkPlan(NamedTuple):
-    walks_per_lane: int     # k
-    tiles: int              # warp tiles of a column's own lanes
-    blocks: int             # blocks of WALK_BLOCK_WARPS warps over them and
-    #                         the inbox's ceil(n_in / (32 k)) tiles
+    own: RawWalkPlan        # tiles of a column's own lanes, blocks over Bc columns
+    inbox: RawWalkPlan      # tiles: warps of 32 k records; blocks over them
 
 
 def xp_walk_plan(extent: int, Bc: int, n_in: int, sm_count: int,
                  alias: bool = False) -> XpWalkPlan:
-    """K6+K4-xp's plan: ``extent`` own lane rows at most in a column of
-    ``Bc``, and ``n_in`` inbox records, on a card of ``sm_count`` SMs: the
-    largest k of 1, 2, 4, 8, 16 (alias: 1, 2, 4) whose warps over the
-    extent's lane slots and the records fill at least half of the card's
-    resident warps, else 1."""
+    """K6+K4-xp's plan for each form on a card of ``sm_count`` SMs: the
+    own-lane form over ``extent`` own lane rows at most in a column of
+    ``Bc`` (k of 1, 2, 4, 8, 16; alias 1, 2, 4: raw_walk_plan's rule at
+    XP_OWN_BLOCKS_PER_SM), the inbox form over ``n_in`` records (k from
+    XP_INBOX_WALKS_PER_LANE, alias hops too, down by the same rule at
+    XP_INBOX_BLOCKS_PER_SM).  A form with no walk gets no block."""
     if extent < 0 or Bc < 0 or n_in < 0 or extent * Bc >= 2**32:
         raise ValueError(f"xp_walk_plan: {extent} rows, {Bc} columns, "
                          f"{n_in} records")
     if sm_count < 1:
         raise ValueError(f"xp_walk_plan: sm_count = {sm_count}")
-    half = sm_count * XP_BLOCKS_PER_SM * WALK_BLOCK_WARPS // 2
-    work = extent * Bc + n_in
-    k = WALKS_PER_LANE if alias else RAW_WALKS_PER_LANE
-    while k > 1 and work < 32 * k * half:
-        k //= 2
-    tiles = -(-extent // (32 * k))
-    inbox_tiles = -(-n_in // (32 * k))
-    return XpWalkPlan(walks_per_lane=k, tiles=tiles,
-                      blocks=-(-(tiles * Bc + inbox_tiles) // WALK_BLOCK_WARPS))
+    k = _fill_k(extent * Bc, WALKS_PER_LANE if alias else RAW_WALKS_PER_LANE,
+                XP_OWN_BLOCKS_PER_SM, sm_count)
+    tiles = -(-extent // (32 * k)) if Bc else 0
+    own = RawWalkPlan(walks_per_lane=k, tiles=tiles,
+                      blocks=-(-(tiles * Bc) // WALK_BLOCK_WARPS))
+    k = _fill_k(n_in, XP_INBOX_WALKS_PER_LANE, XP_INBOX_BLOCKS_PER_SM,
+                sm_count)
+    tiles = -(-n_in // (32 * k))
+    inbox = RawWalkPlan(walks_per_lane=k, tiles=tiles,
+                        blocks=-(-tiles // WALK_BLOCK_WARPS))
+    return XpWalkPlan(own=own, inbox=inbox)

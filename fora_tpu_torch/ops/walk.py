@@ -62,9 +62,10 @@ residues.  ``sharded_walk_phase_xp`` is the same with the shards spread
 over processes (``parallel/multihost.py``): each process walks its own
 shards' lanes over its own slices, and a walk whose node lies in another
 process's rows is handed to that process as a 16-byte record (its Philox
-key, node, hops taken and weight), so every walk ends where it ends in
-one process (``raw_walk_xp_chunk``: on a card K6+K4-xp, walk.cu's
-xp_walk_kernel; ``raw_walk_xp_plain`` its plain version).
+key, node, hops taken with its length, and weight), so every walk ends
+where it ends in one process (``raw_walk_xp_chunk``: on a card K6+K4-xp,
+walk.cu's xp_own_kernel for a process's own lanes and xp_inbox_kernel for
+the records handed to it; ``raw_walk_xp_plain`` their plain version).
 
 Dangling convention: a walk at an out-degree-0 node is absorbed there.
 Random numbers come from a ``torch.Generator`` (``run_walks``, the CPU
@@ -702,7 +703,8 @@ def raw_walk_chunk_plain(graph, rs: list, ds: list, bounds: torch.Tensor,
         _keep_walked(ends, got, lane_lo, bounds[-1])
 
 
-XP_RECORD = 4   # int32 words of a handed-over walk: w, cur, h, weight's bits
+XP_RECORD = 4   # int32 words of a handed-over walk: w, cur, h | len << 16,
+#                 weight's bits
 
 
 def own_lanes(bounds: np.ndarray, lane_lo: int, rows: int) -> tuple:
@@ -728,31 +730,43 @@ def raw_walk_xp_chunk(csr: ShardedOutCSR, rs: list, ds: list,
     shards ``shard0`` .. ``shard0`` + L - 1: ``rs`` and ``ds`` their
     residues and demands (column slices), ``csr`` their out-CSR slices,
     ``bounds`` [L + 1, Bc] int64 its rows of the chunk's running totals
-    (:func:`sharded_walk_phase`'s, rows shard0 .. shard0 + L).  Its own
-    lanes (``extent`` > 0: the most of them in a column; 0 walks none)
-    start and weigh as :func:`raw_walk_sharded_chunk`'s and draw as walk t
-    * Bc + b; then the walks of ``inbox`` [n_in, 4] int32 (w, cur, h,
-    weight's bits) go on from where they stopped.  A walk advances while
-    its node lies in the process's rows; one that ends adds its weight
-    into ``out`` [G * n_loc, Bc] at its endpoint (column w % Bc) and,
-    with ``ends`` [num_lanes, Bc] int32, writes its endpoint at w; one
-    whose next hop starts at another process's node is written to
-    ``outbox`` [P, cap, 4] at that process, ``counts`` [P] int32 the
-    number for each (a count past cap would mean records were lost: cap
-    must be the launch's walks).  A CUDA ``bounds`` launches K6+K4-xp
-    (``kernels.raw_walk_xp``), a CPU one runs :func:`raw_walk_xp_plain`.
-    Every walk's endpoint is :func:`raw_walk_sharded_chunk`'s on a card
-    (and :func:`raw_walk_chunk_plain`'s), bit for bit."""
+    (:func:`sharded_walk_phase`'s, rows shard0 .. shard0 + L).  A launch
+    walks one source: its own lanes (``extent`` > 0: the most of them in a
+    column), which start and weigh as :func:`raw_walk_sharded_chunk`'s and
+    draw as walk t * Bc + b, or the walks of ``inbox`` [n_in, 4] int32 (w,
+    cur, h | len << 16, weight's bits), which go on from where they
+    stopped.  A walk advances while its node lies in the process's rows;
+    one that ends adds its weight into ``out`` [G * n_loc, Bc] at its
+    endpoint (column w % Bc) and, with ``ends`` [num_lanes, Bc] int32,
+    writes its endpoint at w; one whose next hop starts at another
+    process's node is written to ``outbox`` [P, cap, 4] at that process as
+    such a record, ``counts`` [P] int32 the number for each (a count past
+    cap would mean records were lost: cap must be the launch's walks).  A
+    CUDA ``bounds`` launches K6+K4-xp's own-lane form
+    (``kernels.raw_walk_xp``) or its inbox form
+    (``kernels.raw_walk_xp_inbox``), a CPU one runs
+    :func:`raw_walk_xp_plain`.  Every walk's endpoint is
+    :func:`raw_walk_sharded_chunk`'s on a card (and
+    :func:`raw_walk_chunk_plain`'s), bit for bit."""
+    if extent > 0 and inbox.shape[0]:
+        raise ValueError("raw_walk_xp_chunk: one source of walks a launch, "
+                         "own lanes or an inbox")
+    if not 0 <= max_hops < 2**15:
+        raise ValueError(f"raw_walk_xp_chunk: max_hops {max_hops}; a record "
+                         f"holds lengths below 2^15")
     if bounds.device.type == "cpu":
         raw_walk_xp_plain(csr, rs, ds, bounds, lane_lo, num_lanes, extent,
                           shard0, G, seed, alpha, max_hops, out, inbox,
                           outbox, counts, ends=ends)
-        return
-    kernels.raw_walk_xp(rs, [d.cum for d in ds], bounds, out, num_lanes,
-                        lane_lo, extent, csr.indptr, csr.indices,
-                        csr.alias_prob, csr.alias_other, seed, alpha,
-                        max_hops, shard0, G, inbox, outbox, counts,
-                        ends=ends)
+    elif extent > 0:
+        kernels.raw_walk_xp(rs, [d.cum for d in ds], bounds, out, num_lanes,
+                            lane_lo, extent, csr.indptr, csr.indices,
+                            csr.alias_prob, csr.alias_other, seed, alpha,
+                            max_hops, shard0, G, outbox, counts, ends=ends)
+    else:
+        kernels.raw_walk_xp_inbox(inbox, out, csr.indptr, csr.indices,
+                                  csr.alias_prob, csr.alias_other, seed,
+                                  shard0, G, outbox, counts, ends=ends)
 
 
 def raw_walk_xp_plain(csr: ShardedOutCSR, rs: list, ds: list,
@@ -764,7 +778,8 @@ def raw_walk_xp_plain(csr: ShardedOutCSR, rs: list, ds: list,
                       ends: Optional[torch.Tensor] = None) -> None:
     """K6+K4-xp in plain PyTorch (:func:`raw_walk_xp_chunk`'s arguments):
     the own lanes by :func:`expand_chunk_lanes_plain` over the local
-    shards, the inbox's records, then a hop loop in
+    shards (their lengths by :func:`lengths_of`), the inbox's records
+    (their lengths from the record), then a hop loop in
     :func:`run_walks_philox`'s arithmetic (each walk's counter h + 1, key
     (seed's low word, w)) that stops a walk at a foreign row, then one
     scatter-add of the ended walks' weights; each destination's records in
@@ -773,7 +788,7 @@ def raw_walk_xp_plain(csr: ShardedOutCSR, rs: list, ds: list,
     dev = out.device
     Bc = out.shape[1]
     P, rank, rows_p = G // L, shard0 // L, L * n_loc
-    w, cur, h, wt = [], [], [], []
+    w, cur, h, wt, length = [], [], [], [], []
     if extent > 0 and num_lanes > 0:
         start, weight = expand_chunk_lanes_plain(rs, ds, bounds, lane_lo,
                                                  num_lanes, n_loc)
@@ -784,16 +799,17 @@ def raw_walk_xp_plain(csr: ShardedOutCSR, rs: list, ds: list,
         cur.append(start[t, b].long() + shard0 * n_loc)
         h.append(torch.zeros_like(t))
         wt.append(weight[t, b])
+        length.append(lengths_of(seed, w[-1], alpha, max_hops))
     if inbox.shape[0]:
         w.append(inbox[:, 0].long() & _M32)
         cur.append(inbox[:, 1].long())
-        h.append(inbox[:, 2].long())
+        h.append(inbox[:, 2].long() & 0xFFFF)
         wt.append(inbox[:, 3].contiguous().view(torch.float32))
+        length.append(inbox[:, 2].long() >> 16)
     counts.zero_()
     if not w:
         return
-    w, cur, h, wt = (torch.cat(x) for x in (w, cur, h, wt))
-    length = lengths_of(seed, w, alpha, max_hops)
+    w, cur, h, wt, length = (torch.cat(x) for x in (w, cur, h, wt, length))
     seed = int(seed) % 2**64
     lo, hi = seed & _M32, seed >> 32
     rows = _Rows(csr, dev)
@@ -833,7 +849,8 @@ def raw_walk_xp_plain(csr: ShardedOutCSR, rs: list, ds: list,
             outbox[q, :k, 0] = torch.where(key >= 2**31, key - 2**32,
                                            key).to(torch.int32)
             outbox[q, :k, 1] = cur[sel[:k]].to(torch.int32)
-            outbox[q, :k, 2] = h[sel[:k]].to(torch.int32)
+            outbox[q, :k, 2] = (h[sel[:k]] | length[sel[:k]] << 16).to(
+                torch.int32)
             outbox[q, :k, 3] = wt[sel[:k]].view(torch.int32)
 
 

@@ -1849,33 +1849,67 @@ def _xp_records(box, cnt, d):
     return rec[torch.argsort(rec[:, 0].long() & 0xFFFFFFFF)]
 
 
-@pytest.mark.parametrize("alias", [False, True])
-@pytest.mark.parametrize("L", [1, 2, 4])
-@pytest.mark.parametrize("cut", ["whole", "mid"])
-def test_raw_walk_xp_kernel_matches_plain(dev, alias, L, cut):
-    """K6+K4-xp with G = 4 shards over 4 / L processes simulated on the
-    card by xp_chunk_rounds and local_exchange: per process and round,
-    one launch against raw_walk_xp_plain on the same own lanes and inbox:
-    equal counts per destination, each destination's records equal as a
-    set (the kernel's slots come in no fixed order), equal endpoints of
-    the walks that end there, and the partials within rtol 1e-4 (f32
-    atomics in no fixed order, up to 40,000 adds an entry); the records of
-    the kernel go on to the next round.  Across the rounds every lane's endpoint is K6+K4's
-    sharded form's (raw_walk_sharded_chunk) bit for bit, and no walk is
-    lost."""
+def _xp_launch_pair(dev, args, q, P, log=None):
+    """One K6+K4-xp launch (``args`` raw_walk_xp_chunk's arguments up to
+    the inbox) against raw_walk_xp_plain on fresh outboxes and partials:
+    one launch of the form its source takes, equal counts per destination,
+    each destination's records equal as a set (the kernel's slots come in
+    no fixed order), equal endpoints of the walks that end there, the
+    partials within rtol 1e-4 (f32 atomics in no fixed order, up to 40,000
+    adds an entry).  Returns the kernel's (outbox, counts, partial,
+    endpoints)."""
     from fora_tpu_torch import kernels
     from fora_tpu_torch.ops import walk
-    G, P = 4, 4 // L
-    g, dg, csr, r = _raw_case(dev, "sharded_alias" if alias else "sharded",
-                              G)
-    omega, seed, hops = 1000.0, 0x5DEECE66D * 31, 64
-    rs = list(r.split(r.shape[0] // G))
-    ds, tot = walk.walk_demands(rs, omega)
-    tot = tot.long()
-    bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
-    t = int(bounds[-1].max())
-    lo, hi = (0, t) if cut == "whole" else (t // 5, 3 * t // 5)
-    W, Bc, n_loc = hi - lo, r.shape[1], csr.n_loc
+    head, inbox, box, cnt = args[:-3], args[-3], args[-2], args[-1]
+    W, Bc = head[5], head[12].shape[1]
+    got = []
+    for form in ("kernel", "plain"):
+        if form == "kernel":
+            x = (box.fill_(-7), cnt.fill_(-7))
+        else:
+            x = (torch.full_like(box, -7), torch.full_like(cnt, -7))
+        part = torch.zeros_like(head[12])
+        e = torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
+        call = head[:12] + (part, inbox, *x)
+        before = kernels.launch_counts()
+        if form == "kernel":
+            walk.raw_walk_xp_chunk(*call, ends=e)
+        else:
+            walk.raw_walk_xp_plain(*call, ends=e)
+        after = kernels.launch_counts()
+        name = "raw_walk_xp" if head[6] > 0 else "raw_walk_xp_inbox"
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(form == "kernel" and k == name and box.shape[1] > 0)
+            for k in after}
+        got.append((*x, part, e))
+    (box, cnt, part, e), (pbox, pcnt, ppart, pe) = got
+    assert torch.equal(cnt, pcnt) and int(cnt[q]) == 0
+    assert int(cnt.sum()) <= box.shape[1]
+    for d in range(P):
+        assert torch.equal(_xp_records(box, cnt, d),
+                           _xp_records(pbox, pcnt, d))
+    assert torch.equal(e, pe)
+    torch.testing.assert_close(part, ppart, rtol=1e-4, atol=1e-7)
+    if log is not None:     # (own lanes?, records in, out, blocks, inbox)
+        from fora_tpu_torch.kernels import schedule, sm_count
+        plan = schedule.xp_walk_plan(head[6], Bc, inbox.shape[0],
+                                     sm_count(dev),
+                                     head[0].alias_prob is not None)
+        log.append((head[6] > 0, inbox.shape[0], int(cnt.sum()),
+                    (plan.own if head[6] > 0 else plan.inbox).blocks, inbox))
+    return box, cnt, part, e
+
+
+def _xp_rounds(dev, csr, rs, ds, bounds, lo, W, seed, hops, L, log=None):
+    """K6+K4-xp with G shards over G / L processes simulated on the card by
+    xp_chunk_rounds and local_exchange, every launch held to
+    raw_walk_xp_plain (_xp_launch_pair) and its kernel's records handed
+    on; every lane's endpoint over the rounds is K6+K4's sharded form's
+    (raw_walk_sharded_chunk) bit for bit, the partials' sum its mass within
+    rtol 1e-4, and no walk is lost."""
+    from fora_tpu_torch.ops import walk
+    G, Bc, n_loc = len(rs), rs[0].shape[1], csr.n_loc
+    P = G // L
     want = torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
     want_out = [torch.zeros(G * n_loc, Bc, device=dev) for _ in range(G)]
     walk.raw_walk_sharded_chunk(csr, rs, ds, bounds, lo, W, seed, 0.2, hops,
@@ -1888,36 +1922,11 @@ def test_raw_walk_xp_kernel_matches_plain(dev, alias, L, cut):
     def launch(q, r, inbox, box, cnt):
         sl = slice(q * L, (q + 1) * L)
         ext = walk.own_lanes(bnp[q * L:q * L + L + 1], lo, W)[1]
-        b = bounds[q * L:q * L + L + 1].contiguous()
-        cap = box.shape[1]
-        got = []
-        for form in ("kernel", "plain"):
-            if form == "kernel":
-                x = (box.fill_(-7), cnt.fill_(-7))
-            else:
-                x = (torch.full_like(box, -7), torch.full_like(cnt, -7))
-            part = torch.zeros(G * n_loc, Bc, device=dev)
-            e = torch.full((W, Bc), -1, dtype=torch.int32, device=dev)
-            args = (csr.shards(q * L, (q + 1) * L), rs[sl], ds[sl], b, lo, W,
-                    ext if r == 0 else 0, q * L, G, seed, 0.2, hops, part,
-                    inbox, *x)
-            before = kernels.launch_counts()
-            if form == "kernel":
-                walk.raw_walk_xp_chunk(*args, ends=e)
-            else:
-                walk.raw_walk_xp_plain(*args, ends=e)
-            after = kernels.launch_counts()
-            assert after["raw_walk_xp"] - before["raw_walk_xp"] == (
-                form == "kernel" and cap > 0)
-            got.append((*x, part, e))
-        (box, cnt, part, e), (pbox, pcnt, ppart, pe) = got
-        assert torch.equal(cnt, pcnt) and int(cnt[q]) == 0
-        assert int(cnt.sum()) <= cap
-        for d in range(P):
-            assert torch.equal(_xp_records(box, cnt, d),
-                               _xp_records(pbox, pcnt, d))
-        assert torch.equal(e, pe)
-        torch.testing.assert_close(part, ppart, rtol=1e-4, atol=1e-7)
+        args = (csr.shards(q * L, (q + 1) * L), rs[sl], ds[sl],
+                bounds[q * L:q * L + L + 1].contiguous(), lo, W,
+                ext if r == 0 else 0, q * L, G, seed, 0.2, hops,
+                parts[q], inbox, box, cnt)
+        _, _, part, e = _xp_launch_pair(dev, args, q, P, log)
         parts[q] += part
         ends[q] = torch.maximum(ends[q], e)
     own = {q: walk.own_lanes(bnp[q * L:q * L + L + 1], lo, W)[0]
@@ -1929,6 +1938,94 @@ def test_raw_walk_xp_kernel_matches_plain(dev, alias, L, cut):
     assert torch.equal(torch.stack(ends).max(0).values, want)
     torch.testing.assert_close(sum(parts), sum(want_out), rtol=1e-4,
                                atol=1e-7)
+
+
+@pytest.mark.parametrize("alias", [False, True])
+@pytest.mark.parametrize("L", [1, 2, 4])
+@pytest.mark.parametrize("cut", ["whole", "mid"])
+def test_raw_walk_xp_kernel_matches_plain(dev, alias, L, cut):
+    """K6+K4-xp's two forms with G = 4 shards over 4 / L processes
+    simulated on the card by xp_chunk_rounds and local_exchange: per
+    process and round, one launch (the own-lane form in round 0, the inbox
+    form after it) against raw_walk_xp_plain on the same own lanes and
+    inbox: equal counts per destination, each destination's records equal
+    as a set (the kernel's slots come in no fixed order), equal endpoints
+    of the walks that end there, and the partials within rtol 1e-4 (f32
+    atomics in no fixed order, up to 40,000 adds an entry); the records of
+    the kernel go on to the next round.  Across the rounds every lane's
+    endpoint is K6+K4's sharded form's (raw_walk_sharded_chunk) bit for
+    bit, and no walk is lost."""
+    from fora_tpu_torch.ops import walk
+    G = 4
+    g, dg, csr, r = _raw_case(dev, "sharded_alias" if alias else "sharded",
+                              G)
+    omega, seed, hops = 1000.0, 0x5DEECE66D * 31, 64
+    rs = list(r.split(r.shape[0] // G))
+    ds, tot = walk.walk_demands(rs, omega)
+    tot = tot.long()
+    bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
+    t = int(bounds[-1].max())
+    lo, hi = (0, t) if cut == "whole" else (t // 5, 3 * t // 5)
+    _xp_rounds(dev, csr, rs, ds, bounds, lo, hi - lo, seed, hops, L)
+
+
+def _cross_graph(n, G, L, alias):
+    """A graph of n nodes over G shards of n / G rows whose every edge
+    leads from a node of process p into process p + 1's rows (mod P = G /
+    L): every hop that does not end a walk hands it over, all of a
+    process's to one destination.  Eight out-edges a node, the last 64
+    nodes dangling; weighted exp2(U(-2, 2)) for alias hops."""
+    from fora_tpu_torch.graph import from_edges
+    rng = np.random.default_rng(n + G + L)
+    rows_p = n // (G // L)
+    src = np.repeat(np.arange(n - 64), 8)
+    dst = ((src // rows_p + 1) * rows_p) % n + rng.integers(0, rows_p,
+                                                           src.size)
+    w = np.exp2(rng.uniform(-2, 2, src.size)) if alias else None
+    return from_edges(src, dst, n, w=w)
+
+
+@pytest.mark.parametrize("alias,L,G", [(False, 2, 4), (False, 1, 4),
+                                        (True, 1, 4), (False, 1, 8)])
+def test_raw_walk_xp_stage_overflows(dev, alias, L, G):
+    """K6+K4-xp's staged outbox filled and flushed many times over: on a
+    graph whose every edge leads into the next process's rows (P = 2, 4
+    and 8; at P = 8 a warp's bin holds 18 records, fewer than a group of
+    lanes may hand over at once, which then goes out by itself), a chunk
+    of about 8 M walks whose largest launch of each form hands over more
+    records than the launch's warps' bins hold, so that bins fill, flush
+    and start again, every launch held to raw_walk_xp_plain and every
+    endpoint to K6+K4's sharded form (as
+    test_raw_walk_xp_kernel_matches_plain); then an inbox of 5 records,
+    below a warp, against the plain version alike."""
+    from fora_tpu_torch.index.build_sharded import shard_out_csr
+    from fora_tpu_torch.ops import walk
+    n, Bc, seed = 1 << 16, 4, 0x5DEECE66D * 7
+    P = G // L
+    csr = shard_out_csr(_cross_graph(n, G, L, alias), [dev] * G)
+    r = torch.full((G * csr.n_loc, Bc), 0.032, device=dev)  # 32 lanes a node
+    rs = list(r.split(csr.n_loc))
+    ds, tot = walk.walk_demands(rs, 1000.0)
+    tot = tot.long()
+    bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
+    W = int(bounds[-1].max())
+    log = []
+    _xp_rounds(dev, csr, rs, ds, bounds, 0, W, seed, 64, L, log)
+    bin_cap = 128 // (P - 1)    # walk.cu's kWarpStage / (P - 1)
+    for own in (True, False):
+        _, _, sent, blocks, _ = max((x for x in log if x[0] == own),
+                                    key=lambda x: x[2])
+        assert sent > blocks * 8 * bin_cap, (own, sent, blocks, bin_cap)
+    inbox = next(x[4] for x in log if not x[0] and x[1] >= 5)[:5]
+    q = int(inbox[0, 1]) // (L * csr.n_loc)
+    sl = slice(q * L, (q + 1) * L)
+    args = (csr.shards(q * L, (q + 1) * L), rs[sl], ds[sl],
+            bounds[q * L:q * L + L + 1].contiguous(), 0, W, 0, q * L, G,
+            seed, 0.2, 64, torch.zeros(G * csr.n_loc, Bc, device=dev),
+            inbox.contiguous(),
+            torch.empty((P, 5, 4), dtype=torch.int32, device=dev),
+            torch.empty(P, dtype=torch.int32, device=dev))
+    _xp_launch_pair(dev, args, q, P)
 
 
 # ---- K6+K4-src (source_walk_kernel) against the chain it replaced ---------

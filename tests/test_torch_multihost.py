@@ -375,6 +375,12 @@ def test_xp_plain_simulated_processes(L, weighted):
                                ext if r == 0 else 0, q * L, G, seed, a, hops,
                                parts[q], inbox, box, cnt, ends=ends[q])
         assert int(cnt[q]) == 0
+        for d in range(P):      # (w, cur, h | len << 16, weight's bits)
+            rec = box[d, :int(cnt[d])].long()
+            length, h = rec[:, 2] >> 16, rec[:, 2] & 0xFFFF
+            assert torch.equal(length, walk.lengths_of(
+                seed, rec[:, 0] & 0xFFFFFFFF, a, hops))
+            assert bool((h < length).all())
     own = {q: walk.own_lanes(bnp[q * L:q * L + L + 1], lo, W - lo)[0]
            for q in range(P)}
     rounds = len(walk.xp_chunk_rounds(launch, walk.local_exchange, own, P,
@@ -423,19 +429,50 @@ def test_refusals():
                                             (12776448, 10, 0),
                                             (0, 10, 65001865)])
 def test_xp_walk_plan_covers_the_walks(extent, Bc, n_in, alias):
-    """K6+K4-xp's plan: tiles of 32 k rows cover a column's own lanes, the
-    blocks' warps cover every column's tiles and the inbox's, k is one of
-    the kernel's (4 at most for alias hops), smaller where the walks do
-    not fill half of the card's resident warps."""
+    """K6+K4-xp's plan, each form: the own-lane form's tiles of 32 k rows
+    cover a column's own lanes and its blocks' warps every column's tiles,
+    k one of K6+K4's (4 at most for alias hops); the inbox form's warps of
+    32 k records cover the records, k a power of two up to
+    XP_INBOX_WALKS_PER_LANE; each k smaller where
+    its walks do not fill half of the card's resident warps at the form's
+    own residency."""
     from fora_tpu_torch.kernels import schedule
-    plan = schedule.xp_walk_plan(extent, Bc, n_in, 132, alias)
-    k = plan.walks_per_lane
-    assert k in ((1, 2, 4) if alias else (1, 2, 4, 8, 16))
-    assert plan.tiles * 32 * k >= extent
-    inbox_tiles = -(-n_in // (32 * k))
-    assert plan.blocks * schedule.WALK_BLOCK_WARPS >= \
-        plan.tiles * Bc + inbox_tiles
-    assert (plan.blocks - 1) * schedule.WALK_BLOCK_WARPS < \
-        plan.tiles * Bc + inbox_tiles or plan.blocks == 0
-    if extent * Bc + n_in < 32 * 132 * schedule.XP_BLOCKS_PER_SM * 8 // 2:
-        assert k == 1
+    plans = schedule.xp_walk_plan(extent, Bc, n_in, 132, alias)
+    for form in ("own", "inbox"):
+        plan = getattr(plans, form)
+        k = plan.walks_per_lane
+        if form == "own":
+            assert k in ((1, 2, 4) if alias else (1, 2, 4, 8, 16))
+            assert plan.tiles * 32 * k >= extent
+            warps, work = plan.tiles * Bc, extent * Bc
+            per_sm = schedule.XP_OWN_BLOCKS_PER_SM
+        else:
+            top = schedule.XP_INBOX_WALKS_PER_LANE
+            assert k in [2**i for i in range(6) if 2**i <= top]
+            assert plan.tiles == -(-n_in // (32 * k))
+            warps, work = plan.tiles, n_in
+            per_sm = schedule.XP_INBOX_BLOCKS_PER_SM
+        assert plan.blocks * schedule.WALK_BLOCK_WARPS >= warps
+        assert (plan.blocks - 1) * schedule.WALK_BLOCK_WARPS < warps or \
+            plan.blocks == 0
+        assert (plan.blocks == 0) == (work == 0)
+        if work < 32 * 132 * per_sm * 8 // 2:
+            assert k == 1
+
+
+@pytest.mark.parametrize("form,const", [("Own", "XP_OWN_BLOCKS_PER_SM"),
+                                        ("Inbox", "XP_INBOX_BLOCKS_PER_SM")])
+def test_xp_blocks_per_sm_are_the_launch_bounds(form, const):
+    """Each K6+K4-xp form's blocks an SM in the plan is walk.cu's launch
+    bound of that form's kernel."""
+    import re
+    from pathlib import Path
+    from fora_tpu_torch.kernels import schedule
+    src = (Path(schedule.__file__).parent / "csrc" / "walk.cu").read_text()
+    got = re.findall(rf"constexpr int kXp{form}BlocksPerSM = (\d+);", src)
+    assert [int(x) for x in got] == [getattr(schedule, const)]
+    kernel = f"xp_{form.lower()}_kernel"
+    assert re.search(rf"__launch_bounds__\(kBlockThreads, kBlocks\)\s+"
+                     rf"{kernel}\(", src)
+    assert re.search(rf"launch_xp_{form.lower()}<kXp{form}BlocksPerSM, "
+                     rf"StagedLeave>", src)

@@ -216,11 +216,19 @@ def test_cpu_tensors_never_launch_kernels():
                                 [torch.zeros(2 * csr.n_loc, 3)] * 2)
     P = 2      # K6+K4-xp's plain version: process 0 of 2, one shard each
     box = torch.empty((P, int(bounds[1].sum()), 4), dtype=torch.int32)
+    cnt = torch.zeros(P, dtype=torch.int32)
+    W = int(bounds[-1].max())
     walk.raw_walk_xp_chunk(
         walk.ShardedOutCSR(csr.indptr[:1], csr.indices[:1], None, None,
-                           csr.n_loc), rs[:1], ds[:1], bounds[:2], 0,
-        int(bounds[-1].max()), int(bounds[1].max()), 0, 2, 1, 0.2, 64,
+                           csr.n_loc), rs[:1], ds[:1], bounds[:2], 0, W,
+        int(bounds[1].max()), 0, 2, 1, 0.2, 64,
         torch.zeros(2 * csr.n_loc, 3), torch.empty((0, 4), dtype=torch.int32),
-        box, torch.zeros(P, dtype=torch.int32))
+        box, cnt)
+    # and its inbox form: process 1 walks on what process 0 handed over
+    walk.raw_walk_xp_chunk(
+        walk.ShardedOutCSR(csr.indptr[1:], csr.indices[1:], None, None,
+                           csr.n_loc), rs[1:], ds[1:], bounds[1:], 0, W, 0,
+        1, 2, 1, 0.2, 64, torch.zeros(2 * csr.n_loc, 3),
+        box[1, :int(cnt[1])], torch.empty_like(box), torch.zeros_like(cnt))
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 25
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 26

@@ -251,3 +251,86 @@ def test_raw_refusals(tmp_path):
         ShardedForaEngine(store, mesh, rcfg, k=10)
     with pytest.raises(ValueError, match="requires a walk index"):
         ShardedTopkRunner(g, mesh, rcfg, None, k=10)
+
+
+def _xp_case(weighted: bool, G: int = 4):
+    """A real push's residues on ``_graph`` over G shards, their demands,
+    the chunk's running totals [G + 1, B] and the out-CSR's slices."""
+    g = _graph(weighted)
+    dg = to_device(g, device=CPU)
+    rcfg = ForaConfig(epsilon=0.5).resolved(g.n, g.m)
+    st = push.forward_push(dg, torch.as_tensor(SOURCES, dtype=torch.int32),
+                           rmax=rcfg.rmax, alpha=rcfg.alpha)
+    csr = shard_out_csr(g, [CPU] * G)
+    rs = _split_residue(st.r, G, csr.n_loc)
+    ds, tot = walk_ops.walk_demands(rs, rcfg.omega_unit)
+    tot = tot.long()
+    bounds = torch.cat([torch.zeros_like(tot[:1]), tot.cumsum(0)])
+    return csr, rs, ds, bounds, rcfg
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("L", [1, 2])
+def test_xp_records_carry_their_length(L, weighted):
+    """Every record that K6+K4-xp's plain version hands on, in every round
+    of a chunk over G / L simulated processes, is (w, cur, h | len << 16,
+    weight's bits): its length field is lengths_of(seed, w), its h at
+    least 1 and below that length, its node in the destination's rows,
+    and its walk's endpoint over the rounds is the one-process chunk's."""
+    G, P = 4, 4 // L
+    csr, rs, ds, bounds, rcfg = _xp_case(weighted, G)
+    W, B, n_loc = int(bounds[-1].max()), len(SOURCES), csr.n_loc
+    seed, a, hops = 11, rcfg.alpha, rcfg.max_walk_hops
+    want = torch.full((W, B), -1, dtype=torch.int32)
+    walk_ops.raw_walk_chunk_plain(csr, rs, ds, bounds, 0, W, n_loc, seed, a,
+                                  hops, [torch.zeros(G * n_loc, B)] * G,
+                                  ends=want)
+    bnp = bounds.numpy()
+    ends = torch.full((W, B), -1, dtype=torch.int32)
+    seen = []
+
+    def launch(q, r, inbox, box, cnt):
+        own = bnp[q * L:q * L + L + 1]
+        walk_ops.raw_walk_xp_chunk(
+            csr.shards(q * L, (q + 1) * L), rs[q * L:(q + 1) * L],
+            ds[q * L:(q + 1) * L], bounds[q * L:q * L + L + 1], 0, W,
+            walk_ops.own_lanes(own, 0, W)[1] if r == 0 else 0, q * L, G,
+            seed, a, hops, torch.zeros(G * n_loc, B), inbox, box, cnt,
+            ends=ends)
+        for d in range(P):
+            rec = box[d, :int(cnt[d])].long()
+            w, hl = rec[:, 0] & 0xFFFFFFFF, rec[:, 2]
+            length, h = hl >> 16, hl & 0xFFFF
+            assert torch.equal(length, walk_ops.lengths_of(seed, w, a, hops))
+            assert bool((h >= 1).all() and (h < length).all())
+            assert torch.equal(rec[:, 1] // (L * n_loc),
+                               torch.full_like(w, d))
+            seen.append(rec.shape[0])
+    own = {q: walk_ops.own_lanes(bnp[q * L:q * L + L + 1], 0, W)[0]
+           for q in range(P)}
+    walk_ops.xp_chunk_rounds(launch, walk_ops.local_exchange, own, P, "cpu")
+    assert (sum(seen) > 0) == (P > 1)
+    assert torch.equal(ends, want)
+
+
+def test_xp_refusals():
+    """K6+K4-xp refuses a max_hops of 2^15 or more (a record holds lengths
+    below 2^15), on the CPU's plain path and in the kernel's wrapper before
+    it looks at a tensor, and a launch with both sources of walks."""
+    from fora_tpu_torch import kernels
+    csr, rs, ds, bounds, rcfg = _xp_case(False, 2)
+    W, B, n_loc = int(bounds[-1].max()), len(SOURCES), csr.n_loc
+    out = torch.zeros(2 * n_loc, B)
+    box, cnt = torch.zeros((1, W * B, 4), dtype=torch.int32), \
+        torch.zeros(1, dtype=torch.int32)
+    empty = torch.zeros((0, 4), dtype=torch.int32)
+    args = (csr, rs, ds, bounds, 0, W, W, 0, 2, 3, rcfg.alpha)
+    with pytest.raises(ValueError, match="2\\^15"):
+        walk_ops.raw_walk_xp_chunk(*args, 2**15, out, empty, box, cnt)
+    walk_ops.raw_walk_xp_chunk(*args, 2**15 - 1, out, empty, box, cnt)
+    with pytest.raises(ValueError, match="2\\^15"):
+        kernels.raw_walk_xp(rs, [d.cum for d in ds], bounds, out, W, 0, W,
+                            csr.indptr, csr.indices, None, None, 3,
+                            rcfg.alpha, 2**15, 0, 2, box, cnt)
+    with pytest.raises(ValueError, match="one source"):
+        walk_ops.raw_walk_xp_chunk(*args, 64, out, box[0, :1], box, cnt)
