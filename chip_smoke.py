@@ -268,10 +268,29 @@ memory:
                  the walls, rounds
                  and the records and bytes handed over per round; beside
                  them two NCCL ranks on the one card, refused in
-                 multihost.init; then a world of one process over NCCL
-                 holding the four shards: the indexed answer the
-                 reference's bit for bit, the raw chunk's endpoints equal
-                 again.  A worker
+                 multihost.init; in the gloo world also the indexed
+                 one-shot with hier (chips_per_host 2: a host is a
+                 process; bit-equal to the world's dense one-shot with
+                 equal supersteps, against the reference under the same
+                 rule) and the refinement pool of the 32 sources as one
+                 pool of width 32 (phase 5's defer and stride; warm, then
+                 timed) with each of MP_POOL_MODES (dense, compact,
+                 routed, hier): every compacted pool bit-equal to the
+                 dense one (ids, values, bounds, acceptance, levels and
+                 supersteps), the dense pool against phase 15's
+                 one-process ShardedTopkRunner on the same sources
+                 (pools_agree) and at precision@50 >= 0.95; each run's
+                 compaction (L a superstep and one more a push), P3 (L a
+                 compacted superstep), clear (one a superstep cleared by
+                 rows), P1 hops, K2 and K3 counted against its exchange's
+                 counts, some superstep compacted in each compacted run;
+                 the walls, supersteps compacted and fallen back, and the
+                 rows and bytes across the process boundary per superstep
+                 beside the dense exchange's printed; then a world of one
+                 process over NCCL holding the four shards: the indexed
+                 answer the reference's bit for bit, the raw chunk's
+                 endpoints equal again, the routed pool the one-process
+                 runner's bit for bit.  A worker
                  that fails or passes MP_WORKER_S is killed and the phase
                  fails
   13. weighted   bench.py's weighted graph (phase 1's edges, weights
@@ -391,7 +410,10 @@ distinct sectors each hop's walks read and their Philox blocks; library
 ms: one PyTorch call computing the same function, or null; P3 has two
 rows: row_scatter_add is the gather probe of phase 12 with phase 12's
 launches, row_scatter_add_receive is the receive of one shard on phase
-15's routed superstep with the routed pool's launches; P2 has two:
+15's routed superstep with the routed pool's launches (the compaction,
+P3's receive and the clear carry multiprocess_launches, their launches
+in phase 17's compacted runs across processes, summed over the
+workers); P2 has two:
 ring_reduce_scatter_hop is the ring's hop kernel, which no path runs
 with every shard on one card (0 launches), reduce_scatter_onepass the
 one pass that phase 9 runs; the rows timed on phase 15's superstep,
@@ -951,40 +973,27 @@ def level_line(where, st, runner=None) -> str:
 
 def run_queries(runner, sources, log=print, pool=POOL, batch=BATCH,
                 defer=DEFER, values=None):
-    """bench.py's query phase: pools of ``pool`` through query_pool, then
-    flush_deferred.  Returns ({source: top-k ids}, accepted, levels used,
-    wall seconds, every level record); ``values``, a dict, gets each
-    source's top-k values."""
+    """bench.py's query phase (``runner.query_pools``): pools of ``pool``
+    through query_pool, then flush_deferred.  Returns ({source: top-k
+    ids}, accepted, levels used, wall seconds, every level record);
+    ``values``, a dict, gets each source's top-k values."""
     import torch
-    results, n_acc, levels, stats = {}, 0, 0, []
-    pools = [sources[i:i + pool] for i in range(0, len(sources), pool)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for pi, part in enumerate(pools):
-        res = runner.query_pool(part, batch=batch, defer_below=defer)
-        for i, s in enumerate(part):
-            if not res.deferred[i]:
-                results[int(s)] = res.node_ids[i]
-                if values is not None:
-                    values[int(s)] = res.values[i]
-        n_acc += int(res.accepted.sum())
-        levels = max(levels, res.levels_used)
-        stats += runner.last_level_stats
-        for st in runner.last_level_stats:
-            log(level_line(f"pool {pi}", st, runner))
-    dsrcs, dres = runner.flush_deferred(batch=batch)
-    if dres is not None:
-        for i, s in enumerate(dsrcs):
-            results[int(s)] = dres.node_ids[i]
-            if values is not None:
-                values[int(s)] = dres.values[i]
-        n_acc += int(dres.accepted.sum())
-        levels = max(levels, dres.levels_used)
-        stats += runner.last_level_stats
-        for st in runner.last_level_stats:
-            log(level_line(f"flush({len(dsrcs)})", st, runner))
+    res, stats = runner.query_pools(sources, batch=batch, pool=pool,
+                                    defer_below=defer)
     torch.cuda.synchronize()
-    return results, n_acc, levels, time.perf_counter() - t0, stats
+    wall = time.perf_counter() - t0
+    n_flush = int(res.deferred.sum())
+    for st in stats:
+        where = (f"pool {st['pool']}" if st["pool"] != "flush" else
+                 f"flush({n_flush})")
+        log(level_line(where, st, runner))
+    results = {int(s): res.node_ids[i] for i, s in enumerate(sources)}
+    if values is not None:
+        values.update((int(s), res.values[i]) for i, s in enumerate(sources))
+    return (results, int(res.accepted.sum()), res.levels_used, wall,
+            stats)
 
 
 def profile_once(name, fn, need_trace: bool = True):
@@ -4025,6 +4034,8 @@ MP_PROCS = 2                        # phase 17: worker processes on the card
 MP_SOURCES = 32
 MP_WORKER_S = 420                   # a world's time limit
 MP_DIR = ROOT / "bench_data" / "torch_smoke_mp"
+# the exchanges of phase 17's pools across processes, dense first
+MP_POOL_MODES = ("dense", "compact", "routed", "hier")
 
 
 def sharded_rule_agree(name, got_v, got_i, want_v, want_i) -> float:
@@ -4278,6 +4289,59 @@ def world_records(name, out, codes, tails) -> list:
             for q in range(len(codes))]
 
 
+def mp_exchange_kw(mode: str, L: int) -> dict:
+    """A worker job's exchange keys: hier's host is a process (L chips)."""
+    if mode == "dense":
+        return {}
+    return {"exchange": mode, **({"chips_per_host": L} if mode == "hier"
+                                 else {})}
+
+
+def mp_pool_job(name, root, src, mode, L) -> dict:
+    """A worker job: the refinement pool of ``src`` as one pool of width
+    len(src) (phase 5's defer and stride), warm, then timed."""
+    return {"name": name, "graph": {"store": str(root)},
+            "index": {"store": str(root / "index")}, "k": K,
+            "sources": src, "runner": "pool", "pool": len(src),
+            "batch": len(src), "defer_below": DEFER, "delta_stride": DSTRIDE,
+            "accept_slack": ACCEPT, "repeat": 2, **mp_exchange_kw(mode, L)}
+
+
+def mp_exchange_gates(label, rec, L, runs: int) -> None:
+    """One worker's timed run of a job across processes: the compaction
+    (L a superstep, one more a push: it runs ahead of the status read),
+    P3 (L a compacted superstep), the clear (one a superstep cleared by
+    rows) and P1's hops (L (L - 1) a superstep that took the ring) as the
+    exchange's counts say, over ``runs`` pushes; a compacted exchange
+    compacted some supersteps, the dense one none."""
+    c, steps = rec["launches"], rec["supersteps"]
+    comp, back = rec["compacted"], rec["fell_back"]
+    dense = rec["exchange"] == "dense"
+    want = {"frontier_compact": 0 if dense else L * (steps + runs),
+            "row_scatter_add": L * comp, "exchange_clear": rec["cleared"],
+            "ring_all_gather_hop": L * (L - 1) * (steps if dense else back),
+            "index_spmv": L * runs, "topk_bounds": L * runs}
+    bad = {k: (c[k], v) for k, v in want.items() if c[k] != v}
+    if bad or (comp > 0) == dense or comp + back != (0 if dense else steps):
+        fail(f"phase 17 {label}: {steps} supersteps, {comp} compacted, "
+             f"{back} fell back; launches (got, expected) {bad}")
+
+
+def mp_bytes_line(label, recs) -> str:
+    """What crossed the process boundary per superstep, summed over the
+    workers, beside what the dense exchange sends there."""
+    rows = [sum(x) for x in zip(*(r["sent_rows"] for r in recs))]
+    sent = [sum(x) for x in zip(*(r["sent_bytes"] for r in recs))]
+    dense = [sum(x) for x in zip(*(r["dense_bytes"] for r in recs))]
+    if not sent:
+        return f"{label}: no superstep"
+    return (f"{label}: rows across the process boundary per superstep "
+            f"{rows}; bytes per superstep mean {statistics.mean(sent):.0f} "
+            f"(max {max(sent)}, total {sum(sent)}) against the dense "
+            f"exchange's {statistics.mean(dense):.0f} (total {sum(dense)}): "
+            f"{sum(sent) / sum(dense):.4f} of it")
+
+
 def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
     """Phase 17: ShardedForaEngine.topk with its SHARDS shards over
     MP_PROCS worker processes on the one card (gloo, both on cuda:0;
@@ -4293,9 +4357,17 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
     NCCL holding the four shards (the indexed answer the one-process
     engine's bit for bit, the raw chunk's endpoints equal again), and,
     beside the gloo world, two NCCL ranks on the one card, which must fail
-    in multihost.init.  Every worker's launches are reset just before its
-    timed call and read just after.  Returns (K6+K4-xp's kernel row, the
-    gloo world's raw run's launches summed over its workers)."""
+    in multihost.init.  The gloo world also runs the indexed one-shot with
+    hier (chips_per_host L: a host is a process), bit-equal to its dense
+    one-shot, and the refinement pool of ``sources`` (one pool, warm, then
+    timed) with each of MP_POOL_MODES: every compacted pool bit-equal to
+    the dense one, the dense one against the one-process
+    ShardedTopkRunner's (pools_agree) and at precision@50 >= 0.95; the NCCL
+    world runs the routed pool too, bit-equal to the one-process runner's.
+    Every worker's launches are reset just before its timed call and read
+    just after.  Returns (K6+K4-xp's kernel row, the gloo world's raw
+    run's launches summed over its workers, and the compaction's, P3's and
+    the clear's summed over its compacted runs)."""
     import os
     import shutil
     import numpy as np
@@ -4303,7 +4375,8 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
     from fora_tpu_torch import index as tidx
     from fora_tpu_torch.eval import metrics
     from fora_tpu_torch.parallel import multihost, save_sharded_graph
-    from fora_tpu_torch.parallel import ShardedForaEngine, make_mesh
+    from fora_tpu_torch.parallel import (ShardedForaEngine,
+                                         ShardedTopkRunner, make_mesh)
     # phase 9's one-process engine on the same sources: the reference
     one = ShardedForaEngine(g, make_mesh(SHARDS), rcfg, k=K, index=index)
     one.topk(sources)                                   # warm
@@ -4312,6 +4385,18 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
     ref_res = one.topk(sources)
     torch.cuda.synchronize()
     ref_wall = time.perf_counter() - t0
+    del one
+    # phase 15's one-process pool on the same sources as the workers run
+    # it: one pool, warm (it learns its start level), then timed
+    one = ShardedTopkRunner(g, make_mesh(SHARDS), rcfg, index, k=K,
+                            delta_stride=DSTRIDE, accept_slack=ACCEPT,
+                            exchange="routed")
+    quiet = lambda *a: None   # noqa: E731
+    nq = len(sources)
+    run_queries(one, sources, quiet, pool=nq, batch=nq)
+    ref_pool_vals = {}
+    ref_pool, _, _, ref_pool_wall, _ = run_queries(
+        one, sources, quiet, pool=nq, batch=nq, values=ref_pool_vals)
     del one
     shutil.rmtree(MP_DIR, ignore_errors=True)
     t0 = time.perf_counter()
@@ -4335,20 +4420,23 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
     torch.cuda.empty_cache()
     src = [int(s) for s in sources]
 
-    def spec(root):
+    def spec(root, extra):
+        indexed = {"name": "indexed", "graph": {"store": str(root)},
+                   "index": {"store": str(root / "index")}, "k": K,
+                   "sources": src, "repeat": 2}
         return {"shards": SHARDS, "jobs": [
-            {"name": "indexed", "graph": {"store": str(root)},
-             "index": {"store": str(root / "index")}, "k": K,
-             "sources": src, "repeat": 2},
+            indexed,
             {"name": "raw", "graph": {"store": str(root)}, "index": None,
              "k": K, "sources": src, "seed": SEED, "repeat": 2,
-             "ends": True}]}
+             "ends": True}] + [dict(indexed, **x) for x in extra]}
     t0 = time.perf_counter()
     refused = start_world(2, "nccl", [{"shards": SHARDS, "jobs": []}] * 2,
                           MP_DIR / "out_refused")
     out = MP_DIR / "out_gloo"
-    gloo = start_world(P, "gloo", [spec(MP_DIR / f"rank{q}")
-                                   for q in range(P)], out)
+    gloo = start_world(P, "gloo", [spec(MP_DIR / f"rank{q}", [
+        {"name": "hier", **mp_exchange_kw("hier", L)}] + [
+        mp_pool_job(f"pool_{m}", MP_DIR / f"rank{q}", src, m, L)
+        for m in MP_POOL_MODES]) for q in range(P)], out)
     recs = world_records("gloo", out, *finish_world(gloo, t0))
     world_s = time.perf_counter() - t0
     codes, tails = finish_world(refused, t0)
@@ -4430,11 +4518,83 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
         print(f"  chunk {i}: {nr} rounds; records handed over per round "
               f"{per}; bytes {[16 * x for x in per]}; and per round one "
               f"all-gather of {P} x {P + 1} int32 counts")
+    # the hier one-shot: JAX's multi-host bench form, bit-equal to the
+    # dense one-shot of the same world
+    a0 = arrs[0]
+    hier = [rec["jobs"]["hier"] for rec in recs]
+    if not (np.array_equal(a0["hier.ids"], a0["indexed.ids"])
+            and np.array_equal(a0["hier.values"].view(np.uint32),
+                               a0["indexed.values"].view(np.uint32))
+            and hier[0]["supersteps"] == steps):
+        fail(f"phase 17 hier: not bit-equal to the dense one-shot of the "
+             f"world ({hier[0]['supersteps']} supersteps, dense {steps})")
+    for q, r in enumerate(hier):
+        mp_exchange_gates(f"hier one-shot, rank {q}", r, L, 1)
+    sharded_rule_agree("multiprocess hier vs the one-process engine",
+                       a0["hier.values"], a0["hier.ids"], ref_res.values,
+                       ref_res.node_ids)
+    print(f"multiprocess gloo hier one-shot (chips_per_host {L}: a host is "
+          f"a process; time-sliced, not scaling): {hier[0]['wall_s']:.4f} s "
+          f"timed against the dense one-shot's "
+          f"{recs[0]['jobs']['indexed']['wall_s']:.4f}; {steps} supersteps, "
+          f"{hier[0]['compacted']} compacted, {hier[0]['fell_back']} fell "
+          f"back, {hier[0]['cleared']} cleared by rows; bit-equal to the "
+          f"dense one-shot")
+    print("  " + mp_bytes_line("hier one-shot", hier))
+    print("  " + mp_bytes_line("dense one-shot",
+                               [rec["jobs"]["indexed"] for rec in recs]))
+    # the pools: each compacted one bit-equal to the dense one, the dense
+    # one against the one-process runner and the oracle
+    mp_xch = {k: 0 for k in ("frontier_compact", "row_scatter_add",
+                             "exchange_clear")}
+    for r in hier:
+        for k in mp_xch:
+            mp_xch[k] += r["launches"][k]
+    pool = {m: [rec["jobs"][f"pool_{m}"] for rec in recs]
+            for m in MP_POOL_MODES}
+    for m in MP_POOL_MODES:
+        for q, r in enumerate(pool[m]):
+            runs = sum(st["batches"] for st in r["levels"])
+            mp_exchange_gates(f"pool {m}, rank {q}", r, L, runs)
+            if m != "dense":
+                for k in mp_xch:
+                    mp_xch[k] += r["launches"][k]
+        if m != "dense":
+            same = all(np.array_equal(a0[f"pool_{m}.{f}"],
+                                      a0[f"pool_dense.{f}"])
+                       for f in ("ids", "values", "lb", "ub", "accepted"))
+            d0, r0 = pool["dense"][0], pool[m][0]
+            if not same or r0["levels_used"] != d0["levels_used"] or [
+                    st["supersteps"] for st in r0["levels"]] != [
+                    st["supersteps"] for st in d0["levels"]]:
+                fail(f"phase 17 pool {m}: not bit-equal to the dense pool of "
+                     f"the world")
+        r0 = pool[m][0]
+        print(f"multiprocess gloo pool {m} ({nb} queries in one pool, width "
+              f"{nb}; time-sliced, not scaling): {r0['wall_s']:.4f} s warm "
+              f"(rank 0; rank 1 {pool[m][1]['wall_s']:.4f}), levels used "
+              f"{r0['levels_used']}, {len(r0['levels'])} level runs, "
+              f"{r0['supersteps']} supersteps: {r0['compacted']} compacted, "
+              f"{r0['fell_back']} fell back, {r0['cleared']} cleared by rows"
+              + ("" if m == "dense" else "; bit-equal to the dense pool"))
+        print("  " + mp_bytes_line(f"pool {m}", pool[m]))
+    ids = {int(s): a0["pool_dense.ids"][i] for i, s in enumerate(src)}
+    vals = {int(s): a0["pool_dense.values"][i] for i, s in enumerate(src)}
+    pools_agree("multiprocess pool dense vs the one-process pool", ids, vals,
+                ref_pool, ref_pool_vals, src)
+    prec = metrics.batch_precision_at_k(a0["pool_dense.ids"][:len(
+        exact_ids)], exact_ids)
+    print(f"multiprocess pool precision@{K}: {prec:.4f} over "
+          f"{len(exact_ids)} queries (limit {MIN_PRECISION}); the "
+          f"one-process pool {ref_pool_wall:.4f} s warm")
+    if not prec >= MIN_PRECISION:
+        fail(f"phase 17 pool precision@{K} {prec:.4f} < {MIN_PRECISION}")
     # a world of one process over NCCL, holding every shard
     t0 = time.perf_counter()
     out = MP_DIR / "out_nccl"
     one = world_records("nccl", out, *finish_world(start_world(
-        1, "nccl", [spec(stores)], out), t0))[0]
+        1, "nccl", [spec(stores, [mp_pool_job(
+            "pool_routed", stores, src, "routed", SHARDS)])], out), t0))[0]
     a = np.load(out / "rank0.npz")
     if not (np.array_equal(a["indexed.ids"], ref_res.node_ids)
             and np.array_equal(a["indexed.values"].view(np.uint32),
@@ -4444,6 +4604,19 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
              "one-process engine's answer")
     if not np.array_equal(np.load(out / "raw.ends.npy"), ends):
         fail("phase 17: the NCCL world's raw endpoints differ")
+    rp = one["jobs"]["pool_routed"]
+    mp_exchange_gates("NCCL pool routed", rp, SHARDS,
+                      sum(st["batches"] for st in rp["levels"]))
+    if not all(np.array_equal(a["pool_routed.ids"][i], ref_pool[int(s)])
+               and np.array_equal(a["pool_routed.values"][i].view(np.uint32),
+                                  ref_pool_vals[int(s)].view(np.uint32))
+               for i, s in enumerate(src)):
+        fail("phase 17: the NCCL world's routed pool differs from the "
+             "one-process runner's")
+    print(f"multiprocess nccl routed pool: {rp['wall_s']:.4f} s warm "
+          f"(the one-process runner {ref_pool_wall:.4f}), "
+          f"{rp['supersteps']} supersteps, {rp['compacted']} compacted; "
+          f"bit-equal to the one-process runner's")
     print(f"multiprocess nccl, one process of {SHARDS} shards: world "
           f"{time.perf_counter() - t0:.1f} s; indexed "
           f"{one['jobs']['indexed']['wall_s']:.4f} s, bit-equal to the "
@@ -4452,7 +4625,7 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
           f"{one['jobs']['raw']['rounds']} rounds, the first chunk's "
           f"endpoints equal")
     shutil.rmtree(MP_DIR, ignore_errors=True)
-    return row, xp
+    return row, xp, mp_xch
 
 
 def main(argv=None) -> int:
@@ -4954,8 +5127,12 @@ def main(argv=None) -> int:
 
     # ---- 17. the sharded one-shot across processes --------------------------
     with Phase("multiprocess"):
-        rows["raw_walk_xp"], xp_launches = run_multiprocess(
+        rows["raw_walk_xp"], xp_launches, mp_xch = run_multiprocess(
             g, rcfg, index, sources[:MP_SOURCES], ex[:EVAL_N], dg, dev)
+        for name, key in (("frontier_compact", "frontier_compact"),
+                          ("row_scatter_add_receive", "row_scatter_add"),
+                          ("exchange_clear", "exchange_clear")):
+            rows[name]["multiprocess_launches"] = mp_xch[key]
 
     # ---- 13. weighted graphs ---------------------------------------------
     del dg, dg_flat, index, runner, staged, results, x, lvl, inv, sched
@@ -5350,7 +5527,8 @@ def main(argv=None) -> int:
                                            "unsharded_ms", "earlier_ms",
                                            "earlier_device_ms",
                                            "bytes_bound_ms",
-                                           "chain_device_ms", "forms")
+                                           "chain_device_ms", "forms",
+                                           "multiprocess_launches")
                        if k in row},
                     **{k: v for k, v in row.items()
                        if k.startswith(("sharded_", "montecarlo_", "alias_",

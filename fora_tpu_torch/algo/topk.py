@@ -207,6 +207,12 @@ class TopkRunner:
             self._lsteps[ckey] = fn
         return self._lsteps[ckey]
 
+    def _agree_level(self, level: int, accepted, info: dict) -> None:
+        """Called after each level run with every live column's acceptance
+        (in order) and the level's ``info``, before any host decision is
+        taken from them; nothing here.  ``parallel.ShardedTopkRunner``
+        checks there that every process took the same."""
+
     # --- whole-batch and pool loops ------------------------------------
 
     def query(self, sources, key: Optional[int] = None) -> TopkResult:
@@ -225,12 +231,13 @@ class TopkRunner:
         for level, d in enumerate(self.deltas):
             levels = level + 1
             ckey, rmax, omega_unit = self._levels[level]
-            vals, idx, lb, ub, bacc, p, r, _ = self._level_step(ckey)(
+            vals, idx, lb, ub, bacc, p, r, info = self._level_step(ckey)(
                 p, r, rmax, omega_unit, derive_seed(call, level, 0), B)
             vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
             lb, ub, bacc = lb.cpu().numpy(), ub.cpu().numpy(), \
                 bacc.cpu().numpy()
             newly = (vals[:, -1] >= self.accept_slack * (1 + eps) * d) | bacc
+            self._agree_level(level, newly, info)
             newly = ~accepted & newly
             take = newly | (~accepted & (level == len(self.deltas) - 1))
             best_vals[take], best_idx[take] = vals[take], idx[take]
@@ -315,6 +322,7 @@ class TopkRunner:
             fn = self._level_step(ckey)
             last = level == len(self.deltas) - 1
             keep_cols = []
+            oks = []         # every live column's acceptance, in order
             n_ok = 0
             n_ok_bound = 0   # accepted by the bound test alone
             work = {}
@@ -337,6 +345,7 @@ class TopkRunner:
                     ok_thr = bool(vals[b, -1] >=
                                   self.accept_slack * (1 + eps) * d)
                     ok = ok_thr or bool(bacc[b])
+                    oks.append(ok)
                     n_ok += ok
                     n_ok_bound += ok and not ok_thr
                     if ok or last:
@@ -347,6 +356,7 @@ class TopkRunner:
                         accepted[q] = ok
                     else:
                         keep_cols.append(g)
+            self._agree_level(level, oks, work)
             self.last_level_stats.append(dict(
                 level=level, delta=d, width=width, batches=len(blocks),
                 pending=n_pending, accepted=n_ok,
@@ -416,6 +426,54 @@ class TopkRunner:
             levels_used=max(r.levels_used for r in parts),
             accepted=cat("accepted"), lower_bounds=cat("lower_bounds"),
             upper_bounds=cat("upper_bounds"), deferred=cat("deferred"))
+
+    def query_pools(self, sources, key: Optional[int] = None, *, batch: int,
+                    pool: Optional[int] = None, defer_below: int = 0,
+                    start_level: Optional[int] = None) -> tuple:
+        """bench.py's query phase: ``sources`` in pools of ``pool`` (None:
+        one pool) through ``query_pool``, then ``flush_deferred``.  Pool i
+        draws from ``key`` (i = 0) or ``derive_seed(key, i)``, the flush
+        from ``derive_seed(key, 1 << 20)`` (each from the runner's own
+        counter where ``key`` is None).  Returns ``(TopkResult, level
+        records)``: each source's final row, the flush's for a deferred
+        one (``deferred`` marks those; ``levels_used`` is the most of any
+        call), and every ``last_level_stats`` record, each with ``pool``,
+        its pool's index or "flush"."""
+        src = np.asarray(sources)
+        size = pool or max(len(src), 1)
+        rows, levels, stats = {}, 0, []
+
+        def seed(i):
+            return None if key is None else (derive_seed(key, i) if i
+                                             else key)
+
+        for pi, lo in enumerate(range(0, len(src), size)):
+            part = src[lo:lo + size]
+            res = self.query_pool(part, seed(pi), batch=batch,
+                                  start_level=start_level,
+                                  defer_below=defer_below)
+            for i, s in enumerate(part):
+                if not res.deferred[i]:
+                    rows[int(s)] = (res, i, False)
+            levels = max(levels, res.levels_used)
+            stats += [dict(st, pool=pi) for st in self.last_level_stats]
+        dsrc, dres = self.flush_deferred(seed(1 << 20), batch=batch)
+        if dres is not None:
+            for i, s in enumerate(dsrc):
+                rows[int(s)] = (dres, i, True)
+            levels = max(levels, dres.levels_used)
+            stats += [dict(st, pool="flush") for st in self.last_level_stats]
+        picked = [rows[int(s)] for s in src]
+
+        def col(f):
+            return np.stack([getattr(r, f)[i] for r, i, _ in picked])
+
+        return TopkResult(
+            node_ids=col("node_ids"), values=col("values"),
+            levels_used=levels, accepted=col("accepted"),
+            lower_bounds=col("lower_bounds"),
+            upper_bounds=col("upper_bounds"),
+            deferred=np.asarray([d for _, _, d in picked], bool)), stats
 
     # --- pool state reshaping ----------------------------------------
 

@@ -495,23 +495,13 @@ def _main(argv=None) -> int:
             info("start level from persisted stats",
                  level=runner.auto_start_level)
         pool_w = args.pool if args.pool > 0 else len(sources)
-        pools = [sources[i:i + pool_w]
-                 for i in range(0, len(sources), pool_w)]
-        defer = args.defer if len(pools) > 1 else 0
+        defer = args.defer if pool_w < len(sources) else 0
         with timers.phase("topk"):
-            for pi, pool in enumerate(pools):
-                res = runner.query_pool(
-                    pool, derive_seed(args.seed, pi) if pi else args.seed,
-                    batch=args.batch, start_level=args.start_level,
-                    defer_below=defer)
-                for i, s in enumerate(pool):
-                    if res.deferred is None or not res.deferred[i]:
-                        results[int(s)] = (res.node_ids[i], res.values[i])
-            dsrcs, dres = runner.flush_deferred(
-                derive_seed(args.seed, 1 << 20), batch=args.batch)
-            if dres is not None:
-                for i, s in enumerate(dsrcs):
-                    results[int(s)] = (dres.node_ids[i], dres.values[i])
+            res, _ = runner.query_pools(
+                sources, args.seed, batch=args.batch, pool=pool_w,
+                defer_below=defer, start_level=args.start_level)
+            for i, s in enumerate(sources):
+                results[int(s)] = (res.node_ids[i], res.values[i])
         if idx is not None and args.start_level is None:
             try:
                 runner.save_level_stats(_level_stats_path(args), graph_sha)

@@ -45,10 +45,25 @@ arrays in place, so the id slots are double-buffered: each send writes
 the half that the last receive did not read.
 
 Across processes (a ``parallel.multihost.ProcessComm``) each process
-holds L of the G shards' buffers, and only the dense exchange runs: the
-ring among the L, then one all-gather across the processes
-(``ring.all_gather_processes``).  The compacted exchanges across processes
-are not ported yet (ROADMAP, Queue 1).
+holds L of the G shards' buffers.  The dense exchange is the ring among
+the L, then one all-gather across the processes
+(``ring.all_gather_processes``).  A compacted superstep compacts the L
+local shards only; the status read has already given every process every
+shard's counts, so each process knows which rows every other one sends
+and receives.  The rows that cross the boundary, ``counts`` of them per
+(sender shard, destination) and no pad slot, go in one ``all_to_all``,
+each row with its global id in an int32 column beside it: per other
+process, the blocks of the local senders for the destinations that
+process's shards read (routed: its L shards; compact: the one block; hier:
+its host, for a host is a process, so ``chips_per_host`` must be L and
+the all-to-all is hier's first stage across hosts).  The received blocks
+take the place of the remote senders' slots (the rest of their id slots
+pad), and the share among the process's shards (hier's second stage) is
+the one-device layout's views or the several devices' copies, as in one
+process.  While ``sent`` is a list, each superstep appends what this
+process sent to the others: (rows, B, compacted), a compacted row being
+B + 1 words (the row and its id) and a dense one (the fall-back's
+all-gather) B.
 
 When some shard has more than ``cap`` rows due to a destination, every
 shard takes the dense exchange for that superstep, as JAX's ``pmax`` and
@@ -124,29 +139,34 @@ def frontier_compact(contrib: torch.Tensor, needed: Optional[torch.Tensor],
                                  rows, counts)
 
 
-def exchange_clear_plain(bufs: list, n_loc: int, ids: list) -> None:
+def exchange_clear_plain(bufs: list, n_loc: int, ids: list,
+                         own: Optional[Sequence[int]] = None) -> None:
     """Plain version of :func:`exchange_clear`: per buffer a ``zero_`` of
     its own block and ``row_zero_plain`` over its ids."""
-    for t, buf in enumerate(bufs):
-        buf[t * n_loc:(t + 1) * n_loc].zero_()
-        row_zero_plain(buf, ids[t])
+    own = range(len(bufs)) if own is None else own
+    for buf, o, i in zip(bufs, own, ids):
+        buf[o * n_loc:(o + 1) * n_loc].zero_()
+        row_zero_plain(buf, i)
 
 
-def exchange_clear(bufs: list, n_loc: int, ids: list) -> None:
-    """In place, before a compacted receive: buffer t's own block (rows t *
-    n_loc to (t + 1) * n_loc - 1) and the rows named by ``ids[t]`` (int32;
-    an id outside the rows, a pad slot, is skipped) set to zero.  CPU
-    tensors take the plain version; CUDA tensors launch the clear kernel
-    once per card that holds buffers."""
+def exchange_clear(bufs: list, n_loc: int, ids: list,
+                   own: Optional[Sequence[int]] = None) -> None:
+    """In place, before a compacted receive: buffer t's own block (rows
+    ``own[t]`` * n_loc to (``own[t]`` + 1) * n_loc - 1; ``own`` defaults to
+    0, 1, ...) and the rows named by ``ids[t]`` (int32; an id outside the
+    rows, a pad slot, is skipped) set to zero.  CPU tensors take the plain
+    version; CUDA tensors launch the clear kernel once per card that holds
+    buffers."""
+    own = list(range(len(bufs)) if own is None else own)
     if bufs[0].device.type == "cpu":
-        exchange_clear_plain(bufs, n_loc, ids)
+        exchange_clear_plain(bufs, n_loc, ids, own)
         return
     by_device: dict = {}
     for t, buf in enumerate(bufs):
         by_device.setdefault(buf.device, []).append(t)
     for ts in by_device.values():
         kernels.exchange_clear([bufs[t] for t in ts], n_loc,
-                               [ids[t] for t in ts], own=ts)
+                               [ids[t] for t in ts], own=[own[t] for t in ts])
 
 
 class FrontierExchange:
@@ -162,10 +182,13 @@ class FrontierExchange:
     that took each exchange, ``cleared`` the compacted ones whose buffers
     were cleared by rows (those that follow a compacted one).
 
-    ``comm`` (a ``parallel.multihost.ProcessComm``, dense only): the
-    shards are this process's L of ``n_shards`` (G), global shards
-    ``shard0`` .. ``shard0`` + L - 1 on ``devices``; the buffers hold all G
-    blocks.
+    ``comm`` (a ``parallel.multihost.ProcessComm``): the shards are this
+    process's L of ``n_shards`` (G), global shards ``shard0`` .. ``shard0``
+    + L - 1 on ``devices``; the buffers hold all G blocks.  ``hier`` then
+    needs ``chips_per_host`` = L.  ``sent``, None (nothing recorded) or a
+    list that a caller sets, gets per superstep (rows, B, compacted): the
+    rows this process sent to the others, the width and whether the
+    superstep took the compacted exchange.
 
     The buffers' invariant (the module docstring's zeroing by rows): before
     each compacted receive, shard t's buffer is zero outside its own block
@@ -186,11 +209,11 @@ class FrontierExchange:
             raise NotImplementedError(
                 "exchange 'ragged' is not ported: the reference never ran "
                 "it (ROADMAP C5); 'routed' routes the same rows")
-        if comm is not None and mode != "dense":
-            raise ValueError(f"exchange {mode!r} across processes is not "
-                             "ported yet (ROADMAP, Queue 1): dense only")
+        L = len(devices)
+        G = L if n_shards is None else n_shards
         self.comm, self.shard0 = comm, shard0
-        G = len(devices) if n_shards is None else n_shards
+        # the global shards of this process
+        self.local = list(range(shard0, shard0 + L))
         self.mode, self.devices, self.G, self.n_loc = mode, devices, G, n_loc
         if cap is None:
             cap = exchange_cap(n_loc)
@@ -203,6 +226,11 @@ class FrontierExchange:
             if chips_per_host is None or G % chips_per_host:
                 raise ValueError("exchange='hier' needs chips_per_host "
                                  f"dividing the graph-axis size {G}")
+            if comm is not None and chips_per_host != L:
+                raise ValueError(
+                    f"exchange='hier' across processes needs chips_per_host "
+                    f"= {L}, the shards of one process (a host is a "
+                    f"process), not {chips_per_host}")
         self.H = G // self.C
         # destinations of a sender's compaction
         self.D = {"dense": 0, "compact": 1, "routed": G, "hier": self.H}[mode]
@@ -210,6 +238,7 @@ class FrontierExchange:
         self.compacted = 0
         self.fell_back = 0
         self.cleared = 0
+        self.sent: Optional[list] = None
         self._B = None
         # per shard, the ids of the previous compacted receive; None: any
         # row of the buffers may hold data
@@ -223,6 +252,11 @@ class FrontierExchange:
         """The destination index of shard t's receive."""
         return {"compact": 0, "routed": t, "hier": t // self.C}[self.mode]
 
+    def _regions(self, q: int) -> list:
+        """The destinations whose blocks process q's shards receive."""
+        L = len(self.local)
+        return sorted({self._region(t) for t in range(q * L, (q + 1) * L)})
+
     def buffers(self, B: int) -> list:
         """Per shard, the [n_pad, B] f32 exchange buffer (contents
         undefined), reused while the width stays B.  A caller writes only
@@ -234,6 +268,7 @@ class FrontierExchange:
             self.bufs = self.send_ids = self.send_rows = None
             self.recv_ids = self.recv_rows = self.slot_src = None
             self.stage_ids = self.stage_rows = None
+            self._ids = self._rows = self._recv = None
             self.bufs = [torch.empty((self.n_pad, B), dtype=torch.float32,
                                      device=d) for d in self.devices]
             if self.D:
@@ -244,23 +279,26 @@ class FrontierExchange:
 
     def _slots(self, B: int) -> None:
         G, D, cap, dev0 = self.G, self.D, self.cap, self.devices[0]
+        local = self.local
         if self.one_device:
-            # sender s writes its block for destination d at [d, s]; the
+            # sender s writes its block for destination d at [d, s] (a
+            # remote sender's block lands there after the transfer); the
             # receiver of destination d reads [d] as one list of G * cap;
             # two halves of id slots, one for the send, one holding the
             # ids of the last receive
             ids = torch.empty((2, D, G, cap), dtype=torch.int32, device=dev0)
             rows = torch.empty((D, G, cap, B), dtype=torch.float32,
                                device=dev0)
+            self._ids, self._rows = ids, rows
             self._id_halves = [
-                ([ids[p, :, s] for s in range(G)],
-                 [ids[p, self._region(t)].reshape(-1) for t in range(G)])
+                ([ids[p, :, s] for s in local],
+                 [ids[p, self._region(t)].reshape(-1) for t in local])
                 for p in range(2)]
             self._half = 0
             self.send_ids, self.recv_ids = self._id_halves[0]
-            self.send_rows = [rows[:, s] for s in range(G)]
+            self.send_rows = [rows[:, s] for s in local]
             self.recv_rows = [rows[self._region(t)].reshape(G * cap, B)
-                              for t in range(G)]
+                              for t in local]
         else:
             self.send_ids = [torch.empty((D, cap), dtype=torch.int32,
                                          device=d) for d in self.devices]
@@ -283,15 +321,15 @@ class FrontierExchange:
                                             device=d)
 
     def send(self, bufs: list, counts: list) -> None:
-        """The send side of every shard: the compaction of its own block of
-        its buffer, ``counts[h]`` ([D] int32) the rows due to each
-        destination."""
+        """The send side of every local shard: the compaction of its own
+        block of its buffer, ``counts[h]`` ([D] int32) the rows due to
+        each destination."""
         n_loc = self.n_loc
-        for h in range(self.G):
+        for h, s in enumerate(self.local):
             frontier_compact(
-                bufs[h][h * n_loc:(h + 1) * n_loc],
+                bufs[h][s * n_loc:(s + 1) * n_loc],
                 None if self.needed is None else self.needed[h], self.cap,
-                h * n_loc, self.n_pad, self.send_ids[h], self.send_rows[h],
+                s * n_loc, self.n_pad, self.send_ids[h], self.send_rows[h],
                 counts[h])
 
     def fits(self, counts: np.ndarray) -> bool:
@@ -301,25 +339,37 @@ class FrontierExchange:
 
     def exchange(self, bufs: list, counts: Optional[np.ndarray] = None
                  ) -> None:
-        """Fill every shard's buffer (``bufs``, as ``buffers`` gave them):
-        compacted when ``counts`` ([G, D], read from the send side) fit the
-        capacity, else the ring."""
-        if self.comm is not None:
-            ring.all_gather_processes(bufs, self.comm, self.shard0,
-                                      self.n_loc)
-            return
+        """Fill every local shard's buffer (``bufs``, as ``buffers`` gave
+        them): compacted when ``counts`` ([G, D] of every shard, read from
+        the send side) fit the capacity, else the ring (and across
+        processes its all-gather)."""
         if self.mode == "dense" or counts is None or not self.fits(counts):
             if self.mode != "dense":
                 self.fell_back += 1
-            ring.ring_all_gather(bufs)
+            if self.comm is None:
+                ring.ring_all_gather(bufs)
+            else:
+                ring.all_gather_processes(bufs, self.comm, self.shard0,
+                                          self.n_loc)
+                self._sent((self.comm.size - 1) * len(bufs) * self.n_loc,
+                           False)
             self._written = None
             return
         self.compacted += 1
         self._clear(bufs)
+        if self.comm is not None and self.comm.size == 1:
+            self._sent(0, True)
+        elif self.comm is not None:
+            self._transfer(counts)
+            if self.one_device:
+                for s, d in self._recv_off:
+                    self._put(self._ids[self._half, d, s], self._rows[d, s],
+                              s, d, counts)
         if not self.one_device:
             self._copies(counts)
+        self._recv = None
         G, cap = self.G, self.cap
-        for t in range(G):
+        for t in range(len(bufs)):
             row_scatter_add(bufs[t], self.recv_rows[t].view(G * cap, -1),
                             self.slot_src[bufs[t].device],
                             self.recv_ids[t].view(-1))
@@ -329,6 +379,11 @@ class FrontierExchange:
             self._half = 1 - self._half
             self.send_ids, self.recv_ids = self._id_halves[self._half]
 
+    def _sent(self, rows: int, compacted: bool) -> None:
+        """Record one superstep's rows sent across processes."""
+        if self.sent is not None:
+            self.sent.append((int(rows), self._B, compacted))
+
     def _clear(self, bufs: list) -> None:
         """Zero what was written since each buffer was last zero: its own
         block and the previous receive's rows (one clear; ``cleared``
@@ -337,39 +392,95 @@ class FrontierExchange:
             for buf in bufs:
                 buf.zero_()
             return
-        exchange_clear(bufs, self.n_loc, [w.view(-1) for w in self._written])
+        exchange_clear(bufs, self.n_loc, [w.view(-1) for w in self._written],
+                       own=self.local)
         self.cleared += 1
 
-    def _copies(self, counts: np.ndarray) -> None:
-        """The collectives of a compacted superstep as copies between
-        devices: the rows sent (``counts`` of them) and every id slot."""
-        G, C, H = self.G, self.C, self.H
+    def _transfer(self, counts: np.ndarray) -> None:
+        """The rows of a compacted superstep that cross the process
+        boundary, in one ``all_to_all``: to each other process q, per local
+        sender s (ascending) and destination d that q's shards read
+        (``_regions(q)``, ascending), the ``counts[s, d]`` rows of s's
+        block for d, each row an int32 [B + 1] line (the f32 row's bits,
+        then its global id).  The received lines stay in ``_recv``, and
+        ``_recv_off`` maps each remote (sender, destination) block to its
+        first line."""
+        comm, L, B = self.comm, len(self.local), self._B
+        P, me = comm.size, comm.rank
+        n = counts.astype(np.int64)
+        sends = [[] if q == me else [(h, s, d) for h, s in enumerate(
+            self.local) for d in self._regions(q)] for q in range(P)]
+        send_n = [sum(int(n[s, d]) for _, s, d in blk) for blk in sends]
+        packed = torch.empty((sum(send_n), B + 1), dtype=torch.int32,
+                             device=self.devices[0])
+        rows = packed.view(torch.float32)
+        off = 0
+        for blk in sends:
+            for h, s, d in blk:
+                k = int(n[s, d])
+                if k:
+                    rows[off:off + k, :B].copy_(self.send_rows[h][d, :k])
+                    packed[off:off + k, B].copy_(self.send_ids[h][d, :k])
+                off += k
+        mine = self._regions(me)
+        self._recv_off, recv_n, off = {}, [], 0
+        for q in range(P):
+            start = off
+            if q != me:
+                for s in range(q * L, (q + 1) * L):
+                    for d in mine:
+                        self._recv_off[(s, d)] = off
+                        off += int(n[s, d])
+            recv_n.append(off - start)
+        self._recv = comm.all_to_all(packed, send_n, recv_n)
+        self._sent(sum(send_n), True)
 
-        def put(dst_ids, dst_rows, s, d):
-            n = min(int(counts[s, d]), self.cap)
-            dst_ids.copy_(self.send_ids[s][d])
+    def _put(self, dst_ids, dst_rows, s: int, d: int,
+             counts: np.ndarray) -> None:
+        """Sender s's block for destination d into one receive slot
+        (``dst_ids`` [cap], ``dst_rows`` [cap, B]): a local sender's from
+        its send slots (every id slot), a remote one's from the lines
+        ``_transfer`` received (its ``counts[s, d]`` rows and ids, the
+        other id slots pad)."""
+        n = min(int(counts[s, d]), self.cap)
+        h = s - self.shard0
+        if 0 <= h < len(self.local):
+            dst_ids.copy_(self.send_ids[h][d])
             if n:
-                dst_rows[:n].copy_(self.send_rows[s][d, :n])
+                dst_rows[:n].copy_(self.send_rows[h][d, :n])
+            return
+        off = self._recv_off[(s, d)]
+        dst_ids[n:].fill_(self.n_pad)
+        if n:
+            dst_ids[:n].copy_(self._recv[off:off + n, -1])
+            dst_rows[:n].copy_(
+                self._recv.view(torch.float32)[off:off + n, :-1])
 
+    def _copies(self, counts: np.ndarray) -> None:
+        """The collectives of a compacted superstep, with the local shards
+        on several devices, as copies into each receiver's slots: the rows
+        sent (``counts`` of them) and every id slot, a remote sender's
+        from the transfer."""
+        G, C, H = self.G, self.C, self.H
         if self.mode != "hier":
-            for t in range(G):
+            for i, t in enumerate(self.local):
                 for s in range(G):
-                    put(self.recv_ids[t][s], self.recv_rows[t][s], s,
-                        self._region(t))
+                    self._put(self.recv_ids[i][s], self.recv_rows[i][s], s,
+                              self._region(t), counts)
             return
         # stage A: to the same chip position of the receiving host
-        for t in range(G):
+        for i, t in enumerate(self.local):
             h, c = divmod(t, C)
             for hs in range(H):
-                put(self.stage_ids[t][hs], self.stage_rows[t][hs],
-                    hs * C + c, h)
-        # stage B: shared among the host's chips (whole slots: the pads of
-        # stage A travel as ids, their rows are never read)
-        for t in range(G):
+                self._put(self.stage_ids[i][hs], self.stage_rows[i][hs],
+                          hs * C + c, h, counts)
+        # stage B: shared among the host's chips, all local (whole slots:
+        # the pads of stage A travel as ids, their rows are never read)
+        for i, t in enumerate(self.local):
             h = t // C
             for c2 in range(C):
-                src = h * C + c2
-                self.recv_ids[t][c2 * H:(c2 + 1) * H].copy_(
+                src = h * C + c2 - self.shard0
+                self.recv_ids[i][c2 * H:(c2 + 1) * H].copy_(
                     self.stage_ids[src])
-                self.recv_rows[t][c2 * H:(c2 + 1) * H].copy_(
+                self.recv_rows[i][c2 * H:(c2 + 1) * H].copy_(
                     self.stage_rows[src])

@@ -15,8 +15,10 @@ processes hold L = G / P shards each, process q shards q * L .. q * L + L
 - 1 (JAX's order: ``jax.devices()`` lists the devices process by process,
 so the graph axis is contiguous per process).  ``make_mesh`` then returns
 a ``ProcessMesh``: the G entries, this process's shards' devices and None
-for the others', with the group's transport.  The process group runs no
-query axis.
+for the others', with the group's transport.  A query axis of Q groups is
+Q such meshes of the same local devices: JAX lists device g * Q + q as
+shard g of group q, so each process holds its L shards of every group,
+and the engines place them once for all groups.
 """
 
 from __future__ import annotations
@@ -68,15 +70,14 @@ def make_mesh(n_graph: int, n_query: Optional[int] = None,
 
     With a process group started: a ``ProcessMesh`` of the G global
     shards, this process's L = G / P on ``devices`` (L entries) or, by
-    default, on the group's device; ``n_query`` must be None or 1.
+    default, on the group's device; with ``n_query`` Q > 1, a list of Q
+    such meshes, each with this process's shards on the same devices.
     """
     Q = 1 if n_query is None else n_query
     if n_graph < 1 or Q < 1:
         raise ValueError(f"mesh {n_graph} x {Q}: both sizes must be >= 1")
     comm = multihost.comm()
     if comm is not None:
-        if Q != 1:
-            raise ValueError("a process group runs no query axis")
         if n_graph % comm.size:
             raise ValueError(f"{n_graph} graph shards over {comm.size} "
                              "processes: G must divide by the processes")
@@ -87,8 +88,10 @@ def make_mesh(n_graph: int, n_query: Optional[int] = None,
             raise ValueError(f"{len(local)} devices for this process's {L} "
                              "shards")
         q0 = comm.rank * L
-        return ProcessMesh([local[g - q0] if q0 <= g < q0 + L else None
-                            for g in range(n_graph)], comm)
+        groups = [ProcessMesh([local[g - q0] if q0 <= g < q0 + L else None
+                               for g in range(n_graph)], comm)
+                  for _ in range(Q)]
+        return groups[0] if n_query in (None, 1) else groups
     if devices is not None:
         devs = [torch.device(d) for d in devices]
         if len(devs) != n_graph * Q:

@@ -10,18 +10,23 @@ lists the devices process by process.  Every process builds the same
 partition from a ``CSRGraph`` (as every JAX process builds the same global
 numpy arrays), or opens its own shards' files of a store.
 
-The backend is NCCL where each rank has a card of its own, and gloo on the
-CPU.  Ranks that share one card (NCCL refuses two ranks on one GPU) run
-gloo: the caller passes ``backend="gloo"``.  Under NCCL ``init`` compares
-the ranks' cards through the store before any collective and raises if
-two share one; it never falls back to gloo.  Call ``shutdown()`` before a
-process exits: a gloo process that exits with its group alive aborts.
+Each rank's shards lie on a card (by default card rank modulo the visible
+cards), or on the CPU only where the caller asks for it (``device="cpu"``):
+with no card and no such request ``init`` raises, as ``mesh.make_mesh``
+does, and never falls back to the CPU.  The backend is NCCL where each
+rank has a card of its own, and gloo on the CPU.  Ranks that share one
+card (NCCL refuses two ranks on one GPU) run gloo: the caller passes
+``backend="gloo"``.  Under NCCL ``init`` compares the ranks' cards
+through the store before any collective and raises if two share one; it
+never falls back to gloo.  Call ``shutdown()`` before a process exits: a
+gloo process that exits with its group alive aborts.
 
 ``ProcessComm`` is the engines' transport: the collectives the sharded
 engine needs (``all_gather``, ``all_reduce``, ``reduce_scatter``,
 ``all_to_all``), each one ``torch.distributed`` call on the tensors
 themselves (gloo takes all four on CUDA tensors, so nothing is staged
-through host memory).  ``gather_to_host`` (41-45 there) gives every
+through host memory), and ``agree``, the check that every process took
+the same host decision.  ``gather_to_host`` (41-45 there) gives every
 process a row-sharded result in shard order, as JAX's
 ``process_allgather(tiled=True)`` does.
 """
@@ -79,13 +84,27 @@ class ProcessComm:
         dist.all_gather_into_tensor(got, x)
         return got if out is not None else got.to(t.device)
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the processes, in place."""
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` summed (``op`` "sum") or its largest value taken ("max")
+        over the processes, in place."""
         x = self._on(t)
-        dist.all_reduce(x)
+        dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[op])
         if x is not t:
             t.copy_(x)
         return t
+
+    def agree(self, what: str, value: int) -> None:
+        """Raise unless every process passed the same int64 ``value``: one
+        all-reduce of (value, -value) by max gives the largest and the
+        smallest, and the error names both.  Every process calls it at the
+        same point, so a process that decided otherwise fails here and
+        does not leave the others waiting in a later collective."""
+        x = torch.tensor([value, -value], dtype=torch.int64)
+        hi, lo = (int(v) for v in self.all_reduce(x, "max"))
+        if hi != -lo:
+            raise RuntimeError(f"processes disagree on {what}: values from "
+                               f"{-lo} to {hi} (rank {self.rank}: {value})")
 
     def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
         """Rows rank * R .. (rank + 1) * R - 1 (R = t.shape[0] / size) of
@@ -138,28 +157,29 @@ def init(coordinator: str, num_processes: int, process_id: int, *,
          backend: Optional[str] = None, device=None) -> ProcessComm:
     """Start the process group: rank ``process_id`` of ``num_processes``
     over a TCP store at ``coordinator`` ("host:port", the port free on
-    the host of rank 0, which serves the store).  ``backend`` None is NCCL
-    when CUDA is available, else gloo.  ``device`` is the device of this
-    process's shards: by default card ``process_id`` modulo the visible
-    cards under CUDA, else the CPU.  Under NCCL every rank must hold a
-    card of its own: the ranks publish their card's name in the store,
-    and a card named twice raises before any collective (pass
-    backend="gloo" where ranks share a card).  Returns the group's
-    ``ProcessComm`` (also ``comm()``)."""
+    the host of rank 0, which serves the store).  ``device`` is the device
+    of this process's shards: by default card ``process_id`` modulo the
+    visible cards; with no card it raises unless the caller asks for the
+    CPU (``device="cpu"``).  ``backend`` None is NCCL on a card and gloo
+    on the CPU.  Under NCCL every rank must hold a card of its own: the
+    ranks publish their card's name in the store, and a card named twice
+    raises before any collective (pass backend="gloo" where ranks share a
+    card).  Returns the group's ``ProcessComm`` (also ``comm()``)."""
     global _comm
     if _comm is not None:
         raise RuntimeError("init: a process group is already started; call "
                            "shutdown() first")
     if not 0 <= process_id < num_processes:
         raise ValueError(f"process {process_id} of {num_processes}")
-    cuda = torch.cuda.is_available()
-    backend = backend or ("nccl" if cuda else "gloo")
-    if backend not in ("nccl", "gloo"):
+    if backend not in (None, "nccl", "gloo"):
         raise ValueError(f"backend {backend!r}: nccl or gloo")
     if device is None:
-        device = (torch.device("cuda", process_id % torch.cuda.device_count())
-                  if cuda else torch.device("cpu"))
+        if not torch.cuda.is_available():
+            raise RuntimeError("init: no CUDA device; pass device=\"cpu\" "
+                               "(--device cpu) to run on the CPU")
+        device = torch.device("cuda", process_id % torch.cuda.device_count())
     device = torch.device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if backend == "nccl" and device.type != "cuda":
         raise ValueError("NCCL needs each rank's shards on a CUDA device")
     if device.type == "cuda" and device.index is None:

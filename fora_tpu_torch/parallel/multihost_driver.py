@@ -1,15 +1,18 @@
-"""One process of a sharded one-shot run across processes.
+"""One process of a sharded run across processes.
 
     python -m fora_tpu_torch.parallel.multihost_driver --coordinator \
         localhost:PORT --processes P --rank Q [--backend gloo] \
         [--device cpu] --spec SPEC.json --out DIR
 
-Each of the P processes starts the group (``multihost.init``), runs the
-jobs of SPEC.json with ``ShardedForaEngine`` on ``make_mesh(G)`` (its L =
-G / P shards), writes ``DIR/rank<Q>.json`` and ``DIR/rank<Q>.npz`` and
-ends the group (``multihost.shutdown``).  The counterpart of the JAX
-package's ``tests/multihost_driver.py``; ``tests/test_torch_multihost.py``
-and ``chip_smoke.py``'s phase 17 run it.
+Each of the P processes starts the group (``multihost.init``; on a
+machine without a card ``--device cpu`` is needed, gloo then the
+default), runs the jobs of SPEC.json with ``ShardedForaEngine`` (the
+one-shot) or ``ShardedTopkRunner`` (the refinement pool) on
+``make_mesh(G, n_query)`` (its L = G / P shards of every query group),
+writes ``DIR/rank<Q>.json`` and ``DIR/rank<Q>.npz`` and ends the group
+(``multihost.shutdown``).  The counterpart of the JAX package's
+``tests/multihost_driver.py``; ``tests/test_torch_multihost.py`` and
+``chip_smoke.py``'s phase 17 run it.
 
 SPEC.json holds ``shards`` (G) and ``jobs``, a list of objects with:
 
@@ -22,14 +25,29 @@ SPEC.json holds ``shards`` (G) and ``jobs``, a list of objects with:
   epsilon, k the config (ForaConfig(epsilon=, k=)) and the top-k
   sources    the query batch
   seed       the raw walk's seed (null: the engine's own)
-  repeat     topk calls; the last is timed, its launch counts kept
+  repeat     calls; the last is timed, its launch counts kept
   ends       true: the first walk chunk's endpoints of the last call,
              gathered from every process, saved by rank 0 as
              ``DIR/<name>.ends.npy`` (-1 on the lanes not walked)
+  exchange, chips_per_host, cap
+             the frontier exchange (null: dense), hier's chips per host
+             (across processes L), its capacity (null: exchange_cap)
+  n_query    query groups (null: 1)
+  runner     "pool": ShardedTopkRunner.query_pools (pools of ``pool``
+             sources, null: all, through query_pool(batch=``batch``,
+             defer_below=``defer_below``), then flush_deferred), with
+             ``delta_stride`` and ``accept_slack`` (defaults 2, 1); else
+             the one-shot
 
 Per job the outputs hold the answer (``<name>.values``, ``<name>.ids`` in
-the npz), the supersteps, the timed call's wall, the kernels' launches, the
-raw walk's rounds and records per round.
+the npz; a pool adds ``.lb``, ``.ub`` and ``.accepted``, each source's
+final row, the flush's for a deferred one), the supersteps, the timed
+call's wall, the kernels' launches, the exchange's supersteps compacted,
+fallen back and cleared by rows in the timed call, and per superstep of
+it the rows and bytes this process sent to the others (``sent_rows``,
+``sent_bytes``; ``dense_bytes``, what the dense exchange sends in their
+place), a pool's level records, the raw walk's rounds and records per
+round.
 ``gather`` (in the JSON) is ``multihost.gather_to_host`` of each local
 shard's row ids, checked against 0 .. G * n_loc - 1.
 """
@@ -77,37 +95,82 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _sent(xch, comm) -> dict:
+    """Per superstep of ``xch.sent``, the rows and bytes this process sent
+    to the others, and the bytes of the dense exchange's all-gather at
+    the same width (a compacted row is B + 1 words, a dense one B)."""
+    L, n_loc = len(xch.local), xch.n_loc
+    sent = xch.sent or []
+    return {"sent_rows": [r for r, _, _ in sent],
+            "sent_bytes": [r * (B + c) * 4 for r, B, c in sent],
+            "dense_bytes": [(comm.size - 1) * L * n_loc * B * 4
+                            for _, B, _ in sent]}
+
+
 def run_job(job: dict, G: int, comm, out: Path, cache: dict) -> tuple:
     """One job on this process: (its JSON record, its arrays)."""
     from .. import kernels
     from ..config import ForaConfig
     from .mesh import make_mesh
-    from .sharded import ShardedForaEngine
+    from .sharded import ShardedForaEngine, ShardedTopkRunner
     g = _graph(job["graph"], G, cache)
     rcfg = ForaConfig(epsilon=job.get("epsilon", 0.5),
                       k=job["k"]).resolved(g.n, g.m)
     t0 = time.perf_counter()
-    eng = ShardedForaEngine(g, make_mesh(G), rcfg, k=job["k"],
-                            index=_index(job.get("index"), G, rcfg))
+    mesh = make_mesh(G, job.get("n_query"))
+    index = _index(job.get("index"), G, rcfg)
+    kw = dict(k=job["k"], exchange=job.get("exchange"),
+              chips_per_host=job.get("chips_per_host"))
+    pool = job.get("runner") == "pool"
+    if pool:
+        eng = ShardedTopkRunner(g, mesh, rcfg, index,
+                                delta_stride=job.get("delta_stride", 2.0),
+                                accept_slack=job.get("accept_slack", 1.0),
+                                **kw)
+    else:
+        eng = ShardedForaEngine(g, mesh, rcfg, index=index, **kw)
+    xch = eng.exchange
+    if job.get("cap") and xch.mode != "dense":
+        xch.cap = job["cap"]
+    placement = eng._groups[0]
     _sync(comm.device)
     place_s = time.perf_counter() - t0
     src = np.asarray(job["sources"], dtype=np.int64)
-    log = None if eng.use_index else {"ends": bool(job.get("ends"))}
+    log = None if index is not None else {"ends": bool(job.get("ends"))}
     for i in range(job.get("repeat", 1)):
         last = i == job.get("repeat", 1) - 1
-        eng.placement.xp_log = log if last else None
+        placement.xp_log = log if last else None
         if last:
             kernels.reset_launch_counts()
+            before = (xch.compacted, xch.fell_back, xch.cleared)
+            xch.sent = []
             _sync(comm.device)
             t0 = time.perf_counter()
-        res = eng.topk(src, job.get("seed"))
+        res = (eng.query_pools(src, batch=job["batch"], pool=job.get("pool"),
+                               defer_below=job.get("defer_below", 0))
+               if pool else eng.topk(src, job.get("seed")))
     _sync(comm.device)
     wall = time.perf_counter() - t0
-    rec = {"supersteps": res.push_iters, "wall_s": wall,
-           "placement_s": place_s, "launches": kernels.launch_counts(),
-           "shards": list(eng.placement.local), "n_loc": eng.n_loc}
-    arrays = {f"{job['name']}.values": res.values,
-              f"{job['name']}.ids": res.node_ids}
+    name = job["name"]
+    rec = {"wall_s": wall, "placement_s": place_s,
+           "launches": kernels.launch_counts(),
+           "shards": list(placement.local), "n_loc": placement.n_loc,
+           "exchange": xch.mode, "cap": xch.cap,
+           "compacted": xch.compacted - before[0],
+           "fell_back": xch.fell_back - before[1],
+           "cleared": xch.cleared - before[2], **_sent(xch, comm)}
+    if pool:
+        res, stats = res
+        rec.update(supersteps=sum(st["supersteps"] for st in stats),
+                   levels_used=res.levels_used, levels=stats)
+        arrays = {f"{name}.ids": res.node_ids,
+                  f"{name}.values": res.values,
+                  f"{name}.lb": res.lower_bounds,
+                  f"{name}.ub": res.upper_bounds,
+                  f"{name}.accepted": res.accepted}
+        return rec, arrays
+    rec["supersteps"] = res.push_iters
+    arrays = {f"{name}.values": res.values, f"{name}.ids": res.node_ids}
     if log is not None:
         rec.update(rounds=log["rounds"], sent=log["sent"],
                    received=log["received"])
@@ -116,8 +179,7 @@ def run_job(job: dict, G: int, comm, out: Path, cache: dict) -> tuple:
             # one process ended each walked lane: -1 + 1 is 0 elsewhere
             total = comm.all_reduce(ends + 1)
             if comm.rank == 0:
-                np.save(out / f"{job['name']}.ends.npy",
-                        (total - 1).cpu().numpy())
+                np.save(out / f"{name}.ends.npy", (total - 1).cpu().numpy())
             rec["ends_shape"] = list(ends.shape)
     return rec, arrays
 
@@ -127,8 +189,13 @@ def main(argv=None) -> int:
     ap.add_argument("--coordinator", required=True)
     ap.add_argument("--processes", type=int, required=True)
     ap.add_argument("--rank", type=int, required=True)
-    ap.add_argument("--backend", default=None)
-    ap.add_argument("--device", default=None)
+    ap.add_argument("--backend", default=None,
+                    help="nccl or gloo (default: nccl on a card, gloo on "
+                         "the CPU)")
+    ap.add_argument("--device", default=None,
+                    help="the device of this process's shards (default: "
+                         "card rank modulo the visible cards; without a "
+                         "card, pass cpu, else the start fails)")
     ap.add_argument("--spec", required=True)
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)

@@ -48,13 +48,23 @@ all-reduce of the superstep's [G, 1] status before its one host read, P2's
 reduce-scatter after the one pass over the local partials
 (``ring.reduce_scatter_processes``), one all-gather of the candidates,
 and in the raw walk phase the totals' all-gather and each round's counts
-and walks (``ops.walk.sharded_walk_phase_xp``).  Every process returns the
-answer.  The refinement pool, the compacted exchanges and the query axis
-across processes are not ported yet (ROADMAP, Queue 1).
+and walks (``ops.walk.sharded_walk_phase_xp``).  A compacted exchange
+sends its counted rows in one all-to-all (``ops.exchange``); the status
+all-reduce has given every process every shard's counts, so the fall-back
+to the dense exchange is one branch on all of them.  The refinement pool
+runs the same level step, its P2 the processes' reduce-scatter; its host
+decisions come from the merged candidates, which every process computes
+from the same gathered inputs, and each level checks that every process
+accepted the same columns after the same supersteps
+(``ProcessComm.agree``).  With a query axis (``make_mesh(G, Q)``, Q
+``ProcessMesh``es of the same local devices) the groups share one
+placement and run one after another, their collectives in the same order
+on every process.  Every process returns the answer.
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -582,7 +592,10 @@ class _ShardedPlacement:
         c0, f0, z0 = xch.compacted, xch.fell_back, xch.cleared
         thr = [sh.thr(depth, omega_unit) for sh in self.shards]
         iters = self.push(ps, rs, thr, alpha, max_iters)
-        walk_loc = ring.ring_reduce_scatter(self.walk_partials(rs, depth))
+        parts = self.walk_partials(rs, depth)
+        walk_loc = (ring.ring_reduce_scatter(parts) if self.comm is None else
+                    ring.reduce_scatter_processes(parts, self.comm,
+                                                  len(self.shards)))
         kk_loc = min(k + 1, self.n_loc)
         vals, idx, p_at = self.candidates(ps, walk_loc, kk_loc)
         kk = min(k + 1, self.G * kk_loc)
@@ -598,10 +611,16 @@ class _ShardedPlacement:
 def _mesh_groups(mesh) -> list:
     """The query groups of ``mesh``: a flat list of G devices is one group,
     a list of Q lists of G devices is Q groups; a ``ProcessMesh`` is one
-    group."""
+    group, a list of Q of them Q groups."""
     if isinstance(mesh, ProcessMesh):
         return [mesh]
     mesh = list(mesh)
+    if mesh and all(isinstance(m, ProcessMesh) for m in mesh):
+        if any(list(m) != list(mesh[0]) or m.comm is not mesh[0].comm
+               for m in mesh):
+            raise ValueError("mesh: every query group of a process group "
+                             "needs the same shard devices")
+        return mesh
     if mesh and all(isinstance(d, (list, tuple)) for d in mesh):
         groups = [[torch.device(d) for d in grp] for grp in mesh]
     elif any(isinstance(d, (list, tuple)) for d in mesh):
@@ -654,9 +673,10 @@ class ShardedForaEngine:
     (ROADMAP C5).  ``placement`` is the first query group's
     ``_ShardedPlacement``: its ``prepass``, ``walk_partials`` (or
     ``raw_walk_partials``) and ``candidates`` are the phases of ``topk``.
-    ``mesh`` may be a ``ProcessMesh`` (``make_mesh`` with a process group
-    started): this process holds its L shards, the dense exchange runs
-    across the processes, and every process returns the answer.
+    ``mesh`` may be a ``ProcessMesh``, or a list of Q of them (``make_mesh``
+    with a process group started): this process holds its L shards (of
+    every query group), every exchange runs across the processes, and
+    every process returns the answer.
     """
 
     def __init__(self, g, mesh, rcfg: ResolvedConfig, *,
@@ -791,6 +811,10 @@ class ShardedTopkRunner(TopkRunner):
     ``last_level_stats`` record adds the supersteps that took the
     compacted exchange (``compacted``), those that fell back to the ring
     (``fell_back``) and the compacted ones cleared by rows (``cleared``).
+    Across processes (a ``ProcessMesh``, or Q of them) a block holds the
+    process's L shards' pairs, and every level checks that each process
+    accepted the same columns after the same supersteps, so that no
+    process goes on alone into a collective the others never call.
     """
 
     def __init__(self, g, mesh, rcfg: ResolvedConfig, index, *,
@@ -799,9 +823,6 @@ class ShardedTopkRunner(TopkRunner):
                  chips_per_host: Optional[int] = None, hub_rows: int = 0):
         if index is None:
             raise ValueError("ShardedTopkRunner requires a walk index")
-        if isinstance(mesh, ProcessMesh):
-            raise ValueError("ShardedTopkRunner across processes is not "
-                             "ported yet (ROADMAP, Queue 1)")
         super().__init__(None, rcfg, k=k, index=index,
                          delta_stride=delta_stride,
                          accept_slack=accept_slack)
@@ -811,9 +832,28 @@ class ShardedTopkRunner(TopkRunner):
         self._groups = _placements(g, groups, index, exchange=exchange,
                                    chips_per_host=chips_per_host,
                                    hub_rows=hub_rows)
+        # per query group, the devices of this process's shards
         self._dev = [list(pl.devices) for pl in self._groups]
+        self._comm = self._groups[0].comm
 
-    # --- block state: [Q][G] per-shard [n_loc, cols] pairs -------------
+    @property
+    def exchange(self):
+        """The first group's ``ops.exchange.FrontierExchange``."""
+        return self._groups[0].exchange
+
+    def _agree_level(self, level: int, accepted, info: dict) -> None:
+        """Across processes: raise unless every process accepted the same
+        columns after the same supersteps at this level (one all-reduce of
+        a checksum)."""
+        if self._comm is None:
+            return
+        head = np.asarray([level, len(accepted), info.get("supersteps", 0)],
+                          dtype=np.int64).tobytes()
+        bits = np.packbits(np.asarray(accepted, dtype=bool)).tobytes()
+        self._comm.agree(f"level {level}'s acceptances and supersteps",
+                         zlib.crc32(bits, zlib.crc32(head)))
+
+    # --- block state: [Q][L] per-shard [n_loc, cols] pairs -------------
 
     def _new_block(self, sources):
         c = _split(len(sources), self.Q, "a block")
@@ -831,7 +871,7 @@ class ShardedTopkRunner(TopkRunner):
             return x[0]
         return [torch.cat([x[q][h].to(self._dev[0][h])
                            for q in range(len(x))], dim=1)
-                for h in range(self.G)]
+                for h in range(len(self._dev[0]))]
 
     def _select_cols(self, p, r, sel):
         fp, fr = self._flat(p), self._flat(r)
@@ -845,10 +885,11 @@ class ShardedTopkRunner(TopkRunner):
             return pairs[0]
         fps = [self._flat(p) for p, _ in pairs]
         frs = [self._flat(r) for _, r in pairs]
+        L = len(self._dev[0])
         return ([[torch.cat([fp[h] for fp in fps], dim=1)
-                  for h in range(self.G)]],
+                  for h in range(L)]],
                 [[torch.cat([fr[h] for fr in frs], dim=1)
-                  for h in range(self.G)]])
+                  for h in range(L)]])
 
     def _split_cols(self, p, r, width: int) -> list:
         fp, fr = self._flat(p), self._flat(r)
@@ -861,7 +902,8 @@ class ShardedTopkRunner(TopkRunner):
             def cut(f):
                 return [[f[h][:, lo + q * c: lo + (q + 1) * c]
                          .to(self._dev[q][h]).contiguous()
-                         for h in range(self.G)] for q in range(self.Q)]
+                         for h in range(len(self._dev[q]))]
+                        for q in range(self.Q)]
             blocks.append((cut(fp), cut(fr)))
         return blocks
 

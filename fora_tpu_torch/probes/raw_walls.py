@@ -85,12 +85,7 @@ def raw_pool(graph, src):
                         accept_slack=1.0)
 
     def once():
-        stats = []
-        runner.query_pool(src, batch=64, defer_below=32)
-        stats += runner.last_level_stats
-        dsrc, dres = runner.flush_deferred(batch=64)
-        if dres is not None:
-            stats += runner.last_level_stats
+        _, stats = runner.query_pools(src, batch=64, defer_below=32)
         ms = {}
         for st in stats:
             for k, v in st["ms"].items():

@@ -18,14 +18,35 @@ K4's Philox walks, which the card's kernel is held to; on the CPU the
 one-process chunk draws from a Generator); ``gather_to_host`` across the
 processes; and the indexed one-shot from both sharded stores, each
 process given only its own shards' files.  A world of one process holds
-all four shards and answers bit for bit as the one-process engine.  In
-process: ``raw_walk_xp_plain`` with the processes simulated by a loop
-against ``raw_walk_chunk_plain``, and the refusals.
+all four shards and answers bit for bit as the one-process engine.
+
+The compacted exchanges and the refinement pool across processes, in the
+same worlds: the indexed one-shot with ``compact``, ``routed`` and
+``hier`` (``chips_per_host`` = L, a host is a process), and with a cap of
+CAP_SMALL rows (more supersteps fall back), each bit-equal to the
+world's dense one-shot with equal supersteps; ``ShardedTopkRunner`` (16
+sources, ``query_pools(batch=8, defer_below=4)``: ``query_pool`` then
+``flush_deferred``) with each exchange and the small cap, bit-equal to
+the world's dense pool, which is held to the one-process port runner and
+to JAX's ``ShardedTopkRunner`` on 4 virtual devices under
+``test_torch_sharded_runner.py``'s rule; the hier one-shot against JAX's
+hier engine (``chips_per_host`` = L); a query axis of 2 (one-shot and
+pool) against the one-process port with 2 query groups and against JAX's
+engine and runner on 8 virtual devices.  In process:
+``raw_walk_xp_plain`` with the processes simulated by a loop against
+``raw_walk_chunk_plain``; ``FrontierExchange`` across processes
+simulated by threads (each a process of L shards, its collectives
+through a shared hub), in the one-device slot layout and with the
+several devices' copies, against the one-process exchange of G shards
+over compacted and fallen-back supersteps; and the refusals.
 """
 
+import functools
 import json
 import os
 import shutil
+import threading
+from concurrent.futures import ThreadPoolExecutor
 import socket
 import subprocess
 import sys
@@ -45,6 +66,7 @@ from fora_tpu.eval import queries as qio
 from fora_tpu.graph import generators as jax_generators
 from fora_tpu.graph.csr import CSRGraph as JaxCSRGraph
 from fora_tpu.parallel import ShardedForaEngine as JaxEngine
+from fora_tpu.parallel import ShardedTopkRunner as JaxRunner
 from fora_tpu.parallel import make_mesh as jax_make_mesh
 from fora_tpu_torch import ForaConfig
 from fora_tpu_torch import index as tidx
@@ -56,6 +78,11 @@ from fora_tpu_torch.parallel import (ShardedForaEngine, ShardedTopkRunner,
                                      make_mesh, multihost,
                                      save_sharded_graph)
 from fora_tpu_torch.parallel.mesh import ProcessMesh
+# test_torch_sharded_runner.py's rule for two pools: values and bounds
+# within rtol 1e-5, ids equal where adjacent values differ by more than
+# 1e-7, acceptance equal, off the queries at a level's threshold (C2)
+from test_torch_sharded_runner import assert_agree as assert_pools_agree
+from test_torch_exchange import _contrib, _needed
 
 torch.set_num_threads(2)
 
@@ -67,6 +94,9 @@ ER_SOURCES = [3, 17, 42, 99, 123, 200, 250, 287]
 RAW_SEED = 5
 TIMEOUT_S = 120
 WORLDS = [(2, 2), (4, 1)]
+CAP_SMALL = 16           # rows a shard may send a destination: some fall back
+POOL_KW = {"batch": 8, "defer_below": 4}
+COMPACTED = ["compact", "routed", "hier", "routed_cap"]
 
 
 def _free_port() -> int:
@@ -117,6 +147,7 @@ def run_world(P: int, root: Path) -> dict:
             {"name": "raw", "graph": {"er": list(ER)}, "index": None,
              "k": K, "sources": ER_SOURCES, "seed": RAW_SEED,
              "ends": True}]
+    jobs += compacted_jobs(jobs[0], G // P)
     port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
@@ -153,6 +184,31 @@ def run_world(P: int, root: Path) -> dict:
             "arrays": [dict(np.load(out / f"rank{q}.npz"))
                        for q in range(P)],
             "ends": np.load(out / "raw.ends.npy")}
+
+
+def exchange_kw(mode: str, L: int) -> dict:
+    """The job keys of an exchange: ``hier`` takes the process's L shards
+    as a host; ``_cap`` runs at CAP_SMALL."""
+    name, _, extra = mode.partition("_")
+    kw = {"exchange": name}
+    if name == "hier":
+        kw["chips_per_host"] = L
+    if extra == "cap":
+        kw["cap"] = CAP_SMALL
+    return kw
+
+
+def compacted_jobs(indexed: dict, L: int) -> list:
+    """The indexed one-shot per compacted exchange, the pool per exchange
+    (dense first), and both with a query axis of 2."""
+    jobs = [dict(indexed, name=m, **exchange_kw(m, L)) for m in COMPACTED]
+    jobs += [dict(indexed, name=f"pool_{m}", runner="pool", **POOL_KW,
+                  **({} if m == "dense" else exchange_kw(m, L)))
+             for m in ["dense"] + COMPACTED]
+    jobs += [dict(indexed, name="q2", exchange="routed", n_query=2),
+             dict(indexed, name="pool_q2", runner="pool", n_query=2,
+                  **POOL_KW)]
+    return jobs
 
 
 @pytest.fixture(scope="module")
@@ -394,6 +450,292 @@ def test_xp_plain_simulated_processes(L, weighted):
                                atol=1e-9)
 
 
+@pytest.mark.parametrize("mode", COMPACTED)
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_compacted_one_shot_bit_equal_dense(worlds, P, L, mode):
+    """Each compacted exchange across processes answers as the world's
+    dense one-shot bit for bit, after as many supersteps; some of them
+    compacted, and at the small cap some fell back.  Every process agrees
+    on the counts, and a compacted superstep sends at most what the dense
+    one sends."""
+    w = worlds(P)
+    for q in range(P):
+        a, rec = w["arrays"][q], w["records"][q]["jobs"]
+        got, dense = rec[mode], rec["indexed"]
+        assert got["supersteps"] == dense["supersteps"]
+        assert got["compacted"] + got["fell_back"] == got["supersteps"]
+        assert got["compacted"] > 0
+        if mode.endswith("_cap"):
+            assert got["cap"] == CAP_SMALL and got["fell_back"] > 0
+        assert np.array_equal(a[f"{mode}.ids"], a["indexed.ids"])
+        assert np.array_equal(a[f"{mode}.values"].view(np.uint32),
+                              a["indexed.values"].view(np.uint32))
+        for key in ("compacted", "fell_back", "cleared"):
+            assert got[key] == w["records"][0]["jobs"][mode][key]
+        assert len(got["sent_rows"]) == got["supersteps"]
+        assert all(b <= d for b, d in zip(got["sent_bytes"],
+                                          got["dense_bytes"]))
+        assert dense["sent_bytes"] == dense["dense_bytes"]
+        assert min(got["sent_bytes"]) < min(dense["dense_bytes"])
+
+
+@pytest.mark.parametrize("mode", COMPACTED)
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_compacted_pool_bit_equal_dense(worlds, P, L, mode):
+    """The refinement pool across processes with each compacted exchange
+    (and the small cap) gives the dense pool's answer bit for bit: ids,
+    values, bounds, acceptance, levels and every level's supersteps."""
+    w = worlds(P)
+    for q in range(P):
+        a, rec = w["arrays"][q], w["records"][q]["jobs"]
+        got, dense = rec[f"pool_{mode}"], rec["pool_dense"]
+        for f in ("ids", "values", "lb", "ub", "accepted"):
+            assert np.array_equal(a[f"pool_{mode}.{f}"],
+                                  a[f"pool_dense.{f}"]), f
+        assert got["levels_used"] == dense["levels_used"]
+        assert [st["supersteps"] for st in got["levels"]] == \
+            [st["supersteps"] for st in dense["levels"]]
+        assert got["compacted"] > 0
+        assert sum(st["compacted"] for st in got["levels"]) == \
+            got["compacted"]
+        if mode.endswith("_cap"):
+            assert got["fell_back"] > 0
+
+
+def pool_answer(results) -> SimpleNamespace:
+    """A pool's per-source answer from its arrays."""
+    return SimpleNamespace(node_ids=results["node_ids"],
+                           values=results["values"],
+                           lower_bounds=results["lower_bounds"],
+                           upper_bounds=results["upper_bounds"],
+                           accepted=results["accepted"], deferred=None)
+
+
+def world_pool(w, name, q=0) -> SimpleNamespace:
+    a = w["arrays"][q]
+    return pool_answer({"node_ids": a[f"{name}.ids"],
+                        "values": a[f"{name}.values"],
+                        "lower_bounds": a[f"{name}.lb"],
+                        "upper_bounds": a[f"{name}.ub"],
+                        "accepted": a[f"{name}.accepted"]})
+
+
+def one_process_pool(Q: int = 1):
+    """The port's one-process ShardedTopkRunner on G CPU shards (Q query
+    groups), the workers' pool loop: (answer, its deltas)."""
+    g, rcfg, idx, sources = smoke()
+    run = ShardedTopkRunner(g, make_mesh(G, Q, devices=["cpu"] * (G * Q)),
+                            rcfg, idx, k=K)
+    res, _ = run.query_pools(np.asarray(sources), **POOL_KW)
+    return res._replace(deferred=None), run.deltas
+
+
+@functools.lru_cache(maxsize=None)
+def jax_smoke():
+    """The smoke graph, its config and index in the JAX package."""
+    z = np.load(ROOT / f"{SMOKE}.npz")
+    g = JaxCSRGraph(**{f: z[f] for f in JaxCSRGraph._fields if f in z.files})
+    rcfg = JaxConfig(epsilon=0.5, k=K).resolved(g.n, g.m)
+    return g, rcfg, jax_index.load(str(ROOT / f"{SMOKE}.idx.e0.5"), rcfg,
+                                   graph=g)
+
+
+def jax_mesh(Q: int = 1):
+    return jax_make_mesh(G, Q, devices=jax.devices()[:G * Q])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_pool(Q: int = 1):
+    """JAX's ShardedTopkRunner on G * Q virtual devices, the same pool
+    loop (query_pool, then flush_deferred)."""
+    g, rcfg, idx = jax_smoke()
+    sources = np.asarray(smoke()[3])
+    run = JaxRunner(g, jax_mesh(Q), rcfg, idx, k=K)
+    res = run.query_pool(sources, jax.random.key(1), **POOL_KW)
+    rows = {int(s): (res, i) for i, s in enumerate(sources)
+            if not res.deferred[i]}
+    dsrc, dres = run.flush_deferred(jax.random.key(2), batch=8)
+    if dres is not None:
+        rows.update({int(s): (dres, i) for i, s in enumerate(dsrc)})
+    return pool_answer({f: np.stack([np.asarray(getattr(r, f))[i]
+                                     for r, i in (rows[int(s)]
+                                                  for s in sources)])
+                        for f in ("node_ids", "values", "lower_bounds",
+                                  "upper_bounds", "accepted")})
+
+
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_pool_matches_one_process_and_jax(worlds, P, L):
+    w = worlds(P)
+    got = world_pool(w, "pool_dense")
+    want, deltas = one_process_pool()
+    assert_pools_agree(got, want, deltas)
+    assert_pools_agree(got, jax_pool(), deltas)
+
+
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_hier_one_shot_matches_jax(worlds, P, L):
+    """The hier one-shot, each host a process, against JAX's hier engine
+    with as many chips a host on 4 virtual devices."""
+    w = worlds(P)
+    g, rcfg, idx = jax_smoke()
+    want = JaxEngine(g, jax_mesh(), rcfg, k=K, index=idx, exchange="hier",
+                     chips_per_host=L).topk(
+        np.asarray(smoke()[3], np.int32), jax.random.key(3))
+    rec = w["records"][0]["jobs"]["hier"]
+    assert rec["supersteps"] == int(want.push_iters)
+    a = w["arrays"][0]
+    assert_topk_agree(a["hier.values"], a["hier.ids"], want.values,
+                      want.node_ids)
+
+
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_query_axis_matches_one_process(worlds, P, L):
+    """Two query groups across processes (each process holds its shards
+    of both) against the one-process port with two query groups and
+    against JAX's engine and runner on a mesh of G x 2 virtual devices:
+    the routed one-shot under test_torch_sharded.py's rule (supersteps
+    equal to the port's, at least JAX's, which counts the slowest
+    group's), the dense pool under test_torch_sharded_runner.py's."""
+    w = worlds(P)
+    g, rcfg, idx, sources = smoke()
+    want = ShardedForaEngine(g, make_mesh(G, 2, devices=["cpu"] * (2 * G)),
+                             rcfg, k=K, index=idx,
+                             exchange="routed").topk(sources)
+    jg, jrcfg, jidx = jax_smoke()
+    jwant = JaxEngine(jg, jax_mesh(2), jrcfg, k=K, index=jidx,
+                      exchange="routed").topk(np.asarray(sources, np.int32),
+                                              jax.random.key(3))
+    rec, a = w["records"][0]["jobs"]["q2"], w["arrays"][0]
+    assert rec["supersteps"] == want.push_iters
+    assert rec["supersteps"] >= int(jwant.push_iters)
+    for ref in (want, jwant):
+        assert_topk_agree(a["q2.values"], a["q2.ids"], ref.values,
+                          ref.node_ids)
+    pool, deltas = one_process_pool(Q=2)
+    got = world_pool(w, "pool_q2")
+    assert_pools_agree(got, pool, deltas)
+    assert_pools_agree(got, jax_pool(2), deltas)
+
+
+def test_agree_raises_on_a_mismatch(monkeypatch):
+    """``ProcessComm.agree``, the pool's check a level: equal values pass,
+    and a process whose value differs from another's raises with both
+    (the other process stood for by its all-reduce's contribution)."""
+    comm = multihost.ProcessComm(0, 2, "gloo", torch.device("cpu"))
+    other = torch.tensor([7, -7])
+    monkeypatch.setattr(comm, "all_reduce",
+                        lambda t, op="sum": torch.maximum(t, other))
+    comm.agree("level 0", 7)
+    with pytest.raises(RuntimeError, match="values from 5 to 7"):
+        comm.agree("level 0", 5)
+
+
+class _Hub:
+    """The collectives of P simulated processes, each a thread: every
+    process posts its part, waits for all, then reads every part."""
+
+    def __init__(self, P: int):
+        self.parts = [None] * P
+        self.barrier = threading.Barrier(P, timeout=60)
+
+    def swap(self, rank: int, part) -> list:
+        self.parts[rank] = part
+        self.barrier.wait()
+        got = list(self.parts)
+        self.barrier.wait()
+        return got
+
+
+class _ThreadComm:
+    """``ProcessComm``'s all-gather and all-to-all for one thread of a
+    ``_Hub``."""
+
+    backend, device = "gloo", torch.device("cpu")
+
+    def __init__(self, hub: _Hub, rank: int, size: int):
+        self.hub, self.rank, self.size = hub, rank, size
+
+    def all_gather(self, t, out=None):
+        got = torch.cat(self.hub.swap(self.rank, t.clone()))
+        return got if out is None else out.copy_(got)
+
+    def all_to_all(self, send, send_rows, recv_rows):
+        got = self.hub.swap(self.rank, torch.split(send, list(send_rows)))
+        out = torch.cat([parts[self.rank] for parts in got])
+        assert out.shape[0] == sum(recv_rows)
+        return out
+
+
+@pytest.mark.parametrize("one_device", [True, False])
+@pytest.mark.parametrize("mode", ["compact", "routed", "hier"])
+@pytest.mark.parametrize("P,L", WORLDS)
+def test_exchange_across_processes_matches_one_process(P, L, mode,
+                                                       one_device):
+    """``FrontierExchange`` across P processes of L shards (``comm``), each
+    process a thread whose collectives go through a shared hub, in the
+    one-device slot layout (the remote blocks laid into the slots) and
+    with the several devices' copies (hier's stage B among the local
+    shards): after every superstep each process's buffers equal bit for
+    bit the one-process exchange's of the same G shards.  The supersteps
+    are compacted, compacted, fallen back to the dense exchange, then
+    compacted twice (the zeroing by rows of the received ids), each with
+    a new frontier in the own blocks.  A compacted superstep sends the
+    other processes only its counted rows, each with its id."""
+    n_loc, B, cap = 64, 8, 24
+    C = L if mode == "hier" else None
+    _, need = _needed(G, n_loc, mode, C or 1, seed=31)
+    steps = [[(7 * h + 5 * i) % 20 + 1 for h in range(G)] for i in range(5)]
+    steps[2][G - 1] = n_loc            # every row: past cap, the ring
+    cpu = torch.device("cpu")
+    ref = FrontierExchange(mode, [cpu] * G, n_loc, cap, need, C)
+    hub = _Hub(P)
+    xchs = []
+    for q in range(P):
+        x = FrontierExchange(mode, [cpu] * L, n_loc, cap,
+                             None if need is None else need[q * L:(q + 1) * L],
+                             C, comm=_ThreadComm(hub, q, P), shard0=q * L,
+                             n_shards=G)
+        x.one_device = one_device
+        x.sent = []
+        xchs.append(x)
+    # the destinations that process q's shards read
+    regions = {"compact": lambda q: [0],
+               "routed": lambda q: range(q * L, (q + 1) * L),
+               "hier": lambda q: [q]}[mode]
+    for i, active in enumerate(steps):
+        contrib = torch.as_tensor(_contrib(G, n_loc, B, active, seed=60 + i))
+        want = ref.buffers(B)
+        bufs = [x.buffers(B) for x in xchs]
+        for h in range(G):
+            own = slice(h * n_loc, (h + 1) * n_loc)
+            want[h][own] = contrib[own]
+            bufs[h // L][h % L][own] = contrib[own]
+        cnt = [torch.zeros(ref.D, dtype=torch.int32) for _ in range(G)]
+        ref.send(want, cnt)
+        counts = np.stack([c.numpy() for c in cnt])
+        assert ref.fits(counts) == (i != 2)
+        ref.exchange(want, counts)
+        for q, x in enumerate(xchs):
+            mine = [torch.zeros(x.D, dtype=torch.int32) for _ in range(L)]
+            x.send(bufs[q], mine)
+            assert np.array_equal(np.stack([c.numpy() for c in mine]),
+                                  counts[q * L:(q + 1) * L])
+        with ThreadPoolExecutor(P) as pool:
+            list(pool.map(lambda q: xchs[q].exchange(bufs[q], counts),
+                          range(P)))
+        for q, x in enumerate(xchs):
+            for h in range(L):
+                assert torch.equal(bufs[q][h].view(torch.int32),
+                                   want[q * L + h].view(torch.int32))
+            rows = (P - 1) * L * n_loc if i == 2 else sum(
+                int(counts[s, d]) for s in x.local for q2 in range(P)
+                if q2 != q for d in regions(q2))
+            assert x.sent[i] == (rows, B, i != 2)
+    for x in xchs:
+        assert (x.compacted, x.fell_back, x.cleared) == (4, 1, 2)
+
+
 def test_shared_cards():
     assert multihost.shared_cards(["a", "b", "c"]) == []
     assert multihost.shared_cards(["a", "b", "a", "a"]) == [(0, 2), (0, 3),
@@ -405,6 +747,13 @@ def test_refusals():
         multihost.init("localhost:1", 2, 0, backend="nccl", device="cpu")
     with pytest.raises(ValueError, match="host:port"):
         multihost.init("localhost", 1, 0, backend="gloo", device="cpu")
+    if not torch.cuda.is_available():
+        # no card and no device="cpu": no start on the CPU behind the
+        # caller's back
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            multihost.init("localhost:1", 1, 0)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            multihost.init("localhost:1", 1, 0, backend="gloo")
     assert multihost.comm() is None
     fake = SimpleNamespace(rank=1, size=2, backend="gloo",
                            device=torch.device("cpu"))
@@ -412,12 +761,15 @@ def test_refusals():
     assert list(mesh.local) == [2, 3]
     with pytest.raises(ValueError, match="must hold"):
         ProcessMesh(["cpu", None, "cpu", None], fake)
-    g, rcfg, idx, _ = smoke()
-    with pytest.raises(ValueError, match="across processes"):
-        ShardedTopkRunner(g, mesh, rcfg, idx, k=K)
-    with pytest.raises(ValueError, match="across processes"):
-        FrontierExchange("routed", [torch.device("cpu")] * 2, 8, comm=fake,
+    cpus = [torch.device("cpu")] * 2
+    with pytest.raises(NotImplementedError, match="ragged"):
+        FrontierExchange("ragged", cpus, 8, comm=fake, shard0=2, n_shards=4)
+    with pytest.raises(ValueError, match="chips_per_host = 2"):
+        FrontierExchange("hier", cpus, 8, chips_per_host=1, comm=fake,
                          shard0=2, n_shards=4)
+    # what this refused before now builds: routed across processes
+    assert FrontierExchange("routed", cpus, 8, comm=fake, shard0=2,
+                            n_shards=4).local == [2, 3]
     # without a group, gather_to_host concatenates the shards
     assert np.array_equal(multihost.gather_to_host(
         [torch.arange(3), torch.arange(3, 5)]), np.arange(5))
