@@ -184,7 +184,20 @@ memory:
                  the out-CSR's shard slices), every array equal to phase
                  4's; both sharded stores written (the index store from
                  that build) and read back, the store-backed routed pool
-                 bit-equal to the in-RAM one; and
+                 bit-equal to the in-RAM one; K4-xp (the walks of the
+                 build across processes) on that build's first chunk
+                 (2^23 walks, seed SEED) over MP_PROCS processes of two
+                 shards simulated on the card (xp_chunk_rounds over
+                 local_exchange), each launch of either form (the
+                 own-start form in round 0, the inbox form after it) held
+                 to index_walk_xp_plain (counts, each destination's
+                 records (w, cur, h | len << 16, 0) as a set, the
+                 endpoints), every walk ending in one process where K4's
+                 sharded form ends it, timed (as called and in device
+                 time) beside K4's sharded form on the same starts and
+                 its bound (K4's walk bound plus 16 bytes a record
+                 written and read), and the same on phase 13's weighted
+                 graph (alias hops, run inside phase 13); and
                  (run inside phase 13) the weighted graph and index
                  through the routed pool, precision@50 >= 0.95 against the
                  weighted oracle
@@ -290,7 +303,20 @@ memory:
                  process over NCCL holding the four shards: the indexed
                  answer the reference's bit for bit, the raw chunk's
                  endpoints equal again, the routed pool the one-process
-                 runner's bit for bit.  A worker
+                 runner's bit for bit.  Both worlds also build the FORA+
+                 index across their processes (the driver's "build" job
+                 at phase 4's seed and chunk: each worker generates phase
+                 1's graph, places only its own shards' out-CSR slices
+                 and walks with K4-xp, its records handed over in
+                 rounds, one max all-reduce of the endpoints a chunk):
+                 every worker's arrays equal (sha256) to phase 4's
+                 build_walk_index and phase 15's one-process sharded
+                 build, the gloo world's saved as a sharded store from
+                 which its indexed one-shot answers as from phase 4's
+                 index bit for bit; the build's wall, rounds and records
+                 per round printed; K4-xp's two forms launched there
+                 (the inbox form only where records crossed) and on no
+                 path within one process.  A worker
                  that fails or passes MP_WORKER_S is killed and the phase
                  fails
   13. weighted   bench.py's weighted graph (phase 1's edges, weights
@@ -459,7 +485,14 @@ forms (each form's launches on the chunk, device ms and walks: the
 own-lane form raw_walk_xp, the inbox form raw_walk_xp_inbox),
 earlier_device_ms (the earlier kernel on the same chunk),
 sharded_device_ms (K6+K4's sharded form on it) and alias_* (the same on
-phase 13's weighted graph)), then,
+phase 13's weighted graph)); index_walk_xp, K4-xp, is phase 15's first
+index build chunk over two simulated processes (ms, device_ms and
+plain_ms as raw_walk_xp's, its bound K4's walk bound on the chunk's walks
+plus 16 bytes a record written and read) with the launches of both its
+forms in phase 17's build across the gloo workers summed, and carries
+forms (the own-start form index_walk_xp, the inbox form
+index_walk_xp_inbox), sharded_device_ms (K4's sharded form on the same
+starts) and alias_* (phase 13's weighted graph)), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -2262,14 +2295,16 @@ def run_weighted(g, rcfg, dev):
     # phase 9's raw one-shot on the weighted graph (K4's sharded alias form)
     raw1_counts, raw1_steps, raw1_row, _ = run_sharded_raw(
         gw, rcfg, sources[:POOL], ex, dgw, "weighted sharded raw")
-    # phase 17's check of K6+K4-xp (its alias hops) on this graph
+    # phase 17's check of K6+K4-xp (its alias hops) on this graph, and
+    # phase 15's of K4-xp
     xp_row = xp_simulation(gw, rcfg, sources[:MP_SOURCES], dgw, dev,
                            "weighted")[0]
+    ixp_row = index_xp_simulation(gw, dgw, rcfg, dev, "weighted")
     raw_counts, _ = run_raw(dgw, rcfg, sources, ex, name="weighted raw")
     mc_counts = run_montecarlo(dgw, rcfg, sources, ex,
                                name="weighted montecarlo")
     return (row, counts, raw_counts, mc_counts, sharded_counts, raw1_counts,
-            raw1_steps, raw1_row, xp_row)
+            raw1_steps, raw1_row, xp_row, ixp_row)
 
 
 def cli_argv(action, *extra) -> list:
@@ -3441,7 +3476,8 @@ def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
     by build_walk_index_sharded, held array-equal to ``index`` (phase 4's
     build_walk_index at the same seed).  Returns (kernel rows of the
     compaction, P3 and the clear, launch counts per run, level records
-    per run, launch counts of the sharded build)."""
+    per run, launch counts of the sharded build, the sha256 of its
+    index's arrays)."""
     import shutil
     import numpy as np
     import torch
@@ -3524,6 +3560,8 @@ def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
     sidx = tidx.build_walk_index_sharded(g, mesh, rcfg, SEED)
     build_s = time.perf_counter() - t0
     build_counts = kernels.launch_counts()
+    from fora_tpu_torch.parallel.multihost_driver import index_digest
+    digest = index_digest(sidx)
     walks = int(tidx.index_counts(g.out_deg, rcfg).sum())
     for f in ("edge_src", "edge_dst", "bucket_offsets", "counts_cum",
               "edge_mult"):
@@ -3558,7 +3596,7 @@ def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
     del run
     shutil.rmtree(sdir, ignore_errors=True)
     torch.cuda.empty_cache()
-    return comp, p3, clear, launches, stats, build_counts
+    return comp, p3, clear, launches, stats, build_counts, digest
 
 
 def run_weighted_sharded(gw, rcfg, index, sources, exact_ids):
@@ -4063,6 +4101,13 @@ def sharded_rule_agree(name, got_v, got_i, want_v, want_i) -> float:
     return float(err.max())
 
 
+def xp_records(box, cnt, d):
+    """Destination d's records of an outbox, sorted by walk key."""
+    import torch
+    rec = box[d, :int(cnt[d])]
+    return rec[torch.argsort(rec[:, 0].long() & 0xFFFFFFFF)]
+
+
 def xp_simulation(g, rcfg, sources, graph, dev, label):
     """K6+K4-xp on the raw one-shot's first walk chunk as phase 17's
     workers walk it (``probes/xp_walk_probe.py::first_chunk``: the
@@ -4112,10 +4157,6 @@ def xp_simulation(g, rcfg, sources, graph, dev, label):
         e.synchronize()
         return s.elapsed_time(e)
 
-    def records(box, cnt, d):
-        rec = box[d, :int(cnt[d])]
-        return rec[torch.argsort(rec[:, 0].long() & 0xFFFFFFFF)]
-
     def launch(q, r, inbox, box, cnt):
         nonlocal err
         got = {}
@@ -4142,7 +4183,8 @@ def xp_simulation(g, rcfg, sources, graph, dev, label):
             fail(f"K6+K4-xp {label}: counts {cnt.tolist()} against the "
                  f"plain version's {pcnt.tolist()} (process {q}, round {r})")
         for d in range(P):
-            if not torch.equal(records(box, cnt, d), records(pbox, pcnt, d)):
+            if not torch.equal(xp_records(box, cnt, d),
+                               xp_records(pbox, pcnt, d)):
                 fail(f"K6+K4-xp {label}: process {q}'s records for {d} "
                      f"differ from the plain version's (round {r})")
         if not torch.equal(e, pe):
@@ -4227,6 +4269,125 @@ def xp_simulation(g, rcfg, sources, graph, dev, label):
     chunk = c["chunk"]
     del parts, ends, ref_sum, start, valid, lane, oms, c
     return row, ref, chunk
+
+
+def index_xp_simulation(g, graph, rcfg, dev, label) -> dict:
+    """K4-xp on the index build's first chunk (the first INDEX_LAUNCH
+    starts, seed SEED: chunk 0 of build_walk_index and of the sharded
+    builds) with SHARDS shards over MP_PROCS processes simulated by a
+    loop on the card (xp_chunk_rounds over local_exchange): each launch
+    (the own-start form in round 0, the inbox form after it) held to
+    index_walk_xp_plain on the same own starts and inbox (counts equal,
+    each destination's records (w, cur, h | len << 16, 0) equal as a set,
+    the endpoints equal, -1 at the own walks that left) and its records
+    handed on; each walk must end in exactly one process, where K4's
+    sharded form (``walk_endpoints`` over the slices, the one-process
+    sharded build's walk) ends it, bit for bit.  ``graph`` is ``g`` on the
+    card (the bound's).  Returns K4-xp's kernel row: ms the launches as
+    called, device_ms their device time (each launch again on scratch
+    outputs), forms each form's launches, walks and device ms, plain_ms
+    the plain version's launches, sharded_device_ms K4's sharded form on
+    the chunk, its bound K4's walk bound on the chunk plus 16 bytes a
+    record written and read."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch.index.build import index_counts
+    from fora_tpu_torch.index.build_sharded import own_run, shard_out_csr
+    from fora_tpu_torch.ops import walk
+    from fora_tpu_torch.probes import xp_walk_probe as xpp
+    from fora_tpu_torch.utils.timing import cuda_ms, device_ms
+    csr = shard_out_csr(g, [dev] * SHARDS)
+    counts = index_counts(g.out_deg, rcfg)
+    cum = np.concatenate([[0], np.cumsum(counts)])
+    W = min(INDEX_LAUNCH, int(cum[-1]))
+    chunk = torch.from_numpy(np.repeat(np.arange(g.n, dtype=np.int32),
+                                       counts)[:W]).to(dev)
+    a_, hops = rcfg.alpha, rcfg.max_walk_hops
+    ref = walk.walk_endpoints(csr, chunk, SEED, a_, hops)
+    one_ms = device_ms(lambda: walk.walk_endpoints(csr, chunk, SEED, a_,
+                                                   hops), iters=3, warmup=1)
+    P, L = MP_PROCS, SHARDS // MP_PROCS
+    rows = L * csr.n_loc
+    runs = {q: own_run(cum, 0, W, q * rows, (q + 1) * rows)
+            for q in range(P)}
+    ends = [torch.full((W,), -1, dtype=torch.int32, device=dev)
+            for _ in range(P)]
+    ms = {"kernel": 0.0, "plain": 0.0}
+    per = []                 # per launch: (round, process, walks, device ms)
+
+    def launch(q, r, inbox, box, cnt):
+        a, b = runs[q] if r == 0 else (0, 0)
+        args = (csr.shards(q * L, (q + 1) * L), chunk[a:b], a, q * L,
+                SHARDS, SEED, a_, hops, inbox)
+        got = {}
+        for form in ("kernel", "plain"):
+            x = (box, cnt) if form == "kernel" else (torch.empty_like(box),
+                                                     torch.empty_like(cnt))
+            e = torch.full((W,), -1, dtype=torch.int32, device=dev)
+            fn = (walk.index_walk_xp_chunk if form == "kernel"
+                  else walk.index_walk_xp_plain)
+            ms[form] += cuda_ms(lambda: fn(*args, *x, e), iters=1, warmup=0)
+            got[form] = (*x, e)
+        (box, cnt, e), (pbox, pcnt, pe) = got.values()
+        if box.shape[1]:
+            scratch = (torch.empty_like(box), torch.empty_like(cnt),
+                       torch.full_like(e, -1))
+            per.append((r, q, box.shape[1], device_ms(
+                lambda: walk.index_walk_xp_chunk(*args, *scratch), iters=3,
+                warmup=1)))
+        if not torch.equal(cnt, pcnt) or int(cnt[q]) != 0:
+            fail(f"K4-xp {label}: counts {cnt.tolist()} against the plain "
+                 f"version's {pcnt.tolist()} (process {q}, round {r})")
+        for d in range(P):
+            if not torch.equal(xp_records(box, cnt, d),
+                               xp_records(pbox, pcnt, d)):
+                fail(f"K4-xp {label}: process {q}'s records for {d} differ "
+                     f"from the plain version's (round {r})")
+        if not torch.equal(e, pe):
+            fail(f"K4-xp {label}: process {q}'s endpoints differ from the "
+                 f"plain version's (round {r})")
+        ends[q] = torch.maximum(ends[q], e)
+    sent = [int(m.sum()) for m in walk.xp_chunk_rounds(
+        launch, walk.local_exchange, {q: b - a for q, (a, b) in runs.items()},
+        P, dev)]
+    if not torch.equal(sum((x >= 0).int() for x in ends),
+                       torch.ones(W, dtype=torch.int32, device=dev)) or \
+            not torch.equal(torch.stack(ends).max(0).values, ref):
+        fail(f"K4-xp {label}: the simulated processes' endpoints differ from "
+             f"K4's sharded form's, or a walk ended in no process or two")
+    now = xpp.summary(per)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b = walk_bound(graph, chunk, gen, a_, hops, walk_sector_rate(graph))
+    rec_ms = 2 * 16 * sum(sent) / hbm_rate() * 1e3
+    by = "bytes" if b["bytes_ms"] + rec_ms >= b["ops_ms"] else "operations"
+    row = dict(max_abs_err=0.0, ms=ms["kernel"], device_ms=now["total_ms"],
+               plain_ms=ms["plain"], library_ms=None,
+               bound_ms=max(b["bytes_ms"] + rec_ms, b["ops_ms"]), bound_by=by,
+               sharded_device_ms=one_ms, forms={
+                   "index_walk_xp": dict(
+                       launches=sum(1 for x in per if x[0] == 0),
+                       device_ms=now["round0_ms"], walks=now["round0_walks"]),
+                   "index_walk_xp_inbox": dict(
+                       launches=sum(1 for x in per if x[0] > 0),
+                       device_ms=now["later_ms"],
+                       walks=now["later_walks"])})
+    print(f"K4-xp {label} on the index build's first chunk ({W} walks, "
+          f"{P} simulated processes of {L} shards, own starts "
+          f"{[b_ - a for a, b_ in runs.values()]}): {len(sent)} rounds, "
+          f"records handed over per round {sent}; every launch held to "
+          f"index_walk_xp_plain (counts, records as sets, endpoints equal), "
+          f"every endpoint K4's sharded form's bit for bit; {now['launches']}"
+          f" launches {ms['kernel']:.4f} ms as called, device "
+          f"{now['total_ms']:.4f} ms (own-start form {now['round0_ms']:.4f} "
+          f"over {now['round0_walks']} walks, inbox form "
+          f"{now['later_ms']:.4f} over {now['later_walks']} records) against"
+          f" K4's sharded form on the same starts {one_ms:.4f} ms device "
+          f"({now['total_ms'] / one_ms:.2f}x); plain {ms['plain']:.4f} ms; "
+          f"bound {row['bound_ms']:.4f} ms by {by} "
+          f"({100 * row['bound_ms'] / now['total_ms']:.1f}% of the device "
+          f"time; records {rec_ms:.4f} ms of it)")
+    del ends, chunk, ref, csr
+    return row
 
 
 def start_world(procs, backend, specs, out) -> list:
@@ -4342,7 +4503,8 @@ def mp_bytes_line(label, recs) -> str:
             f"{sum(sent) / sum(dense):.4f} of it")
 
 
-def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
+def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev,
+                     build_digest):
     """Phase 17: ShardedForaEngine.topk with its SHARDS shards over
     MP_PROCS worker processes on the one card (gloo, both on cuda:0;
     fora_tpu_torch.parallel.multihost_driver) from both sharded stores of
@@ -4364,10 +4526,17 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
     the dense one, the dense one against the one-process
     ShardedTopkRunner's (pools_agree) and at precision@50 >= 0.95; the NCCL
     world runs the routed pool too, bit-equal to the one-process runner's.
-    Every worker's launches are reset just before its timed call and read
-    just after.  Returns (K6+K4-xp's kernel row, the gloo world's raw
-    run's launches summed over its workers, and the compaction's, P3's and
-    the clear's summed over its compacted runs)."""
+    Both worlds build the FORA+ index across their processes at phase 4's
+    seed and chunk (the driver's "build" job: each worker generates phase
+    1's graph, places only its shards' slices and walks with K4-xp), every
+    worker's arrays equal (their sha256) to phase 4's index and to phase
+    15's one-process sharded build (``build_digest``), the gloo world's
+    written as a sharded store from which its indexed one-shot must answer
+    as from phase 4's index, bit for bit.  Every worker's launches are
+    reset just before its timed call and read just after.  Returns
+    (K6+K4-xp's kernel row, the gloo world's raw run's launches summed over
+    its workers, the compaction's, P3's and the clear's summed over its
+    compacted runs, and its build's launches summed over its workers)."""
     import os
     import shutil
     import numpy as np
@@ -4377,6 +4546,10 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
     from fora_tpu_torch.parallel import multihost, save_sharded_graph
     from fora_tpu_torch.parallel import (ShardedForaEngine,
                                          ShardedTopkRunner, make_mesh)
+    from fora_tpu_torch.parallel.multihost_driver import index_digest
+    want_digest = index_digest(index)
+    if build_digest != want_digest:
+        fail("phase 15's sharded build's arrays differ from phase 4's index")
     # phase 9's one-process engine on the same sources: the reference
     one = ShardedForaEngine(g, make_mesh(SHARDS), rcfg, k=K, index=index)
     one.topk(sources)                                   # warm
@@ -4433,10 +4606,19 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
     refused = start_world(2, "nccl", [{"shards": SHARDS, "jobs": []}] * 2,
                           MP_DIR / "out_refused")
     out = MP_DIR / "out_gloo"
+    # the index built across the workers at phase 4's seed and chunk, then
+    # the indexed one-shot from the sharded store that rank 0 writes
+    build = {"name": "build", "runner": "build", "epsilon": EPS,
+             "graph": {"rmat": [NLOG2, (1 << NLOG2) * EDGEF, SEED]},
+             "seed": SEED, "chunk_lanes": INDEX_LAUNCH}
+    built_store = MP_DIR / "built_index"
     gloo = start_world(P, "gloo", [spec(MP_DIR / f"rank{q}", [
         {"name": "hier", **mp_exchange_kw("hier", L)}] + [
         mp_pool_job(f"pool_{m}", MP_DIR / f"rank{q}", src, m, L)
-        for m in MP_POOL_MODES]) for q in range(P)], out)
+        for m in MP_POOL_MODES] + [
+        dict(build, store=str(built_store)),
+        {"name": "built", "index": {"store": str(built_store)},
+         "repeat": 1}]) for q in range(P)], out)
     recs = world_records("gloo", out, *finish_world(gloo, t0))
     world_s = time.perf_counter() - t0
     codes, tails = finish_world(refused, t0)
@@ -4589,12 +4771,16 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
           f"one-process pool {ref_pool_wall:.4f} s warm")
     if not prec >= MIN_PRECISION:
         fail(f"phase 17 pool precision@{K} {prec:.4f} < {MIN_PRECISION}")
+    ixp = mp_build_checks("gloo", recs, out, rcfg, want_digest, L,
+                          a0, steps)
     # a world of one process over NCCL, holding every shard
     t0 = time.perf_counter()
     out = MP_DIR / "out_nccl"
     one = world_records("nccl", out, *finish_world(start_world(
         1, "nccl", [spec(stores, [mp_pool_job(
-            "pool_routed", stores, src, "routed", SHARDS)])], out), t0))[0]
+            "pool_routed", stores, src, "routed", SHARDS), build])], out),
+        t0))[0]
+    mp_build_checks("nccl", [one], out, rcfg, want_digest, SHARDS)
     a = np.load(out / "rank0.npz")
     if not (np.array_equal(a["indexed.ids"], ref_res.node_ids)
             and np.array_equal(a["indexed.values"].view(np.uint32),
@@ -4625,7 +4811,67 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev):
           f"{one['jobs']['raw']['rounds']} rounds, the first chunk's "
           f"endpoints equal")
     shutil.rmtree(MP_DIR, ignore_errors=True)
-    return row, xp, mp_xch
+    return row, xp, mp_xch, ixp
+
+
+def mp_build_checks(name, recs, out, rcfg, want_digest, L, arrays=None,
+                    steps=None) -> dict:
+    """Phase 17's index built across a world's processes (``recs`` its
+    workers' records): rank 0's saved index and every worker's arrays
+    (their sha256) equal to ``want_digest`` (phase 4's), each worker's
+    own L shards' slices placed, its launches K4-xp's two forms only (the
+    inbox form only where records crossed), and, where ``arrays`` (rank
+    0's npz) is given, the indexed one-shot from the store it wrote
+    bit-equal to the one from phase 4's index after ``steps`` supersteps.
+    Prints the wall, rounds and records per round.  Returns the launches
+    of K4-xp's forms summed over the workers."""
+    import numpy as np
+    from fora_tpu_torch import index as tidx
+    from fora_tpu_torch.parallel.multihost_driver import index_digest
+    bl = [rec["jobs"]["build"] for rec in recs]
+    P = len(recs)
+    if index_digest(tidx.load(str(out / "build.index"), rcfg)) != \
+            want_digest or any(b["digest"] != want_digest for b in bl):
+        fail(f"phase 17 {name} build: the index built across {P} processes "
+             f"differs from phase 4's (and phase 15's)")
+    other = ("index_walk", "index_walk_alias", "index_walk_sharded",
+             "index_walk_sharded_alias", "raw_walk_xp", "raw_walk_xp_inbox")
+    for q, b in enumerate(bl):
+        c = b["launches"]
+        crossed = sum(map(sum, b["received"])) > 0
+        if c["index_walk_xp"] <= 0 or (c["index_walk_xp_inbox"] > 0) != \
+                crossed or any(c[k] for k in other) or \
+                b["shards"] != list(range(q * L, (q + 1) * L)):
+            fail(f"phase 17 {name} build, rank {q}: shards {b['shards']}, "
+                 f"launches {c}")
+    if arrays is not None:
+        w = [rec["jobs"]["built"] for rec in recs]
+        if not (np.array_equal(arrays["built.ids"], arrays["indexed.ids"])
+                and np.array_equal(arrays["built.values"].view(np.uint32),
+                                   arrays["indexed.values"].view(np.uint32))
+                and all(x["supersteps"] == steps for x in w)):
+            fail(f"phase 17 {name}: the indexed one-shot from the built "
+                 f"store differs from the one from phase 4's index")
+    per = [[sum(b["sent"][i][j] for b in bl) for j in range(nr)]
+           for i, nr in enumerate(bl[0]["rounds"])]
+    forms = {k: sum(b["launches"][k] for b in bl)
+             for k in ("index_walk_xp", "index_walk_xp_inbox")}
+    print(f"multiprocess {name} build across {P} processes of {L} shards "
+          f"(phase 4's seed and chunk; each worker placing only its "
+          f"{L} slices, {bl[0]['slice_edges']} edges each): "
+          f"{max(b['wall_s'] for b in bl):.3f} s (per rank "
+          f"{[round(b['wall_s'], 3) for b in bl]}), "
+          f"{bl[0]['total_edges']} index edges; every worker's arrays "
+          f"equal to phase 4's build_walk_index and phase 15's one-process "
+          f"sharded build; K4-xp launches (own-start, inbox) "
+          f"{[(b['launches']['index_walk_xp'], b['launches']['index_walk_xp_inbox']) for b in bl]}"
+          + ("; the indexed one-shot from the store it wrote bit-equal to "
+             "phase 4's" if arrays is not None else ""))
+    for i, nr in enumerate(bl[0]["rounds"]):
+        print(f"  build chunk {i}: {nr} rounds; records handed over per "
+              f"round {per[i]}; K4-xp launches (own-start, inbox) per rank "
+              f"{[b['forms'][i] for b in bl]}")
+    return forms
 
 
 def main(argv=None) -> int:
@@ -5112,9 +5358,13 @@ def main(argv=None) -> int:
     with Phase("sharded pool"):
         (rows["frontier_compact"], rows["row_scatter_add_receive"],
          rows["exchange_clear"], pool_launches, pool_stats,
-         build_launches) = run_sharded_pool(g, rcfg, index, sources, dev,
-                                            ex[:EVAL_N],
-                                            (results, single_vals))
+         build_launches, build_digest) = run_sharded_pool(
+             g, rcfg, index, sources, dev, ex[:EVAL_N],
+             (results, single_vals))
+        # K4-xp, the walks of the build across processes, on the build's
+        # first chunk over two simulated processes
+        rows["index_walk_xp"] = index_xp_simulation(g, dg, rcfg, dev,
+                                                    "uniform")
 
     # ---- 16. K5, the frontier-compacted push, and node order ---------------
     with Phase("frontier push"):
@@ -5127,8 +5377,9 @@ def main(argv=None) -> int:
 
     # ---- 17. the sharded one-shot across processes --------------------------
     with Phase("multiprocess"):
-        rows["raw_walk_xp"], xp_launches, mp_xch = run_multiprocess(
-            g, rcfg, index, sources[:MP_SOURCES], ex[:EVAL_N], dg, dev)
+        rows["raw_walk_xp"], xp_launches, mp_xch, ixp_launches = \
+            run_multiprocess(g, rcfg, index, sources[:MP_SOURCES],
+                             ex[:EVAL_N], dg, dev, build_digest)
         for name, key in (("frontier_compact", "frontier_compact"),
                           ("row_scatter_add_receive", "row_scatter_add"),
                           ("exchange_clear", "exchange_clear")):
@@ -5140,10 +5391,13 @@ def main(argv=None) -> int:
     with Phase("weighted"):
         (rows["index_walk_alias"], w_launches, w_raw_launches,
          w_mc_launches, w_pool_launches, w_raw1_launches, w_raw1_steps,
-         rows["index_walk_sharded_alias"], w_xp_row) = run_weighted(g, rcfg,
-                                                                     dev)
+         rows["index_walk_sharded_alias"], w_xp_row,
+         w_ixp_row) = run_weighted(g, rcfg, dev)
     rows["raw_walk_xp"].update({"alias_" + k: v for k, v in w_xp_row.items()
                                 if k not in ("library_ms", "bound_by")})
+    rows["index_walk_xp"].update({"alias_" + k: v
+                                  for k, v in w_ixp_row.items()
+                                  if k not in ("library_ms", "bound_by")})
 
     # ---- 14. the CLI and the server ----------------------------------------
     torch.cuda.empty_cache()
@@ -5419,6 +5673,18 @@ def main(argv=None) -> int:
             *w_raw1_launches.values(), build_launches, k5_launches,
             *cli_launches.values())):
         fail("K6+K4-xp ran on a path within one process")
+    # phase 17: K4-xp in the index build across processes, on no other path
+    print(f"launches in phase 17's index build across {MP_PROCS} processes "
+          f"(summed): {ixp_launches}")
+    for name in ("index_walk_xp", "index_walk_xp_inbox"):
+        if ixp_launches[name] <= 0:
+            fail(f"K4-xp's {name} was not launched by the index build "
+                 f"across processes")
+    if any(c["index_walk_xp"] or c["index_walk_xp_inbox"] for c in (
+            *earlier, relabel_launches, *raw1_launches.values(),
+            *w_raw1_launches.values(), build_launches, k5_launches,
+            *cli_launches.values())):
+        fail("K4-xp ran on a path within one process")
     loaded = sorted(foreign_modules() - preloaded)
     if loaded:
         fail(f"the port imported JAX or fora_tpu: {loaded[:5]}")
@@ -5493,6 +5759,11 @@ def main(argv=None) -> int:
         # a hop (phase 17's first raw chunk over two simulated processes;
         # its launches the workers' raw run's)
         "raw_walk_xp": ("walk.cu", "fora_tpu/ops/walk.py:225-266"),
+        # K4-xp: the index build's row-sharded lockstep walk across
+        # processes, a psum a hop (phase 15's first build chunk over two
+        # simulated processes, its alias hops on phase 13's; its launches
+        # phase 17's build across the gloo workers)
+        "index_walk_xp": ("walk.cu", "fora_tpu/ops/walk.py:269"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
@@ -5514,6 +5785,8 @@ def main(argv=None) -> int:
                                            "source_walk") else
              xp_launches[name] + xp_launches["raw_walk_xp_inbox"]
              if name == "raw_walk_xp" else
+             ixp_launches[name] + ixp_launches["index_walk_xp_inbox"]
+             if name == "index_walk_xp" else
              raw_launches[name] if name in k6 else
              sharded_launches[name])
         out.append({"name": name, "route": "cuda",

@@ -15,6 +15,15 @@ the slices through a table of their pointers (K4's sharded form,
 and chunk, array for array: chunk i of ``chunk_lanes`` walks draws from
 ``seed + i * 2^32`` on both.  There are no checkpoints, since the port's
 single-device builder has none.
+
+Over a ``parallel.mesh.ProcessMesh`` (P processes of L shards, JAX's
+build over a mesh whose graph axis spans processes) each process places
+only its own L slices, and the walks are handed between processes as
+records (K4-xp, ``ops/walk.py::index_walk_xp_chunk``, in the rounds of
+``xp_chunk_rounds`` over ``process_exchange``); one max all-reduce a
+chunk of its [W] endpoints (-1 where a walk ended in another process)
+gives every process every endpoint, the end state of JAX's psum a hop,
+and every process packs the same index.
 """
 
 from __future__ import annotations
@@ -25,9 +34,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import ResolvedConfig
 from ..graph.alias import AliasTables, build_alias, build_alias_library
-from ..ops.walk import ShardedOutCSR, walk_endpoints
+from ..ops.walk import (ShardedOutCSR, index_walk_xp_chunk, process_exchange,
+                        walk_endpoints, xp_chunk_rounds)
 from .build import WalkIndex, index_counts, pack_index
 
 
@@ -108,6 +119,29 @@ def shard_out_csr(g, devices, row_multiple: int = 8,
           None if ao is None else ao[s]) for s in local], n_loc, devices)
 
 
+def _walks(g, rcfg: ResolvedConfig) -> tuple:
+    """(out-degrees, index counts, their total, the starts [total] int32
+    sorted by node) of ``g``'s index walks."""
+    deg = np.asarray(g.out_deg)
+    counts = index_counts(deg, rcfg)
+    total = int(counts.sum())
+    if total + g.n >= 2**31:
+        raise ValueError(f"walk index ({total} endpoints) exceeds int32 "
+                         "range")
+    return deg, counts, total, np.repeat(np.arange(g.n, dtype=np.int32),
+                                         counts)
+
+
+def own_run(cum: np.ndarray, lo: int, W: int, row0: int, row1: int) -> tuple:
+    """(a, b): walks a .. b - 1 of the chunk of W walks from ``lo`` start in
+    rows ``row0`` .. ``row1`` - 1 (a process's), ``cum`` [n + 1] the index
+    walks before each node (the starts are sorted by node, so a process's
+    own starts of a chunk are one run)."""
+    n = cum.shape[0] - 1
+    a, b = (int(cum[min(r, n)]) - lo for r in (row0, row1))
+    return min(max(a, 0), W), min(max(b, 0), W)
+
+
 def build_walk_index_sharded(g, mesh, rcfg: ResolvedConfig, seed: int,
                              chunk_lanes: int = 1 << 23) -> WalkIndex:
     """``build_walk_index`` with the out-CSR sharded over the mesh's graph
@@ -117,18 +151,24 @@ def build_walk_index_sharded(g, mesh, rcfg: ResolvedConfig, seed: int,
     over the slices, ``chunk_lanes`` walks per launch, chunk i from seed
     ``seed + i * 2^32``; then the host pack.  The index equals
     ``build_walk_index(to_device(g), rcfg, seed, chunk_lanes)`` array for
-    array."""
+    array.
+
+    Over a ``ProcessMesh`` every process places only its own L slices, on
+    its device, walks its own starts of each chunk and the walks handed to
+    it (:func:`build_across_processes`), and returns the same index.  Its
+    walks draw K4's Philox words on the CPU as on a card, so there the
+    index equals the one-process build only where that build draws them
+    too: on a card, and not on the CPU, whose one-process build walks with
+    a ``torch.Generator`` (``ops.walk.walk_endpoints``); on the CPU it
+    equals the packed endpoints of ``ops.walk.run_walks_philox`` run on
+    each chunk's starts at the chunk's seed."""
+    from ..parallel.mesh import ProcessMesh
     from ..parallel.sharded import _mesh_groups
     devices = _mesh_groups(mesh)[0]
+    if isinstance(devices, ProcessMesh):
+        return build_across_processes(g, devices, rcfg, seed, chunk_lanes)
     csr = shard_out_csr(g, devices)
-    n = g.n
-    deg = np.asarray(g.out_deg)
-    counts = index_counts(deg, rcfg)
-    total = int(counts.sum())
-    if total + n >= 2**31:
-        raise ValueError(f"walk index ({total} endpoints) exceeds int32 "
-                         "range")
-    starts = np.repeat(np.arange(n, dtype=np.int32), counts)
+    deg, counts, total, starts = _walks(g, rcfg)
     endpoints = np.empty(total, dtype=np.int32)
     for i, lo in enumerate(range(0, total, chunk_lanes)):
         hi = min(lo + chunk_lanes, total)
@@ -136,6 +176,66 @@ def build_walk_index_sharded(g, mesh, rcfg: ResolvedConfig, seed: int,
         endpoints[lo:hi] = walk_endpoints(
             csr, s, seed + (i << 32), rcfg.alpha,
             rcfg.max_walk_hops).cpu().numpy()
+    return pack_index(endpoints, counts, deg, rcfg)
+
+
+def build_across_processes(g, mesh, rcfg: ResolvedConfig,
+                           seed: int, chunk_lanes: int = 1 << 23,
+                           log: Optional[dict] = None) -> WalkIndex:
+    """:func:`build_walk_index_sharded` over ``mesh``, a ``ProcessMesh``
+    (this process's L shards on one device).  ``g``, the host graph, is
+    the same on every process; this one places only its shards' slices
+    (``shard_out_csr(..., n_shards=G, local=mesh.local)``).  Per chunk
+    (the same chunks and seeds as the one-process build) the rounds of
+    ``xp_chunk_rounds`` over ``process_exchange(mesh.comm)``: round 0
+    walks the process's own starts, the later rounds the records handed
+    to it, one launch of K4-xp each (``index_walk_xp_chunk``); then one max
+    all-reduce of the chunk's [W] int32 endpoints gives every process
+    every endpoint, and every process packs the index.  ``log``, where
+    given, gets the placed slices (``shards``, ``slice_edges``), and per
+    chunk the rounds, the records this process sent and received per
+    round and its launches of each form (``rounds``, ``sent``,
+    ``received``, ``forms``: [own-start, inbox])."""
+    comm, local = mesh.comm, list(mesh.local)
+    G, L, shard0 = len(mesh), len(mesh.local), mesh.local[0]
+    devices = [torch.device(mesh[s]) for s in local]
+    dev = devices[0]
+    if any(d != dev for d in devices):
+        raise ValueError(f"build across processes: process {comm.rank}'s "
+                         f"shards lie on {devices}; K4-xp walks a "
+                         "process's slices on one device")
+    csr = shard_out_csr(g, devices, n_shards=G, local=local)
+    deg, counts, total, starts = _walks(g, rcfg)
+    cum = np.concatenate([[0], np.cumsum(counts)])
+    row0, row1 = shard0 * csr.n_loc, (shard0 + L) * csr.n_loc
+    exchange = process_exchange(comm)
+    endpoints = np.empty(total, dtype=np.int32)
+    if log is not None:
+        log.update(shards=local, slice_edges=[int(x.numel())
+                                              for x in csr.indices],
+                   rounds=[], sent=[], received=[], forms=[])
+    forms = (kernels.index_walk_xp, kernels.index_walk_xp_inbox)
+    for i, lo in enumerate(range(0, total, chunk_lanes)):
+        W = min(lo + chunk_lanes, total) - lo
+        a, b = own_run(cum, lo, W, row0, row1)
+        own = torch.from_numpy(starts[lo + a:lo + b]).to(dev)
+        ends = torch.full((W,), -1, dtype=torch.int32, device=dev)
+        seed_i = seed + (i << 32)
+        before = [f.launches for f in forms]
+
+        def launch(_, r, inbox, outbox, cnt):
+            index_walk_xp_chunk(csr, own if r == 0 else own[:0], a, shard0,
+                                G, seed_i, rcfg.alpha, rcfg.max_walk_hops,
+                                inbox, outbox, cnt, ends)
+        ms = xp_chunk_rounds(launch, exchange, {comm.rank: b - a},
+                             comm.size, dev)
+        endpoints[lo:lo + W] = comm.all_reduce(ends, op="max").cpu().numpy()
+        if log is not None:
+            log["rounds"].append(len(ms))
+            log["sent"].append([int(m[comm.rank].sum()) for m in ms])
+            log["received"].append([int(m[:, comm.rank].sum()) for m in ms])
+            log["forms"].append([f.launches - n
+                                 for f, n in zip(forms, before)])
     return pack_index(endpoints, counts, deg, rcfg)
 
 

@@ -34,6 +34,8 @@ PyTorch versions instead.
 | raw_walk                | csrc/walk.cu           | K6+K4 (a raw walk phase's chunk in one launch: each lane's start node and weight, its walk, the weight added at the endpoint; raw pool, sharded raw one-shot; its sharded form over every shard's demand and the out-CSR's slices) |
 | raw_walk_xp             | csrc/walk.cu           | K6+K4-xp's own-lane form (round 0 of a process's share of a raw walk chunk with the shards spread over processes: its own lanes to endpoint mass and walks that leave, through a staged outbox; the sharded raw one-shot across processes) |
 | raw_walk_xp_inbox       | csrc/walk.cu           | K6+K4-xp's inbox form (the later rounds: the walks handed to the process, each record carrying its length, to endpoint mass and walks that leave) |
+| index_walk_xp           | csrc/walk.cu           | K4-xp's own-start form (round 0 of a process's share of an index build chunk with the shards spread over processes: K4's sharded form over its own starts, walks that leave through the staged outbox; the sharded index build across processes) |
+| index_walk_xp_inbox     | csrc/walk.cu           | K4-xp's inbox form (the later rounds: the walks handed to the process, to endpoints and walks that leave; K6+K4-xp's inbox kernel without the endpoint mass) |
 | source_walk             | csrc/walk.cu           | K6+K4-src (a chunk of source-rooted walks in one launch: each walk from its column's source, its weight added at its endpoint, the source's own count in a register; Monte Carlo, HubPPR's queries with its hub branch) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 | row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
@@ -50,7 +52,10 @@ raw_walk_chunk_plain`` (``tests/test_torch_raw_walk_fused.py``); on a card
 plain version (both forms) is ``ops.walk.raw_walk_xp_plain``
 (``tests/test_torch_multihost.py`` holds it, with the processes simulated
 by a loop, to ``raw_walk_chunk_plain``); on a card ``-k raw_walk_xp``
-holds both kernels to it.  K6+K4-src's
+holds both kernels to it.  K4-xp's plain version (both forms) is
+``ops.walk.index_walk_xp_plain`` (``tests/test_torch_build_sharded.py``
+holds it, with the processes simulated, to ``run_walks_philox``); on a card
+``-k index_walk_xp`` holds both kernels to it.  K6+K4-src's
 plain version is ``ops.walk.source_walk_chunk_plain``
 (``tests/test_torch_source_walk.py``); on a card ``-k source_walk`` holds
 the kernel to the chain K4 (K4-alias, K4-hub) -> K6-accum alike.
@@ -86,7 +91,8 @@ __all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
            "row_scatter_add", "exchange_clear", "frontier_compact",
            "frontier_prepass", "frontier_push", "walk_demand",
            "expand_lanes", "accumulate_endpoints", "raw_walk",
-           "raw_walk_xp", "raw_walk_xp_inbox", "source_walk",
+           "raw_walk_xp", "raw_walk_xp_inbox", "index_walk_xp",
+           "index_walk_xp_inbox", "source_walk",
            "sector_reads",
            "row_reads",
            "philox_blocks", "inv_log1m_alpha", "sm_count",
@@ -1055,12 +1061,12 @@ def raw_walk(r, cum, total: Optional[torch.Tensor], out, rows: int,
     raw_walk.launches += 1
 
 
-def _xp_common(name, out, indptr, indices, alias_prob, alias_other,
-               shard0: int, G: int, outbox, counts, ends, rows: int):
-    """Both K6+K4-xp forms' checks: (L, P, n_loc, Bc, out's row stride,
-    the card)."""
+def _xp_slices(name, dev, indptr, indices, alias_prob, alias_other,
+               shard0: int, G: int, outbox, counts) -> tuple:
+    """The checks of every K6+K4-xp and K4-xp form on a process's L out-CSR
+    slices (shards shard0 .. shard0 + L - 1 of G, on ``dev``) and its
+    outbox [P, cap, 4] and counts [P]: (L, P, n_loc)."""
     L = len(indptr)
-    dev = out.device
     alias = alias_prob is not None
     if not (1 <= L <= 32 and len(indices) == L and G % L == 0
             and 1 <= G <= 32 and 0 <= shard0 <= G - L and shard0 % L == 0):
@@ -1076,13 +1082,23 @@ def _xp_common(name, out, indptr, indices, alias_prob, alias_other,
             m = indices[h].shape
             _check(f"alias_prob[{h}]", alias_prob[h], torch.float32, m, dev)
             _check(f"alias_other[{h}]", alias_other[h], torch.int32, m, dev)
-    Bc = out.shape[1]
-    out_ld = _check_cols("out", out, torch.float32, (G * n_loc, Bc))
     P = G // L
     _check("outbox", outbox, torch.int32, device=dev)
     if outbox.dim() != 3 or outbox.shape[0] != P or outbox.shape[2] != 4:
         raise ValueError(f"{name}: outbox must be [{P}, cap, 4]")
     _check("counts", counts, torch.int32, (P,), dev)
+    return L, P, n_loc
+
+
+def _xp_common(name, out, indptr, indices, alias_prob, alias_other,
+               shard0: int, G: int, outbox, counts, ends, rows: int):
+    """Both K6+K4-xp forms' checks: (L, P, n_loc, Bc, out's row stride,
+    the card)."""
+    dev = out.device
+    L, P, n_loc = _xp_slices(name, dev, indptr, indices, alias_prob,
+                             alias_other, shard0, G, outbox, counts)
+    Bc = out.shape[1]
+    out_ld = _check_cols("out", out, torch.float32, (G * n_loc, Bc))
     if ends is not None:
         _check("ends", ends, torch.int32, (rows, Bc), dev)
     return L, P, n_loc, Bc, out_ld, dev
@@ -1192,6 +1208,86 @@ def raw_walk_xp_inbox(inbox: torch.Tensor, out: torch.Tensor,
     _raise_on(err, "raw_walk_xp_inbox")
     if plan.blocks:
         raw_walk_xp_inbox.launches += 1
+
+
+def index_walk_xp(start: torch.Tensor, ends: torch.Tensor, w0: int,
+                  indptr: list, indices: list, alias_prob, alias_other,
+                  seed: int, alpha: float, max_hops: int, shard0: int, G: int,
+                  outbox: torch.Tensor, counts: torch.Tensor) -> None:
+    """K4-xp's own-start form, in place: round 0 of a process's share of a
+    chunk of the index build, the G graph shards spread over P = G / L
+    processes, in one launch.  This process holds shards ``shard0`` ..
+    ``shard0`` + L - 1, their out-CSR slices ``indptr`` / ``indices`` (and
+    the alias tables, or None), and its own starts of the chunk, ``start``
+    [W] int32, walks ``w0`` .. ``w0`` + W - 1 of ``ends`` [W_chunk] int32.
+    Walk w0 + i walks as :func:`index_walk_sharded` walks walk w0 + i of
+    the chunk (``max_hops`` below 2^15): one that ends writes its endpoint
+    at ``ends[w0 + i]``; one whose node leaves the process's rows before
+    its last hop writes -1 there and goes to ``outbox`` [P, cap, 4] int32
+    at its owner's row as (w0 + i, cur, h | len << 16, 0), ``counts`` [P]
+    int32 counting them (zeroed here; cap must hold the launch's walks).
+    One launch on ``ends``' card, every tensor there."""
+    if not 0 <= max_hops < 2**15:
+        raise ValueError(f"index_walk_xp: max_hops {max_hops}; a record "
+                         f"holds lengths below 2^15")
+    dev = ends.device
+    _check("ends", ends, torch.int32)
+    if ends.dim() != 1:
+        raise ValueError("index_walk_xp: ends must be [W_chunk]")
+    (W,) = start.shape
+    _check("start", start, torch.int32, (W,), dev)
+    w0 = int(w0)
+    if w0 < 0 or w0 + W > ends.shape[0]:
+        raise ValueError(f"index_walk_xp: walks {w0} .. {w0 + W - 1} of a "
+                         f"chunk of {ends.shape[0]}")
+    L, P, n_loc = _xp_slices("index_walk_xp", dev, indptr, indices,
+                             alias_prob, alias_other, shard0, G, outbox,
+                             counts)
+    plan = schedule.index_xp_plan(W, 0, sm_count(dev)).own
+    with torch.cuda.device(dev):
+        err = build.library().fora_index_walk_xp(
+            _ptr(start), W, w0, _ptr(ends), L, n_loc, shard0, G, P,
+            _ptr(outbox), outbox.shape[1], _ptr(counts),
+            *_xp_graph(indptr, indices, alias_prob, alias_other),
+            seed % 2**64, inv_log1m_alpha(alpha), max_hops,
+            plan.walks_per_lane, plan.blocks, _stream(ends))
+    _raise_on(err, "index_walk_xp")
+    if plan.blocks:
+        index_walk_xp.launches += 1
+
+
+def index_walk_xp_inbox(inbox: torch.Tensor, ends: torch.Tensor,
+                        indptr: list, indices: list, alias_prob,
+                        alias_other, seed: int, shard0: int, G: int,
+                        outbox: torch.Tensor, counts: torch.Tensor) -> None:
+    """K4-xp's inbox form, in place: a later round of a process's share of
+    an index build chunk, in one launch.  The records of ``inbox`` [n_in,
+    4] int32 (w, cur, h | len << 16, 0), handed over by the other
+    processes, walk on from where they stopped over this process's slices
+    (as :func:`index_walk_xp` takes them), each ending at ``ends[w]`` or
+    leaving into ``outbox`` / ``counts`` (zeroed here) as there: K6+K4-xp's
+    inbox form with no endpoint mass.  One launch on ``ends``' card."""
+    dev = ends.device
+    _check("ends", ends, torch.int32)
+    if ends.dim() != 1:
+        raise ValueError("index_walk_xp_inbox: ends must be [W_chunk]")
+    L, P, n_loc = _xp_slices("index_walk_xp_inbox", dev, indptr, indices,
+                             alias_prob, alias_other, shard0, G, outbox,
+                             counts)
+    _check("inbox", inbox, torch.int32, device=dev)
+    if inbox.dim() != 2 or inbox.shape[1] != 4:
+        raise ValueError("index_walk_xp_inbox: inbox must be [n_in, 4]")
+    n_in = inbox.shape[0]
+    plan = schedule.index_xp_plan(0, n_in, sm_count(dev)).inbox
+    with torch.cuda.device(dev):
+        err = build.library().fora_index_walk_xp_inbox(
+            _ptr(inbox), n_in, _ptr(ends), n_loc, shard0, L, G, P,
+            _ptr(outbox), outbox.shape[1], _ptr(counts),
+            *_xp_graph(indptr, indices, alias_prob, alias_other),
+            seed % 2**64, plan.walks_per_lane, plan.blocks, _stream(ends))
+    _raise_on(err, "index_walk_xp_inbox")
+    if plan.blocks:
+        index_walk_xp_inbox.launches += 1
 
 
 def _source_walk_args(sources, out, rows, indptr, indices, alias_prob,
@@ -1358,7 +1454,8 @@ WRAPPERS = (push_prepass, backward_prepass, gather_scatter_add, index_spmv,
             reduce_scatter_onepass, row_scatter_add, exchange_clear,
             frontier_compact, frontier_prepass, frontier_push, walk_demand,
             expand_lanes, accumulate_endpoints, raw_walk, raw_walk_xp,
-            raw_walk_xp_inbox, source_walk, philox_blocks)
+            raw_walk_xp_inbox, index_walk_xp, index_walk_xp_inbox,
+            source_walk, philox_blocks)
 for _w in WRAPPERS:
     _w.launches = 0
 topk_bounds.last_state = None

@@ -186,6 +186,32 @@
 // What bounds it: K6+K4's bound on the process's walks, plus 16 bytes a
 // record written here and read by the receiver (chip_smoke.py).
 //
+// K4-xp is K4's sharded form in one process of several: the index build's
+// walks with the G graph shards spread over P processes of L each.  It
+// replaces fora_tpu/ops/walk.py::sharded_lockstep_walk_scheduled (269-320,
+// reached through fora_tpu/index/build_sharded.py::_sharded_walk_kernel,
+// 84-95) and its plain twin sharded_lockstep_walk (225-266) over a mesh
+// whose graph axis spans processes: every lane advances a hop at a time on
+// every shard, the owner's sample combined by one psum a hop, so every
+// process ends with every endpoint.  Here a walk is handed to the process
+// that owns its node as K6+K4-xp hands it, a record (w, cur, h | len << 16,
+// 0): an index walk carries no weight.  A chunk's starts are sorted by
+// node, so a process's own starts are one run w0 .. w0 + W - 1 of the
+// chunk, and the rounds are K6+K4-xp's:
+//  * The own-start form (index_walk_xp_kernel, round 0) is K4's sharded
+//    form (walk_range) over that run, walk i keyed w0 + i, with a Leave
+//    policy: K4 takes NoLeave and compiles as before; here StagedLeave,
+//    and a walk that leaves writes -1 into its staged end slot, so the
+//    range's coalesced write of its ends carries no stale node.
+//  * The inbox form is K6+K4-xp's xp_inbox_kernel without the endpoint
+//    mass (kMass false): a walk that ends writes ends[w] only.
+// A walk's draws depend only on (seed, w, h), so every endpoint is the one
+// K4's sharded form gives walk w of the chunk, bit for bit; the host takes
+// the chunk's endpoints from every process with one max all-reduce of the
+// [W] ends (-1 where a walk ended elsewhere).  What bounds it: K4's walk
+// bound on the process's walks, plus 16 bytes a record written and read
+// (chip_smoke.py).
+//
 // K6+K4-src (source_walk_kernel<kAlias, kHub>) is K6+K4's source-rooted
 // form: one chunk of Monte Carlo's walks (fora_tpu/algo/montecarlo.py::
 // montecarlo_query_scheduled, 34-49: source-rooted walks and their
@@ -249,6 +275,7 @@ struct WalkArgs {
   float inv_log1m_alpha;
   int max_hops;
   int n_loc;       // rows of a shard slice (the sharded form)
+  uint32_t w0;     // K4-xp's own-start form: the Philox key of its walk 0
 };
 
 // the sharded form's slices (alias tables null on an unweighted graph)
@@ -266,6 +293,14 @@ struct ShardView {
   const int* const* indices;
   const float* const* alias_prob;
   const int* const* alias_other;
+};
+
+// K4's and K6+K4's walks never leave the card's rows (K4-xp's and
+// K6+K4-xp's StagedLeave below hands them to another process)
+struct NoLeave {
+  static constexpr bool kXp = false;
+  __device__ __forceinline__ bool outside(int) const { return false; }
+  __device__ __forceinline__ void put(bool, int, uint32_t, int, int, float, int) const {}
 };
 
 __device__ __forceinline__ float unit(uint32_t x) {  // [0, 1)
@@ -332,9 +367,13 @@ __device__ __forceinline__ bool hop(const WalkArgs& a, const ShardView& tab, uin
   return done;
 }
 
-// the walks of this warp's range: the body of K4's kernels
-template <bool kAlias, bool kHub, bool kSharded>
-__device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& tab) {
+// the walks of this warp's range: the body of K4's kernels.  With a Leave
+// that hands walks over (K4-xp's own-start form), walk w draws with key
+// a.w0 + w, and a walk whose next hop starts at another process's node
+// leaves, its staged end -1.
+template <bool kAlias, bool kHub, bool kSharded, class Leave = NoLeave>
+__device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& tab,
+                                           const Leave& lv = Leave()) {
   extern __shared__ int staged_ends[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const uint64_t lo64 = ((uint64_t)blockIdx.x * kBlockWarps + warp) * a.range;
@@ -343,6 +382,7 @@ __device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& t
   const uint32_t count = a.W - lo < a.range ? a.W - lo : a.range;  // walks it owns
   int* const ends = staged_ends + warp * a.range;
   const unsigned below = (1u << lane) - 1u;
+  const uint32_t key0 = Leave::kXp ? a.w0 : 0u;  // walk w's Philox key: key0 + w
   // the lookahead, the same in every lane: walks lo + batch .. + filled - 1
   // of the range, `used` of them handed out; lane i holds walk batch + i's
   // start and length, computed by all 32 lanes at once
@@ -364,7 +404,7 @@ __device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& t
         filled = min(32u, count - batch);
         if ((uint32_t)lane < filled) {
           ahead_start = __ldg(a.start + lo + batch + lane);
-          ahead_len = walk_length(a, lo + batch + lane);
+          ahead_len = walk_length(a, key0 + lo + batch + lane);
         }
       }
       const uint32_t src = used + __popc(need & below);
@@ -383,10 +423,24 @@ __device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& t
       used = min(filled, used + __popc(need));
     }
     if (__all_sync(kFull, idle)) break;
-    if (idle) continue;
-    if (hop<kAlias, kHub, kSharded>(a, tab, w, cur, h, len)) {
-      ends[w - lo] = cur;
-      idle = true;
+    if (!Leave::kXp) {
+      if (idle) continue;
+      if (hop<kAlias, kHub, kSharded>(a, tab, w, cur, h, len)) {
+        ends[w - lo] = cur;
+        idle = true;
+      }
+    } else {  // every lane reaches put(), which groups the leaving lanes
+      const bool ending = !idle && hop<kAlias, kHub, kSharded>(a, tab, key0 + w, cur, h, len);
+      if (ending) {
+        ends[w - lo] = cur;
+        idle = true;
+      }
+      const bool leave = !idle && lv.outside(cur);
+      lv.put(leave, cur, key0 + w, h, len, 0.0f, lane);
+      if (leave) {
+        ends[w - lo] = -1;  // it ends in another process
+        idle = true;
+      }
     }
   }
   __syncwarp();  // the range's endpoints, coalesced
@@ -461,13 +515,6 @@ struct RawArgs {
   uint32_t tiles;           // warp tiles of a column: ceil(rows / range)
   int Bc, n, G;             // columns, rows of a residue, shards
   int shard0;               // K6+K4-xp: the global index of shard 0 here
-};
-
-// K6+K4's walks never leave the card's rows (K6+K4-xp's StagedLeave below)
-struct NoLeave {
-  static constexpr bool kXp = false;
-  __device__ __forceinline__ bool outside(int) const { return false; }
-  __device__ __forceinline__ void put(bool, int, uint32_t, int, int, float, int) const {}
 };
 
 template <typename T>
@@ -894,17 +941,20 @@ struct XpIn {
   int Bc;
 };
 
-// a walk of the inbox that ends adds its weight at its endpoint, column w % Bc
+// a walk of the inbox that ends adds its weight at its endpoint, column w %
+// Bc (kMass; K4-xp's index walks carry no weight and only write ends[w])
+template <bool kMass>
 __device__ __forceinline__ void inbox_add(bool ending, int cur, uint32_t w, float wt,
                                           const XpIn& xi) {
   if (!ending) return;
   if (xi.ends != nullptr) xi.ends[w] = cur;
-  if (wt != 0.0f) atomicAdd(xi.out + (long long)cur * xi.out_ld + w % (uint32_t)xi.Bc, wt);
+  if (kMass && wt != 0.0f)
+    atomicAdd(xi.out + (long long)cur * xi.out_ld + w % (uint32_t)xi.Bc, wt);
 }
 
 // A warp's range of 32 k records, run through walk_range's queue: the
 // lookahead is one 16-byte load a lane, the length comes with the record.
-template <bool kAlias, class Leave>
+template <bool kAlias, bool kMass, class Leave>
 __device__ __forceinline__ void xp_inbox_range(const WalkArgs& a, const XpIn& xi,
                                                const ShardView& tab, const Leave& lv) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -948,12 +998,12 @@ __device__ __forceinline__ void xp_inbox_range(const WalkArgs& a, const XpIn& xi
         else
           ending = true;  // no hop left (no record of this kernel's)
       }
-      inbox_add(ending, cur, w, wt, xi);
+      inbox_add<kMass>(ending, cur, w, wt, xi);
       used = min(filled, used + __popc(need));
     }
     if (__all_sync(kFull, idle)) break;
     const bool ending = !idle && hop<kAlias, false, true>(a, tab, w, cur, h, len);
-    inbox_add(ending, cur, w, wt, xi);
+    inbox_add<kMass>(ending, cur, w, wt, xi);
     if (ending) idle = true;
     const bool leave = !idle && lv.outside(cur);
     lv.put(leave, cur, w, h, len, wt, lane);
@@ -961,7 +1011,7 @@ __device__ __forceinline__ void xp_inbox_range(const WalkArgs& a, const XpIn& xi
   }
 }
 
-template <bool kAlias, int kBlocks, class Leave>
+template <bool kAlias, bool kMass, int kBlocks, class Leave>
 __global__ void __launch_bounds__(kBlockThreads, kBlocks)
     xp_inbox_kernel(const WalkArgs a, const XpIn xi, const ShardTables t, const XpOut xo) {
   __shared__ const int* indptr[kMaxShards];
@@ -978,7 +1028,38 @@ __global__ void __launch_bounds__(kBlockThreads, kBlocks)
   }
   const Leave lv = Leave::make(stage, xo);
   __syncthreads();
-  xp_inbox_range<kAlias>(a, xi, ShardView{indptr, indices, alias_prob, alias_other}, lv);
+  xp_inbox_range<kAlias, kMass>(a, xi, ShardView{indptr, indices, alias_prob, alias_other}, lv);
+  lv.drain();
+}
+
+// ---- K4-xp: a chunk of the index build in one process of several ---------
+
+// blocks an SM in __launch_bounds__ of the own-start form (kernels/
+// schedule.py::INDEX_XP_BLOCKS_PER_SM): the staged outbox, as K6+K4-xp's
+constexpr int kIndexXpBlocksPerSM = 4;
+
+// the own-start form: K4's sharded form (walk_range) over this process's
+// starts of the chunk, walk w keyed a.w0 + w, its L slices at their global
+// index in the table; a walk that leaves goes to the staged outbox
+template <bool kAlias>
+__global__ void __launch_bounds__(kBlockThreads, kIndexXpBlocksPerSM)
+    index_walk_xp_kernel(const WalkArgs a, const ShardTables t, const XpOut xo) {
+  __shared__ const int* indptr[kMaxShards];
+  __shared__ const int* indices[kMaxShards];
+  __shared__ const float* alias_prob[kMaxShards];
+  __shared__ const int* alias_other[kMaxShards];
+  __shared__ XpStage stage;
+  const int i = threadIdx.x;
+  if (i < kMaxShards) {  // by constant indices: see the sharded form above
+    indptr[i] = pick(t.indptr, i);
+    indices[i] = pick(t.indices, i);
+    alias_prob[i] = pick(t.alias_prob, i);
+    alias_other[i] = pick(t.alias_other, i);
+  }
+  const StagedLeave lv = StagedLeave::make(stage, xo);
+  __syncthreads();
+  walk_range<kAlias, false, true, StagedLeave>(
+      a, ShardView{indptr, indices, alias_prob, alias_other}, lv);
   lv.drain();
 }
 
@@ -1266,7 +1347,7 @@ int xp_args(XpLaunch* X, int L, int G, int P, int shard0, int n_loc, int Bc, flo
   if (L < 1 || P < 1 || G != P * L || G > kMaxShards || shard0 < 0 || shard0 % L ||
       shard0 + L > G || n_loc < 1 || (long long)G * n_loc >= 0x7fffffffll || Bc < 0 || cap < 0 ||
       walks_per_lane < 1 || walks_per_lane > kMaxWalksPerLane || blocks < 0 ||
-      blocks > 0x7fffffffll || out == nullptr || (cap > 0 && outbox == nullptr) ||
+      blocks > 0x7fffffffll || (cap > 0 && outbox == nullptr) ||
       counts == nullptr || indptr == nullptr || indices == nullptr)
     return (int)cudaErrorInvalidValue;
   *X = XpLaunch{};
@@ -1307,14 +1388,22 @@ void launch_xp_own(const XpLaunch& X) {
                                                                              X.rt, X.xo);
 }
 
-template <int kBlocks, class Leave>
+template <int kBlocks, class Leave, bool kMass = true>
 void launch_xp_inbox(const XpLaunch& X) {
   if (X.alias)
-    xp_inbox_kernel<true, kBlocks, Leave><<<X.blocks, kBlockThreads, 0, X.s>>>(X.a, X.xi, X.t,
-                                                                              X.xo);
+    xp_inbox_kernel<true, kMass, kBlocks, Leave><<<X.blocks, kBlockThreads, 0, X.s>>>(
+        X.a, X.xi, X.t, X.xo);
   else
-    xp_inbox_kernel<false, kBlocks, Leave><<<X.blocks, kBlockThreads, 0, X.s>>>(X.a, X.xi, X.t,
-                                                                               X.xo);
+    xp_inbox_kernel<false, kMass, kBlocks, Leave><<<X.blocks, kBlockThreads, 0, X.s>>>(
+        X.a, X.xi, X.t, X.xo);
+}
+
+void launch_index_xp(const XpLaunch& X) {
+  const size_t smem = (size_t)kBlockWarps * X.a.range * sizeof(int);
+  if (X.alias)
+    index_walk_xp_kernel<true><<<X.blocks, kBlockThreads, smem, X.s>>>(X.a, X.t, X.xo);
+  else
+    index_walk_xp_kernel<false><<<X.blocks, kBlockThreads, smem, X.s>>>(X.a, X.t, X.xo);
 }
 
 // fora_raw_walk_xp's checks and arguments (the own-lane form); 0 or a
@@ -1333,7 +1422,7 @@ int xp_own_args(XpLaunch* X, const float* const* r, long long r_ld, const int* c
   if (bad) return bad;
   if (n <= 0 || n > n_loc || rows < 0 || lane_lo < 0 || rows * (long long)Bc >= (1ll << 32) ||
       max_hops < 0 || max_hops > kMaxXpHops || tiles < 0 || tiles * (long long)Bc > blocks * kBlockWarps ||
-      r == nullptr || cum == nullptr || bounds == nullptr)
+      r == nullptr || cum == nullptr || bounds == nullptr || out == nullptr)
     return (int)cudaErrorInvalidValue;
   for (int k = 0; k < L; ++k) {
     if (r[k] == nullptr || cum[k] == nullptr) return (int)cudaErrorInvalidValue;
@@ -1376,6 +1465,31 @@ int xp_inbox_args(XpLaunch* X, const int* inbox, long long n_in, int Bc, int n_l
     return (int)cudaErrorInvalidValue;
   X->xi.inbox = reinterpret_cast<const int4*>(inbox);
   X->xi.n_in = n_in;
+  return 0;
+}
+
+// fora_index_walk_xp's checks and arguments (K4-xp's own-start form); 0 or
+// a cudaError_t
+int index_xp_args(XpLaunch* X, const int* start, long long W, long long w0, int* ends, int L,
+                  int n_loc, int shard0, int G, int P, int* outbox, long long cap, int* counts,
+                  const int* const* indptr, const int* const* indices,
+                  const float* const* alias_prob, const int* const* alias_other,
+                  unsigned long long seed, float inv_log1m_alpha, int max_hops,
+                  int walks_per_lane, long long blocks, void* stream) {
+  const int bad = xp_args(X, L, G, P, shard0, n_loc, 1, nullptr, 0, ends, outbox, cap, counts,
+                          indptr, indices, alias_prob, alias_other, seed, walks_per_lane, blocks,
+                          stream);
+  if (bad) return bad;
+  if (W < 0 || w0 < 0 || w0 + W >= (1ll << 32) || max_hops > kMaxXpHops || ends == nullptr ||
+      (W > 0 && start == nullptr))
+    return (int)cudaErrorInvalidValue;
+  WalkArgs a;
+  const int bad_walk = walk_args(&a, start, ends + w0, W, seed, inv_log1m_alpha, max_hops,
+                                 walks_per_lane, blocks);
+  if (bad_walk) return bad_walk;
+  a.n_loc = n_loc;
+  a.w0 = (uint32_t)w0;
+  X->a = a;
   return 0;
 }
 
@@ -1555,6 +1669,7 @@ extern "C" int fora_raw_walk_xp_inbox(const int* inbox, long long n_in, int Bc, 
                                       const int* const* indices, const float* const* alias_prob,
                                       const int* const* alias_other, unsigned long long seed,
                                       int walks_per_lane, long long blocks, void* stream) {
+  if (out == nullptr) return (int)cudaErrorInvalidValue;
   XpLaunch X;
   const int bad = xp_inbox_args(&X, inbox, n_in, Bc, n_loc, shard0, L, G, P, out, out_ld, ends,
                                 outbox, cap, counts, indptr, indices, alias_prob, alias_other,
@@ -1562,6 +1677,61 @@ extern "C" int fora_raw_walk_xp_inbox(const int* inbox, long long n_in, int Bc, 
   if (bad) return bad;
   cudaMemsetAsync(counts, 0, sizeof(int) * P, X.s);
   if (X.blocks) launch_xp_inbox<kXpInboxBlocksPerSM, StagedLeave>(X);
+  return (int)cudaGetLastError();
+}
+
+// K4-xp's own-start form: round 0 of a chunk of the index build in process
+// `rank` = shard0 / L of P, which holds shards shard0 .. shard0 + L - 1 of G
+// = P L (1 <= G <= 32), their out-CSR slices indptr[k] / indices[k] (and
+// alias_prob[k] / alias_other[k], or both null).  Its W own starts
+// `start`, the chunk's walks w0 .. w0 + W - 1 (w0 + W < 2^32, max_hops
+// below 2^15), walk as fora_index_walk_sharded walks walk w0 + i of the
+// chunk, over the local slices: a walk that ends writes its endpoint at
+// ends[w0 + i]; a walk whose node leaves the process's rows before its last
+// hop writes -1 there and goes to outbox [P, cap, 4] int32 at destination
+// cur / (L n_loc) as (w0 + i, cur, h | len << 16, 0), counts[d] (zeroed here
+// by a cudaMemsetAsync) counting them.  The plan (kernels/schedule.py::
+// index_xp_plan, its `own` form): K4's, `blocks` blocks of 8 warps of 32 *
+// walks_per_lane walks.
+extern "C" int fora_index_walk_xp(const int* start, long long W, long long w0, int* ends, int L,
+                                  int n_loc, int shard0, int G, int P, int* outbox,
+                                  long long cap, int* counts, const int* const* indptr,
+                                  const int* const* indices, const float* const* alias_prob,
+                                  const int* const* alias_other, unsigned long long seed,
+                                  float inv_log1m_alpha, int max_hops, int walks_per_lane,
+                                  long long blocks, void* stream) {
+  XpLaunch X;
+  const int bad = index_xp_args(&X, start, W, w0, ends, L, n_loc, shard0, G, P, outbox, cap,
+                                counts, indptr, indices, alias_prob, alias_other, seed,
+                                inv_log1m_alpha, max_hops, walks_per_lane, blocks, stream);
+  if (bad) return bad;
+  cudaMemsetAsync(counts, 0, sizeof(int) * P, X.s);
+  if (W > 0) launch_index_xp(X);
+  return (int)cudaGetLastError();
+}
+
+// K4-xp's inbox form: a later round, the n_in records of `inbox` [n_in, 4]
+// int32 (w, cur, h | len << 16, 0) that the other processes handed over,
+// each walked on from where it stopped over the same slices, its endpoint
+// written at ends[w] or handed on as fora_index_walk_xp does: K6+K4-xp's
+// inbox form without the endpoint mass.  The plan (xp_walk_plan's `inbox`
+// form): 32 * walks_per_lane records a warp, `blocks` blocks of 8 warps
+// covering them.
+extern "C" int fora_index_walk_xp_inbox(const int* inbox, long long n_in, int* ends, int n_loc,
+                                        int shard0, int L, int G, int P, int* outbox,
+                                        long long cap, int* counts, const int* const* indptr,
+                                        const int* const* indices,
+                                        const float* const* alias_prob,
+                                        const int* const* alias_other, unsigned long long seed,
+                                        int walks_per_lane, long long blocks, void* stream) {
+  if (ends == nullptr) return (int)cudaErrorInvalidValue;
+  XpLaunch X;
+  const int bad = xp_inbox_args(&X, inbox, n_in, 1, n_loc, shard0, L, G, P, nullptr, 0, ends,
+                                outbox, cap, counts, indptr, indices, alias_prob, alias_other,
+                                seed, walks_per_lane, blocks, stream);
+  if (bad) return bad;
+  cudaMemsetAsync(counts, 0, sizeof(int) * P, X.s);
+  if (X.blocks) launch_xp_inbox<kXpInboxBlocksPerSM, StagedLeave, false>(X);
   return (int)cudaGetLastError();
 }
 

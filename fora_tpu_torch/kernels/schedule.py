@@ -267,3 +267,34 @@ def xp_walk_plan(extent: int, Bc: int, n_in: int, sm_count: int,
     inbox = RawWalkPlan(walks_per_lane=k, tiles=tiles,
                         blocks=-(-tiles // WALK_BLOCK_WARPS))
     return XpWalkPlan(own=own, inbox=inbox)
+
+
+# ---- K4-xp (csrc/walk.cu, index_walk_xp_kernel and xp_inbox_kernel) ------
+#
+# The own-start form (round 0) is K4's plan over the process's own starts of
+# the chunk: k from WALKS_PER_LANE down by walk_plan's rule, at the form's
+# residency (its staged outbox, as K6+K4-xp's forms, takes 4 blocks an SM).
+# The inbox form (later rounds) is K6+K4-xp's inbox form's plan.
+
+INDEX_XP_BLOCKS_PER_SM = 4  # walk.cu's kIndexXpBlocksPerSM, its __launch_bounds__
+
+
+class IndexXpPlan(NamedTuple):
+    own: WalkPlan           # K4's grid over the own starts
+    inbox: RawWalkPlan      # tiles: warps of 32 k records; blocks over them
+
+
+def index_xp_plan(W: int, n_in: int, sm_count: int) -> IndexXpPlan:
+    """K4-xp's plan for each form on a card of ``sm_count`` SMs: the
+    own-start form over ``W`` own starts (k of 1, 2, 4 by walk_plan's rule
+    at INDEX_XP_BLOCKS_PER_SM), the inbox form over ``n_in`` records
+    (xp_walk_plan's).  A form with no walk gets no block."""
+    if not 0 <= W < 2**32 or n_in < 0:
+        raise ValueError(f"index_xp_plan: {W} starts, {n_in} records")
+    if sm_count < 1:
+        raise ValueError(f"index_xp_plan: sm_count = {sm_count}")
+    k = _fill_k(W, WALKS_PER_LANE, INDEX_XP_BLOCKS_PER_SM, sm_count)
+    own = walk_grid(W, k) if W else WalkPlan(walks_per_lane=k, warps=0,
+                                              blocks=0)
+    return IndexXpPlan(own=own,
+                       inbox=xp_walk_plan(0, 0, n_in, sm_count).inbox)

@@ -66,6 +66,12 @@ key, node, hops taken with its length, and weight), so every walk ends
 where it ends in one process (``raw_walk_xp_chunk``: on a card K6+K4-xp,
 walk.cu's xp_own_kernel for a process's own lanes and xp_inbox_kernel for
 the records handed to it; ``raw_walk_xp_plain`` their plain version).
+The index build across processes (``index/build_sharded.py``) hands its
+walks on alike, records of no weight (``index_walk_xp_chunk``: on a card
+K4-xp, walk.cu's index_walk_xp_kernel for a process's own starts of a
+chunk and xp_inbox_kernel without the endpoint mass for the records;
+``index_walk_xp_plain`` their plain version), so every walk ends where
+K4's sharded form ends it.
 
 Dangling convention: a walk at an out-degree-0 node is absorbed there.
 Random numbers come from a ``torch.Generator`` (``run_walks``, the CPU
@@ -780,14 +786,13 @@ def raw_walk_xp_plain(csr: ShardedOutCSR, rs: list, ds: list,
     the own lanes by :func:`expand_chunk_lanes_plain` over the local
     shards (their lengths by :func:`lengths_of`), the inbox's records
     (their lengths from the record), then a hop loop in
-    :func:`run_walks_philox`'s arithmetic (each walk's counter h + 1, key
-    (seed's low word, w)) that stops a walk at a foreign row, then one
-    scatter-add of the ended walks' weights; each destination's records in
-    the order of w."""
+    :func:`run_walks_philox`'s arithmetic (``_xp_hops``: each walk's
+    counter h + 1, key (seed's low word, w)) that stops a walk at a foreign
+    row, then one scatter-add of the ended walks' weights; each
+    destination's records in the order of w."""
     L, n_loc = len(rs), csr.n_loc
     dev = out.device
     Bc = out.shape[1]
-    P, rank, rows_p = G // L, shard0 // L, L * n_loc
     w, cur, h, wt, length = [], [], [], [], []
     if extent > 0 and num_lanes > 0:
         start, weight = expand_chunk_lanes_plain(rs, ds, bounds, lane_lo,
@@ -801,18 +806,44 @@ def raw_walk_xp_plain(csr: ShardedOutCSR, rs: list, ds: list,
         wt.append(weight[t, b])
         length.append(lengths_of(seed, w[-1], alpha, max_hops))
     if inbox.shape[0]:
-        w.append(inbox[:, 0].long() & _M32)
-        cur.append(inbox[:, 1].long())
-        h.append(inbox[:, 2].long() & 0xFFFF)
+        for x, y in zip((w, cur, h, length), _xp_records(inbox)):
+            x.append(y)
         wt.append(inbox[:, 3].contiguous().view(torch.float32))
-        length.append(inbox[:, 2].long() >> 16)
     counts.zero_()
     if not w:
         return
     w, cur, h, wt, length = (torch.cat(x) for x in (w, cur, h, wt, length))
+    gone = _xp_hops(csr, shard0, seed, w, cur, h, length)
+    end = ~gone
+    out.index_put_((cur[end], w[end] % Bc), wt[end], accumulate=True)
+    if ends is not None:
+        ends.view(-1)[w[end]] = cur[end].to(torch.int32)
+    _xp_send(gone, w, cur, h, length, wt.view(torch.int32), L * n_loc,
+             outbox, counts)
+
+
+def _xp_records(inbox: torch.Tensor) -> tuple:
+    """(w, cur, h, length) int64 of records (w, cur, h | len << 16, .)."""
+    return (inbox[:, 0].long() & _M32, inbox[:, 1].long(),
+            inbox[:, 2].long() & 0xFFFF, inbox[:, 2].long() >> 16)
+
+
+def _xp_hops(csr: ShardedOutCSR, shard0: int, seed: int, w: torch.Tensor,
+             cur: torch.Tensor, h: torch.Tensor,
+             length: torch.Tensor) -> torch.Tensor:
+    """The hop loop of K6+K4-xp's and K4-xp's plain versions, in place on
+    the walks' nodes ``cur`` and hops taken ``h`` (int64, each walk w's
+    Philox key (seed's low word, w), hop h's counter h + 1, as
+    :func:`run_walks_philox`): a walk hops over ``csr``, the L slices of
+    shards ``shard0`` .. ``shard0`` + L - 1, while its node lies in this
+    process's rows
+    and hops remain; returns the walks that stopped at another process's
+    node before their last hop (handed over)."""
+    L, n_loc = len(csr.indptr), csr.n_loc
+    rank, rows_p = shard0 // L, L * n_loc
     seed = int(seed) % 2**64
     lo, hi = seed & _M32, seed >> 32
-    rows = _Rows(csr, dev)
+    rows = _Rows(csr, w.device)
     alias = rows.alias_prob is not None
     gone = torch.zeros_like(w, dtype=torch.bool)      # handed over
     live = torch.nonzero(h < length).squeeze(1)
@@ -834,12 +865,18 @@ def raw_walk_xp_plain(csr: ShardedOutCSR, rs: list, ds: list,
                          != rank)
         gone[live[leave]] = True
         live = live[going & ~leave]
-    end = ~gone
-    out.index_put_((cur[end], w[end] % Bc), wt[end], accumulate=True)
-    if ends is not None:
-        ends.view(-1)[w[end]] = cur[end].to(torch.int32)
+    return gone
+
+
+def _xp_send(gone: torch.Tensor, w: torch.Tensor, cur: torch.Tensor,
+             h: torch.Tensor, length: torch.Tensor, word3: torch.Tensor,
+             rows_p: int, outbox: torch.Tensor, counts: torch.Tensor) -> None:
+    """The records (w, cur, h | len << 16, word3) of the walks ``gone``
+    into ``outbox`` [P, cap, 4] at their node's process (``rows_p`` rows
+    each), each destination's in the order of w; ``counts`` [P] the number
+    for each (past cap, records were not written)."""
     dest = torch.div(cur, rows_p, rounding_mode="floor")
-    for q in range(P):
+    for q in range(outbox.shape[0]):
         sel = torch.nonzero(gone & (dest == q)).squeeze(1)
         sel = sel[torch.argsort(w[sel])]
         counts[q] = sel.numel()
@@ -851,7 +888,81 @@ def raw_walk_xp_plain(csr: ShardedOutCSR, rs: list, ds: list,
             outbox[q, :k, 1] = cur[sel[:k]].to(torch.int32)
             outbox[q, :k, 2] = (h[sel[:k]] | length[sel[:k]] << 16).to(
                 torch.int32)
-            outbox[q, :k, 3] = wt[sel[:k]].view(torch.int32)
+            outbox[q, :k, 3] = word3[sel[:k]]
+
+
+def index_walk_xp_chunk(csr: ShardedOutCSR, start: torch.Tensor, w0: int,
+                        shard0: int, G: int, seed: int, alpha: float,
+                        max_hops: int, inbox: torch.Tensor,
+                        outbox: torch.Tensor, counts: torch.Tensor,
+                        ends: torch.Tensor) -> None:
+    """One launch of a process's share of a chunk of the index build with
+    the G shards spread over processes of L each (the sharded build
+    across processes, ``index/build_sharded.py``).  The process holds
+    shards ``shard0`` .. ``shard0`` + L - 1, ``csr`` their out-CSR slices.
+    A launch walks one source: its own starts of the chunk, ``start`` [W]
+    int32, walks ``w0`` .. ``w0`` + W - 1 of it (the chunk's starts are
+    sorted by node, so they are one run), or the walks of ``inbox`` [n_in,
+    4] int32 (w, cur, h | len << 16, 0), which go on from where they
+    stopped.  A walk advances while its node lies in the process's rows;
+    one that ends writes its endpoint at ``ends[w]`` ([W_chunk] int32); an
+    own walk that leaves writes -1 there; one whose next hop starts at
+    another process's node is written to ``outbox`` [P, cap, 4] at that
+    process as such a record, ``counts`` [P] int32 the number for each (cap
+    must be the launch's walks).  A CUDA ``ends`` launches K4-xp's
+    own-start form (``kernels.index_walk_xp``) or its inbox form
+    (``kernels.index_walk_xp_inbox``), a CPU one runs
+    :func:`index_walk_xp_plain`.  Every walk w ends where
+    :func:`run_walks_philox` ends walk w of the chunk's starts at ``seed``,
+    bit for bit (on a card: where K4's sharded form ends it)."""
+    if start.shape[0] and inbox.shape[0]:
+        raise ValueError("index_walk_xp_chunk: one source of walks a "
+                         "launch, own starts or an inbox")
+    if not 0 <= max_hops < 2**15:
+        raise ValueError(f"index_walk_xp_chunk: max_hops {max_hops}; a "
+                         f"record holds lengths below 2^15")
+    if ends.device.type == "cpu":
+        index_walk_xp_plain(csr, start, w0, shard0, G, seed, alpha, max_hops,
+                            inbox, outbox, counts, ends)
+    elif start.shape[0]:
+        kernels.index_walk_xp(start, ends, w0, csr.indptr, csr.indices,
+                              csr.alias_prob, csr.alias_other, seed, alpha,
+                              max_hops, shard0, G, outbox, counts)
+    else:
+        kernels.index_walk_xp_inbox(inbox, ends, csr.indptr, csr.indices,
+                                    csr.alias_prob, csr.alias_other, seed,
+                                    shard0, G, outbox, counts)
+
+
+def index_walk_xp_plain(csr: ShardedOutCSR, start: torch.Tensor, w0: int,
+                        shard0: int, G: int, seed: int, alpha: float,
+                        max_hops: int, inbox: torch.Tensor,
+                        outbox: torch.Tensor, counts: torch.Tensor,
+                        ends: torch.Tensor) -> None:
+    """K4-xp in plain PyTorch (:func:`index_walk_xp_chunk`'s arguments):
+    the own starts keyed ``w0`` + i (their lengths by :func:`lengths_of`),
+    the inbox's records (their lengths from the record), then
+    :func:`run_walks_philox`'s hop loop stopping a walk at a foreign row
+    (K6+K4-xp's, ``_xp_hops``); the ended walks' endpoints at ``ends[w]``,
+    -1 at the own walks that left; each destination's records in the order
+    of w."""
+    dev = ends.device
+    W = start.shape[0]
+    if W:
+        w = int(w0) + torch.arange(W, device=dev)
+        cur, h = start.long(), torch.zeros(W, dtype=torch.long, device=dev)
+        length = lengths_of(seed, w, alpha, max_hops)
+    else:
+        w, cur, h, length = _xp_records(inbox)
+    counts.zero_()
+    if not w.numel():
+        return
+    gone = _xp_hops(csr, shard0, seed, w, cur, h, length)
+    ends[w[~gone]] = cur[~gone].to(torch.int32)
+    if W:       # an own walk that left: -1, as the kernel's staged ends
+        ends[w[gone]] = -1
+    _xp_send(gone, w, cur, h, length, torch.zeros_like(w, dtype=torch.int32),
+             len(csr.indptr) * csr.n_loc, outbox, counts)
 
 
 def xp_chunk_rounds(launch, exchange, own: dict, P: int, device) -> list:

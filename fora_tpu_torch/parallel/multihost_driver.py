@@ -7,7 +7,8 @@
 Each of the P processes starts the group (``multihost.init``; on a
 machine without a card ``--device cpu`` is needed, gloo then the
 default), runs the jobs of SPEC.json with ``ShardedForaEngine`` (the
-one-shot) or ``ShardedTopkRunner`` (the refinement pool) on
+one-shot), ``ShardedTopkRunner`` (the refinement pool) or
+``build_walk_index_sharded`` (the index build) on
 ``make_mesh(G, n_query)`` (its L = G / P shards of every query group),
 writes ``DIR/rank<Q>.json`` and ``DIR/rank<Q>.npz`` and ends the group
 (``multihost.shutdown``).  The counterpart of the JAX package's
@@ -17,9 +18,10 @@ writes ``DIR/rank<Q>.json`` and ``DIR/rank<Q>.npz`` and ends the group
 SPEC.json holds ``shards`` (G) and ``jobs``, a list of objects with:
 
   name       the job's key in the outputs
-  graph      {"npz": path} (a CSRGraph's arrays), {"er": [n, m, seed]}
-             or {"store": dir} (a ShardedGraphStore of G shards: only
-             this process's shards' files are opened)
+  graph      {"npz": path} (a CSRGraph's arrays), {"er": [n, m, seed]},
+             {"rmat": [n_log2, m, seed]} or {"store": dir} (a
+             ShardedGraphStore of G shards: only this process's shards'
+             files are opened; not for a build)
   index      null (the raw one-shot), {"dir": path} (an index saved by
              either package) or {"store": dir} (a ShardedIndexStore)
   epsilon, k the config (ForaConfig(epsilon=, k=)) and the top-k
@@ -36,8 +38,14 @@ SPEC.json holds ``shards`` (G) and ``jobs``, a list of objects with:
   runner     "pool": ShardedTopkRunner.query_pools (pools of ``pool``
              sources, null: all, through query_pool(batch=``batch``,
              defer_below=``defer_below``), then flush_deferred), with
-             ``delta_stride`` and ``accept_slack`` (defaults 2, 1); else
-             the one-shot
+             ``delta_stride`` and ``accept_slack`` (defaults 2, 1);
+             "build": the FORA+ index built across the processes
+             (``index.build_sharded.build_across_processes`` at ``seed``
+             and ``chunk_lanes``, default 2^23), then, after a barrier,
+             rank 0 saves it as ``DIR/<name>.index`` (the index store)
+             and, with ``store`` a directory, as a ShardedIndexStore of G
+             shards there, and a second barrier lets later jobs open it;
+             else the one-shot
 
 Per job the outputs hold the answer (``<name>.values``, ``<name>.ids`` in
 the npz; a pool adds ``.lb``, ``.ub`` and ``.accepted``, each source's
@@ -48,6 +56,12 @@ it the rows and bytes this process sent to the others (``sent_rows``,
 ``sent_bytes``; ``dense_bytes``, what the dense exchange sends in their
 place), a pool's level records, the raw walk's rounds and records per
 round.
+A build's record holds its wall, the kernels' launches, the shards this
+process placed and each slice's edges (``shards``, ``slice_edges``), per
+chunk the rounds, the records this process sent and received per round
+and its launches of K4-xp's two forms (``rounds``, ``sent``,
+``received``, ``forms``), and the sha256 of each of the index's arrays
+(``digest``), so that every process's index can be compared.
 ``gather`` (in the JSON) is ``multihost.gather_to_host`` of each local
 shard's row ids, checked against 0 .. G * n_loc - 1.
 """
@@ -55,6 +69,7 @@ shard's row ids, checked against 0 .. G * n_loc - 1.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 import time
@@ -76,6 +91,9 @@ def _graph(spec: dict, G: int, cache: dict):
                                      if f in z.files})
         elif "er" in spec:
             cache[key] = generators.erdos_renyi(*spec["er"])
+        elif "rmat" in spec:
+            n_log2, m, seed = spec["rmat"]
+            cache[key] = generators.rmat(n_log2, m, seed=seed)
         else:
             cache[key] = ShardedGraphStore(spec["store"], G)
     return cache[key]
@@ -107,12 +125,63 @@ def _sent(xch, comm) -> dict:
                             for _, B, _ in sent]}
 
 
+INDEX_ARRAYS = ("edge_src", "edge_dst", "bucket_offsets", "counts_cum",
+                "edge_mult")
+
+
+def index_digest(idx) -> dict:
+    """The sha256 of each of a WalkIndex's arrays (INDEX_ARRAYS, those it
+    has), so that indexes built in several processes can be compared."""
+    return {f: hashlib.sha256(np.ascontiguousarray(getattr(idx, f))
+                              .tobytes()).hexdigest()
+            for f in INDEX_ARRAYS if getattr(idx, f) is not None}
+
+
+def build_job(job: dict, G: int, comm, out: Path, cache: dict) -> tuple:
+    """A "build" job on this process: (its JSON record, no arrays)."""
+    from .. import kernels
+    from ..config import ForaConfig
+    from ..graph.csr import CSRGraph
+    from ..index import save, save_sharded
+    from ..index.build_sharded import build_across_processes
+    from .mesh import make_mesh
+    g = _graph(job["graph"], G, cache)
+    if not isinstance(g, CSRGraph):
+        raise ValueError("a build needs the host graph, not a graph store")
+    rcfg = ForaConfig(epsilon=job.get("epsilon", 0.5),
+                      k=job["k"]).resolved(g.n, g.m)
+    mesh = make_mesh(G)
+    log = {}
+    kernels.reset_launch_counts()
+    _sync(comm.device)
+    t0 = time.perf_counter()
+    idx = build_across_processes(g, mesh, rcfg, job["seed"],
+                                 job.get("chunk_lanes", 1 << 23), log)
+    _sync(comm.device)
+    wall = time.perf_counter() - t0
+    rec = {"wall_s": wall, "launches": kernels.launch_counts(),
+           "total_edges": idx.total_edges,
+           "omega_unit_built": idx.omega_unit_built,
+           "rmax_built": idx.rmax_built, **log, "digest": index_digest(idx)}
+    # every process has built (and packed as many edges) before rank 0
+    # writes, and rank 0 has written before any process opens the store
+    comm.agree("the built index's edges", idx.total_edges)
+    if comm.rank == 0:
+        save(idx, rcfg, str(out / f"{job['name']}.index"), graph=g)
+        if job.get("store"):
+            save_sharded(idx, rcfg, job["store"], G, graph=g)
+    comm.agree("the saved index", 0)
+    return rec, {}
+
+
 def run_job(job: dict, G: int, comm, out: Path, cache: dict) -> tuple:
     """One job on this process: (its JSON record, its arrays)."""
     from .. import kernels
     from ..config import ForaConfig
     from .mesh import make_mesh
     from .sharded import ShardedForaEngine, ShardedTopkRunner
+    if job.get("runner") == "build":
+        return build_job(job, G, comm, out, cache)
     g = _graph(job["graph"], G, cache)
     rcfg = ForaConfig(epsilon=job.get("epsilon", 0.5),
                       k=job["k"]).resolved(g.n, g.m)

@@ -8,21 +8,46 @@
     ``tests/test_build_sharded.py::test_sharded_build_bit_identical``);
   - ``sharded_build_bytes`` equal to fora_tpu's dict on the same graph;
   - the memory-wall check of ``tests/test_build_sharded.py:45-55``: a
-    shard's slices fit a budget the replicated out-CSR does not.
+    shard's slices fit a budget the replicated out-CSR does not;
+  - K4-xp's plain version ``index_walk_xp_plain`` (the build across
+    processes' walks) over P = 1, 2, 4 processes simulated by
+    ``xp_chunk_rounds`` and ``local_exchange``: every walk of a chunk ends
+    where ``run_walks_philox`` ends it on the chunk's starts (uniform and
+    alias, dangling rows, max_hops 0), in exactly one process, with the
+    records' length field the walk's;
+  - the build across processes simulated so, every chunk, packed:
+    array-equal to the Philox one-process reference (``philox_index``),
+    and against JAX's ``build_walk_index_sharded`` on 4 x 2 virtual CPU
+    devices (as ``tests/test_build_sharded.py:33`` runs it): equal
+    ``index_counts``, ``omega_unit_built`` and ``rmax_built``; the
+    (start, endpoint) pairs of the two indexes from one distribution by
+    ``tests/walk_chisq.py``'s two-sample test, and each package's
+    endpoints against the exact PPR of their starts (pooled, and the
+    walks that end at their own start) by its chi-square test, all at the
+    floor 1e-3 the port's walk tests use.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
+from walk_chisq import chisquare_pvalue, two_sample_pvalue
+
 from fora_tpu import index as jax_index
+from fora_tpu.config import ForaConfig as JaxConfig
 from fora_tpu.graph import generators as jax_generators
 from fora_tpu.graph.csr import from_edges as jax_from_edges
+from fora_tpu.parallel import make_mesh as jax_make_mesh
 from fora_tpu_torch import ForaConfig
-from fora_tpu_torch.graph import to_device
+from fora_tpu_torch.algo import exact
+from fora_tpu_torch.graph import from_edges, to_device
 from fora_tpu_torch.graph.csr import CSRGraph
 from fora_tpu_torch.index import (build_walk_index, build_walk_index_sharded,
                                   index_counts, sharded_build_bytes)
+from fora_tpu_torch.index.build import pack_index
+from fora_tpu_torch.index.build_sharded import own_run, shard_out_csr
+from fora_tpu_torch.ops import walk
 from fora_tpu_torch.parallel import make_mesh
 
 torch.set_num_threads(2)
@@ -88,3 +113,217 @@ def test_sharded_build_breaks_memory_wall():
     assert stats["replicated_bytes"] > budget
     assert stats["per_shard_bytes"] < budget, stats
     assert stats["ratio"] < 0.5, stats
+
+
+# ---- the build across processes: K4-xp's plain version -------------------
+
+XP_G = 4                 # graph shards, over P processes of XP_G / P
+XP_CHUNK = 1 << 11       # walks a chunk: ER 300 / 3000 at eps 0.5 has 7,763
+
+
+def philox_index(g, rcfg, seed: int, chunk: int = XP_CHUNK):
+    """The one-process reference of the build across processes: chunk i
+    of the starts walked by ``run_walks_philox`` (K4's Philox words, which
+    the card's ``build_walk_index`` draws) at seed ``seed + i * 2^32`` on
+    the unsharded graph, then packed.  On the CPU ``build_walk_index``
+    itself walks with a torch.Generator, so it is not this index."""
+    dg = to_device(g, device="cpu")
+    deg = np.asarray(g.out_deg)
+    counts = index_counts(deg, rcfg)
+    total = int(counts.sum())
+    starts = torch.from_numpy(np.repeat(np.arange(g.n, dtype=np.int32),
+                                        counts))
+    ends = np.empty(total, dtype=np.int32)
+    for i, lo in enumerate(range(0, total, chunk)):
+        ends[lo:lo + chunk] = walk.run_walks_philox(
+            dg, starts[lo:lo + chunk], seed + (i << 32), rcfg.alpha,
+            rcfg.max_walk_hops).numpy()
+    return pack_index(ends, counts, deg, rcfg)
+
+
+def _dangling(weighted: bool):
+    """ER 300 / 3000 with every 7th node's out-edges dropped (dangling
+    rows, which absorb the walks that reach them), weighted exp2(U(-2, 2))
+    for alias hops."""
+    g = port_graph(_setup())
+    src = np.repeat(np.arange(g.n), g.out_deg)
+    keep = src % 7 != 3
+    w = (np.exp2(np.random.default_rng(5).uniform(-2, 2, int(keep.sum())))
+         if weighted else None)
+    return from_edges(src[keep], np.asarray(g.out_indices)[keep], g.n, w=w)
+
+
+def xp_chunk(csr, starts, cum, lo: int, W: int, seed: int, alpha: float,
+             hops: int, P: int) -> tuple:
+    """Chunk [lo, lo + W) of the index walks over P processes of XP_G / P
+    shards each, simulated by xp_chunk_rounds and local_exchange, each
+    launch K4-xp's plain version (``index_walk_xp_chunk`` on CPU tensors):
+    (each process's [W] endpoints, -1 where a walk ended elsewhere; the
+    rounds' [P, P] counts).  Every record's length field is the walk's and
+    its hops taken below it."""
+    L = XP_G // P
+    rows = L * csr.n_loc
+    runs = {q: own_run(cum, lo, W, q * rows, (q + 1) * rows)
+            for q in range(P)}
+    ends = [torch.full((W,), -1, dtype=torch.int32) for _ in range(P)]
+
+    def launch(q, r, inbox, box, cnt):
+        a, b = runs[q]
+        own = torch.from_numpy(starts[lo + a:lo + b]) if r == 0 else \
+            torch.empty(0, dtype=torch.int32)
+        walk.index_walk_xp_chunk(csr.shards(q * L, (q + 1) * L), own, a,
+                                 q * L, XP_G, seed, alpha, hops, inbox, box,
+                                 cnt, ends[q])
+        assert int(cnt[q]) == 0
+        for d in range(P):      # (w, cur, h | len << 16, 0)
+            rec = box[d, :int(cnt[d])].long()
+            length, h = rec[:, 2] >> 16, rec[:, 2] & 0xFFFF
+            assert torch.equal(length, walk.lengths_of(
+                seed, rec[:, 0] & 0xFFFFFFFF, alpha, hops))
+            assert bool((h < length).all()) and not rec[:, 3].any()
+            assert bool((rec[:, 1] // rows == d).all())
+    ms = walk.xp_chunk_rounds(launch, walk.local_exchange,
+                              {q: b - a for q, (a, b) in runs.items()}, P,
+                              "cpu")
+    return ends, ms
+
+
+@pytest.mark.parametrize("hops", [None, 0])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("P", [1, 2, 4])
+def test_index_walk_xp_plain_simulated_processes(P, weighted, hops):
+    """K4-xp's plain version over P simulated processes on the second
+    chunk of the build's starts (walks 2,048 .. 4,095, so every process's
+    run starts past walk 0): each walk ends in exactly one process, where
+    run_walks_philox ends it on the chunk's starts at the chunk's seed;
+    more than one round exactly where P > 1 and walks hop; max_hops 0
+    ends every walk at its start in round 0."""
+    g = _dangling(weighted)
+    rcfg = ForaConfig(epsilon=0.5).resolved(g.n, g.m)
+    hops = rcfg.max_walk_hops if hops is None else hops
+    counts = index_counts(g.out_deg, rcfg)
+    starts = np.repeat(np.arange(g.n, dtype=np.int32), counts)
+    cum = np.concatenate([[0], np.cumsum(counts)])
+    lo, seed = XP_CHUNK, 9 + (1 << 32)
+    W = min(XP_CHUNK, len(starts) - lo)
+    csr = shard_out_csr(g, ["cpu"] * XP_G)
+    ends, ms = xp_chunk(csr, starts, cum, lo, W, seed, rcfg.alpha, hops, P)
+    want = walk.run_walks_philox(to_device(g, device="cpu"),
+                                 torch.from_numpy(starts[lo:lo + W]), seed,
+                                 rcfg.alpha, hops)
+    assert torch.equal(sum((e >= 0).int() for e in ends),
+                       torch.ones(W, dtype=torch.int32))
+    assert torch.equal(torch.stack(ends).max(0).values, want)
+    assert (len(ms) > 1) == (P > 1 and hops > 0)
+    assert len(ms) <= hops + 1
+    if hops == 0:
+        assert torch.equal(want, torch.from_numpy(starts[lo:lo + W]))
+    else:       # some walks were absorbed at a dangling row
+        assert int((g.out_deg[want.numpy()] == 0).sum()) > 0
+
+
+def xp_build(g, rcfg, seed: int, P: int, chunk: int = XP_CHUNK):
+    """The build across P processes simulated in one: every chunk's walks
+    by ``xp_chunk``, each walk's endpoint from the process where it ended
+    (the max over the processes' [W] endpoints, as the build's all-reduce
+    takes it), then packed."""
+    counts = index_counts(g.out_deg, rcfg)
+    total = int(counts.sum())
+    starts = np.repeat(np.arange(g.n, dtype=np.int32), counts)
+    cum = np.concatenate([[0], np.cumsum(counts)])
+    csr = shard_out_csr(g, ["cpu"] * XP_G)
+    ends = np.empty(total, dtype=np.int32)
+    for i, lo in enumerate(range(0, total, chunk)):
+        W = min(chunk, total - lo)
+        got, _ = xp_chunk(csr, starts, cum, lo, W, seed + (i << 32),
+                          rcfg.alpha, rcfg.max_walk_hops, P)
+        ends[lo:lo + W] = torch.stack(got).max(0).values.numpy()
+    return pack_index(ends, counts, np.asarray(g.out_deg), rcfg)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_xp_build_matches_philox_and_jax(weighted):
+    """The build across 2 simulated processes of 2 shards, four chunks:
+    array-equal to ``philox_index``; against JAX's sharded build at the
+    configuration of its own test (``tests/test_build_sharded.py:33``: 4 x
+    2 virtual devices, key 9, chunk 2^12), equal walk counts per node and
+    equal built omega_unit and rmax; the (start, endpoint) pairs (each
+    index edge's multiplicity) of both from one distribution
+    (``two_sample_pvalue`` > 1e-3), and each package's endpoints against
+    the exact PPR of their starts (``chisquare_pvalue`` > 1e-3): pooled,
+    against the mixture of the starts' PPR vectors (its variance is below
+    the multinomial's, so that test is conservative), and per start, the
+    walks that end at their own start against sum_v K_v PPR_v(v), which
+    refuses alpha 0.18 for 0.2 on this graph."""
+    jg = _setup(weighted=weighted)
+    g = port_graph(jg)
+    rcfg = ForaConfig(epsilon=0.5).resolved(g.n, g.m)
+    got = xp_build(g, rcfg, 9, 2)
+    want = philox_index(g, rcfg, 9)
+    for f in FIELDS:
+        a, b = getattr(want, f), getattr(got, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            np.testing.assert_array_equal(a, b, f)
+    jrcfg = JaxConfig(epsilon=0.5).resolved(jg.n, jg.m)
+    jidx = jax_index.build_walk_index_sharded(
+        jg, jax_make_mesh(4, 2), jrcfg, jax.random.key(9), chunk=1 << 12)
+    counts = index_counts(g.out_deg, rcfg)
+    np.testing.assert_array_equal(
+        counts, jax_index.index_counts(np.asarray(jg.out_deg), jrcfg))
+    assert (got.omega_unit_built, got.rmax_built) == \
+        (jidx.omega_unit_built, jidx.rmax_built)
+
+    def pairs(idx):
+        mult = (np.ones(idx.total_edges, np.int64) if idx.edge_mult is None
+                else np.asarray(idx.edge_mult).astype(np.int64))
+        src = np.repeat(np.asarray(idx.edge_src, np.int64), mult)
+        dst = np.repeat(np.asarray(idx.edge_dst, np.int64), mult)
+        assert np.array_equal(np.bincount(src, minlength=g.n), counts)
+        return src, dst
+    (ps, pd), (js, jd) = pairs(got), pairs(jidx)
+    assert two_sample_pvalue(ps * g.n + pd, js * g.n + jd) > 1e-3
+    ppr = exact.exact_ppr_batch(g, np.arange(g.n), rcfg.alpha,
+                                device="cpu").numpy()
+    mix = ppr @ counts.astype(np.float64)
+    home = float(np.diag(ppr) @ counts) / counts.sum()
+    for src, dst in ((ps, pd), (js, jd)):
+        assert chisquare_pvalue(np.bincount(dst, minlength=g.n), mix) > 1e-3
+        at = int((src == dst).sum())
+        assert chisquare_pvalue([at, len(src) - at], [home, 1 - home]) > 1e-3
+
+
+@pytest.mark.parametrize("W,n_in", [(0, 0), (1, 0), (33, 5), (4096, 100),
+                                    (1 << 23, 0), (0, 65001865)])
+def test_index_xp_plan_covers_the_walks(W, n_in):
+    """K4-xp's plan, each form: the own-start form's warps of 32 k walks
+    cover its starts (k of 1, 2, 4, the largest whose warps fill half of
+    the card's resident warps at its residency), the inbox form's is
+    K6+K4-xp's inbox form's; a form with no walk gets no block."""
+    from fora_tpu_torch.kernels import schedule
+    plan = schedule.index_xp_plan(W, n_in, 132)
+    own, k = plan.own, plan.own.walks_per_lane
+    assert k in (1, 2, 4)
+    assert own.blocks * schedule.WALK_BLOCK_WARPS * 32 * k >= W
+    assert (own.blocks == 0) == (W == 0)
+    if W:
+        assert own == schedule.walk_grid(W, k)
+    half = 132 * schedule.INDEX_XP_BLOCKS_PER_SM * 8 // 2
+    assert k == 4 or W < 32 * 2 * k * half
+    assert plan.inbox == schedule.xp_walk_plan(0, 0, n_in, 132).inbox
+
+
+def test_index_xp_blocks_per_sm_is_the_launch_bound():
+    """The plan's blocks an SM of K4-xp's own-start form is walk.cu's
+    launch bound of index_walk_xp_kernel, and its inbox form launches
+    K6+K4-xp's inbox kernel, whose bound the raw plan's test holds."""
+    import re
+    from pathlib import Path
+    from fora_tpu_torch.kernels import schedule
+    src = (Path(schedule.__file__).parent / "csrc" / "walk.cu").read_text()
+    got = re.findall(r"constexpr int kIndexXpBlocksPerSM = (\d+);", src)
+    assert [int(x) for x in got] == [schedule.INDEX_XP_BLOCKS_PER_SM]
+    assert re.search(r"__launch_bounds__\(kBlockThreads, kIndexXpBlocksPerSM\)"
+                     r"\s+index_walk_xp_kernel\(", src)
+    assert re.search(r"launch_xp_inbox<kXpInboxBlocksPerSM, StagedLeave, "
+                     r"false>", src)

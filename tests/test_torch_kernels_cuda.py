@@ -2028,6 +2028,157 @@ def test_raw_walk_xp_stage_overflows(dev, alias, L, G):
     _xp_launch_pair(dev, args, q, P)
 
 
+# ---- K4-xp (index_walk_xp_kernel, the inbox form) against its plain version
+
+
+def _ixp_launch_pair(dev, csr, start, w0, q, L, G, seed, hops, inbox, box,
+                     cnt, W):
+    """One K4-xp launch (process q's, ``csr`` its L slices) against
+    index_walk_xp_plain on fresh outboxes and endpoints: one launch of the
+    form its source takes, equal counts per destination, each
+    destination's records equal as a set (the kernel's slots come in no
+    fixed order), equal endpoints (-1 at the own walks that left).
+    Returns the kernel's (outbox, counts, endpoints)."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.ops import walk
+    P = G // L
+    got = []
+    for form in ("kernel", "plain"):
+        if form == "kernel":
+            x = (box.fill_(-7), cnt.fill_(-7))
+        else:
+            x = (torch.full_like(box, -7), torch.full_like(cnt, -7))
+        e = torch.full((W,), -1, dtype=torch.int32, device=dev)
+        fn = (walk.index_walk_xp_chunk if form == "kernel"
+              else walk.index_walk_xp_plain)
+        before = kernels.launch_counts()
+        fn(csr, start, w0, q * L, G, seed, 0.2, hops, inbox, *x, e)
+        after = kernels.launch_counts()
+        name = "index_walk_xp" if start.shape[0] else "index_walk_xp_inbox"
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(form == "kernel" and k == name and box.shape[1] > 0)
+            for k in after}
+        got.append((*x, e))
+    (box, cnt, e), (pbox, pcnt, pe) = got
+    assert torch.equal(cnt, pcnt) and int(cnt[q]) == 0
+    assert int(cnt.sum()) <= box.shape[1]
+    for d in range(P):
+        assert torch.equal(_xp_records(box, cnt, d),
+                           _xp_records(pbox, pcnt, d))
+    assert torch.equal(e, pe)
+    return box, cnt, e
+
+
+def _ixp_rounds(dev, g, csr, starts, lo, W, seed, hops, L, log=None):
+    """The chunk [lo, lo + W) of ``starts`` (sorted by node) with G shards
+    over G / L processes simulated on the card by xp_chunk_rounds and
+    local_exchange, every launch held to index_walk_xp_plain
+    (_ixp_launch_pair) and the kernel's records handed on: each walk ends
+    in exactly one process, where K4's sharded form and run_walks_philox
+    end it.  ``log`` gets per launch (own starts?, records in, records
+    out, blocks, the inbox)."""
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.index.build_sharded import own_run
+    from fora_tpu_torch.kernels import schedule, sm_count
+    from fora_tpu_torch.ops import walk
+    G = len(csr.indptr)
+    P, rows = G // L, L * csr.n_loc
+    cum = np.searchsorted(starts, np.arange(G * csr.n_loc + 1))
+    chunk = torch.as_tensor(starts[lo:lo + W], device=dev)
+    want = walk.walk_endpoints(csr, chunk, seed, 0.2, hops)
+    dg = to_device(g, merge_duplicate_edges=False, device=dev)
+    assert torch.equal(want, walk.run_walks_philox(dg, chunk, seed, 0.2,
+                                                   hops))
+    runs = {q: own_run(cum, lo, W, q * rows, (q + 1) * rows)
+            for q in range(P)}
+    ends = [torch.full((W,), -1, dtype=torch.int32, device=dev)
+            for _ in range(P)]
+
+    def launch(q, r, inbox, box, cnt):
+        a, b = runs[q] if r == 0 else (0, 0)
+        own = chunk[a:b].contiguous()
+        _, cnt, e = _ixp_launch_pair(dev, csr.shards(q * L, (q + 1) * L), own,
+                                     a, q, L, G, seed, hops, inbox, box,
+                                     cnt, W)
+        ends[q] = torch.maximum(ends[q], e)
+        if log is not None:
+            plan = schedule.index_xp_plan(b - a, inbox.shape[0],
+                                          sm_count(dev))
+            log.append((b > a, inbox.shape[0], int(cnt.sum()),
+                        (plan.own if b > a else plan.inbox).blocks, inbox))
+    rounds = len(walk.xp_chunk_rounds(
+        launch, walk.local_exchange, {q: b - a for q, (a, b) in runs.items()},
+        P, dev))
+    assert rounds <= hops + 1 and (rounds > 1) == (P > 1)
+    assert torch.equal(sum((x >= 0).int() for x in ends),
+                       torch.ones(W, dtype=torch.int32, device=dev))
+    assert torch.equal(torch.stack(ends).max(0).values, want)
+
+
+@pytest.mark.parametrize("alias", [False, True])
+@pytest.mark.parametrize("L", [1, 2, 4])
+@pytest.mark.parametrize("cut", ["whole", "mid"])
+def test_index_walk_xp_kernel_matches_plain(dev, alias, L, cut):
+    """K4-xp's two forms with G = 4 shards over 4 / L processes simulated
+    on the card, on the index build's starts of an RMAT 2^10 with dangling
+    nodes (weighted for alias hops): per process and round, one launch
+    (the own-start form in round 0, the inbox form after it) against
+    index_walk_xp_plain on the same own starts and inbox: equal counts per
+    destination, each destination's records equal as a set, equal
+    endpoints; the kernel's records go on to the next round.  Across the
+    rounds every walk's endpoint is K4's sharded form's bit for bit, and
+    each walk ends in one process.  "mid" is a chunk from walk total / 5,
+    so each process's own run starts past walk 0 (the key offset w0)."""
+    from fora_tpu_torch import ForaConfig
+    from fora_tpu_torch.index import index_counts
+    from fora_tpu_torch.index.build_sharded import shard_out_csr
+    g, _, _ = _philox_graph(dev, "alias" if alias else "uniform")
+    rcfg = ForaConfig(epsilon=0.5).resolved(g.n, g.m)
+    starts = np.repeat(np.arange(g.n, dtype=np.int32),
+                       index_counts(g.out_deg, rcfg))
+    csr = shard_out_csr(g, [dev] * 4)
+    t = len(starts)
+    lo, hi = (0, t) if cut == "whole" else (t // 5, 3 * t // 5)
+    _ixp_rounds(dev, g, csr, starts, lo, hi - lo, 0x5DEECE66D * 29,
+                rcfg.max_walk_hops, L)
+
+
+@pytest.mark.parametrize("alias,L,G", [(False, 2, 4), (False, 1, 4),
+                                        (True, 1, 4), (False, 1, 8)])
+def test_index_walk_xp_stage_overflows(dev, alias, L, G):
+    """K4-xp's staged outbox filled and flushed many times over: on a graph
+    whose every edge leads into the next process's rows (_cross_graph), 32
+    walks from each node that has out-edges (about 2 M), each launch held
+    to index_walk_xp_plain and every endpoint to K4's sharded form
+    (_ixp_rounds); the inbox form's largest launch hands over more records
+    than its warps' bins hold, and so does the own-start form's where a
+    bin holds fewer records than a warp's 128 walks hand over (P >= 4: 42
+    a bin, 18 at P = 8, below a group of lanes, which then goes out by
+    itself); then an inbox of 5 records, below a warp, against the plain
+    version alike."""
+    from fora_tpu_torch.index.build_sharded import shard_out_csr
+    n, seed = 1 << 16, 0x5DEECE66D * 11
+    P = G // L
+    g = _cross_graph(n, G, L, alias)
+    csr = shard_out_csr(g, [dev] * G)
+    starts = np.repeat(np.arange(n - 64, dtype=np.int32), 32)
+    log = []
+    _ixp_rounds(dev, g, csr, starts, 0, len(starts), seed, 64, L, log)
+    bin_cap = 128 // (P - 1)    # walk.cu's kWarpStage / (P - 1)
+    for own in (True, False) if P >= 4 else (False,):
+        _, _, sent, blocks, _ = max((x for x in log if x[0] == own),
+                                    key=lambda x: x[2])
+        assert sent > blocks * 8 * bin_cap, (own, sent, blocks, bin_cap)
+    inbox = next(x[4] for x in log if not x[0] and x[1] >= 5)[:5]
+    q = int(inbox[0, 1]) // (L * csr.n_loc)
+    _ixp_launch_pair(dev, csr.shards(q * L, (q + 1) * L),
+                     torch.empty(0, dtype=torch.int32, device=dev), 0, q, L,
+                     G, seed, 64, inbox.contiguous(),
+                     torch.empty((P, 5, 4), dtype=torch.int32, device=dev),
+                     torch.empty(P, dtype=torch.int32, device=dev),
+                     len(starts))
+
+
 # ---- K6+K4-src (source_walk_kernel) against the chain it replaced ---------
 
 SOURCE_BRANCHES = ["uniform", "alias", "hub", "hub_alias"]

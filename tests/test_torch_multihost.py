@@ -32,9 +32,18 @@ to JAX's ``ShardedTopkRunner`` on 4 virtual devices under
 ``test_torch_sharded_runner.py``'s rule; the hier one-shot against JAX's
 hier engine (``chips_per_host`` = L); a query axis of 2 (one-shot and
 pool) against the one-process port with 2 query groups and against JAX's
-engine and runner on 8 virtual devices.  In process:
+engine and runner on 8 virtual devices.  The index built across the
+processes (the driver's "build" job: ``build_walk_index_sharded`` over
+the world's ``ProcessMesh``, K4-xp's plain version on the CPU), on ER 300 /
+3000 and on its weighted form, four chunks: on every rank array-equal to
+the Philox one-process reference (``test_torch_build_sharded.
+philox_index``), each rank placing only its own L out-CSR slices; the
+indexed one-shot from the sharded store it wrote bit-equal to the one
+from the reference's store.  In process:
 ``raw_walk_xp_plain`` with the processes simulated by a loop against
-``raw_walk_chunk_plain``; ``FrontierExchange`` across processes
+``raw_walk_chunk_plain``; ``build_walk_index_sharded`` over a
+``ProcessMesh`` of P threads whose collectives go through a shared hub,
+against the same reference; ``FrontierExchange`` across processes
 simulated by threads (each a process of L shards, its collectives
 through a shared hub), in the one-device slot layout and with the
 several devices' copies, against the one-process exchange of G shards
@@ -43,6 +52,7 @@ over compacted and fallen-back supersteps; and the refusals.
 
 import functools
 import json
+import math
 import os
 import shutil
 import threading
@@ -78,11 +88,13 @@ from fora_tpu_torch.parallel import (ShardedForaEngine, ShardedTopkRunner,
                                      make_mesh, multihost,
                                      save_sharded_graph)
 from fora_tpu_torch.parallel.mesh import ProcessMesh
+from fora_tpu_torch.parallel.multihost_driver import index_digest
 # test_torch_sharded_runner.py's rule for two pools: values and bounds
 # within rtol 1e-5, ids equal where adjacent values differ by more than
 # 1e-7, acceptance equal, off the queries at a level's threshold (C2)
 from test_torch_sharded_runner import assert_agree as assert_pools_agree
 from test_torch_exchange import _contrib, _needed
+from test_torch_build_sharded import FIELDS, XP_CHUNK, philox_index
 
 torch.set_num_threads(2)
 
@@ -97,6 +109,7 @@ WORLDS = [(2, 2), (4, 1)]
 CAP_SMALL = 16           # rows a shard may send a destination: some fall back
 POOL_KW = {"batch": 8, "defer_below": 4}
 COMPACTED = ["compact", "routed", "hier", "routed_cap"]
+BUILD_SEED = 9
 
 
 def _free_port() -> int:
@@ -148,6 +161,7 @@ def run_world(P: int, root: Path) -> dict:
              "k": K, "sources": ER_SOURCES, "seed": RAW_SEED,
              "ends": True}]
     jobs += compacted_jobs(jobs[0], G // P)
+    jobs += build_jobs(root)
     port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
@@ -183,7 +197,37 @@ def run_world(P: int, root: Path) -> dict:
                         for q in range(P)],
             "arrays": [dict(np.load(out / f"rank{q}.npz"))
                        for q in range(P)],
-            "ends": np.load(out / "raw.ends.npy")}
+            "ends": np.load(out / "raw.ends.npy"), "out": out}
+
+
+def er_build_graph(weighted: bool):
+    """The build jobs' graph and config: ER 300 / 3000, or its weighted
+    form."""
+    g = _weighted_er() if weighted else generators.erdos_renyi(*ER)
+    return g, ForaConfig(epsilon=0.5, k=K).resolved(g.n, g.m)
+
+
+def build_jobs(root: Path) -> list:
+    """The index built across the world's processes, uniform (its sharded
+    store written under ``root``) and weighted (its graph an npz there),
+    then the indexed one-shot of ER_SOURCES from the built store and from
+    the Philox reference's store, written here."""
+    g, rcfg = er_build_graph(False)
+    tidx.save_sharded(philox_index(g, rcfg, BUILD_SEED), rcfg,
+                      str(root / "ref_store"), G, graph=g)
+    gw, _ = er_build_graph(True)
+    np.savez(root / "wer.npz", **{f: v for f, v in gw._asdict().items()
+                                  if v is not None})
+    build = {"runner": "build", "k": K, "seed": BUILD_SEED,
+             "chunk_lanes": XP_CHUNK}
+    one_shot = {"graph": {"er": list(ER)}, "k": K, "sources": ER_SOURCES}
+    return [dict(build, name="build", graph={"er": list(ER)},
+                 store=str(root / "built_store")),
+            dict(build, name="build_w", graph={"npz": str(root / "wer.npz")}),
+            dict(one_shot, name="built",
+                 index={"store": str(root / "built_store")}),
+            dict(one_shot, name="ref_built",
+                 index={"store": str(root / "ref_store")})]
 
 
 def exchange_kw(mode: str, L: int) -> dict:
@@ -387,6 +431,109 @@ def test_world_of_one_process(worlds):
     assert np.array_equal(a["indexed.values"].view(np.uint32),
                           want.values.view(np.uint32))
     assert w["records"][0]["jobs"]["raw"]["rounds"] == [1]
+
+
+def assert_index_equal(got, want) -> None:
+    for f in FIELDS:
+        a, b = getattr(want, f), getattr(got, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a), f)
+    assert (got.omega_unit_built, got.rmax_built) == \
+        (want.omega_unit_built, want.rmax_built)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("P,L", [(1, 4)] + WORLDS)
+def test_build_across_processes_matches_philox(worlds, P, L, weighted):
+    """The index built across P processes: rank 0's saved index array-equal
+    to the Philox one-process reference at the same seed and chunk, every
+    rank's arrays the same (their sha256), four chunks, each of them
+    rounds of records handed over where P > 1 (every record sent
+    received), no kernel launched on the CPU."""
+    w = worlds(P)
+    g, rcfg = er_build_graph(weighted)
+    want = philox_index(g, rcfg, BUILD_SEED)
+    name = "build_w" if weighted else "build"
+    got = tidx.load(str(w["out"] / f"{name}.index"), rcfg)
+    assert_index_equal(got, want)
+    recs = [r["jobs"][name] for r in w["records"]]
+    chunks = -(-int(tidx.index_counts(g.out_deg, rcfg).sum()) // XP_CHUNK)
+    assert chunks >= 3
+    for rec in recs:
+        assert rec["digest"] == index_digest(want)
+        assert (rec["total_edges"], rec["omega_unit_built"],
+                rec["rmax_built"]) == (want.total_edges,
+                                       want.omega_unit_built,
+                                       want.rmax_built)
+        assert len(rec["rounds"]) == chunks
+        assert not any(rec["launches"].values())
+        assert rec["forms"] == [[0, 0]] * chunks
+    for i in range(chunks):
+        sent = sum(np.asarray(r["sent"][i]) for r in recs)
+        assert np.array_equal(sent, sum(np.asarray(r["received"][i])
+                                        for r in recs))
+        assert (sent[0] > 0) == (P > 1)
+        assert max(r["rounds"][i] for r in recs) <= rcfg.max_walk_hops + 1
+
+
+@pytest.mark.parametrize("P,L", [(1, 4)] + WORLDS)
+def test_build_places_only_own_slices(worlds, P, L):
+    """Each rank of the build placed only its own L shards' out-CSR slices
+    (each of them padded to the largest shard's edges), fewer edges than
+    the graph's where P > 1."""
+    w = worlds(P)
+    g, _ = er_build_graph(False)
+    n_loc = math.ceil(math.ceil(g.n / G) / 8) * 8     # _shard_csr's rows
+    ptr = np.asarray(g.out_indptr)
+    m_loc = max(int(ptr[min((s + 1) * n_loc, g.n)] - ptr[s * n_loc])
+                for s in range(G))
+    for q in range(P):
+        rec = w["records"][q]["jobs"]["build"]
+        assert rec["shards"] == list(range(q * L, (q + 1) * L))
+        assert rec["slice_edges"] == [m_loc] * L
+        assert (L * m_loc < g.m) == (P > 1)
+
+
+@pytest.mark.parametrize("P,L", [(1, 4)] + WORLDS)
+def test_built_store_one_shot_bit_equal(worlds, P, L):
+    """The indexed one-shot across the processes from the sharded store the
+    build wrote answers as the one from the Philox reference's store, bit
+    for bit, after as many supersteps."""
+    w = worlds(P)
+    for q in range(P):
+        a, rec = w["arrays"][q], w["records"][q]["jobs"]
+        assert np.array_equal(a["built.ids"], a["ref_built.ids"])
+        assert np.array_equal(a["built.values"].view(np.uint32),
+                              a["ref_built.values"].view(np.uint32))
+        assert rec["built"]["supersteps"] == rec["ref_built"]["supersteps"]
+
+
+def threaded_build(g, rcfg, P: int, L: int) -> list:
+    """``build_walk_index_sharded`` over a ``ProcessMesh`` of P processes
+    of L shards, each a thread whose collectives go through a shared hub:
+    every process's index."""
+    hub = _Hub(P)
+
+    def run(q):
+        mesh = ProcessMesh([torch.device("cpu") if q * L <= s < (q + 1) * L
+                            else None for s in range(P * L)],
+                           _ThreadComm(hub, q, P))
+        return tidx.build_walk_index_sharded(g, mesh, rcfg, BUILD_SEED,
+                                             chunk_lanes=XP_CHUNK)
+    with ThreadPoolExecutor(P) as pool:
+        return list(pool.map(run, range(P)))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("P,L", [(1, 4)] + WORLDS)
+def test_build_across_threads_matches_philox(P, L, weighted):
+    """The build across P processes simulated by threads in one: every
+    process's index array-equal to the Philox one-process reference."""
+    g, rcfg = er_build_graph(weighted)
+    want = philox_index(g, rcfg, BUILD_SEED)
+    for got in threaded_build(g, rcfg, P, L):
+        assert_index_equal(got, want)
 
 
 def _weighted_er():
@@ -666,6 +813,10 @@ class _ThreadComm:
         assert out.shape[0] == sum(recv_rows)
         return out
 
+    def all_reduce(self, t, op="sum"):
+        got = torch.stack(self.hub.swap(self.rank, t.clone()))
+        return t.copy_(got.amax(0) if op == "max" else got.sum(0))
+
 
 @pytest.mark.parametrize("one_device", [True, False])
 @pytest.mark.parametrize("mode", ["compact", "routed", "hier"])
@@ -773,6 +924,12 @@ def test_refusals():
     # without a group, gather_to_host concatenates the shards
     assert np.array_equal(multihost.gather_to_host(
         [torch.arange(3), torch.arange(3, 5)]), np.arange(5))
+    # C18: a weighted build over a ProcessMesh raised a TypeError on rank 1
+    # (its devices[0] is None); it now builds across the processes
+    g, rcfg = er_build_graph(True)
+    want = philox_index(g, rcfg, BUILD_SEED)
+    for got in threaded_build(g, rcfg, 2, 2):
+        assert_index_equal(got, want)
 
 
 @pytest.mark.parametrize("alias", [False, True])

@@ -230,5 +230,16 @@ def test_cpu_tensors_never_launch_kernels():
                            csr.n_loc), rs[1:], ds[1:], bounds[1:], 0, W, 0,
         1, 2, 1, 0.2, 64, torch.zeros(2 * csr.n_loc, 3),
         box[1, :int(cnt[1])], torch.empty_like(box), torch.zeros_like(cnt))
+    # K4-xp's plain version: process 0 of 2 walks its own starts, then
+    # process 1 the records handed to it
+    start = torch.arange(csr.n_loc, dtype=torch.int32).repeat_interleave(4)
+    ends = torch.full((start.shape[0],), -1, dtype=torch.int32)
+    box = torch.empty((P, start.shape[0], 4), dtype=torch.int32)
+    walk.index_walk_xp_chunk(csr.shards(0, 1), start, 0, 0, 2, 1, 0.2, 64,
+                             torch.empty((0, 4), dtype=torch.int32), box, cnt,
+                             ends)
+    walk.index_walk_xp_chunk(csr.shards(1, 2), start[:0], 0, 1, 2, 1, 0.2, 64,
+                             box[1, :int(cnt[1])], torch.empty_like(box),
+                             torch.zeros_like(cnt), ends)
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 26
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 28
