@@ -185,17 +185,20 @@ memory:
                  4's; both sharded stores written (the index store from
                  that build) and read back, the store-backed routed pool
                  bit-equal to the in-RAM one; K4-xp (the walks of the
-                 build across processes) on that build's first chunk
-                 (2^23 walks, seed SEED) over MP_PROCS processes of two
-                 shards simulated on the card (xp_chunk_rounds over
-                 local_exchange), each launch of either form (the
+                 build across processes) on that whole build (its
+                 chunks of 2^23 walks at seed SEED, one window) over
+                 MP_PROCS processes of two shards simulated on the card
+                 (probes/index_xp_probe.py::run_build: xp_chunk_rounds
+                 over local_exchange), each launch of either form (the
                  own-start form in round 0, the inbox form after it) held
                  to index_walk_xp_plain (counts, each destination's
                  records (w, cur, h | len << 16, 0) as a set, the
                  endpoints), every walk ending in one process where K4's
-                 sharded form ends it, timed (as called and in device
-                 time) beside K4's sharded form on the same starts and
-                 its bound (K4's walk bound plus 16 bytes a record
+                 sharded form ends it, its rounds the longest chunk's,
+                 timed (as called and in device time) beside K4's
+                 sharded form on the same chunks, the earlier per-chunk
+                 forms (probes/index_xp_forms.cu, which must be slower)
+                 and its bound (K4's walk bound plus 16 bytes a record
                  written and read), and the same on phase 13's weighted
                  graph (alias hops, run inside phase 13); and
                  (run inside phase 13) the weighted graph and index
@@ -304,19 +307,25 @@ memory:
                  answer the reference's bit for bit, the raw chunk's
                  endpoints equal again, the routed pool the one-process
                  runner's bit for bit.  Both worlds also build the FORA+
-                 index across their processes (the driver's "build" job
-                 at phase 4's seed and chunk: each worker generates phase
-                 1's graph, places only its own shards' out-CSR slices
-                 and walks with K4-xp, its records handed over in
-                 rounds, one max all-reduce of the endpoints a chunk):
-                 every worker's arrays equal (sha256) to phase 4's
+                 index across their processes MP_BUILDS times
+                 (multihost_driver's "build" job at phase 4's seed and
+                 chunk: each worker generates phase 1's graph, places
+                 only its own shards' out-CSR slices and walks with K4-xp
+                 over one
+                 window of the build's chunks, its records handed over in
+                 rounds, one max all-reduce of the endpoints): every
+                 worker's arrays equal (sha256) to phase 4's
                  build_walk_index and phase 15's one-process sharded
-                 build, the gloo world's saved as a sharded store from
-                 which its indexed one-shot answers as from phase 4's
-                 index bit for bit; the build's wall, rounds and records
-                 per round printed; K4-xp's two forms launched there
-                 (the inbox form only where records crossed) and on no
-                 path within one process.  A worker
+                 build, in phase 15's rounds over gloo (the longest
+                 chunk's) and one over NCCL, the gloo world's first saved
+                 as a sharded store from which its indexed one-shot
+                 answers as from phase 4's index bit for bit; each
+                 build's wall, its split (placing, the launches, the
+                 counts' all-gather, the all-to-all, the endpoints'
+                 all-reduce, the pack) and the walls' spread, rounds and
+                 records per round printed; K4-xp's two forms launched
+                 there (the inbox form only where records crossed) and on
+                 no path within one process.  A worker
                  that fails or passes MP_WORKER_S is killed and the phase
                  fails
   13. weighted   bench.py's weighted graph (phase 1's edges, weights
@@ -485,14 +494,15 @@ forms (each form's launches on the chunk, device ms and walks: the
 own-lane form raw_walk_xp, the inbox form raw_walk_xp_inbox),
 earlier_device_ms (the earlier kernel on the same chunk),
 sharded_device_ms (K6+K4's sharded form on it) and alias_* (the same on
-phase 13's weighted graph)); index_walk_xp, K4-xp, is phase 15's first
-index build chunk over two simulated processes (ms, device_ms and
-plain_ms as raw_walk_xp's, its bound K4's walk bound on the chunk's walks
-plus 16 bytes a record written and read) with the launches of both its
-forms in phase 17's build across the gloo workers summed, and carries
-forms (the own-start form index_walk_xp, the inbox form
-index_walk_xp_inbox), sharded_device_ms (K4's sharded form on the same
-starts) and alias_* (phase 13's weighted graph)), then,
+phase 13's weighted graph)); index_walk_xp, K4-xp, is phase 15's whole
+index build over two simulated processes (ms, device_ms and plain_ms as
+raw_walk_xp's, its bound K4's walk bound on the build's chunks plus 16
+bytes a record written and read) with the launches of both its forms in
+phase 17's first build across the gloo workers summed, and carries forms
+(the own-start form index_walk_xp, the inbox form index_walk_xp_inbox),
+rounds, earlier_device_ms and earlier_forms (the earlier per-chunk
+forms), sharded_device_ms (K4's sharded form on the same chunks) and
+alias_* (phase 13's weighted graph)), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -4071,6 +4081,7 @@ MP_PROCS = 2                        # phase 17: worker processes on the card
 # took the phase to 127 s: gloo moves a superstep's 134 MB in about 0.29 s)
 MP_SOURCES = 32
 MP_WORKER_S = 420                   # a world's time limit
+MP_BUILDS = ("build", "build_2", "build_3")     # phase 17's builds a world
 MP_DIR = ROOT / "bench_data" / "torch_smoke_mp"
 # the exchanges of phase 17's pools across processes, dense first
 MP_POOL_MODES = ("dense", "compact", "routed", "hier")
@@ -4272,70 +4283,46 @@ def xp_simulation(g, rcfg, sources, graph, dev, label):
 
 
 def index_xp_simulation(g, graph, rcfg, dev, label) -> dict:
-    """K4-xp on the index build's first chunk (the first INDEX_LAUNCH
-    starts, seed SEED: chunk 0 of build_walk_index and of the sharded
-    builds) with SHARDS shards over MP_PROCS processes simulated by a
-    loop on the card (xp_chunk_rounds over local_exchange): each launch
-    (the own-start form in round 0, the inbox form after it) held to
-    index_walk_xp_plain on the same own starts and inbox (counts equal,
-    each destination's records (w, cur, h | len << 16, 0) equal as a set,
-    the endpoints equal, -1 at the own walks that left) and its records
-    handed on; each walk must end in exactly one process, where K4's
-    sharded form (``walk_endpoints`` over the slices, the one-process
-    sharded build's walk) ends it, bit for bit.  ``graph`` is ``g`` on the
-    card (the bound's).  Returns K4-xp's kernel row: ms the launches as
-    called, device_ms their device time (each launch again on scratch
-    outputs), forms each form's launches, walks and device ms, plain_ms
-    the plain version's launches, sharded_device_ms K4's sharded form on
-    the chunk, its bound K4's walk bound on the chunk plus 16 bytes a
-    record written and read."""
-    import numpy as np
+    """K4-xp on the whole index build (its walks in chunks of INDEX_LAUNCH
+    at seed SEED, those of build_walk_index and the sharded builds; one
+    window of schedule.build_windows) with SHARDS shards over MP_PROCS
+    processes simulated by a loop on the card
+    (``probes/index_xp_probe.py::run_build``: xp_chunk_rounds over
+    local_exchange): each launch (the own-start form in round 0, the inbox
+    form after it) held to index_walk_xp_plain on the same own starts and
+    inbox (counts equal, each destination's records (w, cur, h | len <<
+    16, 0) equal as a set, the endpoints equal, -1 at the own walks that
+    left) and its records handed on; each walk must end in exactly one
+    process, where K4's sharded form (``walk_endpoints`` over the slices,
+    the one-process sharded build's walk) ends it on its chunk, bit for
+    bit.  The earlier per-chunk forms (probes/index_xp_forms.cu, a round
+    loop a chunk) walk the build again, their endpoints K4's sharded
+    form's too, and the package's forms must take less device time.
+    ``graph`` is ``g`` on the card (the bound's).  Returns K4-xp's kernel
+    row: ms the launches as called, device_ms their device time (each
+    launch again on scratch outputs), forms each form's launches, walks
+    and device ms, rounds, plain_ms the plain version's launches,
+    sharded_device_ms K4's sharded form on the chunks, earlier_device_ms
+    and earlier_forms the earlier forms', its bound K4's walk bound on
+    each chunk plus 16 bytes a record written and read."""
     import torch
-    from fora_tpu_torch.index.build import index_counts
-    from fora_tpu_torch.index.build_sharded import own_run, shard_out_csr
     from fora_tpu_torch.ops import walk
-    from fora_tpu_torch.probes import xp_walk_probe as xpp
-    from fora_tpu_torch.utils.timing import cuda_ms, device_ms
-    csr = shard_out_csr(g, [dev] * SHARDS)
-    counts = index_counts(g.out_deg, rcfg)
-    cum = np.concatenate([[0], np.cumsum(counts)])
-    W = min(INDEX_LAUNCH, int(cum[-1]))
-    chunk = torch.from_numpy(np.repeat(np.arange(g.n, dtype=np.int32),
-                                       counts)[:W]).to(dev)
-    a_, hops = rcfg.alpha, rcfg.max_walk_hops
-    ref = walk.walk_endpoints(csr, chunk, SEED, a_, hops)
-    one_ms = device_ms(lambda: walk.walk_endpoints(csr, chunk, SEED, a_,
-                                                   hops), iters=3, warmup=1)
+    from fora_tpu_torch.probes import index_xp_probe as ixp
+    from fora_tpu_torch.utils.timing import cuda_ms
+    s = ixp.setup(g, rcfg, dev, SEED, INDEX_LAUNCH)
+    ref, one_ms = ixp.reference(s)
     P, L = MP_PROCS, SHARDS // MP_PROCS
-    rows = L * csr.n_loc
-    runs = {q: own_run(cum, 0, W, q * rows, (q + 1) * rows)
-            for q in range(P)}
-    ends = [torch.full((W,), -1, dtype=torch.int32, device=dev)
-            for _ in range(P)]
-    ms = {"kernel": 0.0, "plain": 0.0}
-    per = []                 # per launch: (round, process, walks, device ms)
+    plain = {"ms": 0.0}
 
-    def launch(q, r, inbox, box, cnt):
-        a, b = runs[q] if r == 0 else (0, 0)
-        args = (csr.shards(q * L, (q + 1) * L), chunk[a:b], a, q * L,
-                SHARDS, SEED, a_, hops, inbox)
-        got = {}
-        for form in ("kernel", "plain"):
-            x = (box, cnt) if form == "kernel" else (torch.empty_like(box),
-                                                     torch.empty_like(cnt))
-            e = torch.full((W,), -1, dtype=torch.int32, device=dev)
-            fn = (walk.index_walk_xp_chunk if form == "kernel"
-                  else walk.index_walk_xp_plain)
-            ms[form] += cuda_ms(lambda: fn(*args, *x, e), iters=1, warmup=0)
-            got[form] = (*x, e)
-        (box, cnt, e), (pbox, pcnt, pe) = got.values()
-        if box.shape[1]:
-            scratch = (torch.empty_like(box), torch.empty_like(cnt),
-                       torch.full_like(e, -1))
-            per.append((r, q, box.shape[1], device_ms(
-                lambda: walk.index_walk_xp_chunk(*args, *scratch), iters=3,
-                warmup=1)))
-        if not torch.equal(cnt, pcnt) or int(cnt[q]) != 0:
+    def check(q, r, args):
+        (csr, start, w0, wlo, cl, shard0, G, seed, alpha, hops, inbox, box,
+         cnt, e) = args
+        pbox, pcnt = torch.empty_like(box), torch.zeros_like(cnt)
+        pe = torch.full_like(e, -1)
+        plain["ms"] += cuda_ms(lambda: walk.index_walk_xp_plain(
+            csr, start, w0, wlo, cl, shard0, G, seed, alpha, hops, inbox,
+            pbox, pcnt, pe), iters=1, warmup=0)
+        if not torch.equal(cnt[:P], pcnt[:P]) or int(cnt[q]) != 0:
             fail(f"K4-xp {label}: counts {cnt.tolist()} against the plain "
                  f"version's {pcnt.tolist()} (process {q}, round {r})")
         for d in range(P):
@@ -4346,47 +4333,82 @@ def index_xp_simulation(g, graph, rcfg, dev, label) -> dict:
         if not torch.equal(e, pe):
             fail(f"K4-xp {label}: process {q}'s endpoints differ from the "
                  f"plain version's (round {r})")
-        ends[q] = torch.maximum(ends[q], e)
-    sent = [int(m.sum()) for m in walk.xp_chunk_rounds(
-        launch, walk.local_exchange, {q: b - a for q, (a, b) in runs.items()},
-        P, dev)]
-    if not torch.equal(sum((x >= 0).int() for x in ends),
-                       torch.ones(W, dtype=torch.int32, device=dev)) or \
-            not torch.equal(torch.stack(ends).max(0).values, ref):
+    forms = ixp.load_forms()
+    got = ixp.run_build(s, P, ixp.form_caller(forms, "package"),
+                        check=check)
+    if not got["once"] or not torch.equal(got["ends"], ref):
         fail(f"K4-xp {label}: the simulated processes' endpoints differ from "
              f"K4's sharded form's, or a walk ended in no process or two")
-    now = xpp.summary(per)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    b = walk_bound(graph, chunk, gen, a_, hops, walk_sector_rate(graph))
+    now = ixp.summary(got["per"])
+    # the earlier per-chunk forms on the same build, their own rounds
+    old = ixp.run_build(s, P, ixp.form_caller(forms, "earlier"),
+                        per_chunk=True)
+    if not old["once"] or not torch.equal(old["ends"], ref):
+        fail(f"K4-xp's earlier forms {label}: endpoints differ from K4's "
+             f"sharded form's")
+    before = ixp.summary(old["per"])
+    if got["rounds"] != [max(old["rounds"])]:
+        fail(f"K4-xp {label}: {got['rounds']} rounds over the build's window,"
+             f" not its longest chunk's of {old['rounds']}")
+    sent = [x for w in got["sent"] for x in w]
+    # the bound: K4's walk bound on each chunk, plus 16 bytes a record
+    # written by its sender and read by its receiver
+    bytes_ms = ops_ms = 0.0
+    for i, lo in enumerate(range(0, s["total"], INDEX_LAUNCH)):
+        gen = torch.Generator(device=dev).manual_seed(SEED + i)
+        b = walk_bound(graph, s["starts"][lo:lo + INDEX_LAUNCH], gen,
+                       rcfg.alpha, rcfg.max_walk_hops, walk_sector_rate(graph))
+        bytes_ms += b["bytes_ms"]
+        ops_ms += b["ops_ms"]
     rec_ms = 2 * 16 * sum(sent) / hbm_rate() * 1e3
-    by = "bytes" if b["bytes_ms"] + rec_ms >= b["ops_ms"] else "operations"
-    row = dict(max_abs_err=0.0, ms=ms["kernel"], device_ms=now["total_ms"],
-               plain_ms=ms["plain"], library_ms=None,
-               bound_ms=max(b["bytes_ms"] + rec_ms, b["ops_ms"]), bound_by=by,
-               sharded_device_ms=one_ms, forms={
-                   "index_walk_xp": dict(
-                       launches=sum(1 for x in per if x[0] == 0),
-                       device_ms=now["round0_ms"], walks=now["round0_walks"]),
+    by = "bytes" if bytes_ms + rec_ms >= ops_ms else "operations"
+    bound_ms = max(bytes_ms + rec_ms, ops_ms)
+    row = dict(max_abs_err=0.0, ms=now["called_ms"],
+               device_ms=now["total_ms"], plain_ms=plain["ms"],
+               library_ms=None, bound_ms=bound_ms, bound_by=by,
+               sharded_device_ms=one_ms, rounds=got["rounds"],
+               earlier_device_ms=before["total_ms"],
+               earlier_forms={"rounds": old["rounds"],
+                              "round0_ms": before["round0_ms"],
+                              "later_ms": before["later_ms"],
+                              "launches": before["launches"]},
+               forms={"index_walk_xp": dict(
+                   launches=now["round0_launches"],
+                   device_ms=now["round0_ms"], walks=now["round0_walks"]),
                    "index_walk_xp_inbox": dict(
-                       launches=sum(1 for x in per if x[0] > 0),
-                       device_ms=now["later_ms"],
-                       walks=now["later_walks"])})
-    print(f"K4-xp {label} on the index build's first chunk ({W} walks, "
-          f"{P} simulated processes of {L} shards, own starts "
-          f"{[b_ - a for a, b_ in runs.values()]}): {len(sent)} rounds, "
-          f"records handed over per round {sent}; every launch held to "
-          f"index_walk_xp_plain (counts, records as sets, endpoints equal), "
-          f"every endpoint K4's sharded form's bit for bit; {now['launches']}"
-          f" launches {ms['kernel']:.4f} ms as called, device "
+                   launches=now["later_launches"],
+                   device_ms=now["later_ms"], walks=now["later_walks"])})
+    print(f"K4-xp {label} on the whole index build ({s['total']} walks in "
+          f"chunks of {INDEX_LAUNCH}, one window; {P} simulated processes "
+          f"of {L} shards): {got['rounds']} rounds (the earlier forms' "
+          f"per chunk {old['rounds']}), records handed over per round "
+          f"{sent}; every launch held to index_walk_xp_plain (counts, "
+          f"records as sets, endpoints equal), every endpoint K4's sharded "
+          f"form's bit for bit; {now['launches']} launches "
+          f"{now['called_ms']:.4f} ms as called, device "
           f"{now['total_ms']:.4f} ms (own-start form {now['round0_ms']:.4f} "
-          f"over {now['round0_walks']} walks, inbox form "
-          f"{now['later_ms']:.4f} over {now['later_walks']} records) against"
-          f" K4's sharded form on the same starts {one_ms:.4f} ms device "
-          f"({now['total_ms'] / one_ms:.2f}x); plain {ms['plain']:.4f} ms; "
-          f"bound {row['bound_ms']:.4f} ms by {by} "
-          f"({100 * row['bound_ms'] / now['total_ms']:.1f}% of the device "
-          f"time; records {rec_ms:.4f} ms of it)")
-    del ends, chunk, ref, csr
+          f"over {now['round0_walks']} walks in {now['round0_launches']}, "
+          f"inbox form {now['later_ms']:.4f} over {now['later_walks']} "
+          f"records in {now['later_launches']}); the earlier forms "
+          f"{before['total_ms']:.4f} ms device (own-start "
+          f"{before['round0_ms']:.4f}, inbox {before['later_ms']:.4f}, "
+          f"{before['launches']} launches; "
+          f"{before['total_ms'] / now['total_ms']:.2f}x); K4's sharded form "
+          f"on the same chunks {one_ms:.4f} ms device "
+          f"({now['total_ms'] / one_ms:.2f}x); plain {plain['ms']:.4f} ms; "
+          f"bound {bound_ms:.4f} ms by {by} "
+          f"({100 * bound_ms / now['total_ms']:.1f}% of the device time, the "
+          f"earlier forms' {100 * bound_ms / before['total_ms']:.1f}%; "
+          f"records {rec_ms:.4f} ms of it)")
+    for k, (r, q, w, d, c) in enumerate(
+            (x[1], x[2], x[3], x[4], x[5]) for x in got["per"]):
+        if r < 3 or k >= len(got["per"]) - 2:
+            print(f"  round {r} process {q}: {w} walks in, {d:.4f} ms "
+                  f"device, {c:.4f} ms as called")
+    if not now["total_ms"] < before["total_ms"]:
+        fail(f"K4-xp {label}: {now['total_ms']:.4f} ms device, not faster "
+             f"than the earlier forms' {before['total_ms']:.4f}")
+    del s, ref, got, old
     return row
 
 
@@ -4504,7 +4526,7 @@ def mp_bytes_line(label, recs) -> str:
 
 
 def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev,
-                     build_digest):
+                     build_digest, build_rounds):
     """Phase 17: ShardedForaEngine.topk with its SHARDS shards over
     MP_PROCS worker processes on the one card (gloo, both on cuda:0;
     fora_tpu_torch.parallel.multihost_driver) from both sharded stores of
@@ -4527,12 +4549,14 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev,
     ShardedTopkRunner's (pools_agree) and at precision@50 >= 0.95; the NCCL
     world runs the routed pool too, bit-equal to the one-process runner's.
     Both worlds build the FORA+ index across their processes at phase 4's
-    seed and chunk (the driver's "build" job: each worker generates phase
-    1's graph, places only its shards' slices and walks with K4-xp), every
-    worker's arrays equal (their sha256) to phase 4's index and to phase
-    15's one-process sharded build (``build_digest``), the gloo world's
-    written as a sharded store from which its indexed one-shot must answer
-    as from phase 4's index, bit for bit.  Every worker's launches are
+    seed and chunk, MP_BUILDS times (multihost_driver's "build" job:
+    each worker generates phase 1's graph, places only its shards' slices and walks
+    with K4-xp over one window of the build's chunks), every worker's
+    arrays equal (their sha256) to phase 4's index and to phase 15's
+    one-process sharded build (``build_digest``), in ``build_rounds``
+    rounds over gloo (phase 15's, the longest chunk's) and one over NCCL,
+    the gloo world's first written as a sharded store from which its
+    indexed one-shot must answer as from phase 4's index, bit for bit.  Every worker's launches are
     reset just before its timed call and read just after.  Returns
     (K6+K4-xp's kernel row, the gloo world's raw run's launches summed over
     its workers, the compaction's, P3's and the clear's summed over its
@@ -4618,7 +4642,8 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev,
         for m in MP_POOL_MODES] + [
         dict(build, store=str(built_store)),
         {"name": "built", "index": {"store": str(built_store)},
-         "repeat": 1}]) for q in range(P)], out)
+         "repeat": 1}] + [dict(build, name=b) for b in MP_BUILDS[1:]])
+        for q in range(P)], out)
     recs = world_records("gloo", out, *finish_world(gloo, t0))
     world_s = time.perf_counter() - t0
     codes, tails = finish_world(refused, t0)
@@ -4772,15 +4797,15 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev,
     if not prec >= MIN_PRECISION:
         fail(f"phase 17 pool precision@{K} {prec:.4f} < {MIN_PRECISION}")
     ixp = mp_build_checks("gloo", recs, out, rcfg, want_digest, L,
-                          a0, steps)
+                          build_rounds, a0, steps)
     # a world of one process over NCCL, holding every shard
     t0 = time.perf_counter()
     out = MP_DIR / "out_nccl"
     one = world_records("nccl", out, *finish_world(start_world(
         1, "nccl", [spec(stores, [mp_pool_job(
-            "pool_routed", stores, src, "routed", SHARDS), build])], out),
-        t0))[0]
-    mp_build_checks("nccl", [one], out, rcfg, want_digest, SHARDS)
+            "pool_routed", stores, src, "routed", SHARDS)] + [
+            dict(build, name=b) for b in MP_BUILDS])], out), t0))[0]
+    mp_build_checks("nccl", [one], out, rcfg, want_digest, SHARDS, [1])
     a = np.load(out / "rank0.npz")
     if not (np.array_equal(a["indexed.ids"], ref_res.node_ids)
             and np.array_equal(a["indexed.values"].view(np.uint32),
@@ -4814,36 +4839,55 @@ def run_multiprocess(g, rcfg, index, sources, exact_ids, graph, dev,
     return row, xp, mp_xch, ixp
 
 
-def mp_build_checks(name, recs, out, rcfg, want_digest, L, arrays=None,
-                    steps=None) -> dict:
-    """Phase 17's index built across a world's processes (``recs`` its
-    workers' records): rank 0's saved index and every worker's arrays
-    (their sha256) equal to ``want_digest`` (phase 4's), each worker's
-    own L shards' slices placed, its launches K4-xp's two forms only (the
-    inbox form only where records crossed), and, where ``arrays`` (rank
-    0's npz) is given, the indexed one-shot from the store it wrote
+def mp_build_checks(name, recs, out, rcfg, want_digest, L, rounds,
+                    arrays=None, steps=None) -> dict:
+    """Phase 17's index built across a world's processes MP_BUILDS times
+    (``recs`` its workers' records): rank 0's saved index and every
+    worker's arrays (their sha256) equal to ``want_digest`` (phase 4's),
+    each worker's own L shards' slices placed, the build one window in
+    ``rounds`` rounds, its launches K4-xp's two forms only (the inbox form
+    only where records crossed), and, where ``arrays`` (rank 0's npz) is
+    given, the indexed one-shot from the store the first build wrote
     bit-equal to the one from phase 4's index after ``steps`` supersteps.
-    Prints the wall, rounds and records per round.  Returns the launches
-    of K4-xp's forms summed over the workers."""
+    Prints each build's wall and its split (placing, K4-xp's launches,
+    the counts' all-gather and host read, the all-to-all, the endpoints'
+    all-reduce, the pack; the launches' CUDA events), the walls' spread,
+    the rounds and records per round.  Returns the launches of K4-xp's
+    forms in the first build, summed over the workers."""
     import numpy as np
     from fora_tpu_torch import index as tidx
     from fora_tpu_torch.parallel.multihost_driver import index_digest
-    bl = [rec["jobs"]["build"] for rec in recs]
     P = len(recs)
     if index_digest(tidx.load(str(out / "build.index"), rcfg)) != \
-            want_digest or any(b["digest"] != want_digest for b in bl):
-        fail(f"phase 17 {name} build: the index built across {P} processes "
-             f"differs from phase 4's (and phase 15's)")
+            want_digest:
+        fail(f"phase 17 {name} build: rank 0's saved index differs from "
+             f"phase 4's")
     other = ("index_walk", "index_walk_alias", "index_walk_sharded",
              "index_walk_sharded_alias", "raw_walk_xp", "raw_walk_xp_inbox")
-    for q, b in enumerate(bl):
-        c = b["launches"]
-        crossed = sum(map(sum, b["received"])) > 0
-        if c["index_walk_xp"] <= 0 or (c["index_walk_xp_inbox"] > 0) != \
-                crossed or any(c[k] for k in other) or \
-                b["shards"] != list(range(q * L, (q + 1) * L)):
-            fail(f"phase 17 {name} build, rank {q}: shards {b['shards']}, "
-                 f"launches {c}")
+    walls = []
+    for job in MP_BUILDS:
+        bl = [rec["jobs"][job] for rec in recs]
+        if any(b["digest"] != want_digest for b in bl):
+            fail(f"phase 17 {name} {job}: the index built across {P} "
+                 f"processes differs from phase 4's (and phase 15's)")
+        for q, b in enumerate(bl):
+            c = b["launches"]
+            crossed = sum(map(sum, b["received"])) > 0
+            if c["index_walk_xp"] <= 0 or (c["index_walk_xp_inbox"] > 0) \
+                    != crossed or any(c[k] for k in other) or \
+                    b["shards"] != list(range(q * L, (q + 1) * L)) or \
+                    b["rounds"] != rounds or len(b["windows"]) != 1:
+                fail(f"phase 17 {name} {job}, rank {q}: shards "
+                     f"{b['shards']}, rounds {b['rounds']} (want {rounds}),"
+                     f" windows {b['windows']}, launches {c}")
+        walls.append(max(b["wall_s"] for b in bl))
+        split = {k: [round(b["split_s"][k], 4) for b in bl]
+                 for k in bl[0]["split_s"]}
+        print(f"  {name} {job}: wall {walls[-1]:.4f} s (per rank "
+              f"{[round(b['wall_s'], 4) for b in bl]}); split per rank, s: "
+              f"{split}; K4-xp launches' device time per rank (CUDA events) "
+              f"{[round(b['walk_device_ms'], 4) for b in bl]} ms")
+    bl = [rec["jobs"]["build"] for rec in recs]
     if arrays is not None:
         w = [rec["jobs"]["built"] for rec in recs]
         if not (np.array_equal(arrays["built.ids"], arrays["indexed.ids"])
@@ -4858,19 +4902,20 @@ def mp_build_checks(name, recs, out, rcfg, want_digest, L, arrays=None,
              for k in ("index_walk_xp", "index_walk_xp_inbox")}
     print(f"multiprocess {name} build across {P} processes of {L} shards "
           f"(phase 4's seed and chunk; each worker placing only its "
-          f"{L} slices, {bl[0]['slice_edges']} edges each): "
-          f"{max(b['wall_s'] for b in bl):.3f} s (per rank "
-          f"{[round(b['wall_s'], 3) for b in bl]}), "
-          f"{bl[0]['total_edges']} index edges; every worker's arrays "
-          f"equal to phase 4's build_walk_index and phase 15's one-process "
-          f"sharded build; K4-xp launches (own-start, inbox) "
+          f"{L} slices, {bl[0]['slice_edges']} edges each), "
+          f"{len(MP_BUILDS)} builds: walls {[round(x, 4) for x in walls]} s "
+          f"(min {min(walls):.4f}, median {sorted(walls)[len(walls) // 2]:.4f}"
+          f", max {max(walls):.4f}), {bl[0]['total_edges']} index edges; "
+          f"every worker's arrays equal to phase 4's build_walk_index and "
+          f"phase 15's one-process sharded build; K4-xp launches (own-start, "
+          f"inbox) "
           f"{[(b['launches']['index_walk_xp'], b['launches']['index_walk_xp_inbox']) for b in bl]}"
           + ("; the indexed one-shot from the store it wrote bit-equal to "
              "phase 4's" if arrays is not None else ""))
     for i, nr in enumerate(bl[0]["rounds"]):
-        print(f"  build chunk {i}: {nr} rounds; records handed over per "
-              f"round {per[i]}; K4-xp launches (own-start, inbox) per rank "
-              f"{[b['forms'][i] for b in bl]}")
+        print(f"  build window {bl[0]['windows'][i]}: {nr} rounds; records "
+              f"handed over per round {per[i]}; K4-xp launches (own-start, "
+              f"inbox) per rank {[b['forms'][i] for b in bl]}")
     return forms
 
 
@@ -4920,14 +4965,18 @@ def main(argv=None) -> int:
     # ---- 2. build ------------------------------------------------------
     with Phase("build"):
         # K6+K4-xp's earlier kernel (probes/xp_walk_forms.cu, phase 17's
-        # yardstick) compiles beside the package's sources
+        # yardstick) and K4-xp's earlier forms (probes/index_xp_forms.cu,
+        # phase 15's) compile beside the package's sources
         import threading
-        from fora_tpu_torch.probes import xp_walk_probe
-        forms_build = threading.Thread(target=xp_walk_probe.load_forms)
-        forms_build.start()
+        from fora_tpu_torch.probes import index_xp_probe, xp_walk_probe
+        forms_build = [threading.Thread(target=m.load_forms)
+                       for m in (xp_walk_probe, index_xp_probe)]
+        for t in forms_build:
+            t.start()
         lib_path = kbuild.build()
         kbuild.library()
-        forms_build.join()
+        for t in forms_build:
+            t.join()
         built = ("cached" if kbuild.last_build_secs is None
                  else f"{kbuild.last_build_secs:.1f} s")
         print(f"build: {lib_path} ({built})")
@@ -5361,8 +5410,8 @@ def main(argv=None) -> int:
          build_launches, build_digest) = run_sharded_pool(
              g, rcfg, index, sources, dev, ex[:EVAL_N],
              (results, single_vals))
-        # K4-xp, the walks of the build across processes, on the build's
-        # first chunk over two simulated processes
+        # K4-xp, the walks of the build across processes, on the whole
+        # build over two simulated processes
         rows["index_walk_xp"] = index_xp_simulation(g, dg, rcfg, dev,
                                                     "uniform")
 
@@ -5379,7 +5428,8 @@ def main(argv=None) -> int:
     with Phase("multiprocess"):
         rows["raw_walk_xp"], xp_launches, mp_xch, ixp_launches = \
             run_multiprocess(g, rcfg, index, sources[:MP_SOURCES],
-                             ex[:EVAL_N], dg, dev, build_digest)
+                             ex[:EVAL_N], dg, dev, build_digest,
+                             rows["index_walk_xp"]["rounds"])
         for name, key in (("frontier_compact", "frontier_compact"),
                           ("row_scatter_add_receive", "row_scatter_add"),
                           ("exchange_clear", "exchange_clear")):
@@ -5760,9 +5810,9 @@ def main(argv=None) -> int:
         # its launches the workers' raw run's)
         "raw_walk_xp": ("walk.cu", "fora_tpu/ops/walk.py:225-266"),
         # K4-xp: the index build's row-sharded lockstep walk across
-        # processes, a psum a hop (phase 15's first build chunk over two
+        # processes, a psum a hop (phase 15's whole build over two
         # simulated processes, its alias hops on phase 13's; its launches
-        # phase 17's build across the gloo workers)
+        # phase 17's first build across the gloo workers)
         "index_walk_xp": ("walk.cu", "fora_tpu/ops/walk.py:269"),
     }
     out = []
@@ -5801,6 +5851,7 @@ def main(argv=None) -> int:
                                            "earlier_device_ms",
                                            "bytes_bound_ms",
                                            "chain_device_ms", "forms",
+                                           "rounds", "earlier_forms",
                                            "multiprocess_launches")
                        if k in row},
                     **{k: v for k, v in row.items()

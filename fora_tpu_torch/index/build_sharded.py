@@ -20,14 +20,17 @@ Over a ``parallel.mesh.ProcessMesh`` (P processes of L shards, JAX's
 build over a mesh whose graph axis spans processes) each process places
 only its own L slices, and the walks are handed between processes as
 records (K4-xp, ``ops/walk.py::index_walk_xp_chunk``, in the rounds of
-``xp_chunk_rounds`` over ``process_exchange``); one max all-reduce a
-chunk of its [W] endpoints (-1 where a walk ended in another process)
-gives every process every endpoint, the end state of JAX's psum a hop,
-and every process packs the same index.
+``xp_chunk_rounds`` over ``process_exchange``), a window of whole chunks
+at once (``kernels.schedule.build_windows``), so the build pays the rounds
+of its longest chunk; one max all-reduce a window of its endpoints (-1
+where a walk ended in another process) gives every process every
+endpoint, the end state of JAX's psum a hop, and every process packs the
+same index.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -37,8 +40,11 @@ import torch
 from .. import kernels
 from ..config import ResolvedConfig
 from ..graph.alias import AliasTables, build_alias, build_alias_library
+from ..kernels import schedule
 from ..ops.walk import (ShardedOutCSR, index_walk_xp_chunk, process_exchange,
                         walk_endpoints, xp_chunk_rounds)
+from ..utils.timers import Timers
+from ..utils.timing import StageClock
 from .build import WalkIndex, index_counts, pack_index
 
 
@@ -133,10 +139,11 @@ def _walks(g, rcfg: ResolvedConfig) -> tuple:
 
 
 def own_run(cum: np.ndarray, lo: int, W: int, row0: int, row1: int) -> tuple:
-    """(a, b): walks a .. b - 1 of the chunk of W walks from ``lo`` start in
-    rows ``row0`` .. ``row1`` - 1 (a process's), ``cum`` [n + 1] the index
-    walks before each node (the starts are sorted by node, so a process's
-    own starts of a chunk are one run)."""
+    """(a, b): walks a .. b - 1 of the W walks from ``lo`` (a chunk, or a
+    window of chunks) start in rows ``row0`` .. ``row1`` - 1 (a
+    process's), ``cum`` [n + 1] the index walks before each node (the
+    starts are sorted by node, so a process's own starts of a chunk or a
+    window are one run)."""
     n = cum.shape[0] - 1
     a, b = (int(cum[min(r, n)]) - lo for r in (row0, row1))
     return min(max(a, 0), W), min(max(b, 0), W)
@@ -185,17 +192,23 @@ def build_across_processes(g, mesh, rcfg: ResolvedConfig,
     """:func:`build_walk_index_sharded` over ``mesh``, a ``ProcessMesh``
     (this process's L shards on one device).  ``g``, the host graph, is
     the same on every process; this one places only its shards' slices
-    (``shard_out_csr(..., n_shards=G, local=mesh.local)``).  Per chunk
-    (the same chunks and seeds as the one-process build) the rounds of
-    ``xp_chunk_rounds`` over ``process_exchange(mesh.comm)``: round 0
-    walks the process's own starts, the later rounds the records handed
-    to it, one launch of K4-xp each (``index_walk_xp_chunk``); then one max
-    all-reduce of the chunk's [W] int32 endpoints gives every process
-    every endpoint, and every process packs the index.  ``log``, where
-    given, gets the placed slices (``shards``, ``slice_edges``), and per
-    chunk the rounds, the records this process sent and received per
-    round and its launches of each form (``rounds``, ``sent``,
-    ``received``, ``forms``: [own-start, inbox])."""
+    (``shard_out_csr(..., n_shards=G, local=mesh.local)``).  Per window of
+    whole chunks (``schedule.build_windows``; each walk draws as the
+    one-process build's chunk draws it) the rounds of ``xp_chunk_rounds``
+    over ``process_exchange(mesh.comm)``: round 0 walks the process's own
+    starts of the window, the later rounds the records handed to it, one
+    launch of K4-xp each (``index_walk_xp_chunk``); then one max
+    all-reduce of the window's int32 endpoints gives every process every
+    endpoint, and every process packs the index.  ``log``, where given,
+    gets the placed slices (``shards``, ``slice_edges``), per window its
+    walks, rounds, the records this process sent and received per round
+    and its launches of each form (``windows``, ``rounds``, ``sent``,
+    ``received``, ``forms``: [own-start, inbox]), and the split of the
+    wall (``split_s``: host seconds of placing the graph and each
+    window's starts, the launches, the counts' all-gather and host read,
+    the all-to-all, the endpoints' all-reduce and the pack, each part
+    ended by a device synchronise; ``walk_device_ms``: the launches' CUDA
+    events on a card)."""
     comm, local = mesh.comm, list(mesh.local)
     G, L, shard0 = len(mesh), len(mesh.local), mesh.local[0]
     devices = [torch.device(mesh[s]) for s in local]
@@ -204,39 +217,57 @@ def build_across_processes(g, mesh, rcfg: ResolvedConfig,
         raise ValueError(f"build across processes: process {comm.rank}'s "
                          f"shards lie on {devices}; K4-xp walks a "
                          "process's slices on one device")
-    csr = shard_out_csr(g, devices, n_shards=G, local=local)
-    deg, counts, total, starts = _walks(g, rcfg)
-    cum = np.concatenate([[0], np.cumsum(counts)])
+    timers, clock = Timers(), StageClock(dev if log is not None else None)
+    fence = torch.empty(0, device=dev)
+
+    def part(name):
+        if log is None:
+            return contextlib.nullcontext()
+        return timers.phase(name, block_on=fence)
+    with part("place"):
+        csr = shard_out_csr(g, devices, n_shards=G, local=local)
+        deg, counts, total, starts = _walks(g, rcfg)
+        cum = np.concatenate([[0], np.cumsum(counts)])
     row0, row1 = shard0 * csr.n_loc, (shard0 + L) * csr.n_loc
-    exchange = process_exchange(comm)
+    exchange = process_exchange(comm, part)
     endpoints = np.empty(total, dtype=np.int32)
     if log is not None:
         log.update(shards=local, slice_edges=[int(x.numel())
                                               for x in csr.indices],
-                   rounds=[], sent=[], received=[], forms=[])
+                   windows=[], rounds=[], sent=[], received=[], forms=[])
     forms = (kernels.index_walk_xp, kernels.index_walk_xp_inbox)
-    for i, lo in enumerate(range(0, total, chunk_lanes)):
-        W = min(lo + chunk_lanes, total) - lo
-        a, b = own_run(cum, lo, W, row0, row1)
-        own = torch.from_numpy(starts[lo + a:lo + b]).to(dev)
-        ends = torch.full((W,), -1, dtype=torch.int32, device=dev)
-        seed_i = seed + (i << 32)
+    for wlo, whi in schedule.build_windows(total, chunk_lanes):
+        a, b = own_run(cum, wlo, whi - wlo, row0, row1)
+        with part("place"):
+            own = torch.from_numpy(starts[wlo + a:wlo + b]).to(dev)
+            ends = torch.full((whi - wlo,), -1, dtype=torch.int32,
+                              device=dev)
         before = [f.launches for f in forms]
 
         def launch(_, r, inbox, outbox, cnt):
-            index_walk_xp_chunk(csr, own if r == 0 else own[:0], a, shard0,
-                                G, seed_i, rcfg.alpha, rcfg.max_walk_hops,
-                                inbox, outbox, cnt, ends)
+            with part("walk"), clock.stage("walk"):
+                index_walk_xp_chunk(csr, own if r == 0 else own[:0],
+                                    wlo + a, wlo, chunk_lanes, shard0, G,
+                                    seed, rcfg.alpha, rcfg.max_walk_hops,
+                                    inbox, outbox, cnt, ends)
         ms = xp_chunk_rounds(launch, exchange, {comm.rank: b - a},
-                             comm.size, dev)
-        endpoints[lo:lo + W] = comm.all_reduce(ends, op="max").cpu().numpy()
+                             comm.size, dev, words=1)
+        with part("all_reduce"):
+            endpoints[wlo:whi] = comm.all_reduce(ends, op="max").cpu().numpy()
         if log is not None:
+            log["windows"].append([wlo, whi])
             log["rounds"].append(len(ms))
             log["sent"].append([int(m[comm.rank].sum()) for m in ms])
             log["received"].append([int(m[:, comm.rank].sum()) for m in ms])
             log["forms"].append([f.launches - n
                                  for f, n in zip(forms, before)])
-    return pack_index(endpoints, counts, deg, rcfg)
+    with part("pack"):
+        idx = pack_index(endpoints, counts, deg, rcfg)
+    if log is not None:
+        log["split_s"] = timers.as_dict()
+        log["walk_device_ms"] = clock.ms().get("walk", 0.0) \
+            if dev.type == "cuda" else None
+    return idx
 
 
 def sharded_build_bytes(g, n_shards: int) -> dict:

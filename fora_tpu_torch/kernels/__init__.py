@@ -34,8 +34,8 @@ PyTorch versions instead.
 | raw_walk                | csrc/walk.cu           | K6+K4 (a raw walk phase's chunk in one launch: each lane's start node and weight, its walk, the weight added at the endpoint; raw pool, sharded raw one-shot; its sharded form over every shard's demand and the out-CSR's slices) |
 | raw_walk_xp             | csrc/walk.cu           | K6+K4-xp's own-lane form (round 0 of a process's share of a raw walk chunk with the shards spread over processes: its own lanes to endpoint mass and walks that leave, through a staged outbox; the sharded raw one-shot across processes) |
 | raw_walk_xp_inbox       | csrc/walk.cu           | K6+K4-xp's inbox form (the later rounds: the walks handed to the process, each record carrying its length, to endpoint mass and walks that leave) |
-| index_walk_xp           | csrc/walk.cu           | K4-xp's own-start form (round 0 of a process's share of an index build chunk with the shards spread over processes: K4's sharded form over its own starts, walks that leave through the staged outbox; the sharded index build across processes) |
-| index_walk_xp_inbox     | csrc/walk.cu           | K4-xp's inbox form (the later rounds: the walks handed to the process, to endpoints and walks that leave; K6+K4-xp's inbox kernel without the endpoint mass) |
+| index_walk_xp           | csrc/walk.cu           | K4-xp's own-start form (round 0 of a process's share of an index build window of whole chunks with the shards spread over processes: K4's walks over its own starts, each drawing as its chunk's, walks that leave through warp-owned bins; the sharded index build across processes) |
+| index_walk_xp_inbox     | csrc/walk.cu           | K4-xp's inbox form (the later rounds: resident blocks whose warps claim the records handed to the process from a cursor, to endpoints and walks that leave) |
 | source_walk             | csrc/walk.cu           | K6+K4-src (a chunk of source-rooted walks in one launch: each walk from its column's source, its weight added at its endpoint, the source's own count in a register; Monte Carlo, HubPPR's queries with its hub branch) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 | row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
@@ -1062,10 +1062,10 @@ def raw_walk(r, cum, total: Optional[torch.Tensor], out, rows: int,
 
 
 def _xp_slices(name, dev, indptr, indices, alias_prob, alias_other,
-               shard0: int, G: int, outbox, counts) -> tuple:
+               shard0: int, G: int, outbox, counts, words: int = 0) -> tuple:
     """The checks of every K6+K4-xp and K4-xp form on a process's L out-CSR
     slices (shards shard0 .. shard0 + L - 1 of G, on ``dev``) and its
-    outbox [P, cap, 4] and counts [P]: (L, P, n_loc)."""
+    outbox [P, cap, 4] and counts [P + words]: (L, P, n_loc)."""
     L = len(indptr)
     alias = alias_prob is not None
     if not (1 <= L <= 32 and len(indices) == L and G % L == 0
@@ -1086,7 +1086,7 @@ def _xp_slices(name, dev, indptr, indices, alias_prob, alias_other,
     _check("outbox", outbox, torch.int32, device=dev)
     if outbox.dim() != 3 or outbox.shape[0] != P or outbox.shape[2] != 4:
         raise ValueError(f"{name}: outbox must be [{P}, cap, 4]")
-    _check("counts", counts, torch.int32, (P,), dev)
+    _check("counts", counts, torch.int32, (P + words,), dev)
     return L, P, n_loc
 
 
@@ -1210,45 +1210,59 @@ def raw_walk_xp_inbox(inbox: torch.Tensor, out: torch.Tensor,
         raw_walk_xp_inbox.launches += 1
 
 
-def index_walk_xp(start: torch.Tensor, ends: torch.Tensor, w0: int,
-                  indptr: list, indices: list, alias_prob, alias_other,
-                  seed: int, alpha: float, max_hops: int, shard0: int, G: int,
-                  outbox: torch.Tensor, counts: torch.Tensor) -> None:
+def _window_ends(name, ends, wlo: int, chunk_lanes: int) -> int:
+    """K4-xp's checks of a window's ends [n_ends] from walk ``wlo``; wlo."""
+    _check("ends", ends, torch.int32)
+    wlo = int(wlo)
+    if ends.dim() != 1 or wlo < 0 or wlo + ends.shape[0] >= 2**31 or \
+            not 1 <= chunk_lanes < 2**31:
+        raise ValueError(f"{name}: ends must be [n_ends], walks {wlo} .. of "
+                         f"chunks of {chunk_lanes}")
+    return wlo
+
+
+def index_walk_xp(start: torch.Tensor, ends: torch.Tensor, w0: int, wlo: int,
+                  chunk_lanes: int, indptr: list, indices: list, alias_prob,
+                  alias_other, seed: int, alpha: float, max_hops: int,
+                  shard0: int, G: int, outbox: torch.Tensor,
+                  counts: torch.Tensor) -> None:
     """K4-xp's own-start form, in place: round 0 of a process's share of a
-    chunk of the index build, the G graph shards spread over P = G / L
-    processes, in one launch.  This process holds shards ``shard0`` ..
-    ``shard0`` + L - 1, their out-CSR slices ``indptr`` / ``indices`` (and
-    the alias tables, or None), and its own starts of the chunk, ``start``
-    [W] int32, walks ``w0`` .. ``w0`` + W - 1 of ``ends`` [W_chunk] int32.
-    Walk w0 + i walks as :func:`index_walk_sharded` walks walk w0 + i of
-    the chunk (``max_hops`` below 2^15): one that ends writes its endpoint
-    at ``ends[w0 + i]``; one whose node leaves the process's rows before
-    its last hop writes -1 there and goes to ``outbox`` [P, cap, 4] int32
-    at its owner's row as (w0 + i, cur, h | len << 16, 0), ``counts`` [P]
-    int32 counting them (zeroed here; cap must hold the launch's walks).
-    One launch on ``ends``' card, every tensor there."""
+    window of the index build (whole chunks of ``chunk_lanes`` walks from
+    walk ``wlo``), the G graph shards spread over P = G / L processes, in
+    one launch.  This process holds shards ``shard0`` .. ``shard0`` + L -
+    1, their out-CSR slices ``indptr`` / ``indices`` (and the alias tables,
+    or None), and its own starts of the window, ``start`` [W] int32, walks
+    ``w0`` .. ``w0`` + W - 1.  Walk w walks as :func:`index_walk_sharded`
+    walks walk w % chunk_lanes of chunk c = w // chunk_lanes at seed + c
+    2^32 (``max_hops`` below 2^15): one that ends writes its endpoint at
+    ``ends[w - wlo]`` ([n_ends] int32); one whose node leaves the process's
+    rows before its last hop writes -1 there and goes to ``outbox`` [P,
+    cap, 4] int32 at its owner's row as (w, cur, h | len << 16, 0),
+    ``counts`` [P + 1] int32 (zero here: the caller zeroes it) counting
+    them (cap must hold the launch's walks).  One launch on ``ends``' card,
+    every tensor there."""
     if not 0 <= max_hops < 2**15:
         raise ValueError(f"index_walk_xp: max_hops {max_hops}; a record "
                          f"holds lengths below 2^15")
     dev = ends.device
-    _check("ends", ends, torch.int32)
-    if ends.dim() != 1:
-        raise ValueError("index_walk_xp: ends must be [W_chunk]")
+    wlo = _window_ends("index_walk_xp", ends, wlo, chunk_lanes)
     (W,) = start.shape
     _check("start", start, torch.int32, (W,), dev)
     w0 = int(w0)
-    if w0 < 0 or w0 + W > ends.shape[0]:
+    if w0 < wlo or w0 + W > wlo + ends.shape[0]:
         raise ValueError(f"index_walk_xp: walks {w0} .. {w0 + W - 1} of a "
-                         f"chunk of {ends.shape[0]}")
+                         f"window of {ends.shape[0]} from {wlo}")
     L, P, n_loc = _xp_slices("index_walk_xp", dev, indptr, indices,
                              alias_prob, alias_other, shard0, G, outbox,
-                             counts)
+                             counts, 1)
     plan = schedule.index_xp_plan(W, 0, sm_count(dev)).own
     with torch.cuda.device(dev):
         err = build.library().fora_index_walk_xp(
-            _ptr(start), W, w0, _ptr(ends), L, n_loc, shard0, G, P,
-            _ptr(outbox), outbox.shape[1], _ptr(counts),
-            *_xp_graph(indptr, indices, alias_prob, alias_other),
+            _ptr(start), W, w0, _ptr(ends), wlo, ends.shape[0], chunk_lanes,
+            *schedule.chunk_divisor(chunk_lanes), L, n_loc, shard0, G, P,
+            _ptr(outbox), outbox.shape[1],
+            _ptr(counts), *_xp_graph(indptr, indices, alias_prob,
+                                     alias_other),
             seed % 2**64, inv_log1m_alpha(alpha), max_hops,
             plan.walks_per_lane, plan.blocks, _stream(ends))
     _raise_on(err, "index_walk_xp")
@@ -1256,24 +1270,25 @@ def index_walk_xp(start: torch.Tensor, ends: torch.Tensor, w0: int,
         index_walk_xp.launches += 1
 
 
-def index_walk_xp_inbox(inbox: torch.Tensor, ends: torch.Tensor,
-                        indptr: list, indices: list, alias_prob,
-                        alias_other, seed: int, shard0: int, G: int,
-                        outbox: torch.Tensor, counts: torch.Tensor) -> None:
+def index_walk_xp_inbox(inbox: torch.Tensor, ends: torch.Tensor, wlo: int,
+                        chunk_lanes: int, indptr: list, indices: list,
+                        alias_prob, alias_other, seed: int, shard0: int,
+                        G: int, outbox: torch.Tensor,
+                        counts: torch.Tensor) -> None:
     """K4-xp's inbox form, in place: a later round of a process's share of
-    an index build chunk, in one launch.  The records of ``inbox`` [n_in,
-    4] int32 (w, cur, h | len << 16, 0), handed over by the other
-    processes, walk on from where they stopped over this process's slices
-    (as :func:`index_walk_xp` takes them), each ending at ``ends[w]`` or
-    leaving into ``outbox`` / ``counts`` (zeroed here) as there: K6+K4-xp's
-    inbox form with no endpoint mass.  One launch on ``ends``' card."""
+    an index build window, in one launch of resident blocks whose warps
+    claim the records.  The records of ``inbox`` [n_in, 4] int32 (w, cur,
+    h | len << 16, 0), handed over by the other processes, walk on from
+    where they stopped over this process's slices (as
+    :func:`index_walk_xp` takes them), each ending at ``ends[w - wlo]`` or
+    leaving into ``outbox`` as there; ``counts`` [P + 1] int32, zero at
+    the call, gets the P counts, and its last word is the claims' cursor.
+    One launch on ``ends``' card."""
     dev = ends.device
-    _check("ends", ends, torch.int32)
-    if ends.dim() != 1:
-        raise ValueError("index_walk_xp_inbox: ends must be [W_chunk]")
+    wlo = _window_ends("index_walk_xp_inbox", ends, wlo, chunk_lanes)
     L, P, n_loc = _xp_slices("index_walk_xp_inbox", dev, indptr, indices,
                              alias_prob, alias_other, shard0, G, outbox,
-                             counts)
+                             counts, 1)
     _check("inbox", inbox, torch.int32, device=dev)
     if inbox.dim() != 2 or inbox.shape[1] != 4:
         raise ValueError("index_walk_xp_inbox: inbox must be [n_in, 4]")
@@ -1281,10 +1296,12 @@ def index_walk_xp_inbox(inbox: torch.Tensor, ends: torch.Tensor,
     plan = schedule.index_xp_plan(0, n_in, sm_count(dev)).inbox
     with torch.cuda.device(dev):
         err = build.library().fora_index_walk_xp_inbox(
-            _ptr(inbox), n_in, _ptr(ends), n_loc, shard0, L, G, P,
-            _ptr(outbox), outbox.shape[1], _ptr(counts),
-            *_xp_graph(indptr, indices, alias_prob, alias_other),
-            seed % 2**64, plan.walks_per_lane, plan.blocks, _stream(ends))
+            _ptr(inbox), n_in, _ptr(ends), wlo, ends.shape[0], chunk_lanes,
+            *schedule.chunk_divisor(chunk_lanes), n_loc, shard0, L, G, P,
+            _ptr(outbox), outbox.shape[1],
+            _ptr(counts), *_xp_graph(indptr, indices, alias_prob,
+                                     alias_other),
+            seed % 2**64, plan.claim_max, plan.blocks, _stream(ends))
     _raise_on(err, "index_walk_xp_inbox")
     if plan.blocks:
         index_walk_xp_inbox.launches += 1

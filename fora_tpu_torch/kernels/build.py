@@ -59,12 +59,14 @@ SIGNATURES = {
     "fora_raw_walk_xp_inbox": [_P, _LL, _I, _I, _I, _I, _I, _I, _P, _LL, _P,
                                _P, _LL, _P, _P, _P, _P, _P,
                                ctypes.c_ulonglong, _I, _LL, _P],
-    "fora_index_walk_xp": [_P, _LL, _LL, _P, _I, _I, _I, _I, _I, _P, _LL, _P,
-                           _P, _P, _P, _P, ctypes.c_ulonglong, _F, _I, _I,
-                           _LL, _P],
-    "fora_index_walk_xp_inbox": [_P, _LL, _P, _I, _I, _I, _I, _I, _P, _LL,
-                                 _P, _P, _P, _P, _P, ctypes.c_ulonglong, _I,
-                                 _LL, _P],
+    "fora_index_walk_xp": [_P, _LL, _LL, _P, _LL, _LL, _LL,
+                           ctypes.c_ulonglong, _I, _I, _I, _I, _I, _I, _P,
+                           _LL, _P, _P, _P, _P, _P, ctypes.c_ulonglong, _F,
+                           _I, _I, _LL, _P],
+    "fora_index_walk_xp_inbox": [_P, _LL, _P, _LL, _LL, _LL,
+                                 ctypes.c_ulonglong, _I, _I, _I, _I, _I, _I,
+                                 _P, _LL, _P, _P, _P, _P, _P,
+                                 ctypes.c_ulonglong, _I, _LL, _P],
     "fora_source_walk": [_P, _I, _P, _LL, _LL, _P, _LL, _P, _P, _P, _P, _P,
                          _P, _I, ctypes.c_ulonglong, _F, _I, _F, _I, _LL,
                          _LL, _P],

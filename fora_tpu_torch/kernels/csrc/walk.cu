@@ -195,22 +195,47 @@
 // every shard, the owner's sample combined by one psum a hop, so every
 // process ends with every endpoint.  Here a walk is handed to the process
 // that owns its node as K6+K4-xp hands it, a record (w, cur, h | len << 16,
-// 0): an index walk carries no weight.  A chunk's starts are sorted by
-// node, so a process's own starts are one run w0 .. w0 + W - 1 of the
-// chunk, and the rounds are K6+K4-xp's:
-//  * The own-start form (index_walk_xp_kernel, round 0) is K4's sharded
-//    form (walk_range) over that run, walk i keyed w0 + i, with a Leave
-//    policy: K4 takes NoLeave and compiles as before; here StagedLeave,
-//    and a walk that leaves writes -1 into its staged end slot, so the
-//    range's coalesced write of its ends carries no stale node.
-//  * The inbox form is K6+K4-xp's xp_inbox_kernel without the endpoint
-//    mass (kMass false): a walk that ends writes ends[w] only.
+// 0): an index walk carries no weight.  The rounds run over a window of
+// whole chunks at once (kernels/schedule.py::build_windows), so the build
+// pays the rounds of its longest chunk, not their sum: walk w (its number
+// in the build's node-sorted starts) draws as walk w % chunk_lanes of chunk
+// c = w / chunk_lanes at seed + c 2^32, as the one-process build draws it.
+// The starts are sorted by node, so a process's own starts of a window are
+// one run w0 .. w0 + W - 1.
+//  * The own-start form (index_xp_own_kernel, round 0) is K4's walk_range
+//    over that run; a walk that leaves writes -1 into its staged end
+//    slot, so the range's coalesced write of its ends carries no stale
+//    node.
+//  * The inbox form (index_xp_inbox_kernel, rounds >= 1) is a grid of
+//    resident blocks whose warps claim the inbox's records, 32 k at a time
+//    (every warp's first claim its own, the later ones by one atomicAdd on
+//    a cursor, k shrinking as the inbox drains), and go on from one claim
+//    into the next: no wave of a round ends part-filled, and a round of a
+//    few hundred records runs on a few warps.  A record has about 1.5
+//    hops left, so refills come often: the next 32 records are loaded
+//    while the current ones are handed out.  A walk carries no weight, so
+//    the body keeps no weight, partial or column.
+//  * The leave path: a leaving walk costs one ballot and one 16-byte store
+//    into the warp's part of the block's stage (kWarpStage records), in
+//    the order the walks leave, with no group match, no count in shared
+//    memory and no fence; drain_stage, out of line, sends the stage out
+//    with one global atomic a destination.  A walk leaves at most once a
+//    launch, so in the own-start form (ranges of at most kWarpStage walks)
+//    the stage holds a range's records and goes out when no lane holds a
+//    walk: the form keeps to 32 registers and K4's 8 blocks an SM
+//    (kIndexXpBlocksPerSM).  The inbox form sends its stage out whenever a
+//    step could overfill it, a call while walks are live, and runs 4
+//    (kIndexXpInboxBlocksPerSM; at 6 and 8 it spills and runs slower on
+//    the H100, PERF.md).  A chunk's division of a walk's number is a
+//    multiply and a shift (chunk_draw).
 // A walk's draws depend only on (seed, w, h), so every endpoint is the one
-// K4's sharded form gives walk w of the chunk, bit for bit; the host takes
-// the chunk's endpoints from every process with one max all-reduce of the
-// [W] ends (-1 where a walk ended elsewhere).  What bounds it: K4's walk
-// bound on the process's walks, plus 16 bytes a record written and read
-// (chip_smoke.py).
+// K4's sharded form gives walk w % chunk_lanes of its chunk, bit for bit;
+// the host takes the window's endpoints from every process with one max
+// all-reduce of its ends (-1 where a walk ended elsewhere).  What bounds
+// it: K4's walk bound on the process's walks, plus 16 bytes a record
+// written and read (chip_smoke.py).  probes/index_xp_forms.cu keeps the
+// earlier per-chunk forms, these at other residencies, and the inbox form
+// taking a claim at a time.
 //
 // K6+K4-src (source_walk_kernel<kAlias, kHub>) is K6+K4's source-rooted
 // form: one chunk of Monte Carlo's walks (fora_tpu/algo/montecarlo.py::
@@ -295,8 +320,8 @@ struct ShardView {
   const int* const* alias_other;
 };
 
-// K4's and K6+K4's walks never leave the card's rows (K4-xp's and
-// K6+K4-xp's StagedLeave below hands them to another process)
+// K4's and K6+K4's walks never leave the card's rows (K6+K4-xp's
+// StagedLeave below hands them to another process)
 struct NoLeave {
   static constexpr bool kXp = false;
   __device__ __forceinline__ bool outside(int) const { return false; }
@@ -307,11 +332,17 @@ __device__ __forceinline__ float unit(uint32_t x) {  // [0, 1)
   return (float)(x >> 8) * kTwoM24;
 }
 
-// hops of walk w: min(floor(log(u0) / log(1 - alpha)), max_hops), u0 in (0, 1]
-__device__ __forceinline__ int walk_length(const WalkArgs& a, uint32_t w) {
-  const uint4 r0 = philox4x32_10(make_uint4(0u, a.seed_hi, 0u, 0u), make_uint2(a.seed_lo, w));
+// hops of the walk keyed w under the seed's high word seed_hi:
+// min(floor(log(u0) / log(1 - alpha)), max_hops), u0 in (0, 1]
+__device__ __forceinline__ int walk_length_at(const WalkArgs& a, uint32_t w, uint32_t seed_hi) {
+  const uint4 r0 = philox4x32_10(make_uint4(0u, seed_hi, 0u, 0u), make_uint2(a.seed_lo, w));
   const float u0 = (float)((r0.x >> 8) + 1u) * kTwoM24;
   return (int)fminf(floorf(logf(u0) * a.inv_log1m_alpha), (float)a.max_hops);
+}
+
+// hops of walk w
+__device__ __forceinline__ int walk_length(const WalkArgs& a, uint32_t w) {
+  return walk_length_at(a, w, a.seed_hi);
 }
 
 // the pool entry that a walk arriving at hub `hid` ends at
@@ -320,13 +351,14 @@ __device__ __forceinline__ int pool_entry(const WalkArgs& a, int hid, float u3) 
   return __ldg(a.pool + (long long)hid * a.pool_size + j);
 }
 
-// one hop of walk w (the Philox key) at node cur, h of its len hops taken:
-// the degree from the row pointers, two loads issued together, and the hop's
-// Philox block while they are in flight; the sharded form reads the owner's
-// slice.  Returns whether the walk has ended.
+// one hop of walk w (the Philox key, under the seed's high word seed_hi) at
+// node cur, h of its len hops taken: the degree from the row pointers, two
+// loads issued together, and the hop's Philox block while they are in
+// flight; the sharded form reads the owner's slice.  Returns whether the
+// walk has ended.
 template <bool kAlias, bool kHub, bool kSharded>
-__device__ __forceinline__ bool hop(const WalkArgs& a, const ShardView& tab, uint32_t w,
-                                    int& cur, int& h, int len) {
+__device__ __forceinline__ bool hop_at(const WalkArgs& a, const ShardView& tab, uint32_t w,
+                                       uint32_t seed_hi, int& cur, int& h, int len) {
   const int* indptr = a.indptr;
   const int* indices = a.indices;
   const float* alias_prob = a.alias_prob;
@@ -343,7 +375,7 @@ __device__ __forceinline__ bool hop(const WalkArgs& a, const ShardView& tab, uin
     }
   }
   const int p0 = __ldg(indptr + row), p1 = __ldg(indptr + row + 1);
-  const uint4 r = philox4x32_10(make_uint4((uint32_t)(h + 1), a.seed_hi, 0u, 0u),
+  const uint4 r = philox4x32_10(make_uint4((uint32_t)(h + 1), seed_hi, 0u, 0u),
                                 make_uint2(a.seed_lo, w));
   bool done = p1 == p0;  // a dangling node absorbs
   if (!done) {
@@ -367,13 +399,16 @@ __device__ __forceinline__ bool hop(const WalkArgs& a, const ShardView& tab, uin
   return done;
 }
 
-// the walks of this warp's range: the body of K4's kernels.  With a Leave
-// that hands walks over (K4-xp's own-start form), walk w draws with key
-// a.w0 + w, and a walk whose next hop starts at another process's node
-// leaves, its staged end -1.
-template <bool kAlias, bool kHub, bool kSharded, class Leave = NoLeave>
-__device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& tab,
-                                           const Leave& lv = Leave()) {
+// one hop of walk w under the seed
+template <bool kAlias, bool kHub, bool kSharded>
+__device__ __forceinline__ bool hop(const WalkArgs& a, const ShardView& tab, uint32_t w,
+                                    int& cur, int& h, int len) {
+  return hop_at<kAlias, kHub, kSharded>(a, tab, w, a.seed_hi, cur, h, len);
+}
+
+// the walks of this warp's range: the body of K4's kernels
+template <bool kAlias, bool kHub, bool kSharded>
+__device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& tab) {
   extern __shared__ int staged_ends[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const uint64_t lo64 = ((uint64_t)blockIdx.x * kBlockWarps + warp) * a.range;
@@ -382,7 +417,6 @@ __device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& t
   const uint32_t count = a.W - lo < a.range ? a.W - lo : a.range;  // walks it owns
   int* const ends = staged_ends + warp * a.range;
   const unsigned below = (1u << lane) - 1u;
-  const uint32_t key0 = Leave::kXp ? a.w0 : 0u;  // walk w's Philox key: key0 + w
   // the lookahead, the same in every lane: walks lo + batch .. + filled - 1
   // of the range, `used` of them handed out; lane i holds walk batch + i's
   // start and length, computed by all 32 lanes at once
@@ -404,7 +438,7 @@ __device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& t
         filled = min(32u, count - batch);
         if ((uint32_t)lane < filled) {
           ahead_start = __ldg(a.start + lo + batch + lane);
-          ahead_len = walk_length(a, key0 + lo + batch + lane);
+          ahead_len = walk_length(a, lo + batch + lane);
         }
       }
       const uint32_t src = used + __popc(need & below);
@@ -423,24 +457,10 @@ __device__ __forceinline__ void walk_range(const WalkArgs& a, const ShardView& t
       used = min(filled, used + __popc(need));
     }
     if (__all_sync(kFull, idle)) break;
-    if (!Leave::kXp) {
-      if (idle) continue;
-      if (hop<kAlias, kHub, kSharded>(a, tab, w, cur, h, len)) {
-        ends[w - lo] = cur;
-        idle = true;
-      }
-    } else {  // every lane reaches put(), which groups the leaving lanes
-      const bool ending = !idle && hop<kAlias, kHub, kSharded>(a, tab, key0 + w, cur, h, len);
-      if (ending) {
-        ends[w - lo] = cur;
-        idle = true;
-      }
-      const bool leave = !idle && lv.outside(cur);
-      lv.put(leave, cur, key0 + w, h, len, 0.0f, lane);
-      if (leave) {
-        ends[w - lo] = -1;  // it ends in another process
-        idle = true;
-      }
+    if (idle) continue;
+    if (hop<kAlias, kHub, kSharded>(a, tab, w, cur, h, len)) {
+      ends[w - lo] = cur;
+      idle = true;
     }
   }
   __syncwarp();  // the range's endpoints, coalesced
@@ -942,7 +962,8 @@ struct XpIn {
 };
 
 // a walk of the inbox that ends adds its weight at its endpoint, column w %
-// Bc (kMass; K4-xp's index walks carry no weight and only write ends[w])
+// Bc (kMass; without it, as the earlier K4-xp inbox form that
+// probes/index_xp_forms.cu keeps, a walk only writes ends[w])
 template <bool kMass>
 __device__ __forceinline__ void inbox_add(bool ending, int cur, uint32_t w, float wt,
                                           const XpIn& xi) {
@@ -1032,35 +1053,325 @@ __global__ void __launch_bounds__(kBlockThreads, kBlocks)
   lv.drain();
 }
 
-// ---- K4-xp: a chunk of the index build in one process of several ---------
+// ---- K4-xp: a window of the index build in one process of several -------
 
-// blocks an SM in __launch_bounds__ of the own-start form (kernels/
-// schedule.py::INDEX_XP_BLOCKS_PER_SM): the staged outbox, as K6+K4-xp's
-constexpr int kIndexXpBlocksPerSM = 4;
+// blocks an SM in __launch_bounds__ of each form (kernels/schedule.py::
+// INDEX_XP_BLOCKS_PER_SM, INDEX_XP_INBOX_BLOCKS_PER_SM)
+constexpr int kIndexXpBlocksPerSM = 8;
+constexpr int kIndexXpInboxBlocksPerSM = 4;
 
-// the own-start form: K4's sharded form (walk_range) over this process's
-// starts of the chunk, walk w keyed a.w0 + w, its L slices at their global
-// index in the table; a walk that leaves goes to the staged outbox
-template <bool kAlias>
-__global__ void __launch_bounds__(kBlockThreads, kIndexXpBlocksPerSM)
-    index_walk_xp_kernel(const WalkArgs a, const ShardTables t, const XpOut xo) {
-  __shared__ const int* indptr[kMaxShards];
-  __shared__ const int* indices[kMaxShards];
-  __shared__ const float* alias_prob[kMaxShards];
-  __shared__ const int* alias_other[kMaxShards];
-  __shared__ XpStage stage;
-  const int i = threadIdx.x;
-  if (i < kMaxShards) {  // by constant indices: see the sharded form above
-    indptr[i] = pick(t.indptr, i);
-    indices[i] = pick(t.indices, i);
-    alias_prob[i] = pick(t.alias_prob, i);
-    alias_other[i] = pick(t.alias_other, i);
+struct IndexXpArgs {
+  int* ends;             // [n_ends] the window's endpoints: walk w's at w - wlo
+  const int4* inbox;     // the inbox form's n_in records (w, cur, h | len << 16, 0)
+  unsigned* cursor;      // the inbox form's claims so far: zero at the launch
+  uint32_t n_in;
+  uint32_t wlo;          // the window's first walk
+  uint32_t chunk_lanes;  // walk w is walk w % chunk_lanes of chunk w / chunk_lanes
+  uint32_t magic;        // w / chunk_lanes = (w * magic) >> shift for w < 2^31
+  int shift;
+  uint32_t claim_max;    // the inbox form's largest claim, in 32-record groups
+};
+
+// walk w's Philox key in its chunk c = w / chunk_lanes and the seed's high
+// word of that chunk (chunk c draws from seed + c 2^32); the division by
+// a multiply and a shift (kernels/schedule.py::chunk_divisor)
+__device__ __forceinline__ uint32_t chunk_draw(const WalkArgs& a, const IndexXpArgs& xa,
+                                               uint32_t w, uint32_t& hi) {
+  const uint32_t c = (uint32_t)(((uint64_t)w * xa.magic) >> xa.shift);
+  hi = a.seed_hi + c;
+  return w - c * xa.chunk_lanes;
+}
+
+__device__ __forceinline__ bool xp_outside(const XpOut& xo, int cur) {
+  return (unsigned)(cur - xo.lo) >= (unsigned)xo.rows;
+}
+
+// A warp's records staged in its part of the block's stage (`st`, n of
+// them, each one walk's), out to their destinations' outboxes by the whole
+// warp: per destination one global atomic for all of its records, then
+// their 16-byte stores.  Called between a warp's batches, when none of its
+// lanes holds a walk, so the call keeps no walk's state live; out of line,
+// as every K6+K4-xp flush is (inlined, their warp-level operations stopped
+// the kernel with an illegal instruction on the H100, nvcc 12.8).
+__device__ __noinline__ void drain_stage(const int4* st, int n, const XpOut xo) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  __syncwarp();
+  for (int d = 0; d < xo.P && n > 0; ++d) {
+    if (d == xo.rank) continue;
+    int cnt = n;  // with one other process, every record is its
+    if (xo.P > 2) {
+      cnt = 0;
+      for (int i = lane; i - lane < n; i += 32)
+        cnt += __popc(__ballot_sync(kFull, i < n && st[i].y / xo.rows == d));
+    }
+    if (cnt == 0) continue;
+    int base = 0;
+    if (lane == 0) base = atomicAdd(xo.counts + d, cnt);
+    base = __shfl_sync(kFull, base, 0);
+    int4* const dst = xo.outbox + (long long)d * xo.cap;
+    for (int i = lane; i - lane < n; i += 32) {
+      const int4 r = i < n ? st[i] : make_int4(0, 0, 0, 0);
+      const bool mine = i < n && (xo.P == 2 || r.y / xo.rows == d);
+      const unsigned m = __ballot_sync(kFull, mine);
+      const long long slot = (long long)base + __popc(m & below);
+      if (mine && slot < xo.cap) dst[slot] = r;
+      base += __popc(m);
+    }
   }
-  const StagedLeave lv = StagedLeave::make(stage, xo);
-  __syncthreads();
-  walk_range<kAlias, false, true, StagedLeave>(
-      a, ShardView{indptr, indices, alias_prob, alias_other}, lv);
-  lv.drain();
+  __syncwarp();
+}
+
+// The own-start form's warp: K4's walk_range over its range of the own
+// starts (walks a.w0 + lo .. of the window, at most kWarpStage), each walk
+// drawing as walk w % chunk_lanes of its chunk.  A walk that leaves is
+// staged (one ballot and a store: at most one a walk, so the warp's part
+// of the stage holds them all) and writes -1 into its staged end, so the
+// range's coalesced write of its ends carries no stale node; the stage
+// goes out when the range is done.
+template <bool kAlias>
+__device__ __forceinline__ void index_xp_own_range(const WalkArgs& a, const IndexXpArgs& xa,
+                                                   const ShardView& tab, const XpOut& xo,
+                                                   int4* stage) {
+  extern __shared__ int staged_ends[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint64_t lo64 = ((uint64_t)blockIdx.x * kBlockWarps + warp) * a.range;
+  if (lo64 >= a.W) return;  // the last block's spare warps own no walk
+  const uint32_t lo = (uint32_t)lo64;
+  const uint32_t count = a.W - lo < a.range ? a.W - lo : a.range;
+  const uint32_t w_lo = a.w0 + lo;  // the range's first walk
+  int* const ends = staged_ends + warp * a.range;
+  int4* const out = stage + warp * kWarpStage;
+  const unsigned below = (1u << lane) - 1u;
+  uint32_t batch = 0, filled = 0, used = 0;
+  int ahead_start = 0, ahead_len = 0;
+  uint32_t i = 0;  // this lane's walk w_lo + i: its node, hops taken, length
+  int cur = 0, h = 0, len = 0, n_out = 0;
+  bool idle = true;
+
+  for (;;) {
+    for (;;) {
+      const unsigned need = __ballot_sync(kFull, idle);
+      if (need == 0) break;
+      if (used == filled) {
+        batch += filled;
+        filled = used = 0;
+        if (batch >= count) break;
+        filled = min(32u, count - batch);
+        if ((uint32_t)lane < filled) {
+          uint32_t hi;
+          const uint32_t key = chunk_draw(a, xa, w_lo + batch + lane, hi);
+          ahead_start = __ldg(a.start + lo + batch + lane);
+          ahead_len = walk_length_at(a, key, hi);
+        }
+      }
+      const uint32_t src = used + __popc(need & below);
+      const int take_start = __shfl_sync(kFull, ahead_start, src & 31);
+      const int take_len = __shfl_sync(kFull, ahead_len, src & 31);
+      if (idle && src < filled) {
+        i = batch + src;
+        cur = take_start;
+        len = take_len;
+        h = 0;
+        if (len > 0)
+          idle = false;
+        else
+          ends[i] = cur;  // no hop: the walk ends where it starts
+      }
+      used = min(filled, used + __popc(need));
+    }
+    if (__all_sync(kFull, idle)) break;
+    const uint32_t w = w_lo + i;
+    bool ending = false;
+    if (!idle) {
+      uint32_t hi;
+      const uint32_t key = chunk_draw(a, xa, w, hi);
+      ending = hop_at<kAlias, false, true>(a, tab, key, hi, cur, h, len);
+    }
+    if (ending) {
+      ends[i] = cur;
+      idle = true;
+    }
+    const bool leave = !idle && xp_outside(xo, cur);
+    const unsigned leaving = __ballot_sync(kFull, leave);
+    if (leave) {
+      out[n_out + __popc(leaving & below)] = make_int4((int)w, cur, h | (len << 16), 0);
+      ends[i] = -1;  // it ends in another process
+      idle = true;
+    }
+    n_out += __popc(leaving);
+  }
+  __syncwarp();  // the range's endpoints, coalesced
+  int* const dst = xa.ends + (w_lo - xa.wlo);
+  for (uint32_t k = lane; k < count; k += 32) dst[k] = ends[k];
+  drain_stage(out, n_out, xo);
+}
+
+// the inbox form's next claim: 32 k records, 32 k what is left over the
+// warps, k at least 1 and at most claim_max (kernels/schedule.py::
+// inbox_claim)
+__device__ __forceinline__ uint32_t inbox_claim(uint32_t seen, const IndexXpArgs& xa,
+                                                uint32_t warps) {
+  const uint32_t left = seen < xa.n_in ? xa.n_in - seen : 0u;
+  return 32u * max(1u, min(left / (32u * warps), xa.claim_max));
+}
+
+// The inbox form's claims: every warp's first claim is its own, the
+// first claim's size from warp g * first (no atomic, so a launch does not
+// start with every warp's atomic on one word); later ones come from the
+// cursor past them, one atomicAdd each: records r0 .. r0 + count - 1
+// (count 0: none left).
+__device__ __forceinline__ void claim_records(const IndexXpArgs& xa, uint32_t warps,
+                                              uint32_t first, int lane, uint32_t& r0,
+                                              uint32_t& count) {
+  uint32_t base = 0, step = 0;
+  if (lane == 0) {
+    step = inbox_claim(warps * first + *(volatile unsigned*)xa.cursor, xa, warps);
+    base = warps * first + atomicAdd(xa.cursor, step);
+  }
+  r0 = __shfl_sync(kFull, base, 0);
+  step = __shfl_sync(kFull, step, 0);
+  count = r0 < xa.n_in ? min(step, xa.n_in - r0) : 0u;
+}
+
+// The inbox form's warp, one of a grid of resident blocks: walk_range's
+// queue over the records it claims, each claim 32 k records (after the
+// first, from one atomicAdd on the cursor), k shrinking as the inbox
+// drains.  The queue goes
+// on from one claim into the next without waiting for the claim's last
+// walk.  A record's length and hops taken come with it, so no refill
+// computes a Philox block 0 or a logf; but a record has about 1.5 hops
+// left, so the refills come often, and the next 32 records are loaded
+// while the current ones are handed out (the next claim's first 32 with
+// the claim's last batch).  A walk that ends writes ends[w
+// - wlo] itself; one that leaves is staged, and the stage goes out
+// whenever a step could overfill it (at most 32 records leave a step).
+template <bool kAlias>
+__device__ __forceinline__ void index_xp_inbox_range(const WalkArgs& a, const IndexXpArgs& xa,
+                                                     const ShardView& tab, const XpOut& xo,
+                                                     int4* stage) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const uint32_t warps = gridDim.x * kBlockWarps;
+  int4* const out = stage + (threadIdx.x >> 5) * kWarpStage;
+  const uint32_t first = inbox_claim(0, xa, warps);  // every warp's first claim
+  // the warp's claim: records r0 .. r0 + count - 1
+  uint32_t r0 = min((blockIdx.x * kBlockWarps + (threadIdx.x >> 5)) * first, xa.n_in);
+  uint32_t count = min(first, xa.n_in - r0);
+  uint32_t r1 = 0, count1 = 0;  // its next claim, taken with the claim's last batch
+  uint32_t batch = 0, filled = 0, used = 0, next_n = 0;
+  int4 ahead = make_int4(0, 0, 0, 0);  // lane i: the current batch's record i
+  int4 next = make_int4(0, 0, 0, 0);   // lane i: the next batch's record i
+  uint32_t w = 0;  // this lane's walk: its number, node, hops taken, length
+  int cur = 0, h = 0, len = 0, n_out = 0;
+  bool idle = true;
+  for (;;) {
+    for (;;) {
+      const unsigned need = __ballot_sync(kFull, idle);
+      if (need == 0) break;
+      if (used == filled) {
+        batch += filled;
+        filled = used = 0;
+        if (batch >= count) {  // the claim is handed out: go on into the next
+          if (count1 == 0) break;
+          r0 = r1;
+          count = count1;
+          batch = count1 = 0;
+        }
+        if (next_n > 0) {  // loaded while the last batch was handed out
+          ahead = next;
+          filled = next_n;
+        } else {
+          filled = min(32u, count - batch);
+          if ((uint32_t)lane < filled) ahead = __ldg(xa.inbox + r0 + batch + lane);
+        }
+        // the batch after, loaded now: from this claim, or from the next
+        // one, claimed here
+        uint32_t from = r0 + batch + filled;
+        next_n = batch + filled < count ? min(32u, count - batch - filled) : 0u;
+        if (next_n == 0) {
+          claim_records(xa, warps, first, lane, r1, count1);
+          from = r1;
+          next_n = min(32u, count1);
+        }
+        if ((uint32_t)lane < next_n) next = __ldg(xa.inbox + from + lane);
+      }
+      const uint32_t src = used + __popc(need & below);
+      const int take_w = __shfl_sync(kFull, ahead.x, src & 31);
+      const int take_cur = __shfl_sync(kFull, ahead.y, src & 31);
+      const int take_hl = __shfl_sync(kFull, ahead.z, src & 31);
+      if (idle && src < filled) {
+        w = (uint32_t)take_w;
+        cur = take_cur;
+        h = take_hl & 0xffff;
+        len = take_hl >> 16;
+        if (h < len)
+          idle = false;
+        else
+          xa.ends[w - xa.wlo] = cur;  // no hop left (no record of this kernel's)
+      }
+      used = min(filled, used + __popc(need));
+    }
+    if (__all_sync(kFull, idle)) break;
+    bool ending = false;
+    if (!idle) {
+      uint32_t hi;
+      const uint32_t key = chunk_draw(a, xa, w, hi);
+      ending = hop_at<kAlias, false, true>(a, tab, key, hi, cur, h, len);
+    }
+    if (ending) {
+      xa.ends[w - xa.wlo] = cur;
+      idle = true;
+    }
+    const bool leave = !idle && xp_outside(xo, cur);
+    const unsigned leaving = __ballot_sync(kFull, leave);
+    if (leave) {
+      out[n_out + __popc(leaving & below)] = make_int4((int)w, cur, h | (len << 16), 0);
+      idle = true;
+    }
+    n_out += __popc(leaving);
+    if (n_out > kWarpStage - 32) {
+      drain_stage(out, n_out, xo);
+      n_out = 0;
+    }
+  }
+  drain_stage(out, n_out, xo);
+}
+
+// the slice table's copy in shared memory, by constant indices (see the
+// sharded form above), then a form's warps with their part of the stage
+#define INDEX_XP_PROLOGUE                                            \
+  __shared__ const int* indptr[kMaxShards];                          \
+  __shared__ const int* indices[kMaxShards];                         \
+  __shared__ const float* alias_prob[kMaxShards];                    \
+  __shared__ const int* alias_other[kMaxShards];                     \
+  __shared__ int4 stage[kStageRecords];                              \
+  const int i = threadIdx.x;                                         \
+  if (i < kMaxShards) {                                              \
+    indptr[i] = pick(t.indptr, i);                                   \
+    indices[i] = pick(t.indices, i);                                 \
+    alias_prob[i] = pick(t.alias_prob, i);                           \
+    alias_other[i] = pick(t.alias_other, i);                         \
+  }                                                                  \
+  __syncthreads();                                                   \
+  const ShardView tab{indptr, indices, alias_prob, alias_other}
+
+// the own-start form (round 0): this process's own starts of the window
+template <bool kAlias, int kBlocks>
+__global__ void __launch_bounds__(kBlockThreads, kBlocks)
+    index_xp_own_kernel(const WalkArgs a, const IndexXpArgs xa, const ShardTables t,
+                        const XpOut xo) {
+  INDEX_XP_PROLOGUE;
+  index_xp_own_range<kAlias>(a, xa, tab, xo, stage);
+}
+
+// the inbox form (rounds >= 1): the records handed to this process
+template <bool kAlias, int kBlocks>
+__global__ void __launch_bounds__(kBlockThreads, kBlocks)
+    index_xp_inbox_kernel(const WalkArgs a, const IndexXpArgs xa, const ShardTables t,
+                          const XpOut xo) {
+  INDEX_XP_PROLOGUE;
+  index_xp_inbox_range<kAlias>(a, xa, tab, xo, stage);
 }
 
 // ---- K6+K4-src: walks from each column's source to endpoint mass ----------
@@ -1398,12 +1709,21 @@ void launch_xp_inbox(const XpLaunch& X) {
         X.a, X.xi, X.t, X.xo);
 }
 
-void launch_index_xp(const XpLaunch& X) {
+template <int kBlocks>
+void launch_index_xp_own(const XpLaunch& X, const IndexXpArgs& xa) {
   const size_t smem = (size_t)kBlockWarps * X.a.range * sizeof(int);
   if (X.alias)
-    index_walk_xp_kernel<true><<<X.blocks, kBlockThreads, smem, X.s>>>(X.a, X.t, X.xo);
+    index_xp_own_kernel<true, kBlocks><<<X.blocks, kBlockThreads, smem, X.s>>>(X.a, xa, X.t, X.xo);
   else
-    index_walk_xp_kernel<false><<<X.blocks, kBlockThreads, smem, X.s>>>(X.a, X.t, X.xo);
+    index_xp_own_kernel<false, kBlocks><<<X.blocks, kBlockThreads, smem, X.s>>>(X.a, xa, X.t, X.xo);
+}
+
+template <int kBlocks>
+void launch_index_xp_inbox(const XpLaunch& X, const IndexXpArgs& xa) {
+  if (X.alias)
+    index_xp_inbox_kernel<true, kBlocks><<<X.blocks, kBlockThreads, 0, X.s>>>(X.a, xa, X.t, X.xo);
+  else
+    index_xp_inbox_kernel<false, kBlocks><<<X.blocks, kBlockThreads, 0, X.s>>>(X.a, xa, X.t, X.xo);
 }
 
 // fora_raw_walk_xp's checks and arguments (the own-lane form); 0 or a
@@ -1468,28 +1788,81 @@ int xp_inbox_args(XpLaunch* X, const int* inbox, long long n_in, int Bc, int n_l
   return 0;
 }
 
-// fora_index_walk_xp's checks and arguments (K4-xp's own-start form); 0 or
-// a cudaError_t
-int index_xp_args(XpLaunch* X, const int* start, long long W, long long w0, int* ends, int L,
-                  int n_loc, int shard0, int G, int P, int* outbox, long long cap, int* counts,
+// the checks and arguments both K4-xp forms share: the window's ends
+// [n_ends] from walk wlo, its chunks of chunk_lanes walks; 0 or a
+// cudaError_t
+int index_xp_args(XpLaunch* X, IndexXpArgs* xa, int* ends, long long wlo, long long n_ends,
+                  long long chunk_lanes, unsigned long long magic, int shift, int L, int n_loc,
+                  int shard0, int G, int P, int* outbox, long long cap, int* counts,
                   const int* const* indptr, const int* const* indices,
                   const float* const* alias_prob, const int* const* alias_other,
-                  unsigned long long seed, float inv_log1m_alpha, int max_hops,
-                  int walks_per_lane, long long blocks, void* stream) {
+                  unsigned long long seed, int walks_per_lane, long long blocks, void* stream) {
   const int bad = xp_args(X, L, G, P, shard0, n_loc, 1, nullptr, 0, ends, outbox, cap, counts,
                           indptr, indices, alias_prob, alias_other, seed, walks_per_lane, blocks,
                           stream);
   if (bad) return bad;
-  if (W < 0 || w0 < 0 || w0 + W >= (1ll << 32) || max_hops > kMaxXpHops || ends == nullptr ||
-      (W > 0 && start == nullptr))
+  // a warp's batch fits its part of the stage; every walk number below 2^31
+  if (ends == nullptr || wlo < 0 || n_ends < 0 || wlo + n_ends >= (1ll << 31) ||
+      chunk_lanes < 1 || chunk_lanes >= (1ll << 31) || magic >= (1ull << 32) || shift < 31 ||
+      shift > 62)
+    return (int)cudaErrorInvalidValue;
+  *xa = IndexXpArgs{};
+  xa->ends = ends;
+  xa->wlo = (uint32_t)wlo;
+  xa->chunk_lanes = (uint32_t)chunk_lanes;
+  xa->magic = (uint32_t)magic;
+  xa->shift = shift;
+  return 0;
+}
+
+// fora_index_walk_xp's checks and arguments (the own-start form)
+int index_xp_own_args(XpLaunch* X, IndexXpArgs* xa, const int* start, long long W,
+                      long long w0, int* ends, long long wlo, long long n_ends,
+                      long long chunk_lanes, unsigned long long magic, int shift, int L,
+                      int n_loc, int shard0, int G, int P,
+                      int* outbox, long long cap, int* counts, const int* const* indptr,
+                      const int* const* indices, const float* const* alias_prob,
+                      const int* const* alias_other, unsigned long long seed,
+                      float inv_log1m_alpha, int max_hops, int walks_per_lane, long long blocks,
+                      void* stream) {
+  const int bad = index_xp_args(X, xa, ends, wlo, n_ends, chunk_lanes, magic, shift, L, n_loc,
+                                shard0, G, P, outbox, cap, counts, indptr, indices, alias_prob,
+                                alias_other, seed, walks_per_lane, blocks, stream);
+  if (bad) return bad;
+  if (W < 0 || w0 < wlo || w0 + W > wlo + n_ends || max_hops > kMaxXpHops ||
+      (W > 0 && start == nullptr) || 32 * walks_per_lane > kWarpStage)
     return (int)cudaErrorInvalidValue;
   WalkArgs a;
-  const int bad_walk = walk_args(&a, start, ends + w0, W, seed, inv_log1m_alpha, max_hops,
+  const int bad_walk = walk_args(&a, start, nullptr, W, seed, inv_log1m_alpha, max_hops,
                                  walks_per_lane, blocks);
   if (bad_walk) return bad_walk;
   a.n_loc = n_loc;
   a.w0 = (uint32_t)w0;
   X->a = a;
+  return 0;
+}
+
+// fora_index_walk_xp_inbox's checks and arguments: counts [P + 1], the
+// claims' cursor at P
+int index_xp_inbox_args(XpLaunch* X, IndexXpArgs* xa, const int* inbox, long long n_in,
+                        int* ends, long long wlo, long long n_ends, long long chunk_lanes,
+                        unsigned long long magic, int shift, int n_loc, int shard0, int L, int G,
+                        int P, int* outbox, long long cap,
+                        int* counts, const int* const* indptr, const int* const* indices,
+                        const float* const* alias_prob, const int* const* alias_other,
+                        unsigned long long seed, int walks_per_lane, long long blocks,
+                        void* stream) {
+  const int bad = index_xp_args(X, xa, ends, wlo, n_ends, chunk_lanes, magic, shift, L, n_loc,
+                                shard0, G, P, outbox, cap, counts, indptr, indices, alias_prob,
+                                alias_other, seed, walks_per_lane, blocks, stream);
+  if (bad) return bad;
+  if (n_in < 0 || n_in >= (1ll << 31) || (n_in > 0 && (inbox == nullptr || blocks < 1)))
+    return (int)cudaErrorInvalidValue;
+  xa->inbox = reinterpret_cast<const int4*>(inbox);
+  xa->cursor = reinterpret_cast<unsigned*>(counts + P);
+  xa->n_in = (uint32_t)n_in;
+  xa->claim_max = (uint32_t)walks_per_lane;
+  if (n_in == 0) X->blocks = 0;
   return 0;
 }
 
@@ -1680,58 +2053,66 @@ extern "C" int fora_raw_walk_xp_inbox(const int* inbox, long long n_in, int Bc, 
   return (int)cudaGetLastError();
 }
 
-// K4-xp's own-start form: round 0 of a chunk of the index build in process
-// `rank` = shard0 / L of P, which holds shards shard0 .. shard0 + L - 1 of G
-// = P L (1 <= G <= 32), their out-CSR slices indptr[k] / indices[k] (and
+// K4-xp's own-start form: round 0 of a window of the index build (whole
+// chunks of chunk_lanes walks from walk wlo, n_ends walks) in process
+// `rank` = shard0 / L of P, which holds shards shard0 .. shard0 + L - 1 of
+// G = P L (1 <= G <= 32), their out-CSR slices indptr[k] / indices[k] (and
 // alias_prob[k] / alias_other[k], or both null).  Its W own starts
-// `start`, the chunk's walks w0 .. w0 + W - 1 (w0 + W < 2^32, max_hops
-// below 2^15), walk as fora_index_walk_sharded walks walk w0 + i of the
-// chunk, over the local slices: a walk that ends writes its endpoint at
-// ends[w0 + i]; a walk whose node leaves the process's rows before its last
-// hop writes -1 there and goes to outbox [P, cap, 4] int32 at destination
-// cur / (L n_loc) as (w0 + i, cur, h | len << 16, 0), counts[d] (zeroed here
-// by a cudaMemsetAsync) counting them.  The plan (kernels/schedule.py::
+// `start`, the window's walks w0 .. w0 + W - 1 (one run: the starts are
+// sorted by node), walk as fora_index_walk_sharded walks walk w % chunk_lanes
+// of chunk w / chunk_lanes at seed + (w / chunk_lanes) 2^32 (max_hops below
+// 2^15), over the local slices: a walk that ends writes its endpoint at
+// ends[w - wlo]; a walk whose node leaves the process's rows before its
+// last hop writes -1 there and goes to outbox [P, cap, 4] int32 at
+// destination cur / (L n_loc) as (w, cur, h | len << 16, 0), counts[d]
+// counting them (zero at the launch).  The plan (kernels/schedule.py::
 // index_xp_plan, its `own` form): K4's, `blocks` blocks of 8 warps of 32 *
 // walks_per_lane walks.
-extern "C" int fora_index_walk_xp(const int* start, long long W, long long w0, int* ends, int L,
-                                  int n_loc, int shard0, int G, int P, int* outbox,
-                                  long long cap, int* counts, const int* const* indptr,
+extern "C" int fora_index_walk_xp(const int* start, long long W, long long w0, int* ends,
+                                  long long wlo, long long n_ends, long long chunk_lanes,
+                                  unsigned long long magic, int shift, int L, int n_loc,
+                                  int shard0, int G, int P, int* outbox, long long cap,
+                                  int* counts, const int* const* indptr,
                                   const int* const* indices, const float* const* alias_prob,
                                   const int* const* alias_other, unsigned long long seed,
                                   float inv_log1m_alpha, int max_hops, int walks_per_lane,
                                   long long blocks, void* stream) {
   XpLaunch X;
-  const int bad = index_xp_args(&X, start, W, w0, ends, L, n_loc, shard0, G, P, outbox, cap,
-                                counts, indptr, indices, alias_prob, alias_other, seed,
-                                inv_log1m_alpha, max_hops, walks_per_lane, blocks, stream);
+  IndexXpArgs xa;
+  const int bad = index_xp_own_args(&X, &xa, start, W, w0, ends, wlo, n_ends, chunk_lanes,
+                                    magic, shift, L, n_loc, shard0, G, P, outbox, cap, counts,
+                                    indptr, indices, alias_prob, alias_other, seed,
+                                    inv_log1m_alpha, max_hops, walks_per_lane, blocks, stream);
   if (bad) return bad;
-  cudaMemsetAsync(counts, 0, sizeof(int) * P, X.s);
-  if (W > 0) launch_index_xp(X);
+  if (W > 0) launch_index_xp_own<kIndexXpBlocksPerSM>(X, xa);
   return (int)cudaGetLastError();
 }
 
 // K4-xp's inbox form: a later round, the n_in records of `inbox` [n_in, 4]
 // int32 (w, cur, h | len << 16, 0) that the other processes handed over,
 // each walked on from where it stopped over the same slices, its endpoint
-// written at ends[w] or handed on as fora_index_walk_xp does: K6+K4-xp's
-// inbox form without the endpoint mass.  The plan (xp_walk_plan's `inbox`
-// form): 32 * walks_per_lane records a warp, `blocks` blocks of 8 warps
-// covering them.
-extern "C" int fora_index_walk_xp_inbox(const int* inbox, long long n_in, int* ends, int n_loc,
+// written at ends[w - wlo] or handed on as fora_index_walk_xp does.
+// counts [P + 1] is zero at the launch: the P counts, then the cursor of
+// the records claimed.  The plan (index_xp_plan's `inbox` form): `blocks`
+// resident blocks of 8 warps, each claim what is left over the warps, at
+// least 32 records and at most 32 * walks_per_lane.
+extern "C" int fora_index_walk_xp_inbox(const int* inbox, long long n_in, int* ends,
+                                        long long wlo, long long n_ends, long long chunk_lanes,
+                                        unsigned long long magic, int shift, int n_loc,
                                         int shard0, int L, int G, int P, int* outbox,
                                         long long cap, int* counts, const int* const* indptr,
                                         const int* const* indices,
                                         const float* const* alias_prob,
                                         const int* const* alias_other, unsigned long long seed,
                                         int walks_per_lane, long long blocks, void* stream) {
-  if (ends == nullptr) return (int)cudaErrorInvalidValue;
   XpLaunch X;
-  const int bad = xp_inbox_args(&X, inbox, n_in, 1, n_loc, shard0, L, G, P, nullptr, 0, ends,
-                                outbox, cap, counts, indptr, indices, alias_prob, alias_other,
-                                seed, walks_per_lane, blocks, stream);
+  IndexXpArgs xa;
+  const int bad = index_xp_inbox_args(&X, &xa, inbox, n_in, ends, wlo, n_ends, chunk_lanes,
+                                      magic, shift, n_loc, shard0, L, G, P, outbox, cap, counts,
+                                      indptr, indices, alias_prob, alias_other, seed,
+                                      walks_per_lane, blocks, stream);
   if (bad) return bad;
-  cudaMemsetAsync(counts, 0, sizeof(int) * P, X.s);
-  if (X.blocks) launch_xp_inbox<kXpInboxBlocksPerSM, StagedLeave, false>(X);
+  if (X.blocks) launch_index_xp_inbox<kIndexXpInboxBlocksPerSM>(X, xa);
   return (int)cudaGetLastError();
 }
 

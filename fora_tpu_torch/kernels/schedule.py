@@ -269,32 +269,121 @@ def xp_walk_plan(extent: int, Bc: int, n_in: int, sm_count: int,
     return XpWalkPlan(own=own, inbox=inbox)
 
 
-# ---- K4-xp (csrc/walk.cu, index_walk_xp_kernel and xp_inbox_kernel) ------
+# ---- K4-xp (csrc/walk.cu, index_xp_own_kernel and index_xp_inbox_kernel) -
 #
-# The own-start form (round 0) is K4's plan over the process's own starts of
-# the chunk: k from WALKS_PER_LANE down by walk_plan's rule, at the form's
-# residency (its staged outbox, as K6+K4-xp's forms, takes 4 blocks an SM).
-# The inbox form (later rounds) is K6+K4-xp's inbox form's plan.
+# The build across processes runs its rounds over a window of whole chunks
+# (``build_windows``): XP_BUILD_WALKS walks, rounded down to whole chunks of
+# ``chunk_lanes`` and at least one, a constant that never reads the card's
+# free memory.  Its bytes on a process: the window's ends, 4 B a walk (128
+# MiB), its own starts, 4 B each, and round 0's outbox, P x own walks x 16
+# B (at P = 2 and every walk its own, 1 GiB).  The own-start form (round 0)
+# is K4's plan over the process's own starts of the window: k from
+# WALKS_PER_LANE down by walk_plan's rule, at the form's residency; a
+# warp's range (at most walk.cu's kWarpStage, 128 walks) fits its part of
+# the stage, which holds every record the range hands on.  The inbox form
+# (later rounds) is a grid of resident blocks, at most
+# INDEX_XP_INBOX_BLOCKS_PER_SM an SM and no more than one warp a 32
+# records, whose warps claim 32 k records at a time (``inbox_claim``: 32 k
+# what is left over the warps, k 1 .. INDEX_XP_CLAIM_MAX; every warp's
+# first claim its own, the later ones
+# from a cursor) and go on into the next claim while the last walks of
+# one run; the stage goes out whenever a step could overfill it.  On the
+# H100 (probes/index_xp_probe.py on phase 15's build, PERF.md) the
+# own-start form took about the same time at 4, 6 and 8 blocks an SM, the
+# inbox form least at 4 (at 6 and 8 its drain, a call while walks are
+# live, spills), larger claims less time (a claim of all that is left
+# over the warps against a half and a quarter of it; 48 groups against 8
+# and 16).
 
-INDEX_XP_BLOCKS_PER_SM = 4  # walk.cu's kIndexXpBlocksPerSM, its __launch_bounds__
+XP_BUILD_WALKS = 1 << 25    # walks of a window (phase 17's build is one)
+INDEX_XP_BLOCKS_PER_SM = 8  # walk.cu's kIndexXpBlocksPerSM, its __launch_bounds__
+INDEX_XP_INBOX_BLOCKS_PER_SM = 4    # walk.cu's kIndexXpInboxBlocksPerSM
+INDEX_XP_CLAIM_MAX = 48     # the largest claim: 32 x 48 records
+
+
+def chunk_divisor(chunk_lanes: int) -> tuple:
+    """(magic, shift) with w // chunk_lanes == (w * magic) >> shift for
+    every 0 <= w < 2^31 (chunk_lanes in 1 .. 2^31 - 1), magic below 2^32:
+    K4-xp's division of a walk's number by its chunk's walks.  magic =
+    ceil(2^(31 + l) / chunk_lanes), l = ceil(log2(chunk_lanes)), shift =
+    31 + l (Granlund and Montgomery's multiplier for 31-bit numerators)."""
+    if not 1 <= chunk_lanes < 2**31:
+        raise ValueError(f"chunk_divisor: {chunk_lanes} walks a chunk")
+    shift = 31 + (chunk_lanes - 1).bit_length()
+    return -(-(1 << shift) // chunk_lanes), shift
+
+
+def build_windows(total: int, chunk_lanes: int) -> list:
+    """The windows (lo, hi) of a build of ``total`` walks in chunks of
+    ``chunk_lanes``: whole chunks, max(1, XP_BUILD_WALKS // chunk_lanes) of
+    them a window (the last may be short), covering 0 .. total - 1 once."""
+    if total < 0 or chunk_lanes < 1:
+        raise ValueError(f"build_windows: {total} walks, chunks of "
+                         f"{chunk_lanes}")
+    step = max(1, XP_BUILD_WALKS // chunk_lanes) * chunk_lanes
+    return [(lo, min(lo + step, total)) for lo in range(0, total, step)]
+
+
+class InboxPlan(NamedTuple):
+    claim_max: int          # the largest claim, in 32-record groups
+    warps: int              # the grid's warps
+    blocks: int             # resident blocks of WALK_BLOCK_WARPS warps
 
 
 class IndexXpPlan(NamedTuple):
     own: WalkPlan           # K4's grid over the own starts
-    inbox: RawWalkPlan      # tiles: warps of 32 k records; blocks over them
+    inbox: InboxPlan        # the resident grid over the records
+
+
+def inbox_claim(seen: int, n_in: int, plan: InboxPlan) -> int:
+    """The inbox form's next claim in records, as walk.cu's inbox_claim
+    reads it after ``seen`` records were claimed: 32 k, 32 k the records
+    left over the warps, k at least 1 and at most ``plan.claim_max``."""
+    left = max(n_in - seen, 0)
+    return 32 * max(1, min(left // (32 * plan.warps), plan.claim_max))
+
+
+def inbox_claims(n_in: int, plan: InboxPlan) -> list:
+    """The claims (first record, records) that the inbox form's warps make
+    over ``n_in`` records: warp g's first claim records g * first ..
+    (first = inbox_claim(0, ...), none past the records), then claims from
+    the cursor past the first claims, taken in turn as the kernel's
+    atomicAdd orders them: each warp's next claim reads the cursor, adds
+    its claim, and stops at the first that starts past the records."""
+    if n_in == 0:
+        return []
+    first = inbox_claim(0, n_in, plan)
+    claims = [(g * first, min(first, n_in - g * first))
+              for g in range(plan.warps) if g * first < n_in]
+    cursor = plan.warps * first
+    live = list(range(plan.warps))
+    while live:
+        nxt = []
+        for w in live:
+            step = inbox_claim(cursor, n_in, plan)
+            base, cursor = cursor, cursor + step
+            if base < n_in:
+                claims.append((base, min(step, n_in - base)))
+                nxt.append(w)
+        live = nxt
+    return claims
 
 
 def index_xp_plan(W: int, n_in: int, sm_count: int) -> IndexXpPlan:
     """K4-xp's plan for each form on a card of ``sm_count`` SMs: the
     own-start form over ``W`` own starts (k of 1, 2, 4 by walk_plan's rule
     at INDEX_XP_BLOCKS_PER_SM), the inbox form over ``n_in`` records
-    (xp_walk_plan's).  A form with no walk gets no block."""
-    if not 0 <= W < 2**32 or n_in < 0:
+    (resident blocks, a warp for each 32 records at most).  A form with no
+    walk gets no block."""
+    if not 0 <= W < 2**32 or not 0 <= n_in < 2**31:
         raise ValueError(f"index_xp_plan: {W} starts, {n_in} records")
     if sm_count < 1:
         raise ValueError(f"index_xp_plan: sm_count = {sm_count}")
     k = _fill_k(W, WALKS_PER_LANE, INDEX_XP_BLOCKS_PER_SM, sm_count)
     own = walk_grid(W, k) if W else WalkPlan(walks_per_lane=k, warps=0,
                                               blocks=0)
-    return IndexXpPlan(own=own,
-                       inbox=xp_walk_plan(0, 0, n_in, sm_count).inbox)
+    blocks = min(sm_count * INDEX_XP_INBOX_BLOCKS_PER_SM,
+                 -(-n_in // (32 * WALK_BLOCK_WARPS)))
+    return IndexXpPlan(own=own, inbox=InboxPlan(
+        claim_max=INDEX_XP_CLAIM_MAX, warps=blocks * WALK_BLOCK_WARPS,
+        blocks=blocks))

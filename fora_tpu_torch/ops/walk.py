@@ -67,11 +67,11 @@ where it ends in one process (``raw_walk_xp_chunk``: on a card K6+K4-xp,
 walk.cu's xp_own_kernel for a process's own lanes and xp_inbox_kernel for
 the records handed to it; ``raw_walk_xp_plain`` their plain version).
 The index build across processes (``index/build_sharded.py``) hands its
-walks on alike, records of no weight (``index_walk_xp_chunk``: on a card
-K4-xp, walk.cu's index_walk_xp_kernel for a process's own starts of a
-chunk and xp_inbox_kernel without the endpoint mass for the records;
-``index_walk_xp_plain`` their plain version), so every walk ends where
-K4's sharded form ends it.
+walks on alike, records of no weight, over a window of whole chunks at
+once (``index_walk_xp_chunk``: on a card K4-xp, walk.cu's
+index_xp_own_kernel for a process's own starts of the window and
+index_xp_inbox_kernel for the records; ``index_walk_xp_plain`` their
+plain version), so every walk ends where K4's sharded form ends it.
 
 Dangling convention: a walk at an out-degree-0 node is absorbed there.
 Random numbers come from a ``torch.Generator`` (``run_walks``, the CPU
@@ -83,6 +83,7 @@ only.  Streams are keyed by 64-bit seeds from ``derive_seed``, one per
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -487,12 +488,28 @@ def walk_lengths(seed: int, W: int, alpha: float, max_hops: int,
                                          device=device), alpha, max_hops)
 
 
-def lengths_of(seed: int, walk: torch.Tensor, alpha: float,
-               max_hops: int) -> torch.Tensor:
-    """:func:`walk_lengths` of the walks numbered ``walk`` (int64 in 0 ..
-    2^32 - 1, any shape)."""
+def chunk_draws(seed: int, walk: torch.Tensor,
+                chunk_lanes: Optional[int] = None) -> tuple:
+    """(the seed's low word, its high word, the Philox key) of the walks
+    numbered ``walk`` (int64): under ``seed`` itself, or with
+    ``chunk_lanes`` as a build's walks draw them, walk w as walk w %
+    chunk_lanes of chunk c = w // chunk_lanes at seed + c 2^32 (the high
+    word and the key then per walk)."""
     seed = int(seed) % 2**64
-    u0 = ((philox4x32_10((0, seed >> 32, 0, 0), (seed & _M32, walk))[0]
+    lo, hi = seed & _M32, seed >> 32
+    if chunk_lanes is None:
+        return lo, hi, walk
+    c = torch.div(walk, chunk_lanes, rounding_mode="floor")
+    return lo, (hi + c) & _M32, walk - c * chunk_lanes
+
+
+def lengths_of(seed: int, walk: torch.Tensor, alpha: float,
+               max_hops: int, chunk_lanes: Optional[int] = None
+               ) -> torch.Tensor:
+    """:func:`walk_lengths` of the walks numbered ``walk`` (int64 in 0 ..
+    2^32 - 1, any shape), drawn as :func:`chunk_draws` gives them."""
+    lo, hi, key = chunk_draws(seed, walk, chunk_lanes)
+    u0 = ((philox4x32_10((0, hi, 0, 0), (lo, key))[0]
            >> 8) + 1).to(torch.float32) * 2.0**-24
     inv = torch.tensor(kernels.inv_log1m_alpha(alpha), dtype=torch.float32,
                        device=walk.device)
@@ -829,20 +846,19 @@ def _xp_records(inbox: torch.Tensor) -> tuple:
 
 
 def _xp_hops(csr: ShardedOutCSR, shard0: int, seed: int, w: torch.Tensor,
-             cur: torch.Tensor, h: torch.Tensor,
-             length: torch.Tensor) -> torch.Tensor:
+             cur: torch.Tensor, h: torch.Tensor, length: torch.Tensor,
+             chunk_lanes: Optional[int] = None) -> torch.Tensor:
     """The hop loop of K6+K4-xp's and K4-xp's plain versions, in place on
     the walks' nodes ``cur`` and hops taken ``h`` (int64, each walk w's
-    Philox key (seed's low word, w), hop h's counter h + 1, as
+    draws by :func:`chunk_draws`, hop h's counter h + 1, as
     :func:`run_walks_philox`): a walk hops over ``csr``, the L slices of
     shards ``shard0`` .. ``shard0`` + L - 1, while its node lies in this
-    process's rows
-    and hops remain; returns the walks that stopped at another process's
-    node before their last hop (handed over)."""
+    process's rows and hops remain; returns the walks that stopped at
+    another process's node before their last hop (handed over)."""
     L, n_loc = len(csr.indptr), csr.n_loc
     rank, rows_p = shard0 // L, L * n_loc
-    seed = int(seed) % 2**64
-    lo, hi = seed & _M32, seed >> 32
+    lo, hi, key = chunk_draws(seed, w, chunk_lanes)
+    per_walk = torch.is_tensor(hi)
     rows = _Rows(csr, w.device)
     alias = rows.alias_prob is not None
     gone = torch.zeros_like(w, dtype=torch.bool)      # handed over
@@ -851,7 +867,8 @@ def _xp_hops(csr: ShardedOutCSR, shard0: int, seed: int, w: torch.Tensor,
         p0, d = rows(cur[live] - shard0 * n_loc)
         moving = d > 0                          # dangling absorbs
         live, p0, d = live[moving], p0[moving], d[moving]
-        r = philox4x32_10((h[live] + 1, hi, 0, 0), (lo, w[live]))
+        r = philox4x32_10((h[live] + 1, hi[live] if per_walk else hi, 0, 0),
+                          (lo, key[live]))
         slot = p0 + torch.minimum((_unit(r[0]) * d.to(torch.float32)).long(),
                                   d - 1)
         nxt = rows.indices[slot]
@@ -892,29 +909,34 @@ def _xp_send(gone: torch.Tensor, w: torch.Tensor, cur: torch.Tensor,
 
 
 def index_walk_xp_chunk(csr: ShardedOutCSR, start: torch.Tensor, w0: int,
-                        shard0: int, G: int, seed: int, alpha: float,
-                        max_hops: int, inbox: torch.Tensor,
-                        outbox: torch.Tensor, counts: torch.Tensor,
-                        ends: torch.Tensor) -> None:
-    """One launch of a process's share of a chunk of the index build with
-    the G shards spread over processes of L each (the sharded build
-    across processes, ``index/build_sharded.py``).  The process holds
-    shards ``shard0`` .. ``shard0`` + L - 1, ``csr`` their out-CSR slices.
-    A launch walks one source: its own starts of the chunk, ``start`` [W]
-    int32, walks ``w0`` .. ``w0`` + W - 1 of it (the chunk's starts are
-    sorted by node, so they are one run), or the walks of ``inbox`` [n_in,
-    4] int32 (w, cur, h | len << 16, 0), which go on from where they
-    stopped.  A walk advances while its node lies in the process's rows;
-    one that ends writes its endpoint at ``ends[w]`` ([W_chunk] int32); an
-    own walk that leaves writes -1 there; one whose next hop starts at
+                        wlo: int, chunk_lanes: int, shard0: int, G: int,
+                        seed: int, alpha: float, max_hops: int,
+                        inbox: torch.Tensor, outbox: torch.Tensor,
+                        counts: torch.Tensor, ends: torch.Tensor) -> None:
+    """One launch of a process's share of a window of the index build
+    (whole chunks of ``chunk_lanes`` walks from walk ``wlo``; ``ends``
+    [n_ends] int32 its endpoints) with the G shards spread over processes
+    of L each (the sharded build across processes,
+    ``index/build_sharded.py``).  The process holds shards ``shard0`` ..
+    ``shard0`` + L - 1, ``csr`` their out-CSR slices.  Walk w (its number
+    in the build's starts) draws as walk w % chunk_lanes of chunk c = w //
+    chunk_lanes at ``seed`` + c 2^32.  A launch walks one source: its own
+    starts of the window, ``start`` [W] int32, walks ``w0`` .. ``w0`` + W
+    - 1 (the starts are sorted by node, so they are one run), or the walks
+    of ``inbox`` [n_in, 4] int32 (w, cur, h | len << 16, 0), which go on
+    from where they stopped.  A walk advances while its node lies in the
+    process's rows; one that ends writes its endpoint at ``ends[w - wlo]``;
+    an own walk that leaves writes -1 there; one whose next hop starts at
     another process's node is written to ``outbox`` [P, cap, 4] at that
-    process as such a record, ``counts`` [P] int32 the number for each (cap
-    must be the launch's walks).  A CUDA ``ends`` launches K4-xp's
-    own-start form (``kernels.index_walk_xp``) or its inbox form
+    process as such a record, ``counts`` [P + 1] int32 (zero at the call;
+    the last word the inbox form's cursor) the number for each (cap must
+    be the launch's walks).  A CUDA ``ends`` launches K4-xp's own-start
+    form (``kernels.index_walk_xp``) or its inbox form
     (``kernels.index_walk_xp_inbox``), a CPU one runs
     :func:`index_walk_xp_plain`.  Every walk w ends where
-    :func:`run_walks_philox` ends walk w of the chunk's starts at ``seed``,
-    bit for bit (on a card: where K4's sharded form ends it)."""
+    :func:`run_walks_philox` ends walk w % chunk_lanes of its chunk's
+    starts at the chunk's seed, bit for bit (on a card: where K4's sharded
+    form ends it)."""
     if start.shape[0] and inbox.shape[0]:
         raise ValueError("index_walk_xp_chunk: one source of walks a "
                          "launch, own starts or an inbox")
@@ -922,55 +944,68 @@ def index_walk_xp_chunk(csr: ShardedOutCSR, start: torch.Tensor, w0: int,
         raise ValueError(f"index_walk_xp_chunk: max_hops {max_hops}; a "
                          f"record holds lengths below 2^15")
     if ends.device.type == "cpu":
-        index_walk_xp_plain(csr, start, w0, shard0, G, seed, alpha, max_hops,
-                            inbox, outbox, counts, ends)
+        index_walk_xp_plain(csr, start, w0, wlo, chunk_lanes, shard0, G,
+                            seed, alpha, max_hops, inbox, outbox, counts,
+                            ends)
     elif start.shape[0]:
-        kernels.index_walk_xp(start, ends, w0, csr.indptr, csr.indices,
-                              csr.alias_prob, csr.alias_other, seed, alpha,
-                              max_hops, shard0, G, outbox, counts)
+        kernels.index_walk_xp(start, ends, w0, wlo, chunk_lanes, csr.indptr,
+                              csr.indices, csr.alias_prob, csr.alias_other,
+                              seed, alpha, max_hops, shard0, G, outbox,
+                              counts)
     else:
-        kernels.index_walk_xp_inbox(inbox, ends, csr.indptr, csr.indices,
-                                    csr.alias_prob, csr.alias_other, seed,
-                                    shard0, G, outbox, counts)
+        kernels.index_walk_xp_inbox(inbox, ends, wlo, chunk_lanes,
+                                    csr.indptr, csr.indices, csr.alias_prob,
+                                    csr.alias_other, seed, shard0, G, outbox,
+                                    counts)
 
 
 def index_walk_xp_plain(csr: ShardedOutCSR, start: torch.Tensor, w0: int,
-                        shard0: int, G: int, seed: int, alpha: float,
-                        max_hops: int, inbox: torch.Tensor,
-                        outbox: torch.Tensor, counts: torch.Tensor,
-                        ends: torch.Tensor) -> None:
+                        wlo: int, chunk_lanes: int, shard0: int, G: int,
+                        seed: int, alpha: float, max_hops: int,
+                        inbox: torch.Tensor, outbox: torch.Tensor,
+                        counts: torch.Tensor, ends: torch.Tensor) -> None:
     """K4-xp in plain PyTorch (:func:`index_walk_xp_chunk`'s arguments):
-    the own starts keyed ``w0`` + i (their lengths by :func:`lengths_of`),
-    the inbox's records (their lengths from the record), then
-    :func:`run_walks_philox`'s hop loop stopping a walk at a foreign row
-    (K6+K4-xp's, ``_xp_hops``); the ended walks' endpoints at ``ends[w]``,
-    -1 at the own walks that left; each destination's records in the order
-    of w."""
+    the own starts walks ``w0`` + i (their lengths by :func:`lengths_of`
+    with ``chunk_lanes``), the inbox's records (their lengths from the
+    record), then :func:`run_walks_philox`'s hop loop stopping a walk at a
+    foreign row (K6+K4-xp's, ``_xp_hops``, each walk drawing as its
+    chunk's); the ended walks' endpoints at ``ends[w - wlo]``, -1 at the
+    own walks that left; each destination's records in the order of w;
+    counts[:P] theirs, counts[P] 0."""
     dev = ends.device
     W = start.shape[0]
     if W:
         w = int(w0) + torch.arange(W, device=dev)
         cur, h = start.long(), torch.zeros(W, dtype=torch.long, device=dev)
-        length = lengths_of(seed, w, alpha, max_hops)
+        length = lengths_of(seed, w, alpha, max_hops, chunk_lanes)
     else:
         w, cur, h, length = _xp_records(inbox)
     counts.zero_()
     if not w.numel():
         return
-    gone = _xp_hops(csr, shard0, seed, w, cur, h, length)
-    ends[w[~gone]] = cur[~gone].to(torch.int32)
+    gone = _xp_hops(csr, shard0, seed, w, cur, h, length, chunk_lanes)
+    ends[w[~gone] - wlo] = cur[~gone].to(torch.int32)
     if W:       # an own walk that left: -1, as the kernel's staged ends
-        ends[w[gone]] = -1
+        ends[w[gone] - wlo] = -1
     _xp_send(gone, w, cur, h, length, torch.zeros_like(w, dtype=torch.int32),
              len(csr.indptr) * csr.n_loc, outbox, counts)
 
 
-def xp_chunk_rounds(launch, exchange, own: dict, P: int, device) -> list:
-    """The rounds of one chunk of the raw walk across P processes, for the
-    processes run here: ``own`` maps each one's rank to its own walks in
-    the chunk (:func:`own_lanes`).  Each round gives every process q here
-    an outbox [P, cap, XP_RECORD] int32, cap its round's walks (its own in
-    round 0, then none, plus its inbox's), and counts [P] int32, and calls
+# rounds whose counts one zeroed table holds (a build's rounds are at most
+# max_hops + 1, 65 at the default)
+_ROUND_BLOCK = 64
+
+
+def xp_chunk_rounds(launch, exchange, own: dict, P: int, device,
+                    words: int = 0) -> list:
+    """The rounds of one chunk of the raw walk, or one window of the index
+    build, across P processes, for the processes run here: ``own`` maps
+    each one's rank to its own walks (:func:`own_lanes`, a window's own
+    run).  Each round gives every process q here an outbox [P, cap,
+    XP_RECORD] int32, cap its round's walks (its own in round 0, then none,
+    plus its inbox's), and counts [P + ``words``] int32, zero (a row of a
+    table zeroed once for _ROUND_BLOCK rounds, so no launch zeroes its
+    own; the ``words`` past P the launch's scratch), and calls
     ``launch(q, r, inbox, outbox, counts)`` (round r, the inbox the records
     sent to q in the round before); then ``exchange(boxes)`` ({q: (outbox,
     counts)}: :func:`process_exchange` or :func:`local_exchange`) gives the
@@ -980,14 +1015,18 @@ def xp_chunk_rounds(launch, exchange, own: dict, P: int, device) -> list:
     inbox = {q: torch.empty((0, XP_RECORD), dtype=torch.int32, device=device)
              for q in own}
     counts_by_round = []
+    zeros = None
     while inbox is not None:
         r = len(counts_by_round)
+        if r % _ROUND_BLOCK == 0:
+            zeros = torch.zeros((_ROUND_BLOCK, len(own), P + words),
+                                dtype=torch.int32, device=device)
         boxes = {}
-        for q in own:
+        for i, q in enumerate(own):
             cap = (own[q] if r == 0 else 0) + inbox[q].shape[0]
             boxes[q] = (torch.empty((P, cap, XP_RECORD), dtype=torch.int32,
                                     device=device),
-                        torch.empty(P, dtype=torch.int32, device=device))
+                        zeros[r % _ROUND_BLOCK, i])
             launch(q, r, inbox[q], *boxes[q])
         m, inbox = exchange(boxes)
         counts_by_round.append(m)
@@ -1005,7 +1044,7 @@ def _counted(m: np.ndarray) -> np.ndarray:
     return m[:, :P]
 
 
-def process_exchange(comm):
+def process_exchange(comm, part=None):
     """:func:`xp_chunk_rounds`' exchange over ``comm`` (a
     ``parallel.multihost.ProcessComm``; the one process here is
     ``comm.rank``): one all-gather of every process's counts and outbox
@@ -1013,18 +1052,23 @@ def process_exchange(comm):
     whether any process still holds a walk, alike everywhere; an
     all-to-all of the counts would leave a process that received nothing
     unaware of the others), then, while walks were sent, one all-to-all of
-    the records."""
+    the records.  ``part(name)``, where given, is a context that times the
+    two ("gather", "all_to_all")."""
     P, q = comm.size, comm.rank
+    part = part or (lambda name: contextlib.nullcontext())
 
     def exchange(boxes):
         (outbox, counts), = boxes.values()
-        m = _counted(comm.all_gather(torch.cat([
-            counts, counts.new_tensor([outbox.shape[1]])])
-            ).view(P, P + 1).cpu().numpy())
+        with part("gather"):
+            m = _counted(comm.all_gather(torch.cat([
+                counts[:P], counts.new_tensor([outbox.shape[1]])])
+                ).view(P, P + 1).cpu().numpy())
         if not m.any():
             return m, None
-        send = torch.cat([outbox[d, :int(m[q, d])] for d in range(P)])
-        return m, {q: comm.all_to_all(send, m[q], m[:, q])}
+        with part("all_to_all"):
+            send = torch.cat([outbox[d, :int(m[q, d])] for d in range(P)])
+            recv = comm.all_to_all(send, m[q], m[:, q])
+        return m, {q: recv}
     return exchange
 
 
@@ -1033,7 +1077,7 @@ def local_exchange(boxes: dict) -> tuple:
     (``boxes`` holds every rank): the counts read, and each process's inbox
     the records sent to it, in rank order."""
     P = len(boxes)
-    m = _counted(np.stack([np.append(c.cpu().numpy(), b.shape[1])
+    m = _counted(np.stack([np.append(c[:P].cpu().numpy(), b.shape[1])
                            for b, c in (boxes[s] for s in range(P))]))
     if not m.any():
         return m, None

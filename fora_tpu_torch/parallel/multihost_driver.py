@@ -41,7 +41,10 @@ SPEC.json holds ``shards`` (G) and ``jobs``, a list of objects with:
              ``delta_stride`` and ``accept_slack`` (defaults 2, 1);
              "build": the FORA+ index built across the processes
              (``index.build_sharded.build_across_processes`` at ``seed``
-             and ``chunk_lanes``, default 2^23), then, after a barrier,
+             and ``chunk_lanes``, default 2^23; its record holds the
+             build's log: windows, rounds, records per round, and the
+             wall's split ``split_s`` and ``walk_device_ms``), then,
+             after a barrier,
              rank 0 saves it as ``DIR/<name>.index`` (the index store)
              and, with ``store`` a directory, as a ShardedIndexStore of G
              shards there, and a second barrier lets later jobs open it;
@@ -58,9 +61,12 @@ place), a pool's level records, the raw walk's rounds and records per
 round.
 A build's record holds its wall, the kernels' launches, the shards this
 process placed and each slice's edges (``shards``, ``slice_edges``), per
-chunk the rounds, the records this process sent and received per round
-and its launches of K4-xp's two forms (``rounds``, ``sent``,
-``received``, ``forms``), and the sha256 of each of the index's arrays
+window of chunks its walks, the rounds, the records this process sent
+and received per round and its launches of K4-xp's two forms
+(``windows``, ``rounds``, ``sent``, ``received``, ``forms``), the wall's
+split (``split_s``: placing, the launches, the counts' all-gather, the
+all-to-all, the endpoints' all-reduce, the pack; ``walk_device_ms``: the
+launches' CUDA events), and the sha256 of each of the index's arrays
 (``digest``), so that every process's index can be compared.
 ``gather`` (in the JSON) is ``multihost.gather_to_host`` of each local
 shard's row ids, checked against 0 .. G * n_loc - 1.

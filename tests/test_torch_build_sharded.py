@@ -153,14 +153,16 @@ def _dangling(weighted: bool):
     return from_edges(src[keep], np.asarray(g.out_indices)[keep], g.n, w=w)
 
 
-def xp_chunk(csr, starts, cum, lo: int, W: int, seed: int, alpha: float,
-             hops: int, P: int) -> tuple:
-    """Chunk [lo, lo + W) of the index walks over P processes of XP_G / P
-    shards each, simulated by xp_chunk_rounds and local_exchange, each
-    launch K4-xp's plain version (``index_walk_xp_chunk`` on CPU tensors):
-    (each process's [W] endpoints, -1 where a walk ended elsewhere; the
-    rounds' [P, P] counts).  Every record's length field is the walk's and
-    its hops taken below it."""
+def xp_window(csr, starts, cum, lo: int, W: int, seed: int, alpha: float,
+              hops: int, P: int, chunk: int = XP_CHUNK) -> tuple:
+    """The window [lo, lo + W) of the index walks (whole chunks of
+    ``chunk``, walk w drawing as walk w % chunk of chunk w // chunk at seed
+    + (w // chunk) 2^32) over P processes of XP_G / P shards each,
+    simulated by xp_chunk_rounds and local_exchange, each launch K4-xp's
+    plain version (``index_walk_xp_chunk`` on CPU tensors): (each
+    process's [W] endpoints, -1 where a walk ended elsewhere; the rounds'
+    [P, P] counts; the processes' own runs).  Every record's length field
+    is its walk's and its hops taken below it."""
     L = XP_G // P
     rows = L * csr.n_loc
     runs = {q: own_run(cum, lo, W, q * rows, (q + 1) * rows)
@@ -171,29 +173,30 @@ def xp_chunk(csr, starts, cum, lo: int, W: int, seed: int, alpha: float,
         a, b = runs[q]
         own = torch.from_numpy(starts[lo + a:lo + b]) if r == 0 else \
             torch.empty(0, dtype=torch.int32)
-        walk.index_walk_xp_chunk(csr.shards(q * L, (q + 1) * L), own, a,
-                                 q * L, XP_G, seed, alpha, hops, inbox, box,
-                                 cnt, ends[q])
-        assert int(cnt[q]) == 0
+        walk.index_walk_xp_chunk(csr.shards(q * L, (q + 1) * L), own, lo + a,
+                                 lo, chunk, q * L, XP_G, seed, alpha, hops,
+                                 inbox, box, cnt, ends[q])
+        assert int(cnt[q]) == 0 and int(cnt[P]) == 0
         for d in range(P):      # (w, cur, h | len << 16, 0)
             rec = box[d, :int(cnt[d])].long()
             length, h = rec[:, 2] >> 16, rec[:, 2] & 0xFFFF
             assert torch.equal(length, walk.lengths_of(
-                seed, rec[:, 0] & 0xFFFFFFFF, alpha, hops))
+                seed, rec[:, 0] & 0xFFFFFFFF, alpha, hops, chunk))
             assert bool((h < length).all()) and not rec[:, 3].any()
             assert bool((rec[:, 1] // rows == d).all())
+            assert bool(((rec[:, 0] >= lo) & (rec[:, 0] < lo + W)).all())
     ms = walk.xp_chunk_rounds(launch, walk.local_exchange,
                               {q: b - a for q, (a, b) in runs.items()}, P,
-                              "cpu")
-    return ends, ms
+                              "cpu", words=1)
+    return ends, ms, runs
 
 
 @pytest.mark.parametrize("hops", [None, 0])
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("P", [1, 2, 4])
 def test_index_walk_xp_plain_simulated_processes(P, weighted, hops):
-    """K4-xp's plain version over P simulated processes on the second
-    chunk of the build's starts (walks 2,048 .. 4,095, so every process's
+    """K4-xp's plain version over P simulated processes on a window of one
+    chunk, the build's second (walks 2,048 .. 4,095, so every process's
     run starts past walk 0): each walk ends in exactly one process, where
     run_walks_philox ends it on the chunk's starts at the chunk's seed;
     more than one round exactly where P > 1 and walks hop; max_hops 0
@@ -204,13 +207,13 @@ def test_index_walk_xp_plain_simulated_processes(P, weighted, hops):
     counts = index_counts(g.out_deg, rcfg)
     starts = np.repeat(np.arange(g.n, dtype=np.int32), counts)
     cum = np.concatenate([[0], np.cumsum(counts)])
-    lo, seed = XP_CHUNK, 9 + (1 << 32)
+    lo = XP_CHUNK
     W = min(XP_CHUNK, len(starts) - lo)
     csr = shard_out_csr(g, ["cpu"] * XP_G)
-    ends, ms = xp_chunk(csr, starts, cum, lo, W, seed, rcfg.alpha, hops, P)
+    ends, ms, _ = xp_window(csr, starts, cum, lo, W, 9, rcfg.alpha, hops, P)
     want = walk.run_walks_philox(to_device(g, device="cpu"),
-                                 torch.from_numpy(starts[lo:lo + W]), seed,
-                                 rcfg.alpha, hops)
+                                 torch.from_numpy(starts[lo:lo + W]),
+                                 9 + (1 << 32), rcfg.alpha, hops)
     assert torch.equal(sum((e >= 0).int() for e in ends),
                        torch.ones(W, dtype=torch.int32))
     assert torch.equal(torch.stack(ends).max(0).values, want)
@@ -222,22 +225,60 @@ def test_index_walk_xp_plain_simulated_processes(P, weighted, hops):
         assert int((g.out_deg[want.numpy()] == 0).sum()) > 0
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("P", [1, 2, 4])
+def test_index_walk_xp_plain_window_of_chunks(P, weighted):
+    """K4-xp's plain version over a window of three chunks (walks 2,048 ..
+    8,191 of the build's, so it starts past walk 0 and ends short), P
+    simulated processes: the endpoints array-equal to each chunk walked
+    as a window of its own and to run_walks_philox on each chunk's starts
+    at its seed; a chunk boundary falls inside a process's own run; the
+    window's rounds are the most that one of its chunks takes."""
+    g = _dangling(weighted)
+    rcfg = ForaConfig(epsilon=0.5).resolved(g.n, g.m)
+    a_, hops = rcfg.alpha, rcfg.max_walk_hops
+    counts = index_counts(g.out_deg, rcfg)
+    starts = np.repeat(np.arange(g.n, dtype=np.int32), counts)
+    cum = np.concatenate([[0], np.cumsum(counts)])
+    lo, hi = XP_CHUNK, min(4 * XP_CHUNK, len(starts))
+    assert hi < 4 * XP_CHUNK      # the last chunk is short
+    csr = shard_out_csr(g, ["cpu"] * XP_G)
+    ends, ms, runs = xp_window(csr, starts, cum, lo, hi - lo, 9, a_, hops, P)
+    got = torch.stack(ends).max(0).values
+    assert torch.equal(sum((e >= 0).int() for e in ends),
+                       torch.ones(hi - lo, dtype=torch.int32))
+    assert any(a < c - lo < b for a, b in runs.values()
+               for c in range(lo + XP_CHUNK, hi, XP_CHUNK))
+    dg = to_device(g, device="cpu")
+    rounds = []
+    for c0 in range(lo, hi, XP_CHUNK):
+        c1 = min(c0 + XP_CHUNK, hi)
+        one, m1, _ = xp_window(csr, starts, cum, c0, c1 - c0, 9, a_, hops, P)
+        assert torch.equal(torch.stack(one).max(0).values, got[c0 - lo:c1 - lo])
+        want = walk.run_walks_philox(dg, torch.from_numpy(starts[c0:c1]),
+                                     9 + ((c0 // XP_CHUNK) << 32), a_, hops)
+        assert torch.equal(got[c0 - lo:c1 - lo], want)
+        rounds.append(len(m1))
+    assert len(ms) == max(rounds)
+    assert (len(ms) > 1) == (P > 1)
+
+
 def xp_build(g, rcfg, seed: int, P: int, chunk: int = XP_CHUNK):
-    """The build across P processes simulated in one: every chunk's walks
-    by ``xp_chunk``, each walk's endpoint from the process where it ended
-    (the max over the processes' [W] endpoints, as the build's all-reduce
-    takes it), then packed."""
+    """The build across P processes simulated in one: every window's
+    walks (``schedule.build_windows``) by ``xp_window``, each walk's
+    endpoint from the process where it ended (the max over the processes'
+    endpoints, as the build's all-reduce takes it), then packed."""
+    from fora_tpu_torch.kernels import schedule
     counts = index_counts(g.out_deg, rcfg)
     total = int(counts.sum())
     starts = np.repeat(np.arange(g.n, dtype=np.int32), counts)
     cum = np.concatenate([[0], np.cumsum(counts)])
     csr = shard_out_csr(g, ["cpu"] * XP_G)
     ends = np.empty(total, dtype=np.int32)
-    for i, lo in enumerate(range(0, total, chunk)):
-        W = min(chunk, total - lo)
-        got, _ = xp_chunk(csr, starts, cum, lo, W, seed + (i << 32),
-                          rcfg.alpha, rcfg.max_walk_hops, P)
-        ends[lo:lo + W] = torch.stack(got).max(0).values.numpy()
+    for lo, hi in schedule.build_windows(total, chunk):
+        got, _, _ = xp_window(csr, starts, cum, lo, hi - lo, seed,
+                              rcfg.alpha, rcfg.max_walk_hops, P, chunk)
+        ends[lo:hi] = torch.stack(got).max(0).values.numpy()
     return pack_index(ends, counts, np.asarray(g.out_deg), rcfg)
 
 
@@ -298,8 +339,9 @@ def test_xp_build_matches_philox_and_jax(weighted):
 def test_index_xp_plan_covers_the_walks(W, n_in):
     """K4-xp's plan, each form: the own-start form's warps of 32 k walks
     cover its starts (k of 1, 2, 4, the largest whose warps fill half of
-    the card's resident warps at its residency), the inbox form's is
-    K6+K4-xp's inbox form's; a form with no walk gets no block."""
+    the card's resident warps at its residency); the inbox form's grid is
+    resident blocks, at most INDEX_XP_INBOX_BLOCKS_PER_SM an SM and a warp
+    for each 32 records at most; a form with no walk gets no block."""
     from fora_tpu_torch.kernels import schedule
     plan = schedule.index_xp_plan(W, n_in, 132)
     own, k = plan.own, plan.own.walks_per_lane
@@ -310,20 +352,104 @@ def test_index_xp_plan_covers_the_walks(W, n_in):
         assert own == schedule.walk_grid(W, k)
     half = 132 * schedule.INDEX_XP_BLOCKS_PER_SM * 8 // 2
     assert k == 4 or W < 32 * 2 * k * half
-    assert plan.inbox == schedule.xp_walk_plan(0, 0, n_in, 132).inbox
+    inbox = plan.inbox
+    assert inbox.blocks == min(132 * schedule.INDEX_XP_INBOX_BLOCKS_PER_SM,
+                               -(-n_in // 256))
+    assert inbox.warps == 8 * inbox.blocks
+    assert (inbox.blocks == 0) == (n_in == 0)
 
 
 def test_index_xp_blocks_per_sm_is_the_launch_bound():
-    """The plan's blocks an SM of K4-xp's own-start form is walk.cu's
-    launch bound of index_walk_xp_kernel, and its inbox form launches
-    K6+K4-xp's inbox kernel, whose bound the raw plan's test holds."""
+    """The plan's blocks an SM of K4-xp's forms are walk.cu's launch bounds
+    of the kernels its entry points launch."""
     import re
     from pathlib import Path
     from fora_tpu_torch.kernels import schedule
     src = (Path(schedule.__file__).parent / "csrc" / "walk.cu").read_text()
-    got = re.findall(r"constexpr int kIndexXpBlocksPerSM = (\d+);", src)
-    assert [int(x) for x in got] == [schedule.INDEX_XP_BLOCKS_PER_SM]
-    assert re.search(r"__launch_bounds__\(kBlockThreads, kIndexXpBlocksPerSM\)"
-                     r"\s+index_walk_xp_kernel\(", src)
-    assert re.search(r"launch_xp_inbox<kXpInboxBlocksPerSM, StagedLeave, "
-                     r"false>", src)
+    for const, want in (("kIndexXpBlocksPerSM",
+                         schedule.INDEX_XP_BLOCKS_PER_SM),
+                        ("kIndexXpInboxBlocksPerSM",
+                         schedule.INDEX_XP_INBOX_BLOCKS_PER_SM)):
+        got = re.findall(rf"constexpr int {const} = (\d+);", src)
+        assert [int(x) for x in got] == [want]
+    for kernel in ("index_xp_own_kernel", "index_xp_inbox_kernel"):
+        assert re.search(r"__launch_bounds__\(kBlockThreads, kBlocks\)"
+                         rf"\s+{kernel}\(", src)
+    assert re.search(r"launch_index_xp_own<kIndexXpBlocksPerSM>\(X, xa\)",
+                     src)
+    assert re.search(r"launch_index_xp_inbox<kIndexXpInboxBlocksPerSM>"
+                     r"\(X, xa\)", src)
+
+
+@pytest.mark.parametrize("total,chunk_lanes,window", [
+    (0, 1 << 11, None), (1, 1 << 11, None), (7763, 1 << 11, None),
+    (24255412, 1 << 23, None), (100, 1 << 26, None), (7763, 1 << 11, 4096),
+    (7763, 1 << 11, 5000), (7763, 1 << 11, 1), (8192, 1 << 11, 8192),
+    (10, 3, 7)])
+def test_build_windows_cover_every_walk(monkeypatch, total, chunk_lanes,
+                                        window):
+    """The build's windows cover its walks once, in order, each of whole
+    chunks (a window of one chunk where XP_BUILD_WALKS holds less than
+    two), the last perhaps short; phase 17's build (24,255,412 walks in
+    chunks of 2^23) is one window."""
+    from fora_tpu_torch.kernels import schedule
+    if window is not None:
+        monkeypatch.setattr(schedule, "XP_BUILD_WALKS", window)
+    wins = schedule.build_windows(total, chunk_lanes)
+    chunks = max(1, schedule.XP_BUILD_WALKS // chunk_lanes)
+    assert [lo for lo, _ in wins] == list(range(0, total,
+                                                chunks * chunk_lanes))
+    assert all(hi == min(lo + chunks * chunk_lanes, total)
+               for lo, hi in wins)
+    assert sum(hi - lo for lo, hi in wins) == total
+    if total == 24255412:
+        assert wins == [(0, total)]
+
+
+@pytest.mark.parametrize("n_in", [0, 1, 5, 31, 32, 33, 1000, 270335,
+                                  270336 * 16 + 7, 13 * 2**20])
+def test_inbox_claims_cover_every_record(n_in):
+    """The persistent inbox form's claims, every warp's first its own and
+    the later ones as its warps take them from the cursor, cover the
+    records once: each 32 k records (k from 1 to the plan's largest, the
+    later ones shrinking as the inbox drains), the last one cut at the
+    inbox's end, from an empty inbox to many grids' worth."""
+    from fora_tpu_torch.kernels import schedule
+    plan = schedule.index_xp_plan(0, n_in, 132).inbox
+    claims = schedule.inbox_claims(n_in, plan)
+    seen = 0
+    for base, c in sorted(claims):
+        assert base == seen
+        seen += c
+    assert seen == n_in
+    last = max(claims)[0] if claims else 0
+    assert all(c % 32 == 0 and 32 <= c <= 32 * plan.claim_max
+               for b, c in claims if b != last)
+    first = [c for _, c in claims[:plan.warps]]
+    assert len(set(first[:-1])) <= 1        # every warp's first claim alike
+    later = [c for b, c in claims[plan.warps:] if b != last]
+    assert later == sorted(later, reverse=True)
+    if n_in >= 32 * plan.warps * plan.claim_max > 0:
+        assert first[0] == 32 * plan.claim_max
+    assert len(claims) <= -(-n_in // 32)
+
+
+@pytest.mark.parametrize("chunk_lanes", [1, 2, 3, 7, 1 << 11, 1553, 3104,
+                                         (1 << 23) - 1, 1 << 23,
+                                         (1 << 23) + 1, 12345678,
+                                         (1 << 31) - 1])
+def test_chunk_divisor_divides_every_walk(chunk_lanes):
+    """K4-xp's division of a walk's number by its chunk's walks, a
+    multiply and a shift (walk.cu's chunk_draw): exact for walk numbers at
+    and around every multiple of chunk_lanes and at random below 2^31,
+    its multiplier below 2^32."""
+    from fora_tpu_torch.kernels import schedule
+    magic, shift = schedule.chunk_divisor(chunk_lanes)
+    assert 0 < magic < 2**32 and 31 <= shift <= 62
+    k = np.arange(0, 2**31 // chunk_lanes + 1, max(1, 2**31 // chunk_lanes
+                                                   // 4096), dtype=object)
+    w = np.concatenate([k * chunk_lanes + d for d in (-1, 0, 1)] + [
+        np.random.default_rng(chunk_lanes).integers(0, 2**31, 4096).astype(
+            object), np.array([0, 2**31 - 1], dtype=object)])
+    w = w[(w >= 0) & (w < 2**31)]
+    assert np.array_equal((w * magic) >> shift, w // chunk_lanes)

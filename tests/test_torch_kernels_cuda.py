@@ -2028,31 +2028,36 @@ def test_raw_walk_xp_stage_overflows(dev, alias, L, G):
     _xp_launch_pair(dev, args, q, P)
 
 
-# ---- K4-xp (index_walk_xp_kernel, the inbox form) against its plain version
+# ---- K4-xp (index_xp_own_kernel, index_xp_inbox_kernel) against its plain
+#      version
 
 
-def _ixp_launch_pair(dev, csr, start, w0, q, L, G, seed, hops, inbox, box,
-                     cnt, W):
-    """One K4-xp launch (process q's, ``csr`` its L slices) against
-    index_walk_xp_plain on fresh outboxes and endpoints: one launch of the
-    form its source takes, equal counts per destination, each
-    destination's records equal as a set (the kernel's slots come in no
-    fixed order), equal endpoints (-1 at the own walks that left).
-    Returns the kernel's (outbox, counts, endpoints)."""
+def _ixp_launch_pair(dev, csr, start, w0, wlo, cl, q, L, G, seed, hops,
+                     inbox, box, cnt, n_ends):
+    """One K4-xp launch (process q's, ``csr`` its L slices, a window of
+    ``n_ends`` walks from ``wlo`` in chunks of ``cl``; ``cnt`` [P + 1]
+    its zeroed counts) against index_walk_xp_plain on fresh outboxes,
+    zeroed counts and endpoints:
+    one launch of the form its source takes, counted on that form's
+    wrapper only, equal counts per destination, each destination's
+    records equal as a set (the kernel's slots come in no fixed order),
+    equal endpoints (-1 at the own walks that left), the inbox form's
+    claims past every warp's first covering the records.  Returns the kernel's (outbox, counts,
+    endpoints)."""
     from fora_tpu_torch import kernels
+    from fora_tpu_torch.kernels import schedule, sm_count
     from fora_tpu_torch.ops import walk
     P = G // L
     got = []
+    assert not cnt.any()
     for form in ("kernel", "plain"):
-        if form == "kernel":
-            x = (box.fill_(-7), cnt.fill_(-7))
-        else:
-            x = (torch.full_like(box, -7), torch.full_like(cnt, -7))
-        e = torch.full((W,), -1, dtype=torch.int32, device=dev)
+        x = ((box.fill_(-7), cnt) if form == "kernel" else
+             (torch.full_like(box, -7), torch.zeros_like(cnt)))
+        e = torch.full((n_ends,), -1, dtype=torch.int32, device=dev)
         fn = (walk.index_walk_xp_chunk if form == "kernel"
               else walk.index_walk_xp_plain)
         before = kernels.launch_counts()
-        fn(csr, start, w0, q * L, G, seed, 0.2, hops, inbox, *x, e)
+        fn(csr, start, w0, wlo, cl, q * L, G, seed, 0.2, hops, inbox, *x, e)
         after = kernels.launch_counts()
         name = "index_walk_xp" if start.shape[0] else "index_walk_xp_inbox"
         assert {k: after[k] - before[k] for k in after} == {
@@ -2060,8 +2065,14 @@ def _ixp_launch_pair(dev, csr, start, w0, q, L, G, seed, hops, inbox, box,
             for k in after}
         got.append((*x, e))
     (box, cnt, e), (pbox, pcnt, pe) = got
-    assert torch.equal(cnt, pcnt) and int(cnt[q]) == 0
-    assert int(cnt.sum()) <= box.shape[1]
+    assert torch.equal(cnt[:P], pcnt[:P]) and int(cnt[q]) == 0
+    assert int(cnt[:P].sum()) <= box.shape[1]
+    if start.shape[0]:
+        assert int(cnt[P]) == 0
+    elif inbox.shape[0]:    # the claims past every warp's first covered it
+        plan = schedule.index_xp_plan(0, inbox.shape[0], sm_count(dev)).inbox
+        first = schedule.inbox_claim(0, inbox.shape[0], plan)
+        assert plan.warps * first + int(cnt[P]) >= inbox.shape[0]
     for d in range(P):
         assert torch.equal(_xp_records(box, cnt, d),
                            _xp_records(pbox, pcnt, d))
@@ -2069,14 +2080,15 @@ def _ixp_launch_pair(dev, csr, start, w0, q, L, G, seed, hops, inbox, box,
     return box, cnt, e
 
 
-def _ixp_rounds(dev, g, csr, starts, lo, W, seed, hops, L, log=None):
-    """The chunk [lo, lo + W) of ``starts`` (sorted by node) with G shards
-    over G / L processes simulated on the card by xp_chunk_rounds and
-    local_exchange, every launch held to index_walk_xp_plain
-    (_ixp_launch_pair) and the kernel's records handed on: each walk ends
-    in exactly one process, where K4's sharded form and run_walks_philox
-    end it.  ``log`` gets per launch (own starts?, records in, records
-    out, blocks, the inbox)."""
+def _ixp_rounds(dev, g, csr, starts, lo, W, cl, seed, hops, L, log=None):
+    """The window [lo, lo + W) of ``starts`` (sorted by node; whole chunks
+    of ``cl`` walks, chunk c at seed + c 2^32) with G shards over G / L
+    processes simulated on the card by xp_chunk_rounds and local_exchange,
+    every launch held to index_walk_xp_plain (_ixp_launch_pair) and the
+    kernel's records handed on: each walk ends in exactly one process,
+    where K4's sharded form and run_walks_philox end it on its chunk.
+    ``log`` gets per launch (own starts?, walks in, records out, blocks,
+    the inbox)."""
     from fora_tpu_torch.graph import to_device
     from fora_tpu_torch.index.build_sharded import own_run
     from fora_tpu_torch.kernels import schedule, sm_count
@@ -2084,11 +2096,16 @@ def _ixp_rounds(dev, g, csr, starts, lo, W, seed, hops, L, log=None):
     G = len(csr.indptr)
     P, rows = G // L, L * csr.n_loc
     cum = np.searchsorted(starts, np.arange(G * csr.n_loc + 1))
-    chunk = torch.as_tensor(starts[lo:lo + W], device=dev)
-    want = walk.walk_endpoints(csr, chunk, seed, 0.2, hops)
+    window = torch.as_tensor(starts[lo:lo + W], device=dev)
     dg = to_device(g, merge_duplicate_edges=False, device=dev)
-    assert torch.equal(want, walk.run_walks_philox(dg, chunk, seed, 0.2,
-                                                   hops))
+    want = []
+    for c0 in range(lo, lo + W, cl):
+        chunk = window[c0 - lo:min(c0 + cl, lo + W) - lo]
+        want.append(walk.walk_endpoints(csr, chunk, seed + ((c0 // cl) << 32),
+                                        0.2, hops))
+        assert torch.equal(want[-1], walk.run_walks_philox(
+            dg, chunk, seed + ((c0 // cl) << 32), 0.2, hops))
+    want = torch.cat(want)
     runs = {q: own_run(cum, lo, W, q * rows, (q + 1) * rows)
             for q in range(P)}
     ends = [torch.full((W,), -1, dtype=torch.int32, device=dev)
@@ -2096,23 +2113,25 @@ def _ixp_rounds(dev, g, csr, starts, lo, W, seed, hops, L, log=None):
 
     def launch(q, r, inbox, box, cnt):
         a, b = runs[q] if r == 0 else (0, 0)
-        own = chunk[a:b].contiguous()
+        own = window[a:b].contiguous()
         _, cnt, e = _ixp_launch_pair(dev, csr.shards(q * L, (q + 1) * L), own,
-                                     a, q, L, G, seed, hops, inbox, box,
-                                     cnt, W)
+                                     lo + a, lo, cl, q, L, G, seed, hops,
+                                     inbox, box, cnt, W)
         ends[q] = torch.maximum(ends[q], e)
         if log is not None:
             plan = schedule.index_xp_plan(b - a, inbox.shape[0],
                                           sm_count(dev))
-            log.append((b > a, inbox.shape[0], int(cnt.sum()),
+            log.append((b > a, max(b - a, inbox.shape[0]),
+                        int(cnt[:P].sum()),
                         (plan.own if b > a else plan.inbox).blocks, inbox))
     rounds = len(walk.xp_chunk_rounds(
         launch, walk.local_exchange, {q: b - a for q, (a, b) in runs.items()},
-        P, dev))
+        P, dev, words=1))
     assert rounds <= hops + 1 and (rounds > 1) == (P > 1)
     assert torch.equal(sum((x >= 0).int() for x in ends),
                        torch.ones(W, dtype=torch.int32, device=dev))
     assert torch.equal(torch.stack(ends).max(0).values, want)
+    return runs
 
 
 @pytest.mark.parametrize("alias", [False, True])
@@ -2126,9 +2145,11 @@ def test_index_walk_xp_kernel_matches_plain(dev, alias, L, cut):
     index_walk_xp_plain on the same own starts and inbox: equal counts per
     destination, each destination's records equal as a set, equal
     endpoints; the kernel's records go on to the next round.  Across the
-    rounds every walk's endpoint is K4's sharded form's bit for bit, and
-    each walk ends in one process.  "mid" is a chunk from walk total / 5,
-    so each process's own run starts past walk 0 (the key offset w0)."""
+    rounds every walk's endpoint is K4's sharded form's on its chunk, bit
+    for bit, and each walk ends in one process.  "whole" is one window of
+    one chunk; "mid" a window of chunks 1 and 2 of chunks of a fifth of
+    the walks, so each process's own run starts past walk 0, and (L < 4) a
+    chunk boundary falls inside one."""
     from fora_tpu_torch import ForaConfig
     from fora_tpu_torch.index import index_counts
     from fora_tpu_torch.index.build_sharded import shard_out_csr
@@ -2138,45 +2159,51 @@ def test_index_walk_xp_kernel_matches_plain(dev, alias, L, cut):
                        index_counts(g.out_deg, rcfg))
     csr = shard_out_csr(g, [dev] * 4)
     t = len(starts)
-    lo, hi = (0, t) if cut == "whole" else (t // 5, 3 * t // 5)
-    _ixp_rounds(dev, g, csr, starts, lo, hi - lo, 0x5DEECE66D * 29,
-                rcfg.max_walk_hops, L)
+    cl = t if cut == "whole" else t // 5
+    lo, hi = (0, t) if cut == "whole" else (cl, 3 * cl)
+    runs = _ixp_rounds(dev, g, csr, starts, lo, hi - lo, cl,
+                       0x5DEECE66D * 29, rcfg.max_walk_hops, L)
+    if cut == "mid" and L < 4:
+        assert any(a < cl < b for a, b in runs.values())
 
 
 @pytest.mark.parametrize("alias,L,G", [(False, 2, 4), (False, 1, 4),
                                         (True, 1, 4), (False, 1, 8)])
 def test_index_walk_xp_stage_overflows(dev, alias, L, G):
-    """K4-xp's staged outbox filled and flushed many times over: on a graph
-    whose every edge leads into the next process's rows (_cross_graph), 32
-    walks from each node that has out-edges (about 2 M), each launch held
+    """K4-xp's warp stages filled: on a graph whose every edge leads into
+    the next process's rows (_cross_graph), 32 walks from each node that
+    has out-edges (about 2 M, two chunks in one window), each launch held
     to index_walk_xp_plain and every endpoint to K4's sharded form
-    (_ixp_rounds); the inbox form's largest launch hands over more records
-    than its warps' bins hold, and so does the own-start form's where a
-    bin holds fewer records than a warp's 128 walks hand over (P >= 4: 42
-    a bin, 18 at P = 8, below a group of lanes, which then goes out by
-    itself); then an inbox of 5 records, below a warp, against the plain
-    version alike."""
+    (_ixp_rounds).  Every hop crosses, so more than half of a launch's
+    walks leave: a warp's stage fills and goes out, in the inbox form many
+    times a launch, to one, three and seven destinations at P = 2, 4 and
+    8; at P = 2 the inbox form's largest launch takes several claims a
+    warp of its resident grid.  Then inboxes of 0, 1 and 5 records, below a
+    warp, against the plain version alike."""
     from fora_tpu_torch.index.build_sharded import shard_out_csr
     n, seed = 1 << 16, 0x5DEECE66D * 11
     P = G // L
     g = _cross_graph(n, G, L, alias)
     csr = shard_out_csr(g, [dev] * G)
     starts = np.repeat(np.arange(n - 64, dtype=np.int32), 32)
-    log = []
-    _ixp_rounds(dev, g, csr, starts, 0, len(starts), seed, 64, L, log)
-    bin_cap = 128 // (P - 1)    # walk.cu's kWarpStage / (P - 1)
-    for own in (True, False) if P >= 4 else (False,):
-        _, _, sent, blocks, _ = max((x for x in log if x[0] == own),
-                                    key=lambda x: x[2])
-        assert sent > blocks * 8 * bin_cap, (own, sent, blocks, bin_cap)
-    inbox = next(x[4] for x in log if not x[0] and x[1] >= 5)[:5]
+    log, cl = [], len(starts) // 2 + 1
+    _ixp_rounds(dev, g, csr, starts, 0, len(starts), cl, seed, 64, L, log)
+    for own in (True, False):
+        _, walks, sent, blocks, _ = max((x for x in log if x[0] == own),
+                                        key=lambda x: x[2])
+        assert sent > walks / 2, (own, sent, walks)
+        if not own and P == 2:     # two claims a warp at the least
+            assert walks > 2 * blocks * 8 * 32
+    inbox = next(x[4] for x in log if not x[0] and x[1] >= 5)
     q = int(inbox[0, 1]) // (L * csr.n_loc)
-    _ixp_launch_pair(dev, csr.shards(q * L, (q + 1) * L),
-                     torch.empty(0, dtype=torch.int32, device=dev), 0, q, L,
-                     G, seed, 64, inbox.contiguous(),
-                     torch.empty((P, 5, 4), dtype=torch.int32, device=dev),
-                     torch.empty(P, dtype=torch.int32, device=dev),
-                     len(starts))
+    for k in (0, 1, 5):
+        _ixp_launch_pair(dev, csr.shards(q * L, (q + 1) * L),
+                         torch.empty(0, dtype=torch.int32, device=dev), 0, 0,
+                         cl, q, L, G, seed, 64, inbox[:k].contiguous(),
+                         torch.empty((P, k, 4), dtype=torch.int32,
+                                     device=dev),
+                         torch.zeros(P + 1, dtype=torch.int32, device=dev),
+                         len(starts))
 
 
 # ---- K6+K4-src (source_walk_kernel) against the chain it replaced ---------

@@ -94,7 +94,7 @@ from fora_tpu_torch.parallel.multihost_driver import index_digest
 # 1e-7, acceptance equal, off the queries at a level's threshold (C2)
 from test_torch_sharded_runner import assert_agree as assert_pools_agree
 from test_torch_exchange import _contrib, _needed
-from test_torch_build_sharded import FIELDS, XP_CHUNK, philox_index
+from test_torch_build_sharded import FIELDS, XP_CHUNK, philox_index, xp_window
 
 torch.set_num_threads(2)
 
@@ -443,14 +443,30 @@ def assert_index_equal(got, want) -> None:
         (want.omega_unit_built, want.rmax_built)
 
 
+def chunk_rounds(g, rcfg, P: int) -> list:
+    """The rounds each chunk of the build's walks takes over P processes
+    when it is walked alone (a window of one chunk, K4-xp's plain version
+    in processes simulated in one)."""
+    from fora_tpu_torch.index.build_sharded import shard_out_csr
+    counts = tidx.index_counts(g.out_deg, rcfg)
+    starts = np.repeat(np.arange(g.n, dtype=np.int32), counts)
+    cum = np.concatenate([[0], np.cumsum(counts)])
+    csr = shard_out_csr(g, ["cpu"] * G)
+    return [len(xp_window(csr, starts, cum, lo, min(XP_CHUNK,
+                                                    len(starts) - lo),
+                          BUILD_SEED, rcfg.alpha, rcfg.max_walk_hops, P)[1])
+            for lo in range(0, len(starts), XP_CHUNK)]
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("P,L", [(1, 4)] + WORLDS)
 def test_build_across_processes_matches_philox(worlds, P, L, weighted):
     """The index built across P processes: rank 0's saved index array-equal
     to the Philox one-process reference at the same seed and chunk, every
-    rank's arrays the same (their sha256), four chunks, each of them
-    rounds of records handed over where P > 1 (every record sent
-    received), no kernel launched on the CPU."""
+    rank's arrays the same (their sha256), four chunks in one window,
+    whose rounds of records handed over (where P > 1; every record sent
+    received) are the most that one of its chunks takes alone, no kernel
+    launched on the CPU, and the wall split into its parts."""
     w = worlds(P)
     g, rcfg = er_build_graph(weighted)
     want = philox_index(g, rcfg, BUILD_SEED)
@@ -458,23 +474,26 @@ def test_build_across_processes_matches_philox(worlds, P, L, weighted):
     got = tidx.load(str(w["out"] / f"{name}.index"), rcfg)
     assert_index_equal(got, want)
     recs = [r["jobs"][name] for r in w["records"]]
-    chunks = -(-int(tidx.index_counts(g.out_deg, rcfg).sum()) // XP_CHUNK)
-    assert chunks >= 3
+    total = int(tidx.index_counts(g.out_deg, rcfg).sum())
+    assert -(-total // XP_CHUNK) >= 3
+    parts = {"place", "walk", "gather", "all_reduce", "pack"}
     for rec in recs:
         assert rec["digest"] == index_digest(want)
         assert (rec["total_edges"], rec["omega_unit_built"],
                 rec["rmax_built"]) == (want.total_edges,
                                        want.omega_unit_built,
                                        want.rmax_built)
-        assert len(rec["rounds"]) == chunks
+        assert rec["windows"] == [[0, total]]
         assert not any(rec["launches"].values())
-        assert rec["forms"] == [[0, 0]] * chunks
-    for i in range(chunks):
-        sent = sum(np.asarray(r["sent"][i]) for r in recs)
-        assert np.array_equal(sent, sum(np.asarray(r["received"][i])
-                                        for r in recs))
-        assert (sent[0] > 0) == (P > 1)
-        assert max(r["rounds"][i] for r in recs) <= rcfg.max_walk_hops + 1
+        assert rec["forms"] == [[0, 0]]
+        assert set(rec["split_s"]) == parts | (
+            {"all_to_all"} if P > 1 else set())
+        assert rec["walk_device_ms"] is None
+    sent = sum(np.asarray(r["sent"][0]) for r in recs)
+    assert np.array_equal(sent, sum(np.asarray(r["received"][0])
+                                    for r in recs))
+    assert (sent[0] > 0) == (P > 1)
+    assert all(r["rounds"] == [max(chunk_rounds(g, rcfg, P))] for r in recs)
 
 
 @pytest.mark.parametrize("P,L", [(1, 4)] + WORLDS)
@@ -534,6 +553,37 @@ def test_build_across_threads_matches_philox(P, L, weighted):
     want = philox_index(g, rcfg, BUILD_SEED)
     for got in threaded_build(g, rcfg, P, L):
         assert_index_equal(got, want)
+
+
+@pytest.mark.parametrize("window", [XP_CHUNK, 2 * XP_CHUNK + 1])
+@pytest.mark.parametrize("P,L", [(1, 4), (2, 2)])
+def test_build_across_threads_in_windows(monkeypatch, P, L, window):
+    """The threads' build with windows of one and of two chunks (the last
+    window short): every process's index array-equal to the Philox
+    reference, each window's rounds the most that one of its chunks takes
+    alone."""
+    from fora_tpu_torch.index.build_sharded import build_across_processes
+    from fora_tpu_torch.kernels import schedule
+    monkeypatch.setattr(schedule, "XP_BUILD_WALKS", window)
+    g, rcfg = er_build_graph(False)
+    want = philox_index(g, rcfg, BUILD_SEED)
+    per = max(1, window // XP_CHUNK)
+    rounds = chunk_rounds(g, rcfg, P)
+    hub, logs = _Hub(P), [{} for _ in range(P)]
+
+    def run(q):
+        mesh = ProcessMesh([torch.device("cpu") if q * L <= s < (q + 1) * L
+                            else None for s in range(P * L)],
+                           _ThreadComm(hub, q, P))
+        return build_across_processes(g, mesh, rcfg, BUILD_SEED,
+                                      chunk_lanes=XP_CHUNK, log=logs[q])
+    with ThreadPoolExecutor(P) as pool:
+        for got in pool.map(run, range(P)):
+            assert_index_equal(got, want)
+    for log in logs:
+        assert len(log["windows"]) == -(-len(rounds) // per)
+        assert log["rounds"] == [max(rounds[i:i + per])
+                                 for i in range(0, len(rounds), per)]
 
 
 def _weighted_er():

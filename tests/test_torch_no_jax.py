@@ -235,11 +235,13 @@ def test_cpu_tensors_never_launch_kernels():
     start = torch.arange(csr.n_loc, dtype=torch.int32).repeat_interleave(4)
     ends = torch.full((start.shape[0],), -1, dtype=torch.int32)
     box = torch.empty((P, start.shape[0], 4), dtype=torch.int32)
-    walk.index_walk_xp_chunk(csr.shards(0, 1), start, 0, 0, 2, 1, 0.2, 64,
-                             torch.empty((0, 4), dtype=torch.int32), box, cnt,
+    cnt = torch.zeros(P + 1, dtype=torch.int32)
+    walk.index_walk_xp_chunk(csr.shards(0, 1), start, 0, 0, 1 << 23, 0, 2, 1,
+                             0.2, 64, torch.empty((0, 4), dtype=torch.int32),
+                             box, cnt, ends)
+    walk.index_walk_xp_chunk(csr.shards(1, 2), start[:0], 0, 0, 1 << 23, 1, 2,
+                             1, 0.2, 64, box[1, :int(cnt[1])],
+                             torch.empty_like(box), torch.zeros_like(cnt),
                              ends)
-    walk.index_walk_xp_chunk(csr.shards(1, 2), start[:0], 0, 1, 2, 1, 0.2, 64,
-                             box[1, :int(cnt[1])], torch.empty_like(box),
-                             torch.zeros_like(cnt), ends)
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
     assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 28
