@@ -41,8 +41,11 @@ memory:
                  through a table of their pointers) and its plain form
                  bit-equal to run_walks_philox on the unsharded graph at
                  shape (i)
-  4. index       build the FORA+ index on the card (K4 + host pack), save
-                 it under bench_data/torch_smoke/, load it back with mmap
+  4. index       build the FORA+ index on the card (K4 through
+                 run_walk_chunks, then K7's pack on the card and the copy
+                 back), save it under bench_data/torch_smoke/, load it
+                 back with mmap; the build's split (walks, keys, sort,
+                 merge, copy back, with_indptr)
   5. queries     256 sources as two pools of 128 through
                  TopkRunner.query_pool(defer_below=64) and flush_deferred
   6. kernels     K2 (every index bucket alone, then the level in one
@@ -57,6 +60,19 @@ memory:
   7. quality     precision@50 of the first 32 queries against the exact
                  oracle (float64 power iteration on the card; exact ties
                  at rank 50 go to the lowest node id); must be >= 0.95
+  8. pack       K7 (kernels/csrc/pack.cu) on phase 4's endpoints, walked
+                 again: K7-keys, K7-sort and K7-merge each torch.equal to
+                 its plain version (index/build.py's *_plain), each timed
+                 as called and by device time (one profiled pack) beside
+                 its bound, its plain version and its library call
+                 (torch.sort, unique_consecutive; torch.unique(keys,
+                 sorted=True, return_counts=True) for the sort and merge
+                 together), the passes K7-sort ran; the host numpy pack
+                 (probes/pack_earlier.py, the form before K7) timed on the
+                 same endpoints, both indexes sha256-equal to phase 4's;
+                 then the build again with a checkpoint, preempted in its
+                 third chunk's walk and resumed: two chunks loaded, the
+                 index sha256-equal to phase 4's
   9. sharded     the graph-sharded indexed engine with G = 4 shards placed
                  by make_mesh (all on cuda:0 on a one-card machine): the
                  phase-1 host CSR and the phase-4 index partitioned, the
@@ -543,6 +559,8 @@ PROFILE_DIR = ROOT / "chiprun_out"
 DEVICE = "cuda:0"
 MAIN_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                 "topk_bounds", "index_walk")
+PACK_KERNELS = ("pack_keys", "sort_keys", "merge_keys")    # K7, a build's
+CKPT_DIR = ROOT / "bench_data" / "torch_smoke_ckpt"        # phase 8
 SHARDED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                    "topk_bounds", "ring_all_gather_hop",
                    "reduce_scatter_onepass")
@@ -975,20 +993,208 @@ def foreign_modules() -> set:
             if m.split(".")[0] in ("jax", "jaxlib", "fora_tpu")}
 
 
-def build_index(g, dg, rcfg, path=INDEX_DIR):
-    """The FORA+ index built on the card (K4 + host pack), saved under
-    ``path`` and loaded back through mmap."""
+def build_index(g, dg, rcfg, path=INDEX_DIR, log=None):
+    """The FORA+ index built on the card (K4, then K7's pack), saved under
+    ``path`` and loaded back through mmap; ``log`` gets the build's split
+    (``split_s``), which is printed."""
     from fora_tpu_torch import index as tidx
+    torch_sync()
     t0 = time.perf_counter()
-    built = tidx.build_walk_index(dg, rcfg, SEED)
+    built = tidx.build_walk_index(dg, rcfg, SEED, log=log)
+    wall = time.perf_counter() - t0
     walks = int(tidx.index_counts(g.out_deg, rcfg).sum())
     print(f"index: {walks} walks -> {built.total_edges} index edges in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{wall:.4f} s" + ("" if log is None else "; split, s: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in log["split_s"].items())))
+    if log is not None:
+        log["wall_s"] = wall
     tidx.save(built, rcfg, str(path), graph=g)
     index = tidx.load(str(path), rcfg, graph=g, mmap=True)
     if index.total_edges != built.total_edges:
         fail("index reload: edge count differs")
     return index
+
+
+def torch_sync() -> None:
+    import torch
+    torch.cuda.synchronize()
+
+
+def _device_ms_by(prof: dict, *names) -> float:
+    """Device ms of the profiled kernels whose name holds one of
+    ``names``."""
+    return sum(ms for key, (ms, _) in prof.items()
+               if any(n + "(" in key or key.endswith(n) for n in names))
+
+
+def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
+    """Phase 8: K7 on phase 4's endpoints (walked again by the build's own
+    loop, ``index_endpoints``): each kernel torch.equal to its plain
+    version, timed as called (``cuda_ms``; K7-sort's as a copy of the keys
+    and the sort, less the copy alone), by device time in one profiled
+    pack, beside its bound, its plain version and its library call; the
+    host numpy pack (the earlier form) on the same endpoints; then the
+    build checkpointed, preempted in its third chunk's walk and resumed.
+    Returns K7's kernel rows."""
+    import shutil
+    import numpy as np
+    import torch
+    from fora_tpu_torch import index as tidx
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.index import build as ib
+    from fora_tpu_torch.parallel.multihost_driver import index_digest
+    from fora_tpu_torch.probes.pack_earlier import pack_index_numpy
+    from fora_tpu_torch.utils.timing import cuda_ms, device_ms
+    want = index_digest(index)
+    ends, counts, deg = ib.index_endpoints(dg, dg, rcfg, SEED, dev)
+    t = ib.pack_tables(counts, deg)
+    offsets, cut, dang = (torch.from_numpy(a).to(dev)
+                          for a in (t.offsets, t.cut, t.dang))
+    L, nb, bits = t.keys, t.nb, 2 * t.nb + 4
+    # K7-keys
+    keys = kernels.pack_keys(ends, offsets, cut, dang, nb)
+    if not torch.equal(keys, ib.pack_keys_plain(ends, offsets, cut, dang,
+                                                nb)):
+        fail("K7-keys differs from pack_keys_plain")
+    # K7-sort (in place between two buffers, so each timed call sorts a
+    # fresh copy of the keys)
+    work, alt = keys.clone(), torch.empty_like(keys)
+    ordered = kernels.sort_keys(work, alt, bits)
+    passes = kernels.sort_keys.last_passes
+    sorted_p = ib.sort_keys_plain(keys)
+    if not torch.equal(ordered, sorted_p):
+        fail("K7-sort differs from sort_keys_plain")
+    spare = alt if ordered is work else work
+    # K7-merge
+    merged = kernels.merge_keys(ordered, spare, nb)
+    for a, b, what in zip(merged, ib.merge_keys_plain(sorted_p, nb),
+                          ("edge_src", "edge_dst", "edge_mult",
+                           "bucket_counts")):
+        if not torch.equal(a, b):
+            fail(f"K7-merge's {what} differs from merge_keys_plain")
+    U = merged[0].numel()
+    print(f"K7: {t.total} endpoints + {len(t.dang)} dangling self-edges -> "
+          f"{L} keys of {bits} bits, {passes} of {-(-bits // 8)} sort "
+          f"passes run (the others' digit the same in every key), {U} "
+          f"unique edges; each kernel torch.equal to its plain version")
+
+    def sort_k():
+        work.copy_(keys)
+        kernels.sort_keys(work, alt, bits)
+    copy_ms = cuda_ms(lambda: work.copy_(keys))
+    pack_args = (ends, offsets, cut, dang, nb)
+    rows = {
+        "pack_keys": dict(
+            ms=cuda_ms(lambda: kernels.pack_keys(*pack_args)),
+            device_ms=device_ms(lambda: kernels.pack_keys(*pack_args)),
+            plain_ms=cuda_ms(lambda: ib.pack_keys_plain(*pack_args),
+                             iters=3),
+            library_ms=None,
+            # the endpoints, offsets, cut table and dangling ids read, the
+            # keys written
+            **bound(nbytes(ends, offsets, cut, dang) + 8 * L)),
+        "sort_keys": dict(
+            ms=cuda_ms(sort_k) - copy_ms,
+            plain_ms=cuda_ms(lambda: ib.sort_keys_plain(keys), iters=3),
+            library_ms=cuda_ms(lambda: torch.sort(keys), iters=3),
+            unique_ms=cuda_ms(lambda: torch.unique(
+                keys, sorted=True, return_counts=True), iters=3),
+            passes=passes,
+            # each pass run reads and writes every key
+            **bound(16 * L * passes)),
+        "merge_keys": dict(
+            ms=cuda_ms(lambda: kernels.merge_keys(ordered, spare, nb)),
+            plain_ms=cuda_ms(lambda: ib.merge_keys_plain(ordered, nb),
+                             iters=3),
+            library_ms=cuda_ms(lambda: torch.unique_consecutive(
+                ordered, return_counts=True), iters=3),
+            # the sorted keys read, src, dst and mult of each unique edge
+            # and the bucket counts written
+            **bound(8 * L + 12 * U + 64)),
+    }
+    for r in rows.values():
+        r["max_abs_err"] = 0.0
+    # one pack on the card, profiled: each kernel's device time
+    copy = ends.clone()
+    prof = profile_once("pack", lambda: ib.pack_index(
+        copy, counts, deg, rcfg, free_endpoints=True), need_trace=False)
+    if not prof:
+        print("K7: no profiler trace; device times not measured")
+    rows["sort_keys"]["device_ms"] = None if not prof else _device_ms_by(
+        prof, "radix_totals_kernel", "radix_hist_kernel",
+        "radix_scan_kernel", "radix_scatter_kernel")
+    rows["merge_keys"]["device_ms"] = None if not prof else _device_ms_by(
+        prof, "merge_count_kernel", "merge_scan_kernel",
+        "merge_write_kernel", "merge_mult_kernel")
+    rows["pack_keys"]["profiled_device_ms"] = _device_ms_by(
+        prof, "pack_keys_kernel")
+    for name, r in rows.items():
+        dms, lib = r["device_ms"], r["library_ms"]
+        print(f"{name}: {r['ms']:.4f} ms as called, "
+              f"{'not measured' if dms is None else f'{dms:.4f}'} device, "
+              f"bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
+              f"{r['plain_ms']:.4f}, library "
+              f"{'none' if lib is None else f'{lib:.4f}'}"
+              + (f", torch.unique (sort and merge) {r['unique_ms']:.4f}"
+                 if "unique_ms" in r else ""))
+    del keys, work, alt, ordered, spare, merged, sorted_p, copy
+    # the whole pack on the card as the build calls it, and the host numpy
+    # pack (the form before K7) on the same endpoints
+    torch_sync()
+    t0 = time.perf_counter()
+    card = ib.pack_index(ends.clone(), counts, deg, rcfg, free_endpoints=True)
+    card_s = time.perf_counter() - t0
+    ends_h = ends.cpu().numpy()
+    t0 = time.perf_counter()
+    host = pack_index_numpy(ends_h, counts, deg, rcfg)
+    host_s = time.perf_counter() - t0
+    if index_digest(card) != want or index_digest(host) != want:
+        fail("K7's or the host numpy pack's index differs from phase 4's")
+    print(f"pack: on the card (K7 and the copy back, with_indptr) "
+          f"{card_s:.4f} s; the host numpy pack (probes/pack_earlier.py) "
+          f"{host_s:.4f} s on the same endpoints; both sha256-equal to "
+          f"phase 4's index; phase 4's build {build_log['wall_s']:.4f} s, "
+          f"split, s: " + ", ".join(f"{k} {v:.4f}" for k, v
+                                    in build_log["split_s"].items()))
+    rows["pack_keys"].update(host_numpy_pack_s=host_s, card_pack_s=card_s)
+    del card, host, ends, ends_h
+    # the build checkpointed, preempted in the third chunk's walk, resumed
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    real, calls = ib.walk_endpoints, [0]
+
+    def preempted(*a, **kw):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise RuntimeError("preempted")
+        return real(*a, **kw)
+    ib.walk_endpoints = preempted
+    try:
+        tidx.build_walk_index(dg, rcfg, SEED, checkpoint_dir=str(CKPT_DIR))
+        fail("the preempted build did not stop")
+    except RuntimeError as e:
+        if "preempted" not in str(e):
+            raise
+    finally:
+        ib.walk_endpoints = real
+    files = sorted(p.name for p in CKPT_DIR.glob("chunk_*.npy"))
+    seen = []
+    torch_sync()
+    t0 = time.perf_counter()
+    resumed = tidx.build_walk_index(
+        dg, rcfg, SEED, checkpoint_dir=str(CKPT_DIR),
+        progress=lambda i, n, cached: seen.append(cached))
+    resumed_s = time.perf_counter() - t0
+    if files != ["chunk_000000.npy", "chunk_000001.npy"] or \
+            seen != [True, True] + [False] * (len(seen) - 2) or \
+            index_digest(resumed) != want:
+        fail(f"checkpointed build: files {files} after the preemption, "
+             f"chunks cached {seen}, or the resumed index differs from "
+             f"phase 4's")
+    shutil.rmtree(CKPT_DIR)
+    print(f"checkpointed build: preempted in chunk 2's walk with {files} "
+          f"saved; resumed in {resumed_s:.4f} s (chunks cached {seen}), "
+          f"sha256-equal to phase 4's index")
+    return rows
 
 
 def level_line(where, st, runner=None) -> str:
@@ -2426,8 +2632,17 @@ def run_cli(g, rcfg, sources, exact_ids, dev):
         fail(f"cli gen-exact-topk disagrees with phase 7's oracle ({same})")
     run_cli_action("shard-graph", cli_argv(
         "shard-graph", "--graph-shards", str(SHARDS)), counts)
+    # the build checkpoints under <index dir>/.build_ckpt: a stale one (of
+    # another seed) is discarded, and the directory is gone after the save
+    ckpt = CLI_DIR / "index" / CLI_DATASET / ".build_ckpt"
+    ckpt.mkdir(parents=True, exist_ok=True)
+    (ckpt / "manifest.json").write_text(json.dumps({"seed": -1}))
     run_cli_action("build", cli_argv("build", "--index-shards", str(SHARDS)),
                    counts)
+    if ckpt.exists():
+        fail(f"cli build: its checkpoint {ckpt} was not removed")
+    print("cli build: a stale checkpoint discarded, the walk chunks "
+          "checkpointed, the directory removed after the save")
     for d in (ddir / f"graph-shards-G{SHARDS}",
               CLI_DIR / "index" / CLI_DATASET / f"shards-G{SHARDS}"):
         if not (d / "meta.json").exists():
@@ -3566,10 +3781,14 @@ def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
     # the sharded index build: the walks over the out-CSR's shard slices
     # (K4's sharded form), every array equal to phase 4's index
     kernels.reset_launch_counts()
+    slog = {}
     t0 = time.perf_counter()
-    sidx = tidx.build_walk_index_sharded(g, mesh, rcfg, SEED)
+    sidx = tidx.build_walk_index_sharded(g, mesh, rcfg, SEED, log=slog)
     build_s = time.perf_counter() - t0
     build_counts = kernels.launch_counts()
+    if any(build_counts[k] != 1 for k in PACK_KERNELS):
+        fail(f"sharded index build: K7 launches "
+             f"{[build_counts[k] for k in PACK_KERNELS]}, expected one each")
     from fora_tpu_torch.parallel.multihost_driver import index_digest
     digest = index_digest(sidx)
     walks = int(tidx.index_counts(g.out_deg, rcfg).sum())
@@ -3579,9 +3798,11 @@ def run_sharded_pool(g, rcfg, index, sources, dev, exact_ids, single):
                               np.asarray(getattr(index, f))):
             fail(f"sharded index build: {f} differs from phase 4's index")
     print(f"sharded index build: {walks} walks over {SHARDS} shard slices "
-          f"in {build_s:.1f} s ({build_counts['index_walk_sharded']} launches "
-          f"of K4's sharded form); every array equal to phase 4's "
-          f"build_walk_index at seed {SEED}")
+          f"in {build_s:.4f} s ({build_counts['index_walk_sharded']} launches "
+          f"of K4's sharded form, the pack on the card by K7); split, s: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in slog["split_s"].items())
+          + f"; every array equal to phase 4's build_walk_index at seed "
+          f"{SEED}")
     # store-backed: both stores written (the index store from the sharded
     # build), then read through mmap
     sdir = ROOT / "bench_data" / "torch_smoke_stores"
@@ -4875,6 +5096,7 @@ def mp_build_checks(name, recs, out, rcfg, want_digest, L, rounds,
             crossed = sum(map(sum, b["received"])) > 0
             if c["index_walk_xp"] <= 0 or (c["index_walk_xp_inbox"] > 0) \
                     != crossed or any(c[k] for k in other) or \
+                    any(c[k] != 1 for k in PACK_KERNELS) or \
                     b["shards"] != list(range(q * L, (q + 1) * L)) or \
                     b["rounds"] != rounds or len(b["windows"]) != 1:
                 fail(f"phase 17 {name} {job}, rank {q}: shards "
@@ -5199,8 +5421,9 @@ def main(argv=None) -> int:
 
     # ---- 4.-5. the main path: index build and queries ------------------
     kernels.reset_launch_counts()
+    build_log = {}
     with Phase("index build"):
-        index = build_index(g, dg, rcfg)
+        index = build_index(g, dg, rcfg, log=build_log)
     with Phase("queries"):
         runner = TopkRunner(dg, rcfg, k=K, index=index, delta_stride=DSTRIDE,
                             accept_slack=ACCEPT)
@@ -5378,6 +5601,10 @@ def main(argv=None) -> int:
         if not prec >= MIN_PRECISION:
             fail(f"precision@{K} {prec:.4f} < {MIN_PRECISION}")
 
+    # ---- 8. K7, the pack on the card --------------------------------------
+    with Phase("pack K7"):
+        rows.update(run_pack(g, dg, rcfg, index, build_log, dev))
+
     # ---- 9. the graph-sharded engine -------------------------------------
     with Phase("sharded"):
         sharded_rows, sharded_launches, sh_iters = run_sharded(
@@ -5469,6 +5696,11 @@ def main(argv=None) -> int:
     if launches["index_spmv"] != level_runs:
         fail(f"K2: {launches['index_spmv']} launches for {level_runs} "
              f"level runs, expected one each")
+    # K7: phase 4's build packed on the card, once each
+    for name in PACK_KERNELS:
+        if launches[name] != 1:
+            fail(f"K7's {name}: {launches[name]} launches in phase 4's "
+                 "build, expected 1")
     print(f"launches in phase 9's timed run ({sh_iters} supersteps): "
           f"{sharded_launches}")
     for name in SHARDED_KERNELS:
@@ -5661,7 +5893,7 @@ def main(argv=None) -> int:
     # pre-pass and K4-hub ran on no path before it, K4-hub only in hubppr
     for name, c in cli_launches.items():
         print(f"launches in phase 14 ({name}): {c}")
-    need = {"build": ("index_walk",),
+    need = {"build": ("index_walk",) + PACK_KERNELS,
             "batch-topk": MAIN_KERNELS[:4], "serve": MAIN_KERNELS[:4],
             "batch-topk sharded": MAIN_KERNELS[:4] + (
                 "reduce_scatter_onepass", "frontier_compact"),
@@ -5814,11 +6046,18 @@ def main(argv=None) -> int:
         # simulated processes, its alias hops on phase 13's; its launches
         # phase 17's first build across the gloo workers)
         "index_walk_xp": ("walk.cu", "fora_tpu/ops/walk.py:269"),
+        # K7: the index pack's keys, radix sort and run-length merge with
+        # the unpack, host C++ in the JAX package (phase 8's endpoints;
+        # its launches phase 4's build)
+        "pack_keys": ("pack.cu", "fora_tpu/_native/radix_sort.cpp:137, 179"),
+        "sort_keys": ("pack.cu", "fora_tpu/_native/radix_sort.cpp:53"),
+        "merge_keys": ("pack.cu",
+                       "fora_tpu/_native/radix_sort.cpp:117, 157, 205"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
         row = rows[name]
-        n = (launches[name] if name in MAIN_KERNELS else
+        n = (launches[name] if name in MAIN_KERNELS + PACK_KERNELS else
              p3_launches[name] if name == "row_scatter_add" else
              pool_launches["routed"]["row_scatter_add"]
              if name == "row_scatter_add_receive" else
@@ -5852,7 +6091,11 @@ def main(argv=None) -> int:
                                            "bytes_bound_ms",
                                            "chain_device_ms", "forms",
                                            "rounds", "earlier_forms",
-                                           "multiprocess_launches")
+                                           "multiprocess_launches",
+                                           "passes", "unique_ms",
+                                           "profiled_device_ms",
+                                           "host_numpy_pack_s",
+                                           "card_pack_s")
                        if k in row},
                     **{k: v for k, v in row.items()
                        if k.startswith(("sharded_", "montecarlo_", "alias_",

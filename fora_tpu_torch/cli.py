@@ -28,8 +28,12 @@ gen-exact-topk solves the weighted chain).
 The engine runs on ``--device`` (default ``cuda``) and refuses to start
 where CUDA is absent unless ``--device cpu`` is given.  The TPU-only flags
 of the JAX CLI (--bf16-gather, --gather-chunk, --push-pair,
---stepped-push, --narrow-r, --jax-cache) and its build checkpoints are not
-carried.
+--stepped-push, --narrow-r, --jax-cache) are not carried.  ``build``
+checkpoints its walk chunks as the JAX CLI does: under ``<index
+dir>/.build_ckpt``, so that a preempted build run again resumes where it
+stopped; a stale checkpoint (another graph, config, seed or random
+stream) is discarded and the build starts again; the directory is removed
+once the index is saved.
 
 Row-sharded forms, as the JAX CLI's: ``shard-graph`` writes the sharded
 graph store (``--shard-counts`` or ``--graph-shards``), ``build
@@ -318,10 +322,29 @@ def _main(argv=None) -> int:
     dg = None if sharded else to_device(g, hub_rows=args.hub_rows, device=dev)
 
     if args.action == "build":
+        import shutil
         from . import index as widx
+        ckpt = Path(_index_dir(args)) / ".build_ckpt"
+        # every 8th chunk and always the last, so that a finished build's
+        # log ends with a line saying so
+        prog = (lambda i, n, cached: None
+                if cached or ((i + 1) % 8 and i + 1 != n) else
+                info("walk chunks", done=i + 1, total=n))
         with timers.phase("build"):
-            idx = widx.build_walk_index(dg, rcfg, args.seed)
+            try:
+                idx = widx.build_walk_index(dg, rcfg, args.seed,
+                                            checkpoint_dir=str(ckpt),
+                                            progress=prog)
+            except ValueError as e:
+                if "checkpoint" not in str(e):
+                    raise
+                info("discarding stale build checkpoint", dir=str(ckpt))
+                shutil.rmtree(ckpt, ignore_errors=True)
+                idx = widx.build_walk_index(dg, rcfg, args.seed,
+                                            checkpoint_dir=str(ckpt),
+                                            progress=prog)
         widx.save(idx, rcfg, _index_dir(args), graph=g)
+        shutil.rmtree(ckpt, ignore_errors=True)
         info("index built", dir=_index_dir(args), endpoints=idx.total_edges,
              bytes=sum(np.asarray(a).nbytes for a in (
                  idx.edge_src, idx.edge_dst, idx.counts_cum, idx.edge_mult)

@@ -1,6 +1,7 @@
-"""FORA+ walk index: counts, the walk loop and the host pack.
+"""FORA+ walk index: counts, the chunk loop with its checkpoints, and the
+pack.
 
-Port of ``fora_tpu/index/build.py`` (60-136, 252-484) without JAX, whose
+Port of ``fora_tpu/index/build.py`` (60-136, 138-456) without JAX, whose
 module imports ``jax`` at load time.  The layout is the same: every pool
 entry (v -> walk endpoint) is an index edge, edges are split into
 NUM_BUCKETS prefix buckets and sorted by (bucket, endpoint, source), and
@@ -8,24 +9,53 @@ NUM_BUCKETS prefix buckets and sorted by (bucket, endpoint, source), and
 each bucket is endpoint-sorted, it is a CSR by endpoint: ``dst_indptr[q]``
 holds its [n+1] row pointers, which the index SpMV kernel (K2) walks.
 
-Arrays stay on the host (numpy, or mmap views after ``store.load``);
-``algo.fora.StagedForaPrograms`` moves one bucket at a time to the device.
+Every builder runs :func:`run_walk_chunks`: the walks in chunks into one
+endpoint buffer on the walks' device, each finished chunk saved to a
+checkpoint directory where one is given (a resumed build is bit-identical
+to an uninterrupted one), then :func:`pack_index`: on a card the three
+kernels of K7 (``kernels/csrc/pack.cu``, the port of the JAX package's
+``_native/radix_sort.cpp``), elsewhere their plain versions
+(:func:`pack_index_plain`), and the copy of the packed arrays to the host.
+
+Index arrays stay on the host (numpy, or mmap views after
+``store.load``); ``algo.fora.StagedForaPrograms`` moves one bucket at a
+time to the device.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import hashlib
+import json
 import math
-from typing import NamedTuple, Optional, Tuple
+import time
+from pathlib import Path
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import ResolvedConfig
-from ..graph.csr import DeviceGraph, dst_indptr
+from ..graph.csr import DeviceGraph
 from ..ops.walk import walk_endpoints
 
 NUM_BUCKETS = 8          # prefix fractions 4^0 .. 4^-(NUM_BUCKETS-1)
 BUCKET_BASE = 4
+PIPELINE_DEPTH = 2       # windows launched ahead of a checkpoint's write
+
+# The random stream a build's chunk i draws, named in a checkpoint's
+# manifest: a chunk may resume only a build whose chunk i draws exactly
+# what it drew.  K4 and K4-xp draw Philox-4x32-10 from seed + i * 2^32 on
+# a card, and the build across processes draws the same words on the CPU;
+# the one-process CPU build walks with a torch.Generator.  (The JAX
+# package's builds name their threefry stream "scheduled-v1".)
+PHILOX_STREAM = "philox4x32-10-k4-v1"
+GENERATOR_STREAM = "torch-generator-v1"
+# device bytes a key of K7 may take: the keys and their ping-pong buffer
+# (16), and at most one unique edge's src, dst and mult (12)
+PACK_BYTES_PER_KEY = 28
 
 
 class WalkIndex(NamedTuple):
@@ -78,20 +108,33 @@ class WalkIndex(NamedTuple):
 
 def with_indptr(index: WalkIndex) -> WalkIndex:
     """``index`` with each bucket's [n+1] row pointers by endpoint (None
-    for an empty bucket)."""
+    for an empty bucket): ``graph.csr.dst_indptr``'s pointers, counted by
+    one bincount and a running sum (its searchsorted of n + 1 nodes in
+    each bucket took 0.21-0.26 s of bench.py's 0.5 s build on the card's
+    host)."""
     ptrs = []
     for q in range(NUM_BUCKETS):
         lo = int(index.bucket_offsets[q])
         hi = int(index.bucket_offsets[q + 1])
-        ptrs.append(dst_indptr(index.edge_dst[lo:hi], index.n)
+        ptrs.append(_endpoint_indptr(index.edge_dst[lo:hi], index.n)
                     if hi > lo else None)
     return index._replace(dst_indptr=tuple(ptrs))
+
+
+def _endpoint_indptr(dst: np.ndarray, n: int) -> np.ndarray:
+    """[n+1] int32: ptr[v] = the endpoints below v of ``dst`` (each in 0 ..
+    n - 1), which for an endpoint-sorted bucket is ``dst_indptr(dst,
+    n)``."""
+    ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(np.asarray(dst), minlength=n)[:n], out=ptr[1:])
+    return ptr.astype(np.int32)
 
 
 def index_counts(out_deg: np.ndarray, rcfg: ResolvedConfig,
                  max_per_node: Optional[int] = None) -> np.ndarray:
     """K_v = ceil(rmax * deg_v * omega_unit) + 1 walks per node (0 for
-    dangling nodes, served by an analytic self-edge)."""
+    dangling nodes, served by an analytic self-edge), at most
+    ``max_per_node``."""
     deg = np.asarray(out_deg, dtype=np.float64)
     k = np.ceil(rcfg.rmax * deg * rcfg.omega_unit).astype(np.int64) + 1
     k[deg == 0] = 0
@@ -100,27 +143,252 @@ def index_counts(out_deg: np.ndarray, rcfg: ResolvedConfig,
     return k
 
 
-def build_walk_index(graph: DeviceGraph, rcfg: ResolvedConfig, seed: int,
-                     chunk_lanes: int = 1 << 23) -> WalkIndex:
-    """Run every index walk on the graph's device, ``chunk_lanes`` walks per
-    launch, then pack the bucketed layout on the host.  Chunk i draws its
-    random numbers from seed ``seed + i * 2^32``."""
-    n = graph.n
-    deg = graph.out_deg.cpu().numpy()
-    counts = index_counts(deg, rcfg)
+def index_walks(out_deg: np.ndarray, rcfg: ResolvedConfig,
+                max_per_node: Optional[int] = None) -> tuple:
+    """(counts, total) of an index build's walks; refuses an index whose
+    ids would pass int32, as the JAX builders do."""
+    counts = index_counts(out_deg, rcfg, max_per_node)
     total = int(counts.sum())
-    if total + n >= 2**31:
+    if total + len(counts) >= 2**31:
         raise ValueError(f"walk index ({total} endpoints) exceeds int32 "
-                         "range")
-    starts = np.repeat(np.arange(n, dtype=np.int32), counts)
-    endpoints = np.empty(total, dtype=np.int32)
-    for i, lo in enumerate(range(0, total, chunk_lanes)):
-        hi = min(lo + chunk_lanes, total)
-        s = torch.from_numpy(starts[lo:hi]).to(graph.device)
-        endpoints[lo:hi] = walk_endpoints(
-            graph, s, seed + (i << 32), rcfg.alpha,
-            rcfg.max_walk_hops).cpu().numpy()
-    return pack_index(endpoints, counts, deg, rcfg)
+                         "range; shard the graph rows first or cap "
+                         "max_per_node")
+    return counts, total
+
+
+def walk_stream(device) -> str:
+    """The random stream an index build's chunks draw on ``device``:
+    K4's Philox words on a card, a torch.Generator's on the CPU."""
+    return (PHILOX_STREAM if torch.device(device).type == "cuda"
+            else GENERATOR_STREAM)
+
+
+def build_fingerprint(graph, rcfg: ResolvedConfig) -> dict:
+    """What a checkpoint's manifest holds of the graph and config: alpha,
+    the walks' hop cap and the graph's content hash."""
+    from .store import graph_fingerprint
+    return {"alpha": rcfg.alpha, "max_hops": rcfg.max_walk_hops,
+            "graph_sha": graph_fingerprint(graph)}
+
+
+def _open_checkpoint(checkpoint_dir: str, manifest: dict) -> Path:
+    """The checkpoint directory, its manifest written, or checked against
+    ``manifest`` where one exists (ValueError if it differs)."""
+    ckpt = Path(checkpoint_dir)
+    ckpt.mkdir(parents=True, exist_ok=True)
+    mf = ckpt / "manifest.json"
+    if mf.exists():
+        if json.loads(mf.read_text()) != manifest:
+            raise ValueError(
+                f"index-build checkpoint at {ckpt} belongs to a different "
+                "graph/config/seed/chunking or random stream; remove it or "
+                "point checkpoint_dir elsewhere")
+    else:
+        tmp = ckpt / ".manifest.json.tmp"
+        tmp.write_text(json.dumps(manifest))
+        tmp.rename(mf)
+    return ckpt
+
+
+def _load_chunk(path: Path, size: int) -> np.ndarray:
+    a = np.load(path)
+    if a.dtype != np.int32 or a.shape != (size,):
+        raise ValueError(f"index-build checkpoint chunk {path} holds "
+                         f"{a.dtype} {a.shape}, expected int32 ({size},)")
+    return a
+
+
+def run_walk_chunks(walk: Callable, counts: np.ndarray, total: int,
+                    seed: int, *, chunk_lanes: int, device, stream: str,
+                    fingerprint: Callable[[], dict],
+                    checkpoint_dir: Optional[str] = None, progress=None,
+                    windows: Optional[list] = None,
+                    agree: Optional[Callable] = None) -> torch.Tensor:
+    """The chunk loop every index builder runs, as
+    ``fora_tpu.index.build.run_walk_chunks``: ``walk(lo, hi, out)`` writes
+    the endpoints of walks lo .. hi - 1 (whole chunks of ``chunk_lanes``;
+    chunk i draws from ``seed + i * 2^32``) into ``out``, its slice of one
+    [total] int32 buffer on ``device``, which is returned.  ``windows``
+    (default: each chunk alone) are the (lo, hi) spans ``walk`` takes.
+
+    ``checkpoint_dir``: every finished chunk's endpoints go to
+    ``chunk_{i:06d}.npy`` (written to a temporary file and renamed), and
+    the chunks found there are loaded and not walked again, so an
+    interrupted build resumes where it stopped.  A manifest refuses
+    (ValueError) a directory of another graph, config, seed, chunking or
+    random stream (``stream``: :data:`PHILOX_STREAM` or
+    :data:`GENERATOR_STREAM`; ``fingerprint()`` gives alpha, the hop cap
+    and the graph's hash), so a checkpoint of the JAX package is refused
+    and the JAX package refuses one of the port.  On a card a window's
+    endpoints go to pinned host memory on a side stream, and its files are
+    written while the next window walks (``PIPELINE_DEPTH``); without a
+    checkpoint no endpoint leaves the device.  On an exception the windows
+    already launched are saved and the exception is raised again.
+
+    ``agree(have)``: across processes, the windows every process has
+    whole (a list of bools in, the agreed list out), so that every process
+    walks the same windows.  ``progress(i, n_chunks, cached)`` after each
+    chunk (on saving it where checkpointing)."""
+    dev = torch.device(device)
+    chunk = chunk_lanes
+    n_chunks = -(-total // chunk)
+    if windows is None:
+        windows = [(lo, min(lo + chunk, total))
+                   for lo in range(0, total, chunk)]
+    ends = torch.empty(total, dtype=torch.int32, device=dev)
+    ckpt = None
+    if checkpoint_dir is not None:
+        manifest = dict(fingerprint())
+        manifest.update({
+            "counts_sha": hashlib.sha1(np.ascontiguousarray(
+                counts, dtype=np.int64).tobytes()).hexdigest(),
+            "seed": int(seed), "chunk": chunk, "total": total,
+            "n": int(len(counts)), "kernel": stream})
+        ckpt = _open_checkpoint(checkpoint_dir, manifest)
+
+    def chunks(lo, hi):
+        return range(lo // chunk, -(-hi // chunk))
+
+    def path(i):
+        return ckpt / f"chunk_{i:06d}.npy"
+
+    have = [ckpt is not None and all(path(i).exists() for i in chunks(*w))
+            for w in windows]
+    if agree is not None and windows:
+        have = agree(have)
+    card = dev.type == "cuda"
+    side = torch.cuda.Stream(dev) if card and ckpt is not None else None
+    widest = max((hi - lo for lo, hi in windows), default=0)
+    pinned = [None] * PIPELINE_DEPTH
+    inflight = collections.deque()
+
+    def drain():
+        lo, hi, host, event = inflight.popleft()
+        if event is not None:
+            event.synchronize()
+        arr = host.numpy()
+        for i in chunks(lo, hi):
+            tmp = ckpt / f".chunk_{i:06d}.npy.tmp"
+            with open(tmp, "wb") as fh:    # np.save(path) would add .npy
+                np.save(fh, arr[i * chunk - lo:min((i + 1) * chunk, hi) - lo])
+            tmp.rename(path(i))
+            if progress is not None:
+                progress(i, n_chunks, False)
+
+    try:
+        for w, (lo, hi) in enumerate(windows):
+            out = ends[lo:hi]
+            if have[w]:
+                for i in chunks(lo, hi):
+                    a, b = i * chunk, min((i + 1) * chunk, hi)
+                    out[a - lo:b - lo].copy_(torch.from_numpy(
+                        _load_chunk(path(i), b - a)))
+                    if progress is not None:
+                        progress(i, n_chunks, True)
+                continue
+            walk(lo, hi, out)
+            if ckpt is None:
+                if progress is not None:
+                    for i in chunks(lo, hi):
+                        progress(i, n_chunks, False)
+                continue
+            event = None
+            if card:
+                k = w % PIPELINE_DEPTH
+                if pinned[k] is None:
+                    pinned[k] = torch.empty(widest, dtype=torch.int32,
+                                            pin_memory=True)
+                host = pinned[k][:hi - lo]
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    host.copy_(out, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(side)
+            else:
+                host = out
+            inflight.append((lo, hi, host, event))
+            if len(inflight) >= PIPELINE_DEPTH:
+                drain()
+        while inflight:
+            drain()
+    except BaseException:
+        # a preempted build: save what was already launched, so that the
+        # resumed build skips it (nothing to save without a checkpoint)
+        if ckpt is not None:
+            try:
+                while inflight:
+                    drain()
+            except Exception:
+                pass
+        raise
+    return ends
+
+
+def build_walk_index(graph: DeviceGraph, rcfg: ResolvedConfig, seed: int,
+                     *, max_per_node: Optional[int] = None,
+                     chunk_lanes: int = 1 << 23,
+                     checkpoint_dir: Optional[str] = None, progress=None,
+                     log: Optional[dict] = None) -> WalkIndex:
+    """Run every index walk on the graph's device, ``chunk_lanes`` walks
+    per launch (chunk i from seed ``seed + i * 2^32``), through
+    :func:`run_walk_chunks` (crash-resume with ``checkpoint_dir``), then
+    :func:`pack_index` on the same device.  ``log``, where given, gets the
+    wall's split (``split_s``: the walks, then the pack's parts), each
+    part ended by a device synchronise."""
+    with _splitter(log, graph.device)("walk"):
+        ends, counts, deg = index_endpoints(
+            graph, graph, rcfg, seed, graph.device, max_per_node=max_per_node,
+            chunk_lanes=chunk_lanes, checkpoint_dir=checkpoint_dir,
+            progress=progress)
+    return pack_index(ends, counts, deg, rcfg, log=log, free_endpoints=True)
+
+
+def index_endpoints(walk_graph, graph, rcfg: ResolvedConfig, seed: int,
+                    device, *, max_per_node: Optional[int] = None,
+                    chunk_lanes: int = 1 << 23,
+                    checkpoint_dir: Optional[str] = None,
+                    progress=None) -> tuple:
+    """The walks of an index build in one process: (endpoints [total]
+    int32 on ``device``, counts, out-degrees).  ``walk_graph`` is what
+    ``ops.walk.walk_endpoints`` walks on ``device`` (a DeviceGraph, or the
+    out-CSR's shard slices), ``graph`` the graph it holds (its degrees and
+    fingerprint); chunk i of ``chunk_lanes`` walks draws from ``seed + i *
+    2^32``, through :func:`run_walk_chunks`."""
+    deg = np.asarray(graph.out_deg.cpu() if isinstance(
+        graph.out_deg, torch.Tensor) else graph.out_deg)
+    counts, total = index_walks(deg, rcfg, max_per_node)
+    starts = np.repeat(np.arange(graph.n, dtype=np.int32), counts)
+    dev = torch.device(device)
+
+    def walk(lo, hi, out):
+        s = torch.from_numpy(starts[lo:hi]).to(dev)
+        walk_endpoints(walk_graph, s, seed + ((lo // chunk_lanes) << 32),
+                       rcfg.alpha, rcfg.max_walk_hops, out=out)
+    ends = run_walk_chunks(
+        walk, counts, total, seed, chunk_lanes=chunk_lanes, device=dev,
+        stream=walk_stream(dev),
+        fingerprint=lambda: build_fingerprint(graph, rcfg),
+        checkpoint_dir=checkpoint_dir, progress=progress)
+    return ends, counts, deg
+
+
+def _splitter(log: Optional[dict], dev):
+    """``part(name)``: a context that adds its host seconds, ended by a
+    synchronise of ``dev``, to ``log["split_s"][name]`` (nothing without
+    a log)."""
+    if log is None:
+        return lambda name: contextlib.nullcontext()
+    split = log.setdefault("split_s", {})
+    dev = torch.device(dev)
+
+    @contextlib.contextmanager
+    def part(name):
+        t0 = time.perf_counter()
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+    return part
 
 
 def _merge_bucket_duplicates(src: np.ndarray, dst: np.ndarray,
@@ -179,25 +447,33 @@ def _bucket_per_entry(counts, offsets, cut, total, src32):
     return (NUM_BUCKETS - 1) - (dinc - base[src32])
 
 
-def pack_index(endpoints: np.ndarray, counts: np.ndarray,
-               out_deg: np.ndarray, rcfg: ResolvedConfig,
-               dedup: bool = True) -> WalkIndex:
-    """Host-side packing of raw pools into the bucketed layout, as
-    ``fora_tpu.index.build.pack_index``: its numpy packed-key branch (one
-    sort and a run-length merge) and its legacy lexsort branch, which give
-    the same arrays as its native radix sort.  The native branch is not
-    carried over: it lives in ``fora_tpu._native``, inside the JAX
-    package."""
-    n = counts.shape[0]
-    total = int(counts.sum())
+class PackTables(NamedTuple):
+    """The host tables of a pack (``pack_tables``)."""
+    counts: np.ndarray        # [n] int64, K_v
+    offsets: np.ndarray       # [n] int64, node v's first entry
+    cut: np.ndarray           # [n, NUM_BUCKETS] int64, ceil(K_v 4^-q)
+    counts_cum: np.ndarray    # [n, NUM_BUCKETS] int32
+    dang: np.ndarray          # [nd] int64, the dangling nodes
+    nb: int                   # bits of a node id in a packed key
+    total: int                # pool entries
+
+    @property
+    def keys(self) -> int:
+        """Keys of the packed branch: every entry and a self-edge a
+        dangling node."""
+        return self.total + len(self.dang)
+
+
+def pack_tables(counts: np.ndarray, out_deg: np.ndarray) -> PackTables:
+    """The host tables every branch of the pack reads.  cut[v, q] =
+    ceil(K_v * 4^-q): entry j of v is in bucket #{q >= 1 : j < cut[v, q]},
+    and counts_cum is the cutoff table itself (+1 at every depth for a
+    dangling node's self-edge)."""
     counts = np.asarray(counts, dtype=np.int64)
+    n = counts.shape[0]
     offsets = np.zeros(n, dtype=np.int64)
     np.cumsum(counts[:-1], out=offsets[1:])
     dang = np.nonzero(np.asarray(out_deg) == 0)[0].astype(np.int64)
-
-    # cut[v, q] = ceil(K_v * 4^-q): entry j of v is in bucket
-    # #{q >= 1 : j < cut[v, q]}, and counts_cum is the cutoff table itself
-    # (+1 at every depth for a dangling node's self-edge)
     cut = np.ceil(counts[:, None].astype(np.float64)
                   * float(BUCKET_BASE) ** -np.arange(NUM_BUCKETS,
                                                      dtype=np.float64)
@@ -206,51 +482,189 @@ def pack_index(endpoints: np.ndarray, counts: np.ndarray,
     counts_cum = cut.astype(np.int32)
     if len(dang):
         counts_cum[dang] += 1
-    counts_cum = np.ascontiguousarray(counts_cum)
+    return PackTables(counts, offsets, np.ascontiguousarray(cut),
+                      np.ascontiguousarray(counts_cum), dang,
+                      max(int(n - 1).bit_length(), 1), int(counts.sum()))
 
-    nd = len(dang)
-    nb = max(int(n - 1).bit_length(), 1)
-    mult = None
-    if dedup and 2 * nb + 4 <= 63:
-        # numpy packed-key path: one np.sort + run-length merge
-        src32 = np.repeat(np.arange(n, dtype=np.int32), counts)
-        bucket = _bucket_per_entry(counts, offsets, cut, total, src32)
-        key = np.empty(total + nd, dtype=np.int64)
-        km = key[:total]
-        np.left_shift(bucket, 2 * nb, out=km)
-        np.bitwise_or(km, endpoints.astype(np.int64) << nb, out=km)
-        np.bitwise_or(km, src32.astype(np.int64), out=km)
-        key[total:] = ((np.int64(NUM_BUCKETS - 1) << (2 * nb))
-                       | (dang << nb) | dang)
-        del bucket, src32
-        key = np.sort(key)
-        first = np.empty(len(key), dtype=bool)
-        if len(key):
-            first[0] = True
-            first[1:] = key[1:] != key[:-1]
-        group = np.cumsum(first) - 1
-        mult = np.bincount(group).astype(np.float32)
-        key = key[first]
-        src = key & ((1 << nb) - 1)
-        dst = (key >> nb) & ((1 << nb) - 1)
-        bucket = (key >> (2 * nb)).astype(np.int8)
+
+def pack_keys_plain(ends: torch.Tensor, offsets: torch.Tensor,
+                    cut: torch.Tensor, dang: torch.Tensor,
+                    nb: int) -> torch.Tensor:
+    """K7-keys' plain version: int64 [total + nd], entry j of node v
+    keyed ``bucket << 2 nb | endpoint << nb | v`` (bucket the number of
+    ``cut[v, 1:]`` above j), then the dangling nodes' self-edges in the
+    deepest bucket (``kernels.pack_keys``)."""
+    dev = ends.device
+    n = cut.shape[0]
+    src = torch.repeat_interleave(torch.arange(n, device=dev), cut[:, 0],
+                                  output_size=ends.shape[0])
+    j = torch.arange(ends.shape[0], device=dev) - offsets[src]
+    bucket = torch.zeros_like(j)
+    for q in range(1, NUM_BUCKETS):
+        bucket += j < cut[src, q]
+    keys = (bucket << (2 * nb)) | (ends.long() << nb) | src
+    deep = ((NUM_BUCKETS - 1) << (2 * nb)) | (dang << nb) | dang
+    return torch.cat([keys, deep])
+
+
+def sort_keys_plain(keys: torch.Tensor) -> torch.Tensor:
+    """K7-sort's plain version: the keys ascending (``kernels.sort_keys``;
+    equal keys are equal, so stability does not show)."""
+    return torch.sort(keys).values
+
+
+def merge_keys_plain(keys: torch.Tensor, nb: int) -> tuple:
+    """K7-merge's plain version on sorted keys: (edge_src, edge_dst int32,
+    edge_mult float32, bucket_counts [NUM_BUCKETS] int64) of the unique
+    keys unpacked, each one's run length its multiplicity
+    (``kernels.merge_keys``)."""
+    u, cnt = torch.unique_consecutive(keys, return_counts=True)
+    mask = (1 << nb) - 1
+    return ((u & mask).int(), ((u >> nb) & mask).int(), cnt.float(),
+            torch.bincount(u >> (2 * nb), minlength=NUM_BUCKETS))
+
+
+def _device_tables(t: PackTables, dev) -> tuple:
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (t.offsets, t.cut, t.dang))
+
+
+def pack_bytes(t: PackTables) -> int:
+    """Device bytes K7 may need beside the endpoints: PACK_BYTES_PER_KEY a
+    key, K7-sort's and K7-merge's scratch, and the tables."""
+    L = t.keys
+    return (PACK_BYTES_PER_KEY * L + 4 * kernels.sort_scratch_words(L)
+            + 4 * (-(-L // kernels.PACK_TILE) + 1)
+            + t.offsets.nbytes + t.cut.nbytes + t.dang.nbytes)
+
+
+def check_pack_fits(need: int, dev) -> None:
+    """Refuse (torch.OutOfMemoryError) a pack of ``need`` bytes that
+    ``dev`` has not free (what the driver reports free, and what the
+    caching allocator holds unused), before any launch."""
+    free = torch.cuda.mem_get_info(dev)[0] + (
+        torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev))
+    if need > free:
+        raise torch.OutOfMemoryError(
+            f"the index pack needs {need} bytes on {dev} "
+            f"({PACK_BYTES_PER_KEY} a key, the scratch and the tables); "
+            f"{free} are free")
+
+
+def _pack_on_card(ends: torch.Tensor, t: PackTables, part,
+                  free_endpoints: bool) -> tuple:
+    """K7 on ``ends``' card: keys, sort, merge (``kernels.pack_keys``,
+    ``sort_keys``, ``merge_keys``)."""
+    dev = ends.device
+    check_pack_fits(pack_bytes(t), dev)
+    with part("keys"):
+        offsets, cut, dang = _device_tables(t, dev)
+        keys = kernels.pack_keys(ends, offsets, cut, dang, t.nb)
+        del offsets, cut, dang
+        if free_endpoints:
+            ends.set_()
+    with part("sort"):
+        alt = torch.empty_like(keys)
+        ordered = kernels.sort_keys(keys, alt, 2 * t.nb + 4)
+        spare = alt if ordered is keys else keys
+    with part("merge"):
+        return kernels.merge_keys(ordered, spare, t.nb)
+
+
+def _pack_plain(ends: torch.Tensor, t: PackTables, part) -> tuple:
+    with part("keys"):
+        keys = pack_keys_plain(ends, *_device_tables(t, ends.device), t.nb)
+    with part("sort"):
+        keys = sort_keys_plain(keys)
+    with part("merge"):
+        return merge_keys_plain(keys, t.nb)
+
+
+def _index_from(t: PackTables, rcfg: ResolvedConfig, packed: tuple,
+                part) -> WalkIndex:
+    """The WalkIndex of a packed branch's (src, dst, mult, bucket_counts)
+    on any device: its arrays copied to the host, then each bucket's row
+    pointers by endpoint."""
+    with part("copy_back"):
+        src, dst, mult, bc = (x.cpu().numpy() for x in packed)
+        off = np.zeros(NUM_BUCKETS + 1, dtype=np.int64)
+        np.cumsum(bc, out=off[1:])
+    with part("indptr"):
+        return with_indptr(WalkIndex(
+            edge_src=src, edge_dst=dst, bucket_offsets=off,
+            counts_cum=t.counts_cum, omega_unit_built=rcfg.omega_unit,
+            rmax_built=rcfg.rmax, edge_mult=mult))
+
+
+def pack_index_plain(endpoints: torch.Tensor, counts: np.ndarray,
+                     out_deg: np.ndarray, rcfg: ResolvedConfig,
+                     log: Optional[dict] = None) -> WalkIndex:
+    """The packed-key branch of ``fora_tpu.index.build.pack_index`` in
+    PyTorch ops on ``endpoints``' device (any): keys by tensor arithmetic,
+    ``torch.sort``, a run-length merge by ``unique_consecutive``.  K7's
+    plain version; the CPU's pack."""
+    t = pack_tables(counts, out_deg)
+    if 2 * t.nb + 4 > 63:
+        raise ValueError(f"pack_index_plain: {len(t.counts)} nodes do not "
+                         "fit a 63-bit packed key")
+    part = _splitter(log, endpoints.device)
+    return _index_from(t, rcfg, _pack_plain(endpoints, t, part), part)
+
+
+def pack_index(endpoints, counts: np.ndarray, out_deg: np.ndarray,
+               rcfg: ResolvedConfig, dedup: bool = True, *,
+               log: Optional[dict] = None,
+               free_endpoints: bool = False) -> WalkIndex:
+    """Pack raw pools into the bucketed layout, as
+    ``fora_tpu.index.build.pack_index``.  ``endpoints`` ([total] int32, a
+    tensor or a numpy array) in node order, ``counts[v]`` of them node
+    v's.  The branches go by shape, as JAX's do: with ``dedup`` and keys
+    of 2 nb + 4 <= 63 bits (about 2^29 nodes), the packed-key branch, on
+    a card K7 (:func:`_pack_on_card`, refusing before any launch a pack
+    that does not fit) and elsewhere :func:`pack_index_plain`; else the
+    legacy lexsort branch on the host.  The branches give the same arrays:
+    the sorted order of a multiset of keys, and its run-length merge, do
+    not depend on the algorithm.  ``free_endpoints``: the pack may free
+    ``endpoints``' storage once the keys are written (K7's memory).
+    ``log`` gets the split (``split_s``: keys, sort, merge, copy_back,
+    indptr)."""
+    ends = (endpoints if isinstance(endpoints, torch.Tensor) else
+            torch.from_numpy(np.ascontiguousarray(endpoints,
+                                                  dtype=np.int32)))
+    if ends.dtype != torch.int32:
+        ends = ends.int()
+    t = pack_tables(counts, out_deg)
+    if not dedup or 2 * t.nb + 4 > 63:
+        return _pack_legacy(ends.cpu().numpy(), t, rcfg, dedup)
+    part = _splitter(log, ends.device)
+    if ends.device.type == "cuda":
+        packed = _pack_on_card(ends, t, part, free_endpoints)
     else:
-        # legacy path: (bucket, dst) sort, optional merge
-        src32 = np.repeat(np.arange(n, dtype=np.int32), counts)
-        bucket = _bucket_per_entry(counts, offsets, cut, total, src32)
-        src = np.concatenate([src32.astype(np.int64), dang])
-        dst = np.concatenate([endpoints.astype(np.int64), dang])
-        bucket = np.concatenate([bucket, np.full(nd, NUM_BUCKETS - 1)])
-        order = np.lexsort((dst, bucket))
-        src, dst, bucket = src[order], dst[order], bucket[order]
-        if dedup:
-            src, dst, bucket, mult = _merge_bucket_duplicates(src, dst,
-                                                              bucket)
+        packed = _pack_plain(ends, t, part)
+    return _index_from(t, rcfg, packed, part)
+
+
+def _pack_legacy(endpoints: np.ndarray, t: PackTables,
+                 rcfg: ResolvedConfig, dedup: bool) -> WalkIndex:
+    """JAX's legacy branch: a (bucket, dst) lexsort, the merge only with
+    ``dedup``."""
+    n = len(t.counts)
+    nd = len(t.dang)
+    src32 = np.repeat(np.arange(n, dtype=np.int32), t.counts)
+    bucket = _bucket_per_entry(t.counts, t.offsets, t.cut, t.total, src32)
+    src = np.concatenate([src32.astype(np.int64), t.dang])
+    dst = np.concatenate([endpoints.astype(np.int64), t.dang])
+    bucket = np.concatenate([bucket, np.full(nd, NUM_BUCKETS - 1)])
+    order = np.lexsort((dst, bucket))
+    src, dst, bucket = src[order], dst[order], bucket[order]
+    mult = None
+    if dedup:
+        src, dst, bucket, mult = _merge_bucket_duplicates(src, dst, bucket)
     return with_indptr(WalkIndex(
         edge_src=np.asarray(src).astype(np.int32),
         edge_dst=np.asarray(dst).astype(np.int32),
         bucket_offsets=_offsets(bucket),
-        counts_cum=counts_cum,
+        counts_cum=t.counts_cum,
         omega_unit_built=rcfg.omega_unit,
         rmax_built=rcfg.rmax,
         edge_mult=mult,

@@ -13,8 +13,10 @@ breaks with one psum per hop of its lockstep walk.  Here the walks read
 the slices through a table of their pointers (K4's sharded form,
 ``ops/walk.py``), so the index is ``index/build.py``'s at the same seed
 and chunk, array for array: chunk i of ``chunk_lanes`` walks draws from
-``seed + i * 2^32`` on both.  There are no checkpoints, since the port's
-single-device builder has none.
+``seed + i * 2^32`` on both.  Every builder runs ``index/build.py``'s
+chunk loop (``run_walk_chunks``) and pack, so their crash-resume
+checkpoints are interchangeable where their random streams agree (one
+manifest format, as the JAX builders share theirs).
 
 Over a ``parallel.mesh.ProcessMesh`` (P processes of L shards, JAX's
 build over a mesh whose graph axis spans processes) each process places
@@ -25,7 +27,10 @@ at once (``kernels.schedule.build_windows``), so the build pays the rounds
 of its longest chunk; one max all-reduce a window of its endpoints (-1
 where a walk ended in another process) gives every process every
 endpoint, the end state of JAX's psum a hop, and every process packs the
-same index.
+same index (on a card with K7).  Checkpointing, every process writes each
+window's chunk files to its own directory; on resume a min all-reduce
+agrees on the windows that every process has whole, and only those are
+skipped, so that the processes' rounds stay in step.
 """
 
 from __future__ import annotations
@@ -42,10 +47,12 @@ from ..config import ResolvedConfig
 from ..graph.alias import AliasTables, build_alias, build_alias_library
 from ..kernels import schedule
 from ..ops.walk import (ShardedOutCSR, index_walk_xp_chunk, process_exchange,
-                        walk_endpoints, xp_chunk_rounds)
+                        xp_chunk_rounds)
 from ..utils.timers import Timers
 from ..utils.timing import StageClock
-from .build import WalkIndex, index_counts, pack_index
+from .build import (PHILOX_STREAM, WalkIndex, _splitter, build_fingerprint,
+                    index_endpoints, index_walks, pack_index,
+                    run_walk_chunks)
 
 
 def _shard_csr(g, n_shards: int, row_multiple: int = 8,
@@ -125,15 +132,12 @@ def shard_out_csr(g, devices, row_multiple: int = 8,
           None if ao is None else ao[s]) for s in local], n_loc, devices)
 
 
-def _walks(g, rcfg: ResolvedConfig) -> tuple:
+def _walks(g, rcfg: ResolvedConfig,
+           max_per_node: Optional[int] = None) -> tuple:
     """(out-degrees, index counts, their total, the starts [total] int32
     sorted by node) of ``g``'s index walks."""
     deg = np.asarray(g.out_deg)
-    counts = index_counts(deg, rcfg)
-    total = int(counts.sum())
-    if total + g.n >= 2**31:
-        raise ValueError(f"walk index ({total} endpoints) exceeds int32 "
-                         "range")
+    counts, total = index_walks(deg, rcfg, max_per_node)
     return deg, counts, total, np.repeat(np.arange(g.n, dtype=np.int32),
                                          counts)
 
@@ -149,16 +153,22 @@ def own_run(cum: np.ndarray, lo: int, W: int, row0: int, row1: int) -> tuple:
     return min(max(a, 0), W), min(max(b, 0), W)
 
 
-def build_walk_index_sharded(g, mesh, rcfg: ResolvedConfig, seed: int,
-                             chunk_lanes: int = 1 << 23) -> WalkIndex:
+def build_walk_index_sharded(g, mesh, rcfg: ResolvedConfig, seed: int, *,
+                             max_per_node: Optional[int] = None,
+                             chunk_lanes: int = 1 << 23,
+                             checkpoint_dir: Optional[str] = None,
+                             progress=None,
+                             log: Optional[dict] = None) -> WalkIndex:
     """``build_walk_index`` with the out-CSR sharded over the mesh's graph
     shards (``mesh`` as the sharded engines take it; a query axis is
     ignored): ``g`` (a host CSRGraph) cut by ``_shard_csr``, each slice on
     its shard's device, every index walk run on the first shard's device
     over the slices, ``chunk_lanes`` walks per launch, chunk i from seed
-    ``seed + i * 2^32``; then the host pack.  The index equals
-    ``build_walk_index(to_device(g), rcfg, seed, chunk_lanes)`` array for
-    array.
+    ``seed + i * 2^32``, through ``run_walk_chunks`` (crash-resume with
+    ``checkpoint_dir``, ``progress`` as there); then the pack on that
+    device.  The index equals ``build_walk_index(to_device(g), rcfg, seed,
+    chunk_lanes=chunk_lanes)`` array for array, and each resumes the
+    other's checkpoint; ``log`` gets the split as there.
 
     Over a ``ProcessMesh`` every process places only its own L slices, on
     its device, walks its own starts of each chunk and the walks handed to
@@ -173,22 +183,24 @@ def build_walk_index_sharded(g, mesh, rcfg: ResolvedConfig, seed: int,
     from ..parallel.sharded import _mesh_groups
     devices = _mesh_groups(mesh)[0]
     if isinstance(devices, ProcessMesh):
-        return build_across_processes(g, devices, rcfg, seed, chunk_lanes)
-    csr = shard_out_csr(g, devices)
-    deg, counts, total, starts = _walks(g, rcfg)
-    endpoints = np.empty(total, dtype=np.int32)
-    for i, lo in enumerate(range(0, total, chunk_lanes)):
-        hi = min(lo + chunk_lanes, total)
-        s = torch.from_numpy(starts[lo:hi]).to(devices[0])
-        endpoints[lo:hi] = walk_endpoints(
-            csr, s, seed + (i << 32), rcfg.alpha,
-            rcfg.max_walk_hops).cpu().numpy()
-    return pack_index(endpoints, counts, deg, rcfg)
+        return build_across_processes(
+            g, devices, rcfg, seed, chunk_lanes, max_per_node=max_per_node,
+            checkpoint_dir=checkpoint_dir, progress=progress)
+    dev = torch.device(devices[0])
+    with _splitter(log, dev)("walk"):
+        ends, counts, deg = index_endpoints(
+            shard_out_csr(g, devices), g, rcfg, seed, dev,
+            max_per_node=max_per_node, chunk_lanes=chunk_lanes,
+            checkpoint_dir=checkpoint_dir, progress=progress)
+    return pack_index(ends, counts, deg, rcfg, log=log, free_endpoints=True)
 
 
 def build_across_processes(g, mesh, rcfg: ResolvedConfig,
                            seed: int, chunk_lanes: int = 1 << 23,
-                           log: Optional[dict] = None) -> WalkIndex:
+                           log: Optional[dict] = None, *,
+                           max_per_node: Optional[int] = None,
+                           checkpoint_dir: Optional[str] = None,
+                           progress=None) -> WalkIndex:
     """:func:`build_walk_index_sharded` over ``mesh``, a ``ProcessMesh``
     (this process's L shards on one device).  ``g``, the host graph, is
     the same on every process; this one places only its shards' slices
@@ -199,7 +211,11 @@ def build_across_processes(g, mesh, rcfg: ResolvedConfig,
     starts of the window, the later rounds the records handed to it, one
     launch of K4-xp each (``index_walk_xp_chunk``); then one max
     all-reduce of the window's int32 endpoints gives every process every
-    endpoint, and every process packs the index.  ``log``, where given,
+    endpoint, and every process packs the index.  The windows run through
+    ``run_walk_chunks`` (each process's ``checkpoint_dir`` its own; on
+    resume a min all-reduce agrees on the windows every process has
+    whole, and only those are skipped), drawing K4's Philox stream on the
+    CPU as on a card.  ``log``, where given,
     gets the placed slices (``shards``, ``slice_edges``), per window its
     walks, rounds, the records this process sent and received per round
     and its launches of each form (``windows``, ``rounds``, ``sent``,
@@ -226,17 +242,17 @@ def build_across_processes(g, mesh, rcfg: ResolvedConfig,
         return timers.phase(name, block_on=fence)
     with part("place"):
         csr = shard_out_csr(g, devices, n_shards=G, local=local)
-        deg, counts, total, starts = _walks(g, rcfg)
+        deg, counts, total, starts = _walks(g, rcfg, max_per_node)
         cum = np.concatenate([[0], np.cumsum(counts)])
     row0, row1 = shard0 * csr.n_loc, (shard0 + L) * csr.n_loc
     exchange = process_exchange(comm, part)
-    endpoints = np.empty(total, dtype=np.int32)
     if log is not None:
         log.update(shards=local, slice_edges=[int(x.numel())
                                               for x in csr.indices],
                    windows=[], rounds=[], sent=[], received=[], forms=[])
     forms = (kernels.index_walk_xp, kernels.index_walk_xp_inbox)
-    for wlo, whi in schedule.build_windows(total, chunk_lanes):
+
+    def window(wlo, whi, out):
         a, b = own_run(cum, wlo, whi - wlo, row0, row1)
         with part("place"):
             own = torch.from_numpy(starts[wlo + a:wlo + b]).to(dev)
@@ -253,7 +269,7 @@ def build_across_processes(g, mesh, rcfg: ResolvedConfig,
         ms = xp_chunk_rounds(launch, exchange, {comm.rank: b - a},
                              comm.size, dev, words=1)
         with part("all_reduce"):
-            endpoints[wlo:whi] = comm.all_reduce(ends, op="max").cpu().numpy()
+            out.copy_(comm.all_reduce(ends, op="max"))
         if log is not None:
             log["windows"].append([wlo, whi])
             log["rounds"].append(len(ms))
@@ -261,8 +277,19 @@ def build_across_processes(g, mesh, rcfg: ResolvedConfig,
             log["received"].append([int(m[:, comm.rank].sum()) for m in ms])
             log["forms"].append([f.launches - n
                                  for f, n in zip(forms, before)])
+
+    def agree(have):
+        # a window is skipped only where every process has it whole: min
+        # over the processes, as a max of the negated flags
+        x = torch.tensor([-int(h) for h in have], dtype=torch.int64)
+        return [v < 0 for v in comm.all_reduce(x, op="max").tolist()]
+    endpoints = run_walk_chunks(
+        window, counts, total, seed, chunk_lanes=chunk_lanes, device=dev,
+        stream=PHILOX_STREAM, fingerprint=lambda: build_fingerprint(g, rcfg),
+        checkpoint_dir=checkpoint_dir, progress=progress,
+        windows=schedule.build_windows(total, chunk_lanes), agree=agree)
     with part("pack"):
-        idx = pack_index(endpoints, counts, deg, rcfg)
+        idx = pack_index(endpoints, counts, deg, rcfg, free_endpoints=True)
     if log is not None:
         log["split_s"] = timers.as_dict()
         log["walk_device_ms"] = clock.ms().get("walk", 0.0) \

@@ -37,6 +37,9 @@ PyTorch versions instead.
 | index_walk_xp           | csrc/walk.cu           | K4-xp's own-start form (round 0 of a process's share of an index build window of whole chunks with the shards spread over processes: K4's walks over its own starts, each drawing as its chunk's, walks that leave through warp-owned bins; the sharded index build across processes) |
 | index_walk_xp_inbox     | csrc/walk.cu           | K4-xp's inbox form (the later rounds: resident blocks whose warps claim the records handed to the process from a cursor, to endpoints and walks that leave) |
 | source_walk             | csrc/walk.cu           | K6+K4-src (a chunk of source-rooted walks in one launch: each walk from its column's source, its weight added at its endpoint, the source's own count in a register; Monte Carlo, HubPPR's queries with its hub branch) |
+| pack_keys               | csrc/pack.cu           | K7-keys (the index pack's packed (bucket, endpoint, source) key of every pool entry and dangling self-edge) |
+| sort_keys               | csrc/pack.cu           | K7-sort (a stable LSD radix sort of the keys, 8-bit digits, constant-digit passes skipped; a call is 1 + 3 a pass launches) |
+| merge_keys              | csrc/pack.cu           | K7-merge (the sorted keys' run-length merge: unique edges unpacked, their multiplicities, the bucket sizes; a call is 4 launches) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 | row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
 | philox_blocks           | csrc/philox_probe.cu   | none: measures the card's rate of Philox-4x32-10 blocks (K4's operations) |
@@ -59,6 +62,12 @@ holds it, with the processes simulated, to ``run_walks_philox``); on a card
 plain version is ``ops.walk.source_walk_chunk_plain``
 (``tests/test_torch_source_walk.py``); on a card ``-k source_walk`` holds
 the kernel to the chain K4 (K4-alias, K4-hub) -> K6-accum alike.
+
+K7's plain versions are ``index/build.py``'s ``pack_keys_plain``,
+``sort_keys_plain`` and ``merge_keys_plain`` (together
+``pack_index_plain``), held to JAX's ``pack_index`` on the CPU by
+``tests/test_torch_pack.py``; on a card ``-k pack`` holds the kernels to
+them bit for bit.
 
 ``csrc/alias.cu`` and ``csrc/graph_io.cu`` hold no kernel: they are the
 host-side alias-table builder that ``graph/alias.py::build_alias_library``
@@ -95,7 +104,8 @@ __all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
            "index_walk_xp_inbox", "source_walk",
            "sector_reads",
            "row_reads",
-           "philox_blocks", "inv_log1m_alpha", "sm_count",
+           "philox_blocks", "pack_keys", "sort_keys", "merge_keys",
+           "PACK_TILE", "inv_log1m_alpha", "sm_count",
            "enable_peer_access",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]
 
@@ -361,12 +371,21 @@ def inv_log1m_alpha(alpha: float) -> float:
     return struct.unpack("f", struct.pack("f", 1.0 / math.log1p(-alpha)))[0]
 
 
+def _walk_out(out, W: int, dev) -> torch.Tensor:
+    """The endpoints' [W] int32 output: ``out`` where given (a caller's
+    slice of a larger buffer), else a new tensor."""
+    if out is None:
+        return torch.empty(W, dtype=torch.int32, device=dev)
+    _check("out", out, torch.int32, (W,), dev)
+    return out
+
+
 def _index_walk(start, out_indptr, out_indices, alias_prob, alias_other,
                 seed, alpha, max_hops, name, hub_id=None, pool=None,
-                plan=None) -> torch.Tensor:
+                plan=None, out=None) -> torch.Tensor:
     """Checks and launches csrc/walk.cu; uniform hops where ``alias_prob``
     and ``alias_other`` are None, no hub lookup where ``hub_id`` and
-    ``pool`` are None.  ``plan`` defaults to ``schedule.walk_plan``'s; only
+    ``pool`` are None; the endpoints into ``out`` where given.  ``plan`` defaults to ``schedule.walk_plan``'s; only
     chip_smoke.py's sweep of walks per lane and the card's tests force
     another (``schedule.walk_grid``)."""
     (W,) = start.shape
@@ -391,7 +410,7 @@ def _index_walk(start, out_indptr, out_indices, alias_prob, alias_other,
         pool_size = pool.shape[1]
     if W >= 2**32:
         raise ValueError(f"{name}: at most 2^32 - 1 walks per call")
-    out = torch.empty(W, dtype=torch.int32, device=dev)
+    out = _walk_out(out, W, dev)
     if W == 0:
         return out
     if plan is None:
@@ -408,12 +427,14 @@ def _index_walk(start, out_indptr, out_indices, alias_prob, alias_other,
 
 def index_walk(start: torch.Tensor, out_indptr: torch.Tensor,
                out_indices: torch.Tensor, seed: int, alpha: float,
-               max_hops: int) -> torch.Tensor:
+               max_hops: int, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """K4: endpoints [W] int32 of one alpha-terminating walk per start,
     each hop to a uniform out-neighbour; walk w's endpoint depends on
-    (seed, w, start[w]) alone, bit-equal to ``ops.walk.run_walks_philox``."""
+    (seed, w, start[w]) alone, bit-equal to ``ops.walk.run_walks_philox``.
+    Written into ``out`` ([W] int32) where given."""
     out = _index_walk(start, out_indptr, out_indices, None, None, seed,
-                      alpha, max_hops, "index_walk")
+                      alpha, max_hops, "index_walk", out=out)
     index_walk.launches += 1
     return out
 
@@ -421,12 +442,14 @@ def index_walk(start: torch.Tensor, out_indptr: torch.Tensor,
 def index_walk_alias(start: torch.Tensor, out_indptr: torch.Tensor,
                      out_indices: torch.Tensor, alias_prob: torch.Tensor,
                      alias_other: torch.Tensor, seed: int, alpha: float,
-                     max_hops: int) -> torch.Tensor:
+                     max_hops: int, out: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """K4's alias branch: as :func:`index_walk`, each hop through the
     Walker alias tables over the out-CSR slots (a weighted graph's
     w(v, u) / W(v)).  Counted apart from the uniform branch."""
     out = _index_walk(start, out_indptr, out_indices, alias_prob,
-                      alias_other, seed, alpha, max_hops, "index_walk_alias")
+                      alias_other, seed, alpha, max_hops, "index_walk_alias",
+                      out=out)
     index_walk_alias.launches += 1
     return out
 
@@ -449,7 +472,8 @@ def index_walk_hub(start: torch.Tensor, out_indptr: torch.Tensor,
 
 
 def _index_walk_sharded(start, indptr, indices, alias_prob, alias_other,
-                        n_loc, seed, alpha, max_hops, name) -> torch.Tensor:
+                        n_loc, seed, alpha, max_hops, name,
+                        out=None) -> torch.Tensor:
     """Checks and launches K4's sharded form: ``indptr``/``indices`` (and
     both alias lists, or neither) hold one tensor per shard; a slice on
     another card than ``start`` is read through a peer pointer (untested:
@@ -476,7 +500,7 @@ def _index_walk_sharded(start, indptr, indices, alias_prob, alias_other,
             enable_peer_access(dev, sdev)
     if W >= 2**32:
         raise ValueError(f"{name}: at most 2^32 - 1 walks per call")
-    out = torch.empty(W, dtype=torch.int32, device=dev)
+    out = _walk_out(out, W, dev)
     if W == 0:
         return out
     plan = schedule.walk_plan(W, sm_count(dev))
@@ -492,14 +516,16 @@ def _index_walk_sharded(start, indptr, indices, alias_prob, alias_other,
 
 def index_walk_sharded(start: torch.Tensor, indptr: list, indices: list,
                        n_loc: int, seed: int, alpha: float,
-                       max_hops: int) -> torch.Tensor:
+                       max_hops: int, out: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """K4's sharded form: as :func:`index_walk` over an out-CSR split into
     row slices (shard s holds rows s * n_loc .. (s + 1) * n_loc - 1 as a
     localized ``indptr[s]`` [n_loc + 1] and its edges ``indices[s]``), each
     hop reading its row's owner slice; the endpoints are ``index_walk``'s
     on the unsharded graph bit for bit."""
     out = _index_walk_sharded(start, indptr, indices, None, None, n_loc,
-                              seed, alpha, max_hops, "index_walk_sharded")
+                              seed, alpha, max_hops, "index_walk_sharded",
+                              out=out)
     index_walk_sharded.launches += 1
     return out
 
@@ -507,13 +533,15 @@ def index_walk_sharded(start: torch.Tensor, indptr: list, indices: list,
 def index_walk_sharded_alias(start: torch.Tensor, indptr: list,
                              indices: list, alias_prob: list,
                              alias_other: list, n_loc: int, seed: int,
-                             alpha: float, max_hops: int) -> torch.Tensor:
+                             alpha: float, max_hops: int,
+                             out: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """K4's sharded form with alias hops (each shard's slice of the alias
     tables beside its edges): :func:`index_walk_alias`'s endpoints on the
     unsharded graph bit for bit.  Counted apart from the uniform form."""
     out = _index_walk_sharded(start, indptr, indices, alias_prob,
                               alias_other, n_loc, seed, alpha, max_hops,
-                              "index_walk_sharded_alias")
+                              "index_walk_sharded_alias", out=out)
     index_walk_sharded_alias.launches += 1
     return out
 
@@ -1452,6 +1480,118 @@ def philox_blocks(out: torch.Tensor, per_thread: int = 256) -> int:
 _peer_pairs: set = set()   # (reader, owner) card indices with access on
 
 
+PACK_TILE = 4096     # keys a block of K7-sort and K7-merge takes (pack.cu)
+
+
+def pack_keys(ends: torch.Tensor, offsets: torch.Tensor, cut: torch.Tensor,
+              dang: torch.Tensor, nb: int) -> torch.Tensor:
+    """K7-keys: the packed sort key of every pool entry, int64 [total +
+    nd] (the bits of a uint64 below 2^63): entry j of node v (at
+    ``offsets[v] + j`` of ``ends`` [total] int32) gets ``bucket << 2 nb |
+    ends[...] << nb | v``, bucket the number of ``cut[v, 1:]`` ([n, 8]
+    int64, ``cut[v, 0]`` = K_v) above j; then the ``dang`` ([nd] int64)
+    nodes' self-edges in the deepest bucket."""
+    (total,) = ends.shape
+    dev = ends.device
+    _check("ends", ends, torch.int32, (total,))
+    n = offsets.shape[0]
+    _check("offsets", offsets, torch.int64, (n,), dev)
+    _check("cut", cut, torch.int64, (n, 8), dev)
+    (nd,) = dang.shape
+    _check("dang", dang, torch.int64, (nd,), dev)
+    if not 1 <= nb or 2 * nb + 4 > 63:
+        raise ValueError(f"pack_keys: {nb} bits a node id; keys of 2 nb + 4 "
+                         "bits must fit 63")
+    keys = torch.empty(total + nd, dtype=torch.int64, device=dev)
+    if total + nd == 0:
+        return keys
+    with torch.cuda.device(dev):
+        err = build.library().fora_pack_keys(
+            _ptr(ends), _ptr(offsets), _ptr(cut), n, _ptr(dang), nd, total,
+            nb, _ptr(keys), _stream(ends))
+    pack_keys.launches += 1
+    _raise_on(err, "pack_keys")
+    return keys
+
+
+def sort_scratch_words(length: int) -> int:
+    """int32 words of K7-sort's scratch for ``length`` keys: the digit
+    totals of up to 8 passes, then 256 counts a tile."""
+    return 8 * 256 + 256 * -(-length // PACK_TILE)
+
+
+def sort_keys(keys: torch.Tensor, alt: torch.Tensor,
+              key_bits: int) -> torch.Tensor:
+    """K7-sort: ``keys`` (int64, non-negative, below 2^key_bits) sorted
+    ascending by a stable LSD radix sort between ``keys`` and ``alt`` (its
+    ping-pong buffer, of the same shape); returns whichever holds the
+    result (the other holds what is left of the input).  Synchronises the
+    stream once, to read the digit totals: a pass whose digit is the same
+    in every key is skipped.  ``sort_keys.last_passes`` is the number of
+    passes that ran."""
+    (L,) = keys.shape
+    dev = keys.device
+    _check("keys", keys, torch.int64, (L,))
+    _check("alt", alt, torch.int64, (L,), dev)
+    if not 1 <= key_bits <= 63 or L >= 2**31:
+        raise ValueError(f"sort_keys: {L} keys of {key_bits} bits")
+    sort_keys.last_passes = 0
+    if L <= 1:
+        return keys
+    words = sort_scratch_words(L)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    done = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = build.library().fora_sort_keys(
+            _ptr(keys), _ptr(alt), L, key_bits, _ptr(scratch), words,
+            ctypes.byref(done), _stream(keys))
+    sort_keys.launches += 1
+    _raise_on(err, "sort_keys")
+    sort_keys.last_passes = done.value
+    return alt if done.value % 2 else keys
+
+
+def merge_keys(keys: torch.Tensor, free: torch.Tensor, nb: int) -> tuple:
+    """K7-merge: the run-length merge of the sorted ``keys`` ([L] int64):
+    (edge_src, edge_dst [U] int32, edge_mult [U] float32, bucket_counts
+    [8] int64) of the U unique keys unpacked (source the low nb bits,
+    endpoint the next nb, bucket the rest), each one's run length its
+    multiplicity.  ``free`` (at least 4 L bytes on the same device, e.g.
+    K7-sort's other buffer) holds each run's start.  Synchronises once,
+    to read U."""
+    (L,) = keys.shape
+    dev = keys.device
+    _check("keys", keys, torch.int64, (L,))
+    _check("free", free, free.dtype, device=dev)
+    if free.numel() * free.element_size() < 4 * L:
+        raise ValueError(f"merge_keys: {free.numel() * free.element_size()}"
+                         f" bytes of scratch for {L} keys, need {4 * L}")
+    if not 1 <= nb or 2 * nb + 4 > 63 or L >= 2**31:
+        raise ValueError(f"merge_keys: {L} keys of {nb}-bit node ids")
+    if L == 0:
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                torch.empty(0, dtype=torch.int32, device=dev),
+                torch.empty(0, dtype=torch.float32, device=dev),
+                torch.zeros(8, dtype=torch.int64, device=dev))
+    heads = torch.empty(-(-L // PACK_TILE) + 1, dtype=torch.int32,
+                        device=dev)
+    bucket_counts = torch.empty(8, dtype=torch.int64, device=dev)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.fora_merge_count(_ptr(keys), L, _ptr(heads), _stream(keys))
+        _raise_on(err, "merge_keys")
+        U = int(heads[-1])
+        src = torch.empty(U, dtype=torch.int32, device=dev)
+        dst = torch.empty(U, dtype=torch.int32, device=dev)
+        mult = torch.empty(U, dtype=torch.float32, device=dev)
+        err = lib.fora_merge_write(
+            _ptr(keys), L, nb, _ptr(heads), U, _ptr(src), _ptr(dst),
+            _ptr(free), _ptr(mult), _ptr(bucket_counts), _stream(keys))
+    merge_keys.launches += 1
+    _raise_on(err, "merge_keys")
+    return src, dst, mult, bucket_counts
+
+
 def enable_peer_access(reader: torch.device, owner: torch.device) -> None:
     """Let kernels on card ``reader`` read memory of card ``owner``
     (cudaDeviceEnablePeerAccess, once per pair).  Raises where the pair
@@ -1472,10 +1612,11 @@ WRAPPERS = (push_prepass, backward_prepass, gather_scatter_add, index_spmv,
             frontier_compact, frontier_prepass, frontier_push, walk_demand,
             expand_lanes, accumulate_endpoints, raw_walk, raw_walk_xp,
             raw_walk_xp_inbox, index_walk_xp, index_walk_xp_inbox,
-            source_walk, philox_blocks)
+            source_walk, philox_blocks, pack_keys, sort_keys, merge_keys)
 for _w in WRAPPERS:
     _w.launches = 0
 topk_bounds.last_state = None
+sort_keys.last_passes = 0
 
 
 def reset_launch_counts() -> None:

@@ -419,28 +419,33 @@ def run_walks(graph, start: torch.Tensor, *,
 
 
 def walk_endpoints(graph, start: torch.Tensor, seed: int,
-                   alpha: float, max_hops: int) -> torch.Tensor:
+                   alpha: float, max_hops: int,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One walk per entry of ``start`` ([W] int32) over ``graph``, a
-    DeviceGraph or a ShardedOutCSR; endpoints [W] int32.  CPU tensors run
-    the plain ``run_walks``; CUDA tensors launch K4, its alias branch on a
-    graph with alias tables, its sharded form over slices."""
+    DeviceGraph or a ShardedOutCSR; endpoints [W] int32, written into
+    ``out`` where given.  CPU tensors run the plain ``run_walks``; CUDA
+    tensors launch K4, its alias branch on a graph with alias tables, its
+    sharded form over slices."""
     if start.device.type == "cpu":
         gen = torch.Generator(device="cpu").manual_seed(seed % 2**63)
-        return run_walks(graph, start, generator=gen, alpha=alpha,
+        ends = run_walks(graph, start, generator=gen, alpha=alpha,
                          max_hops=max_hops)
+        return ends if out is None else out.copy_(ends)
     if isinstance(graph, ShardedOutCSR):
         if graph.alias_prob is not None:
             return kernels.index_walk_sharded_alias(
                 start, graph.indptr, graph.indices, graph.alias_prob,
-                graph.alias_other, graph.n_loc, seed, alpha, max_hops)
+                graph.alias_other, graph.n_loc, seed, alpha, max_hops,
+                out=out)
         return kernels.index_walk_sharded(start, graph.indptr, graph.indices,
-                                          graph.n_loc, seed, alpha, max_hops)
+                                          graph.n_loc, seed, alpha, max_hops,
+                                          out=out)
     if graph.alias_prob is not None:
         return kernels.index_walk_alias(
             start, graph.out_indptr, graph.out_indices, graph.alias_prob,
-            graph.alias_other, seed, alpha, max_hops)
+            graph.alias_other, seed, alpha, max_hops, out=out)
     return kernels.index_walk(start, graph.out_indptr, graph.out_indices,
-                              seed, alpha, max_hops)
+                              seed, alpha, max_hops, out=out)
 
 
 _M32 = 0xFFFFFFFF

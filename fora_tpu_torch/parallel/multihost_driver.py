@@ -48,6 +48,15 @@ SPEC.json holds ``shards`` (G) and ``jobs``, a list of objects with:
              rank 0 saves it as ``DIR/<name>.index`` (the index store)
              and, with ``store`` a directory, as a ShardedIndexStore of G
              shards there, and a second barrier lets later jobs open it;
+             with ``checkpoint_dir`` (this process's own directory) the
+             build checkpoints its chunks there and resumes from them,
+             its record listing the chunks it loaded (``cached``); tests
+             only: ``window_walks`` sets the walks of a window
+             (``schedule.XP_BUILD_WALKS``) in this process, and
+             ``stop_after_windows`` k stops the build once its k-th
+             window's chunk files are written (the window in flight is
+             saved too), its record then holding ``stopped`` and the
+             chunk files present, and nothing saved;
              else the one-shot
 
 Per job the outputs hold the answer (``<name>.values``, ``<name>.ids`` in
@@ -143,13 +152,18 @@ def index_digest(idx) -> dict:
             for f in INDEX_ARRAYS if getattr(idx, f) is not None}
 
 
+class _Stopped(Exception):
+    """A build job's ``stop_after_windows`` was reached."""
+
+
 def build_job(job: dict, G: int, comm, out: Path, cache: dict) -> tuple:
     """A "build" job on this process: (its JSON record, no arrays)."""
     from .. import kernels
     from ..config import ForaConfig
     from ..graph.csr import CSRGraph
-    from ..index import save, save_sharded
+    from ..index import index_counts, save, save_sharded
     from ..index.build_sharded import build_across_processes
+    from ..kernels import schedule
     from .mesh import make_mesh
     g = _graph(job["graph"], G, cache)
     if not isinstance(g, CSRGraph):
@@ -157,18 +171,36 @@ def build_job(job: dict, G: int, comm, out: Path, cache: dict) -> tuple:
     rcfg = ForaConfig(epsilon=job.get("epsilon", 0.5),
                       k=job["k"]).resolved(g.n, g.m)
     mesh = make_mesh(G)
+    chunk = job.get("chunk_lanes", 1 << 23)
+    if job.get("window_walks"):
+        schedule.XP_BUILD_WALKS = job["window_walks"]
+    ckpt, stop = job.get("checkpoint_dir"), job.get("stop_after_windows")
+    # the last chunk of each window: the stop counts the windows saved
+    last = {(hi - 1) // chunk for _, hi in schedule.build_windows(
+        int(index_counts(g.out_deg, rcfg).sum()), chunk)} if stop else ()
+    cached, saved = [], []
+
+    def progress(i, n_chunks, was_cached):
+        (cached if was_cached else saved).append(i)
+        if not was_cached and sum(c in last for c in saved) == stop:
+            raise _Stopped()
     log = {}
     kernels.reset_launch_counts()
     _sync(comm.device)
     t0 = time.perf_counter()
-    idx = build_across_processes(g, mesh, rcfg, job["seed"],
-                                 job.get("chunk_lanes", 1 << 23), log)
+    try:
+        idx = build_across_processes(g, mesh, rcfg, job["seed"], chunk, log,
+                                     checkpoint_dir=ckpt, progress=progress)
+    except _Stopped:
+        return {"stopped": True, "cached": cached,
+                "files": sorted(p.name for p in Path(ckpt).glob("chunk_*"))}, {}
     _sync(comm.device)
     wall = time.perf_counter() - t0
     rec = {"wall_s": wall, "launches": kernels.launch_counts(),
            "total_edges": idx.total_edges,
            "omega_unit_built": idx.omega_unit_built,
-           "rmax_built": idx.rmax_built, **log, "digest": index_digest(idx)}
+           "rmax_built": idx.rmax_built, **log, "digest": index_digest(idx),
+           "cached": cached}
     # every process has built (and packed as many edges) before rank 0
     # writes, and rank 0 has written before any process opens the store
     comm.agree("the built index's edges", idx.total_edges)

@@ -11,6 +11,8 @@ machine without it run them without the suite's conftest:
 import numpy as np
 import pytest
 import torch
+from pack_cases import NAMES as PACK_NAMES
+from pack_cases import case as pack_case
 from topk_cases import CASES, dense_columns
 from walk_chisq import (assert_endpoints_follow, chisquare_pvalue,
                         two_sample_pvalue)
@@ -2305,3 +2307,49 @@ def test_source_walk_on_card_runs_one_launch_a_chunk(dev):
                                        rtol=1e-5, atol=0)
     finally:
         walk.CHUNK_LANES = old
+
+
+@pytest.mark.parametrize("name", PACK_NAMES + ("bench_size",))
+def test_pack_kernels_match_plain(dev, name):
+    """K7 (``kernels/csrc/pack.cu``) against its plain version on the
+    cases of ``pack_cases.py``, bit for bit: K7-keys' keys, K7-sort's
+    order (a pass whose digit is the same in every key skipped), K7-merge's
+    unique edges, multiplicities and bucket counts, then the whole pack on
+    the card against ``pack_index_plain`` on the CPU."""
+    from fora_tpu_torch import ForaConfig, kernels
+    from fora_tpu_torch.index import build as ib
+    ends, counts, deg = pack_case(name)
+    t = ib.pack_tables(counts, deg)
+    e = torch.from_numpy(ends).to(dev)
+    offsets, cut, dang = (torch.from_numpy(a).to(dev)
+                          for a in (t.offsets, t.cut, t.dang))
+    keys = kernels.pack_keys(e, offsets, cut, dang, t.nb)
+    want = ib.pack_keys_plain(e, offsets, cut, dang, t.nb)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, want)
+    work, alt = keys.clone(), torch.empty_like(keys)
+    got = kernels.sort_keys(work, alt, 2 * t.nb + 4)
+    torch.cuda.synchronize()
+    ordered = ib.sort_keys_plain(want)
+    assert torch.equal(got, ordered)
+    k = want.cpu().numpy()
+    varied = sum(len(np.unique((k >> (8 * p)) & 255)) > 1
+                 for p in range(-(-(2 * t.nb + 4) // 8)))
+    assert kernels.sort_keys.last_passes == varied
+    assert (varied < -(-(2 * t.nb + 4) // 8)) >= (name == "constant_digit")
+    spare = alt if got is work else work
+    merged = kernels.merge_keys(got, spare, t.nb)
+    torch.cuda.synchronize()
+    for a, b, what in zip(merged, ib.merge_keys_plain(ordered, t.nb),
+                          ("src", "dst", "mult", "bucket_counts")):
+        assert torch.equal(a, b), what
+    rcfg = ForaConfig(epsilon=0.5).resolved(len(deg), max(int(deg.sum()), 1))
+    before = kernels.launch_counts()
+    idx = ib.pack_index(e, counts, deg, rcfg)
+    after = kernels.launch_counts()
+    assert all(after[k] == before[k] + 1
+               for k in ("pack_keys", "sort_keys", "merge_keys"))
+    ref = ib.pack_index_plain(torch.from_numpy(ends), counts, deg, rcfg)
+    for f in ("edge_src", "edge_dst", "edge_mult", "bucket_offsets",
+              "counts_cum"):
+        np.testing.assert_array_equal(getattr(idx, f), getattr(ref, f), f)

@@ -3,8 +3,9 @@ and answers CPU queries (indexed, sharded, the sharded raw one-shot,
 raw-walk, Monte Carlo, indexed on a weighted graph with its alias tables,
 ``entry()``), builds a sharded index, runs the sharded dry run, the
 gather probe's case, a frontier-compacted push and a relabelled graph and
-index, and its CLI (build, batch-topk, query --algo bippr, hubppr
-and fwdpush) with ``--device cpu``, and imports the multi-process layer
+index, a checkpointed build and the plain pack (K7's), and its CLI
+(build, batch-topk, query --algo bippr, hubppr and fwdpush) with
+``--device cpu``, and imports the multi-process layer
 (``parallel.multihost``, ``parallel.multihost_driver``), whether or not
 ``import jax`` would work, loading
 no module of ``jax`` or ``fora_tpu``; no file of it (nor ``chip_smoke.py``)
@@ -42,6 +43,11 @@ SCRIPT = textwrap.dedent("""
     dg = fora_tpu_torch.to_device(g, merge_duplicate_edges=True,
                                   hub_rows=64, device="cpu")
     idx = tidx.build_walk_index(dg, rcfg, seed=1)
+    ckpt = tidx.build_walk_index(dg, rcfg, seed=1, chunk_lanes=1 << 12,
+                                 checkpoint_dir=sys.argv[2] + "/ckpt")
+    assert ckpt.total_edges > 0
+    from fora_tpu_torch.probes import pack_earlier
+    assert pack_earlier.pack_index_numpy
     runner = fora_tpu_torch.TopkRunner(dg, rcfg, index=idx,
                                        delta_stride=8)
     res = runner.query_pool(queries.generate_sources(g, 3, seed=5), batch=4)
@@ -243,5 +249,11 @@ def test_cpu_tensors_never_launch_kernels():
                              1, 0.2, 64, box[1, :int(cnt[1])],
                              torch.empty_like(box), torch.zeros_like(cnt),
                              ends)
+    # K7's plain pack on CPU tensors (the CPU's pack)
+    from fora_tpu_torch.index import build as ib
+    counts = ib.index_counts(g.out_deg, rcfg)
+    ends = torch.randint(0, g.n, (int(counts.sum()),), dtype=torch.int32)
+    ib.pack_index(ends, counts, g.out_deg, rcfg)
+    ib.pack_index_plain(ends, counts, g.out_deg, rcfg)
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 28
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 31
