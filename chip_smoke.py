@@ -42,10 +42,11 @@ memory:
                  bit-equal to run_walks_philox on the unsharded graph at
                  shape (i)
   4. index       build the FORA+ index on the card (K4 through
-                 run_walk_chunks, then K7's pack on the card and the copy
-                 back), save it under bench_data/torch_smoke/, load it
-                 back with mmap; the build's split (walks, keys, sort,
-                 merge, copy back, with_indptr)
+                 run_walk_chunks, then K7's pack on the card, its merge
+                 counting each bucket's row pointers, and the copy back),
+                 save it under bench_data/torch_smoke/, load it back with
+                 mmap; the build's split (walks, keys, sort, merge, the
+                 edge arrays' copy back, indptr the pointers' copy)
   5. queries     256 sources as two pools of 128 through
                  TopkRunner.query_pool(defer_below=64) and flush_deferred
   6. kernels     K2 (every index bucket alone, then the level in one
@@ -62,12 +63,18 @@ memory:
                  at rank 50 go to the lowest node id); must be >= 0.95
   8. pack       K7 (kernels/csrc/pack.cu) on phase 4's endpoints, walked
                  again: K7-keys, K7-sort and K7-merge each torch.equal to
-                 its plain version (index/build.py's *_plain), each timed
-                 as called and by device time (one profiled pack) beside
-                 its bound, its plain version and its library call
-                 (torch.sort, unique_consecutive; torch.unique(keys,
-                 sorted=True, return_counts=True) for the sort and merge
-                 together), the passes K7-sort ran; the host numpy pack
+                 its plain version (index/build.py's *_plain), K7-sort at
+                 every digit width and K7-sort and K7-merge to their
+                 earlier forms (probes/pack_earlier.cu), the merge's row
+                 pointers to with_indptr's; each timed as called and by
+                 device time (one profiled pack; one profiled run of the
+                 earlier forms and the other widths) beside its bound
+                 (the sort's also at 6 passes), its plain version, its
+                 earlier form and its library call (torch.sort,
+                 unique_consecutive; torch.unique(keys, sorted=True,
+                 return_counts=True) for the sort and merge together), the
+                 passes K7-sort ran; the copy back pageable and pinned
+                 (first use and cached, in turns); the host numpy pack
                  (probes/pack_earlier.py, the form before K7) timed on the
                  same endpoints, both indexes sha256-equal to phase 4's;
                  then the build again with a checkpoint, preempted in its
@@ -1022,20 +1029,71 @@ def torch_sync() -> None:
 
 def _device_ms_by(prof: dict, *names) -> float:
     """Device ms of the profiled kernels whose name holds one of
-    ``names``."""
+    ``names`` (a template's name with its arguments, ``name<``)."""
     return sum(ms for key, (ms, _) in prof.items()
-               if any(n + "(" in key or key.endswith(n) for n in names))
+               if any(n + "(" in key or n + "<" in key or key.endswith(n)
+                      for n in names))
+
+
+def empty_host_cache() -> bool:
+    """Release PyTorch's cached pinned host blocks (so that the next
+    pinned allocation pays its first use); False where this PyTorch has
+    no call for it."""
+    import torch
+    acc = getattr(torch, "accelerator", None)
+    fn = getattr(acc, "empty_host_cache", None) or getattr(
+        torch._C, "_host_emptyCache", None)
+    if fn is None:
+        return False
+    fn()
+    return True
+
+
+def copy_back_rows(packed) -> dict:
+    """The pack's copy back of ``packed`` (merge_keys' five tensors) to
+    the host, seconds: pageable (``.cpu()``, what PR 23 ran) and pinned
+    with the pinned blocks' first use (the host cache emptied before) and
+    cached, in turns (pageable, first use, cached, cached, first use,
+    pageable); each result equal to the pageable copy's."""
+    from fora_tpu_torch.index import build as ib
+    import numpy as np
+    xs = list(packed)
+    want = ib.host_arrays(xs, pinned=False)
+    times = {"pageable": [], "pinned_first_use": [], "pinned_cached": []}
+    isolated = True
+    for kind in ("pageable", "pinned_first_use", "pinned_cached",
+                 "pinned_cached", "pinned_first_use", "pageable"):
+        if kind == "pinned_first_use":
+            isolated &= empty_host_cache()
+        torch_sync()
+        t0 = time.perf_counter()
+        got = ib.host_arrays(xs, pinned=kind != "pageable")
+        times[kind].append(time.perf_counter() - t0)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail(f"the {kind} copy back differs from the pageable one")
+        del got
+    mb = sum(x.numel() * x.element_size() for x in xs) / 1e6
+    print(f"copy back of {mb:.1f} MB, s: " + "; ".join(
+        f"{k} {', '.join(f'{v:.4f}' for v in vs)}" for k, vs in times.items())
+        + ("" if isolated else " (no call empties the pinned cache here: "
+           "first use not isolated)") + f"; the pack copies "
+        f"{'pinned' if ib.PINNED_COPY_BACK else 'pageable'}")
+    return dict(times, first_use_isolated=isolated, megabytes=mb)
 
 
 def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
     """Phase 8: K7 on phase 4's endpoints (walked again by the build's own
     loop, ``index_endpoints``): each kernel torch.equal to its plain
-    version, timed as called (``cuda_ms``; K7-sort's as a copy of the keys
-    and the sort, less the copy alone), by device time in one profiled
-    pack, beside its bound, its plain version and its library call; the
-    host numpy pack (the earlier form) on the same endpoints; then the
-    build checkpointed, preempted in its third chunk's walk and resumed.
-    Returns K7's kernel rows."""
+    version, K7-sort and K7-merge also to their earlier forms
+    (``probes/pack_earlier.cu``) and K7-sort at the other digit widths,
+    the merge's row pointers to ``with_indptr``'s; each timed as called
+    (``cuda_ms``; K7-sort's as a copy of the keys and the sort, less the
+    copy alone) and by device time (one profiled pack, and one profiled
+    run of the earlier forms and the other widths), beside its bound, its
+    plain version, its earlier form and its library call; the copy back
+    pageable and pinned; the host numpy pack (the form before K7) on the
+    same endpoints; then the build checkpointed, preempted in its third
+    chunk's walk and resumed.  Returns K7's kernel rows."""
     import shutil
     import numpy as np
     import torch
@@ -1043,21 +1101,25 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
     from fora_tpu_torch import kernels
     from fora_tpu_torch.index import build as ib
     from fora_tpu_torch.parallel.multihost_driver import index_digest
-    from fora_tpu_torch.probes.pack_earlier import pack_index_numpy
+    from fora_tpu_torch.probes.pack_earlier import (earlier_merge,
+                                                    earlier_sort,
+                                                    pack_index_numpy)
     from fora_tpu_torch.utils.timing import cuda_ms, device_ms
     want = index_digest(index)
     ends, counts, deg = ib.index_endpoints(dg, dg, rcfg, SEED, dev)
     t = ib.pack_tables(counts, deg)
     offsets, cut, dang = (torch.from_numpy(a).to(dev)
                           for a in (t.offsets, t.cut, t.dang))
-    L, nb, bits = t.keys, t.nb, 2 * t.nb + 4
+    L, nb, bits, n = t.keys, t.nb, 2 * t.nb + 4, len(t.counts)
+    digits = kernels.sort_digit_bits(bits)
+    others = [d for d in kernels.SORT_DIGIT_WIDTHS if d != digits]
     # K7-keys
     keys = kernels.pack_keys(ends, offsets, cut, dang, nb)
     if not torch.equal(keys, ib.pack_keys_plain(ends, offsets, cut, dang,
                                                 nb)):
         fail("K7-keys differs from pack_keys_plain")
     # K7-sort (in place between two buffers, so each timed call sorts a
-    # fresh copy of the keys)
+    # fresh copy of the keys), at every digit width, and its earlier form
     work, alt = keys.clone(), torch.empty_like(keys)
     ordered = kernels.sort_keys(work, alt, bits)
     passes = kernels.sort_keys.last_passes
@@ -1065,24 +1127,59 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
     if not torch.equal(ordered, sorted_p):
         fail("K7-sort differs from sort_keys_plain")
     spare = alt if ordered is work else work
-    # K7-merge
-    merged = kernels.merge_keys(ordered, spare, nb)
-    for a, b, what in zip(merged, ib.merge_keys_plain(sorted_p, nb),
+    # w2 and a2 take every later sort, so ordered and spare stay as they are
+    w2, a2 = keys.clone(), torch.empty_like(keys)
+    width_passes = {digits: passes}
+    for d in others:
+        if not torch.equal(kernels.sort_keys(w2.copy_(keys), a2, bits,
+                                             digit_bits=d), sorted_p):
+            fail(f"K7-sort at {d}-bit digits differs from sort_keys_plain")
+        width_passes[d] = kernels.sort_keys.last_passes
+    old_sorted, old_passes = earlier_sort(w2.copy_(keys), a2, bits)
+    if not torch.equal(old_sorted, sorted_p):
+        fail("K7-sort's earlier form differs from sort_keys_plain")
+    # K7-merge, and its row pointers against with_indptr's
+    merged = kernels.merge_keys(ordered, nb, n)
+    for a, b, what in zip(merged, ib.merge_keys_plain(sorted_p, nb, n),
+                          ("edge_src", "edge_dst", "edge_mult",
+                           "bucket_counts", "indptr")):
+        if not torch.equal(a, b):
+            fail(f"K7-merge's {what} differs from merge_keys_plain")
+    for a, b, what in zip(merged, earlier_merge(ordered, spare, nb),
                           ("edge_src", "edge_dst", "edge_mult",
                            "bucket_counts")):
         if not torch.equal(a, b):
-            fail(f"K7-merge's {what} differs from merge_keys_plain")
+            fail(f"K7-merge's {what} differs from its earlier form's")
     U = merged[0].numel()
+    off = np.zeros(ib.NUM_BUCKETS + 1, np.int64)
+    np.cumsum(merged[3].cpu().numpy(), out=off[1:])
+    host_ptr = merged[4].cpu().numpy()
+    ref_ptr = ib.with_indptr(ib.WalkIndex(
+        edge_src=merged[0].cpu().numpy(), edge_dst=merged[1].cpu().numpy(),
+        bucket_offsets=off, counts_cum=t.counts_cum, omega_unit_built=1.0,
+        rmax_built=1.0)).dst_indptr
+    if not all(np.array_equal(host_ptr[q], r) if r is not None
+               else not host_ptr[q].any() for q, r in enumerate(ref_ptr)):
+        fail("K7-merge's row pointers differ from with_indptr's")
     print(f"K7: {t.total} endpoints + {len(t.dang)} dangling self-edges -> "
-          f"{L} keys of {bits} bits, {passes} of {-(-bits // 8)} sort "
-          f"passes run (the others' digit the same in every key), {U} "
-          f"unique edges; each kernel torch.equal to its plain version")
+          f"{L} keys of {bits} bits, sort passes run at each digit width "
+          f"(of those its bits make; the others' digit the same in every "
+          f"key): " + ", ".join(f"{d} bits {p} of {-(-bits // d)}"
+                               for d, p in width_passes.items())
+          + f"; {U} unique edges, pointers [8, {n + 1}]; "
+          f"each kernel torch.equal to its plain version, K7-sort and "
+          f"K7-merge to their earlier forms, the pointers to with_indptr's")
 
-    def sort_k():
-        work.copy_(keys)
-        kernels.sort_keys(work, alt, bits)
-    copy_ms = cuda_ms(lambda: work.copy_(keys))
+    def sort_k(d=digits):
+        w2.copy_(keys)
+        kernels.sort_keys(w2, a2, bits, digit_bits=d)
+
+    def sort_old():
+        w2.copy_(keys)
+        earlier_sort(w2, a2, bits)
+    copy_ms = cuda_ms(lambda: w2.copy_(keys))
     pack_args = (ends, offsets, cut, dang, nb)
+    ptr_bytes = 4 * ib.NUM_BUCKETS * (n + 1)
     rows = {
         "pack_keys": dict(
             ms=cuda_ms(lambda: kernels.pack_keys(*pack_args)),
@@ -1095,49 +1192,96 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
             **bound(nbytes(ends, offsets, cut, dang) + 8 * L)),
         "sort_keys": dict(
             ms=cuda_ms(sort_k) - copy_ms,
+            digit_bits=digits,
+            width_ms={d: cuda_ms(lambda d=d: sort_k(d)) - copy_ms
+                      for d in others},
+            earlier_ms=cuda_ms(sort_old) - copy_ms,
             plain_ms=cuda_ms(lambda: ib.sort_keys_plain(keys), iters=3),
             library_ms=cuda_ms(lambda: torch.sort(keys), iters=3),
             unique_ms=cuda_ms(lambda: torch.unique(
                 keys, sorted=True, return_counts=True), iters=3),
-            passes=passes,
-            # each pass run reads and writes every key
+            passes=passes, width_passes=width_passes,
+            # each pass run reads and writes every key; PR 23's form, at
+            # 6 passes, beside it
+            bound_6_passes_ms=bound(16 * L * 6)["bound_ms"],
             **bound(16 * L * passes)),
         "merge_keys": dict(
-            ms=cuda_ms(lambda: kernels.merge_keys(ordered, spare, nb)),
-            plain_ms=cuda_ms(lambda: ib.merge_keys_plain(ordered, nb),
+            ms=cuda_ms(lambda: kernels.merge_keys(ordered, nb, n)),
+            earlier_ms=cuda_ms(lambda: earlier_merge(ordered, spare, nb)),
+            plain_ms=cuda_ms(lambda: ib.merge_keys_plain(ordered, nb, n),
                              iters=3),
             library_ms=cuda_ms(lambda: torch.unique_consecutive(
                 ordered, return_counts=True), iters=3),
-            # the sorted keys read, src, dst and mult of each unique edge
-            # and the bucket counts written
-            **bound(8 * L + 12 * U + 64)),
+            # the sorted keys read, src, dst and mult of each unique edge,
+            # the bucket counts and the buckets' row pointers written
+            **bound(8 * L + 12 * U + 64 + ptr_bytes)),
     }
     for r in rows.values():
         r["max_abs_err"] = 0.0
-    # one pack on the card, profiled: each kernel's device time
+    rows["pack_keys"]["copy_back_s"] = copy_back_rows(merged)
+    # one pack on the card, profiled: each kernel's device time; then the
+    # earlier forms and the other digit width, profiled
     copy = ends.clone()
     prof = profile_once("pack", lambda: ib.pack_index(
         copy, counts, deg, rcfg, free_endpoints=True), need_trace=False)
     if not prof:
         print("K7: no profiler trace; device times not measured")
+
+    def earlier_and_widths():
+        sort_old()
+        earlier_merge(ordered, spare, nb)
+        for d in others:
+            sort_k(d)
+    prof_old = profile_once("pack_earlier", earlier_and_widths,
+                            need_trace=False)
+    sort_names = ("radix_histogram_kernel", "onesweep_kernel")
     rows["sort_keys"]["device_ms"] = None if not prof else _device_ms_by(
-        prof, "radix_totals_kernel", "radix_hist_kernel",
-        "radix_scan_kernel", "radix_scatter_kernel")
+        prof, *sort_names)
+    rows["sort_keys"]["device_split_ms"] = {
+        k: _device_ms_by(prof, k) for k in sort_names}
+    rows["sort_keys"]["width_device_ms"] = {
+        d: None if not prof_old else _device_ms_by(
+            prof_old, f"radix_histogram_kernel<{d}>", f"onesweep_kernel<{d}>")
+        for d in others}
+    rows["sort_keys"]["earlier_device_ms"] = None if not prof_old else (
+        _device_ms_by(prof_old, "radix_totals_kernel", "radix_hist_kernel",
+                      "radix_scan_kernel", "radix_scatter_kernel"))
     rows["merge_keys"]["device_ms"] = None if not prof else _device_ms_by(
-        prof, "merge_count_kernel", "merge_scan_kernel",
-        "merge_write_kernel", "merge_mult_kernel")
+        prof, "merge_kernel", "merge_pointers_kernel")
+    rows["merge_keys"]["device_split_ms"] = {
+        k: _device_ms_by(prof, k)
+        for k in ("merge_kernel", "merge_pointers_kernel")}
+    rows["merge_keys"]["earlier_device_ms"] = None if not prof_old else (
+        _device_ms_by(prof_old, "merge_count_kernel", "merge_scan_kernel",
+                      "merge_write_kernel", "merge_mult_kernel"))
     rows["pack_keys"]["profiled_device_ms"] = _device_ms_by(
         prof, "pack_keys_kernel")
+
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.4f}"
     for name, r in rows.items():
         dms, lib = r["device_ms"], r["library_ms"]
-        print(f"{name}: {r['ms']:.4f} ms as called, "
-              f"{'not measured' if dms is None else f'{dms:.4f}'} device, "
-              f"bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
+        print(f"{name}: {r['ms']:.4f} ms as called, {fmt(dms)} device"
+              + (f" ({', '.join(f'{k} {v:.4f}' for k, v in r['device_split_ms'].items())})"
+                 if "device_split_ms" in r else "")
+              + f", bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
               f"{r['plain_ms']:.4f}, library "
               f"{'none' if lib is None else f'{lib:.4f}'}"
-              + (f", torch.unique (sort and merge) {r['unique_ms']:.4f}"
-                 if "unique_ms" in r else ""))
-    del keys, work, alt, ordered, spare, merged, sorted_p, copy
+              + (f"; earlier form {r['earlier_ms']:.4f} as called, "
+                 f"{fmt(r['earlier_device_ms'])} device"
+                 if "earlier_ms" in r else ""))
+    r = rows["sort_keys"]
+    both = rows["sort_keys"]["ms"] + rows["merge_keys"]["ms"]
+    print("sort_keys at the other digit widths: " + "; ".join(
+        f"{d} bits {r['width_ms'][d]:.4f} ms as called, "
+        f"{fmt(r['width_device_ms'][d])} device, {width_passes[d]} passes"
+        for d in others)
+          + f"; at {digits}: {r['ms']:.4f}, {passes} passes; bound at 6 "
+          f"passes {r['bound_6_passes_ms']:.4f}; the sort and the merge "
+          f"{both:.4f} ms against torch.unique(keys, sorted=True, "
+          f"return_counts=True) {r['unique_ms']:.4f}")
+    del keys, work, alt, ordered, spare, merged, sorted_p, copy, w2, a2
+    del old_sorted
     # the whole pack on the card as the build calls it, and the host numpy
     # pack (the form before K7) on the same endpoints
     torch_sync()
@@ -1150,7 +1294,8 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
     host_s = time.perf_counter() - t0
     if index_digest(card) != want or index_digest(host) != want:
         fail("K7's or the host numpy pack's index differs from phase 4's")
-    print(f"pack: on the card (K7 and the copy back, with_indptr) "
+    print(f"pack: on the card (K7 and the copy back of the arrays and "
+          f"pointers) "
           f"{card_s:.4f} s; the host numpy pack (probes/pack_earlier.py) "
           f"{host_s:.4f} s on the same endpoints; both sha256-equal to "
           f"phase 4's index; phase 4's build {build_log['wall_s']:.4f} s, "
@@ -6095,7 +6240,12 @@ def main(argv=None) -> int:
                                            "passes", "unique_ms",
                                            "profiled_device_ms",
                                            "host_numpy_pack_s",
-                                           "card_pack_s")
+                                           "card_pack_s", "digit_bits",
+                                           "device_split_ms", "width_ms",
+                                           "width_device_ms",
+                                           "width_passes",
+                                           "bound_6_passes_ms",
+                                           "copy_back_s")
                        if k in row},
                     **{k: v for k, v in row.items()
                        if k.startswith(("sharded_", "montecarlo_", "alias_",

@@ -14,8 +14,9 @@ endpoint buffer on the walks' device, each finished chunk saved to a
 checkpoint directory where one is given (a resumed build is bit-identical
 to an uninterrupted one), then :func:`pack_index`: on a card the three
 kernels of K7 (``kernels/csrc/pack.cu``, the port of the JAX package's
-``_native/radix_sort.cpp``), elsewhere their plain versions
-(:func:`pack_index_plain`), and the copy of the packed arrays to the host.
+``_native/radix_sort.cpp``; its merge also counts each bucket's row
+pointers), elsewhere their plain versions (:func:`pack_index_plain`), and
+the copy of the packed arrays and pointers to the host.
 
 Index arrays stay on the host (numpy, or mmap views after
 ``store.load``); ``algo.fora.StagedForaPrograms`` moves one bucket at a
@@ -56,6 +57,11 @@ GENERATOR_STREAM = "torch-generator-v1"
 # device bytes a key of K7 may take: the keys and their ping-pong buffer
 # (16), and at most one unique edge's src, dst and mult (12)
 PACK_BYTES_PER_KEY = 28
+# the pack's arrays come back to pinned host memory, not pageable (.cpu()):
+# as fast at the pinned blocks' first use, and 30x faster once PyTorch's
+# pinned cache holds them (a later build in the process; chip_smoke.py's
+# phase 8 times both)
+PINNED_COPY_BACK = True
 
 
 class WalkIndex(NamedTuple):
@@ -513,15 +519,23 @@ def sort_keys_plain(keys: torch.Tensor) -> torch.Tensor:
     return torch.sort(keys).values
 
 
-def merge_keys_plain(keys: torch.Tensor, nb: int) -> tuple:
-    """K7-merge's plain version on sorted keys: (edge_src, edge_dst int32,
-    edge_mult float32, bucket_counts [NUM_BUCKETS] int64) of the unique
-    keys unpacked, each one's run length its multiplicity
+def merge_keys_plain(keys: torch.Tensor, nb: int, n: int) -> tuple:
+    """K7-merge's plain version on sorted keys of ``nb``-bit ids of ``n``
+    nodes: (edge_src, edge_dst int32, edge_mult float32, bucket_counts
+    [NUM_BUCKETS] int64, indptr [NUM_BUCKETS, n + 1] int32) of the unique
+    keys unpacked, each one's run length its multiplicity, and each
+    bucket's row pointers by endpoint (``_endpoint_indptr`` of its
+    endpoints; an empty bucket's zeros), counted by one bincount of
+    ``bucket * (n + 1) + endpoint + 1`` and a running sum a row
     (``kernels.merge_keys``)."""
     u, cnt = torch.unique_consecutive(keys, return_counts=True)
     mask = (1 << nb) - 1
-    return ((u & mask).int(), ((u >> nb) & mask).int(), cnt.float(),
-            torch.bincount(u >> (2 * nb), minlength=NUM_BUCKETS))
+    bucket, dst = u >> (2 * nb), (u >> nb) & mask
+    counts = torch.bincount(bucket * (n + 1) + dst + 1,
+                            minlength=NUM_BUCKETS * (n + 1))
+    return ((u & mask).int(), dst.int(), cnt.float(),
+            torch.bincount(bucket, minlength=NUM_BUCKETS),
+            counts.view(NUM_BUCKETS, n + 1).cumsum(1).int())
 
 
 def _device_tables(t: PackTables, dev) -> tuple:
@@ -531,10 +545,16 @@ def _device_tables(t: PackTables, dev) -> tuple:
 
 def pack_bytes(t: PackTables) -> int:
     """Device bytes K7 may need beside the endpoints: PACK_BYTES_PER_KEY a
-    key, K7-sort's and K7-merge's scratch, and the tables."""
+    key, K7-sort's scratch (digit totals, ticket, status words) and
+    K7-merge's (ticket, status words, bucket offsets, each pointer tile's
+    first rank), the buckets' row pointers (NUM_BUCKETS (n + 1) int32)
+    and the tables.  Raises ValueError for more keys than K7-sort's
+    counts hold."""
     L = t.keys
-    return (PACK_BYTES_PER_KEY * L + 4 * kernels.sort_scratch_words(L)
-            + 4 * (-(-L // kernels.PACK_TILE) + 1)
+    digits = kernels.sort_digit_bits(2 * t.nb + 4)
+    return (PACK_BYTES_PER_KEY * L + 4 * kernels.sort_scratch_words(L, digits)
+            + 4 * kernels.merge_scratch_words(L, len(t.counts))
+            + 4 * NUM_BUCKETS * (len(t.counts) + 1)
             + t.offsets.nbytes + t.cut.nbytes + t.dang.nbytes)
 
 
@@ -565,10 +585,10 @@ def _pack_on_card(ends: torch.Tensor, t: PackTables, part,
             ends.set_()
     with part("sort"):
         alt = torch.empty_like(keys)
-        ordered = kernels.sort_keys(keys, alt, 2 * t.nb + 4)
-        spare = alt if ordered is keys else keys
+        keys = kernels.sort_keys(keys, alt, 2 * t.nb + 4)
+        del alt                 # the spare buffer, freed before the merge
     with part("merge"):
-        return kernels.merge_keys(ordered, spare, t.nb)
+        return kernels.merge_keys(keys, t.nb, len(t.counts))
 
 
 def _pack_plain(ends: torch.Tensor, t: PackTables, part) -> tuple:
@@ -577,23 +597,41 @@ def _pack_plain(ends: torch.Tensor, t: PackTables, part) -> tuple:
     with part("sort"):
         keys = sort_keys_plain(keys)
     with part("merge"):
-        return merge_keys_plain(keys, t.nb)
+        return merge_keys_plain(keys, t.nb, len(t.counts))
+
+
+def host_arrays(xs, pinned: bool = PINNED_COPY_BACK) -> list:
+    """The tensors ``xs`` (all on one device) as numpy arrays: a card's
+    copied into pinned host memory, the copies queued together and ended
+    by one synchronise (``pinned``), or each by ``.cpu()`` into pageable
+    memory; a CPU tensor's own memory."""
+    if not xs or xs[0].device.type != "cuda" or not pinned:
+        return [x.cpu().numpy() for x in xs]
+    outs = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in xs]
+    for o, x in zip(outs, xs):
+        o.copy_(x, non_blocking=True)
+    torch.cuda.current_stream(xs[0].device).synchronize()
+    return [o.numpy() for o in outs]
 
 
 def _index_from(t: PackTables, rcfg: ResolvedConfig, packed: tuple,
                 part) -> WalkIndex:
-    """The WalkIndex of a packed branch's (src, dst, mult, bucket_counts)
-    on any device: its arrays copied to the host, then each bucket's row
-    pointers by endpoint."""
+    """The WalkIndex of a packed branch's (src, dst, mult, bucket_counts,
+    indptr) on any device: the edge arrays copied to the host, then the
+    buckets' row pointers (an empty bucket's None, as ``with_indptr``
+    gives)."""
     with part("copy_back"):
-        src, dst, mult, bc = (x.cpu().numpy() for x in packed)
+        src, dst, mult, bc = host_arrays(packed[:4])
         off = np.zeros(NUM_BUCKETS + 1, dtype=np.int64)
         np.cumsum(bc, out=off[1:])
     with part("indptr"):
-        return with_indptr(WalkIndex(
-            edge_src=src, edge_dst=dst, bucket_offsets=off,
-            counts_cum=t.counts_cum, omega_unit_built=rcfg.omega_unit,
-            rmax_built=rcfg.rmax, edge_mult=mult))
+        (ptr,) = host_arrays(packed[4:])
+    return WalkIndex(
+        edge_src=src, edge_dst=dst, bucket_offsets=off,
+        counts_cum=t.counts_cum, omega_unit_built=rcfg.omega_unit,
+        rmax_built=rcfg.rmax, edge_mult=mult,
+        dst_indptr=tuple(ptr[q] if off[q + 1] > off[q] else None
+                         for q in range(NUM_BUCKETS)))
 
 
 def pack_index_plain(endpoints: torch.Tensor, counts: np.ndarray,
@@ -626,8 +664,9 @@ def pack_index(endpoints, counts: np.ndarray, out_deg: np.ndarray,
     the sorted order of a multiset of keys, and its run-length merge, do
     not depend on the algorithm.  ``free_endpoints``: the pack may free
     ``endpoints``' storage once the keys are written (K7's memory).
-    ``log`` gets the split (``split_s``: keys, sort, merge, copy_back,
-    indptr)."""
+    ``log`` gets the split (``split_s``: keys, sort, merge, copy_back of
+    the edge arrays, indptr the copy of the buckets' row pointers, which
+    the packed branch counts with the merge)."""
     ends = (endpoints if isinstance(endpoints, torch.Tensor) else
             torch.from_numpy(np.ascontiguousarray(endpoints,
                                                   dtype=np.int32)))

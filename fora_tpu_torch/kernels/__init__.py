@@ -38,8 +38,8 @@ PyTorch versions instead.
 | index_walk_xp_inbox     | csrc/walk.cu           | K4-xp's inbox form (the later rounds: resident blocks whose warps claim the records handed to the process from a cursor, to endpoints and walks that leave) |
 | source_walk             | csrc/walk.cu           | K6+K4-src (a chunk of source-rooted walks in one launch: each walk from its column's source, its weight added at its endpoint, the source's own count in a register; Monte Carlo, HubPPR's queries with its hub branch) |
 | pack_keys               | csrc/pack.cu           | K7-keys (the index pack's packed (bucket, endpoint, source) key of every pool entry and dangling self-edge) |
-| sort_keys               | csrc/pack.cu           | K7-sort (a stable LSD radix sort of the keys, 8-bit digits, constant-digit passes skipped; a call is 1 + 3 a pass launches) |
-| merge_keys              | csrc/pack.cu           | K7-merge (the sorted keys' run-length merge: unique edges unpacked, their multiplicities, the bucket sizes; a call is 4 launches) |
+| sort_keys               | csrc/pack.cu           | K7-sort (a stable onesweep LSD radix sort of the keys, 8-, 9- or 11-bit digits, constant-digit passes skipped; a call is 1 + 1 a pass launches) |
+| merge_keys              | csrc/pack.cu           | K7-merge (the sorted keys' run-length merge in one pass: unique edges unpacked, their multiplicities, the bucket sizes and every bucket's row pointers by endpoint; a call is 2 launches) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 | row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
 | philox_blocks           | csrc/philox_probe.cu   | none: measures the card's rate of Philox-4x32-10 blocks (K4's operations) |
@@ -105,7 +105,10 @@ __all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
            "sector_reads",
            "row_reads",
            "philox_blocks", "pack_keys", "sort_keys", "merge_keys",
-           "PACK_TILE", "inv_log1m_alpha", "sm_count",
+           "PACK_TILE", "SORT_DIGIT_WIDTHS", "SORT_MAX_KEYS",
+           "sort_digit_bits",
+           "sort_scratch_words", "merge_scratch_words",
+           "inv_log1m_alpha", "sm_count",
            "enable_peer_access",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]
 
@@ -1481,6 +1484,10 @@ _peer_pairs: set = set()   # (reader, owner) card indices with access on
 
 
 PACK_TILE = 4096     # keys a block of K7-sort and K7-merge takes (pack.cu)
+# K7-sort's digit widths (pack.cu's onesweep_kernel is a template of
+# each); sort_digit_bits picks one a call
+SORT_DIGIT_WIDTHS = (8, 9, 11)
+SORT_MAX_KEYS = (1 << 30) - 1   # K7-sort's status words count in 30 bits
 
 
 def pack_keys(ends: torch.Tensor, offsets: torch.Tensor, cut: torch.Tensor,
@@ -1514,82 +1521,115 @@ def pack_keys(ends: torch.Tensor, offsets: torch.Tensor, cut: torch.Tensor,
     return keys
 
 
-def sort_scratch_words(length: int) -> int:
+def sort_digit_bits(key_bits: int) -> int:
+    """K7-sort's digit width for keys of ``key_bits`` bits: 9 where it
+    takes a pass fewer than 8 (42-bit keys at bench scale: 5 passes, not
+    6), else 8.  A pass of 8-bit digits took 0.31 ms and one of 9-bit
+    0.35 at bench scale, 11-bit digits (4 passes) 1.0 ms a pass
+    (``chip_smoke.py`` phase 8 on an H100)."""
+    return 9 if -(-key_bits // 9) < -(-key_bits // 8) else 8
+
+
+def sort_scratch_words(length: int, digit_bits: int) -> int:
     """int32 words of K7-sort's scratch for ``length`` keys: the digit
-    totals of up to 8 passes, then 256 counts a tile."""
-    return 8 * 256 + 256 * -(-length // PACK_TILE)
+    totals of up to ceil(64 / digit_bits) passes, the tiles' ticket (2
+    words), then a status word a (tile, digit).  Raises ValueError past
+    the 2^30 - 1 keys its 30-bit counts hold."""
+    if length > SORT_MAX_KEYS:
+        raise ValueError(f"K7-sort: {length} keys; its 30-bit status "
+                         f"words count at most 2^30 - 1")
+    if digit_bits not in SORT_DIGIT_WIDTHS:
+        raise ValueError(f"K7-sort: {digit_bits}-bit digits; 8, 9 or 11")
+    radix = 1 << digit_bits
+    return (-(-64 // digit_bits) * radix + 2
+            + radix * -(-length // PACK_TILE))
 
 
-def sort_keys(keys: torch.Tensor, alt: torch.Tensor,
-              key_bits: int) -> torch.Tensor:
+def merge_scratch_words(length: int, n: int) -> int:
+    """int32 words of K7-merge's scratch for ``length`` keys of ``n``
+    nodes: its ticket, a status word a tile and the 9 bucket offsets, 64
+    bits each, then the first rank in each 4096-place tile of each
+    bucket's n + 1 row pointers."""
+    return 2 * (1 + -(-length // PACK_TILE) + 9) + 8 * -(-(n + 1) // 4096)
+
+
+def sort_keys(keys: torch.Tensor, alt: torch.Tensor, key_bits: int,
+              digit_bits: Optional[int] = None) -> torch.Tensor:
     """K7-sort: ``keys`` (int64, non-negative, below 2^key_bits) sorted
-    ascending by a stable LSD radix sort between ``keys`` and ``alt`` (its
-    ping-pong buffer, of the same shape); returns whichever holds the
-    result (the other holds what is left of the input).  Synchronises the
-    stream once, to read the digit totals: a pass whose digit is the same
-    in every key is skipped.  ``sort_keys.last_passes`` is the number of
-    passes that ran."""
+    ascending by a stable LSD radix sort of ``digit_bits``-bit digits (8,
+    9 or 11; by default ``sort_digit_bits(key_bits)``) between ``keys`` and ``alt`` (its ping-pong buffer, of the same
+    shape); returns whichever holds the result (the other holds what is
+    left of the input).  One launch counts every pass's digits, then one
+    launch a pass (onesweep).  Synchronises the stream once, to read the
+    digit totals: a pass whose digit is the same in every key is skipped.
+    ``sort_keys.last_passes`` is the number of passes that ran."""
     (L,) = keys.shape
+    if digit_bits is None:
+        digit_bits = sort_digit_bits(key_bits)
+    words = sort_scratch_words(L, digit_bits)
     dev = keys.device
     _check("keys", keys, torch.int64, (L,))
     _check("alt", alt, torch.int64, (L,), dev)
-    if not 1 <= key_bits <= 63 or L >= 2**31:
+    if not 1 <= key_bits <= 63:
         raise ValueError(f"sort_keys: {L} keys of {key_bits} bits")
     sort_keys.last_passes = 0
     if L <= 1:
         return keys
-    words = sort_scratch_words(L)
     scratch = torch.empty(words, dtype=torch.int32, device=dev)
     done = ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = build.library().fora_sort_keys(
-            _ptr(keys), _ptr(alt), L, key_bits, _ptr(scratch), words,
-            ctypes.byref(done), _stream(keys))
+            _ptr(keys), _ptr(alt), L, key_bits, digit_bits, _ptr(scratch),
+            words, ctypes.byref(done), _stream(keys))
     sort_keys.launches += 1
     _raise_on(err, "sort_keys")
     sort_keys.last_passes = done.value
     return alt if done.value % 2 else keys
 
 
-def merge_keys(keys: torch.Tensor, free: torch.Tensor, nb: int) -> tuple:
-    """K7-merge: the run-length merge of the sorted ``keys`` ([L] int64):
-    (edge_src, edge_dst [U] int32, edge_mult [U] float32, bucket_counts
-    [8] int64) of the U unique keys unpacked (source the low nb bits,
-    endpoint the next nb, bucket the rest), each one's run length its
-    multiplicity.  ``free`` (at least 4 L bytes on the same device, e.g.
-    K7-sort's other buffer) holds each run's start.  Synchronises once,
-    to read U."""
+def merge_keys(keys: torch.Tensor, nb: int, n: int) -> tuple:
+    """K7-merge: the run-length merge of the sorted ``keys`` ([L] int64)
+    of ``nb``-bit ids of ``n`` nodes: (edge_src, edge_dst [U] int32,
+    edge_mult [U] float32, bucket_counts [8] int64, indptr [8, n + 1]
+    int32) of the U unique keys unpacked (source the low nb bits, endpoint
+    the next nb, bucket the rest), each one's run length its multiplicity,
+    and each bucket's row pointers by endpoint relative to the bucket's
+    start (an empty bucket's zeros).  One pass over the keys, and a launch
+    that fills the pointers from the ranks the pass left at each (bucket,
+    endpoint) with a key; the three edge arrays are views of [L] buffers.
+    Synchronises once, to read U."""
     (L,) = keys.shape
     dev = keys.device
     _check("keys", keys, torch.int64, (L,))
-    _check("free", free, free.dtype, device=dev)
-    if free.numel() * free.element_size() < 4 * L:
-        raise ValueError(f"merge_keys: {free.numel() * free.element_size()}"
-                         f" bytes of scratch for {L} keys, need {4 * L}")
-    if not 1 <= nb or 2 * nb + 4 > 63 or L >= 2**31:
-        raise ValueError(f"merge_keys: {L} keys of {nb}-bit node ids")
+    if not 1 <= nb or 2 * nb + 4 > 63 or L >= 2**31 or not 1 <= n <= 2**nb:
+        raise ValueError(f"merge_keys: {L} keys of {nb}-bit ids of {n} "
+                         "nodes")
+    if keys.data_ptr() % 16:
+        raise ValueError("merge_keys: keys must start 16-byte aligned (its "
+                         "tiles are copied 16 bytes at a time)")
     if L == 0:
         return (torch.empty(0, dtype=torch.int32, device=dev),
                 torch.empty(0, dtype=torch.int32, device=dev),
                 torch.empty(0, dtype=torch.float32, device=dev),
-                torch.zeros(8, dtype=torch.int64, device=dev))
-    heads = torch.empty(-(-L // PACK_TILE) + 1, dtype=torch.int32,
-                        device=dev)
+                torch.zeros(8, dtype=torch.int64, device=dev),
+                torch.zeros((8, n + 1), dtype=torch.int32, device=dev))
+    indptr = torch.empty((8, n + 1), dtype=torch.int32, device=dev)
     bucket_counts = torch.empty(8, dtype=torch.int64, device=dev)
-    lib = build.library()
+    src = torch.empty(L, dtype=torch.int32, device=dev)
+    dst = torch.empty(L, dtype=torch.int32, device=dev)
+    mult = torch.empty(L, dtype=torch.float32, device=dev)
+    words = merge_scratch_words(L, n)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    unique = ctypes.c_longlong(0)
     with torch.cuda.device(dev):
-        err = lib.fora_merge_count(_ptr(keys), L, _ptr(heads), _stream(keys))
-        _raise_on(err, "merge_keys")
-        U = int(heads[-1])
-        src = torch.empty(U, dtype=torch.int32, device=dev)
-        dst = torch.empty(U, dtype=torch.int32, device=dev)
-        mult = torch.empty(U, dtype=torch.float32, device=dev)
-        err = lib.fora_merge_write(
-            _ptr(keys), L, nb, _ptr(heads), U, _ptr(src), _ptr(dst),
-            _ptr(free), _ptr(mult), _ptr(bucket_counts), _stream(keys))
+        err = build.library().fora_merge_keys(
+            _ptr(keys), L, nb, n, _ptr(scratch), words, _ptr(src),
+            _ptr(dst), _ptr(mult), _ptr(indptr), _ptr(bucket_counts),
+            ctypes.byref(unique), _stream(keys))
     merge_keys.launches += 1
     _raise_on(err, "merge_keys")
-    return src, dst, mult, bucket_counts
+    U = unique.value
+    return src[:U], dst[:U], mult[:U], bucket_counts, indptr
 
 
 def enable_peer_access(reader: torch.device, owner: torch.device) -> None:

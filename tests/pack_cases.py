@@ -65,6 +65,16 @@ def case(name: str):
         counts = np.ones(n, np.int64)
         ends = rng.integers(0, 128, n).astype(np.int32)
         return ends, counts, deg
+    elif name == "one_node":                     # n = 1: one node, 1-bit ids
+        ends = np.zeros(40, np.int32)
+        return ends, np.array([40], np.int64), np.array([3], np.int64)
+    elif name == "gap_buckets":
+        # 2 to 4 walks a node, so only buckets 0 (the second to fourth
+        # walks) and 7 (the first, and the dangling self-edges) hold
+        # edges: buckets 1-6 are empty between them
+        n = 5000
+        deg = rng.integers(0, 6, n)
+        counts = np.where(deg > 0, rng.integers(2, 5, n), 0)
     elif name == "many_tiles":                   # 2^16 nodes, about 2.3 M keys
         n = 1 << 16
         deg = rng.integers(0, 30, n)
@@ -81,4 +91,4 @@ def case(name: str):
 
 
 NAMES = ("no_dangling", "all_dangling", "single_walk", "long_runs",
-         "constant_digit", "many_tiles")
+         "constant_digit", "one_node", "gap_buckets", "many_tiles")

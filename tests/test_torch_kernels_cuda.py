@@ -2313,13 +2313,19 @@ def test_source_walk_on_card_runs_one_launch_a_chunk(dev):
 def test_pack_kernels_match_plain(dev, name):
     """K7 (``kernels/csrc/pack.cu``) against its plain version on the
     cases of ``pack_cases.py``, bit for bit: K7-keys' keys, K7-sort's
-    order (a pass whose digit is the same in every key skipped), K7-merge's
-    unique edges, multiplicities and bucket counts, then the whole pack on
-    the card against ``pack_index_plain`` on the CPU."""
+    order at each digit width (a pass whose digit is the same in every
+    key skipped), K7-merge's unique edges, multiplicities, bucket counts
+    and row pointers; K7-sort and K7-merge also against their earlier
+    forms (``probes/pack_earlier.cu``); then the whole pack on the card
+    against ``pack_index_plain`` on the CPU, its pointers against
+    ``with_indptr``'s."""
     from fora_tpu_torch import ForaConfig, kernels
     from fora_tpu_torch.index import build as ib
+    from fora_tpu_torch.probes.pack_earlier import (earlier_merge,
+                                                    earlier_sort)
     ends, counts, deg = pack_case(name)
     t = ib.pack_tables(counts, deg)
+    n, bits = len(counts), 2 * t.nb + 4
     e = torch.from_numpy(ends).to(dev)
     offsets, cut, dang = (torch.from_numpy(a).to(dev)
                           for a in (t.offsets, t.cut, t.dang))
@@ -2327,22 +2333,33 @@ def test_pack_kernels_match_plain(dev, name):
     want = ib.pack_keys_plain(e, offsets, cut, dang, t.nb)
     torch.cuda.synchronize()
     assert torch.equal(keys, want)
-    work, alt = keys.clone(), torch.empty_like(keys)
-    got = kernels.sort_keys(work, alt, 2 * t.nb + 4)
-    torch.cuda.synchronize()
     ordered = ib.sort_keys_plain(want)
-    assert torch.equal(got, ordered)
     k = want.cpu().numpy()
-    varied = sum(len(np.unique((k >> (8 * p)) & 255)) > 1
-                 for p in range(-(-(2 * t.nb + 4) // 8)))
-    assert kernels.sort_keys.last_passes == varied
-    assert (varied < -(-(2 * t.nb + 4) // 8)) >= (name == "constant_digit")
-    spare = alt if got is work else work
-    merged = kernels.merge_keys(got, spare, t.nb)
+    for digit_bits in kernels.SORT_DIGIT_WIDTHS:
+        work, alt = keys.clone(), torch.empty_like(keys)
+        got = kernels.sort_keys(work, alt, bits, digit_bits=digit_bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ordered), digit_bits
+        passes = -(-bits // digit_bits)
+        varied = sum(len(np.unique((k >> (digit_bits * p))
+                                   & ((1 << digit_bits) - 1))) > 1
+                     for p in range(passes))
+        assert kernels.sort_keys.last_passes == varied
+        if digit_bits == 8:
+            assert (varied < passes) >= (name == "constant_digit")
+    old, _ = earlier_sort(keys.clone(), torch.empty_like(keys), bits)
+    assert torch.equal(old, ordered)
+    merged = kernels.merge_keys(ordered, t.nb, n)
     torch.cuda.synchronize()
-    for a, b, what in zip(merged, ib.merge_keys_plain(ordered, t.nb),
-                          ("src", "dst", "mult", "bucket_counts")):
+    for a, b, what in zip(merged, ib.merge_keys_plain(ordered, t.nb, n),
+                          ("src", "dst", "mult", "bucket_counts",
+                           "indptr")):
         assert torch.equal(a, b), what
+    if len(k):
+        for a, b, what in zip(merged, earlier_merge(
+                ordered, torch.empty_like(ordered), t.nb),
+                ("src", "dst", "mult", "bucket_counts")):
+            assert torch.equal(a, b), what
     rcfg = ForaConfig(epsilon=0.5).resolved(len(deg), max(int(deg.sum()), 1))
     before = kernels.launch_counts()
     idx = ib.pack_index(e, counts, deg, rcfg)
@@ -2353,3 +2370,66 @@ def test_pack_kernels_match_plain(dev, name):
     for f in ("edge_src", "edge_dst", "edge_mult", "bucket_offsets",
               "counts_cum"):
         np.testing.assert_array_equal(getattr(idx, f), getattr(ref, f), f)
+    for got, w in zip(idx.dst_indptr,
+                      ib.with_indptr(idx._replace(dst_indptr=None))
+                      .dst_indptr):
+        assert (got is None) == (w is None)
+        if w is not None:
+            np.testing.assert_array_equal(got, w)
+
+
+@pytest.mark.parametrize("digit_bits", [8, 9, 11])
+@pytest.mark.parametrize("tiles", [1, 37])
+@pytest.mark.parametrize("off", [-1, 0, 1])
+def test_pack_sort_stable_at_tile_edges(dev, digit_bits, tiles, off):
+    """K7-sort is stable: keys that differ only in their low digits (the
+    high digits from a few values, so one pass's order must keep the
+    previous pass's), at lengths just below, at and above a multiple of
+    the 4096-key tile, bit-equal to ``torch.sort`` and to the earlier
+    form; 43-bit keys whose top digits are constant skip those passes."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.probes.pack_earlier import earlier_sort
+    rng = np.random.default_rng(digit_bits * 1000 + tiles * 10 + off)
+    L = tiles * kernels.PACK_TILE + off
+    high = rng.choice(np.array([3, 5, 6], np.int64) << 36, L)
+    keys = torch.from_numpy(high | rng.integers(0, 1 << 14, L)).to(dev)
+    want = torch.sort(keys).values
+    got = kernels.sort_keys(keys.clone(), torch.empty_like(keys), 43,
+                            digit_bits=digit_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert kernels.sort_keys.last_passes < -(-43 // digit_bits)
+    old, _ = earlier_sort(keys.clone(), torch.empty_like(keys), 43)
+    assert torch.equal(old, want)
+
+
+@pytest.mark.parametrize("off", [-1, 0, 1])
+def test_pack_merge_run_across_look_back(dev, off):
+    """K7-merge on sorted keys with one run of 40 tiles (longer than a
+    look-back window of 32 tiles) between runs of one to three keys, at
+    lengths just below, at and above a tile multiple: unique edges,
+    multiplicities, bucket counts and pointers bit-equal to the plain
+    merge and to the earlier form."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.index import build as ib
+    from fora_tpu_torch.probes.pack_earlier import earlier_merge
+    nb, n = 12, 4000
+    rng = np.random.default_rng(40 + off)
+    tile = kernels.PACK_TILE
+    small = (rng.integers(0, 8, 60_000) << (2 * nb)) | (
+        rng.integers(0, n, 60_000) << nb) | rng.integers(0, n, 60_000)
+    small = np.repeat(small, rng.integers(1, 4, 60_000))
+    run = np.full(40 * tile + 7, (2 << (2 * nb)) | (9 << nb) | 11)
+    keys = np.sort(np.concatenate([small, run]))
+    keys = keys[:(len(keys) // tile) * tile + off]
+    k = torch.from_numpy(keys).to(dev)
+    got = kernels.merge_keys(k, nb, n)
+    torch.cuda.synchronize()
+    for a, b, what in zip(got, ib.merge_keys_plain(k, nb, n),
+                          ("src", "dst", "mult", "bucket_counts",
+                           "indptr")):
+        assert torch.equal(a, b), what
+    assert float(got[2].max()) >= 40 * tile
+    for a, b, what in zip(got, earlier_merge(k, torch.empty_like(k), nb),
+                          ("src", "dst", "mult", "bucket_counts")):
+        assert torch.equal(a, b), what

@@ -6,10 +6,14 @@ against the JAX package's ``pack_index`` in each of its three branches
 packed-key sort; its legacy lexsort, merged by ``dedup_index``), on the
 smoke graph's counts and on the edge cases of ``pack_cases.py`` (no
 dangling node, every node dangling so no walk at all, one walk a node,
-runs of one key across K7's tiles, a digit the same in every key, many
-tiles); and K7's refusal of a pack that does not fit, before any launch.
-The card's kernels are held to the same plain version bit for bit by
-``test_torch_kernels_cuda.py -k pack``."""
+runs of one key across K7's tiles, a digit the same in every key, one
+node, empty buckets between full ones, many tiles); the buckets' row
+pointers that K7-merge's plain version counts against ``with_indptr``'s;
+K7's scratch and its refusal of a pack that does not fit, before any
+launch; and K7-sort's and K7-merge's algorithms (``kernels/csrc/pack.cu``)
+emulated lane by lane in numpy at small tiles, against the plain
+versions.  The card's kernels are held to the same plain version bit for
+bit by ``test_torch_kernels_cuda.py -k pack``."""
 
 import numpy as np
 import pytest
@@ -112,20 +116,29 @@ def test_plain_parts():
     np.testing.assert_array_equal(k >> (2 * t.nb), bucket)
     s = ib.sort_keys_plain(keys)
     assert bool((s[1:] >= s[:-1]).all())
-    src_u, dst_u, mult, bc = ib.merge_keys_plain(s, t.nb)
+    src_u, dst_u, mult, bc, ptr = ib.merge_keys_plain(s, t.nb,
+                                                      len(counts))
     assert float(mult.sum()) == t.keys and int(bc.sum()) == len(src_u)
     assert float(mult.max()) >= 30000 - 30000 // 4   # node 5's bucket 0 run
+    assert ptr.shape == (ib.NUM_BUCKETS, len(counts) + 1)
+    assert ptr.dtype == torch.int32
+    np.testing.assert_array_equal(ptr[:, -1].numpy(), bc.numpy())
 
 
 def test_pack_refuses_before_any_launch(monkeypatch):
     """A pack larger than the device's free memory refuses with the bytes
     it needed, before K7-keys is launched; the bytes are 28 a key, the
-    scratch and the tables."""
+    sort's and the merge's scratch, the buckets' row pointers and the
+    tables."""
     ends, counts, deg = case("no_dangling")
     t = ib.pack_tables(counts, deg)
     need = ib.pack_bytes(t)
-    assert need == (28 * t.keys + 4 * kernels.sort_scratch_words(t.keys)
-                    + 4 * (-(-t.keys // kernels.PACK_TILE) + 1)
+    digits = 9 if -(-(2 * t.nb + 4) // 9) < -(-(2 * t.nb + 4) // 8) else 8
+    assert kernels.sort_digit_bits(2 * t.nb + 4) == digits
+    assert need == (28 * t.keys + 4 * kernels.sort_scratch_words(t.keys,
+                                                                 digits)
+                    + 4 * kernels.merge_scratch_words(t.keys, len(counts))
+                    + 4 * 8 * (len(counts) + 1)
                     + 72 * len(counts) + 8 * len(t.dang))
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda dev=None: (need - 1, 1 << 40))
@@ -177,3 +190,376 @@ def test_bucket_pointers_equal_dst_indptr(name):
     for dst in (np.full(5, n - 1, np.int32), np.zeros(7, np.int32)):
         np.testing.assert_array_equal(ib._endpoint_indptr(dst, n),
                                       dst_indptr(dst, n))
+
+
+def _unpacked_index(ends, counts, deg, rcfg):
+    """The plain pack's index without its row pointers."""
+    return ib.pack_index_plain(torch.from_numpy(ends), counts, deg,
+                               rcfg)._replace(dst_indptr=None)
+
+
+def _assert_pointers(ptr, index):
+    """``ptr`` [8, n + 1] (tensor or array) equals ``with_indptr``'s row
+    pointers of ``index`` bucket for bucket; an empty bucket's row is
+    zeros where ``with_indptr`` gives None."""
+    ptr = np.asarray(ptr)
+    want = ib.with_indptr(index._replace(dst_indptr=None)).dst_indptr
+    assert ptr.shape == (ib.NUM_BUCKETS, index.n + 1)
+    for q, w in enumerate(want):
+        if w is None:
+            assert not ptr[q].any(), q
+        else:
+            np.testing.assert_array_equal(ptr[q], w, err_msg=str(q))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_plain_merge_pointers_equal_with_indptr(name):
+    """K7-merge's plain version counts each bucket's row pointers equal to
+    ``with_indptr``'s on every case: an empty bucket's zeros (one walk a
+    node leaves buckets 0-6 empty, gap_buckets 1-6 between full ones),
+    every node dangling (no walk, the self-edges only) and one node."""
+    ends, counts, deg = case(name)
+    rcfg, _ = _rcfgs(len(deg), max(int(deg.sum()), 1))
+    t = ib.pack_tables(counts, deg)
+    keys = ib.sort_keys_plain(ib.pack_keys_plain(
+        torch.from_numpy(ends), *ib._device_tables(t, "cpu"), t.nb))
+    src, dst, mult, bc, ptr = ib.merge_keys_plain(keys, t.nb, len(counts))
+    index = _unpacked_index(ends, counts, deg, rcfg)
+    np.testing.assert_array_equal(dst.numpy(), index.edge_dst)
+    _assert_pointers(ptr.numpy(), index)
+    if name in ("single_walk", "gap_buckets", "all_dangling"):
+        assert (bc == 0).any()
+    empty = ib.merge_keys_plain(keys[:0], t.nb, len(counts))
+    assert not empty[4].any() and empty[4].shape == ptr.shape
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_pack_index_pointers_equal_with_indptr(name, monkeypatch):
+    """``pack_index`` on the CPU takes the pointers from the packed tuple
+    (``with_indptr`` is not called): they equal ``with_indptr``'s of the
+    same index, None for an empty bucket."""
+    ends, counts, deg = case(name)
+    rcfg, _ = _rcfgs(len(deg), max(int(deg.sum()), 1))
+    real = ib.with_indptr
+
+    def called(*a, **kw):
+        raise AssertionError("with_indptr ran on the packed branch")
+    monkeypatch.setattr(ib, "with_indptr", called)
+    idx = ib.pack_index(ends, counts, deg, rcfg)
+    monkeypatch.setattr(ib, "with_indptr", real)
+    want = ib.with_indptr(idx._replace(dst_indptr=None)).dst_indptr
+    for got, w in zip(idx.dst_indptr, want):
+        assert (got is None) == (w is None)
+        if w is not None:
+            assert got.dtype == np.int32
+            np.testing.assert_array_equal(got, w)
+
+
+@pytest.mark.parametrize("digit_bits", [8, 9, 11])
+def test_pack_scratch_words(digit_bits):
+    """K7-sort's scratch: ceil(64 / bits) rows of 2^bits digit totals, a
+    ticket of 2 words and a status word a (4096-key tile, digit); K7-
+    merge's: a 64-bit ticket, status word a tile and 9 offsets, then a
+    word a 4096-place tile of each bucket's pointers; the sort refuses
+    2^30 keys (its 30-bit counts), and so does ``pack_bytes`` before any
+    launch."""
+    R = 1 << digit_bits
+    for L in (0, 1, 4095, 4096, 4097, 24_494_570, 2**30 - 1):
+        T = -(-L // 4096)
+        assert kernels.sort_scratch_words(L, digit_bits) == \
+            -(-64 // digit_bits) * R + 2 + R * T
+        for n in (1, 4095, 4096, 2**19):
+            assert kernels.merge_scratch_words(L, n) == \
+                2 * (1 + T + 9) + 8 * -(-(n + 1) // 4096)
+    with pytest.raises(ValueError, match="30-bit"):
+        kernels.sort_scratch_words(2**30, digit_bits)
+    with pytest.raises(ValueError, match="8, 9 or 11"):
+        kernels.sort_scratch_words(10, 10)
+    t = ib.pack_tables(*case("no_dangling")[1:])
+    big = t._replace(total=2**30 - len(t.dang))
+    assert big.keys == 2**30
+    with pytest.raises(ValueError, match="30-bit"):
+        ib.pack_bytes(big)
+    assert [kernels.sort_digit_bits(b) for b in (6, 28, 36, 42, 44, 46)] \
+        == [8, 8, 9, 9, 9, 8]
+    fits = t._replace(total=2**30 - 1 - len(t.dang))
+    assert ib.pack_bytes(fits) > 28 * (2**30 - 1)
+
+
+# ---- pack.cu's K7-sort and K7-merge, lane by lane ---------------------------
+# Each warp of the kernels takes CHUNKS chunks of 32 neighbouring keys and a
+# tile is WARPS warps (8 x 16 on the card); the emulations take smaller
+# tiles too, so that small inputs cross many tiles.
+
+def _place(k, nb, n1):
+    return (k >> (2 * nb)) * n1 + ((k >> nb) & ((1 << nb) - 1))
+
+
+def _run_end(keys, L, frm, tail):
+    """pack.cu's run_end: a gallop of 32 probes, then 32-way searches."""
+    lanes = np.arange(32)
+    probe = frm - 1 + (1 << lanes)
+    g = (probe >= L) | (keys[np.minimum(probe, L - 1)] != tail)
+    lbit = int(np.argmax(g))
+    lo = frm if lbit == 0 else frm + (1 << (lbit - 1))
+    hi = min(L, frm - 1 + (1 << lbit))
+    while lo < hi:
+        step = (hi - lo + 31) // 32
+        q = lo + lanes * step
+        b = (q < hi) & (keys[np.minimum(q, L - 1)] != tail)
+        if b.any():
+            f = int(np.argmax(b))
+            lo, hi = (lo + (f - 1) * step + 1 if f else lo), lo + f * step
+        else:
+            lo += min(31, (hi - 1 - lo) // step) * step + 1
+    return lo
+
+
+PLACE_TILE = 4096     # places a block of merge_pointers_kernel takes
+
+
+def _pointers_pass(ptr, first_of_tile, offs, n1):
+    """pack.cu's merge_pointers_kernel: each place the rank at the first
+    place at or after it that holds one (past its tile, the first later
+    tile's first, or U), less its row's offset."""
+    tiles = first_of_tile.ravel()
+    out = np.empty_like(ptr)
+    for q in range(8):
+        for k in range(first_of_tile.shape[1]):
+            lin = q * first_of_tile.shape[1] + k
+            later = tiles[lin + 1:]
+            carry = later[later >= 0][0] if (later >= 0).any() else offs[8]
+            lo, hi = k * PLACE_TILE, min(n1, (k + 1) * PLACE_TILE)
+            nxt = carry
+            for v in range(hi - 1, lo - 1, -1):
+                if ptr[q, v] >= 0:
+                    nxt = ptr[q, v]
+                out[q, v] = nxt - offs[q]
+    return out
+
+
+def emulate_merge(keys, nb, n, warps=8, chunks=16):
+    """merge_kernel and merge_pointers_kernel, a warp's chunk at a time; the
+    look-back's result, the heads before each tile, as a running sum."""
+    keys = np.asarray(keys, dtype=np.int64)
+    L, n1, mask = len(keys), n + 1, (1 << nb) - 1
+    tile = warps * chunks * 32
+    T = -(-L // tile)
+    src = np.full(L, -1, np.int64)
+    dst = np.full(L, -1, np.int64)
+    mult = np.full(L, -1.0)
+    ptr = np.full(8 * n1, -1, np.int64)
+    first_of_tile = np.full((8, -(-n1 // PLACE_TILE)), -1, np.int64)
+    offs = np.full(9, -1, np.int64)
+    lanes = np.arange(32)
+    is_head = np.ones(L, bool)
+    is_head[1:] = keys[1:] != keys[:-1]
+    excl = 0
+    for t in range(T):
+        wheads = [int(is_head[t * tile + w * chunks * 32:
+                              min(L, t * tile + (w + 1) * chunks * 32)].sum())
+                  if t * tile + w * chunks * 32 < L else 0
+                  for w in range(warps)]
+        firsts, lasts, last_us = [], [], []
+        for w in range(warps):
+            wlo = t * tile + w * chunks * 32
+            before = keys[wlo - 1] if 0 < wlo < L else 0
+            u0 = excl + sum(wheads[:w])
+            first = last = -1
+            last_u = 0
+            prev = before
+            for it in range(chunks):
+                c0 = wlo + it * 32
+                if c0 >= L:
+                    break
+                i = c0 + lanes
+                valid = i < L
+                key = np.where(valid, keys[np.minimum(i, L - 1)], 0)
+                left = np.concatenate([[prev], key[:31]])
+                h = valid & ((i == 0) | (key != left))
+                u = u0 + np.cumsum(h) - h
+                u_end = u0 + int(h.sum())
+                hl = np.nonzero(h)[0]
+                for a, lane in enumerate(hl):
+                    src[u[lane]] = key[lane] & mask
+                    dst[u[lane]] = (key[lane] >> nb) & mask
+                    if a + 1 < len(hl):
+                        mult[u[lane]] = hl[a + 1] - lane
+                    bq = key[lane] >> (2 * nb)
+                    q0 = 0 if i[lane] == 0 else (left[lane] >> (2 * nb)) + 1
+                    for q in range(q0, bq + 1):
+                        assert offs[q] == -1
+                        offs[q] = u[lane]
+                if L - 1 in i:
+                    for q in range((keys[L - 1] >> (2 * nb)) + 1, 9):
+                        offs[q] = u_end
+                if len(hl):
+                    f = c0 + hl[0]
+                    if last >= 0:
+                        mult[last_u] = f - last
+                    if first < 0:
+                        first = f
+                    last, last_u = c0 + hl[-1], u_end - 1
+                pl = _place(key, nb, n1)
+                pleft = _place(left, nb, n1)
+                ptile = (key >> (2 * nb)) * first_of_tile.shape[1] + (
+                    ((key >> nb) & mask) // PLACE_TILE)
+                ptile_left = (left >> (2 * nb)) * first_of_tile.shape[1] + (
+                    ((left >> nb) & mask) // PLACE_TILE)
+                for lane in np.nonzero(valid & ((i == 0) | (pl != pleft)))[0]:
+                    assert ptr[pl[lane]] == -1
+                    ptr[pl[lane]] = u[lane]
+                    if i[lane] == 0 or ptile[lane] != ptile_left[lane]:
+                        assert first_of_tile.flat[ptile[lane]] == -1
+                        first_of_tile.flat[ptile[lane]] = u[lane]
+                u0, prev = u_end, key[31]
+            firsts.append(first)
+            lasts.append(last)
+            last_us.append(last_u)
+        tile_hi = min(L, (t + 1) * tile)
+        after = tile_hi
+        if tile_hi < L and max(lasts) >= 0 and keys[tile_hi] == keys[tile_hi - 1]:
+            after = _run_end(keys, L, tile_hi, keys[tile_hi - 1])
+        for w in range(warps):
+            if lasts[w] >= 0:
+                nxt = after
+                for w2 in range(warps - 1, w, -1):
+                    if firsts[w2] >= 0:
+                        nxt = firsts[w2]
+                mult[last_us[w]] = nxt - lasts[w]
+        excl += sum(wheads)
+    U = int(offs[8]) if L else 0
+    if L:
+        ptr = _pointers_pass(ptr.reshape(8, n1), first_of_tile, offs, n1)
+        bc = np.diff(offs)
+    else:
+        ptr, bc = np.zeros((8, n1), np.int64), np.zeros(8, np.int64)
+    assert (ptr >= 0).all()
+    return src[:U], dst[:U], mult[:U], bc, ptr
+
+
+def emulate_sort(keys, key_bits, digit_bits, warps=8, chunks=16):
+    """radix_histogram_kernel's counts (a run of equal digits among a
+    warp's neighbouring lanes added once), then onesweep_kernel a pass:
+    per tile the warps' ranks by digit, the warp-order and digit-order
+    starts in the tile, the look-back's exclusive prefix as a running sum
+    over tiles, each key to its digit's base + its place in the staged
+    tile.  Returns the sorted keys and the passes run."""
+    keys = np.asarray(keys, dtype=np.int64)
+    L, R = len(keys), 1 << digit_bits
+    tile = warps * chunks * 32
+    passes = -(-key_bits // digit_bits)
+    totals = np.zeros((passes, R), np.int64)
+    for c0 in range(0, L, 32):
+        k = keys[c0:c0 + 32]
+        for p in range(passes):
+            d = (k >> (p * digit_bits)) & (R - 1)
+            head = np.ones(len(d), bool)
+            head[1:] = d[1:] != d[:-1]
+            hl = np.nonzero(head)[0]
+            ends = np.append(hl[1:], len(d))
+            np.add.at(totals[p], d[hl], ends - hl)
+    for p in range(passes):
+        np.testing.assert_array_equal(
+            totals[p], np.bincount((keys >> (p * digit_bits)) & (R - 1),
+                                   minlength=R))
+    cur, done = keys.copy(), 0
+    for p in range(passes):
+        if (totals[p] == L).any():
+            continue
+        shift = p * digit_bits
+        dbase = np.concatenate([[0], np.cumsum(totals[p])[:-1]])
+        out = np.full(L, -1, np.int64)
+        before = np.zeros(R, np.int64)        # the digits in earlier tiles
+        for t in range(-(-L // tile)):
+            wcnt = np.zeros((warps, R), np.int64)
+            ranks = {}
+            for w in range(warps):
+                for it in range(chunks):
+                    i0 = t * tile + w * chunks * 32 + it * 32
+                    for lane in range(32):
+                        i = i0 + lane
+                        if i >= L:
+                            continue
+                        d = (cur[i] >> shift) & (R - 1)
+                        ranks[i] = (w, d, wcnt[w, d])
+                        wcnt[w, d] += 1
+            cnt = wcnt.sum(0)
+            tstart = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+            wstart = tstart + np.concatenate(
+                [np.zeros((1, R), np.int64), np.cumsum(wcnt, 0)[:-1]])
+            stage = {}
+            for i, (w, d, r) in ranks.items():
+                stage[wstart[w, d] + r] = cur[i]
+            gbase = dbase + before - tstart
+            for pos, k in stage.items():
+                j = gbase[(k >> shift) & (R - 1)] + pos
+                assert out[j] == -1
+                out[j] = k
+            before += cnt
+        cur, done = out, done + 1
+    return cur, done
+
+
+def _keys_of(name):
+    ends, counts, deg = case(name)
+    t = ib.pack_tables(counts, deg)
+    keys = ib.pack_keys_plain(torch.from_numpy(ends),
+                              *ib._device_tables(t, "cpu"), t.nb)
+    return keys, t
+
+
+@pytest.mark.parametrize("name", ["long_runs", "gap_buckets", "one_node",
+                                  "all_dangling", "constant_digit"])
+@pytest.mark.parametrize("shape", [(8, 16), (2, 2)])
+def test_merge_lanes_match_plain(name, shape):
+    """K7-merge's algorithm, lane by lane, equals the plain merge on the
+    sorted keys: unique edges, multiplicities (within a chunk, across
+    chunks, warps and tiles; a run past its tile found by the gallop),
+    bucket counts, and the pointers: each key whose place differs from
+    the key before's writes its rank there once, then the second launch's
+    backward scan fills every place."""
+    keys, t = _keys_of(name)
+    if name == "long_runs":
+        keys = keys[::4]       # its 30,000-key run still crosses tiles
+    ordered = ib.sort_keys_plain(keys)
+    got = emulate_merge(ordered.numpy(), t.nb, len(t.counts), *shape)
+    want = ib.merge_keys_plain(ordered, t.nb, len(t.counts))
+    for a, b, what in zip(got, want, ("src", "dst", "mult", "bc", "ptr")):
+        np.testing.assert_array_equal(a, b.numpy(), err_msg=what)
+
+
+def test_run_end_gallop():
+    """pack.cu's run_end finds the first place past a run's start whose
+    key differs, for runs of every length up to 2^16 and at the end."""
+    rng = np.random.default_rng(5)
+    runs = np.concatenate([[1, 2, 31, 32, 33, 1000, 65536], rng.integers(
+        1, 5000, 40)])
+    keys = np.repeat(np.arange(len(runs)), runs)
+    L = len(keys)
+    starts = np.concatenate([[0], np.cumsum(runs)[:-1]])
+    for s, r in zip(starts, runs):
+        for frm in {s + 1, s + r // 2, s + r - 1}:
+            if s < frm < L and frm <= s + r - 1 or frm == s + r:
+                if 0 < frm < L:
+                    assert _run_end(keys, L, frm, keys[frm - 1]) == s + r
+    assert _run_end(keys, L, L - 1, keys[L - 2]) in (L - 1, L)
+
+
+@pytest.mark.parametrize("digit_bits", [8, 9, 11])
+@pytest.mark.parametrize("shape", [(8, 16), (2, 1)])
+def test_sort_lanes_match_plain(digit_bits, shape):
+    """K7-sort's algorithm (onesweep: the counts' runs, the warps' ranks,
+    the tiles' starts and look-back, the staged scatter), emulated, sorts
+    as ``torch.sort`` does: the keys of the long-runs case and keys that
+    differ only in their low digits (a stability fault shows as wrong
+    order between them), a pass with a constant digit skipped."""
+    keys, t = _keys_of("long_runs")
+    keys = keys[:6000].numpy()
+    rng = np.random.default_rng(digit_bits)
+    low = (np.int64(5) << 40) | rng.integers(0, 1 << 12, 3000)
+    for k in (keys, low):
+        got, passes = emulate_sort(k, 2 * t.nb + 4 if k is keys else 43,
+                                   digit_bits, *shape)
+        np.testing.assert_array_equal(got, np.sort(k))
+    assert passes < -(-43 // digit_bits)        # the constant digits skipped
