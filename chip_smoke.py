@@ -1084,12 +1084,15 @@ def copy_back_rows(packed) -> dict:
 def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
     """Phase 8: K7 on phase 4's endpoints (walked again by the build's own
     loop, ``index_endpoints``): each kernel torch.equal to its plain
-    version, K7-sort and K7-merge also to their earlier forms
-    (``probes/pack_earlier.cu``) and K7-sort at the other digit widths,
-    the merge's row pointers to ``with_indptr``'s; each timed as called
-    (``cuda_ms``; K7-sort's as a copy of the keys and the sort, less the
-    copy alone) and by device time (one profiled pack, and one profiled
-    run of the earlier forms and the other widths), beside its bound, its
+    version and to its earlier form (``probes/pack_earlier.cu``), K7-keys
+    with the sort's digit counts (the build's form: equal to the count
+    launch's) and without them, K7-sort with those counts handed in and
+    without, and at the other digit widths, the merge's row pointers to
+    ``with_indptr``'s; each timed as called (``cuda_ms``; K7-sort's as a
+    copy of the keys and the sort, less the copy alone) and by device time
+    (one profiled pack; one profiled run of K7-keys without the counts and
+    the sort with its count launch; one of the earlier forms and the other
+    widths), beside its bound (each K7-keys form's by what it reads), its
     plain version, its earlier form and its library call; the copy back
     pageable and pinned; the host numpy pack (the form before K7) on the
     same endpoints; then the build checkpointed, preempted in its third
@@ -1102,30 +1105,45 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
     from fora_tpu_torch.index import build as ib
     from fora_tpu_torch.parallel.multihost_driver import index_digest
     from fora_tpu_torch.probes.pack_earlier import (earlier_merge,
+                                                    earlier_pack_keys,
                                                     earlier_sort,
                                                     pack_index_numpy)
     from fora_tpu_torch.utils.timing import cuda_ms, device_ms
     want = index_digest(index)
     ends, counts, deg = ib.index_endpoints(dg, dg, rcfg, SEED, dev)
     t = ib.pack_tables(counts, deg)
-    offsets, cut, dang = (torch.from_numpy(a).to(dev)
-                          for a in (t.offsets, t.cut, t.dang))
+    plain_args = (ends, *ib._device_tables(t, dev), t.nb)   # offsets [n], cut
+    offsets1, dang = ib._card_tables(t, dev)               # offsets [n + 1]
+    keys_args = (ends, offsets1, dang, t.nb)
     L, nb, bits, n = t.keys, t.nb, 2 * t.nb + 4, len(t.counts)
     digits = kernels.sort_digit_bits(bits)
     others = [d for d in kernels.SORT_DIGIT_WIDTHS if d != digits]
-    # K7-keys
-    keys = kernels.pack_keys(ends, offsets, cut, dang, nb)
-    if not torch.equal(keys, ib.pack_keys_plain(ends, offsets, cut, dang,
-                                                nb)):
+    # K7-keys with the sort's digit counts (the build's form), without
+    # them, and its earlier form
+    totals = kernels.digit_totals(bits, dev)
+    keys = kernels.pack_keys(*keys_args, totals=totals)
+    if not torch.equal(keys, ib.pack_keys_plain(*plain_args)):
         fail("K7-keys differs from pack_keys_plain")
+    if not torch.equal(kernels.pack_keys(*keys_args), keys):
+        fail("K7-keys without the digit counts differs from with them")
+    if not torch.equal(earlier_pack_keys(*plain_args), keys):
+        fail("K7-keys differs from its earlier form")
+    if not torch.equal(totals, kernels.digit_counts(keys, bits)):
+        fail("K7-keys' digit counts differ from K7-sort's count launch's")
     # K7-sort (in place between two buffers, so each timed call sorts a
-    # fresh copy of the keys), at every digit width, and its earlier form
+    # fresh copy of the keys) with K7-keys' counts handed in and without,
+    # at every digit width, and its earlier form
     work, alt = keys.clone(), torch.empty_like(keys)
-    ordered = kernels.sort_keys(work, alt, bits)
+    ordered = kernels.sort_keys(work, alt, bits, totals=totals)
     passes = kernels.sort_keys.last_passes
     sorted_p = ib.sort_keys_plain(keys)
     if not torch.equal(ordered, sorted_p):
         fail("K7-sort differs from sort_keys_plain")
+    counted = kernels.sort_keys(keys.clone(), torch.empty_like(keys), bits)
+    if not torch.equal(counted, sorted_p):
+        fail("K7-sort with its own count launch differs from "
+             "sort_keys_plain")
+    del counted
     spare = alt if ordered is work else work
     # w2 and a2 take every later sort, so ordered and spare stay as they are
     w2, a2 = keys.clone(), torch.empty_like(keys)
@@ -1167,31 +1185,44 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
           f"key): " + ", ".join(f"{d} bits {p} of {-(-bits // d)}"
                                for d, p in width_passes.items())
           + f"; {U} unique edges, pointers [8, {n + 1}]; "
-          f"each kernel torch.equal to its plain version, K7-sort and "
-          f"K7-merge to their earlier forms, the pointers to with_indptr's")
+          f"each kernel torch.equal to its plain version and its earlier "
+          f"form, K7-keys with and without the digit counts (equal to the "
+          f"count launch's), K7-sort with them handed in and without, the "
+          f"pointers to with_indptr's")
 
-    def sort_k(d=digits):
+    def sort_k(d=digits, handed=True):
         w2.copy_(keys)
-        kernels.sort_keys(w2, a2, bits, digit_bits=d)
+        kernels.sort_keys(w2, a2, bits, digit_bits=d,
+                          totals=totals if handed and d == digits else None)
 
     def sort_old():
         w2.copy_(keys)
         earlier_sort(w2, a2, bits)
     copy_ms = cuda_ms(lambda: w2.copy_(keys))
-    pack_args = (ends, offsets, cut, dang, nb)
     ptr_bytes = 4 * ib.NUM_BUCKETS * (n + 1)
     rows = {
         "pack_keys": dict(
-            ms=cuda_ms(lambda: kernels.pack_keys(*pack_args)),
-            device_ms=device_ms(lambda: kernels.pack_keys(*pack_args)),
-            plain_ms=cuda_ms(lambda: ib.pack_keys_plain(*pack_args),
+            ms=cuda_ms(lambda: kernels.pack_keys(*keys_args, totals=totals)),
+            device_ms=device_ms(lambda: kernels.pack_keys(*keys_args,
+                                                          totals=totals)),
+            unfused_ms=cuda_ms(lambda: kernels.pack_keys(*keys_args)),
+            unfused_device_ms=device_ms(lambda: kernels.pack_keys(
+                *keys_args)),
+            earlier_ms=cuda_ms(lambda: earlier_pack_keys(*plain_args)),
+            earlier_device_ms=device_ms(lambda: earlier_pack_keys(
+                *plain_args)),
+            plain_ms=cuda_ms(lambda: ib.pack_keys_plain(*plain_args),
                              iters=3),
             library_ms=None,
-            # the endpoints, offsets, cut table and dangling ids read, the
-            # keys written
-            **bound(nbytes(ends, offsets, cut, dang) + 8 * L)),
+            # the earlier form read the host's cut table too
+            earlier_bound_ms=bound(nbytes(*plain_args[:4]) + 8 * L)[
+                "bound_ms"],
+            # the endpoints, the [n + 1] offsets and the dangling ids read,
+            # the keys written (the digit counts: a few KB)
+            **bound(nbytes(ends, offsets1, dang) + 8 * L)),
         "sort_keys": dict(
             ms=cuda_ms(sort_k) - copy_ms,
+            counted_ms=cuda_ms(lambda: sort_k(handed=False)) - copy_ms,
             digit_bits=digits,
             width_ms={d: cuda_ms(lambda d=d: sort_k(d)) - copy_ms
                       for d in others},
@@ -1227,7 +1258,13 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
     if not prof:
         print("K7: no profiler trace; device times not measured")
 
+    def unfused():
+        kernels.pack_keys(*keys_args)
+        sort_k(handed=False)
+    prof_unfused = profile_once("pack_unfused", unfused, need_trace=False)
+
     def earlier_and_widths():
+        earlier_pack_keys(*plain_args)
         sort_old()
         earlier_merge(ordered, spare, nb)
         for d in others:
@@ -1239,6 +1276,12 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
         prof, *sort_names)
     rows["sort_keys"]["device_split_ms"] = {
         k: _device_ms_by(prof, k) for k in sort_names}
+    rows["sort_keys"]["counted_device_ms"] = (
+        None if not prof_unfused else _device_ms_by(prof_unfused,
+                                                    *sort_names))
+    rows["sort_keys"]["count_device_ms"] = (
+        None if not prof_unfused else _device_ms_by(
+            prof_unfused, f"radix_histogram_kernel<{digits}>"))
     rows["sort_keys"]["width_device_ms"] = {
         d: None if not prof_old else _device_ms_by(
             prof_old, f"radix_histogram_kernel<{d}>", f"onesweep_kernel<{d}>")
@@ -1256,6 +1299,10 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
                       "merge_write_kernel", "merge_mult_kernel"))
     rows["pack_keys"]["profiled_device_ms"] = _device_ms_by(
         prof, "pack_keys_kernel")
+    rows["pack_keys"]["profiled_unfused_device_ms"] = _device_ms_by(
+        prof_unfused, "pack_keys_kernel")
+    rows["pack_keys"]["profiled_earlier_device_ms"] = _device_ms_by(
+        prof_old, "pack_keys_earlier_kernel")
 
     def fmt(x):
         return "not measured" if x is None else f"{x:.4f}"
@@ -1280,8 +1327,25 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
           f"passes {r['bound_6_passes_ms']:.4f}; the sort and the merge "
           f"{both:.4f} ms against torch.unique(keys, sorted=True, "
           f"return_counts=True) {r['unique_ms']:.4f}")
+    k = rows["pack_keys"]
+    fused, apart = k["profiled_device_ms"], (
+        k["profiled_unfused_device_ms"] + (r["count_device_ms"] or 0.0))
+    print(f"K7-keys by device time: with the digit counts (the build's "
+          f"form) {k['device_ms']:.4f} ms (profiled {fused:.4f}), without "
+          f"{k['unfused_device_ms']:.4f} (profiled "
+          f"{k['profiled_unfused_device_ms']:.4f}), the earlier form "
+          f"{k['earlier_device_ms']:.4f} (profiled "
+          f"{k['profiled_earlier_device_ms']:.4f}); bound "
+          f"{k['bound_ms']:.4f} by {k['bound_by']} (the earlier form's, "
+          f"with the cut table, {k['earlier_bound_ms']:.4f}); profiled, the "
+          f"counts in K7-keys {fused:.4f} against K7-keys without them and "
+          f"the sort's count launch {apart:.4f} "
+          f"({fmt(r['count_device_ms'])}); K7-sort with the counts handed "
+          f"in {r['ms']:.4f} ms as called, {fmt(r['device_ms'])} device, "
+          f"with its own count launch {r['counted_ms']:.4f}, "
+          f"{fmt(r['counted_device_ms'])}")
     del keys, work, alt, ordered, spare, merged, sorted_p, copy, w2, a2
-    del old_sorted
+    del old_sorted, totals
     # the whole pack on the card as the build calls it, and the host numpy
     # pack (the form before K7) on the same endpoints
     torch_sync()
@@ -1300,8 +1364,11 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
           f"{host_s:.4f} s on the same endpoints; both sha256-equal to "
           f"phase 4's index; phase 4's build {build_log['wall_s']:.4f} s, "
           f"split, s: " + ", ".join(f"{k} {v:.4f}" for k, v
-                                    in build_log["split_s"].items()))
-    rows["pack_keys"].update(host_numpy_pack_s=host_s, card_pack_s=card_s)
+                                    in build_log["split_s"].items())
+          + f" (keys: the tables' upload and K7-keys, "
+          f"{build_log['split_s']['keys']:.4f})")
+    rows["pack_keys"].update(host_numpy_pack_s=host_s, card_pack_s=card_s,
+                             build_keys_s=build_log["split_s"]["keys"])
     del card, host, ends, ends_h
     # the build checkpointed, preempted in the third chunk's walk, resumed
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -6245,7 +6312,15 @@ def main(argv=None) -> int:
                                            "width_device_ms",
                                            "width_passes",
                                            "bound_6_passes_ms",
-                                           "copy_back_s")
+                                           "copy_back_s", "unfused_ms",
+                                           "unfused_device_ms",
+                                           "earlier_bound_ms",
+                                           "profiled_unfused_device_ms",
+                                           "profiled_earlier_device_ms",
+                                           "counted_ms",
+                                           "counted_device_ms",
+                                           "count_device_ms",
+                                           "build_keys_s")
                        if k in row},
                     **{k: v for k, v in row.items()
                        if k.startswith(("sharded_", "montecarlo_", "alias_",

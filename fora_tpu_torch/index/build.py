@@ -539,23 +539,36 @@ def merge_keys_plain(keys: torch.Tensor, nb: int, n: int) -> tuple:
 
 
 def _device_tables(t: PackTables, dev) -> tuple:
+    """The plain version's tables on ``dev``: offsets [n], cut, dang."""
     return tuple(torch.from_numpy(a).to(dev)
                  for a in (t.offsets, t.cut, t.dang))
+
+
+def _card_tables(t: PackTables, dev) -> tuple:
+    """K7-keys' tables on ``dev``: offsets [n + 1] (the last = total) and
+    dang; the kernel forms the cutoffs from the offsets."""
+    offsets = np.empty(len(t.counts) + 1, dtype=np.int64)
+    offsets[:-1] = t.offsets
+    offsets[-1] = t.total
+    return torch.from_numpy(offsets).to(dev), torch.from_numpy(t.dang).to(dev)
 
 
 def pack_bytes(t: PackTables) -> int:
     """Device bytes K7 may need beside the endpoints: PACK_BYTES_PER_KEY a
     key, K7-sort's scratch (digit totals, ticket, status words) and
     K7-merge's (ticket, status words, bucket offsets, each pointer tile's
-    first rank), the buckets' row pointers (NUM_BUCKETS (n + 1) int32)
-    and the tables.  Raises ValueError for more keys than K7-sort's
-    counts hold."""
+    first rank), the buckets' row pointers (NUM_BUCKETS (n + 1) int32),
+    K7-keys' tables (offsets [n + 1] and the dangling nodes, int64) and
+    the digit counts it hands K7-sort.  Raises ValueError for more keys
+    than K7-sort's counts hold."""
     L = t.keys
-    digits = kernels.sort_digit_bits(2 * t.nb + 4)
+    bits = 2 * t.nb + 4
+    digits = kernels.sort_digit_bits(bits)
     return (PACK_BYTES_PER_KEY * L + 4 * kernels.sort_scratch_words(L, digits)
             + 4 * kernels.merge_scratch_words(L, len(t.counts))
             + 4 * NUM_BUCKETS * (len(t.counts) + 1)
-            + t.offsets.nbytes + t.cut.nbytes + t.dang.nbytes)
+            + 8 * (len(t.counts) + 1) + t.dang.nbytes
+            + 4 * (-(-bits // digits) << digits))
 
 
 def check_pack_fits(need: int, dev) -> None:
@@ -573,20 +586,22 @@ def check_pack_fits(need: int, dev) -> None:
 
 def _pack_on_card(ends: torch.Tensor, t: PackTables, part,
                   free_endpoints: bool) -> tuple:
-    """K7 on ``ends``' card: keys, sort, merge (``kernels.pack_keys``,
-    ``sort_keys``, ``merge_keys``)."""
+    """K7 on ``ends``' card: keys (with the sort's digit counts), sort,
+    merge (``kernels.pack_keys``, ``sort_keys``, ``merge_keys``)."""
     dev = ends.device
+    bits = 2 * t.nb + 4
     check_pack_fits(pack_bytes(t), dev)
     with part("keys"):
-        offsets, cut, dang = _device_tables(t, dev)
-        keys = kernels.pack_keys(ends, offsets, cut, dang, t.nb)
-        del offsets, cut, dang
+        offsets, dang = _card_tables(t, dev)
+        totals = kernels.digit_totals(bits, dev)
+        keys = kernels.pack_keys(ends, offsets, dang, t.nb, totals=totals)
+        del offsets, dang
         if free_endpoints:
             ends.set_()
     with part("sort"):
         alt = torch.empty_like(keys)
-        keys = kernels.sort_keys(keys, alt, 2 * t.nb + 4)
-        del alt                 # the spare buffer, freed before the merge
+        keys = kernels.sort_keys(keys, alt, bits, totals=totals)
+        del alt, totals         # the spare buffer, freed before the merge
     with part("merge"):
         return kernels.merge_keys(keys, t.nb, len(t.counts))
 

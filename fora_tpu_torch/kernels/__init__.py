@@ -37,8 +37,9 @@ PyTorch versions instead.
 | index_walk_xp           | csrc/walk.cu           | K4-xp's own-start form (round 0 of a process's share of an index build window of whole chunks with the shards spread over processes: K4's walks over its own starts, each drawing as its chunk's, walks that leave through warp-owned bins; the sharded index build across processes) |
 | index_walk_xp_inbox     | csrc/walk.cu           | K4-xp's inbox form (the later rounds: resident blocks whose warps claim the records handed to the process from a cursor, to endpoints and walks that leave) |
 | source_walk             | csrc/walk.cu           | K6+K4-src (a chunk of source-rooted walks in one launch: each walk from its column's source, its weight added at its endpoint, the source's own count in a register; Monte Carlo, HubPPR's queries with its hub branch) |
-| pack_keys               | csrc/pack.cu           | K7-keys (the index pack's packed (bucket, endpoint, source) key of every pool entry and dangling self-edge) |
-| sort_keys               | csrc/pack.cu           | K7-sort (a stable onesweep LSD radix sort of the keys, 8-, 9- or 11-bit digits, constant-digit passes skipped; a call is 1 + 1 a pass launches) |
+| pack_keys               | csrc/pack.cu           | K7-keys (the index pack's packed (bucket, endpoint, source) key of every pool entry and dangling self-edge, tiles of pool entries; optionally K7-sort's digit counts in the same pass) |
+| sort_keys               | csrc/pack.cu           | K7-sort (a stable onesweep LSD radix sort of the keys, 8-, 9- or 11-bit digits, constant-digit passes skipped; a call is 1 + 1 a pass launches, or 1 a pass with K7-keys' counts handed in) |
+| digit_counts            | csrc/pack.cu           | K7-sort's count launch alone (checks only: no path calls it; no launch count) |
 | merge_keys              | csrc/pack.cu           | K7-merge (the sorted keys' run-length merge in one pass: unique edges unpacked, their multiplicities, the bucket sizes and every bucket's row pointers by endpoint; a call is 2 launches) |
 | sector_reads            | csrc/sector_probe.cu   | none: measures the card's rate of scattered 32-byte reads |
 | row_reads               | csrc/sector_probe.cu   | none: measures the card's rate of scattered 512-byte row reads |
@@ -105,6 +106,7 @@ __all__ = ["push_prepass", "backward_prepass", "gather_scatter_add",
            "sector_reads",
            "row_reads",
            "philox_blocks", "pack_keys", "sort_keys", "merge_keys",
+           "digit_counts", "digit_totals",
            "PACK_TILE", "SORT_DIGIT_WIDTHS", "SORT_MAX_KEYS",
            "sort_digit_bits",
            "sort_scratch_words", "merge_scratch_words",
@@ -1490,35 +1492,68 @@ SORT_DIGIT_WIDTHS = (8, 9, 11)
 SORT_MAX_KEYS = (1 << 30) - 1   # K7-sort's status words count in 30 bits
 
 
-def pack_keys(ends: torch.Tensor, offsets: torch.Tensor, cut: torch.Tensor,
-              dang: torch.Tensor, nb: int) -> torch.Tensor:
+def pack_keys(ends: torch.Tensor, offsets: torch.Tensor, dang: torch.Tensor,
+              nb: int, totals: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7-keys: the packed sort key of every pool entry, int64 [total +
     nd] (the bits of a uint64 below 2^63): entry j of node v (at
-    ``offsets[v] + j`` of ``ends`` [total] int32) gets ``bucket << 2 nb |
-    ends[...] << nb | v``, bucket the number of ``cut[v, 1:]`` ([n, 8]
-    int64, ``cut[v, 0]`` = K_v) above j; then the ``dang`` ([nd] int64)
-    nodes' self-edges in the deepest bucket."""
+    ``offsets[v] + j`` of ``ends`` [total] int32; ``offsets`` [n + 1]
+    int64, node v's entries up to ``offsets[v + 1]``, ``offsets[n]`` =
+    total) gets ``bucket << 2 nb | ends[...] << nb | v``, bucket the number
+    of q in 1..7 with j < ceil(K_v 4^-q); then the ``dang`` ([nd] int64)
+    nodes' self-edges in the deepest bucket.  ``totals`` (from
+    :func:`digit_totals`) gets, in the same launch, each K7-sort pass's
+    digit counts over the keys, for ``sort_keys(totals=)``."""
     (total,) = ends.shape
     dev = ends.device
     _check("ends", ends, torch.int32, (total,))
-    n = offsets.shape[0]
-    _check("offsets", offsets, torch.int64, (n,), dev)
-    _check("cut", cut, torch.int64, (n, 8), dev)
+    n = offsets.shape[0] - 1
+    _check("offsets", offsets, torch.int64, (n + 1,), dev)
     (nd,) = dang.shape
     _check("dang", dang, torch.int64, (nd,), dev)
-    if not 1 <= nb or 2 * nb + 4 > 63:
-        raise ValueError(f"pack_keys: {nb} bits a node id; keys of 2 nb + 4 "
-                         "bits must fit 63")
+    if n < 0 or not 1 <= nb or 2 * nb + 4 > 63 or total >= 2**31 - 1:
+        raise ValueError(f"pack_keys: {total} entries, {nb} bits a node id, "
+                         f"{n + 1} offsets; keys of 2 nb + 4 bits must fit "
+                         "63, entries 2^31 - 1")
+    digit_bits = 0 if totals is None else _totals_bits(totals, 2 * nb + 4,
+                                                       dev)
     keys = torch.empty(total + nd, dtype=torch.int64, device=dev)
     if total + nd == 0:
+        if totals is not None:
+            totals.zero_()
         return keys
     with torch.cuda.device(dev):
         err = build.library().fora_pack_keys(
-            _ptr(ends), _ptr(offsets), _ptr(cut), n, _ptr(dang), nd, total,
-            nb, _ptr(keys), _stream(ends))
+            _ptr(ends), _ptr(offsets), n, _ptr(dang), nd, total, nb,
+            _ptr(keys), _ptr(totals), digit_bits, _stream(ends))
     pack_keys.launches += 1
     _raise_on(err, "pack_keys")
     return keys
+
+
+def digit_totals(key_bits: int, device,
+                 digit_bits: Optional[int] = None) -> torch.Tensor:
+    """An int32 [passes, 2^digit_bits] buffer for each K7-sort pass's digit
+    counts over keys of ``key_bits`` bits (``digit_bits`` by default
+    ``sort_digit_bits(key_bits)``; passes = ceil(key_bits / digit_bits)),
+    which ``pack_keys(totals=)`` and :func:`digit_counts` fill and
+    ``sort_keys(totals=)`` takes."""
+    if digit_bits is None:
+        digit_bits = sort_digit_bits(key_bits)
+    return torch.empty((-(-key_bits // digit_bits), 1 << digit_bits),
+                       dtype=torch.int32, device=device)
+
+
+def _totals_bits(totals: torch.Tensor, key_bits: int, dev) -> int:
+    """The digit width of a :func:`digit_totals` buffer for keys of
+    ``key_bits`` bits on ``dev`` (ValueError where it is none)."""
+    width = {1 << d: d for d in SORT_DIGIT_WIDTHS}.get(
+        totals.shape[-1] if totals.dim() == 2 else 0)
+    if width is None:
+        raise ValueError(f"totals: shape {tuple(totals.shape)}, expected "
+                         f"[passes, 2^d] with d in {SORT_DIGIT_WIDTHS}")
+    _check("totals", totals, torch.int32, (-(-key_bits // width), 1 << width),
+           dev)
+    return width
 
 
 def sort_digit_bits(key_bits: int) -> int:
@@ -1554,20 +1589,30 @@ def merge_scratch_words(length: int, n: int) -> int:
 
 
 def sort_keys(keys: torch.Tensor, alt: torch.Tensor, key_bits: int,
-              digit_bits: Optional[int] = None) -> torch.Tensor:
+              digit_bits: Optional[int] = None,
+              totals: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7-sort: ``keys`` (int64, non-negative, below 2^key_bits) sorted
     ascending by a stable LSD radix sort of ``digit_bits``-bit digits (8,
-    9 or 11; by default ``sort_digit_bits(key_bits)``) between ``keys`` and ``alt`` (its ping-pong buffer, of the same
-    shape); returns whichever holds the result (the other holds what is
-    left of the input).  One launch counts every pass's digits, then one
+    9 or 11; by default ``sort_digit_bits(key_bits)``, or the width of
+    ``totals``) between ``keys`` and ``alt`` (its ping-pong buffer, of the
+    same shape); returns whichever holds the result (the other holds what
+    is left of the input).  One launch counts every pass's digits, or
+    ``totals`` (a :func:`digit_totals` buffer that ``pack_keys`` or
+    :func:`digit_counts` filled from these keys) holds them, then one
     launch a pass (onesweep).  Synchronises the stream once, to read the
     digit totals: a pass whose digit is the same in every key is skipped.
     ``sort_keys.last_passes`` is the number of passes that ran."""
     (L,) = keys.shape
+    dev = keys.device
+    if totals is not None:
+        width = _totals_bits(totals, key_bits, dev)
+        if digit_bits not in (None, width):
+            raise ValueError(f"sort_keys: {digit_bits}-bit digits, totals "
+                             f"of {width}-bit")
+        digit_bits = width
     if digit_bits is None:
         digit_bits = sort_digit_bits(key_bits)
     words = sort_scratch_words(L, digit_bits)
-    dev = keys.device
     _check("keys", keys, torch.int64, (L,))
     _check("alt", alt, torch.int64, (L,), dev)
     if not 1 <= key_bits <= 63:
@@ -1580,11 +1625,33 @@ def sort_keys(keys: torch.Tensor, alt: torch.Tensor, key_bits: int,
     with torch.cuda.device(dev):
         err = build.library().fora_sort_keys(
             _ptr(keys), _ptr(alt), L, key_bits, digit_bits, _ptr(scratch),
-            words, ctypes.byref(done), _stream(keys))
+            words, _ptr(totals), ctypes.byref(done), _stream(keys))
     sort_keys.launches += 1
     _raise_on(err, "sort_keys")
     sort_keys.last_passes = done.value
     return alt if done.value % 2 else keys
+
+
+def digit_counts(keys: torch.Tensor, key_bits: int,
+                 digit_bits: Optional[int] = None) -> torch.Tensor:
+    """The count launch of K7-sort alone (``radix_histogram_kernel``): each
+    pass's digit counts over ``keys`` (int64 [L]) into a new
+    :func:`digit_totals` buffer.  For checks: no path calls it, and it
+    has no launch count."""
+    (L,) = keys.shape
+    _check("keys", keys, torch.int64, (L,))
+    if digit_bits is None:
+        digit_bits = sort_digit_bits(key_bits)
+    if not 1 <= key_bits <= 63 or digit_bits not in SORT_DIGIT_WIDTHS:
+        raise ValueError(f"digit_counts: keys of {key_bits} bits, "
+                         f"{digit_bits}-bit digits")
+    totals = digit_totals(key_bits, keys.device, digit_bits)
+    with torch.cuda.device(keys.device):
+        err = build.library().fora_digit_counts(
+            _ptr(keys), L, key_bits, digit_bits, _ptr(totals),
+            _stream(keys))
+    _raise_on(err, "digit_counts")
+    return totals
 
 
 def merge_keys(keys: torch.Tensor, nb: int, n: int) -> tuple:

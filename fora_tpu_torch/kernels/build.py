@@ -92,8 +92,10 @@ SIGNATURES = {
     "fora_sector_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],
     "fora_row_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],
     "fora_philox_blocks": [_P, _I, _I, ctypes.c_uint, _P],
-    "fora_pack_keys": [_P, _P, _P, _LL, _P, _LL, _LL, _I, _P, _P],
-    "fora_sort_keys": [_P, _P, _LL, _I, _I, _P, _LL, ctypes.POINTER(_I), _P],
+    "fora_pack_keys": [_P, _P, _LL, _P, _LL, _LL, _I, _P, _P, _I, _P],
+    "fora_digit_counts": [_P, _LL, _I, _I, _P, _P],
+    "fora_sort_keys": [_P, _P, _LL, _I, _I, _P, _LL, _P, ctypes.POINTER(_I),
+                       _P],
     "fora_merge_keys": [_P, _LL, _I, _LL, _P, _LL, _P, _P, _P, _P, _P,
                         ctypes.POINTER(_LL), _P],
 }

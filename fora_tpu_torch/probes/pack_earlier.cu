@@ -1,9 +1,15 @@
-// The earlier forms of K7-sort and K7-merge (kernels/csrc/pack.cu before
-// its redesign), kept only so that chip_smoke.py's phase 8 and the card's
-// tests (-k pack) can time them and hold the package's kernels to them on
-// the same keys.  No entry point of the package loads it: the probe
-// (probes/pack_earlier.py) compiles it alone.
+// The earlier forms of K7-keys, K7-sort and K7-merge (kernels/csrc/pack.cu
+// before their redesigns), kept only so that chip_smoke.py's phase 8 and
+// the card's tests (-k pack) can time them and hold the package's kernels
+// to them on the same inputs.  No entry point of the package loads it: the
+// probe (probes/pack_earlier.py) compiles it alone.
 //
+// K7-keys, earlier form: a warp a node (grid-stride), its lanes over the
+// node's K_v = cut[v, 0] entries, each entry's bucket from the host's
+// cutoff table cut [n, 8] (ceil(K_v 4^-q)); threads t < nd write the
+// dangling nodes' self-edge keys.  At bench scale the 239 k dangling
+// nodes' warps read a cut row and stop, and one warp walks the largest
+// node's 1.3e5 entries alone.
 // K7-sort, earlier form: a stable LSD radix sort over key_bits bits,
 // 8-bit digits.  One launch counts every pass's digits over all keys
 // (six __match_any_sync a key at 42-bit keys); its totals go to the host,
@@ -36,6 +42,38 @@ constexpr int kWarpKeys = 32 * kKeysPerLane;          // 512
 constexpr int kTile = kTileWarps * kWarpKeys;         // 4096
 constexpr int kScanThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
+
+// ---- K7-keys --------------------------------------------------------------
+
+__global__ void pack_keys_earlier_kernel(const int* __restrict__ ends,
+                                         const long long* __restrict__ offsets,
+                                         const long long* __restrict__ cut, long long n,
+                                         const long long* __restrict__ dang, long long nd,
+                                         long long total, int nb, u64* __restrict__ keys) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long threads = (long long)gridDim.x * blockDim.x;
+  for (long long d = t; d < nd; d += threads) {
+    const u64 v = (u64)dang[d];
+    keys[total + d] = ((u64)(kBuckets - 1) << (2 * nb)) | (v << nb) | v;
+  }
+  const int lane = threadIdx.x & 31;
+  const long long warps = threads >> 5;
+  for (long long v = t >> 5; v < n; v += warps) {
+    const long long* cv = cut + v * kBuckets;
+    const long long K = cv[0];
+    if (K == 0) continue;
+    long long c[kBuckets];
+#pragma unroll
+    for (int q = 1; q < kBuckets; ++q) c[q] = cv[q];
+    const long long off = offsets[v];
+    for (long long j = lane; j < K; j += 32) {
+      int b = 0;
+#pragma unroll
+      for (int q = 1; q < kBuckets; ++q) b += j < c[q];   // cutoffs shrink with q
+      keys[off + j] = ((u64)b << (2 * nb)) | ((u64)(unsigned)ends[off + j] << nb) | (u64)v;
+    }
+  }
+}
 
 // ---- K7-sort --------------------------------------------------------------
 
@@ -296,6 +334,21 @@ unsigned grid_for(long long threads, long long cap) {
 }
 
 }  // namespace
+
+// K7-keys: keys [total + nd] u64 from ends [total] int32, offsets [n] and
+// cut [n, 8] int64 (cut[v, 0] = K_v), dang [nd] int64
+extern "C" int fora_pack_keys_earlier(const int* ends, const long long* offsets,
+                                      const long long* cut, long long n, const long long* dang,
+                                      long long nd, long long total, int nb, u64* keys,
+                                      void* stream) {
+  if (n < 0 || nd < 0 || total < 0 || nb < 1 || 2 * nb + 4 > 63) return (int)cudaErrorInvalidValue;
+  if (total + nd == 0) return (int)cudaGetLastError();
+  long long threads = n * 32 > nd ? n * 32 : nd;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  pack_keys_earlier_kernel<<<grid_for(threads, 1LL << 16), 256, 0, st>>>(
+      ends, offsets, cut, n, dang, nd, total, nb, keys);
+  return (int)cudaGetLastError();
+}
 
 // K7-sort: keys [len] sorted ascending over their low key_bits bits, in
 // ``keys`` or ``alt`` (the same size): *passes_done scatters ran, an odd

@@ -4,12 +4,14 @@
   the host before K7 (PRs 1-22), a copy of ``fora_tpu/index/build.py``'s
   numpy branch (436-458); ``chip_smoke.py`` phase 8 times it on the
   build's endpoints beside K7 and holds K7's arrays equal to it;
-- K7-sort's and K7-merge's first forms (``pack_earlier.cu``: a totals
-  pass and three launches a sort pass; four merge launches with the run
-  starts through device memory), built alone; phase 8 and the card's
-  tests (``-k pack``) time them and hold the package's kernels to them.
+- K7-keys', K7-sort's and K7-merge's first forms (``pack_earlier.cu``: a
+  warp a node over the host's cutoff table; a totals pass and three
+  launches a sort pass; four merge launches with the run starts through
+  device memory), built alone; phase 8 and the card's tests (``-k pack``)
+  time them and hold the package's kernels to them.
 
     pack_index_numpy(endpoints, counts, out_deg, rcfg) -> WalkIndex
+    earlier_pack_keys(ends, offsets, cut, dang, nb) -> keys
     earlier_sort(keys, alt, key_bits) -> (sorted tensor, passes run)
     earlier_merge(keys, free, nb) -> (src, dst, mult, bucket_counts)
 """
@@ -29,6 +31,7 @@ from ..kernels import build
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
+    "fora_pack_keys_earlier": [_P, _P, _P, _LL, _P, _LL, _LL, _I, _P, _P],
     "fora_sort_keys_earlier": [_P, _P, _LL, _I, _P, _LL,
                                ctypes.POINTER(_I), _P],
     "fora_merge_count_earlier": [_P, _LL, _P, _P],
@@ -93,6 +96,21 @@ def _stream(t: torch.Tensor):
 def _raise_on(err: int, name: str):
     if err:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def earlier_pack_keys(ends: torch.Tensor, offsets: torch.Tensor,
+                      cut: torch.Tensor, dang: torch.Tensor,
+                      nb: int) -> torch.Tensor:
+    """The earlier K7-keys (``index/build.py::pack_keys_plain``'s
+    arguments: ``offsets`` [n] and the host's ``cut`` table [n, 8], on one
+    card): the keys, int64 [total + nd]."""
+    total, n, nd = ends.shape[0], cut.shape[0], dang.shape[0]
+    keys = torch.empty(total + nd, dtype=torch.int64, device=ends.device)
+    with torch.cuda.device(ends.device):
+        _raise_on(load_earlier().fora_pack_keys_earlier(
+            _p(ends), _p(offsets), _p(cut), n, _p(dang), nd, total, nb,
+            _p(keys), _stream(ends)), "fora_pack_keys_earlier")
+    return keys
 
 
 def earlier_sort(keys: torch.Tensor, alt: torch.Tensor,

@@ -79,6 +79,20 @@ def case(name: str):
         n = 1 << 16
         deg = rng.integers(0, 30, n)
         counts = np.where(deg > 0, rng.integers(1, 70, n), 0)
+    elif name == "hub_tiles":
+        # one node of 20,000 walks, more than three of K7-keys' 4096-entry
+        # tiles, among nodes of 1 to 20
+        n = 3000
+        deg = rng.integers(1, 30, n)
+        counts = rng.integers(1, 21, n)
+        counts[1234] = 20000
+    elif name == "empty_run":
+        # 5,000 dangling nodes in a row between two walked ones: a tile
+        # of K7-keys that spans them spans more nodes than it stages
+        n = 9000
+        deg = rng.integers(1, 30, n)
+        deg[2000:7000] = 0
+        counts = np.where(deg > 0, rng.integers(1, 7, n), 0)
     elif name == "bench_size":
         # the card's only: 2^19 nodes (42-bit keys, 6 passes) and about
         # 24 M walks, the bench index build's size
@@ -91,4 +105,5 @@ def case(name: str):
 
 
 NAMES = ("no_dangling", "all_dangling", "single_walk", "long_runs",
-         "constant_digit", "one_node", "gap_buckets", "many_tiles")
+         "constant_digit", "one_node", "gap_buckets", "many_tiles",
+         "hub_tiles", "empty_run")

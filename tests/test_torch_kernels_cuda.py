@@ -2312,27 +2312,44 @@ def test_source_walk_on_card_runs_one_launch_a_chunk(dev):
 @pytest.mark.parametrize("name", PACK_NAMES + ("bench_size",))
 def test_pack_kernels_match_plain(dev, name):
     """K7 (``kernels/csrc/pack.cu``) against its plain version on the
-    cases of ``pack_cases.py``, bit for bit: K7-keys' keys, K7-sort's
-    order at each digit width (a pass whose digit is the same in every
-    key skipped), K7-merge's unique edges, multiplicities, bucket counts
-    and row pointers; K7-sort and K7-merge also against their earlier
-    forms (``probes/pack_earlier.cu``); then the whole pack on the card
-    against ``pack_index_plain`` on the CPU, its pointers against
+    cases of ``pack_cases.py``, bit for bit: K7-keys' keys (with and
+    without the digit counts, whose totals equal the count launch's and
+    each digit's bincount), K7-sort's order at each digit width (a pass
+    whose digit is the same in every key skipped; with K7-keys' totals
+    handed in the same), K7-merge's unique edges, multiplicities, bucket
+    counts and row pointers; all three also against their earlier forms
+    (``probes/pack_earlier.cu``); then the whole pack on the card against
+    ``pack_index_plain`` on the CPU, its pointers against
     ``with_indptr``'s."""
     from fora_tpu_torch import ForaConfig, kernels
     from fora_tpu_torch.index import build as ib
     from fora_tpu_torch.probes.pack_earlier import (earlier_merge,
+                                                    earlier_pack_keys,
                                                     earlier_sort)
     ends, counts, deg = pack_case(name)
     t = ib.pack_tables(counts, deg)
     n, bits = len(counts), 2 * t.nb + 4
     e = torch.from_numpy(ends).to(dev)
-    offsets, cut, dang = (torch.from_numpy(a).to(dev)
-                          for a in (t.offsets, t.cut, t.dang))
-    keys = kernels.pack_keys(e, offsets, cut, dang, t.nb)
+    offsets, cut, dang = ib._device_tables(t, dev)
+    offsets1, _ = ib._card_tables(t, dev)
+    keys = kernels.pack_keys(e, offsets1, dang, t.nb)
     want = ib.pack_keys_plain(e, offsets, cut, dang, t.nb)
     torch.cuda.synchronize()
     assert torch.equal(keys, want)
+    assert torch.equal(earlier_pack_keys(e, offsets, cut, dang, t.nb), want)
+    for digit_bits in kernels.SORT_DIGIT_WIDTHS:
+        totals = kernels.digit_totals(bits, dev, digit_bits)
+        assert torch.equal(kernels.pack_keys(e, offsets1, dang, t.nb,
+                                             totals=totals), want)
+        assert torch.equal(totals, kernels.digit_counts(want, bits,
+                                                        digit_bits))
+        R = 1 << digit_bits
+        for p in range(totals.shape[0]):
+            assert torch.equal(totals[p].long(), torch.bincount(
+                (want >> (p * digit_bits)) & (R - 1), minlength=R)), p
+        got = kernels.sort_keys(want.clone(), torch.empty_like(want), bits,
+                                totals=totals)
+        assert torch.equal(got, ib.sort_keys_plain(want)), digit_bits
     ordered = ib.sort_keys_plain(want)
     k = want.cpu().numpy()
     for digit_bits in kernels.SORT_DIGIT_WIDTHS:
@@ -2376,6 +2393,47 @@ def test_pack_kernels_match_plain(dev, name):
         assert (got is None) == (w is None)
         if w is not None:
             np.testing.assert_array_equal(got, w)
+
+
+@pytest.mark.parametrize("modulus", [4, 4096])
+@pytest.mark.parametrize("off", [0, 1, 3])
+def test_pack_keys_at_tile_edges(dev, modulus, off):
+    """K7-keys with total = 0, 1, 3 mod 4 and mod its 4096-entry tile (a
+    node across the tile edge, a few dangling nodes), from 16-byte aligned
+    endpoints and from endpoints one int32 past that (loaded without the
+    vector loads): bit-equal to the plain version and the earlier form,
+    with the digit counts equal to the count launch's, and the sort with
+    them handed in equal to the sort without."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.index import build as ib
+    from fora_tpu_torch.probes.pack_earlier import earlier_pack_keys
+    rng = np.random.default_rng(modulus * 10 + off)
+    total = 5 * modulus + off if modulus == 4 else 3 * modulus + off
+    n, k = 300, min(40, total)
+    counts = np.zeros(n, np.int64)
+    counts[rng.choice(n, k, replace=False)] = rng.multinomial(
+        total - k, np.full(k, 1 / k)) + 1
+    deg = np.where(counts > 0, rng.integers(1, 6, n), 0)
+    t = ib.pack_tables(counts, deg)
+    assert t.total == total
+    ends = rng.integers(0, n, total + 1).astype(np.int32)
+    bits = 2 * t.nb + 4
+    offsets, cut, dang = ib._device_tables(t, dev)
+    offsets1, _ = ib._card_tables(t, dev)
+    base = torch.from_numpy(ends).to(dev)
+    for e in (base[:total], base[1:]):
+        want = ib.pack_keys_plain(e, offsets, cut, dang, t.nb)
+        assert torch.equal(kernels.pack_keys(e, offsets1, dang, t.nb), want)
+        assert torch.equal(earlier_pack_keys(e, offsets, cut, dang, t.nb),
+                           want)
+        totals = kernels.digit_totals(bits, dev)
+        assert torch.equal(kernels.pack_keys(e, offsets1, dang, t.nb,
+                                             totals=totals), want)
+        assert torch.equal(totals, kernels.digit_counts(want, bits))
+        assert torch.equal(
+            kernels.sort_keys(want.clone(), torch.empty_like(want), bits,
+                              totals=totals),
+            kernels.sort_keys(want.clone(), torch.empty_like(want), bits))
 
 
 @pytest.mark.parametrize("digit_bits", [8, 9, 11])

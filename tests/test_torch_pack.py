@@ -7,13 +7,16 @@ packed-key sort; its legacy lexsort, merged by ``dedup_index``), on the
 smoke graph's counts and on the edge cases of ``pack_cases.py`` (no
 dangling node, every node dangling so no walk at all, one walk a node,
 runs of one key across K7's tiles, a digit the same in every key, one
-node, empty buckets between full ones, many tiles); the buckets' row
-pointers that K7-merge's plain version counts against ``with_indptr``'s;
-K7's scratch and its refusal of a pack that does not fit, before any
-launch; and K7-sort's and K7-merge's algorithms (``kernels/csrc/pack.cu``)
-emulated lane by lane in numpy at small tiles, against the plain
-versions.  The card's kernels are held to the same plain version bit for
-bit by ``test_torch_kernels_cuda.py -k pack``."""
+node, empty buckets between full ones, many tiles, a node across several
+of K7-keys' tiles, a run of empty nodes longer than a tile); the buckets'
+row pointers that K7-merge's plain version counts against
+``with_indptr``'s; K7's scratch and its refusal of a pack that does not
+fit, before any launch; the integer cutoffs K7-keys forms on the card
+against the host's float64 table; and K7-keys', K7-sort's and K7-merge's
+algorithms (``kernels/csrc/pack.cu``) emulated lane by lane in numpy, at
+the card's tiles and at small ones, against the plain versions.  The
+card's kernels are held to the same plain version bit for bit by
+``test_torch_kernels_cuda.py -k pack``."""
 
 import numpy as np
 import pytest
@@ -128,8 +131,9 @@ def test_plain_parts():
 def test_pack_refuses_before_any_launch(monkeypatch):
     """A pack larger than the device's free memory refuses with the bytes
     it needed, before K7-keys is launched; the bytes are 28 a key, the
-    sort's and the merge's scratch, the buckets' row pointers and the
-    tables."""
+    sort's and the merge's scratch, the buckets' row pointers, K7-keys'
+    tables (offsets [n + 1], the dangling nodes) and the digit counts it
+    hands the sort."""
     ends, counts, deg = case("no_dangling")
     t = ib.pack_tables(counts, deg)
     need = ib.pack_bytes(t)
@@ -139,7 +143,8 @@ def test_pack_refuses_before_any_launch(monkeypatch):
                                                                  digits)
                     + 4 * kernels.merge_scratch_words(t.keys, len(counts))
                     + 4 * 8 * (len(counts) + 1)
-                    + 72 * len(counts) + 8 * len(t.dang))
+                    + 8 * (len(counts) + 1) + 8 * len(t.dang)
+                    + 4 * -(-(2 * t.nb + 4) // digits) * 2**digits)
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda dev=None: (need - 1, 1 << 40))
     monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev=None: 0)
@@ -563,3 +568,241 @@ def test_sort_lanes_match_plain(digit_bits, shape):
                                    digit_bits, *shape)
         np.testing.assert_array_equal(got, np.sort(k))
     assert passes < -(-43 // digit_bits)        # the constant digits skipped
+
+
+# ---- pack.cu's K7-keys, lane by lane -----------------------------------------
+# A block of THREADS threads takes tiles of 8 THREADS entries (each thread
+# two runs of four), stages up to STEPS x THREADS offsets, and the blocks
+# take contiguous ranges of the tiles (the entries', then the dangling
+# keys'); the card's are 512, 9 and its resident blocks (2 an SM).
+
+KEYS_THREADS, KEYS_STEPS, KEYS_GRID = 512, 9, 2 * 132
+BIG = np.iinfo(np.int64).max
+
+
+def _first_above(a, lo, hi, x):
+    """pack.cu's first_above, each lane its own search: the first index in
+    [lo, hi) of the ascending ``a`` whose value is above x, or hi."""
+    lo, hi = lo.copy(), np.broadcast_to(hi, lo.shape).copy()
+    while (m := lo < hi).any():
+        mid = (lo + hi) >> 1
+        above = np.zeros_like(m)
+        above[m] = a[mid[m]] > x[m]
+        hi = np.where(m & above, mid, hi)
+        lo = np.where(m & ~above, mid + 1, lo)
+    return lo
+
+
+def _warp_first_above(a, lo, hi, x):
+    """pack.cu's warp_first_above: the same by 32 probes a step."""
+    lanes = np.arange(32)
+    while lo < hi:
+        step = (hi - lo + 31) // 32
+        q = lo + lanes * step
+        b = (q < hi) & (a[np.minimum(q, hi - 1)] > x)
+        if b.any():
+            f = int(np.argmax(b))
+            lo, hi = (lo + (f - 1) * step + 1 if f else lo), lo + f * step
+        else:
+            lo += min(31, (hi - 1 - lo) // step) * step + 1
+    return lo
+
+
+def _count_rounds(keys, valid, digit_bits, p_lo, passes, runs, hist):
+    """pack.cu's count_digits over warps at once: ``keys`` [warps, 32], the
+    lanes below ``valid`` [warps] holding one; in a pass of ``runs`` each
+    run of equal digits among neighbouring lanes adds its length once, at
+    its first lane, in the others each lane adds one."""
+    R, lanes = 1 << digit_bits, np.arange(32)
+    live = lanes < valid[:, None]
+    for p in range(p_lo, passes):
+        d = (keys >> (p * digit_bits)) & (R - 1)
+        if not runs >> p & 1:
+            np.add.at(hist[p], d[live], 1)
+            continue
+        head = live & ((lanes == 0) | (d != np.roll(d, 1, axis=1)))
+        first = np.minimum.accumulate(
+            np.where(head, lanes, 32)[:, ::-1], axis=1)[:, ::-1]
+        after = np.concatenate([first[:, 1:], np.full((len(d), 1), 32)],
+                               axis=1)
+        end = np.minimum(after, valid[:, None])
+        np.add.at(hist[p], d[head], (end - lanes)[head])
+
+
+def _entry_bucket(j, K):
+    """pack.cu's entry_bucket: #{q in 1..7 : j 4^q < K} as min(7, s / 2),
+    s the largest with j 2^s < K, from the bit lengths' difference."""
+    j, K = np.broadcast_arrays(np.asarray(j, np.int64), np.asarray(K, np.int64))
+    bl = lambda x: np.where(x > 0, np.floor(np.log2(np.maximum(x, 1))) + 1,
+                            0).astype(np.int64)
+    sh = bl(K) - bl(j)
+    s = np.where((j << np.maximum(sh, 0)) < K, sh, sh - 1)
+    return np.where(j == 0, ib.NUM_BUCKETS - 1,
+                    np.minimum(ib.NUM_BUCKETS - 1, s >> 1))
+
+
+def emulate_keys(ends, offsets, dang, nb, threads=KEYS_THREADS,
+                 steps=KEYS_STEPS, grid=KEYS_GRID, digit_bits=None):
+    """pack_keys_kernel, a block's tiles in order, a thread's entries in
+    order: each block's first tile finds its node by the warp's search,
+    every tile stages the offsets from there until one is past its last
+    entry (or searches the offsets in device memory where STEPS steps do
+    not reach), each thread's first entry searched and its others moved on
+    from it, the bucket by j 4^q < K; then the dangling tiles; with
+    ``digit_bits`` the passes of source digits alone counted a node at a
+    time by its entries in the tile, the others by each (run, entry) round
+    of each warp, in runs where fewer than 4 of a pass's bits are endpoint
+    bits.  Returns (keys, totals [passes, 2^digit_bits] or None, tiles
+    whose stage fell short)."""
+    ends = np.asarray(ends, np.int64)
+    total, n, nd = len(ends), len(offsets) - 1, len(dang)
+    tile, run, warps = 8 * threads, 4 * threads, threads // 32
+    Te = -(-total // tile)
+    W = Te + -(-nd // tile)
+    G = min(grid, W)
+    keys = np.full(total + nd, -1, np.int64)
+    passes = -(-(2 * nb + 4) // digit_bits) if digit_bits else 0
+    totals = np.zeros((passes, 1 << (digit_bits or 0)), np.int64)
+    sources = nb // digit_bits if digit_bits else 0
+    runs = sum(1 << p for p in range(passes)
+               if min((p + 1) * digit_bits, 2 * nb)
+               - max(p * digit_bits, nb) < 4)
+    lane_i = np.arange(threads)
+    short = 0
+    for b in range(G):
+        t_lo, t_hi = b * W // G, (b + 1) * W // G
+        v_base = -1
+        for t in range(t_lo, min(t_hi, Te)):
+            tlo = t * tile
+            last = min(total, tlo + tile) - 1
+            if v_base < 0:
+                v_base = _warp_first_above(offsets, 0, n + 1, tlo) - 1
+            stage, staged = np.empty(steps * threads, np.int64), 0
+            for c in range(steps):
+                idx = v_base + c * threads + lane_i
+                val = np.where(idx <= n, offsets[np.minimum(idx, n)], BIG)
+                stage[c * threads:(c + 1) * threads] = val
+                if (val > last).any():
+                    staged = (c + 1) * threads
+                    break
+            short += not staged
+            a, a_hi = ((stage, staged) if staged
+                       else (offsets[v_base:], n + 1 - v_base))
+            if sources:
+                k = np.arange(1, a_hi)
+                lo = a[k - 1]
+                k = k[lo <= last]
+                c = np.minimum(a[k], last + 1) - np.maximum(a[k - 1], tlo)
+                v = (v_base + k - 1)[c > 0]
+                for p in range(sources):
+                    np.add.at(totals[p], (v >> (p * digit_bits))
+                              & ((1 << digit_bits) - 1), c[c > 0])
+            for r in range(2):
+                i = tlo + r * run + 4 * lane_i
+                k = np.zeros(threads, np.int64)
+                start = np.zeros(threads, np.int64)
+                end = np.full(threads, np.iinfo(np.int64).min)
+                key = np.zeros((threads, 4), np.int64)
+                for u in range(4):
+                    iu = i + u
+                    valid = iu < total
+                    move = valid & (iu >= end)
+                    kk = np.minimum(_first_above(a, k + 1, a_hi, iu), a_hi - 1)
+                    k = np.where(move, kk, k)
+                    start = np.where(move, a[k - 1], start)
+                    end = np.where(move, a[k], end)
+                    bucket = _entry_bucket(np.where(valid, iu - start, 0),
+                                           np.where(valid, end - start, 1))
+                    ku = ((bucket << (2 * nb))
+                          | (ends[np.minimum(iu, total - 1)] << nb)
+                          | (v_base + k - 1))
+                    keys[iu[valid]] = ku[valid]
+                    key[:, u] = np.where(valid, ku, 0)
+                for u in range(4) if digit_bits else ():
+                    c0 = tlo + r * run + 4 * 32 * np.arange(warps) + u
+                    _count_rounds(key[:, u].reshape(warps, 32),
+                                  np.clip((total - c0 + 3) // 4, 0, 32),
+                                  digit_bits, sources, passes, runs, totals)
+            v_base += min(int(_first_above(a, np.array([1]), a_hi,
+                                           np.array([last]))[0]),
+                          a_hi - 1) - 1
+        for t in range(max(t_lo, Te), t_hi):
+            for s in range(8):
+                c = (t - Te) * tile + s * threads   # warp w's keys c + 32 w ..
+                d = c + lane_i
+                valid = d < nd
+                dv = dang[np.minimum(d, nd - 1)]
+                key = np.where(valid, ((ib.NUM_BUCKETS - 1) << (2 * nb))
+                               | (dv << nb) | dv, 0)
+                keys[total + d[valid]] = key[valid]
+                if digit_bits:
+                    _count_rounds(key.reshape(warps, 32),
+                                  np.clip(nd - (c + 32 * np.arange(warps)),
+                                          0, 32), digit_bits, 0, passes, runs,
+                                  totals)
+    return keys, (totals if digit_bits else None), short
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_keys_tiles_match_plain(name):
+    """K7-keys' tile decomposition at the card's shape (512 threads, 4096-
+    entry tiles, 264 blocks, the digit counts at the sort's width) on
+    every case, and at small tiles (32 threads, 256-entry tiles, a stage of
+    64 offsets, 3 blocks of long tile ranges, 8-bit digits) where it runs
+    in time: the keys equal ``pack_keys_plain``'s (which reads the host's
+    cutoff table), the counts ``np.bincount`` of each pass's digit.  The
+    hub's node spans more than three tiles at the card's shape; the empty
+    run's tiles search the offsets in device memory at both."""
+    ends, counts, deg = case(name)
+    t = ib.pack_tables(counts, deg)
+    want = ib.pack_keys_plain(torch.from_numpy(ends),
+                              *ib._device_tables(t, "cpu"), t.nb).numpy()
+    offsets, dang = (a.numpy() for a in ib._card_tables(t, "cpu"))
+    digits = kernels.sort_digit_bits(2 * t.nb + 4)
+    shapes = [(KEYS_THREADS, KEYS_STEPS, KEYS_GRID, digits)]
+    if t.keys < 200_000:
+        shapes.append((32, 2, 3, 8))
+    for threads, steps, grid, d in shapes:
+        got, totals, short = emulate_keys(ends, offsets, dang, t.nb, threads,
+                                          steps, grid, d)
+        np.testing.assert_array_equal(got, want, err_msg=str(threads))
+        for p in range(len(totals)):
+            np.testing.assert_array_equal(
+                totals[p], np.bincount((want >> (p * d)) & ((1 << d) - 1),
+                                       minlength=1 << d), err_msg=str(p))
+        assert (short > 0) >= (name == "empty_run"), threads
+    if name == "hub_tiles":
+        assert counts.max() > 3 * 8 * KEYS_THREADS
+
+
+def test_integer_cutoffs_equal_host_table():
+    """The cutoffs K7-keys forms from K_v on the card, (K + 4^q - 1) >> 2q
+    and its test j 4^q < K, equal the host's float64 ceil(K 4^-q) of
+    ``pack_tables`` (which the plain version and ``counts_cum`` read):
+    every K below 2^20, K at 4^q - 1, 4^q and 4^q + 1 up to q = 26, and
+    random K up to 2^40; and the kernel's bucket from the bit lengths of j
+    and K counts them, for every j < K below 3000 and at random j < K up
+    to 2^31."""
+    rng = np.random.default_rng(25)
+    edges = np.array([4**q + o for q in range(27) for o in (-1, 0, 1)])
+    for K in (np.arange(1 << 20), edges[edges >= 0],
+              rng.integers(0, 1 << 40, 1 << 16)):
+        cut = ib.pack_tables(K, np.ones_like(K)).cut
+        for q in range(1, ib.NUM_BUCKETS):
+            np.testing.assert_array_equal((K + 4**q - 1) >> (2 * q),
+                                          cut[:, q], err_msg=str(q))
+    K = np.arange(1, 3000)[:, None]
+    j = np.arange(3000)[None, :]
+    cut = ib.pack_tables(K[:, 0], np.ones(len(K))).cut
+    for q in range(1, ib.NUM_BUCKETS):
+        np.testing.assert_array_equal((j << (2 * q)) < K,
+                                      j < cut[:, q:q + 1], err_msg=str(q))
+    live = j < K
+    np.testing.assert_array_equal(
+        _entry_bucket(j, K)[live],
+        sum((j < cut[:, q:q + 1]) for q in range(1, ib.NUM_BUCKETS))[live])
+    K = rng.integers(1, 2**31 - 1, 1 << 16)
+    j = (rng.random(len(K)) ** 4 * K).astype(np.int64)
+    np.testing.assert_array_equal(
+        _entry_bucket(j, K), sum(((j << (2 * q)) < K).astype(np.int64)
+                                 for q in range(1, ib.NUM_BUCKETS)))
