@@ -5,11 +5,12 @@ GPU.
     python3 chip_smoke.py                 # the checks below
     python3 chip_smoke.py --profile 10    # query-phase profile instead
 
-The graph is bench.py's: RMAT n = 2^19, m = 2^23, seed 7, with the
-duplicate-edge merge and a 131,072-row hub split; the queries are
-bench.py's defaults (eps 0.5, k 50, delta = p_f = 1/n, alpha 0.2,
-delta stride 8).  Phases, each printing its wall time and peak device
-memory:
+The graph of phases 3-17 is RMAT n = 2^19, m = 2^23, seed 7 (bench.py's
+graph cut to FORA_BENCH_NLOG2 = 19; bench.py's own, 2^22 x 16, is phase
+18's), with the duplicate-edge merge and a 131,072-row hub split; the
+queries are bench.py's defaults (eps 0.5, k 50, delta = p_f = 1/n, alpha
+0.2, delta stride 8).  Phases, each printing its wall time and peak
+device memory:
 
   1. device      refuse to run without CUDA; print the card and its
                  power limit (nvidia-smi)
@@ -79,7 +80,13 @@ memory:
                  same endpoints, both indexes sha256-equal to phase 4's;
                  then the build again with a checkpoint, preempted in its
                  third chunk's walk and resumed: two chunks loaded, the
-                 index sha256-equal to phase 4's
+                 index sha256-equal to phase 4's; K7 in key-range windows:
+                 K7-keys' count form (the key space by its top 14 bits)
+                 and window form (a window of the plan) torch.equal to
+                 their plain versions, each timed as called and by
+                 device time beside its bound, and pack_index in 4 forced
+                 windows sha256-equal to phase 4's index, its wall beside
+                 the pack in one sort
   9. sharded     the graph-sharded indexed engine with G = 4 shards placed
                  by make_mesh (all on cuda:0 on a one-card machine): the
                  phase-1 host CSR and the phase-4 index partitioned, the
@@ -403,6 +410,24 @@ memory:
                  and the server again with --graph-shards 2, the same
                  requests and gates, its answers' overlap with the first
                  server's printed
+  18. bench scale  (run last) the main path at bench.py's own scale:
+                 its graph, RMAT 2^22 x 16, seed 7 (made by a process of
+                 its own while phases 3-14 run, under
+                 bench_data/torch_smoke_big/), merged with the hub split;
+                 the index built on the card (one window), saved and
+                 loaded back with mmap; bench.py's 512 sources in pools of
+                 128, fresh and warm, one warm pass profiled (idle share);
+                 precision@50 over bench.py's 128 scored sources against
+                 the float64 oracle with its spread and a bootstrap 95%
+                 interval, >= 0.95 for the build's seed and one more; then
+                 the index at the smallest integer rmax_scale whose walks
+                 pass 1.1 x 2^30, packed by K7 on the card in key-range
+                 windows (no host pack: each window-form launch a window),
+                 its bucket multiplicities equal to its tables', (bucket,
+                 dst, src) strictly increasing, its pointers
+                 with_indptr's, sha256-equal to the same endpoints packed
+                 in windows of half the keys; one pool of 128 queries from
+                 it, precision over 32 printed (no gate)
   8. proof       every kernel of each path launched in its run (counts
                  reset just before each run, read just after): K1-K4 in
                  phases 4-5 with two K1 gathers per superstep and one K2
@@ -455,7 +480,12 @@ memory:
                  just after) K1 and K3 per local shard, P1 among the local
                  shards, P2's one pass once in the indexed run, the demand
                  once and both forms of K6+K4-xp in the raw run,
-                 K6+K4-xp on no path within one process; and neither
+                 K6+K4-xp on no path within one process; K7 in one
+                 sort (each of its three wrappers once) in phase 4's
+                 build, neither of K7-keys' count and window forms there,
+                 and in phase 18's past-2^30 build the count form, the
+                 window form, K7-sort and K7-merge once a window, no
+                 one-sort K7-keys; and neither
                  JAX nor the JAX package fora_tpu was imported, by this
                  process or the servers
 
@@ -525,7 +555,14 @@ phase 17's first build across the gloo workers summed, and carries forms
 (the own-start form index_walk_xp, the inbox form index_walk_xp_inbox),
 rounds, earlier_device_ms and earlier_forms (the earlier per-chunk
 forms), sharded_device_ms (K4's sharded form on the same chunks) and
-alias_* (phase 13's weighted graph)), then,
+alias_* (phase 13's weighted graph)); pack_key_counts and
+pack_keys_window, K7-keys' count and window forms, are phase 8's
+(the count over phase 4's endpoints by the top 14 key bits, a window of
+4; their bounds the endpoints, offsets and dangling ids read, the bins
+or the window's keys written) with the launches of phase 18's past-2^30
+build, the window form carrying window_keys, windowed_pack_s (phase 4's
+endpoints packed in 4 windows), one_sort_pack_s (phase 8's pack in one
+sort) and build_pack_s (phase 4's build's pack)), then,
 only if every phase passed, the last line {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero.
 
@@ -541,6 +578,7 @@ shard's push gather against one single-device gather.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -567,6 +605,7 @@ DEVICE = "cuda:0"
 MAIN_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                 "topk_bounds", "index_walk")
 PACK_KERNELS = ("pack_keys", "sort_keys", "merge_keys")    # K7, a build's
+WINDOW_KERNELS = ("pack_key_counts", "pack_keys_window")    # K7 in windows
 CKPT_DIR = ROOT / "bench_data" / "torch_smoke_ckpt"        # phase 8
 SHARDED_KERNELS = ("push_prepass", "gather_scatter_add", "index_spmv",
                    "topk_bounds", "ring_all_gather_hop",
@@ -1000,14 +1039,14 @@ def foreign_modules() -> set:
             if m.split(".")[0] in ("jax", "jaxlib", "fora_tpu")}
 
 
-def build_index(g, dg, rcfg, path=INDEX_DIR, log=None):
-    """The FORA+ index built on the card (K4, then K7's pack), saved under
-    ``path`` and loaded back through mmap; ``log`` gets the build's split
-    (``split_s``), which is printed."""
+def build_index(g, dg, rcfg, path=INDEX_DIR, log=None, seed=SEED):
+    """The FORA+ index built on the card (K4, then K7's pack) from
+    ``seed``, saved under ``path`` and loaded back through mmap; ``log``
+    gets the build's split (``split_s``), which is printed."""
     from fora_tpu_torch import index as tidx
     torch_sync()
     t0 = time.perf_counter()
-    built = tidx.build_walk_index(dg, rcfg, SEED, log=log)
+    built = tidx.build_walk_index(dg, rcfg, seed, log=log)
     wall = time.perf_counter() - t0
     walks = int(tidx.index_counts(g.out_deg, rcfg).sum())
     print(f"index: {walks} walks -> {built.total_edges} index edges in "
@@ -1369,7 +1408,10 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
           f"{build_log['split_s']['keys']:.4f})")
     rows["pack_keys"].update(host_numpy_pack_s=host_s, card_pack_s=card_s,
                              build_keys_s=build_log["split_s"]["keys"])
-    del card, host, ends, ends_h
+    del card, host, ends_h
+    rows.update(run_pack_windows(ends, counts, deg, rcfg, index, want,
+                                 card_s, build_log, dev))
+    del ends
     # the build checkpointed, preempted in the third chunk's walk, resumed
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     real, calls = ib.walk_endpoints, [0]
@@ -1406,6 +1448,127 @@ def run_pack(g, dg, rcfg, index, build_log, dev) -> dict:
     print(f"checkpointed build: preempted in chunk 2's walk with {files} "
           f"saved; resumed in {resumed_s:.4f} s (chunks cached {seen}), "
           f"sha256-equal to phase 4's index")
+    return rows
+
+
+PACK_WINDOWS = 4                    # phase 8: phase 4's pack in 4 windows
+
+
+@contextlib.contextmanager
+def sort_cap(keys: int):
+    """K7-sort's key limit (``kernels.SORT_MAX_KEYS``, which the pack reads
+    at each call) lowered to ``keys``: a pack of more keys goes in
+    key-range windows of at most ``keys``."""
+    from fora_tpu_torch import kernels
+    saved = kernels.SORT_MAX_KEYS
+    kernels.SORT_MAX_KEYS = keys
+    try:
+        yield
+    finally:
+        kernels.SORT_MAX_KEYS = saved
+
+
+def run_pack_windows(ends, counts, deg, rcfg, index, want, card_s,
+                     build_log, dev) -> dict:
+    """Phase 8, K7 in key-range windows: K7-keys' count form (the whole key
+    space by its top 14 bits) and window form (a window of the plan) on
+    phase 4's endpoints, torch.equal to their plain versions (the window's
+    keys as a multiset, its digit counts to the count launch's), each timed
+    as called and by device time (the window form, which synchronises once
+    to check its count, from a profile of ten calls) beside its bound;
+    then ``pack_index`` in PACK_WINDOWS forced windows, sha256-equal to
+    phase 4's index (its pointers too), its wall beside the pack in one
+    sort (``card_s``, phase 8's, and phase 4's build's pack, all of
+    ``build_log``'s split but the walk).  Returns the two forms' kernel
+    rows."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.index import build as ib
+    from fora_tpu_torch.parallel.multihost_driver import index_digest
+    from fora_tpu_torch.utils.timing import cuda_ms, device_ms
+    t = ib.pack_tables(counts, deg)
+    bits = 2 * t.nb + 4
+    top = max(bits - 14, 0)
+    plain_args = (ends, *ib._device_tables(t, dev), t.nb)
+    keys_args = (ends, *ib._card_tables(t, dev), t.nb)
+    plain = ib.pack_keys_plain(*plain_args)
+    span = (0, 1 << bits, top)
+    bins = kernels.pack_key_counts(*keys_args, *span)
+    if not torch.equal(bins, ib.pack_key_counts_plain(plain, *span)):
+        fail("K7-keys' count form differs from its plain version")
+    cap = (t.keys - 1) // (PACK_WINDOWS - 1)
+    plan = ib.plan_windows(lambda lo, hi, sh: kernels.pack_key_counts(
+        *keys_args, lo, hi, sh).cpu().numpy(), t.nb, cap)
+    lo, hi, length = plan[1]
+    totals = kernels.digit_totals(bits, dev)
+    wkeys = kernels.pack_keys_window(*keys_args, lo, hi, length,
+                                     totals=totals)
+    wplain = ib.pack_keys_window_plain(plain, lo, hi)
+    if not torch.equal(torch.sort(wkeys).values, torch.sort(wplain).values) \
+            or not torch.equal(totals, kernels.digit_counts(wkeys, bits)):
+        fail("K7-keys' window form differs from its plain version")
+    del plain, wplain
+    window = lambda: kernels.pack_keys_window(  # noqa: E731
+        *keys_args, lo, hi, length, totals=totals)
+    prof = profile_once("pack_window_form", lambda: [window()
+                                                     for _ in range(10)],
+                        need_trace=False)
+    # each reads the endpoints, the [n + 1] offsets and the dangling ids;
+    # the count form writes its 2^14 bins, the window form its keys
+    rows = {
+        "pack_key_counts": dict(
+            ms=cuda_ms(lambda: kernels.pack_key_counts(*keys_args, *span)),
+            device_ms=device_ms(lambda: kernels.pack_key_counts(*keys_args,
+                                                                *span)),
+            plain_ms=cuda_ms(lambda: ib.pack_key_counts_plain(
+                ib.pack_keys_plain(*plain_args), *span), iters=3),
+            library_ms=None, max_abs_err=0.0,
+            **bound(nbytes(*keys_args[:3]) + nbytes(bins))),
+        "pack_keys_window": dict(
+            ms=cuda_ms(window),
+            device_ms=(_device_ms_by(prof, "pack_keys_kernel<9, 2>",
+                                     "pack_keys_kernel<8, 2>") / 10
+                       if prof else 0.0) or None,
+            plain_ms=cuda_ms(lambda: ib.pack_keys_window_plain(
+                ib.pack_keys_plain(*plain_args), lo, hi), iters=3),
+            library_ms=None, max_abs_err=0.0, window_keys=length,
+            **bound(nbytes(*keys_args[:3]) + 8 * length)),
+    }
+    del wkeys, totals, keys_args, plain_args
+    log = {}
+    torch_sync()
+    t0 = time.perf_counter()
+    with sort_cap(cap):
+        win = ib.pack_index(ends.clone(), counts, deg, rcfg,
+                            free_endpoints=True, log=log)
+    win_s = time.perf_counter() - t0
+    if log["windows"] != PACK_WINDOWS or index_digest(win) != want or any(
+            (a is None) != (b is None) or (a is not None and
+                                           not np.array_equal(a, b))
+            for a, b in zip(win.dst_indptr, index.dst_indptr)):
+        fail(f"K7 in {log['windows']} windows: the index differs from phase "
+             f"4's")
+    build_pack_s = sum(v for k, v in build_log["split_s"].items()
+                       if k != "walk")
+    rows["pack_keys_window"].update(windowed_pack_s=win_s,
+                                    one_sort_pack_s=card_s,
+                                    build_pack_s=build_pack_s)
+
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.4f}"
+    for name, r in rows.items():
+        print(f"{name}: {r['ms']:.4f} ms as called, {fmt(r['device_ms'])} "
+              f"device, bound {r['bound_ms']:.4f} by {r['bound_by']}, plain "
+              f"{r['plain_ms']:.4f}, library none")
+    print(f"K7 in {PACK_WINDOWS} key-range windows of at most {cap} keys "
+          f"({[w[2] for w in plan]}): {win_s:.4f} s (the pack in one sort "
+          f"{card_s:.4f} s; phase 4's build's pack {build_pack_s:.4f} s); "
+          f"split, s: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in log["split_s"].items())
+          + "; sha256-equal to phase 4's index, the pointers equal; the "
+          "count form and the window form torch.equal to their plain "
+          "versions")
     return rows
 
 
@@ -1494,11 +1657,13 @@ def profile_once(name, fn, need_trace: bool = True):
         return {}
     # the device's own records (kernels, copies); an aten op's device time
     # repeats its kernels' and is left out
-    kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
-
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
+    # a kernel's record may come back typed as the host's: a record with
+    # device time and no host time is the device's all the same
+    kernels = [e for e in ka if e.device_type == DeviceType.CUDA or (
+        e.self_cpu_time_total == 0 and dev_us(e) > 0)]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     out = PROFILE_DIR / f"profile_{name}.txt"
     out.write_text(ka.table(sort_by="self_cuda_time_total", row_limit=30))
@@ -5353,6 +5518,421 @@ def mp_build_checks(name, recs, out, rcfg, want_digest, L, rounds,
     return forms
 
 
+# ---- phase 18: the main path at bench.py's own scale --------------------------
+
+BIG_NLOG2 = 22                      # bench.py's graph: RMAT 2^22 x 16, seed 7
+BIG_QUERIES, BIG_EVAL = 512, 128    # bench.py's queries and scored sources
+BIG_SEEDS = (SEED, SEED + 1000)     # the index's seeds: the build's, one more
+BIG_DIR = ROOT / "bench_data" / "torch_smoke_big"
+BIG_GRAPH = BIG_DIR / f"rmat{BIG_NLOG2}x{EDGEF}s{SEED}.npz"
+WIDE_WALKS = 1.1 * 2**30            # the build past K7-sort's 2^30 keys
+WIDE_EVAL = 32                      # its pool's scored sources
+BOOTSTRAP = 10_000
+
+
+def start_big_graph() -> subprocess.Popen:
+    """Phase 18's graph (bench.py's: RMAT 2^22 x 16, seed 7, by the port's
+    generator) made by a process of its own, at the lowest priority (nice
+    19), while phases 3-14 run: numpy takes minutes over it.  It writes
+    BIG_GRAPH by rename; the process is stopped at exit."""
+    import atexit
+    BIG_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BIG_GRAPH.with_name(BIG_GRAPH.stem + ".part.npz")
+    code = ("import os, sys, numpy as np\n"
+            "os.nice(19)\n"
+            "from fora_tpu_torch.graph import generators\n"
+            f"g = generators.rmat({BIG_NLOG2}, {EDGEF << BIG_NLOG2}, "
+            f"seed={SEED})\n"
+            "np.savez(sys.argv[1], **{k: v for k, v in g._asdict().items() "
+            "if v is not None})\n"
+            "os.replace(sys.argv[1], sys.argv[2])\n")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(tmp),
+                             str(BIG_GRAPH)], cwd=ROOT)
+    proc.started = time.perf_counter()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return proc
+
+
+def precision_spread(label, pred, ex, rng) -> float:
+    """The mean per-query precision@K of ``pred`` against the exact ``ex``
+    ([B, K] each), printed with its first 32's, min, 5th percentile, median
+    and a bootstrap 95% interval of the mean (BOOTSTRAP resamples of the
+    queries)."""
+    import numpy as np
+    per = np.array([len(set(p.tolist()) & set(e.tolist())) / K
+                    for p, e in zip(pred, ex)])
+    lo, hi = np.percentile(rng.choice(per, (BOOTSTRAP, len(per))).mean(
+        axis=1), [2.5, 97.5])
+    print(f"precision@{K} {label}: {per.mean():.4f} over {len(per)} queries "
+          f"(the first {EVAL_N}: {per[:EVAL_N].mean():.4f}); per query min "
+          f"{per.min():.2f}, 5th percentile {np.percentile(per, 5):.2f}, "
+          f"median {np.median(per):.2f}; bootstrap 95% interval of the mean "
+          f"[{lo:.4f}, {hi:.4f}]")
+    return float(per.mean())
+
+
+def index_sha(idx) -> str:
+    """One sha256 of an index's arrays and its buckets' row pointers."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for a in (idx.edge_src, idx.edge_dst, idx.edge_mult, idx.bucket_offsets,
+              idx.counts_cum, *[p for p in idx.dst_indptr if p is not None]):
+        h.update(np.ascontiguousarray(a).data)
+    return h.hexdigest()
+
+
+def check_wide(idx, t, dev) -> None:
+    """The past-2^30 index against what its pack tables say: each bucket's
+    multiplicities summed equal to the keys the tables put in it, (bucket,
+    dst, src) strictly increasing over the whole index (on the card, 2^27
+    edges at a time), and the buckets' row pointers equal to
+    ``with_indptr``'s."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch.index import build as ib
+    cut = np.concatenate([t.cut, np.zeros((len(t.counts), 1), np.int64)], 1)
+    want = (cut[:, :-1] - cut[:, 1:]).sum(axis=0)
+    want[-1] += len(t.dang)
+    off = np.asarray(idx.bucket_offsets)
+    got = [float(np.asarray(idx.edge_mult[off[q]:off[q + 1]]).sum(
+        dtype=np.float64)) for q in range(ib.NUM_BUCKETS)]
+    if got != [float(w) for w in want]:
+        fail(f"past-2^30 index: bucket multiplicities {got}, the tables "
+             f"{want.tolist()}")
+    bounds = torch.as_tensor(off[1:-1], device=dev)
+    prev, step, E = -1, 1 << 27, idx.total_edges
+    for a in range(0, E, step):
+        b = min(E, a + step)
+        q = torch.bucketize(torch.arange(a, b, device=dev), bounds, right=True)
+        k = (q << (2 * t.nb)) | (torch.from_numpy(
+            np.asarray(idx.edge_dst[a:b])).to(dev).long() << t.nb) | \
+            torch.from_numpy(np.asarray(idx.edge_src[a:b])).to(dev).long()
+        if not (int(k[0]) > prev and bool((k[1:] > k[:-1]).all())):
+            fail(f"past-2^30 index: (bucket, dst, src) not strictly "
+                 f"increasing in edges {a} .. {b}")
+        prev = int(k[-1])
+    ref = ib.with_indptr(idx._replace(dst_indptr=None)).dst_indptr
+    for q, (p, r) in enumerate(zip(idx.dst_indptr, ref)):
+        if (p is None) != (r is None) or (p is not None and
+                                          not np.array_equal(p, r)):
+            fail(f"past-2^30 index: bucket {q}'s row pointers differ from "
+                 "with_indptr's")
+
+
+def plain_key_chunks(ends, t, dev, step: int = 1 << 27):
+    """``pack_keys_plain``'s keys of the pool ``ends`` (on the card), by
+    runs of nodes of about ``step`` pool entries (node ids added back),
+    then the dangling nodes' self-edges: the plain K7-keys at a size whose
+    int64 temporaries do not fit at once."""
+    import numpy as np
+    from fora_tpu_torch.index import build as ib
+    offsets, cut, dang = ib._device_tables(t, dev)
+    n = len(t.counts)
+    vs = np.unique(np.append(np.searchsorted(
+        t.offsets, np.arange(0, t.total, step)), n)).tolist()
+    ends_at = t.offsets.tolist() + [t.total]
+    for v0, v1 in zip(vs[:-1], vs[1:]):
+        o0, o1 = ends_at[v0], ends_at[v1]
+        yield ib.pack_keys_plain(ends[o0:o1], offsets[v0:v1] - o0,
+                                 cut[v0:v1], dang[:0], t.nb) + v0
+    yield ib.pack_keys_plain(ends[:0], offsets[:0], cut[:0], dang, t.nb)
+
+
+def hold_wide_windows(ends, t, cap, dev) -> list:
+    """The past-2^30 pack's forms at its own shapes against the plain
+    chain: the count form's top-level bins equal to
+    ``pack_key_counts_plain`` summed over ``plain_key_chunks``; then, in
+    each window of the plan at ``cap`` keys, the window form's keys equal,
+    sorted, to the plain keys in [lo, hi) sorted, its digit counts to the
+    count launch's, K7-sort's output to that sorted order and K7-merge's
+    five arrays to ``merge_keys_plain``'s.  Returns the plan."""
+    import torch
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.index import build as ib
+    bits = 2 * t.nb + 4
+    tables = ib._card_tables(t, dev)
+    span = (0, 1 << bits,
+            max(bits - (kernels.KEY_COUNT_BINS.bit_length() - 1), 0))
+    bins = kernels.pack_key_counts(ends, *tables, t.nb, *span)
+    want = sum(ib.pack_key_counts_plain(k, *span)
+               for k in plain_key_chunks(ends, t, dev))
+    if not torch.equal(bins, want):
+        fail("phase 18: K7-keys' count form differs from its plain version "
+             "over the past-2^30 pool")
+    del bins, want
+    plan = ib.plan_windows(lambda lo, hi, sh: kernels.pack_key_counts(
+        ends, *tables, t.nb, lo, hi, sh).cpu().numpy(), t.nb, cap)
+    n = len(t.counts)
+    for i, (lo, hi, length) in enumerate(plan):
+        want = torch.sort(torch.cat([
+            ib.pack_keys_window_plain(k, lo, hi)
+            for k in plain_key_chunks(ends, t, dev)])).values
+        totals = kernels.digit_totals(bits, dev)
+        keys = kernels.pack_keys_window(ends, *tables, t.nb, lo, hi, length,
+                                        totals=totals)
+        if not torch.equal(torch.sort(keys).values, want) or \
+                not torch.equal(totals, kernels.digit_counts(keys, bits)):
+            fail(f"phase 18: K7-keys' window form differs from its plain "
+                 f"version in window {i} [{lo}, {hi}) of the past-2^30 pool")
+        keys = kernels.sort_keys(keys, torch.empty_like(keys), bits,
+                                 totals=totals)
+        if not torch.equal(keys, want):
+            fail(f"phase 18: K7-sort differs from torch.sort in window {i} "
+                 "of the past-2^30 pool")
+        del totals
+        got = kernels.merge_keys(keys, t.nb, n)
+        del keys
+        for a, b in zip(got, ib.merge_keys_plain(want, t.nb, n)):
+            if not torch.equal(a, b):
+                fail(f"phase 18: K7-merge differs from its plain version in "
+                     f"window {i} of the past-2^30 pool")
+        del got, want
+        torch.cuda.empty_cache()
+    return plan
+
+
+def run_bench_scale(gen, dev) -> dict:
+    """Phase 18: the main path at bench.py's own scale.  bench.py's graph
+    (RMAT 2^22 x 16, seed 7; made by ``gen``) merged with a 131,072-row hub
+    split; eps 0.5, k 50, delta = p_f = 1/n, alpha 0.2, delta stride 8,
+    defer 64.  The index built on the card at the build's seed, saved under
+    BIG_DIR and loaded back through mmap; its 512 sources answered in pools
+    of 128, fresh and warm, one warm pass profiled; precision@50 over the
+    128 scored sources against the float64 oracle, its spread and a
+    bootstrap interval, for that index and one built at a second seed,
+    each >= MIN_PRECISION.  Then the index at the smallest integer
+    rmax_scale whose walks pass 1.1 x 2^30, packed by K7 on the card in
+    key-range windows (no host pack), held to its tables and sha256-equal
+    to the same endpoints packed in windows of half the keys, whose
+    windows are each held against the plain chain on the card
+    (``hold_wide_windows``); one pool of
+    128 queries from it, its precision over 32 printed (no gate).  Returns
+    the launches of that build."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch import ForaConfig
+    from fora_tpu_torch import index as tidx
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo import exact
+    from fora_tpu_torch.algo.topk import TopkRunner
+    from fora_tpu_torch.eval import queries as qio
+    from fora_tpu_torch.graph import to_device
+    from fora_tpu_torch.graph.csr import CSRGraph
+    from fora_tpu_torch.index import build as ib
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    if gen.wait() != 0:
+        fail(f"phase 18: the graph's process exited with {gen.returncode}")
+    waited = time.perf_counter() - t0
+    z = np.load(BIG_GRAPH)
+    g = CSRGraph(**{k: z[k] for k in CSRGraph._fields if k in z.files})
+    del z
+    rcfg = ForaConfig(epsilon=EPS, k=K).resolved(g.n, g.m)
+    t1 = time.perf_counter()
+    dg = to_device(g, merge_duplicate_edges=True, hub_rows=HUB_ROWS,
+                   device=dev)
+    print(f"bench-scale graph: RMAT n={g.n} m={g.m} made in "
+          f"{time.perf_counter() - gen.started:.1f} s beside phases 3-14 "
+          f"(waited {waited:.1f} s for it); to_device "
+          f"{time.perf_counter() - t1:.1f} s, {dg.m_in} merged in-edges")
+    sources = qio.generate_sources(g, BIG_QUERIES, seed=SEED + 1)
+    ev = sources[:BIG_EVAL]
+    t1 = time.perf_counter()
+    x = exact.exact_ppr_batch(g, ev, device=dev)
+    ex = exact.topk_ids(x, K)
+    kth = x.T.gather(1, torch.as_tensor(ex[:, -1:], device=dev))
+    tied = int(((x.T >= kth).sum(dim=1) > K).sum())
+    del x, kth
+    torch.cuda.empty_cache()
+    print(f"exact oracle: {BIG_EVAL} sources in "
+          f"{time.perf_counter() - t1:.1f} s; {tied} with an exact tie "
+          f"across rank {K}")
+    rng = np.random.default_rng(SEED)
+    keys = int(ib.pack_tables(tidx.index_counts(g.out_deg, rcfg),
+                              g.out_deg).keys)
+    for seed in BIG_SEEDS:
+        log = {}
+        kernels.reset_launch_counts()
+        if seed == BIG_SEEDS[0]:
+            index = build_index(g, dg, rcfg, path=BIG_DIR / "index", log=log,
+                                seed=seed)
+        else:
+            torch_sync()
+            t1 = time.perf_counter()
+            index = tidx.build_walk_index(dg, rcfg, seed, log=log)
+            log["wall_s"] = time.perf_counter() - t1
+        c = kernels.launch_counts()
+        if log["windows"] != 1 or any(c[n] != 1 for n in PACK_KERNELS) or \
+                c["pack_key_counts"] or c["pack_keys_window"]:
+            fail(f"phase 18 build at seed {seed}: {log['windows']} windows, "
+                 f"K7 launches {[c[n] for n in PACK_KERNELS]}, expected one "
+                 "sort")
+        print(f"index at seed {seed}: {keys} keys in {log['windows']} "
+              f"window, {index.total_edges} edges, built in "
+              f"{log['wall_s']:.4f} s; split, s: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in log["split_s"].items()))
+        runner = TopkRunner(dg, rcfg, k=K, index=index, delta_stride=DSTRIDE,
+                            accept_slack=ACCEPT)
+        if seed == BIG_SEEDS[0]:
+            kernels.reset_launch_counts()
+            res, n_acc, levels, fresh, stats = run_queries(
+                runner, sources, lambda *a: None)
+            c = kernels.launch_counts()
+            if len(res) != BIG_QUERIES or any(c[n] <= 0 for n in
+                                              MAIN_KERNELS[:4]):
+                fail(f"phase 18: {len(res)} of {BIG_QUERIES} answered, "
+                     f"launches {c}")
+            warm = run_queries(runner, sources, lambda *a: None)[3]
+            steps = sum(st["supersteps"] for st in stats)
+            print(f"queries: {BIG_QUERIES} in pools of {POOL}, fresh "
+                  f"{fresh:.3f} s ({BIG_QUERIES / fresh:.2f} q/s), warm "
+                  f"{warm:.3f} s ({BIG_QUERIES / warm:.2f} q/s); levels "
+                  f"used {levels}, accepted {n_acc}/{BIG_QUERIES}, "
+                  f"{steps} supersteps, {len(stats)} level runs")
+            profile_once("bench_scale_pool", lambda: run_queries(
+                runner, sources, lambda *a: None), need_trace=False)
+        else:
+            res = run_queries(runner, ev, lambda *a: None)[0]
+        pred = np.stack([res[int(s)] for s in ev])
+        mean = precision_spread(f"at index seed {seed}", pred, ex, rng)
+        if not mean >= MIN_PRECISION:
+            fail(f"phase 18: precision@{K} {mean:.4f} < {MIN_PRECISION} over "
+                 f"{BIG_EVAL} at index seed {seed}")
+        del runner, index, res
+        torch.cuda.empty_cache()
+    launches = run_wide(g, dg, sources, ex, dev)
+    print(f"phase 18 peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    return launches
+
+
+def run_wide(g, dg, sources, ex, dev) -> dict:
+    """Phase 18's build past 2^30 keys (see run_bench_scale); returns its
+    launches."""
+    import numpy as np
+    import torch
+    from fora_tpu_torch import ForaConfig
+    from fora_tpu_torch import index as tidx
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.algo.topk import TopkRunner
+    from fora_tpu_torch.index import build as ib
+
+    def cfg(scale):
+        return ForaConfig(epsilon=EPS, k=K, rmax_scale=scale).resolved(g.n,
+                                                                       g.m)
+    scale = next(s for s in range(1, 64)
+                 if tidx.index_counts(g.out_deg, cfg(s)).sum() > WIDE_WALKS)
+    wcfg = cfg(scale)
+    t = ib.pack_tables(tidx.index_counts(g.out_deg, wcfg), g.out_deg)
+    # nothing of the pack may run on the host
+    host = ("_pack_plain", "_plain_windows", "_pack_legacy",
+            "pack_index_plain", "with_indptr")
+    saved = {n: getattr(ib, n) for n in host}
+
+    def refuse(name):
+        def f(*a, **kw):
+            fail(f"phase 18: the past-2^30 pack called {name} on the host")
+        return f
+    digests, logs = [], []
+    for half in (False, True):
+        log = {}
+        walk_s = 0.0
+        if half:
+            # the same endpoints, walked again; the windows of half the keys
+            # held against the plain chain before they are packed
+            cap = logs[0]["window_keys"] // 2
+            torch_sync()
+            t1 = time.perf_counter()
+            with ib._splitter(log, dev)("walk"):
+                ends, counts, deg = ib.index_endpoints(dg, dg, wcfg, SEED,
+                                                       dev)
+            walk_s = time.perf_counter() - t1
+            plan = hold_wide_windows(ends, t, cap, dev)
+            held = time.perf_counter() - t1 - walk_s
+        for n in host:
+            setattr(ib, n, refuse(n))
+        kernels.reset_launch_counts()
+        torch_sync()
+        t1 = time.perf_counter()
+        try:
+            if not half:
+                idx = tidx.build_walk_index(dg, wcfg, SEED, log=log)
+            else:
+                with sort_cap(cap):
+                    idx = ib.pack_index(ends, counts, deg, wcfg, log=log,
+                                        free_endpoints=True)
+                del ends
+        finally:
+            for n, f in saved.items():
+                setattr(ib, n, f)
+        wall = time.perf_counter() - t1 + walk_s
+        c = kernels.launch_counts()
+        if half and (log["window_keys"] != cap or
+                     log["windows"] != len(plan)):
+            fail(f"phase 18: {log['windows']} windows of at most "
+                 f"{log['window_keys']} keys packed, {len(plan)} of {cap} "
+                 "held")
+        if log["windows"] < 2 or c["pack_keys_window"] != log["windows"] or \
+                c["pack_keys"] or c["pack_key_counts"] < 1 or \
+                c["sort_keys"] != log["windows"] or \
+                c["merge_keys"] != log["windows"]:
+            fail(f"phase 18: the past-2^30 pack in {log['windows']} "
+                 f"windows launched {c}")
+        if not half:
+            launches = c
+            t2 = time.perf_counter()
+            check_wide(idx, t, dev)
+            checked = time.perf_counter() - t2
+        t2 = time.perf_counter()
+        digests.append(index_sha(idx))
+        hashed = time.perf_counter() - t2
+        logs.append(log)
+        print(f"past-2^30 index (rmax_scale {scale}"
+              + (", windows of half the keys" if half else "")
+              + f"): {t.keys} keys of {2 * t.nb + 4} bits in "
+              f"{log['windows']} windows of at most {log['window_keys']} "
+              f"keys, {idx.total_edges} edges, built in {wall:.2f} s; "
+              f"launches: count form {c['pack_key_counts']}, window form "
+              f"{c['pack_keys_window']}, sort {c['sort_keys']}, merge "
+              f"{c['merge_keys']}; split, s: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in log["split_s"].items())
+              + f"; sha256 {hashed:.1f} s"
+              + (f"; its windows held against the plain chain in {held:.1f} "
+                 "s" if half else f"; checked in {checked:.1f} s"))
+        if half:
+            break
+        del idx
+    if digests[0] != digests[1] or logs[1]["windows"] <= logs[0]["windows"]:
+        fail(f"phase 18: the past-2^30 index in {logs[0]['windows']} "
+             f"windows differs from the same endpoints in "
+             f"{logs[1]['windows']}")
+    print(f"past-2^30 index: sha256-equal in {logs[0]['windows']} and "
+          f"{logs[1]['windows']} windows; the bucket multiplicities equal "
+          "the tables', (bucket, dst, src) strictly increasing, the "
+          "pointers with_indptr's; the count form's bins and, in each of "
+          f"the {logs[1]['windows']} windows, the window form, K7-sort and "
+          "K7-merge equal to the plain chain")
+    runner = TopkRunner(dg, wcfg, k=K, index=idx, delta_stride=DSTRIDE,
+                        accept_slack=ACCEPT)
+    res, _, _, wall, _ = run_queries(runner, sources[:POOL], lambda *a: None)
+    pred = np.stack([res[int(s)] for s in sources[:WIDE_EVAL]])
+    per = [len(set(p.tolist()) & set(e.tolist())) / K
+           for p, e in zip(pred, ex[:WIDE_EVAL])]
+    print(f"past-2^30 index: a pool of {POOL} queries in {wall:.3f} s; "
+          f"precision@{K} over the first {WIDE_EVAL} {np.mean(per):.4f} (no "
+          f"gate: precision falls as rmax_scale rises)")
+    del runner, idx
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="PAIRS",
@@ -5418,6 +5998,9 @@ def main(argv=None) -> int:
         for line in log.read_text().splitlines():
             if "Used" in line or "Compiling entry" in line:
                 print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+
+    # phase 18's graph, made by a process of its own beside phases 3-14
+    big_graph = None if args.profile else start_big_graph()
 
     # ---- graph (host) ----------------------------------------------------
     with Phase("graph"):
@@ -5893,6 +6476,12 @@ def main(argv=None) -> int:
     with Phase("cli"):
         cli_launches = run_cli(g, rcfg, sources, ex[:EVAL_N], dev)
 
+    # ---- 18. the main path at bench.py's own scale ---------------------------
+    # (the 2^19 graphs and indexes on the card were freed before phase 13)
+    torch.cuda.empty_cache()
+    with Phase("bench scale"):
+        wide_launches = run_bench_scale(big_graph, dev)
+
     # ---- 8. proof that each path ran on its kernels ------------------------
     hops = (SHARDS - 1) * SHARDS
     print(f"launches in phases 4-5: {launches}")
@@ -5908,11 +6497,17 @@ def main(argv=None) -> int:
     if launches["index_spmv"] != level_runs:
         fail(f"K2: {launches['index_spmv']} launches for {level_runs} "
              f"level runs, expected one each")
-    # K7: phase 4's build packed on the card, once each
+    # K7: phase 4's build packed on the card in one sort, once each, with
+    # no count or window form
     for name in PACK_KERNELS:
         if launches[name] != 1:
             fail(f"K7's {name}: {launches[name]} launches in phase 4's "
                  "build, expected 1")
+    for name in WINDOW_KERNELS:
+        if launches[name]:
+            fail(f"K7-keys' {name}: {launches[name]} launches in phase 4's "
+                 "build, which fits one sort")
+    print(f"launches in phase 18's past-2^30 build: {wide_launches}")
     print(f"launches in phase 9's timed run ({sh_iters} supersteps): "
           f"{sharded_launches}")
     for name in SHARDED_KERNELS:
@@ -6265,11 +6860,18 @@ def main(argv=None) -> int:
         "sort_keys": ("pack.cu", "fora_tpu/_native/radix_sort.cpp:53"),
         "merge_keys": ("pack.cu",
                        "fora_tpu/_native/radix_sort.cpp:117, 157, 205"),
+        # K7-keys' count and window forms: the same keys, a window's at a
+        # time, for an index past one sort (phase 8's endpoints; their
+        # launches phase 18's past-2^30 build)
+        "pack_key_counts": ("pack.cu", "fora_tpu/_native/radix_sort.cpp:179"),
+        "pack_keys_window": ("pack.cu",
+                             "fora_tpu/_native/radix_sort.cpp:137, 179"),
     }
     out = []
     for name, (src_file, replaces) in meta.items():
         row = rows[name]
         n = (launches[name] if name in MAIN_KERNELS + PACK_KERNELS else
+             wide_launches[name] if name in WINDOW_KERNELS else
              p3_launches[name] if name == "row_scatter_add" else
              pool_launches["routed"]["row_scatter_add"]
              if name == "row_scatter_add_receive" else
@@ -6317,7 +6919,10 @@ def main(argv=None) -> int:
                                            "earlier_bound_ms",
                                            "profiled_unfused_device_ms",
                                            "profiled_earlier_device_ms",
-                                           "counted_ms",
+                                           "counted_ms", "window_keys",
+                                           "windowed_pack_s",
+                                           "one_sort_pack_s",
+                                           "build_pack_s",
                                            "counted_device_ms",
                                            "count_device_ms",
                                            "build_keys_s")

@@ -553,44 +553,175 @@ def _card_tables(t: PackTables, dev) -> tuple:
     return torch.from_numpy(offsets).to(dev), torch.from_numpy(t.dang).to(dev)
 
 
-def pack_bytes(t: PackTables) -> int:
-    """Device bytes K7 may need beside the endpoints: PACK_BYTES_PER_KEY a
-    key, K7-sort's scratch (digit totals, ticket, status words) and
-    K7-merge's (ticket, status words, bucket offsets, each pointer tile's
-    first rank), the buckets' row pointers (NUM_BUCKETS (n + 1) int32),
-    K7-keys' tables (offsets [n + 1] and the dangling nodes, int64) and
-    the digit counts it hands K7-sort.  Raises ValueError for more keys
-    than K7-sort's counts hold."""
-    L = t.keys
+def pack_bytes(t: PackTables, keys: Optional[int] = None,
+               windowed: bool = False) -> int:
+    """Device bytes K7 may need beside the endpoints to pack ``keys`` keys
+    (default all of ``t``'s) in one sort: PACK_BYTES_PER_KEY a key, K7-
+    sort's scratch (digit totals, ticket, status words) and K7-merge's
+    (ticket, status words, bucket offsets, each pointer tile's first rank),
+    the buckets' row pointers (NUM_BUCKETS (n + 1) int32), K7-keys' tables
+    (offsets [n + 1] and the dangling nodes, int64) and the digit counts it
+    hands K7-sort; ``windowed``, a window of a pack in key-range windows,
+    also the windows' running sum of the pointers, the count form's bins
+    and the window form's cursor.  Raises ValueError for more keys than
+    K7-sort's counts hold."""
+    L = t.keys if keys is None else keys
+    n1 = len(t.counts) + 1
     bits = 2 * t.nb + 4
     digits = kernels.sort_digit_bits(bits)
     return (PACK_BYTES_PER_KEY * L + 4 * kernels.sort_scratch_words(L, digits)
-            + 4 * kernels.merge_scratch_words(L, len(t.counts))
-            + 4 * NUM_BUCKETS * (len(t.counts) + 1)
-            + 8 * (len(t.counts) + 1) + t.dang.nbytes
-            + 4 * (-(-bits // digits) << digits))
+            + 4 * kernels.merge_scratch_words(L, n1 - 1)
+            + 4 * NUM_BUCKETS * n1 + 8 * n1 + t.dang.nbytes
+            + 4 * (-(-bits // digits) << digits)
+            + (4 * NUM_BUCKETS * n1 + 4 * kernels.KEY_COUNT_BINS + 4
+               if windowed else 0))
 
 
-def check_pack_fits(need: int, dev) -> None:
-    """Refuse (torch.OutOfMemoryError) a pack of ``need`` bytes that
-    ``dev`` has not free (what the driver reports free, and what the
-    caching allocator holds unused), before any launch."""
-    free = torch.cuda.mem_get_info(dev)[0] + (
+def free_bytes(dev) -> int:
+    """What ``dev`` has free for the pack: what CUDA reports free, and what
+    the caching allocator holds unused."""
+    return torch.cuda.mem_get_info(dev)[0] + (
         torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev))
+
+
+def window_cap(t: PackTables, free: int) -> Optional[int]:
+    """None where K7 packs ``t`` in one sort, as it always did: its keys
+    within K7-sort's ``kernels.SORT_MAX_KEYS`` (read at each call) and
+    ``pack_bytes(t)`` within ``free``.  Else the most keys a key-range
+    window may hold: at most SORT_MAX_KEYS, and as many as ``pack_bytes(t,
+    L, windowed=True)`` lets within ``free``.  Refuses
+    (torch.OutOfMemoryError) only where a window of one key does not fit."""
+    most = kernels.SORT_MAX_KEYS
+    if t.keys <= most and pack_bytes(t) <= free:
+        return None
+    need = pack_bytes(t, 1, windowed=True)
     if need > free:
         raise torch.OutOfMemoryError(
-            f"the index pack needs {need} bytes on {dev} "
-            f"({PACK_BYTES_PER_KEY} a key, the scratch and the tables); "
-            f"{free} are free")
+            f"the index pack needs {need} bytes for its smallest window "
+            f"(the scratch, the tables and the row pointers); {free} are "
+            "free")
+    lo, hi = 1, most
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if pack_bytes(t, mid, windowed=True) <= free:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def plan_windows(count: Callable, nb: int, cap: int) -> list:
+    """Key-range windows [(lo, hi, keys)] of a pack of keys of ``nb``-bit
+    ids, in key order, covering [0, 2^(2 nb + 4)), each of at most ``cap``
+    keys: greedy runs of the count form's bins over the keys' top
+    KEY_COUNT_BINS bits (``count(lo, hi, shift)``: the keys in [lo, hi) by
+    (k - lo) >> shift, numpy), a bin over the cap split by a count over its
+    next bits.  A key value held more than ``cap`` times cannot be split:
+    ValueError, naming its node."""
+    per = kernels.KEY_COUNT_BINS.bit_length() - 1
+    bits = 2 * nb + 4
+    mask = (1 << nb) - 1
+    units = []
+
+    def split(lo, hi, shift):
+        for b, k in enumerate(count(lo, hi, shift).tolist()):
+            a = lo + (b << shift)
+            if k <= cap:
+                units.append((a, k))
+            elif shift == 0:
+                raise ValueError(
+                    f"index pack: node {a & mask}'s pool holds endpoint "
+                    f"{(a >> nb) & mask} {k} times in bucket {a >> (2 * nb)}, "
+                    f"more than a window of {cap} keys")
+            else:
+                split(a, a + (1 << shift), max(shift - per, 0))
+    split(0, 1 << bits, max(bits - per, 0))
+    windows, lo, got = [], 0, 0
+    for a, k in units:
+        if got + k > cap:
+            windows.append((lo, a, got))
+            lo, got = a, 0
+        got += k
+    windows.append((lo, 1 << bits, got))
+    return windows
+
+
+def pack_key_counts_plain(keys: torch.Tensor, lo: int, hi: int,
+                          shift: int) -> torch.Tensor:
+    """K7-keys' count form's plain version over ``pack_keys_plain``'s keys:
+    the keys in [lo, hi) counted by bin (k - lo) >> shift
+    (``kernels.pack_key_counts``)."""
+    sel = keys[(keys >= lo) & (keys < hi)]
+    return torch.bincount((sel - lo) >> shift,
+                          minlength=-(-(hi - lo) >> shift)).int()
+
+
+def pack_keys_window_plain(keys: torch.Tensor, lo: int,
+                           hi: int) -> torch.Tensor:
+    """K7-keys' window form's plain version over ``pack_keys_plain``'s
+    keys: those in [lo, hi), in pool order (``kernels.pack_keys_window``
+    gives them in no order)."""
+    return keys[(keys >= lo) & (keys < hi)]
+
+
+def _card_windows(ends: torch.Tensor, t: PackTables,
+                  free_endpoints: bool) -> tuple:
+    """K7's (count, pack) of a pack in windows on ``ends``' card: the count
+    form, and a window's K7 (the window form with the sort's digit counts,
+    the sort, the merge), the endpoints and tables freed once the last
+    window's keys are written (with ``free_endpoints``)."""
+    dev = ends.device
+    bits = 2 * t.nb + 4
+    tables = list(_card_tables(t, dev))
+
+    def count(lo, hi, shift):
+        return kernels.pack_key_counts(ends, *tables, t.nb, lo, hi,
+                                       shift).cpu().numpy()
+
+    def pack(lo, hi, length, last, part):
+        with part("keys"):
+            totals = kernels.digit_totals(bits, dev)
+            keys = kernels.pack_keys_window(ends, *tables, t.nb, lo, hi,
+                                            length, totals=totals)
+            if last:
+                tables.clear()
+                if free_endpoints:
+                    ends.set_()
+        with part("sort"):
+            alt = torch.empty_like(keys)
+            keys = kernels.sort_keys(keys, alt, bits, totals=totals)
+            del alt, totals
+        with part("merge"):
+            return kernels.merge_keys(keys, t.nb, len(t.counts))
+    return count, pack
+
+
+def _plain_windows(ends: torch.Tensor, t: PackTables) -> tuple:
+    """The plain chain's (count, pack) of a pack in windows: the keys of
+    ``pack_keys_plain`` once, then each window filtered, sorted and
+    merged by the plain versions."""
+    keys = pack_keys_plain(ends, *_device_tables(t, ends.device), t.nb)
+
+    def count(lo, hi, shift):
+        return pack_key_counts_plain(keys, lo, hi, shift).cpu().numpy()
+
+    def pack(lo, hi, length, last, part):
+        with part("keys"):
+            w = pack_keys_window_plain(keys, lo, hi)
+        with part("sort"):
+            w = sort_keys_plain(w)
+        with part("merge"):
+            return merge_keys_plain(w, t.nb, len(t.counts))
+    return count, pack
 
 
 def _pack_on_card(ends: torch.Tensor, t: PackTables, part,
                   free_endpoints: bool) -> tuple:
-    """K7 on ``ends``' card: keys (with the sort's digit counts), sort,
-    merge (``kernels.pack_keys``, ``sort_keys``, ``merge_keys``)."""
+    """K7 on ``ends``' card in one sort: keys (with the sort's digit
+    counts), sort, merge (``kernels.pack_keys``, ``sort_keys``,
+    ``merge_keys``)."""
     dev = ends.device
     bits = 2 * t.nb + 4
-    check_pack_fits(pack_bytes(t), dev)
     with part("keys"):
         offsets, dang = _card_tables(t, dev)
         totals = kernels.digit_totals(bits, dev)
@@ -633,20 +764,107 @@ def _index_from(t: PackTables, rcfg: ResolvedConfig, packed: tuple,
                 part) -> WalkIndex:
     """The WalkIndex of a packed branch's (src, dst, mult, bucket_counts,
     indptr) on any device: the edge arrays copied to the host, then the
-    buckets' row pointers (an empty bucket's None, as ``with_indptr``
-    gives)."""
+    buckets' row pointers."""
     with part("copy_back"):
         src, dst, mult, bc = host_arrays(packed[:4])
-        off = np.zeros(NUM_BUCKETS + 1, dtype=np.int64)
-        np.cumsum(bc, out=off[1:])
     with part("indptr"):
         (ptr,) = host_arrays(packed[4:])
+    return _walk_index(t, rcfg, src, dst, mult, bc, ptr)
+
+
+def _walk_index(t: PackTables, rcfg: ResolvedConfig, src, dst, mult, bc,
+                ptr) -> WalkIndex:
+    """The WalkIndex of the host arrays of a pack: its bucket sizes ``bc``
+    and [NUM_BUCKETS, n + 1] row pointers ``ptr`` (an empty bucket's None,
+    as ``with_indptr`` gives)."""
+    off = np.zeros(NUM_BUCKETS + 1, dtype=np.int64)
+    np.cumsum(bc, out=off[1:])
     return WalkIndex(
         edge_src=src, edge_dst=dst, bucket_offsets=off,
         counts_cum=t.counts_cum, omega_unit_built=rcfg.omega_unit,
         rmax_built=rcfg.rmax, edge_mult=mult,
         dst_indptr=tuple(ptr[q] if off[q + 1] > off[q] else None
                          for q in range(NUM_BUCKETS)))
+
+
+# bytes of each of copy_to_host's two pinned staging buffers
+COPY_STAGE = 1 << 28
+
+
+def pinned_stage(nbytes: int) -> list:
+    """``copy_to_host``'s two pinned staging buffers, of ``nbytes`` (at most
+    COPY_STAGE) each, made once for all the copies of a pack."""
+    return [torch.empty(max(min(nbytes, COPY_STAGE), 1), dtype=torch.uint8,
+                        pin_memory=True) for _ in range(2)]
+
+
+def copy_to_host(x: torch.Tensor, out: np.ndarray,
+                 stage: Optional[list]) -> None:
+    """The 1-D tensor ``x`` into the numpy array ``out``: from a card through
+    the two pinned staging buffers ``stage`` (``pinned_stage``'s) in turns
+    (a chunk's copy from the card runs while the host copies the chunk
+    before), from the CPU directly."""
+    if x.device.type != "cuda":
+        out[...] = x.numpy()
+        return
+    n = x.shape[0]
+    if n == 0:
+        return
+    dst = torch.from_numpy(out)
+    step = stage[0].shape[0] // x.element_size()
+    stream = torch.cuda.current_stream(x.device)
+    pending = None
+    for i, a in enumerate(range(0, n, step)):
+        b = min(n, a + step)
+        buf = stage[i % 2].view(x.dtype)[:b - a]
+        buf.copy_(x[a:b], non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        if pending is not None:
+            pending[0].synchronize()
+            dst[pending[1]:pending[2]].copy_(pending[3])
+        pending = (done, a, b, buf)
+    pending[0].synchronize()
+    dst[pending[1]:pending[2]].copy_(pending[3])
+
+
+def _pack_windows(t: PackTables, rcfg: ResolvedConfig, windows: list,
+                  pack: Callable, part, dev) -> WalkIndex:
+    """The pack in key-range windows (``plan_windows``'s, in key order):
+    ``pack(lo, hi, keys, last, part)`` gives a window's merged (src, dst,
+    mult, bucket_counts, indptr) on ``dev`` (K7 on a card, the plain chain
+    on the CPU); its edge arrays go to the index's host arrays at the
+    running offset, its bucket sizes and row pointers (on ``dev``) are
+    added up.  A window is a contiguous slice of the index, so the result
+    equals the pack in one sort.  The host arrays are made for every key
+    and shrunk in place to the unique edges at the end."""
+    L = sum(k for _, _, k in windows)
+    src = np.empty(L, dtype=np.int32)
+    dst = np.empty(L, dtype=np.int32)
+    mult = np.empty(L, dtype=np.float32)
+    stage = (pinned_stage(4 * L) if torch.device(dev).type == "cuda"
+             else None)
+    bc = np.zeros(NUM_BUCKETS, dtype=np.int64)
+    ptr = torch.zeros((NUM_BUCKETS, len(t.counts) + 1), dtype=torch.int32,
+                      device=dev)
+    at = 0
+    for i, (lo, hi, keys) in enumerate(windows):
+        w = pack(lo, hi, keys, i == len(windows) - 1, part)
+        with part("copy_back"):
+            u = w[0].shape[0]
+            for x, out in zip(w[:3], (src, dst, mult)):
+                copy_to_host(x, out[at:at + u], stage)
+            bc += w[3].cpu().numpy()
+            ptr += w[4]
+            at += u
+        del w                   # the window's buffers, before the next's
+    del stage
+    for a in (src, dst, mult):
+        # no view of the arrays is left: the copies' were dropped with them
+        a.resize(at, refcheck=False)
+    with part("indptr"):
+        (host_ptr,) = host_arrays([ptr])
+    return _walk_index(t, rcfg, src, dst, mult, bc, host_ptr)
 
 
 def pack_index_plain(endpoints: torch.Tensor, counts: np.ndarray,
@@ -673,15 +891,17 @@ def pack_index(endpoints, counts: np.ndarray, out_deg: np.ndarray,
     tensor or a numpy array) in node order, ``counts[v]`` of them node
     v's.  The branches go by shape, as JAX's do: with ``dedup`` and keys
     of 2 nb + 4 <= 63 bits (about 2^29 nodes), the packed-key branch, on
-    a card K7 (:func:`_pack_on_card`, refusing before any launch a pack
-    that does not fit) and elsewhere :func:`pack_index_plain`; else the
-    legacy lexsort branch on the host.  The branches give the same arrays:
-    the sorted order of a multiset of keys, and its run-length merge, do
-    not depend on the algorithm.  ``free_endpoints``: the pack may free
-    ``endpoints``' storage once the keys are written (K7's memory).
-    ``log`` gets the split (``split_s``: keys, sort, merge, copy_back of
-    the edge arrays, indptr the copy of the buckets' row pointers, which
-    the packed branch counts with the merge)."""
+    a card K7 (:func:`_pack_card`, in key-range windows past K7-sort's
+    keys or the card's memory) and elsewhere :func:`pack_index_plain`;
+    else the legacy lexsort branch on the host.  The branches give the
+    same arrays: the sorted order of a multiset of keys, and its run-length
+    merge, do not depend on the algorithm.  ``free_endpoints``: the pack
+    may free ``endpoints``' storage once the keys are written (K7's
+    memory).  ``log`` gets the split (``split_s``: plan the windows'
+    counts, keys, sort, merge, copy_back of the edge arrays, indptr the
+    copy of the buckets' row pointers, which the packed branch counts with
+    the merge), ``windows``, their number (1 for one sort), and for
+    windows ``window_keys``, the most keys a window could hold."""
     ends = (endpoints if isinstance(endpoints, torch.Tensor) else
             torch.from_numpy(np.ascontiguousarray(endpoints,
                                                   dtype=np.int32)))
@@ -691,11 +911,39 @@ def pack_index(endpoints, counts: np.ndarray, out_deg: np.ndarray,
     if not dedup or 2 * t.nb + 4 > 63:
         return _pack_legacy(ends.cpu().numpy(), t, rcfg, dedup)
     part = _splitter(log, ends.device)
+    if log is not None:
+        log["windows"] = 1
     if ends.device.type == "cuda":
-        packed = _pack_on_card(ends, t, part, free_endpoints)
-    else:
-        packed = _pack_plain(ends, t, part)
-    return _index_from(t, rcfg, packed, part)
+        return _pack_card(ends, t, rcfg, part, free_endpoints, log)
+    return _index_from(t, rcfg, _pack_plain(ends, t, part), part)
+
+
+def _pack_card(ends: torch.Tensor, t: PackTables, rcfg: ResolvedConfig,
+               part, free_endpoints: bool,
+               log: Optional[dict]) -> WalkIndex:
+    """K7 on ``ends``' card: in one sort (:func:`_pack_on_card`, today's
+    launches) where ``window_cap`` allows, else in key-range windows; a
+    pack whose smallest window does not fit is refused before any
+    launch."""
+    cap = window_cap(t, free_bytes(ends.device))
+    if cap is None:
+        return _index_from(t, rcfg, _pack_on_card(ends, t, part,
+                                                  free_endpoints), part)
+    return _pack_planned(t, rcfg, part, cap,
+                         _card_windows(ends, t, free_endpoints), ends.device,
+                         log)
+
+
+def _pack_planned(t: PackTables, rcfg: ResolvedConfig, part, cap: int,
+                  forms: tuple, dev, log: Optional[dict]) -> WalkIndex:
+    """The windows of at most ``cap`` keys planned over ``forms``' counts,
+    then packed by its window function."""
+    count, pack = forms
+    with part("plan"):
+        windows = plan_windows(count, t.nb, cap)
+    if log is not None:
+        log.update(windows=len(windows), window_keys=cap)
+    return _pack_windows(t, rcfg, windows, pack, part, dev)
 
 
 def _pack_legacy(endpoints: np.ndarray, t: PackTables,

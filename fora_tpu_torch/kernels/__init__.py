@@ -1490,6 +1490,24 @@ PACK_TILE = 4096     # keys a block of K7-sort and K7-merge takes (pack.cu)
 # each); sort_digit_bits picks one a call
 SORT_DIGIT_WIDTHS = (8, 9, 11)
 SORT_MAX_KEYS = (1 << 30) - 1   # K7-sort's status words count in 30 bits
+KEY_COUNT_BINS = 1 << 14   # K7-keys' count form's bins at most (pack.cu)
+
+
+def _keys_inputs(ends, offsets, dang, nb, name) -> tuple:
+    """(total, n, nd) of K7-keys' inputs, checked as ``pack_keys`` takes
+    them."""
+    (total,) = ends.shape
+    dev = ends.device
+    _check("ends", ends, torch.int32, (total,))
+    n = offsets.shape[0] - 1
+    _check("offsets", offsets, torch.int64, (n + 1,), dev)
+    (nd,) = dang.shape
+    _check("dang", dang, torch.int64, (nd,), dev)
+    if n < 0 or not 1 <= nb or 2 * nb + 4 > 63 or total >= 2**31 - 1:
+        raise ValueError(f"{name}: {total} entries, {nb} bits a node id, "
+                         f"{n + 1} offsets; keys of 2 nb + 4 bits must fit "
+                         "63, entries 2^31 - 1")
+    return total, n, nd
 
 
 def pack_keys(ends: torch.Tensor, offsets: torch.Tensor, dang: torch.Tensor,
@@ -1503,17 +1521,8 @@ def pack_keys(ends: torch.Tensor, offsets: torch.Tensor, dang: torch.Tensor,
     nodes' self-edges in the deepest bucket.  ``totals`` (from
     :func:`digit_totals`) gets, in the same launch, each K7-sort pass's
     digit counts over the keys, for ``sort_keys(totals=)``."""
-    (total,) = ends.shape
+    total, n, nd = _keys_inputs(ends, offsets, dang, nb, "pack_keys")
     dev = ends.device
-    _check("ends", ends, torch.int32, (total,))
-    n = offsets.shape[0] - 1
-    _check("offsets", offsets, torch.int64, (n + 1,), dev)
-    (nd,) = dang.shape
-    _check("dang", dang, torch.int64, (nd,), dev)
-    if n < 0 or not 1 <= nb or 2 * nb + 4 > 63 or total >= 2**31 - 1:
-        raise ValueError(f"pack_keys: {total} entries, {nb} bits a node id, "
-                         f"{n + 1} offsets; keys of 2 nb + 4 bits must fit "
-                         "63, entries 2^31 - 1")
     digit_bits = 0 if totals is None else _totals_bits(totals, 2 * nb + 4,
                                                        dev)
     keys = torch.empty(total + nd, dtype=torch.int64, device=dev)
@@ -1527,6 +1536,63 @@ def pack_keys(ends: torch.Tensor, offsets: torch.Tensor, dang: torch.Tensor,
             _ptr(keys), _ptr(totals), digit_bits, _stream(ends))
     pack_keys.launches += 1
     _raise_on(err, "pack_keys")
+    return keys
+
+
+def pack_key_counts(ends: torch.Tensor, offsets: torch.Tensor,
+                    dang: torch.Tensor, nb: int, lo: int, hi: int,
+                    shift: int) -> torch.Tensor:
+    """K7-keys' count form: of the keys ``pack_keys`` would give for the
+    same inputs, those k with lo <= k < hi counted by bin (k - lo) >>
+    shift, int32 [ceil((hi - lo) / 2^shift)] (at most KEY_COUNT_BINS); no
+    key is written.  The plan of a pack in key-range windows reads it."""
+    total, n, nd = _keys_inputs(ends, offsets, dang, nb, "pack_key_counts")
+    bins = -(-(hi - lo) >> shift) if hi > lo else 0
+    if not 0 <= lo < hi <= 1 << (2 * nb + 4) or not 0 <= shift <= 62 \
+            or bins > KEY_COUNT_BINS:
+        raise ValueError(f"pack_key_counts: [{lo}, {hi}) by {shift} bits, "
+                         f"{bins} bins of at most {KEY_COUNT_BINS}, keys "
+                         f"of {2 * nb + 4} bits")
+    out = torch.empty(bins, dtype=torch.int32, device=ends.device)
+    with torch.cuda.device(ends.device):
+        err = build.library().fora_pack_key_counts(
+            _ptr(ends), _ptr(offsets), n, _ptr(dang), nd, total, nb, lo, hi,
+            shift, _ptr(out), _stream(ends))
+    pack_key_counts.launches += 1
+    _raise_on(err, "pack_key_counts")
+    return out
+
+
+def pack_keys_window(ends: torch.Tensor, offsets: torch.Tensor,
+                     dang: torch.Tensor, nb: int, lo: int, hi: int,
+                     length: int,
+                     totals: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K7-keys' window form: the keys in [lo, hi) of those ``pack_keys``
+    would give for the same inputs, int64 [length] (``length`` their
+    number, from the count form), compacted in no order; ``totals`` (from
+    :func:`digit_totals`) gets each K7-sort pass's digit counts over them.
+    Synchronises once, to check that the window held ``length`` keys
+    (RuntimeError where not)."""
+    total, n, nd = _keys_inputs(ends, offsets, dang, nb, "pack_keys_window")
+    dev = ends.device
+    if not 0 <= lo < hi <= 1 << (2 * nb + 4) or length < 0:
+        raise ValueError(f"pack_keys_window: [{lo}, {hi}), {length} keys "
+                         f"of {2 * nb + 4} bits")
+    digit_bits = 0 if totals is None else _totals_bits(totals, 2 * nb + 4,
+                                                       dev)
+    keys = torch.empty(length, dtype=torch.int64, device=dev)
+    cursor = torch.empty(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = build.library().fora_pack_keys_window(
+            _ptr(ends), _ptr(offsets), n, _ptr(dang), nd, total, nb, lo, hi,
+            _ptr(keys), length, _ptr(cursor), _ptr(totals), digit_bits,
+            _stream(ends))
+    pack_keys_window.launches += 1
+    _raise_on(err, "pack_keys_window")
+    got = int(cursor.item())
+    if got != length:
+        raise RuntimeError(f"pack_keys_window: [{lo}, {hi}) held {got} keys, "
+                           f"its count {length}")
     return keys
 
 
@@ -1719,7 +1785,8 @@ WRAPPERS = (push_prepass, backward_prepass, gather_scatter_add, index_spmv,
             frontier_compact, frontier_prepass, frontier_push, walk_demand,
             expand_lanes, accumulate_endpoints, raw_walk, raw_walk_xp,
             raw_walk_xp_inbox, index_walk_xp, index_walk_xp_inbox,
-            source_walk, philox_blocks, pack_keys, sort_keys, merge_keys)
+            source_walk, philox_blocks, pack_keys, pack_key_counts,
+            pack_keys_window, sort_keys, merge_keys)
 for _w in WRAPPERS:
     _w.launches = 0
 topk_bounds.last_state = None

@@ -93,6 +93,11 @@ SIGNATURES = {
     "fora_row_reads": [_P, _LL, _I, _I, _P, ctypes.c_uint, _P],
     "fora_philox_blocks": [_P, _I, _I, ctypes.c_uint, _P],
     "fora_pack_keys": [_P, _P, _LL, _P, _LL, _LL, _I, _P, _P, _I, _P],
+    "fora_pack_key_counts": [_P, _P, _LL, _P, _LL, _LL, _I, ctypes.c_ulonglong,
+                             ctypes.c_ulonglong, _I, _P, _P],
+    "fora_pack_keys_window": [_P, _P, _LL, _P, _LL, _LL, _I,
+                              ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _LL,
+                              _P, _P, _I, _P],
     "fora_digit_counts": [_P, _LL, _I, _I, _P, _P],
     "fora_sort_keys": [_P, _P, _LL, _I, _I, _P, _LL, _P, ctypes.POINTER(_I),
                        _P],

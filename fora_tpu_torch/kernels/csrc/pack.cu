@@ -20,6 +20,13 @@
 //            offsets[v].  The dangling nodes' self-edges (7 << 2nb | d <<
 //            nb | d) follow at total + i.  Optionally, in the same pass,
 //            every K7-sort pass's digit counts over the keys.
+//            Two more forms of the same tile walk pack an index too large
+//            for one sort (past K7-sort's 2^30 - 1 keys, or past the card's
+//            memory) in key-range windows: the count form writes no key and
+//            counts the keys in [lo, hi) by (key - lo) >> shift into at most
+//            2^14 bins; the window form writes only the keys in [lo, hi),
+//            compacted, with their digit counts (index/build.py plans the
+//            windows over the counts and sorts and merges each alone).
 //   K7-sort  radix_histogram_kernel, onesweep_kernel
 //                                  <- fora_sort_unique_u64's sort (:53-115)
 //            a stable LSD radix sort over key_bits = 2nb + 4 bits, onesweep
@@ -42,7 +49,8 @@
 // on the algorithm, so the arrays equal the host branches' bit for bit.
 //
 // What bounds it on the H100: bytes.  K7-keys reads the endpoints and the
-// [n + 1] offsets once and writes 8 bytes a key.  K7-sort reads every key
+// [n + 1] offsets once and writes 8 bytes a key (its count form writes only
+// its bins, its window form 8 bytes a key of the window).  K7-sort reads every key
 // once for the counts (unless K7-keys counted them), then reads and writes
 // every key once a pass it does not skip.  K7-merge reads
 // the sorted keys once and writes 12 bytes a unique edge and 4 (n + 1)
@@ -76,6 +84,19 @@
 // pass's bits are endpoint bits a run of equal digits among neighbouring
 // lanes adds once (as the count launch does), else each key adds; the
 // block's shared counters go to the totals once a block.
+//
+// The windows.  A packed key is bucket << 2nb | endpoint << nb | source, so
+// a range of key values is a contiguous slice of the finished index, and
+// the windows' merged arrays in key order are the index (their buckets'
+// row pointers and sizes add up).  The count form and the window form are
+// the tile walk above with another end: a key outside [lo, hi) is dropped.
+// The count form adds each key to its bin in shared memory (an add a key;
+// the bins go to device memory once a block).  The window form reserves a
+// run's in-range keys by the block's exclusive scan and one atomic add on
+// a cursor, so the keys land in no order, which K7-sort that follows does
+// not mind; it counts their digits an add a key and pass, as the counts
+// of in-range keys come in no runs.  Simple forms: an index needs them
+// only past 2^30 keys.
 //
 // K7-sort's design.  The counts: a warp reads 32 neighbouring keys at a
 // time; in each pass the lanes whose digit equals their left neighbour's
@@ -240,6 +261,66 @@ constexpr int kKeysRun = kKeysTile / 2;
 // no empty node among its nodes)
 constexpr int kStageSteps = 9;
 constexpr int kStageMax = kStageSteps * kKeysThreads;
+// K7-keys' forms: every key written (one window), the count form, the
+// window form (see the file's head)
+enum { kWrite = 0, kCount = 1, kWindow = 2 };
+constexpr int kCountBins = 1 << 14;   // the count form's bins at most, 64 KB of shared memory
+
+// The keys the count and window forms take, those k with k - lo < span
+// (unsigned); the count form's key k adds to bin (k - lo) >> shift, the
+// window form's go to keys [capacity] from a cursor.
+struct KeyRange {
+  u64 lo, span;
+  int shift;
+  unsigned* cursor;
+  long long capacity;
+};
+
+// The window form: this thread's c keys get places at .. at + c - 1 of the
+// window, by the block's exclusive scan of c and one atomic add on the
+// cursor a block (scan: [kKeysThreads / 32 + 1] of shared memory; every
+// thread of the block calls it).
+__device__ __forceinline__ long long reserve(unsigned c, unsigned* scan, unsigned* cursor) {
+  const unsigned before = block_exclusive(c, scan);
+  if (threadIdx.x == kKeysThreads - 1) scan[kKeysThreads / 32] = atomicAdd(cursor, before + c);
+  __syncthreads();
+  const long long at = (long long)scan[kKeysThreads / 32] + before;
+  __syncthreads();                          // read before the next reservation writes it
+  return at;
+}
+
+// The count and window forms' end of N keys of this thread (those whose
+// ``live`` bit is set): the count form adds each in the range to its bin
+// (hist), the window form writes them at the places the block reserves and
+// adds each pass's digit into hist [passes][2^kBits].  Every thread of the
+// block calls it.
+template <int kBits, int kMode, int N>
+__device__ __forceinline__ void take_keys(const u64 (&key)[N], unsigned live, int passes,
+                                          const KeyRange& range, u64* __restrict__ keys,
+                                          unsigned* hist, unsigned* scan) {
+  unsigned in = 0;
+#pragma unroll
+  for (int u = 0; u < N; ++u)
+    if (((live >> u) & 1u) && key[u] - range.lo < range.span) in |= 1u << u;
+  if constexpr (kMode == kCount) {
+#pragma unroll
+    for (int u = 0; u < N; ++u)
+      if ((in >> u) & 1u) atomicAdd(&hist[(key[u] - range.lo) >> range.shift], 1u);
+  } else {
+    long long at = reserve(__popc(in), scan, range.cursor);
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      if (!((in >> u) & 1u)) continue;
+      if (at < range.capacity) keys[at] = key[u];
+      ++at;
+      if constexpr (kBits > 0) {
+        constexpr int R = 1 << kBits;
+        for (int p = 0; p < passes; ++p)
+          atomicAdd(&hist[p * R + ((unsigned)(key[u] >> (p * kBits)) & (R - 1))], 1u);
+      }
+    }
+  }
+}
 
 // The first index in [lo, hi) of the ascending a whose value is above x,
 // or hi.
@@ -301,14 +382,16 @@ __device__ __forceinline__ int4 load_run(const int* __restrict__ ends, long long
 // the offsets in device memory (long long).  The source-digit passes a
 // node at a time (node k holds min(a[k + 1], last + 1) - max(a[k], tlo)
 // of the tile's entries), then each thread's two runs of four: the first
-// entry's node by a search of a, the next ones by moving on from it.
-template <int kBits, typename T>
+// entry's node by a search of a, the next ones by moving on from it.  The
+// count and window forms end each run in take_keys instead.
+template <int kBits, int kMode, typename T>
 __device__ __forceinline__ void pack_tile(const T* a, int a_hi, long long v_base, long long tlo,
                                           long long last, const int4 (&e)[2], long long total,
                                           int nb, int passes, int sources, unsigned runs,
-                                          u64* __restrict__ keys, unsigned* hist) {
+                                          const KeyRange& range, u64* __restrict__ keys,
+                                          unsigned* hist, unsigned* scan) {
   constexpr int R = kBits > 0 ? 1 << kBits : 1;
-  if constexpr (kBits > 0) {
+  if constexpr (kBits > 0 && kMode == kWrite) {
     for (int k = 1 + threadIdx.x; sources > 0 && k < a_hi; k += kKeysThreads) {
       const long long lo = a[k - 1];
       if (lo > last) break;
@@ -337,6 +420,12 @@ __device__ __forceinline__ void pack_tile(const T* a, int a_hi, long long v_base
       }
       key[u] = ((u64)entry_bucket((unsigned)(i + u - start), (unsigned)(end - start)) << (2 * nb)) |
                ((u64)(unsigned)ep[u] << nb) | (u64)(v_base + k - 1);
+    }
+    if constexpr (kMode != kWrite) {
+      const long long left = total - i;       // the run's keys below total
+      take_keys<kBits, kMode, 4>(key, left >= 4 ? 15u : left > 0 ? (1u << left) - 1u : 0u, passes,
+                                 range, keys, hist, scan);
+      continue;
     }
     if (i + 3 < total) {
       ulonglong2* out = reinterpret_cast<ulonglong2*>(keys + i);
@@ -369,20 +458,24 @@ __device__ __forceinline__ void pack_tile(const T* a, int a_hi, long long v_base
 // bits, over every key, added into totals [passes][2^kBits] (zeroed by the
 // caller): the passes below ``sources`` (digits of the source id alone) a
 // node at a time, the others a key at a time, by runs where ``runs`` has
-// the pass.  vec: ends is 16-byte aligned.
-template <int kBits>
+// the pass.  vec: ends is 16-byte aligned.  kMode: kWrite writes every
+// key at its place; kCount and kWindow take the keys in ``range`` (see
+// take_keys).  ``words``: the shared counters, added into totals at the
+// end (kCount: its bins).
+template <int kBits, int kMode>
 __global__ void __launch_bounds__(kKeysThreads, 2)
     pack_keys_kernel(const int* __restrict__ ends, const long long* __restrict__ offsets,
                      long long n, const long long* __restrict__ dang, long long nd,
                      long long total, int nb, bool vec, int passes, int sources, unsigned runs,
-                     u64* __restrict__ keys, unsigned* __restrict__ totals) {
+                     KeyRange range, int words, u64* __restrict__ keys,
+                     unsigned* __restrict__ totals) {
   extern __shared__ __align__(16) unsigned char keys_smem[];
   int* stage = reinterpret_cast<int*>(keys_smem);                // [kStageMax]
-  unsigned* hist = reinterpret_cast<unsigned*>(stage + kStageMax);  // [passes][R]
-  constexpr int R = kBits > 0 ? 1 << kBits : 1;
+  unsigned* hist = reinterpret_cast<unsigned*>(stage + kStageMax);  // [words]
+  unsigned* scan = hist + words;            // kWindow: [kKeysThreads / 32 + 1]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if constexpr (kBits > 0) {
-    for (int i = threadIdx.x; i < passes * R; i += kKeysThreads) hist[i] = 0;
+  if (words > 0) {
+    for (int i = threadIdx.x; i < words; i += kKeysThreads) hist[i] = 0;
     __syncthreads();
   }
   const long long Te = (total + kKeysTile - 1) / kKeysTile;
@@ -433,11 +526,11 @@ __global__ void __launch_bounds__(kKeysThreads, 2)
       s_next = stage_step(v_next, 0);
     }
     if (staged)
-      pack_tile<kBits, int>(stage, staged, v_base, tlo, last, e, total, nb, passes, sources, runs,
-                            keys, hist);
+      pack_tile<kBits, kMode, int>(stage, staged, v_base, tlo, last, e, total, nb, passes,
+                                   sources, runs, range, keys, hist, scan);
     else
-      pack_tile<kBits, long long>(g, g_hi, v_base, tlo, last, e, total, nb, passes, sources, runs,
-                                  keys, hist);
+      pack_tile<kBits, kMode, long long>(g, g_hi, v_base, tlo, last, e, total, nb, passes,
+                                         sources, runs, range, keys, hist, scan);
     v_base = v_next;
     e[0] = e_next[0];
     e[1] = e_next[1];
@@ -455,15 +548,19 @@ __global__ void __launch_bounds__(kKeysThreads, 2)
       if (d < nd) {
         const u64 v = (u64)dang[d];
         key = deep | (v << nb) | v;
-        keys[total + d] = key;
+        if constexpr (kMode == kWrite) keys[total + d] = key;
       }
-      if constexpr (kBits > 0)
+      if constexpr (kMode != kWrite) {
+        const u64 one[1] = {key};
+        take_keys<kBits, kMode, 1>(one, d < nd ? 1u : 0u, passes, range, keys, hist, scan);
+      } else if constexpr (kBits > 0) {
         count_digits<kBits>(key, (int)max(0LL, min(32LL, nd - c0)), 0, passes, runs, hist);
+      }
     }
   }
-  if constexpr (kBits > 0) {
+  if (words > 0) {
     __syncthreads();
-    flush_counts(hist, passes * R, totals);
+    flush_counts(hist, words, totals);
   }
 }
 
@@ -1036,36 +1133,47 @@ int sort_with(u64* keys, u64* alt, long long len, int key_bits, unsigned* scratc
   return (int)cudaGetLastError();
 }
 
-template <int kBits>
+// One launch of K7-keys' form kMode: ``words`` shared counters (the digit
+// counts, or kCount's bins) zeroed in ``totals`` first, and kWindow's
+// cursor.
+template <int kBits, int kMode>
 cudaError_t launch_pack_keys(const int* ends, const long long* offsets, long long n,
                              const long long* dang, long long nd, long long total, int nb,
-                             u64* keys, unsigned* totals, int passes, cudaStream_t st) {
-  const size_t smem = sizeof(int) * kStageMax +
-                      (kBits > 0 ? sizeof(unsigned) * passes * (1 << kBits) : 0);
+                             u64* keys, unsigned* totals, int passes, int words,
+                             const KeyRange& range, cudaStream_t st) {
+  const size_t smem = sizeof(int) * kStageMax + sizeof(unsigned) * words +
+                      (kMode == kWindow ? sizeof(unsigned) * (kKeysThreads / 32 + 1) : 0);
   cudaError_t err;
-  if (kBits > 0 &&
-      (err = cudaMemsetAsync(totals, 0, sizeof(unsigned) * passes * (1 << kBits), st)) !=
-          cudaSuccess)
+  if (words > 0 && (err = cudaMemsetAsync(totals, 0, sizeof(unsigned) * words, st)) != cudaSuccess)
     return err;
-  if ((err = cudaFuncSetAttribute(pack_keys_kernel<kBits>,
+  if (kMode == kWindow &&
+      (err = cudaMemsetAsync(range.cursor, 0, sizeof(unsigned), st)) != cudaSuccess)
+    return err;
+  if ((err = cudaFuncSetAttribute(pack_keys_kernel<kBits, kMode>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
       cudaSuccess)
     return err;
   const long long work = (total + kKeysTile - 1) / kKeysTile + (nd + kKeysTile - 1) / kKeysTile;
-  const unsigned grid = resident_grid(pack_keys_kernel<kBits>, smem, work, kKeysThreads);
+  const unsigned grid = resident_grid(pack_keys_kernel<kBits, kMode>, smem, work, kKeysThreads);
   if (grid == 0) return cudaErrorInvalidConfiguration;
   const bool vec = ((uintptr_t)ends & 15) == 0;
   // the passes of source digits alone, then the ones with fewer than 4
-  // endpoint bits (runs pay there)
-  const int sources = kBits > 0 ? nb / kBits : 0;
+  // endpoint bits (runs pay there); the other forms count key by key
+  const int sources = kBits > 0 && kMode == kWrite ? nb / kBits : 0;
   unsigned runs = 0;
-  for (int p = 0; kBits > 0 && p < passes; ++p) {
+  for (int p = 0; kBits > 0 && kMode == kWrite && p < passes; ++p) {
     const int ep_bits = min((p + 1) * kBits, 2 * nb) - max(p * kBits, nb);
     if (ep_bits < 4) runs |= 1u << p;
   }
-  pack_keys_kernel<kBits><<<grid, kKeysThreads, smem, st>>>(
-      ends, offsets, n, dang, nd, total, nb, vec, passes, sources, runs, keys, totals);
+  pack_keys_kernel<kBits, kMode><<<grid, kKeysThreads, smem, st>>>(
+      ends, offsets, n, dang, nd, total, nb, vec, passes, sources, runs, range, words, keys,
+      totals);
   return cudaGetLastError();
+}
+
+// the keys of K7-keys' inputs checked: ids of nb bits, keys of 2 nb + 4
+bool keys_inputs_ok(long long n, long long nd, long long total, int nb) {
+  return n >= 0 && nd >= 0 && total >= 0 && total < INT_MAX && nb >= 1 && 2 * nb + 4 <= 63;
 }
 
 }  // namespace
@@ -1079,21 +1187,87 @@ cudaError_t launch_pack_keys(const int* ends, const long long* offsets, long lon
 extern "C" int fora_pack_keys(const int* ends, const long long* offsets, long long n,
                               const long long* dang, long long nd, long long total, int nb,
                               u64* keys, unsigned* totals, int digit_bits, void* stream) {
-  if (n < 0 || nd < 0 || total < 0 || total >= INT_MAX || nb < 1 || 2 * nb + 4 > 63 ||
-      ((uintptr_t)keys & 15) != 0 || (totals == nullptr) != (digit_bits == 0))
+  if (!keys_inputs_ok(n, nd, total, nb) || ((uintptr_t)keys & 15) != 0 ||
+      (totals == nullptr) != (digit_bits == 0))
     return (int)cudaErrorInvalidValue;
   if (total + nd == 0) return (int)cudaGetLastError();
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int passes = digit_bits ? (2 * nb + 4 + digit_bits - 1) / digit_bits : 0;
+  const int words = digit_bits ? passes << digit_bits : 0;
+  const KeyRange all{0, ~0ull, 0, nullptr, 0};
   cudaError_t err;
   if (digit_bits == 0)
-    err = launch_pack_keys<0>(ends, offsets, n, dang, nd, total, nb, keys, totals, 0, st);
+    err = launch_pack_keys<0, kWrite>(ends, offsets, n, dang, nd, total, nb, keys, totals, 0, 0,
+                                      all, st);
   else if (digit_bits == 8)
-    err = launch_pack_keys<8>(ends, offsets, n, dang, nd, total, nb, keys, totals, passes, st);
+    err = launch_pack_keys<8, kWrite>(ends, offsets, n, dang, nd, total, nb, keys, totals,
+                                      passes, words, all, st);
   else if (digit_bits == 9)
-    err = launch_pack_keys<9>(ends, offsets, n, dang, nd, total, nb, keys, totals, passes, st);
+    err = launch_pack_keys<9, kWrite>(ends, offsets, n, dang, nd, total, nb, keys, totals,
+                                      passes, words, all, st);
   else if (digit_bits == 11)
-    err = launch_pack_keys<11>(ends, offsets, n, dang, nd, total, nb, keys, totals, passes, st);
+    err = launch_pack_keys<11, kWrite>(ends, offsets, n, dang, nd, total, nb, keys, totals,
+                                       passes, words, all, st);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// K7-keys' count form: of the keys fora_pack_keys would write (its inputs
+// as there), those k in [lo, hi) counted by bin (k - lo) >> shift into
+// bins [ceil((hi - lo) / 2^shift)] u32 (at most 2^14 bins), zeroed here
+// first; no key is written.
+extern "C" int fora_pack_key_counts(const int* ends, const long long* offsets, long long n,
+                                    const long long* dang, long long nd, long long total,
+                                    int nb, u64 lo, u64 hi, int shift, unsigned* bins,
+                                    void* stream) {
+  if (!keys_inputs_ok(n, nd, total, nb) || lo >= hi || hi > (1ull << (2 * nb + 4)) ||
+      shift < 0 || shift > 62 || ((hi - lo - 1) >> shift) >= (u64)kCountBins)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int words = (int)((hi - lo - 1) >> shift) + 1;
+  if (total + nd == 0) return (int)cudaMemsetAsync(bins, 0, sizeof(unsigned) * words, st);
+  const KeyRange range{lo, hi - lo, shift, nullptr, 0};
+  return (int)launch_pack_keys<0, kCount>(ends, offsets, n, dang, nd, total, nb, nullptr, bins,
+                                          0, words, range, st);
+}
+
+// K7-keys' window form: the keys in [lo, hi) of those fora_pack_keys would
+// write (its inputs as there) into keys [capacity], compacted, in no order;
+// *cursor (u32) ends at their number (a key past capacity is dropped, so
+// the caller compares the two).  With ``totals`` (else nullptr and
+// digit_bits 0) each K7-sort pass's digit counts over them, as there.
+extern "C" int fora_pack_keys_window(const int* ends, const long long* offsets, long long n,
+                                     const long long* dang, long long nd, long long total,
+                                     int nb, u64 lo, u64 hi, u64* keys, long long capacity,
+                                     unsigned* cursor, unsigned* totals, int digit_bits,
+                                     void* stream) {
+  if (!keys_inputs_ok(n, nd, total, nb) || lo >= hi || hi > (1ull << (2 * nb + 4)) ||
+      capacity < 0 || cursor == nullptr || (totals == nullptr) != (digit_bits == 0))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int passes = digit_bits ? (2 * nb + 4 + digit_bits - 1) / digit_bits : 0;
+  const int words = digit_bits ? passes << digit_bits : 0;
+  const KeyRange range{lo, hi - lo, 0, cursor, capacity};
+  cudaError_t err;
+  if (total + nd == 0) {
+    if (words > 0 && (err = cudaMemsetAsync(totals, 0, sizeof(unsigned) * words, st)) !=
+                         cudaSuccess)
+      return (int)err;
+    return (int)cudaMemsetAsync(cursor, 0, sizeof(unsigned), st);
+  }
+  if (digit_bits == 0)
+    err = launch_pack_keys<0, kWindow>(ends, offsets, n, dang, nd, total, nb, keys, totals, 0,
+                                       0, range, st);
+  else if (digit_bits == 8)
+    err = launch_pack_keys<8, kWindow>(ends, offsets, n, dang, nd, total, nb, keys, totals,
+                                       passes, words, range, st);
+  else if (digit_bits == 9)
+    err = launch_pack_keys<9, kWindow>(ends, offsets, n, dang, nd, total, nb, keys, totals,
+                                       passes, words, range, st);
+  else if (digit_bits == 11)
+    err = launch_pack_keys<11, kWindow>(ends, offsets, n, dang, nd, total, nb, keys, totals,
+                                        passes, words, range, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

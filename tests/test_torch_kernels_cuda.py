@@ -2491,3 +2491,119 @@ def test_pack_merge_run_across_look_back(dev, off):
     for a, b, what in zip(got, earlier_merge(k, torch.empty_like(k), nb),
                           ("src", "dst", "mult", "bucket_counts")):
         assert torch.equal(a, b), what
+
+
+@pytest.mark.parametrize("modulus", [4, 4096])
+@pytest.mark.parametrize("off", [0, 1, 3])
+def test_pack_key_counts_at_tile_edges(dev, modulus, off):
+    """K7-keys' count form with total = 0, 1, 3 mod 4 and mod its 4096-entry
+    tile, from 16-byte aligned endpoints and from endpoints one int32 past
+    that: the whole key space by its top bits, and the heaviest of those
+    bins by its next bits, equal to the plain version (a bincount of the
+    plain keys in the range)."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.index import build as ib
+    rng = np.random.default_rng(modulus * 100 + off)
+    total = 5 * modulus + off if modulus == 4 else 3 * modulus + off
+    n, k = 3000, min(40, total)
+    counts = np.zeros(n, np.int64)
+    counts[rng.choice(n, k, replace=False)] = rng.multinomial(
+        total - k, np.full(k, 1 / k)) + 1
+    deg = np.where(counts > 0, rng.integers(1, 6, n), 0)
+    t = ib.pack_tables(counts, deg)
+    ends = rng.integers(0, n, total + 1).astype(np.int32)
+    bits = 2 * t.nb + 4
+    offsets, cut, dang = ib._device_tables(t, dev)
+    offsets1, _ = ib._card_tables(t, dev)
+    base = torch.from_numpy(ends).to(dev)
+    top = bits - 14
+    for e in (base[:total], base[1:]):
+        plain = ib.pack_keys_plain(e, offsets, cut, dang, t.nb)
+        whole = kernels.pack_key_counts(e, offsets1, dang, t.nb, 0, 1 << bits,
+                                        top)
+        assert torch.equal(whole, ib.pack_key_counts_plain(
+            plain, 0, 1 << bits, top))
+        lo = int(whole.argmax()) << top
+        sub = kernels.pack_key_counts(e, offsets1, dang, t.nb, lo,
+                                      lo + (1 << top), 0)
+        assert torch.equal(sub, ib.pack_key_counts_plain(
+            plain, lo, lo + (1 << top), 0))
+        assert int(sub.sum()) == int(whole.max())
+
+
+@pytest.mark.parametrize("windows", [2, 3, 4, 5])
+def test_pack_keys_window_matches_plain(dev, windows):
+    """K7-keys' window form over ``windows`` windows of the key space on the
+    many-tiles case (2.3 M keys): each window's keys, sorted, equal to the
+    plain keys filtered to it and sorted; its digit counts equal to the
+    count launch's over them; the windows' K7-sort and K7-merge equal the
+    plain chain's."""
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.index import build as ib
+    ends, counts, deg = pack_case("many_tiles")
+    t = ib.pack_tables(counts, deg)
+    bits = 2 * t.nb + 4
+    e = torch.from_numpy(ends).to(dev)
+    plain = ib.pack_keys_plain(e, *ib._device_tables(t, dev), t.nb)
+    count, _ = ib._card_windows(e, t, False)
+    plan = ib.plan_windows(count, t.nb, -(-t.keys // windows) + 20_000)
+    assert len(plan) == windows
+    offsets1, dang = ib._card_tables(t, dev)
+    for lo, hi, length in plan:
+        want = ib.pack_keys_window_plain(plain, lo, hi)
+        assert length == want.shape[0]
+        totals = kernels.digit_totals(bits, dev)
+        got = kernels.pack_keys_window(e, offsets1, dang, t.nb, lo, hi, length,
+                                       totals=totals)
+        assert torch.equal(torch.sort(got).values, torch.sort(want).values)
+        assert torch.equal(totals, kernels.digit_counts(got, bits))
+        ordered = kernels.sort_keys(got, torch.empty_like(got), bits,
+                                    totals=totals)
+        assert torch.equal(ordered, ib.sort_keys_plain(want))
+        for a, b in zip(kernels.merge_keys(ordered, t.nb, len(counts)),
+                        ib.merge_keys_plain(ordered, t.nb, len(counts))):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["long_runs", "gap_buckets", "many_tiles",
+                                  "hub_tiles"])
+def test_pack_index_windows_equal_one_sort(dev, name, monkeypatch):
+    """``pack_index`` on the card in key-range windows (K7-sort's key limit
+    ``kernels.SORT_MAX_KEYS`` lowered to a half and a fifth of the keys)
+    is sha256-equal, array for array, to the same endpoints packed in one
+    sort, with one window-form launch a window and no one-sort K7-keys."""
+    import hashlib
+
+    from fora_tpu_torch import ForaConfig as TorchConfig
+    from fora_tpu_torch import kernels
+    from fora_tpu_torch.index import build as ib
+    ends, counts, deg = pack_case(name)
+    rcfg = TorchConfig(epsilon=0.5, k=50).resolved(len(deg),
+                                                    max(int(deg.sum()), 1))
+    t = ib.pack_tables(counts, deg)
+    run = int(torch.unique(ib.pack_keys_plain(
+        torch.from_numpy(ends), *ib._device_tables(t, "cpu"), t.nb),
+        return_counts=True)[1].max())
+
+    def digest(idx):
+        h = hashlib.sha256()
+        for a in (idx.edge_src, idx.edge_dst, idx.edge_mult,
+                  idx.bucket_offsets, idx.counts_cum,
+                  *[p for p in idx.dst_indptr if p is not None]):
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+    want = digest(ib.pack_index(torch.from_numpy(ends).to(dev), counts, deg,
+                                rcfg))
+    for part in (2, 5):
+        kernels.reset_launch_counts()
+        log = {}
+        monkeypatch.setattr(kernels, "SORT_MAX_KEYS",
+                            max(run, -(-t.keys // part)))
+        idx = ib.pack_index(torch.from_numpy(ends).to(dev), counts, deg, rcfg,
+                            log=log)
+        c = kernels.launch_counts()
+        assert log["windows"] >= 2
+        assert c["pack_keys_window"] == log["windows"] and c["pack_keys"] == 0
+        assert c["pack_key_counts"] >= 1
+        assert c["sort_keys"] == c["merge_keys"] == log["windows"]
+        assert digest(idx) == want

@@ -255,5 +255,9 @@ def test_cpu_tensors_never_launch_kernels():
     ends = torch.randint(0, g.n, (int(counts.sum()),), dtype=torch.int32)
     ib.pack_index(ends, counts, g.out_deg, rcfg)
     ib.pack_index_plain(ends, counts, g.out_deg, rcfg)
+    # and in key-range windows (the plain chain a window)
+    t = ib.pack_tables(counts, g.out_deg)
+    ib._pack_planned(t, rcfg, ib._splitter(None, "cpu"), t.keys // 3,
+                     ib._plain_windows(ends, t), "cpu", None)
     assert np.all(np.array(list(kernels.launch_counts().values())) == 0)
-    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 31
+    assert len(kernels.launch_counts()) == len(kernels.WRAPPERS) == 33

@@ -129,11 +129,15 @@ def test_plain_parts():
 
 
 def test_pack_refuses_before_any_launch(monkeypatch):
-    """A pack larger than the device's free memory refuses with the bytes
-    it needed, before K7-keys is launched; the bytes are 28 a key, the
-    sort's and the merge's scratch, the buckets' row pointers, K7-keys'
-    tables (offsets [n + 1], the dangling nodes) and the digit counts it
-    hands the sort."""
+    """A pack larger than the device's free memory goes in key-range
+    windows, each within the free bytes, and equals JAX's pack; it is
+    refused, with the bytes its smallest window needs, only where a window
+    of one key does not fit, before any launch.  The bytes of one sort are
+    28 a key, the sort's and the merge's scratch, the buckets' row
+    pointers, K7-keys' tables (offsets [n + 1], the dangling nodes) and the
+    digit counts it hands the sort; a window's also the windows' running
+    sum of the pointers, the count form's bins and the window form's
+    cursor."""
     ends, counts, deg = case("no_dangling")
     t = ib.pack_tables(counts, deg)
     need = ib.pack_bytes(t)
@@ -145,20 +149,44 @@ def test_pack_refuses_before_any_launch(monkeypatch):
                     + 4 * 8 * (len(counts) + 1)
                     + 8 * (len(counts) + 1) + 8 * len(t.dang)
                     + 4 * -(-(2 * t.nb + 4) // digits) * 2**digits)
-    monkeypatch.setattr(torch.cuda, "mem_get_info",
-                        lambda dev=None: (need - 1, 1 << 40))
+    smallest = ib.pack_bytes(t, 1, windowed=True)
+    assert smallest == ib.pack_bytes(t, 1) + 4 * 8 * (len(counts) + 1) \
+        + 4 * kernels.KEY_COUNT_BINS + 4
+    rcfg, jrcfg = _rcfgs(len(deg), int(deg.sum()))
+    want = jax_index.pack_index(ends, counts, deg, jrcfg)
+
+    def free(b):
+        monkeypatch.setattr(torch.cuda, "mem_get_info",
+                            lambda dev=None: (b, 1 << 40))
     monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev=None: 0)
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev=None: 0)
 
     def launched(*a, **kw):
         raise AssertionError("K7 launched")
     monkeypatch.setattr(kernels, "pack_keys", launched)
-    with pytest.raises(torch.OutOfMemoryError, match=f"needs {need} bytes"):
-        ib._pack_on_card(torch.from_numpy(ends), t,
-                         ib._splitter(None, "cpu"), True)
-    monkeypatch.setattr(torch.cuda, "mem_get_info",
-                        lambda dev=None: (need, 1 << 40))
-    ib.check_pack_fits(need, "cuda:0")
+    monkeypatch.setattr(kernels, "pack_key_counts", launched)
+    # the windows' K7 here the plain chain, on the CPU
+    monkeypatch.setattr(ib, "_card_windows",
+                        lambda e, tt, free_endpoints: ib._plain_windows(e, tt))
+
+    def pack(b):
+        free(b)
+        log = {}
+        got = ib._pack_card(torch.from_numpy(ends), t, rcfg,
+                            ib._splitter(log, "cpu"), True, log)
+        return got, log["windows"]
+    assert ib.window_cap(t, need) is None
+    got, windows = pack(need - 1)
+    assert windows == 2
+    assert_same(got, want)
+    cap = ib.window_cap(t, need - 1)
+    assert ib.pack_bytes(t, cap, windowed=True) <= need - 1 < \
+        ib.pack_bytes(t, cap + 1, windowed=True)
+    assert ib.window_cap(t, smallest) == 1
+    monkeypatch.setattr(ib, "_card_windows", launched)
+    with pytest.raises(torch.OutOfMemoryError,
+                       match=f"needs {smallest} bytes for its smallest"):
+        pack(smallest - 1)
 
 
 def test_earlier_numpy_form_equals_plain():
@@ -642,7 +670,8 @@ def _entry_bucket(j, K):
 
 
 def emulate_keys(ends, offsets, dang, nb, threads=KEYS_THREADS,
-                 steps=KEYS_STEPS, grid=KEYS_GRID, digit_bits=None):
+                 steps=KEYS_STEPS, grid=KEYS_GRID, digit_bits=None,
+                 takes=()):
     """pack_keys_kernel, a block's tiles in order, a thread's entries in
     order: each block's first tile finds its node by the warp's search,
     every tile stages the offsets from there until one is past its last
@@ -653,7 +682,9 @@ def emulate_keys(ends, offsets, dang, nb, threads=KEYS_THREADS,
     time by its entries in the tile, the others by each (run, entry) round
     of each warp, in runs where fewer than 4 of a pass's bits are endpoint
     bits.  Returns (keys, totals [passes, 2^digit_bits] or None, tiles
-    whose stage fell short)."""
+    whose stage fell short).  ``takes``: the count and window forms
+    (``_CountForm``, ``_WindowForm``), each handed every run's keys of the
+    block's threads as the kernel's take_keys gets them."""
     ends = np.asarray(ends, np.int64)
     total, n, nd = len(ends), len(offsets) - 1, len(dang)
     tile, run, warps = 8 * threads, 4 * threads, threads // 32
@@ -718,6 +749,8 @@ def emulate_keys(ends, offsets, dang, nb, threads=KEYS_THREADS,
                           | (v_base + k - 1))
                     keys[iu[valid]] = ku[valid]
                     key[:, u] = np.where(valid, ku, 0)
+                for take in takes:
+                    take(key, (i[:, None] + np.arange(4)) < total)
                 for u in range(4) if digit_bits else ():
                     c0 = tlo + r * run + 4 * 32 * np.arange(warps) + u
                     _count_rounds(key[:, u].reshape(warps, 32),
@@ -735,12 +768,55 @@ def emulate_keys(ends, offsets, dang, nb, threads=KEYS_THREADS,
                 key = np.where(valid, ((ib.NUM_BUCKETS - 1) << (2 * nb))
                                | (dv << nb) | dv, 0)
                 keys[total + d[valid]] = key[valid]
+                for take in takes:
+                    take(key[:, None], valid[:, None])
                 if digit_bits:
                     _count_rounds(key.reshape(warps, 32),
                                   np.clip(nd - (c + 32 * np.arange(warps)),
                                           0, 32), digit_bits, 0, passes, runs,
                                   totals)
     return keys, (totals if digit_bits else None), short
+
+
+class _CountForm:
+    """K7-keys' count form as its take_keys runs: each key of a run in [lo,
+    hi) added to bin (k - lo) >> shift."""
+
+    def __init__(self, lo, hi, shift):
+        self.lo, self.hi, self.shift = lo, hi, shift
+        self.bins = np.zeros(-(-(hi - lo) >> shift), np.int64)
+
+    def __call__(self, key, live):
+        k = key[live & (key >= self.lo) & (key < self.hi)]
+        np.add.at(self.bins, (k - self.lo) >> self.shift, 1)
+
+
+class _WindowForm:
+    """K7-keys' window form as its take_keys runs: a run's keys in [lo, hi)
+    at the places the block reserves (each thread's from its exclusive
+    prefix over the block's threads on, one add on the cursor a block;
+    blocks here in order, on the card in any), each pass's digit counted a
+    key at a time."""
+
+    def __init__(self, lo, hi, nb, digit_bits, capacity):
+        self.lo, self.hi, self.digit_bits = lo, hi, digit_bits
+        self.keys = np.full(capacity, -1, np.int64)
+        self.cursor = 0
+        self.totals = np.zeros((-(-(2 * nb + 4) // digit_bits),
+                                1 << digit_bits), np.int64)
+
+    def __call__(self, key, live):
+        inr = live & (key >= self.lo) & (key < self.hi)
+        c = inr.sum(axis=1)
+        places = self.cursor + (np.cumsum(c) - c)[:, None] + (
+            np.cumsum(inr, axis=1) - inr)
+        assert (self.keys[places[inr]] == -1).all()
+        self.keys[places[inr]] = key[inr]
+        self.cursor += int(c.sum())
+        R = 1 << self.digit_bits
+        for p in range(len(self.totals)):
+            np.add.at(self.totals[p], (key[inr] >> (p * self.digit_bits))
+                      & (R - 1), 1)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -773,6 +849,167 @@ def test_keys_tiles_match_plain(name):
         assert (short > 0) >= (name == "empty_run"), threads
     if name == "hub_tiles":
         assert counts.max() > 3 * 8 * KEYS_THREADS
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_keys_forms_tiles_match_plain(name):
+    """K7-keys' count and window forms, emulated lane by lane in the same
+    tile walk at the card's shape and at small tiles: the count form over
+    the whole key space by its top bits, and over one of those bins by the
+    next bits, equal to ``np.bincount`` of the plain keys; the window form
+    over three windows of the key space, each window's keys as a multiset
+    equal to the plain keys filtered to it, its cursor their number, its
+    digit counts each pass's bincount over them."""
+    ends, counts, deg = case(name)
+    t = ib.pack_tables(counts, deg)
+    plain = ib.pack_keys_plain(torch.from_numpy(ends),
+                               *ib._device_tables(t, "cpu"), t.nb).numpy()
+    offsets, dang = (a.numpy() for a in ib._card_tables(t, "cpu"))
+    bits = 2 * t.nb + 4
+    top = max(bits - 14, 0)
+    heavy = int(np.argmax(np.bincount(plain >> top))) << top if t.keys else 0
+    spans = [(0, 1 << bits, top), (heavy, heavy + (1 << top), max(top - 14, 0))]
+    cut = np.sort(plain)[[t.keys // 3, 2 * t.keys // 3]] if t.keys else [1, 2]
+    edges = [0, int(cut[0]), max(int(cut[1]), int(cut[0]) + 1), 1 << bits]
+    d = kernels.sort_digit_bits(bits)
+    shapes = [(KEYS_THREADS, KEYS_STEPS, KEYS_GRID)]
+    if t.keys < 200_000:
+        shapes.append((32, 2, 3))
+    for shape in shapes:
+        cf = [_CountForm(*sp) for sp in spans]
+        wf = [_WindowForm(lo, hi, t.nb, d, t.keys)
+              for lo, hi in zip(edges, edges[1:])]
+        emulate_keys(ends, offsets, dang, t.nb, *shape, takes=cf + wf)
+        for f in cf:
+            sel = plain[(plain >= f.lo) & (plain < f.hi)]
+            np.testing.assert_array_equal(
+                f.bins, np.bincount((sel - f.lo) >> f.shift,
+                                    minlength=len(f.bins)), err_msg=str(shape))
+            np.testing.assert_array_equal(
+                f.bins, ib.pack_key_counts_plain(
+                    torch.from_numpy(plain), f.lo, f.hi, f.shift).numpy())
+        assert sum(f.cursor for f in wf) == t.keys
+        for f in wf:
+            want = ib.pack_keys_window_plain(torch.from_numpy(plain), f.lo,
+                                             f.hi).numpy()
+            assert f.cursor == len(want)
+            np.testing.assert_array_equal(np.sort(f.keys[:f.cursor]),
+                                          np.sort(want), err_msg=str(shape))
+            for p in range(len(f.totals)):
+                np.testing.assert_array_equal(
+                    f.totals[p], np.bincount((want >> (p * d)) & ((1 << d) - 1),
+                                             minlength=1 << d))
+
+
+def _windows_case():
+    """1024 nodes of 8-40 walks, half of them ending at node 7, and 50
+    dangling nodes: 10-bit ids, so a bin of the count form's top 14 key
+    bits is one (bucket, endpoint), and endpoint 7's bins hold thousands of
+    keys of a few each (one per source and walk there)."""
+    rng = np.random.default_rng(26)
+    n = 1024
+    deg = rng.integers(1, 9, n)
+    deg[rng.choice(n, 50, replace=False)] = 0
+    counts = np.where(deg > 0, rng.integers(8, 41, n), 0)
+    ends = rng.integers(0, n, int(counts.sum()))
+    ends[rng.random(len(ends)) < 0.5] = 7
+    return ends.astype(np.int32), counts, deg
+
+
+@pytest.mark.parametrize("name", NAMES + ("windows",))
+@pytest.mark.parametrize("windows", ["one", "two", "many"])
+def test_windowed_pack_matches_plain_and_jax(name, windows):
+    """``_pack_windows`` over the plain chain (``_pack_planned`` over
+    ``_plain_windows``), with the cap forcing one, two and many windows:
+    arrays and row pointers equal to the pack in one sort (``_pack_plain``)
+    and to JAX's pack, on every pack case and on one whose hot endpoint's
+    bins pass the cap (split by a count over their next bits); the edge
+    arrays, made for every key, shrunk to the unique edges and owning
+    their memory."""
+    ends, counts, deg = _windows_case() if name == "windows" else case(name)
+    rcfg, jrcfg = _rcfgs(len(deg), max(int(deg.sum()), 1))
+    t = ib.pack_tables(counts, deg)
+    keys = ib.pack_keys_plain(torch.from_numpy(ends),
+                              *ib._device_tables(t, "cpu"), t.nb)
+    run = int(torch.unique(keys, return_counts=True)[1].max()) if t.keys \
+        else 0
+    cap = {"one": t.keys, "two": t.keys - 1,
+           "many": max(run, t.keys // 8)}[windows]
+    if cap < max(run, 1) or (windows == "many" and cap >= t.keys - 1):
+        pytest.skip(f"{name}: {t.keys} keys, runs of {run}: no such windows")
+    one = ib.pack_index_plain(torch.from_numpy(ends), counts, deg, rcfg)
+    log = {}
+    got = ib._pack_planned(t, rcfg, ib._splitter(log, "cpu"), cap,
+                           ib._plain_windows(torch.from_numpy(ends), t),
+                           "cpu", log)
+    assert log["windows"] == 1 if windows == "one" else log["windows"] >= 2
+    assert_same(got, one)
+    assert_same(got, jax_index.pack_index(ends, counts, deg, jrcfg))
+    for a in (got.edge_src, got.edge_dst, got.edge_mult):
+        assert a.base is None and a.shape == (got.total_edges,)
+    for a, b in zip(got.dst_indptr, one.dst_indptr):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.dtype == np.int32
+            np.testing.assert_array_equal(a, b)
+
+
+def test_windows_split_a_bin_over_the_cap():
+    """The plan over the windows case at a cap below its heaviest bin of the
+    top 14 key bits: that bin is counted again over its next bits (a
+    second count launch, restricted to it), and the pack equals JAX's."""
+    ends, counts, deg = _windows_case()
+    rcfg, jrcfg = _rcfgs(len(deg), int(deg.sum()))
+    t = ib.pack_tables(counts, deg)
+    count, pack = ib._plain_windows(torch.from_numpy(ends), t)
+    calls = []
+
+    def counted(lo, hi, shift):
+        calls.append((lo, hi, shift))
+        return count(lo, hi, shift)
+    top = count(0, 1 << (2 * t.nb + 4), 2 * t.nb + 4 - 14)
+    cap = int(top.max()) // 3
+    windows = ib.plan_windows(counted, t.nb, cap)
+    assert len(calls) >= 2 and calls[1][2] == 0
+    assert calls[1][1] - calls[1][0] == 1 << (2 * t.nb + 4 - 14)
+    assert len(windows) > t.keys // cap
+    got = ib._pack_windows(t, rcfg, windows, pack, ib._splitter(None, "cpu"),
+                           "cpu")
+    assert_same(got, jax_index.pack_index(ends, counts, deg, jrcfg))
+
+
+@pytest.mark.parametrize("name", ["long_runs", "many_tiles", "windows"])
+def test_plan_windows_cover_and_cap(name):
+    """The planner's windows are contiguous, in key order, cover the key
+    space [0, 2^(2 nb + 4)), each holds what its count says (the keys in
+    it) and at most the cap; a key value held more times than the cap
+    raises, naming its node."""
+    ends, counts, deg = _windows_case() if name == "windows" else case(name)
+    t = ib.pack_tables(counts, deg)
+    keys = ib.pack_keys_plain(torch.from_numpy(ends),
+                              *ib._device_tables(t, "cpu"), t.nb)
+    count, _ = ib._plain_windows(torch.from_numpy(ends), t)
+    u, c = torch.unique(keys, return_counts=True)
+    run = int(c.max())
+    ordered = np.sort(keys.numpy())
+    # windows of the longest run only where there are few of them: each
+    # bin over that cap is counted again
+    for cap in (t.keys, max(run, t.keys // 5)) + (
+            (run,) if t.keys < 100_000 else ()):
+        windows = np.array(ib.plan_windows(count, t.nb, cap), np.int64)
+        lo, hi, k = windows.T
+        assert lo[0] == 0 and hi[-1] == 1 << (2 * t.nb + 4)
+        np.testing.assert_array_equal(lo[1:], hi[:-1])
+        assert (lo < hi).all() and (k > 0).all() and (k <= cap).all()
+        np.testing.assert_array_equal(
+            k, np.searchsorted(ordered, hi) - np.searchsorted(ordered, lo))
+        assert k.sum() == t.keys
+    heavy = int(u[c.argmax()])
+    node = heavy & ((1 << t.nb) - 1)
+    with pytest.raises(ValueError, match=f"node {node}'s pool holds "
+                       f"endpoint {(heavy >> t.nb) & ((1 << t.nb) - 1)} "
+                       f"{run} times"):
+        ib.plan_windows(count, t.nb, run - 1)
 
 
 def test_integer_cutoffs_equal_host_table():
